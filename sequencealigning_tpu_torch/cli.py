@@ -1,0 +1,257 @@
+"""Command-line interface of the PyTorch port (port of cli.py).
+
+    seqalign-torch -q query.fa -d db.fa -a needleman-wunsch [--first-only]
+                   [--device cpu|cuda] [-m MODE] [-o OUT] [-v]
+
+Same interface, stdout formats, FASTA recovery and per-pair error
+isolation as the JAX package's ``seqalign``, for the flags the port
+supports, plus ``--device`` (default cuda; cuda with no GPU fails).
+``--serve`` reads 'QUERY.fa DB.fa' lines from stdin and answers each with
+JSON lines, keeping the aligner and its built kernels warm.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+from sequencealigning_tpu.config import AlignConfig, Algo, Mode, ScoringScheme
+from sequencealigning_tpu.errors import CharError, FastaError
+from sequencealigning_tpu.io.fasta import parse_fasta
+from sequencealigning_tpu.utils.pprint import bars
+from sequencealigning_tpu_torch.models import get_aligner
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="seqalign-torch",
+        description="Pairwise sequence alignment, PyTorch + CUDA port of "
+        "sequencealigning_tpu",
+    )
+    p.add_argument("-q", "--query-file", help="Path to query FASTA")
+    p.add_argument("-d", "--db-file", help="Path to db FASTA")
+    p.add_argument(
+        "-o", "--out-path", default="./results",
+        help="Structured JSONL output path (default ./results)",
+    )
+    p.add_argument("-v", "--verbose", action="store_true", default=False)
+    p.add_argument(
+        "-m", "--mode", default="global",
+        choices=[m.value for m in Mode],
+    )
+    p.add_argument(
+        "-a", "--algo", default="a-star",
+        choices=[a.value for a in Algo],
+        help="Only needleman-wunsch is ported; the others exit with an error",
+    )
+    p.add_argument(
+        "--textbook", action="store_true",
+        help="Textbook semantics instead of reference-quirk compat",
+    )
+    p.add_argument("--no-out", action="store_true", help="Skip JSONL output")
+    p.add_argument(
+        "--first-only", action="store_true",
+        help="One optimal alignment per pair (fast4 fill + device walk) "
+        "instead of the reference's co-optimal enumeration",
+    )
+    p.add_argument(
+        "--bucket", action="store_true",
+        help="Length-bucket pairs within a window to reduce padding",
+    )
+    p.add_argument(
+        "--debug", action="store_true",
+        help="Validate fill results against closed-form score bounds",
+    )
+    p.add_argument(
+        "--device", default="cuda", choices=["cpu", "cuda"],
+        help="cuda runs the CUDA kernels, cpu their plain PyTorch versions",
+    )
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--match", type=int, default=5)
+    p.add_argument("--mismatch", type=int, default=-4)
+    p.add_argument("--gap-open", type=int, default=-8)
+    p.add_argument("--gap-extend", type=int, default=-6)
+    p.add_argument(
+        "--serve", action="store_true",
+        help="Serve mode: read 'QUERY.fa DB.fa' lines from stdin, emit "
+        "one JSON result line per pair + a summary line per request",
+    )
+    return p
+
+
+def _load(path: str, label: str):
+    """Reference parse semantics: FastaError aborts, CharError warns and
+    continues with the cleaned records."""
+    try:
+        return parse_fasta(path)
+    except CharError as e:
+        print(
+            f"Invalid character {e.chars!r} detected in {label} fasta; "
+            "continuing by ignoring it",
+            file=sys.stderr,
+        )
+        return e.res
+    except FastaError as e:
+        print(f"{label} fasta could not be opened: {e}", file=sys.stderr)
+        print("aborting", file=sys.stderr)
+        return None
+
+
+def _print_result(res, verbose: bool) -> None:
+    """The affine NW stdout format (needleman_wunsch_affine.rs:283-286,
+    390-411); errors go to stderr."""
+    if res.error is not None:
+        print(
+            f"An error occured during alignment of {res.query_name} and "
+            f"{res.db_name}\n{res.error}",
+            file=sys.stderr,
+        )
+        return
+    for a1, a2 in res.alignments or [(res.aligned_query, res.aligned_db)]:
+        print("alignment found")
+        print(f"\nseq1: {a1}\n      {bars(a1, a2)}\nseq2: {a2}")
+    print(f"{res.elapsed_s * 1e3:.3f}ms")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+
+    if not args.serve:
+        if args.query_file is None or args.db_file is None:
+            build_parser().error(
+                "the following arguments are required: -q/--query-file, "
+                "-d/--db-file (or use --serve)"
+            )
+        db = _load(args.db_file, "DB")
+        if db is None:
+            return 1
+        query = _load(args.query_file, "Query")
+        if query is None:
+            return 1
+
+    config = AlignConfig(
+        algo=Algo(args.algo),
+        mode=Mode(args.mode),
+        scoring=ScoringScheme(
+            match_=args.match,
+            mismatch=args.mismatch,
+            gap_open=args.gap_open,
+            gap_extend=args.gap_extend,
+        ),
+        compat=not args.textbook,
+        verbose=args.verbose,
+        batch_size=args.batch_size,
+        bucket=args.bucket,
+        first_only=args.first_only,
+        debug=args.debug,
+    )
+    try:
+        aligner = get_aligner(config, args.device)
+    except NotImplementedError as e:
+        print(f"seqalign-torch: {e}", file=sys.stderr)
+        return 2
+
+    if args.serve:
+        return _serve(args, aligner)
+
+    out_file = None
+    if not args.no_out:
+        out_path = Path(args.out_path)
+        if out_path.parent != Path(""):
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_file = open(out_path, "w")
+
+    t0 = time.perf_counter()
+    n = n_err = 0
+    try:
+        for res in aligner.align_all_pairs(query, db, args.batch_size):
+            _print_result(res, args.verbose)
+            if out_file is not None:
+                out_file.write(json.dumps(res.to_json()) + "\n")
+            n += 1
+            n_err += 0 if res.ok else 1
+    finally:
+        if out_file is not None:
+            out_file.close()
+    if args.verbose:
+        print(
+            f"aligned {n} pairs ({n_err} errors) in "
+            f"{time.perf_counter() - t0:.3f}s",
+            file=sys.stderr,
+        )
+    return 0
+
+
+def _serve(args, aligner) -> int:
+    """Serve loop: one request per stdin line ("QUERY.fa DB.fa"; '#'
+    comments skipped), one JSON line per pair result and one summary line
+    per request on stdout.  A request's errors are reported as JSON and
+    never stop the server."""
+    n_req = 0
+    for line in sys.stdin:
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) != 2:
+            print(
+                json.dumps(
+                    {"error": f"expected 'QUERY.fa DB.fa', got {line!r}"}
+                ),
+                flush=True,
+            )
+            continue
+        qpath, dpath = parts
+        t0 = time.perf_counter()
+        query = _load(qpath, "Query")
+        dbr = _load(dpath, "DB")
+        if query is None or dbr is None:
+            print(
+                json.dumps(
+                    {"request": n_req, "error": "fasta could not be opened"}
+                ),
+                flush=True,
+            )
+            n_req += 1
+            continue
+        n = n_err = 0
+        try:
+            for res in aligner.align_all_pairs(query, dbr, args.batch_size):
+                print(json.dumps(res.to_json()), flush=False)
+                n += 1
+                n_err += 0 if res.ok else 1
+        except Exception as e:  # isolation: a request must not kill the server
+            print(json.dumps({"request": n_req, "error": repr(e)}))
+        print(
+            json.dumps(
+                {
+                    "request": n_req,
+                    "done": True,
+                    "pairs": n,
+                    "errors": n_err,
+                    "elapsed_s": round(time.perf_counter() - t0, 6),
+                }
+            ),
+            flush=True,
+        )
+        n_req += 1
+    return 0
+
+
+def console_main() -> int:
+    """Entry point for the ``seqalign-torch`` script: exit quietly on
+    SIGPIPE, while main() itself keeps raising for in-process callers."""
+    try:
+        return main()
+    except BrokenPipeError:
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
+        return 141
+
+
+if __name__ == "__main__":
+    sys.exit(console_main())

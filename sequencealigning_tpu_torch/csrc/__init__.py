@@ -1,0 +1,151 @@
+"""Build-at-first-use loader for the port's CUDA kernels.
+
+The kernels (``*.cu`` here, with their per-cell arithmetic in ``*.cuh``)
+have a plain C interface.  On first use they are compiled with ``nvcc``
+into one shared library under ``build/sequencealigning_tpu_torch/`` at the
+repository root, rebuilt whenever a source is newer than the library, and
+loaded with ``ctypes``.  ``host_check()`` builds ``host_check.cpp`` -- the
+kernels' loops run serially through the same ``*.cuh`` functions -- with
+the host C++ compiler, so the arithmetic can be tested without a GPU.
+
+Nothing is compiled when this module is imported.  A build that fails
+raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Optional, Sequence
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(_HERE)), "build", "sequencealigning_tpu_torch"
+)
+_CUDA_SOURCES = ("nw_affine_stream.cu", "traceback_device.cu")
+_HEADERS = ("nw_affine_stream.cuh", "traceback_device.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+
+_VP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+_kernels: Optional[ctypes.CDLL] = None
+_host: Optional[ctypes.CDLL] = None
+# Seconds the last kernel build took (0.0 when the library was up to date)
+# and the compiler's output (register and spill counts from -Xptxas -v).
+build_seconds = 0.0
+build_log = ""
+
+
+def _paths(names: Sequence[str]):
+    return [os.path.join(_HERE, n) for n in names]
+
+
+def _stale(lib: str, sources: Sequence[str]) -> bool:
+    if not os.path.exists(lib):
+        return True
+    t = os.path.getmtime(lib)
+    return any(os.path.getmtime(s) > t for s in sources)
+
+
+def _compile(cmd_head: Sequence[str], sources: Sequence[str], lib: str) -> str:
+    """Compile into a temporary file beside ``lib`` and rename it into
+    place, so concurrent builds never load a half-written library."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [*cmd_head, "-o", tmp, *sources],
+            capture_output=True, text=True, timeout=900,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building {os.path.basename(lib)} failed "
+                f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return proc.stdout + proc.stderr
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``.  Raises if none exists."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def kernels() -> ctypes.CDLL:
+    """Load the CUDA kernel library, building it first if it is missing or
+    older than a source."""
+    global _kernels, build_seconds, build_log
+    if _kernels is not None:
+        return _kernels
+    lib_path = os.path.join(BUILD_DIR, "libsa_kernels.so")
+    srcs = _paths(_CUDA_SOURCES)
+    if _stale(lib_path, srcs + _paths(_HEADERS)):
+        t0 = time.perf_counter()
+        build_log = _compile([nvcc_path(), *NVCC_FLAGS], srcs, lib_path)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(lib_path)
+    lib.sa_stream_lanes_per_thread.restype = _INT
+    lib.sa_stream_lanes_per_thread.argtypes = [_INT]
+    lib.sa_stream_fill.restype = _INT
+    lib.sa_stream_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_walk_fast4.restype = _INT
+    lib.sa_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
+        _INT, _INT] + [_VP] * 5
+    _kernels = lib
+    return lib
+
+
+def host_compiler() -> Optional[str]:
+    """The host C++ compiler, or None."""
+    for cxx in ("c++", "g++", "clang++"):
+        path = shutil.which(cxx)
+        if path:
+            return path
+    return None
+
+
+def host_check() -> ctypes.CDLL:
+    """Load the serial host build of the kernels' loops (host_check.cpp),
+    building it with the host C++ compiler if needed."""
+    global _host
+    if _host is not None:
+        return _host
+    cxx = host_compiler()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler for host_check.cpp")
+    lib_path = os.path.join(BUILD_DIR, "libsa_host_check.so")
+    srcs = _paths(("host_check.cpp",))
+    if _stale(lib_path, srcs + _paths(_HEADERS)):
+        _compile([cxx, *HOST_FLAGS], srcs, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    lib.hc_stream_fill.restype = _INT
+    lib.hc_stream_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_walk_fast4.restype = _INT
+    lib.hc_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
+        _INT, _INT] + [_VP] * 4
+    _host = lib
+    return lib

@@ -1,0 +1,180 @@
+"""Affine-gap NW (Gotoh) aligner, global mode: the port of models/gotoh.py.
+
+A batch is packed and trimmed exactly as in the JAX package, filled by the
+streamed fill (ops.nw_affine_stream) on the aligner's device, and traced
+back either on the device (first_only: fast4 codes, device walk, native
+decode) or on the host from the full 7-bit codes (the reference's
+co-optimal enumeration, ops.traceback.traceback_stream_batch).  Compat mode
+answers local/semi-global with the reference's per-pair "not implemented";
+textbook local/semi-global, long pairs (db beyond long_pair_lanes) and, on
+CUDA, db beyond the fill kernel's 8192 lanes are not ported yet."""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from sequencealigning_tpu.config import Mode
+from sequencealigning_tpu.errors import AlignerError, AlignmentError
+from sequencealigning_tpu.io.encode import pack_batch, round_up, trim_for_stream
+from sequencealigning_tpu.ops.traceback import (
+    fast4_traceback_pair,
+    traceback_stream_batch,
+)
+from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.models.base import Aligner
+from sequencealigning_tpu_torch.ops.nw_affine_stream import nw_affine_stream_batch
+from sequencealigning_tpu_torch.ops.traceback_device import (
+    fast4_stream_align_device,
+)
+
+
+class GotohAligner(Aligner):
+    # Lane width beyond which the reference leaves the streamed fill for its
+    # long-pair path (not ported yet); the JAX package's value.
+    long_pair_lanes = 49_152
+    # Lanes the CUDA fill kernel holds (csrc/nw_affine_stream.cu); the
+    # plain fill on the CPU has no such ceiling.
+    cuda_fill_lanes = 8192
+    # Budget of a direction tensor that lands in host memory (every fill on
+    # the CPU, and the co-optimal walk's full codes fetched from the card):
+    # the JAX package's 9 GiB.  A first-only fill on a GPU may take half the
+    # device memory free when the batch starts.
+    dirs_host_budget = 9 * 2 ** 30
+
+    def __init__(self, config=None, device="cuda"):
+        super().__init__(config, device)
+        # Pairs whose plain (CPU) walk failed validation and were re-walked
+        # on the host (never expected with a healthy fill).
+        self.host_fallbacks = 0
+
+    def _align_batch_impl(self, pairs: List[Tuple[bytes, bytes]]):
+        if self.config.mode is not Mode.GLOBAL:
+            if self.config.compat:
+                # Reference parity (needleman_wunsch_affine.rs:433-434).
+                return [AlignmentError("not implemented") for _ in pairs]
+            raise NotImplementedError(
+                f"textbook {self.config.mode.value} mode is not ported yet; "
+                "see ROADMAP.md"
+            )
+        batch = trim_for_stream(
+            pack_batch(pairs, batch_size=max(8, -(-len(pairs) // 8) * 8))
+        )
+        lanes = self.long_pair_lanes
+        if self.device.type == "cuda":
+            lanes = min(lanes, self.cuda_fill_lanes)
+        if batch.db.shape[1] + 2 > lanes:
+            raise NotImplementedError(
+                f"pairs with db longer than {lanes - 2} bp on "
+                f"{self.device.type} are not ported yet; see ROADMAP.md"
+            )
+        n_sub = self._dirs_chunks(batch, len(pairs))
+        if n_sub > 1:
+            # Fill and drain per sub-batch so one direction tensor at a time
+            # is alive.
+            out: List = []
+            per = -(-len(pairs) // n_sub)
+            for lo in range(0, len(pairs), per):
+                out.extend(self._align_batch_impl(pairs[lo : lo + per]))
+            return out
+        np_slots = max(1, min(8, len(batch.query) // 8))
+        first_only = getattr(self.config, "first_only", False)
+        tb = to_device(batch, self.device)
+        res = nw_affine_stream_batch(
+            tb.query, tb.db, tb.query_len, tb.db_len,
+            scheme=self.config.scoring,
+            compat=self.config.compat,
+            with_dirs="fast4" if first_only else True,
+            np_slots=np_slots,
+            state_dtype=getattr(self.config, "stream_state", "i32"),
+        )
+        if self.config.debug:
+            from sequencealigning_tpu.utils.guards import check_finals
+
+            check_finals(
+                res.finals[: len(pairs)],
+                batch.query_len[: len(pairs)], batch.db_len[: len(pairs)],
+                scheme=self.config.scoring, compat=self.config.compat,
+                label="gotoh finals",
+            )
+        if first_only:
+            tb = self._traceback_device(res, pairs)
+        else:
+            tb = traceback_stream_batch(
+                res.dirs.cpu().numpy(), res.finals,
+                [p[0] for p in pairs], [p[1] for p in pairs], res.plan,
+                compat=self.config.compat, dirs_mode="full",
+            )
+        out = []
+        for r in tb:
+            if isinstance(r, AlignerError):
+                out.append(r)
+                continue
+            score, alns = r
+            if not alns:
+                out.append(AlignmentError("traceback produced no alignment"))
+                continue
+            out.append(
+                dict(
+                    score=score,
+                    aligned_query=alns[0][0],
+                    aligned_db=alns[0][1],
+                    alignments=alns,
+                )
+            )
+        return out
+
+    def _traceback_device(self, res, pairs):
+        """Device fast4 walk.  A pair whose walk fails validation is an
+        AlignmentError on CUDA (the walk kernel is at fault and the host
+        does not take over); on the CPU it is re-walked on the host from its
+        dirs row, as in the reference, and counted in host_fallbacks."""
+        alns, scores = fast4_stream_align_device(
+            res.dirs, res.finals,
+            [p[0] for p in pairs], [p[1] for p in pairs], res.plan,
+        )
+        out = []
+        for b, (s1, s2) in enumerate(pairs):
+            if alns[b] is not None:
+                out.append((int(scores[b]), [alns[b]]))
+                continue
+            if self.device.type == "cuda":
+                out.append(AlignmentError(
+                    "device fast4 walk (walk_fast4_cuda) failed validation"
+                ))
+                continue
+            self.host_fallbacks += 1
+            row, _slot, off = res.plan.pair_coords(b)
+            try:
+                out.append(
+                    fast4_traceback_pair(
+                        res.dirs[:, row, :].numpy(), res.finals[b],
+                        s1, s2, compat=self.config.compat, d_offset=off,
+                    )
+                )
+            except AlignmentError as e:
+                out.append(e)
+        return out
+
+    def _dirs_budget(self) -> int:
+        if self.device.type != "cuda":
+            return self.dirs_host_budget
+        free, _total = torch.cuda.mem_get_info(self.device)
+        if getattr(self.config, "first_only", False):
+            return free // 2
+        # The co-optimal walk fetches the full codes to the host.
+        return min(free // 2, self.dirs_host_budget)
+
+    def _dirs_chunks(self, batch, n_pairs: int) -> int:
+        """Number of fill-and-drain sub-batches that keep the direction
+        tensor under budget.  Per pair the streamed layout stores ~s * P
+        cells: 1 byte a cell in full mode, 1/2 byte in fast4."""
+        l1 = batch.query.shape[1]
+        l2 = batch.db.shape[1]
+        s = round_up(max(l1, l2) + 1, 128)
+        p = round_up(l2 + 2, 128)
+        per_byte = 0.5 if getattr(self.config, "first_only", False) else 1.0
+        total = n_pairs * s * p * per_byte
+        return max(1, int(-(-total // self._dirs_budget())))

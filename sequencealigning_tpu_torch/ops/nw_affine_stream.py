@@ -1,0 +1,438 @@
+"""Streamed-pair batched Gotoh fill: the port of ops/nw_affine_stream.py.
+
+Each stream row pipelines ``np_slots`` pairs along the lane axis: a new
+pair enters every S = round_up(max(L1, L2) + 1, chunk) steps, its query
+codes entering at lane 0 and its db codes at the moving boundary lane
+p = t mod S.  Per-pair corner finals (M/I/D at (n2, n1)) and, on request,
+the direction codes are written in the JAX package's layout: the code of
+cell (x, y) of slot k lies at step d = k*S + x + y, in word
+``dirs[d >> 3, row, x]`` nibble ``d & 7`` (fast4) or word
+``dirs[d >> 2, row, x]`` byte ``d & 3`` (full, ops.dirbits bits).
+
+Two implementations of the fill, chosen by the tensors' device:
+
+* ``gotoh_fill_stream_torch`` -- the plain PyTorch version (CPU tensors,
+  and the reference the CUDA kernel is checked against);
+* ``gotoh_fill_stream_cuda`` -- the hand-written kernel
+  (``csrc/nw_affine_stream.cu``; CUDA tensors only).
+
+Only int32 score state is ported; see ROADMAP.md for int16.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sequencealigning_tpu.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu.io.encode import round_up as _round_up
+from sequencealigning_tpu.ops import dirbits
+from sequencealigning_tpu_torch import csrc
+
+_DIRS_CODES = {None: 0, "fast4": 1, "full": 2}
+
+
+class StreamPlan(NamedTuple):
+    """Layout of a streamed fill.  Pair b is slot (b % np_slots) of row
+    (b // np_slots); its direction codes use d_offset = slot * s."""
+
+    n_pairs: int      # true pair count (before padding)
+    np_slots: int     # pairs per row (pipeline depth)
+    n_rows: int       # rows (>= n_pairs_padded / np_slots, multiple of 8)
+    s: int            # launch period in steps (multiple of chunk, > L1)
+    chunk: int
+    n_slots_g: int    # np_slots + drain slots
+    t_total: int      # total sweep steps = n_slots_g * s
+    l1: int
+    l2: int
+    p: int            # lane width (multiple of 128, >= l2 + 2)
+
+    def pair_coords(self, b: int) -> Tuple[int, int, int]:
+        """(row, slot, d_offset) for pair b."""
+        r, k = divmod(b, self.np_slots)
+        return r, k, k * self.s
+
+
+def plan_stream(
+    n_pairs: int, l1: int, l2: int,
+    chunk: int = 128, np_slots: Optional[int] = None,
+) -> StreamPlan:
+    if np_slots is None:
+        np_slots = max(1, min(8, n_pairs // 8))
+    n_padded = _round_up(n_pairs, np_slots * 8)
+    n_rows = n_padded // np_slots
+    s = _round_up(max(l1, l2) + 1, chunk)
+    # The last pair (slot np_slots-1) finishes at t = (np_slots-1)*s +
+    # l1 + l2; round the sweep up to whole slots.
+    t_need = (np_slots - 1) * s + l1 + l2 + 1
+    n_slots_g = -(-t_need // s)
+    p = _round_up(l2 + 2, 128)
+    return StreamPlan(
+        n_pairs=n_pairs, np_slots=np_slots, n_rows=n_rows, s=s, chunk=chunk,
+        n_slots_g=n_slots_g, t_total=n_slots_g * s, l1=l1, l2=l2, p=p,
+    )
+
+
+class StreamResult(NamedTuple):
+    finals: np.ndarray               # (B, 3) int32 -- M/I/D at (n2, n1)
+    dirs: Optional[torch.Tensor]     # (T/8 or T/4, n_rows, P) uint32, or None
+    plan: StreamPlan
+
+
+def stream_i16_neg(scheme: ScoringScheme, plan: StreamPlan) -> Optional[int]:
+    """The -inf sentinel an int16 stream state would use, or None if the
+    scheme x shape cannot be certified to fit int16 (closed form, as
+    ops/nw_affine_stream.py::stream_i16_neg).  The port runs int32 only;
+    this certification is the first piece of the int16 state."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    mm, mt = scheme.mismatch, scheme.match_
+    per_char = min(mm, e, 0)
+    min_cell = (plan.l1 + plan.l2) * per_char + 2 * min(o, 0)
+    chain_min = min(o, 0) + (plan.s + 1) * min(e, 0)
+    neg = min(min_cell, chain_min) - 64
+    dip = abs(o) + abs(e) + max(abs(mm), abs(mt))
+    max_cell = max(mt, mm, 0) * (min(plan.l1, plan.l2) + plan.s) + dip
+    if neg - dip <= -(1 << 15) or max_cell >= (1 << 15):
+        return None
+    return neg
+
+
+def resolve_stream_state(state_dtype) -> torch.dtype:
+    """"i32", None and "auto" give int32; int16 state is not ported yet
+    (results are bit-identical either way in the JAX package)."""
+    if state_dtype in (None, "i32", "auto"):
+        return torch.int32
+    if state_dtype == "i16":
+        raise NotImplementedError(
+            "int16 stream state is not ported yet; see ROADMAP.md"
+        )
+    raise ValueError(f"unknown stream state {state_dtype!r}")
+
+
+def _dirs_mode(with_dirs):
+    """with_dirs True/"full" -> "full", "fast4" -> "fast4", False/None ->
+    None."""
+    if with_dirs is True or with_dirs == "full":
+        return "full"
+    if with_dirs == "fast4":
+        return "fast4"
+    if not with_dirs:
+        return None
+    raise ValueError(f"unknown dirs mode {with_dirs!r}")
+
+
+def _boundary_scalars(p: int, scheme: ScoringScheme, compat: bool):
+    """Boundary cells at anti-diagonal p as ((M, I, D) of row-0 cell
+    (x=0, y=p), (M, I, D) of column-0 cell (x=p, y=0)): compat keeps the
+    chain o+(p+1)e in D on row 0 and in I on column 0, textbook keeps
+    o+p*e in the other plane; p == 0 is the origin (M=0, I=D=-inf).  As
+    ops/nw_affine.py::_boundary_scalars."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    neg = NEG_INF
+    m_b = 0 if p == 0 else neg
+    chain = neg if p == 0 else (o + (p + 1) * e if compat else o + p * e)
+    if compat:
+        return (m_b, neg, chain), (m_b, chain, neg)
+    return (m_b, chain, neg), (m_b, neg, chain)
+
+
+# ---------------------------------------------------------------------------
+# Stream inputs
+# ---------------------------------------------------------------------------
+
+
+def build_stream_inputs(query, db, query_len, db_len, plan: StreamPlan):
+    """Lay the padded batch (plan.n_rows * plan.np_slots pairs, tensors on
+    any device) out as per-row code streams plus per-slot capture params.
+    Returns int32 tensors (qstream, dstream, dsy, n2y, dso, n2o) on the
+    batch's device; slot k's codes start at step k*s + 1."""
+    NP, R, S = plan.np_slots, plan.n_rows, plan.s
+    L1 = query.shape[1]
+    L2 = db.shape[1]
+    dev = query.device
+    q_r = query.to(torch.int32).reshape(R, NP, L1)
+    d_r = db.to(torch.int32).reshape(R, NP, L2)
+    qstream = torch.zeros((R, plan.t_total), dtype=torch.int32, device=dev)
+    dstream = torch.zeros((R, plan.t_total), dtype=torch.int32, device=dev)
+    for k in range(NP):
+        qstream[:, k * S + 1 : k * S + 1 + L1] = q_r[:, k]
+        dstream[:, k * S + 1 : k * S + 1 + L2] = d_r[:, k]
+    return (qstream, dstream) + capture_params(query_len, db_len, plan)
+
+
+def capture_params(query_len, db_len, plan: StreamPlan):
+    """Per-slot capture parameters (dsy, n2y, dso, n2o), each (G, R, 1)
+    int32: the younger and older (shifted by one slot) views of each pair's
+    n1+n2 and n2, -1 for the drain slots."""
+    NP, R, G = plan.np_slots, plan.n_rows, plan.n_slots_g
+    ql = torch.as_tensor(query_len).to(torch.int32)
+    dl = torch.as_tensor(db_len).to(torch.int32)
+    dev = ql.device
+    dsum_k = (ql + dl).reshape(R, NP).T
+    n2_k = dl.reshape(R, NP).T
+    fill = torch.full((G, R, 1), -1, dtype=torch.int32, device=dev)
+    dsy, n2y, dso, n2o = (fill.clone() for _ in range(4))
+    dsy[:NP, :, 0] = dsum_k
+    n2y[:NP, :, 0] = n2_k
+    hi = min(NP + 1, G)
+    dso[1:hi, :, 0] = dsum_k[: hi - 1]
+    n2o[1:hi, :, 0] = n2_k[: hi - 1]
+    return dsy, n2y, dso, n2o
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch fill
+# ---------------------------------------------------------------------------
+
+
+def _bit(mask: torch.Tensor, value: int) -> torch.Tensor:
+    return mask.to(torch.int32) * value
+
+
+def _to_u32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> the same bits as a uint32 tensor."""
+    wrapped = words - ((words >> 31) & 1) * (1 << 32)
+    return wrapped.to(torch.int32).view(torch.uint32)
+
+
+def _check_fill_args(qstream, dstream, dsums, n2s, plan: StreamPlan,
+                     dirs_mode):
+    R = plan.n_rows
+    for name, t, shape in (
+        ("qstream", qstream, (R, plan.t_total)),
+        ("dstream", dstream, (R, plan.t_total)),
+        ("dsums", dsums, (plan.np_slots, R)),
+        ("n2s", n2s, (plan.np_slots, R)),
+    ):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected int32 {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if t.device != qstream.device:
+            raise ValueError(f"{name} is on {t.device}, not {qstream.device}")
+    if dirs_mode not in _DIRS_CODES:
+        raise ValueError(f"unknown dirs mode {dirs_mode!r}")
+    upack = 8 if dirs_mode == "fast4" else 4
+    if dirs_mode and plan.t_total % upack:
+        raise ValueError(f"t_total {plan.t_total} is not a multiple of {upack}")
+
+
+def gotoh_fill_stream_torch(
+    qstream, dstream, dsums, n2s,
+    plan: StreamPlan, scheme: ScoringScheme,
+    compat: bool, wildcard: bool, dirs_mode,
+):
+    """Plain PyTorch twin of gotoh_fill_stream_lax: a Python loop over the
+    t_total steps, each a handful of (R, P) tensor ops, with the same torus
+    rolls.  qstream/dstream: (R, t_total) int32; dsums/n2s: (np_slots, R)
+    int32.  Returns (finals (R*np_slots, 3) int32, dirs uint32 or None)."""
+    _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
+    R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
+    dev = qstream.device
+    i32 = torch.int32
+    o, e = scheme.gap_open, scheme.gap_extend
+    match, mismatch = scheme.match_, scheme.mismatch
+
+    # Capture schedule: step -> (rows, lanes, pair indices).
+    ds_h = dsums.cpu().numpy().astype(np.int64)
+    n2_h = n2s.cpu().numpy().astype(np.int64)
+    events: dict = {}
+    for k in range(NP):
+        for r in range(R):
+            events.setdefault(k * S + int(ds_h[k, r]), []).append(
+                (r, int(n2_h[k, r]), r * NP + k)
+            )
+    events = {
+        t: torch.tensor(v, dtype=torch.long, device=dev).T
+        for t, v in events.items()
+    }
+
+    neg = torch.full((R, P), NEG_INF, dtype=i32, device=dev)
+    H2 = H1 = M1 = I1 = D1 = neg
+    s1d = torch.zeros((R, P), dtype=i32, device=dev)
+    s2v = torch.zeros((R, P), dtype=i32, device=dev)
+    finals = torch.zeros((R * NP, 3), dtype=i32, device=dev)
+    upack = 8 if dirs_mode == "fast4" else 4
+    shift = 32 // upack
+    dirs = None
+    if dirs_mode:
+        dirs = torch.empty(
+            (plan.t_total // upack, R, P), dtype=torch.uint32, device=dev
+        )
+    acc = None
+
+    for t in range(plan.t_total):
+        p = t % S
+        s1d = torch.roll(s1d, 1, dims=1)
+        s1d[:, 0] = qstream[:, t]
+        s2v[:, p] = dstream[:, t]
+        eq = (s1d & s2v) != 0 if wildcard else s1d == s2v
+        sub = mismatch + _bit(eq, match - mismatch)
+        t0 = M1 + o
+        M = torch.roll(H2, 1, dims=1) + sub
+        ci = I1 >= t0
+        cd = D1 >= t0
+        D = torch.roll(torch.where(cd, D1, t0), 1, dims=1) + e
+        I = torch.where(ci, I1, t0) + e
+        row0, col0 = _boundary_scalars(p, scheme, compat)
+        M[:, p], I[:, p], D[:, p] = col0
+        M[:, 0], I[:, 0], D[:, 0] = row0
+        H = torch.maximum(M, torch.maximum(I, D))
+
+        if dirs_mode == "full":
+            b = _bit(M == H, dirbits.HM) | _bit(I == H, dirbits.HI)
+            b |= _bit(D == H, dirbits.HD) | _bit(ci, dirbits.IEXT)
+            b |= _bit(t0 >= I1, dirbits.IOPEN)
+            dpre = _bit(cd, dirbits.DEXT) | _bit(t0 >= D1, dirbits.DOPEN)
+            b |= torch.roll(dpre, 1, dims=1)
+        elif dirs_mode == "fast4":
+            b = torch.where(M == H, 0, torch.where(I == H, 1, 2)).to(i32)
+            b |= _bit(ci, 4) | torch.roll(_bit(cd, 8), 1, dims=1)
+        if dirs_mode:
+            u = t % upack
+            word = b.to(torch.int64) << (shift * u)
+            acc = word if u == 0 else acc | word
+            if u == upack - 1:
+                dirs[t // upack] = _to_u32(acc)
+
+        ev = events.get(t)
+        if ev is not None:
+            rows, lanes, idx = ev
+            finals[idx] = torch.stack(
+                [M[rows, lanes], I[rows, lanes], D[rows, lanes]], dim=1
+            )
+        H2, H1, M1, I1, D1 = H1, H, M, I, D
+
+    return finals, dirs
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def gotoh_fill_stream_cuda(
+    qstream, dstream, dsums, n2s,
+    plan: StreamPlan, scheme: ScoringScheme,
+    compat: bool, wildcard: bool, dirs_mode,
+):
+    """The fill kernel (csrc/nw_affine_stream.cu) on CUDA tensors: same
+    arguments and results as gotoh_fill_stream_torch.  Builds the kernels
+    on first use; raises on a CPU tensor, an unsupported shape or a failed
+    launch."""
+    _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
+    if not qstream.is_cuda:
+        raise ValueError("gotoh_fill_stream_cuda needs CUDA tensors")
+    for name, t in (("qstream", qstream), ("dstream", dstream),
+                    ("dsums", dsums), ("n2s", n2s)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = csrc.kernels()
+    R, P, NP = plan.n_rows, plan.p, plan.np_slots
+    if lib.sa_stream_lanes_per_thread(P) == 0:
+        raise ValueError(
+            f"lane width {P} exceeds the CUDA fill kernel's 8192 lanes; "
+            "long pairs are not ported yet (see ROADMAP.md)"
+        )
+    dev = qstream.device
+    finals = torch.zeros((R * NP, 3), dtype=torch.int32, device=dev)
+    dirs = None
+    if dirs_mode:
+        upack = 8 if dirs_mode == "fast4" else 4
+        dirs = torch.empty(
+            (plan.t_total // upack, R, P), dtype=torch.uint32, device=dev
+        )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_stream_fill(
+            qstream.data_ptr(), dstream.data_ptr(), dsums.data_ptr(),
+            n2s.data_ptr(), finals.data_ptr(),
+            dirs.data_ptr() if dirs is not None else None,
+            R, plan.t_total, P, plan.s, NP,
+            scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
+            int(wildcard), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sa_stream_fill launch failed (error {rc})")
+    gotoh_fill_stream_cuda.launches += 1
+    return finals, dirs
+
+
+gotoh_fill_stream_cuda.launches = 0
+
+
+def gotoh_fill_stream(qstream, dstream, dsums, n2s, plan, scheme, compat,
+                      wildcard, dirs_mode):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if qstream.is_cuda:
+        return gotoh_fill_stream_cuda(
+            qstream, dstream, dsums, n2s, plan, scheme, compat, wildcard,
+            dirs_mode,
+        )
+    if qstream.device.type != "cpu":
+        raise ValueError(f"unsupported device {qstream.device}")
+    return gotoh_fill_stream_torch(
+        qstream, dstream, dsums, n2s, plan, scheme, compat, wildcard,
+        dirs_mode,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Public entry
+# ---------------------------------------------------------------------------
+
+
+def stream_inputs(query, db, query_len, db_len,
+                  np_slots: Optional[int] = None, chunk: int = 128):
+    """Plan a fill of a batch held as tensors (device.to_device) and lay it
+    out for gotoh_fill_stream: pads the batch to np_slots * n_rows pairs
+    (pairs of length 1).  Returns (plan, (qstream, dstream, dsums, n2s))
+    on the batch's device."""
+    B, L1 = query.shape
+    plan = plan_stream(B, L1, db.shape[1], chunk=chunk, np_slots=np_slots)
+    n_padded = plan.np_slots * plan.n_rows
+
+    def pad(a, value):
+        out = torch.full(
+            (n_padded,) + tuple(a.shape[1:]), value, dtype=torch.int32,
+            device=query.device,
+        )
+        out[:B] = a
+        return out
+
+    qstream, dstream, dsy, n2y, _dso, _n2o = build_stream_inputs(
+        pad(query, 0), pad(db, 0), pad(query_len, 1), pad(db_len, 1), plan,
+    )
+    NP = plan.np_slots
+    return plan, (qstream, dstream, dsy[:NP, :, 0].contiguous(),
+                  n2y[:NP, :, 0].contiguous())
+
+
+def nw_affine_stream_batch(
+    query: torch.Tensor,
+    db: torch.Tensor,
+    query_len: torch.Tensor,
+    db_len: torch.Tensor,
+    scheme: ScoringScheme = ScoringScheme(),
+    compat: bool = True,
+    wildcard: bool = False,
+    with_dirs=True,
+    np_slots: Optional[int] = None,
+    chunk: int = 128,
+    state_dtype="i32",
+) -> StreamResult:
+    """Streamed batched Gotoh fill of a padded batch held as tensors
+    (device.to_device); the padding pairs are stripped from the finals.
+    with_dirs: True/"full", "fast4" or False."""
+    resolve_stream_state(state_dtype)
+    plan, ins = stream_inputs(query, db, query_len, db_len, np_slots, chunk)
+    finals, dirs = gotoh_fill_stream(
+        *ins, plan, scheme, compat, wildcard, _dirs_mode(with_dirs)
+    )
+    return StreamResult(
+        finals=finals[: query.shape[0]].cpu().numpy(), dirs=dirs, plan=plan
+    )

@@ -1,0 +1,269 @@
+"""On-device fast4 first-path traceback: the port of ops/traceback_device.py.
+
+The streamed fill's fast4 direction tensor (0.5 byte a cell) stays on the
+device; each pair walks from its corner to the origin reading one nibble a
+step, and only the 2-bit op codes (16 to a u32, walk order = end to start)
+come back to the host, where the native decoder turns them into aligned
+strings.  Walk semantics are those of ops/traceback.fast4_traceback_pair:
+seed plane M > I > D from the corner finals, x == 0 forces I, y == 0 forces
+D, and after an M move the plane is read from the next cell's code.
+
+Two implementations of the walk, chosen by the direction tensor's device:
+
+* ``walk_fast4_torch`` -- plain PyTorch, vectorised over pairs with a
+  Python loop over steps (CPU tensors, and the reference for the kernel);
+* ``walk_fast4_cuda`` -- the hand-written kernel
+  (``csrc/traceback_device.cu``; CUDA tensors only), one thread a pair.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sequencealigning_tpu import native
+from sequencealigning_tpu_torch import csrc
+
+# Walk planes: 0 = M, 1 = I, 2 = D, 3 = pending (resolved from the next
+# step's own nibble; set only after a diagonal move).
+_PEND = 3
+_OP_LUT = np.frombuffer(b"\x00MID", dtype=np.uint8)
+# Steps between all-pairs-done checks of the plain walk, and the unit of
+# the packed output width (ceil(t_steps / 512) * 32 words, as the JAX walk).
+_CHUNK = 512
+
+
+def packed_width(t_steps: int) -> int:
+    """u32 words per pair of a walk's packed op codes."""
+    return -(-t_steps // _CHUNK) * (_CHUNK // 16)
+
+
+def _plane_step(nib, x, y, plane):
+    """One walk step for every pair given its current cell's fast4 nibble:
+    (op code, x', y', plane').  As ops/traceback_device._plane_step
+    (std=False)."""
+    plane = torch.where(plane == _PEND, torch.clamp(nib & 3, max=2), plane)
+    at_x0 = x == 0
+    at_y0 = y == 0
+    done = at_x0 & at_y0
+    eff = torch.where(at_x0, 1, torch.where(at_y0, 2, plane))
+    op = torch.where(done, 0, eff + 1)
+    step_x = ~done & ((eff == 0) | (eff == 2))
+    step_y = ~done & ((eff == 0) | (eff == 1))
+    nxt = torch.where(
+        eff == 0,
+        _PEND,
+        torch.where(
+            eff == 1,
+            torch.where((nib & 4) != 0, 1, 0),
+            torch.where((nib & 8) != 0, 2, 0),
+        ),
+    )
+    plane = torch.where(done, plane, nxt).to(torch.int32)
+    x = x - step_x.to(torch.int32)
+    y = y - step_y.to(torch.int32)
+    return op, x, y, plane
+
+
+def _pack_ops(ops: torch.Tensor) -> torch.Tensor:
+    """(T, B) op codes, T a multiple of 16 -> (B, T/16) uint32, 2 bits a
+    step, little-endian in step."""
+    t, b = ops.shape
+    shift = torch.arange(16, device=ops.device, dtype=torch.int64) * 2
+    words = ops.to(torch.int64).reshape(t // 16, 16, b) << shift[:, None]
+    words = words.sum(1)
+    words = words - ((words >> 31) & 1) * (1 << 32)
+    return words.to(torch.int32).view(torch.uint32).T.contiguous()
+
+
+def _check_walk_args(dirs, seeds, t_steps: int):
+    if dirs.dtype != torch.uint32 or dirs.dim() != 3:
+        raise ValueError(f"dirs: expected (W, R, P) uint32, got {dirs.dtype} "
+                         f"{tuple(dirs.shape)}")
+    b = seeds[0].shape[0]
+    for t in seeds:
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,):
+            raise ValueError(f"walk seeds must be ({b},) int32")
+        if t.device != dirs.device:
+            raise ValueError(f"walk seed on {t.device}, dirs on {dirs.device}")
+    if t_steps < 1:
+        raise ValueError("t_steps must be positive")
+    x0, y0, _plane0, rowp, off = seeds
+    if b and (int(rowp.min()) < 0 or int(rowp.max()) >= dirs.shape[1]
+              or int(x0.min()) < 0 or int(x0.max()) >= dirs.shape[2]
+              or int(y0.min()) < 0 or int(off.min()) < 0
+              or int((x0 + y0 + off).max()) >= 8 * dirs.shape[0]):
+        raise ValueError("walk seeds reach outside the dirs tensor")
+
+
+def walk_fast4_torch(dirs, x0, y0, plane0, rowp, off, t_steps: int):
+    """Plain PyTorch twin of the JAX _walk_fast4: every pair takes up to
+    t_steps steps (checking every 512 steps whether all have reached the
+    origin).  dirs: (T/8, R, P) uint32 fast4 words; x0/y0/plane0/rowp/off:
+    (B,) int32.  Returns (xf, yf, packed (B, packed_width(t_steps))
+    uint32, n_ops (B,) int32)."""
+    _check_walk_args(dirs, (x0, y0, plane0, rowp, off), t_steps)
+    d32 = dirs.view(torch.int32)
+    x, y, plane = x0.clone(), y0.clone(), plane0.clone()
+    row = rowp.long()
+    n_chunks = -(-t_steps // _CHUNK)
+    ops = torch.zeros((n_chunks * _CHUNK, x0.shape[0]), dtype=torch.int32,
+                      device=dirs.device)
+    for c in range(n_chunks):
+        if bool(((x == 0) & (y == 0)).all()):
+            break
+        for i in range(c * _CHUNK, (c + 1) * _CHUNK):
+            d = x + y + off
+            w = d32[(d >> 3).long(), row, x.long()]
+            nib = (w >> ((d & 7) * 4)) & 0xF
+            op, x, y, plane = _plane_step(nib, x, y, plane)
+            ops[i] = op
+    n_ops = (ops != 0).sum(0, dtype=torch.int32)
+    return x, y, _pack_ops(ops), n_ops
+
+
+def walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps: int):
+    """The walk kernel (csrc/traceback_device.cu) on CUDA tensors: same
+    arguments and results as walk_fast4_torch.  Raises on a CPU tensor, a
+    non-contiguous input or a failed launch."""
+    seeds = (x0, y0, plane0, rowp, off)
+    _check_walk_args(dirs, seeds, t_steps)
+    if not dirs.is_cuda:
+        raise ValueError("walk_fast4_cuda needs CUDA tensors")
+    if not all(t.is_contiguous() for t in (dirs,) + seeds):
+        raise ValueError("walk inputs must be contiguous")
+    lib = csrc.kernels()
+    _, R, P = dirs.shape
+    B = x0.shape[0]
+    W = packed_width(t_steps)
+    dev = dirs.device
+    packed = torch.empty((B, W), dtype=torch.uint32, device=dev)
+    xf = torch.empty(B, dtype=torch.int32, device=dev)
+    yf = torch.empty(B, dtype=torch.int32, device=dev)
+    n_ops = torch.empty(B, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_walk_fast4(
+            dirs.data_ptr(), R, P, x0.data_ptr(), y0.data_ptr(),
+            plane0.data_ptr(), rowp.data_ptr(), off.data_ptr(), B, W,
+            packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
+            n_ops.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sa_walk_fast4 launch failed (error {rc})")
+    walk_fast4_cuda.launches += 1
+    return xf, yf, packed, n_ops
+
+
+walk_fast4_cuda.launches = 0
+
+
+def walk_fast4(dirs, x0, y0, plane0, rowp, off, t_steps: int):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if dirs.is_cuda:
+        return walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps)
+    if dirs.device.type != "cpu":
+        raise ValueError(f"unsupported device {dirs.device}")
+    return walk_fast4_torch(dirs, x0, y0, plane0, rowp, off, t_steps)
+
+
+def seed_planes(finals: np.ndarray) -> np.ndarray:
+    """(B,) plane seeds from (B, 3) M/I/D corner finals, priority
+    M > I > D (ops.traceback.fast4_traceback_pair's seed rule)."""
+    finals = np.asarray(finals)
+    score = finals.max(axis=1, keepdims=True)
+    is_m = finals[:, 0:1] == score
+    is_i = finals[:, 1:2] == score
+    return np.where(is_m[:, 0], 0, np.where(is_i[:, 0], 1, 2)).astype(
+        np.int32
+    )
+
+
+def decode_packed_ops(
+    packed: np.ndarray, n1s: np.ndarray, n2s: np.ndarray
+) -> List[Optional[str]]:
+    """Packed (B, T16) uint32 walk codes -> forward op strings ('M'/'I'/
+    'D', start->end).  A pair whose ops do not consume exactly n1 query and
+    n2 db characters decodes to None."""
+    packed = np.asarray(packed)
+    B, t16 = packed.shape
+    shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
+    codes = ((packed[:, :, None] >> shifts) & 3).reshape(B, t16 * 16)
+    chars = _OP_LUT[codes]
+    n_ops = (codes != 0).sum(axis=1)
+    out: List[Optional[str]] = []
+    for b in range(B):
+        ops_rev = chars[b, : int(n_ops[b])].tobytes()
+        n_m = ops_rev.count(b"M")
+        if (n_m + ops_rev.count(b"I") != int(n1s[b])
+                or n_m + ops_rev.count(b"D") != int(n2s[b])):
+            out.append(None)
+            continue
+        out.append(ops_rev[::-1].decode("ascii"))
+    return out
+
+
+def decode_packed_alignments(
+    packed: np.ndarray,
+    seqs1: List[bytes],
+    seqs2: List[bytes],
+) -> List[Optional[Tuple[str, str]]]:
+    """Packed walk codes -> aligned (seq1, seq2) string pairs through the
+    threaded native decoder (native.walk_decode_batch_native).  A pair
+    whose walk did not consume exactly its sequences decodes to None.
+    Raises if the native runtime is unavailable."""
+    packed = np.asarray(packed)
+    B = packed.shape[0]
+    n1s = np.asarray([len(s) for s in seqs1], np.int32)
+    n2s = np.asarray([len(s) for s in seqs2], np.int32)
+    l1 = max(1, int(n1s.max()) if B else 1)
+    l2 = max(1, int(n2s.max()) if B else 1)
+    s1p = np.zeros((B, l1), np.uint8)
+    s2p = np.zeros((B, l2), np.uint8)
+    for b in range(B):
+        s1p[b, : n1s[b]] = np.frombuffer(seqs1[b], np.uint8)
+        s2p[b, : n2s[b]] = np.frombuffer(seqs2[b], np.uint8)
+    out = native.walk_decode_batch_native(packed, s1p, s2p, n1s, n2s)
+    if out is None:
+        raise RuntimeError(
+            "the native runtime (sequencealigning_tpu.native) is unavailable"
+        )
+    return out
+
+
+def fast4_stream_align_device(
+    dirs: torch.Tensor,
+    finals: np.ndarray,
+    seqs1: List[bytes],
+    seqs2: List[bytes],
+    plan,
+) -> Tuple[List[Optional[Tuple[str, str]]], np.ndarray]:
+    """Walk a streamed fill's fast4 dirs on their device and decode to
+    aligned string pairs.  Returns (alignments, (B,) scores); an alignment
+    is None where the walk failed validation (the caller re-walks that
+    pair on the host).  Only the used prefix of the packed op codes is
+    fetched."""
+    B = len(seqs1)
+    n1s = np.asarray([len(s) for s in seqs1], np.int32)
+    n2s = np.asarray([len(s) for s in seqs2], np.int32)
+    finals = np.asarray(finals)[:B]
+    bs = np.arange(B)
+    dev = dirs.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    xf, yf, packed, n_ops = walk_fast4(
+        dirs, put(n2s), put(n1s), put(seed_planes(finals)),
+        put(bs // plan.np_slots), put((bs % plan.np_slots) * plan.s),
+        t_steps=int(plan.l1 + plan.l2),
+    )
+    n_words = max(1, -(-int(n_ops.max()) // 16)) if B else 1
+    packed = packed[:, :n_words].cpu().numpy()
+    xf, yf = xf.cpu().numpy(), yf.cpu().numpy()
+    alns = decode_packed_alignments(packed, seqs1, seqs2)
+    ended = (xf == 0) & (yf == 0)
+    alns = [a if ended[b] else None for b, a in enumerate(alns)]
+    return alns, finals.max(axis=1)

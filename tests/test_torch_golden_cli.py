@@ -1,0 +1,57 @@
+"""The PyTorch port's CLI on the CPU must byte-match the golden fixtures
+of the JAX CLI (timing lines normalized), and its serve mode must answer
+requests as the JAX one does."""
+
+import contextlib
+import io
+import json
+import os
+
+import pytest
+
+from tests.golden.regen import normalize
+from sequencealigning_tpu_torch.cli import main
+
+HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+CORPUS = ["-q", os.path.join(HERE, "queries.fa"),
+          "-d", os.path.join(HERE, "db.fa")]
+
+
+def _run(args):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(args)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.mark.parametrize("name,args", [
+    ("needleman-wunsch", ["-a", "needleman-wunsch"]),
+    ("nw-first-only", ["-a", "needleman-wunsch", "--first-only"]),
+    ("nw-local-compat", ["-a", "needleman-wunsch", "-m", "local"]),
+])
+def test_port_cli_matches_golden(name, args):
+    rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu"] + args)
+    got = (f"# exit={rc}\n# --- stdout ---\n{normalize(out)}"
+           f"# --- stderr ---\n{normalize(err)}")
+    with open(os.path.join(HERE, f"{name}.out")) as f:
+        assert got == f.read()
+
+
+def test_port_serve_answers_requests(monkeypatch):
+    q, d = CORPUS[1], CORPUS[3]
+    monkeypatch.setattr(
+        "sys.stdin", io.StringIO(f"# comment\n{q} {d}\nbad line here\n")
+    )
+    rc, out, _ = _run(["--serve", "-a", "needleman-wunsch", "--first-only",
+                       "--device", "cpu"])
+    assert rc == 0
+    lines = [json.loads(s) for s in out.splitlines()]
+    pairs = [x for x in lines if "query_name" in x]
+    assert len(pairs) == 24 and all(p["error"] is None for p in pairs)
+    assert lines[24]["done"] and lines[24]["pairs"] == 24
+    assert "error" in lines[25]
+
+
+def test_port_cli_unported_algo_exits_2():
+    rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa"])
+    assert rc == 2 and out == "" and "not ported yet" in err

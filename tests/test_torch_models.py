@@ -1,0 +1,148 @@
+"""PyTorch port's GotohAligner vs the JAX package's on the same records
+(exact: scores, alignments, CIGARs and per-pair errors must be equal)."""
+
+import numpy as np
+import pytest
+
+from sequencealigning_tpu.config import AlignConfig, Algo, Mode
+from sequencealigning_tpu.io.fasta import Record
+from sequencealigning_tpu.models.gotoh import GotohAligner as JaxGotoh
+from sequencealigning_tpu_torch.models import GotohAligner, get_aligner
+
+
+def _records(seed, n=13, hi=60):
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    recs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, hi)))
+        s2 = s1.copy()
+        for _ in range(int(rng.integers(0, 6))):
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        if i % 3 == 0:
+            s2 = rng.choice(alpha, int(rng.integers(1, hi)))
+        recs.append((Record(seq=s1.tobytes(), name=b">q%d" % i),
+                     Record(seq=s2.tobytes(), name=b">d%d" % i)))
+    return recs
+
+
+def _view(results):
+    return [
+        (r.query_name, r.db_name, r.score, r.aligned_query, r.aligned_db,
+         r.alignments, str(r.cigar), r.error)
+        for r in results
+    ]
+
+
+@pytest.mark.parametrize("first_only", [True, False])
+@pytest.mark.parametrize("compat", [True, False])
+def test_port_aligner_matches_jax(compat, first_only):
+    recs = _records(5 + compat + 2 * first_only)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, compat=compat,
+                         first_only=first_only)
+    port = GotohAligner(config, device="cpu")
+    got = port.align_batch(recs)
+    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    # Compat co-optimal walks may hit the reference's boundary-chain panic,
+    # a per-pair error in both packages.
+    assert sum(r.ok for r in got) >= len(recs) - 2
+    assert port.host_fallbacks == 0
+
+
+def test_compat_local_mode_is_per_pair_not_implemented():
+    recs = _records(9, n=4)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL)
+    got = get_aligner(config, "cpu").align_batch(recs)
+    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert [r.error for r in got] == ["not implemented"] * 4
+
+
+def test_unported_routes_raise():
+    recs = _records(1, n=2)
+    textbook_local = AlignConfig(
+        algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL, compat=False
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_aligner(textbook_local, "cpu").align_batch(recs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_aligner(AlignConfig(algo=Algo.WFA), "cpu")
+
+
+def _drop_walk_of_pair_2(monkeypatch, gotoh_mod):
+    real = gotoh_mod.fast4_stream_align_device
+
+    def drop_pair_2(*args, **kwargs):
+        alns, scores = real(*args, **kwargs)
+        alns[2] = None
+        return alns, scores
+
+    monkeypatch.setattr(gotoh_mod, "fast4_stream_align_device", drop_pair_2)
+
+
+def test_failed_device_walk_is_rewalked_on_host(monkeypatch):
+    """On the CPU, a pair whose walk fails validation is re-walked on the
+    host from its dirs row, counted in host_fallbacks, with the same
+    result."""
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+
+    recs = _records(21, n=6)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    want = _view(GotohAligner(config, device="cpu").align_batch(recs))
+    _drop_walk_of_pair_2(monkeypatch, gotoh_mod)
+    port = GotohAligner(config, device="cpu")
+    assert _view(port.align_batch(recs)) == want
+    assert port.host_fallbacks == 1
+
+
+def test_failed_cuda_walk_is_a_pair_error_not_a_host_walk(monkeypatch):
+    """On a CUDA aligner a failed device walk becomes that pair's error;
+    the host never re-walks it.  The tensors stay on the CPU here (no card):
+    only the aligner's device says cuda."""
+    import torch
+
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+
+    recs = _records(21, n=6)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    want = _view(GotohAligner(config, device="cpu").align_batch(recs))
+    _drop_walk_of_pair_2(monkeypatch, gotoh_mod)
+    real_to_device = gotoh_mod.to_device
+    monkeypatch.setattr(gotoh_mod, "to_device",
+                        lambda batch, device: real_to_device(batch, "cpu"))
+    monkeypatch.setattr(GotohAligner, "_dirs_budget",
+                        lambda self: self.dirs_host_budget)
+    port = GotohAligner(config, device="cpu")
+    port.device = torch.device("cuda")
+    got = _view(port.align_batch(recs))
+    assert got[:2] + got[3:] == want[:2] + want[3:]
+    assert got[2][2:6] == (None,) * 4
+    assert "walk_fast4_cuda" in got[2][7]
+    assert port.host_fallbacks == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_lane_ceilings(monkeypatch, device):
+    """db beyond long_pair_lanes (the reference's long-pair path) raises on
+    every device; the CUDA fill's lane ceiling applies on CUDA only, so the
+    plain fill on the CPU takes such pairs and matches the JAX aligner."""
+    import torch
+
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+
+    recs = _records(3, n=3, hi=120)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    monkeypatch.setattr(GotohAligner, "cuda_fill_lanes", 64)
+    real_to_device = gotoh_mod.to_device
+    monkeypatch.setattr(gotoh_mod, "to_device",
+                        lambda batch, dev: real_to_device(batch, "cpu"))
+    port = GotohAligner(config, device="cpu")
+    port.device = torch.device(device)
+    if device == "cuda":
+        with pytest.raises(NotImplementedError, match="62 bp on cuda"):
+            port.align_batch(recs)
+    else:
+        assert _view(port.align_batch(recs)) == _view(
+            JaxGotoh(config).align_batch(recs))
+    monkeypatch.setattr(GotohAligner, "long_pair_lanes", 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port.align_batch(recs)
