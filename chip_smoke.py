@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives sequencealigning_tpu_torch (never JAX) in six phases and exits
-non-zero at the first failure:
+Drives sequencealigning_tpu_torch (never JAX) in the phases below and
+exits non-zero at the first failure:
 
 1. device: a CUDA card must be present; prints its nvidia-smi name and
    power limit;
@@ -19,13 +19,30 @@ non-zero at the first failure:
    re-walk, both kernels launched, sampled scores equal the oracle; then
    one more align_batch under torch.profiler (the card's busy share) and
    one under cProfile (host stages);
-6. CLI (first-only and co-optimal) and serve on the golden corpus with
-   --device cuda.
+6. textbook modes fills on ragged batches: the per-pair kernel (up to 31
+   pairs at up to 2046 bp, skewed both ways, semi/local x wildcard) and the
+   streamed kernel (2-4 slots a row) vs their plain versions: argmax
+   buffers, end cells and direction bytes equal;
+7. the main shape (4096 x 2046 bp) in local, then semi-global mode: the
+   streamed modes kernel vs its plain version (argmax buffers, end cells,
+   direction bytes), then the modes walk kernel on its dirs vs the plain
+   walk and vs the host walker on sampled pairs;
+8. modes main path: GotohAligner textbook local, then semi-global, on cuda
+   through align_batch over the 4096 x 2046 bp pairs; every pair aligned,
+   the streamed fill and the walk launched, every alignment rescored under
+   affine scoring (semi with free end gaps) equal to its score; one more
+   local align_batch under torch.profiler and cProfile;
+9. CLI (first-only, co-optimal, textbook local and semi-global: the
+   per-pair modes kernel's path) and serve (first-only and textbook local)
+   on the golden corpus with --device cuda.
 
-The second-to-last line is a JSON object with each kernel's launches in
-the main path, its error against the plain version and both times; the
-last line is {"ok": true, "device": {...}}.  --out DIR writes the compiler
-log, the measurements and the profile tables there.
+The second-to-last line is a JSON object with, for each kernel, its
+launches on the path that runs it (in total and by path), its largest
+error against the plain version, and its kernel and plain times with the
+shape they were taken at (for the modes kernels, local's times, and
+semi-global's under "semi-global"); the last line is
+{"ok": true, "device": {...}}.  --out DIR writes the compiler log,
+the measurements and the profile tables there.
 """
 
 from __future__ import annotations
@@ -48,10 +65,18 @@ N_MAIN, LEN_MAIN = 4096, 2046
 REPLACES = {
     "nw_affine_stream_fill": "sequencealigning_tpu/ops/nw_affine_stream.py:429",
     "walk_fast4": "sequencealigning_tpu/ops/traceback_device.py:146",
+    "nw_affine_modes_fill": "sequencealigning_tpu/ops/nw_affine_modes.py:134",
+    "nw_affine_stream_modes_fill":
+        "sequencealigning_tpu/ops/nw_affine_stream_modes.py:182",
+    "walk_modes": "sequencealigning_tpu/ops/traceback_device.py:541",
 }
 SOURCES = {
     "nw_affine_stream_fill": "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
     "walk_fast4": "sequencealigning_tpu_torch/csrc/traceback_device.cu",
+    "nw_affine_modes_fill": "sequencealigning_tpu_torch/csrc/nw_affine_modes.cu",
+    "nw_affine_stream_modes_fill":
+        "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
+    "walk_modes": "sequencealigning_tpu_torch/csrc/traceback_device.cu",
 }
 
 
@@ -122,17 +147,23 @@ def host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def valid_cell_diff(torch, dirs_a, dirs_b, plan, n1s, n2s, dirs_mode):
+def stream_coords(plan, n):
+    """(row, diagonal offset) of each of n pairs in a streamed layout."""
+    return [plan.pair_coords(b)[::2] for b in range(n)]
+
+
+def valid_cell_diff(torch, dirs_a, dirs_b, coords, n1s, n2s, dirs_mode):
     """Max |code_a - code_b| over every cell 0 <= x <= n2, 0 <= y <= n1 of
-    each real pair, the D bits at x = 0 masked (the torus roll fills them
-    from lane P-1 and no walker reads them)."""
+    each real pair (at its (row, offset) in coords), the D bits at x = 0
+    masked (the torus roll fills them from lane P-1 and no walker reads
+    them)."""
     per_word, bits = (8, 4) if dirs_mode == "fast4" else (4, 8)
     dmask = 8 if dirs_mode == "fast4" else 32 | 64
     a32, b32 = dirs_a.view(torch.int32), dirs_b.view(torch.int32)
     dev = dirs_a.device
     worst = 0
     for b in range(len(n1s)):
-        row, _slot, off = plan.pair_coords(b)
+        row, off = coords[b]
         x = torch.arange(int(n2s[b]) + 1, device=dev)[:, None]
         y = torch.arange(int(n1s[b]) + 1, device=dev)[None, :]
         d = (off + x + y).reshape(-1)
@@ -201,7 +232,8 @@ def phase_fill(torch, port):
                 err = int((fk - fp).abs().max())
                 if dirs_mode:
                     err = max(err, valid_cell_diff(
-                        torch, dk, dp, plan, n1s, n2s, dirs_mode))
+                        torch, dk, dp, stream_coords(plan, 40), n1s, n2s,
+                        dirs_mode))
                     whole_equal &= bool(torch.equal(dk.view(torch.int32),
                                                     dp.view(torch.int32)))
                 check(err == 0, f"fill kernel != plain (compat={compat}, "
@@ -223,8 +255,9 @@ def phase_fill(torch, port):
     err = int((fk - fp).abs().max())
     whole = bool(torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
     if not whole:
-        err = max(err, valid_cell_diff(torch, dk, dp, plan, batch.query_len,
-                                       batch.db_len, "fast4"))
+        err = max(err, valid_cell_diff(
+            torch, dk, dp, stream_coords(plan, N_MAIN), batch.query_len,
+            batch.db_len, "fast4"))
     del dp
     check(err == 0, f"fill kernel != plain at the main shape: err {err}")
     cells = int((batch.query_len.astype(np.int64)
@@ -316,21 +349,29 @@ def phase_main(torch, port, pairs):
         f"{secs:.3f} s, {len(pairs) / secs:.1f} alignments/s, peak "
         f"{peak / 2**30:.2f} GiB; launches {launches}; 4 sampled scores equal "
         "the oracle")
-    return launches, {"main_s": secs, "alignments_per_s": len(pairs) / secs,
-                      "peak_gib": peak / 2 ** 30}, (aligner, recs)
+    by_path = {name: {"global first-only": n} for name, n in launches.items()}
+    return by_path, {"main_s": secs, "alignments_per_s": len(pairs) / secs,
+                     "peak_gib": peak / 2 ** 30}, (aligner, recs)
 
 
-# Host stages of align_batch reported by the profile (cumulative seconds).
+# Host stages of align_batch reported by the profile (cumulative seconds):
+# the global first-only path and the textbook modes path.
 STAGES = ("pack_batch", "trim_for_stream", "to_device", "stream_inputs",
           "gotoh_fill_stream_cuda", "fast4_stream_align_device",
           "walk_fast4_cuda", "decode_packed_alignments",
           "walk_decode_batch_native", "fill_derived", "align_batch")
+MODES_STAGES = ("pack_batch", "to_device", "stream_inputs",
+                "gotoh_fill_stream_modes_cuda", "modes_reduce",
+                "modes_walk_device", "walk_modes_cuda",
+                "decode_packed_alignments", "assemble_modes_alignments",
+                "fill_derived", "align_batch")
 
 
-def phase_profile(torch, aligner, recs, out_dir):
+def phase_profile(torch, aligner, recs, out_dir, name="global",
+                  stages_of=STAGES, tag="[5 profile]"):
     """Where align_batch's time goes: one call under torch.profiler (the
     card's busy time) and one under cProfile (host stages); the tables go
-    to out_dir when one is given."""
+    to out_dir when one is given, named after the path."""
     import cProfile
     import pstats
 
@@ -352,25 +393,322 @@ def phase_profile(torch, aligner, recs, out_dir):
     host.disable()
     stats = pstats.Stats(host)
     if out_dir:
-        with open(os.path.join(out_dir, "profile_device.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_device_{name}.txt"),
+                  "w") as f:
             f.write(events.table(sort_by="self_device_time_total",
                                  row_limit=30))
-        with open(os.path.join(out_dir, "profile_host.txt"), "w") as f:
+        with open(os.path.join(out_dir, f"profile_host_{name}.txt"), "w") as f:
             pstats.Stats(host, stream=f).sort_stats(
                 "cumulative").print_stats(40)
     stages = {}
     for (_file, _line, fn), (_cc, _nc, _tt, ct, _callers) in stats.stats.items():
-        if fn in STAGES:
+        if fn in stages_of:
             stages[fn] = max(stages.get(fn, 0.0), ct)
-    log(f"[5 profile] align_batch {wall_ms:.1f} ms under torch.profiler, "
+    log(f"{tag} {name} align_batch {wall_ms:.1f} ms under torch.profiler, "
         f"card busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); host "
         "stages (cProfile, s): " + ", ".join(
-            f"{k} {stages[k]:.3f}" for k in STAGES if k in stages))
-    return {"profile_wall_ms": wall_ms, "profile_busy_ms": busy_ms,
-            "host_stages_s": stages}
+            f"{k} {stages[k]:.3f}" for k in stages_of if k in stages))
+    return {f"{name}_profile_wall_ms": wall_ms,
+            f"{name}_profile_busy_ms": busy_ms,
+            f"{name}_host_stages_s": stages}
 
 
-def phase_cli(port):
+def skewed_pairs(rng, n, lo1, hi1, lo2, hi2, alphabet=b"ACGT"):
+    """n random pairs with lengths lo1..hi1 and lo2..hi2; every third db a
+    mutated slice of its query (a local hit)."""
+    alpha = np.frombuffer(alphabet, np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(lo1, hi1 + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(lo2, hi2 + 1)))
+        if i % 3 == 0 and len(s1) > 8:
+            s2 = s1[3: 3 + min(len(s2), len(s1) - 3)].copy()
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    return pairs
+
+
+def phase_modes_fill(torch, port):
+    """Kernels A (per-pair) and B (streamed) against their plain versions
+    on ragged batches; A's time at the largest batch it serves."""
+    from sequencealigning_tpu.config import ScoringScheme
+    from sequencealigning_tpu.io.encode import pack_batch
+    from sequencealigning_tpu_torch.device import to_device
+
+    modes, smodes, fill = port["modes"], port["smodes"], port["fill"]
+    rng = np.random.default_rng(3)
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    err, whole, runs = 0, True, 0
+    # Kernel A: up to 31 pairs, lengths 1-2046, skewed both ways.
+    L, long_lo, short_hi = LEN_MAIN, LEN_MAIN * 3 // 4, LEN_MAIN // 10
+    cases = [(skewed_pairs(rng, 31, 1, L, 1, L, b"ACGTN"), w, loc)
+             for w in (False, True) for loc in (False, True)]
+    cases += [(skewed_pairs(rng, 24, long_lo, L, 1, short_hi), False, loc)
+              for loc in (False, True)]
+    cases += [(skewed_pairs(rng, 24, 1, short_hi, long_lo, L), False, loc)
+              for loc in (False, True)]
+    for pairs, wildcard, local in cases:
+        batch = pack_batch(pairs, batch_size=len(pairs))
+        tb = to_device(batch, "cuda")
+        args = (tb.query, modes.modes_layout(tb.db), tb.query_len, tb.db_len,
+                tb.query.shape[1], tb.db.shape[1],
+                wild if wildcard else ScoringScheme(), wildcard, local, True)
+        bk, dk_, dirs_k = modes.modes_fill_cuda(*args)
+        bp, dp_, dirs_p = modes.fill_modes_torch(*args)
+        torch.cuda.synchronize()
+        e = max(int((bk - bp).abs().max()), int((dk_ - dp_).abs().max()))
+        for a, b in zip(modes.modes_reduce(bk, dk_),
+                        modes.modes_reduce(bp, dp_)):
+            e = max(e, int((a - b).abs().max()))
+        e = max(e, valid_cell_diff(
+            torch, dirs_k, dirs_p, [(b, 0) for b in range(len(pairs))],
+            batch.query_len, batch.db_len, "full"))
+        whole &= bool(torch.equal(dirs_k.view(torch.int32),
+                                  dirs_p.view(torch.int32)))
+        check(e == 0, f"modes fill kernel != plain (local={local}, "
+              f"wildcard={wildcard}, {len(pairs)} pairs): err {e}")
+        err, runs = max(err, e), runs + 1
+    # Its time at the largest shape it serves: 31 pairs x 2046 bp, local.
+    pairs = make_pairs(np.random.default_rng(4), 31, LEN_MAIN)
+    tb = to_device(pack_batch(pairs, batch_size=31), "cuda")
+    args = (tb.query, modes.modes_layout(tb.db), tb.query_len, tb.db_len,
+            tb.query.shape[1], tb.db.shape[1], ScoringScheme(), False, True,
+            True)
+    mfill_ms = cuda_ms(torch, lambda: modes.modes_fill_cuda(*args))
+    mfill_plain_ms, _ = host_ms(torch, lambda: modes.fill_modes_torch(*args))
+    log(f"[6 modes fill] per-pair kernel: {runs} ragged batches equal on "
+        f"argmax buffers, end cells and valid cells (whole dirs equal: "
+        f"{whole}); 31 x {LEN_MAIN} bp local: kernel {mfill_ms:.3f} ms, "
+        f"plain {mfill_plain_ms:.1f} ms")
+    out = {"mfill_ms": mfill_ms, "mfill_plain_ms": mfill_plain_ms,
+           "mfill_err": err, "mfill_whole_dirs_equal": whole}
+
+    # Kernel B: ragged batches with 2-4 slots a row, skewed both ways.
+    err, whole, runs = 0, True, 0
+    for np_slots, (lo1, hi1, lo2, hi2) in ((4, (1, 300, 1, 300)),
+                                           (2, (200, 400, 1, 60)),
+                                           (3, (1, 60, 200, 400))):
+        pairs = skewed_pairs(rng, 48, lo1, hi1, lo2, hi2, b"ACGTN")
+        batch = pack_batch(pairs, batch_size=48)
+        tb = to_device(batch, "cuda")
+        plan, ins = fill.stream_inputs(*tb, np_slots=np_slots)
+        for wildcard in (False, True):
+            for mode in ("semi", "local"):
+                args = (plan, wild if wildcard else ScoringScheme(),
+                        wildcard, mode, True)
+                (bk, dk_), dirs_k = smodes.gotoh_fill_stream_modes_cuda(
+                    *ins, *args)
+                (bp, dp_), dirs_p = smodes.gotoh_fill_stream_modes_torch(
+                    *ins, *args)
+                torch.cuda.synchronize()
+                e = max(int((bk - bp).abs().max()),
+                        int((dk_ - dp_).abs().max()))
+                e = max(e, valid_cell_diff(
+                    torch, dirs_k, dirs_p, stream_coords(plan, 48),
+                    batch.query_len, batch.db_len, "full"))
+                whole &= bool(torch.equal(dirs_k.view(torch.int32),
+                                          dirs_p.view(torch.int32)))
+                check(e == 0, f"stream modes kernel != plain ({mode}, "
+                      f"wildcard={wildcard}, np_slots={np_slots}): err {e}")
+                err, runs = max(err, e), runs + 1
+    log(f"[6 modes fill] streamed kernel: {runs} ragged batches (2-4 slots "
+        f"a row) equal on argmax buffers and valid cells (whole dirs equal: "
+        f"{whole})")
+    out.update(sfill_ragged_err=err, sfill_ragged_whole_dirs_equal=whole)
+    return out
+
+
+def phase_modes_full(torch, port, mode, pairs):
+    """Kernel B against its plain version at the main shape in one mode
+    ("local" or "semi"), then kernel C against the plain walk on B's dirs
+    and against the host walker on sampled pairs.  Frees its tensors."""
+    from sequencealigning_tpu.config import ScoringScheme
+    from sequencealigning_tpu.io.encode import pack_batch
+    from sequencealigning_tpu.ops.traceback import (
+        local_affine_traceback_pair,
+        semi_global_traceback_pair,
+    )
+    from sequencealigning_tpu_torch.device import to_device
+
+    modes, smodes = port["modes"], port["smodes"]
+    fill, walk = port["fill"], port["walk"]
+    local = mode == "local"
+    batch = pack_batch(pairs, batch_size=N_MAIN)
+    tb = to_device(batch, "cuda")
+    plan, ins = fill.stream_inputs(*tb)
+    args = (plan, ScoringScheme(), False, mode, True)
+    ms = cuda_ms(torch, lambda: smodes.gotoh_fill_stream_modes_cuda(*ins, *args))
+    (bk, dk_), dirs = smodes.gotoh_fill_stream_modes_cuda(*ins, *args)
+    plain_ms, ((bp, dp_), dirs_p) = host_ms(
+        torch, lambda: smodes.gotoh_fill_stream_modes_torch(*ins, *args))
+    err = max(int((bk - bp).abs().max()), int((dk_ - dp_).abs().max()))
+    whole = bool(torch.equal(dirs.view(torch.int32), dirs_p.view(torch.int32)))
+    if not whole:
+        err = max(err, valid_cell_diff(torch, dirs, dirs_p,
+                                       stream_coords(plan, N_MAIN),
+                                       batch.query_len, batch.db_len, "full"))
+    del dirs_p, bp, dp_
+    check(err == 0, f"stream modes kernel != plain at the main shape "
+          f"({mode}): err {err}")
+    P = plan.p
+    flat = bk.transpose(0, 1).reshape(-1, P)
+    best, x, y = modes.modes_reduce(flat, dk_.transpose(0, 1).reshape(-1, P))
+    # torch.argmax's first-maximum rule, checked on the card.
+    lanes = torch.arange(P, device=flat.device).expand_as(flat)
+    first = torch.where(flat == best[:, None].to(flat.dtype), lanes, P).min(1)
+    check(bool(torch.equal(first.values.to(torch.int32), x)),
+          "torch.argmax did not return the first maximal lane")
+    cells = int((batch.query_len.astype(np.int64)
+                 * batch.db_len.astype(np.int64)).sum())
+    log(f"[7 modes full] {N_MAIN} x {LEN_MAIN} bp {mode} fill "
+        f"(R={plan.n_rows}, P={plan.p}, S={plan.s}, T={plan.t_total}, dirs "
+        f"{dirs.numel() * 4 / 1e9:.1f} GB): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS; equal on argmax "
+        f"buffers and end cells (whole dirs tensor equal: {whole})")
+    out = {f"sfill_{mode}_ms": ms, f"sfill_{mode}_plain_ms": plain_ms,
+           f"sfill_{mode}_err": err, f"sfill_{mode}_gcups": cells / ms / 1e6,
+           f"sfill_{mode}_whole_dirs_equal": whole}
+
+    best, end_x, end_y = (t[:N_MAIN].cpu().numpy() for t in (best, x, y))
+    del bk, dk_, flat, lanes, first, x, y
+    bs = np.arange(N_MAIN)
+    rowp, off = bs // plan.np_slots, (bs % plan.np_slots) * plan.s
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    seeds = [put(end_x), put(end_y), put(rowp), put(off)]
+    t_steps = plan.l1 + plan.l2
+    ms = cuda_ms(torch, lambda: walk.walk_modes_cuda(dirs, *seeds, local,
+                                                     t_steps))
+    got = walk.walk_modes_cuda(dirs, *seeds, local, t_steps)
+    plain_ms, want = host_ms(
+        torch, lambda: walk.walk_modes_torch(dirs, *seeds, local, t_steps))
+    err = 0
+    for g, w in zip(got, want):
+        err = max(err, int((g.view(torch.int32).long()
+                            - w.view(torch.int32).long()).abs().max()))
+    check(err == 0, f"modes walk kernel != plain ({mode}): err {err}")
+    xf, yf, st, packed, n_ops = got
+    check(bool((st == 1).all()), f"modes walk kernel ({mode}): a walk did "
+          "not stop cleanly")
+    n_words = -(-int(n_ops.max()) // 16)
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    walked = walk.decode_modes_walk(
+        packed[:, :n_words].cpu().numpy(), xf.cpu().numpy(),
+        yf.cpu().numpy(), st.cpu().numpy(), end_x, end_y, s1s, s2s)
+    check(all(w is not None for w in walked),
+          f"modes walk did not decode ({mode})")
+    alns = walk.assemble_modes_alignments(pairs, walked, best, end_x, end_y,
+                                          local)
+    sample = np.random.default_rng(5).choice(N_MAIN, 6, replace=False)
+    for b in sample:
+        dirs_b = dirs[:, int(rowp[b]), :].cpu().numpy()
+        host_walk = (local_affine_traceback_pair if local
+                     else semi_global_traceback_pair)
+        a1, a2 = host_walk(dirs_b, int(end_x[b]), int(end_y[b]), *pairs[b],
+                           d_offset=int(off[b]))[:2]
+        check(alns[b] == (int(best[b]), [(a1, a2)]),
+              f"modes walk kernel != host walker on pair {b} ({mode})")
+    log(f"[7 modes full] {N_MAIN} pairs {mode} walk: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms; equal to the plain walk, {len(sample)} "
+        "sampled pairs equal to the host walker")
+    out.update({f"mwalk_{mode}_ms": ms, f"mwalk_{mode}_plain_ms": plain_ms,
+                f"mwalk_{mode}_err": err})
+    del dirs, got, want, packed, seeds, ins, tb
+    torch.cuda.empty_cache()
+    return out
+
+
+def affine_score(a1, a2, scheme, semi):
+    """Affine score of one alignment (gaps open from M only); semi drops
+    the leading and trailing columns that hold a gap (free end gaps)."""
+    s1 = np.frombuffer(a1.encode(), np.uint8)
+    s2 = np.frombuffer(a2.encode(), np.uint8)
+    gap = ord("-")
+    kind = np.where(s1 == gap, 2, np.where(s2 == gap, 1, 0))
+    if semi:
+        pure = np.flatnonzero(kind == 0)
+        if not len(pure):
+            return 0
+        kind = kind[pure[0]: pure[-1] + 1]
+        s1, s2 = s1[pure[0]: pure[-1] + 1], s2[pure[0]: pure[-1] + 1]
+    prev = np.concatenate([[0], kind[:-1]])
+    m = kind == 0
+    score = np.where(s1[m] == s2[m], scheme.match_, scheme.mismatch).sum()
+    opens = int(((kind != 0) & (kind != prev)).sum())
+    return int(score + opens * scheme.gap_open
+               + int((kind != 0).sum()) * scheme.gap_extend)
+
+
+def phase_modes_main(torch, port, pairs, out_dir):
+    """GotohAligner textbook local, then semi-global, through align_batch
+    at the main shape: the streamed modes fill and the modes walk; then one
+    more local align_batch under the profilers."""
+    from sequencealigning_tpu.config import AlignConfig, Algo, Mode
+    from sequencealigning_tpu.io.fasta import Record
+
+    smodes, walk = port["smodes"], port["walk"]
+    recs = [(Record(seq=a, name=b">q%d" % i), Record(seq=b, name=b">d%d" % i))
+            for i, (a, b) in enumerate(pairs)]
+    launches = {"nw_affine_stream_modes_fill": {}, "walk_modes": {}}
+    meas = {}
+    for mode in (Mode.LOCAL, Mode.SEMI_GLOBAL):
+        cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=mode, compat=False)
+        aligner = port["models"].GotohAligner(cfg, "cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        smodes.gotoh_fill_stream_modes_cuda.launches = 0
+        walk.walk_modes_cuda.launches = 0
+        t0 = time.perf_counter()
+        res = aligner.align_batch(recs)
+        secs = time.perf_counter() - t0
+        n_fill = smodes.gotoh_fill_stream_modes_cuda.launches
+        n_walk = walk.walk_modes_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(len(res) == len(pairs), "missing results")
+        errors = [r.error for r in res if not r.ok]
+        check(not errors, f"{mode.value}: {len(errors)} pairs failed: "
+              f"{errors[:3]}")
+        check(n_fill > 0 and n_walk > 0,
+              f"{mode.value}: the main path launched the streamed modes fill "
+              f"{n_fill} and the modes walk {n_walk} times")
+        semi = mode is Mode.SEMI_GLOBAL
+        bad = [i for i, r in enumerate(res)
+               if affine_score(r.aligned_query, r.aligned_db, cfg.scoring,
+                               semi) != r.score]
+        check(not bad, f"{mode.value}: {len(bad)} alignments do not rescore "
+              f"to their score (first: pair {bad[:1]})")
+        if semi:
+            for r, (a, b) in zip(res, pairs):
+                check(r.aligned_query.replace("-", "").encode() == a
+                      and r.aligned_db.replace("-", "").encode() == b,
+                      f"semi alignment of {r.query_name} does not consume "
+                      "its sequences")
+        launches["nw_affine_stream_modes_fill"][f"textbook {mode.value}"] = \
+            n_fill
+        launches["walk_modes"][f"textbook {mode.value}"] = n_walk
+        key = "local" if mode is Mode.LOCAL else "semi"
+        meas.update({f"{key}_main_s": secs,
+                     f"{key}_alignments_per_s": len(pairs) / secs,
+                     f"{key}_peak_gib": peak / 2 ** 30})
+        log(f"[8 modes main] {len(pairs)} x {LEN_MAIN} bp textbook "
+            f"{mode.value} on cuda: {secs:.3f} s, {len(pairs) / secs:.1f} "
+            f"alignments/s, peak {peak / 2**30:.2f} GiB; launches: streamed "
+            f"fill {n_fill}, walk {n_walk}; every alignment rescores to its "
+            "score")
+        del res
+        if mode is Mode.LOCAL:
+            meas.update(phase_profile(torch, aligner, recs, out_dir, "local",
+                                      MODES_STAGES, "[8 profile]"))
+        del aligner
+    return launches, meas
+
+
+def phase_cli(torch, port):
+    """The golden CLI outputs with --device cuda, and serve.  The textbook
+    modes runs (24 pairs, under the streamed engine's 32) are the per-pair
+    modes kernel's path: returns its launches counted over them."""
     spec = importlib.util.spec_from_file_location(
         "golden_regen", os.path.join(ROOT, "tests", "golden", "regen.py"))
     regen = importlib.util.module_from_spec(spec)
@@ -378,8 +716,9 @@ def phase_cli(port):
     golden = os.path.join(ROOT, "tests", "golden")
     q, d = os.path.join(golden, "queries.fa"), os.path.join(golden, "db.fa")
     main = port["cli"].main
-    for name, extra in (("nw-first-only", ["--first-only"]),
-                        ("needleman-wunsch", [])):
+    modes, walk = port["modes"], port["walk"]
+
+    def run_cli(name, extra):
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = main(["-q", q, "-d", d, "--no-out", "-a", "needleman-wunsch",
@@ -391,24 +730,46 @@ def phase_cli(port):
         check(rc == 0, f"cli exit {rc} ({name})")
         check(regen.normalize(out.getvalue()) == want_out,
               f"cli stdout differs from tests/golden/{name}.out")
-    stdin = sys.stdin
-    sys.stdin = io.StringIO(f"{q} {d}\n")
-    out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            rc = main(["--serve", "-a", "needleman-wunsch", "--first-only",
-                       "--device", "cuda"])
-    finally:
-        sys.stdin = stdin
-    lines = [json.loads(s) for s in out.getvalue().splitlines()]
-    pairs = [x for x in lines if "query_name" in x]
-    check(rc == 0 and len(pairs) == 24 and all(p["error"] is None
-                                               for p in pairs),
-          "serve did not answer the 24 pairs")
-    check(lines[-1].get("done") and lines[-1].get("pairs") == 24,
-          "serve summary line missing")
-    log("[6 cli] golden nw-first-only and needleman-wunsch stdout equal on "
-        "cuda; serve answered 24 pairs")
+
+    def serve(args):
+        stdin = sys.stdin
+        sys.stdin = io.StringIO(f"{q} {d}\n")
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = main(["--serve", "-a", "needleman-wunsch",
+                           "--device", "cuda"] + args)
+        finally:
+            sys.stdin = stdin
+        lines = [json.loads(s) for s in out.getvalue().splitlines()]
+        pairs = [x for x in lines if "query_name" in x]
+        check(rc == 0 and len(pairs) == 24 and all(p["error"] is None
+                                                   for p in pairs),
+              f"serve {args} did not answer the 24 pairs")
+        check(lines[-1].get("done") and lines[-1].get("pairs") == 24,
+              "serve summary line missing")
+
+    for name, extra in (("nw-first-only", ["--first-only"]),
+                        ("needleman-wunsch", [])):
+        run_cli(name, extra)
+    serve(["--first-only"])
+    modes.modes_fill_cuda.launches = 0
+    walk.walk_modes_cuda.launches = 0
+    for name, extra in (("nw-local-textbook", ["-m", "local", "--textbook"]),
+                        ("nw-semiglobal-textbook",
+                         ["-m", "semi-global", "--textbook"])):
+        run_cli(name, extra)
+    serve(["-m", "local", "--textbook"])
+    launches = {"nw_affine_modes_fill": modes.modes_fill_cuda.launches,
+                "walk_modes": walk.walk_modes_cuda.launches}
+    for name, n in launches.items():
+        check(n > 0, f"the textbook CLI path never launched {name}")
+    log("[9 cli] golden nw-first-only, needleman-wunsch, nw-local-textbook "
+        "and nw-semiglobal-textbook stdout equal on cuda; serve (first-only, "
+        f"textbook local) answered 24 pairs each; launches {launches}")
+    return {"nw_affine_modes_fill": {
+        "golden CLI local and semi-global, serve local (24 pairs each)":
+            launches["nw_affine_modes_fill"]}}
 
 
 def run(args):
@@ -420,10 +781,16 @@ def run(args):
 
     card = phase_device(torch)
     from sequencealigning_tpu_torch import cli, csrc, models
-    from sequencealigning_tpu_torch.ops import nw_affine_stream, traceback_device
+    from sequencealigning_tpu_torch.ops import (
+        nw_affine_modes,
+        nw_affine_stream,
+        nw_affine_stream_modes,
+        traceback_device,
+    )
 
     port = {"cli": cli, "models": models, "fill": nw_affine_stream,
-            "walk": traceback_device}
+            "walk": traceback_device, "modes": nw_affine_modes,
+            "smodes": nw_affine_stream_modes}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     build_s = phase_build(csrc, args.out)
@@ -436,23 +803,65 @@ def run(args):
     meas.update(main_meas)
     meas.update(phase_profile(torch, aligner, recs, args.out))
     del aligner, recs
-    phase_cli(port)
-    meas.update(build_s=build_s, card=card)
+    torch.cuda.empty_cache()
+    meas.update(phase_modes_fill(torch, port))
+    mpairs = make_pairs(np.random.default_rng(0), N_MAIN, LEN_MAIN)
+    for mode in ("local", "semi"):
+        meas.update(phase_modes_full(torch, port, mode, mpairs))
+    modes_launches, modes_main = phase_modes_main(torch, port, mpairs,
+                                                  args.out)
+    meas.update(modes_main)
+    launches.update(modes_launches)
+    launches.update(phase_cli(torch, port))
+    meas.update(build_s=build_s, card=card, launches=launches)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(meas, f, indent=1)
+    return card, kernel_entries(meas, launches)
+
+
+def kernel_entries(meas, launches):
+    """The `kernels` line: per kernel its launches (in total and by path),
+    its largest error over every comparison, and its times with the shape
+    they were taken at."""
+    main = f"{N_MAIN} x {LEN_MAIN} bp"
+    errs = {
+        "nw_affine_stream_fill": [meas["fill_err"]],
+        "walk_fast4": [meas["walk_err"]],
+        "nw_affine_modes_fill": [meas["mfill_err"]],
+        "nw_affine_stream_modes_fill": [meas["sfill_ragged_err"],
+                                        meas["sfill_local_err"],
+                                        meas["sfill_semi_err"]],
+        "walk_modes": [meas["mwalk_local_err"], meas["mwalk_semi_err"]],
+    }
+    times = {
+        "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
+        "walk_fast4": ("walk", f"{main} global"),
+        "nw_affine_modes_fill": ("mfill", f"31 x {LEN_MAIN} bp local"),
+        "nw_affine_stream_modes_fill": ("sfill_local", f"{main} local"),
+        "walk_modes": ("mwalk_local", f"{main} local"),
+    }
     kernels = []
-    for name, ms_key in (("nw_affine_stream_fill", "fill"),
-                         ("walk_fast4", "walk")):
-        kernels.append({
+    for name, by_path in launches.items():
+        key, shape = times[name]
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": meas[f"{ms_key}_err"],
-            "ms": meas[f"{ms_key}_ms"],
-            "plain_ms": meas[f"{ms_key}_plain_ms"],
-        })
-    return card, kernels
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(errs[name]),
+            "ms": meas[f"{key}_ms"],
+            "plain_ms": meas[f"{key}_plain_ms"],
+            "timed_on": shape,
+        }
+        if key.endswith("_local"):
+            semi = key.replace("_local", "_semi")
+            entry["semi-global"] = {
+                "ms": meas[f"{semi}_ms"], "plain_ms": meas[f"{semi}_plain_ms"],
+                "max_abs_err": meas[f"{semi}_err"],
+                "timed_on": f"{main} semi-global"}
+        kernels.append(entry)
+    return kernels
 
 
 def main():

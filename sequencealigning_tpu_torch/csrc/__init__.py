@@ -26,8 +26,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(_HERE)), "build", "sequencealigning_tpu_torch"
 )
-_CUDA_SOURCES = ("nw_affine_stream.cu", "traceback_device.cu")
-_HEADERS = ("nw_affine_stream.cuh", "traceback_device.cuh")
+_CUDA_SOURCES = ("nw_affine_stream.cu", "nw_affine_modes.cu",
+                 "traceback_device.cu")
+_HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "traceback_device.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -112,9 +113,16 @@ def kernels() -> ctypes.CDLL:
     lib.sa_stream_lanes_per_thread.argtypes = [_INT]
     lib.sa_stream_fill.restype = _INT
     lib.sa_stream_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_stream_modes_fill.restype = _INT
+    lib.sa_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_modes_fill.restype = _INT
+    lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 11 + [_VP]
     lib.sa_walk_fast4.restype = _INT
     lib.sa_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 5
+    lib.sa_walk_modes.restype = _INT
+    lib.sa_walk_modes.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
+        _INT] * 3 + [_VP] * 6
     _kernels = lib
     return lib
 
@@ -144,8 +152,15 @@ def host_check() -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     lib.hc_stream_fill.restype = _INT
     lib.hc_stream_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_stream_modes_fill.restype = _INT
+    lib.hc_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_modes_fill.restype = _INT
+    lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 11
     lib.hc_walk_fast4.restype = _INT
     lib.hc_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 4
+    lib.hc_walk_modes.restype = _INT
+    lib.hc_walk_modes.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
+        _INT] * 3 + [_VP] * 5
     _host = lib
     return lib

@@ -1,5 +1,7 @@
-// fast4 first-path traceback walk for Hopper (sm_90a).
+// Device traceback walks for Hopper (sm_90a): the fast4 first-path walk of
+// the global fill and the walk of the textbook semi-global / local modes.
 //
+// fast4 walk:
 // Replaces the device walk ops/traceback_device.py::_walk_fast4_impl (a
 // lax.while_loop over lax.scan chunks on the TPU, not a Pallas kernel).  Each
 // pair walks from its corner (x, y) = (n2, n1) on the seed plane, reading one
@@ -16,6 +18,15 @@
 // one 4-byte load a step whose address depends on the previous step, from a
 // direction tensor far larger than the L2 cache.  The work is tiny; blocks of
 // 32 threads spread the pairs over as many SMs as possible.
+//
+// Modes walk: replaces ops/traceback_device.py::_walk_modes_impl (also a
+// lax.while_loop over lax.scan chunks on the TPU).  Each pair walks from its
+// end cell over the full direction bytes (dirs[(x+y+off) >> 2, row, x], the
+// per-pair layout with row = b, off = 0 or the streamed one with the plan's
+// row and slot * S) until its stop rule, one thread a pair, with the step of
+// traceback_device.cuh::walk_modes_pair; it writes the packed op codes, the
+// stop cell and a status (1 stopped cleanly, 2 broken).  Bound like the fast4
+// walk by dependent-load latency, with a 1-byte code a step instead of 4 bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +76,32 @@ __global__ void walk_fast4_kernel(const uint32_t* __restrict__ dirs, int R,
   n_ops[b] = i;
 }
 
+template <bool LOCAL>
+__global__ void walk_modes_kernel(const uint32_t* __restrict__ dirs, int W,
+                                  int R, int P,
+                                  const int32_t* __restrict__ x0,
+                                  const int32_t* __restrict__ y0,
+                                  const int32_t* __restrict__ rowp,
+                                  const int32_t* __restrict__ off, int B,
+                                  int WP, uint32_t* __restrict__ packed,
+                                  int32_t* __restrict__ xf,
+                                  int32_t* __restrict__ yf,
+                                  int32_t* __restrict__ st,
+                                  int32_t* __restrict__ n_ops) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int32_t x = x0[b];
+  int32_t y = y0[b];
+  int32_t s, n;
+  sa::walk_modes_pair<LOCAL>(dirs, W, R, P, static_cast<size_t>(rowp[b]),
+                             off[b], x, y, s, n,
+                             packed + static_cast<size_t>(b) * WP, WP);
+  xf[b] = x;
+  yf[b] = y;
+  st[b] = s;
+  n_ops[b] = n;
+}
+
 }  // namespace
 
 // dirs: (T/8, R, P) u32 fast4 words; x0/y0/plane0/rowp/off: (B,) int32 walk
@@ -82,5 +119,29 @@ extern "C" int sa_walk_fast4(const uint32_t* dirs, int R, int P,
   walk_fast4_kernel<<<blocks, kWalkThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       dirs, R, P, x0, y0, plane0, rowp, off, B, W, packed, xf, yf, n_ops);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dirs: (W, R, P) u32 full direction bytes; x0/y0/rowp/off: (B,) int32 end
+// cells, rows and diagonal offsets; packed: (B, WP) u32, the walk taking at
+// most WP*16 steps; xf/yf/st/n_ops: (B,) int32.  local != 0: local, else
+// semi-global.  Returns the cudaGetLastError() of the launch, or -1 for a bad
+// shape.
+extern "C" int sa_walk_modes(const uint32_t* dirs, int W, int R, int P,
+                             const int32_t* x0, const int32_t* y0,
+                             const int32_t* rowp, const int32_t* off, int B,
+                             int WP, int local, uint32_t* packed, int32_t* xf,
+                             int32_t* yf, int32_t* st, int32_t* n_ops,
+                             void* stream) {
+  if (W <= 0 || R <= 0 || P <= 0 || B <= 0 || WP <= 0) return -1;
+  const int blocks = (B + kWalkThreads - 1) / kWalkThreads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (local) {
+    walk_modes_kernel<true><<<blocks, kWalkThreads, 0, s>>>(
+        dirs, W, R, P, x0, y0, rowp, off, B, WP, packed, xf, yf, st, n_ops);
+  } else {
+    walk_modes_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
+        dirs, W, R, P, x0, y0, rowp, off, B, WP, packed, xf, yf, st, n_ops);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,19 @@
-"""Affine-gap NW (Gotoh) aligner, global mode: the port of models/gotoh.py.
+"""Affine-gap NW (Gotoh) aligner: the port of models/gotoh.py.
 
-A batch is packed and trimmed exactly as in the JAX package, filled by the
-streamed fill (ops.nw_affine_stream) on the aligner's device, and traced
-back either on the device (first_only: fast4 codes, device walk, native
-decode) or on the host from the full 7-bit codes (the reference's
-co-optimal enumeration, ops.traceback.traceback_stream_batch).  Compat mode
-answers local/semi-global with the reference's per-pair "not implemented";
-textbook local/semi-global, long pairs (db beyond long_pair_lanes) and, on
-CUDA, db beyond the fill kernel's 8192 lanes are not ported yet."""
+Global mode: a batch is packed and trimmed exactly as in the JAX package,
+filled by the streamed fill (ops.nw_affine_stream) on the aligner's device,
+and traced back either on the device (first_only: fast4 codes, device walk,
+native decode) or on the host from the full 7-bit codes (the reference's
+co-optimal enumeration, ops.traceback.traceback_stream_batch).
+
+Semi-global and local: compat mode answers with the reference's per-pair
+"not implemented"; textbook mode fills with the streamed modes engine
+(ops.nw_affine_stream_modes, 32 pairs or more) or the per-pair one
+(ops.nw_affine_modes), walks the full direction bytes on the device
+(ops.traceback_device.walk_modes) and assembles the alignments.
+
+Not ported yet: long pairs (db beyond long_pair_lanes) and, on CUDA, db
+beyond the fill kernels' 8192 lanes."""
 
 from __future__ import annotations
 
@@ -25,9 +31,15 @@ from sequencealigning_tpu.ops.traceback import (
 )
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.models.base import Aligner
+from sequencealigning_tpu_torch.ops.nw_affine_modes import nw_affine_modes_batch
 from sequencealigning_tpu_torch.ops.nw_affine_stream import nw_affine_stream_batch
+from sequencealigning_tpu_torch.ops.nw_affine_stream_modes import (
+    nw_affine_stream_modes_batch,
+)
 from sequencealigning_tpu_torch.ops.traceback_device import (
+    assemble_modes_alignments,
     fast4_stream_align_device,
+    modes_walk_device,
 )
 
 
@@ -35,9 +47,13 @@ class GotohAligner(Aligner):
     # Lane width beyond which the reference leaves the streamed fill for its
     # long-pair path (not ported yet); the JAX package's value.
     long_pair_lanes = 49_152
-    # Lanes the CUDA fill kernel holds (csrc/nw_affine_stream.cu); the
-    # plain fill on the CPU has no such ceiling.
+    # Lanes the CUDA fill kernels hold (csrc/nw_affine_stream.cu,
+    # csrc/nw_affine_modes.cu); the plain fills on the CPU have no such
+    # ceiling.
     cuda_fill_lanes = 8192
+    # Pairs from which textbook modes take the streamed engine (the JAX
+    # package's threshold); smaller batches take the per-pair one.
+    modes_stream_min_pairs = 32
     # Budget of a direction tensor that lands in host memory (every fill on
     # the CPU, and the co-optimal walk's full codes fetched from the card):
     # the JAX package's 9 GiB.  A first-only fill on a GPU may take half the
@@ -55,10 +71,7 @@ class GotohAligner(Aligner):
             if self.config.compat:
                 # Reference parity (needleman_wunsch_affine.rs:433-434).
                 return [AlignmentError("not implemented") for _ in pairs]
-            raise NotImplementedError(
-                f"textbook {self.config.mode.value} mode is not ported yet; "
-                "see ROADMAP.md"
-            )
+            return self._modes_batch(pairs)
         batch = trim_for_stream(
             pack_batch(pairs, batch_size=max(8, -(-len(pairs) // 8) * 8))
         )
@@ -158,23 +171,99 @@ class GotohAligner(Aligner):
                 out.append(e)
         return out
 
-    def _dirs_budget(self) -> int:
+    def _dirs_budget(self, host_fetch=None) -> int:
+        """Bytes a direction tensor may take.  On the CPU it lands in host
+        memory: dirs_host_budget.  On CUDA, half the free device memory,
+        capped at dirs_host_budget when the walk fetches the codes to the
+        host (host_fetch; by default the co-optimal walk does, the
+        first-only walk does not)."""
         if self.device.type != "cuda":
             return self.dirs_host_budget
         free, _total = torch.cuda.mem_get_info(self.device)
-        if getattr(self.config, "first_only", False):
+        if host_fetch is None:
+            host_fetch = not getattr(self.config, "first_only", False)
+        if not host_fetch:
             return free // 2
-        # The co-optimal walk fetches the full codes to the host.
         return min(free // 2, self.dirs_host_budget)
 
-    def _dirs_chunks(self, batch, n_pairs: int) -> int:
+    def _dirs_chunks(self, batch, n_pairs: int, per_byte=None,
+                     budget=None) -> int:
         """Number of fill-and-drain sub-batches that keep the direction
         tensor under budget.  Per pair the streamed layout stores ~s * P
-        cells: 1 byte a cell in full mode, 1/2 byte in fast4."""
+        cells: 1 byte a cell in full mode, 1/2 byte in fast4 (per_byte;
+        by default from config.first_only)."""
         l1 = batch.query.shape[1]
         l2 = batch.db.shape[1]
         s = round_up(max(l1, l2) + 1, 128)
         p = round_up(l2 + 2, 128)
-        per_byte = 0.5 if getattr(self.config, "first_only", False) else 1.0
+        if per_byte is None:
+            per_byte = 0.5 if getattr(self.config, "first_only", False) else 1.0
+        if budget is None:
+            budget = self._dirs_budget()
         total = n_pairs * s * p * per_byte
-        return max(1, int(-(-total // self._dirs_budget())))
+        return max(1, int(-(-total // budget)))
+
+    def _modes_batch(self, pairs: List[Tuple[bytes, bytes]]):
+        """Textbook semi-global / local: fill, device walk, assembly (as
+        the JAX package's GotohAligner._modes_batch).  The dirs are full
+        bytes and only op codes leave the device, so on CUDA a fill may take
+        half the free device memory.  A failed walk is re-walked on the host
+        on the CPU, and is the pair's AlignmentError on CUDA."""
+        local = self.config.mode is Mode.LOCAL
+        batch = pack_batch(pairs, batch_size=max(8, -(-len(pairs) // 8) * 8))
+        n_sub = self._dirs_chunks(batch, len(pairs), per_byte=1.0,
+                                  budget=self._dirs_budget(host_fetch=False))
+        if n_sub > 1:
+            out: List = []
+            per = -(-len(pairs) // n_sub)
+            for lo in range(0, len(pairs), per):
+                out.extend(self._modes_batch(pairs[lo : lo + per]))
+            return out
+        streamed = len(pairs) >= self.modes_stream_min_pairs
+        l2 = batch.db.shape[1]
+        lanes = round_up(l2 + 2, 128) if streamed else round_up(l2 + 1, 128)
+        if self.device.type == "cuda" and lanes > self.cuda_fill_lanes:
+            raise NotImplementedError(
+                f"textbook {self.config.mode.value} pairs needing {lanes} "
+                f"lanes on cuda (the kernels hold {self.cuda_fill_lanes}) are "
+                "not ported yet; see ROADMAP.md"
+            )
+        tb = to_device(batch, self.device)
+        if streamed:
+            res = nw_affine_stream_modes_batch(
+                tb.query, tb.db, tb.query_len, tb.db_len,
+                "local" if local else "semi", scheme=self.config.scoring,
+                state_dtype=getattr(self.config, "stream_state", "i32"),
+            )
+            bs = np.arange(len(pairs))
+            rowp = bs // res.plan.np_slots
+            offs = (bs % res.plan.np_slots) * res.plan.s
+            t_steps = int(res.plan.l1 + res.plan.l2)
+        else:
+            res = nw_affine_modes_batch(
+                tb.query, tb.db, tb.query_len, tb.db_len, local=local,
+                scheme=self.config.scoring,
+            )
+            rowp = np.arange(len(pairs))
+            offs = np.zeros(len(pairs), np.int64)
+            t_steps = int(batch.query.shape[1] + l2)
+        n = len(pairs)
+        seqs1 = [p[0] for p in pairs]
+        seqs2 = [p[1] for p in pairs]
+        end_x, end_y = res.best_x[:n], res.best_y[:n]
+        walked = modes_walk_device(res.dirs, end_x, end_y, rowp, offs,
+                                   seqs1, seqs2, local, t_steps)
+
+        def dirs_fetch(b):
+            self.host_fallbacks += 1
+            return res.dirs[:, int(rowp[b]), :].numpy(), int(offs[b])
+
+        tbs = assemble_modes_alignments(
+            pairs, walked, res.best[:n], end_x, end_y, local,
+            dirs_fetch=None if self.device.type == "cuda" else dirs_fetch,
+        )
+        return [
+            r if isinstance(r, AlignerError) else dict(
+                score=r[0], aligned_query=r[1][0][0], aligned_db=r[1][0][1])
+            for r in tbs
+        ]

@@ -30,6 +30,12 @@ from sequencealigning_tpu.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu.io.encode import round_up as _round_up
 from sequencealigning_tpu.ops import dirbits
 from sequencealigning_tpu_torch import csrc
+from sequencealigning_tpu_torch.ops.nw_affine import (
+    DirsPacker,
+    _bit,
+    _roll,
+    apply_boundaries,
+)
 
 _DIRS_CODES = {None: 0, "fast4": 1, "full": 2}
 
@@ -123,21 +129,6 @@ def _dirs_mode(with_dirs):
     raise ValueError(f"unknown dirs mode {with_dirs!r}")
 
 
-def _boundary_scalars(p: int, scheme: ScoringScheme, compat: bool):
-    """Boundary cells at anti-diagonal p as ((M, I, D) of row-0 cell
-    (x=0, y=p), (M, I, D) of column-0 cell (x=p, y=0)): compat keeps the
-    chain o+(p+1)e in D on row 0 and in I on column 0, textbook keeps
-    o+p*e in the other plane; p == 0 is the origin (M=0, I=D=-inf).  As
-    ops/nw_affine.py::_boundary_scalars."""
-    o, e = scheme.gap_open, scheme.gap_extend
-    neg = NEG_INF
-    m_b = 0 if p == 0 else neg
-    chain = neg if p == 0 else (o + (p + 1) * e if compat else o + p * e)
-    if compat:
-        return (m_b, neg, chain), (m_b, chain, neg)
-    return (m_b, chain, neg), (m_b, neg, chain)
-
-
 # ---------------------------------------------------------------------------
 # Stream inputs
 # ---------------------------------------------------------------------------
@@ -187,14 +178,54 @@ def capture_params(query_len, db_len, plan: StreamPlan):
 # ---------------------------------------------------------------------------
 
 
-def _bit(mask: torch.Tensor, value: int) -> torch.Tensor:
-    return mask.to(torch.int32) * value
+def stream_step_torch(
+    H2, H1, M1, I1, D1, s1d, s2v, qc, dc, p: int,
+    scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
+    mode: str = "global",
+):
+    """One step of a streamed fill, the twin of
+    ops/nw_affine_stream.py::_stream_step (int32 state): the query code qc
+    (R,) enters at lane 0, the db code dc (R,) at lane p = t mod S (written
+    into s2v in place), and the merged-roll D recurrence shares its
+    compares with the extend flags.  ``mode`` is the boundary hook of
+    ops.nw_affine.apply_boundaries at lanes 0 and p; a lane p at or past
+    the lane width P does not exist and takes neither code nor boundary.
+    Returns (M, I, D, H, s1d_new, code) with code the fast4 or full
+    direction code, or None."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    P = s2v.shape[1]
+    s1d = _roll(s1d)
+    s1d[:, 0] = qc
+    if p < P:
+        s2v[:, p] = dc
+    eq = (s1d & s2v) != 0 if wildcard else s1d == s2v
+    sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
+    t0 = M1 + o
+    M = _roll(H2) + sub
+    restart = None
+    if mode == "local":
+        restart = (M < 0).to(torch.int32)
+        M = torch.clamp(M, min=0)
+    ci = I1 >= t0
+    cd = D1 >= t0
+    D = _roll(torch.where(cd, D1, t0)) + e
+    I = torch.where(ci, I1, t0) + e
+    apply_boundaries(M, I, D, restart, (p, 0), p, scheme, compat, mode)
+    H = torch.maximum(M, torch.maximum(I, D))
 
-
-def _to_u32(words: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> the same bits as a uint32 tensor."""
-    wrapped = words - ((words >> 31) & 1) * (1 << 32)
-    return wrapped.to(torch.int32).view(torch.uint32)
+    code = None
+    if dirs_mode == "full":
+        code = _bit(M == H, dirbits.HM) | _bit(I == H, dirbits.HI)
+        code |= _bit(D == H, dirbits.HD) | _bit(ci, dirbits.IEXT)
+        code |= _bit(t0 >= I1, dirbits.IOPEN)
+        dpre = _bit(cd, dirbits.DEXT) | _bit(t0 >= D1, dirbits.DOPEN)
+        code |= _roll(dpre)
+        if restart is not None:
+            code |= restart * dirbits.LSTART
+    elif dirs_mode == "fast4":
+        code = torch.where(M == H, 0, torch.where(I == H, 1, 2)).to(torch.int32)
+        code |= _bit(ci, 4) | _roll(_bit(cd, 8))
+    return M, I, D, H, s1d, code
 
 
 def _check_fill_args(qstream, dstream, dsums, n2s, plan: StreamPlan,
@@ -233,8 +264,6 @@ def gotoh_fill_stream_torch(
     R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
     dev = qstream.device
     i32 = torch.int32
-    o, e = scheme.gap_open, scheme.gap_extend
-    match, mismatch = scheme.match_, scheme.mismatch
 
     # Capture schedule: step -> (rows, lanes, pair indices).
     ds_h = dsums.cpu().numpy().astype(np.int64)
@@ -250,54 +279,20 @@ def gotoh_fill_stream_torch(
         for t, v in events.items()
     }
 
-    neg = torch.full((R, P), NEG_INF, dtype=i32, device=dev)
-    H2 = H1 = M1 = I1 = D1 = neg
+    state = torch.full((R, P), NEG_INF, dtype=i32, device=dev)
+    H2 = H1 = M1 = I1 = D1 = state
     s1d = torch.zeros((R, P), dtype=i32, device=dev)
     s2v = torch.zeros((R, P), dtype=i32, device=dev)
     finals = torch.zeros((R * NP, 3), dtype=i32, device=dev)
-    upack = 8 if dirs_mode == "fast4" else 4
-    shift = 32 // upack
-    dirs = None
-    if dirs_mode:
-        dirs = torch.empty(
-            (plan.t_total // upack, R, P), dtype=torch.uint32, device=dev
-        )
-    acc = None
+    pack = DirsPacker.for_stream(dirs_mode, plan, dev)
 
     for t in range(plan.t_total):
-        p = t % S
-        s1d = torch.roll(s1d, 1, dims=1)
-        s1d[:, 0] = qstream[:, t]
-        s2v[:, p] = dstream[:, t]
-        eq = (s1d & s2v) != 0 if wildcard else s1d == s2v
-        sub = mismatch + _bit(eq, match - mismatch)
-        t0 = M1 + o
-        M = torch.roll(H2, 1, dims=1) + sub
-        ci = I1 >= t0
-        cd = D1 >= t0
-        D = torch.roll(torch.where(cd, D1, t0), 1, dims=1) + e
-        I = torch.where(ci, I1, t0) + e
-        row0, col0 = _boundary_scalars(p, scheme, compat)
-        M[:, p], I[:, p], D[:, p] = col0
-        M[:, 0], I[:, 0], D[:, 0] = row0
-        H = torch.maximum(M, torch.maximum(I, D))
-
-        if dirs_mode == "full":
-            b = _bit(M == H, dirbits.HM) | _bit(I == H, dirbits.HI)
-            b |= _bit(D == H, dirbits.HD) | _bit(ci, dirbits.IEXT)
-            b |= _bit(t0 >= I1, dirbits.IOPEN)
-            dpre = _bit(cd, dirbits.DEXT) | _bit(t0 >= D1, dirbits.DOPEN)
-            b |= torch.roll(dpre, 1, dims=1)
-        elif dirs_mode == "fast4":
-            b = torch.where(M == H, 0, torch.where(I == H, 1, 2)).to(i32)
-            b |= _bit(ci, 4) | torch.roll(_bit(cd, 8), 1, dims=1)
-        if dirs_mode:
-            u = t % upack
-            word = b.to(torch.int64) << (shift * u)
-            acc = word if u == 0 else acc | word
-            if u == upack - 1:
-                dirs[t // upack] = _to_u32(acc)
-
+        M, I, D, H, s1d, b = stream_step_torch(
+            H2, H1, M1, I1, D1, s1d, s2v, qstream[:, t], dstream[:, t],
+            t % S, scheme, compat, wildcard, dirs_mode,
+        )
+        if pack is not None:
+            pack.add(t, b)
         ev = events.get(t)
         if ev is not None:
             rows, lanes, idx = ev
@@ -306,7 +301,7 @@ def gotoh_fill_stream_torch(
             )
         H2, H1, M1, I1, D1 = H1, H, M, I, D
 
-    return finals, dirs
+    return finals, pack.dirs if pack is not None else None
 
 
 # ---------------------------------------------------------------------------

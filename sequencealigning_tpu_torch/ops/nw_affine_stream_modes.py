@@ -1,0 +1,217 @@
+"""Streamed-pair Gotoh fill in semi-global and local modes: the port of
+ops/nw_affine_stream_modes.py.
+
+The streamed layout of ops.nw_affine_stream (a new pair enters each row
+every S steps) with the boundary hook of the textbook modes: lanes 0 and p
+hold M = 0, I = D = -inf, local mode clamps M at 0 and records restarts as
+the LSTART bit.  The corner capture becomes a per-slot, per-lane running
+argmax (best score, pair-local diagonal) over the mode's eligible cells,
+reduced per pair by ops.nw_affine_modes.modes_reduce.  Direction codes are
+full bytes in the streamed layout (word (k*S + x + y) >> 2).
+
+At step t lane x holds a cell of the younger pair (slot t // S, x <= p) or
+of the older one (slot t // S - 1, x > p): every other slot's cells at
+step t lie outside its pair's rectangle (local diagonal < 0 or >= 2S >
+n1 + n2), so only those two slots' argmax can move.
+
+Two implementations of the fill, chosen by the tensors' device:
+
+* ``gotoh_fill_stream_modes_torch`` -- plain PyTorch, the twin of
+  gotoh_fill_stream_modes_lax (CPU tensors, and the kernel's reference);
+* ``gotoh_fill_stream_modes_cuda`` -- the hand-written kernel, template
+  instances of the global fill's kernel (``csrc/nw_affine_stream.cu``).
+
+Only int32 score state is ported; the state starts at NEGBIG = -2**24 and
+the boundaries hold NEG_INF, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sequencealigning_tpu.config import ScoringScheme
+from sequencealigning_tpu_torch import csrc
+from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker
+from sequencealigning_tpu_torch.ops.nw_affine_modes import (
+    NEGBIG,
+    mode_candidates,
+    modes_reduce,
+)
+from sequencealigning_tpu_torch.ops.nw_affine_stream import (
+    StreamPlan,
+    _check_fill_args,
+    resolve_stream_state,
+    stream_inputs,
+    stream_step_torch,
+)
+
+MODES = ("semi", "local")
+
+
+class StreamModesResult(NamedTuple):
+    """best/best_x/best_y: (B,) per-pair end cell (score, x, y), reduced on
+    the fill's device; dirs: (t_total/4, n_rows, P) uint32 full bytes on
+    that device, or None."""
+
+    best: np.ndarray
+    best_x: np.ndarray
+    best_y: np.ndarray
+    dirs: Optional[torch.Tensor]
+    plan: StreamPlan
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def gotoh_fill_stream_modes_torch(
+    qstream, dstream, dsums, n2s,
+    plan: StreamPlan, scheme: ScoringScheme,
+    wildcard: bool, mode: str, with_dirs: bool,
+):
+    """Plain PyTorch twin of gotoh_fill_stream_modes_lax.  qstream/dstream:
+    (R, t_total) int32; dsums/n2s: (np_slots, R) int32 (n1+n2 and n2 of
+    each slot's pair).  Returns ((bv, bd) each (np_slots, R, P) int32,
+    dirs uint32 or None)."""
+    _check_mode(mode)
+    _check_fill_args(qstream, dstream, dsums, n2s, plan,
+                     "full" if with_dirs else None)
+    R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
+    dev = qstream.device
+    state = torch.full((R, P), NEGBIG, dtype=torch.int32, device=dev)
+    H2 = H1 = M1 = I1 = D1 = state
+    s1d = torch.zeros((R, P), dtype=torch.int32, device=dev)
+    s2v = torch.zeros((R, P), dtype=torch.int32, device=dev)
+    bv = torch.full((NP, R, P), NEGBIG, dtype=torch.int32, device=dev)
+    bd = torch.zeros((NP, R, P), dtype=torch.int32, device=dev)
+    x_iota = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+    n2k = n2s[:, :, None]
+    n1k = dsums[:, :, None] - n2k
+    pack = DirsPacker.for_stream("full" if with_dirs else None, plan, dev)
+
+    for t in range(plan.t_total):
+        M, I, D, H, s1d, code = stream_step_torch(
+            H2, H1, M1, I1, D1, s1d, s2v, qstream[:, t], dstream[:, t],
+            t % S, scheme, False, wildcard, "full" if with_dirs else None,
+            mode=mode,
+        )
+        for k in (t // S - 1, t // S):
+            if not 0 <= k < NP:
+                continue
+            pk = t - k * S
+            elig, score = mode_candidates(mode, M, H, x_iota, pk, n1k[k],
+                                          n2k[k])
+            upd = elig & (score > bv[k])
+            bv[k] = torch.where(upd, score, bv[k])
+            bd[k] = torch.where(upd, pk, bd[k])
+        if pack is not None:
+            pack.add(t, code)
+        H2, H1, M1, I1, D1 = H1, H, M, I, D
+
+    return (bv, bd), pack.dirs if pack is not None else None
+
+
+def gotoh_fill_stream_modes_cuda(
+    qstream, dstream, dsums, n2s,
+    plan: StreamPlan, scheme: ScoringScheme,
+    wildcard: bool, mode: str, with_dirs: bool,
+):
+    """The streamed modes kernel (csrc/nw_affine_stream.cu) on CUDA tensors:
+    same arguments and results as gotoh_fill_stream_modes_torch.  Raises on
+    a CPU tensor, a non-contiguous input, more than 8192 lanes or a failed
+    launch."""
+    _check_mode(mode)
+    _check_fill_args(qstream, dstream, dsums, n2s, plan,
+                     "full" if with_dirs else None)
+    if not qstream.is_cuda:
+        raise ValueError("gotoh_fill_stream_modes_cuda needs CUDA tensors")
+    if not all(t.is_contiguous() for t in (qstream, dstream, dsums, n2s)):
+        raise ValueError("stream modes fill inputs must be contiguous")
+    lib = csrc.kernels()
+    R, P, NP = plan.n_rows, plan.p, plan.np_slots
+    if lib.sa_stream_lanes_per_thread(P) == 0:
+        raise ValueError(f"lane width {P} exceeds the CUDA fill kernel's "
+                         "8192 lanes; see ROADMAP.md")
+    dev = qstream.device
+    # Lanes at or past S never hold an eligible cell and are never written
+    # by the kernel: they keep the initial (NEGBIG, 0).
+    best = torch.empty((2, NP, R, P), dtype=torch.int32, device=dev)
+    best[0].fill_(NEGBIG)
+    best[1].zero_()
+    dirs = None
+    if with_dirs:
+        dirs = torch.empty((plan.t_total // 4, R, P), dtype=torch.uint32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_stream_modes_fill(
+            qstream.data_ptr(), dstream.data_ptr(), dsums.data_ptr(),
+            n2s.data_ptr(), best.data_ptr(),
+            dirs.data_ptr() if dirs is not None else None,
+            R, plan.t_total, P, plan.s, NP,
+            scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, 2 if with_dirs else 0, int(mode == "local"),
+            int(wildcard), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sa_stream_modes_fill launch failed (error {rc})")
+    gotoh_fill_stream_modes_cuda.launches += 1
+    return (best[0], best[1]), dirs
+
+
+gotoh_fill_stream_modes_cuda.launches = 0
+
+
+def gotoh_fill_stream_modes(qstream, dstream, dsums, n2s, plan, scheme,
+                            wildcard, mode, with_dirs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (qstream, dstream, dsums, n2s, plan, scheme, wildcard, mode,
+            with_dirs)
+    if qstream.is_cuda:
+        return gotoh_fill_stream_modes_cuda(*args)
+    if qstream.device.type != "cpu":
+        raise ValueError(f"unsupported device {qstream.device}")
+    return gotoh_fill_stream_modes_torch(*args)
+
+
+def nw_affine_stream_modes_batch(
+    query: torch.Tensor,
+    db: torch.Tensor,
+    query_len: torch.Tensor,
+    db_len: torch.Tensor,
+    mode: str,
+    scheme: ScoringScheme = ScoringScheme(),
+    wildcard: bool = False,
+    with_dirs: bool = True,
+    np_slots: Optional[int] = None,
+    chunk: int = 128,
+    state_dtype="i32",
+) -> StreamModesResult:
+    """Streamed batched semi-global/local fill (mode "semi" or "local") of
+    a padded batch held as tensors (device.to_device); padding pairs are
+    stripped.  The (B,) end cells come to the host; the dirs stay on the
+    batch's device.  Use stream_modes_best() per pair."""
+    _check_mode(mode)
+    resolve_stream_state(state_dtype)
+    B = query.shape[0]
+    plan, ins = stream_inputs(query, db, query_len, db_len, np_slots, chunk)
+    (bv, bd), dirs = gotoh_fill_stream_modes(
+        *ins, plan, scheme, wildcard, mode, with_dirs
+    )
+    P = plan.p
+    best, x, y = modes_reduce(bv.transpose(0, 1).reshape(-1, P),
+                              bd.transpose(0, 1).reshape(-1, P))
+    best, x, y = (t[:B].cpu().numpy() for t in (best, x, y))
+    return StreamModesResult(best=best, best_x=x, best_y=y, dirs=dirs,
+                             plan=plan)
+
+
+def stream_modes_best(result: StreamModesResult, b: int) -> Tuple[int, int, int]:
+    """(score, x, y) of pair b's best end cell."""
+    return (
+        int(result.best[b]), int(result.best_x[b]), int(result.best_y[b])
+    )

@@ -1,4 +1,5 @@
-"""On-device fast4 first-path traceback: the port of ops/traceback_device.py.
+"""On-device tracebacks: the port of ops/traceback_device.py, fast4 and
+textbook modes.
 
 The streamed fill's fast4 direction tensor (0.5 byte a cell) stays on the
 device; each pair walks from its corner to the origin reading one nibble a
@@ -14,6 +15,12 @@ Two implementations of the walk, chosen by the direction tensor's device:
   Python loop over steps (CPU tensors, and the reference for the kernel);
 * ``walk_fast4_cuda`` -- the hand-written kernel
   (``csrc/traceback_device.cu``; CUDA tensors only), one thread a pair.
+
+The textbook semi-global / local fills (ops.nw_affine_modes,
+ops.nw_affine_stream_modes) are walked the same way over their full
+direction bytes (``walk_modes_torch`` / ``walk_modes_cuda``, the twins of
+_walk_modes_impl): from each pair's end cell to its stop cell, emitting the
+same packed 2-bit op codes.
 """
 
 from __future__ import annotations
@@ -24,11 +31,18 @@ import numpy as np
 import torch
 
 from sequencealigning_tpu import native
+from sequencealigning_tpu.errors import AlignerError, AlignmentError
+from sequencealigning_tpu.ops.traceback import (
+    local_affine_traceback_pair,
+    semi_global_traceback_pair,
+)
 from sequencealigning_tpu_torch import csrc
 
 # Walk planes: 0 = M, 1 = I, 2 = D, 3 = pending (resolved from the next
-# step's own nibble; set only after a diagonal move).
+# step's own nibble; set only after a diagonal move); the modes walk's
+# plane when a byte has no H-plane bit (a corrupt fill).
 _PEND = 3
+_BROKEN = 4
 _OP_LUT = np.frombuffer(b"\x00MID", dtype=np.uint8)
 # Steps between all-pairs-done checks of the plain walk, and the unit of
 # the packed output width (ceil(t_steps / 512) * 32 words, as the JAX walk).
@@ -267,3 +281,236 @@ def fast4_stream_align_device(
     ended = (xf == 0) & (yf == 0)
     alns = [a if ended[b] else None for b, a in enumerate(alns)]
     return alns, finals.max(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Textbook modes walk
+# ---------------------------------------------------------------------------
+
+
+def _modes_step(byte, x, y, plane, st, local: bool):
+    """One modes-walk step for every pair given its current cell's full
+    direction byte: (op, x', y', plane', st').  As the step of
+    ops/traceback_device._walk_modes_impl: a pending plane resolves from
+    the H bits (M > I > D, _BROKEN when none), broken (that, or x/y below
+    0) beats the stop rule (semi: x == 0 or y == 0; local: an M-plane
+    LSTART), and a stopped walk emits 0 and moves no more."""
+    resolved = torch.where(
+        (byte & 1) != 0, 0,
+        torch.where((byte & 2) != 0, 1,
+                    torch.where((byte & 4) != 0, 2, _BROKEN)),
+    )
+    plane = torch.where(plane == _PEND, resolved, plane)
+    if local:
+        stop_now = (plane == 0) & ((byte & 128) != 0)
+    else:
+        stop_now = (x == 0) | (y == 0)
+    broken = (plane == _BROKEN) | (x < 0) | (y < 0)
+    st = torch.where(st != 0, st,
+                     torch.where(broken, 2, torch.where(stop_now, 1, 0)))
+    active = st == 0
+    op = torch.where(active, plane + 1, 0)
+    step_x = active & ((plane == 0) | (plane == 2))
+    step_y = active & ((plane == 0) | (plane == 1))
+    nxt = torch.where(
+        plane == 0, _PEND,
+        torch.where(plane == 1, torch.where((byte & 8) != 0, 1, 0),
+                    torch.where((byte & 32) != 0, 2, 0)),
+    )
+    plane = torch.where(active, nxt, plane).to(torch.int32)
+    x = x - step_x.to(torch.int32)
+    y = y - step_y.to(torch.int32)
+    return op, x, y, plane, st.to(torch.int32)
+
+
+def _check_modes_walk_args(dirs, seeds, t_steps: int):
+    if dirs.dtype != torch.uint32 or dirs.dim() != 3:
+        raise ValueError(f"dirs: expected (W, R, P) uint32, got {dirs.dtype} "
+                         f"{tuple(dirs.shape)}")
+    b = seeds[0].shape[0]
+    for t in seeds:
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,):
+            raise ValueError(f"walk seeds must be ({b},) int32")
+        if t.device != dirs.device:
+            raise ValueError(f"walk seed on {t.device}, dirs on {dirs.device}")
+    if t_steps < 1:
+        raise ValueError("t_steps must be positive")
+    rowp = seeds[2]
+    if b and (int(rowp.min()) < 0 or int(rowp.max()) >= dirs.shape[1]):
+        raise ValueError("walk rows reach outside the dirs tensor")
+
+
+def walk_modes_torch(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
+    """Plain PyTorch twin of the JAX _walk_modes: every pair walks from its
+    end cell (x0, y0) for up to ceil(t_steps/512)*512 steps (checking every
+    512 steps whether all have stopped).  dirs: (W, R, P) uint32 full
+    bytes, the cell's byte d & 3 of word dirs[d >> 2, row, x] with
+    d = x + y + off, indices clipped into the tensor.  Returns (xf, yf, st
+    (1 stopped cleanly, 2 broken or still running), packed (B,
+    packed_width(t_steps)) uint32 op codes, n_ops)."""
+    seeds = (x0, y0, rowp, off)
+    _check_modes_walk_args(dirs, seeds, t_steps)
+    W, _, P = dirs.shape
+    d32 = dirs.view(torch.int32)
+    x, y = x0.clone(), y0.clone()
+    plane = torch.full_like(x0, _PEND)
+    st = torch.zeros_like(x0)
+    row = rowp.long()
+    n_chunks = -(-t_steps // _CHUNK)
+    ops = torch.zeros((n_chunks * _CHUNK, x0.shape[0]), dtype=torch.int32,
+                      device=dirs.device)
+    for c in range(n_chunks):
+        if bool((st != 0).all()):
+            break
+        for i in range(c * _CHUNK, (c + 1) * _CHUNK):
+            d = x + y + off
+            w = d32[torch.clamp(d >> 2, 0, W - 1).long(), row,
+                    torch.clamp(x, 0, P - 1).long()]
+            byte = (w >> ((d & 3) * 8)) & 0xFF
+            op, x, y, plane, st = _modes_step(byte, x, y, plane, st, local)
+            ops[i] = op
+    st = torch.where(st == 0, 2, st).to(torch.int32)
+    n_ops = (ops != 0).sum(0, dtype=torch.int32)
+    return x, y, st, _pack_ops(ops), n_ops
+
+
+def walk_modes_cuda(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
+    """The modes walk kernel (csrc/traceback_device.cu) on CUDA tensors:
+    same arguments and results as walk_modes_torch.  Raises on a CPU
+    tensor, a non-contiguous input or a failed launch."""
+    seeds = (x0, y0, rowp, off)
+    _check_modes_walk_args(dirs, seeds, t_steps)
+    if not dirs.is_cuda:
+        raise ValueError("walk_modes_cuda needs CUDA tensors")
+    if not all(t.is_contiguous() for t in (dirs,) + seeds):
+        raise ValueError("walk inputs must be contiguous")
+    lib = csrc.kernels()
+    W, R, P = dirs.shape
+    B = x0.shape[0]
+    WP = packed_width(t_steps)
+    dev = dirs.device
+    packed = torch.empty((B, WP), dtype=torch.uint32, device=dev)
+    xf, yf, st, n_ops = (torch.empty(B, dtype=torch.int32, device=dev)
+                         for _ in range(4))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_walk_modes(
+            dirs.data_ptr(), W, R, P, x0.data_ptr(), y0.data_ptr(),
+            rowp.data_ptr(), off.data_ptr(), B, WP, int(local),
+            packed.data_ptr(), xf.data_ptr(), yf.data_ptr(), st.data_ptr(),
+            n_ops.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"sa_walk_modes launch failed (error {rc})")
+    walk_modes_cuda.launches += 1
+    return xf, yf, st, packed, n_ops
+
+
+walk_modes_cuda.launches = 0
+
+
+def walk_modes(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if dirs.is_cuda:
+        return walk_modes_cuda(dirs, x0, y0, rowp, off, local, t_steps)
+    if dirs.device.type != "cpu":
+        raise ValueError(f"unsupported device {dirs.device}")
+    return walk_modes_torch(dirs, x0, y0, rowp, off, local, t_steps)
+
+
+def modes_walk_device(dirs, end_x, end_y, rowp, off, seqs1, seqs2,
+                      local: bool, t_steps: int):
+    """Device walk of a textbook-modes fill (per-pair (D4, B, P) dirs with
+    rowp = b, off = 0, or streamed (T4, R, P) with the plan's row and
+    slot * S).  Only the used prefix of the op codes leaves the device.
+    Returns per pair (mid_aligned1, mid_aligned2, stop_x, stop_y) -- the
+    walked segment, exactly ops.traceback._walk_from's -- or None where the
+    walk failed validation."""
+    dev = dirs.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    end_x = np.asarray(end_x, np.int32)
+    end_y = np.asarray(end_y, np.int32)
+    xf, yf, st, packed, n_ops = walk_modes(
+        dirs, put(end_x), put(end_y), put(rowp), put(off), local, t_steps
+    )
+    n_words = max(1, -(-int(n_ops.max()) // 16)) if len(seqs1) else 1
+    packed = packed[:, :n_words].cpu().numpy()
+    return decode_modes_walk(packed, xf.cpu().numpy(), yf.cpu().numpy(),
+                             st.cpu().numpy(), end_x, end_y, seqs1, seqs2)
+
+
+def decode_modes_walk(packed, xf, yf, st, end_x, end_y, seqs1, seqs2):
+    """Decode each walk against the substrings it must consume
+    (seq1[stop_y:end_y], seq2[stop_x:end_x]): per pair (mid1, mid2,
+    stop_x, stop_y), or None where the walk did not stop cleanly or did not
+    consume exactly them.  As ops/traceback_device.decode_modes_walk."""
+    B = len(seqs1)
+    subs1 = [seqs1[b][int(yf[b]): int(end_y[b])] for b in range(B)]
+    subs2 = [seqs2[b][int(xf[b]): int(end_x[b])] for b in range(B)]
+    alns = decode_packed_alignments(packed, subs1, subs2)
+    out = []
+    for b in range(B):
+        if st[b] != 1 or alns[b] is None:
+            out.append(None)
+            continue
+        out.append((alns[b][0], alns[b][1], int(xf[b]), int(yf[b])))
+    return out
+
+
+def assemble_modes_alignments(pairs, walked, scores, end_x, end_y,
+                              local: bool, dirs_fetch=None):
+    """Full alignments from the modes walk's segments: local's segment is
+    the alignment; semi gets its free leading and trailing gap columns laid
+    out as ops.traceback.semi_global_traceback_pair lays them.  Empty pairs
+    are answered directly (score 0).  Where a walk returned None,
+    ``dirs_fetch(b) -> (dirs_b, d_off)`` supplies the pair's dirs row for
+    the host walker; without dirs_fetch (a kernel's walk, which the host
+    does not redo) the pair is an AlignmentError naming walk_modes_cuda.
+    Returns per pair (score, [(aligned1, aligned2)]) or an AlignerError.
+    As ops/traceback_device.assemble_modes_alignments."""
+    out = []
+    for b, (s1, s2) in enumerate(pairs):
+        if not s1 or not s2:
+            if local:
+                out.append((0, [("", "")]))
+            else:
+                out.append((0, [(
+                    s1.decode("latin-1") + "-" * len(s2),
+                    "-" * len(s1) + s2.decode("latin-1"),
+                )]))
+            continue
+        try:
+            score = int(scores[b])
+            x, y = int(end_x[b]), int(end_y[b])
+            w = walked[b] if walked is not None else None
+            if w is not None:
+                mid1, mid2, sx, sy = w
+                if local:
+                    a1, a2 = mid1, mid2
+                else:
+                    n1, n2 = len(s1), len(s2)
+                    a1 = (s1[:sy].decode("latin-1") + "-" * sx + mid1
+                          + s1[y:].decode("latin-1") + "-" * (n2 - x))
+                    a2 = ("-" * sy + s2[:sx].decode("latin-1") + mid2
+                          + "-" * (n1 - y) + s2[x:].decode("latin-1"))
+            elif dirs_fetch is None:
+                raise AlignmentError(
+                    "device modes walk (walk_modes_cuda) failed validation"
+                )
+            elif local:
+                dirs_b, d_off = dirs_fetch(b)
+                a1, a2, _sy, _sx = local_affine_traceback_pair(
+                    dirs_b, x, y, s1, s2, d_offset=d_off
+                )
+            else:
+                dirs_b, d_off = dirs_fetch(b)
+                a1, a2 = semi_global_traceback_pair(
+                    dirs_b, x, y, s1, s2, d_offset=d_off
+                )
+            out.append((score, [(a1, a2)]))
+        except AlignerError as e:
+            out.append(e)
+    return out

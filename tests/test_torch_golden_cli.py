@@ -28,6 +28,10 @@ def _run(args):
     ("needleman-wunsch", ["-a", "needleman-wunsch"]),
     ("nw-first-only", ["-a", "needleman-wunsch", "--first-only"]),
     ("nw-local-compat", ["-a", "needleman-wunsch", "-m", "local"]),
+    ("nw-local-textbook",
+     ["-a", "needleman-wunsch", "-m", "local", "--textbook"]),
+    ("nw-semiglobal-textbook",
+     ["-a", "needleman-wunsch", "-m", "semi-global", "--textbook"]),
 ])
 def test_port_cli_matches_golden(name, args):
     rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu"] + args)
@@ -50,6 +54,25 @@ def test_port_serve_answers_requests(monkeypatch):
     assert len(pairs) == 24 and all(p["error"] is None for p in pairs)
     assert lines[24]["done"] and lines[24]["pairs"] == 24
     assert "error" in lines[25]
+
+
+def test_port_serve_textbook_local(monkeypatch):
+    """--serve -m local --textbook answers the corpus with the same scores
+    and alignments as the one-shot CLI's golden output."""
+    q, d = CORPUS[1], CORPUS[3]
+    monkeypatch.setattr("sys.stdin", io.StringIO(f"{q} {d}\n"))
+    rc, out, _ = _run(["--serve", "-a", "needleman-wunsch", "-m", "local",
+                       "--textbook", "--device", "cpu"])
+    assert rc == 0
+    lines = [json.loads(s) for s in out.splitlines()]
+    pairs = [x for x in lines if "query_name" in x]
+    assert len(pairs) == 24 and all(p["error"] is None for p in pairs)
+    assert all(p["mode"] == "local" for p in pairs)
+    with open(os.path.join(HERE, "nw-local-textbook.out")) as f:
+        golden = f.read()
+    for p in pairs:
+        assert f"seq1: {p['aligned_query']}\n" in golden
+    assert lines[24]["done"] and lines[24]["pairs"] == 24
 
 
 def test_port_cli_unported_algo_exits_2():

@@ -1,7 +1,8 @@
-"""The CUDA kernels' per-cell and per-step arithmetic (csrc/*.cuh), built
-for the host through csrc/host_check.cpp, against the plain PyTorch
-versions on the same small batches (exact), plus the kernel wrappers'
-refusal of CPU tensors."""
+"""The CUDA kernels' per-cell and per-step arithmetic and loops (csrc/*.cuh
+through csrc/host_check.cpp, built for the host) against the plain PyTorch
+versions on the same small batches (exact): the global streamed fill and
+fast4 walk, the per-pair and streamed modes fills and the modes walk; plus
+the kernel wrappers' refusal of CPU tensors."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,9 @@ from sequencealigning_tpu.config import ScoringScheme
 from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream
 from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
 from sequencealigning_tpu_torch.ops import nw_affine_stream as fill
+from sequencealigning_tpu_torch.ops import nw_affine_stream_modes as smodes
 from sequencealigning_tpu_torch.ops import traceback_device as walk
 
 _DIRS = {None: 0, "fast4": 1, "full": 2}
@@ -118,3 +121,163 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         walk.walk_fast4_cuda(dirs, seed, seed, seed, seed, seed, t_steps=8)
     assert fill.gotoh_fill_stream_cuda.launches == 0
     assert walk.walk_fast4_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Textbook modes: kernels A (per-pair fill), B (streamed fill), C (walk)
+# ---------------------------------------------------------------------------
+
+
+def _modes_batch(seed, n, hi1, hi2):
+    """A padded per-pair modes batch (pack_batch layout, no trim), lengths
+    0..hi, a third of the db a mutated slice of the query."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(0, hi1 + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(0, hi2 + 1)))
+        if i % 3 == 1 and len(s1) > 4:
+            s2 = s1[2: 2 + min(hi2, len(s1) - 2)].copy()
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    batch = pack_batch(pairs, batch_size=-(-n // 8) * 8)
+    return pairs, to_device(batch, "cpu")
+
+
+def _host_modes_fill(host, seq1, s2v, n1, n2, l2, scheme, local, wildcard,
+                     with_dirs):
+    B, P = s2v.shape
+    D_total = seq1.shape[1] + l2 + 1
+    out = torch.zeros((2, B, P), dtype=torch.int32)
+    dirs = torch.zeros((-(-D_total // 4), B, P), dtype=torch.uint32)
+    rc = host.hc_modes_fill(
+        seq1.data_ptr(), s2v.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+        out.data_ptr(), dirs.data_ptr(), B, seq1.shape[1], P, D_total,
+        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        2 if with_dirs else 0, int(local), int(wildcard),
+    )
+    assert rc == 0
+    return out[0], out[1], dirs
+
+
+@pytest.mark.parametrize("wildcard", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("hi1,hi2", [(200, 30), (25, 140)])
+def test_host_modes_fill_matches_plain(host, local, wildcard, hi1, hi2):
+    """Kernel A's loop (the MODE cell and the per-lane argmax) against
+    fill_modes_torch, skewed both ways."""
+    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2) \
+        if wildcard else ScoringScheme()
+    _, tb = _modes_batch(5 + local + 2 * wildcard, 11, hi1, hi2)
+    s2v = modes.modes_layout(tb.db)
+    args = (tb.query, s2v, tb.query_len, tb.db_len)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    want = modes.fill_modes_torch(*args, l1, l2, scheme, wildcard, local, True)
+    got = _host_modes_fill(host, *args, l2, scheme, local, wildcard, True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
+                       with_dirs):
+    R, P, NP = plan.n_rows, plan.p, plan.np_slots
+    out = torch.empty((2, NP, R, P), dtype=torch.int32)
+    out[0].fill_(modes.NEGBIG)
+    out[1].zero_()
+    dirs = torch.zeros((plan.t_total // 4, R, P), dtype=torch.uint32)
+    rc = host.hc_stream_modes_fill(
+        qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
+        out.data_ptr(), dirs.data_ptr(), R, plan.t_total, P, plan.s, NP,
+        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        2 if with_dirs else 0, int(local), int(wildcard),
+    )
+    assert rc == 0
+    return out[0], out[1], dirs
+
+
+@pytest.mark.parametrize("with_dirs", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("np_slots,hi1,hi2", [(3, 90, 90), (2, 200, 20)])
+def test_host_stream_modes_fill_matches_plain(host, local, with_dirs,
+                                              np_slots, hi1, hi2):
+    """Kernel B's loop (one argmax register pair a lane, written at the
+    lane's turnover) against gotoh_fill_stream_modes_torch, with 2-3 slots
+    a row and a query longer than the lane width (S > P)."""
+    _, tb = _modes_batch(31 + local, 13, hi1, hi2)
+    plan, ins = fill.stream_inputs(*tb, np_slots=np_slots)
+    mode = "local" if local else "semi"
+    (bv, bd), dirs = smodes.gotoh_fill_stream_modes_torch(
+        *ins, plan, ScoringScheme(), True, mode, with_dirs
+    )
+    got = _host_stream_modes(host, plan, *ins, ScoringScheme(), local, True,
+                             with_dirs)
+    np.testing.assert_array_equal(got[0].numpy(), bv.numpy())
+    np.testing.assert_array_equal(got[1].numpy(), bd.numpy())
+    if with_dirs:
+        np.testing.assert_array_equal(got[2].numpy(), dirs.numpy())
+    else:
+        assert dirs is None
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_host_walk_modes_matches_plain(host, local, streamed):
+    """Kernel C's loop (walk_modes_pair) against walk_modes_torch on both
+    dirs layouts, with a corrupted pair (broken status) and clipped
+    out-of-range seeds."""
+    pairs, tb = _modes_batch(47 + local + 2 * streamed, 16, 70, 70)
+    mode = "local" if local else "semi"
+    B = len(pairs)
+    if streamed:
+        res = smodes.nw_affine_stream_modes_batch(*tb, mode, np_slots=2)
+        bs = np.arange(B)
+        rowp = bs // res.plan.np_slots
+        off = (bs % res.plan.np_slots) * res.plan.s
+        t_steps = res.plan.l1 + res.plan.l2
+    else:
+        res = modes.nw_affine_modes_batch(*tb, local=local)
+        rowp, off = np.arange(B), np.zeros(B)
+        t_steps = tb.query.shape[1] + tb.db.shape[1]
+    dirs = res.dirs.clone()
+    dirs[:, int(rowp[3]), :] = 0  # pair 3's cells lose their H bits
+    x0 = np.asarray(res.best_x[:B], np.int32)
+    y0 = np.asarray(res.best_y[:B], np.int32)
+    x0[5], y0[6] = 10 ** 6, -3  # out of the tensor: clipped, then broken
+    seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+             for a in (x0, y0, rowp, off)]
+    want = walk.walk_modes_torch(dirs, *seeds, local, t_steps)
+    W = walk.packed_width(t_steps)
+    packed = torch.empty((B, W), dtype=torch.uint32)
+    xf, yf, st, n_ops = (torch.empty(B, dtype=torch.int32) for _ in range(4))
+    rc = host.hc_walk_modes(
+        dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds), B, W,
+        int(local), packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
+        st.data_ptr(), n_ops.data_ptr(),
+    )
+    assert rc == 0
+    for got, exp in zip((xf, yf, st, packed, n_ops), want):
+        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    hit = (rowp == rowp[3]) | np.isin(np.arange(B), (5, 6))
+    assert (st.numpy()[[3, 6]] == 2).all()
+    assert (st.numpy()[~hit] == 1).all()
+
+
+def test_modes_wrappers_refuse_cpu_tensors():
+    _, tb = _modes_batch(3, 8, 20, 20)
+    s2v = modes.modes_layout(tb.db)
+    with pytest.raises(ValueError, match="CUDA"):
+        modes.modes_fill_cuda(tb.query, s2v, tb.query_len, tb.db_len,
+                              tb.query.shape[1], tb.db.shape[1],
+                              ScoringScheme(), False, True, True)
+    plan, ins = fill.stream_inputs(*tb)
+    with pytest.raises(ValueError, match="CUDA"):
+        smodes.gotoh_fill_stream_modes_cuda(*ins, plan, ScoringScheme(),
+                                            False, "local", True)
+    dirs = torch.zeros((4, 8, 128), dtype=torch.uint32)
+    seed = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        walk.walk_modes_cuda(dirs, seed, seed, seed, seed, True, 8)
+    assert modes.modes_fill_cuda.launches == 0
+    assert smodes.gotoh_fill_stream_modes_cuda.launches == 0
+    assert walk.walk_modes_cuda.launches == 0

@@ -58,9 +58,13 @@ def test_compat_local_mode_is_per_pair_not_implemented():
 
 
 def test_unported_routes_raise():
-    recs = _records(1, n=2)
+    """Other algorithms and int16 stream state are not ported; textbook
+    local now runs (test_port_textbook_modes_match_jax), except on int16
+    state, which its streamed route refuses as the global path does."""
+    recs = _records(1, n=32)
     textbook_local = AlignConfig(
-        algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL, compat=False
+        algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL, compat=False,
+        stream_state="i16",
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_aligner(textbook_local, "cpu").align_batch(recs)
@@ -146,3 +150,127 @@ def test_lane_ceilings(monkeypatch, device):
     monkeypatch.setattr(GotohAligner, "long_pair_lanes", 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.align_batch(recs)
+
+
+def _modes_records(seed, n):
+    """Pairs for the textbook modes: local hits (a mutated slice of the
+    query), unrelated pairs, and empty sequences on either side."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, 70)))
+        s2 = rng.choice(alpha, int(rng.integers(1, 70)))
+        if i % 3 == 1 and len(s1) > 8:
+            s2 = s1[4: 4 + int(rng.integers(3, len(s1) - 3))].copy()
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        if i == 2:
+            s1 = s1[:0]
+        if i == 5:
+            s2 = s2[:0]
+        recs.append((Record(seq=s1.tobytes(), name=b">q%d" % i),
+                     Record(seq=s2.tobytes(), name=b">d%d" % i)))
+    return recs
+
+
+@pytest.mark.parametrize("n", [8, 40])  # per-pair route / streamed route
+@pytest.mark.parametrize("mode", [Mode.LOCAL, Mode.SEMI_GLOBAL])
+def test_port_textbook_modes_match_jax(mode, n):
+    """Textbook semi-global and local on the CPU: scores, aligned strings,
+    CIGARs and errors equal the JAX aligner's, pair for pair, on both the
+    per-pair (< 32 pairs) and the streamed route, empty pairs included."""
+    recs = _modes_records(17 + n, n)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=mode, compat=False)
+    port = GotohAligner(config, device="cpu")
+    got = port.align_batch(recs)
+    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert all(r.ok for r in got) and port.host_fallbacks == 0
+    assert all(r.alignments is None for r in got)
+
+
+def test_compat_semi_global_is_per_pair_not_implemented():
+    recs = _records(9, n=4)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.SEMI_GLOBAL)
+    got = get_aligner(config, "cpu").align_batch(recs)
+    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert [r.error for r in got] == ["not implemented"] * 4
+
+
+def _drop_modes_walk_of_pair_1(monkeypatch, gotoh_mod):
+    real = gotoh_mod.modes_walk_device
+
+    def drop(*args, **kwargs):
+        walked = real(*args, **kwargs)
+        walked[1] = None
+        return walked
+
+    monkeypatch.setattr(gotoh_mod, "modes_walk_device", drop)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_failed_modes_walk(monkeypatch, device):
+    """A failed modes walk is re-walked on the host on the CPU (counted in
+    host_fallbacks, same result) and is that pair's AlignmentError naming
+    the kernel on CUDA (the tensors stay on the CPU here: only the
+    aligner's device says cuda)."""
+    import torch
+
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+
+    recs = _modes_records(3, 8)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL,
+                         compat=False)
+    want = _view(GotohAligner(config, device="cpu").align_batch(recs))
+    _drop_modes_walk_of_pair_1(monkeypatch, gotoh_mod)
+    real_to_device = gotoh_mod.to_device
+    monkeypatch.setattr(gotoh_mod, "to_device",
+                        lambda batch, dev: real_to_device(batch, "cpu"))
+    monkeypatch.setattr(GotohAligner, "_dirs_budget",
+                        lambda self, host_fetch=None: self.dirs_host_budget)
+    port = GotohAligner(config, device="cpu")
+    port.device = torch.device(device)
+    got = _view(port.align_batch(recs))
+    if device == "cpu":
+        assert got == want and port.host_fallbacks == 1
+    else:
+        assert got[:1] + got[2:] == want[:1] + want[2:]
+        assert got[1][2:5] == (None,) * 3
+        assert "walk_modes_cuda" in got[1][7]
+        assert port.host_fallbacks == 0
+
+
+@pytest.mark.parametrize("n", [8, 40])
+def test_modes_cuda_lane_ceiling(monkeypatch, n):
+    """Textbook modes pairs beyond the kernels' lanes raise on CUDA only;
+    the plain fills on the CPU take them."""
+    import torch
+
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+
+    recs = _modes_records(11, n)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.SEMI_GLOBAL,
+                         compat=False)
+    monkeypatch.setattr(GotohAligner, "cuda_fill_lanes", 128)
+    monkeypatch.setattr(GotohAligner, "_dirs_budget",
+                        lambda self, host_fetch=None: self.dirs_host_budget)
+    port = GotohAligner(config, device="cpu")
+    assert all(r.ok for r in port.align_batch(recs))
+    port.device = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="256 lanes on cuda"):
+        port.align_batch(recs)
+
+
+def test_modes_chunked_drain_equals_unchunked(monkeypatch):
+    """A modes batch over the dirs budget fills in drained sub-batches with
+    identical results."""
+    recs = _modes_records(23, 12)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.SEMI_GLOBAL,
+                         compat=False)
+    want = _view(GotohAligner(config, device="cpu").align_batch(recs))
+    monkeypatch.setattr(GotohAligner, "dirs_host_budget", 200_000)
+    port = GotohAligner(config, device="cpu")
+    from sequencealigning_tpu.io.encode import pack_batch
+
+    batch = pack_batch([(q.seq, d.seq) for q, d in recs], batch_size=16)
+    assert port._dirs_chunks(batch, 12, per_byte=1.0) > 1
+    assert _view(port.align_batch(recs)) == want

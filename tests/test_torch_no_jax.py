@@ -25,7 +25,9 @@ def _modules():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = _modules()
-    assert "sequencealigning_tpu_torch.cli" in mods
+    for m in ("cli", "ops.nw_affine", "ops.nw_affine_modes",
+              "ops.nw_affine_stream_modes", "ops.traceback_device"):
+        assert f"sequencealigning_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -148,3 +148,41 @@ def test_int16_state_not_ported():
             tb.query, tb.db, tb.query_len, tb.db_len, state_dtype="i16"
         )
     assert port.resolve_stream_state("auto") == torch.int32
+
+
+@pytest.mark.parametrize("dirs_mode", [None, "fast4", "full"])
+def test_plain_fill_with_query_longer_than_lanes(dirs_mode):
+    """A trimmed batch whose query outgrows its db (S > P): the moving
+    boundary lane p passes the lane width, where it takes neither db code
+    nor boundary, as in gotoh_fill_stream_lax (the plain fill used to index
+    past P here)."""
+    rng = np.random.default_rng(8)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = [(rng.choice(alpha, int(rng.integers(150, 230))).tobytes(),
+              rng.choice(alpha, int(rng.integers(5, 40))).tobytes())
+             for _ in range(12)]
+    batch = trim_for_stream(pack_batch(pairs, batch_size=16))
+    plan = port.plan_stream(16, batch.query.shape[1], batch.db.shape[1],
+                            np_slots=2)
+    assert plan.s > plan.p
+    q, d, ql, dl = _padded(batch, plan)
+    qs, ds, dsy, n2y, _, _ = jax_stream.build_stream_inputs(q, d, ql, dl, plan)
+    NP = plan.np_slots
+    (fm, fi, fd), dirs_j = jax_stream.gotoh_fill_stream_lax(
+        jnp.asarray(qs), jnp.asarray(ds),
+        jnp.asarray(dsy[:NP, :, 0]), jnp.asarray(n2y[:NP, :, 0]),
+        jax_stream.StreamPlan(*plan), ScoringScheme(), False, False,
+        dirs_mode,
+    )
+    finals, dirs = port.gotoh_fill_stream_torch(
+        torch.from_numpy(qs), torch.from_numpy(ds),
+        torch.from_numpy(np.ascontiguousarray(dsy[:NP, :, 0])),
+        torch.from_numpy(np.ascontiguousarray(n2y[:NP, :, 0])),
+        plan, ScoringScheme(), False, False, dirs_mode,
+    )
+    finals_j = np.stack(
+        [np.asarray(a).T.reshape(-1) for a in (fm, fi, fd)], axis=1
+    )
+    np.testing.assert_array_equal(finals.numpy(), finals_j)
+    if dirs_mode:
+        np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_j))

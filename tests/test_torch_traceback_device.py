@@ -1,5 +1,6 @@
-"""PyTorch port of the fast4 device walk vs the JAX package's walk and the
-host walker (exact: op codes, end cells and alignments must be equal)."""
+"""PyTorch port of the device walks (fast4 and textbook modes) vs the JAX
+package's walks and the host walkers (exact: op codes, end cells, status
+and alignments must be equal)."""
 
 import numpy as np
 import pytest
@@ -9,8 +10,16 @@ import jax.numpy as jnp
 
 from sequencealigning_tpu.io.encode import pack_batch
 from sequencealigning_tpu.ops import traceback_device as jax_tbd
+from sequencealigning_tpu.ops.nw_affine_modes import nw_affine_modes_batch
 from sequencealigning_tpu.ops.nw_affine_stream import nw_affine_stream_batch
-from sequencealigning_tpu.ops.traceback import fast4_traceback_pair
+from sequencealigning_tpu.ops.nw_affine_stream_modes import (
+    nw_affine_stream_modes_batch,
+)
+from sequencealigning_tpu.ops.traceback import (
+    fast4_traceback_pair,
+    local_affine_traceback_pair,
+    semi_global_traceback_pair,
+)
 from sequencealigning_tpu_torch.ops import traceback_device as port
 
 
@@ -126,3 +135,125 @@ def test_decode_rejects_inconsistent_ops():
     packed = np.zeros((1, 1), np.uint32)
     packed[0, 0] = 0b0101  # two M steps for a 1x1 pair
     assert port.decode_packed_ops(packed, np.array([1]), np.array([1])) == [None]
+
+
+# ---------------------------------------------------------------------------
+# Textbook modes walk
+# ---------------------------------------------------------------------------
+
+
+def _modes_fill(pairs, local, streamed):
+    """A JAX lax modes fill (per-pair or streamed) and its walk seeds:
+    (dirs as a writable host array, end cells, rows, offsets, t_steps,
+    scores)."""
+    batch = pack_batch(pairs, batch_size=-(-len(pairs) // 8) * 8)
+    B = len(pairs)
+    if streamed:
+        res = nw_affine_stream_modes_batch(
+            batch.query, batch.db, batch.query_len, batch.db_len,
+            "local" if local else "semi", backend="lax", np_slots=3,
+        )
+        bs = np.arange(B)
+        rowp = bs // res.plan.np_slots
+        off = (bs % res.plan.np_slots) * res.plan.s
+        t_steps = int(res.plan.l1 + res.plan.l2)
+    else:
+        res = nw_affine_modes_batch(
+            batch.query, batch.db, batch.query_len, batch.db_len,
+            local=local, backend="lax",
+        )
+        rowp, off = np.arange(B), np.zeros(B)
+        t_steps = int(batch.query.shape[1] + batch.db.shape[1])
+    seeds = [np.array(a[:B], np.int32)
+             for a in (res.best_x, res.best_y, rowp, off)]
+    return np.array(res.dirs), seeds, t_steps, res.best[:B]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_plain_modes_walk_matches_jax_walk(local, streamed):
+    """walk_modes_torch against the JAX _walk_modes on both dirs layouts:
+    packed ops, stop cells and status, with a corrupted pair (broken) and
+    seeds outside the tensor (clipped, then broken)."""
+    pairs = _pairs(61 + local + 2 * streamed, n=21, hi=45)
+    dirs, seeds, t_steps, _ = _modes_fill(pairs, local, streamed)
+    dirs[:, seeds[2][4], :] = 0
+    seeds[0][7], seeds[1][8] = 10 ** 5, -2
+    (xf_j, yf_j, st_j), packed_j, _ = jax_tbd._walk_modes(
+        jnp.asarray(dirs), *(jnp.asarray(s) for s in seeds), local=local,
+        t_steps=t_steps,
+    )
+    xf, yf, st, packed, n_ops = port.walk_modes_torch(
+        torch.from_numpy(dirs), *(torch.from_numpy(s) for s in seeds),
+        local, t_steps,
+    )
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
+    np.testing.assert_array_equal(xf.numpy(), np.asarray(xf_j))
+    np.testing.assert_array_equal(yf.numpy(), np.asarray(yf_j))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(st_j))
+    assert st[4] == 2 and st[8] == 2
+    counts = ((packed.numpy()[:, :, None] >> (2 * np.arange(16))) & 3) != 0
+    np.testing.assert_array_equal(n_ops.numpy(), counts.sum((1, 2)))
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_modes_device_align_matches_host_walkers(local, streamed):
+    """modes_walk_device + assemble_modes_alignments against the host
+    walkers the JAX package falls back to, and against the JAX decode."""
+    pairs = _pairs(83 + local + 2 * streamed, n=20, hi=40)
+    dirs, seeds, t_steps, scores = _modes_fill(pairs, local, streamed)
+    end_x, end_y, rowp, off = seeds
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    walked = port.modes_walk_device(torch.from_numpy(dirs), end_x, end_y,
+                                    rowp, off, s1s, s2s, local, t_steps)
+    want_walked = jax_tbd.modes_walk_device(
+        jnp.asarray(dirs), end_x, end_y, rowp, off, s1s, s2s, local, t_steps
+    )
+    assert walked == want_walked
+    assert all(w is not None for w in walked)
+    got = port.assemble_modes_alignments(pairs, walked, scores, end_x, end_y,
+                                         local)
+    for b, (s1, s2) in enumerate(pairs):
+        dirs_b = dirs[:, rowp[b], :]
+        x, y = int(end_x[b]), int(end_y[b])
+        if local:
+            a1, a2, _, _ = local_affine_traceback_pair(dirs_b, x, y, s1, s2,
+                                                       d_offset=int(off[b]))
+        else:
+            a1, a2 = semi_global_traceback_pair(dirs_b, x, y, s1, s2,
+                                                d_offset=int(off[b]))
+        assert got[b] == (int(scores[b]), [(a1, a2)]), b
+
+
+def test_failed_modes_walk_needs_host_or_is_an_error():
+    """A pair whose walk is None is re-walked through dirs_fetch where one
+    is given (CPU), and is an AlignmentError naming the kernel without one
+    (CUDA); empty pairs are answered directly."""
+    pairs = _pairs(5, n=6, hi=20) + [(b"", b"ACG"), (b"TT", b"")]
+    dirs, seeds, t_steps, scores = _modes_fill(pairs, True, False)
+    end_x, end_y, rowp, off = seeds
+    walked = port.modes_walk_device(
+        torch.from_numpy(dirs), end_x, end_y, rowp, off,
+        [a for a, _ in pairs], [b for _, b in pairs], True, t_steps,
+    )
+    full = port.assemble_modes_alignments(pairs, walked, scores, end_x,
+                                          end_y, True)
+    walked[2] = None
+    fetched = []
+
+    def fetch(b):
+        fetched.append(b)
+        return dirs[:, rowp[b], :], 0
+
+    assert port.assemble_modes_alignments(
+        pairs, walked, scores, end_x, end_y, True, dirs_fetch=fetch) == full
+    assert fetched == [2]
+    got = port.assemble_modes_alignments(pairs, walked, scores, end_x, end_y,
+                                         True)
+    assert "walk_modes_cuda" in str(got[2])
+    assert got[:2] + got[3:] == full[:2] + full[3:]
+    assert full[6:] == [(0, [("", "")]), (0, [("", "")])]
+    semi = port.assemble_modes_alignments(pairs[6:], [None, None], [0, 0],
+                                          [0, 0], [0, 0], False)
+    assert semi == [(0, [("---", "ACG")]), (0, [("TT", "--")])]
