@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py [--out DIR]
 
-Drives sequencealigning_tpu_torch (never JAX) in the phases below and
-exits non-zero at the first failure:
+Drives sequencealigning_tpu_torch (never JAX, nothing of the JAX package)
+in the phases below and exits non-zero at the first failure:
 
 1. device: a CUDA card must be present; prints its nvidia-smi name and
    power limit;
-2. build: compiles the CUDA kernels from csrc/ (nvcc, sm_90a);
+2. build: compiles the CUDA kernels from csrc/ (one nvcc a source, in
+   parallel, sm_90a);
 3. fill kernel vs its plain PyTorch version on the card: ragged batches
    over compat/textbook x dirs none/fast4/full x wildcard, then the main
-   path's shape (4096 pairs x 2046 bp, fast4): finals equal, direction
-   codes equal on every cell of every real pair;
+   path's shape (4096 pairs x 2046 bp, fast4) with its rows in one block
+   and split over a 4-CTA cluster (forced 512-lane CTAs): finals equal,
+   direction codes equal on every cell of every real pair;
 4. walk kernel vs its plain version and vs the native host walker;
 5. main path: GotohAligner(first_only) on cuda through align_batch over
    4096 x 2046 bp pairs at ~1% divergence; every pair aligned, no host
@@ -33,16 +35,35 @@ exits non-zero at the first failure:
    affine scoring (semi with free end gaps) equal to its score; one more
    local align_batch under torch.profiler and cProfile;
 9. CLI (first-only, co-optimal, textbook local and semi-global: the
-   per-pair modes kernel's path) and serve (first-only and textbook local)
-   on the golden corpus with --device cuda.
+   per-pair modes kernel's path, and -a banded) and serve (first-only,
+   textbook local, banded) on the golden corpus with --device cuda;
+10. banded fill kernel vs its plain version at BASELINE config 4's shape
+   (1024 pairs x 5115 bp, band 128), fast4 and full: finals and the whole
+   dirs tensor; then small ragged and skewed batches over compat/textbook x
+   wildcard x dirs and the std model, and bands of 1400-4200 (4, 8 and 16
+   lanes a thread);
+11. banded walk kernel vs its plain version on the 1024 pairs (packed ops,
+   end cells, op counts) and vs the host walker on sampled pairs;
+12. banded main path: BandedAligner first-only over the 1024 x 5115 bp
+   pairs (alignments/s, peak memory) and the default full-dirs path over
+   64 of them; every alignment consumes its sequences and rescores to its
+   score;
+13. past 8192 lanes: the global fast4, local and semi-global streamed fills
+   and the per-pair modes fill at a ~8.3 kb db vs their plain versions,
+   split into 3 CTAs of 4096 lanes and into 2 of 8192 (16 lanes a thread,
+   as rows past 32768 lanes take), then one global first-only pair of
+   ~49 kb through GotohAligner whose alignment rescores to its score.
 
-The second-to-last line is a JSON object with, for each kernel, its
-launches on the path that runs it (in total and by path), its largest
-error against the plain version, and its kernel and plain times with the
-shape they were taken at (for the modes kernels, local's times, and
-semi-global's under "semi-global"); the last line is
-{"ok": true, "device": {...}}.  --out DIR writes the compiler log,
-the measurements and the profile tables there.
+Launch counts are read per path: every kernel's count is set to 0 just
+before a path runs and read just after; comparisons with plain versions
+are not counted.  The second-to-last line is a JSON object with, for each
+kernel, its launches (in total and by path), its largest error against
+the plain version, its kernel and plain times with the shape they were
+taken at, its bound (the least time the card could take: the larger of
+its bytes over 3.35 TB/s and its integer operations over 16.75 Tops/s)
+and library_ms (null: no single PyTorch call computes these functions);
+the last line is {"ok": true, "device": {...}}.  --out DIR writes the
+compiler log, the measurements and the profile tables there.
 """
 
 from __future__ import annotations
@@ -62,21 +83,68 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_MAIN, LEN_MAIN = 4096, 2046
-REPLACES = {
-    "nw_affine_stream_fill": "sequencealigning_tpu/ops/nw_affine_stream.py:429",
-    "walk_fast4": "sequencealigning_tpu/ops/traceback_device.py:146",
-    "nw_affine_modes_fill": "sequencealigning_tpu/ops/nw_affine_modes.py:134",
-    "nw_affine_stream_modes_fill":
-        "sequencealigning_tpu/ops/nw_affine_stream_modes.py:182",
-    "walk_modes": "sequencealigning_tpu/ops/traceback_device.py:541",
+# BASELINE config 4 (benchmarks/configs_bench.py: config4_banded): 1024
+# pairs of 5115 bp at 1% substitutions from seed 4, band 128.
+N_BAND, LEN_BAND, BAND = 1024, 5115, 128
+# The default (full-dirs, host-walked) banded path's pairs.
+N_BAND_FULL = 64
+# The ceiling phase: a db past 8192 lanes, and one pair near the 49152-lane
+# limit of the streamed fill.
+LEN_CEIL_DB, LEN_LONG = 8300, 49150
+# The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
+# operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
+# 128 fp32 lanes, no fused multiply-add doubling).
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 67e12 / 4
+# The least integer operations the function needs per interior DP cell
+# (fills; banded: per band cell) or per walk step, whatever the kernel adds
+# for its layout (boundary selects, edge masks, lane windows, register
+# moves are not counted).  A cell: the recurrence 10 (substitution compare,
+# select and add 3; the gap open M + o 1, shared by the cell's two
+# neighbours; I and D a maximum and an add each 4; H two maxima 2); the
+# direction code, a compare and an OR a bit (fast4: the 2-bit H argmax 4
+# plus the I and D extend bits 4 = 8; full: 7 bits 14, local's LSTART 2
+# more); its packing into the word, a shift and an OR 2.  Local adds the
+# clamp at 0 (1) and the running argmax (compare, two selects 3); the
+# semi-global argmax reads only the last row and column (0 a cell).  A walk
+# step: locate the code 4, extract it 2, next plane 2, move 2, emit the op
+# 2 = 12; modes + the stop test 2; banded + the band's lane index 4.
+OPS_PER_CELL = {
+    "fast4": 10 + 8 + 2,                  # 20: global, banded
+    "full": 10 + 14 + 2,                  # 26: banded, semi-global
+    "local full": 10 + 1 + 3 + 16 + 2,    # 32
+    "walk_fast4": 12, "walk_modes": 14, "walk_banded": 16,
 }
-SOURCES = {
-    "nw_affine_stream_fill": "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
-    "walk_fast4": "sequencealigning_tpu_torch/csrc/traceback_device.cu",
-    "nw_affine_modes_fill": "sequencealigning_tpu_torch/csrc/nw_affine_modes.cu",
-    "nw_affine_stream_modes_fill":
+KERNELS = {
+    # name: (module key, wrapper, source, TPU kernel replaced)
+    "nw_affine_stream_fill": (
+        "fill", "gotoh_fill_stream_cuda",
         "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
-    "walk_modes": "sequencealigning_tpu_torch/csrc/traceback_device.cu",
+        "sequencealigning_tpu/ops/nw_affine_stream.py:429"),
+    "walk_fast4": (
+        "walk", "walk_fast4_cuda",
+        "sequencealigning_tpu_torch/csrc/traceback_device.cu",
+        "sequencealigning_tpu/ops/traceback_device.py:146"),
+    "nw_affine_modes_fill": (
+        "modes", "modes_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_modes.cu",
+        "sequencealigning_tpu/ops/nw_affine_modes.py:134"),
+    "nw_affine_stream_modes_fill": (
+        "smodes", "gotoh_fill_stream_modes_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
+        "sequencealigning_tpu/ops/nw_affine_stream_modes.py:182"),
+    "walk_modes": (
+        "walk", "walk_modes_cuda",
+        "sequencealigning_tpu_torch/csrc/traceback_device.cu",
+        "sequencealigning_tpu/ops/traceback_device.py:541"),
+    "nw_banded_diag_fill": (
+        "banded", "banded_diag_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_banded_diag.cu",
+        "sequencealigning_tpu/ops/nw_banded_diag.py:350"),
+    "walk_banded": (
+        "walk", "walk_banded_cuda",
+        "sequencealigning_tpu_torch/csrc/traceback_device.cu",
+        "sequencealigning_tpu/ops/traceback_device.py:181"),
 }
 
 
@@ -91,6 +159,39 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def _wrapper(port, name):
+    key, fn = KERNELS[name][:2]
+    return getattr(port[key], fn)
+
+
+@contextlib.contextmanager
+def path_launches(port, by_path, path):
+    """Run a main path with every kernel's launch count set to 0 just
+    before it; just after, add the counts it read to by_path[kernel][path]
+    (kernels it did not launch are left out)."""
+    for name in KERNELS:
+        _wrapper(port, name).launches = 0
+    yield
+    for name in KERNELS:
+        n = _wrapper(port, name).launches
+        if n:
+            by_path.setdefault(name, {})[path] = \
+                by_path.get(name, {}).get(path, 0) + n
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the least time the card could take for the
+    bytes (each input read once, each output written once) and the integer
+    operations, at the card's peak rates."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = ops / INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def make_pairs(rng, n, length):
@@ -209,9 +310,12 @@ def phase_build(csrc, out_dir):
 
 
 def phase_fill(torch, port):
-    from sequencealigning_tpu.config import ScoringScheme
-    from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream
+    from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
 
     fill = port["fill"]
     rng = np.random.default_rng(2)
@@ -252,27 +356,56 @@ def phase_fill(torch, port):
     fk, dk = fill.gotoh_fill_stream_cuda(*ins, *args)
     plain_ms, (fp, dp) = host_ms(
         torch, lambda: fill.gotoh_fill_stream_torch(*ins, *args))
-    err = int((fk - fp).abs().max())
-    whole = bool(torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
-    if not whole:
-        err = max(err, valid_cell_diff(
-            torch, dk, dp, stream_coords(plan, N_MAIN), batch.query_len,
-            batch.db_len, "fast4"))
-    del dp
+
+    def diff(f, d):
+        e = int((f - fp).abs().max())
+        whole = bool(torch.equal(d.view(torch.int32), dp.view(torch.int32)))
+        if not whole:
+            e = max(e, valid_cell_diff(
+                torch, d, dp, stream_coords(plan, N_MAIN), batch.query_len,
+                batch.db_len, "fast4"))
+        return e, whole
+
+    err, whole = diff(fk, dk)
     check(err == 0, f"fill kernel != plain at the main shape: err {err}")
+    # The same rows split over a 4-CTA cluster (forced 512-lane CTAs).
+    split_lanes = 512
+    n_ctas = port["csrc"].kernels().sa_fill_ctas(plan.p, split_lanes)
+    split_ms = cuda_ms(torch, lambda: fill.gotoh_fill_stream_cuda(
+        *ins, *args, cta_lanes=split_lanes))
+    fs, ds = fill.gotoh_fill_stream_cuda(*ins, *args, cta_lanes=split_lanes)
+    split_err, split_whole = diff(fs, ds)
+    del dp, ds
+    check(split_err == 0, f"{n_ctas}-CTA split fill != plain at the main "
+          f"shape: err {split_err}")
     cells = int((batch.query_len.astype(np.int64)
                  * batch.db_len.astype(np.int64)).sum())
+    b_ms, b_by = bound(nbytes(*ins, fk, dk),
+                       cells * OPS_PER_CELL["fast4"])
     log(f"[3 fill] {N_MAIN} x {LEN_MAIN} bp fast4 (R={plan.n_rows}, "
         f"P={plan.p}, T={plan.t_total}): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS; equal "
-        f"(whole dirs tensor equal: {whole})")
+        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS, bound "
+        f"{b_ms:.3f} ms ({b_by}); equal (whole dirs tensor equal: {whole}); "
+        f"split over {n_ctas} CTAs of {split_lanes} lanes: {split_ms:.3f} ms,"
+        f" equal (whole dirs: {split_whole})")
     out.update(fill_ms=ms, fill_plain_ms=plain_ms, fill_err=err,
-               fill_gcups=cells / ms / 1e6, main_whole_dirs_equal=whole)
+               fill_gcups=cells / ms / 1e6, main_whole_dirs_equal=whole,
+               fill_bound_ms=b_ms, fill_bound_by=b_by,
+               fill_split4_ms=split_ms, fill_split4_err=split_err,
+               fill_split4_whole_dirs_equal=split_whole)
     return out, (fk, dk, plan, pairs)
 
 
+def walk_bound(name, got, seeds):
+    """Bound of a walk: one 4-byte dirs word read a step, the seeds read
+    and the outputs written once; OPS_PER_CELL[name] operations a step."""
+    n_ops = int(got[-1].sum())
+    return bound(4 * n_ops + nbytes(*seeds, *got),
+                 n_ops * OPS_PER_CELL[name])
+
+
 def phase_walk(torch, port, state):
-    from sequencealigning_tpu import native
+    from sequencealigning_tpu_torch import native
 
     walk = port["walk"]
     finals, dirs, plan, pairs = state
@@ -305,38 +438,40 @@ def phase_walk(torch, port, state):
     check(host is not None, "native host walker unavailable")
     bad = sum(o is None or o != h for o, h in zip(ops, host))
     check(bad == 0, f"walk kernel != native host walker on {bad} pairs")
-    log(f"[4 walk] {B} pairs: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; "
-        "equal to the plain walk and to the native host walker")
-    return {"walk_ms": ms, "walk_plain_ms": plain_ms, "walk_err": err}
+    b_ms, b_by = walk_bound("walk_fast4", got, seeds)
+    log(f"[4 walk] {B} pairs: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); equal to the plain walk and to the "
+        "native host walker")
+    return {"walk_ms": ms, "walk_plain_ms": plain_ms, "walk_err": err,
+            "walk_bound_ms": b_ms, "walk_bound_by": b_by}
 
 
-def phase_main(torch, port, pairs):
-    from sequencealigning_tpu.config import AlignConfig, Algo
-    from sequencealigning_tpu.io.fasta import Record
-    from sequencealigning_tpu.ops import oracle_gotoh
+def phase_main(torch, port, pairs, by_path):
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo
+    from sequencealigning_tpu_torch.io.fasta import Record
+    from sequencealigning_tpu_torch.ops import oracle_gotoh
 
-    fill, walk = port["fill"], port["walk"]
     recs = [(Record(seq=a, name=b">q%d" % i), Record(seq=b, name=b">d%d" % i))
             for i, (a, b) in enumerate(pairs)]
     aligner = port["models"].GotohAligner(
         AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True), "cuda"
     )
     torch.cuda.reset_peak_memory_stats()
-    fill.gotoh_fill_stream_cuda.launches = 0
-    walk.walk_fast4_cuda.launches = 0
-    t0 = time.perf_counter()
-    res = aligner.align_batch(recs)
-    secs = time.perf_counter() - t0
-    launches = {"nw_affine_stream_fill": fill.gotoh_fill_stream_cuda.launches,
-                "walk_fast4": walk.walk_fast4_cuda.launches}
+    path = "global first-only"
+    with path_launches(port, by_path, path):
+        t0 = time.perf_counter()
+        res = aligner.align_batch(recs)
+        secs = time.perf_counter() - t0
+    launches = {k: v[path] for k, v in by_path.items() if path in v}
     peak = torch.cuda.max_memory_allocated()
     check(len(res) == len(pairs), "missing results")
     errors = [r.error for r in res if not r.ok]
     check(not errors, f"{len(errors)} pairs failed: {errors[:3]}")
     check(aligner.host_fallbacks == 0,
           f"{aligner.host_fallbacks} pairs re-walked on the host")
-    for name, n in launches.items():
-        check(n > 0, f"the main path never launched {name}")
+    for name in ("nw_affine_stream_fill", "walk_fast4"):
+        check(launches.get(name, 0) > 0,
+              f"the main path never launched {name}")
     for r, (a, b) in zip(res, pairs):
         check(r.aligned_query.replace("-", "").encode() == a
               and r.aligned_db.replace("-", "").encode() == b,
@@ -349,9 +484,8 @@ def phase_main(torch, port, pairs):
         f"{secs:.3f} s, {len(pairs) / secs:.1f} alignments/s, peak "
         f"{peak / 2**30:.2f} GiB; launches {launches}; 4 sampled scores equal "
         "the oracle")
-    by_path = {name: {"global first-only": n} for name, n in launches.items()}
-    return by_path, {"main_s": secs, "alignments_per_s": len(pairs) / secs,
-                     "peak_gib": peak / 2 ** 30}, (aligner, recs)
+    return {"main_s": secs, "alignments_per_s": len(pairs) / secs,
+            "peak_gib": peak / 2 ** 30}, (aligner, recs)
 
 
 # Host stages of align_batch reported by the profile (cumulative seconds):
@@ -431,9 +565,9 @@ def skewed_pairs(rng, n, lo1, hi1, lo2, hi2, alphabet=b"ACGT"):
 def phase_modes_fill(torch, port):
     """Kernels A (per-pair) and B (streamed) against their plain versions
     on ragged batches; A's time at the largest batch it serves."""
-    from sequencealigning_tpu.config import ScoringScheme
-    from sequencealigning_tpu.io.encode import pack_batch
+    from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
 
     modes, smodes, fill = port["modes"], port["smodes"], port["fill"]
     rng = np.random.default_rng(3)
@@ -476,12 +610,18 @@ def phase_modes_fill(torch, port):
             True)
     mfill_ms = cuda_ms(torch, lambda: modes.modes_fill_cuda(*args))
     mfill_plain_ms, _ = host_ms(torch, lambda: modes.fill_modes_torch(*args))
+    got = modes.modes_fill_cuda(*args)
+    cells = int((tb.query_len.long() * tb.db_len.long()).sum())
+    b_ms, b_by = bound(nbytes(*args[:4], *got),
+                       cells * OPS_PER_CELL["local full"])
+    del got
     log(f"[6 modes fill] per-pair kernel: {runs} ragged batches equal on "
         f"argmax buffers, end cells and valid cells (whole dirs equal: "
         f"{whole}); 31 x {LEN_MAIN} bp local: kernel {mfill_ms:.3f} ms, "
-        f"plain {mfill_plain_ms:.1f} ms")
+        f"plain {mfill_plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
     out = {"mfill_ms": mfill_ms, "mfill_plain_ms": mfill_plain_ms,
-           "mfill_err": err, "mfill_whole_dirs_equal": whole}
+           "mfill_err": err, "mfill_whole_dirs_equal": whole,
+           "mfill_bound_ms": b_ms, "mfill_bound_by": b_by}
 
     # Kernel B: ragged batches with 2-4 slots a row, skewed both ways.
     err, whole, runs = 0, True, 0
@@ -522,13 +662,13 @@ def phase_modes_full(torch, port, mode, pairs):
     """Kernel B against its plain version at the main shape in one mode
     ("local" or "semi"), then kernel C against the plain walk on B's dirs
     and against the host walker on sampled pairs.  Frees its tensors."""
-    from sequencealigning_tpu.config import ScoringScheme
-    from sequencealigning_tpu.io.encode import pack_batch
-    from sequencealigning_tpu.ops.traceback import (
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops.traceback import (
         local_affine_traceback_pair,
         semi_global_traceback_pair,
     )
-    from sequencealigning_tpu_torch.device import to_device
 
     modes, smodes = port["modes"], port["smodes"]
     fill, walk = port["fill"], port["walk"]
@@ -560,14 +700,19 @@ def phase_modes_full(torch, port, mode, pairs):
           "torch.argmax did not return the first maximal lane")
     cells = int((batch.query_len.astype(np.int64)
                  * batch.db_len.astype(np.int64)).sum())
+    b_ms, b_by = bound(nbytes(*ins, bk, dk_, dirs),
+                       cells * OPS_PER_CELL[
+                           "local full" if local else "full"])
     log(f"[7 modes full] {N_MAIN} x {LEN_MAIN} bp {mode} fill "
         f"(R={plan.n_rows}, P={plan.p}, S={plan.s}, T={plan.t_total}, dirs "
         f"{dirs.numel() * 4 / 1e9:.1f} GB): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS; equal on argmax "
-        f"buffers and end cells (whole dirs tensor equal: {whole})")
+        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS, bound "
+        f"{b_ms:.3f} ms ({b_by}); equal on argmax buffers and end cells "
+        f"(whole dirs tensor equal: {whole})")
     out = {f"sfill_{mode}_ms": ms, f"sfill_{mode}_plain_ms": plain_ms,
            f"sfill_{mode}_err": err, f"sfill_{mode}_gcups": cells / ms / 1e6,
-           f"sfill_{mode}_whole_dirs_equal": whole}
+           f"sfill_{mode}_whole_dirs_equal": whole,
+           f"sfill_{mode}_bound_ms": b_ms, f"sfill_{mode}_bound_by": b_by}
 
     best, end_x, end_y = (t[:N_MAIN].cpu().numpy() for t in (best, x, y))
     del bk, dk_, flat, lanes, first, x, y
@@ -610,19 +755,24 @@ def phase_modes_full(torch, port, mode, pairs):
                            d_offset=int(off[b]))[:2]
         check(alns[b] == (int(best[b]), [(a1, a2)]),
               f"modes walk kernel != host walker on pair {b} ({mode})")
+    b_ms, b_by = walk_bound("walk_modes", got, seeds)
     log(f"[7 modes full] {N_MAIN} pairs {mode} walk: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms; equal to the plain walk, {len(sample)} "
-        "sampled pairs equal to the host walker")
+        f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); equal to "
+        f"the plain walk, {len(sample)} sampled pairs equal to the host "
+        "walker")
     out.update({f"mwalk_{mode}_ms": ms, f"mwalk_{mode}_plain_ms": plain_ms,
-                f"mwalk_{mode}_err": err})
+                f"mwalk_{mode}_err": err, f"mwalk_{mode}_bound_ms": b_ms,
+                f"mwalk_{mode}_bound_by": b_by})
     del dirs, got, want, packed, seeds, ins, tb
     torch.cuda.empty_cache()
     return out
 
 
-def affine_score(a1, a2, scheme, semi):
+def affine_score(a1, a2, scheme, semi, compat=False):
     """Affine score of one alignment (gaps open from M only); semi drops
-    the leading and trailing columns that hold a gap (free end gaps)."""
+    the leading and trailing columns that hold a gap (free end gaps);
+    compat adds the reference's extra extension on a leading gap chain
+    (needleman_wunsch_affine.rs:195,207)."""
     s1 = np.frombuffer(a1.encode(), np.uint8)
     s2 = np.frombuffer(a2.encode(), np.uint8)
     gap = ord("-")
@@ -637,57 +787,65 @@ def affine_score(a1, a2, scheme, semi):
     m = kind == 0
     score = np.where(s1[m] == s2[m], scheme.match_, scheme.mismatch).sum()
     opens = int(((kind != 0) & (kind != prev)).sum())
+    quirk = scheme.gap_extend if compat and len(kind) and kind[0] else 0
     return int(score + opens * scheme.gap_open
-               + int((kind != 0).sum()) * scheme.gap_extend)
+               + int((kind != 0).sum()) * scheme.gap_extend + quirk)
 
 
-def phase_modes_main(torch, port, pairs, out_dir):
+def records(pairs):
+    from sequencealigning_tpu_torch.io.fasta import Record
+
+    return [(Record(seq=a, name=b">q%d" % i), Record(seq=b, name=b">d%d" % i))
+            for i, (a, b) in enumerate(pairs)]
+
+
+def check_results(res, pairs, scheme, label, compat=False, semi=False,
+                  consume=True):
+    """Every pair aligned, consuming its sequences, and rescoring to its
+    score."""
+    check(len(res) == len(pairs), f"{label}: missing results")
+    errors = [r.error for r in res if not r.ok]
+    check(not errors, f"{label}: {len(errors)} pairs failed: {errors[:3]}")
+    bad = [i for i, r in enumerate(res)
+           if affine_score(r.aligned_query, r.aligned_db, scheme, semi,
+                           compat) != r.score]
+    check(not bad, f"{label}: {len(bad)} alignments do not rescore to their "
+          f"score (first: pair {bad[:1]})")
+    if consume:
+        for r, (a, b) in zip(res, pairs):
+            check(r.aligned_query.replace("-", "").encode() == a
+                  and r.aligned_db.replace("-", "").encode() == b,
+                  f"{label}: alignment of {r.query_name} does not consume "
+                  "its sequences")
+
+
+def phase_modes_main(torch, port, pairs, out_dir, by_path):
     """GotohAligner textbook local, then semi-global, through align_batch
     at the main shape: the streamed modes fill and the modes walk; then one
     more local align_batch under the profilers."""
-    from sequencealigning_tpu.config import AlignConfig, Algo, Mode
-    from sequencealigning_tpu.io.fasta import Record
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo, Mode
 
-    smodes, walk = port["smodes"], port["walk"]
-    recs = [(Record(seq=a, name=b">q%d" % i), Record(seq=b, name=b">d%d" % i))
-            for i, (a, b) in enumerate(pairs)]
-    launches = {"nw_affine_stream_modes_fill": {}, "walk_modes": {}}
+    recs = records(pairs)
     meas = {}
     for mode in (Mode.LOCAL, Mode.SEMI_GLOBAL):
         cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=mode, compat=False)
         aligner = port["models"].GotohAligner(cfg, "cuda")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        smodes.gotoh_fill_stream_modes_cuda.launches = 0
-        walk.walk_modes_cuda.launches = 0
-        t0 = time.perf_counter()
-        res = aligner.align_batch(recs)
-        secs = time.perf_counter() - t0
-        n_fill = smodes.gotoh_fill_stream_modes_cuda.launches
-        n_walk = walk.walk_modes_cuda.launches
+        path = f"textbook {mode.value}"
+        with path_launches(port, by_path, path):
+            t0 = time.perf_counter()
+            res = aligner.align_batch(recs)
+            secs = time.perf_counter() - t0
+        n_fill = by_path.get("nw_affine_stream_modes_fill", {}).get(path, 0)
+        n_walk = by_path.get("walk_modes", {}).get(path, 0)
         peak = torch.cuda.max_memory_allocated()
-        check(len(res) == len(pairs), "missing results")
-        errors = [r.error for r in res if not r.ok]
-        check(not errors, f"{mode.value}: {len(errors)} pairs failed: "
-              f"{errors[:3]}")
+        semi = mode is Mode.SEMI_GLOBAL
+        check_results(res, pairs, cfg.scoring, mode.value, semi=semi,
+                      consume=semi)
         check(n_fill > 0 and n_walk > 0,
               f"{mode.value}: the main path launched the streamed modes fill "
               f"{n_fill} and the modes walk {n_walk} times")
-        semi = mode is Mode.SEMI_GLOBAL
-        bad = [i for i, r in enumerate(res)
-               if affine_score(r.aligned_query, r.aligned_db, cfg.scoring,
-                               semi) != r.score]
-        check(not bad, f"{mode.value}: {len(bad)} alignments do not rescore "
-              f"to their score (first: pair {bad[:1]})")
-        if semi:
-            for r, (a, b) in zip(res, pairs):
-                check(r.aligned_query.replace("-", "").encode() == a
-                      and r.aligned_db.replace("-", "").encode() == b,
-                      f"semi alignment of {r.query_name} does not consume "
-                      "its sequences")
-        launches["nw_affine_stream_modes_fill"][f"textbook {mode.value}"] = \
-            n_fill
-        launches["walk_modes"][f"textbook {mode.value}"] = n_walk
         key = "local" if mode is Mode.LOCAL else "semi"
         meas.update({f"{key}_main_s": secs,
                      f"{key}_alignments_per_s": len(pairs) / secs,
@@ -702,13 +860,13 @@ def phase_modes_main(torch, port, pairs, out_dir):
             meas.update(phase_profile(torch, aligner, recs, out_dir, "local",
                                       MODES_STAGES, "[8 profile]"))
         del aligner
-    return launches, meas
+    return meas
 
 
-def phase_cli(torch, port):
+def phase_cli(torch, port, by_path):
     """The golden CLI outputs with --device cuda, and serve.  The textbook
     modes runs (24 pairs, under the streamed engine's 32) are the per-pair
-    modes kernel's path: returns its launches counted over them."""
+    modes kernel's path."""
     spec = importlib.util.spec_from_file_location(
         "golden_regen", os.path.join(ROOT, "tests", "golden", "regen.py"))
     regen = importlib.util.module_from_spec(spec)
@@ -716,13 +874,12 @@ def phase_cli(torch, port):
     golden = os.path.join(ROOT, "tests", "golden")
     q, d = os.path.join(golden, "queries.fa"), os.path.join(golden, "db.fa")
     main = port["cli"].main
-    modes, walk = port["modes"], port["walk"]
 
     def run_cli(name, extra):
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = main(["-q", q, "-d", d, "--no-out", "-a", "needleman-wunsch",
-                       "--device", "cuda"] + extra)
+            rc = main(["-q", q, "-d", d, "--no-out", "--device", "cuda"]
+                      + extra)
         with open(os.path.join(golden, f"{name}.out")) as f:
             want = f.read()
         want_out = want.split("# --- stdout ---\n", 1)[1].split(
@@ -737,8 +894,7 @@ def phase_cli(torch, port):
         out = io.StringIO()
         try:
             with contextlib.redirect_stdout(out):
-                rc = main(["--serve", "-a", "needleman-wunsch",
-                           "--device", "cuda"] + args)
+                rc = main(["--serve", "--device", "cuda"] + args)
         finally:
             sys.stdin = stdin
         lines = [json.loads(s) for s in out.getvalue().splitlines()]
@@ -749,27 +905,318 @@ def phase_cli(torch, port):
         check(lines[-1].get("done") and lines[-1].get("pairs") == 24,
               "serve summary line missing")
 
-    for name, extra in (("nw-first-only", ["--first-only"]),
-                        ("needleman-wunsch", [])):
-        run_cli(name, extra)
-    serve(["--first-only"])
-    modes.modes_fill_cuda.launches = 0
-    walk.walk_modes_cuda.launches = 0
-    for name, extra in (("nw-local-textbook", ["-m", "local", "--textbook"]),
-                        ("nw-semiglobal-textbook",
-                         ["-m", "semi-global", "--textbook"])):
-        run_cli(name, extra)
-    serve(["-m", "local", "--textbook"])
-    launches = {"nw_affine_modes_fill": modes.modes_fill_cuda.launches,
-                "walk_modes": walk.walk_modes_cuda.launches}
-    for name, n in launches.items():
-        check(n > 0, f"the textbook CLI path never launched {name}")
-    log("[9 cli] golden nw-first-only, needleman-wunsch, nw-local-textbook "
-        "and nw-semiglobal-textbook stdout equal on cuda; serve (first-only, "
-        f"textbook local) answered 24 pairs each; launches {launches}")
-    return {"nw_affine_modes_fill": {
-        "golden CLI local and semi-global, serve local (24 pairs each)":
-            launches["nw_affine_modes_fill"]}}
+    nw = ["-a", "needleman-wunsch"]
+    path = "golden CLI and serve (24 pairs a run)"
+    with path_launches(port, by_path, path):
+        for name, extra in (("nw-first-only", nw + ["--first-only"]),
+                            ("needleman-wunsch", nw),
+                            ("nw-local-textbook",
+                             nw + ["-m", "local", "--textbook"]),
+                            ("nw-semiglobal-textbook",
+                             nw + ["-m", "semi-global", "--textbook"]),
+                            ("banded", ["-a", "banded"])):
+            run_cli(name, extra)
+        for args in (nw + ["--first-only"], nw + ["-m", "local", "--textbook"],
+                     ["-a", "banded", "--band", "64"]):
+            serve(args)
+    launches = {k: v[path] for k, v in by_path.items() if path in v}
+    for name in ("nw_affine_modes_fill", "walk_modes",
+                 "nw_banded_diag_fill"):
+        check(launches.get(name, 0) > 0,
+              f"the golden CLI path never launched {name}")
+    log("[9 cli] golden nw-first-only, needleman-wunsch, nw-local-textbook, "
+        "nw-semiglobal-textbook and banded stdout equal on cuda; serve "
+        "(first-only, textbook local, banded --band 64) answered 24 pairs "
+        f"each; launches {launches}")
+
+
+def phase_banded_fill(torch, port, pairs):
+    """The banded fill kernel against its plain version at config 4's shape
+    (fast4 and full: finals and the whole dirs tensor), then on small
+    ragged and skewed batches over compat/textbook x wildcard x dirs and
+    the std model."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    banded = port["banded"]
+    std_scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2,
+                               gap_extend=-3)
+    rng = np.random.default_rng(6)
+    err, runs = 0, 0
+    for band, (lo1, hi1, lo2, hi2) in ((16, (1, 300, 1, 300)),
+                                       (48, (200, 400, 20, 150)),
+                                       (8, (10, 120, 150, 300))):
+        pairs_r = skewed_pairs(rng, 40, lo1, hi1, lo2, hi2, b"ACGTN")
+        tb = to_device(pack_batch(pairs_r, batch_size=40), "cuda")
+        plan, ins = banded.band_inputs(*tb, band)
+        for model, compat, wildcard, dirs in (
+                ("ref", True, True, "fast4"), ("ref", True, False, "full"),
+                ("ref", False, True, "full"), ("ref", False, False, False),
+                ("std", False, True, "fast4"), ("std", False, False, False)):
+            scheme = std_scheme if model == "std" else ScoringScheme()
+            a = (plan, scheme, compat, wildcard, dirs, model)
+            fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+            fp, dp = banded.banded_diag_fill_torch(*ins, *a)
+            torch.cuda.synchronize()
+            e = int((fk - fp).abs().max())
+            if dirs:
+                e = max(e, 0 if torch.equal(dk.view(torch.int32),
+                                            dp.view(torch.int32)) else 1)
+            check(e == 0, f"banded fill kernel != plain (band {band}, "
+                  f"{model}, compat={compat}, wildcard={wildcard}, "
+                  f"dirs={dirs}): err {e}")
+            err, runs = max(err, e), runs + 1
+    # Wide bands: 4, 8 and 16 lanes a thread (the main shape takes 2).
+    lpts = []
+    for band, cases in ((1400, (("ref", True, True, "fast4"),)),
+                        (3000, (("ref", True, True, "fast4"),)),
+                        (4200, (("ref", True, True, "fast4"),
+                                ("ref", False, False, "full")))):
+        pairs_r = skewed_pairs(rng, 8, 200, 700, 200, 700)
+        tb = to_device(pack_batch(pairs_r, batch_size=8), "cuda")
+        plan, ins = banded.band_inputs(*tb, band)
+        lpts.append(port["csrc"].kernels().sa_banded_lanes_per_thread(plan.L))
+        for model, compat, wildcard, dirs in cases:
+            a = (plan, ScoringScheme(), compat, wildcard, dirs, model)
+            fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+            fp, dp = banded.banded_diag_fill_torch(*ins, *a)
+            e = int((fk - fp).abs().max())
+            e = max(e, 0 if torch.equal(dk.view(torch.int32),
+                                        dp.view(torch.int32)) else 1)
+            check(e == 0, f"banded fill kernel != plain (band {band}, "
+                  f"L={plan.L}, compat={compat}, dirs={dirs}): err {e}")
+            err, runs = max(err, e), runs + 1
+    check(lpts == [4, 8, 16], f"wide bands took {lpts} lanes a thread")
+    log(f"[10 banded fill] {runs} ragged/skewed configurations (bands 8-4200,"
+        f" {', '.join(map(str, [2] + lpts))} lanes a thread) equal on finals "
+        "and the whole dirs tensor")
+
+    batch = pack_batch(pairs, batch_size=len(pairs))
+    tb = to_device(batch, "cuda")
+    plan, ins = banded.band_inputs(*tb, BAND)
+    lane_steps = len(pairs) * 2 * plan.n_need * plan.L
+    band_cells = int(batch.db_len.astype(np.int64).sum()) * (
+        plan.k_hi_eff - plan.k_lo + 1)
+    out = {"bfill_ragged_err": err}
+    for dirs in ("fast4", "full"):
+        a = (plan, ScoringScheme(), True, True, dirs)
+        ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a))
+        fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+        plain_ms, (fp, dp) = host_ms(
+            torch, lambda: banded.banded_diag_fill_torch(*ins, *a))
+        e = int((fk - fp).abs().max())
+        whole = bool(torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
+        e = max(e, 0 if whole else 1)
+        b_ms, b_by = bound(nbytes(*ins, fk, dk),
+                           band_cells * OPS_PER_CELL[dirs])
+        del fp, dp
+        check(e == 0, f"banded fill kernel != plain at config 4 ({dirs})")
+        log(f"[10 banded fill] {len(pairs)} x {LEN_BAND} bp band {BAND} "
+            f"{dirs} (L={plan.L}, k_lo_even={plan.k_lo_even}, "
+            f"n_iters={plan.n_need}, dirs {dk.numel() * 4 / 1e9:.2f} GB): "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, band "
+            f"{band_cells / ms / 1e6:.2f} GCUPS, lane-step "
+            f"{lane_steps / ms / 1e6:.2f} GCUPS, bound {b_ms:.3f} ms "
+            f"({b_by}); finals and the whole dirs tensor equal")
+        out.update({f"bfill_{dirs}_ms": ms, f"bfill_{dirs}_plain_ms": plain_ms,
+                    f"bfill_{dirs}_err": e,
+                    f"bfill_{dirs}_band_gcups": band_cells / ms / 1e6,
+                    f"bfill_{dirs}_lane_gcups": lane_steps / ms / 1e6,
+                    f"bfill_{dirs}_bound_ms": b_ms,
+                    f"bfill_{dirs}_bound_by": b_by})
+        if dirs == "fast4":
+            state = (fk, dk, plan)
+        del dk
+    out.update(band_cells=band_cells, band_lane_steps=lane_steps)
+    return out, state
+
+
+def phase_banded_walk(torch, port, pairs, state):
+    """The banded walk kernel against its plain version on config 4's fast4
+    dirs, and against the host walker on sampled pairs."""
+    from sequencealigning_tpu_torch.ops.traceback import (
+        banded_diag_fast4_traceback_pair,
+    )
+
+    walk = port["walk"]
+    finals, dirs, plan = state
+    B = len(pairs)
+    fin = finals.cpu().numpy()
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    n1s = np.asarray([len(a) for a, _ in pairs], np.int32)
+    n2s = np.asarray([len(b) for _, b in pairs], np.int32)
+    seeds = [put(n2s), put(n1s), put(walk.seed_planes(fin)),
+             put(np.arange(B))]
+    t_steps = int((n1s + n2s).max())
+    a = (plan.k_lo_even, t_steps)
+    ms = cuda_ms(torch, lambda: walk.walk_banded_cuda(dirs, *seeds, *a))
+    got = walk.walk_banded_cuda(dirs, *seeds, *a)
+    plain_ms, want = host_ms(
+        torch, lambda: walk.walk_banded_torch(dirs, *seeds, *a))
+    err = 0
+    for g, w in zip(got, want):
+        err = max(err, int((g.view(torch.int32).long()
+                            - w.view(torch.int32).long()).abs().max()))
+    check(err == 0, f"banded walk kernel != plain: err {err}")
+    check(bool(((got[0] == 0) & (got[1] == 0)).all()),
+          "a banded walk did not reach the origin")
+    alns = walk.decode_packed_alignments(
+        got[2][:, : -(-int(got[3].max()) // 16)].cpu().numpy(),
+        [p[0] for p in pairs], [p[1] for p in pairs])
+    sample = np.random.default_rng(7).choice(B, 6, replace=False)
+    for b in sample:
+        _, want_aln = banded_diag_fast4_traceback_pair(
+            dirs[:, int(b), :].cpu().numpy(), fin[b], *pairs[b],
+            plan.k_lo_even)
+        check(alns[b] == want_aln[0],
+              f"banded walk kernel != host walker on pair {b}")
+    b_ms, b_by = walk_bound("walk_banded", got, seeds)
+    log(f"[11 banded walk] {B} pairs: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); equal to the "
+        f"plain walk, {len(sample)} sampled pairs equal to the host walker")
+    return {"bwalk_ms": ms, "bwalk_plain_ms": plain_ms, "bwalk_err": err,
+            "bwalk_bound_ms": b_ms, "bwalk_bound_by": b_by}
+
+
+def phase_banded_main(torch, port, pairs, by_path):
+    """BandedAligner on cuda through align_batch: first-only over config
+    4's pairs, then the default full-dirs path over N_BAND_FULL of them."""
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo
+
+    meas = {}
+    for first_only, sub in ((True, pairs), (False, pairs[:N_BAND_FULL])):
+        cfg = AlignConfig(algo=Algo.BANDED, band=BAND, first_only=first_only)
+        aligner = port["models"].BandedAligner(cfg, "cuda")
+        recs = records(sub)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        path = "banded first-only" if first_only else "banded co-optimal"
+        with path_launches(port, by_path, path):
+            t0 = time.perf_counter()
+            res = aligner.align_batch(recs)
+            secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v[path] for k, v in by_path.items() if path in v}
+        check_results(res, sub, cfg.scoring, path, compat=True)
+        want = ["nw_banded_diag_fill"] + (["walk_banded"] if first_only
+                                          else [])
+        for name in want:
+            check(launches.get(name, 0) > 0, f"{path} never launched {name}")
+        key = "banded_first_only" if first_only else "banded_full"
+        meas.update({f"{key}_s": secs,
+                     f"{key}_alignments_per_s": len(sub) / secs,
+                     f"{key}_peak_gib": peak / 2 ** 30})
+        log(f"[12 banded main] {len(sub)} x {LEN_BAND} bp {path} on cuda: "
+            f"{secs:.3f} s, {len(sub) / secs:.1f} alignments/s, peak "
+            f"{peak / 2**30:.2f} GiB; launches {launches}; every alignment "
+            "consumes its sequences and rescores to its score")
+        del res, aligner
+    return meas
+
+
+def phase_ceiling(torch, port, by_path):
+    """Past the one-block ceiling of 8192 lanes: the streamed global (fast4)
+    and modes fills and the per-pair modes fill at a ~8.3 kb db against
+    their plain versions; then one ~49 kb global pair through
+    GotohAligner."""
+    from sequencealigning_tpu_torch.config import (
+        AlignConfig,
+        Algo,
+        ScoringScheme,
+    )
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
+
+    fill, smodes, modes = port["fill"], port["smodes"], port["modes"]
+    kern = port["csrc"].kernels()
+    rng = np.random.default_rng(8)
+    pairs = skewed_pairs(rng, 8, 100, 400, LEN_CEIL_DB - 60, LEN_CEIL_DB,
+                         b"ACGTN")
+    err = {}
+
+    def same(a, b):
+        if a is None or b is None:
+            return a is None and b is None
+        if a.dtype == torch.uint32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return bool(torch.equal(a, b))
+
+    def record(name, ok):
+        err[name] = max(err.get(name, 0), 0 if ok else 1)
+
+    # Each kernel with the automatic split (CTAs of 4096 lanes, 8 a thread)
+    # and with CTAs of 8192 lanes, 16 a thread (the instances rows past
+    # 32768 lanes take).
+    splits = (0, 8192)
+    tb = to_device(trim_for_stream(pack_batch(pairs, batch_size=8)), "cuda")
+    plan, ins = fill.stream_inputs(*tb)
+    ctas = kern.sa_fill_ctas(plan.p, 0)
+    check(ctas > 1, f"P={plan.p} did not split ({ctas} CTAs)")
+    a = (plan, ScoringScheme(), True, True, "fast4")
+    fp, dp = fill.gotoh_fill_stream_torch(*ins, *a)
+    for cta in splits:
+        fk, dk = fill.gotoh_fill_stream_cuda(*ins, *a, cta_lanes=cta)
+        record("nw_affine_stream_fill", same(fk, fp) and same(dk, dp))
+    tb = to_device(pack_batch(pairs, batch_size=8), "cuda")
+    plan_m, ins_m = fill.stream_inputs(*tb)
+    for mode in ("local", "semi"):
+        a = (plan_m, ScoringScheme(), False, mode, True)
+        (bp, dp_), dp = smodes.gotoh_fill_stream_modes_torch(*ins_m, *a)
+        for cta in splits:
+            (bk, dk_), dk = smodes.gotoh_fill_stream_modes_cuda(
+                *ins_m, *a, cta_lanes=cta)
+            record("nw_affine_stream_modes_fill",
+                   same(bk, bp) and same(dk_, dp_) and same(dk, dp))
+    s2v = modes.modes_layout(tb.db)
+    a = (tb.query, s2v, tb.query_len, tb.db_len, tb.query.shape[1],
+         tb.db.shape[1], ScoringScheme(), False, True, True)
+    want = modes.fill_modes_torch(*a)
+    for cta in splits:
+        record("nw_affine_modes_fill", all(
+            same(x, y) for x, y in zip(
+                modes.modes_fill_cuda(*a, cta_lanes=cta), want)))
+    del dk, dp, want
+    check(not any(err.values()), f"fills past 8192 lanes != plain: {err}")
+    log(f"[13 ceiling] db ~{LEN_CEIL_DB} bp: global fast4 fill (P={plan.p}, "
+        f"{ctas} CTAs), local and semi-global streamed fills "
+        f"(P={plan_m.p}, {kern.sa_fill_ctas(plan_m.p, 0)} CTAs) and the "
+        f"per-pair modes fill (P={s2v.shape[1]}, "
+        f"{kern.sa_fill_ctas(s2v.shape[1], 0)} CTAs) equal their plain "
+        f"versions, and again split into "
+        f"{kern.sa_fill_ctas(plan.p, 8192)} CTAs of 8192 lanes (16 a thread)")
+    torch.cuda.empty_cache()
+
+    # One long global pair: ~1% substitutions and a 3 bp deletion.
+    ref = make_pairs(np.random.default_rng(9), 1, LEN_LONG)[0]
+    mid = LEN_LONG // 2
+    long_pair = [(ref[0][:mid] + ref[0][mid + 3:], ref[1])]
+    cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    aligner = port["models"].GotohAligner(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    path = f"global first-only, one {LEN_LONG} bp pair"
+    with path_launches(port, by_path, path):
+        t0 = time.perf_counter()
+        res = aligner.align_batch(records(long_pair))
+        secs = time.perf_counter() - t0
+    launches = {k: v[path] for k, v in by_path.items() if path in v}
+    check_results(res, long_pair, cfg.scoring, path, compat=True)
+    check(launches.get("nw_affine_stream_fill", 0) > 0
+          and launches.get("walk_fast4", 0) > 0,
+          f"{path} launched {launches}")
+    p_long = -(-(LEN_LONG + 2) // 128) * 128
+    log(f"[13 ceiling] {path}: P={p_long} ({kern.sa_fill_ctas(p_long, 0)} "
+        f"CTAs), {secs:.3f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, score "
+        f"{res[0].score}; the alignment rescores to its score")
+    return {"ceiling_err": err, "long_pair_s": secs,
+            "long_pair_score": res[0].score}
 
 
 def run(args):
@@ -785,21 +1232,24 @@ def run(args):
         nw_affine_modes,
         nw_affine_stream,
         nw_affine_stream_modes,
+        nw_banded_diag,
         traceback_device,
     )
 
-    port = {"cli": cli, "models": models, "fill": nw_affine_stream,
-            "walk": traceback_device, "modes": nw_affine_modes,
-            "smodes": nw_affine_stream_modes}
+    port = {"cli": cli, "csrc": csrc, "models": models,
+            "fill": nw_affine_stream, "walk": traceback_device,
+            "modes": nw_affine_modes, "smodes": nw_affine_stream_modes,
+            "banded": nw_banded_diag}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    by_path = {}
     build_s = phase_build(csrc, args.out)
     meas, state = phase_fill(torch, port)
     meas.update(phase_walk(torch, port, state))
     pairs = state[3]
     del state
     torch.cuda.empty_cache()
-    launches, main_meas, (aligner, recs) = phase_main(torch, port, pairs)
+    main_meas, (aligner, recs) = phase_main(torch, port, pairs, by_path)
     meas.update(main_meas)
     meas.update(phase_profile(torch, aligner, recs, args.out))
     del aligner, recs
@@ -808,31 +1258,46 @@ def run(args):
     mpairs = make_pairs(np.random.default_rng(0), N_MAIN, LEN_MAIN)
     for mode in ("local", "semi"):
         meas.update(phase_modes_full(torch, port, mode, mpairs))
-    modes_launches, modes_main = phase_modes_main(torch, port, mpairs,
-                                                  args.out)
-    meas.update(modes_main)
-    launches.update(modes_launches)
-    launches.update(phase_cli(torch, port))
-    meas.update(build_s=build_s, card=card, launches=launches)
+    meas.update(phase_modes_main(torch, port, mpairs, args.out, by_path))
+    del mpairs
+    phase_cli(torch, port, by_path)
+    bpairs = make_pairs(np.random.default_rng(4), N_BAND, LEN_BAND)
+    bmeas, state = phase_banded_fill(torch, port, bpairs)
+    meas.update(bmeas)
+    meas.update(phase_banded_walk(torch, port, bpairs, state))
+    del state
+    torch.cuda.empty_cache()
+    meas.update(phase_banded_main(torch, port, bpairs, by_path))
+    meas.update(phase_ceiling(torch, port, by_path))
+    meas.update(build_s=build_s, card=card, launches=by_path)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(meas, f, indent=1)
-    return card, kernel_entries(meas, launches)
+    return card, kernel_entries(meas, by_path)
 
 
-def kernel_entries(meas, launches):
+def kernel_entries(meas, by_path):
     """The `kernels` line: per kernel its launches (in total and by path),
-    its largest error over every comparison, and its times with the shape
-    they were taken at."""
+    its largest error over every comparison, its kernel and plain times
+    with the shape they were taken at, its bound and library_ms (null)."""
     main = f"{N_MAIN} x {LEN_MAIN} bp"
+    band = f"{N_BAND} x {LEN_BAND} bp band {BAND}"
+    ceil = meas["ceiling_err"]
     errs = {
-        "nw_affine_stream_fill": [meas["fill_err"]],
+        "nw_affine_stream_fill": [meas["fill_err"], meas["fill_split4_err"],
+                                  ceil["nw_affine_stream_fill"]],
         "walk_fast4": [meas["walk_err"]],
-        "nw_affine_modes_fill": [meas["mfill_err"]],
+        "nw_affine_modes_fill": [meas["mfill_err"],
+                                 ceil["nw_affine_modes_fill"]],
         "nw_affine_stream_modes_fill": [meas["sfill_ragged_err"],
                                         meas["sfill_local_err"],
-                                        meas["sfill_semi_err"]],
+                                        meas["sfill_semi_err"],
+                                        ceil["nw_affine_stream_modes_fill"]],
         "walk_modes": [meas["mwalk_local_err"], meas["mwalk_semi_err"]],
+        "nw_banded_diag_fill": [meas["bfill_ragged_err"],
+                                meas["bfill_fast4_err"],
+                                meas["bfill_full_err"]],
+        "walk_banded": [meas["bwalk_err"]],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -840,26 +1305,36 @@ def kernel_entries(meas, launches):
         "nw_affine_modes_fill": ("mfill", f"31 x {LEN_MAIN} bp local"),
         "nw_affine_stream_modes_fill": ("sfill_local", f"{main} local"),
         "walk_modes": ("mwalk_local", f"{main} local"),
+        "nw_banded_diag_fill": ("bfill_fast4", f"{band} fast4"),
+        "walk_banded": ("bwalk", f"{band}"),
     }
     kernels = []
-    for name, by_path in launches.items():
+    for name, (_key, _fn, source, replaces) in KERNELS.items():
+        paths = by_path.get(name, {})
+        check(sum(paths.values()) > 0,
+              f"no main path launched the {name} kernel")
         key, shape = times[name]
         entry = {
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": max(errs[name]),
             "ms": meas[f"{key}_ms"],
             "plain_ms": meas[f"{key}_plain_ms"],
+            "bound_ms": meas[f"{key}_bound_ms"],
+            "bound_by": meas[f"{key}_bound_by"],
+            "library_ms": None,
             "timed_on": shape,
         }
-        if key.endswith("_local"):
-            semi = key.replace("_local", "_semi")
-            entry["semi-global"] = {
-                "ms": meas[f"{semi}_ms"], "plain_ms": meas[f"{semi}_plain_ms"],
-                "max_abs_err": meas[f"{semi}_err"],
-                "timed_on": f"{main} semi-global"}
+        for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
+            if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
+                alt = key[:-len(other)] + tag
+                entry[tag[1:]] = {
+                    "ms": meas[f"{alt}_ms"],
+                    "plain_ms": meas[f"{alt}_plain_ms"],
+                    "bound_ms": meas[f"{alt}_bound_ms"],
+                    "max_abs_err": meas[f"{alt}_err"]}
         kernels.append(entry)
     return kernels
 

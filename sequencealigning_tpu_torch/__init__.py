@@ -1,15 +1,15 @@
 """sequencealigning_tpu_torch: the PyTorch + CUDA port of sequencealigning_tpu.
 
 The JAX package stays the reference.  This package imports ``torch`` and
-never ``jax``; it reuses the JAX package's host-only modules (``config``,
-``errors``, ``io``, ``native``, ``ops.traceback``, ``ops.oracle_gotoh``,
+never ``jax``, and nothing of the JAX package: it carries its own copies of
+the host modules it needs (``config``, ``errors``, ``io``, ``native``, the
+host walkers in ``ops.traceback``, ``ops.dirbits``, ``ops.oracle_gotoh``,
 ``utils``) and brings its own ops, models and CLI, laid out like the JAX
-package's.  Its kernels are hand-written CUDA for Hopper (``csrc/``),
-built on first use; on CPU tensors every op runs its plain PyTorch
-version.
+package's.  Its kernels are hand-written CUDA for Hopper (``csrc/``), built
+on first use; on CPU tensors every op runs its plain PyTorch version.
 """
 
-from sequencealigning_tpu import config, errors, io
+from sequencealigning_tpu_torch import config, errors, io
 
 __version__ = "0.1.0"
 

@@ -1,7 +1,8 @@
 """Command-line interface of the PyTorch port (port of cli.py).
 
-    seqalign-torch -q query.fa -d db.fa -a needleman-wunsch [--first-only]
-                   [--device cpu|cuda] [-m MODE] [-o OUT] [-v]
+    seqalign-torch -q query.fa -d db.fa -a needleman-wunsch|banded
+                   [--first-only] [--band N] [--device cpu|cuda] [-m MODE]
+                   [-o OUT] [-v]
 
 Same interface, stdout formats, FASTA recovery and per-pair error
 isolation as the JAX package's ``seqalign``, for the flags the port
@@ -19,10 +20,15 @@ import sys
 import time
 from pathlib import Path
 
-from sequencealigning_tpu.config import AlignConfig, Algo, Mode, ScoringScheme
-from sequencealigning_tpu.errors import CharError, FastaError
-from sequencealigning_tpu.io.fasta import parse_fasta
-from sequencealigning_tpu.utils.pprint import bars
+from sequencealigning_tpu_torch.config import (
+    AlignConfig,
+    Algo,
+    Mode,
+    ScoringScheme,
+)
+from sequencealigning_tpu_torch.errors import CharError, FastaError
+from sequencealigning_tpu_torch.io.fasta import parse_fasta
+from sequencealigning_tpu_torch.utils.pprint import bars
 from sequencealigning_tpu_torch.models import get_aligner
 
 
@@ -46,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "-a", "--algo", default="a-star",
         choices=[a.value for a in Algo],
-        help="Only needleman-wunsch is ported; the others exit with an error",
+        help="needleman-wunsch and banded are ported; the others exit with "
+        "an error",
     )
     p.add_argument(
         "--textbook", action="store_true",
@@ -70,6 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", default="cuda", choices=["cpu", "cuda"],
         help="cuda runs the CUDA kernels, cpu their plain PyTorch versions",
     )
+    p.add_argument("--band", type=int, default=128, help="Band half-width")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--match", type=int, default=5)
     p.add_argument("--mismatch", type=int, default=-4)
@@ -101,9 +109,10 @@ def _load(path: str, label: str):
         return None
 
 
-def _print_result(res, verbose: bool) -> None:
+def _print_result(res, algo: Algo, verbose: bool) -> None:
     """The affine NW stdout format (needleman_wunsch_affine.rs:283-286,
-    390-411); errors go to stderr."""
+    390-411), shared by banded, whose timing line shows only with -v;
+    errors go to stderr."""
     if res.error is not None:
         print(
             f"An error occured during alignment of {res.query_name} and "
@@ -114,7 +123,8 @@ def _print_result(res, verbose: bool) -> None:
     for a1, a2 in res.alignments or [(res.aligned_query, res.aligned_db)]:
         print("alignment found")
         print(f"\nseq1: {a1}\n      {bars(a1, a2)}\nseq2: {a2}")
-    print(f"{res.elapsed_s * 1e3:.3f}ms")
+    if verbose or algo is Algo.NEEDLEMAN_WUNSCH:
+        print(f"{res.elapsed_s * 1e3:.3f}ms")
 
 
 def main(argv=None) -> int:
@@ -144,6 +154,7 @@ def main(argv=None) -> int:
         ),
         compat=not args.textbook,
         verbose=args.verbose,
+        band=args.band,
         batch_size=args.batch_size,
         bucket=args.bucket,
         first_only=args.first_only,
@@ -169,7 +180,7 @@ def main(argv=None) -> int:
     n = n_err = 0
     try:
         for res in aligner.align_all_pairs(query, db, args.batch_size):
-            _print_result(res, args.verbose)
+            _print_result(res, config.algo, args.verbose)
             if out_file is not None:
                 out_file.write(json.dumps(res.to_json()) + "\n")
             n += 1

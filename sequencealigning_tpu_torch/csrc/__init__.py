@@ -1,12 +1,13 @@
 """Build-at-first-use loader for the port's CUDA kernels.
 
 The kernels (``*.cu`` here, with their per-cell arithmetic in ``*.cuh``)
-have a plain C interface.  On first use they are compiled with ``nvcc``
-into one shared library under ``build/sequencealigning_tpu_torch/`` at the
-repository root, rebuilt whenever a source is newer than the library, and
-loaded with ``ctypes``.  ``host_check()`` builds ``host_check.cpp`` -- the
-kernels' loops run serially through the same ``*.cuh`` functions -- with
-the host C++ compiler, so the arithmetic can be tested without a GPU.
+have a plain C interface.  On first use they are compiled with ``nvcc``, one
+process a source started together, and linked into one shared library
+under ``build/sequencealigning_tpu_torch/`` at the repository root, rebuilt
+whenever a source is newer than the library, and loaded with ``ctypes``.
+``host_check()`` builds ``host_check.cpp`` -- the kernels' loops run
+serially through the same ``*.cuh`` functions -- with the host C++
+compiler, so the arithmetic can be tested without a GPU.
 
 Nothing is compiled when this module is imported.  A build that fails
 raises; there is no fallback.
@@ -27,11 +28,12 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(_HERE)), "build", "sequencealigning_tpu_torch"
 )
 _CUDA_SOURCES = ("nw_affine_stream.cu", "nw_affine_modes.cu",
-                 "traceback_device.cu")
-_HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "traceback_device.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                 "nw_banded_diag.cu", "traceback_device.cu")
+_HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "cluster_split.cuh",
+            "nw_banded_diag.cuh", "traceback_device.cuh")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
@@ -50,14 +52,15 @@ def _paths(names: Sequence[str]):
     return [os.path.join(_HERE, n) for n in names]
 
 
-def _stale(lib: str, sources: Sequence[str]) -> bool:
+def stale(lib: str, sources: Sequence[str]) -> bool:
     if not os.path.exists(lib):
         return True
     t = os.path.getmtime(lib)
     return any(os.path.getmtime(s) > t for s in sources)
 
 
-def _compile(cmd_head: Sequence[str], sources: Sequence[str], lib: str) -> str:
+def compile_library(cmd_head: Sequence[str], sources: Sequence[str],
+                    lib: str) -> str:
     """Compile into a temporary file beside ``lib`` and rename it into
     place, so concurrent builds never load a half-written library."""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -96,6 +99,41 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _build_kernels(srcs: Sequence[str], lib: str) -> str:
+    """One nvcc process a source, all started together, then one link into
+    ``lib``.  Returns the compilers' output (register and spill counts from
+    -Xptxas -v); raises if a step fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", o, s],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        logs = []
+        failed = []
+        try:
+            for s, p in zip(srcs, procs):
+                out, _ = p.communicate(timeout=900)
+                logs.append(out)
+                if p.returncode != 0:
+                    failed.append(
+                        f"{os.path.basename(s)} (exit {p.returncode})")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if failed:
+            raise RuntimeError("building the CUDA kernels failed: "
+                               + ", ".join(failed) + "\n" + "".join(logs))
+        logs.append(compile_library([nvcc, *ARCH_FLAGS, "-shared"], objs, lib))
+    return "".join(logs)
+
+
 def kernels() -> ctypes.CDLL:
     """Load the CUDA kernel library, building it first if it is missing or
     older than a source."""
@@ -104,27 +142,42 @@ def kernels() -> ctypes.CDLL:
         return _kernels
     lib_path = os.path.join(BUILD_DIR, "libsa_kernels.so")
     srcs = _paths(_CUDA_SOURCES)
-    if _stale(lib_path, srcs + _paths(_HEADERS)):
+    if stale(lib_path, srcs + _paths(_HEADERS)):
         t0 = time.perf_counter()
-        build_log = _compile([nvcc_path(), *NVCC_FLAGS], srcs, lib_path)
+        build_log = _build_kernels(srcs, lib_path)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(lib_path)
-    lib.sa_stream_lanes_per_thread.restype = _INT
-    lib.sa_stream_lanes_per_thread.argtypes = [_INT]
+    lib.sa_fill_ctas.restype = _INT
+    lib.sa_fill_ctas.argtypes = [_INT, _INT]
     lib.sa_stream_fill.restype = _INT
-    lib.sa_stream_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_stream_fill.argtypes = [_VP] * 6 + [_INT] * 13 + [_VP]
     lib.sa_stream_modes_fill.restype = _INT
-    lib.sa_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 13 + [_VP]
     lib.sa_modes_fill.restype = _INT
-    lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 11 + [_VP]
+    lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_banded_lanes_per_thread.restype = _INT
+    lib.sa_banded_lanes_per_thread.argtypes = [_INT]
+    lib.sa_banded_fill.restype = _INT
+    lib.sa_banded_fill.argtypes = [_VP] * 8 + [_INT] * 14 + [_VP]
     lib.sa_walk_fast4.restype = _INT
     lib.sa_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 5
     lib.sa_walk_modes.restype = _INT
     lib.sa_walk_modes.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 3 + [_VP] * 6
+    lib.sa_walk_banded.restype = _INT
+    lib.sa_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
+        _INT] * 4 + [_VP] * 5
     _kernels = lib
     return lib
+
+
+def launch_error(name: str, rc: int, nctas: int = 1) -> RuntimeError:
+    """The error a wrapper raises for a kernel entry's non-zero return."""
+    if rc == -3:
+        return RuntimeError(f"{name}: the card cannot schedule a cluster of "
+                            f"{nctas} CTAs")
+    return RuntimeError(f"{name} launch failed (error {rc})")
 
 
 def host_compiler() -> Optional[str]:
@@ -147,20 +200,27 @@ def host_check() -> ctypes.CDLL:
         raise RuntimeError("no C++ compiler for host_check.cpp")
     lib_path = os.path.join(BUILD_DIR, "libsa_host_check.so")
     srcs = _paths(("host_check.cpp",))
-    if _stale(lib_path, srcs + _paths(_HEADERS)):
-        _compile([cxx, *HOST_FLAGS], srcs, lib_path)
+    if stale(lib_path, srcs + _paths(_HEADERS)):
+        compile_library([cxx, *HOST_FLAGS], srcs, lib_path)
     lib = ctypes.CDLL(lib_path)
+    lib.hc_fill_ctas.restype = _INT
+    lib.hc_fill_ctas.argtypes = [_INT, _INT]
     lib.hc_stream_fill.restype = _INT
-    lib.hc_stream_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_stream_fill.argtypes = [_VP] * 6 + [_INT] * 13
     lib.hc_stream_modes_fill.restype = _INT
-    lib.hc_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 13
     lib.hc_modes_fill.restype = _INT
-    lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 11
+    lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_banded_fill.restype = _INT
+    lib.hc_banded_fill.argtypes = [_VP] * 8 + [_INT] * 14
     lib.hc_walk_fast4.restype = _INT
     lib.hc_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 4
     lib.hc_walk_modes.restype = _INT
     lib.hc_walk_modes.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 3 + [_VP] * 5
+    lib.hc_walk_banded.restype = _INT
+    lib.hc_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
+        _INT] * 4 + [_VP] * 4
     _host = lib
     return lib

@@ -1,29 +1,44 @@
 // Serial host build of the CUDA kernels' loops, through the same per-cell
-// and per-step functions (nw_affine_stream.cuh, traceback_device.cuh).  It
-// lets the kernels' arithmetic be compiled and checked against the plain
-// PyTorch versions on a machine with no CUDA compiler:
+// and per-step functions (nw_affine_stream.cuh, nw_banded_diag.cuh,
+// traceback_device.cuh) and the same row split (cluster_split.cuh).  It lets
+// the kernels' arithmetic be compiled and checked against the plain PyTorch
+// versions on a machine with no CUDA compiler:
 //
 //   c++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // The arguments and layouts are those of sa_stream_fill,
-// sa_stream_modes_fill, sa_modes_fill, sa_walk_fast4 and sa_walk_modes (minus
-// the stream).
+// sa_stream_modes_fill, sa_modes_fill, sa_banded_fill, sa_walk_fast4,
+// sa_walk_modes and sa_walk_banded (minus the stream).  The fills' lane
+// shift follows the kernels' split of a row over CTAs: a CTA's first lane
+// takes the previous CTA's last lane (lane 0 takes lane P-1).
 #include <stddef.h>
 #include <stdint.h>
 
 #include <vector>
 
+#include "cluster_split.cuh"
 #include "nw_affine_stream.cuh"
+#include "nw_banded_diag.cuh"
 #include "traceback_device.cuh"
 
 namespace {
+
+// Lane x's left neighbour under the split sp: x-1 inside a CTA, the
+// previous CTA's last lane at a CTA's first lane.
+int left_lane(int x, const sa::Split& sp, int P) {
+  const int rank = x / sp.cta_lanes;
+  if (x != sa::cta_first_lane(rank, sp)) return x - 1;
+  const int pr = sa::prev_cta(rank, sp);
+  return sa::cta_first_lane(pr, sp) + sa::cta_real_lanes(pr, sp, P) - 1;
+}
 
 template <int DIRS, bool COMPAT, bool WILDCARD>
 void stream_fill_host(const int32_t* qstream, const int32_t* dstream,
                       const int32_t* dsum, const int32_t* n2s,
                       int32_t* finals, uint32_t* dirs, int R, int T, int P,
-                      int S, int NP, const sa::Scheme& sc) {
-  std::vector<sa::Cell> c(P);
+                      int S, int NP, const sa::Scheme& sc,
+                      const sa::Split& sp) {
+  std::vector<sa::Cell> c(P), c0(P);
   std::vector<sa::Pre> pre(P);
   std::vector<uint32_t> acc(P);
   for (int row = 0; row < R; ++row) {
@@ -36,19 +51,15 @@ void stream_fill_host(const int32_t* qstream, const int32_t* dstream,
       const int32_t qc = qstream[static_cast<size_t>(row) * T + t];
       const int32_t dc = dstream[static_cast<size_t>(row) * T + t];
       for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      // The torus neighbour of lane 0 is lane P-1, read before it moves.
-      const int32_t tH2 = c[P - 1].H2;
-      const int32_t ts1d = c[P - 1].s1d;
+      c0 = c;  // the neighbours' state before the step
       const uint32_t shift =
           DIRS == sa::kDirsFast4 ? 4u * (t & 7) : 8u * (t & 3);
       for (int x = P - 1; x >= 0; --x) {
-        const int l = x == 0 ? P - 1 : x - 1;
-        const int32_t lH2 = x == 0 ? tH2 : c[l].H2;
-        const int32_t ls1d = x == 0 ? ts1d : c[l].s1d;
+        const int l = left_lane(x, sp, P);
         const int32_t code =
             sa::stream_cell<DIRS, sa::kModeGlobal, COMPAT, WILDCARD>(
-                c[x], pre[x], lH2, pre[l], ls1d, x == 0, x == p, p, qc, dc,
-                sc);
+                c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == p,
+                p, qc, dc, sc);
         acc[x] |= static_cast<uint32_t>(code) << shift;
       }
       for (int k = 0; k < NP; ++k) {
@@ -74,7 +85,7 @@ void stream_fill_host(const int32_t* qstream, const int32_t* dstream,
 
 typedef void (*HostFill)(const int32_t*, const int32_t*, const int32_t*,
                          const int32_t*, int32_t*, uint32_t*, int, int, int,
-                         int, int, const sa::Scheme&);
+                         int, int, const sa::Scheme&, const sa::Split&);
 
 template <int DIRS>
 HostFill pick(bool compat, bool wildcard) {
@@ -94,8 +105,8 @@ template <int DIRS, int MODE, bool WILDCARD>
 void stream_modes_host(const int32_t* qstream, const int32_t* dstream,
                        const int32_t* dsum, const int32_t* n2s, int32_t* out,
                        uint32_t* dirs, int R, int T, int P, int S, int NP,
-                       const sa::Scheme& sc) {
-  std::vector<sa::Cell> c(P);
+                       const sa::Scheme& sc, const sa::Split& sp) {
+  std::vector<sa::Cell> c(P), c0(P);
   std::vector<sa::Pre> pre(P);
   std::vector<uint32_t> acc(P);
   std::vector<int32_t> bv(P), bd(P);
@@ -129,14 +140,12 @@ void stream_modes_host(const int32_t* qstream, const int32_t* dstream,
       const int32_t qc = qstream[static_cast<size_t>(row) * T + t];
       const int32_t dc = dstream[static_cast<size_t>(row) * T + t];
       for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      const int32_t tH2 = c[P - 1].H2;
-      const int32_t ts1d = c[P - 1].s1d;
+      c0 = c;
       for (int x = P - 1; x >= 0; --x) {
-        const int l = x == 0 ? P - 1 : x - 1;
-        const int32_t lH2 = x == 0 ? tH2 : c[l].H2;
-        const int32_t ls1d = x == 0 ? ts1d : c[l].s1d;
+        const int l = left_lane(x, sp, P);
         const int32_t code = sa::stream_cell<DIRS, MODE, false, WILDCARD>(
-            c[x], pre[x], lH2, pre[l], ls1d, x == 0, x == p, p, qc, dc, sc);
+            c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == p, p,
+            qc, dc, sc);
         acc[x] |= static_cast<uint32_t>(code) << (8u * (t & 3));
         if (x == p) flush(slot - 1, x);
         const bool young = x <= p;
@@ -161,8 +170,9 @@ void stream_modes_host(const int32_t* qstream, const int32_t* dstream,
 template <int DIRS, int MODE, bool WILDCARD>
 void modes_host(const int32_t* query, const int32_t* s2v, const int32_t* n1s,
                 const int32_t* n2s, int32_t* out, uint32_t* dirs, int B,
-                int L1, int P, int D_total, const sa::Scheme& sc) {
-  std::vector<sa::Cell> c(P);
+                int L1, int P, int D_total, const sa::Scheme& sc,
+                const sa::Split& sp) {
+  std::vector<sa::Cell> c(P), c0(P);
   std::vector<sa::Pre> pre(P);
   std::vector<uint32_t> acc(P);
   std::vector<int32_t> bv(P), bd(P);
@@ -178,15 +188,12 @@ void modes_host(const int32_t* query, const int32_t* s2v, const int32_t* n1s,
       const int q = d - 1 < 0 ? 0 : (d - 1 > L1 - 1 ? L1 - 1 : d - 1);
       const int32_t qc = query[static_cast<size_t>(b) * L1 + q];
       for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      const int32_t tH2 = c[P - 1].H2;
-      const int32_t ts1d = c[P - 1].s1d;
+      c0 = c;
       for (int x = P - 1; x >= 0; --x) {
-        const int l = x == 0 ? P - 1 : x - 1;
-        const int32_t lH2 = x == 0 ? tH2 : c[l].H2;
-        const int32_t ls1d = x == 0 ? ts1d : c[l].s1d;
+        const int l = left_lane(x, sp, P);
         const int32_t code = sa::stream_cell<DIRS, MODE, false, WILDCARD>(
-            c[x], pre[x], lH2, pre[l], ls1d, x == 0, x == d, d, qc, c[x].s2v,
-            sc);
+            c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == d, d, qc,
+            c[x].s2v, sc);
         acc[x] |= static_cast<uint32_t>(code) << (8u * (d & 3));
         sa::modes_update<MODE>(x, d - x, d, n1s[b], n2s[b], c[x].M1, c[x].H1,
                                bv[x], bd[x]);
@@ -207,10 +214,10 @@ void modes_host(const int32_t* query, const int32_t* s2v, const int32_t* n1s,
 
 typedef void (*HostModes)(const int32_t*, const int32_t*, const int32_t*,
                           const int32_t*, int32_t*, uint32_t*, int, int, int,
-                          int, int, const sa::Scheme&);
+                          int, int, const sa::Scheme&, const sa::Split&);
 typedef void (*HostPerPair)(const int32_t*, const int32_t*, const int32_t*,
                             const int32_t*, int32_t*, uint32_t*, int, int,
-                            int, int, const sa::Scheme&);
+                            int, int, const sa::Scheme&, const sa::Split&);
 
 template <int DIRS, int MODE>
 HostModes pick_stream_modes(bool wildcard) {
@@ -230,7 +237,9 @@ extern "C" int hc_stream_fill(const int32_t* qstream, const int32_t* dstream,
                               int32_t* finals, uint32_t* dirs, int R, int T,
                               int P, int S, int NP, int match, int mismatch,
                               int gap_open, int gap_extend, int dirs_mode,
-                              int compat, int wildcard) {
+                              int compat, int wildcard, int cta_lanes) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0) return -1;
   HostFill fn = nullptr;
   switch (dirs_mode) {
     case sa::kDirsNone: fn = pick<sa::kDirsNone>(compat, wildcard); break;
@@ -239,7 +248,7 @@ extern "C" int hc_stream_fill(const int32_t* qstream, const int32_t* dstream,
   }
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(qstream, dstream, dsum, n2, finals, dirs, R, T, P, S, NP, sc);
+  fn(qstream, dstream, dsum, n2, finals, dirs, R, T, P, S, NP, sc, sp);
   return 0;
 }
 
@@ -280,7 +289,9 @@ extern "C" int hc_stream_modes_fill(const int32_t* qstream,
                                     int P, int S, int NP, int match,
                                     int mismatch, int gap_open,
                                     int gap_extend, int dirs_mode, int local,
-                                    int wildcard) {
+                                    int wildcard, int cta_lanes) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0) return -1;
   HostModes fn = nullptr;
   if (dirs_mode == sa::kDirsNone) {
     fn = local ? pick_stream_modes<sa::kDirsNone, sa::kModeLocal>(wildcard)
@@ -291,7 +302,7 @@ extern "C" int hc_stream_modes_fill(const int32_t* qstream,
   }
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(qstream, dstream, dsum, n2, out, dirs, R, T, P, S, NP, sc);
+  fn(qstream, dstream, dsum, n2, out, dirs, R, T, P, S, NP, sc, sp);
   return 0;
 }
 
@@ -300,7 +311,9 @@ extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,
                              int32_t* out, uint32_t* dirs, int B, int L1,
                              int P, int D_total, int match, int mismatch,
                              int gap_open, int gap_extend, int dirs_mode,
-                             int local, int wildcard) {
+                             int local, int wildcard, int cta_lanes) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0) return -1;
   HostPerPair fn = nullptr;
   if (dirs_mode == sa::kDirsNone) {
     fn = local ? pick_modes<sa::kDirsNone, sa::kModeLocal>(wildcard)
@@ -311,7 +324,7 @@ extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,
   }
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(query, s2v, n1, n2, out, dirs, B, L1, P, D_total, sc);
+  fn(query, s2v, n1, n2, out, dirs, B, L1, P, D_total, sc, sp);
   return 0;
 }
 
@@ -330,6 +343,137 @@ extern "C" int hc_walk_modes(const uint32_t* dirs, int W, int R, int P,
     } else {
       sa::walk_modes_pair<false>(dirs, W, R, P, static_cast<size_t>(rowp[b]),
                                  off[b], x, y, st[b], n_ops[b], out, WP);
+    }
+    xf[b] = x;
+    yf[b] = y;
+  }
+  return 0;
+}
+
+namespace {
+
+// The banded fill of one pair at a time: every lane of a wavefront reads
+// its neighbour's state from before the step, as the kernel's shifts do.
+template <int DIRS, bool WILDCARD, bool STD>
+void banded_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
+                 const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
+                 int32_t* finals, uint32_t* dirs, int B, int L, int n_iters,
+                 int he, int lim1, int lim0, bool compat,
+                 const sa::Scheme& sc) {
+  constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;
+  std::vector<sa::BandCell> c(L), c0(L);
+  std::vector<uint32_t> acc(L);
+  for (int b = 0; b < B; ++b) {
+    for (int l = 0; l < L; ++l) {
+      const size_t at = static_cast<size_t>(b) * L + l;
+      c[l] = sa::band_init(l, he, s1w0[at], s2w0[at]);
+      acc[l] = 0;
+    }
+    for (int a = 1; a <= 2 * n_iters; ++a) {
+      const int par = a & 1;
+      const int it = (a - 1) / 2;
+      const int32_t enter = (par ? c1s : c2s)[static_cast<size_t>(b) * n_iters
+                                              + it];
+      const int32_t q = (a - par) / 2 - he;
+      const int aidx = a - 1;
+      const uint32_t shift =
+          DIRS == sa::kDirsFast4 ? 4u * (aidx & 7) : 8u * (aidx & 3);
+      c0 = c;
+      for (int l = 0; l < L; ++l) {
+        const int32_t xv = q - l;
+        const int32_t yv = a - xv;
+        int32_t code;
+        if (par) {
+          const int n = l + 1 < L ? l + 1 : l;
+          code = sa::band_cell<1, DIRS, WILDCARD, STD>(
+              c[l], sa::band_open<STD>(c0[n], sc), sa::band_gap_src<1>(c0[n]),
+              sa::band_char_src<1>(c0[n]), l == L - 1, enter, xv, yv,
+              l <= lim1, n1v[b], n2v[b], compat, sc);
+        } else {
+          const int n = l > 0 ? l - 1 : l;
+          code = sa::band_cell<0, DIRS, WILDCARD, STD>(
+              c[l], sa::band_open<STD>(c0[n], sc), sa::band_gap_src<0>(c0[n]),
+              sa::band_char_src<0>(c0[n]), l == 0, enter, xv, yv, l <= lim0,
+              n1v[b], n2v[b], compat, sc);
+        }
+        acc[l] |= static_cast<uint32_t>(code) << shift;
+        if (xv == n2v[b] && yv == n1v[b]) {
+          finals[static_cast<size_t>(b) * 3 + 0] = c[l].M1;
+          finals[static_cast<size_t>(b) * 3 + 1] = c[l].I1;
+          finals[static_cast<size_t>(b) * 3 + 2] = c[l].D1;
+        }
+      }
+      if (DIRS != sa::kDirsNone &&
+          ((aidx & (kUp - 1)) == kUp - 1 || aidx == 2 * n_iters - 1)) {
+        for (int l = 0; l < L; ++l) {
+          dirs[(static_cast<size_t>(aidx / kUp) * B + b) * L + l] = acc[l];
+          acc[l] = 0;
+        }
+      }
+    }
+  }
+}
+
+typedef void (*HostBand)(const int32_t*, const int32_t*, const int32_t*,
+                         const int32_t*, const int32_t*, const int32_t*,
+                         int32_t*, uint32_t*, int, int, int, int, int, int,
+                         bool, const sa::Scheme&);
+
+template <int DIRS, bool STD>
+HostBand pick_band(bool wildcard) {
+  return wildcard ? banded_host<DIRS, true, STD>
+                  : banded_host<DIRS, false, STD>;
+}
+
+}  // namespace
+
+extern "C" int hc_fill_ctas(int P, int cta_lanes) {
+  return sa::plan_split(P, cta_lanes).nctas;
+}
+
+extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
+                              const int32_t* c1s, const int32_t* c2s,
+                              const int32_t* n1v, const int32_t* n2v,
+                              int32_t* finals, uint32_t* dirs, int B, int L,
+                              int n_iters, int he, int lim1, int lim0,
+                              int match, int mismatch, int gap_open,
+                              int gap_extend, int dirs_mode, int compat,
+                              int wildcard, int std_model) {
+  HostBand fn = nullptr;
+  const bool w = wildcard != 0;
+  if (std_model) {
+    if (dirs_mode == sa::kDirsNone) fn = pick_band<sa::kDirsNone, true>(w);
+    if (dirs_mode == sa::kDirsFast4) fn = pick_band<sa::kDirsFast4, true>(w);
+  } else {
+    if (dirs_mode == sa::kDirsNone) fn = pick_band<sa::kDirsNone, false>(w);
+    if (dirs_mode == sa::kDirsFast4) fn = pick_band<sa::kDirsFast4, false>(w);
+    if (dirs_mode == sa::kDirsFull) fn = pick_band<sa::kDirsFull, false>(w);
+  }
+  if (fn == nullptr) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  fn(s1w0, s2w0, c1s, c2s, n1v, n2v, finals, dirs, B, L, n_iters, he, lim1,
+     lim0, compat != 0, sc);
+  return 0;
+}
+
+extern "C" int hc_walk_banded(const uint32_t* dirs, int W, int NB, int L,
+                              const int32_t* x0, const int32_t* y0,
+                              const int32_t* plane0, const int32_t* bidx,
+                              int k_lo_even, int B, int WP, int std_model,
+                              uint32_t* packed, int32_t* xf, int32_t* yf,
+                              int32_t* n_ops) {
+  for (int b = 0; b < B; ++b) {
+    int32_t x = x0[b];
+    int32_t y = y0[b];
+    uint32_t* out = packed + static_cast<size_t>(b) * WP;
+    if (std_model) {
+      sa::walk_banded_pair<true>(dirs, W, NB, L, static_cast<size_t>(bidx[b]),
+                                 k_lo_even, x, y, plane0[b], n_ops[b], out,
+                                 WP);
+    } else {
+      sa::walk_banded_pair<false>(dirs, W, NB, L,
+                                  static_cast<size_t>(bidx[b]), k_lo_even, x,
+                                  y, plane0[b], n_ops[b], out, WP);
     }
     xf[b] = x;
     yf[b] = y;

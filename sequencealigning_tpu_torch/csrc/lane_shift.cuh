@@ -1,14 +1,21 @@
-// The one-lane shift of the anti-diagonal fills (device code only), shared by
-// nw_affine_stream.cu and nw_affine_modes.cu.
+// The one-lane shifts of the anti-diagonal fills (device code only), shared
+// by nw_affine_stream.cu, nw_affine_modes.cu and nw_banded_diag.cu.
 //
-// A block holds one row of P lanes, LPT consecutive lanes a thread.  Each
-// step, lane x needs lane x-1's state from before the step; inside a thread
-// that is a register, across threads of a warp __shfl_up_sync, and at warp
-// edges and for the torus wrap (lane 0 receives lane P-1, as jnp.roll does)
-// shared memory, double-buffered by step parity so one __syncthreads() a step
+// A block holds a contiguous run of lanes, LPT consecutive lanes a thread.
+// Each step a lane needs a neighbour's state from before the step: inside a
+// thread that is a register, across threads of a warp a shuffle, and at warp
+// edges shared memory, double-buffered by step parity so one barrier a step
 // suffices.
+//
+// shift_lanes moves lane x-1 to lane x.  Its block's first lane receives the
+// last lane of the previous block of a cluster row (distributed shared
+// memory, one cluster barrier a step), or, for a row held by one block, the
+// block's own last lane (the torus wrap of jnp.roll).  shift_down moves lane
+// x+1 to lane x within one block; the last lane receives nothing useful (the
+// banded fill masks its edge lanes).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 namespace sa {
@@ -16,15 +23,20 @@ namespace sa {
 constexpr unsigned kFullMask = 0xffffffffu;
 
 struct ShiftSmem {
-  int32_t edge[2][3][32];  // last lane of each warp (up to 32 warps)
-  int32_t torus[2][3];     // lane P-1, for lane 0
+  int32_t edge[2][3][32];  // a lane at each warp edge (up to 32 warps)
+  int32_t last[2][3];      // the block's last real lane, for the next block
 };
 
 // Hands this thread's last-lane values (h, d, s) to the owner of the next
 // lanes and returns in them what the owner of the previous lanes handed this
-// one (thread 0 gets lane P-1's).  j: thread index; nreal: threads that own
-// real lanes; buf: step parity.  Holds the step's one __syncthreads().
-__device__ __forceinline__ void shift_lanes(ShiftSmem& sm, int j, int nreal,
+// one; thread 0 reads prev->last, the last lane of the previous block (prev
+// is &sm for a row held by one block, the previous CTA's ShiftSmem mapped
+// from the cluster otherwise).  j: thread index; nreal: threads of this
+// block that own real lanes; buf: step parity; cluster: synchronise the
+// cluster instead of the block.  Holds the step's one barrier.
+__device__ __forceinline__ void shift_lanes(ShiftSmem& sm,
+                                            const ShiftSmem* prev,
+                                            bool cluster, int j, int nreal,
                                             int buf, int32_t& h, int32_t& d,
                                             int32_t& s) {
   const int warp = j >> 5;
@@ -39,18 +51,52 @@ __device__ __forceinline__ void shift_lanes(ShiftSmem& sm, int j, int nreal,
     sm.edge[buf][2][warp] = eS;
   }
   if (j == nreal - 1) {
-    sm.torus[buf][0] = eH;
-    sm.torus[buf][1] = eD;
-    sm.torus[buf][2] = eS;
+    sm.last[buf][0] = eH;
+    sm.last[buf][1] = eD;
+    sm.last[buf][2] = eS;
+  }
+  if (cluster) {
+    cooperative_groups::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+  if (wl == 0) {
+    if (j == 0) {
+      h = prev->last[buf][0];
+      d = prev->last[buf][1];
+      s = prev->last[buf][2];
+    } else {
+      h = sm.edge[buf][0][warp - 1];
+      d = sm.edge[buf][1][warp - 1];
+      s = sm.edge[buf][2][warp - 1];
+    }
+  }
+}
+
+// The mirror of shift_lanes inside one block: hands this thread's
+// first-lane values (h, d, s) to the owner of the previous lanes and returns
+// in them what the owner of the next lanes handed this one.  The thread
+// owning the block's last lane gets no real neighbour.  Holds the step's one
+// __syncthreads().
+__device__ __forceinline__ void shift_down(ShiftSmem& sm, int j, int buf,
+                                           int32_t& h, int32_t& d,
+                                           int32_t& s) {
+  const int warp = j >> 5;
+  const int wl = j & 31;
+  const int32_t eH = h, eD = d, eS = s;
+  h = __shfl_down_sync(kFullMask, eH, 1);
+  d = __shfl_down_sync(kFullMask, eD, 1);
+  s = __shfl_down_sync(kFullMask, eS, 1);
+  if (wl == 0) {
+    sm.edge[buf][0][warp] = eH;
+    sm.edge[buf][1][warp] = eD;
+    sm.edge[buf][2][warp] = eS;
   }
   __syncthreads();
-  if (wl == 0) {
-    const int32_t* src0 =
-        j == 0 ? &sm.torus[buf][0] : &sm.edge[buf][0][warp - 1];
-    const int stride = j == 0 ? 1 : 32;
-    h = src0[0];
-    d = src0[stride];
-    s = src0[2 * stride];
+  if (wl == 31 && warp + 1 < 32) {
+    h = sm.edge[buf][0][warp + 1];
+    d = sm.edge[buf][1][warp + 1];
+    s = sm.edge[buf][2][warp + 1];
   }
 }
 

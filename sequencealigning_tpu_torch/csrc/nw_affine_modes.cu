@@ -9,12 +9,14 @@
 // kernel writes the (B, P) per-lane buffers and the full direction bytes,
 // byte d & 3 of word dirs[d >> 2, b, x], in ceil(D_total / 4) words.
 //
-// Design: one thread block per pair, LPT consecutive lanes a thread in
-// registers, the one-lane shift of lane_shift.cuh (one __syncthreads() a
-// step), and the per-cell arithmetic of the streamed fill
-// (nw_affine_stream.cuh::stream_cell with the MODE hook, each lane passing its
-// own db code).  The lane-0 query code of diagonal d, seq1[clip(d-1, 0,
-// L1-1)], is staged in shared memory 128 diagonals at a time.
+// Design: one thread block per pair up to 8192 lanes, past that one
+// thread-block cluster per pair (cluster_split.cuh, as the streamed fill),
+// LPT consecutive lanes a thread in registers, the one-lane shift of
+// lane_shift.cuh (one barrier a step), and the per-cell arithmetic of the
+// streamed fill (nw_affine_stream.cuh::stream_cell with the MODE hook, each
+// lane passing its own db code).  The lane-0 query code of diagonal d,
+// seq1[clip(d-1, 0, L1-1)], is staged in shared memory 128 diagonals at a
+// time.
 //
 // What bounds it on this card: the small batches it serves (fewer than 32
 // pairs, one block each) use at most 31 of the 132 SMs, so it is bound by
@@ -24,31 +26,47 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster_split.cuh"
 #include "lane_shift.cuh"
 #include "nw_affine_stream.cuh"
 
 namespace {
 
-constexpr int kCodeChunk = 128;  // diagonals of query codes staged at a time
-constexpr int kMaxThreads = 512;
+namespace cg = cooperative_groups;
 
-// out: bv then bd, each (B, P) int32.
-template <int LPT, int DIRS, int MODE, bool WILDCARD>
-__global__ void __launch_bounds__(kMaxThreads)
+constexpr int kCodeChunk = 128;  // diagonals of query codes staged at a time
+
+// out: bv then bd, each (B, P) int32.  sp: the pair's split
+// (cluster_split.cuh); block i holds CTA i % nctas of pair i / nctas.
+// CLUSTER: the pair is split over a cluster (sp.nctas > 1).
+template <int LPT, int DIRS, int MODE, bool WILDCARD, bool CLUSTER>
+__global__ void __launch_bounds__(sa::kMaxThreads)
     modes_fill_kernel(const int32_t* __restrict__ query,
                       const int32_t* __restrict__ s2v,
                       const int32_t* __restrict__ n1s,
                       const int32_t* __restrict__ n2s,
                       int32_t* __restrict__ out, uint32_t* __restrict__ dirs,
-                      int B, int L1, int P, int D_total, sa::Scheme sc) {
+                      int B, int L1, int P, int D_total, sa::Scheme sc,
+                      sa::Split sp) {
   __shared__ int32_t qs[kCodeChunk];
   __shared__ sa::ShiftSmem sm;
 
-  const int b = blockIdx.x;
+  constexpr bool cluster = CLUSTER;
+  int rank = 0;
+  int b = blockIdx.x;
+  if constexpr (CLUSTER) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+    b = blockIdx.x / sp.nctas;
+  }
   const int j = threadIdx.x;
-  const int nreal = P / LPT;  // threads at or past nreal own no real lane
+  // Threads at or past nreal own no real lane.
+  const int nreal = sa::cta_real_lanes(rank, sp, P) / LPT;
   const bool real = j < nreal;
-  const int base = j * LPT;
+  const int base = sa::cta_first_lane(rank, sp) + j * LPT;
+  const sa::ShiftSmem* prev = &sm;
+  if constexpr (CLUSTER) {
+    prev = cg::this_cluster().map_shared_rank(&sm, sa::prev_cta(rank, sp));
+  }
   const int32_t n1 = n1s[b];
   const int32_t n2 = n2s[b];
 
@@ -83,7 +101,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     int32_t nH = c[LPT - 1].H2;
     int32_t nD = pre[LPT - 1].dsel;
     int32_t nS = c[LPT - 1].s1d | (pre[LPT - 1].dflag << 8);
-    sa::shift_lanes(sm, j, nreal, d & 1, nH, nD, nS);
+    sa::shift_lanes(sm, prev, cluster, j, nreal, d & 1, nH, nD, nS);
     const int32_t qc = qs[dc];
     const uint32_t shift = 8u * (d & 3);
 
@@ -134,64 +152,79 @@ __global__ void __launch_bounds__(kMaxThreads)
       out[plane + at + i] = bd[i];
     }
   }
+  // Keep this CTA's shared memory alive until its neighbour has read it.
+  if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
 typedef void (*ModesKernel)(const int32_t*, const int32_t*, const int32_t*,
                             const int32_t*, int32_t*, uint32_t*, int, int,
-                            int, int, sa::Scheme);
+                            int, int, sa::Scheme, sa::Split);
 
-template <int LPT, int DIRS>
+template <int LPT, int DIRS, bool CL>
 ModesKernel pick_mode(bool local, bool wildcard) {
   if (local) {
-    return wildcard ? modes_fill_kernel<LPT, DIRS, sa::kModeLocal, true>
-                    : modes_fill_kernel<LPT, DIRS, sa::kModeLocal, false>;
+    return wildcard ? modes_fill_kernel<LPT, DIRS, sa::kModeLocal, true, CL>
+                    : modes_fill_kernel<LPT, DIRS, sa::kModeLocal, false, CL>;
   }
-  return wildcard ? modes_fill_kernel<LPT, DIRS, sa::kModeSemi, true>
-                  : modes_fill_kernel<LPT, DIRS, sa::kModeSemi, false>;
+  return wildcard ? modes_fill_kernel<LPT, DIRS, sa::kModeSemi, true, CL>
+                  : modes_fill_kernel<LPT, DIRS, sa::kModeSemi, false, CL>;
 }
 
-template <int LPT>
-ModesKernel pick_dirs(int dirs_mode, bool local, bool wildcard) {
+template <int LPT, bool CL>
+ModesKernel pick_cl(int dirs_mode, bool local, bool wildcard) {
   switch (dirs_mode) {
     case sa::kDirsNone:
-      return pick_mode<LPT, sa::kDirsNone>(local, wildcard);
+      return pick_mode<LPT, sa::kDirsNone, CL>(local, wildcard);
     case sa::kDirsFull:
-      return pick_mode<LPT, sa::kDirsFull>(local, wildcard);
+      return pick_mode<LPT, sa::kDirsFull, CL>(local, wildcard);
     default:
       return nullptr;
   }
 }
 
-}  // namespace
+// The instance for a split: the cluster instances for more than one CTA.
+template <int LPT>
+ModesKernel pick_dirs(const sa::Split& sp, int dirs_mode, bool local,
+                      bool wildcard) {
+  return sp.nctas > 1 ? pick_cl<LPT, true>(dirs_mode, local, wildcard)
+                      : pick_cl<LPT, false>(dirs_mode, local, wildcard);
+}
 
-// Lanes per thread, as for the streamed fill (nw_affine_stream.cu).
-extern "C" int sa_stream_lanes_per_thread(int P);
+}  // namespace
 
 // query: (B, L1) int32 codes; s2v: (B, P) int32 (db at lanes 1..L2); n1/n2:
 // (B,) int32 lengths; out: bv then bd, each (B, P) int32; dirs:
 // (ceil(D_total/4), B, P) u32 full bytes, unused for dirs_mode 0.  dirs_mode:
-// 0 (none) or 2 (full); local != 0: local, else semi-global.  Returns the
-// cudaGetLastError() of the launch, or -1 for an unsupported shape or mode.
+// 0 (none) or 2 (full); local != 0: local, else semi-global; cta_lanes: 0,
+// or the forced CTA width of the split.  Returns the cudaGetLastError() of
+// the launch, -1 for an unsupported shape or mode, -3 for a cluster the card
+// cannot schedule.
 extern "C" int sa_modes_fill(const int32_t* query, const int32_t* s2v,
                              const int32_t* n1, const int32_t* n2,
                              int32_t* out, uint32_t* dirs, int B, int L1,
                              int P, int D_total, int match, int mismatch,
                              int gap_open, int gap_extend, int dirs_mode,
-                             int local, int wildcard, void* stream) {
-  const int lpt = sa_stream_lanes_per_thread(P);
-  if (lpt == 0 || B <= 0 || L1 <= 0 || D_total <= 0) return -1;
+                             int local, int wildcard, int cta_lanes,
+                             void* stream) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0 || B <= 0 || L1 <= 0 || D_total <= 0) return -1;
   ModesKernel fn = nullptr;
-  switch (lpt) {
-    case 4: fn = pick_dirs<4>(dirs_mode, local != 0, wildcard != 0); break;
-    case 8: fn = pick_dirs<8>(dirs_mode, local != 0, wildcard != 0); break;
-    case 16: fn = pick_dirs<16>(dirs_mode, local != 0, wildcard != 0); break;
+  switch (sp.lpt) {
+    case 4:
+      fn = pick_dirs<4>(sp, dirs_mode, local != 0, wildcard != 0);
+      break;
+    case 8:
+      fn = pick_dirs<8>(sp, dirs_mode, local != 0, wildcard != 0);
+      break;
+    case 16:
+      fn = pick_dirs<16>(sp, dirs_mode, local != 0, wildcard != 0);
+      break;
   }
   if (fn == nullptr) return -1;
-  const int threads = (P / lpt + 31) / 32 * 32;
   sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  void* args[] = {&query, &s2v, &n1, &n2, &out, &dirs,
-                  &B,     &L1,  &P,  &D_total, &sc};
-  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(B), dim3(threads),
-                   args, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  sa::Split split = sp;
+  void* args[] = {&query, &s2v, &n1, &n2,      &out, &dirs,
+                  &B,     &L1,  &P,  &D_total, &sc,  &split};
+  return sa::launch_split(reinterpret_cast<const void*>(fn), sp, B, args,
+                          stream);
 }

@@ -13,13 +13,19 @@
 // (x, y) of slot k at step d = k*S + x + y sits in word dirs[d >> 3, row, x],
 // nibble d & 7, for fast4; byte d & 3 of word dirs[d >> 2, row, x] for full).
 //
-// Design: one thread block per stream row; each thread owns LPT consecutive
-// lanes and keeps their state (H2, H1, M1, I1, D1, s1d, s2v) in registers.
-// The one-lane shift of the anti-diagonal recurrence is lane_shift.cuh: one
-// __syncthreads() a step.  Query/db codes are staged in shared memory 128
-// steps at a time.  A pair's finals are written once, by the thread owning
-// lane n2 at step k*S + n1 + n2; direction codes are packed in registers and
-// stored as one coalesced u32 per lane every 8 (fast4) or 4 (full) steps.
+// Design: one thread block per stream row up to 8192 lanes, past that one
+// thread-block cluster per row (cluster_split.cuh: CTAs of 4096 or 8192
+// lanes, the lane shift crossing CTA edges through distributed shared memory
+// with one cluster barrier a step); each thread owns LPT consecutive lanes
+// and keeps their state (H2, H1, M1, I1, D1, s1d, s2v) in registers.  The
+// one-lane shift of the anti-diagonal recurrence is lane_shift.cuh: one
+// barrier a step.  Query/db codes are staged in shared memory 128 steps at a
+// time (each CTA of a cluster stages its own copy).  A pair's finals are
+// written once, by the thread owning lane n2 at step k*S + n1 + n2;
+// direction codes are packed in registers and stored as one coalesced u32
+// per lane every 8 (fast4) or 4 (full) steps.  The cluster split costs a
+// cluster barrier where one block pays a block barrier; rows past 32768
+// lanes take the 16-lane variants, which spill.
 //
 // The modes' running argmax: lane x holds the younger pair (slot t / S) from
 // step p == x of its slot and the older one before, so one (best, diagonal)
@@ -27,7 +33,7 @@
 // argmax to bv/bd[slot, row, x] and starts the younger's; the TPU kernel's
 // even/odd parity accumulators and per-group merges have no counterpart.
 //
-// What bounds it on this card: the per-step block barrier and the integer ALU
+// What bounds it on this card: the per-step barrier and the integer ALU
 // work of the recurrence (~30 operations a cell, ~10 more for the modes'
 // argmax), then the direction store bandwidth, 0.5 B a cell in fast4 and 1 B
 // in full.  The modes' 8-lane variants sit at the 128-register cap, which
@@ -39,37 +45,52 @@
 
 #include <climits>
 
+#include "cluster_split.cuh"
 #include "lane_shift.cuh"
 #include "nw_affine_stream.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kCodeChunk = 128;  // steps of query/db codes staged at a time
-// Threads per block at most; with up to 16 lanes a thread this keeps the
-// lanes' state in registers (up to 128 a thread) for P <= 8192.
-constexpr int kMaxThreads = 512;
 
 // out: global mode, the (R*NP, 3) finals; the modes, bv then bd, each
-// (NP, R, P).
-template <int LPT, int DIRS, int MODE, bool COMPAT, bool WILDCARD>
-__global__ void __launch_bounds__(kMaxThreads)
+// (NP, R, P).  sp: the row's split (cluster_split.cuh); block b holds CTA
+// b % nctas of row b / nctas.  CLUSTER: the row is split over a cluster
+// (sp.nctas > 1); the one-block instances keep the block barrier and local
+// shared memory at compile time.
+template <int LPT, int DIRS, int MODE, bool COMPAT, bool WILDCARD,
+          bool CLUSTER>
+__global__ void __launch_bounds__(sa::kMaxThreads)
     stream_fill_kernel(const int32_t* __restrict__ qstream,
                        const int32_t* __restrict__ dstream,
                        const int32_t* __restrict__ dsum,
                        const int32_t* __restrict__ n2s,
                        int32_t* __restrict__ out,
                        uint32_t* __restrict__ dirs, int R, int T, int P,
-                       int S, int NP, sa::Scheme sc) {
+                       int S, int NP, sa::Scheme sc, sa::Split sp) {
   constexpr bool kModes = MODE != sa::kModeGlobal;
   __shared__ int32_t qs[kCodeChunk];
   __shared__ int32_t ds[kCodeChunk];
   __shared__ sa::ShiftSmem sm;
 
-  const int row = blockIdx.x;
+  constexpr bool cluster = CLUSTER;
+  int rank = 0;
+  int row = blockIdx.x;
+  if constexpr (CLUSTER) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+    row = blockIdx.x / sp.nctas;
+  }
   const int j = threadIdx.x;
-  const int nreal = P / LPT;  // threads at or past nreal own no real lane
+  // Threads at or past nreal own no real lane.
+  const int nreal = sa::cta_real_lanes(rank, sp, P) / LPT;
   const bool real = j < nreal;
-  const int base = j * LPT;
+  const int base = sa::cta_first_lane(rank, sp) + j * LPT;
+  const sa::ShiftSmem* prev = &sm;
+  if constexpr (CLUSTER) {
+    prev = cg::this_cluster().map_shared_rank(&sm, sa::prev_cta(rank, sp));
+  }
 
   sa::Cell c[LPT];
   uint32_t acc[LPT];
@@ -138,7 +159,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     int32_t nH = c[LPT - 1].H2;
     int32_t nD = pre[LPT - 1].dsel;
     int32_t nS = c[LPT - 1].s1d | (pre[LPT - 1].dflag << 8);
-    sa::shift_lanes(sm, j, nreal, t & 1, nH, nD, nS);
+    sa::shift_lanes(sm, prev, cluster, j, nreal, t & 1, nH, nD, nS);
     const int32_t qc = qs[tc];
     const int32_t dc = ds[tc];
     const uint32_t shift =
@@ -221,102 +242,129 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (base + i < S) flush_argmax(slot, i);
     }
   }
+  // Keep this CTA's shared memory alive until its neighbour has read it.
+  if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
 typedef void (*FillKernel)(const int32_t*, const int32_t*, const int32_t*,
                            const int32_t*, int32_t*, uint32_t*, int, int, int,
-                           int, int, sa::Scheme);
+                           int, int, sa::Scheme, sa::Split);
 
-template <int LPT, int DIRS, int MODE>
+template <int LPT, int DIRS, int MODE, bool CL>
 FillKernel pick_flags(bool compat, bool wildcard) {
   if (compat) {
-    return wildcard ? stream_fill_kernel<LPT, DIRS, MODE, true, true>
-                    : stream_fill_kernel<LPT, DIRS, MODE, true, false>;
+    return wildcard ? stream_fill_kernel<LPT, DIRS, MODE, true, true, CL>
+                    : stream_fill_kernel<LPT, DIRS, MODE, true, false, CL>;
   }
-  return wildcard ? stream_fill_kernel<LPT, DIRS, MODE, false, true>
-                  : stream_fill_kernel<LPT, DIRS, MODE, false, false>;
+  return wildcard ? stream_fill_kernel<LPT, DIRS, MODE, false, true, CL>
+                  : stream_fill_kernel<LPT, DIRS, MODE, false, false, CL>;
 }
 
-template <int LPT>
+template <int LPT, bool CL>
 FillKernel pick_dirs(int dirs_mode, bool compat, bool wildcard) {
   switch (dirs_mode) {
     case sa::kDirsNone:
-      return pick_flags<LPT, sa::kDirsNone, sa::kModeGlobal>(compat, wildcard);
+      return pick_flags<LPT, sa::kDirsNone, sa::kModeGlobal, CL>(compat,
+                                                                 wildcard);
     case sa::kDirsFast4:
-      return pick_flags<LPT, sa::kDirsFast4, sa::kModeGlobal>(compat,
-                                                              wildcard);
+      return pick_flags<LPT, sa::kDirsFast4, sa::kModeGlobal, CL>(compat,
+                                                                  wildcard);
     case sa::kDirsFull:
-      return pick_flags<LPT, sa::kDirsFull, sa::kModeGlobal>(compat, wildcard);
+      return pick_flags<LPT, sa::kDirsFull, sa::kModeGlobal, CL>(compat,
+                                                                 wildcard);
     default:
       return nullptr;
   }
 }
 
 // The textbook modes: textbook scoring (compat false), dirs none or full.
-template <int LPT, int MODE>
+template <int LPT, int MODE, bool CL>
 FillKernel pick_modes_dirs(int dirs_mode, bool wildcard) {
   switch (dirs_mode) {
     case sa::kDirsNone:
-      return wildcard ? stream_fill_kernel<LPT, sa::kDirsNone, MODE, false, true>
-                      : stream_fill_kernel<LPT, sa::kDirsNone, MODE, false, false>;
+      return wildcard
+                 ? stream_fill_kernel<LPT, sa::kDirsNone, MODE, false, true, CL>
+                 : stream_fill_kernel<LPT, sa::kDirsNone, MODE, false, false,
+                                      CL>;
     case sa::kDirsFull:
-      return wildcard ? stream_fill_kernel<LPT, sa::kDirsFull, MODE, false, true>
-                      : stream_fill_kernel<LPT, sa::kDirsFull, MODE, false, false>;
+      return wildcard
+                 ? stream_fill_kernel<LPT, sa::kDirsFull, MODE, false, true, CL>
+                 : stream_fill_kernel<LPT, sa::kDirsFull, MODE, false, false,
+                                      CL>;
     default:
       return nullptr;
   }
 }
 
-template <int LPT>
+template <int LPT, bool CL>
 FillKernel pick_modes(int dirs_mode, bool local, bool wildcard) {
-  return local ? pick_modes_dirs<LPT, sa::kModeLocal>(dirs_mode, wildcard)
-               : pick_modes_dirs<LPT, sa::kModeSemi>(dirs_mode, wildcard);
+  return local ? pick_modes_dirs<LPT, sa::kModeLocal, CL>(dirs_mode, wildcard)
+               : pick_modes_dirs<LPT, sa::kModeSemi, CL>(dirs_mode, wildcard);
 }
 
-int launch(FillKernel fn, int lpt, const int32_t* qstream,
+// The instance for a split: the cluster instances for more than one CTA.
+template <int LPT>
+FillKernel pick_global(const sa::Split& sp, int dirs_mode, bool compat,
+                       bool wildcard) {
+  return sp.nctas > 1 ? pick_dirs<LPT, true>(dirs_mode, compat, wildcard)
+                      : pick_dirs<LPT, false>(dirs_mode, compat, wildcard);
+}
+
+template <int LPT>
+FillKernel pick_textbook(const sa::Split& sp, int dirs_mode, bool local,
+                         bool wildcard) {
+  return sp.nctas > 1 ? pick_modes<LPT, true>(dirs_mode, local, wildcard)
+                      : pick_modes<LPT, false>(dirs_mode, local, wildcard);
+}
+
+int launch(FillKernel fn, const sa::Split& sp, const int32_t* qstream,
            const int32_t* dstream, const int32_t* dsum, const int32_t* n2,
            int32_t* out, uint32_t* dirs, int R, int T, int P, int S, int NP,
            sa::Scheme sc, void* stream) {
   if (fn == nullptr) return -1;
-  const int threads = (P / lpt + 31) / 32 * 32;
-  void* args[] = {&qstream, &dstream, &dsum, &n2, &out, &dirs,
-                  &R,       &T,       &P,    &S,  &NP,  &sc};
-  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(R), dim3(threads),
-                   args, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  sa::Split split = sp;
+  void* args[] = {&qstream, &dstream, &dsum, &n2, &out, &dirs, &R,
+                  &T,       &P,       &S,    &NP, &sc,  &split};
+  return sa::launch_split(reinterpret_cast<const void*>(fn), sp, R, args,
+                          stream);
 }
 
 }  // namespace
 
-// Lanes per thread for a lane width P: the smallest of 4, 8, 16 that keeps
-// the block at or under kMaxThreads threads; 0 if P is out of range.
-extern "C" int sa_stream_lanes_per_thread(int P) {
-  if (P <= 0 || P % 128 != 0) return 0;
-  for (int lpt = 4; lpt <= 16; lpt *= 2) {
-    if (P / lpt <= kMaxThreads) return lpt;
-  }
-  return 0;
+// CTAs a row of P lanes takes (cluster_split.cuh::plan_split; cta_lanes 0
+// for the automatic split), 0 if P or cta_lanes is out of range.
+extern "C" int sa_fill_ctas(int P, int cta_lanes) {
+  return sa::plan_split(P, cta_lanes).nctas;
 }
 
 // qstream/dstream: (R, T) int32 codes; dsum/n2: (NP, R) int32; finals:
 // (R*NP, 3) int32, pair b = row b / NP, slot b % NP; dirs: (T/8, R, P) u32
-// for fast4, (T/4, R, P) for full, unused for none.  Returns the
-// cudaGetLastError() of the launch, or -1 for an unsupported shape or mode.
+// for fast4, (T/4, R, P) for full, unused for none.  cta_lanes: 0, or the
+// forced CTA width of the split.  Returns the cudaGetLastError() of the
+// launch, -1 for an unsupported shape or mode, -3 for a cluster the card
+// cannot schedule.
 extern "C" int sa_stream_fill(const int32_t* qstream, const int32_t* dstream,
                               const int32_t* dsum, const int32_t* n2,
                               int32_t* finals, uint32_t* dirs, int R, int T,
                               int P, int S, int NP, int match, int mismatch,
                               int gap_open, int gap_extend, int dirs_mode,
-                              int compat, int wildcard, void* stream) {
-  const int lpt = sa_stream_lanes_per_thread(P);
-  if (lpt == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0) return -1;
+                              int compat, int wildcard, int cta_lanes,
+                              void* stream) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0) return -1;
   FillKernel fn = nullptr;
-  switch (lpt) {
-    case 4: fn = pick_dirs<4>(dirs_mode, compat != 0, wildcard != 0); break;
-    case 8: fn = pick_dirs<8>(dirs_mode, compat != 0, wildcard != 0); break;
-    case 16: fn = pick_dirs<16>(dirs_mode, compat != 0, wildcard != 0); break;
+  switch (sp.lpt) {
+    case 4:
+      fn = pick_global<4>(sp, dirs_mode, compat != 0, wildcard != 0);
+      break;
+    case 8:
+      fn = pick_global<8>(sp, dirs_mode, compat != 0, wildcard != 0);
+      break;
+    case 16:
+      fn = pick_global<16>(sp, dirs_mode, compat != 0, wildcard != 0);
+      break;
   }
-  return launch(fn, lpt, qstream, dstream, dsum, n2, finals, dirs, R, T, P, S,
+  return launch(fn, sp, qstream, dstream, dsum, n2, finals, dirs, R, T, P, S,
                 NP, sa::Scheme{match, mismatch, gap_open, gap_extend}, stream);
 }
 
@@ -330,15 +378,22 @@ extern "C" int sa_stream_modes_fill(const int32_t* qstream,
                                     int P, int S, int NP, int match,
                                     int mismatch, int gap_open,
                                     int gap_extend, int dirs_mode, int local,
-                                    int wildcard, void* stream) {
-  const int lpt = sa_stream_lanes_per_thread(P);
-  if (lpt == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0) return -1;
+                                    int wildcard, int cta_lanes,
+                                    void* stream) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0) return -1;
   FillKernel fn = nullptr;
-  switch (lpt) {
-    case 4: fn = pick_modes<4>(dirs_mode, local != 0, wildcard != 0); break;
-    case 8: fn = pick_modes<8>(dirs_mode, local != 0, wildcard != 0); break;
-    case 16: fn = pick_modes<16>(dirs_mode, local != 0, wildcard != 0); break;
+  switch (sp.lpt) {
+    case 4:
+      fn = pick_textbook<4>(sp, dirs_mode, local != 0, wildcard != 0);
+      break;
+    case 8:
+      fn = pick_textbook<8>(sp, dirs_mode, local != 0, wildcard != 0);
+      break;
+    case 16:
+      fn = pick_textbook<16>(sp, dirs_mode, local != 0, wildcard != 0);
+      break;
   }
-  return launch(fn, lpt, qstream, dstream, dsum, n2, out, dirs, R, T, P, S,
+  return launch(fn, sp, qstream, dstream, dsum, n2, out, dirs, R, T, P, S,
                 NP, sa::Scheme{match, mismatch, gap_open, gap_extend}, stream);
 }

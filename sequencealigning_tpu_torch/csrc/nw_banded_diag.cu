@@ -1,0 +1,265 @@
+// Banded Gotoh fill over anti-diagonal wavefronts for Hopper (sm_90a).
+//
+// Replaces the TPU kernel ops/nw_banded_diag.py::_diag_kernel (launched by
+// banded_diag_fill_pallas).  Same contract as _banded_diag_lax: lane l of
+// wavefront a holds diagonal k = k_lo_even + 2l + (a & 1); each iteration
+// runs wavefronts 2i+1 (odd: D and the query window read lane l+1) and 2i+2
+// (even: I and the db window read lane l-1), with the entering characters
+// c1s[b, i] / c2s[b, i]; the per-cell work is nw_banded_diag.cuh::band_cell.
+// Each pair's M/I/D at its corner (n2, n1) is written by the lane that holds
+// it (zero when the corner is never reached, as the lax capture's sum over a
+// hit mask gives).  Direction codes keyed by aidx = a - 1: fast4 nibble
+// aidx & 7 of word dirs[aidx >> 3, b, l], full byte aidx & 3 of word
+// dirs[aidx >> 2, b, l]; ceil(2 n_iters / upack) words.
+//
+// Design: one thread block per pair, LPT consecutive lanes a thread in
+// registers (2 for the 256-lane band of the main shape: 128 threads; 16 for
+// the widest, 8192 lanes, whose state spills past the 128 registers a
+// thread of a 512-thread block).  The lane shift alternates direction with
+// the wavefront parity: shift_lanes
+// (x-1 -> x) on even wavefronts, shift_down (x+1 -> x) on odd ones, both in
+// lane_shift.cuh, one __syncthreads() a wavefront; within a thread the
+// neighbours are registers, read before any lane moves.  Entering characters
+// are staged in shared memory 128 iterations at a time.  Each thread packs 8
+// (fast4) or 4 (full) wavefronts of its lanes in registers and stores them
+// as one coalesced 8- or 16-byte store.  The TPU kernel's steady-state
+// variant (no boundary selects past the x = 0 / y = 0 cells) and its
+// masked lane-reduce gather of the characters have no counterpart here.
+//
+// What bounds it on this card: the integer ALU work of the recurrence and
+// its masks (~45 operations a lane-step, all lanes of the band on every
+// wavefront) and the per-wavefront block barrier; the direction stores
+// (0.5 B a lane-step in fast4, 1 B in full) are a few percent of HBM time.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "lane_shift.cuh"
+#include "nw_banded_diag.cuh"
+
+namespace {
+
+constexpr int kCharChunk = 128;  // iterations of entering chars staged
+constexpr int kMaxThreads = 512;
+
+// s1w0/s2w0: (B, L) int32 windows; c1s/c2s: (B, n_iters) int32 entering
+// characters; n1v/n2v: (B,) lengths; finals: (B, 3) int32, zeroed by the
+// caller; dirs: (W, B, L) u32.  lim1/lim0: the last lane inside the
+// effective band on odd / even wavefronts.
+template <int LPT, int DIRS, bool WILDCARD, bool STD>
+__global__ void __launch_bounds__(kMaxThreads)
+    banded_fill_kernel(const int32_t* __restrict__ s1w0,
+                       const int32_t* __restrict__ s2w0,
+                       const int32_t* __restrict__ c1s,
+                       const int32_t* __restrict__ c2s,
+                       const int32_t* __restrict__ n1v,
+                       const int32_t* __restrict__ n2v,
+                       int32_t* __restrict__ finals,
+                       uint32_t* __restrict__ dirs, int B, int L,
+                       int n_iters, int he, int lim1, int lim0, int compat,
+                       sa::Scheme sc) {
+  constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;  // wavefronts a word
+  __shared__ int32_t cs1[kCharChunk];
+  __shared__ int32_t cs2[kCharChunk];
+  __shared__ sa::ShiftSmem sm;
+
+  const int b = blockIdx.x;
+  const int j = threadIdx.x;
+  const int nreal = L / LPT;  // threads at or past nreal own no real lane
+  const bool real = j < nreal;
+  const int base = j * LPT;
+  const int32_t n1 = n1v[b];
+  const int32_t n2 = n2v[b];
+  const bool cmp = compat != 0;
+  const int last_aidx = 2 * n_iters - 1;
+
+  sa::BandCell c[LPT];
+  uint32_t acc[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const size_t at = static_cast<size_t>(b) * L + base + i;
+    c[i] = sa::band_init(base + i, he, real ? s1w0[at] : -1,
+                         real ? s2w0[at] : -1);
+    acc[i] = 0;
+  }
+
+  // One wavefront a of parity PAR.
+  auto step = [&](auto par_tag, int a, int32_t enter) {
+    constexpr int PAR = decltype(par_tag)::value;
+    int32_t nb_open[LPT], nb_gap[LPT], nb_char[LPT];
+    if constexpr (PAR == 1) {
+      // Lane l reads lane l+1: this thread's first lane goes to the
+      // previous thread, the next thread's first lane comes in.
+      int32_t h = sa::band_open<STD>(c[0], sc);
+      int32_t g = sa::band_gap_src<PAR>(c[0]);
+      int32_t ch = sa::band_char_src<PAR>(c[0]);
+      sa::shift_down(sm, j, a & 1, h, g, ch);
+#pragma unroll
+      for (int i = 0; i < LPT - 1; ++i) {
+        nb_open[i] = sa::band_open<STD>(c[i + 1], sc);
+        nb_gap[i] = sa::band_gap_src<PAR>(c[i + 1]);
+        nb_char[i] = sa::band_char_src<PAR>(c[i + 1]);
+      }
+      nb_open[LPT - 1] = h;
+      nb_gap[LPT - 1] = g;
+      nb_char[LPT - 1] = ch;
+    } else {
+      // Lane l reads lane l-1.
+      int32_t h = sa::band_open<STD>(c[LPT - 1], sc);
+      int32_t g = sa::band_gap_src<PAR>(c[LPT - 1]);
+      int32_t ch = sa::band_char_src<PAR>(c[LPT - 1]);
+      sa::shift_lanes(sm, &sm, false, j, nreal, a & 1, h, g, ch);
+#pragma unroll
+      for (int i = 1; i < LPT; ++i) {
+        nb_open[i] = sa::band_open<STD>(c[i - 1], sc);
+        nb_gap[i] = sa::band_gap_src<PAR>(c[i - 1]);
+        nb_char[i] = sa::band_char_src<PAR>(c[i - 1]);
+      }
+      nb_open[0] = h;
+      nb_gap[0] = g;
+      nb_char[0] = ch;
+    }
+    const int32_t q = (a - PAR) / 2 - he;
+    const int lim = PAR == 1 ? lim1 : lim0;
+    const int aidx = a - 1;
+    const uint32_t shift = DIRS == sa::kDirsFast4 ? 4u * (aidx & 7)
+                                                  : 8u * (aidx & 3);
+#pragma unroll
+    for (int i = 0; i < LPT; ++i) {
+      const int lane = base + i;
+      const int32_t xv = q - lane;
+      const int32_t yv = a - xv;
+      const bool edge = PAR == 1 ? lane == L - 1 : lane == 0;
+      const int32_t code = sa::band_cell<PAR, DIRS, WILDCARD, STD>(
+          c[i], nb_open[i], nb_gap[i], nb_char[i], edge, enter, xv, yv,
+          lane <= lim, n1, n2, cmp, sc);
+      if (DIRS != sa::kDirsNone) acc[i] |= static_cast<uint32_t>(code) << shift;
+      if (xv == n2 && yv == n1 && real) {
+        finals[static_cast<size_t>(b) * 3 + 0] = c[i].M1;
+        finals[static_cast<size_t>(b) * 3 + 1] = c[i].I1;
+        finals[static_cast<size_t>(b) * 3 + 2] = c[i].D1;
+      }
+    }
+    if (DIRS != sa::kDirsNone &&
+        ((aidx & (kUp - 1)) == kUp - 1 || aidx == last_aidx)) {
+      if (real) {
+        uint32_t* dst =
+            dirs + (static_cast<size_t>(aidx / kUp) * B + b) * L + base;
+        if constexpr (LPT % 4 == 0) {
+#pragma unroll
+          for (int i = 0; i < LPT; i += 4) {
+            *reinterpret_cast<uint4*>(dst + i) =
+                make_uint4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < LPT; i += 2) {
+            *reinterpret_cast<uint2*>(dst + i) = make_uint2(acc[i], acc[i + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < LPT; ++i) acc[i] = 0;
+    }
+  };
+
+  const size_t crow = static_cast<size_t>(b) * n_iters;
+  for (int it = 0; it < n_iters; ++it) {
+    const int ic = it % kCharChunk;
+    if (ic == 0) {
+      __syncthreads();
+      for (int i = j; i < kCharChunk; i += blockDim.x) {
+        const bool in = it + i < n_iters;
+        cs1[i] = in ? c1s[crow + it + i] : -1;
+        cs2[i] = in ? c2s[crow + it + i] : -1;
+      }
+      __syncthreads();
+    }
+    step(std::integral_constant<int, 1>(), 2 * it + 1, cs1[ic]);
+    step(std::integral_constant<int, 0>(), 2 * it + 2, cs2[ic]);
+  }
+}
+
+typedef void (*BandKernel)(const int32_t*, const int32_t*, const int32_t*,
+                           const int32_t*, const int32_t*, const int32_t*,
+                           int32_t*, uint32_t*, int, int, int, int, int, int,
+                           int, sa::Scheme);
+
+template <int LPT, int DIRS, bool STD>
+BandKernel pick_wild(bool wildcard) {
+  return wildcard ? banded_fill_kernel<LPT, DIRS, true, STD>
+                  : banded_fill_kernel<LPT, DIRS, false, STD>;
+}
+
+// The reference model takes every dirs mode; std none or fast4.
+template <int LPT>
+BandKernel pick(int dirs_mode, bool wildcard, bool std_model) {
+  if (std_model) {
+    switch (dirs_mode) {
+      case sa::kDirsNone:
+        return pick_wild<LPT, sa::kDirsNone, true>(wildcard);
+      case sa::kDirsFast4:
+        return pick_wild<LPT, sa::kDirsFast4, true>(wildcard);
+      default:
+        return nullptr;
+    }
+  }
+  switch (dirs_mode) {
+    case sa::kDirsNone:
+      return pick_wild<LPT, sa::kDirsNone, false>(wildcard);
+    case sa::kDirsFast4:
+      return pick_wild<LPT, sa::kDirsFast4, false>(wildcard);
+    case sa::kDirsFull:
+      return pick_wild<LPT, sa::kDirsFull, false>(wildcard);
+    default:
+      return nullptr;
+  }
+}
+
+}  // namespace
+
+// Lanes per thread for a band of L lanes (a multiple of 128): 2 up to 256
+// lanes, 4 up to 2048, 8 up to 4096, 16 up to 8192; 0 if L is out of range.
+extern "C" int sa_banded_lanes_per_thread(int L) {
+  if (L <= 0 || L % 128 != 0) return 0;
+  if (L <= 256) return 2;
+  if (L <= 2048) return 4;
+  if (L <= 4096) return 8;
+  if (L <= 8192) return 16;
+  return 0;
+}
+
+// s1w0/s2w0: (B, L) int32; c1s/c2s: (B, n_iters) int32; n1v/n2v: (B,) int32;
+// finals: (B, 3) int32, zeroed; dirs: (ceil(2 n_iters / upack), B, L) u32,
+// unused for dirs_mode 0.  he = k_lo_even / 2; lim1/lim0: the last lane of
+// the effective band on odd / even wavefronts.  dirs_mode 0/1/2 (none,
+// fast4, full); std_model != 0: gaps open from H (dirs none or fast4).
+// Returns the cudaGetLastError() of the launch, or -1 for an unsupported
+// shape or mode.
+extern "C" int sa_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
+                              const int32_t* c1s, const int32_t* c2s,
+                              const int32_t* n1v, const int32_t* n2v,
+                              int32_t* finals, uint32_t* dirs, int B, int L,
+                              int n_iters, int he, int lim1, int lim0,
+                              int match, int mismatch, int gap_open,
+                              int gap_extend, int dirs_mode, int compat,
+                              int wildcard, int std_model, void* stream) {
+  const int lpt = sa_banded_lanes_per_thread(L);
+  if (lpt == 0 || B <= 0 || n_iters <= 0) return -1;
+  BandKernel fn = nullptr;
+  switch (lpt) {
+    case 2: fn = pick<2>(dirs_mode, wildcard != 0, std_model != 0); break;
+    case 4: fn = pick<4>(dirs_mode, wildcard != 0, std_model != 0); break;
+    case 8: fn = pick<8>(dirs_mode, wildcard != 0, std_model != 0); break;
+    case 16: fn = pick<16>(dirs_mode, wildcard != 0, std_model != 0); break;
+  }
+  if (fn == nullptr) return -1;
+  const int threads = (L / lpt + 31) / 32 * 32;
+  sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  void* args[] = {&s1w0, &s2w0, &c1s, &c2s, &n1v, &n2v,  &finals, &dirs,
+                  &B,    &L,    &n_iters, &he, &lim1, &lim0, &compat, &sc};
+  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(B), dim3(threads),
+                   args, 0, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,5 +1,6 @@
 // Device traceback walks for Hopper (sm_90a): the fast4 first-path walk of
-// the global fill and the walk of the textbook semi-global / local modes.
+// the global fill, the walk of the textbook semi-global / local modes and
+// the banded fill's fast4 walk.
 //
 // fast4 walk:
 // Replaces the device walk ops/traceback_device.py::_walk_fast4_impl (a
@@ -27,6 +28,17 @@
 // traceback_device.cuh::walk_modes_pair; it writes the packed op codes, the
 // stop cell and a status (1 stopped cleanly, 2 broken).  Bound like the fast4
 // walk by dependent-load latency, with a 1-byte code a step instead of 4 bits.
+//
+// Banded walk: replaces ops/traceback_device.py::_walk_banded_diag_msub (a
+// lax.while_loop over lax.scan chunks on the TPU, up to 4 sub-steps a
+// gather, compacted by a device sort).  One thread a pair walks the banded
+// fill's wavefront-packed fast4 codes with the host walker's semantics
+// (traceback_device.cuh::walk_banded_pair; std as a flag) and emits one op
+// code a step, densely, so the TPU walk's sub-steps and compaction have
+// nothing to do here.  A read outside the band gives code 0 and the walk
+// advances; the TPU walk freezes there (a known fault of the reference),
+// which this kernel does not copy.  Bound by dependent-load latency like
+// the others.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -102,6 +114,31 @@ __global__ void walk_modes_kernel(const uint32_t* __restrict__ dirs, int W,
   n_ops[b] = n;
 }
 
+template <bool STD>
+__global__ void walk_banded_kernel(const uint32_t* __restrict__ dirs, int W,
+                                   int NB, int L,
+                                   const int32_t* __restrict__ x0,
+                                   const int32_t* __restrict__ y0,
+                                   const int32_t* __restrict__ plane0,
+                                   const int32_t* __restrict__ bidx,
+                                   int k_lo_even, int B, int WP,
+                                   uint32_t* __restrict__ packed,
+                                   int32_t* __restrict__ xf,
+                                   int32_t* __restrict__ yf,
+                                   int32_t* __restrict__ n_ops) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int32_t x = x0[b];
+  int32_t y = y0[b];
+  int32_t n;
+  sa::walk_banded_pair<STD>(dirs, W, NB, L, static_cast<size_t>(bidx[b]),
+                            k_lo_even, x, y, plane0[b], n,
+                            packed + static_cast<size_t>(b) * WP, WP);
+  xf[b] = x;
+  yf[b] = y;
+  n_ops[b] = n;
+}
+
 }  // namespace
 
 // dirs: (T/8, R, P) u32 fast4 words; x0/y0/plane0/rowp/off: (B,) int32 walk
@@ -142,6 +179,32 @@ extern "C" int sa_walk_modes(const uint32_t* dirs, int W, int R, int P,
   } else {
     walk_modes_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
         dirs, W, R, P, x0, y0, rowp, off, B, WP, packed, xf, yf, st, n_ops);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dirs: (W, NB, L) u32 banded fast4 words (ops/nw_banded_diag layout);
+// x0/y0/plane0/bidx: (B,) int32 corners, seed planes and dirs batch slots;
+// packed: (B, WP) u32 with WP*16 >= the longest walk; xf/yf/n_ops: (B,)
+// int32.  std != 0 walks the any-state-open model.  Returns the
+// cudaGetLastError() of the launch, or -1 for a bad shape.
+extern "C" int sa_walk_banded(const uint32_t* dirs, int W, int NB, int L,
+                              const int32_t* x0, const int32_t* y0,
+                              const int32_t* plane0, const int32_t* bidx,
+                              int k_lo_even, int B, int WP, int std_model,
+                              uint32_t* packed, int32_t* xf, int32_t* yf,
+                              int32_t* n_ops, void* stream) {
+  if (W <= 0 || NB <= 0 || L <= 0 || B <= 0 || WP <= 0) return -1;
+  const int blocks = (B + kWalkThreads - 1) / kWalkThreads;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (std_model) {
+    walk_banded_kernel<true><<<blocks, kWalkThreads, 0, s>>>(
+        dirs, W, NB, L, x0, y0, plane0, bidx, k_lo_even, B, WP, packed, xf,
+        yf, n_ops);
+  } else {
+    walk_banded_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
+        dirs, W, NB, L, x0, y0, plane0, bidx, k_lo_even, B, WP, packed, xf,
+        yf, n_ops);
   }
   return static_cast<int>(cudaGetLastError());
 }

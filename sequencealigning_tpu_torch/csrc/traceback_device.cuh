@@ -1,8 +1,11 @@
 // The device walks' per-step rules, shared by the CUDA kernels
 // (traceback_device.cu) and the serial host build (host_check.cpp).
 //
-// walk_step is ops/traceback_device.py::_plane_step (std=False) for one pair;
-// walk_modes_pair is ops/traceback_device.py::_walk_modes_impl for one pair.
+// walk_step is ops/traceback_device.py::_plane_step for one pair;
+// walk_banded_pair is the host walker
+// ops/traceback.py::banded_diag_fast4_traceback_pair for one pair (a read
+// outside the band gives code 0 and the walk advances); walk_modes_pair is
+// ops/traceback_device.py::_walk_modes_impl for one pair.
 #pragma once
 
 #include <stddef.h>
@@ -22,7 +25,10 @@ constexpr int32_t kPend = 3;
 
 // nib: the fast4 code of cell (x, y).  Returns the op code (0 = stop,
 // 1 = M, 2 = I, 3 = D) and moves (x, y, plane).  At x == 0 the only move is
-// I, at y == 0 it is D; at the origin the walk stops.
+// I, at y == 0 it is D; at the origin the walk stops.  STD walks the
+// any-state-open model (the banded fill's model "std"): a gap open goes to
+// the pending plane, resolved from the next cell's code, instead of M.
+template <bool STD = false>
 SA_HD uint32_t walk_step(uint32_t nib, int32_t& x, int32_t& y,
                          int32_t& plane) {
   if (plane == kPend) {
@@ -36,13 +42,55 @@ SA_HD uint32_t walk_step(uint32_t nib, int32_t& x, int32_t& y,
   if (eff == 0) {
     plane = kPend;
   } else if (eff == 1) {
-    plane = (nib & 4u) ? 1 : 0;
+    plane = (nib & 4u) ? 1 : (STD ? kPend : 0);
   } else {
-    plane = (nib & 8u) ? 2 : 0;
+    plane = (nib & 8u) ? 2 : (STD ? kPend : 0);
   }
   x -= (eff == 0 || eff == 2) ? 1 : 0;
   y -= (eff == 0 || eff == 1) ? 1 : 0;
   return static_cast<uint32_t>(eff + 1);
+}
+
+// The fast4 code of cell (x, y) in the banded fill's wavefront layout
+// (ops/nw_banded_diag.py): nibble (x+y-1) & 7 of word
+// dirs[(x+y-1) >> 3, b, (y-x-k_lo_even) >> 1] of the (W, NB, L) tensor; 0
+// outside the band or the tensor (the host walker's rule).
+SA_HD uint32_t banded_nibble(const uint32_t* dirs, int W, int NB, int L,
+                             size_t b, int32_t k_lo_even, int32_t x,
+                             int32_t y) {
+  const int32_t a = x + y - 1;
+  const int32_t d = y - x - k_lo_even;
+  // Floor division by 2, as Python's >> on negative values.
+  const int32_t lane = d >= 0 ? d / 2 : -((1 - d) / 2);
+  if (lane < 0 || lane >= L || a < 0 || (a >> 3) >= W) return 0;
+  const uint32_t v = dirs[(static_cast<size_t>(a >> 3) * NB + b) * L + lane];
+  return (v >> (4 * (a & 7))) & 0xFu;
+}
+
+// Walks one pair of a banded fast4 fill from (x, y) on plane (the finals'
+// seed) to the origin, at most x + y steps, writing the op codes 16 to a u32
+// into out[0 .. WP) in walk order (end to start), zero past the walk.
+template <bool STD>
+SA_HD void walk_banded_pair(const uint32_t* dirs, int W, int NB, int L,
+                            size_t b, int32_t k_lo_even, int32_t& x,
+                            int32_t& y, int32_t plane, int32_t& n_ops,
+                            uint32_t* out, int WP) {
+  const int steps = x + y;
+  uint32_t word = 0;
+  int i = 0;
+  int w = 0;
+  while (i < steps && (x != 0 || y != 0)) {
+    const uint32_t nib = banded_nibble(dirs, W, NB, L, b, k_lo_even, x, y);
+    word |= walk_step<STD>(nib, x, y, plane) << (2 * (i & 15));
+    ++i;
+    if ((i & 15) == 0) {
+      out[w++] = word;
+      word = 0;
+    }
+  }
+  if (i & 15) out[w++] = word;
+  for (; w < WP; ++w) out[w] = 0;
+  n_ops = i;
 }
 
 // The modes walk's plane for a cell with no H-plane bit (a corrupt fill).

@@ -9,7 +9,7 @@ from typing import NamedTuple, Union
 
 import torch
 
-from sequencealigning_tpu.io.encode import PairBatch
+from sequencealigning_tpu_torch.io.encode import PairBatch
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

@@ -1,3 +1,4 @@
+from sequencealigning_tpu_torch.models.banded import BandedAligner
 from sequencealigning_tpu_torch.models.base import (
     Aligner,
     PairResult,
@@ -5,4 +6,5 @@ from sequencealigning_tpu_torch.models.base import (
 )
 from sequencealigning_tpu_torch.models.gotoh import GotohAligner
 
-__all__ = ["Aligner", "PairResult", "get_aligner", "GotohAligner"]
+__all__ = ["Aligner", "PairResult", "get_aligner", "BandedAligner",
+           "GotohAligner"]

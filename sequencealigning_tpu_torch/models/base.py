@@ -9,10 +9,10 @@ from typing import Iterator, List, Optional, Tuple, Union
 
 import torch
 
-from sequencealigning_tpu.config import AlignConfig, Algo
-from sequencealigning_tpu.errors import AlignerError
-from sequencealigning_tpu.io.fasta import Record, Records
-from sequencealigning_tpu.utils.cigar import Cigar, cigar_from_pair
+from sequencealigning_tpu_torch.config import AlignConfig, Algo
+from sequencealigning_tpu_torch.errors import AlignerError
+from sequencealigning_tpu_torch.io.fasta import Record, Records
+from sequencealigning_tpu_torch.utils.cigar import Cigar, cigar_from_pair
 from sequencealigning_tpu_torch.device import resolve_device
 
 
@@ -43,7 +43,10 @@ class PairResult:
         if d.get("cigar") is not None:
             d["cigar"] = str(d["cigar"])
         if self.score is not None and self.aligned_query is not None:
-            from sequencealigning_tpu.utils.stats import bit_score, e_value
+            from sequencealigning_tpu_torch.utils.stats import (
+                bit_score,
+                e_value,
+            )
 
             n1 = len(self.aligned_query.replace("-", ""))
             n2 = len(self.aligned_db.replace("-", ""))
@@ -147,12 +150,14 @@ class Aligner:
 def get_aligner(
     config: AlignConfig, device: Union[str, torch.device] = "cuda"
 ) -> Aligner:
-    """The aligner for config.algo on ``device``.  Only needleman-wunsch
-    (Gotoh) is ported."""
+    """The aligner for config.algo on ``device``.  Ported: needleman-wunsch
+    (Gotoh) and banded."""
+    from sequencealigning_tpu_torch.models.banded import BandedAligner
     from sequencealigning_tpu_torch.models.gotoh import GotohAligner
 
-    if config.algo is not Algo.NEEDLEMAN_WUNSCH:
+    table = {Algo.NEEDLEMAN_WUNSCH: GotohAligner, Algo.BANDED: BandedAligner}
+    if config.algo not in table:
         raise NotImplementedError(
             f"{config.algo.value} is not ported yet; see ROADMAP.md"
         )
-    return GotohAligner(config, device)
+    return table[config.algo](config, device)

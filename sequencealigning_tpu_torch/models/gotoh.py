@@ -12,8 +12,9 @@ Semi-global and local: compat mode answers with the reference's per-pair
 (ops.nw_affine_modes), walks the full direction bytes on the device
 (ops.traceback_device.walk_modes) and assembles the alignments.
 
-Not ported yet: long pairs (db beyond long_pair_lanes) and, on CUDA, db
-beyond the fill kernels' 8192 lanes."""
+Not ported yet: long pairs (db beyond long_pair_lanes); the CUDA fills take
+every lane width up to it, splitting a row over a thread-block cluster past
+8192 lanes."""
 
 from __future__ import annotations
 
@@ -22,17 +23,25 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from sequencealigning_tpu.config import Mode
-from sequencealigning_tpu.errors import AlignerError, AlignmentError
-from sequencealigning_tpu.io.encode import pack_batch, round_up, trim_for_stream
-from sequencealigning_tpu.ops.traceback import (
+from sequencealigning_tpu_torch.config import Mode
+from sequencealigning_tpu_torch.errors import AlignerError, AlignmentError
+from sequencealigning_tpu_torch.io.encode import (
+    pack_batch,
+    round_up,
+    trim_for_stream,
+)
+from sequencealigning_tpu_torch.ops.traceback import (
     fast4_traceback_pair,
     traceback_stream_batch,
 )
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.models.base import Aligner
-from sequencealigning_tpu_torch.ops.nw_affine_modes import nw_affine_modes_batch
-from sequencealigning_tpu_torch.ops.nw_affine_stream import nw_affine_stream_batch
+from sequencealigning_tpu_torch.ops.nw_affine_modes import (
+    nw_affine_modes_batch,
+)
+from sequencealigning_tpu_torch.ops.nw_affine_stream import (
+    nw_affine_stream_batch,
+)
 from sequencealigning_tpu_torch.ops.nw_affine_stream_modes import (
     nw_affine_stream_modes_batch,
 )
@@ -47,10 +56,6 @@ class GotohAligner(Aligner):
     # Lane width beyond which the reference leaves the streamed fill for its
     # long-pair path (not ported yet); the JAX package's value.
     long_pair_lanes = 49_152
-    # Lanes the CUDA fill kernels hold (csrc/nw_affine_stream.cu,
-    # csrc/nw_affine_modes.cu); the plain fills on the CPU have no such
-    # ceiling.
-    cuda_fill_lanes = 8192
     # Pairs from which textbook modes take the streamed engine (the JAX
     # package's threshold); smaller batches take the per-pair one.
     modes_stream_min_pairs = 32
@@ -75,13 +80,10 @@ class GotohAligner(Aligner):
         batch = trim_for_stream(
             pack_batch(pairs, batch_size=max(8, -(-len(pairs) // 8) * 8))
         )
-        lanes = self.long_pair_lanes
-        if self.device.type == "cuda":
-            lanes = min(lanes, self.cuda_fill_lanes)
-        if batch.db.shape[1] + 2 > lanes:
+        if batch.db.shape[1] + 2 > self.long_pair_lanes:
             raise NotImplementedError(
-                f"pairs with db longer than {lanes - 2} bp on "
-                f"{self.device.type} are not ported yet; see ROADMAP.md"
+                f"pairs with db longer than {self.long_pair_lanes - 2} bp "
+                "(the long-pair route) are not ported yet; see ROADMAP.md"
             )
         n_sub = self._dirs_chunks(batch, len(pairs))
         if n_sub > 1:
@@ -104,7 +106,7 @@ class GotohAligner(Aligner):
             state_dtype=getattr(self.config, "stream_state", "i32"),
         )
         if self.config.debug:
-            from sequencealigning_tpu.utils.guards import check_finals
+            from sequencealigning_tpu_torch.utils.guards import check_finals
 
             check_finals(
                 res.finals[: len(pairs)],
@@ -118,7 +120,7 @@ class GotohAligner(Aligner):
             tb = traceback_stream_batch(
                 res.dirs.cpu().numpy(), res.finals,
                 [p[0] for p in pairs], [p[1] for p in pairs], res.plan,
-                compat=self.config.compat, dirs_mode="full",
+                compat=self.config.compat,
             )
         out = []
         for r in tb:
@@ -221,13 +223,6 @@ class GotohAligner(Aligner):
             return out
         streamed = len(pairs) >= self.modes_stream_min_pairs
         l2 = batch.db.shape[1]
-        lanes = round_up(l2 + 2, 128) if streamed else round_up(l2 + 1, 128)
-        if self.device.type == "cuda" and lanes > self.cuda_fill_lanes:
-            raise NotImplementedError(
-                f"textbook {self.config.mode.value} pairs needing {lanes} "
-                f"lanes on cuda (the kernels hold {self.cuda_fill_lanes}) are "
-                "not ported yet; see ROADMAP.md"
-            )
         tb = to_device(batch, self.device)
         if streamed:
             res = nw_affine_stream_modes_batch(

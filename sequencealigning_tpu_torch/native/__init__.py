@@ -1,0 +1,184 @@
+"""The port's native (C) host runtime: FASTA scan, the threaded fast4
+first-path walker and the decoder of the device walks' packed op codes.
+
+The port's copy of sequencealigning_tpu/native (the entry points the port
+calls).  ``seqalign_native.c`` is compiled with the host C compiler on first
+use into ``build/sequencealigning_tpu_torch/`` at the repository root,
+rebuilt when the source is newer, and loaded with ctypes.  A missing
+compiler or a failed build raises; there is no Python fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import sys
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from sequencealigning_tpu_torch import csrc
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "seqalign_native.c")
+_LIB = os.path.join(
+    csrc.BUILD_DIR, f"libseqalign_native-{sys.implementation.cache_tag}.so"
+)
+
+_lib: Optional[ctypes.CDLL] = None
+
+_LP = ctypes.POINTER(ctypes.c_long)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+
+
+def _cc() -> str:
+    for cc in ("cc", "gcc", "clang"):
+        path = shutil.which(cc)
+        if path:
+            return path
+    raise RuntimeError("no C compiler to build the native runtime "
+                       "(sequencealigning_tpu_torch/native/seqalign_native.c)")
+
+
+def get_lib() -> ctypes.CDLL:
+    """Load the native library, building it first if it is missing or older
+    than its source.  Raises if it cannot be built."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    if csrc.stale(_LIB, [_SRC]):
+        csrc.compile_library(
+            [_cc(), "-O3", "-shared", "-fPIC", "-pthread"], [_SRC], _LIB
+        )
+    lib = ctypes.CDLL(_LIB)
+    lib.fasta_scan.restype = ctypes.c_long
+    lib.fasta_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, _U8P, _LP, _U8P, _LP, _U8P, _LP,
+        ctypes.c_long,
+    ]
+    lib.fast4_first_path_batch.restype = None
+    lib.fast4_first_path_batch.argtypes = [
+        _U32P, ctypes.c_long, ctypes.c_long, _LP, _LP, _LP, _LP,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_long, _LP, ctypes.c_int,
+    ]
+    lib.walk_decode_batch.restype = None
+    lib.walk_decode_batch.argtypes = [
+        _U32P, ctypes.c_long, _U8P, ctypes.c_long, _U8P, ctypes.c_long,
+        _LP, _LP, ctypes.c_long, ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.c_long, _LP, ctypes.c_int,
+    ]
+    _lib = lib
+    return lib
+
+
+def fasta_scan_native(contents: bytes):
+    """Native FASTA scan.  Returns (records, err_chars), records a list of
+    (seq_bytes, name_bytes) with the throwaway record dropped, or None if
+    the record capacity was exceeded."""
+    lib = get_lib()
+    n = len(contents)
+    max_recs = contents.count(b">") + 2
+    seq_buf = np.empty(n + 1, np.uint8)
+    name_buf = np.empty(n + 2, np.uint8)
+    seq_off = np.empty(max_recs + 1, np.int64)
+    name_off = np.empty(max_recs + 1, np.int64)
+    err_buf = np.empty(n + 1, np.uint8)
+    n_err = ctypes.c_long(0)
+    n_rec = lib.fasta_scan(
+        contents, n,
+        seq_buf.ctypes.data_as(_U8P), seq_off.ctypes.data_as(_LP),
+        name_buf.ctypes.data_as(_U8P), name_off.ctypes.data_as(_LP),
+        err_buf.ctypes.data_as(_U8P), ctypes.byref(n_err), max_recs,
+    )
+    if n_rec < 0:
+        return None
+    seqs = seq_buf.tobytes()
+    names = name_buf.tobytes()
+    records = [
+        (seqs[seq_off[i]: seq_off[i + 1]], names[name_off[i]: name_off[i + 1]])
+        for i in range(1, n_rec)  # drop the throwaway record 0
+    ]
+    return records, [chr(c) for c in err_buf[: n_err.value]]
+
+
+def fast4_first_path_batch_native(
+    dirs: np.ndarray,
+    finals: np.ndarray,
+    rows: np.ndarray,
+    d_offs: np.ndarray,
+    n1s: np.ndarray,
+    n2s: np.ndarray,
+    n_threads: int = 8,
+) -> List[Optional[str]]:
+    """Threaded first-path walks over a (T8, R, P) fast4 dirs tensor (the
+    streamed layout).  Returns a forward op string ('M'/'I'/'D') per pair,
+    None where the walker failed."""
+    lib = get_lib()
+    dirs = np.ascontiguousarray(dirs, dtype=np.uint32)
+    _t8, r, p = dirs.shape
+    b_total = len(rows)
+    n1s = np.ascontiguousarray(n1s, np.int64)
+    n2s = np.ascontiguousarray(n2s, np.int64)
+    rows = np.ascontiguousarray(rows, np.int64)
+    d_offs = np.ascontiguousarray(d_offs, np.int64)
+    finals = np.ascontiguousarray(finals, np.int32)
+    out_cap = int(n1s.max() + n2s.max() + 8) if b_total else 8
+    outs = ctypes.create_string_buffer(b_total * out_cap)
+    lens = np.zeros(b_total, np.int64)
+    lib.fast4_first_path_batch(
+        dirs.ctypes.data_as(_U32P), r, p,
+        rows.ctypes.data_as(_LP), d_offs.ctypes.data_as(_LP),
+        n1s.ctypes.data_as(_LP), n2s.ctypes.data_as(_LP),
+        finals.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), b_total,
+        outs, out_cap, lens.ctypes.data_as(_LP), n_threads,
+    )
+    raw = outs.raw
+    return [
+        None if lens[b] < 0
+        else raw[b * out_cap: b * out_cap + int(lens[b])].decode("ascii")
+        for b in range(b_total)
+    ]
+
+
+def walk_decode_batch_native(
+    packed: np.ndarray,
+    s1p: np.ndarray,
+    s2p: np.ndarray,
+    n1s: np.ndarray,
+    n2s: np.ndarray,
+    n_threads: int = 8,
+) -> List[Optional[Tuple[str, str]]]:
+    """Threaded decode of the device walks' packed 2-bit op codes
+    (ops.traceback_device) straight to aligned string pairs: (aligned1,
+    aligned2) per pair, None where the codes do not consume exactly the
+    pair's sequences."""
+    lib = get_lib()
+    packed = np.ascontiguousarray(packed, np.uint32)
+    s1p = np.ascontiguousarray(s1p, np.uint8)
+    s2p = np.ascontiguousarray(s2p, np.uint8)
+    n1s = np.ascontiguousarray(n1s, np.int64)
+    n2s = np.ascontiguousarray(n2s, np.int64)
+    b_total, t16 = packed.shape
+    cap = int(n1s.max() + n2s.max() + 8) if b_total else 8
+    out1 = ctypes.create_string_buffer(b_total * cap)
+    out2 = ctypes.create_string_buffer(b_total * cap)
+    lens = np.zeros(b_total, np.int64)
+    lib.walk_decode_batch(
+        packed.ctypes.data_as(_U32P), t16,
+        s1p.ctypes.data_as(_U8P), s1p.shape[1],
+        s2p.ctypes.data_as(_U8P), s2p.shape[1],
+        n1s.ctypes.data_as(_LP), n2s.ctypes.data_as(_LP),
+        b_total, out1, out2, cap, lens.ctypes.data_as(_LP), n_threads,
+    )
+    r1, r2 = out1.raw, out2.raw
+    out: List[Optional[Tuple[str, str]]] = []
+    for b in range(b_total):
+        n = int(lens[b])
+        out.append(None if n < 0 else (
+            r1[b * cap: b * cap + n].decode("latin-1"),
+            r2[b * cap: b * cap + n].decode("latin-1"),
+        ))
+    return out

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from sequencealigning_tpu.config import NEG_INF, ScoringScheme
-from sequencealigning_tpu.ops import dirbits
+from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.ops import dirbits
 
 MODES = ("global", "semi", "local")
 

@@ -17,7 +17,8 @@ Two implementations of the fill, chosen by the tensors' device:
 * ``fill_modes_torch`` -- plain PyTorch, the twin of _fill_modes_lax (CPU
   tensors, and the reference the kernel is checked against);
 * ``modes_fill_cuda`` -- the hand-written kernel (``csrc/nw_affine_modes.cu``;
-  CUDA tensors only), one block a pair.
+  CUDA tensors only), one block a pair, or one thread-block cluster a pair
+  past 8192 lanes.
 """
 
 from __future__ import annotations
@@ -27,10 +28,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from sequencealigning_tpu.config import NEG_INF, ScoringScheme
-from sequencealigning_tpu.io.encode import round_up as _round_up
+from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch import csrc
-from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker, gotoh_step_torch
+from sequencealigning_tpu_torch.ops.nw_affine import (
+    DirsPacker,
+    gotoh_step_torch,
+)
 
 # Initial value of the running argmax (below every reachable score).
 NEGBIG = -(2 ** 24)
@@ -135,11 +139,13 @@ def fill_modes_torch(
 def modes_fill_cuda(
     seq1, s2v, n1v, n2v, l1: int, l2: int,
     scheme: ScoringScheme, wildcard: bool, local: bool, with_dirs: bool,
+    cta_lanes: int = 0,
 ):
     """The per-pair modes kernel (csrc/nw_affine_modes.cu) on CUDA tensors:
-    same arguments and results as fill_modes_torch.  Raises on a CPU
-    tensor, a non-contiguous input, more than 8192 lanes or a failed
-    launch."""
+    same arguments and results as fill_modes_torch; pairs past 8192 lanes
+    are split over a cluster, cta_lanes > 0 forces the split's CTA width.
+    Raises on a CPU tensor, a non-contiguous input, an unsupported shape or
+    a failed launch."""
     _check_modes_args(seq1, s2v, n1v, n2v, l2)
     if not seq1.is_cuda:
         raise ValueError("modes_fill_cuda needs CUDA tensors")
@@ -147,9 +153,10 @@ def modes_fill_cuda(
         raise ValueError("modes fill inputs must be contiguous")
     lib = csrc.kernels()
     B, P = s2v.shape
-    if lib.sa_stream_lanes_per_thread(P) == 0:
-        raise ValueError(f"lane width {P} exceeds the CUDA modes kernel's "
-                         "8192 lanes; see ROADMAP.md")
+    nctas = lib.sa_fill_ctas(P, cta_lanes)
+    if nctas == 0:
+        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
+                         "the CUDA modes kernel's range")
     dev = s2v.device
     D_total = l1 + l2 + 1
     best = torch.empty((2, B, P), dtype=torch.int32, device=dev)
@@ -165,10 +172,10 @@ def modes_fill_cuda(
             B, seq1.shape[1], P, D_total,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, 2 if with_dirs else 0, int(local),
-            int(wildcard), stream,
+            int(wildcard), cta_lanes, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sa_modes_fill launch failed (error {rc})")
+        raise csrc.launch_error("sa_modes_fill", rc, nctas)
     modes_fill_cuda.launches += 1
     return best[0], best[1], dirs
 

@@ -26,9 +26,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from sequencealigning_tpu.config import NEG_INF, ScoringScheme
-from sequencealigning_tpu.io.encode import round_up as _round_up
-from sequencealigning_tpu.ops import dirbits
+from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.io.encode import round_up as _round_up
+from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.ops.nw_affine import (
     DirsPacker,
@@ -312,12 +312,14 @@ def gotoh_fill_stream_torch(
 def gotoh_fill_stream_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
-    compat: bool, wildcard: bool, dirs_mode,
+    compat: bool, wildcard: bool, dirs_mode, cta_lanes: int = 0,
 ):
     """The fill kernel (csrc/nw_affine_stream.cu) on CUDA tensors: same
-    arguments and results as gotoh_fill_stream_torch.  Builds the kernels
-    on first use; raises on a CPU tensor, an unsupported shape or a failed
-    launch."""
+    arguments and results as gotoh_fill_stream_torch.  A row of more than
+    8192 lanes is split over a thread-block cluster; cta_lanes > 0 forces
+    CTAs of that many lanes (a multiple of 128, for testing the split).
+    Builds the kernels on first use; raises on a CPU tensor, an unsupported
+    shape or a failed launch."""
     _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
     if not qstream.is_cuda:
         raise ValueError("gotoh_fill_stream_cuda needs CUDA tensors")
@@ -327,11 +329,10 @@ def gotoh_fill_stream_cuda(
             raise ValueError(f"{name} must be contiguous")
     lib = csrc.kernels()
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
-    if lib.sa_stream_lanes_per_thread(P) == 0:
-        raise ValueError(
-            f"lane width {P} exceeds the CUDA fill kernel's 8192 lanes; "
-            "long pairs are not ported yet (see ROADMAP.md)"
-        )
+    nctas = lib.sa_fill_ctas(P, cta_lanes)
+    if nctas == 0:
+        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
+                         "the CUDA fill kernel's range")
     dev = qstream.device
     finals = torch.zeros((R * NP, 3), dtype=torch.int32, device=dev)
     dirs = None
@@ -349,10 +350,10 @@ def gotoh_fill_stream_cuda(
             R, plan.t_total, P, plan.s, NP,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
-            int(wildcard), stream,
+            int(wildcard), cta_lanes, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sa_stream_fill launch failed (error {rc})")
+        raise csrc.launch_error("sa_stream_fill", rc, nctas)
     gotoh_fill_stream_cuda.launches += 1
     return finals, dirs
 

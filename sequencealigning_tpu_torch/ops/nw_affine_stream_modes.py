@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from sequencealigning_tpu.config import ScoringScheme
+from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker
 from sequencealigning_tpu_torch.ops.nw_affine_modes import (
@@ -118,12 +118,13 @@ def gotoh_fill_stream_modes_torch(
 def gotoh_fill_stream_modes_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
-    wildcard: bool, mode: str, with_dirs: bool,
+    wildcard: bool, mode: str, with_dirs: bool, cta_lanes: int = 0,
 ):
     """The streamed modes kernel (csrc/nw_affine_stream.cu) on CUDA tensors:
-    same arguments and results as gotoh_fill_stream_modes_torch.  Raises on
-    a CPU tensor, a non-contiguous input, more than 8192 lanes or a failed
-    launch."""
+    same arguments and results as gotoh_fill_stream_modes_torch; rows past
+    8192 lanes are split over a cluster, cta_lanes > 0 forces the split's
+    CTA width (as gotoh_fill_stream_cuda).  Raises on a CPU tensor, a
+    non-contiguous input, an unsupported shape or a failed launch."""
     _check_mode(mode)
     _check_fill_args(qstream, dstream, dsums, n2s, plan,
                      "full" if with_dirs else None)
@@ -133,9 +134,10 @@ def gotoh_fill_stream_modes_cuda(
         raise ValueError("stream modes fill inputs must be contiguous")
     lib = csrc.kernels()
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
-    if lib.sa_stream_lanes_per_thread(P) == 0:
-        raise ValueError(f"lane width {P} exceeds the CUDA fill kernel's "
-                         "8192 lanes; see ROADMAP.md")
+    nctas = lib.sa_fill_ctas(P, cta_lanes)
+    if nctas == 0:
+        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
+                         "the CUDA fill kernel's range")
     dev = qstream.device
     # Lanes at or past S never hold an eligible cell and are never written
     # by the kernel: they keep the initial (NEGBIG, 0).
@@ -155,10 +157,10 @@ def gotoh_fill_stream_modes_cuda(
             R, plan.t_total, P, plan.s, NP,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, 2 if with_dirs else 0, int(mode == "local"),
-            int(wildcard), stream,
+            int(wildcard), cta_lanes, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"sa_stream_modes_fill launch failed (error {rc})")
+        raise csrc.launch_error("sa_stream_modes_fill", rc, nctas)
     gotoh_fill_stream_modes_cuda.launches += 1
     return (best[0], best[1]), dirs
 

@@ -21,6 +21,14 @@ ops.nw_affine_stream_modes) are walked the same way over their full
 direction bytes (``walk_modes_torch`` / ``walk_modes_cuda``, the twins of
 _walk_modes_impl): from each pair's end cell to its stop cell, emitting the
 same packed 2-bit op codes.
+
+The banded fill's wavefront-packed fast4 codes (ops.nw_banded_diag) are
+walked by ``walk_banded_torch`` / ``walk_banded_cuda`` with the host
+walker's semantics (ops.traceback.banded_diag_fast4_traceback_pair): a read
+outside the band gives code 0 and the walk advances.  The JAX device walk
+(_walk_banded_diag_msub) freezes on such a read instead and burns its step
+budget (ops/traceback_device.py:234, a known fault of the reference); the
+port does not copy that.
 """
 
 from __future__ import annotations
@@ -30,13 +38,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from sequencealigning_tpu import native
-from sequencealigning_tpu.errors import AlignerError, AlignmentError
-from sequencealigning_tpu.ops.traceback import (
+from sequencealigning_tpu_torch import csrc, native
+from sequencealigning_tpu_torch.errors import AlignerError, AlignmentError
+from sequencealigning_tpu_torch.ops.traceback import (
+    banded_diag_fast4_traceback_pair,
     local_affine_traceback_pair,
     semi_global_traceback_pair,
 )
-from sequencealigning_tpu_torch import csrc
 
 # Walk planes: 0 = M, 1 = I, 2 = D, 3 = pending (resolved from the next
 # step's own nibble; set only after a diagonal move); the modes walk's
@@ -54,10 +62,12 @@ def packed_width(t_steps: int) -> int:
     return -(-t_steps // _CHUNK) * (_CHUNK // 16)
 
 
-def _plane_step(nib, x, y, plane):
+def _plane_step(nib, x, y, plane, std: bool = False):
     """One walk step for every pair given its current cell's fast4 nibble:
-    (op code, x', y', plane').  As ops/traceback_device._plane_step
-    (std=False)."""
+    (op code, x', y', plane').  As ops/traceback_device._plane_step: with
+    std (the any-state-open model of the banded fill's model="std") a gap
+    open goes to the pending plane, resolved from the next cell's code,
+    instead of M."""
     plane = torch.where(plane == _PEND, torch.clamp(nib & 3, max=2), plane)
     at_x0 = x == 0
     at_y0 = y == 0
@@ -66,13 +76,14 @@ def _plane_step(nib, x, y, plane):
     op = torch.where(done, 0, eff + 1)
     step_x = ~done & ((eff == 0) | (eff == 2))
     step_y = ~done & ((eff == 0) | (eff == 1))
+    open_to = _PEND if std else 0
     nxt = torch.where(
         eff == 0,
         _PEND,
         torch.where(
             eff == 1,
-            torch.where((nib & 4) != 0, 1, 0),
-            torch.where((nib & 8) != 0, 2, 0),
+            torch.where((nib & 4) != 0, 1, open_to),
+            torch.where((nib & 8) != 0, 2, open_to),
         ),
     )
     plane = torch.where(done, plane, nxt).to(torch.int32)
@@ -239,12 +250,7 @@ def decode_packed_alignments(
     for b in range(B):
         s1p[b, : n1s[b]] = np.frombuffer(seqs1[b], np.uint8)
         s2p[b, : n2s[b]] = np.frombuffer(seqs2[b], np.uint8)
-    out = native.walk_decode_batch_native(packed, s1p, s2p, n1s, n2s)
-    if out is None:
-        raise RuntimeError(
-            "the native runtime (sequencealigning_tpu.native) is unavailable"
-        )
-    return out
+    return native.walk_decode_batch_native(packed, s1p, s2p, n1s, n2s)
 
 
 def fast4_stream_align_device(
@@ -281,6 +287,196 @@ def fast4_stream_align_device(
     ended = (xf == 0) & (yf == 0)
     alns = [a if ended[b] else None for b, a in enumerate(alns)]
     return alns, finals.max(axis=1)
+
+
+# ---------------------------------------------------------------------------
+# Banded (wavefront-packed) fast4 walk
+# ---------------------------------------------------------------------------
+
+
+def banded_packed_width(t_steps: int) -> int:
+    """u32 words per pair of the banded walk's packed op codes (the JAX
+    msub walk's compacted width, max(ceil(t_steps / 16), 1))."""
+    return max(-(-t_steps // 16), 1)
+
+
+def _check_banded_walk_args(dirs, seeds, t_steps: int):
+    if dirs.dtype != torch.uint32 or dirs.dim() != 3:
+        raise ValueError(f"dirs: expected (Aw, B, L) uint32, got "
+                         f"{dirs.dtype} {tuple(dirs.shape)}")
+    b = seeds[0].shape[0]
+    for t in seeds:
+        if t.dtype != torch.int32 or tuple(t.shape) != (b,):
+            raise ValueError(f"walk seeds must be ({b},) int32")
+        if t.device != dirs.device:
+            raise ValueError(f"walk seed on {t.device}, dirs on {dirs.device}")
+    if t_steps < 1:
+        raise ValueError("t_steps must be positive")
+    x0, y0, _plane0, bidx = seeds
+    if b and (int(bidx.min()) < 0 or int(bidx.max()) >= dirs.shape[1]
+              or int(x0.min()) < 0 or int(y0.min()) < 0):
+        raise ValueError("walk seeds reach outside the dirs tensor")
+
+
+def walk_banded_torch(dirs, x0, y0, plane0, bidx, k_lo_even: int,
+                      t_steps: int, std: bool = False):
+    """Plain PyTorch banded-diag fast4 walk: every pair walks from (x0, y0)
+    on plane0 for up to t_steps steps (checking every 512 steps whether all
+    have reached the origin), reading nibble (x+y-1) & 7 of
+    dirs[(x+y-1) >> 3, bidx, (y-x-k_lo_even) >> 1]; a read outside the
+    band or the tensor gives code 0 and the walk advances (the host
+    walker's rule).  dirs: (Aw, B, L) uint32; seeds (B,) int32.  Returns
+    (xf, yf, packed (B, banded_packed_width(t_steps)) uint32 op codes in
+    walk order, n_ops (B,) int32)."""
+    _check_banded_walk_args(dirs, (x0, y0, plane0, bidx), t_steps)
+    W, _, L = dirs.shape
+    d32 = dirs.view(torch.int32)
+    x, y, plane = x0.clone(), y0.clone(), plane0.clone()
+    b = bidx.long()
+    n_chunks = -(-t_steps // _CHUNK)
+    ops = torch.zeros((n_chunks * _CHUNK, x0.shape[0]), dtype=torch.int32,
+                      device=dirs.device)
+    for c in range(n_chunks):
+        if bool(((x == 0) & (y == 0)).all()):
+            break
+        for i in range(c * _CHUNK, (c + 1) * _CHUNK):
+            a = x + y - 1
+            lane = (y - x - k_lo_even) >> 1
+            ok = (lane >= 0) & (lane < L) & (a >= 0) & ((a >> 3) < W)
+            w = d32[torch.clamp(a >> 3, 0, W - 1).long(), b,
+                    torch.clamp(lane, 0, L - 1).long()]
+            nib = torch.where(ok, (w >> ((a & 7) * 4)) & 0xF, 0)
+            op, x, y, plane = _plane_step(nib, x, y, plane, std)
+            ops[i] = op
+    n_ops = (ops != 0).sum(0, dtype=torch.int32)
+    return x, y, _pack_ops(ops[: banded_packed_width(t_steps) * 16]), n_ops
+
+
+def walk_banded_cuda(dirs, x0, y0, plane0, bidx, k_lo_even: int,
+                     t_steps: int, std: bool = False):
+    """The banded walk kernel (csrc/traceback_device.cu) on CUDA tensors:
+    same arguments and results as walk_banded_torch.  Raises on a CPU
+    tensor, a non-contiguous input or a failed launch."""
+    seeds = (x0, y0, plane0, bidx)
+    _check_banded_walk_args(dirs, seeds, t_steps)
+    if not dirs.is_cuda:
+        raise ValueError("walk_banded_cuda needs CUDA tensors")
+    if not all(t.is_contiguous() for t in (dirs,) + seeds):
+        raise ValueError("walk inputs must be contiguous")
+    lib = csrc.kernels()
+    W, Bd, L = dirs.shape
+    B = x0.shape[0]
+    WP = banded_packed_width(t_steps)
+    dev = dirs.device
+    packed = torch.empty((B, WP), dtype=torch.uint32, device=dev)
+    xf, yf, n_ops = (torch.empty(B, dtype=torch.int32, device=dev)
+                     for _ in range(3))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_walk_banded(
+            dirs.data_ptr(), W, Bd, L, *(t.data_ptr() for t in seeds),
+            k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
+            yf.data_ptr(), n_ops.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise csrc.launch_error("sa_walk_banded", rc)
+    walk_banded_cuda.launches += 1
+    return xf, yf, packed, n_ops
+
+
+walk_banded_cuda.launches = 0
+
+
+def walk_banded(dirs, x0, y0, plane0, bidx, k_lo_even: int, t_steps: int,
+                std: bool = False):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (dirs, x0, y0, plane0, bidx, k_lo_even, t_steps, std)
+    if dirs.is_cuda:
+        return walk_banded_cuda(*args)
+    if dirs.device.type != "cpu":
+        raise ValueError(f"unsupported device {dirs.device}")
+    return walk_banded_torch(*args)
+
+
+def banded_diag_align_device(
+    dirs: torch.Tensor,
+    finals: np.ndarray,
+    seqs1: List[bytes],
+    seqs2: List[bytes],
+    k_lo_even: int,
+    pair_idx: Optional[np.ndarray] = None,
+    std: bool = False,
+) -> Tuple[List[Optional[Tuple[str, str]]], np.ndarray]:
+    """Walk an ops.nw_banded_diag fast4 dirs tensor ((Aw, B, L) uint32) on
+    its device and decode to aligned string pairs.  Returns (alignments,
+    scores); an alignment is None where the walk failed validation.
+    pair_idx: the dirs batch slot of each sequence pair (default 0..B-1).
+    Only the used prefix of the packed op codes is fetched."""
+    B = len(seqs1)
+    n1s = np.asarray([len(s) for s in seqs1], np.int32)
+    n2s = np.asarray([len(s) for s in seqs2], np.int32)
+    if pair_idx is None:
+        pair_idx = np.arange(B, dtype=np.int32)
+    finals = np.asarray(finals)[np.asarray(pair_idx)]
+    t_steps = int((n1s + n2s).max()) if B else 1
+    dev = dirs.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    xf, yf, packed, n_ops = walk_banded(
+        dirs, put(n2s), put(n1s), put(seed_planes(finals)), put(pair_idx),
+        k_lo_even, max(t_steps, 1), std,
+    )
+    n_words = max(1, -(-int(n_ops.max()) // 16)) if B else 1
+    packed = packed[:, :n_words].cpu().numpy()
+    xf, yf = xf.cpu().numpy(), yf.cpu().numpy()
+    alns = decode_packed_alignments(packed, seqs1, seqs2)
+    ended = (xf == 0) & (yf == 0)
+    alns = [a if ended[b] else None for b, a in enumerate(alns)]
+    return alns, finals.max(axis=1)
+
+
+def banded_diag_device_tbs(
+    dirs: torch.Tensor,
+    finals: np.ndarray,
+    seqs1: List[bytes],
+    seqs2: List[bytes],
+    k_lo_even: int,
+    compat: bool = True,
+    pair_idx: Optional[np.ndarray] = None,
+    std: bool = False,
+):
+    """Device walk over a banded-diag fast4 fill in the host walkers'
+    result format: (score, [(a1, a2)]) or an AlignmentError per pair.  A
+    pair whose walk fails validation is re-walked on the host
+    (ops.traceback.banded_diag_fast4_traceback_pair) when the dirs lie on
+    the CPU, and is an AlignmentError naming walk_banded_cuda when they lie
+    on the card (the kernel is at fault; the host does not take over)."""
+    if pair_idx is None:
+        pair_idx = np.arange(len(seqs1), dtype=np.int32)
+    alns, scores = banded_diag_align_device(
+        dirs, finals, seqs1, seqs2, k_lo_even, pair_idx=pair_idx, std=std
+    )
+    finals = np.asarray(finals)
+    out = []
+    for b in range(len(seqs1)):
+        if alns[b] is not None:
+            out.append((int(scores[b]), [alns[b]]))
+            continue
+        if dirs.is_cuda:
+            out.append(AlignmentError(
+                "device banded walk (walk_banded_cuda) failed validation"))
+            continue
+        slot = int(pair_idx[b])
+        try:
+            out.append(banded_diag_fast4_traceback_pair(
+                dirs[:, slot, :].numpy(), finals[slot], seqs1[b], seqs2[b],
+                k_lo_even, compat=compat, std=std,
+            ))
+        except AlignmentError as e:
+            out.append(e)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ def _run(args):
      ["-a", "needleman-wunsch", "-m", "local", "--textbook"]),
     ("nw-semiglobal-textbook",
      ["-a", "needleman-wunsch", "-m", "semi-global", "--textbook"]),
+    ("banded", ["-a", "banded"]),
 ])
 def test_port_cli_matches_golden(name, args):
     rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu"] + args)
@@ -78,3 +79,43 @@ def test_port_serve_textbook_local(monkeypatch):
 def test_port_cli_unported_algo_exits_2():
     rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa"])
     assert rc == 2 and out == "" and "not ported yet" in err
+
+
+def test_port_cli_banded_band_flag(monkeypatch):
+    """--band is accepted and reaches the aligner's config; the corpus pairs
+    are short, so a band of 64 prints the golden banded output."""
+    import sequencealigning_tpu_torch.cli as cli_mod
+
+    seen = []
+    real = cli_mod.get_aligner
+
+    def spy(config, device):
+        seen.append(config.band)
+        return real(config, device)
+
+    monkeypatch.setattr(cli_mod, "get_aligner", spy)
+    with open(os.path.join(HERE, "banded.out")) as f:
+        golden = f.read()
+    rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu", "-a",
+                                  "banded", "--band", "64"])
+    assert (f"# exit={rc}\n# --- stdout ---\n{normalize(out)}"
+            f"# --- stderr ---\n{normalize(err)}") == golden
+    _run(CORPUS + ["--no-out", "--device", "cpu", "-a", "banded"])
+    assert seen == [64, 128]
+
+
+def test_port_serve_banded(monkeypatch):
+    """--serve -a banded answers the corpus with the golden alignments."""
+    q, d = CORPUS[1], CORPUS[3]
+    monkeypatch.setattr("sys.stdin", io.StringIO(f"{q} {d}\n"))
+    rc, out, _ = _run(["--serve", "-a", "banded", "--band", "32",
+                       "--device", "cpu"])
+    assert rc == 0
+    lines = [json.loads(s) for s in out.splitlines()]
+    pairs = [x for x in lines if "query_name" in x]
+    assert len(pairs) == 24 and all(p["error"] is None for p in pairs)
+    with open(os.path.join(HERE, "banded.out")) as f:
+        golden = f.read()
+    for p in pairs:
+        assert f"seq1: {p['aligned_query']}\n" in golden
+    assert lines[24]["done"] and lines[24]["pairs"] == 24

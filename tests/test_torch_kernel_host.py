@@ -1,18 +1,21 @@
 """The CUDA kernels' per-cell and per-step arithmetic and loops (csrc/*.cuh
 through csrc/host_check.cpp, built for the host) against the plain PyTorch
 versions on the same small batches (exact): the global streamed fill and
-fast4 walk, the per-pair and streamed modes fills and the modes walk; plus
-the kernel wrappers' refusal of CPU tensors."""
+fast4 walk, the per-pair and streamed modes fills and the modes walk, the
+three fills with their rows split over 2-4 forced 128- or 256-lane CTAs
+(the cluster split's geometry, cluster_split.cuh), the banded fill and the
+banded walk; plus the kernel wrappers' refusal of CPU tensors."""
 
 import numpy as np
 import pytest
 import torch
 
-from sequencealigning_tpu.config import ScoringScheme
-from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream
 from sequencealigning_tpu_torch import csrc
+from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.io.encode import pack_batch, trim_for_stream
 from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
+from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
 from sequencealigning_tpu_torch.ops import nw_affine_stream as fill
 from sequencealigning_tpu_torch.ops import nw_affine_stream_modes as smodes
 from sequencealigning_tpu_torch.ops import traceback_device as walk
@@ -48,7 +51,7 @@ def _stream(seed, n=21, np_slots=3, scheme=ScoringScheme()):
 
 
 def _host_fill(host, plan, qs, ds, dsum, n2, scheme, compat, wildcard,
-               dirs_mode):
+               dirs_mode, cta_lanes=0):
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
     finals = torch.zeros((R * NP, 3), dtype=torch.int32)
     upack = 8 if dirs_mode == "fast4" else 4
@@ -57,7 +60,7 @@ def _host_fill(host, plan, qs, ds, dsum, n2, scheme, compat, wildcard,
         qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
         finals.data_ptr(), dirs.data_ptr(), R, plan.t_total, P, plan.s, NP,
         scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
-        _DIRS[dirs_mode], int(compat), int(wildcard),
+        _DIRS[dirs_mode], int(compat), int(wildcard), cta_lanes,
     )
     assert rc == 0
     return finals, dirs
@@ -146,7 +149,7 @@ def _modes_batch(seed, n, hi1, hi2):
 
 
 def _host_modes_fill(host, seq1, s2v, n1, n2, l2, scheme, local, wildcard,
-                     with_dirs):
+                     with_dirs, cta_lanes=0):
     B, P = s2v.shape
     D_total = seq1.shape[1] + l2 + 1
     out = torch.zeros((2, B, P), dtype=torch.int32)
@@ -155,7 +158,7 @@ def _host_modes_fill(host, seq1, s2v, n1, n2, l2, scheme, local, wildcard,
         seq1.data_ptr(), s2v.data_ptr(), n1.data_ptr(), n2.data_ptr(),
         out.data_ptr(), dirs.data_ptr(), B, seq1.shape[1], P, D_total,
         scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
-        2 if with_dirs else 0, int(local), int(wildcard),
+        2 if with_dirs else 0, int(local), int(wildcard), cta_lanes,
     )
     assert rc == 0
     return out[0], out[1], dirs
@@ -180,7 +183,7 @@ def test_host_modes_fill_matches_plain(host, local, wildcard, hi1, hi2):
 
 
 def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
-                       with_dirs):
+                       with_dirs, cta_lanes=0):
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
     out = torch.empty((2, NP, R, P), dtype=torch.int32)
     out[0].fill_(modes.NEGBIG)
@@ -190,7 +193,7 @@ def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
         qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
         out.data_ptr(), dirs.data_ptr(), R, plan.t_total, P, plan.s, NP,
         scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
-        2 if with_dirs else 0, int(local), int(wildcard),
+        2 if with_dirs else 0, int(local), int(wildcard), cta_lanes,
     )
     assert rc == 0
     return out[0], out[1], dirs
@@ -281,3 +284,202 @@ def test_modes_wrappers_refuse_cpu_tensors():
     assert modes.modes_fill_cuda.launches == 0
     assert smodes.gotoh_fill_stream_modes_cuda.launches == 0
     assert walk.walk_modes_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The cluster split of the fills (forced small CTAs)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("P,cta_lanes,want", [
+    (2048, 0, 1), (8192, 0, 1), (8320, 0, 3), (32768, 0, 8), (32896, 0, 5),
+    (49152, 0, 6), (2048, 512, 4), (384, 256, 2), (384, 128, 3),
+    (4096, 128, 0), (2048, 100, 0), (8200, 0, 0),
+])
+def test_split_plan(host, P, cta_lanes, want):
+    """CTAs a row of P lanes takes: one block up to 8192 lanes, 4096- or
+    8192-lane CTAs past it (at most 8 up to 49152 lanes), forced widths
+    (a short last CTA included), and refusals (more than 16 CTAs, widths or
+    P off the 128 grid)."""
+    assert host.hc_fill_ctas(P, cta_lanes) == want
+
+
+def _split_pairs(seed, n, hi1, hi2):
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    out = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, hi1 + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(hi2 // 2, hi2 + 1)))
+        if i % 2:
+            s2 = np.resize(s1, len(s2))
+        out.append((s1.tobytes(), s2.tobytes()))
+    return out
+
+
+@pytest.mark.parametrize("cta_lanes", [128, 256])
+@pytest.mark.parametrize("dirs_mode", ["fast4", "full"])
+def test_host_split_fill_matches_plain(host, dirs_mode, cta_lanes):
+    """The global streamed fill with each row split over 3 CTAs of 128
+    lanes, or 2 CTAs of 256 and 128 (P = 384), equals the plain fill."""
+    pairs = _split_pairs(61 + cta_lanes, 14, 120, 300)
+    tb = to_device(trim_for_stream(pack_batch(pairs, batch_size=16)), "cpu")
+    plan, ins = fill.stream_inputs(*tb, np_slots=2)
+    assert plan.p == 384
+    assert host.hc_fill_ctas(plan.p, cta_lanes) == (3 if cta_lanes == 128
+                                                    else 2)
+    finals, dirs = _host_fill(host, plan, *ins, ScoringScheme(), True, True,
+                              dirs_mode, cta_lanes)
+    want_f, want_d = fill.gotoh_fill_stream_torch(
+        *ins, plan, ScoringScheme(), True, True, dirs_mode)
+    np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
+    np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_host_split_stream_modes_fill_matches_plain(host, local):
+    """The streamed modes fill split over 4 CTAs of 128 lanes (the modes
+    batch is not trimmed: P = 512)."""
+    pairs = _split_pairs(71 + local, 14, 150, 300)
+    tb = to_device(pack_batch(pairs, batch_size=16), "cpu")
+    plan, ins = fill.stream_inputs(*tb, np_slots=2)
+    assert host.hc_fill_ctas(plan.p, 128) == 4
+    mode = "local" if local else "semi"
+    (bv, bd), dirs = smodes.gotoh_fill_stream_modes_torch(
+        *ins, plan, ScoringScheme(), False, mode, True)
+    got = _host_stream_modes(host, plan, *ins, ScoringScheme(), local, False,
+                             True, cta_lanes=128)
+    for g, w in zip(got, (bv, bd, dirs)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_host_split_modes_fill_matches_plain(host, local):
+    """The per-pair modes fill split over 4 CTAs of 128 lanes (P = 512)."""
+    pairs, tb = _modes_batch(83 + local, 9, 120, 300)
+    s2v = modes.modes_layout(tb.db)
+    assert s2v.shape[1] == 512 and host.hc_fill_ctas(512, 128) == 4
+    args = (tb.query, s2v, tb.query_len, tb.db_len)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    want = modes.fill_modes_torch(*args, l1, l2, ScoringScheme(), False,
+                                  local, True)
+    got = _host_modes_fill(host, *args, l2, ScoringScheme(), local, False,
+                           True, cta_lanes=128)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_host_split_refuses_bad_widths(host):
+    _, plan, qs, ds, dsum, n2 = _stream(5)
+    R, P, NP = plan.n_rows, plan.p, plan.np_slots
+    finals = torch.zeros((R * NP, 3), dtype=torch.int32)
+    rc = host.hc_stream_fill(
+        qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
+        finals.data_ptr(), None, R, plan.t_total, P, plan.s, NP, 5, -4, -8,
+        -6, 0, 1, 0, 100)
+    assert rc == -1
+
+
+# ---------------------------------------------------------------------------
+# Banded fill and walk
+# ---------------------------------------------------------------------------
+
+
+def _banded(seed, n=10, hi=120, band=16):
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+        s2 = np.resize(s1, int(rng.integers(1, hi + 1))) if i % 2 else \
+            rng.choice(alpha, int(rng.integers(1, hi + 1)))
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    tb = to_device(pack_batch(pairs, batch_size=-(-n // 8) * 8), "cpu")
+    plan, ins = banded.band_inputs(*tb, band)
+    return pairs, plan, ins
+
+
+def _host_banded(host, plan, ins, scheme, compat, wildcard, dirs_mode,
+                 model="ref"):
+    B, L = ins[0].shape
+    n_iters = ins[2].shape[1]
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    dirs = torch.zeros((-(-2 * n_iters // (8 if dirs_mode == "fast4" else 4)),
+                        B, L), dtype=torch.uint32)
+    rc = host.hc_banded_fill(
+        *(t.data_ptr() for t in ins), finals.data_ptr(), dirs.data_ptr(), B,
+        L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
+        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        {False: 0, "fast4": 1, "full": 2}[dirs_mode], int(compat),
+        int(wildcard), int(model == "std"),
+    )
+    assert rc == 0
+    return finals, dirs
+
+
+@pytest.mark.parametrize("model,compat,wildcard,dirs_mode", [
+    ("ref", True, True, "fast4"), ("ref", True, False, "full"),
+    ("ref", False, True, "full"), ("ref", False, False, False),
+    ("std", False, True, "fast4"), ("std", False, False, False),
+])
+def test_host_banded_fill_matches_plain(host, model, compat, wildcard,
+                                        dirs_mode):
+    """The banded kernel's loop (band_cell with the neighbour reads of both
+    parities) against banded_diag_fill_torch: finals and the whole dirs
+    tensor."""
+    scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
+        if model == "std" else ScoringScheme()
+    pairs, plan, ins = _banded(7 + compat + 2 * wildcard + (model == "std"))
+    want_f, want_d = banded.banded_diag_fill_torch(
+        *ins, plan, scheme, compat, wildcard, dirs_mode, model)
+    finals, dirs = _host_banded(host, plan, ins, scheme, compat, wildcard,
+                                dirs_mode, model)
+    np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
+    if dirs_mode:
+        np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
+
+
+@pytest.mark.parametrize("std", [False, True])
+def test_host_banded_walk_matches_plain(host, std):
+    """walk_banded_pair against walk_banded_torch, with a dirs tensor cut
+    to fewer lanes so some reads fall outside the band."""
+    model = "std" if std else "ref"
+    pairs, plan, ins = _banded(19 + std, n=12, hi=90, band=8)
+    scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
+        if std else ScoringScheme()
+    finals, dirs = banded.banded_diag_fill_torch(*ins, plan, scheme, False,
+                                                 True, "fast4", model)
+    dirs = dirs[:, :, : plan.L - 64].contiguous()
+    B = len(pairs)
+    seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+        [len(b) for _, b in pairs], [len(a) for a, _ in pairs],
+        walk.seed_planes(finals.numpy()[:B]), np.arange(B),
+    )]
+    t_steps = int((seeds[0] + seeds[1]).max())
+    want = walk.walk_banded_torch(dirs, *seeds, plan.k_lo_even, t_steps,
+                                  std=std)
+    WP = walk.banded_packed_width(t_steps)
+    packed = torch.empty((B, WP), dtype=torch.uint32)
+    xf, yf, n_ops = (torch.empty(B, dtype=torch.int32) for _ in range(3))
+    rc = host.hc_walk_banded(
+        dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds),
+        plan.k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
+        yf.data_ptr(), n_ops.data_ptr(),
+    )
+    assert rc == 0
+    for got, exp in zip((xf, yf, packed, n_ops), want):
+        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    assert (xf.numpy() == 0).all() and (yf.numpy() == 0).all()
+
+
+def test_banded_wrappers_refuse_cpu_tensors():
+    pairs, plan, ins = _banded(3, n=8, hi=30)
+    with pytest.raises(ValueError, match="CUDA"):
+        banded.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, True,
+                                     "fast4")
+    dirs = torch.zeros((4, 8, 128), dtype=torch.uint32)
+    seed = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        walk.walk_banded_cuda(dirs, seed, seed, seed, seed, -8, 8)
+    assert banded.banded_diag_fill_cuda.launches == 0
+    assert walk.walk_banded_cuda.launches == 0

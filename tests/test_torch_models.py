@@ -1,13 +1,35 @@
 """PyTorch port's GotohAligner vs the JAX package's on the same records
 (exact: scores, alignments, CIGARs and per-pair errors must be equal)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
-from sequencealigning_tpu.config import AlignConfig, Algo, Mode
-from sequencealigning_tpu.io.fasta import Record
+from sequencealigning_tpu import config as jax_config
+from sequencealigning_tpu.models.banded import BandedAligner as JaxBanded
 from sequencealigning_tpu.models.gotoh import GotohAligner as JaxGotoh
-from sequencealigning_tpu_torch.models import GotohAligner, get_aligner
+from sequencealigning_tpu_torch.config import AlignConfig, Algo, Mode
+from sequencealigning_tpu_torch.io.fasta import Record
+from sequencealigning_tpu_torch.models import (
+    BandedAligner,
+    GotohAligner,
+    get_aligner,
+)
+
+
+def _jax(config):
+    """The JAX package's AlignConfig with the port config's values (the
+    two packages' classes and enums are distinct; compare by value)."""
+    kw = {f.name: getattr(config, f.name)
+          for f in dataclasses.fields(config)}
+    kw["algo"] = jax_config.Algo(config.algo.value)
+    kw["mode"] = jax_config.Mode(config.mode.value)
+    for name, cls in (("scoring", jax_config.ScoringScheme),
+                      ("wfa_penalties", jax_config.WfaPenalties),
+                      ("wfa_pruning", jax_config.WfaPruning)):
+        kw[name] = cls(**dataclasses.asdict(kw[name]))
+    return jax_config.AlignConfig(**kw)
 
 
 def _records(seed, n=13, hi=60):
@@ -42,7 +64,7 @@ def test_port_aligner_matches_jax(compat, first_only):
                          first_only=first_only)
     port = GotohAligner(config, device="cpu")
     got = port.align_batch(recs)
-    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
     # Compat co-optimal walks may hit the reference's boundary-chain panic,
     # a per-pair error in both packages.
     assert sum(r.ok for r in got) >= len(recs) - 2
@@ -53,7 +75,7 @@ def test_compat_local_mode_is_per_pair_not_implemented():
     recs = _records(9, n=4)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL)
     got = get_aligner(config, "cpu").align_batch(recs)
-    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
     assert [r.error for r in got] == ["not implemented"] * 4
 
 
@@ -127,26 +149,26 @@ def test_failed_cuda_walk_is_a_pair_error_not_a_host_walk(monkeypatch):
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_lane_ceilings(monkeypatch, device):
     """db beyond long_pair_lanes (the reference's long-pair path) raises on
-    every device; the CUDA fill's lane ceiling applies on CUDA only, so the
-    plain fill on the CPU takes such pairs and matches the JAX aligner."""
+    every device; below it an aligner on either device takes every width
+    (the CUDA fills split a row over a cluster past 8192 lanes) and matches
+    the JAX aligner.  The tensors stay on the CPU here: only the aligner's
+    device says cuda."""
     import torch
 
     import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
 
     recs = _records(3, n=3, hi=120)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
-    monkeypatch.setattr(GotohAligner, "cuda_fill_lanes", 64)
     real_to_device = gotoh_mod.to_device
     monkeypatch.setattr(gotoh_mod, "to_device",
                         lambda batch, dev: real_to_device(batch, "cpu"))
+    monkeypatch.setattr(GotohAligner, "_dirs_budget",
+                        lambda self, host_fetch=None: self.dirs_host_budget)
     port = GotohAligner(config, device="cpu")
     port.device = torch.device(device)
-    if device == "cuda":
-        with pytest.raises(NotImplementedError, match="62 bp on cuda"):
-            port.align_batch(recs)
-    else:
-        assert _view(port.align_batch(recs)) == _view(
-            JaxGotoh(config).align_batch(recs))
+    want = _view(JaxGotoh(_jax(config)).align_batch(recs))
+    assert _view(port.align_batch(recs)) == want
+    assert port.host_fallbacks == 0
     monkeypatch.setattr(GotohAligner, "long_pair_lanes", 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.align_batch(recs)
@@ -183,7 +205,7 @@ def test_port_textbook_modes_match_jax(mode, n):
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=mode, compat=False)
     port = GotohAligner(config, device="cpu")
     got = port.align_batch(recs)
-    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
     assert all(r.ok for r in got) and port.host_fallbacks == 0
     assert all(r.alignments is None for r in got)
 
@@ -192,7 +214,7 @@ def test_compat_semi_global_is_per_pair_not_implemented():
     recs = _records(9, n=4)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.SEMI_GLOBAL)
     got = get_aligner(config, "cpu").align_batch(recs)
-    assert _view(got) == _view(JaxGotoh(config).align_batch(recs))
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
     assert [r.error for r in got] == ["not implemented"] * 4
 
 
@@ -241,8 +263,8 @@ def test_failed_modes_walk(monkeypatch, device):
 
 @pytest.mark.parametrize("n", [8, 40])
 def test_modes_cuda_lane_ceiling(monkeypatch, n):
-    """Textbook modes pairs beyond the kernels' lanes raise on CUDA only;
-    the plain fills on the CPU take them."""
+    """Textbook modes pairs of any width run on a CUDA aligner as on the
+    CPU (no 8192-lane refusal is left; the tensors stay on the CPU here)."""
     import torch
 
     import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
@@ -250,14 +272,16 @@ def test_modes_cuda_lane_ceiling(monkeypatch, n):
     recs = _modes_records(11, n)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.SEMI_GLOBAL,
                          compat=False)
-    monkeypatch.setattr(GotohAligner, "cuda_fill_lanes", 128)
     monkeypatch.setattr(GotohAligner, "_dirs_budget",
                         lambda self, host_fetch=None: self.dirs_host_budget)
+    real_to_device = gotoh_mod.to_device
+    monkeypatch.setattr(gotoh_mod, "to_device",
+                        lambda batch, dev: real_to_device(batch, "cpu"))
     port = GotohAligner(config, device="cpu")
-    assert all(r.ok for r in port.align_batch(recs))
+    want = _view(port.align_batch(recs))
+    assert all(r[7] is None for r in want)
     port.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="256 lanes on cuda"):
-        port.align_batch(recs)
+    assert _view(port.align_batch(recs)) == want
 
 
 def test_modes_chunked_drain_equals_unchunked(monkeypatch):
@@ -269,8 +293,97 @@ def test_modes_chunked_drain_equals_unchunked(monkeypatch):
     want = _view(GotohAligner(config, device="cpu").align_batch(recs))
     monkeypatch.setattr(GotohAligner, "dirs_host_budget", 200_000)
     port = GotohAligner(config, device="cpu")
-    from sequencealigning_tpu.io.encode import pack_batch
+    from sequencealigning_tpu_torch.io.encode import pack_batch
 
     batch = pack_batch([(q.seq, d.seq) for q, d in recs], batch_size=16)
     assert port._dirs_chunks(batch, 12, per_byte=1.0) > 1
     assert _view(port.align_batch(recs)) == want
+
+
+# ---------------------------------------------------------------------------
+# Banded
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("first_only", [True, False])
+@pytest.mark.parametrize("compat", [True, False])
+def test_port_banded_aligner_matches_jax(compat, first_only):
+    """BandedAligner on the CPU against the JAX BandedAligner: scores,
+    alignments, CIGARs and per-pair errors, N-wildcard pairs and length
+    differences near the band included; get_aligner routes -a banded."""
+    recs = _records(31 + compat + 2 * first_only, n=11, hi=120)
+    config = AlignConfig(algo=Algo.BANDED, compat=compat,
+                         first_only=first_only, band=16)
+    port = get_aligner(config, "cpu")
+    assert isinstance(port, BandedAligner)
+    got = port.align_batch(recs)
+    assert _view(got) == _view(JaxBanded(_jax(config)).align_batch(recs))
+    assert sum(r.ok for r in got) >= len(recs) - 2
+
+
+def test_banded_local_is_per_pair_not_implemented():
+    recs = _records(9, n=4)
+    config = AlignConfig(algo=Algo.BANDED, mode=Mode.LOCAL, compat=False,
+                         first_only=True)
+    got = get_aligner(config, "cpu").align_batch(recs)
+    assert _view(got) == _view(JaxBanded(_jax(config)).align_batch(recs))
+    assert [r.error for r in got] == ["not implemented"] * 4
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_failed_banded_walk(monkeypatch, device):
+    """A failed banded device walk is re-walked on the host when the dirs
+    lie on the CPU (same result) and is that pair's AlignmentError naming
+    the kernel when they lie on the card (here a CPU tensor that reports
+    is_cuda, walked by the plain walk)."""
+    import torch
+
+    import sequencealigning_tpu_torch.models.banded as banded_mod
+    import sequencealigning_tpu_torch.ops.traceback_device as tbd
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    recs = _records(13, n=6)
+    config = AlignConfig(algo=Algo.BANDED, first_only=True, band=32)
+    want = _view(BandedAligner(config, device="cpu").align_batch(recs))
+    real = tbd.banded_diag_align_device
+    real_fill = banded_mod.nw_banded_diag_batch
+
+    def drop_pair_2(dirs, *args, **kwargs):
+        alns, scores = real(dirs.as_subclass(torch.Tensor), *args, **kwargs)
+        alns[2] = None
+        return alns, scores
+
+    def fill(*args, **kwargs):
+        res = real_fill(*args, **kwargs)
+        if device == "cuda":
+            res = res._replace(dirs=res.dirs.as_subclass(OnCard))
+        return res
+
+    monkeypatch.setattr(tbd, "banded_diag_align_device", drop_pair_2)
+    monkeypatch.setattr(banded_mod, "nw_banded_diag_batch", fill)
+    got = _view(BandedAligner(config, device="cpu").align_batch(recs))
+    if device == "cpu":
+        assert got == want
+    else:
+        assert got[:2] + got[3:] == want[:2] + want[3:]
+        assert got[2][2:5] == (None,) * 3
+        assert "walk_banded_cuda" in got[2][7]
+
+
+def test_banded_band_past_the_cuda_width_is_per_pair_error(monkeypatch):
+    """On CUDA (the fill routed to the kernel's wrapper) a band needing
+    more than 8192 lanes answers every pair with an AlignmentError instead
+    of escaping align_batch; the CPU aligns the same batch."""
+    import sequencealigning_tpu_torch.ops.nw_banded_diag as nbd
+
+    recs = _records(17, n=5, hi=30)
+    config = AlignConfig(algo=Algo.BANDED, first_only=True, band=8200)
+    assert all(r.ok for r in BandedAligner(config, "cpu").align_batch(recs))
+    monkeypatch.setattr(nbd, "banded_diag_fill", nbd.banded_diag_fill_cuda)
+    got = BandedAligner(config, "cpu").align_batch(recs)
+    assert [r.ok for r in got] == [False] * 5
+    assert all("8192 lanes" in r.error for r in got)

@@ -1,6 +1,8 @@
-"""The PyTorch port never imports JAX, and asks for devices explicitly."""
+"""The PyTorch port never imports JAX nor the JAX package (not even its
+host modules, which load no JAX), and asks for devices explicitly."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -9,6 +11,10 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "sequencealigning_tpu_torch")
+# An import of the JAX package or any of its submodules.
+_JAX_PKG_IMPORT = re.compile(
+    r"^\s*(from\s+sequencealigning_tpu(\.\S+)?\s+import|"
+    r"import\s+sequencealigning_tpu(\.|\s|$|,))", re.M)
 
 
 def _modules():
@@ -23,16 +29,31 @@ def _modules():
     return sorted(m for m in mods if not m.endswith("__main__"))
 
 
+def _sources():
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
 def test_importing_every_port_module_loads_no_jax():
+    """In a fresh interpreter, importing every module of the port and
+    chip_smoke (as a module) leaves no jax, jax.*, sequencealigning_tpu or
+    sequencealigning_tpu.* in sys.modules."""
     mods = _modules()
-    for m in ("cli", "ops.nw_affine", "ops.nw_affine_modes",
-              "ops.nw_affine_stream_modes", "ops.traceback_device"):
+    for m in ("cli", "config", "errors", "io.encode", "io.fasta", "native",
+              "ops.nw_affine", "ops.nw_affine_modes", "ops.nw_banded_diag",
+              "ops.nw_affine_stream_modes", "ops.traceback",
+              "ops.traceback_device", "ops.oracle_gotoh", "models.banded",
+              "utils.cigar", "utils.guards", "utils.pprint", "utils.stats"):
         assert f"sequencealigning_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
-        "print(sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith('jax.')))\n"
+        f"for m in {mods + ['chip_smoke']!r}: importlib.import_module(m)\n"
+        "print(sorted(k for k in sys.modules if k in ('jax', "
+        "'sequencealigning_tpu') or k.startswith(('jax.', "
+        "'sequencealigning_tpu.'))))\n"
     )
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -41,13 +62,27 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_no_port_source_imports_jax():
-    for root, _dirs, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    src = fh.read()
-                assert "import jax" not in src, f
-                assert "from jax" not in src, f
+    """No source of the port, nor chip_smoke.py, imports jax or the JAX
+    package (any submodule, at any indentation)."""
+    for path in _sources():
+        with open(path) as fh:
+            src = fh.read()
+        assert "import jax" not in src, path
+        assert "from jax" not in src, path
+        assert not _JAX_PKG_IMPORT.search(src), (
+            path, _JAX_PKG_IMPORT.search(src).group(0))
+
+
+def test_jax_package_import_pattern():
+    for line in ("from sequencealigning_tpu.config import X",
+                 "    from sequencealigning_tpu import native",
+                 "import sequencealigning_tpu.ops.traceback as tb",
+                 "import sequencealigning_tpu"):
+        assert _JAX_PKG_IMPORT.search(line), line
+    for line in ("from sequencealigning_tpu_torch.config import X",
+                 "import sequencealigning_tpu_torch",
+                 "# the port of sequencealigning_tpu.ops"):
+        assert not _JAX_PKG_IMPORT.search(line), line
 
 
 def test_cuda_device_is_never_replaced_by_cpu():

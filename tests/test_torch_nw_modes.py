@@ -9,10 +9,13 @@ import torch
 
 import jax.numpy as jnp
 
-from sequencealigning_tpu.config import ScoringScheme
-from sequencealigning_tpu.io.encode import pack_batch
+import dataclasses
+
+from sequencealigning_tpu.config import ScoringScheme as JaxScheme
 from sequencealigning_tpu.ops import nw_affine_modes as jax_modes
+from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.ops import nw_affine_modes as port
 from tests.test_affine_modes import _pairs, brute_force_mode
 
@@ -37,6 +40,11 @@ SCHEMES = [ScoringScheme(),
            ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)]
 
 
+def jax_scheme(scheme):
+    """The JAX package's ScoringScheme with the port scheme's values."""
+    return JaxScheme(**dataclasses.asdict(scheme))
+
+
 @pytest.mark.parametrize("hi1,hi2", [(220, 25), (20, 230), (60, 60)])
 @pytest.mark.parametrize("wildcard", [False, True])
 @pytest.mark.parametrize("local", [False, True])
@@ -53,7 +61,7 @@ def test_plain_fill_matches_lax(local, wildcard, hi1, hi2):
         jnp.asarray(batch.query, jnp.int32), jnp.asarray(s2v.numpy()),
         jnp.asarray(batch.query_len)[:, None],
         jnp.asarray(batch.db_len)[:, None],
-        l1, l2, scheme, wildcard, local, True,
+        l1, l2, jax_scheme(scheme), wildcard, local, True,
     )
     bv, bd, dirs = port.fill_modes_torch(
         tb.query, s2v, tb.query_len, tb.db_len, l1, l2, scheme, wildcard,

@@ -8,11 +8,12 @@ import torch
 
 import jax.numpy as jnp
 
-from sequencealigning_tpu.config import ScoringScheme
-from sequencealigning_tpu.io.encode import pack_batch, trim_for_stream
+from sequencealigning_tpu.config import ScoringScheme as JaxScheme
 from sequencealigning_tpu.ops import nw_affine_stream as jax_stream
 from sequencealigning_tpu.ops import oracle_gotoh
+from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.io.encode import pack_batch, trim_for_stream
 from sequencealigning_tpu_torch.ops import nw_affine_stream as port
 
 
@@ -50,9 +51,9 @@ def test_plan_and_stream_inputs_match_jax(n_pairs, l1, l2, np_slots, chunk):
     want = jax_stream.plan_stream(n_pairs, l1, l2, chunk=chunk, np_slots=np_slots)
     plan = port.plan_stream(n_pairs, l1, l2, chunk=chunk, np_slots=np_slots)
     assert tuple(plan) == tuple(want)
-    for sch in (ScoringScheme(),
-                ScoringScheme(match_=80, mismatch=-4, gap_open=-8, gap_extend=-6)):
-        assert port.stream_i16_neg(sch, plan) == jax_stream.stream_i16_neg(sch, want)
+    for kw in ({}, dict(match_=80, mismatch=-4, gap_open=-8, gap_extend=-6)):
+        assert port.stream_i16_neg(ScoringScheme(**kw), plan) == \
+            jax_stream.stream_i16_neg(JaxScheme(**kw), want)
     rng = np.random.default_rng(n_pairs + l1)
     n = plan.np_slots * plan.n_rows
     q = rng.integers(0, 16, (n, l1)).astype(np.int32)
@@ -86,7 +87,7 @@ def test_plain_fill_matches_lax(compat, dirs_mode, wildcard):
     (fm, fi, fd), dirs_j = jax_stream.gotoh_fill_stream_lax(
         jnp.asarray(qs), jnp.asarray(ds),
         jnp.asarray(dsy[:NP, :, 0]), jnp.asarray(n2y[:NP, :, 0]),
-        jax_stream.StreamPlan(*plan), ScoringScheme(), compat, wildcard,
+        jax_stream.StreamPlan(*plan), JaxScheme(), compat, wildcard,
         dirs_mode,
     )
     finals_j = np.stack(
@@ -171,7 +172,7 @@ def test_plain_fill_with_query_longer_than_lanes(dirs_mode):
     (fm, fi, fd), dirs_j = jax_stream.gotoh_fill_stream_lax(
         jnp.asarray(qs), jnp.asarray(ds),
         jnp.asarray(dsy[:NP, :, 0]), jnp.asarray(n2y[:NP, :, 0]),
-        jax_stream.StreamPlan(*plan), ScoringScheme(), False, False,
+        jax_stream.StreamPlan(*plan), JaxScheme(), False, False,
         dirs_mode,
     )
     finals, dirs = port.gotoh_fill_stream_torch(

@@ -9,15 +9,15 @@ import torch
 
 import jax.numpy as jnp
 
-from sequencealigning_tpu.io.encode import pack_batch
 from sequencealigning_tpu.ops import nw_affine_stream as jax_stream
 from sequencealigning_tpu.ops import nw_affine_stream_modes as jax_smodes
 from sequencealigning_tpu.ops.nw_affine_modes import nw_affine_modes_batch
 from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.ops import nw_affine_stream as stream
 from sequencealigning_tpu_torch.ops import nw_affine_stream_modes as port
 from tests.test_affine_modes import brute_force_mode
-from tests.test_torch_nw_modes import SCHEMES, _skewed
+from tests.test_torch_nw_modes import SCHEMES, _skewed, jax_scheme
 
 
 @pytest.mark.parametrize("np_slots,hi1,hi2", [(3, 60, 60), (2, 210, 30),
@@ -36,7 +36,7 @@ def test_plain_fill_matches_lax(mode, wildcard, np_slots, hi1, hi2):
     assert plan.n_slots_g >= 2
     (bv_j, bd_j), dirs_j = jax_smodes.gotoh_fill_stream_modes_lax(
         *(jnp.asarray(t.numpy()) for t in ins),
-        jax_stream.StreamPlan(*plan), scheme, wildcard, mode, True,
+        jax_stream.StreamPlan(*plan), jax_scheme(scheme), wildcard, mode, True,
     )
     (bv, bd), dirs = port.gotoh_fill_stream_modes_torch(
         *ins, plan, scheme, wildcard, mode, True

@@ -8,18 +8,20 @@ import torch
 
 import jax.numpy as jnp
 
-from sequencealigning_tpu.io.encode import pack_batch
 from sequencealigning_tpu.ops import traceback_device as jax_tbd
 from sequencealigning_tpu.ops.nw_affine_modes import nw_affine_modes_batch
 from sequencealigning_tpu.ops.nw_affine_stream import nw_affine_stream_batch
 from sequencealigning_tpu.ops.nw_affine_stream_modes import (
     nw_affine_stream_modes_batch,
 )
+from sequencealigning_tpu.ops.nw_banded_diag import nw_banded_diag_batch
 from sequencealigning_tpu.ops.traceback import (
+    banded_diag_fast4_traceback_pair,
     fast4_traceback_pair,
     local_affine_traceback_pair,
     semi_global_traceback_pair,
 )
+from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.ops import traceback_device as port
 
 
@@ -257,3 +259,99 @@ def test_failed_modes_walk_needs_host_or_is_an_error():
     semi = port.assemble_modes_alignments(pairs[6:], [None, None], [0, 0],
                                           [0, 0], [0, 0], False)
     assert semi == [(0, [("---", "ACG")]), (0, [("TT", "--")])]
+
+
+# ---------------------------------------------------------------------------
+# Banded (wavefront-packed) fast4 walk
+# ---------------------------------------------------------------------------
+
+# An out-of-regime scheme, where the std model's walks differ from ref's.
+_STD = dict(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3)
+
+
+def _banded_fill(pairs, band, model="ref", compat=True):
+    """The JAX lax banded fill in fast4 mode: (result, dirs as a writable
+    host array, finals)."""
+    from sequencealigning_tpu.config import ScoringScheme as JaxScheme
+
+    batch = pack_batch(pairs, batch_size=-(-len(pairs) // 8) * 8)
+    scheme = JaxScheme(**_STD) if model == "std" else JaxScheme()
+    res = nw_banded_diag_batch(
+        batch.query, batch.db, batch.query_len, batch.db_len, band=band,
+        scheme=scheme, compat=compat and model == "ref", wildcard=True,
+        with_dirs="fast4", backend="lax", model=model,
+    )
+    return res, np.array(res.dirs), np.asarray(res.finals)
+
+
+def _banded_seeds(pairs, finals):
+    B = len(pairs)
+    return [
+        np.asarray([len(b) for _, b in pairs], np.int32),
+        np.asarray([len(a) for a, _ in pairs], np.int32),
+        jax_tbd.seed_planes(finals[:B]),
+        np.arange(B, dtype=np.int32),
+    ]
+
+
+@pytest.mark.parametrize("model", ["ref", "std"])
+def test_plain_banded_walk_matches_host_walker(model):
+    """walk_banded_torch + decode against the host walker
+    banded_diag_fast4_traceback_pair on every pair, ref and std, and its
+    packed op stream against the JAX msub walk's compacted stream."""
+    pairs = _pairs(101 + (model == "std"), n=22, hi=60)
+    res, dirs, finals = _banded_fill(pairs, 24, model)
+    std = model == "std"
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    alns, scores = port.banded_diag_align_device(
+        torch.from_numpy(dirs), finals, s1s, s2s, res.k_lo_even, std=std)
+    for b, (s1, s2) in enumerate(pairs):
+        want_score, want = banded_diag_fast4_traceback_pair(
+            dirs[:, b, :], finals[b], s1, s2, res.k_lo_even,
+            compat=model == "ref", std=std)
+        assert int(scores[b]) == want_score
+        assert alns[b] == want[0], b
+    seeds = _banded_seeds(pairs, finals)
+    t_steps = int((seeds[0] + seeds[1]).max())
+    xf, yf, packed, n_ops = port.walk_banded_torch(
+        torch.from_numpy(dirs), *(torch.from_numpy(a) for a in seeds),
+        res.k_lo_even, t_steps, std=std)
+    (xf_j, yf_j), packed_j, _ = jax_tbd._walk_banded_diag_msub(
+        res.dirs, *(jnp.asarray(a) for a in seeds), jnp.int32(res.k_lo_even),
+        t_steps=t_steps, std=std, substeps=2, unroll=1)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
+    assert packed.shape[1] == port.banded_packed_width(t_steps)
+    assert (xf.numpy() == 0).all() and (yf.numpy() == 0).all()
+    np.testing.assert_array_equal(xf.numpy(), np.asarray(xf_j))
+    np.testing.assert_array_equal(yf.numpy(), np.asarray(yf_j))
+    counts = ((packed.numpy()[:, :, None] >> (2 * np.arange(16))) & 3) != 0
+    np.testing.assert_array_equal(n_ops.numpy(), counts.sum((1, 2)))
+
+
+def test_banded_walk_out_of_band_advances_unlike_jax_msub():
+    """Named divergence from the reference (ops/traceback_device.py:234,
+    ROADMAP section 3): where a read falls outside the band, the port's walk
+    takes code 0 and advances, as the host walker does; the JAX msub walk
+    freezes there, burns its step budget and never reaches the origin.  The
+    dirs are cut to 12 lanes so the walks of these query-longer pairs start
+    outside the band."""
+    rng = np.random.default_rng(7)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(8):
+        s2 = rng.choice(alpha, int(rng.integers(15, 30)))
+        s1 = np.concatenate([s2, rng.choice(alpha, 30)])
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    res, dirs, finals = _banded_fill(pairs, 8)
+    cut = np.ascontiguousarray(dirs[:, :, :12])
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    alns, _ = port.banded_diag_align_device(
+        torch.from_numpy(cut), finals, s1s, s2s, res.k_lo_even)
+    for b, (s1, s2) in enumerate(pairs):
+        _, want = banded_diag_fast4_traceback_pair(
+            cut[:, b, :], finals[b], s1, s2, res.k_lo_even)
+        assert alns[b] == want[0], b
+    jax_alns, _ = jax_tbd.banded_diag_align_device(
+        jnp.asarray(cut), finals, s1s, s2s, res.k_lo_even)
+    assert all(a is None for a in jax_alns)
+    assert all(a is not None for a in alns)
