@@ -52,7 +52,24 @@ in the phases below and exits non-zero at the first failure:
    and the per-pair modes fill at a ~8.3 kb db vs their plain versions,
    split into 3 CTAs of 4096 lanes and into 2 of 8192 (16 lanes a thread,
    as rows past 32768 lanes take), then one global first-only pair of
-   ~49 kb through GotohAligner whose alignment rescores to its score.
+   ~49 kb through GotohAligner whose alignment rescores to its score;
+14. the tiled fills (kernel #4, one CTA a pair, and #5, a cluster of
+   `fold` CTAs a pair) vs their plain versions on small ragged batches
+   (1-16 pairs up to ~3 kb, forced small tiles, compat/textbook, wildcard,
+   empty sides), then their finals on 8 (resp. 2) pairs of 40 kb vs the
+   streamed global fill's (kernel #1, dirs off, itself held against its
+   plain version there); the banded fill split naturally over a cluster
+   (~8.6k lanes: 300 bp queries against ~17 kb dbs) vs its plain version
+   (phase 10 also runs config 4's shape forced into 2 CTAs of 128 lanes);
+15. the long-pair path: GotohAligner on cuda, first-only and co-optimal,
+   over batch A (8 pairs of 100 kb, one with a 300 bp insertion and a 300
+   bp deletion: kernel #4, band doubling to 512) and batch B (2 pairs, one
+   whose db lacks 20 kb: kernel #5, the banded fill split over 3 CTAs at
+   L = 10,240), both kernels' finals there held against a plain row sweep
+   (gotoh_finals_rows_torch); every pair aligned, consuming its sequences
+   and rescoring to the tiled exact score, the rounds each pair took
+   recorded; then one ~6 kb pair that escapes the (lowered) band cap and is
+   aligned by Myers-Miller on the card.
 
 Launch counts are read per path: every kernel's count is set to 0 just
 before a path runs and read just after; comparisons with plain versions
@@ -91,6 +108,15 @@ N_BAND_FULL = 64
 # The ceiling phase: a db past 8192 lanes, and one pair near the 49152-lane
 # limit of the streamed fill.
 LEN_CEIL_DB, LEN_LONG = 8300, 49150
+# The long-pair path: batch A, N_LONG pairs of LEN_LONG_PAIR bp (seed 10),
+# pair 0 with a LONG_INDEL bp insertion at 30 kb and deletion at 70 kb;
+# batch B, pair 0 of A and a pair whose db lacks LONG_DROP bp in its
+# middle.  The tiled fills' full-width check: pairs of LEN_TILE_CHECK bp.
+N_LONG, LEN_LONG_PAIR, LONG_INDEL, LONG_DROP = 8, 100_000, 300, 20_000
+LEN_TILE_CHECK = 40_000
+# The tiled fills' small ragged batches (bp at most): kernel #4's 16 pairs,
+# kernel #5's 1-4 (the plain versions' cost grows with the length).
+LEN_TILE_SMALL, LEN_FOLD_SMALL = 700, 1000
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
 # operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
 # 128 fp32 lanes, no fused multiply-add doubling).
@@ -114,6 +140,7 @@ OPS_PER_CELL = {
     "full": 10 + 14 + 2,                  # 26: banded, semi-global
     "local full": 10 + 1 + 3 + 16 + 2,    # 32
     "walk_fast4": 12, "walk_modes": 14, "walk_banded": 16,
+    "score": 10,                          # the tiled fills: no code
 }
 KERNELS = {
     # name: (module key, wrapper, source, TPU kernel replaced)
@@ -145,6 +172,14 @@ KERNELS = {
         "walk", "walk_banded_cuda",
         "sequencealigning_tpu_torch/csrc/traceback_device.cu",
         "sequencealigning_tpu/ops/traceback_device.py:181"),
+    "nw_affine_tiled_fill": (
+        "tiled", "tiled_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_tiled.cu",
+        "sequencealigning_tpu/ops/nw_affine_tiled.py:161"),
+    "nw_affine_tiled_fold_fill": (
+        "tiled", "tiled_fold_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_tiled.cu",
+        "sequencealigning_tpu/ops/nw_affine_tiled.py:563"),
 }
 
 
@@ -1010,8 +1045,25 @@ def phase_banded_fill(torch, port, pairs):
         e = max(e, 0 if whole else 1)
         b_ms, b_by = bound(nbytes(*ins, fk, dk),
                            band_cells * OPS_PER_CELL[dirs])
-        del fp, dp
         check(e == 0, f"banded fill kernel != plain at config 4 ({dirs})")
+        if dirs == "fast4":
+            # The same band forced into a cluster of 2 CTAs of 128 lanes,
+            # against the plain dirs just computed.
+            split = port["csrc"].kernels().sa_fill_ctas(plan.L, 128)
+            split_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(
+                *ins, *a, cta_lanes=128))
+            fs, ds = banded.banded_diag_fill_cuda(*ins, *a, cta_lanes=128)
+            split_err = max(int((fs - fp).abs().max()), 0 if torch.equal(
+                ds.view(torch.int32), dp.view(torch.int32)) else 1)
+            del fs, ds
+            check(split == 2 and split_err == 0,
+                  f"banded fill split into {split} CTAs != plain at config "
+                  f"4: err {split_err}")
+            log(f"[10 banded fill] config 4's band (L={plan.L}) split into "
+                f"{split} CTAs of 128 lanes: {split_ms:.3f} ms; finals and "
+                "the whole dirs tensor equal the plain version")
+            out.update(bfill_split2_ms=split_ms, bfill_split2_err=split_err)
+        del fp, dp
         log(f"[10 banded fill] {len(pairs)} x {LEN_BAND} bp band {BAND} "
             f"{dirs} (L={plan.L}, k_lo_even={plan.k_lo_even}, "
             f"n_iters={plan.n_need}, dirs {dk.numel() * 4 / 1e9:.2f} GB): "
@@ -1219,6 +1271,333 @@ def phase_ceiling(torch, port, by_path):
             "long_pair_score": res[0].score}
 
 
+def tiled_pairs(rng, n, lo, hi, alphabet=b"ACGTN"):
+    """n pairs of lo..hi bp; every other db a mutated copy of its query."""
+    alpha = np.frombuffer(alphabet, np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(lo, hi + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(lo, hi + 1)))
+        if i % 2:
+            s2 = np.resize(s1, len(s2)).copy()
+            hits = rng.integers(len(s2), size=max(1, len(s2) // 50))
+            s2[hits] = rng.choice(alpha, len(hits))
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    return pairs
+
+
+def phase_tiled(torch, port):
+    """Kernels #4 and #5 against their plain versions on small ragged
+    batches, then at full width against the streamed global fill's finals;
+    the banded fill's natural cluster split against its plain version."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
+
+    tiled, fill, banded = port["tiled"], port["fill"], port["banded"]
+    kern = port["csrc"].kernels()
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    rng = np.random.default_rng(11)
+    err = {"nw_affine_tiled_fill": 0, "nw_affine_tiled_fold_fill": 0}
+    out = {}
+
+    def record(name, got, want, label):
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        check(e == 0, f"{name} != plain ({label}): err {e}")
+        err[name] = max(err[name], e)
+
+    # Kernel #4: 16 ragged pairs with empty sides, compat x wildcard, at its
+    # own tile width and forced 128/384-lane tiles; then 5 pairs up to ~3
+    # kb.  The plain fill follows the lax layout.
+    small = tiled_pairs(rng, 14, 1, LEN_TILE_SMALL) + [(b"ACGTA", b""),
+                                                       (b"", b"ACG")]
+    tb = to_device(pack_batch(small), "cuda")
+    runs = 0
+    for compat in (True, False):
+        for wildcard in (False, True):
+            a = (wild if wildcard else ScoringScheme(), compat, wildcard)
+            p_ms, want = host_ms(torch, lambda: tiled.tiled_fill_torch(
+                *tb, *a, tile_lanes=256))
+            for cta in (0, 128, 384):
+                record("nw_affine_tiled_fill",
+                       tiled.tiled_fill_cuda(*tb, *a, cta_lanes=cta), want,
+                       f"compat={compat}, wildcard={wildcard}, cta={cta}")
+                runs += 1
+            if compat and not wildcard:
+                out["tiled_plain_ms"] = p_ms
+                out["tiled_small_ms"] = cuda_ms(
+                    torch, lambda: tiled.tiled_fill_cuda(*tb, *a))
+    tb3 = to_device(pack_batch(tiled_pairs(rng, 5, 2000, 3000, b"ACGT")),
+                    "cuda")
+    record("nw_affine_tiled_fill",
+           tiled.tiled_fill_cuda(*tb3, ScoringScheme(), True, False),
+           tiled.tiled_fill_torch(*tb3, ScoringScheme(), True, False,
+                                  tile_lanes=1024), "5 pairs of 2-3 kb")
+    # Kernel #5: 1-4 pairs (fold 8, 4, 2, 2), compat and textbook, at its
+    # own CTA width and forced 128-lane CTAs (one pair longer than its
+    # 8 x 128-lane tile, so every fold crosses a tile seam).
+    for B in (1, 2, 3, 4):
+        lo, hi = (1100, 1500) if B == 1 else (200, LEN_FOLD_SMALL)
+        pairs = tiled_pairs(rng, B, lo, hi, b"ACGT")
+        if B == 4:
+            pairs[3] = (pairs[3][0], b"")
+        tbf = to_device(pack_batch(pairs), "cuda")
+        for compat in (True, False):
+            a = (ScoringScheme(), compat, False)
+            p_ms, want = host_ms(torch, lambda: tiled.tiled_fold_fill_torch(
+                *tbf, *a, tile_lanes=256))
+            for cta in (0, 128):
+                record("nw_affine_tiled_fold_fill",
+                       tiled.tiled_fold_fill_cuda(*tbf, *a, cta_lanes=cta),
+                       want, f"{B} pairs, compat={compat}, cta={cta}")
+                runs += 1
+            if B == 2 and compat:
+                out["tfold_plain_ms"] = p_ms
+                out["tfold_small_ms"] = cuda_ms(
+                    torch, lambda: tiled.tiled_fold_fill_cuda(*tbf, *a))
+    log(f"[14 tiled] {runs} small runs equal their plain versions (16 x <= "
+        f"{LEN_TILE_SMALL} bp: kernel #4 {out['tiled_small_ms']:.3f} ms, "
+        f"plain {out['tiled_plain_ms']:.1f} ms; 2 x <= {LEN_FOLD_SMALL} bp: "
+        f"kernel #5 {out['tfold_small_ms']:.3f} ms, plain "
+        f"{out['tfold_plain_ms']:.1f} ms)")
+
+    # Full width: 8 (resp. 2) pairs of 40 kb against kernel #1's finals
+    # (dirs off), kernel #1 held against its plain version on the batch.
+    pairs = make_pairs(np.random.default_rng(12), 8, LEN_TILE_CHECK)
+    tbs = to_device(trim_for_stream(pack_batch(pairs, batch_size=8)), "cuda")
+    plan, ins = fill.stream_inputs(*tbs)
+    a = (plan, ScoringScheme(), True, False, None)
+    f1 = fill.gotoh_fill_stream_cuda(*ins, *a)[0]
+    s_plain_ms, (fp1, _) = host_ms(
+        torch, lambda: fill.gotoh_fill_stream_torch(*ins, *a))
+    torch.cuda.synchronize()
+    e1 = int((f1 - fp1).abs().max())
+    check(e1 == 0, f"streamed fill != plain at 8 x {LEN_TILE_CHECK} bp")
+    tb = to_device(pack_batch(pairs, batch_size=8), "cuda")
+    record("nw_affine_tiled_fill",
+           tiled.tiled_fill_cuda(*tb, ScoringScheme(), True, False), f1[:8],
+           f"8 x {LEN_TILE_CHECK} bp vs kernel #1")
+    record("nw_affine_tiled_fold_fill",
+           tiled.tiled_fold_fill_cuda(*(t[:2] for t in tb), ScoringScheme(),
+                                      True, False), f1[:2],
+           f"2 x {LEN_TILE_CHECK} bp vs kernel #1")
+    log(f"[14 tiled] 8 x {LEN_TILE_CHECK} bp: kernel #4's finals and kernel "
+        f"#5's (2 pairs) equal the streamed fill's (P={plan.p}, "
+        f"{kern.sa_fill_ctas(plan.p, 0)} CTAs, dirs off), which equal its "
+        f"plain version ({s_plain_ms / 1e3:.1f} s)")
+
+    # The banded fill's natural split: 8 pairs of 300 bp against ~17 kb.
+    rng = np.random.default_rng(13)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(8):
+        ref = rng.choice(alpha, int(rng.integers(16_800, 17_200)))
+        pairs.append((ref[:300].tobytes(), ref.tobytes()))
+    tb = to_device(pack_batch(pairs, batch_size=8), "cuda")
+    plan, ins = banded.band_inputs(*tb, BAND)
+    ctas = kern.sa_fill_ctas(plan.L, 0)
+    check(plan.L > 8192 and ctas > 1, f"L={plan.L} did not split")
+    a = (plan, ScoringScheme(), True, True, "fast4")
+    fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+    fp, dp = banded.banded_diag_fill_torch(*ins, *a)
+    e3 = max(int((fk - fp).abs().max()), 0 if torch.equal(
+        dk.view(torch.int32), dp.view(torch.int32)) else 1)
+    check(e3 == 0, f"banded fill split over {ctas} CTAs != plain: err {e3}")
+    nat_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a))
+    del dk, dp
+    torch.cuda.empty_cache()
+    log(f"[14 tiled] banded fill at L={plan.L} ({ctas} CTAs of 4096 lanes, "
+        f"8 x 300 bp against ~17 kb): {nat_ms:.3f} ms; finals and the whole "
+        "dirs tensor equal the plain version")
+    out.update(tiled_small_err=err["nw_affine_tiled_fill"],
+               tfold_small_err=err["nw_affine_tiled_fold_fill"],
+               bfill_natural_split_ms=nat_ms, bfill_natural_split_err=e3,
+               bfill_natural_split_lanes=plan.L)
+    return out
+
+
+def long_batches():
+    """Batches A and B of the long-pair path (module constants)."""
+    rng = np.random.default_rng(10)
+    A = make_pairs(rng, N_LONG, LEN_LONG_PAIR)
+    mut, ref = A[0]
+    ins = rng.choice(list(b"ACGT"), LONG_INDEL).astype(np.uint8).tobytes()
+    A[0] = (mut[:30_000] + ins + mut[30_000:70_000]
+            + mut[70_000 + LONG_INDEL:], ref)
+    mut, ref = make_pairs(rng, 1, LEN_LONG_PAIR)[0]
+    half = (LEN_LONG_PAIR - LONG_DROP) // 2
+    B = [A[0], (mut, ref[:half] + ref[half + LONG_DROP:])]
+    return A, B
+
+
+def phase_long(torch, port, by_path):
+    """The long-pair path through GotohAligner on cuda over batches A and B
+    (first-only and co-optimal), kernels #4 and #5 and the split banded
+    fill timed at those shapes, then the Myers-Miller escape."""
+    from sequencealigning_tpu_torch.config import (
+        AlignConfig,
+        Algo,
+        ScoringScheme,
+    )
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.models import gotoh as gotoh_mod
+
+    tiled, banded = port["tiled"], port["banded"]
+    kern = port["csrc"].kernels()
+    A, B = long_batches()
+    meas, full = {}, {}
+    # The kernels at full width (and each batch's exact scores).
+    for name, pairs, fn, key in (
+            ("A", A, tiled.tiled_fill_cuda, "tiled"),
+            ("B", B, tiled.tiled_fold_fill_cuda, "tfold")):
+        tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+        a = (*tb, ScoringScheme(), True, False)
+        # One launch (phase 14 has loaded the kernel): its time, and its
+        # finals as the batch's exact scores.
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        finals = fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        full[name] = finals
+        exact = finals.cpu().numpy().max(axis=1)
+        cells = sum(len(x) * len(y) for x, y in pairs)
+        b_ms, b_by = bound(nbytes(*tb) + 12 * len(pairs),
+                           cells * OPS_PER_CELL["score"])
+        meas.update({f"{key}_ms": ms, f"{key}_bound_ms": b_ms,
+                     f"{key}_bound_by": b_by, f"{key}_cells": cells,
+                     f"exact_{name}": exact})
+        log(f"[15 long] batch {name} ({len(pairs)} pairs, {cells:.3g} "
+            f"cells): {fn.__name__} {ms:.1f} ms ({cells / ms / 1e6:.2f} "
+            f"GCUPS), bound {b_ms:.3f} ms ({b_by})")
+    # Both kernels' finals at full width against one plain row sweep over
+    # batch A and batch B's second pair (B's first is A's first).
+    sweep = A + B[1:]
+    tb = to_device(pack_batch(sweep, batch_size=len(sweep)), "cuda")
+    rows_ms, plain = host_ms(torch, lambda: tiled.gotoh_finals_rows_torch(
+        *tb, ScoringScheme(), True, False))
+    e4 = int((full["A"] - plain[:N_LONG]).abs().max())
+    e5 = int((full["B"] - plain[[0, N_LONG]]).abs().max())
+    check(e4 == 0 and e5 == 0, f"full width: kernel #4 err {e4}, kernel #5 "
+          f"err {e5} against the plain row sweep")
+    log(f"[15 long] batch A's finals (kernel #4) and batch B's (kernel #5) "
+        f"equal the plain row sweep's ({len(sweep)} pairs, "
+        f"{rows_ms / 1e3:.1f} s)")
+    meas.update(tiled_full_err=e4, tfold_full_err=e5, rows_plain_ms=rows_ms)
+    del full, plain
+    tb = to_device(pack_batch(B, batch_size=len(B)), "cuda")
+    plan, ins = banded.band_inputs(*tb, BAND)
+    a = (plan, ScoringScheme(), True, False, "fast4")
+    split_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a),
+                       repeats=1)
+    band_cells = sum(len(y) for _, y in B) * (plan.k_hi_eff - plan.k_lo + 1)
+    b_ms, b_by = bound(nbytes(*ins, *banded.banded_diag_fill_cuda(*ins, *a)),
+                       band_cells * OPS_PER_CELL["fast4"])
+    del ins
+    torch.cuda.empty_cache()
+    log(f"[15 long] batch B's band 128: L={plan.L}, "
+        f"{kern.sa_fill_ctas(plan.L, 0)} CTAs, banded fill {split_ms:.1f} "
+        f"ms, bound {b_ms:.3f} ms ({b_by})")
+    meas.update(bfill_split_ms=split_ms, bfill_split_lanes=plan.L,
+                bfill_split_bound_ms=b_ms, bfill_split_bound_by=b_by)
+
+    # The path, with the band rounds recorded by a spy on the banded fill.
+    rounds = []
+    real_fill = gotoh_mod.nw_banded_diag_batch
+
+    def spy(*args, band, **kwargs):
+        res = real_fill(*args, band=band, **kwargs)
+        rounds.append((band, res.finals.max(axis=1)))
+        return res
+
+    gotoh_mod.nw_banded_diag_batch = spy
+    try:
+        for name, pairs, kernel in (("A", A, "nw_affine_tiled_fill"),
+                                    ("B", B, "nw_affine_tiled_fold_fill")):
+            exact = meas.pop(f"exact_{name}")
+            for first_only in (True, False):
+                cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH,
+                                  first_only=first_only)
+                aligner = port["models"].GotohAligner(cfg, "cuda")
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                path = (f"long pairs, batch {name}, "
+                        f"{'first-only' if first_only else 'co-optimal'}")
+                rounds.clear()
+                with path_launches(port, by_path, path):
+                    t0 = time.perf_counter()
+                    res = aligner.align_batch(records(pairs))
+                    secs = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                launches = {k: v[path] for k, v in by_path.items()
+                            if path in v}
+                check_results(res, pairs, cfg.scoring, path, compat=True)
+                check([r.score for r in res] == [int(x) for x in exact],
+                      f"{path}: scores != the tiled exact scores")
+                for k in (kernel, "nw_banded_diag_fill", "walk_banded"):
+                    check(launches.get(k, 0) > 0, f"{path} never launched {k}")
+                took = [next((i + 1 for i, (_b, f) in enumerate(rounds)
+                              if int(f[p]) == int(exact[p])), None)
+                        for p in range(len(pairs))]
+                bands = [b for b, _f in rounds]
+                tag = f"long_{name}_{'first' if first_only else 'coopt'}"
+                meas.update({f"{tag}_s": secs,
+                             f"{tag}_alignments_per_s": len(pairs) / secs,
+                             f"{tag}_peak_gib": peak / 2 ** 30,
+                             f"{tag}_rounds": took, f"{tag}_bands": bands})
+                log(f"[15 long] {path}: {secs:.3f} s, "
+                    f"{len(pairs) / secs:.2f} alignments/s, peak "
+                    f"{peak / 2**30:.2f} GiB; bands {bands}, rounds a pair "
+                    f"{took}; launches {launches}; every alignment consumes "
+                    "its sequences and rescores to the tiled exact score")
+                del res, aligner
+    finally:
+        gotoh_mod.nw_banded_diag_batch = real_fill
+
+    # The escape: a ~6 kb pair with a 500 bp excursion off the diagonal,
+    # on an aligner whose long path starts at 4096 lanes and stops at band
+    # 128: Myers-Miller on the card.
+    mut, ref = make_pairs(np.random.default_rng(14), 1, 6000)[0]
+    ins = bytes(np.random.default_rng(15).choice(list(b"ACGT"), 500)
+                .astype(np.uint8))
+    esc = [(mut[:2000] + ins + mut[2000:4000] + mut[4500:], ref)]
+    cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    aligner = port["models"].GotohAligner(cfg, "cuda")
+    aligner.long_pair_lanes, aligner.long_pair_max_band = 4096, BAND
+    tb = to_device(pack_batch(esc), "cuda")
+    exact = int(tiled.tiled_fold_fill_cuda(*tb, ScoringScheme(), True,
+                                           False).max())
+    mm_calls = []
+    real_mm = gotoh_mod.mm_align
+    gotoh_mod.mm_align = lambda *a, **k: mm_calls.append(k) or real_mm(*a,
+                                                                      **k)
+    path = "long pairs, Myers-Miller escape"
+    try:
+        with path_launches(port, by_path, path):
+            t0 = time.perf_counter()
+            res = aligner.align_batch(records(esc))
+            secs = time.perf_counter() - t0
+    finally:
+        gotoh_mod.mm_align = real_mm
+    check(mm_calls and str(mm_calls[0].get("device")) == "cuda",
+          f"the escape pair did not reach Myers-Miller on the card: "
+          f"{mm_calls}")
+    check_results(res, esc, cfg.scoring, path, compat=True)
+    check(res[0].score == exact, f"{path}: score {res[0].score} != {exact}")
+    log(f"[15 long] {path}: {len(esc[0][0])} x {len(esc[0][1])} bp in "
+        f"{secs:.3f} s; Myers-Miller's alignment rescores to the exact "
+        f"score {exact}")
+    meas.update(mm_escape_s=secs)
+    return meas
+
+
 def run(args):
     if not os.path.isdir(os.path.join(ROOT, "sequencealigning_tpu_torch")):
         raise SmokeFailure("sequencealigning_tpu_torch/ is not beside this "
@@ -1232,6 +1611,7 @@ def run(args):
         nw_affine_modes,
         nw_affine_stream,
         nw_affine_stream_modes,
+        nw_affine_tiled,
         nw_banded_diag,
         traceback_device,
     )
@@ -1239,7 +1619,7 @@ def run(args):
     port = {"cli": cli, "csrc": csrc, "models": models,
             "fill": nw_affine_stream, "walk": traceback_device,
             "modes": nw_affine_modes, "smodes": nw_affine_stream_modes,
-            "banded": nw_banded_diag}
+            "banded": nw_banded_diag, "tiled": nw_affine_tiled}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     by_path = {}
@@ -1269,6 +1649,9 @@ def run(args):
     torch.cuda.empty_cache()
     meas.update(phase_banded_main(torch, port, bpairs, by_path))
     meas.update(phase_ceiling(torch, port, by_path))
+    torch.cuda.empty_cache()
+    meas.update(phase_tiled(torch, port))
+    meas.update(phase_long(torch, port, by_path))
     meas.update(build_s=build_s, card=card, launches=by_path)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
@@ -1296,8 +1679,14 @@ def kernel_entries(meas, by_path):
         "walk_modes": [meas["mwalk_local_err"], meas["mwalk_semi_err"]],
         "nw_banded_diag_fill": [meas["bfill_ragged_err"],
                                 meas["bfill_fast4_err"],
-                                meas["bfill_full_err"]],
+                                meas["bfill_full_err"],
+                                meas["bfill_split2_err"],
+                                meas["bfill_natural_split_err"]],
         "walk_banded": [meas["bwalk_err"]],
+        "nw_affine_tiled_fill": [meas["tiled_small_err"],
+                                 meas["tiled_full_err"]],
+        "nw_affine_tiled_fold_fill": [meas["tfold_small_err"],
+                                      meas["tfold_full_err"]],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -1307,6 +1696,16 @@ def kernel_entries(meas, by_path):
         "walk_modes": ("mwalk_local", f"{main} local"),
         "nw_banded_diag_fill": ("bfill_fast4", f"{band} fast4"),
         "walk_banded": ("bwalk", f"{band}"),
+        "nw_affine_tiled_fill": (
+            "tiled", f"ms, bound: batch A, {N_LONG} x {LEN_LONG_PAIR} bp; "
+            f"plain_ms, small_ms: 16 pairs <= {LEN_TILE_SMALL} bp; "
+            f"rows_plain_ms: the plain row sweep over batch A and B's second "
+            "pair"),
+        "nw_affine_tiled_fold_fill": (
+            "tfold", f"ms, bound: batch B, 2 pairs of {LEN_LONG_PAIR} bp "
+            f"(db {LEN_LONG_PAIR} and {LEN_LONG_PAIR - LONG_DROP}); plain_ms, "
+            f"small_ms: 2 pairs <= {LEN_FOLD_SMALL} bp; rows_plain_ms: as "
+            "kernel #4's"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces) in KERNELS.items():
@@ -1327,6 +1726,19 @@ def kernel_entries(meas, by_path):
             "library_ms": None,
             "timed_on": shape,
         }
+        if f"{key}_small_ms" in meas:
+            entry["small_ms"] = meas[f"{key}_small_ms"]
+            entry["rows_plain_ms"] = meas["rows_plain_ms"]
+        if name == "nw_banded_diag_fill":
+            entry["split"] = {
+                "ms": meas["bfill_split_ms"],
+                "lanes": meas["bfill_split_lanes"],
+                "bound_ms": meas["bfill_split_bound_ms"],
+                "bound_by": meas["bfill_split_bound_by"],
+                "timed_on": "batch B's band 128 (2 pairs), fast4",
+                "config4_2ctas_ms": meas["bfill_split2_ms"],
+                "natural_ms": meas["bfill_natural_split_ms"],
+                "natural_lanes": meas["bfill_natural_split_lanes"]}
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

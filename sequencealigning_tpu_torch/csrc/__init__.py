@@ -28,9 +28,11 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(_HERE)), "build", "sequencealigning_tpu_torch"
 )
 _CUDA_SOURCES = ("nw_affine_stream.cu", "nw_affine_modes.cu",
-                 "nw_banded_diag.cu", "traceback_device.cu")
+                 "nw_banded_diag.cu", "nw_affine_tiled.cu",
+                 "traceback_device.cu")
 _HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "cluster_split.cuh",
-            "nw_banded_diag.cuh", "traceback_device.cuh")
+            "nw_banded_diag.cuh", "nw_affine_tiled.cuh",
+            "traceback_device.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -158,7 +160,11 @@ def kernels() -> ctypes.CDLL:
     lib.sa_banded_lanes_per_thread.restype = _INT
     lib.sa_banded_lanes_per_thread.argtypes = [_INT]
     lib.sa_banded_fill.restype = _INT
-    lib.sa_banded_fill.argtypes = [_VP] * 8 + [_INT] * 14 + [_VP]
+    lib.sa_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
+    lib.sa_tiled_fill.restype = _INT
+    lib.sa_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 10 + [_VP]
+    lib.sa_tiled_fold_fill.restype = _INT
+    lib.sa_tiled_fold_fill.argtypes = [_VP] * 6 + [_INT] * 11 + [_VP]
     lib.sa_walk_fast4.restype = _INT
     lib.sa_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 5
@@ -212,7 +218,9 @@ def host_check() -> ctypes.CDLL:
     lib.hc_modes_fill.restype = _INT
     lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
     lib.hc_banded_fill.restype = _INT
-    lib.hc_banded_fill.argtypes = [_VP] * 8 + [_INT] * 14
+    lib.hc_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15
+    lib.hc_tiled_fill.restype = _INT
+    lib.hc_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 11
     lib.hc_walk_fast4.restype = _INT
     lib.hc_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 4

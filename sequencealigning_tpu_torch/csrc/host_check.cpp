@@ -1,16 +1,19 @@
 // Serial host build of the CUDA kernels' loops, through the same per-cell
 // and per-step functions (nw_affine_stream.cuh, nw_banded_diag.cuh,
-// traceback_device.cuh) and the same row split (cluster_split.cuh).  It lets
+// nw_affine_tiled.cuh, traceback_device.cuh) and the same row split
+// (cluster_split.cuh).  It lets
 // the kernels' arithmetic be compiled and checked against the plain PyTorch
 // versions on a machine with no CUDA compiler:
 //
 //   c++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // The arguments and layouts are those of sa_stream_fill,
-// sa_stream_modes_fill, sa_modes_fill, sa_banded_fill, sa_walk_fast4,
-// sa_walk_modes and sa_walk_banded (minus the stream).  The fills' lane
+// sa_stream_modes_fill, sa_modes_fill, sa_banded_fill, sa_tiled_fill /
+// sa_tiled_fold_fill, sa_walk_fast4, sa_walk_modes and sa_walk_banded (minus
+// the stream).  The fills' lane
 // shift follows the kernels' split of a row over CTAs: a CTA's first lane
-// takes the previous CTA's last lane (lane 0 takes lane P-1).
+// takes the previous CTA's last lane (lane 0 takes lane P-1); the banded
+// fill's split has no wrap (its edge lanes are masked).
 #include <stddef.h>
 #include <stdint.h>
 
@@ -18,6 +21,7 @@
 
 #include "cluster_split.cuh"
 #include "nw_affine_stream.cuh"
+#include "nw_affine_tiled.cuh"
 #include "nw_banded_diag.cuh"
 #include "traceback_device.cuh"
 
@@ -352,6 +356,24 @@ extern "C" int hc_walk_modes(const uint32_t* dirs, int W, int R, int P,
 
 namespace {
 
+// Lane l's neighbour in a band of L lanes split as sp, at wavefront parity
+// par (1: lane l+1, 0: lane l-1): inside a CTA the next or previous lane,
+// across a CTA edge the next CTA's first lane or the previous CTA's last
+// lane; l itself at the band's ends, whose edge lanes take no neighbour.
+int band_neighbour(int l, int par, const sa::Split& sp, int L) {
+  const int rank = l / sp.cta_lanes;
+  const int lo = sa::cta_first_lane(rank, sp);
+  const int hi = lo + sa::cta_real_lanes(rank, sp, L) - 1;
+  if (par) {
+    if (l != hi) return l + 1;
+    return rank + 1 < sp.nctas ? sa::cta_first_lane(rank + 1, sp) : l;
+  }
+  if (l != lo) return l - 1;
+  if (rank == 0) return l;
+  return sa::cta_first_lane(rank - 1, sp) +
+         sa::cta_real_lanes(rank - 1, sp, L) - 1;
+}
+
 // The banded fill of one pair at a time: every lane of a wavefront reads
 // its neighbour's state from before the step, as the kernel's shifts do.
 template <int DIRS, bool WILDCARD, bool STD>
@@ -359,7 +381,7 @@ void banded_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
                  const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
                  int32_t* finals, uint32_t* dirs, int B, int L, int n_iters,
                  int he, int lim1, int lim0, bool compat,
-                 const sa::Scheme& sc) {
+                 const sa::Scheme& sc, const sa::Split& sp) {
   constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;
   std::vector<sa::BandCell> c(L), c0(L);
   std::vector<uint32_t> acc(L);
@@ -383,14 +405,13 @@ void banded_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
         const int32_t xv = q - l;
         const int32_t yv = a - xv;
         int32_t code;
+        const int n = band_neighbour(l, par, sp, L);
         if (par) {
-          const int n = l + 1 < L ? l + 1 : l;
           code = sa::band_cell<1, DIRS, WILDCARD, STD>(
               c[l], sa::band_open<STD>(c0[n], sc), sa::band_gap_src<1>(c0[n]),
               sa::band_char_src<1>(c0[n]), l == L - 1, enter, xv, yv,
               l <= lim1, n1v[b], n2v[b], compat, sc);
         } else {
-          const int n = l > 0 ? l - 1 : l;
           code = sa::band_cell<0, DIRS, WILDCARD, STD>(
               c[l], sa::band_open<STD>(c0[n], sc), sa::band_gap_src<0>(c0[n]),
               sa::band_char_src<0>(c0[n]), l == 0, enter, xv, yv, l <= lim0,
@@ -417,7 +438,7 @@ void banded_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
 typedef void (*HostBand)(const int32_t*, const int32_t*, const int32_t*,
                          const int32_t*, const int32_t*, const int32_t*,
                          int32_t*, uint32_t*, int, int, int, int, int, int,
-                         bool, const sa::Scheme&);
+                         bool, const sa::Scheme&, const sa::Split&);
 
 template <int DIRS, bool STD>
 HostBand pick_band(bool wildcard) {
@@ -438,7 +459,9 @@ extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
                               int n_iters, int he, int lim1, int lim0,
                               int match, int mismatch, int gap_open,
                               int gap_extend, int dirs_mode, int compat,
-                              int wildcard, int std_model) {
+                              int wildcard, int std_model, int cta_lanes) {
+  const sa::Split sp = sa::plan_split(L, cta_lanes);
+  if (sp.nctas == 0) return -1;
   HostBand fn = nullptr;
   const bool w = wildcard != 0;
   if (std_model) {
@@ -452,7 +475,7 @@ extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   fn(s1w0, s2w0, c1s, c2s, n1v, n2v, finals, dirs, B, L, n_iters, he, lim1,
-     lim0, compat != 0, sc);
+     lim0, compat != 0, sc, sp);
   return 0;
 }
 
@@ -478,5 +501,108 @@ extern "C" int hc_walk_banded(const uint32_t* dirs, int W, int NB, int L,
     xf[b] = x;
     yf[b] = y;
   }
+  return 0;
+}
+
+namespace {
+
+// The tiled fill of one pair at a time over tiles of nctas x cta_lanes lanes
+// (the kernels' tile: its lanes are contiguous, lane 0 takes the carried
+// boundary column), with the kernels' in-place boundary column (bnd: (B, 3,
+// L1 + 1)) and their staging of lane 0's rows 128 steps at a time.
+template <bool COMPAT, bool WILDCARD>
+void tiled_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
+                const int32_t* n2v, int32_t* finals, int32_t* bnd, int B,
+                int L1, int L2, const sa::Scheme& sc, const sa::Split& sp) {
+  constexpr int kStage = 128;
+  const int WV = sp.nctas * sp.cta_lanes;
+  const int nrow = L1 + 1;
+  std::vector<sa::Cell> c(WV), c0(WV);
+  std::vector<sa::Pre> pre(WV);
+  int32_t qs[kStage], hs[kStage], os[kStage];
+  for (int b = 0; b < B; ++b) {
+    const int32_t n1 = n1v[b];
+    const int32_t n2 = n2v[b];
+    if (n2 <= 0) continue;
+    const int n_tiles = (n2 + WV - 1) / WV;
+    const int32_t* q = query + static_cast<size_t>(b) * L1;
+    int32_t* bM = bnd + static_cast<size_t>(b) * 3 * nrow;
+    int32_t* bD = bM + nrow;
+    int32_t* bH = bD + nrow;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int x0 = t * WV + 1;
+      const bool last = t == n_tiles - 1;
+      const int gcap = n2 - x0 + n1;
+      const int g_end = last ? gcap + 1 : n1 + WV;
+      for (int l = 0; l < WV; ++l) {
+        c[l] = sa::cell_init();
+        const int x = x0 + l;
+        c[l].s2v = x <= n2 ? db[static_cast<size_t>(b) * L2 + x - 1] : 0;
+      }
+      for (int g = 0; g < g_end; ++g) {
+        const int gc = g % kStage;
+        if (gc == 0) {
+          for (int i = 0; i < kStage; ++i) {
+            sa::tile_stage_row(t, g + i, n1, L1, q, bM, bD, bH, COMPAT, sc,
+                               qs[i], hs[i], os[i]);
+          }
+        }
+        for (int l = 0; l < WV; ++l) {
+          pre[l] = sa::stream_pre<sa::kDirsNone>(c[l], sc);
+        }
+        c0 = c;
+        for (int l = WV - 1; l >= 0; --l) {
+          if (l == 0) {
+            sa::tile_cell<COMPAT, WILDCARD>(c[0], pre[0].t0, hs[gc], os[gc],
+                                            qs[gc], g == 0, x0, sc);
+          } else {
+            sa::tile_cell<COMPAT, WILDCARD>(c[l], pre[l].t0, c0[l - 1].H2,
+                                            pre[l - 1].dsel, c0[l - 1].s1d,
+                                            l == g, x0 + l, sc);
+          }
+        }
+        if (g == gcap) {
+          const sa::Cell& cc = c[n2 - x0];
+          finals[static_cast<size_t>(b) * 3 + 0] = cc.M1;
+          finals[static_cast<size_t>(b) * 3 + 1] = cc.I1;
+          finals[static_cast<size_t>(b) * 3 + 2] = cc.D1;
+        }
+        if (!last && g >= WV - 1) {
+          const int y = g - WV + 1;
+          bM[y] = c[WV - 1].M1;
+          bD[y] = c[WV - 1].D1;
+          bH[y] = c[WV - 1].H1;
+        }
+      }
+    }
+  }
+}
+
+typedef void (*HostTiled)(const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, int32_t*, int32_t*, int, int, int,
+                          const sa::Scheme&, const sa::Split&);
+
+}  // namespace
+
+// sa_tiled_fill (fold 1, tiles of cta_lanes lanes) and sa_tiled_fold_fill
+// (fold 2-8 CTAs of cta_lanes lanes a tile): finals (B, 3) zeroed by the
+// caller, bnd (B, 3, L1 + 1) scratch.
+extern "C" int hc_tiled_fill(const int32_t* query, const int32_t* db,
+                             const int32_t* n1v, const int32_t* n2v,
+                             int32_t* finals, int32_t* bnd, int B, int L1,
+                             int L2, int match, int mismatch, int gap_open,
+                             int gap_extend, int compat, int wildcard,
+                             int fold, int cta_lanes) {
+  if (fold < 1 || fold > 8 || cta_lanes > 4096) return -1;
+  const sa::Split sp = sa::plan_split(fold * cta_lanes, cta_lanes);
+  if (sp.nctas != fold || B <= 0 || L1 <= 0 || L2 <= 0) return -1;
+  HostTiled fn;
+  if (compat) {
+    fn = wildcard ? tiled_host<true, true> : tiled_host<true, false>;
+  } else {
+    fn = wildcard ? tiled_host<false, true> : tiled_host<false, false>;
+  }
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  fn(query, db, n1v, n2v, finals, bnd, B, L1, L2, sc, sp);
   return 0;
 }

@@ -12,43 +12,55 @@
 // aidx & 7 of word dirs[aidx >> 3, b, l], full byte aidx & 3 of word
 // dirs[aidx >> 2, b, l]; ceil(2 n_iters / upack) words.
 //
-// Design: one thread block per pair, LPT consecutive lanes a thread in
-// registers (2 for the 256-lane band of the main shape: 128 threads; 16 for
-// the widest, 8192 lanes, whose state spills past the 128 registers a
-// thread of a 512-thread block).  The lane shift alternates direction with
-// the wavefront parity: shift_lanes
-// (x-1 -> x) on even wavefronts, shift_down (x+1 -> x) on odd ones, both in
-// lane_shift.cuh, one __syncthreads() a wavefront; within a thread the
+// Design: up to 8192 lanes one thread block per pair, LPT consecutive lanes
+// a thread in registers (2 for the 256-lane band of the main shape: 128
+// threads; 16 for 8192 lanes, whose state spills past the 128 registers a
+// thread of a 512-thread block).  Past 8192 lanes (or at a forced CTA width)
+// a pair's band is split over a thread-block cluster as the streamed fills'
+// rows are (cluster_split.cuh: CTAs of 4096 lanes, 8192 past 32768, at most
+// 16, so up to 131072 lanes).  The lane shift alternates direction with the
+// wavefront parity: shift_lanes (x-1 -> x) on even wavefronts, shift_down
+// (x+1 -> x) on odd ones, both in lane_shift.cuh, one barrier a wavefront;
+// across CTA edges an even wavefront's first lane reads the previous CTA's
+// last lane and an odd wavefront's last lane the next CTA's first lane
+// through distributed shared memory, one cluster barrier a wavefront, with no
+// torus wrap (the band's edge lanes are masked).  Within a thread the
 // neighbours are registers, read before any lane moves.  Entering characters
-// are staged in shared memory 128 iterations at a time.  Each thread packs 8
-// (fast4) or 4 (full) wavefronts of its lanes in registers and stores them
-// as one coalesced 8- or 16-byte store.  The TPU kernel's steady-state
-// variant (no boundary selects past the x = 0 / y = 0 cells) and its
-// masked lane-reduce gather of the characters have no counterpart here.
+// are staged in shared memory 128 iterations at a time, by every CTA.  Each
+// thread packs 8 (fast4) or 4 (full) wavefronts of its lanes in registers and
+// stores them as one coalesced 8- or 16-byte store into its CTA's lane slice
+// of the (Aw, B, L) dirs.  The TPU kernel's steady-state variant (no boundary
+// selects past the x = 0 / y = 0 cells) and its masked lane-reduce gather of
+// the characters have no counterpart here.
 //
 // What bounds it on this card: the integer ALU work of the recurrence and
 // its masks (~45 operations a lane-step, all lanes of the band on every
-// wavefront) and the per-wavefront block barrier; the direction stores
-// (0.5 B a lane-step in fast4, 1 B in full) are a few percent of HBM time.
+// wavefront) and the per-wavefront block (or cluster) barrier; the direction
+// stores (0.5 B a lane-step in fast4, 1 B in full) are a few percent of HBM
+// time.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "cluster_split.cuh"
 #include "lane_shift.cuh"
 #include "nw_banded_diag.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kCharChunk = 128;  // iterations of entering chars staged
-constexpr int kMaxThreads = 512;
 
 // s1w0/s2w0: (B, L) int32 windows; c1s/c2s: (B, n_iters) int32 entering
 // characters; n1v/n2v: (B,) lengths; finals: (B, 3) int32, zeroed by the
 // caller; dirs: (W, B, L) u32.  lim1/lim0: the last lane inside the
-// effective band on odd / even wavefronts.
-template <int LPT, int DIRS, bool WILDCARD, bool STD>
-__global__ void __launch_bounds__(kMaxThreads)
+// effective band on odd / even wavefronts.  sp: the band's split
+// (cluster_split.cuh); CLUSTER: block b holds CTA b % nctas of pair
+// b / nctas, else one block holds a pair (sp unused).
+template <int LPT, int DIRS, bool WILDCARD, bool STD, bool CLUSTER>
+__global__ void __launch_bounds__(sa::kMaxThreads)
     banded_fill_kernel(const int32_t* __restrict__ s1w0,
                        const int32_t* __restrict__ s2w0,
                        const int32_t* __restrict__ c1s,
@@ -58,17 +70,30 @@ __global__ void __launch_bounds__(kMaxThreads)
                        int32_t* __restrict__ finals,
                        uint32_t* __restrict__ dirs, int B, int L,
                        int n_iters, int he, int lim1, int lim0, int compat,
-                       sa::Scheme sc) {
+                       sa::Scheme sc, sa::Split sp) {
   constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;  // wavefronts a word
   __shared__ int32_t cs1[kCharChunk];
   __shared__ int32_t cs2[kCharChunk];
   __shared__ sa::ShiftSmem sm;
 
-  const int b = blockIdx.x;
+  int b = blockIdx.x;
+  int rank = 0;
+  // The neighbouring CTAs' shared memory (this CTA's own at the band's ends
+  // and for a pair held by one block).
+  const sa::ShiftSmem* prev = &sm;
+  const sa::ShiftSmem* next = &sm;
+  if constexpr (CLUSTER) {
+    cg::cluster_group cl = cg::this_cluster();
+    rank = static_cast<int>(cl.block_rank());
+    b = blockIdx.x / sp.nctas;
+    if (rank > 0) prev = cl.map_shared_rank(&sm, rank - 1);
+    if (rank + 1 < sp.nctas) next = cl.map_shared_rank(&sm, rank + 1);
+  }
   const int j = threadIdx.x;
-  const int nreal = L / LPT;  // threads at or past nreal own no real lane
+  // Threads at or past nreal own no real lane.
+  const int nreal = CLUSTER ? sa::cta_real_lanes(rank, sp, L) / LPT : L / LPT;
   const bool real = j < nreal;
-  const int base = j * LPT;
+  const int base = (CLUSTER ? sa::cta_first_lane(rank, sp) : 0) + j * LPT;
   const int32_t n1 = n1v[b];
   const int32_t n2 = n2v[b];
   const bool cmp = compat != 0;
@@ -94,7 +119,11 @@ __global__ void __launch_bounds__(kMaxThreads)
       int32_t h = sa::band_open<STD>(c[0], sc);
       int32_t g = sa::band_gap_src<PAR>(c[0]);
       int32_t ch = sa::band_char_src<PAR>(c[0]);
-      sa::shift_down(sm, j, a & 1, h, g, ch);
+      if constexpr (CLUSTER) {
+        sa::shift_down_cluster(sm, next, j, nreal, a & 1, h, g, ch);
+      } else {
+        sa::shift_down(sm, j, a & 1, h, g, ch);
+      }
 #pragma unroll
       for (int i = 0; i < LPT - 1; ++i) {
         nb_open[i] = sa::band_open<STD>(c[i + 1], sc);
@@ -109,7 +138,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       int32_t h = sa::band_open<STD>(c[LPT - 1], sc);
       int32_t g = sa::band_gap_src<PAR>(c[LPT - 1]);
       int32_t ch = sa::band_char_src<PAR>(c[LPT - 1]);
-      sa::shift_lanes(sm, &sm, false, j, nreal, a & 1, h, g, ch);
+      sa::shift_lanes(sm, prev, CLUSTER, j, nreal, a & 1, h, g, ch);
 #pragma unroll
       for (int i = 1; i < LPT; ++i) {
         nb_open[i] = sa::band_open<STD>(c[i - 1], sc);
@@ -179,39 +208,41 @@ __global__ void __launch_bounds__(kMaxThreads)
     step(std::integral_constant<int, 1>(), 2 * it + 1, cs1[ic]);
     step(std::integral_constant<int, 0>(), 2 * it + 2, cs2[ic]);
   }
+  // Keep this CTA's shared memory alive until its neighbours have read it.
+  if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
 typedef void (*BandKernel)(const int32_t*, const int32_t*, const int32_t*,
                            const int32_t*, const int32_t*, const int32_t*,
                            int32_t*, uint32_t*, int, int, int, int, int, int,
-                           int, sa::Scheme);
+                           int, sa::Scheme, sa::Split);
 
-template <int LPT, int DIRS, bool STD>
+template <int LPT, int DIRS, bool STD, bool CL>
 BandKernel pick_wild(bool wildcard) {
-  return wildcard ? banded_fill_kernel<LPT, DIRS, true, STD>
-                  : banded_fill_kernel<LPT, DIRS, false, STD>;
+  return wildcard ? banded_fill_kernel<LPT, DIRS, true, STD, CL>
+                  : banded_fill_kernel<LPT, DIRS, false, STD, CL>;
 }
 
 // The reference model takes every dirs mode; std none or fast4.
-template <int LPT>
+template <int LPT, bool CL>
 BandKernel pick(int dirs_mode, bool wildcard, bool std_model) {
   if (std_model) {
     switch (dirs_mode) {
       case sa::kDirsNone:
-        return pick_wild<LPT, sa::kDirsNone, true>(wildcard);
+        return pick_wild<LPT, sa::kDirsNone, true, CL>(wildcard);
       case sa::kDirsFast4:
-        return pick_wild<LPT, sa::kDirsFast4, true>(wildcard);
+        return pick_wild<LPT, sa::kDirsFast4, true, CL>(wildcard);
       default:
         return nullptr;
     }
   }
   switch (dirs_mode) {
     case sa::kDirsNone:
-      return pick_wild<LPT, sa::kDirsNone, false>(wildcard);
+      return pick_wild<LPT, sa::kDirsNone, false, CL>(wildcard);
     case sa::kDirsFast4:
-      return pick_wild<LPT, sa::kDirsFast4, false>(wildcard);
+      return pick_wild<LPT, sa::kDirsFast4, false, CL>(wildcard);
     case sa::kDirsFull:
-      return pick_wild<LPT, sa::kDirsFull, false>(wildcard);
+      return pick_wild<LPT, sa::kDirsFull, false, CL>(wildcard);
     default:
       return nullptr;
   }
@@ -235,8 +266,10 @@ extern "C" int sa_banded_lanes_per_thread(int L) {
 // unused for dirs_mode 0.  he = k_lo_even / 2; lim1/lim0: the last lane of
 // the effective band on odd / even wavefronts.  dirs_mode 0/1/2 (none,
 // fast4, full); std_model != 0: gaps open from H (dirs none or fast4).
-// Returns the cudaGetLastError() of the launch, or -1 for an unsupported
-// shape or mode.
+// cta_lanes: 0 (one block up to 8192 lanes, a cluster past it), or the
+// forced CTA width of the split.  Returns the cudaGetLastError() of the
+// launch, -1 for an unsupported shape or mode, -3 for a cluster the card
+// cannot schedule.
 extern "C" int sa_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
                               const int32_t* c1s, const int32_t* c2s,
                               const int32_t* n1v, const int32_t* n2v,
@@ -244,22 +277,35 @@ extern "C" int sa_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
                               int n_iters, int he, int lim1, int lim0,
                               int match, int mismatch, int gap_open,
                               int gap_extend, int dirs_mode, int compat,
-                              int wildcard, int std_model, void* stream) {
-  const int lpt = sa_banded_lanes_per_thread(L);
-  if (lpt == 0 || B <= 0 || n_iters <= 0) return -1;
+                              int wildcard, int std_model, int cta_lanes,
+                              void* stream) {
+  const sa::Split sp = sa::plan_split(L, cta_lanes);
+  if (sp.nctas == 0 || B <= 0 || n_iters <= 0) return -1;
+  const bool w = wildcard != 0, st = std_model != 0;
   BandKernel fn = nullptr;
-  switch (lpt) {
-    case 2: fn = pick<2>(dirs_mode, wildcard != 0, std_model != 0); break;
-    case 4: fn = pick<4>(dirs_mode, wildcard != 0, std_model != 0); break;
-    case 8: fn = pick<8>(dirs_mode, wildcard != 0, std_model != 0); break;
-    case 16: fn = pick<16>(dirs_mode, wildcard != 0, std_model != 0); break;
+  sa::Split launch = sp;
+  if (sp.nctas == 1) {
+    // One block a pair, at its own lanes a thread.
+    launch.lpt = sa_banded_lanes_per_thread(L);
+    launch.cta_lanes = L;
+    switch (launch.lpt) {
+      case 2: fn = pick<2, false>(dirs_mode, w, st); break;
+      case 4: fn = pick<4, false>(dirs_mode, w, st); break;
+      case 8: fn = pick<8, false>(dirs_mode, w, st); break;
+      case 16: fn = pick<16, false>(dirs_mode, w, st); break;
+    }
+  } else {
+    switch (sp.lpt) {
+      case 4: fn = pick<4, true>(dirs_mode, w, st); break;
+      case 8: fn = pick<8, true>(dirs_mode, w, st); break;
+      case 16: fn = pick<16, true>(dirs_mode, w, st); break;
+    }
   }
   if (fn == nullptr) return -1;
-  const int threads = (L / lpt + 31) / 32 * 32;
   sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  void* args[] = {&s1w0, &s2w0, &c1s, &c2s, &n1v, &n2v,  &finals, &dirs,
-                  &B,    &L,    &n_iters, &he, &lim1, &lim0, &compat, &sc};
-  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(B), dim3(threads),
-                   args, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&s1w0, &s2w0, &c1s,  &c2s,    &n1v, &n2v,
+                  &finals, &dirs, &B,  &L,      &n_iters, &he,
+                  &lim1, &lim0, &compat, &sc,   &launch};
+  return sa::launch_split(reinterpret_cast<const void*>(fn), launch, B, args,
+                          stream);
 }

@@ -13,9 +13,10 @@ Global mode only; the other modes answer with the reference's per-pair
   ops.traceback.banded_diag_traceback_pair (the first co-optimal
   alignment, in the reference's enumeration order).
 
-On CUDA a batch whose band needs more than the kernel's 8192 lanes (a
---band past ~8000, or pairs whose lengths differ by ~16 kb) answers every
-pair with an AlignmentError; the CPU aligns it.
+On CUDA a band past 8192 lanes is split over a thread-block cluster; a
+batch whose band needs more than the cluster's 131072 lanes (a --band past
+~131000, or pairs whose lengths differ by ~250 kb) answers every pair with
+an AlignmentError; the CPU aligns it.
 """
 
 from __future__ import annotations

@@ -151,7 +151,8 @@ def get_aligner(
     config: AlignConfig, device: Union[str, torch.device] = "cuda"
 ) -> Aligner:
     """The aligner for config.algo on ``device``.  Ported: needleman-wunsch
-    (Gotoh) and banded."""
+    (Gotoh: global with its long-pair path, textbook semi-global and local)
+    and banded."""
     from sequencealigning_tpu_torch.models.banded import BandedAligner
     from sequencealigning_tpu_torch.models.gotoh import GotohAligner
 

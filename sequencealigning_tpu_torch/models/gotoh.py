@@ -12,9 +12,14 @@ Semi-global and local: compat mode answers with the reference's per-pair
 (ops.nw_affine_modes), walks the full direction bytes on the device
 (ops.traceback_device.walk_modes) and assembles the alignments.
 
-Not ported yet: long pairs (db beyond long_pair_lanes); the CUDA fills take
-every lane width up to it, splitting a row over a thread-block cluster past
-8192 lanes."""
+Long pairs (db beyond long_pair_lanes, ~49 kb; the CUDA fills take every
+lane width up to it, splitting a row over a thread-block cluster past 8192
+lanes) take the JAX package's long-pair path: exact scores from the tiled
+fill (ops.nw_affine_tiled: kernel #4 for 6 pairs or more, kernel #5 for 1-4
+similar pairs and for serial singles), then a fast4 banded fill
+(ops.nw_banded_diag) with band doubling until each pair's banded score
+equals its exact score, walked on the card (CUDA) or on the host (CPU), and
+Myers-Miller (ops.mm_align) for the pairs that escape the largest band."""
 
 from __future__ import annotations
 
@@ -31,11 +36,14 @@ from sequencealigning_tpu_torch.io.encode import (
     trim_for_stream,
 )
 from sequencealigning_tpu_torch.ops.traceback import (
+    _apply_ops,
+    banded_diag_fast4_traceback_pair,
     fast4_traceback_pair,
     traceback_stream_batch,
 )
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.models.base import Aligner
+from sequencealigning_tpu_torch.ops.mm_align import mm_align, mm_score_ops
 from sequencealigning_tpu_torch.ops.nw_affine_modes import (
     nw_affine_modes_batch,
 )
@@ -45,17 +53,26 @@ from sequencealigning_tpu_torch.ops.nw_affine_stream import (
 from sequencealigning_tpu_torch.ops.nw_affine_stream_modes import (
     nw_affine_stream_modes_batch,
 )
+from sequencealigning_tpu_torch.ops.nw_affine_tiled import (
+    nw_affine_tiled_batch,
+    nw_affine_tiled_fold_batch,
+    nw_affine_tiled_single,
+)
+from sequencealigning_tpu_torch.ops.nw_banded_diag import nw_banded_diag_batch
 from sequencealigning_tpu_torch.ops.traceback_device import (
     assemble_modes_alignments,
+    banded_diag_device_tbs,
     fast4_stream_align_device,
     modes_walk_device,
 )
 
 
 class GotohAligner(Aligner):
-    # Lane width beyond which the reference leaves the streamed fill for its
-    # long-pair path (not ported yet); the JAX package's value.
+    # Lane width beyond which a batch leaves the streamed fill for the
+    # long-pair path (_long_batch); the JAX package's value.
     long_pair_lanes = 49_152
+    # Band-doubling cap of the long-pair alignment search.
+    long_pair_max_band = 4096
     # Pairs from which textbook modes take the streamed engine (the JAX
     # package's threshold); smaller batches take the per-pair one.
     modes_stream_min_pairs = 32
@@ -81,10 +98,7 @@ class GotohAligner(Aligner):
             pack_batch(pairs, batch_size=max(8, -(-len(pairs) // 8) * 8))
         )
         if batch.db.shape[1] + 2 > self.long_pair_lanes:
-            raise NotImplementedError(
-                f"pairs with db longer than {self.long_pair_lanes - 2} bp "
-                "(the long-pair route) are not ported yet; see ROADMAP.md"
-            )
+            return self._long_batch(pairs, batch)
         n_sub = self._dirs_chunks(batch, len(pairs))
         if n_sub > 1:
             # Fill and drain per sub-batch so one direction tensor at a time
@@ -204,6 +218,107 @@ class GotohAligner(Aligner):
             budget = self._dirs_budget()
         total = n_pairs * s * p * per_byte
         return max(1, int(-(-total // budget)))
+
+    def _long_batch(self, pairs: List[Tuple[bytes, bytes]], batch):
+        """Long-pair path (db beyond long_pair_lanes), as the JAX package's
+        GotohAligner._long_batch:
+
+        1. exact corner finals from the tiled fill (score-only, any length):
+           one folded launch for 1-4 similar-sized pairs, serial folded
+           singles for fewer than 6 others, the batched fill otherwise;
+        2. alignments from a fast4 banded fill of the whole batch with band
+           doubling until a pair's banded score equals its exact score (the
+           banded path is then provably optimal), walked on the card on CUDA
+           (a failed walk is that pair's AlignmentError) and on the host on
+           the CPU;
+        3. Myers-Miller (ops.mm_align) for the pairs that escape the
+           largest band (_mm_fallback)."""
+        scheme, compat = self.config.scoring, self.config.compat
+        nb = len(pairs)
+        # The batch's padding rows are no pairs: the fills take the real
+        # rows only (the band plan is the same with or without them).
+        tb = [t[:nb] for t in to_device(batch, self.device)]
+        cells = [max(1, len(a) * len(b)) for a, b in pairs]
+        groups = {1: 1, 2: 2, 3: 4, 4: 4}.get(nb, 8)
+        if nb <= 4 and sum(cells) >= 0.7 * groups * max(cells):
+            # Few similar-sized long pairs: one folded launch; mixed sizes
+            # (sum(cells) << groups * max) take serial folded singles.
+            exact = nw_affine_tiled_fold_batch(*tb, scheme=scheme,
+                                               compat=compat)
+        elif nb < 6:
+            exact = np.stack([
+                nw_affine_tiled_single(s1, s2, scheme=scheme, compat=compat,
+                                       device=self.device)
+                for s1, s2 in pairs
+            ])
+        else:
+            exact = nw_affine_tiled_batch(*tb, scheme=scheme, compat=compat)
+        scores = exact[:nb].max(axis=1)
+        out: List = [None] * nb
+        pending = list(range(nb))
+        band = max(self.config.band, 128)
+        while pending and band <= self.long_pair_max_band:
+            # Every round refills the whole batch: the band plan is the
+            # batch's, and a narrower plan could pick another co-optimal
+            # path.
+            res = nw_banded_diag_batch(*tb, band=band, scheme=scheme,
+                                       compat=compat, with_dirs="fast4")
+            bf = res.finals[:nb]
+            resolved = [b for b in pending
+                        if int(bf[b].max()) == int(scores[b])]
+            pending = [b for b in pending
+                       if int(bf[b].max()) != int(scores[b])]
+            tbs: List = []
+            if resolved and self.device.type == "cuda":
+                tbs = banded_diag_device_tbs(
+                    res.dirs, bf, [pairs[b][0] for b in resolved],
+                    [pairs[b][1] for b in resolved], res.k_lo_even,
+                    compat=compat, pair_idx=np.asarray(resolved, np.int32),
+                )
+            elif resolved:
+                dirs = res.dirs.numpy()
+                for b in resolved:
+                    try:
+                        tbs.append(banded_diag_fast4_traceback_pair(
+                            dirs[:, b, :], bf[b], pairs[b][0], pairs[b][1],
+                            res.k_lo_even, compat=compat,
+                        ))
+                    except AlignerError as e:
+                        tbs.append(e)
+            for b, r in zip(resolved, tbs):
+                if isinstance(r, AlignerError):
+                    out[b] = r
+                    continue
+                score, alns = r
+                out[b] = dict(score=score, aligned_query=alns[0][0],
+                              aligned_db=alns[0][1], alignments=alns)
+            del res
+            band *= 2
+        for b in pending:
+            out[b] = self._mm_fallback(pairs[b], int(scores[b]))
+        return out
+
+    def _mm_fallback(self, pair, exact_score: int):
+        """Myers-Miller on the aligner's device.  Its standard-model
+        alignment is rescored (compat: plus the leading gap chain's extra
+        extension) and kept only if it reaches the exact score; otherwise
+        the exact score with the alignment explicitly absent."""
+        s1, s2 = pair
+        scheme = self.config.scoring
+        try:
+            ops = mm_align(s1, s2, scheme, device=self.device)
+            got = mm_score_ops(ops, s1, s2, scheme)
+            if self.config.compat and ops and ops[0] in "ID":
+                # compat scores the leading gap chain o+(L+1)e: one extra
+                # extension (needleman_wunsch_affine.rs:195,207).
+                got += scheme.gap_extend
+            if got == exact_score:
+                a1, a2 = _apply_ops(ops, s1, s2)
+                return dict(score=exact_score, aligned_query=a1,
+                            aligned_db=a2)
+        except AlignerError:
+            pass
+        return dict(score=exact_score, aligned_query=None, aligned_db=None)
 
     def _modes_batch(self, pairs: List[Tuple[bytes, bytes]]):
         """Textbook semi-global / local: fill, device walk, assembly (as

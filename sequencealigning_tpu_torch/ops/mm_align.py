@@ -1,0 +1,286 @@
+"""Myers-Miller divide-and-conquer alignment: exact affine-gap ops strings in
+O(n1 + n2) memory for pairs of any length (the port of ops/mm_align.py).
+
+The long-pair path's fallback when the optimum escapes every band
+(models.gotoh._long_batch): the classic Myers-Miller (1988) recursion over
+the split row.  The linear-memory score rows are a row sweep in torch ops on
+the aligner's device -- the in-row D chain linearised to a prefix maximum
+(``torch.cummax``) -- launched once a row; subproblems address the whole
+forward and reversed sequences on the device by offset, and the row width is
+bucketed to powers of two, as in the JAX package.  Subproblems below
+``_DIRECT_CELLS`` cells are solved directly on the host (numpy, the JAX
+package's code).
+
+Conventions (ops.traceback._apply_ops): ops over {'M': consume query+db,
+'I': consume query (gap in db), 'D': consume db (gap in query)}.  The state
+that crosses a horizontal split row is an 'I' run; ``tb``/``te`` are the
+gap-open costs at a subproblem's top/bottom boundary (0 when a crossing run
+is already open -- the Myers-Miller boundary subsidy).
+
+Scoring model: the standard affine-gap model (a gap of length L costs
+o + L*e, gaps open from any state), a relaxation of the reference's M-only
+opens; models.gotoh rescores the result and keeps it only when it reaches
+the engine-exact score.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.io.encode import encode_seq
+
+NEG = NEG_INF
+
+
+def _pow2(x: int, lo: int = 128) -> int:
+    n = lo
+    while n < x:
+        n *= 2
+    return n
+
+
+def rows_torch(q_ext: torch.Tensor, d_ext: torch.Tensor, q_off: int, m: int,
+               d_off: int, n_pad: int, tb: int,
+               scheme: ScoringScheme):
+    """Forward score rows over a subproblem given by offsets (the torch twin
+    of ops/mm_align.py::_rows_fn): (CC, DD), each (n_pad + 1,) int32, the H
+    and I values after m query rows (column j = db codes consumed).
+    q_ext/d_ext: the whole padded sequences, 1-D int32 on the rows' device
+    (d_ext left-padded by one, so the window lands on d[d_off + j - 1])."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    W = n_pad + 1
+    dev = q_ext.device
+    jv = torch.arange(W, dtype=torch.int32, device=dev)
+    lane0 = jv == 0
+    je = jv * e
+    dsh = d_ext[d_off: d_off + W]
+    mat, mis = (torch.tensor(v, dtype=torch.int32, device=dev)
+                for v in (scheme.match_, scheme.mismatch))
+    CC = torch.where(lane0, 0, o + je).to(torch.int32)
+    DD = torch.full((W,), NEG, dtype=torch.int32, device=dev)
+    for i in range(1, m + 1):
+        qc = q_ext[q_off + i - 1]
+        sub = torch.where(dsh == qc, mat, mis)
+        # I (the crossing state): same column, previous row; gaps open from
+        # H (the standard model).
+        DDn = torch.maximum(CC + o, DD) + e
+        chain = tb + i * e
+        DDn[0] = chain
+        # M from the previous row's H, shifted.
+        Mrow = F.pad(CC[:-1], (1, 0), value=NEG) + sub
+        Mrow[0] = NEG
+        Bv = torch.maximum(Mrow, DDn)
+        Bv[0] = chain
+        # In-row D chain: E[j] = max(c[j], E[j-1] + e) with
+        # c[j] = B[j-1] + o + e, linearised by a prefix maximum.
+        c = F.pad(Bv[:-1] + (o + e), (1, 0), value=NEG)
+        E = torch.cummax(c - je, dim=0).values + je
+        CC = torch.maximum(Bv, E)
+        CC[0] = chain
+        DD = DDn
+    return CC, DD
+
+
+class _Seqs:
+    """The forward and reversed sequence arrays of one mm_align problem on
+    one device (one upload; subproblems address them by offset)."""
+
+    def __init__(self, q_codes: np.ndarray, d_codes: np.ndarray,
+                 scheme: ScoringScheme, device):
+        self.scheme = scheme
+        self.m0 = len(q_codes)
+        self.n0 = len(d_codes)
+        self.n_pad_max = _pow2(self.n0 + 1)
+        lq = self.m0 + 8
+        ld = self.n0 + self.n_pad_max + 2
+        qf = np.full(lq, -2, np.int32)
+        qf[: self.m0] = q_codes
+        qr = np.full(lq, -2, np.int32)
+        qr[: self.m0] = q_codes[::-1]
+        df = np.full(ld, -3, np.int32)
+        df[1: 1 + self.n0] = d_codes  # left pad of one for the window
+        dr = np.full(ld, -3, np.int32)
+        dr[1: 1 + self.n0] = d_codes[::-1]
+        self.qf, self.qr, self.df, self.dr = (
+            torch.from_numpy(a).to(device) for a in (qf, qr, df, dr))
+
+    def rows(self, reverse: bool, q_off: int, m: int, d_off: int, n: int,
+             tb: int):
+        """(CC, DD) numpy rows (n+1,).  With reverse=True the offsets index
+        the reversed arrays (the caller maps coordinates)."""
+        q = self.qr if reverse else self.qf
+        d = self.dr if reverse else self.df
+        CC, DD = rows_torch(q, d, q_off, m, d_off, _pow2(n + 1), tb,
+                            self.scheme)
+        return (CC[: n + 1].cpu().numpy().astype(np.int64),
+                DD[: n + 1].cpu().numpy().astype(np.int64))
+
+
+# Subproblems below this cell count solve directly (vectorized numpy DP +
+# traceback): the recursion is launch-bound otherwise (two row sweeps per
+# node, O(m) nodes).
+_DIRECT_CELLS = 1 << 20
+
+
+def _direct_ops(q, d, tb: int, te: int, scheme: ScoringScheme) -> str:
+    """Full-DP solve of a small subproblem under the standard affine model
+    with boundary-subsidized pure-I prefix (tb) / suffix (te) runs.
+    Returns the forward ops string."""
+    m, n = len(q), len(d)
+    o, e = scheme.gap_open, scheme.gap_extend
+    mat, mis = scheme.match_, scheme.mismatch
+    jv = np.arange(n + 1)
+    CC = np.where(jv == 0, 0, o + jv * e).astype(np.int64)
+    DD = np.full(n + 1, NEG, np.int64)
+    # Per-cell walk info, row-major (m+1, n+1): bits 0-1 H-plane code
+    # (0=M, 1=I, 2=E), bit 2 I-extend, bit 3 E-extend.
+    dirs = np.zeros((m + 1, n + 1), np.uint8)
+    last_col = np.empty(m + 1, np.int64)
+    last_col[0] = CC[n]
+    sub_eq = np.not_equal.outer(q, d)  # (m, n) True where mismatch
+    for i in range(1, m + 1):
+        iopen = CC + o
+        DDn = np.maximum(iopen, DD) + e
+        iext = (DD >= iopen).astype(np.uint8) << 2
+        chain = tb + i * e
+        DDn[0] = chain
+        sub = np.where(sub_eq[i - 1], mis, mat)
+        Mrow = np.concatenate(([NEG], CC[:-1] + sub))
+        B = np.maximum(Mrow, DDn)
+        B[0] = chain
+        # E[j] = max(B[j-1] + o + e, E[j-1] + e), linearized by prefix max.
+        c = np.concatenate(([NEG], B[:-1] + o + e))
+        E = np.maximum.accumulate(c - jv * e) + jv * e
+        CCn = np.maximum(B, E)
+        CCn[0] = chain
+        b = np.where(Mrow >= CCn, 0, np.where(DDn >= CCn, 1, 2)).astype(
+            np.uint8
+        )
+        b |= iext
+        # E-extend: the prefix max did NOT restart at j (E != c).
+        b |= ((E != c).astype(np.uint8)) << 3
+        dirs[i] = b
+        CC, DD = CCn, DDn
+        last_col[i] = CCn[n]
+    # Trailing pure-I run (te-subsidized): ends the alignment at column n.
+    trail_i = -1
+    best = CC[n]
+    for i in range(m):
+        s = last_col[i] + te + (m - i) * e
+        if s > best:
+            best = s
+            trail_i = i
+    ops: List[str] = []
+    i, j = (trail_i, n) if trail_i >= 0 else (m, n)
+    if trail_i >= 0:
+        ops.append("I" * (m - trail_i))
+    state = "H"
+    while i > 0 or j > 0:
+        if i == 0:
+            ops.append("D" * j)
+            break
+        if j == 0:
+            ops.append("I" * i)
+            break
+        b = int(dirs[i][j])
+        if state == "H":
+            state = ("M", "I", "E")[b & 3]
+        elif state == "M":
+            ops.append("M")
+            i -= 1
+            j -= 1
+            state = "H"
+        elif state == "I":
+            ops.append("I")
+            state = "I" if (b & 4) else "H"
+            i -= 1
+        else:  # E
+            ops.append("D")
+            state = "E" if (b & 8) else "H"
+            j -= 1
+    return "".join(reversed("".join(ops)))
+
+
+def _diff(sq: _Seqs, q_codes, d_codes, qa: int, qb: int, da: int, db_: int,
+          tb: int, te: int, ops: List[str]):
+    """Myers-Miller recursion on q[qa:qb] x d[da:db_]; appends ops."""
+    scheme = sq.scheme
+    m = qb - qa
+    n = db_ - da
+    o = scheme.gap_open
+    if m == 0:
+        ops.append("D" * n)
+        return
+    if n == 0:
+        ops.append("I" * m)
+        return
+    if m == 1 or m * n <= _DIRECT_CELLS:
+        ops.append(
+            _direct_ops(q_codes[qa:qb], d_codes[da:db_], tb, te, scheme)
+        )
+        return
+    mid = m // 2
+    CC, DD = sq.rows(False, qa, mid, da, n, tb)
+    # Backward: reversed-array offsets.  q[qa+mid:qb] reversed starts at
+    # m0 - qb; d[da:db_] reversed starts at n0 - db_.
+    RR, SS = sq.rows(True, sq.m0 - qb, m - mid, sq.n0 - db_, n, te)
+    type1 = CC + RR[::-1]
+    type2 = DD + SS[::-1] - o
+    j1 = int(np.argmax(type1))
+    j2 = int(np.argmax(type2))
+    if type1[j1] >= type2[j2]:
+        _diff(sq, q_codes, d_codes, qa, qa + mid, da, da + j1, tb, o, ops)
+        _diff(sq, q_codes, d_codes, qa + mid, qb, da + j1, db_, o, te, ops)
+    else:
+        _diff(sq, q_codes, d_codes, qa, qa + mid - 1, da, da + j2, tb, 0, ops)
+        ops.append("II")
+        _diff(sq, q_codes, d_codes, qa + mid + 1, qb, da + j2, db_, 0, te, ops)
+
+
+def mm_align(
+    query: bytes,
+    db: bytes,
+    scheme: ScoringScheme = ScoringScheme(),
+    device="cuda",
+) -> str:
+    """Exact textbook affine-gap global alignment of one pair, any length,
+    O(n1 + n2) memory, its score rows on ``device``.  Returns the forward
+    ops string."""
+    q = np.asarray(encode_seq(query), np.int32)
+    d = np.asarray(encode_seq(db), np.int32)
+    if len(q) == 0:
+        return "D" * len(d)
+    if len(d) == 0:
+        return "I" * len(q)
+    sq = _Seqs(q, d, scheme, device)
+    ops: List[str] = []
+    _diff(sq, q, d, 0, len(q), 0, len(d), scheme.gap_open, scheme.gap_open,
+          ops)
+    return "".join(ops)
+
+
+def mm_score_ops(ops: str, query: bytes, db: bytes,
+                 scheme: ScoringScheme) -> int:
+    """Textbook rescore of an ops string (validation helper)."""
+    s = 0
+    qi = di = 0
+    prev = None
+    for c in ops:
+        if c == "M":
+            s += scheme.match_ if query[qi] == db[di] else scheme.mismatch
+            qi += 1
+            di += 1
+        elif c == "I":
+            s += scheme.gap_extend + (scheme.gap_open if prev != "I" else 0)
+            qi += 1
+        else:
+            s += scheme.gap_extend + (scheme.gap_open if prev != "D" else 0)
+            di += 1
+        prev = c
+    assert qi == len(query) and di == len(db), (qi, di)
+    return s

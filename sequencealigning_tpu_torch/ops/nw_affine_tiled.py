@@ -1,0 +1,604 @@
+"""Tiled affine-gap NW (Gotoh) fill for pairs of any length: the port of
+ops/nw_affine_tiled.py.
+
+The DP matrix is cut into tiles of W lanes along the db (x) axis; each tile
+is swept anti-diagonal by anti-diagonal (lane l holds x = x0 + l, step g
+holds y = g - l) with the merged-roll Gotoh recurrence, and the only
+coupling between consecutive tiles is the boundary column at the tile edge
+-- M/D/H at x = x0 - 1 for every query position y, O(n1) values a pair:
+
+  * lane 0 reads the carried column: M(x0, y) = H_b(y-1) + sub,
+    D(x0, y) = max(M_b(y) + o, D_b(y)) + e;
+  * lane l == g is cell (x, 0): the x-chain boundary (compat keeps it in
+    the I plane with one extra extension, textbook in D);
+  * lane W-1's M/D/H are emitted every step as the next tile's column.
+
+Score-only: each pair's M/I/D corner finals at (n2, n1).  They are the
+exact Gotoh corner values whatever the tiling, so the CUDA kernels choose
+their own tile widths; the plain versions follow the JAX package's lax
+layout at ``tile_lanes`` so the tests compare like with like.
+
+Implementations, chosen by the tensors' device:
+
+* ``tiled_fill_torch`` / ``tiled_fold_fill_torch`` -- plain PyTorch, the
+  twins of _jitted_tiled / _jitted_tiled_folded over _tile_fill_lax /
+  _tile_fill_folded_lax (CPU tensors, and the references the kernels are
+  checked against);
+* ``gotoh_finals_rows_torch`` -- plain PyTorch, the same finals by a row
+  sweep in the reference fill's order: the kernels' plain check at 100 kb,
+  where the lax-layout twins take too many steps;
+* ``tiled_fill_cuda`` -- kernel #4 (``csrc/nw_affine_tiled.cu``,
+  sa_tiled_fill): one CTA a pair, every tile in one launch;
+* ``tiled_fold_fill_cuda`` -- kernel #5 (sa_tiled_fold_fill): a cluster of
+  ``fold`` CTAs a pair, the Hopper counterpart of the TPU kernel's sublane
+  fold for 1-4 long pairs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sequencealigning_tpu_torch import csrc
+from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.device import to_device
+from sequencealigning_tpu_torch.io.encode import pack_batch
+from sequencealigning_tpu_torch.io.encode import round_up as _round_up
+from sequencealigning_tpu_torch.ops.nw_affine import _bit, _roll
+
+# The widest CTA the CUDA kernels take (512 threads x 8 lanes).
+CUDA_TILE_LANES = 4096
+
+# The plain fills round a tile's steps up to this, as the lax layout does.
+_CHUNK = 128
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch fill (the lax layout)
+# ---------------------------------------------------------------------------
+
+
+def _col0_vals(x0: int, col_iota, scheme: ScoringScheme, compat: bool):
+    """(M, I, D) at cells (x = x0 + lane, y = 0); x >= 1 always."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    xg = x0 + col_iota
+    if compat:
+        return NEG_INF, o + (xg + 1) * e, NEG_INF
+    return NEG_INF, NEG_INF, o + xg * e
+
+
+def tile_step_torch(H2, H1, M1, I1, D1, s1d, qc, hb1, mb, db_, g: int, s2v,
+                    col_iota, lane_0, col0_m, col0_i, col0_d,
+                    scheme: ScoringScheme, wildcard: bool, roll=_roll):
+    """One anti-diagonal step of a tile, the twin of
+    ops/nw_affine_tiled.py::_tile_step.  qc/hb1/mb/db_: (B, 1) this step's
+    query code y-1 and boundary H(y-1), M(y), D(y) at x0-1; col0_*: the
+    lanes' x-chain values.  Returns (M, I, D, H, s1d_new)."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    s1d_n = torch.where(lane_0, qc, roll(s1d))
+    eq = (s1d_n & s2v) != 0 if wildcard else s1d_n == s2v
+    sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
+    t0 = M1 + o
+    M = roll(H2) + sub
+    D = roll(torch.maximum(t0, D1)) + e
+    I = torch.maximum(t0, I1) + e
+    # Lane 0: the carried boundary column replaces the rolled-in values.
+    M = torch.where(lane_0, hb1 + sub, M)
+    D = torch.where(lane_0, torch.maximum(mb + o, db_) + e, D)
+    # Lane l == g is cell (x, 0): the x-chain boundary.
+    lane_g = col_iota == g
+    M = torch.where(lane_g, col0_m, M)
+    I = torch.where(lane_g, col0_i, I)
+    D = torch.where(lane_g, col0_d, D)
+    H = torch.maximum(M, torch.maximum(I, D))
+    return M, I, D, H, s1d_n
+
+
+def tile_fill_torch(db_tile, qs, hb1s, mbs, dbs, n1v, n2v, x0: int,
+                    ngc: int, scheme: ScoringScheme, compat: bool,
+                    wildcard: bool):
+    """Fill one tile, the twin of _tile_fill_lax.  db_tile: (B, W) lane
+    codes; qs/hb1s/mbs/dbs: (B, ngc) per-step columns; n1v/n2v: (B,)
+    lengths.  Returns (finals (B, 3) of the pairs whose corner lies in this
+    tile, else 0; br_m, br_d, br_h (B, ngc) lane W-1's emissions by step)."""
+    B, W = db_tile.shape
+    dev = db_tile.device
+    i32 = torch.int32
+    col_iota = torch.arange(W, dtype=i32, device=dev)[None, :].expand(B, W)
+    lane_0 = col_iota == 0
+    c_m, c_i, c_d = _col0_vals(x0, col_iota, scheme, compat)
+    neg = torch.full((B, W), NEG_INF, dtype=i32, device=dev)
+    H2 = H1 = M1 = I1 = D1 = neg
+    s1d = torch.zeros((B, W), dtype=i32, device=dev)
+    # The capture schedule: step -> (rows, lanes); each pair's corner is
+    # cell (n2, n1), at lane n2 - x0 and step n2 - x0 + n1 of one tile.
+    lcap = n2v.cpu().numpy().astype(np.int64) - x0
+    gcap = lcap + n1v.cpu().numpy().astype(np.int64)
+    events: dict = {}
+    for r in range(B):
+        if 0 <= lcap[r] < W and gcap[r] < ngc:
+            events.setdefault(int(gcap[r]), []).append((r, int(lcap[r])))
+    finals = torch.zeros((B, 3), dtype=i32, device=dev)
+    br = torch.empty((3, B, ngc), dtype=i32, device=dev)
+    for g in range(ngc):
+        M, I, D, H, s1d = tile_step_torch(
+            H2, H1, M1, I1, D1, s1d, qs[:, g:g + 1], hb1s[:, g:g + 1],
+            mbs[:, g:g + 1], dbs[:, g:g + 1], g, db_tile, col_iota, lane_0,
+            c_m, c_i, c_d, scheme, wildcard,
+        )
+        for r, lane in events.get(g, ()):
+            finals[r] = torch.stack([M[r, lane], I[r, lane], D[r, lane]])
+        br[0, :, g] = M[:, -1]
+        br[1, :, g] = D[:, -1]
+        br[2, :, g] = H[:, -1]
+        H2, H1, M1, I1, D1 = H1, H, M, I, D
+    return finals, br[0], br[1], br[2]
+
+
+def _boundary0(B: int, ngc: int, scheme: ScoringScheme, compat: bool,
+               device):
+    """The closed-form x = 0 boundary column (tile 0's left edge) as the
+    three (B, ngc) step-indexed arrays (hb1 pre-shifted by one), as
+    ops/nw_affine_tiled.py::_boundary0."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    y = torch.arange(ngc, dtype=torch.int32, device=device)[None, :].expand(
+        B, ngc)
+    m_b = torch.where(y == 0, 0, NEG_INF)
+    if compat:
+        d_b = torch.where(y == 0, NEG_INF, o + (y + 1) * e)
+        h_b = torch.where(y == 0, 0, o + (y + 1) * e)
+    else:
+        d_b = torch.full_like(y, NEG_INF)
+        h_b = torch.where(y == 0, 0, o + y * e)
+    hb1 = F.pad(h_b[:, :-1], (1, 0), value=NEG_INF)
+    return (t.to(torch.int32) for t in (hb1, m_b, d_b))
+
+
+def _query_steps(query, ngc: int):
+    """qs[:, g] = query[:, g-1] (0 at g = 0 and past the query), (B, ngc)."""
+    qs = F.pad(query.to(torch.int32),
+               (1, max(0, ngc - 1 - query.shape[1])))
+    return qs[:, :ngc].contiguous()
+
+
+def _next_column(brm, brd, brh, w: int, ngc: int):
+    """Re-index lane W-1's emissions (by step g) to y for the next tile:
+    the value at y sits at g = y + W - 1; hb1 needs y - 1."""
+    pad = lambda a: F.pad(a, (0, w))  # noqa: E731
+    return (pad(brh)[:, w - 2: w - 2 + ngc], pad(brm)[:, w - 1: w - 1 + ngc],
+            pad(brd)[:, w - 1: w - 1 + ngc])
+
+
+def _empty_db_corners(finals: torch.Tensor, n1v, n2v,
+                      scheme: ScoringScheme, compat: bool) -> torch.Tensor:
+    """Pairs with n2 == 0 never reach a tile lane: their corner (0, n1) is
+    the x = 0 boundary column in closed form."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    n1s = n1v.cpu().numpy()
+    for b, n2 in enumerate(n2v.cpu().numpy()):
+        if int(n2) != 0:
+            continue
+        n1 = int(n1s[b])
+        if n1 == 0:
+            vals = (0, NEG_INF, NEG_INF)
+        elif compat:
+            vals = (NEG_INF, NEG_INF, o + (n1 + 1) * e)
+        else:
+            vals = (NEG_INF, o + n1 * e, NEG_INF)
+        finals[b] = torch.tensor(vals, dtype=torch.int32)
+    return finals
+
+
+def tiled_fill_torch(query, db, n1v, n2v, scheme: ScoringScheme,
+                     compat: bool, wildcard: bool,
+                     tile_lanes: int = 4096) -> torch.Tensor:
+    """Plain PyTorch twin of nw_affine_tiled_batch's fill (lax layout):
+    the batch padded to a multiple of 8 (pad rows of length 1), tiles of W
+    = round_up(min(tile_lanes, max(L2, 128)), 128) lanes, ngc = n1p + W
+    steps a tile.  query: (B, L1), db: (B, L2) int32 codes; n1v/n2v: (B,)
+    int32.  Returns the (B, 3) int32 corner finals."""
+    B, L1 = query.shape
+    L2 = db.shape[1]
+    dev = query.device
+    W = _round_up(min(tile_lanes, max(L2, 128)), 128)
+    T = max(1, -(-L2 // W))
+    Bp = _round_up(max(B, 8), 8)
+    ngc = _round_up(L1 + 1, _CHUNK) + W
+    q = torch.zeros((Bp, L1), dtype=torch.int32, device=dev)
+    q[:B] = query
+    d_all = torch.zeros((Bp, T * W), dtype=torch.int32, device=dev)
+    d_all[:B, :L2] = db
+    qlen = torch.ones(Bp, dtype=torch.int32, device=dev)
+    dlen = torch.ones(Bp, dtype=torch.int32, device=dev)
+    qlen[:B] = n1v
+    dlen[:B] = n2v
+    qs = _query_steps(q, ngc)
+    hb1, mb, db_b = _boundary0(Bp, ngc, scheme, compat, dev)
+    finals = torch.zeros((Bp, 3), dtype=torch.int32, device=dev)
+    for t in range(T):
+        f_t, brm, brd, brh = tile_fill_torch(
+            d_all[:, t * W:(t + 1) * W], qs, hb1, mb, db_b, qlen, dlen,
+            t * W + 1, ngc, scheme, compat, wildcard,
+        )
+        finals += f_t
+        hb1, mb, db_b = _next_column(brm, brd, brh, W, ngc)
+    return _empty_db_corners(finals[:B], n1v, n2v, scheme, compat)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch folded fill (the lax layout: 8 rows, `fold` rows a pair)
+# ---------------------------------------------------------------------------
+
+
+def _shift_x(a, lane_0):
+    """The x-1 neighbour of every (row s, lane l): lane l-1 within the row,
+    lane W-1 of row s-1 across the seam (as ops/nw_affine_tiled.py::
+    _shift_x; (0, 0)'s wrapped value is overridden by the carried
+    column)."""
+    up = torch.roll(a, 1, dims=0)
+    return torch.where(lane_0, up[:, -1:], _roll(a))
+
+
+def folded_step_torch(H2, H1, M1, I1, D1, qw, qc, hb1, mb, db_, g: int, s2v,
+                      lane_iota, sub_off, s0l0, lane_0, x0: int,
+                      scheme: ScoringScheme, compat: bool, wildcard: bool):
+    """One anti-diagonal step of the folded tile (shapes (8, W)), the twin
+    of ops/nw_affine_tiled.py::_folded_step.  qc/hb1/mb/db_: (8, 1) this
+    step's columns; sub_off = (row % fold) * W.  Returns (M, I, D, H,
+    qw_new)."""
+    o, e = scheme.gap_open, scheme.gap_extend
+    sx = lambda a: _shift_x(a, lane_0)  # noqa: E731
+    qw_n = torch.where(s0l0, qc, sx(qw))
+    eq = (qw_n & s2v) != 0 if wildcard else qw_n == s2v
+    sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
+    t0 = M1 + o
+    M = sx(H2) + sub
+    D = sx(torch.maximum(t0, D1)) + e
+    I = torch.maximum(t0, I1) + e
+    # Fold-origin cell (s % fold = 0, l = 0) = x = x0: the carried column.
+    M = torch.where(s0l0, hb1 + sub, M)
+    D = torch.where(s0l0, torch.maximum(mb + o, db_) + e, D)
+    # y == 0 chain cell (x0 + g, 0): lane l = g - s*W of one row.
+    l0mask = lane_iota == (g - sub_off)
+    xg = x0 + g
+    if compat:
+        i_c, d_c = o + (xg + 1) * e, NEG_INF
+    else:
+        i_c, d_c = NEG_INF, o + xg * e
+    M = torch.where(l0mask, NEG_INF, M)
+    I = torch.where(l0mask, i_c, I)
+    D = torch.where(l0mask, d_c, D)
+    H = torch.maximum(M, torch.maximum(I, D))
+    return M, I, D, H, qw_n
+
+
+def tile_fill_folded_torch(db_tile, qs, hb1s, mbs, dbs, n2c, n12c, x0: int,
+                           ngc: int, fold: int, scheme: ScoringScheme,
+                           compat: bool, wildcard: bool):
+    """The twin of _tile_fill_folded_lax.  db_tile: (8, W), rows
+    p*fold..(p+1)*fold-1 holding pair p's fold*W db lanes; qs/hb1s/mbs/dbs:
+    (8, ngc) per-step columns (equal within a group); n2c/n12c: (8,) per-row
+    n2 / n1+n2.  Returns (finals (8, 3) at each group's corner row, else 0;
+    br_m, br_d, br_h (8, ngc) per-row last-lane emissions)."""
+    S, W = db_tile.shape
+    dev = db_tile.device
+    i32 = torch.int32
+    lane_iota = torch.arange(W, dtype=i32, device=dev)[None, :].expand(S, W)
+    sub_off = (torch.arange(S, dtype=i32, device=dev)[:, None]
+               & (fold - 1)) * W
+    lane_0 = lane_iota == 0
+    s0l0 = lane_0 & (sub_off == 0)
+    neg = torch.full((S, W), NEG_INF, dtype=i32, device=dev)
+    H2 = H1 = M1 = I1 = D1 = neg
+    qw = torch.zeros((S, W), dtype=i32, device=dev)
+    # Capture schedule: row s holds the corner of its group's pair when
+    # x0 + (s % fold) * W + l == n2 for a lane l, at step n1 + n2 - x0.
+    xs = x0 + sub_off[:, 0].cpu().numpy().astype(np.int64)
+    lcap = n2c.cpu().numpy().astype(np.int64) - xs
+    gcap = n12c.cpu().numpy().astype(np.int64) - x0
+    events: dict = {}
+    for r in range(S):
+        if 0 <= lcap[r] < W and 0 <= gcap[r] < ngc:
+            events.setdefault(int(gcap[r]), []).append((r, int(lcap[r])))
+    finals = torch.zeros((S, 3), dtype=i32, device=dev)
+    br = torch.empty((3, S, ngc), dtype=i32, device=dev)
+    for g in range(ngc):
+        M, I, D, H, qw = folded_step_torch(
+            H2, H1, M1, I1, D1, qw, qs[:, g:g + 1], hb1s[:, g:g + 1],
+            mbs[:, g:g + 1], dbs[:, g:g + 1], g, db_tile, lane_iota, sub_off,
+            s0l0, lane_0, x0, scheme, compat, wildcard,
+        )
+        for r, lane in events.get(g, ()):
+            finals[r] = torch.stack([M[r, lane], I[r, lane], D[r, lane]])
+        br[0, :, g] = M[:, -1]
+        br[1, :, g] = D[:, -1]
+        br[2, :, g] = H[:, -1]
+        H2, H1, M1, I1, D1 = H1, H, M, I, D
+    return finals, br[0], br[1], br[2]
+
+
+def _fold_groups(B: int):
+    """(G, fold): pair groups and rows a pair, G = ceil_pow2(B) for B <= 4."""
+    G = 1 if B == 1 else (2 if B == 2 else 4)
+    return G, 8 // G
+
+
+def tiled_fold_fill_torch(query, db, n1v, n2v, scheme: ScoringScheme,
+                          compat: bool, wildcard: bool,
+                          tile_lanes: int = 8192) -> torch.Tensor:
+    """Plain PyTorch twin of nw_affine_tiled_fold_batch's fill (lax layout)
+    for B <= 4 pairs: G groups of fold = 8 // G rows, each pair on `fold`
+    consecutive rows of W lanes (a virtual tile of fold * W lanes); pad
+    groups reuse pair 0's lengths.  Returns the (B, 3) int32 finals."""
+    B, L1 = query.shape
+    L2 = db.shape[1]
+    if not 1 <= B <= 4:
+        raise ValueError(f"the folded fill takes 1-4 pairs, not {B}")
+    dev = query.device
+    G, fold = _fold_groups(B)
+    W = _round_up(min(tile_lanes, max(-(-max(L2, 1) // fold), 128)), 128)
+    WV = fold * W
+    T = max(1, -(-L2 // WV))
+    ngc = _round_up(_round_up(L1 + 1, _CHUNK) + WV, _CHUNK)
+    q = torch.zeros((G, L1), dtype=torch.int32, device=dev)
+    q[:B] = query
+    d_all = torch.zeros((G, T * WV), dtype=torch.int32, device=dev)
+    d_all[:B, :L2] = db
+    db_tiles = d_all.reshape(G, T, fold, W).permute(1, 0, 2, 3).reshape(
+        T, 8, W)
+    qlen = torch.full((G,), int(n1v[0]), dtype=torch.int32, device=dev)
+    dlen = torch.full((G,), int(n2v[0]), dtype=torch.int32, device=dev)
+    qlen[:B] = n1v
+    dlen[:B] = n2v
+
+    def rep(a):
+        return torch.repeat_interleave(a, fold, dim=0)
+
+    qs = rep(_query_steps(q, ngc))
+    hb1, mb, db_b = (rep(t) for t in _boundary0(G, ngc, scheme, compat, dev))
+    n2c, n12c = rep(dlen), rep(qlen + dlen)
+    finals = torch.zeros((8, 3), dtype=torch.int32, device=dev)
+    for t in range(T):
+        f_t, brm, brd, brh = tile_fill_folded_torch(
+            db_tiles[t], qs, hb1, mb, db_b, n2c, n12c, t * WV + 1, ngc, fold,
+            scheme, compat, wildcard,
+        )
+        finals += f_t
+        # Each group's virtual tile edge is its last row (x = x0 + WV - 1):
+        # select the edge rows, refan them to the group's rows.
+        edge = lambda a: rep(a[fold - 1::fold])  # noqa: E731
+        hb1, mb, db_b = _next_column(edge(brm), edge(brd), edge(brh), WV,
+                                     ngc)
+    finals = finals.reshape(G, fold, 3).sum(1)
+    return _empty_db_corners(finals[:B], n1v, n2v, scheme, compat)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch row sweep (the reference fill's order)
+# ---------------------------------------------------------------------------
+
+
+def gotoh_finals_rows_torch(query, db, n1v, n2v, scheme: ScoringScheme,
+                            compat: bool, wildcard: bool) -> torch.Tensor:
+    """The same (B, 3) M/I/D corner finals by a row sweep in the reference
+    fill's order (ops/oracle_gotoh.py: one db position x a step, a row over
+    the query; the in-row I chain linearised by a prefix maximum).  About
+    half the steps of the lax-layout twins, so the kernels' finals can be
+    held against a plain version at 100 kb; it shares no code with them."""
+    B, L1 = query.shape
+    dev = query.device
+    o, e = scheme.gap_open, scheme.gap_extend
+    y = torch.arange(L1 + 1, dtype=torch.int32, device=dev)[None, :]
+    ye = y * e
+    neg = torch.full((B, L1 + 1), NEG_INF, dtype=torch.int32, device=dev)
+    m, i_, d = neg.clone(), neg.clone(), neg.clone()
+    m[:, 0] = 0
+    if compat:
+        d[:, 1:] = o + (y[:, 1:] + 1) * e
+    else:
+        i_[:, 1:] = o + ye[:, 1:]
+    q = query.to(torch.int32)
+    cols = n1v.to(torch.int64)
+    # The capture schedule, on the host: pair b's corner is row n2[b].
+    n2s = n2v.cpu().numpy()
+    stops = set(n2s.tolist())
+    finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+
+    def capture(x: int):
+        at = torch.as_tensor(np.flatnonzero(n2s == x), device=dev)
+        finals[at] = torch.stack(
+            [m[at, cols[at]], i_[at, cols[at]], d[at, cols[at]]], dim=1)
+
+    if 0 in stops:
+        capture(0)
+    for x in range(1, int(n2s.max(initial=0)) + 1):
+        c = db[:, x - 1:x].to(torch.int32)
+        eq = (q & c) != 0 if wildcard else q == c
+        sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
+        h = torch.maximum(m, torch.maximum(i_, d))
+        d = torch.maximum(m + o, d) + e
+        d[:, 0] = NEG_INF if compat else o + x * e
+        m = F.pad(h[:, :-1] + sub, (1, 0), value=NEG_INF)
+        # I[y] = max(M[y-1] + o, I[y-1]) + e = y*e + max over y' <= y of
+        # (I[0] at y' = 0, M[y'-1] + o + e - y'*e past it).
+        i0 = o + (x + 1) * e if compat else NEG_INF
+        chain = F.pad(m[:, :-1] + (o + e) - ye[:, 1:], (1, 0), value=i0)
+        i_ = torch.cummax(chain, dim=1).values + ye
+        if x in stops:
+            capture(x)
+    return finals
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_fill_args(query, db, n1v, n2v):
+    B = query.shape[0]
+    for name, t, dims in (("query", query, 2), ("db", db, 2),
+                          ("n1v", n1v, 1), ("n2v", n2v, 1)):
+        if t.dtype != torch.int32 or t.dim() != dims or t.shape[0] != B:
+            raise ValueError(f"{name}: expected int32 with {dims} dims and "
+                             f"{B} rows, got {t.dtype} {tuple(t.shape)}")
+        if t.device != query.device:
+            raise ValueError(f"{name} is on {t.device}, not {query.device}")
+    for name, lens, width in (("n1v", n1v, query.shape[1]),
+                              ("n2v", n2v, db.shape[1])):
+        if B and not 0 <= int(lens.min()) <= int(lens.max()) <= width:
+            raise ValueError(f"{name} reaches outside its {width} columns")
+
+
+def _cuda_fill(entry: str, query, db, n1v, n2v, scheme, compat, wildcard,
+               widths, nctas: int):
+    """Launch a tiled fill entry (sa_tiled_fill or sa_tiled_fold_fill) with
+    the width arguments ``widths``; returns the (B, 3) finals."""
+    _check_fill_args(query, db, n1v, n2v)
+    ins = (query, db, n1v, n2v)
+    if not all(t.is_cuda for t in ins):
+        raise ValueError(f"{entry} needs CUDA tensors")
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("tiled fill inputs must be contiguous")
+    lib = csrc.kernels()
+    B, L1 = query.shape
+    dev = query.device
+    finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    bnd = torch.empty((B, 3, L1 + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in ins), finals.data_ptr(), bnd.data_ptr(),
+            B, L1, db.shape[1], scheme.match_, scheme.mismatch,
+            scheme.gap_open, scheme.gap_extend, int(compat), int(wildcard),
+            *widths, stream,
+        )
+    if rc != 0:
+        raise csrc.launch_error(entry, rc, nctas)
+    return _empty_db_corners(finals, n1v, n2v, scheme, compat)
+
+
+def _cuda_width(lanes: int, cta_lanes: int) -> int:
+    """A CTA width for `lanes` db lanes: cta_lanes if forced, else the
+    lanes rounded to 128, at most CUDA_TILE_LANES."""
+    if cta_lanes:
+        if cta_lanes % 128 or not 0 < cta_lanes <= CUDA_TILE_LANES:
+            raise ValueError(f"CTA width {cta_lanes} is out of the tiled "
+                             "kernels' range (a multiple of 128, at most "
+                             f"{CUDA_TILE_LANES})")
+        return cta_lanes
+    return min(CUDA_TILE_LANES, _round_up(max(lanes, 1), 128))
+
+
+def tiled_fill_cuda(query, db, n1v, n2v, scheme: ScoringScheme,
+                    compat: bool, wildcard: bool,
+                    cta_lanes: int = 0) -> torch.Tensor:
+    """Kernel #4 (csrc/nw_affine_tiled.cu, sa_tiled_fill) on CUDA tensors:
+    same arguments and finals as tiled_fill_torch, one CTA a pair sweeping
+    tiles of cta_lanes lanes (by default the db width rounded to 128, at
+    most 4096).  Raises on a CPU tensor, a non-contiguous input, a width out
+    of range or a failed launch."""
+    W = _cuda_width(db.shape[1], cta_lanes)
+    out = _cuda_fill("sa_tiled_fill", query, db, n1v, n2v, scheme, compat,
+                     wildcard, (W,), 1)
+    tiled_fill_cuda.launches += 1
+    return out
+
+
+tiled_fill_cuda.launches = 0
+
+
+def tiled_fold_fill_cuda(query, db, n1v, n2v, scheme: ScoringScheme,
+                         compat: bool, wildcard: bool,
+                         cta_lanes: int = 0) -> torch.Tensor:
+    """Kernel #5 (sa_tiled_fold_fill) on CUDA tensors for 1-4 pairs: each
+    pair on a cluster of fold = 8 // ceil_pow2(B) CTAs of cta_lanes lanes
+    (by default ceil(L2 / fold) rounded to 128, at most 4096), a tile of
+    fold x cta_lanes lanes.  The TPU layout's pad groups get no cluster.
+    Same finals as tiled_fold_fill_torch."""
+    B = query.shape[0]
+    if not 1 <= B <= 4:
+        raise ValueError(f"the folded fill takes 1-4 pairs, not {B}")
+    _G, fold = _fold_groups(B)
+    W = _cuda_width(-(-db.shape[1] // fold), cta_lanes)
+    out = _cuda_fill("sa_tiled_fold_fill", query, db, n1v, n2v, scheme,
+                     compat, wildcard, (fold, W), fold)
+    tiled_fold_fill_cuda.launches += 1
+    return out
+
+
+tiled_fold_fill_cuda.launches = 0
+
+
+def _on_device(tensor, cuda_fn, torch_fn):
+    if tensor.is_cuda:
+        return cuda_fn()
+    if tensor.device.type != "cpu":
+        raise ValueError(f"unsupported device {tensor.device}")
+    return torch_fn()
+
+
+# ---------------------------------------------------------------------------
+# Public entries
+# ---------------------------------------------------------------------------
+
+
+def nw_affine_tiled_batch(
+    query: torch.Tensor,
+    db: torch.Tensor,
+    query_len: torch.Tensor,
+    db_len: torch.Tensor,
+    scheme: ScoringScheme = ScoringScheme(),
+    compat: bool = True,
+    wildcard: bool = False,
+    tile_lanes: int = 4096,
+) -> np.ndarray:
+    """Exact Gotoh corner finals (B, 3) for pairs of any length, from a
+    padded batch held as tensors (device.to_device): kernel #4 on CUDA
+    tensors, the plain fill at tile_lanes on CPU tensors."""
+    args = (query, db, query_len, db_len, scheme, compat, wildcard)
+    finals = _on_device(
+        query, lambda: tiled_fill_cuda(*args),
+        lambda: tiled_fill_torch(*args, tile_lanes=tile_lanes))
+    return finals.cpu().numpy()
+
+
+def nw_affine_tiled_fold_batch(
+    query: torch.Tensor,
+    db: torch.Tensor,
+    query_len: torch.Tensor,
+    db_len: torch.Tensor,
+    scheme: ScoringScheme = ScoringScheme(),
+    compat: bool = True,
+    wildcard: bool = False,
+    tile_lanes: int = 8192,
+) -> np.ndarray:
+    """Exact Gotoh corner finals (B, 3) for a small batch (B <= 4) of long
+    pairs in one launch: kernel #5 on CUDA tensors, the plain folded fill on
+    CPU tensors; more pairs raise.  Every pair runs to the longest pair's
+    tile grid in the plain fill and to its own on the card."""
+    args = (query, db, query_len, db_len, scheme, compat, wildcard)
+    finals = _on_device(
+        query, lambda: tiled_fold_fill_cuda(*args),
+        lambda: tiled_fold_fill_torch(*args, tile_lanes=tile_lanes))
+    return finals.cpu().numpy()
+
+
+def nw_affine_tiled_single(
+    query: bytes,
+    db: bytes,
+    scheme: ScoringScheme = ScoringScheme(),
+    compat: bool = True,
+    wildcard: bool = False,
+    tile_lanes: int = 8192,
+    device="cuda",
+) -> np.ndarray:
+    """Exact Gotoh corner finals (3,) for one pair of any length on
+    ``device``: the B = 1 case of nw_affine_tiled_fold_batch.  The pair is
+    packed unpadded (an empty sequence as one PAD column), as the JAX
+    package packs it."""
+    tb = to_device(pack_batch([(query, db)], len_multiple=1), device)
+    return nw_affine_tiled_fold_batch(
+        *tb, scheme=scheme, compat=compat, wildcard=wildcard,
+        tile_lanes=tile_lanes,
+    )[0]

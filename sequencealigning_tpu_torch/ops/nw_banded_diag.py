@@ -30,7 +30,8 @@ Two implementations of the fill, chosen by the tensors' device:
   _banded_diag_lax (CPU tensors, and the reference the kernel is checked
   against);
 * ``banded_diag_fill_cuda`` -- the hand-written kernel
-  (``csrc/nw_banded_diag.cu``; CUDA tensors only), one block a pair.
+  (``csrc/nw_banded_diag.cu``; CUDA tensors only), one block a pair up to
+  8192 lanes, a thread-block cluster a pair past it.
 """
 
 from __future__ import annotations
@@ -49,9 +50,9 @@ from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker, _bit
 
 NEGBIG = -(2 ** 24)  # band-mask -inf
-# The widest band the CUDA kernel takes (one block of 512 threads x 16 lanes;
-# csrc/nw_banded_diag.cu::sa_banded_lanes_per_thread).
-CUDA_BAND_LANES = 8192
+# The widest band the CUDA kernel takes: a cluster of 16 CTAs of 8192 lanes
+# (csrc/cluster_split.cuh::plan_split).
+CUDA_BAND_LANES = 16 * 8192
 _DIRS_CODES = {False: 0, "fast4": 1, "full": 2}
 
 
@@ -321,14 +322,17 @@ def banded_diag_fill_torch(
 def banded_diag_fill_cuda(
     s1w0, s2w0, c1s, c2s, n1v, n2v, plan: BandPlan,
     scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
-    model: str = "ref",
+    model: str = "ref", cta_lanes: int = 0,
 ):
     """The banded fill kernel (csrc/nw_banded_diag.cu) on CUDA tensors:
-    same arguments and results as banded_diag_fill_torch.  A band wider
-    than CUDA_BAND_LANES raises AlignmentError (the batch's pairs cannot be
-    aligned on the card; the plain version takes any width).  Raises
-    ValueError on a CPU tensor or a non-contiguous input, RuntimeError on a
-    failed launch."""
+    same arguments and results as banded_diag_fill_torch.  A band past 8192
+    lanes is split over a thread-block cluster; cta_lanes > 0 forces CTAs of
+    that many lanes (a multiple of 128, for testing the split).  A band
+    wider than CUDA_BAND_LANES raises AlignmentError (the batch's pairs
+    cannot be aligned on the card; the plain version takes any width).
+    Raises ValueError on a CPU tensor, a non-contiguous input or a CTA
+    width out of range, RuntimeError on a failed launch or a cluster the
+    card cannot schedule."""
     dirs_mode = _norm_dirs(dirs_mode)
     _check_model(model, compat, dirs_mode)
     _check_fill_args(s1w0, s2w0, c1s, c2s, n1v, n2v, plan)
@@ -344,9 +348,10 @@ def banded_diag_fill_cuda(
     lib = csrc.kernels()
     B, L = s1w0.shape
     n_iters = c1s.shape[1]
-    if lib.sa_banded_lanes_per_thread(L) == 0:
-        raise ValueError(f"band of {L} lanes is out of the CUDA banded "
-                         "kernel's range")
+    nctas = lib.sa_fill_ctas(L, cta_lanes)
+    if nctas == 0:
+        raise ValueError(f"band of {L} lanes (CTA width {cta_lanes}) is out "
+                         "of the CUDA banded kernel's range")
     dev = s1w0.device
     finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
     dirs = None
@@ -361,10 +366,10 @@ def banded_diag_fill_cuda(
             B, L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
-            int(wildcard), int(model == "std"), stream,
+            int(wildcard), int(model == "std"), cta_lanes, stream,
         )
     if rc != 0:
-        raise csrc.launch_error("sa_banded_fill", rc)
+        raise csrc.launch_error("sa_banded_fill", rc, nctas)
     banded_diag_fill_cuda.launches += 1
     return finals, dirs
 

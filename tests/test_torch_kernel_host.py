@@ -3,8 +3,10 @@ through csrc/host_check.cpp, built for the host) against the plain PyTorch
 versions on the same small batches (exact): the global streamed fill and
 fast4 walk, the per-pair and streamed modes fills and the modes walk, the
 three fills with their rows split over 2-4 forced 128- or 256-lane CTAs
-(the cluster split's geometry, cluster_split.cuh), the banded fill and the
-banded walk; plus the kernel wrappers' refusal of CPU tensors."""
+(the cluster split's geometry, cluster_split.cuh), the banded fill (also
+split over forced 128/256-lane CTAs) and the banded walk, and the tiled
+fill's tile sweep with its carried boundary column (kernels #4 and #5);
+plus the kernel wrappers' refusal of CPU tensors."""
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
 from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
 from sequencealigning_tpu_torch.ops import nw_affine_stream as fill
 from sequencealigning_tpu_torch.ops import nw_affine_stream_modes as smodes
+from sequencealigning_tpu_torch.ops import nw_affine_tiled as tiled
 from sequencealigning_tpu_torch.ops import traceback_device as walk
 
 _DIRS = {None: 0, "fast4": 1, "full": 2}
@@ -400,7 +403,7 @@ def _banded(seed, n=10, hi=120, band=16):
 
 
 def _host_banded(host, plan, ins, scheme, compat, wildcard, dirs_mode,
-                 model="ref"):
+                 model="ref", cta_lanes=0):
     B, L = ins[0].shape
     n_iters = ins[2].shape[1]
     finals = torch.zeros((B, 3), dtype=torch.int32)
@@ -411,7 +414,7 @@ def _host_banded(host, plan, ins, scheme, compat, wildcard, dirs_mode,
         L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
         scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
         {False: 0, "fast4": 1, "full": 2}[dirs_mode], int(compat),
-        int(wildcard), int(model == "std"),
+        int(wildcard), int(model == "std"), cta_lanes,
     )
     assert rc == 0
     return finals, dirs
@@ -437,6 +440,46 @@ def test_host_banded_fill_matches_plain(host, model, compat, wildcard,
     np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
     if dirs_mode:
         np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
+
+
+@pytest.mark.parametrize("cta_lanes,ctas", [(128, 3), (256, 2)])
+@pytest.mark.parametrize("model,compat,dirs_mode", [
+    ("ref", True, "fast4"), ("ref", False, "full"), ("std", False, "fast4"),
+])
+def test_host_split_banded_fill_matches_plain(host, model, compat, dirs_mode,
+                                              cta_lanes, ctas):
+    """The banded fill with each pair's band of 384 lanes split over 3 CTAs
+    of 128 lanes, or 2 of 256 and 128 (the cluster split's geometry: an
+    even wavefront's first lane reads the previous CTA's last lane, an odd
+    wavefront's last lane the next CTA's first lane, no wrap), equals the
+    plain fill: finals and the whole dirs tensor."""
+    scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
+        if model == "std" else ScoringScheme()
+    pairs, plan, ins = _banded(53 + compat + 2 * (model == "std"), n=9,
+                               hi=200, band=150)
+    assert plan.L == 384 and host.hc_fill_ctas(plan.L, cta_lanes) == ctas
+    want_f, want_d = banded.banded_diag_fill_torch(
+        *ins, plan, scheme, compat, True, dirs_mode, model)
+    finals, dirs = _host_banded(host, plan, ins, scheme, compat, True,
+                                dirs_mode, model, cta_lanes)
+    np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
+    np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
+
+
+def test_host_banded_refuses_bad_widths(host):
+    """A CTA width off the 128 grid, or a split of more than 16 CTAs, is
+    refused (-1) as the kernel's entry refuses it."""
+    pairs, plan, ins = _banded(5, n=8, hi=60, band=16)
+    B, L = ins[0].shape
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    for cta in (100, -128):
+        rc = host.hc_banded_fill(
+            *(t.data_ptr() for t in ins), finals.data_ptr(), None, B, L,
+            ins[2].shape[1], plan.he, plan.lane_limit(1), plan.lane_limit(0),
+            5, -4, -8, -6, 0, 1, 0, 0, cta)
+        assert rc == -1
+    assert host.hc_fill_ctas(16 * 8192, 0) == 16
+    assert host.hc_fill_ctas(16 * 8192 + 128, 0) == 0
 
 
 @pytest.mark.parametrize("std", [False, True])
@@ -483,3 +526,70 @@ def test_banded_wrappers_refuse_cpu_tensors():
         walk.walk_banded_cuda(dirs, seed, seed, seed, seed, -8, 8)
     assert banded.banded_diag_fill_cuda.launches == 0
     assert walk.walk_banded_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Tiled fill (kernels #4 and #5)
+# ---------------------------------------------------------------------------
+
+
+def _tiled_batch(seed, n=10, hi=256, alphabet=b"ACGTN"):
+    """A ragged batch up to hi bp, every other db a mutated copy of its
+    query, with an empty db and an empty query."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(alphabet, np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+        if i % 2:
+            s2 = np.resize(s1, len(s2))
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    pairs += [(b"ACGTA", b""), (b"", b"ACGT")]
+    return to_device(pack_batch(pairs), "cpu")
+
+
+def _host_tiled(host, tb, scheme, compat, wildcard, fold, cta_lanes):
+    B, L1 = tb.query.shape
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    bnd = torch.empty((B, 3, L1 + 1), dtype=torch.int32)
+    rc = host.hc_tiled_fill(
+        *(t.data_ptr() for t in tb), finals.data_ptr(), bnd.data_ptr(), B,
+        L1, tb.db.shape[1], scheme.match_, scheme.mismatch, scheme.gap_open,
+        scheme.gap_extend, int(compat), int(wildcard), fold, cta_lanes,
+    )
+    assert rc == 0
+    return tiled._empty_db_corners(finals, tb.query_len, tb.db_len, scheme,
+                                   compat)
+
+
+@pytest.mark.parametrize("fold,cta_lanes", [
+    (1, 128), (1, 256), (2, 128), (4, 128), (8, 128),
+])
+@pytest.mark.parametrize("compat,wildcard", [(True, False), (False, True)])
+def test_host_tiled_fill_matches_plain(host, compat, wildcard, fold,
+                                       cta_lanes):
+    """The kernels' tile sweep (tile_cell, the in-place carried boundary
+    column, the 128-step staging of lane 0's rows, the corner capture) over
+    tiles of fold x cta_lanes lanes -- one CTA (kernel #4) or a cluster of
+    2-8 (kernel #5) -- equals the plain fill's finals."""
+    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2) \
+        if wildcard else ScoringScheme()
+    tb = _tiled_batch(71 + compat + fold)
+    want = tiled.tiled_fill_torch(*tb, scheme, compat, wildcard,
+                                  tile_lanes=128)
+    got = _host_tiled(host, tb, scheme, compat, wildcard, fold, cta_lanes)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_host_tiled_fill_refuses_bad_widths(host):
+    tb = _tiled_batch(3, n=4, hi=40)
+    B, L1 = tb.query.shape
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    bnd = torch.empty((B, 3, L1 + 1), dtype=torch.int32)
+    for fold, cta in ((1, 100), (1, 8192), (9, 128), (0, 128)):
+        rc = host.hc_tiled_fill(
+            *(t.data_ptr() for t in tb), finals.data_ptr(), bnd.data_ptr(),
+            B, L1, tb.db.shape[1], 5, -4, -8, -6, 1, 0, fold, cta)
+        assert rc == -1, (fold, cta)

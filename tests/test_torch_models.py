@@ -148,20 +148,22 @@ def test_failed_cuda_walk_is_a_pair_error_not_a_host_walk(monkeypatch):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_lane_ceilings(monkeypatch, device):
-    """db beyond long_pair_lanes (the reference's long-pair path) raises on
-    every device; below it an aligner on either device takes every width
+    """Below long_pair_lanes an aligner on either device takes every width
     (the CUDA fills split a row over a cluster past 8192 lanes) and matches
-    the JAX aligner.  The tensors stay on the CPU here: only the aligner's
-    device says cuda."""
+    the JAX aligner; past it the batch takes the long-pair path and still
+    matches the JAX aligner (no refusal).  The tensors stay on the CPU here:
+    only the aligner's device says cuda."""
     import torch
 
     import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+    import sequencealigning_tpu_torch.ops.nw_affine_tiled as tiled_mod
 
     recs = _records(3, n=3, hi=120)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
     real_to_device = gotoh_mod.to_device
-    monkeypatch.setattr(gotoh_mod, "to_device",
-                        lambda batch, dev: real_to_device(batch, "cpu"))
+    for mod in (gotoh_mod, tiled_mod):
+        monkeypatch.setattr(mod, "to_device",
+                            lambda batch, dev: real_to_device(batch, "cpu"))
     monkeypatch.setattr(GotohAligner, "_dirs_budget",
                         lambda self, host_fetch=None: self.dirs_host_budget)
     port = GotohAligner(config, device="cpu")
@@ -169,9 +171,158 @@ def test_lane_ceilings(monkeypatch, device):
     want = _view(JaxGotoh(_jax(config)).align_batch(recs))
     assert _view(port.align_batch(recs)) == want
     assert port.host_fallbacks == 0
-    monkeypatch.setattr(GotohAligner, "long_pair_lanes", 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.align_batch(recs)
+    for cls in (GotohAligner, JaxGotoh):
+        monkeypatch.setattr(cls, "long_pair_lanes", 64)
+    want = _view(JaxGotoh(_jax(config)).align_batch(recs))
+    assert _view(port.align_batch(recs)) == want
+    assert all(r[7] is None for r in want)
+
+
+def _long_records(seed, n, length=200, indel=5):
+    """n near-identical pairs of ~length bp (a substitution every 17 bp, a
+    deletion of `indel` bp in the db), as tests/test_nw_tiled.py's
+    long-pair case."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, length - 7 * i)
+        s2 = s1.copy()
+        s2[::17] = rng.choice(alpha, len(s2[::17]))
+        s2 = np.delete(s2, np.arange(50, 50 + indel))
+        recs.append((Record(seq=s1.tobytes(), name=b">q%d" % i),
+                     Record(seq=s2.tobytes(), name=b">d%d" % i)))
+    return recs
+
+
+def _long_pair(monkeypatch, max_band=None):
+    """Lower long_pair_lanes (and the band cap) on both packages."""
+    for cls in (GotohAligner, JaxGotoh):
+        monkeypatch.setattr(cls, "long_pair_lanes", 64)
+        if max_band is not None:
+            monkeypatch.setattr(cls, "long_pair_max_band", max_band)
+
+
+@pytest.mark.parametrize("first_only", [True, False])
+@pytest.mark.parametrize("compat", [True, False])
+def test_long_path_band_doubling_matches_jax(monkeypatch, compat,
+                                             first_only):
+    """The long-pair path (tiled exact scores, banded fills doubling from
+    band 128 until each banded score equals the exact one): scores,
+    strings, CIGARs and errors equal the JAX aligner's; one pair needs a
+    band past 128 (a 150 bp deletion)."""
+    recs = _long_records(43 + compat, 3)
+    rng = np.random.default_rng(5)
+    s1 = rng.choice(np.frombuffer(b"ACGT", np.uint8), 420)
+    recs.append((Record(seq=s1.tobytes(), name=b">qi"),
+                 Record(seq=np.delete(s1, np.arange(100, 250)).tobytes(),
+                        name=b">di")))
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, compat=compat,
+                         first_only=first_only)
+    _long_pair(monkeypatch)
+    got = GotohAligner(config, "cpu").align_batch(recs)
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
+    assert all(r.ok and r.aligned_query is not None for r in got)
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_long_path_myers_miller_escape_matches_jax(monkeypatch, compat):
+    """With the band cap at 2 the optimum (a 60 bp gap) escapes every band:
+    Myers-Miller recovers the alignment (compat: rescored with the leading
+    chain's extra extension) exactly as the JAX aligner does."""
+    recs = [(Record(seq=b"G" * 60 + b"A" * 40, name=b">q"),
+             Record(seq=b"A" * 40, name=b">d")),
+            (Record(seq=b"ACGT" * 25, name=b">q2"),
+             Record(seq=b"ACGT" * 10 + b"TTTT" * 5 + b"ACGT" * 12,
+                    name=b">d2"))]
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, compat=compat)
+    _long_pair(monkeypatch, max_band=2)
+    got = GotohAligner(config, "cpu").align_batch(recs)
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
+    assert got[0].ok and got[0].aligned_query is not None
+
+
+@pytest.mark.parametrize("lens,route", [
+    ([(90, 95), (100, 92), (88, 99)], "fold"),   # similar sizes: one launch
+    ([(100, 100), (4, 3)], "single"),            # mixed: serial singles
+    ([(70, 75)] * 6, "batch"),                   # 6 pairs: the batched fill
+])
+def test_long_batch_fold_routing(monkeypatch, lens, route):
+    """The long path routes 1-4 similar-sized pairs to one folded fill,
+    other batches under 6 pairs to serial singles, larger ones to the
+    batched fill (tests/test_nw_tiled.py's routing cases), and matches the
+    JAX aligner either way."""
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+
+    calls = []
+    for name, tag in (("nw_affine_tiled_fold_batch", "fold"),
+                      ("nw_affine_tiled_single", "single"),
+                      ("nw_affine_tiled_batch", "batch")):
+        real = getattr(gotoh_mod, name)
+
+        def spy(*args, _real=real, _tag=tag, **kwargs):
+            calls.append(_tag)
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(gotoh_mod, name, spy)
+    rng = np.random.default_rng(51)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    recs = [(Record(seq=rng.choice(alpha, a).tobytes(), name=b">q"),
+             Record(seq=rng.choice(alpha, b).tobytes(), name=b">d"))
+            for a, b in lens]
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    _long_pair(monkeypatch)
+    got = GotohAligner(config, "cpu").align_batch(recs)
+    assert calls == [route] * (len(lens) if route == "single" else 1)
+    assert _view(got) == _view(JaxGotoh(_jax(config)).align_batch(recs))
+    assert all(r.ok for r in got)
+
+
+def test_long_path_failed_cuda_walk_is_a_pair_error(monkeypatch):
+    """On a CUDA aligner the resolved pairs are walked by the banded device
+    walk; a walk that fails validation is that pair's AlignmentError naming
+    the kernel (here a CPU dirs tensor that reports is_cuda, walked by the
+    plain walk), never a host re-walk."""
+    import torch
+
+    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+    import sequencealigning_tpu_torch.ops.nw_affine_tiled as tiled_mod
+    import sequencealigning_tpu_torch.ops.traceback_device as tbd
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    recs = _long_records(7, 3)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    _long_pair(monkeypatch)
+    want = _view(GotohAligner(config, "cpu").align_batch(recs))
+    real_walk = tbd.banded_diag_align_device
+    real_fill = gotoh_mod.nw_banded_diag_batch
+    real_to_device = gotoh_mod.to_device
+
+    def drop_pair_1(dirs, *args, **kwargs):
+        alns, scores = real_walk(dirs.as_subclass(torch.Tensor), *args,
+                                 **kwargs)
+        alns[1] = None
+        return alns, scores
+
+    def fill(*args, **kwargs):
+        res = real_fill(*args, **kwargs)
+        return res._replace(dirs=res.dirs.as_subclass(OnCard))
+
+    monkeypatch.setattr(tbd, "banded_diag_align_device", drop_pair_1)
+    monkeypatch.setattr(gotoh_mod, "nw_banded_diag_batch", fill)
+    for mod in (gotoh_mod, tiled_mod):
+        monkeypatch.setattr(mod, "to_device",
+                            lambda batch, dev: real_to_device(batch, "cpu"))
+    port = GotohAligner(config, "cpu")
+    port.device = torch.device("cuda")
+    got = _view(port.align_batch(recs))
+    assert got[:1] + got[2:] == want[:1] + want[2:]
+    assert got[1][2:5] == (None,) * 3
+    assert "walk_banded_cuda" in got[1][7]
 
 
 def _modes_records(seed, n):
@@ -376,14 +527,15 @@ def test_failed_banded_walk(monkeypatch, device):
 
 def test_banded_band_past_the_cuda_width_is_per_pair_error(monkeypatch):
     """On CUDA (the fill routed to the kernel's wrapper) a band needing
-    more than 8192 lanes answers every pair with an AlignmentError instead
-    of escaping align_batch; the CPU aligns the same batch."""
+    more than the cluster split's 131072 lanes answers every pair with an
+    AlignmentError instead of escaping align_batch; the CPU aligns the same
+    batch."""
     import sequencealigning_tpu_torch.ops.nw_banded_diag as nbd
 
     recs = _records(17, n=5, hi=30)
-    config = AlignConfig(algo=Algo.BANDED, first_only=True, band=8200)
+    config = AlignConfig(algo=Algo.BANDED, first_only=True, band=131_100)
     assert all(r.ok for r in BandedAligner(config, "cpu").align_batch(recs))
     monkeypatch.setattr(nbd, "banded_diag_fill", nbd.banded_diag_fill_cuda)
     got = BandedAligner(config, "cpu").align_batch(recs)
     assert [r.ok for r in got] == [False] * 5
-    assert all("8192 lanes" in r.error for r in got)
+    assert all("131072 lanes" in r.error for r in got)

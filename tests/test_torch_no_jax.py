@@ -44,6 +44,7 @@ def test_importing_every_port_module_loads_no_jax():
     mods = _modules()
     for m in ("cli", "config", "errors", "io.encode", "io.fasta", "native",
               "ops.nw_affine", "ops.nw_affine_modes", "ops.nw_banded_diag",
+              "ops.nw_affine_tiled", "ops.mm_align",
               "ops.nw_affine_stream_modes", "ops.traceback",
               "ops.traceback_device", "ops.oracle_gotoh", "models.banded",
               "utils.cigar", "utils.guards", "utils.pprint", "utils.stats"):

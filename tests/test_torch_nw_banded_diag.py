@@ -192,17 +192,33 @@ def test_fill_wrapper_refuses_cpu_tensors():
 
 
 def test_fill_wrapper_refuses_a_band_past_the_kernel_width():
-    """A band wider than the CUDA kernel's 8192 lanes is an AlignmentError
-    (checked before the device); the plain version fills it."""
+    """A band wider than the CUDA kernel's reach (a cluster of 16 CTAs of
+    8192 lanes, 131072 lanes) is an AlignmentError (checked before the
+    device); the plain version fills it."""
     from sequencealigning_tpu_torch.errors import AlignmentError
 
+    assert port.CUDA_BAND_LANES == 131072
     batch = pack_batch(_pairs(3, 8, 5, 20, 5, 20), batch_size=8)
-    plan, ins = port.band_inputs(*to_device(batch, "cpu"), 8200)
+    plan, ins = port.band_inputs(*to_device(batch, "cpu"), 131_100)
     assert plan.L > port.CUDA_BAND_LANES
-    with pytest.raises(AlignmentError, match="8192 lanes"):
+    with pytest.raises(AlignmentError, match="131072 lanes"):
         port.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, False,
                                    "fast4")
     assert port.banded_diag_fill_cuda.launches == 0
     fin, dirs = port.banded_diag_fill_torch(*ins, plan, ScoringScheme(),
                                             True, False, "fast4")
     assert fin.shape == (8, 3) and dirs.shape[2] == plan.L
+
+
+@pytest.mark.parametrize("band", [8200, 130_900])
+def test_fill_wrapper_takes_bands_past_one_block(band):
+    """Bands of 8193-131072 lanes (past one block, within the cluster
+    split's reach) are no longer refused for their width: the wrapper goes
+    on to the device check."""
+    batch = pack_batch(_pairs(3, 8, 5, 20, 5, 20), batch_size=8)
+    plan, ins = port.band_inputs(*to_device(batch, "cpu"), band)
+    assert 8192 < plan.L <= port.CUDA_BAND_LANES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        port.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, False,
+                                   "fast4")
+    assert port.banded_diag_fill_cuda.launches == 0
