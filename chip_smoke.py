@@ -16,11 +16,12 @@ in the phases below and exits non-zero at the first failure:
    and split over a 4-CTA cluster (forced 512-lane CTAs): finals equal,
    direction codes equal on every cell of every real pair;
 4. walk kernel vs its plain version and vs the native host walker;
-5. main path: GotohAligner(first_only) on cuda through align_batch over
-   4096 x 2046 bp pairs at ~1% divergence; every pair aligned, no host
-   re-walk, both kernels launched, sampled scores equal the oracle; then
-   one more align_batch under torch.profiler (the card's busy share) and
-   one under cProfile (host stages);
+5. main path: GotohAligner(first_only) on cuda through align_batch (the
+   data-parallel runner's fill+walk) over 4096 x 2046 bp pairs at ~1%
+   divergence; every pair aligned, no host re-walk, both kernels launched,
+   sampled scores equal the oracle; then one more align_batch under
+   torch.profiler (the card's busy share) and one under cProfile (host
+   stages);
 6. textbook modes fills on ragged batches: the per-pair kernel (up to 31
    pairs at up to 2046 bp, skewed both ways, semi/local x wildcard) and the
    streamed kernel (2-4 slots a row) vs their plain versions: argmax
@@ -39,9 +40,10 @@ in the phases below and exits non-zero at the first failure:
    textbook local, banded) on the golden corpus with --device cuda;
 10. banded fill kernel vs its plain version at BASELINE config 4's shape
    (1024 pairs x 5115 bp, band 128), fast4 and full: finals and the whole
-   dirs tensor; then small ragged and skewed batches over compat/textbook x
-   wildcard x dirs and the std model, and bands of 1400-4200 (4, 8 and 16
-   lanes a thread);
+   dirs tensor, also split into 2 CTAs of 128 lanes and forced into the
+   wide route (one launch a wavefront); then small ragged and skewed
+   batches over compat/textbook x wildcard x dirs and the std model, and
+   bands of 1400-4200 (4, 8 and 16 lanes a thread);
 11. banded walk kernel vs its plain version on the 1024 pairs (packed ops,
    end cells, op counts) and vs the host walker on sampled pairs;
 12. banded main path: BandedAligner first-only over the 1024 x 5115 bp
@@ -69,7 +71,27 @@ in the phases below and exits non-zero at the first failure:
    (gotoh_finals_rows_torch); every pair aligned, consuming its sequences
    and rescoring to the tiled exact score, the rounds each pair took
    recorded; then one ~6 kb pair that escapes the (lowered) band cap and is
-   aligned by Myers-Miller on the card.
+   aligned by Myers-Miller on the card;
+16. kernel #7 (the per-pair global fill) at the main shape, score-only in
+   the runner's layout, against its plain version and the streamed
+   kernel's finals; with full dirs on 512 of the pairs (the direction
+   bytes of every valid cell), the host walker on its dirs against the
+   co-optimal path on 8 of them;
+17. the data-parallel runner at the main shape: scores with the stream
+   and the plain kernel (kernel #7's path) equal; the fused first-only
+   route of phase 5 equal to the direct route (streamed fill, then walk);
+   the fused local and semi-global routes equal to GotohAligner's
+   _modes_batch; stream_align over 8 batches of 4096 pairs with cigars
+   equal to align_batch's (pairs/s; the card's busy share under
+   torch.profiler over 4), and a run failing in batch 3's drain resumed
+   from its checkpoint, re-delivering batches 3-7 only;
+18. the banded fill past a cluster's 131072 lanes (the wide route) at bands
+   131200 and 300000 on 4 pairs of 1-2 kb: finals and the whole dirs
+   tensor against the plain version, scores against kernel #4's exact
+   scores (the band covers the matrix); then BandedAligner first-only at
+   band 131200 on the card.
+
+Phases 16-18 print their wall seconds.
 
 Launch counts are read per path: every kernel's count is set to 0 just
 before a path runs and read just after; comparisons with plain versions
@@ -117,6 +139,17 @@ LEN_TILE_CHECK = 40_000
 # The tiled fills' small ragged batches (bp at most): kernel #4's 16 pairs,
 # kernel #5's 1-4 (the plain versions' cost grows with the length).
 LEN_TILE_SMALL, LEN_FOLD_SMALL = 700, 1000
+# Kernel #7 with full dirs: the first N_GOTOH_DIRS pairs of the main shape;
+# its host walker against the co-optimal path on N_GOTOH_WALK of them.
+N_GOTOH_DIRS, N_GOTOH_WALK = 512, 8
+# stream_align over N_STREAM batches of the main shape, the checkpoint run
+# failing in batch STREAM_CRASH's drain, the profiled run over
+# N_STREAM_PROFILE batches.
+N_STREAM, STREAM_CRASH, N_STREAM_PROFILE = 8, 3, 4
+# The banded fill past a cluster's 131072 lanes: N_WIDE pairs of
+# LEN_WIDE_LO..LEN_WIDE_HI bp at WIDE_BANDS (bands covering the matrix).
+N_WIDE, LEN_WIDE_LO, LEN_WIDE_HI = 4, 1000, 2000
+WIDE_BANDS = (131_200, 300_000)
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
 # operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
 # 128 fp32 lanes, no fused multiply-add doubling).
@@ -180,6 +213,14 @@ KERNELS = {
         "tiled", "tiled_fold_fill_cuda",
         "sequencealigning_tpu_torch/csrc/nw_affine_tiled.cu",
         "sequencealigning_tpu/ops/nw_affine_tiled.py:563"),
+    "nw_affine_fill": (
+        "nw", "gotoh_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine.cu",
+        "sequencealigning_tpu/ops/nw_affine.py:223"),
+    "nw_banded_diag_wide_fill": (
+        "banded", "banded_wide_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_banded_diag.cu",
+        "sequencealigning_tpu/ops/nw_banded_diag.py:350"),
 }
 
 
@@ -520,14 +561,15 @@ def phase_main(torch, port, pairs, by_path):
         f"{peak / 2**30:.2f} GiB; launches {launches}; 4 sampled scores equal "
         "the oracle")
     return {"main_s": secs, "alignments_per_s": len(pairs) / secs,
-            "peak_gib": peak / 2 ** 30}, (aligner, recs)
+            "peak_gib": peak / 2 ** 30}, (aligner, recs, res)
 
 
 # Host stages of align_batch reported by the profile (cumulative seconds):
 # the global first-only path and the textbook modes path.
-STAGES = ("pack_batch", "trim_for_stream", "to_device", "stream_inputs",
-          "gotoh_fill_stream_cuda", "fast4_stream_align_device",
-          "walk_fast4_cuda", "decode_packed_alignments",
+STAGES = ("pack_batch", "trim_for_stream", "_stream_args_host",
+          "_put_stream_args", "fill_walk_from_stream_args",
+          "gotoh_fill_stream_cuda", "walk_fast4_cuda",
+          "device_walk_fast4_finish", "decode_packed_alignments",
           "walk_decode_batch_native", "fill_derived", "align_batch")
 MODES_STAGES = ("pack_batch", "to_device", "stream_inputs",
                 "gotoh_fill_stream_modes_cuda", "modes_reduce",
@@ -1063,6 +1105,23 @@ def phase_banded_fill(torch, port, pairs):
                 f"{split} CTAs of 128 lanes: {split_ms:.3f} ms; finals and "
                 "the whole dirs tensor equal the plain version")
             out.update(bfill_split2_ms=split_ms, bfill_split2_err=split_err)
+            # And forced into the wide route (one launch a wavefront).
+            wide_ms = cuda_ms(torch, lambda: banded.banded_wide_fill_cuda(
+                *ins, *a), repeats=1)
+            fw, dw = banded.banded_wide_fill_cuda(*ins, *a)
+            wide_err = max(int((fw - fp).abs().max()), 0 if torch.equal(
+                dw.view(torch.int32), dp.view(torch.int32)) else 1)
+            del fw, dw
+            check(wide_err == 0, "banded fill's wide route != plain at "
+                  f"config 4: err {wide_err}")
+            per_wave = wide_ms / (2 * plan.n_need)
+            log(f"[10 banded fill] config 4's band forced into the wide "
+                f"route: {wide_ms:.3f} ms ({1e3 * per_wave:.2f} us a "
+                f"wavefront, against {1e3 * split_ms / (2 * plan.n_need):.2f}"
+                " us split over 2 CTAs); finals and the whole dirs tensor "
+                "equal the plain version")
+            out.update(bfill_wide4_ms=wide_ms, bfill_wide4_err=wide_err,
+                       bfill_wide4_us_per_wavefront=1e3 * per_wave)
         del fp, dp
         log(f"[10 banded fill] {len(pairs)} x {LEN_BAND} bp band {BAND} "
             f"{dirs} (L={plan.L}, k_lo_even={plan.k_lo_even}, "
@@ -1598,6 +1657,408 @@ def phase_long(torch, port, by_path):
     return meas
 
 
+def phase_gotoh_fill(torch, port, pairs, stream_finals):
+    """Kernel #7 (the per-pair global fill) at the main shape in the
+    runner's plain layout: score-only against its plain version on the
+    card and against the streamed kernel's finals; then with full dirs on
+    the first N_GOTOH_DIRS pairs (the direction bytes of every valid cell),
+    the host walker on its dirs against the co-optimal path."""
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops.traceback import traceback_pair
+
+    nw = port["nw"]
+    t0 = time.perf_counter()
+    batch = pack_batch(pairs, batch_size=len(pairs))
+    tb = to_device(batch, "cuda")
+    q = tb.query.contiguous()
+    s2v, dsum, n2mask = nw.gotoh_layout(tb.db, tb.query_len, tb.db_len)
+    L1, L2 = batch.query.shape[1], batch.db.shape[1]
+    a = (L1, L2, ScoringScheme(), True, False)
+    ins = (q, s2v, dsum, n2mask)
+    ms = cuda_ms(torch, lambda: nw.gotoh_fill_cuda(*ins, *a, False))
+    fk, _ = nw.gotoh_fill_cuda(*ins, *a, False)
+    plain_ms, (fp, _) = host_ms(torch, lambda: nw.gotoh_fill_torch(
+        *ins, *a, False))
+    err = int((fk - fp).abs().max())
+    check(err == 0, f"kernel #7 != plain at the main shape: err {err}")
+    stream_err = int((fk - stream_finals).abs().max())
+    check(stream_err == 0, "kernel #7's finals != the streamed kernel's at "
+          f"the main shape: err {stream_err}")
+    cells = int((batch.query_len.astype(np.int64)
+                 * batch.db_len.astype(np.int64)).sum())
+    b_ms, b_by = bound(nbytes(*ins, fk), cells * OPS_PER_CELL["score"])
+    lanes = len(pairs) * (L1 + L2 + 1) * s2v.shape[1]
+    log(f"[16 gotoh fill] {len(pairs)} x {LEN_MAIN} bp score-only (P="
+        f"{s2v.shape[1]}, D_total={L1 + L2 + 1}): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS "
+        f"({lanes / ms / 1e6:.2f} G lane-steps/s), bound {b_ms:.3f} ms ({b_by}); finals equal the "
+        "plain version and the streamed kernel's")
+    out = {"gfill_ms": ms, "gfill_plain_ms": plain_ms, "gfill_err": err,
+           "gfill_stream_err": stream_err, "gfill_bound_ms": b_ms,
+           "gfill_bound_by": b_by, "gfill_gcups": cells / ms / 1e6}
+
+    n = N_GOTOH_DIRS
+    sub = tuple(t[:n].contiguous() for t in ins)
+    ms_d = cuda_ms(torch, lambda: nw.gotoh_fill_cuda(*sub, *a, True),
+                   repeats=1)
+    fkd, dkd = nw.gotoh_fill_cuda(*sub, *a, True)
+    plain_d_ms, (fpd, dpd) = host_ms(torch, lambda: nw.gotoh_fill_torch(
+        *sub, *a, True))
+    whole = bool(torch.equal(dkd.view(torch.int32), dpd.view(torch.int32)))
+    err_d = int((fkd - fpd).abs().max())
+    if not whole:
+        err_d = max(err_d, valid_cell_diff(
+            torch, dkd, dpd, [(b, 0) for b in range(n)], batch.query_len[:n],
+            batch.db_len[:n], "full"))
+    del dpd
+    check(err_d == 0, f"kernel #7 with full dirs != plain: err {err_d}")
+    cells_d = int((batch.query_len[:n].astype(np.int64)
+                   * batch.db_len[:n].astype(np.int64)).sum())
+    bd_ms, bd_by = bound(nbytes(*sub, fkd, dkd),
+                         cells_d * OPS_PER_CELL["full"])
+    # The host walker on kernel #7's dirs against the co-optimal path (the
+    # streamed full fill and the same walker) on sampled pairs.
+    idx = np.random.default_rng(3).choice(n, N_GOTOH_WALK, replace=False)
+    dirs_h = dkd.view(torch.int32)[:, torch.as_tensor(
+        idx, device=dkd.device), :].cpu().numpy().view(np.uint32)
+    fin_h = fkd.cpu().numpy()
+    dirs_gb = dkd.numel() * 4 / 1e9
+    del dkd
+    aligner = port["models"].GotohAligner(
+        AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH), "cuda")
+    res = aligner.align_batch(records([pairs[i] for i in idx]))
+    for j, i in enumerate(idx):
+        score, alns = traceback_pair(dirs_h[:, j, :], fin_h[i], *pairs[i])
+        check(res[j].ok and score == res[j].score
+              and alns == res[j].alignments,
+              f"pair {i}: host walk of kernel #7's dirs != the co-optimal "
+              "path's alignments")
+    log(f"[16 gotoh fill] {n} x {LEN_MAIN} bp full dirs ({dirs_gb:.2f} GB):"
+        f" kernel {ms_d:.3f} ms, plain {plain_d_ms:.1f} ms, bound "
+        f"{bd_ms:.3f} ms ({bd_by}); finals and the direction bytes of every "
+        f"valid cell equal (whole dirs tensor equal: {whole}); the host "
+        f"walker on {N_GOTOH_WALK} sampled pairs equals the co-optimal path; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    out.update(gfill_full_ms=ms_d, gfill_full_plain_ms=plain_d_ms,
+               gfill_full_err=err_d, gfill_full_bound_ms=bd_ms,
+               gfill_full_bound_by=bd_by, gfill_full_whole_dirs_equal=whole,
+               gfill_phase_s=time.perf_counter() - t0)
+    return out
+
+
+def _aln_view(r):
+    """(score, aligned query, aligned db) of an aligner result or of a
+    runner's (score, [(a1, a2)]) per-pair result."""
+    if isinstance(r, tuple):
+        return r[0], r[1][0][0], r[1][0][1]
+    return r.score, r.aligned_query, r.aligned_db
+
+
+def _busy_ms(torch, prof):
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def phase_runner(torch, port, pairs, main_res, by_path, out_dir):
+    """The data-parallel runner at the main shape: scores with both kernels
+    (the plain one, kernel #7, is its path), its fused first-only route
+    (phase 5's align_batch) against the direct route (streamed fill, then
+    walk), its fused modes route against GotohAligner._modes_batch, and
+    stream_align over N_STREAM batches with cigars against phase 5's
+    alignments, with a checkpoint resume."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo, Mode
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
+    from sequencealigning_tpu_torch.ops.traceback_device import (
+        assemble_modes_alignments,
+        fast4_stream_align_device,
+    )
+
+    par = port["parallel"]
+    t0 = time.perf_counter()
+    n = len(pairs)
+    s1 = [p[0] for p in pairs]
+    s2 = [p[1] for p in pairs]
+    want = [_aln_view(r) for r in main_res]
+    runner = par.DataParallelRunner(np_slots=8)
+    plain = par.DataParallelRunner(kernel="plain")
+    batch = pack_batch(pairs, batch_size=n)
+    s_ms, fs = host_ms(torch, lambda: runner.scores(batch))
+    path = "runner scores (plain kernel)"
+    with path_launches(port, by_path, path):
+        p_ms, fpl = host_ms(torch, lambda: plain.scores(batch))
+    check(by_path.get("nw_affine_fill", {}).get(path, 0) > 0,
+          "runner.scores(kernel='plain') never launched kernel #7")
+    check(torch.equal(fs, fpl), "runner scores: the stream and plain "
+          "kernels disagree")
+    log(f"[17 runner] scores of {n} x {LEN_MAIN} bp: stream kernel "
+        f"{s_ms:.1f} ms, plain kernel (#7) {p_ms:.1f} ms (host clock, "
+        "batch prep included); equal")
+
+    # The direct route (streamed fill, then the device walk) against the
+    # fused route phase 5's align_batch took, both from the packed batch to
+    # the decoded strings (align_batch's result building left out), timed
+    # in turns: direct, fused, fused, direct.
+    def direct():
+        tb = to_device(trim_for_stream(pack_batch(pairs, batch_size=n)),
+                       "cuda")
+        res = port["fill"].nw_affine_stream_batch(*tb, with_dirs="fast4",
+                                                  np_slots=8)
+        alns, scores = fast4_stream_align_device(res.dirs, res.finals, s1,
+                                                 s2, res.plan)
+        return [None if a is None else (int(sc),) + a
+                for a, sc in zip(alns, scores)]
+
+    def fused():
+        b = trim_for_stream(pack_batch(pairs, batch_size=n))
+        args, plan, bp, has_n = runner._stream_args(b)
+        finals, handles = runner.fill_walk_from_stream_args(
+            args, plan, bp, has_n, s1, s2)
+        return [_aln_view(r) for r in runner.device_walk_fast4_finish(
+            handles, finals.cpu().numpy(), s1, s2)]
+
+    times = {"direct": [], "fused": []}
+    for name in ("direct", "fused", "fused", "direct"):
+        ms_, got = host_ms(torch, direct if name == "direct" else fused)
+        times[name].append(ms_)
+        bad = [b for b in range(n) if got[b] != want[b]]
+        check(not bad, f"{name} first-only route != align_batch on "
+              f"{len(bad)} pairs (first {bad[:3]})")
+        del got
+        torch.cuda.empty_cache()
+    d_ms, f_ms = (float(np.mean(times[k])) for k in ("direct", "fused"))
+    runs = {k: ", ".join(f"{t:.1f}" for t in v) for k, v in times.items()}
+    log(f"[17 runner] first-only, packed batch to strings: the fused route "
+        f"{f_ms:.1f} ms ({runs['fused']}), the direct route (streamed fill, "
+        f"then the walk) {d_ms:.1f} ms ({runs['direct']}); both "
+        f"equal align_batch's (the fused route, phase 5) on all {n} pairs")
+
+    out = {"runner_scores_stream_ms": s_ms, "runner_scores_plain_ms": p_ms,
+           "first_only_fused_ms": f_ms, "first_only_direct_ms": d_ms}
+    for mode in (Mode.LOCAL, Mode.SEMI_GLOBAL):
+        local = mode is Mode.LOCAL
+        key = "local" if local else "semi"
+        torch.cuda.empty_cache()
+        ref = port["models"].GotohAligner(
+            AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=mode, compat=False),
+            "cuda")._modes_batch(pairs)
+        torch.cuda.empty_cache()
+        mr = par.DataParallelRunner(np_slots=8)
+        ms_, got = host_ms(torch, lambda: _runner_modes(
+            mr, batch, pairs, key, assemble_modes_alignments))
+        check(all(isinstance(r, tuple) for r in got),
+              f"fused {key} route: a pair failed")
+        ref_v = [(r["score"], r["aligned_query"], r["aligned_db"])
+                 if isinstance(r, dict) else r for r in ref]
+        bad = [b for b in range(n) if _aln_view(got[b]) != ref_v[b]]
+        check(not bad, f"fused {key} route != _modes_batch on {len(bad)} "
+              f"pairs (first {bad[:3]})")
+        log(f"[17 runner] fused {key} fill+walk: {ms_:.1f} ms, equal to "
+            f"GotohAligner._modes_batch on all {n} pairs")
+        out[f"runner_{key}_ms"] = ms_
+        del ref, got
+    torch.cuda.empty_cache()
+
+    def stream_input(nb):
+        for k in range(nb):
+            r = (k * 512) % n
+            yield from pairs[r:] + pairs[:r]
+
+    def checker(seen):
+        def on_alignments(i, results):
+            r = (i * 512) % n
+            bad = [j for j, t in enumerate(results)
+                   if _aln_view(t) != want[(r + j) % n]]
+            check(not bad, f"stream_align batch {i}: {len(bad)} pairs differ "
+                  "from align_batch")
+            seen.append(i)
+        return on_alignments
+
+    seen = []
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    done = par.stream_align(stream_input(N_STREAM), runner, batch_size=n,
+                            cigars=True, on_alignments=checker(seen))
+    secs = time.perf_counter() - ts
+    check(done == N_STREAM * n and seen == list(range(N_STREAM)),
+          f"stream_align aligned {done} pairs in batches {seen}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        par.stream_align(stream_input(N_STREAM_PROFILE), runner,
+                         batch_size=n, cigars=True,
+                         on_alignments=checker([]))
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - tp) * 1e3
+    busy = _busy_ms(torch, prof)
+    if out_dir:
+        with open(os.path.join(out_dir, "profile_device_stream.txt"),
+                  "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=30))
+    log(f"[17 runner] stream_align, {N_STREAM} batches of {n} x {LEN_MAIN} "
+        f"bp with cigars: {secs:.3f} s, {done / secs:.1f} pairs/s, every "
+        f"alignment equal to align_batch's; under torch.profiler "
+        f"({N_STREAM_PROFILE} batches) {prof_ms:.1f} ms, card busy "
+        f"{busy:.1f} ms ({100 * busy / prof_ms:.1f}%)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "cursor.json")
+        first = []
+        on_first = checker(first)
+
+        def crash(i, results):
+            on_first(i, results)
+            if i == STREAM_CRASH:
+                raise RuntimeError("simulated crash")
+
+        try:
+            par.stream_align(stream_input(N_STREAM), runner, batch_size=n,
+                             cigars=True, checkpoint_path=ckpt,
+                             on_alignments=crash)
+            check(False, "the crashing stream did not raise")
+        except RuntimeError as e:
+            check("simulated crash" in str(e), f"stream raised {e!r}")
+        with open(ckpt) as f:
+            cursor = json.load(f)["next_batch"]
+        resumed = []
+        done = par.stream_align(stream_input(N_STREAM), runner, batch_size=n,
+                                cigars=True, checkpoint_path=ckpt,
+                                on_alignments=checker(resumed))
+    check(cursor == STREAM_CRASH and resumed == list(range(STREAM_CRASH,
+                                                           N_STREAM))
+          and done == (N_STREAM - STREAM_CRASH) * n,
+          f"resume from cursor {cursor} re-delivered batches {resumed}")
+    log(f"[17 runner] checkpoint: a stream failing in batch {STREAM_CRASH}'s"
+        f" drain left cursor {cursor}; the resume re-delivered batches "
+        f"{resumed[0]}-{resumed[-1]} only, equal to align_batch's; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    out.update(stream_s=secs, stream_pairs_per_s=done and N_STREAM * n / secs,
+               stream_profile_ms=prof_ms, stream_busy_ms=busy,
+               runner_phase_s=time.perf_counter() - t0)
+    return out
+
+
+def _runner_modes(runner, batch, pairs, mode, assemble):
+    """The runner's fused modes route on one batch: fill, end cells and
+    walk queued back to back, then the finish and the assembly."""
+    from sequencealigning_tpu_torch.parallel.runner import to_host
+
+    s1 = [p[0] for p in pairs]
+    s2 = [p[1] for p in pairs]
+    args, plan, _b, has_n = runner._stream_args(batch)
+    best, xs, ys, handles, _dirs, plan = (
+        runner.fill_walk_modes_from_stream_args(args, plan, len(pairs),
+                                                has_n, mode))
+    walked = runner.device_walk_modes_finish(handles, s1, s2)
+    return assemble(pairs, walked, to_host(best), to_host(xs), to_host(ys),
+                    mode == "local")
+
+
+def band_true_cells(n1s, n2s, k_lo, k_hi):
+    """Cells (x, y), 1 <= x <= n2, 1 <= y <= n1, of each pair that lie in
+    the band k_lo <= y - x <= k_hi, summed."""
+    total = 0
+    for n1, n2 in zip(n1s, n2s):
+        x = np.arange(1, int(n2) + 1, dtype=np.int64)
+        lo = np.maximum(1, x + k_lo)
+        hi = np.minimum(int(n1), x + k_hi)
+        total += int(np.maximum(hi - lo + 1, 0).sum())
+    return total
+
+
+def phase_wide_band(torch, port, by_path):
+    """The banded fill past a cluster's 131072 lanes (the wide route) at
+    WIDE_BANDS on N_WIDE pairs of ~1-2 kb: finals and the whole dirs tensor
+    against the plain version, scores against kernel #4's exact scores
+    (the band covers the matrix); then BandedAligner first-only at the
+    first band on the card, every pair aligned to its exact score."""
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    banded, tiled = port["banded"], port["tiled"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    pairs = []
+    for _ in range(N_WIDE):
+        length = int(rng.integers(LEN_WIDE_LO, LEN_WIDE_HI + 1))
+        pairs += make_pairs(rng, 1, length)
+    # Lengths that differ: drop a slice from two of the dbs.
+    pairs[1] = (pairs[1][0], pairs[1][1][:300] + pairs[1][1][420:])
+    pairs[3] = (pairs[3][0][:-250], pairs[3][1])
+    batch = pack_batch(pairs)
+    tb = to_device(batch, "cuda")
+    scheme = ScoringScheme()
+    exact = tiled.tiled_fill_cuda(*tb, scheme, True, False)
+    exact_scores = exact.max(dim=1).values.cpu().numpy()[:N_WIDE]
+    out, errs = {}, []
+    for band in WIDE_BANDS:
+        plan, ins = banded.band_inputs(*tb, band)
+        check(plan.L > banded.CUDA_BAND_LANES, f"band {band}: L={plan.L}")
+        a = (plan, scheme, True, False, "fast4")
+        ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a),
+                     repeats=1)
+        fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+        plain_ms, (fp, dp) = host_ms(
+            torch, lambda: banded.banded_diag_fill_torch(*ins, *a))
+        whole = bool(torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
+        err = max(int((fk - fp).abs().max()), 0 if whole else 1)
+        check(err == 0, f"wide banded fill != plain at band {band}")
+        got = fk.max(dim=1).values.cpu().numpy()[:N_WIDE]
+        check(np.array_equal(got, exact_scores),
+              f"band {band}: scores {got} != kernel #4's {exact_scores}")
+        cells = band_true_cells(batch.query_len[:N_WIDE],
+                                batch.db_len[:N_WIDE], plan.k_lo,
+                                plan.k_hi_eff)
+        b_ms, b_by = bound(nbytes(*ins, fk, dk), cells * OPS_PER_CELL["fast4"])
+        waves = 2 * plan.n_need
+        log(f"[18 wide band] band {band} (L={plan.L} lanes, "
+            f"{waves} wavefronts, {N_WIDE} pairs): kernel {ms:.3f} ms "
+            f"({1e3 * ms / waves:.2f} us a wavefront), plain {plain_ms:.1f}"
+            f" ms, bound {b_ms:.3f} ms ({b_by}); finals and the whole dirs "
+            "tensor equal the plain version, scores equal kernel #4's")
+        tag = f"wide{band}"
+        out.update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                    f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
+                    f"{tag}_lanes": plan.L,
+                    f"{tag}_us_per_wavefront": 1e3 * ms / waves})
+        errs.append(err)
+        del fk, dk, fp, dp
+        torch.cuda.empty_cache()
+    band = WIDE_BANDS[0]
+    cfg = AlignConfig(algo=Algo.BANDED, band=band, first_only=True)
+    aligner = port["models"].BandedAligner(cfg, "cuda")
+    path = "banded wide first-only"
+    with path_launches(port, by_path, path):
+        secs, res = host_ms(torch, lambda: aligner.align_batch(
+            records(pairs)))
+    check_results(res, pairs, scheme, path, compat=True)
+    check([r.score for r in res] == [int(x) for x in exact_scores],
+          f"{path}: scores != kernel #4's")
+    check(by_path.get("nw_banded_diag_wide_fill", {}).get(path, 0) > 0,
+          f"{path} never launched the wide route")
+    log(f"[18 wide band] BandedAligner first-only at band {band} on cuda: "
+        f"{secs:.1f} ms; every alignment consumes its sequences and rescores"
+        f" to kernel #4's exact score; phase {time.perf_counter() - t0:.1f} s")
+    out.update(wide_err=max(errs), wide_main_ms=secs,
+               wide_phase_s=time.perf_counter() - t0)
+    return out
+
+
 def run(args):
     if not os.path.isdir(os.path.join(ROOT, "sequencealigning_tpu_torch")):
         raise SmokeFailure("sequencealigning_tpu_torch/ is not beside this "
@@ -1606,8 +2067,9 @@ def run(args):
     import torch
 
     card = phase_device(torch)
-    from sequencealigning_tpu_torch import cli, csrc, models
+    from sequencealigning_tpu_torch import cli, csrc, models, parallel
     from sequencealigning_tpu_torch.ops import (
+        nw_affine,
         nw_affine_modes,
         nw_affine_stream,
         nw_affine_stream_modes,
@@ -1616,10 +2078,11 @@ def run(args):
         traceback_device,
     )
 
-    port = {"cli": cli, "csrc": csrc, "models": models,
+    port = {"cli": cli, "csrc": csrc, "models": models, "parallel": parallel,
             "fill": nw_affine_stream, "walk": traceback_device,
             "modes": nw_affine_modes, "smodes": nw_affine_stream_modes,
-            "banded": nw_banded_diag, "tiled": nw_affine_tiled}
+            "banded": nw_banded_diag, "tiled": nw_affine_tiled,
+            "nw": nw_affine}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     by_path = {}
@@ -1627,12 +2090,19 @@ def run(args):
     meas, state = phase_fill(torch, port)
     meas.update(phase_walk(torch, port, state))
     pairs = state[3]
+    stream_finals = state[0][:N_MAIN].clone()
     del state
     torch.cuda.empty_cache()
-    main_meas, (aligner, recs) = phase_main(torch, port, pairs, by_path)
+    main_meas, (aligner, recs, main_res) = phase_main(torch, port, pairs,
+                                                      by_path)
     meas.update(main_meas)
     meas.update(phase_profile(torch, aligner, recs, args.out))
     del aligner, recs
+    torch.cuda.empty_cache()
+    meas.update(phase_gotoh_fill(torch, port, pairs, stream_finals))
+    torch.cuda.empty_cache()
+    meas.update(phase_runner(torch, port, pairs, main_res, by_path, args.out))
+    del main_res
     torch.cuda.empty_cache()
     meas.update(phase_modes_fill(torch, port))
     mpairs = make_pairs(np.random.default_rng(0), N_MAIN, LEN_MAIN)
@@ -1649,6 +2119,8 @@ def run(args):
     torch.cuda.empty_cache()
     meas.update(phase_banded_main(torch, port, bpairs, by_path))
     meas.update(phase_ceiling(torch, port, by_path))
+    torch.cuda.empty_cache()
+    meas.update(phase_wide_band(torch, port, by_path))
     torch.cuda.empty_cache()
     meas.update(phase_tiled(torch, port))
     meas.update(phase_long(torch, port, by_path))
@@ -1687,6 +2159,10 @@ def kernel_entries(meas, by_path):
                                  meas["tiled_full_err"]],
         "nw_affine_tiled_fold_fill": [meas["tfold_small_err"],
                                       meas["tfold_full_err"]],
+        "nw_affine_fill": [meas["gfill_err"], meas["gfill_stream_err"],
+                           meas["gfill_full_err"]],
+        "nw_banded_diag_wide_fill": [meas["wide_err"],
+                                     meas["bfill_wide4_err"]],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -1706,6 +2182,11 @@ def kernel_entries(meas, by_path):
             f"(db {LEN_LONG_PAIR} and {LEN_LONG_PAIR - LONG_DROP}); plain_ms, "
             f"small_ms: 2 pairs <= {LEN_FOLD_SMALL} bp; rows_plain_ms: as "
             "kernel #4's"),
+        "nw_affine_fill": ("gfill", f"{main} score-only, the runner's plain "
+                           "layout"),
+        "nw_banded_diag_wide_fill": (
+            f"wide{WIDE_BANDS[0]}", f"{N_WIDE} pairs of {LEN_WIDE_LO}-"
+            f"{LEN_WIDE_HI} bp band {WIDE_BANDS[0]} fast4"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces) in KERNELS.items():
@@ -1739,6 +2220,27 @@ def kernel_entries(meas, by_path):
                 "config4_2ctas_ms": meas["bfill_split2_ms"],
                 "natural_ms": meas["bfill_natural_split_ms"],
                 "natural_lanes": meas["bfill_natural_split_lanes"]}
+        if name == "nw_affine_fill":
+            entry["full"] = {
+                "ms": meas["gfill_full_ms"],
+                "plain_ms": meas["gfill_full_plain_ms"],
+                "bound_ms": meas["gfill_full_bound_ms"],
+                "bound_by": meas["gfill_full_bound_by"],
+                "max_abs_err": meas["gfill_full_err"],
+                "timed_on": f"{N_GOTOH_DIRS} x {LEN_MAIN} bp full dirs"}
+        if name == "nw_banded_diag_wide_fill":
+            wb = WIDE_BANDS[1]
+            entry["lanes"] = meas[f"wide{WIDE_BANDS[0]}_lanes"]
+            entry["us_per_wavefront"] = \
+                meas[f"wide{WIDE_BANDS[0]}_us_per_wavefront"]
+            entry[f"band_{wb}"] = {
+                k: meas[f"wide{wb}_{k}"]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "lanes",
+                          "us_per_wavefront")}
+            entry["config4_forced"] = {
+                "ms": meas["bfill_wide4_ms"],
+                "us_per_wavefront": meas["bfill_wide4_us_per_wavefront"],
+                "timed_on": f"{band} fast4, forced into the wide route"}
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

@@ -9,8 +9,8 @@ package's.  Its kernels are hand-written CUDA for Hopper (``csrc/``), built
 on first use; on CPU tensors every op runs its plain PyTorch version.
 """
 
-from sequencealigning_tpu_torch import config, errors, io
+from sequencealigning_tpu_torch import config, errors, io, parallel
 
 __version__ = "0.1.0"
 
-__all__ = ["config", "errors", "io", "__version__"]
+__all__ = ["config", "errors", "io", "parallel", "__version__"]

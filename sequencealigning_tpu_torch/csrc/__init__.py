@@ -27,8 +27,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(_HERE)), "build", "sequencealigning_tpu_torch"
 )
-_CUDA_SOURCES = ("nw_affine_stream.cu", "nw_affine_modes.cu",
-                 "nw_banded_diag.cu", "nw_affine_tiled.cu",
+_CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
+                 "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
                  "traceback_device.cu")
 _HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "cluster_split.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh",
@@ -157,10 +157,14 @@ def kernels() -> ctypes.CDLL:
     lib.sa_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 13 + [_VP]
     lib.sa_modes_fill.restype = _INT
     lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_gotoh_fill.restype = _INT
+    lib.sa_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
     lib.sa_banded_lanes_per_thread.restype = _INT
     lib.sa_banded_lanes_per_thread.argtypes = [_INT]
     lib.sa_banded_fill.restype = _INT
     lib.sa_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
+    lib.sa_banded_wide_fill.restype = _INT
+    lib.sa_banded_wide_fill.argtypes = [_VP] * 9 + [_INT] * 14 + [_VP]
     lib.sa_tiled_fill.restype = _INT
     lib.sa_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 10 + [_VP]
     lib.sa_tiled_fold_fill.restype = _INT
@@ -217,8 +221,12 @@ def host_check() -> ctypes.CDLL:
     lib.hc_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 13
     lib.hc_modes_fill.restype = _INT
     lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_gotoh_fill.restype = _INT
+    lib.hc_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12
     lib.hc_banded_fill.restype = _INT
     lib.hc_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15
+    lib.hc_banded_wide_fill.restype = _INT
+    lib.hc_banded_wide_fill.argtypes = [_VP] * 8 + [_INT] * 14
     lib.hc_tiled_fill.restype = _INT
     lib.hc_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 11
     lib.hc_walk_fast4.restype = _INT

@@ -8,9 +8,9 @@
 //   c++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // The arguments and layouts are those of sa_stream_fill,
-// sa_stream_modes_fill, sa_modes_fill, sa_banded_fill, sa_tiled_fill /
-// sa_tiled_fold_fill, sa_walk_fast4, sa_walk_modes and sa_walk_banded (minus
-// the stream).  The fills' lane
+// sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_banded_fill,
+// sa_banded_wide_fill, sa_tiled_fill / sa_tiled_fold_fill, sa_walk_fast4,
+// sa_walk_modes and sa_walk_banded (minus the stream).  The fills' lane
 // shift follows the kernels' split of a row over CTAs: a CTA's first lane
 // takes the previous CTA's last lane (lane 0 takes lane P-1); the banded
 // fill's split has no wrap (its edge lanes are masked).
@@ -216,6 +216,68 @@ void modes_host(const int32_t* query, const int32_t* s2v, const int32_t* n1s,
   }
 }
 
+// The per-pair global fill of one pair at a time (sa_gotoh_fill), with its
+// corner capture: M/I/D added over the lanes where n2mask is set, on the
+// pair's diagonal dsum.
+template <int DIRS, bool COMPAT, bool WILDCARD>
+void gotoh_host(const int32_t* query, const int32_t* s2v,
+                const int32_t* dsum, const int32_t* n2mask, int32_t* finals,
+                uint32_t* dirs, int B, int L1p, int P, int D_total,
+                const sa::Scheme& sc, const sa::Split& sp) {
+  std::vector<sa::Cell> c(P), c0(P);
+  std::vector<sa::Pre> pre(P);
+  std::vector<uint32_t> acc(P);
+  for (int b = 0; b < B; ++b) {
+    for (int x = 0; x < P; ++x) {
+      c[x] = sa::cell_init(sa::kNegInf);
+      c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
+      acc[x] = 0;
+    }
+    for (int d = 0; d < D_total; ++d) {
+      const int q = d - 1 < 0 ? 0 : (d - 1 > L1p - 1 ? L1p - 1 : d - 1);
+      const int32_t qc = query[static_cast<size_t>(b) * L1p + q];
+      for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
+      c0 = c;
+      for (int x = P - 1; x >= 0; --x) {
+        const int l = left_lane(x, sp, P);
+        const int32_t code =
+            sa::stream_cell<DIRS, sa::kModeGlobal, COMPAT, WILDCARD>(
+                c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == d, d,
+                qc, c[x].s2v, sc);
+        acc[x] |= static_cast<uint32_t>(code) << (8u * (d & 3));
+      }
+      if (d == dsum[b]) {
+        for (int x = 0; x < P; ++x) {
+          if (n2mask[static_cast<size_t>(b) * P + x] == 0) continue;
+          finals[static_cast<size_t>(b) * 3 + 0] += c[x].M1;
+          finals[static_cast<size_t>(b) * 3 + 1] += c[x].I1;
+          finals[static_cast<size_t>(b) * 3 + 2] += c[x].D1;
+        }
+      }
+      if (DIRS != sa::kDirsNone && ((d & 3) == 3 || d == D_total - 1)) {
+        for (int x = 0; x < P; ++x) {
+          dirs[(static_cast<size_t>(d >> 2) * B + b) * P + x] = acc[x];
+          acc[x] = 0;
+        }
+      }
+    }
+  }
+}
+
+typedef void (*HostGotoh)(const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, int32_t*, uint32_t*, int, int, int,
+                          int, const sa::Scheme&, const sa::Split&);
+
+template <int DIRS>
+HostGotoh pick_gotoh(bool compat, bool wildcard) {
+  if (compat) {
+    return wildcard ? gotoh_host<DIRS, true, true>
+                    : gotoh_host<DIRS, true, false>;
+  }
+  return wildcard ? gotoh_host<DIRS, false, true>
+                  : gotoh_host<DIRS, false, false>;
+}
+
 typedef void (*HostModes)(const int32_t*, const int32_t*, const int32_t*,
                           const int32_t*, int32_t*, uint32_t*, int, int, int,
                           int, int, const sa::Scheme&, const sa::Split&);
@@ -329,6 +391,26 @@ extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   fn(query, s2v, n1, n2, out, dirs, B, L1, P, D_total, sc, sp);
+  return 0;
+}
+
+extern "C" int hc_gotoh_fill(const int32_t* query, const int32_t* s2v,
+                             const int32_t* dsum, const int32_t* n2mask,
+                             int32_t* finals, uint32_t* dirs, int B, int L1p,
+                             int P, int D_total, int match, int mismatch,
+                             int gap_open, int gap_extend, int dirs_mode,
+                             int compat, int wildcard, int cta_lanes) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0) return -1;
+  HostGotoh fn = nullptr;
+  if (dirs_mode == sa::kDirsNone) {
+    fn = pick_gotoh<sa::kDirsNone>(compat != 0, wildcard != 0);
+  } else if (dirs_mode == sa::kDirsFull) {
+    fn = pick_gotoh<sa::kDirsFull>(compat != 0, wildcard != 0);
+  }
+  if (fn == nullptr) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  fn(query, s2v, dsum, n2mask, finals, dirs, B, L1p, P, D_total, sc, sp);
   return 0;
 }
 
@@ -476,6 +558,92 @@ extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   fn(s1w0, s2w0, c1s, c2s, n1v, n2v, finals, dirs, B, L, n_iters, he, lim1,
      lim0, compat != 0, sc, sp);
+  return 0;
+}
+
+namespace {
+
+template <int PAR, int DIRS, bool STD>
+void wide_wave(const sa::BandCell* in, sa::BandCell* out, const int32_t* cs,
+               const int32_t* n1v, const int32_t* n2v, int32_t* finals,
+               uint32_t* dirs, int B, int L, int n_iters, int a, int he,
+               int lim, bool compat, bool wildcard, const sa::Scheme& sc) {
+  for (int b = 0; b < B; ++b) {
+    const int32_t* row = cs + static_cast<size_t>(b) * n_iters;
+    for (int l = 0; l < L; ++l) {
+      if (wildcard) {
+        sa::band_wide_lane<PAR, DIRS, true, STD>(in, out, row, n1v, n2v,
+                                                 finals, dirs, B, L, a, he,
+                                                 lim, compat, sc, b, l);
+      } else {
+        sa::band_wide_lane<PAR, DIRS, false, STD>(in, out, row, n1v, n2v,
+                                                  finals, dirs, B, L, a, he,
+                                                  lim, compat, sc, b, l);
+      }
+    }
+  }
+}
+
+template <int DIRS, bool STD>
+void wide_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
+               const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
+               int32_t* finals, uint32_t* dirs, int B, int L, int n_iters,
+               int he, int lim1, int lim0, bool compat, bool wildcard,
+               const sa::Scheme& sc) {
+  const size_t n = static_cast<size_t>(B) * L;
+  std::vector<sa::BandCell> buf0(n), buf1(n);
+  for (size_t at = 0; at < n; ++at) {
+    buf0[at] = sa::band_init(static_cast<int32_t>(at % L), he, s1w0[at],
+                             s2w0[at]);
+  }
+  for (int it = 0; it < n_iters; ++it) {
+    wide_wave<1, DIRS, STD>(buf0.data(), buf1.data(), c1s, n1v, n2v, finals,
+                            dirs, B, L, n_iters, 2 * it + 1, he, lim1, compat,
+                            wildcard, sc);
+    wide_wave<0, DIRS, STD>(buf1.data(), buf0.data(), c2s, n1v, n2v, finals,
+                            dirs, B, L, n_iters, 2 * it + 2, he, lim0, compat,
+                            wildcard, sc);
+  }
+}
+
+}  // namespace
+
+// sa_banded_wide_fill (minus the scratch state and the stream): the wide
+// route's wavefront loop, serially, through band_wide_lane.
+extern "C" int hc_banded_wide_fill(
+    const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
+    const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
+    int32_t* finals, uint32_t* dirs, int B, int L, int n_iters, int he,
+    int lim1, int lim0, int match, int mismatch, int gap_open,
+    int gap_extend, int dirs_mode, int compat, int wildcard, int std_model) {
+  if (B <= 0 || L <= 0 || n_iters <= 0) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  const bool c = compat != 0, w = wildcard != 0;
+  if (std_model && dirs_mode == sa::kDirsNone) {
+    wide_host<sa::kDirsNone, true>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
+                                   dirs, B, L, n_iters, he, lim1, lim0, c, w,
+                                   sc);
+  } else if (std_model && dirs_mode == sa::kDirsFast4) {
+    wide_host<sa::kDirsFast4, true>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
+                                    dirs, B, L, n_iters, he, lim1, lim0, c, w,
+                                    sc);
+  } else if (std_model) {
+    return -1;
+  } else if (dirs_mode == sa::kDirsNone) {
+    wide_host<sa::kDirsNone, false>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
+                                    dirs, B, L, n_iters, he, lim1, lim0, c, w,
+                                    sc);
+  } else if (dirs_mode == sa::kDirsFast4) {
+    wide_host<sa::kDirsFast4, false>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
+                                     dirs, B, L, n_iters, he, lim1, lim0, c,
+                                     w, sc);
+  } else if (dirs_mode == sa::kDirsFull) {
+    wide_host<sa::kDirsFull, false>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
+                                    dirs, B, L, n_iters, he, lim1, lim0, c, w,
+                                    sc);
+  } else {
+    return -1;
+  }
   return 0;
 }
 

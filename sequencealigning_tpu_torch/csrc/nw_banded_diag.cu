@@ -33,11 +33,22 @@
 // selects past the x = 0 / y = 0 cells) and its masked lane-reduce gather of
 // the characters have no counterpart here.
 //
+// Past the largest cluster (16 CTAs of 8192 lanes, 131072 lanes) the band
+// takes the wide route (sa_banded_wide_fill): one launch a wavefront, each
+// lane's state (nw_banded_diag.cuh::BandCell) in global memory,
+// double-buffered by wavefront parity, one thread a lane reading its
+// neighbour's pre-step state from the other buffer (band_wide_lane); the
+// kernel boundary is the wavefront's grid-wide barrier.  It needs no CTAs to
+// be co-resident, so its only limit is device memory: 2 x 28 bytes of state
+// a lane plus the direction codes.  The route can be forced at any band
+// width, so it is checked at small ones too.
+//
 // What bounds it on this card: the integer ALU work of the recurrence and
 // its masks (~45 operations a lane-step, all lanes of the band on every
 // wavefront) and the per-wavefront block (or cluster) barrier; the direction
 // stores (0.5 B a lane-step in fast4, 1 B in full) are a few percent of HBM
-// time.
+// time.  The wide route is bound by moving its state (56 bytes a lane-step,
+// through L2 where the band's state fits) and by a launch a wavefront.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -308,4 +319,109 @@ extern "C" int sa_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
                   &lim1, &lim0, &compat, &sc,   &launch};
   return sa::launch_split(reinterpret_cast<const void*>(fn), launch, B, args,
                           stream);
+}
+
+namespace {
+
+constexpr int kWideThreads = 256;  // threads a block of the wide route
+
+__global__ void __launch_bounds__(kWideThreads)
+    band_wide_init(const int32_t* __restrict__ s1w0,
+                   const int32_t* __restrict__ s2w0,
+                   sa::BandCell* __restrict__ state, size_t n, int L, int he) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (at >= n) return;
+  state[at] = sa::band_init(static_cast<int32_t>(at % L), he, s1w0[at],
+                            s2w0[at]);
+}
+
+// One wavefront a of parity PAR over every lane of every pair (one thread a
+// lane): nw_banded_diag.cuh::band_wide_lane.
+template <int PAR, int DIRS, bool WILDCARD, bool STD>
+__global__ void __launch_bounds__(kWideThreads)
+    band_wide_step(const sa::BandCell* __restrict__ in,
+                   sa::BandCell* __restrict__ out,
+                   const int32_t* __restrict__ enter,
+                   const int32_t* __restrict__ n1v,
+                   const int32_t* __restrict__ n2v,
+                   int32_t* __restrict__ finals, uint32_t* __restrict__ dirs,
+                   int B, int L, int n_iters, int a, int he, int lim,
+                   int compat, sa::Scheme sc) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (at >= static_cast<size_t>(B) * L) return;
+  const int b = static_cast<int>(at / L);
+  const int l = static_cast<int>(at % L);
+  sa::band_wide_lane<PAR, DIRS, WILDCARD, STD>(
+      in, out, enter + static_cast<size_t>(b) * n_iters, n1v, n2v, finals,
+      dirs, B, L, a, he, lim, compat != 0, sc, b, l);
+}
+
+typedef void (*WideStep)(const sa::BandCell*, sa::BandCell*, const int32_t*,
+                         const int32_t*, const int32_t*, int32_t*, uint32_t*,
+                         int, int, int, int, int, int, int, sa::Scheme);
+
+template <int PAR, int DIRS, bool STD>
+WideStep wide_wild(bool wildcard) {
+  return wildcard ? band_wide_step<PAR, DIRS, true, STD>
+                  : band_wide_step<PAR, DIRS, false, STD>;
+}
+
+// The same modes as the one-block and cluster instances.
+template <int PAR>
+WideStep wide_pick(int dirs_mode, bool wildcard, bool std_model) {
+  if (std_model) {
+    switch (dirs_mode) {
+      case sa::kDirsNone: return wide_wild<PAR, sa::kDirsNone, true>(wildcard);
+      case sa::kDirsFast4:
+        return wide_wild<PAR, sa::kDirsFast4, true>(wildcard);
+      default: return nullptr;
+    }
+  }
+  switch (dirs_mode) {
+    case sa::kDirsNone: return wide_wild<PAR, sa::kDirsNone, false>(wildcard);
+    case sa::kDirsFast4:
+      return wide_wild<PAR, sa::kDirsFast4, false>(wildcard);
+    case sa::kDirsFull: return wide_wild<PAR, sa::kDirsFull, false>(wildcard);
+    default: return nullptr;
+  }
+}
+
+}  // namespace
+
+// The wide route: sa_banded_fill's arguments minus cta_lanes, plus state:
+// (2, B, L) BandCell scratch (7 int32 a lane), allocated by the caller.
+// Launches one init and 2 n_iters wavefront kernels on the stream.  Returns
+// the cudaGetLastError() after the last launch (or the first that failed),
+// -1 for an unsupported shape or mode.
+extern "C" int sa_banded_wide_fill(
+    const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
+    const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
+    int32_t* finals, uint32_t* dirs, void* state, int B, int L, int n_iters,
+    int he, int lim1, int lim0, int match, int mismatch, int gap_open,
+    int gap_extend, int dirs_mode, int compat, int wildcard, int std_model,
+    void* stream) {
+  if (B <= 0 || L <= 0 || n_iters <= 0) return -1;
+  const bool w = wildcard != 0, st = std_model != 0;
+  WideStep odd = wide_pick<1>(dirs_mode, w, st);
+  WideStep even = wide_pick<0>(dirs_mode, w, st);
+  if (odd == nullptr || even == nullptr) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t n = static_cast<size_t>(B) * L;
+  const unsigned blocks =
+      static_cast<unsigned>((n + kWideThreads - 1) / kWideThreads);
+  sa::BandCell* buf0 = static_cast<sa::BandCell*>(state);
+  sa::BandCell* buf1 = buf0 + n;
+  band_wide_init<<<blocks, kWideThreads, 0, s>>>(s1w0, s2w0, buf0, n, L, he);
+  int err = static_cast<int>(cudaGetLastError());
+  for (int it = 0; it < n_iters && err == 0; ++it) {
+    odd<<<blocks, kWideThreads, 0, s>>>(buf0, buf1, c1s, n1v, n2v, finals,
+                                        dirs, B, L, n_iters, 2 * it + 1, he,
+                                        lim1, compat, sc);
+    even<<<blocks, kWideThreads, 0, s>>>(buf1, buf0, c2s, n1v, n2v, finals,
+                                         dirs, B, L, n_iters, 2 * it + 2, he,
+                                         lim0, compat, sc);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  return err;
 }

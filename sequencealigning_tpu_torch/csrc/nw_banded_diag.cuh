@@ -128,3 +128,52 @@ SA_HD int32_t band_cell(BandCell& c, int32_t nb_open, int32_t nb_gap,
 }
 
 }  // namespace sa
+
+namespace sa {
+
+// The wide route (nw_banded_diag.cu, band_wide_step): past a cluster's
+// 16 x 8192 lanes a band is swept one wavefront a launch, its lanes' state
+// in global memory, read from `in` (wavefront a-1) and written to `out`.
+// This is one lane l of pair b at wavefront a of parity PAR: the neighbour
+// (l+1 on odd wavefronts, l-1 on even ones) is read from `in` before any
+// lane of the wavefront moves, the band's edge lane takes none.  Its
+// direction code is ORed into word dirs[aidx / kUp, b, l] (written whole at
+// the word's first wavefront), and the lane holding (n2, n1) writes the
+// pair's finals.  lim: the last lane of the effective band at this parity.
+template <int PAR, int DIRS, bool WILDCARD, bool STD>
+SA_HD void band_wide_lane(const BandCell* in, BandCell* out,
+                          const int32_t* enter_row, const int32_t* n1v,
+                          const int32_t* n2v, int32_t* finals,
+                          uint32_t* dirs, int B, int L, int a, int he,
+                          int lim, bool compat, const Scheme& s, int b,
+                          int l) {
+  constexpr int kUp = DIRS == kDirsFast4 ? 8 : 4;  // wavefronts a word
+  const size_t at = static_cast<size_t>(b) * L + l;
+  const bool edge = PAR == 1 ? l == L - 1 : l == 0;
+  const BandCell& nb = in[edge ? at : (PAR == 1 ? at + 1 : at - 1)];
+  BandCell c = in[at];
+  const int32_t q = (a - PAR) / 2 - he;
+  const int32_t xv = q - l;
+  const int32_t yv = a - xv;
+  const int32_t n1 = n1v[b];
+  const int32_t n2 = n2v[b];
+  const int32_t code = band_cell<PAR, DIRS, WILDCARD, STD>(
+      c, band_open<STD>(nb, s), band_gap_src<PAR>(nb), band_char_src<PAR>(nb),
+      edge, enter_row[(a - 1) / 2], xv, yv, l <= lim, n1, n2, compat, s);
+  out[at] = c;
+  if (DIRS != kDirsNone) {
+    const int aidx = a - 1;
+    const uint32_t v = static_cast<uint32_t>(code)
+                       << (DIRS == kDirsFast4 ? 4u * (aidx & 7)
+                                              : 8u * (aidx & 3));
+    uint32_t* w = dirs + (static_cast<size_t>(aidx / kUp) * B + b) * L + l;
+    *w = aidx % kUp == 0 ? v : (*w | v);
+  }
+  if (xv == n2 && yv == n1) {
+    finals[static_cast<size_t>(b) * 3 + 0] = c.M1;
+    finals[static_cast<size_t>(b) * 3 + 1] = c.I1;
+    finals[static_cast<size_t>(b) * 3 + 2] = c.D1;
+  }
+}
+
+}  // namespace sa

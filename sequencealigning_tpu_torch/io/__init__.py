@@ -3,10 +3,14 @@ of sequencealigning_tpu/io)."""
 
 from sequencealigning_tpu_torch.io.encode import (
     PairBatch,
+    WireBatch,
     encode_seq,
+    pack_arrays,
     pack_batch,
+    pack_wire,
     round_up,
     trim_for_stream,
+    wire_pack_codes,
 )
 from sequencealigning_tpu_torch.io.fasta import (
     Record,
@@ -22,5 +26,9 @@ __all__ = [
     "pack_batch",
     "round_up",
     "trim_for_stream",
+    "pack_arrays",
+    "pack_wire",
+    "wire_pack_codes",
     "PairBatch",
+    "WireBatch",
 ]

@@ -4,7 +4,10 @@ Global mode: a batch is packed and trimmed exactly as in the JAX package,
 filled by the streamed fill (ops.nw_affine_stream) on the aligner's device,
 and traced back either on the device (first_only: fast4 codes, device walk,
 native decode) or on the host from the full 7-bit codes (the reference's
-co-optimal enumeration, ops.traceback.traceback_stream_batch).
+co-optimal enumeration, ops.traceback.traceback_stream_batch).  On the card
+a first-only batch goes through the data-parallel runner's fill+walk
+(parallel.runner, as the JAX package's production route); CPU tensors keep
+the direct route.
 
 Semi-global and local: compat mode answers with the reference's per-pair
 "not implemented"; textbook mode fills with the streamed modes engine
@@ -110,6 +113,13 @@ class GotohAligner(Aligner):
             return out
         np_slots = max(1, min(8, len(batch.query) // 8))
         first_only = getattr(self.config, "first_only", False)
+        if first_only and self.device.type == "cuda":
+            # On the card a first-only batch takes the data-parallel
+            # runner's fill+walk: the fill and the walk queued back to back
+            # with no host synchronisation, the sequences shipped 2-bit
+            # packed.  Same kernels and walker as the direct route below,
+            # so the same results.
+            return self._runner_first_only_batch(pairs, batch)
         tb = to_device(batch, self.device)
         res = nw_affine_stream_batch(
             tb.query, tb.db, tb.query_len, tb.db_len,
@@ -155,11 +165,60 @@ class GotohAligner(Aligner):
             )
         return out
 
+    def _dp_runner(self):
+        """The aligner's DataParallelRunner for the first-only batch path,
+        made on first use: the aligner's device, the direct route's
+        pipeline depth (8 slots)."""
+        r = getattr(self, "_dp_runner_cache", None)
+        if r is None:
+            from sequencealigning_tpu_torch.parallel.runner import (
+                DataParallelRunner,
+            )
+
+            r = DataParallelRunner(
+                [self.device], scheme=self.config.scoring,
+                compat=self.config.compat, np_slots=8, traceback="device",
+                state_dtype=getattr(self.config, "stream_state", "i32"),
+            )
+            self._dp_runner_cache = r
+        return r
+
+    def _runner_first_only_batch(self, pairs, batch):
+        """First-path alignments through the runner's fill+walk and its
+        finish (a pair whose walk fails validation is its AlignmentError
+        naming the walk kernel, as on the direct route)."""
+        runner = self._dp_runner()
+        args, plan, bp, has_n = runner._stream_args(batch)
+        seqs1 = [p[0] for p in pairs]
+        seqs2 = [p[1] for p in pairs]
+        finals, handles = runner.fill_walk_from_stream_args(
+            args, plan, bp, has_n, seqs1, seqs2)
+        finals = finals.cpu().numpy()
+        if self.config.debug:
+            from sequencealigning_tpu_torch.utils.guards import check_finals
+
+            check_finals(
+                finals[: len(pairs)],
+                batch.query_len[: len(pairs)], batch.db_len[: len(pairs)],
+                scheme=self.config.scoring, compat=self.config.compat,
+                label="gotoh finals",
+            )
+        out = []
+        for r in runner.device_walk_fast4_finish(handles, finals, seqs1,
+                                                 seqs2):
+            if isinstance(r, AlignerError):
+                out.append(r)
+                continue
+            score, alns = r
+            out.append(dict(score=score, aligned_query=alns[0][0],
+                            aligned_db=alns[0][1], alignments=alns))
+        return out
+
     def _traceback_device(self, res, pairs):
-        """Device fast4 walk.  A pair whose walk fails validation is an
-        AlignmentError on CUDA (the walk kernel is at fault and the host
-        does not take over); on the CPU it is re-walked on the host from its
-        dirs row, as in the reference, and counted in host_fallbacks."""
+        """The fast4 walk's plain version on the CPU (CUDA batches take
+        _runner_first_only_batch).  A pair whose walk fails validation is
+        re-walked on the host from its dirs row, as in the reference, and
+        counted in host_fallbacks."""
         alns, scores = fast4_stream_align_device(
             res.dirs, res.finals,
             [p[0] for p in pairs], [p[1] for p in pairs], res.plan,
@@ -168,11 +227,6 @@ class GotohAligner(Aligner):
         for b, (s1, s2) in enumerate(pairs):
             if alns[b] is not None:
                 out.append((int(scores[b]), [alns[b]]))
-                continue
-            if self.device.type == "cuda":
-                out.append(AlignmentError(
-                    "device fast4 walk (walk_fast4_cuda) failed validation"
-                ))
                 continue
             self.host_fallbacks += 1
             row, _slot, off = res.plan.pair_coords(b)

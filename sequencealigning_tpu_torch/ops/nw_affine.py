@@ -1,5 +1,5 @@
-"""The per-diagonal Gotoh step with its boundary-mode hook: the port of
-ops/nw_affine.py's ``_boundary_scalars`` and ``_gotoh_step``.
+"""Per-pair batched Gotoh fill (kernel #7) and the per-diagonal Gotoh step
+with its boundary-mode hook: the port of ops/nw_affine.py.
 
 A per-pair anti-diagonal fill keeps each pair's db on the lane axis: lane x
 of diagonal d is cell (x, y = d - x), lane 0 and lane d are the boundaries.
@@ -8,13 +8,33 @@ modes: "global" writes the compat/textbook gap chains on the boundaries,
 "semi" free end gaps (M = 0, I = D = -inf), and "local" adds the
 Smith-Waterman clamp M = max(M, 0) with each restart recorded as the LSTART
 direction bit.
+
+The global fill of a batch (``nw_affine_batch``) sweeps each pair's
+D_total = L1 + L2 + 1 anti-diagonals over P = round_up(L2 + 1, 128) lanes
+with ``s2v[:, 1:L2+1] = db`` preloaded, captures M/I/D on each pair's
+diagonal dsum = n1 + n2 at the lanes of n2mask (lane n2), and on request
+keeps the full 7-bit direction bytes (ops.dirbits), byte d & 3 of word
+``dirs[d >> 2, b, x]``, in ceil(D_total / 4) words (the lax twin's length),
+the layout ops.traceback.traceback_pair reads.  Two implementations of the
+fill, chosen by the tensors' device:
+
+* ``gotoh_fill_torch`` -- plain PyTorch, the twin of _gotoh_fill_lax (CPU
+  tensors, and the reference the kernel is checked against);
+* ``gotoh_fill_cuda`` -- the hand-written kernel (``csrc/nw_affine.cu``;
+  CUDA tensors only), one block a pair, or one thread-block cluster a pair
+  past 8192 lanes.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
+import numpy as np
 import torch
 
+from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops import dirbits
 
 MODES = ("global", "semi", "local")
@@ -148,3 +168,178 @@ def gotoh_step_torch(
             b |= restart * dirbits.LSTART
         byte = b
     return M, I, D, H, s1d_new, byte
+
+
+# ---------------------------------------------------------------------------
+# The per-pair global fill (kernel #7)
+# ---------------------------------------------------------------------------
+
+
+class GotohResult(NamedTuple):
+    """finals: (B, 3) int32 -- M/I/D at (n2[b], n1[b]), on the host.
+    dirs: (ceil(D_total/4), B, P) uint32 direction bytes on the fill's
+    device (None in score-only mode)."""
+
+    finals: np.ndarray
+    dirs: Optional[torch.Tensor]
+
+
+def _check_gotoh_args(seq1, s2v, dsum, n2mask, l1: int, l2: int):
+    B = seq1.shape[0]
+    P = s2v.shape[1]
+    for name, t, shape in (
+        ("seq1", seq1, (B, seq1.shape[1])), ("s2v", s2v, (B, P)),
+        ("dsum", dsum, (B, 1)), ("n2mask", n2mask, (B, P)),
+    ):
+        if t.dtype != torch.int32 or t.dim() != 2 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != seq1.device:
+            raise ValueError(f"{name} is on {t.device}, not {seq1.device}")
+    if seq1.shape[1] < 1 or P % 128 or P < l2 + 1 or l1 < 0 or l2 < 0:
+        raise ValueError(f"bad per-pair layout: L1p {seq1.shape[1]}, P {P}, "
+                         f"l1 {l1}, l2 {l2}")
+
+
+def gotoh_fill_torch(
+    seq1, s2v, dsum, n2mask, l1: int, l2: int,
+    scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
+):
+    """Plain PyTorch twin of _gotoh_fill_lax: a Python loop over the
+    D_total = l1 + l2 + 1 diagonals.  seq1: (B, L1p) int32 query codes;
+    s2v: (B, P) int32 db codes at lanes 1..l2; dsum: (B, 1) int32 n1 + n2;
+    n2mask: (B, P) int32, non-zero at the capture lane.  Returns (finals
+    (B, 3) int32, dirs (ceil(D_total/4), B, P) uint32 or None)."""
+    _check_gotoh_args(seq1, s2v, dsum, n2mask, l1, l2)
+    B, P = s2v.shape
+    dev = s2v.device
+    D_total = l1 + l2 + 1
+    state = torch.full((B, P), NEG_INF, dtype=torch.int32, device=dev)
+    H2 = H1 = M1 = I1 = D1 = state
+    s1d = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    mask = (n2mask != 0).to(torch.int64)
+    finals = torch.zeros((B, 3), dtype=torch.int64, device=dev)
+    # Capture schedule: diagonal -> the pairs whose corner lies on it.
+    ds = dsum[:, 0].cpu().numpy()
+    events = {int(d): torch.from_numpy(np.flatnonzero(ds == d)).to(dev)
+              for d in np.unique(ds)}
+    pack = None
+    if with_dirs:
+        pack = DirsPacker(torch.empty((-(-D_total // 4), B, P),
+                                      dtype=torch.uint32, device=dev), 4)
+    for d in range(D_total):
+        col = seq1[:, min(max(d - 1, 0), seq1.shape[1] - 1)]
+        M, I, D, H, s1d, byte = gotoh_step_torch(
+            H2, H1, M1, I1, D1, s1d, col, s2v, d, scheme, compat, wildcard,
+            with_dirs,
+        )
+        rows = events.get(d)
+        if rows is not None:
+            m = mask[rows]
+            finals[rows] += torch.stack(
+                [(t[rows].to(torch.int64) * m).sum(1) for t in (M, I, D)],
+                dim=1)
+        if pack is not None:
+            pack.add(d, byte)
+        H2, H1, M1, I1, D1 = H1, H, M, I, D
+    finals = _to_u32(finals & 0xFFFFFFFF).view(torch.int32)
+    return finals, pack.flush() if pack is not None else None
+
+
+def gotoh_fill_cuda(
+    seq1, s2v, dsum, n2mask, l1: int, l2: int,
+    scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
+    cta_lanes: int = 0,
+):
+    """The per-pair global kernel (csrc/nw_affine.cu) on CUDA tensors: same
+    arguments and results as gotoh_fill_torch; pairs past 8192 lanes are
+    split over a cluster, cta_lanes > 0 forces the split's CTA width.
+    Raises on a CPU tensor, a non-contiguous input, an unsupported shape or
+    a failed launch."""
+    _check_gotoh_args(seq1, s2v, dsum, n2mask, l1, l2)
+    if not seq1.is_cuda:
+        raise ValueError("gotoh_fill_cuda needs CUDA tensors")
+    if not all(t.is_contiguous() for t in (seq1, s2v, dsum, n2mask)):
+        raise ValueError("gotoh fill inputs must be contiguous")
+    lib = csrc.kernels()
+    B, P = s2v.shape
+    nctas = lib.sa_fill_ctas(P, cta_lanes)
+    if nctas == 0:
+        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
+                         "the CUDA global kernel's range")
+    dev = s2v.device
+    D_total = l1 + l2 + 1
+    finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    dirs = None
+    if with_dirs:
+        dirs = torch.empty((-(-D_total // 4), B, P), dtype=torch.uint32,
+                           device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_gotoh_fill(
+            seq1.data_ptr(), s2v.data_ptr(), dsum.data_ptr(),
+            n2mask.data_ptr(), finals.data_ptr(),
+            dirs.data_ptr() if dirs is not None else None,
+            B, seq1.shape[1], P, D_total,
+            scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, 2 if with_dirs else 0, int(compat),
+            int(wildcard), cta_lanes, stream,
+        )
+    if rc != 0:
+        raise csrc.launch_error("sa_gotoh_fill", rc, nctas)
+    gotoh_fill_cuda.launches += 1
+    return finals, dirs
+
+
+gotoh_fill_cuda.launches = 0
+
+
+def gotoh_fill(seq1, s2v, dsum, n2mask, l1, l2, scheme, compat, wildcard,
+               with_dirs):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (seq1, s2v, dsum, n2mask, l1, l2, scheme, compat, wildcard,
+            with_dirs)
+    if seq1.is_cuda:
+        return gotoh_fill_cuda(*args)
+    if seq1.device.type != "cpu":
+        raise ValueError(f"unsupported device {seq1.device}")
+    return gotoh_fill_torch(*args)
+
+
+def gotoh_layout(db: torch.Tensor, query_len: torch.Tensor,
+                 db_len: torch.Tensor):
+    """(B, L2) db codes and (B,) lengths -> the fill's (s2v, dsum, n2mask)
+    on the batch's device: P = round_up(L2 + 1, 128) lanes with db at
+    lanes 1..L2, dsum = n1 + n2 as (B, 1), n2mask one-hot at lane n2."""
+    B, L2 = db.shape
+    P = _round_up(L2 + 1, 128)
+    dev = db.device
+    s2v = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    s2v[:, 1: L2 + 1] = db
+    dlen = db_len.to(device=dev, dtype=torch.int32)
+    dsum = (query_len.to(device=dev, dtype=torch.int32) + dlen)[:, None]
+    lanes = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+    n2mask = (lanes == dlen[:, None]).to(torch.int32)
+    return s2v, dsum.contiguous(), n2mask
+
+
+def nw_affine_batch(
+    query: torch.Tensor,
+    db: torch.Tensor,
+    query_len: torch.Tensor,
+    db_len: torch.Tensor,
+    scheme: ScoringScheme = ScoringScheme(),
+    compat: bool = True,
+    wildcard: bool = False,
+    with_dirs: bool = True,
+) -> GotohResult:
+    """Batched Gotoh fill of a padded batch held as tensors
+    (device.to_device): finals (B, 3) = M/I/D at each pair's true corner on
+    the host, plus the full direction bytes on the batch's device for
+    ops.traceback.traceback_pair."""
+    query = query.to(torch.int32).contiguous()
+    s2v, dsum, n2mask = gotoh_layout(db, query_len, db_len)
+    finals, dirs = gotoh_fill(query, s2v, dsum, n2mask, query.shape[1],
+                              db.shape[1], scheme, compat, wildcard,
+                              with_dirs)
+    return GotohResult(finals=finals.cpu().numpy(), dirs=dirs)

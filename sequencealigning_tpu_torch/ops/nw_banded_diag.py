@@ -31,7 +31,9 @@ Two implementations of the fill, chosen by the tensors' device:
   against);
 * ``banded_diag_fill_cuda`` -- the hand-written kernel
   (``csrc/nw_banded_diag.cu``; CUDA tensors only), one block a pair up to
-  8192 lanes, a thread-block cluster a pair past it.
+  8192 lanes, a thread-block cluster a pair up to 131072 lanes, and past
+  that the wide route: one launch a wavefront with the lanes' state in
+  device memory, limited by device memory only.
 """
 
 from __future__ import annotations
@@ -44,15 +46,16 @@ import torch.nn.functional as F
 
 from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
-from sequencealigning_tpu_torch.errors import AlignmentError
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker, _bit
 
 NEGBIG = -(2 ** 24)  # band-mask -inf
-# The widest band the CUDA kernel takes: a cluster of 16 CTAs of 8192 lanes
-# (csrc/cluster_split.cuh::plan_split).
+# The widest band a thread-block cluster holds: 16 CTAs of 8192 lanes
+# (csrc/cluster_split.cuh::plan_split); wider bands take the wide route.
 CUDA_BAND_LANES = 16 * 8192
+# Bytes of the wide route's state a lane: two buffers of 7 int32.
+WIDE_STATE_BYTES = 2 * 7 * 4
 _DIRS_CODES = {False: 0, "fast4": 1, "full": 2}
 
 
@@ -319,6 +322,33 @@ def banded_diag_fill_torch(
 # ---------------------------------------------------------------------------
 
 
+def _cuda_fill_setup(s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat,
+                     wildcard, dirs_mode, model, name):
+    """The checks and outputs the two CUDA routes share: (inputs, finals,
+    dirs, the int arguments both entries take after their pointers)."""
+    dirs_mode = _norm_dirs(dirs_mode)
+    _check_model(model, compat, dirs_mode)
+    _check_fill_args(s1w0, s2w0, c1s, c2s, n1v, n2v, plan)
+    if not s1w0.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    ins = (s1w0, s2w0, c1s, c2s, n1v, n2v)
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError("banded fill inputs must be contiguous")
+    B, L = s1w0.shape
+    n_iters = c1s.shape[1]
+    dev = s1w0.device
+    finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    dirs = None
+    if dirs_mode:
+        dirs = torch.empty((-(-2 * n_iters // _upack(dirs_mode)), B, L),
+                           dtype=torch.uint32, device=dev)
+    ints = (B, L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
+            scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
+            int(wildcard), int(model == "std"))
+    return ins, finals, dirs, ints
+
+
 def banded_diag_fill_cuda(
     s1w0, s2w0, c1s, c2s, n1v, n2v, plan: BandPlan,
     scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
@@ -327,46 +357,33 @@ def banded_diag_fill_cuda(
     """The banded fill kernel (csrc/nw_banded_diag.cu) on CUDA tensors:
     same arguments and results as banded_diag_fill_torch.  A band past 8192
     lanes is split over a thread-block cluster; cta_lanes > 0 forces CTAs of
-    that many lanes (a multiple of 128, for testing the split).  A band
-    wider than CUDA_BAND_LANES raises AlignmentError (the batch's pairs
-    cannot be aligned on the card; the plain version takes any width).
-    Raises ValueError on a CPU tensor, a non-contiguous input or a CTA
-    width out of range, RuntimeError on a failed launch or a cluster the
-    card cannot schedule."""
-    dirs_mode = _norm_dirs(dirs_mode)
-    _check_model(model, compat, dirs_mode)
-    _check_fill_args(s1w0, s2w0, c1s, c2s, n1v, n2v, plan)
+    that many lanes (a multiple of 128, for testing the split).  A band past
+    CUDA_BAND_LANES takes the wide route (banded_wide_fill_cuda, which any
+    band may be given directly), which has no CTA width.  Raises ValueError
+    on a CPU tensor, a non-contiguous input or a CTA width out of range,
+    RuntimeError on a failed launch or a cluster the card cannot
+    schedule."""
     if plan.L > CUDA_BAND_LANES:
-        raise AlignmentError(
-            f"band of {plan.L} lanes exceeds the CUDA banded kernel's "
-            f"{CUDA_BAND_LANES} lanes")
-    if not s1w0.is_cuda:
-        raise ValueError("banded_diag_fill_cuda needs CUDA tensors")
-    ins = (s1w0, s2w0, c1s, c2s, n1v, n2v)
-    if not all(t.is_contiguous() for t in ins):
-        raise ValueError("banded fill inputs must be contiguous")
+        if cta_lanes:
+            raise ValueError("the wide route has no CTA width")
+        return banded_wide_fill_cuda(s1w0, s2w0, c1s, c2s, n1v, n2v, plan,
+                                     scheme, compat, wildcard, dirs_mode,
+                                     model)
+    ins, finals, dirs, ints = _cuda_fill_setup(
+        s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat, wildcard,
+        dirs_mode, model, "banded_diag_fill_cuda")
     lib = csrc.kernels()
-    B, L = s1w0.shape
-    n_iters = c1s.shape[1]
-    nctas = lib.sa_fill_ctas(L, cta_lanes)
+    nctas = lib.sa_fill_ctas(plan.L, cta_lanes)
     if nctas == 0:
-        raise ValueError(f"band of {L} lanes (CTA width {cta_lanes}) is out "
-                         "of the CUDA banded kernel's range")
+        raise ValueError(f"band of {plan.L} lanes (CTA width {cta_lanes}) is "
+                         "out of the CUDA banded kernel's range")
     dev = s1w0.device
-    finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-    dirs = None
-    if dirs_mode:
-        dirs = torch.empty((-(-2 * n_iters // _upack(dirs_mode)), B, L),
-                           dtype=torch.uint32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sa_banded_fill(
             *(t.data_ptr() for t in ins), finals.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None,
-            B, L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
-            scheme.match_, scheme.mismatch, scheme.gap_open,
-            scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
-            int(wildcard), int(model == "std"), cta_lanes, stream,
+            dirs.data_ptr() if dirs is not None else None, *ints,
+            cta_lanes, stream,
         )
     if rc != 0:
         raise csrc.launch_error("sa_banded_fill", rc, nctas)
@@ -375,6 +392,42 @@ def banded_diag_fill_cuda(
 
 
 banded_diag_fill_cuda.launches = 0
+
+
+def banded_wide_fill_cuda(
+    s1w0, s2w0, c1s, c2s, n1v, n2v, plan: BandPlan,
+    scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
+    model: str = "ref",
+):
+    """The banded fill's wide route (csrc/nw_banded_diag.cu,
+    sa_banded_wide_fill) on CUDA tensors, at any band width: one launch a
+    wavefront, the lanes' state in WIDE_STATE_BYTES of device memory a lane.
+    Same arguments and results as banded_diag_fill_torch.  Raises
+    ValueError on a CPU tensor or a non-contiguous input, RuntimeError on a
+    failed launch, and torch's out-of-memory error where the device cannot
+    hold the state or the direction codes."""
+    ins, finals, dirs, ints = _cuda_fill_setup(
+        s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat, wildcard,
+        dirs_mode, model, "banded_wide_fill_cuda")
+    lib = csrc.kernels()
+    B, L = s1w0.shape
+    dev = s1w0.device
+    state = torch.empty((B * L * WIDE_STATE_BYTES // 4,), dtype=torch.int32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_banded_wide_fill(
+            *(t.data_ptr() for t in ins), finals.data_ptr(),
+            dirs.data_ptr() if dirs is not None else None, state.data_ptr(),
+            *ints, stream,
+        )
+    if rc != 0:
+        raise csrc.launch_error("sa_banded_wide_fill", rc)
+    banded_wide_fill_cuda.launches += 1
+    return finals, dirs
+
+
+banded_wide_fill_cuda.launches = 0
 
 
 def banded_diag_fill(s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat,

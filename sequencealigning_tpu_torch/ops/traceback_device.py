@@ -103,7 +103,7 @@ def _pack_ops(ops: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32).view(torch.uint32).T.contiguous()
 
 
-def _check_walk_args(dirs, seeds, t_steps: int):
+def _check_walk_args(dirs, seeds, t_steps: int, check_bounds: bool = True):
     if dirs.dtype != torch.uint32 or dirs.dim() != 3:
         raise ValueError(f"dirs: expected (W, R, P) uint32, got {dirs.dtype} "
                          f"{tuple(dirs.shape)}")
@@ -116,10 +116,14 @@ def _check_walk_args(dirs, seeds, t_steps: int):
     if t_steps < 1:
         raise ValueError("t_steps must be positive")
     x0, y0, _plane0, rowp, off = seeds
-    if b and (int(rowp.min()) < 0 or int(rowp.max()) >= dirs.shape[1]
-              or int(x0.min()) < 0 or int(x0.max()) >= dirs.shape[2]
-              or int(y0.min()) < 0 or int(off.min()) < 0
-              or int((x0 + y0 + off).max()) >= 8 * dirs.shape[0]):
+    # The bounds need the seeds' values, which on a card waits for the work
+    # queued before the walk; check_bounds=False is for seeds the caller
+    # built from the fill's own plan.
+    if check_bounds and b and (
+            int(rowp.min()) < 0 or int(rowp.max()) >= dirs.shape[1]
+            or int(x0.min()) < 0 or int(x0.max()) >= dirs.shape[2]
+            or int(y0.min()) < 0 or int(off.min()) < 0
+            or int((x0 + y0 + off).max()) >= 8 * dirs.shape[0]):
         raise ValueError("walk seeds reach outside the dirs tensor")
 
 
@@ -149,12 +153,15 @@ def walk_fast4_torch(dirs, x0, y0, plane0, rowp, off, t_steps: int):
     return x, y, _pack_ops(ops), n_ops
 
 
-def walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps: int):
+def walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps: int,
+                    check_bounds: bool = True):
     """The walk kernel (csrc/traceback_device.cu) on CUDA tensors: same
-    arguments and results as walk_fast4_torch.  Raises on a CPU tensor, a
-    non-contiguous input or a failed launch."""
+    arguments and results as walk_fast4_torch.  check_bounds=False skips
+    the seeds' range check (which waits for the card), for seeds built
+    from the fill's plan.  Raises on a CPU tensor, a non-contiguous input
+    or a failed launch."""
     seeds = (x0, y0, plane0, rowp, off)
-    _check_walk_args(dirs, seeds, t_steps)
+    _check_walk_args(dirs, seeds, t_steps, check_bounds)
     if not dirs.is_cuda:
         raise ValueError("walk_fast4_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (dirs,) + seeds):
@@ -185,10 +192,12 @@ def walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps: int):
 walk_fast4_cuda.launches = 0
 
 
-def walk_fast4(dirs, x0, y0, plane0, rowp, off, t_steps: int):
+def walk_fast4(dirs, x0, y0, plane0, rowp, off, t_steps: int,
+               check_bounds: bool = True):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if dirs.is_cuda:
-        return walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps)
+        return walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps,
+                               check_bounds)
     if dirs.device.type != "cpu":
         raise ValueError(f"unsupported device {dirs.device}")
     return walk_fast4_torch(dirs, x0, y0, plane0, rowp, off, t_steps)
@@ -519,7 +528,8 @@ def _modes_step(byte, x, y, plane, st, local: bool):
     return op, x, y, plane, st.to(torch.int32)
 
 
-def _check_modes_walk_args(dirs, seeds, t_steps: int):
+def _check_modes_walk_args(dirs, seeds, t_steps: int,
+                           check_bounds: bool = True):
     if dirs.dtype != torch.uint32 or dirs.dim() != 3:
         raise ValueError(f"dirs: expected (W, R, P) uint32, got {dirs.dtype} "
                          f"{tuple(dirs.shape)}")
@@ -532,7 +542,8 @@ def _check_modes_walk_args(dirs, seeds, t_steps: int):
     if t_steps < 1:
         raise ValueError("t_steps must be positive")
     rowp = seeds[2]
-    if b and (int(rowp.min()) < 0 or int(rowp.max()) >= dirs.shape[1]):
+    if check_bounds and b and (int(rowp.min()) < 0
+                               or int(rowp.max()) >= dirs.shape[1]):
         raise ValueError("walk rows reach outside the dirs tensor")
 
 
@@ -570,12 +581,14 @@ def walk_modes_torch(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
     return x, y, st, _pack_ops(ops), n_ops
 
 
-def walk_modes_cuda(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
+def walk_modes_cuda(dirs, x0, y0, rowp, off, local: bool, t_steps: int,
+                    check_bounds: bool = True):
     """The modes walk kernel (csrc/traceback_device.cu) on CUDA tensors:
-    same arguments and results as walk_modes_torch.  Raises on a CPU
-    tensor, a non-contiguous input or a failed launch."""
+    same arguments and results as walk_modes_torch; check_bounds as
+    walk_fast4_cuda's.  Raises on a CPU tensor, a non-contiguous input or
+    a failed launch."""
     seeds = (x0, y0, rowp, off)
-    _check_modes_walk_args(dirs, seeds, t_steps)
+    _check_modes_walk_args(dirs, seeds, t_steps, check_bounds)
     if not dirs.is_cuda:
         raise ValueError("walk_modes_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (dirs,) + seeds):
@@ -605,10 +618,12 @@ def walk_modes_cuda(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
 walk_modes_cuda.launches = 0
 
 
-def walk_modes(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
+def walk_modes(dirs, x0, y0, rowp, off, local: bool, t_steps: int,
+               check_bounds: bool = True):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if dirs.is_cuda:
-        return walk_modes_cuda(dirs, x0, y0, rowp, off, local, t_steps)
+        return walk_modes_cuda(dirs, x0, y0, rowp, off, local, t_steps,
+                               check_bounds)
     if dirs.device.type != "cpu":
         raise ValueError(f"unsupported device {dirs.device}")
     return walk_modes_torch(dirs, x0, y0, rowp, off, local, t_steps)

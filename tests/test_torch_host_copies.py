@@ -149,6 +149,64 @@ def test_encode_helpers_equal():
         _outcome(jax_encode.encode_seq, b"ACGX")
 
 
+def _ascii(seed, n, hi, alphabet=b"ACGTN"):
+    """(n, hi + 3) uint8 ASCII rows with garbage past each true length."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(np.frombuffer(alphabet, np.uint8), (n, hi + 3))
+    lens = rng.integers(0, hi + 1, n).astype(np.int32)
+    rows[np.arange(hi + 3)[None, :] >= lens[:, None]] = ord("x")
+    return rows, lens
+
+
+def _fields_equal(got, want, names):
+    for f in names:
+        g, w = getattr(got, f), getattr(want, f)
+        if w is None or isinstance(w, int):
+            assert g == w, f
+            continue
+        np.testing.assert_array_equal(g, w)
+        assert g.dtype == w.dtype, f
+
+
+@pytest.mark.parametrize("alphabet", [b"ACGT", b"ACGTN"])
+@pytest.mark.parametrize("batch_size", [0, 16])
+def test_wire_format_equal(alphabet, batch_size):
+    """pack_arrays, pack_wire (with its _wire_enc) and wire_pack_codes:
+    the same arrays, widths and N masks as the originals."""
+    q, ql = _ascii(5, 11, 140, alphabet)
+    d, dl = _ascii(6, 11, 260, alphabet)
+    _fields_equal(encode.pack_arrays(q, d, ql, dl, batch_size=batch_size),
+                  jax_encode.pack_arrays(q, d, ql, dl, batch_size=batch_size),
+                  ("query", "db", "query_len", "db_len", "valid"))
+    for validate in (True, False):
+        got = encode.pack_wire(q, d, ql, dl, batch_size=batch_size,
+                               validate=validate)
+        want = jax_encode.pack_wire(q, d, ql, dl, batch_size=batch_size,
+                                    validate=validate)
+        _fields_equal(got, want, ("q2", "d2", "qn", "dn", "query_len",
+                                  "db_len", "l1", "l2", "valid"))
+        assert got.size == want.size
+    codes = encode.pack_arrays(q, d, ql, dl).query
+    for a, b in zip(encode.wire_pack_codes(codes),
+                    jax_encode.wire_pack_codes(codes)):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_wire_format_errors_equal():
+    q, ql = _ascii(7, 4, 30)
+    q[0, 0] = ord("Z")
+    ql[0] = max(ql[0], 1)
+    for fn in ("pack_arrays", "pack_wire"):
+        assert _outcome(getattr(encode, fn), q, q, ql, ql) == \
+            _outcome(getattr(jax_encode, fn), q, q, ql, ql)
+    got = encode.pack_wire(q, q, ql, ql, validate=False)
+    want = jax_encode.pack_wire(q, q, ql, ql, validate=False)
+    np.testing.assert_array_equal(got.q2, want.q2)
+
+
 # ---------------------------------------------------------------------------
 # native runtime
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from sequencealigning_tpu import config as jax_config
 from sequencealigning_tpu.models.banded import BandedAligner as JaxBanded
@@ -16,6 +17,17 @@ from sequencealigning_tpu_torch.models import (
     GotohAligner,
     get_aligner,
 )
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test's plain torch ops: the suite runs
+    several workers on the machine's cores, and wide per-step ops across
+    threads that other workers hold stall at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax(config):
@@ -120,23 +132,64 @@ def test_failed_device_walk_is_rewalked_on_host(monkeypatch):
     assert port.host_fallbacks == 1
 
 
-def test_failed_cuda_walk_is_a_pair_error_not_a_host_walk(monkeypatch):
-    """On a CUDA aligner a failed device walk becomes that pair's error;
-    the host never re-walks it.  The tensors stay on the CPU here (no card):
-    only the aligner's device says cuda."""
+def _runner_on_cpu(monkeypatch):
+    """A CUDA aligner's first-only batches take the data-parallel runner's
+    fill+walk; with no card here the runner is built as the aligner builds
+    it, on the CPU."""
     import torch
 
-    import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
+    real = GotohAligner._dp_runner
+
+    def on_cpu(self):
+        device, self.device = self.device, torch.device("cpu")
+        try:
+            return real(self)
+        finally:
+            self.device = device
+
+    monkeypatch.setattr(GotohAligner, "_dp_runner", on_cpu)
+
+
+def test_failed_cuda_walk_is_a_pair_error_not_a_host_walk(monkeypatch):
+    """On a CUDA aligner (first-only batches through the runner's
+    fill+walk) a failed device walk becomes that pair's error; the host
+    never re-walks it.  The tensors stay on the CPU here (no card): the
+    aligner's device says cuda and the runner's dirs report is_cuda (the
+    plain walk walks them)."""
+    import torch
+
+    import sequencealigning_tpu_torch.parallel.runner as runner_mod
+    from sequencealigning_tpu_torch.parallel import DataParallelRunner
+
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
 
     recs = _records(21, n=6)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
     want = _view(GotohAligner(config, device="cpu").align_batch(recs))
-    _drop_walk_of_pair_2(monkeypatch, gotoh_mod)
-    real_to_device = gotoh_mod.to_device
-    monkeypatch.setattr(gotoh_mod, "to_device",
-                        lambda batch, device: real_to_device(batch, "cpu"))
+    real_fill = DataParallelRunner._stream_fill_body
+    real_walk = runner_mod.walk_fast4
+    real_decode = runner_mod.decode_packed_alignments
+
+    def fill(self, *args, **kwargs):
+        finals, dirs = real_fill(self, *args, **kwargs)
+        return finals, dirs.as_subclass(OnCard)
+
+    def decode_dropping_pair_2(*args, **kwargs):
+        alns = real_decode(*args, **kwargs)
+        alns[2] = None
+        return alns
+
+    monkeypatch.setattr(DataParallelRunner, "_stream_fill_body", fill)
+    monkeypatch.setattr(runner_mod, "walk_fast4", lambda dirs, *a, **k:
+                        real_walk(dirs.as_subclass(torch.Tensor), *a, **k))
+    monkeypatch.setattr(runner_mod, "decode_packed_alignments",
+                        decode_dropping_pair_2)
     monkeypatch.setattr(GotohAligner, "_dirs_budget",
                         lambda self: self.dirs_host_budget)
+    _runner_on_cpu(monkeypatch)
     port = GotohAligner(config, device="cpu")
     port.device = torch.device("cuda")
     got = _view(port.align_batch(recs))
@@ -166,6 +219,7 @@ def test_lane_ceilings(monkeypatch, device):
                             lambda batch, dev: real_to_device(batch, "cpu"))
     monkeypatch.setattr(GotohAligner, "_dirs_budget",
                         lambda self, host_fetch=None: self.dirs_host_budget)
+    _runner_on_cpu(monkeypatch)
     port = GotohAligner(config, device="cpu")
     port.device = torch.device(device)
     want = _view(JaxGotoh(_jax(config)).align_batch(recs))
@@ -525,17 +579,78 @@ def test_failed_banded_walk(monkeypatch, device):
         assert "walk_banded_cuda" in got[2][7]
 
 
-def test_banded_band_past_the_cuda_width_is_per_pair_error(monkeypatch):
-    """On CUDA (the fill routed to the kernel's wrapper) a band needing
-    more than the cluster split's 131072 lanes answers every pair with an
-    AlignmentError instead of escaping align_batch; the CPU aligns the same
-    batch."""
+def test_banded_band_past_the_cuda_width_is_per_pair_error(monkeypatch,
+                                                         one_thread):
+    """On CUDA a band needing more than a cluster's 131072 lanes is no
+    longer refused: the fill takes the kernel's wide route and every pair
+    aligns as on the CPU.  No card here: the kernel wrapper runs on CPU
+    tensors that report is_cuda, and its library is the host build of the
+    kernels' loops (csrc/host_check.cpp), whose wide route runs the CUDA
+    kernel's per-lane code."""
     import sequencealigning_tpu_torch.ops.nw_banded_diag as nbd
 
-    recs = _records(17, n=5, hi=30)
+    recs = _records(17, n=3, hi=30)
     config = AlignConfig(algo=Algo.BANDED, first_only=True, band=131_100)
-    assert all(r.ok for r in BandedAligner(config, "cpu").align_batch(recs))
+    want = _view(BandedAligner(config, "cpu").align_batch(recs))
+    assert all(w[7] is None for w in want)
+    calls = _fake_banded_kernel(monkeypatch)
     monkeypatch.setattr(nbd, "banded_diag_fill", nbd.banded_diag_fill_cuda)
-    got = BandedAligner(config, "cpu").align_batch(recs)
-    assert [r.ok for r in got] == [False] * 5
-    assert all("131072 lanes" in r.error for r in got)
+    got = _view(BandedAligner(config, "cpu").align_batch(recs))
+    assert got == want
+    assert calls == ["sa_banded_wide_fill"]
+    assert nbd.banded_wide_fill_cuda.launches == 1
+    assert nbd.banded_diag_fill_cuda.launches == 0
+
+
+def _fake_banded_kernel(monkeypatch):
+    """Route the banded fill and walk wrappers to the host build of the
+    kernels' loops, on CPU tensors that pass their device checks.  Returns
+    the list of fill entries called."""
+    import contextlib
+    import types
+
+    import torch
+
+    import sequencealigning_tpu_torch.ops.nw_banded_diag as nbd
+    from sequencealigning_tpu_torch import csrc
+
+    host = csrc.host_check()
+    calls = []
+
+    class Lib:
+        sa_fill_ctas = staticmethod(host.hc_fill_ctas)
+
+        @staticmethod
+        def sa_banded_wide_fill(*args):
+            calls.append("sa_banded_wide_fill")
+            # minus the scratch state (argument 8) and the stream
+            return host.hc_banded_wide_fill(*args[:8], *args[9:-1])
+
+        @staticmethod
+        def sa_banded_fill(*args):
+            calls.append("sa_banded_fill")
+            return host.hc_banded_fill(*args[:-1])
+
+        @staticmethod
+        def sa_walk_banded(*args):
+            return host.hc_walk_banded(*args[:-1])
+
+    monkeypatch.setattr(csrc, "kernels", lambda: Lib)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(nbd.banded_diag_fill_cuda, "launches", 0)
+    monkeypatch.setattr(nbd.banded_wide_fill_cuda, "launches", 0)
+    return calls
+
+
+def test_banded_band_past_the_cuda_width_equals_jax(one_thread):
+    """-a banded --band 131100 (L > 131072 lanes) on pairs of <= 30 bp:
+    the port (CPU) gives the JAX BandedAligner's scores and strings."""
+    recs = _records(19, n=4, hi=30)
+    config = AlignConfig(algo=Algo.BANDED, band=131_100)
+    got = _view(BandedAligner(config, "cpu").align_batch(recs))
+    assert got == _view(JaxBanded(_jax(config)).align_batch(recs))
+    assert all(g[7] is None for g in got)

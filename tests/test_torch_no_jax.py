@@ -47,6 +47,8 @@ def test_importing_every_port_module_loads_no_jax():
               "ops.nw_affine_tiled", "ops.mm_align",
               "ops.nw_affine_stream_modes", "ops.traceback",
               "ops.traceback_device", "ops.oracle_gotoh", "models.banded",
+              "parallel", "parallel.mesh", "parallel.runner",
+              "parallel.streaming",
               "utils.cigar", "utils.guards", "utils.pprint", "utils.stats"):
         assert f"sequencealigning_tpu_torch.{m}" in mods
     code = (
@@ -97,3 +99,18 @@ def test_cuda_device_is_never_replaced_by_cpu():
             resolve_device("cuda")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_runner_devices_are_never_replaced_by_cpu():
+    """The runner's default devices are every CUDA device; with none it
+    raises instead of running on the CPU.  The CPU is named explicitly."""
+    from sequencealigning_tpu_torch.parallel import make_mesh
+
+    assert make_mesh(["cpu"] * 3) == [torch.device("cpu")] * 3
+    if torch.cuda.is_available():
+        assert all(d.type == "cuda" for d in make_mesh())
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()
+    with pytest.raises(ValueError):
+        make_mesh(["meta"])

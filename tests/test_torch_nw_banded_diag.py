@@ -23,6 +23,17 @@ WILD = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
 STD = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3)
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test's plain torch ops: the suite runs
+    several workers on the machine's cores, and wide per-step ops across
+    threads that other workers hold stall at every barrier."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pairs(seed, n, lo1, hi1, lo2, hi2, alphabet=b"ACGT", mutants=True):
     """n pairs of lengths lo..hi; with mutants, every other db is a mutated
     copy of its query cut or padded to its drawn length."""
@@ -191,20 +202,20 @@ def test_fill_wrapper_refuses_cpu_tensors():
     assert port.banded_diag_fill_cuda.launches == 0
 
 
-def test_fill_wrapper_refuses_a_band_past_the_kernel_width():
-    """A band wider than the CUDA kernel's reach (a cluster of 16 CTAs of
-    8192 lanes, 131072 lanes) is an AlignmentError (checked before the
-    device); the plain version fills it."""
-    from sequencealigning_tpu_torch.errors import AlignmentError
-
+def test_fill_wrapper_refuses_a_band_past_the_kernel_width(one_thread):
+    """A band wider than a cluster's reach (16 CTAs of 8192 lanes, 131072
+    lanes) is no longer refused for its width: it takes the wide route,
+    whose wrapper goes on to the device check; the plain version fills
+    it."""
     assert port.CUDA_BAND_LANES == 131072
     batch = pack_batch(_pairs(3, 8, 5, 20, 5, 20), batch_size=8)
     plan, ins = port.band_inputs(*to_device(batch, "cpu"), 131_100)
     assert plan.L > port.CUDA_BAND_LANES
-    with pytest.raises(AlignmentError, match="131072 lanes"):
+    with pytest.raises(ValueError, match="banded_wide_fill_cuda needs CUDA"):
         port.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, False,
                                    "fast4")
     assert port.banded_diag_fill_cuda.launches == 0
+    assert port.banded_wide_fill_cuda.launches == 0
     fin, dirs = port.banded_diag_fill_torch(*ins, plan, ScoringScheme(),
                                             True, False, "fast4")
     assert fin.shape == (8, 3) and dirs.shape[2] == plan.L
