@@ -36,8 +36,9 @@ in the phases below and exits non-zero at the first failure:
    affine scoring (semi with free end gaps) equal to its score; one more
    local align_batch under torch.profiler and cProfile;
 9. CLI (first-only, co-optimal, textbook local and semi-global: the
-   per-pair modes kernel's path, and -a banded) and serve (first-only,
-   textbook local, banded) on the golden corpus with --device cuda;
+   per-pair modes kernel's path, -a banded, a-star with no -a, nw-linear
+   and nw-linear -m local) and serve (first-only, textbook local, banded)
+   on the golden corpus with --device cuda;
 10. banded fill kernel vs its plain version at BASELINE config 4's shape
    (1024 pairs x 5115 bp, band 128), fast4 and full: finals and the whole
    dirs tensor, also split into 2 CTAs of 128 lanes and forced into the
@@ -89,9 +90,26 @@ in the phases below and exits non-zero at the first failure:
    131200 and 300000 on 4 pairs of 1-2 kb: finals and the whole dirs
    tensor against the plain version, scores against kernel #4's exact
    scores (the band covers the matrix); then BandedAligner first-only at
-   band 131200 on the card.
+   band 131200 on the card;
+19. kernel #8 (the banded row sweep) vs its plain version on ragged and
+   skewed batches (128-lane chunks, bands past one block's 2048 lanes and
+   past the shared memory) and at config 4 in fast4 and full; vs kernel
+   #3 there (finals; full bytes on the band's interior diagonals); then
+   nw_banded_batch with the native fast4 and the host full row-layout
+   walkers on 16 sampled pairs, each alignment rescoring to its finals;
+20. the linear fill vs its plain version on ragged batches, at 4096 x 2046
+   bp score-only (global, textbook, local) and 512 x 2046 bp with path
+   bits (global, local); LinearNWAligner on cuda over the 512 pairs
+   (alignments/s, one pair against the oracle) and 16 small pairs global
+   and local against the oracle;
+21. AStarAligner over 4096 x 1023 bp pairs (alignments/s); 4 sampled pairs
+   equal the oracle's result;
+22. the plain versions' graph replay vs the same step loops run eagerly on
+   the card: the banded fill and the row sweep at config 4, equal results,
+   both times.
 
-Phases 16-18 print their wall seconds.
+Every phase prints its wall seconds; the summary is on a line before the
+card's, and in chip_smoke.json's phase_s.
 
 Launch counts are read per path: every kernel's count is set to 0 just
 before a path runs and read just after; comparisons with plain versions
@@ -150,6 +168,11 @@ N_STREAM, STREAM_CRASH, N_STREAM_PROFILE = 8, 3, 4
 # LEN_WIDE_LO..LEN_WIDE_HI bp at WIDE_BANDS (bands covering the matrix).
 N_WIDE, LEN_WIDE_LO, LEN_WIDE_HI = 4, 1000, 2000
 WIDE_BANDS = (131_200, 300_000)
+# The linear fill with path bits and LinearNWAligner: the first
+# N_LINEAR_DIRS pairs of the main shape.
+N_LINEAR_DIRS = 512
+# AStarAligner: N_ASTAR pairs of LEN_ASTAR bp (BASELINE config 1's length).
+N_ASTAR, LEN_ASTAR = 4096, 1023
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
 # operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
 # 128 fp32 lanes, no fused multiply-add doubling).
@@ -174,6 +197,14 @@ OPS_PER_CELL = {
     "local full": 10 + 1 + 3 + 16 + 2,    # 32
     "walk_fast4": 12, "walk_modes": 14, "walk_banded": 16,
     "score": 10,                          # the tiled fills: no code
+    # The linear cell: substitution 3, the two gap candidates with the
+    # neighbour's gap flag 4, the maximum of three 2, the gap flag 3 = 12;
+    # textbook score-only needs no gap flag (two plain adds 2: 7); local
+    # adds the clamp 1 and the running maximum 2; the path bits 3 ORs and
+    # their packing 2, local's cleared bits 1 and ISMAX 3.
+    "linear score": 12, "linear textbook score": 3 + 2 + 2,
+    "linear local score": 15,
+    "linear bits": 12 + 3 + 2, "linear local bits": 15 + 3 + 2 + 1 + 3,
 }
 KERNELS = {
     # name: (module key, wrapper, source, TPU kernel replaced)
@@ -221,6 +252,14 @@ KERNELS = {
         "banded", "banded_wide_fill_cuda",
         "sequencealigning_tpu_torch/csrc/nw_banded_diag.cu",
         "sequencealigning_tpu/ops/nw_banded_diag.py:350"),
+    "nw_banded_fill": (
+        "row", "banded_row_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_banded.cu",
+        "sequencealigning_tpu/ops/nw_banded.py:311"),
+    "nw_linear_fill": (
+        "linear", "linear_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_linear.cu",
+        "sequencealigning_tpu/ops/nw_linear.py:56"),
 }
 
 
@@ -991,18 +1030,23 @@ def phase_cli(torch, port, by_path):
                              nw + ["-m", "local", "--textbook"]),
                             ("nw-semiglobal-textbook",
                              nw + ["-m", "semi-global", "--textbook"]),
-                            ("banded", ["-a", "banded"])):
+                            ("banded", ["-a", "banded"]),
+                            ("a-star", []),
+                            ("nw-linear", ["-a", "nw-linear"]),
+                            ("nw-linear-local",
+                             ["-a", "nw-linear", "-m", "local"])):
             run_cli(name, extra)
         for args in (nw + ["--first-only"], nw + ["-m", "local", "--textbook"],
                      ["-a", "banded", "--band", "64"]):
             serve(args)
     launches = {k: v[path] for k, v in by_path.items() if path in v}
     for name in ("nw_affine_modes_fill", "walk_modes",
-                 "nw_banded_diag_fill"):
+                 "nw_banded_diag_fill", "nw_linear_fill"):
         check(launches.get(name, 0) > 0,
               f"the golden CLI path never launched {name}")
     log("[9 cli] golden nw-first-only, needleman-wunsch, nw-local-textbook, "
-        "nw-semiglobal-textbook and banded stdout equal on cuda; serve "
+        "nw-semiglobal-textbook, banded, a-star (the default -a), nw-linear "
+        "and nw-linear-local stdout equal on cuda; serve "
         "(first-only, textbook local, banded --band 64) answered 24 pairs "
         f"each; launches {launches}")
 
@@ -2059,6 +2103,446 @@ def phase_wide_band(torch, port, by_path):
     return out
 
 
+def row_vs_diag_full_diff(torch, rdirs, k_lo, gdirs, k_lo_even, n1s, n2s,
+                          rows=64):
+    """Cells whose full bytes differ between kernel #8's row layout (rdirs,
+    (X4, B, K)) and kernel #3's wavefront layout (gdirs, (Aw, B, L)), over
+    every cell 0 <= x <= n2, 0 <= y <= n1 of each pair but the origin in
+    the row band k_lo <= k <= k_hi = k_lo + K - 1 (on row 0 only the
+    H-argmax bits: the row sweep writes no parent bits there, and no walker
+    reads them).  Returns (interior, edge): the band's interior diagonals
+    k_lo < k < k_hi - 1, and its edge diagonals k_lo, k_hi - 1 and k_hi,
+    where the two engines' -inf values differ by design (the row sweep's I
+    at k_lo is NEGBIG + o + e, the wavefront fill's NEGBIG + e; the
+    wavefront fill keeps row 0's compat gap chain (in D) past k_hi, which
+    reaches D at (1, k_hi) and a tie bit at (2, k_hi - 1)).  Swept `rows`
+    rows at a time on the card."""
+    X4, B, K = rdirs.shape
+    dev = rdirs.device
+    r32, g32 = rdirs.view(torch.int32), gdirs.view(torch.int32)
+    n1 = torch.as_tensor(np.asarray(n1s), device=dev)[None, :, None]
+    n2 = torch.as_tensor(np.asarray(n2s), device=dev)[None, :, None]
+    bidx = torch.arange(B, device=dev)[None, :, None]
+    k = (k_lo + torch.arange(K, device=dev))[None, None, :]
+    edge = (k == k_lo) | (k >= k_lo + K - 2)
+    interior = edges = 0
+    for x0 in range(0, 4 * X4, rows):
+        x = torch.arange(x0, min(x0 + rows, 4 * X4), device=dev)[:, None,
+                                                                 None]
+        y = x + k
+        keep = (x <= n2) & (y >= 0) & (y <= n1) & ~((x == 0) & (y == 0))
+        r = (r32[x >> 2, bidx, k - k_lo] >> (8 * (x & 3))) & 0xFF
+        aidx = (x + y - 1).clamp(min=0)
+        g = (g32[(aidx >> 2).clamp(max=gdirs.shape[0] - 1), bidx,
+                 (k - k_lo_even) >> 1] >> (8 * (aidx & 3))) & 0xFF
+        diff = (((r ^ g) & torch.where(x == 0, 7, 0xFF)) != 0) & keep
+        interior += int((diff & ~edge).sum())
+        edges += int((diff & edge).sum())
+    return interior, edges
+
+
+def phase_banded_row(torch, port, pairs, by_path):
+    """Kernel #8 (the banded row sweep) against its plain version on ragged
+    and skewed batches (compat/textbook x none/fast4/full x wildcard, the
+    row forced into 128-lane chunks, bands past one block's 2048 lanes and
+    past the shared memory), then at config 4 in fast4 and full against
+    its plain version and against kernel #3 (finals; full bytes cell for
+    cell inside the band); then the engine's own path, nw_banded_batch and
+    the row-layout walkers (native fast4, host full) on sampled pairs,
+    each alignment rescoring to its finals."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops.traceback import (
+        banded_fast4_traceback_batch,
+        banded_traceback_pair,
+    )
+
+    row, banded = port["row"], port["banded"]
+    rng = np.random.default_rng(19)
+    err, runs, widths = 0, 0, []
+    modes = [(c, w, d) for c in (True, False) for w in (True, False)
+             for d in (False, "fast4", "full")]
+    for band, (lo1, hi1, lo2, hi2), n, cases in (
+            (16, (1, 300, 1, 300), 24, modes),
+            (48, (200, 400, 20, 150), 24, modes),
+            (1100, (100, 300, 100, 300), 6, modes[1:3]),
+            (2300, (50, 200, 50, 200), 6, modes[1:3])):
+        pairs_r = skewed_pairs(rng, n, lo1, hi1, lo2, hi2, b"ACGTN")
+        tb = to_device(pack_batch(pairs_r, batch_size=n), "cuda")
+        k_lo, ins = row.row_inputs(*tb, band)
+        widths.append(int(ins[0].shape[1]))
+        for compat, wildcard, dirs in cases:
+            a = (k_lo, ScoringScheme(), compat, wildcard, dirs)
+            fp, dp = row.banded_row_fill_torch(*ins, *a)
+            for chunk in ((0, 128) if band < 1000 else (0,)):
+                fk, dk = row.banded_row_fill_cuda(*ins, *a, chunk_lanes=chunk)
+                torch.cuda.synchronize()
+                e = int((fk - fp).abs().max())
+                if dirs:
+                    e = max(e, 0 if torch.equal(dk.view(torch.int32),
+                                                dp.view(torch.int32)) else 1)
+                check(e == 0, f"banded row kernel != plain (band {band}, "
+                      f"K={ins[0].shape[1]}, compat={compat}, wildcard="
+                      f"{wildcard}, dirs={dirs}, chunk {chunk}): err {e}")
+                err, runs = max(err, e), runs + 1
+    kern = port["csrc"].kernels()
+    check(widths[2] > 2048 and kern.sa_banded_row_scratch_words(widths[3]) > 0,
+          f"the wide bands ({widths[2:]} lanes) did not cross a block's 2048 "
+          "lanes and the shared memory")
+    log(f"[19 banded row] {runs} ragged/skewed configurations (bands 16-2300,"
+        f" K = {widths}: one chunk, 128-lane chunks, two 2048-lane chunks, "
+        "state in device memory) equal on finals and the whole dirs tensor")
+
+    batch = pack_batch(pairs, batch_size=len(pairs))
+    tb = to_device(batch, "cuda")
+    k_lo, ins = row.row_inputs(*tb, BAND)
+    K = int(ins[0].shape[1])
+    band_cells = int(batch.db_len.astype(np.int64).sum()) * K
+    out = {"rfill_ragged_err": err, "rfill_lanes": K}
+    n1s = batch.query_len.astype(np.int64)
+    n2s = batch.db_len.astype(np.int64)
+    # The bound counts K lanes a row, as kernel #3's does; the band itself
+    # needs only the diagonals of [min(0, n1-n2) - band, max(0, n1-n2) +
+    # band], which the needed-diagonals bound counts.
+    diags = int(max(0, (n1s - n2s).max()) - min(0, (n1s - n2s).min())
+                + 2 * BAND + 1)
+    need_cells = int(n2s.sum()) * diags
+    for dirs in ("fast4", "full"):
+        a = (k_lo, ScoringScheme(), True, True, dirs)
+        ms = cuda_ms(torch, lambda: row.banded_row_fill_cuda(*ins, *a))
+        fk, dk = row.banded_row_fill_cuda(*ins, *a)
+        plain_ms, (fp, dp) = host_ms(
+            torch, lambda: row.banded_row_fill_torch(*ins, *a))
+        e = int((fk - fp).abs().max())
+        e = max(e, 0 if torch.equal(dk.view(torch.int32),
+                                    dp.view(torch.int32)) else 1)
+        del dp
+        check(e == 0, f"banded row kernel != plain at config 4 ({dirs})")
+        b_ms, b_by = bound(nbytes(*ins, fk, dk),
+                           band_cells * OPS_PER_CELL[dirs])
+        need_ms = bound(nbytes(*ins, fk, dk),
+                        need_cells * OPS_PER_CELL[dirs])[0]
+        # Kernel #3 at the same band: equal finals, and in full the same
+        # bytes on every in-band cell.
+        plan, gins = banded.band_inputs(*tb, BAND)
+        fg, dg = banded.banded_diag_fill_cuda(*gins, plan, ScoringScheme(),
+                                              True, True, dirs)
+        cross, edge = int((fk - fg).abs().max()), 0
+        if dirs == "full":
+            inner, edge = row_vs_diag_full_diff(
+                torch, dk, k_lo, dg, plan.k_lo_even, n1s, n2s)
+            cross = max(cross, inner)
+        del dg
+        check(cross == 0, f"kernel #8 != kernel #3 at config 4 ({dirs}): "
+              f"{cross}")
+        log(f"[19 banded row] {len(pairs)} x {LEN_BAND} bp band {BAND} {dirs}"
+            f" (K={K}, dirs {dk.numel() * 4 / 1e9:.2f} GB): kernel {ms:.3f} "
+            f"ms, plain {plain_ms:.1f} ms, band {band_cells / ms / 1e6:.2f} "
+            f"GCUPS, bound {b_ms:.3f} ms ({b_by}; {need_ms:.3f} ms over the "
+            f"{diags} diagonals the band needs); finals and the whole dirs "
+            "tensor equal the plain version; finals"
+            + (" and every full byte on the band's interior diagonals"
+               if dirs == "full" else "") + " equal kernel #3's"
+            + (f" ({edge} cells differ on its edge diagonals, by design)"
+               if dirs == "full" else ""))
+        out.update({f"rfill_{dirs}_ms": ms,
+                    f"rfill_{dirs}_plain_ms": plain_ms,
+                    f"rfill_{dirs}_err": e, f"rfill_{dirs}_cross_err": cross,
+                    f"rfill_{dirs}_edge_cells": edge,
+                    f"rfill_{dirs}_band_gcups": band_cells / ms / 1e6,
+                    f"rfill_{dirs}_bound_ms": b_ms,
+                    f"rfill_{dirs}_bound_by": b_by,
+                    f"rfill_{dirs}_bound_needed_ms": need_ms,
+                    "rfill_band_diagonals": diags})
+        del dk
+
+    # The engine's own path: nw_banded_batch on the card, then the
+    # row-layout walkers on a sample of its pairs.
+    sample = np.sort(np.random.default_rng(20).choice(len(pairs), 16,
+                                                      replace=False))
+    path = "banded row sweep (nw_banded_batch + row-layout walkers)"
+    scheme = ScoringScheme()
+    with path_launches(port, by_path, path):
+        t0 = time.perf_counter()
+        res4 = row.nw_banded_batch(*tb, band=BAND, wildcard=True,
+                                   with_dirs="fast4")
+        pick = torch.as_tensor(sample, device=res4.dirs.device)
+        d4 = res4.dirs.view(torch.int32)[:, pick].view(torch.uint32).cpu()
+        walks = banded_fast4_traceback_batch(
+            d4.numpy(), res4.finals[sample], [pairs[b][0] for b in sample],
+            [pairs[b][1] for b in sample], res4.k_lo)
+        fast4_s = time.perf_counter() - t0
+        del res4, d4
+        resf = row.nw_banded_batch(*tb, band=BAND, wildcard=True,
+                                   with_dirs="full")
+        df = resf.dirs.view(torch.int32)[:, pick].view(torch.uint32).cpu()
+        full = [banded_traceback_pair(df[:, i].numpy(), resf.finals[b],
+                                      *pairs[b], resf.k_lo, max_alignments=1)
+                for i, b in enumerate(sample)]
+        del resf, df
+    launches = by_path.get("nw_banded_fill", {}).get(path, 0)
+    check(launches == 2, f"{path} launched kernel #8 {launches} times")
+    for i, b in enumerate(sample):
+        for name, r in (("fast4", walks[i]), ("full", full[i])):
+            check(not isinstance(r, Exception), f"{name} walk failed on pair "
+                  f"{b}: {r}")
+            score, alns = r
+            a1, a2 = alns[0]
+            check(a1.replace("-", "").encode() == pairs[b][0]
+                  and a2.replace("-", "").encode() == pairs[b][1]
+                  and affine_score(a1, a2, scheme, False, True) == score,
+                  f"the row-layout {name} walk of pair {b} does not rescore "
+                  "to its finals")
+    log(f"[19 banded row] {path}: {len(sample)} sampled pairs walked by the "
+        f"native fast4 and the host full walkers; every alignment consumes "
+        f"its sequences and rescores to its finals (fast4 fill + walks "
+        f"{fast4_s:.3f} s)")
+    out.update(rfill_path_fast4_s=fast4_s)
+    return out
+
+
+def phase_graph_replay(torch, port, pairs):
+    """The plain versions' step loops replayed as CUDA graphs (as every
+    other phase runs them) against the same loops run eagerly step by step
+    on the card (ops.step_graph.GRAPH_STEPS = 0): the banded fill and the
+    row sweep at config 4 in fast4, equal finals and dirs, both times."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops import step_graph
+
+    tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+    plan, gins = port["banded"].band_inputs(*tb, BAND)
+    k_lo, rins = port["row"].row_inputs(*tb, BAND)
+    fills = {
+        "bfill": lambda: port["banded"].banded_diag_fill_torch(
+            *gins, plan, ScoringScheme(), True, True, "fast4"),
+        "rfill": lambda: port["row"].banded_row_fill_torch(
+            *rins, k_lo, ScoringScheme(), True, True, "fast4"),
+    }
+    graph_steps = step_graph.GRAPH_STEPS
+    out = {}
+    for key, fill in fills.items():
+        graph_ms, (fg, dg) = host_ms(torch, fill)
+        step_graph.GRAPH_STEPS = 0
+        try:
+            eager_ms, (fe, de) = host_ms(torch, fill)
+        finally:
+            step_graph.GRAPH_STEPS = graph_steps
+        check(torch.equal(fg, fe) and torch.equal(dg.view(torch.int32),
+                                                  de.view(torch.int32)),
+              f"{key}: the graph-replayed plain fill != the eager one")
+        del fg, dg, fe, de
+        log(f"[22 graph replay] {key} plain at config 4 fast4: graphs of "
+            f"{graph_steps} steps {graph_ms:.1f} ms, eager {eager_ms:.1f} ms "
+            f"({eager_ms / graph_ms:.2f}x); finals and dirs equal")
+        out.update({f"{key}_graph_plain_ms": graph_ms,
+                    f"{key}_eager_plain_ms": eager_ms})
+    return out
+
+
+def phase_linear(torch, port, pairs, by_path):
+    """The linear kernel against its plain version: small ragged batches
+    (compat/textbook x global/local x bits, in one block and split over 2
+    CTAs), then 4096 x 2046 bp score-only (global compat and textbook,
+    local) and 512 x 2046 bp with bits (global, local's two passes); then
+    LinearNWAligner on cuda: the 512 pairs through align_batch
+    (alignments/s; one sampled pair against the linear oracle), and a small
+    global and local batch whose scores equal the oracle's."""
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo, Mode
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops import oracle_linear
+
+    lin = port["linear"]
+    scheme = ScoringScheme()
+    rng = np.random.default_rng(21)
+    err, runs = 0, 0
+    for n, hi in ((24, 300), (9, 700)):
+        tb = to_device(pack_batch(skewed_pairs(rng, n, 1, hi, 1, hi),
+                                  batch_size=n), "cuda")
+        a4 = lin.linear_inputs(*tb)
+        l1, l2 = tb.query.shape[1], tb.db.shape[1]
+        for compat in (True, False):
+            for local in (False, True):
+                mv = torch.zeros_like(a4[2])
+                if local:
+                    mv = lin.linear_fill_torch(*a4, mv, l1, l2, scheme,
+                                               compat, True, False)[1]
+                for bits in (False, True):
+                    a = (*a4, mv.contiguous(), l1, l2, scheme, compat, local,
+                         bits)
+                    p = lin.linear_fill_torch(*a)
+                    for cta in (0, 128):
+                        k = lin.linear_fill_cuda(*a, cta_lanes=cta)
+                        torch.cuda.synchronize()
+                        e = max(int((k[0] - p[0]).abs().max()),
+                                int((k[1] - p[1]).abs().max()))
+                        if bits:
+                            e = max(e, 0 if torch.equal(
+                                k[2].view(torch.int32),
+                                p[2].view(torch.int32)) else 1)
+                        check(e == 0, f"linear kernel != plain ({n} pairs <= "
+                              f"{hi} bp, compat={compat}, local={local}, "
+                              f"bits={bits}, cta {cta}): err {e}")
+                        err, runs = max(err, e), runs + 1
+    log(f"[20 linear] {runs} ragged configurations (<= 700 bp, one block and"
+        " 2 CTAs of 128 lanes) equal on scores, maxima and path bits")
+
+    out = {"lfill_ragged_err": err}
+    tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+    a4 = lin.linear_inputs(*tb)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    zeros = torch.zeros_like(a4[2])
+    cells = int((a4[2].long() * a4[3].long()).sum())
+    for tag, compat, local in (("global", True, False),
+                               ("textbook", False, False),
+                               ("local", True, True)):
+        a = (*a4, zeros, l1, l2, scheme, compat, local, False)
+        ms = cuda_ms(torch, lambda: lin.linear_fill_cuda(*a))
+        k = lin.linear_fill_cuda(*a)
+        plain_ms, p = host_ms(torch, lambda: lin.linear_fill_torch(*a))
+        e = max(int((k[0] - p[0]).abs().max()), int((k[1] - p[1]).abs().max()))
+        check(e == 0, f"linear kernel != plain at {len(pairs)} x {LEN_MAIN} "
+              f"bp ({tag})")
+        ops = OPS_PER_CELL["linear local score" if local else
+                           "linear score" if compat else
+                           "linear textbook score"]
+        b_ms, b_by = bound(nbytes(*a4, zeros, k[0], k[1]), cells * ops)
+        log(f"[20 linear] {len(pairs)} x {LEN_MAIN} bp {tag} score-only: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+            f"{cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.3f} ms ({b_by}); "
+            "corner scores and maxima equal the plain version")
+        out.update({f"lfill_{tag}_ms": ms, f"lfill_{tag}_plain_ms": plain_ms,
+                    f"lfill_{tag}_err": e, f"lfill_{tag}_bound_ms": b_ms,
+                    f"lfill_{tag}_bound_by": b_by})
+    sub = [t[:N_LINEAR_DIRS].contiguous() for t in a4]
+    zsub = zeros[:N_LINEAR_DIRS].contiguous()
+    dcells = int((sub[2].long() * sub[3].long()).sum())
+    corner_dirs = None
+    for tag, local in (("dirs", False), ("local_dirs", True)):
+        mv = zsub
+        if local:
+            mv = lin.linear_fill_cuda(*sub, zsub, l1, l2, scheme, True, True,
+                                      False)[1].contiguous()
+        a = (*sub, mv, l1, l2, scheme, True, local, True)
+        ms = cuda_ms(torch, lambda: lin.linear_fill_cuda(*a))
+        k = lin.linear_fill_cuda(*a)
+        plain_ms, p = host_ms(torch, lambda: lin.linear_fill_torch(*a))
+        e = max(int((k[0] - p[0]).abs().max()), int((k[1] - p[1]).abs().max()),
+                0 if torch.equal(k[2].view(torch.int32),
+                                 p[2].view(torch.int32)) else 1)
+        check(e == 0, f"linear kernel != plain at {N_LINEAR_DIRS} x "
+              f"{LEN_MAIN} bp with bits ({tag})")
+        ops = OPS_PER_CELL["linear local bits" if local else "linear bits"]
+        b_ms, b_by = bound(nbytes(*sub, mv, k[0], k[1], k[2]), dcells * ops)
+        log(f"[20 linear] {N_LINEAR_DIRS} x {LEN_MAIN} bp {tag} (bits "
+            f"{k[2].numel() * 4 / 1e9:.2f} GB): kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}); scores and "
+            "every path-bit word equal the plain version")
+        out.update({f"lfill_{tag}_ms": ms, f"lfill_{tag}_plain_ms": plain_ms,
+                    f"lfill_{tag}_err": e, f"lfill_{tag}_bound_ms": b_ms,
+                    f"lfill_{tag}_bound_by": b_by})
+        if not local:
+            corner_dirs = k[0].cpu().numpy()
+        del k, p
+
+    # LinearNWAligner on the card.
+    cfg = AlignConfig(algo=Algo.NW_LINEAR)
+    aligner = port["models"].LinearNWAligner(cfg, "cuda")
+    sub_pairs = pairs[:N_LINEAR_DIRS]
+    path = "nw-linear (LinearNWAligner.align_batch)"
+    torch.cuda.empty_cache()
+    with path_launches(port, by_path, path):
+        t0 = time.perf_counter()
+        res = aligner.align_batch(records(sub_pairs))
+        secs = time.perf_counter() - t0
+    check(all(r.ok for r in res), f"{path}: a pair failed")
+    check([r.score for r in res] == [int(x) for x in corner_dirs],
+          f"{path}: scores != the linear kernel's corner scores")
+    for r, (a, b) in zip(res, sub_pairs):
+        check(r.aligned_query.replace("-", "").encode() == a
+              and r.aligned_db.replace("-", "").encode() == b,
+              f"{path}: an alignment does not consume its sequences")
+    # One sampled pair against the oracle (a Python loop over its 4.2 M
+    # cells, so one pair only).
+    pick = int(np.random.default_rng(25).integers(len(sub_pairs)))
+    t0 = time.perf_counter()
+    want = oracle_linear.linear_score(*sub_pairs[pick], scheme)
+    oracle_s = time.perf_counter() - t0
+    check(res[pick].score == want, f"{path}: pair {pick} scores "
+          f"{res[pick].score}, the oracle {want}")
+    del res
+    check(by_path.get("nw_linear_fill", {}).get(path, 0) == 1,
+          f"{path} did not launch the linear kernel once")
+    # A small global and local batch against the oracle, each counted as
+    # its own path.
+    small = skewed_pairs(np.random.default_rng(22), 16, 20, 250, 20, 250)
+    for mode in (Mode.GLOBAL, Mode.LOCAL):
+        a2 = port["models"].LinearNWAligner(
+            AlignConfig(algo=Algo.NW_LINEAR, mode=mode), "cuda")
+        spath = (f"nw-linear -m {mode.value} (LinearNWAligner.align_batch, "
+                 f"{len(small)} pairs)")
+        with path_launches(port, by_path, spath):
+            res = a2.align_batch(records(small))
+        for r, (s1, s2) in zip(res, small):
+            want = oracle_linear.linear_score(s1, s2, scheme,
+                                              local=mode is Mode.LOCAL)
+            check(r.ok and r.score == want, f"{spath}: score "
+                  f"{r.score} != the oracle's {want}")
+        check(by_path.get("nw_linear_fill", {}).get(spath, 0) > 0,
+              f"{spath} never launched the linear kernel")
+    log(f"[20 linear] {path}: {len(sub_pairs)} x {LEN_MAIN} bp global on "
+        f"cuda in {secs:.3f} s ({len(sub_pairs) / secs:.1f} alignments/s), "
+        "scores equal the kernel's, every alignment consumes its sequences, "
+        f"sampled pair {pick} equals the oracle ({oracle_s:.1f} s); "
+        f"{len(small)} pairs <= 250 bp global and local equal the oracle")
+    out.update(linear_s=secs, linear_alignments_per_s=len(sub_pairs) / secs)
+    return out
+
+
+def phase_astar(torch, port, by_path):
+    """AStarAligner (a host search whatever the device) over N_ASTAR pairs
+    of LEN_ASTAR bp at ~1% substitutions: alignments/s; sampled pairs equal
+    the oracle's result, every alignment consumes its sequences."""
+    from sequencealigning_tpu_torch.config import AlignConfig, Algo
+    from sequencealigning_tpu_torch.ops.oracle_astar import astar_align
+
+    pairs = make_pairs(np.random.default_rng(23), N_ASTAR, LEN_ASTAR)
+    cfg = AlignConfig(algo=Algo.A_STAR)
+    aligner = port["models"].AStarAligner(cfg, "cuda")
+    path = "a-star (AStarAligner.align_batch)"
+    with path_launches(port, by_path, path):
+        t0 = time.perf_counter()
+        res = aligner.align_batch(records(pairs))
+        secs = time.perf_counter() - t0
+    check(all(r.ok for r in res), f"{path}: a pair failed")
+    for r, (a, b) in zip(res, pairs):
+        check(r.aligned_query.replace("-", "").encode() == a
+              and r.aligned_db.replace("-", "").encode() == b,
+              f"{path}: an alignment does not consume its sequences")
+    for b in np.random.default_rng(24).choice(len(pairs), 4, replace=False):
+        want = astar_align(*pairs[b], scheme=cfg.scoring)
+        got = (res[b].score, res[b].aligned_query, res[b].aligned_db)
+        check(got == tuple(want), f"{path}: pair {b} != the oracle's result")
+    log(f"[21 a-star] {N_ASTAR} x {LEN_ASTAR} bp on the host: {secs:.3f} s, "
+        f"{N_ASTAR / secs:.1f} alignments/s; 4 sampled pairs equal the "
+        "oracle's score and strings")
+    return {"astar_s": secs, "astar_alignments_per_s": N_ASTAR / secs}
+
+
+@contextlib.contextmanager
+def timed(seconds, name):
+    """Time one phase on the host clock: print its wall seconds and keep
+    them in seconds[name]."""
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
+    log(f"[{name}] phase wall {seconds[name]:.1f} s")
+
+
 def run(args):
     if not os.path.isdir(os.path.join(ROOT, "sequencealigning_tpu_torch")):
         raise SmokeFailure("sequencealigning_tpu_torch/ is not beside this "
@@ -2066,7 +2550,10 @@ def run(args):
     sys.path.insert(0, ROOT)
     import torch
 
-    card = phase_device(torch)
+    t_start = time.perf_counter()
+    phase_s = {}
+    with timed(phase_s, "1 device"):
+        card = phase_device(torch)
     from sequencealigning_tpu_torch import cli, csrc, models, parallel
     from sequencealigning_tpu_torch.ops import (
         nw_affine,
@@ -2074,7 +2561,9 @@ def run(args):
         nw_affine_stream,
         nw_affine_stream_modes,
         nw_affine_tiled,
+        nw_banded,
         nw_banded_diag,
+        nw_linear,
         traceback_device,
     )
 
@@ -2082,49 +2571,84 @@ def run(args):
             "fill": nw_affine_stream, "walk": traceback_device,
             "modes": nw_affine_modes, "smodes": nw_affine_stream_modes,
             "banded": nw_banded_diag, "tiled": nw_affine_tiled,
-            "nw": nw_affine}
+            "nw": nw_affine, "row": nw_banded, "linear": nw_linear}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     by_path = {}
-    build_s = phase_build(csrc, args.out)
-    meas, state = phase_fill(torch, port)
-    meas.update(phase_walk(torch, port, state))
+    with timed(phase_s, "2 build"):
+        build_s = phase_build(csrc, args.out)
+    with timed(phase_s, "3 fill"):
+        meas, state = phase_fill(torch, port)
+    with timed(phase_s, "4 walk"):
+        meas.update(phase_walk(torch, port, state))
     pairs = state[3]
     stream_finals = state[0][:N_MAIN].clone()
     del state
     torch.cuda.empty_cache()
-    main_meas, (aligner, recs, main_res) = phase_main(torch, port, pairs,
-                                                      by_path)
-    meas.update(main_meas)
-    meas.update(phase_profile(torch, aligner, recs, args.out))
-    del aligner, recs
+    with timed(phase_s, "5 main"):
+        main_meas, (aligner, recs, main_res) = phase_main(torch, port, pairs,
+                                                          by_path)
+        meas.update(main_meas)
+        meas.update(phase_profile(torch, aligner, recs, args.out))
+        del aligner, recs
     torch.cuda.empty_cache()
-    meas.update(phase_gotoh_fill(torch, port, pairs, stream_finals))
+    with timed(phase_s, "16 global fill"):
+        meas.update(phase_gotoh_fill(torch, port, pairs, stream_finals))
     torch.cuda.empty_cache()
-    meas.update(phase_runner(torch, port, pairs, main_res, by_path, args.out))
+    with timed(phase_s, "17 runner"):
+        meas.update(phase_runner(torch, port, pairs, main_res, by_path,
+                                 args.out))
     del main_res
     torch.cuda.empty_cache()
-    meas.update(phase_modes_fill(torch, port))
+    with timed(phase_s, "20 linear"):
+        meas.update(phase_linear(torch, port, pairs, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "6 modes fill"):
+        meas.update(phase_modes_fill(torch, port))
     mpairs = make_pairs(np.random.default_rng(0), N_MAIN, LEN_MAIN)
     for mode in ("local", "semi"):
-        meas.update(phase_modes_full(torch, port, mode, mpairs))
-    meas.update(phase_modes_main(torch, port, mpairs, args.out, by_path))
+        with timed(phase_s, f"7 modes {mode}"):
+            meas.update(phase_modes_full(torch, port, mode, mpairs))
+    with timed(phase_s, "8 modes main"):
+        meas.update(phase_modes_main(torch, port, mpairs, args.out, by_path))
     del mpairs
-    phase_cli(torch, port, by_path)
+    with timed(phase_s, "9 cli"):
+        phase_cli(torch, port, by_path)
     bpairs = make_pairs(np.random.default_rng(4), N_BAND, LEN_BAND)
-    bmeas, state = phase_banded_fill(torch, port, bpairs)
-    meas.update(bmeas)
-    meas.update(phase_banded_walk(torch, port, bpairs, state))
+    with timed(phase_s, "10 banded fill"):
+        bmeas, state = phase_banded_fill(torch, port, bpairs)
+        meas.update(bmeas)
+    with timed(phase_s, "11 banded walk"):
+        meas.update(phase_banded_walk(torch, port, bpairs, state))
     del state
     torch.cuda.empty_cache()
-    meas.update(phase_banded_main(torch, port, bpairs, by_path))
-    meas.update(phase_ceiling(torch, port, by_path))
+    with timed(phase_s, "12 banded main"):
+        meas.update(phase_banded_main(torch, port, bpairs, by_path))
     torch.cuda.empty_cache()
-    meas.update(phase_wide_band(torch, port, by_path))
+    with timed(phase_s, "19 banded row"):
+        meas.update(phase_banded_row(torch, port, bpairs, by_path))
     torch.cuda.empty_cache()
-    meas.update(phase_tiled(torch, port))
-    meas.update(phase_long(torch, port, by_path))
-    meas.update(build_s=build_s, card=card, launches=by_path)
+    with timed(phase_s, "22 graph replay"):
+        meas.update(phase_graph_replay(torch, port, bpairs))
+    del bpairs
+    torch.cuda.empty_cache()
+    with timed(phase_s, "13 ceiling"):
+        meas.update(phase_ceiling(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "18 wide band"):
+        meas.update(phase_wide_band(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "14 tiled"):
+        meas.update(phase_tiled(torch, port))
+    with timed(phase_s, "15 long"):
+        meas.update(phase_long(torch, port, by_path))
+    with timed(phase_s, "21 a-star"):
+        meas.update(phase_astar(torch, port, by_path))
+    total = time.perf_counter() - t_start
+    log("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}) + f"; total {total:.1f}")
+    meas.update(build_s=build_s, card=card, launches=by_path,
+                phase_s=phase_s, total_s=total)
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(meas, f, indent=1)
@@ -2163,6 +2687,12 @@ def kernel_entries(meas, by_path):
                            meas["gfill_full_err"]],
         "nw_banded_diag_wide_fill": [meas["wide_err"],
                                      meas["bfill_wide4_err"]],
+        "nw_banded_fill": [meas["rfill_ragged_err"], meas["rfill_fast4_err"],
+                           meas["rfill_full_err"],
+                           meas["rfill_fast4_cross_err"],
+                           meas["rfill_full_cross_err"]],
+        "nw_linear_fill": [meas[f"lfill_{t}_err"] for t in (
+            "ragged", "global", "textbook", "local", "dirs", "local_dirs")],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -2187,6 +2717,9 @@ def kernel_entries(meas, by_path):
         "nw_banded_diag_wide_fill": (
             f"wide{WIDE_BANDS[0]}", f"{N_WIDE} pairs of {LEN_WIDE_LO}-"
             f"{LEN_WIDE_HI} bp band {WIDE_BANDS[0]} fast4"),
+        "nw_banded_fill": ("rfill_fast4", f"{band} fast4"),
+        "nw_linear_fill": ("lfill_global", f"{main} global compat "
+                           "score-only"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces) in KERNELS.items():
@@ -2228,6 +2761,16 @@ def kernel_entries(meas, by_path):
                 "bound_by": meas["gfill_full_bound_by"],
                 "max_abs_err": meas["gfill_full_err"],
                 "timed_on": f"{N_GOTOH_DIRS} x {LEN_MAIN} bp full dirs"}
+        if name == "nw_banded_fill":
+            entry["bound_needed_ms"] = meas["rfill_fast4_bound_needed_ms"]
+            entry["band_diagonals"] = meas["rfill_band_diagonals"]
+        if name == "nw_linear_fill":
+            for tag in ("textbook", "local", "dirs", "local_dirs"):
+                entry[tag] = {k: meas[f"lfill_{tag}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}
+            for tag in ("dirs", "local_dirs"):
+                entry[tag]["timed_on"] = f"{N_LINEAR_DIRS} x {LEN_MAIN} bp " \
+                    "with path bits"
         if name == "nw_banded_diag_wide_fill":
             wb = WIDE_BANDS[1]
             entry["lanes"] = meas[f"wide{WIDE_BANDS[0]}_lanes"]

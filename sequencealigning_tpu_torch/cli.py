@@ -110,8 +110,7 @@ def _load(path: str, label: str):
 
 
 def _print_result(res, algo: Algo, verbose: bool) -> None:
-    """The affine NW stdout format (needleman_wunsch_affine.rs:283-286,
-    390-411), shared by banded, whose timing line shows only with -v;
+    """Per-algorithm stdout format, following the reference's shapes;
     errors go to stderr."""
     if res.error is not None:
         print(
@@ -120,11 +119,31 @@ def _print_result(res, algo: Algo, verbose: bool) -> None:
             file=sys.stderr,
         )
         return
-    for a1, a2 in res.alignments or [(res.aligned_query, res.aligned_db)]:
-        print("alignment found")
-        print(f"\nseq1: {a1}\n      {bars(a1, a2)}\nseq2: {a2}")
-    if verbose or algo is Algo.NEEDLEMAN_WUNSCH:
-        print(f"{res.elapsed_s * 1e3:.3f}ms")
+    if algo is Algo.A_STAR:
+        # align.rs:41-47
+        print(
+            f"Alignment for db {res.db_name} and query {res.query_name} "
+            f"with score {res.score} found"
+        )
+        print(res.aligned_db)
+        print(bars(res.aligned_query, res.aligned_db))
+        print(res.aligned_query)
+    elif algo is Algo.NW_LINEAR:
+        # needleman_wunsch.rs:196-201, 155-178
+        print(
+            f"Alignment between sequences {res.query_name} and "
+            f"{res.db_name} found"
+        )
+        for a1, a2 in res.alignments or []:
+            print(f"\nHit: \nseq1: {a1}\n      {bars(a1, a2)}\nseq2: {a2}\n")
+    else:
+        # needleman_wunsch_affine.rs:283-286, 390-411; banded's timing line
+        # shows only with -v
+        for a1, a2 in res.alignments or [(res.aligned_query, res.aligned_db)]:
+            print("alignment found")
+            print(f"\nseq1: {a1}\n      {bars(a1, a2)}\nseq2: {a2}")
+        if verbose or algo is Algo.NEEDLEMAN_WUNSCH:
+            print(f"{res.elapsed_s * 1e3:.3f}ms")
 
 
 def main(argv=None) -> int:

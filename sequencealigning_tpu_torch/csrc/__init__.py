@@ -29,10 +29,10 @@ BUILD_DIR = os.path.join(
 )
 _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
                  "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
-                 "traceback_device.cu")
+                 "nw_banded.cu", "nw_linear.cu", "traceback_device.cu")
 _HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "cluster_split.cuh",
-            "nw_banded_diag.cuh", "nw_affine_tiled.cuh",
-            "traceback_device.cuh")
+            "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
+            "nw_linear.cuh", "traceback_device.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -165,6 +165,14 @@ def kernels() -> ctypes.CDLL:
     lib.sa_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
     lib.sa_banded_wide_fill.restype = _INT
     lib.sa_banded_wide_fill.argtypes = [_VP] * 9 + [_INT] * 14 + [_VP]
+    lib.sa_banded_row_threads.restype = _INT
+    lib.sa_banded_row_threads.argtypes = [_INT, _INT]
+    lib.sa_banded_row_scratch_words.restype = ctypes.c_long
+    lib.sa_banded_row_scratch_words.argtypes = [_INT]
+    lib.sa_banded_row_fill.restype = _INT
+    lib.sa_banded_row_fill.argtypes = [_VP] * 8 + [_INT] * 13 + [_VP]
+    lib.sa_linear_fill.restype = _INT
+    lib.sa_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12 + [_VP]
     lib.sa_tiled_fill.restype = _INT
     lib.sa_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 10 + [_VP]
     lib.sa_tiled_fold_fill.restype = _INT
@@ -227,6 +235,10 @@ def host_check() -> ctypes.CDLL:
     lib.hc_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15
     lib.hc_banded_wide_fill.restype = _INT
     lib.hc_banded_wide_fill.argtypes = [_VP] * 8 + [_INT] * 14
+    lib.hc_banded_row_fill.restype = _INT
+    lib.hc_banded_row_fill.argtypes = [_VP] * 7 + [_INT] * 13
+    lib.hc_linear_fill.restype = _INT
+    lib.hc_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12
     lib.hc_tiled_fill.restype = _INT
     lib.hc_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 11
     lib.hc_walk_fast4.restype = _INT

@@ -22,7 +22,9 @@
 #include "cluster_split.cuh"
 #include "nw_affine_stream.cuh"
 #include "nw_affine_tiled.cuh"
+#include "nw_banded.cuh"
 #include "nw_banded_diag.cuh"
+#include "nw_linear.cuh"
 #include "traceback_device.cuh"
 
 namespace {
@@ -772,5 +774,248 @@ extern "C" int hc_tiled_fill(const int32_t* query, const int32_t* db,
   }
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   fn(query, db, n1v, n2v, finals, bnd, B, L1, L2, sc, sp);
+  return 0;
+}
+
+namespace {
+
+// Kernel #8's row sweep (nw_banded.cu) for one pair, serially: the same
+// chunks of 4 lanes a thread, each thread's lanes scanned in order, the
+// threads' totals combined into each thread's exclusive maximum and the
+// chunk's maximum carried to the next chunk, through nw_banded.cuh.
+template <int DIRS, bool COMPAT, bool WILDCARD>
+void banded_row_host(const int32_t* s1w0, const int32_t* qin,
+                     const int32_t* dcs, const int32_t* n1v,
+                     const int32_t* n2v, int32_t* finals, uint32_t* dirs,
+                     int B, int K, int Xp, int l2, int k_lo, int threads,
+                     const sa::Scheme& sc) {
+  constexpr int kLpt = 4;
+  constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;
+  constexpr uint32_t kBits = 32 / kUp;
+  const int W = threads * kLpt;
+  const int nch = (K + W - 1) / W;
+  std::vector<int32_t> rows(8 * static_cast<size_t>(K));
+  std::vector<uint32_t> acc(K);
+  std::vector<int32_t> M(W), D(W), dd(W), Dpr(W), v(W), s1(W), tot(threads),
+      mleft(threads);
+  for (int b = 0; b < B; ++b) {
+    const int32_t n1 = n1v[b], n2 = n2v[b];
+    const int32_t kc = n1 - n2 - k_lo;
+    int32_t* fin = finals + static_cast<size_t>(b) * 3;
+    for (int k = 0; k < K; ++k) {
+      int32_t m, i, d, h;
+      const int32_t code =
+          sa::row0_cell<DIRS>(k, k_lo, n1, COMPAT, sc, m, i, d, h);
+      rows[k] = m;
+      rows[K + k] = d;
+      rows[2 * K + k] = h;
+      rows[3 * K + k] = s1w0[static_cast<size_t>(b) * K + k];
+      if (n2 == 0 && k == kc) {
+        fin[0] = m;
+        fin[1] = i;
+        fin[2] = d;
+      }
+      acc[k] = static_cast<uint32_t>(code);
+      if (DIRS != sa::kDirsNone && l2 == 0) {
+        dirs[static_cast<size_t>(b) * K + k] = acc[k];
+      }
+    }
+    for (int x = 1; x <= l2; ++x) {
+      const int32_t qc = qin[static_cast<size_t>(b) * Xp + x];
+      const int32_t dc = dcs[static_cast<size_t>(b) * Xp + x];
+      const int32_t* pM = rows.data() + static_cast<size_t>((x - 1) & 1) * 4 * K;
+      const int32_t* pD = pM + K;
+      const int32_t* pH = pD + K;
+      const int32_t* pS = pH + K;
+      int32_t* cM = rows.data() + static_cast<size_t>(x & 1) * 4 * K;
+      int32_t* cD = cM + K;
+      int32_t* cH = cD + K;
+      int32_t* cS = cH + K;
+      const sa::RowCtx r = sa::row_ctx(x, k_lo, n1, n2, COMPAT, sc);
+      const uint32_t shift = kBits * (x & (kUp - 1));
+      const bool flush = (x & (kUp - 1)) == kUp - 1 || x == l2;
+      int32_t carry = sa::kScanFill;
+      for (int c = 0; c < nch; ++c) {
+        for (int j = 0; j < threads; ++j) {
+          const int k0 = c * W + j * kLpt;
+          int32_t ml = sa::kRowNegBig;
+          if (k0 > 0 && k0 <= K - 1) {
+            ml = sa::row_m<WILDCARD>(r, k0 - 1, pH[k0 - 1], pS[k0], dc, sc);
+          }
+          mleft[j] = ml;
+          int32_t t = sa::kScanFill;
+          for (int i = 0; i < kLpt; ++i) {
+            const int k = k0 + i, at = j * kLpt + i;
+            if (k < K) {
+              const bool last = k == K - 1;
+              s1[at] = last ? qc : pS[k + 1];
+              M[at] = sa::row_m<WILDCARD>(r, k, pH[k], s1[at], dc, sc);
+              D[at] = sa::row_d(r, k, K, last ? 0 : pM[k + 1],
+                                last ? 0 : pD[k + 1], sc, dd[at], Dpr[at]);
+              v[at] = sa::row_v(r, k, ml, sc);
+              ml = M[at];
+            } else {
+              v[at] = sa::kScanFill;
+            }
+            t = sa::imax(t, v[at]);
+          }
+          tot[j] = t;
+        }
+        int32_t excl = carry;
+        for (int j = 0; j < threads; ++j) {
+          const int k0 = c * W + j * kLpt;
+          int32_t I_l = k0 > 0 && k0 <= K
+                            ? sa::row_i_masked(r, k0 - 1, excl, sc)
+                            : sa::kRowNegBig;
+          int32_t M_l = mleft[j];
+          int32_t run = excl;
+          for (int i = 0; i < kLpt; ++i) {
+            const int k = k0 + i, at = j * kLpt + i;
+            if (k >= K) break;
+            run = sa::imax(run, v[at]);
+            int32_t I, H;
+            const int32_t code = sa::row_post<DIRS>(
+                r, k, M[at], D[at], dd[at], Dpr[at], M_l, I_l, run, sc, I, H);
+            cM[k] = M[at];
+            cD[k] = D[at];
+            cH[k] = H;
+            cS[k] = s1[at];
+            if (x == n2 && k == kc) {
+              fin[0] = M[at];
+              fin[1] = I;
+              fin[2] = D[at];
+            }
+            if (DIRS != sa::kDirsNone) {
+              const uint32_t w = acc[k] | (static_cast<uint32_t>(code) << shift);
+              if (flush) {
+                dirs[(static_cast<size_t>(x / kUp) * B + b) * K + k] = w;
+                acc[k] = 0;
+              } else {
+                acc[k] = w;
+              }
+            }
+            I_l = I;
+            M_l = M[at];
+          }
+          excl = sa::imax(excl, tot[j]);
+        }
+        carry = excl;
+      }
+    }
+  }
+}
+
+typedef void (*HostRow)(const int32_t*, const int32_t*, const int32_t*,
+                        const int32_t*, const int32_t*, int32_t*, uint32_t*,
+                        int, int, int, int, int, int, const sa::Scheme&);
+
+template <int DIRS>
+HostRow pick_row(bool compat, bool wildcard) {
+  if (compat) {
+    return wildcard ? banded_row_host<DIRS, true, true>
+                    : banded_row_host<DIRS, true, false>;
+  }
+  return wildcard ? banded_row_host<DIRS, false, true>
+                  : banded_row_host<DIRS, false, false>;
+}
+
+// The linear fill (nw_linear.cu), serially, lanes shifted as the kernel's
+// split shifts them.
+template <bool DIRS, bool COMPAT, bool LOCAL>
+void linear_host(const int32_t* query, const int32_t* s2v,
+                 const int32_t* n1v, const int32_t* n2v,
+                 const int32_t* maxv, int32_t* corner, int32_t* runmax,
+                 uint32_t* dirs, int B, int L1p, int P, int D_total,
+                 const sa::Scheme& sc, const sa::Split& sp) {
+  std::vector<sa::LinCell> c(P), c0(P);
+  std::vector<uint32_t> acc(P);
+  for (int b = 0; b < B; ++b) {
+    const int32_t n1 = n1v[b], n2 = n2v[b];
+    for (int x = 0; x < P; ++x) {
+      c[x] = sa::lin_init();
+      c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
+      acc[x] = 0;
+    }
+    for (int d = 0; d < D_total; ++d) {
+      const int q = d - 1 < 0 ? 0 : (d - 1 > L1p - 1 ? L1p - 1 : d - 1);
+      const int32_t qc = query[static_cast<size_t>(b) * L1p + q];
+      c0 = c;  // the neighbours' state before the step
+      for (int x = 0; x < P; ++x) {
+        const sa::LinCell& l = c0[left_lane(x, sp, P)];
+        const int32_t code = sa::linear_cell<COMPAT, LOCAL, DIRS>(
+            c[x], l.S2, l.S1, l.G1, l.s1d, x == 0, x == d, d, qc,
+            sa::linear_valid(x, d, n1, n2), maxv[b], sc);
+        if (DIRS) acc[x] |= static_cast<uint32_t>(code) << (8u * (d & 3));
+        if (d == n1 + n2 && x == n2) corner[b] += c[x].S1;
+      }
+      if (DIRS && ((d & 3) == 3 || d == D_total - 1)) {
+        for (int x = 0; x < P; ++x) {
+          dirs[(static_cast<size_t>(d >> 2) * B + b) * P + x] = acc[x];
+          acc[x] = 0;
+        }
+      }
+    }
+    for (int x = 0; x < P; ++x) runmax[b] = sa::imax(runmax[b], c[x].best);
+  }
+}
+
+typedef void (*HostLinear)(const int32_t*, const int32_t*, const int32_t*,
+                           const int32_t*, const int32_t*, int32_t*,
+                           int32_t*, uint32_t*, int, int, int, int,
+                           const sa::Scheme&, const sa::Split&);
+
+template <bool DIRS>
+HostLinear pick_linear(bool compat, bool local) {
+  if (local) {
+    return compat ? linear_host<DIRS, true, true>
+                  : linear_host<DIRS, false, true>;
+  }
+  return compat ? linear_host<DIRS, true, false>
+                : linear_host<DIRS, false, false>;
+}
+
+}  // namespace
+
+// sa_banded_row_fill minus the scratch and the stream; chunk_lanes as the
+// kernel's (0: K / 4 threads up to 512).
+extern "C" int hc_banded_row_fill(const int32_t* s1w0, const int32_t* qin,
+                                  const int32_t* dcs, const int32_t* n1v,
+                                  const int32_t* n2v, int32_t* finals,
+                                  uint32_t* dirs, int B, int K, int Xp,
+                                  int l2, int k_lo, int match, int mismatch,
+                                  int gap_open, int gap_extend, int dirs_mode,
+                                  int compat, int wildcard, int chunk_lanes) {
+  if (K <= 0 || K % 128 != 0 || chunk_lanes < 0 || chunk_lanes % 128 != 0 ||
+      chunk_lanes > 2048 || B <= 0 || l2 < 0 || Xp < l2 + 1) {
+    return -1;
+  }
+  int threads = (chunk_lanes ? chunk_lanes : K) / 4;
+  if (threads > 512) threads = 512;
+  HostRow fn = nullptr;
+  const bool c = compat != 0, w = wildcard != 0;
+  if (dirs_mode == sa::kDirsNone) fn = pick_row<sa::kDirsNone>(c, w);
+  if (dirs_mode == sa::kDirsFast4) fn = pick_row<sa::kDirsFast4>(c, w);
+  if (dirs_mode == sa::kDirsFull) fn = pick_row<sa::kDirsFull>(c, w);
+  if (fn == nullptr) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  fn(s1w0, qin, dcs, n1v, n2v, finals, dirs, B, K, Xp, l2, k_lo, threads, sc);
+  return 0;
+}
+
+// sa_linear_fill minus the stream.
+extern "C" int hc_linear_fill(const int32_t* query, const int32_t* s2v,
+                              const int32_t* n1v, const int32_t* n2v,
+                              const int32_t* maxv, int32_t* corner,
+                              int32_t* runmax, uint32_t* dirs, int B, int L1p,
+                              int P, int D_total, int match, int mismatch,
+                              int gap_open, int gap_extend, int with_dirs,
+                              int compat, int local, int cta_lanes) {
+  const sa::Split sp = sa::plan_split(P, cta_lanes);
+  if (sp.nctas == 0 || B <= 0 || L1p <= 0 || D_total <= 0) return -1;
+  HostLinear fn = with_dirs ? pick_linear<true>(compat != 0, local != 0)
+                            : pick_linear<false>(compat != 0, local != 0);
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  fn(query, s2v, n1v, n2v, maxv, corner, runmax, dirs, B, L1p, P, D_total, sc,
+     sp);
   return 0;
 }

@@ -1,3 +1,4 @@
+from sequencealigning_tpu_torch.models.astar import AStarAligner
 from sequencealigning_tpu_torch.models.banded import BandedAligner
 from sequencealigning_tpu_torch.models.base import (
     Aligner,
@@ -5,6 +6,7 @@ from sequencealigning_tpu_torch.models.base import (
     get_aligner,
 )
 from sequencealigning_tpu_torch.models.gotoh import GotohAligner
+from sequencealigning_tpu_torch.models.linear import LinearNWAligner
 
-__all__ = ["Aligner", "PairResult", "get_aligner", "BandedAligner",
-           "GotohAligner"]
+__all__ = ["Aligner", "PairResult", "get_aligner", "AStarAligner",
+           "BandedAligner", "GotohAligner", "LinearNWAligner"]

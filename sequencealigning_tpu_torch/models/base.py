@@ -150,13 +150,16 @@ class Aligner:
 def get_aligner(
     config: AlignConfig, device: Union[str, torch.device] = "cuda"
 ) -> Aligner:
-    """The aligner for config.algo on ``device``.  Ported: needleman-wunsch
-    (Gotoh: global with its long-pair path, textbook semi-global and local)
-    and banded."""
+    """The aligner for config.algo on ``device``.  Ported: a-star (host
+    search), needleman-wunsch (Gotoh: global with its long-pair path,
+    textbook semi-global and local), nw-linear and banded."""
+    from sequencealigning_tpu_torch.models.astar import AStarAligner
     from sequencealigning_tpu_torch.models.banded import BandedAligner
     from sequencealigning_tpu_torch.models.gotoh import GotohAligner
+    from sequencealigning_tpu_torch.models.linear import LinearNWAligner
 
-    table = {Algo.NEEDLEMAN_WUNSCH: GotohAligner, Algo.BANDED: BandedAligner}
+    table = {Algo.A_STAR: AStarAligner, Algo.NEEDLEMAN_WUNSCH: GotohAligner,
+             Algo.NW_LINEAR: LinearNWAligner, Algo.BANDED: BandedAligner}
     if config.algo not in table:
         raise NotImplementedError(
             f"{config.algo.value} is not ported yet; see ROADMAP.md"

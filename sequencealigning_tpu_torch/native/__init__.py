@@ -1,5 +1,6 @@
 """The port's native (C) host runtime: FASTA scan, the threaded fast4
-first-path walker and the decoder of the device walks' packed op codes.
+first-path walker, the decoder of the device walks' packed op codes, the
+banded (row layout) fast4 walker and the weighted-A* search.
 
 The port's copy of sequencealigning_tpu/native (the entry points the port
 calls).  ``seqalign_native.c`` is compiled with the host C compiler on first
@@ -19,6 +20,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from sequencealigning_tpu_torch import csrc
+from sequencealigning_tpu_torch.errors import AlignmentError
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "seqalign_native.c")
@@ -69,6 +71,28 @@ def get_lib() -> ctypes.CDLL:
         _U32P, ctypes.c_long, _U8P, ctypes.c_long, _U8P, ctypes.c_long,
         _LP, _LP, ctypes.c_long, ctypes.c_char_p, ctypes.c_char_p,
         ctypes.c_long, _LP, ctypes.c_int,
+    ]
+    lib.banded_fast4_first_path.restype = ctypes.c_long
+    lib.banded_fast4_first_path.argtypes = [
+        _U32P, ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_long,
+    ]
+    lib.astar_align_native.restype = ctypes.c_long
+    lib.astar_align_native.argtypes = [
+        _U8P, ctypes.c_long, _U8P, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_double, ctypes.c_int, ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long,
+        _LP, ctypes.POINTER(ctypes.c_int32),
+    ]
+    lib.astar_align_batch.restype = None
+    lib.astar_align_batch.argtypes = [
+        _U8P, _LP, _U8P, _LP, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_double, ctypes.c_int, ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long,
+        _LP, ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
     ]
     _lib = lib
     return lib
@@ -182,3 +206,146 @@ def walk_decode_batch_native(
             r2[b * cap: b * cap + n].decode("latin-1"),
         ))
     return out
+
+
+def banded_fast4_first_path_native(
+    dirs: np.ndarray,
+    b: int,
+    k_lo: int,
+    n1: int,
+    n2: int,
+    finals_b,
+) -> Optional[str]:
+    """Native first-path walk of pair b over an (X8, B, K) banded fast4
+    dirs tensor (ops.nw_banded's row layout).  Returns the forward op
+    string ('M'/'I'/'D'), or None if the walker failed."""
+    lib = get_lib()
+    dirs = np.ascontiguousarray(dirs, dtype=np.uint32)
+    _, b_dim, k_dim = dirs.shape
+    cap = n1 + n2 + 8
+    out = ctypes.create_string_buffer(cap)
+    n = lib.banded_fast4_first_path(
+        dirs.ctypes.data_as(_U32P), b_dim, k_dim, b, k_lo, n1, n2,
+        int(finals_b[0]), int(finals_b[1]), int(finals_b[2]), out, cap,
+    )
+    if n < 0:
+        return None
+    return out.raw[:n].decode("ascii")
+
+
+def astar_align_native(
+    seq1: bytes,
+    seq2: bytes,
+    match: int,
+    mismatch: int,
+    gap_open: int,
+    gap_extend: int,
+    epsilon: float,
+    semi_global: bool = False,
+    max_expansions: int = 5_000_000,
+):
+    """Native weighted-A* search, bit-identical to ops.oracle_astar
+    (incl. Rust BinaryHeap pop order).  Returns (score, aligned1,
+    aligned2), raises AlignmentError with the oracle's message on
+    non-convergence / expansion cap, or returns None on an allocation
+    failure (the caller runs the oracle)."""
+    lib = get_lib()
+    n1, n2 = len(seq1), len(seq2)
+    if n1 == 0 or n2 == 0:
+        raise AlignmentError(
+            "One of the provided sequences was empty. Alignment is skipped"
+        )
+    cap = n1 + n2 + 8
+    out1 = ctypes.create_string_buffer(cap)
+    out2 = ctypes.create_string_buffer(cap)
+    out_len = ctypes.c_long(0)
+    out_score = ctypes.c_int32(0)
+    s1 = np.frombuffer(seq1, np.uint8)
+    s2 = np.frombuffer(seq2, np.uint8)
+    rc = lib.astar_align_native(
+        s1.ctypes.data_as(_U8P), n1, s2.ctypes.data_as(_U8P), n2,
+        match, mismatch, gap_open, gap_extend,
+        float(epsilon), int(bool(semi_global)), max_expansions,
+        out1, out2, cap, ctypes.byref(out_len), ctypes.byref(out_score),
+    )
+    if rc == -1:
+        raise AlignmentError("Alignment did not converge")
+    if rc == -2:
+        raise AlignmentError("A* exceeded max_expansions")
+    if rc < 0:
+        return None
+    n = out_len.value
+    return (
+        int(out_score.value),
+        out1.raw[:n].decode("latin-1"),
+        out2.raw[:n].decode("latin-1"),
+    )
+
+
+def astar_align_batch_native(
+    seqs1,
+    seqs2,
+    match: int,
+    mismatch: int,
+    gap_open: int,
+    gap_extend: int,
+    epsilon: float,
+    semi_global: bool = False,
+    max_expansions: int = 5_000_000,
+    n_threads: int = 8,
+):
+    """Threaded batch of native weighted-A* searches (per-pair isolation
+    like the reference driver's pair loop).  Returns a list per pair:
+    (score, aligned1, aligned2), the oracle's AlignmentError message string
+    on a search failure, or None on an allocation failure."""
+    lib = get_lib()
+    b_total = len(seqs1)
+    off1 = np.zeros(b_total + 1, np.int64)
+    off2 = np.zeros(b_total + 1, np.int64)
+    for b in range(b_total):
+        off1[b + 1] = off1[b] + len(seqs1[b])
+        off2[b + 1] = off2[b] + len(seqs2[b])
+    buf1 = (np.frombuffer(b"".join(seqs1), np.uint8) if off1[-1]
+            else np.zeros(1, np.uint8))
+    buf2 = (np.frombuffer(b"".join(seqs2), np.uint8) if off2[-1]
+            else np.zeros(1, np.uint8))
+    lens1 = np.diff(off1)
+    lens2 = np.diff(off2)
+    cap = int((lens1.max() if b_total else 0)
+              + (lens2.max() if b_total else 0) + 8)
+    out1 = ctypes.create_string_buffer(b_total * cap)
+    out2 = ctypes.create_string_buffer(b_total * cap)
+    lens = np.zeros(b_total, np.int64)
+    scores = np.zeros(b_total, np.int32)
+    lib.astar_align_batch(
+        buf1.ctypes.data_as(_U8P), off1.ctypes.data_as(_LP),
+        buf2.ctypes.data_as(_U8P), off2.ctypes.data_as(_LP),
+        b_total, match, mismatch, gap_open, gap_extend,
+        float(epsilon), int(bool(semi_global)), max_expansions,
+        out1, out2, cap, lens.ctypes.data_as(_LP),
+        scores.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n_threads,
+    )
+    r1, r2 = out1.raw, out2.raw
+    results = []
+    for b in range(b_total):
+        n = int(lens[b])
+        if n == -1:
+            results.append("Alignment did not converge")
+        elif n == -2:
+            results.append("A* exceeded max_expansions")
+        elif n == -4:
+            results.append(
+                "One of the provided sequences was empty. "
+                "Alignment is skipped"
+            )
+        elif n < 0:
+            results.append(None)
+        else:
+            results.append(
+                (
+                    int(scores[b]),
+                    r1[b * cap: b * cap + n].decode("latin-1"),
+                    r2[b * cap: b * cap + n].decode("latin-1"),
+                )
+            )
+    return results

@@ -36,23 +36,13 @@ from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops import dirbits
+from sequencealigning_tpu_torch.ops.step_graph import (
+    CounterPacker,
+    run_steps,
+    to_i32,
+)
 
 MODES = ("global", "semi", "local")
-
-
-def _boundary_scalars(p: int, scheme: ScoringScheme, compat: bool):
-    """Boundary cells at anti-diagonal p as ((M, I, D) of row-0 cell
-    (x=0, y=p), (M, I, D) of column-0 cell (x=p, y=0)): compat keeps the
-    chain o+(p+1)e in D on row 0 and in I on column 0, textbook keeps
-    o+p*e in the other plane; p == 0 is the origin (M=0, I=D=-inf).  As
-    ops/nw_affine.py::_boundary_scalars."""
-    o, e = scheme.gap_open, scheme.gap_extend
-    neg = NEG_INF
-    m_b = 0 if p == 0 else neg
-    chain = neg if p == 0 else (o + (p + 1) * e if compat else o + p * e)
-    if compat:
-        return (m_b, neg, chain), (m_b, chain, neg)
-    return (m_b, chain, neg), (m_b, neg, chain)
 
 
 def _bit(mask: torch.Tensor, value: int) -> torch.Tensor:
@@ -65,79 +55,46 @@ def _roll(a: torch.Tensor) -> torch.Tensor:
     return torch.roll(a, 1, dims=1)
 
 
-def _to_u32(words: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> the same bits as a uint32 tensor."""
-    wrapped = words - ((words >> 31) & 1) * (1 << 32)
-    return wrapped.to(torch.int32).view(torch.uint32)
-
-
-class DirsPacker:
-    """Packs one (R, P) direction code a step into u32 words of ``per``
-    codes (8 fast4 nibbles or 4 full bytes), little-endian in the step:
-    the code of step t lands in ``dirs[t // per]``.  A last, partial word
-    is written by flush() with zeros above its codes."""
-
-    def __init__(self, dirs: torch.Tensor, per: int):
-        self.dirs = dirs
-        self.per = per
-        self.bits = 32 // per
-        self.acc = None
-        self.last = -1
-
-    @classmethod
-    def for_stream(cls, dirs_mode, plan, device) -> "DirsPacker | None":
-        """The packer of a streamed fill's (t_total / per, R, P) tensor, or
-        None when no dirs are asked for."""
-        if not dirs_mode:
-            return None
-        per = 8 if dirs_mode == "fast4" else 4
-        dirs = torch.empty((plan.t_total // per, plan.n_rows, plan.p),
-                           dtype=torch.uint32, device=device)
-        return cls(dirs, per)
-
-    def add(self, t: int, code: torch.Tensor) -> None:
-        u = t % self.per
-        word = code.to(torch.int64) << (self.bits * u)
-        self.acc = word if u == 0 else self.acc | word
-        self.last = t
-        if u == self.per - 1:
-            self.dirs[t // self.per] = _to_u32(self.acc)
-
-    def flush(self) -> torch.Tensor:
-        if self.last >= 0 and self.last % self.per != self.per - 1:
-            self.dirs[self.last // self.per] = _to_u32(self.acc)
-        return self.dirs
-
-
-def apply_boundaries(M, I, D, restart, lanes, p: int, scheme: ScoringScheme,
-                     compat: bool, mode: str):
-    """Write the boundary cells of local diagonal p into M/I/D (in place):
-    ``lanes`` are the boundary lanes (lane p first, then lane 0, so the
-    origin wins at p == 0).  Global mode writes the gap chains; semi and
-    local write M = 0, I = D = -inf, and local marks them restarts."""
-    P = M.shape[1]
-    row0, col0 = _boundary_scalars(p, scheme, compat)
-    for lane in lanes:
-        if lane >= P:
-            continue
-        if mode == "global":
-            vals = row0 if lane == 0 else col0
-        else:
-            vals = (0, NEG_INF, NEG_INF)
-            if restart is not None:
-                restart[:, lane] = 1
-        M[:, lane], I[:, lane], D[:, lane] = vals
+def apply_boundaries(M, I, D, restart, p: torch.Tensor,
+                     scheme: ScoringScheme, compat: bool, mode: str):
+    """Write the boundary cells of local diagonal p (a 0-d tensor: the step
+    counter of the plain loops, ops.step_graph) into M/I/D in place: lanes
+    p and 0, lane 0 winning at p == 0 (the origin).  Global mode writes the
+    gap chains of the JAX package's _boundary_scalars (compat: o+(p+1)e in
+    D on row 0 and in I on column 0; textbook: o+p*e in the other plane);
+    semi and local write M = 0, I = D = -inf, and local marks them
+    restarts.  A lane p at or past the lane width does not exist and takes
+    nothing."""
+    lane = torch.arange(M.shape[1], device=M.device)[None, :]
+    at_0, at_p = lane == 0, lane == p
+    if mode != "global":
+        edge = at_0 | at_p
+        for t, v in ((M, 0), (I, NEG_INF), (D, NEG_INF)):
+            t.masked_fill_(edge, v)
+        if restart is not None:
+            restart.masked_fill_(edge, 1)
+        return
+    o, e = scheme.gap_open, scheme.gap_extend
+    origin = p == 0
+    m_b = torch.where(origin, 0, NEG_INF)
+    chain = torch.where(origin, NEG_INF,
+                        o + (p + 1) * e if compat else o + p * e)
+    neg = torch.full_like(m_b, NEG_INF)
+    row0, col0 = ((m_b, neg, chain), (m_b, chain, neg)) if compat else (
+        (m_b, chain, neg), (m_b, neg, chain))
+    for t, v0, vp in zip((M, I, D), row0, col0):
+        t.copy_(torch.where(at_0, v0, torch.where(at_p, vp, t)))
 
 
 def gotoh_step_torch(
-    H2, H1, M1, I1, D1, s1d, seq1_col, s2v, d: int,
+    H2, H1, M1, I1, D1, s1d, seq1_col, s2v, d: torch.Tensor,
     scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
     mode: str = "global",
 ):
     """Diagonal d from diagonals d-1 (M1/I1/D1, H1) and d-2 (H2): the twin
     of ops/nw_affine.py::_gotoh_step.  All state (B, P) int32, seq1_col
-    (B,) the query code entering at lane 0.  Returns (M, I, D, H, s1d_new,
-    byte) with byte None when with_dirs is False."""
+    (B,) the query code entering at lane 0, d a 0-d tensor.  Returns (M, I,
+    D, H, s1d_new, byte) with byte None when with_dirs is False."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     o, e = scheme.gap_open, scheme.gap_extend
@@ -155,7 +112,7 @@ def gotoh_step_torch(
     D = torch.maximum(dd, D1r) + e
     ii = M1 + o
     I = torch.maximum(ii, I1) + e
-    apply_boundaries(M, I, D, restart, (d, 0), d, scheme, compat, mode)
+    apply_boundaries(M, I, D, restart, d, scheme, compat, mode)
     H = torch.maximum(M, torch.maximum(I, D))
 
     byte = None
@@ -168,6 +125,29 @@ def gotoh_step_torch(
             b |= restart * dirbits.LSTART
         byte = b
     return M, I, D, H, s1d_new, byte
+
+
+def diag_state(B: int, P: int, device):
+    """The rolling state of a per-pair plain fill: H2, H1, M1, I1, D1 (at
+    NEG_INF) and s1d (at 0), each its own (B, P) int32 tensor."""
+    state = [torch.full((B, P), NEG_INF, dtype=torch.int32, device=device)
+             for _ in range(5)]
+    return state + [torch.zeros((B, P), dtype=torch.int32, device=device)]
+
+
+def advance_diag(state, M, I, D, H, s1d):
+    """Shift a diagonal's results into the rolling state, in place."""
+    H2, H1, M1, I1, D1, s1d_old = state
+    H2.copy_(H1)
+    for dst, src in ((H1, H), (M1, M), (I1, I), (D1, D), (s1d_old, s1d)):
+        dst.copy_(src)
+
+
+def query_column(seq1, d: torch.Tensor):
+    """(B,) the query code entering lane 0 on diagonal d:
+    seq1[:, clip(d - 1, 0, L1p - 1)]."""
+    at = (d - 1).clamp(0, seq1.shape[1] - 1).view(1)
+    return seq1.index_select(1, at)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -205,45 +185,43 @@ def gotoh_fill_torch(
     seq1, s2v, dsum, n2mask, l1: int, l2: int,
     scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
 ):
-    """Plain PyTorch twin of _gotoh_fill_lax: a Python loop over the
-    D_total = l1 + l2 + 1 diagonals.  seq1: (B, L1p) int32 query codes;
-    s2v: (B, P) int32 db codes at lanes 1..l2; dsum: (B, 1) int32 n1 + n2;
-    n2mask: (B, P) int32, non-zero at the capture lane.  Returns (finals
-    (B, 3) int32, dirs (ceil(D_total/4), B, P) uint32 or None)."""
+    """Plain PyTorch twin of _gotoh_fill_lax: a loop over the D_total =
+    l1 + l2 + 1 diagonals.  seq1: (B, L1p) int32 query codes; s2v: (B, P)
+    int32 db codes at lanes 1..l2; dsum: (B, 1) int32 n1 + n2; n2mask:
+    (B, P) int32, non-zero at the capture lane.  Returns (finals (B, 3)
+    int32, dirs (ceil(D_total/4), B, P) uint32 or None).  The diagonal is
+    a device counter and the state updates in place, so on the card the
+    loop replays as CUDA graphs (ops.step_graph)."""
     _check_gotoh_args(seq1, s2v, dsum, n2mask, l1, l2)
     B, P = s2v.shape
     dev = s2v.device
     D_total = l1 + l2 + 1
-    state = torch.full((B, P), NEG_INF, dtype=torch.int32, device=dev)
-    H2 = H1 = M1 = I1 = D1 = state
-    s1d = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    mask = (n2mask != 0).to(torch.int64)
+    state = diag_state(B, P, dev)
+    mask = (n2mask != 0).to(torch.int32)
     finals = torch.zeros((B, 3), dtype=torch.int64, device=dev)
-    # Capture schedule: diagonal -> the pairs whose corner lies on it.
-    ds = dsum[:, 0].cpu().numpy()
-    events = {int(d): torch.from_numpy(np.flatnonzero(ds == d)).to(dev)
-              for d in np.unique(ds)}
     pack = None
     if with_dirs:
-        pack = DirsPacker(torch.empty((-(-D_total // 4), B, P),
-                                      dtype=torch.uint32, device=dev), 4)
-    for d in range(D_total):
-        col = seq1[:, min(max(d - 1, 0), seq1.shape[1] - 1)]
+        pack = CounterPacker(torch.empty((-(-D_total // 4), B, P),
+                                         dtype=torch.uint32, device=dev), 4)
+    d = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def diagonal():
         M, I, D, H, s1d, byte = gotoh_step_torch(
-            H2, H1, M1, I1, D1, s1d, col, s2v, d, scheme, compat, wildcard,
+            *state, query_column(seq1, d), s2v, d, scheme, compat, wildcard,
             with_dirs,
         )
-        rows = events.get(d)
-        if rows is not None:
-            m = mask[rows]
-            finals[rows] += torch.stack(
-                [(t[rows].to(torch.int64) * m).sum(1) for t in (M, I, D)],
-                dim=1)
+        # Each pair's corner lies on its diagonal dsum, at the lanes of
+        # n2mask.
+        got = torch.stack([(t * mask).sum(1, dtype=torch.int64)
+                           for t in (M, I, D)], dim=1)
+        finals.add_(torch.where(dsum == d, got, 0))
         if pack is not None:
             pack.add(d, byte)
-        H2, H1, M1, I1, D1 = H1, H, M, I, D
-    finals = _to_u32(finals & 0xFFFFFFFF).view(torch.int32)
-    return finals, pack.flush() if pack is not None else None
+        advance_diag(state, M, I, D, H, s1d)
+
+    run_steps(diagonal, d, D_total)
+    finals = to_i32(finals & 0xFFFFFFFF)
+    return finals, pack.dirs if pack is not None else None
 
 
 def gotoh_fill_cuda(

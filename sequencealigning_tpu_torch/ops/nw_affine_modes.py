@@ -28,13 +28,16 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.ops.nw_affine import (
-    DirsPacker,
+    advance_diag,
+    diag_state,
     gotoh_step_torch,
+    query_column,
 )
+from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
 # Initial value of the running argmax (below every reachable score).
 NEGBIG = -(2 ** 24)
@@ -100,40 +103,43 @@ def fill_modes_torch(
     seq1, s2v, n1v, n2v, l1: int, l2: int,
     scheme: ScoringScheme, wildcard: bool, local: bool, with_dirs: bool,
 ):
-    """Plain PyTorch twin of _fill_modes_lax: a Python loop over the
-    D_total diagonals.  seq1: (B, L1) int32 codes; s2v: (B, P) int32 db
-    codes at lanes 1..L2; n1v/n2v: (B,) int32 lengths.  Returns (bv, bd)
-    (B, P) int32 running argmax buffers and the dirs or None."""
+    """Plain PyTorch twin of _fill_modes_lax: a loop over the D_total
+    diagonals.  seq1: (B, L1) int32 codes; s2v: (B, P) int32 db codes at
+    lanes 1..L2; n1v/n2v: (B,) int32 lengths.  Returns (bv, bd) (B, P)
+    int32 running argmax buffers and the dirs or None.  The diagonal is a
+    device counter and the state updates in place, so on the card the loop
+    replays as CUDA graphs (ops.step_graph)."""
     _check_modes_args(seq1, s2v, n1v, n2v, l2)
     B, P = s2v.shape
     dev = s2v.device
     mode = "local" if local else "semi"
     D_total = l1 + l2 + 1
-    state = torch.full((B, P), NEG_INF, dtype=torch.int32, device=dev)
-    H2 = H1 = M1 = I1 = D1 = state
-    s1d = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    state = diag_state(B, P, dev)
     bv = torch.full((B, P), NEGBIG, dtype=torch.int32, device=dev)
     bd = torch.zeros((B, P), dtype=torch.int32, device=dev)
     x_iota = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
     n1, n2 = n1v[:, None], n2v[:, None]
     pack = None
     if with_dirs:
-        pack = DirsPacker(torch.empty((-(-D_total // 4), B, P),
-                                      dtype=torch.uint32, device=dev), 4)
-    for d in range(D_total):
-        col = seq1[:, min(max(d - 1, 0), seq1.shape[1] - 1)]
+        pack = CounterPacker(torch.empty((-(-D_total // 4), B, P),
+                                         dtype=torch.uint32, device=dev), 4)
+    d = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def diagonal():
         M, I, D, H, s1d, byte = gotoh_step_torch(
-            H2, H1, M1, I1, D1, s1d, col, s2v, d, scheme, False, wildcard,
+            *state, query_column(seq1, d), s2v, d, scheme, False, wildcard,
             with_dirs, mode=mode,
         )
         elig, score = mode_candidates(mode, M, H, x_iota, d, n1, n2)
         upd = elig & (score > bv)
-        bv = torch.where(upd, score, bv)
-        bd = torch.where(upd, d, bd)
+        bv.copy_(torch.where(upd, score, bv))
+        bd.copy_(torch.where(upd, d, bd))
         if pack is not None:
             pack.add(d, byte)
-        H2, H1, M1, I1, D1 = H1, H, M, I, D
-    return bv, bd, pack.flush() if pack is not None else None
+        advance_diag(state, M, I, D, H, s1d)
+
+    run_steps(diagonal, d, D_total)
+    return bv, bd, pack.dirs if pack is not None else None
 
 
 def modes_fill_cuda(

@@ -31,11 +31,11 @@ from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.ops.nw_affine import (
-    DirsPacker,
     _bit,
     _roll,
     apply_boundaries,
 )
+from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
 _DIRS_CODES = {None: 0, "fast4": 1, "full": 2}
 
@@ -179,7 +179,7 @@ def capture_params(query_len, db_len, plan: StreamPlan):
 
 
 def stream_step_torch(
-    H2, H1, M1, I1, D1, s1d, s2v, qc, dc, p: int,
+    H2, H1, M1, I1, D1, s1d, s2v, qc, dc, p: torch.Tensor,
     scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
     mode: str = "global",
 ):
@@ -191,13 +191,14 @@ def stream_step_torch(
     ops.nw_affine.apply_boundaries at lanes 0 and p; a lane p at or past
     the lane width P does not exist and takes neither code nor boundary.
     Returns (M, I, D, H, s1d_new, code) with code the fast4 or full
-    direction code, or None."""
+    direction code, or None.  p is a 0-d tensor (the step counter of the
+    plain loops, ops.step_graph)."""
     o, e = scheme.gap_open, scheme.gap_extend
     P = s2v.shape[1]
     s1d = _roll(s1d)
     s1d[:, 0] = qc
-    if p < P:
-        s2v[:, p] = dc
+    lane = torch.arange(P, device=s2v.device)[None, :]
+    s2v.copy_(torch.where(lane == p, dc[:, None], s2v))
     eq = (s1d & s2v) != 0 if wildcard else s1d == s2v
     sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
     t0 = M1 + o
@@ -210,7 +211,7 @@ def stream_step_torch(
     cd = D1 >= t0
     D = _roll(torch.where(cd, D1, t0)) + e
     I = torch.where(ci, I1, t0) + e
-    apply_boundaries(M, I, D, restart, (p, 0), p, scheme, compat, mode)
+    apply_boundaries(M, I, D, restart, p, scheme, compat, mode)
     H = torch.maximum(M, torch.maximum(I, D))
 
     code = None
@@ -251,56 +252,69 @@ def _check_fill_args(qstream, dstream, dsums, n2s, plan: StreamPlan,
         raise ValueError(f"t_total {plan.t_total} is not a multiple of {upack}")
 
 
+def stream_state(R: int, P: int, neg: int, device):
+    """The rolling state of a streamed plain fill: H2, H1, M1, I1, D1 (at
+    neg), s1d and s2v (at 0), each its own (R, P) int32 tensor."""
+    full = [torch.full((R, P), neg, dtype=torch.int32, device=device)
+            for _ in range(5)]
+    zeros = [torch.zeros((R, P), dtype=torch.int32, device=device)
+             for _ in range(2)]
+    return full + zeros
+
+
+def advance(state, M, I, D, H, s1d):
+    """Shift a step's results into the rolling state, in place."""
+    H2, H1, M1, I1, D1, s1d_old, _s2v = state
+    H2.copy_(H1)
+    for dst, src in ((H1, H), (M1, M), (I1, I), (D1, D), (s1d_old, s1d)):
+        dst.copy_(src)
+
+
 def gotoh_fill_stream_torch(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     compat: bool, wildcard: bool, dirs_mode,
 ):
-    """Plain PyTorch twin of gotoh_fill_stream_lax: a Python loop over the
-    t_total steps, each a handful of (R, P) tensor ops, with the same torus
-    rolls.  qstream/dstream: (R, t_total) int32; dsums/n2s: (np_slots, R)
-    int32.  Returns (finals (R*np_slots, 3) int32, dirs uint32 or None)."""
+    """Plain PyTorch twin of gotoh_fill_stream_lax: a loop over the t_total
+    steps, each a handful of (R, P) tensor ops, with the same torus rolls.
+    qstream/dstream: (R, t_total) int32; dsums/n2s: (np_slots, R) int32.
+    Returns (finals (R*np_slots, 3) int32, dirs uint32 or None).  The step
+    is a device counter and the state updates in place, so on the card the
+    loop replays as CUDA graphs (ops.step_graph)."""
     _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
     R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
     dev = qstream.device
-    i32 = torch.int32
 
-    # Capture schedule: step -> (rows, lanes, pair indices).
-    ds_h = dsums.cpu().numpy().astype(np.int64)
-    n2_h = n2s.cpu().numpy().astype(np.int64)
-    events: dict = {}
-    for k in range(NP):
-        for r in range(R):
-            events.setdefault(k * S + int(ds_h[k, r]), []).append(
-                (r, int(n2_h[k, r]), r * NP + k)
-            )
-    events = {
-        t: torch.tensor(v, dtype=torch.long, device=dev).T
-        for t, v in events.items()
-    }
+    # Pair r * NP + k (row r, slot k) is captured at lane n2 on step
+    # k * S + dsum.
+    slot = torch.arange(NP, device=dev)[:, None]
+    cap_t = (slot * S + dsums.long()).T.reshape(-1)
+    rows = torch.arange(R, device=dev).repeat_interleave(NP)
+    lanes = n2s.long().T.reshape(-1)
+    state = stream_state(R, P, NEG_INF, dev)
+    finals = torch.zeros((R * NP, 3), dtype=torch.int32, device=dev)
+    pack = None
+    if dirs_mode:
+        per = 8 if dirs_mode == "fast4" else 4
+        pack = CounterPacker(torch.empty((plan.t_total // per, R, P),
+                                         dtype=torch.uint32, device=dev), per)
+    t = torch.zeros((), dtype=torch.int64, device=dev)
 
-    state = torch.full((R, P), NEG_INF, dtype=i32, device=dev)
-    H2 = H1 = M1 = I1 = D1 = state
-    s1d = torch.zeros((R, P), dtype=i32, device=dev)
-    s2v = torch.zeros((R, P), dtype=i32, device=dev)
-    finals = torch.zeros((R * NP, 3), dtype=i32, device=dev)
-    pack = DirsPacker.for_stream(dirs_mode, plan, dev)
-
-    for t in range(plan.t_total):
+    def step():
+        at = t.view(1)
         M, I, D, H, s1d, b = stream_step_torch(
-            H2, H1, M1, I1, D1, s1d, s2v, qstream[:, t], dstream[:, t],
-            t % S, scheme, compat, wildcard, dirs_mode,
+            *state[:6], state[6], qstream.index_select(1, at)[:, 0],
+            dstream.index_select(1, at)[:, 0], t % S, scheme, compat,
+            wildcard, dirs_mode,
         )
         if pack is not None:
             pack.add(t, b)
-        ev = events.get(t)
-        if ev is not None:
-            rows, lanes, idx = ev
-            finals[idx] = torch.stack(
-                [M[rows, lanes], I[rows, lanes], D[rows, lanes]], dim=1
-            )
-        H2, H1, M1, I1, D1 = H1, H, M, I, D
+        got = torch.stack([M[rows, lanes], I[rows, lanes], D[rows, lanes]],
+                          dim=1)
+        finals.copy_(torch.where((cap_t == t)[:, None], got, finals))
+        advance(state, M, I, D, H, s1d)
 
+    run_steps(step, t, plan.t_total)
     return finals, pack.dirs if pack is not None else None
 
 

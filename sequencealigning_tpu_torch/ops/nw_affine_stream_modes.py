@@ -34,7 +34,6 @@ import torch
 
 from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch import csrc
-from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker
 from sequencealigning_tpu_torch.ops.nw_affine_modes import (
     NEGBIG,
     mode_candidates,
@@ -43,10 +42,13 @@ from sequencealigning_tpu_torch.ops.nw_affine_modes import (
 from sequencealigning_tpu_torch.ops.nw_affine_stream import (
     StreamPlan,
     _check_fill_args,
+    advance,
     resolve_stream_state,
     stream_inputs,
+    stream_state,
     stream_step_torch,
 )
+from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
 MODES = ("semi", "local")
 
@@ -76,42 +78,52 @@ def gotoh_fill_stream_modes_torch(
     """Plain PyTorch twin of gotoh_fill_stream_modes_lax.  qstream/dstream:
     (R, t_total) int32; dsums/n2s: (np_slots, R) int32 (n1+n2 and n2 of
     each slot's pair).  Returns ((bv, bd) each (np_slots, R, P) int32,
-    dirs uint32 or None)."""
+    dirs uint32 or None).  The step is a device counter and the state
+    updates in place, so on the card the loop replays as CUDA graphs
+    (ops.step_graph)."""
     _check_mode(mode)
     _check_fill_args(qstream, dstream, dsums, n2s, plan,
                      "full" if with_dirs else None)
     R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
     dev = qstream.device
-    state = torch.full((R, P), NEGBIG, dtype=torch.int32, device=dev)
-    H2 = H1 = M1 = I1 = D1 = state
-    s1d = torch.zeros((R, P), dtype=torch.int32, device=dev)
-    s2v = torch.zeros((R, P), dtype=torch.int32, device=dev)
+    state = stream_state(R, P, NEGBIG, dev)
     bv = torch.full((NP, R, P), NEGBIG, dtype=torch.int32, device=dev)
     bd = torch.zeros((NP, R, P), dtype=torch.int32, device=dev)
     x_iota = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
     n2k = n2s[:, :, None]
     n1k = dsums[:, :, None] - n2k
-    pack = DirsPacker.for_stream("full" if with_dirs else None, plan, dev)
+    pack = None
+    if with_dirs:
+        pack = CounterPacker(torch.empty((plan.t_total // 4, R, P),
+                                         dtype=torch.uint32, device=dev), 4)
+    t = torch.zeros((), dtype=torch.int64, device=dev)
 
-    for t in range(plan.t_total):
+    def step():
+        at = t.view(1)
         M, I, D, H, s1d, code = stream_step_torch(
-            H2, H1, M1, I1, D1, s1d, s2v, qstream[:, t], dstream[:, t],
-            t % S, scheme, False, wildcard, "full" if with_dirs else None,
-            mode=mode,
+            *state[:6], state[6], qstream.index_select(1, at)[:, 0],
+            dstream.index_select(1, at)[:, 0], t % S, scheme, False,
+            wildcard, "full" if with_dirs else None, mode=mode,
         )
-        for k in (t // S - 1, t // S):
-            if not 0 <= k < NP:
-                continue
+        # The slots whose pairs lie on this step: t // S - 1 and t // S
+        # (a slot out of 0..NP-1 updates nothing).
+        for back in (1, 0):
+            k = t // S - back
+            kc = k.clamp(0, NP - 1).view(1)
             pk = t - k * S
-            elig, score = mode_candidates(mode, M, H, x_iota, pk, n1k[k],
-                                          n2k[k])
-            upd = elig & (score > bv[k])
-            bv[k] = torch.where(upd, score, bv[k])
-            bd[k] = torch.where(upd, pk, bd[k])
+            elig, score = mode_candidates(
+                mode, M, H, x_iota, pk, n1k.index_select(0, kc)[0],
+                n2k.index_select(0, kc)[0])
+            bvk = bv.index_select(0, kc)[0]
+            upd = elig & (score > bvk) & (k >= 0) & (k < NP)
+            bv.index_copy_(0, kc, torch.where(upd, score, bvk)[None])
+            bd.index_copy_(0, kc, torch.where(
+                upd, pk.to(torch.int32), bd.index_select(0, kc)[0])[None])
         if pack is not None:
             pack.add(t, code)
-        H2, H1, M1, I1, D1 = H1, H, M, I, D
+        advance(state, M, I, D, H, s1d)
 
+    run_steps(step, t, plan.t_total)
     return (bv, bd), pack.dirs if pack is not None else None
 
 

@@ -46,6 +46,7 @@ from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops.nw_affine import _bit, _roll
+from sequencealigning_tpu_torch.ops.step_graph import run_steps
 
 # The widest CTA the CUDA kernels take (512 threads x 8 lanes).
 CUDA_TILE_LANES = 4096
@@ -385,7 +386,9 @@ def gotoh_finals_rows_torch(query, db, n1v, n2v, scheme: ScoringScheme,
     fill's order (ops/oracle_gotoh.py: one db position x a step, a row over
     the query; the in-row I chain linearised by a prefix maximum).  About
     half the steps of the lax-layout twins, so the kernels' finals can be
-    held against a plain version at 100 kb; it shares no code with them."""
+    held against a plain version at 100 kb; it shares no code with them.
+    The row x is a device counter and the rows update in place, so on the
+    card the sweep replays as CUDA graphs (ops.step_graph)."""
     B, L1 = query.shape
     dev = query.device
     o, e = scheme.gap_open, scheme.gap_extend
@@ -399,34 +402,40 @@ def gotoh_finals_rows_torch(query, db, n1v, n2v, scheme: ScoringScheme,
     else:
         i_[:, 1:] = o + ye[:, 1:]
     q = query.to(torch.int32)
+    dbc = db.to(torch.int32)
+    rows = torch.arange(B, device=dev)
     cols = n1v.to(torch.int64)
-    # The capture schedule, on the host: pair b's corner is row n2[b].
-    n2s = n2v.cpu().numpy()
-    stops = set(n2s.tolist())
+    n2 = n2v.to(torch.int64)
     finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+    x = torch.zeros((), dtype=torch.int64, device=dev)
 
-    def capture(x: int):
-        at = torch.as_tensor(np.flatnonzero(n2s == x), device=dev)
-        finals[at] = torch.stack(
-            [m[at, cols[at]], i_[at, cols[at]], d[at, cols[at]]], dim=1)
+    def capture():
+        # Pair b's corner is row n2[b], column n1[b].
+        at = torch.stack([m[rows, cols], i_[rows, cols], d[rows, cols]], 1)
+        finals.copy_(torch.where((n2 == x)[:, None], at, finals))
 
-    if 0 in stops:
-        capture(0)
-    for x in range(1, int(n2s.max(initial=0)) + 1):
-        c = db[:, x - 1:x].to(torch.int32)
+    def row():
+        c = dbc.index_select(1, (x - 1).view(1))
         eq = (q & c) != 0 if wildcard else q == c
         sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
         h = torch.maximum(m, torch.maximum(i_, d))
-        d = torch.maximum(m + o, d) + e
-        d[:, 0] = NEG_INF if compat else o + x * e
-        m = F.pad(h[:, :-1] + sub, (1, 0), value=NEG_INF)
+        d.copy_(torch.maximum(m + o, d) + e)
+        if not compat:
+            d[:, 0] = o + x * e
+        else:
+            d[:, 0] = NEG_INF
+        m.copy_(F.pad(h[:, :-1] + sub, (1, 0), value=NEG_INF))
         # I[y] = max(M[y-1] + o, I[y-1]) + e = y*e + max over y' <= y of
         # (I[0] at y' = 0, M[y'-1] + o + e - y'*e past it).
-        i0 = o + (x + 1) * e if compat else NEG_INF
-        chain = F.pad(m[:, :-1] + (o + e) - ye[:, 1:], (1, 0), value=i0)
-        i_ = torch.cummax(chain, dim=1).values + ye
-        if x in stops:
-            capture(x)
+        i0 = (o + (x + 1) * e if compat else torch.full_like(x, NEG_INF))
+        chain = torch.cat([i0.to(torch.int32).expand(B, 1),
+                           m[:, :-1] + (o + e) - ye[:, 1:]], dim=1)
+        i_.copy_(torch.cummax(chain, dim=1).values + ye)
+        capture()
+
+    capture()
+    x.fill_(1)
+    run_steps(row, x, int(n2v.max()) if B else 0)
     return finals
 
 

@@ -48,7 +48,8 @@ from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops import dirbits
-from sequencealigning_tpu_torch.ops.nw_affine import DirsPacker, _bit
+from sequencealigning_tpu_torch.ops.nw_affine import _bit
+from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
 NEGBIG = -(2 ** 24)  # band-mask -inf
 # The widest band a thread-block cluster holds: 16 CTAs of 8192 lanes
@@ -272,12 +273,14 @@ def banded_diag_fill_torch(
     scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
     model: str = "ref",
 ):
-    """Plain PyTorch twin of _banded_diag_lax: a Python loop over the
-    n_iters = c1s.shape[1] iterations of two wavefronts.  s1w0/s2w0: (B, L)
-    int32 windows (init_windows); c1s/c2s: (B, n_iters) int32 entering
+    """Plain PyTorch twin of _banded_diag_lax: a loop over the n_iters =
+    c1s.shape[1] iterations of two wavefronts.  s1w0/s2w0: (B, L) int32
+    windows (init_windows); c1s/c2s: (B, n_iters) int32 entering
     characters (entering_streams); n1v/n2v: (B,) int32 lengths.  Returns
     (finals (B, 3) int32, dirs (ceil(2 n_iters / upack), B, L) uint32 or
-    None)."""
+    None).  The iteration is a device counter and the state updates in
+    place, so on the card the loop replays as CUDA graphs
+    (ops.step_graph)."""
     dirs_mode = _norm_dirs(dirs_mode)
     _check_model(model, compat, dirs_mode)
     _check_fill_args(s1w0, s2w0, c1s, c2s, n1v, n2v, plan)
@@ -290,31 +293,39 @@ def banded_diag_fill_torch(
     n1, n2 = n1v[:, None], n2v[:, None]
     m0 = torch.where(lane == -he, 0, NEGBIG).to(torch.int32)
     negs = torch.full((B, L), NEGBIG, dtype=torch.int32, device=dev)
-    M1, I1, D1, H1, H2 = m0, negs, negs, m0, negs
-    s1w, s2w = s1w0, s2w0
+    M1, I1, D1, H1, H2 = (t.clone() for t in (m0, negs, negs, m0, negs))
+    s1w, s2w = s1w0.clone(), s2w0.clone()
     finals = torch.zeros((B, 3), dtype=torch.int64, device=dev)
     pack = None
     if dirs_mode:
         upack = _upack(dirs_mode)
-        pack = DirsPacker(torch.empty((-(-2 * n_iters // upack), B, L),
-                                      dtype=torch.uint32, device=dev), upack)
-    for i in range(n_iters):
-        for par, a, c in ((1, 2 * i + 1, c1s[:, i]),
-                          (0, 2 * i + 2, c2s[:, i])):
-            M, I, D, H, s1w, s2w, code = diag_step_torch(
+        pack = CounterPacker(torch.empty((-(-2 * n_iters // upack), B, L),
+                                         dtype=torch.uint32, device=dev),
+                             upack)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def iteration():
+        for par, cs in ((1, c1s), (0, c2s)):
+            a = 2 * i + (2 - par)
+            c = cs.index_select(1, i.view(1))[:, 0]
+            M, I, D, H, s1n, s2n, code = diag_step_torch(
                 par, a, M1, I1, D1, H2, H1, s1w, s2w, c, lane, n1, n2, he,
                 plan.lane_limit(par), scheme, compat, wildcard, dirs_mode,
                 model,
             )
             xv = (a - par) // 2 - he - lane
             hit = (xv == n2) & (a - xv == n1)
-            finals += torch.stack(
-                [torch.where(hit, t, 0).sum(1) for t in (M, I, D)], dim=1)
+            finals.add_(torch.stack(
+                [torch.where(hit, t, 0).sum(1) for t in (M, I, D)], dim=1))
             if pack is not None:
                 pack.add(a - 1, code)
-            M1, I1, D1, H2, H1 = M, I, D, H1, H
-    dirs = pack.flush() if pack is not None else None
-    return finals.to(torch.int32), dirs
+            H2.copy_(H1)
+            for dst, src in ((M1, M), (I1, I), (D1, D), (H1, H), (s1w, s1n),
+                             (s2w, s2n)):
+                dst.copy_(src)
+
+    run_steps(iteration, i, n_iters)
+    return finals.to(torch.int32), pack.dirs if pack is not None else None
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,27 @@ def traceback_pair(
     )
 
 
+def banded_traceback_pair(
+    dirs_b: np.ndarray,
+    finals_b: np.ndarray,
+    seq1: bytes,
+    seq2: bytes,
+    k_lo: int,
+    compat: bool = True,
+    max_alignments: int = 64,
+) -> Tuple[int, List[Tuple[str, str]]]:
+    """Traceback for ops.nw_banded's row-packed band-coordinate layout:
+    byte(x, y) lives at word dirs[x//4, (y-x) - k_lo], shift 8*(x%4)."""
+
+    def byte_at(x: int, y: int) -> int:
+        k = (y - x) - k_lo
+        if k < 0 or k >= dirs_b.shape[1]:
+            return 0  # out of band: no parents
+        return int(dirs_b[x >> 2, k] >> (8 * (x & 3))) & 0xFF
+
+    return _gotoh_walk(byte_at, finals_b, seq1, seq2, compat, max_alignments)
+
+
 def banded_diag_traceback_pair(
     dirs_b: np.ndarray,
     finals_b: np.ndarray,
@@ -397,6 +418,29 @@ def _banded_fast4_walk(
     return "".join(ops)
 
 
+def banded_fast4_traceback_pair(
+    dirs_b: np.ndarray,
+    finals_b: np.ndarray,
+    seq1: bytes,
+    seq2: bytes,
+    k_lo: int,
+    compat: bool = True,
+) -> Tuple[int, List[Tuple[str, str]]]:
+    """First-path traceback for ops.nw_banded's fast4 layout: the 4-bit
+    code of cell (x, y) lives at word dirs[x//8, (y-x)-k_lo], shift
+    4*(x%8).  Same code semantics as fast4_traceback_pair."""
+    n1, n2 = len(seq1), len(seq2)
+
+    def nib(x: int, y: int) -> int:
+        k = (y - x) - k_lo
+        if k < 0 or k >= dirs_b.shape[1]:
+            return 0
+        return int(dirs_b[x >> 3, k] >> (4 * (x & 7))) & 0xF
+
+    ops = _banded_fast4_walk(nib, finals_b, n1, n2)
+    return int(finals_b.max()), [_apply_ops(ops, seq1, seq2)]
+
+
 def banded_diag_fast4_traceback_pair(
     dirs_b: np.ndarray,
     finals_b: np.ndarray,
@@ -423,6 +467,167 @@ def banded_diag_fast4_traceback_pair(
 
     ops = _banded_fast4_walk(nib, finals_b, n1, n2, std=std)
     return int(finals_b.max()), [_apply_ops(ops, seq1, seq2)]
+
+
+def _banded_batch_walks(
+    dirs, finals, seqs1, seqs2, k_origin, compat, native_fn, pair_fn,
+):
+    """Shared scaffolding for the banded batch walkers: the native C walker
+    (native_fn), the Python pair walker for a pair it fails; per-pair
+    AlignmentError isolation."""
+    out = []
+    dirs = np.ascontiguousarray(dirs, np.uint32)
+    for b, (s1, s2) in enumerate(zip(seqs1, seqs2)):
+        try:
+            score = int(finals[b].max())
+            ops = native_fn(dirs, b, k_origin, len(s1), len(s2), finals[b])
+            if ops is not None:
+                out.append((score, [_apply_ops(ops, s1, s2)]))
+            else:
+                out.append(
+                    pair_fn(
+                        dirs[:, b, :], finals[b], s1, s2, k_origin,
+                        compat=compat,
+                    )
+                )
+        except AlignmentError as e:
+            out.append(e)
+    return out
+
+
+def banded_fast4_traceback_batch(
+    dirs: np.ndarray,
+    finals: np.ndarray,
+    seqs1,
+    seqs2,
+    k_lo: int,
+    compat: bool = True,
+):
+    """Batch first-path walks over an (X8, B, K) banded fast4 dirs tensor
+    (row layout): the native walker (native.banded_fast4_first_path_native),
+    the Python one for a pair it fails.  Returns (score, [(a1, a2)]) or
+    AlignmentError per pair."""
+    from sequencealigning_tpu_torch import native
+
+    return _banded_batch_walks(
+        dirs, finals, seqs1, seqs2, k_lo, compat,
+        native.banded_fast4_first_path_native, banded_fast4_traceback_pair,
+    )
+
+
+def _linear_bits(dirs_b: np.ndarray, x: int, y: int) -> int:
+    return _byte(dirs_b, x + y, x)
+
+
+def _linear_ismax_starts(dirs_b: np.ndarray, n1: int, n2: int):
+    """The cells (x, y) whose ISMAX bit is set, in the reference argmax's
+    row-major (seq1-major) order: y ascending, then x (vectorised; the same
+    cells in the same order as a scan of _linear_bits)."""
+    from sequencealigning_tpu_torch.ops.nw_linear import LISMAX
+
+    y, x = np.meshgrid(np.arange(n1 + 1), np.arange(n2 + 1), indexing="ij")
+    d = x + y
+    words = dirs_b[d >> 2, x].astype(np.uint64)
+    bits = (words >> (8 * (d & 3)).astype(np.uint64)) & LISMAX
+    ys, xs = np.nonzero(bits)
+    return [(int(a), int(b)) for b, a in zip(ys, xs)]
+
+
+def linear_traceback_pair(
+    dirs_b: np.ndarray,
+    seq1: bytes,
+    seq2: bytes,
+    local: bool = False,
+    max_hits: int = 64,
+) -> List[Tuple[str, str, int, int]]:
+    """Linear-NW traceback from ops.nw_linear path bits.
+
+    Replicates the reference's DFS (needleman_wunsch.rs:205-254): explores
+    path bits in DOWN, RIGHT, DIAG order, emits a hit at (0,0) or at an
+    empty-path cell, and reproduces the start-coordinate quirk (the printed
+    start is set by the frame *above* the terminating cell).  Local mode
+    seeds from every ISMAX cell in the reference argmax's row-major
+    (seq1-major) encounter order (:256-272).
+
+    Returns [(aligned_seq1, aligned_seq2, start_in_seq1, start_in_seq2)].
+    """
+    from sequencealigning_tpu_torch.ops.nw_linear import LDIAG, LDOWN, LRIGHT
+
+    n1, n2 = len(seq1), len(seq2)
+    if local:
+        starts = _linear_ismax_starts(dirs_b, n1, n2)
+    else:
+        starts = [(n2, n1)]
+
+    hits: List[Tuple[str, str, int, int]] = []
+    s1 = seq1.decode("latin-1")
+    s2 = seq2.decode("latin-1")
+
+    branch_order = (LDOWN, LRIGHT, LDIAG)
+    for start in starts:
+        if len(hits) >= max_hits:
+            break
+        q: List[str] = []
+        db: List[str] = []
+        state = {"siq": 0, "sid": 0}
+        # Explicit-stack DFS (no recursion: a 100 kb pair would otherwise
+        # walk n1+n2 frames deep).  Frame = [cell, branch cursor, bits];
+        # chars pushed when descending into a child are popped when that
+        # child's frame is removed -- identical order to the reference's
+        # recursion (needleman_wunsch.rs:205-254).
+        frames: List[list] = [[start, 0, None]]
+        while frames:
+            frame = frames[-1]
+            (x, y) = frame[0]
+            if frame[1] == 0:
+                # Frame entry (the reference's function prologue).
+                if len(hits) >= max_hits:
+                    frames.pop()
+                    if frames:
+                        q.pop()
+                        db.pop()
+                    continue
+                bits = _linear_bits(dirs_b, x, y) & (LDOWN | LRIGHT | LDIAG)
+                frame[2] = bits
+                if (x, y) == (0, 0) or not bits:
+                    hits.append(
+                        ("".join(reversed(q)), "".join(reversed(db)),
+                         state["siq"], state["sid"])
+                    )
+                    frames.pop()
+                    if frames:
+                        q.pop()
+                        db.pop()
+                    continue
+            descended = False
+            while frame[1] < 3:
+                bit = branch_order[frame[1]]
+                frame[1] += 1
+                if not frame[2] & bit:
+                    continue
+                state["siq"] = max(y, 1) - 1
+                state["sid"] = max(x, 1) - 1
+                if bit == LDOWN:
+                    q.append(s1[y - 1])
+                    db.append("-")
+                    nxt = (x, y - 1)
+                elif bit == LRIGHT:
+                    q.append("-")
+                    db.append(s2[x - 1])
+                    nxt = (x - 1, y)
+                else:
+                    q.append(s1[y - 1])
+                    db.append(s2[x - 1])
+                    nxt = (x - 1, y - 1)
+                frames.append([nxt, 0, None])
+                descended = True
+                break
+            if not descended:
+                frames.pop()
+                if frames:
+                    q.pop()
+                    db.pop()
+    return hits
 
 
 def traceback_stream_batch(

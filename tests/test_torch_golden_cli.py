@@ -33,6 +33,9 @@ def _run(args):
     ("nw-semiglobal-textbook",
      ["-a", "needleman-wunsch", "-m", "semi-global", "--textbook"]),
     ("banded", ["-a", "banded"]),
+    ("a-star", []),
+    ("nw-linear", ["-a", "nw-linear"]),
+    ("nw-linear-local", ["-a", "nw-linear", "-m", "local"]),
 ])
 def test_port_cli_matches_golden(name, args):
     rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu"] + args)
@@ -74,6 +77,13 @@ def test_port_serve_textbook_local(monkeypatch):
     for p in pairs:
         assert f"seq1: {p['aligned_query']}\n" in golden
     assert lines[24]["done"] and lines[24]["pairs"] == 24
+
+
+def test_port_cli_default_algo_is_a_star():
+    """No -a runs a-star, the reference binary's default: the same output
+    as -a a-star (tests/golden/a-star.out)."""
+    base = CORPUS + ["--no-out", "--device", "cpu"]
+    assert _run(base) == _run(base + ["-a", "a-star"])
 
 
 def test_port_cli_unported_algo_exits_2():

@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's host modules (config, errors,
-io, native, the host walkers of ops.traceback, ops.dirbits,
-ops.oracle_gotoh, utils) against their originals on the same inputs: equal
-values, strings and error messages.  The two packages' classes are
+io, native, the host walkers of ops.traceback, ops.dirbits, the Gotoh,
+linear and A* oracles, utils) against their originals on the same inputs:
+equal values, strings and error messages.  The two packages' classes are
 distinct, so results are compared by value, never by identity."""
 
 import dataclasses
@@ -14,7 +14,9 @@ import sequencealigning_tpu.config as jax_config
 import sequencealigning_tpu.errors as jax_errors
 import sequencealigning_tpu.native as jax_native
 import sequencealigning_tpu.ops.dirbits as jax_dirbits
+import sequencealigning_tpu.ops.oracle_astar as jax_oracle_astar
 import sequencealigning_tpu.ops.oracle_gotoh as jax_oracle
+import sequencealigning_tpu.ops.oracle_linear as jax_oracle_linear
 import sequencealigning_tpu.ops.traceback as jax_tb
 import sequencealigning_tpu.utils.cigar as jax_cigar
 import sequencealigning_tpu.utils.guards as jax_guards
@@ -26,6 +28,9 @@ from sequencealigning_tpu_torch import config, errors, native
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io import encode, fasta
 from sequencealigning_tpu_torch.ops import dirbits, oracle_gotoh
+from sequencealigning_tpu_torch.ops import oracle_astar, oracle_linear
+from sequencealigning_tpu_torch.ops import nw_banded as row
+from sequencealigning_tpu_torch.ops import nw_linear as linear
 from sequencealigning_tpu_torch.ops import nw_affine_stream as stream
 from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
 from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
@@ -399,3 +404,166 @@ def test_utils_equal():
     assert _outcome(guards.check_finals, finals[1:], [30], [2])[1] == \
         "GuardError"
 
+
+
+# ---------------------------------------------------------------------------
+# The row-layout banded walkers, the linear walker, the linear and A*
+# oracles, and their native entry points
+# ---------------------------------------------------------------------------
+
+
+def _result_view(r):
+    """A walker's (score, alignments) or its AlignmentError, by value."""
+    if isinstance(r, Exception):
+        return ("raised", type(r).__name__, str(r))
+    return r
+
+
+def _row_and_linear_cases():
+    """(name, port callable, JAX callable, args, kwargs) for the row-layout
+    banded walkers (pair and batch) and the linear walker, on fills made
+    by the port's plain versions."""
+    cases = []
+    pairs = _pairs(31, n=10)
+    mb = to_device(encode.pack_batch(pairs, batch_size=16), "cpu")
+    for compat in (True, False):
+        full = row.nw_banded_batch(*mb, band=8, compat=compat, wildcard=True,
+                                   with_dirs="full")
+        f4 = row.nw_banded_batch(*mb, band=8, compat=compat, wildcard=True,
+                                 with_dirs="fast4")
+        d, d4 = full.dirs.numpy(), f4.dirs.numpy()
+        for b in range(4):
+            cases.append((f"row full {compat} {b}", tb.banded_traceback_pair,
+                          jax_tb.banded_traceback_pair,
+                          (d[:, b, :], full.finals[b], *pairs[b], full.k_lo),
+                          {"compat": compat, "max_alignments": 4}))
+            cases.append((f"row fast4 {compat} {b}",
+                          tb.banded_fast4_traceback_pair,
+                          jax_tb.banded_fast4_traceback_pair,
+                          (d4[:, b, :], f4.finals[b], *pairs[b], f4.k_lo),
+                          {"compat": compat}))
+        cases.append((f"row fast4 batch {compat}",
+                       tb.banded_fast4_traceback_batch,
+                       jax_tb.banded_fast4_traceback_batch,
+                       (d4[:, :10], f4.finals[:10], [a for a, _ in pairs],
+                        [b for _, b in pairs], f4.k_lo), {"compat": compat}))
+    for compat in (True, False):
+        for local in (False, True):
+            res = linear.nw_linear_batch(*mb, compat=compat, local=local)
+            for b in range(4):
+                cases.append((f"linear {compat} {local} {b}",
+                              tb.linear_traceback_pair,
+                              jax_tb.linear_traceback_pair,
+                              (res.dirs[:, b, :].numpy(), *pairs[b]),
+                              {"local": local}))
+    return cases
+
+
+_ROW_CASES = None
+N_ROW_CASES = 34
+
+
+@pytest.mark.parametrize("i", range(N_ROW_CASES))
+def test_row_and_linear_walkers_equal(i):
+    """The row-layout banded walkers (co-optimal full, fast4 pair, the
+    native-first fast4 batch) and the linear DFS walker against their
+    originals on the same dirs: alignments, scores, hit starts and
+    per-pair AlignmentError messages."""
+    global _ROW_CASES
+    if _ROW_CASES is None:
+        _ROW_CASES = _row_and_linear_cases()
+    assert len(_ROW_CASES) == N_ROW_CASES
+    name, port_fn, jax_fn, args, kw = _ROW_CASES[i]
+    got = _outcome(port_fn, *args, **kw)
+    want = _outcome(jax_fn, *args, **kw)
+    if name.startswith("row fast4 batch"):
+        got = [_result_view(g) for g in got]
+        want = [_result_view(w) for w in want]
+    assert got == want, name
+
+
+def test_native_banded_fast4_walker_equal():
+    """The native row-layout fast4 walker against the JAX package's on
+    every pair of a fill, and against the Python pair walker."""
+    pairs = _pairs(37, n=12)
+    mb = to_device(encode.pack_batch(pairs, batch_size=12), "cpu")
+    res = row.nw_banded_batch(*mb, band=12, wildcard=True, with_dirs="fast4")
+    d = res.dirs.numpy()
+    for b, (s1, s2) in enumerate(pairs):
+        args = (d, b, res.k_lo, len(s1), len(s2), res.finals[b])
+        got = native.banded_fast4_first_path_native(*args)
+        assert got == jax_native.banded_fast4_first_path_native(*args)
+        _, alns = tb.banded_fast4_traceback_pair(d[:, b, :], res.finals[b],
+                                                 s1, s2, res.k_lo)
+        assert tb._apply_ops(got, s1, s2) == alns[0]
+
+
+def _astar_pairs(seed):
+    """Pairs the search (which keeps no closed set) finishes fast in
+    Python: mutated copies up to 60 bp, unrelated pairs up to 10 bp, and
+    an empty side each way."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    similar = []
+    for _ in range(6):
+        s1 = rng.choice(alpha, int(rng.integers(20, 61)))
+        s2 = s1.copy()
+        for _ in range(3):
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        similar.append((s1.tobytes(), s2[: len(s2) - int(rng.integers(0, 3))]
+                        .tobytes()))
+    return (similar + _pairs(seed + 1, n=4, hi=10)
+            + [(b"", b"ACG"), (b"AC", b"")])
+
+
+@pytest.mark.parametrize("semi", [False, True])
+def test_native_astar_equal(semi):
+    """The native A* search, single and threaded batch, against the JAX
+    package's native entry points and the port's oracle: scores, strings,
+    and the empty-sequence error."""
+    scheme = config.ScoringScheme()
+    a = (scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+         scheme.epsilon)
+    pairs = _astar_pairs(41)
+    s1s, s2s = [p[0] for p in pairs], [p[1] for p in pairs]
+    got = native.astar_align_batch_native(s1s, s2s, *a, semi_global=semi)
+    assert got == jax_native.astar_align_batch_native(s1s, s2s, *a,
+                                                      semi_global=semi)
+    for (s1, s2), g in zip(pairs, got):
+        one = _outcome(native.astar_align_native, s1, s2, *a,
+                       semi_global=semi)
+        assert one == _outcome(jax_native.astar_align_native, s1, s2, *a,
+                               semi_global=semi)
+        assert one == _outcome(oracle_astar.astar_align, s1, s2, scheme,
+                               semi_global=semi)
+        assert g == (one if isinstance(g, tuple) else one[2])
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_oracle_linear_equal(compat, local):
+    scheme = config.ScoringScheme(match_=2, mismatch=-3, gap_open=-5,
+                                  gap_extend=-1)
+    jscheme = jax_config.ScoringScheme(**dataclasses.asdict(scheme))
+    for s1, s2 in _pairs(43, n=5, hi=30, alphabet=b"ACGT"):
+        got = oracle_linear.linear_fill(s1, s2, scheme, local, compat)
+        want = jax_oracle_linear.linear_fill(s1, s2, jscheme, local, compat)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+        np.testing.assert_array_equal(got[2], want[2])
+        assert oracle_linear.linear_score(s1, s2, scheme, local, compat) == \
+            jax_oracle_linear.linear_score(s1, s2, jscheme, local, compat)
+        assert oracle_linear.linear_traceback(s1, s2, scheme, local, compat) \
+            == jax_oracle_linear.linear_traceback(s1, s2, jscheme, local,
+                                                  compat)
+
+
+def test_oracle_astar_equal():
+    scheme = config.ScoringScheme()
+    jscheme = jax_config.ScoringScheme()
+    for semi in (False, True):
+        for s1, s2 in _astar_pairs(47):
+            assert _outcome(oracle_astar.astar_align, s1, s2, scheme,
+                            semi_global=semi) == _outcome(
+                jax_oracle_astar.astar_align, s1, s2, jscheme,
+                semi_global=semi)

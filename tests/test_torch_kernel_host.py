@@ -4,8 +4,10 @@ versions on the same small batches (exact): the global streamed fill and
 fast4 walk, the per-pair and streamed modes fills and the modes walk, the
 three fills with their rows split over 2-4 forced 128- or 256-lane CTAs
 (the cluster split's geometry, cluster_split.cuh), the banded fill (also
-split over forced 128/256-lane CTAs) and the banded walk, and the tiled
-fill's tile sweep with its carried boundary column (kernels #4 and #5);
+split over forced 128/256-lane CTAs) and the banded walk, the tiled
+fill's tile sweep with its carried boundary column (kernels #4 and #5),
+the banded row sweep (kernel #8) with its scan carried across forced
+narrow chunks, and the linear fill in one block and split over 2 CTAs;
 plus the kernel wrappers' refusal of CPU tensors."""
 
 import numpy as np
@@ -17,7 +19,9 @@ from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io.encode import pack_batch, trim_for_stream
 from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
+from sequencealigning_tpu_torch.ops import nw_banded
 from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
+from sequencealigning_tpu_torch.ops import nw_linear
 from sequencealigning_tpu_torch.ops import nw_affine_stream as fill
 from sequencealigning_tpu_torch.ops import nw_affine_stream_modes as smodes
 from sequencealigning_tpu_torch.ops import nw_affine_tiled as tiled
@@ -593,3 +597,124 @@ def test_host_tiled_fill_refuses_bad_widths(host):
             *(t.data_ptr() for t in tb), finals.data_ptr(), bnd.data_ptr(),
             B, L1, tb.db.shape[1], 5, -4, -8, -6, 1, 0, fold, cta)
         assert rc == -1, (fold, cta)
+
+
+# ---------------------------------------------------------------------------
+# Kernel #8 (the banded row sweep) and the linear fill
+# ---------------------------------------------------------------------------
+
+
+def _row_batch(seed, band, n=6, lo=60, hi=200):
+    pairs = _skewed(seed, n, lo, hi)
+    tb = to_device(pack_batch(pairs, batch_size=n), "cpu")
+    return nw_banded.row_inputs(*tb, band)
+
+
+def _skewed(seed, n, lo, hi, alphabet=b"ACGTN"):
+    """n pairs of lo..hi bp, every other db a mutated cut of its query."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(alphabet, np.uint8)
+    out = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(lo, hi + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(lo, hi + 1)))
+        if i % 2:
+            s2 = s1[int(rng.integers(0, 9)):].copy()
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        out.append((s1.tobytes(), s2.tobytes()))
+    return out
+
+
+def _host_row(host, k_lo, ins, scheme, compat, wildcard, dirs_mode, chunk):
+    B, K = ins[0].shape
+    xp = ins[1].shape[1]
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    per = 8 if dirs_mode == "fast4" else 4
+    dirs = torch.zeros((-(-xp // per), B, K), dtype=torch.int32)
+    rc = host.hc_banded_row_fill(
+        *(t.data_ptr() for t in ins), finals.data_ptr(), dirs.data_ptr(),
+        B, K, xp, xp - 1, k_lo, scheme.match_, scheme.mismatch,
+        scheme.gap_open, scheme.gap_extend, _DIRS[dirs_mode], int(compat),
+        int(wildcard), chunk)
+    assert rc == 0
+    return finals, dirs.view(torch.uint32)
+
+
+@pytest.mark.parametrize("chunk", [0, 128])
+@pytest.mark.parametrize("compat,wildcard,dirs_mode", [
+    (True, True, "fast4"), (True, False, "full"), (False, True, "full"),
+    (False, False, None), (False, True, "fast4")])
+def test_host_banded_row_fill_matches_plain(host, compat, wildcard,
+                                            dirs_mode, chunk):
+    """Kernel #8's row step and chunked scan (nw_banded.cuh through
+    host_check.cpp) equal the plain row sweep on a band of 384 lanes or more: in one
+    chunk, and forced into 128-lane chunks so that the scan's maximum is
+    carried across three chunks a row."""
+    k_lo, ins = _row_batch(7 + compat + 2 * wildcard, 140)
+    assert ins[0].shape[1] >= 384
+    scheme = ScoringScheme()
+    got = _host_row(host, k_lo, ins, scheme, compat, wildcard, dirs_mode,
+                    chunk)
+    want = nw_banded.banded_row_fill_torch(*ins, k_lo, scheme, compat,
+                                           wildcard, dirs_mode)
+    assert torch.equal(got[0], want[0])
+    if dirs_mode:
+        assert torch.equal(got[1], want[1])
+
+
+def test_host_banded_row_fill_past_one_chunk(host):
+    """A band past one block's 2048 lanes (K = 2432: two chunks of 512
+    threads) and the same band in 256-lane chunks equal the plain sweep."""
+    k_lo, ins = _row_batch(11, 1100, n=4, lo=40, hi=120)
+    assert ins[0].shape[1] > 2048
+    scheme = ScoringScheme()
+    want = nw_banded.banded_row_fill_torch(*ins, k_lo, scheme, True, True,
+                                           "full")
+    for chunk in (0, 256):
+        got = _host_row(host, k_lo, ins, scheme, True, True, "full", chunk)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_host_banded_row_refuses_bad_widths(host):
+    k_lo, ins = _row_batch(3, 20, n=2, lo=10, hi=30)
+    B, K = ins[0].shape
+    for chunk in (-128, 100, 4096):
+        finals = torch.zeros((B, 3), dtype=torch.int32)
+        assert host.hc_banded_row_fill(
+            *(t.data_ptr() for t in ins), finals.data_ptr(), None, B, K,
+            ins[1].shape[1], ins[1].shape[1] - 1, k_lo, 5, -4, -8, -6, 0, 1,
+            0, chunk) == -1
+
+
+@pytest.mark.parametrize("cta_lanes", [0, 128])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_host_linear_fill_matches_plain(host, compat, local, cta_lanes):
+    """The linear kernel's cell (nw_linear.cuh through host_check.cpp)
+    equals the plain fill, pass 1 (scores) and pass 2 (path bits with
+    ISMAX for local), in one block and split over 2 CTAs of 128 lanes."""
+    pairs = _skewed(13 + compat + 2 * local, 7, 20, 200, b"ACGT")
+    tb = to_device(pack_batch(pairs, batch_size=7), "cpu")
+    seq1, s2v, n1v, n2v = nw_linear.linear_inputs(*tb)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    B, P = s2v.shape
+    assert P >= 256
+    scheme = ScoringScheme()
+    maxv = torch.zeros_like(n1v)
+    for with_dirs in (False, True):
+        want = nw_linear.linear_fill_torch(seq1, s2v, n1v, n2v, maxv, l1, l2,
+                                           scheme, compat, local, with_dirs)
+        corner = torch.zeros((B,), dtype=torch.int32)
+        runmax = torch.full((B,), nw_linear.NEGBIG, dtype=torch.int32)
+        dirs = torch.zeros((-(-(l1 + l2 + 1) // 4), B, P), dtype=torch.int32)
+        assert host.hc_linear_fill(
+            seq1.data_ptr(), s2v.data_ptr(), n1v.data_ptr(), n2v.data_ptr(),
+            maxv.data_ptr(), corner.data_ptr(), runmax.data_ptr(),
+            dirs.data_ptr(), B, seq1.shape[1], P, l1 + l2 + 1,
+            scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, int(with_dirs), int(compat), int(local),
+            cta_lanes) == 0
+        assert torch.equal(corner, want[0]) and torch.equal(runmax, want[1])
+        if with_dirs:
+            assert torch.equal(dirs.view(torch.uint32), want[2])
+        maxv = want[1].contiguous()

@@ -47,6 +47,9 @@ def test_importing_every_port_module_loads_no_jax():
               "ops.nw_affine_tiled", "ops.mm_align",
               "ops.nw_affine_stream_modes", "ops.traceback",
               "ops.traceback_device", "ops.oracle_gotoh", "models.banded",
+              "ops.nw_banded", "ops.nw_linear", "ops.oracle_linear",
+              "ops.oracle_astar", "ops.step_graph", "models.linear",
+              "models.astar",
               "parallel", "parallel.mesh", "parallel.runner",
               "parallel.streaming",
               "utils.cigar", "utils.guards", "utils.pprint", "utils.stats"):
