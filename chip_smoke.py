@@ -56,12 +56,15 @@ in the phases below and exits non-zero at the first failure:
    split into 3 CTAs of 4096 lanes and into 2 of 8192 (16 lanes a thread,
    as rows past 32768 lanes take), then one global first-only pair of
    ~49 kb through GotohAligner whose alignment rescores to its score;
-14. the tiled fills (kernel #4, one CTA a pair, and #5, a cluster of
-   `fold` CTAs a pair) vs their plain versions on small ragged batches
-   (1-16 pairs up to ~3 kb, forced small tiles, compat/textbook, wildcard,
-   empty sides), then their finals on 8 (resp. 2) pairs of 40 kb vs the
-   streamed global fill's (kernel #1, dirs off, itself held against its
-   plain version there); the banded fill split naturally over a cluster
+14. the tiled fills (kernels #4 and #5: a pair's strips pipelined over the
+   card's CTAs) vs their plain versions on small ragged batches (1-16 pairs
+   up to ~3 kb, forced narrow strips, compat/textbook, wildcard, empty
+   sides), then their finals on 8 (resp. 2) pairs of 40 kb vs the streamed
+   global fill's (kernel #1, dirs off, itself held against its plain
+   version there); the handoff stress (strips of 128 lanes, chunks of 8
+   rows, 64 ragged pairs of 1-6 kb) vs the plain fill; the residency
+   overflow (512 pairs of 4-8 kb, more strips than resident CTAs) vs kernel
+   #7's score-only fill; the banded fill split naturally over a cluster
    (~8.6k lanes: 300 bp queries against ~17 kb dbs) vs its plain version
    (phase 10 also runs config 4's shape forced into 2 CTAs of 128 lanes);
 15. the long-pair path: GotohAligner on cuda, first-only and co-optimal,
@@ -69,10 +72,13 @@ in the phases below and exits non-zero at the first failure:
    bp deletion: kernel #4, band doubling to 512) and batch B (2 pairs, one
    whose db lacks 20 kb: kernel #5, the banded fill split over 3 CTAs at
    L = 10,240), both kernels' finals there held against a plain row sweep
-   (gotoh_finals_rows_torch); every pair aligned, consuming its sequences
-   and rescoring to the tiled exact score, the rounds each pair took
-   recorded; then one ~6 kb pair that escapes the (lowered) band cap and is
-   aligned by Myers-Miller on the card;
+   (gotoh_finals_rows_torch), then 5 more launches of each, every one
+   equal to the first (the race check), with their CTAs a pair, strips,
+   GCUPS, share of the bound and SMs used (batch A on at least 100 SMs,
+   each of batch B's pairs on more than 8); every pair aligned, consuming
+   its sequences and rescoring to the tiled exact score, the rounds each
+   pair took recorded; then one ~6 kb pair that escapes the (lowered) band
+   cap and is aligned by Myers-Miller on the card;
 16. kernel #7 (the per-pair global fill) at the main shape, score-only in
    the runner's layout, against its plain version and the streamed
    kernel's finals; with full dirs on 512 of the pairs (the direction
@@ -157,6 +163,13 @@ LEN_TILE_CHECK = 40_000
 # The tiled fills' small ragged batches (bp at most): kernel #4's 16 pairs,
 # kernel #5's 1-4 (the plain versions' cost grows with the length).
 LEN_TILE_SMALL, LEN_FOLD_SMALL = 700, 1000
+# Their handoff stress: N_HANDOFF pairs of 1..LEN_HANDOFF bp in strips of
+# HANDOFF_LANES lanes handing over every HANDOFF_ROWS rows; the residency
+# overflow: N_OVERFLOW pairs of LEN_OVERFLOW bp (more strips than the card
+# holds CTAs); the race check: N_RACE more launches at batches A and B.
+N_HANDOFF, LEN_HANDOFF, HANDOFF_LANES, HANDOFF_ROWS = 64, 6000, 128, 8
+N_OVERFLOW, LEN_OVERFLOW = 512, (4000, 8000)
+N_RACE = 5
 # Kernel #7 with full dirs: the first N_GOTOH_DIRS pairs of the main shape;
 # its host walker against the co-optimal path on N_GOTOH_WALK of them.
 N_GOTOH_DIRS, N_GOTOH_WALK = 512, 8
@@ -1414,7 +1427,7 @@ def phase_tiled(torch, port):
         err[name] = max(err[name], e)
 
     # Kernel #4: 16 ragged pairs with empty sides, compat x wildcard, at its
-    # own tile width and forced 128/384-lane tiles; then 5 pairs up to ~3
+    # own strip width and forced 128/384-lane strips; then 5 pairs up to ~3
     # kb.  The plain fill follows the lax layout.
     small = tiled_pairs(rng, 14, 1, LEN_TILE_SMALL) + [(b"ACGTA", b""),
                                                        (b"", b"ACG")]
@@ -1427,8 +1440,8 @@ def phase_tiled(torch, port):
                 *tb, *a, tile_lanes=256))
             for cta in (0, 128, 384):
                 record("nw_affine_tiled_fill",
-                       tiled.tiled_fill_cuda(*tb, *a, cta_lanes=cta), want,
-                       f"compat={compat}, wildcard={wildcard}, cta={cta}")
+                       tiled.tiled_fill_cuda(*tb, *a, strip_lanes=cta), want,
+                       f"compat={compat}, wildcard={wildcard}, strip={cta}")
                 runs += 1
             if compat and not wildcard:
                 out["tiled_plain_ms"] = p_ms
@@ -1440,9 +1453,8 @@ def phase_tiled(torch, port):
            tiled.tiled_fill_cuda(*tb3, ScoringScheme(), True, False),
            tiled.tiled_fill_torch(*tb3, ScoringScheme(), True, False,
                                   tile_lanes=1024), "5 pairs of 2-3 kb")
-    # Kernel #5: 1-4 pairs (fold 8, 4, 2, 2), compat and textbook, at its
-    # own CTA width and forced 128-lane CTAs (one pair longer than its
-    # 8 x 128-lane tile, so every fold crosses a tile seam).
+    # Kernel #5: 1-4 pairs, compat and textbook, at its own strip width and
+    # forced 128-lane strips (one pair of 1.1-1.5 kb: 9-12 strips).
     for B in (1, 2, 3, 4):
         lo, hi = (1100, 1500) if B == 1 else (200, LEN_FOLD_SMALL)
         pairs = tiled_pairs(rng, B, lo, hi, b"ACGT")
@@ -1455,8 +1467,8 @@ def phase_tiled(torch, port):
                 *tbf, *a, tile_lanes=256))
             for cta in (0, 128):
                 record("nw_affine_tiled_fold_fill",
-                       tiled.tiled_fold_fill_cuda(*tbf, *a, cta_lanes=cta),
-                       want, f"{B} pairs, compat={compat}, cta={cta}")
+                       tiled.tiled_fold_fill_cuda(*tbf, *a, strip_lanes=cta),
+                       want, f"{B} pairs, compat={compat}, strip={cta}")
                 runs += 1
             if B == 2 and compat:
                 out["tfold_plain_ms"] = p_ms
@@ -1492,6 +1504,9 @@ def phase_tiled(torch, port):
         f"#5's (2 pairs) equal the streamed fill's (P={plan.p}, "
         f"{kern.sa_fill_ctas(plan.p, 0)} CTAs, dirs off), which equal its "
         f"plain version ({s_plain_ms / 1e3:.1f} s)")
+    del ins, tbs, f1, fp1
+    torch.cuda.empty_cache()
+    out.update(tiled_stress(torch, port, record))
 
     # The banded fill's natural split: 8 pairs of 300 bp against ~17 kb.
     rng = np.random.default_rng(13)
@@ -1521,6 +1536,71 @@ def phase_tiled(torch, port):
                bfill_natural_split_ms=nat_ms, bfill_natural_split_err=e3,
                bfill_natural_split_lanes=plan.L)
     return out
+
+
+def launch_line(shape):
+    """A tiled launch's shape (the wrapper's last_launch), for the log."""
+    return (f"strips of {shape['strip_lanes']} lanes "
+            f"({shape['lanes_per_thread']} a thread), chunks of {shape['chunk_rows']} rows, "
+            f"{shape['strips']} strips, {shape['ctas_per_pair']} CTAs a "
+            f"pair, ring {shape['ring']}, grid {shape['ctas']} of "
+            f"{shape['resident']} resident, {shape['sms']} SMs")
+
+
+def tiled_stress(torch, port, record):
+    """Kernels #4 and #5 where their CTAs hand over most: strips of
+    HANDOFF_LANES lanes and chunks of HANDOFF_ROWS rows on N_HANDOFF ragged
+    pairs (#4) and on 2 of them (#5) vs the plain fill; then more strips
+    than resident CTAs (N_OVERFLOW pairs) vs kernel #7's score-only fill."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    tiled, nw = port["tiled"], port["nw"]
+    rng = np.random.default_rng(16)
+    pairs = tiled_pairs(rng, N_HANDOFF, 1, LEN_HANDOFF, b"ACGT")
+    pairs[1] = (pairs[1][0][:50], pairs[1][1])  # n1 below a chunk of 128
+    tb = to_device(pack_batch(pairs), "cuda")
+    a = (ScoringScheme(), True, False)
+    kw = dict(strip_lanes=HANDOFF_LANES, chunk_rows=HANDOFF_ROWS)
+    p_ms, want = host_ms(torch, lambda: tiled.tiled_fill_torch(
+        *tb, *a, tile_lanes=8192))
+    record("nw_affine_tiled_fill", tiled.tiled_fill_cuda(*tb, *a, **kw),
+           want, "handoff stress")
+    shape4 = dict(tiled.tiled_fill_cuda.last_launch)
+    two = [t[:2].contiguous() for t in tb]
+    record("nw_affine_tiled_fold_fill",
+           tiled.tiled_fold_fill_cuda(*two, *a, **kw), want[:2],
+           "handoff stress, 2 pairs")
+    shape5 = dict(tiled.tiled_fold_fill_cuda.last_launch)
+    log(f"[14 tiled] handoff stress, {N_HANDOFF} pairs of 1-{LEN_HANDOFF} "
+        f"bp: kernel #4 ({launch_line(shape4)}) and kernel #5 on 2 of them "
+        f"({launch_line(shape5)}) equal the plain fill ({p_ms / 1e3:.1f} s)")
+
+    lo, hi = LEN_OVERFLOW
+    pairs = tiled_pairs(rng, N_OVERFLOW, lo, hi, b"ACGT")
+    tb = to_device(pack_batch(pairs), "cuda")
+    ms, got = host_ms(torch, lambda: tiled.tiled_fill_cuda(*tb, *a))
+    shape = dict(tiled.tiled_fill_cuda.last_launch)
+    check(shape["strips"] > shape["resident"],
+          f"overflow: {shape['strips']} strips, {shape['resident']} "
+          "resident CTAs")
+    q = tb.query.to(torch.int32).contiguous()
+    g7, _ = nw.gotoh_fill_cuda(q, *nw.gotoh_layout(tb.db, tb.query_len,
+                                                   tb.db_len),
+                               q.shape[1], tb.db.shape[1], *a, False)
+    torch.cuda.synchronize()
+    e = int((got.max(1).values - g7.max(1).values).abs().max())
+    check(e == 0, f"overflow: kernel #4's scores != kernel #7's: err {e}")
+    e_all = int((got - g7).abs().max())
+    cells = sum(len(x) * len(y) for x, y in pairs)
+    log(f"[14 tiled] residency overflow, {N_OVERFLOW} pairs of {lo}-{hi} bp: "
+        f"kernel #4 ({launch_line(shape)}) {ms:.1f} ms host clock "
+        f"({cells / ms / 1e6:.1f} GCUPS); scores equal kernel #7's "
+        f"(finals: max diff {e_all})")
+    return dict(tiled_handoff_plain_ms=p_ms, tiled_handoff_shape=shape4,
+                tfold_handoff_shape=shape5, tiled_overflow_ms=ms,
+                tiled_overflow_shape=shape, tiled_overflow_finals_err=e_all)
 
 
 def long_batches():
@@ -1574,12 +1654,15 @@ def phase_long(torch, port, by_path):
         cells = sum(len(x) * len(y) for x, y in pairs)
         b_ms, b_by = bound(nbytes(*tb) + 12 * len(pairs),
                            cells * OPS_PER_CELL["score"])
-        meas.update({f"{key}_ms": ms, f"{key}_bound_ms": b_ms,
+        shape = dict(fn.last_launch)
+        meas.update({f"{key}_first_ms": ms, f"{key}_bound_ms": b_ms,
                      f"{key}_bound_by": b_by, f"{key}_cells": cells,
-                     f"exact_{name}": exact})
+                     f"{key}_shape": shape, f"exact_{name}": exact})
         log(f"[15 long] batch {name} ({len(pairs)} pairs, {cells:.3g} "
             f"cells): {fn.__name__} {ms:.1f} ms ({cells / ms / 1e6:.2f} "
-            f"GCUPS), bound {b_ms:.3f} ms ({b_by})")
+            f"GCUPS, {100 * b_ms / ms:.1f}% of its bound {b_ms:.3f} ms, "
+            f"{b_by}); {launch_line(shape)}, a pair on "
+            f"{shape['sms_per_pair']} SMs")
     # Both kernels' finals at full width against one plain row sweep over
     # batch A and batch B's second pair (B's first is A's first).
     sweep = A + B[1:]
@@ -1594,6 +1677,40 @@ def phase_long(torch, port, by_path):
         f"equal the plain row sweep's ({len(sweep)} pairs, "
         f"{rows_ms / 1e3:.1f} s)")
     meas.update(tiled_full_err=e4, tfold_full_err=e5, rows_plain_ms=rows_ms)
+    check(meas["tiled_shape"]["sms"] >= 100,
+          f"batch A: kernel #4 ran on {meas['tiled_shape']['sms']} SMs")
+    check(min(meas["tfold_shape"]["sms_per_pair"]) > 8,
+          f"batch B: kernel #5's pairs ran on "
+          f"{meas['tfold_shape']['sms_per_pair']} SMs")
+    # The race check: N_RACE more launches of each, back to back, every one
+    # equal to the first (so to the plain row sweep); their mean is the
+    # kernel's time.
+    for name, pairs, fn, key in (
+            ("A", A, tiled.tiled_fill_cuda, "tiled"),
+            ("B", B, tiled.tiled_fold_fill_cuda, "tfold")):
+        tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+        times = []
+        for _ in range(N_RACE):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = fn(*tb, ScoringScheme(), True, False)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            check(torch.equal(got, full[name]),
+                  f"race: a launch of {fn.__name__} at batch {name} differs "
+                  "from the first")
+        ms = sum(times) / len(times)
+        cells, b_ms = meas[f"{key}_cells"], meas[f"{key}_bound_ms"]
+        meas.update({f"{key}_ms": ms, f"{key}_race_ms": times,
+                     f"{key}_gcups": cells / ms / 1e6,
+                     f"{key}_pct_of_bound": 100 * b_ms / ms})
+        log(f"[15 long] race check: {N_RACE} more launches of "
+            f"{fn.__name__} at batch {name}, each equal to the first: "
+            f"{ms:.3f} ms mean ({min(times):.3f}-{max(times):.3f}), "
+            f"{cells / ms / 1e6:.1f} GCUPS, {100 * b_ms / ms:.1f}% of its "
+            "bound")
     del full, plain
     tb = to_device(pack_batch(B, batch_size=len(B)), "cuda")
     plan, ins = banded.band_inputs(*tb, BAND)
@@ -2703,12 +2820,14 @@ def kernel_entries(meas, by_path):
         "nw_banded_diag_fill": ("bfill_fast4", f"{band} fast4"),
         "walk_banded": ("bwalk", f"{band}"),
         "nw_affine_tiled_fill": (
-            "tiled", f"ms, bound: batch A, {N_LONG} x {LEN_LONG_PAIR} bp; "
+            "tiled", f"ms (mean of {N_RACE} launches), bound: batch A, "
+            f"{N_LONG} x {LEN_LONG_PAIR} bp; "
             f"plain_ms, small_ms: 16 pairs <= {LEN_TILE_SMALL} bp; "
             f"rows_plain_ms: the plain row sweep over batch A and B's second "
             "pair"),
         "nw_affine_tiled_fold_fill": (
-            "tfold", f"ms, bound: batch B, 2 pairs of {LEN_LONG_PAIR} bp "
+            "tfold", f"ms (mean of {N_RACE} launches), bound: batch B, 2 "
+            f"pairs of {LEN_LONG_PAIR} bp "
             f"(db {LEN_LONG_PAIR} and {LEN_LONG_PAIR - LONG_DROP}); plain_ms, "
             f"small_ms: 2 pairs <= {LEN_FOLD_SMALL} bp; rows_plain_ms: as "
             "kernel #4's"),
@@ -2743,6 +2862,11 @@ def kernel_entries(meas, by_path):
         if f"{key}_small_ms" in meas:
             entry["small_ms"] = meas[f"{key}_small_ms"]
             entry["rows_plain_ms"] = meas["rows_plain_ms"]
+            entry["first_ms"] = meas[f"{key}_first_ms"]
+            entry["race_ms"] = meas[f"{key}_race_ms"]
+            entry["gcups"] = meas[f"{key}_gcups"]
+            entry["pct_of_bound"] = meas[f"{key}_pct_of_bound"]
+            entry["launch"] = meas[f"{key}_shape"]
         if name == "nw_banded_diag_fill":
             entry["split"] = {
                 "ms": meas["bfill_split_ms"],

@@ -173,10 +173,12 @@ def kernels() -> ctypes.CDLL:
     lib.sa_banded_row_fill.argtypes = [_VP] * 8 + [_INT] * 13 + [_VP]
     lib.sa_linear_fill.restype = _INT
     lib.sa_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12 + [_VP]
+    lib.sa_tiled_resident_ctas.restype = _INT
+    lib.sa_tiled_resident_ctas.argtypes = [_INT] * 4
     lib.sa_tiled_fill.restype = _INT
-    lib.sa_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 10 + [_VP]
+    lib.sa_tiled_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
     lib.sa_tiled_fold_fill.restype = _INT
-    lib.sa_tiled_fold_fill.argtypes = [_VP] * 6 + [_INT] * 11 + [_VP]
+    lib.sa_tiled_fold_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
     lib.sa_walk_fast4.restype = _INT
     lib.sa_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 5
@@ -240,7 +242,9 @@ def host_check() -> ctypes.CDLL:
     lib.hc_linear_fill.restype = _INT
     lib.hc_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12
     lib.hc_tiled_fill.restype = _INT
-    lib.hc_tiled_fill.argtypes = [_VP] * 6 + [_INT] * 11
+    lib.hc_tiled_fill.argtypes = [_VP] * 8 + [_INT] * 14
+    lib.hc_tile_dpx.restype = None
+    lib.hc_tile_dpx.argtypes = [_VP] * 4 + [_INT]
     lib.hc_walk_fast4.restype = _INT
     lib.hc_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 4

@@ -9,7 +9,8 @@
 //
 // The arguments and layouts are those of sa_stream_fill,
 // sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_banded_fill,
-// sa_banded_wide_fill, sa_tiled_fill / sa_tiled_fold_fill, sa_walk_fast4,
+// sa_banded_wide_fill, sa_tiled_fill / sa_tiled_fold_fill (their strip
+// schedule run serially, tickets in order), sa_walk_fast4,
 // sa_walk_modes and sa_walk_banded (minus the stream).  The fills' lane
 // shift follows the kernels' split of a row over CTAs: a CTA's first lane
 // takes the previous CTA's last lane (lane 0 takes lane P-1); the banded
@@ -676,105 +677,138 @@ extern "C" int hc_walk_banded(const uint32_t* dirs, int W, int NB, int L,
 
 namespace {
 
-// The tiled fill of one pair at a time over tiles of nctas x cta_lanes lanes
-// (the kernels' tile: its lanes are contiguous, lane 0 takes the carried
-// boundary column), with the kernels' in-place boundary column (bnd: (B, 3,
-// L1 + 1)) and their staging of lane 0's rows 128 steps at a time.
+// The tiled fill's strip schedule run serially (nw_affine_tiled.cu): the
+// items in ticket order, each strip swept step by step with its lane 0's
+// rows staged R at a time from its producer's ring slot, its last lane
+// written into its own slot and published every R rows, and the kernels'
+// counters (ctr: ticket, status, SM bitmaps, then per strip the rows
+// published and consumed).  Every wait a CTA would make must already hold
+// when its strip runs (its producer and its slot's last reader hold earlier
+// tickets): a wait that does not returns -4.
 template <bool COMPAT, bool WILDCARD>
-void tiled_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
-                const int32_t* n2v, int32_t* finals, int32_t* bnd, int B,
-                int L1, int L2, const sa::Scheme& sc, const sa::Split& sp) {
-  constexpr int kStage = 128;
-  const int WV = sp.nctas * sp.cta_lanes;
+int strips_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
+                const int32_t* n2v, int32_t* finals, int32_t* col,
+                int32_t* ctr, const int32_t* items, int B, int L1, int L2,
+                int nitems, int nstrips, int W, int R, int K,
+                const sa::Scheme& sc) {
+  constexpr int kSmWords = 8;
   const int nrow = L1 + 1;
-  std::vector<sa::Cell> c(WV), c0(WV);
-  std::vector<sa::Pre> pre(WV);
-  int32_t qs[kStage], hs[kStage], os[kStage];
-  for (int b = 0; b < B; ++b) {
-    const int32_t n1 = n1v[b];
-    const int32_t n2 = n2v[b];
-    if (n2 <= 0) continue;
-    const int n_tiles = (n2 + WV - 1) / WV;
-    const int32_t* q = query + static_cast<size_t>(b) * L1;
-    int32_t* bM = bnd + static_cast<size_t>(b) * 3 * nrow;
-    int32_t* bD = bM + nrow;
-    int32_t* bH = bD + nrow;
-    for (int t = 0; t < n_tiles; ++t) {
-      const int x0 = t * WV + 1;
-      const bool last = t == n_tiles - 1;
-      const int gcap = n2 - x0 + n1;
-      const int g_end = last ? gcap + 1 : n1 + WV;
-      for (int l = 0; l < WV; ++l) {
-        c[l] = sa::cell_init();
-        const int x = x0 + l;
-        c[l].s2v = x <= n2 ? db[static_cast<size_t>(b) * L2 + x - 1] : 0;
+  int32_t* prog = ctr + 2 + B * kSmWords;
+  int32_t* cons = prog + nstrips;
+  std::vector<sa::Cell> c(W), c0(W);
+  std::vector<int32_t> ds(W), qs(R), hs(R), os(R);
+  for (int ticket = 0; ticket < nitems; ++ticket) {
+    ctr[0] = ticket + 1;
+    const sa::StripItem it = sa::strip_item(items, ticket);
+    const int32_t n1 = n1v[it.b];
+    const int32_t n2 = n2v[it.b];
+    const int x0 = it.s * W + 1;
+    const bool last = it.s == sa::strip_count(n2, W) - 1;
+    const int g_end = sa::strip_steps(n1, n2, x0, W, last);
+    const int gcap = n2 - x0 + n1;
+    const int32_t* q = query + static_cast<size_t>(it.b) * L1;
+    const int32_t* cin =
+        it.s > 0 ? col + sa::strip_slot(it.b, it.s - 1, K, nrow) : nullptr;
+    int32_t* cout =
+        last ? nullptr : col + sa::strip_slot(it.b, it.s, K, nrow);
+    for (int l = 0; l < W; ++l) {
+      c[l] = sa::cell_init();
+      const int x = x0 + l;
+      c[l].s2v = x <= n2 ? db[static_cast<size_t>(it.b) * L2 + x - 1] : 0;
+    }
+    for (int g = 0; g < g_end; ++g) {
+      const int gc = g & (R - 1);
+      if (gc == 0) {
+        if (cin != nullptr && g <= n1 &&
+            prog[it.gs - 1] < sa::chunk_rows_needed(g, R, n1)) {
+          return -4;
+        }
+        const int need =
+            cout != nullptr ? sa::ring_rows_needed(g, R, W, n1, it.s, K) : 0;
+        if (need > 0 && cons[it.gs - K + 1] < need) return -4;
+        for (int i = 0; i < R; ++i) {
+          sa::tile_stage_row(g + i, n1, L1, q, cin, COMPAT, sc, qs[i], hs[i],
+                             os[i]);
+        }
+        if (cin != nullptr) cons[it.gs] = sa::chunk_consumed(g, R);
       }
-      for (int g = 0; g < g_end; ++g) {
-        const int gc = g % kStage;
-        if (gc == 0) {
-          for (int i = 0; i < kStage; ++i) {
-            sa::tile_stage_row(t, g + i, n1, L1, q, bM, bD, bH, COMPAT, sc,
-                               qs[i], hs[i], os[i]);
-          }
-        }
-        for (int l = 0; l < WV; ++l) {
-          pre[l] = sa::stream_pre<sa::kDirsNone>(c[l], sc);
-        }
-        c0 = c;
-        for (int l = WV - 1; l >= 0; --l) {
-          if (l == 0) {
-            sa::tile_cell<COMPAT, WILDCARD>(c[0], pre[0].t0, hs[gc], os[gc],
-                                            qs[gc], g == 0, x0, sc);
-          } else {
-            sa::tile_cell<COMPAT, WILDCARD>(c[l], pre[l].t0, c0[l - 1].H2,
-                                            pre[l - 1].dsel, c0[l - 1].s1d,
-                                            l == g, x0 + l, sc);
-          }
-        }
-        if (g == gcap) {
-          const sa::Cell& cc = c[n2 - x0];
-          finals[static_cast<size_t>(b) * 3 + 0] = cc.M1;
-          finals[static_cast<size_t>(b) * 3 + 1] = cc.I1;
-          finals[static_cast<size_t>(b) * 3 + 2] = cc.D1;
-        }
-        if (!last && g >= WV - 1) {
-          const int y = g - WV + 1;
-          bM[y] = c[WV - 1].M1;
-          bD[y] = c[WV - 1].D1;
-          bH[y] = c[WV - 1].H1;
-        }
+      for (int l = 0; l < W; ++l) ds[l] = sa::tile_dsel(c[l].M1, c[l].D1, sc);
+      c0 = c;  // the neighbours' state before the step
+      for (int l = W - 1; l >= 0; --l) {
+        const int32_t lH2 = l == 0 ? hs[gc] : c0[l - 1].H2;
+        const int32_t ldsel = l == 0 ? os[gc] : ds[l - 1];
+        const int32_t ls1d = l == 0 ? qs[gc] : c0[l - 1].s1d;
+        const bool eq = sa::tile_eq<WILDCARD>(ls1d, c[l].s2v, 0xfu);
+        c[l].H2 = c[l].H1;
+        c[l].H1 = sa::tile_cell<COMPAT>(eq, lH2, ldsel, l == g, x0 + l,
+                                        c[l].M1, c[l].I1, c[l].D1, sc);
+        c[l].s1d = ls1d;
+      }
+      if (last && g == gcap) {
+        const sa::Cell& cc = c[n2 - x0];
+        finals[static_cast<size_t>(it.b) * 3 + 0] = cc.M1;
+        finals[static_cast<size_t>(it.b) * 3 + 1] = cc.I1;
+        finals[static_cast<size_t>(it.b) * 3 + 2] = cc.D1;
+      }
+      if (cout != nullptr && g >= W - 1) {
+        const int y = g - W + 1;
+        const sa::Cell& e = c[W - 1];
+        cout[2 * y] = e.H1;
+        cout[2 * y + 1] = sa::add_max(e.M1, sc.gap_open, e.D1);
+        const int pub = sa::chunk_publish(y, R, n1);
+        if (pub >= 0) prog[it.gs] = pub;
       }
     }
+    if (cin != nullptr) cons[it.gs] = sa::kStripDone;
   }
+  return 0;
 }
 
-typedef void (*HostTiled)(const int32_t*, const int32_t*, const int32_t*,
-                          const int32_t*, int32_t*, int32_t*, int, int, int,
-                          const sa::Scheme&, const sa::Split&);
+typedef int (*HostStrips)(const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, int32_t*, int32_t*, int32_t*,
+                          const int32_t*, int, int, int, int, int, int, int,
+                          int, const sa::Scheme&);
 
 }  // namespace
 
-// sa_tiled_fill (fold 1, tiles of cta_lanes lanes) and sa_tiled_fold_fill
-// (fold 2-8 CTAs of cta_lanes lanes a tile): finals (B, 3) zeroed by the
-// caller, bnd (B, 3, L1 + 1) scratch.
+// sa_tiled_fill / sa_tiled_fold_fill run serially (their arguments minus
+// the grid size and the stream): finals (B, 3) zeroed by the caller, col
+// B * ring slots of 2 * (L1 + 1) int32, ctr 2 + 8B + 2 * nstrips int32
+// zeroed, items (nitems, 3) strip-major.  -1 for an unsupported shape, -4
+// for a schedule whose waits would not hold in ticket order.
 extern "C" int hc_tiled_fill(const int32_t* query, const int32_t* db,
                              const int32_t* n1v, const int32_t* n2v,
-                             int32_t* finals, int32_t* bnd, int B, int L1,
-                             int L2, int match, int mismatch, int gap_open,
-                             int gap_extend, int compat, int wildcard,
-                             int fold, int cta_lanes) {
-  if (fold < 1 || fold > 8 || cta_lanes > 4096) return -1;
-  const sa::Split sp = sa::plan_split(fold * cta_lanes, cta_lanes);
-  if (sp.nctas != fold || B <= 0 || L1 <= 0 || L2 <= 0) return -1;
-  HostTiled fn;
+                             int32_t* finals, int32_t* col, int32_t* ctr,
+                             const int32_t* items, int B, int L1, int L2,
+                             int nitems, int nstrips, int match,
+                             int mismatch, int gap_open, int gap_extend,
+                             int compat, int wildcard, int strip_lanes,
+                             int chunk_rows, int ring) {
+  if (strip_lanes <= 0 || strip_lanes % 128 != 0 || strip_lanes > 4096 ||
+      chunk_rows < 2 || chunk_rows > 128 || (chunk_rows & (chunk_rows - 1)) ||
+      ring < 2 || B <= 0 || L1 <= 0 ||
+      L2 <= 0 || nitems <= 0) {
+    return -1;
+  }
+  HostStrips fn;
   if (compat) {
-    fn = wildcard ? tiled_host<true, true> : tiled_host<true, false>;
+    fn = wildcard ? strips_host<true, true> : strips_host<true, false>;
   } else {
-    fn = wildcard ? tiled_host<false, true> : tiled_host<false, false>;
+    fn = wildcard ? strips_host<false, true> : strips_host<false, false>;
   }
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(query, db, n1v, n2v, finals, bnd, B, L1, L2, sc, sp);
-  return 0;
+  return fn(query, db, n1v, n2v, finals, col, ctr, items, B, L1, L2, nitems,
+            nstrips, strip_lanes, chunk_rows, ring, sc);
+}
+
+// The tiled cell's DPX helpers as the host computes them: out[i] =
+// add_max(a[i], b[i], c[i]) and out[n + i] = max3(a[i], b[i], c[i]).
+extern "C" void hc_tile_dpx(const int32_t* a, const int32_t* b,
+                            const int32_t* c, int32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    out[i] = sa::add_max(a[i], b[i], c[i]);
+    out[n + i] = sa::max3(a[i], b[i], c[i]);
+  }
 }
 
 namespace {

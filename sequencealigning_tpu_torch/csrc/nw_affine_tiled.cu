@@ -1,40 +1,54 @@
 // Tiled score-only Gotoh fill for pairs of any length, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels ops/nw_affine_tiled.py::_tile_kernel (launched by
-// _tile_fill_pallas; the batched fill) and ::_folded_kernel (launched by
-// _tile_fill_folded_pallas; 1-4 pairs).  Same contract as the lax fills:
-// each pair's M/I/D corner values at (n2, n1), exact Gotoh whatever the
-// tiling, so the kernels choose their own tile widths.  The db axis is cut
-// into tiles of WV lanes; a tile is swept anti-diagonal by anti-diagonal
-// (lane l holds x = x0 + l, step g holds y = g - l), and the only coupling
-// between consecutive tiles is the boundary column at the tile edge (M, D, H
-// at x = x0 - 1 for every y), O(n1) values a pair.  The per-cell work is
-// nw_affine_tiled.cuh::tile_cell.
+// _tile_fill_pallas; the batched fill, kernel #4 here: sa_tiled_fill) and
+// ::_folded_kernel (launched by _tile_fill_folded_pallas; 1-4 pairs, each
+// folded over sublanes, kernel #5 here: sa_tiled_fold_fill).  Same contract
+// as the lax fills: each pair's M/I/D corner values at (n2, n1), exact
+// Gotoh whatever the tiling, so the kernels choose their own strip widths.
 //
-// Design: one pair a CTA (sa_tiled_fill, kernel #4) or a cluster of `fold`
-// CTAs (sa_tiled_fold_fill, kernel #5), every tile of the pair swept inside
-// the one launch.  A CTA holds up to 4096 lanes, 4 or 8 consecutive lanes a
-// thread in registers (512 threads at 4096 lanes).  The x-1 shift is
-// stream_cell's (lane_shift.cuh::shift_lanes, one barrier a step); in a
-// cluster the tile is one row of fold x cta_lanes lanes and a CTA's first
-// lane reads the previous CTA's last lane through distributed shared memory,
-// one cluster barrier a step -- the Hopper counterpart of the TPU kernel's
-// sublane fold, which keeps a few long pairs from leaving most of the card
-// idle.  The tile's lane 0 takes the carried boundary column instead: a
-// (3, n1 + 1) int32 buffer a pair in global memory, used in place -- lane 0
-// reads row y at step y, and the tile's last lane writes row g - WV + 1 at
-// step g, a row lane 0 read WV - 1 steps earlier.  CTA 0 stages the query
-// codes and the boundary rows of 128 steps at a time in shared memory; rows
-// past n1 are never read.  The y = 0 chain (lane == g) and the corner
-// capture (the lane holding n2 - x0 at step n2 - x0 + n1 of the last tile)
-// follow _tile_step.  A pair's steps end at its own corner: n1 + WV a tile,
-// the last tile up to the capture step.
+// What bounds it on this card: the integer work of the recurrence (10
+// operations a cell as the function's least), and how many of the 132 SMs
+// a few long pairs can keep busy.  A pair's cells depend on each other
+// along both axes: swept tile after tile by one CTA, a batch of B pairs
+// keeps B SMs busy; split over a cluster, a pair pays a cluster barrier
+// every anti-diagonal step.
 //
-// What bounds it on this card: the per-step block (or cluster) barrier and
-// the integer ALU work of the recurrence (~20 operations a cell); a pair's
-// tiles run one after another on one CTA (#4) or one cluster (#5), so a
-// batch of B pairs keeps B (or fold x B) SMs busy.  Memory traffic is the
-// boundary column, 12 bytes a row a tile.
+// Design: a pair's db axis is cut into strips of W lanes (4 or 8 lanes a
+// thread in registers; W = 1024 for #4, 512 for #5 by default).  One CTA
+// sweeps one strip anti-diagonal by anti-diagonal (lane l holds x = x0 + l,
+// step g holds y = g - l) with one block barrier a step (shift_strip); its
+// lane 0 takes the previous strip's last-lane column (H and max(M + o, D)
+// for every row y, nw_affine_tiled.cuh), staged R rows at a time (a power
+// of two, 2-128) in shared memory with the query codes, and its last lane
+// writes the column for the next strip.  So strip s + 1 can run while
+// strip s is still sweeping, about W + R steps behind it, and a pair
+// spreads over as many CTAs as its rows allow.  CTAs couple only through
+// global memory, once every R rows:
+//
+//   * producer: the last lane's thread writes rows [kR, (k+1)R) of its ring
+//     slot, then publishes the row count with a release store;
+//   * consumer: one thread waits with acquire loads until the count covers
+//     the R rows it stages (never rows past n1, which are -inf), a block
+//     barrier, then the rows are read with L1-bypassing loads;
+//   * ring: K slots a pair (K >= CTAs a pair in flight + 1, at least 2); a
+//     producer about to overwrite a slot first waits until the slot's last
+//     reader (strip s - K + 1) has staged past the rows it writes, and a
+//     reader publishes what it has staged, and kStripDone at its end.
+//
+// No barrier spans CTAs.  Work is handed out by a global atomic ticket over
+// a persistent grid (at most what is co-resident): the items (pair, strip)
+// are sorted strip-major, so a strip's producer and its slot's last reader
+// hold earlier tickets, claimed by CTAs that are already running; a wait
+// never depends on a CTA that is not resident.  Every wait gives up after
+// kSpinLimit polls without progress (seconds): it sets the launch's
+// status word, every CTA stops at its next wait or ticket, and the wrapper
+// raises.  The cell keeps its instructions few: the DPX instructions
+// (VIADDMAX for I and for max(M + o, D), VIMNMX3 for H), a thread's query
+// and db codes packed 4 bits a lane (one LOP3 a lane compares them, one
+// shift a step moves the query codes along), the H arrays of two steps
+// back and one step back swapping roles every step instead of being
+// copied, and the y = 0 check only in a strip's first W steps.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,219 +58,471 @@
 
 namespace {
 
-namespace cg = cooperative_groups;
+constexpr int kMaxChunk = 128;         // rows staged at a time, at most
+constexpr int kMaxStripLanes = 4096;   // lanes a CTA at most
+constexpr int kSmWords = 8;            // SM bitmap words a pair (256 SMs)
+constexpr unsigned kSpinLimit = 1u << 22;
+constexpr int kErrStalled = 1;
 
-constexpr int kStageChunk = 128;  // steps of query codes and boundary rows
-constexpr int kMaxTileCta = 4096;  // lanes a CTA at most
+// The launch's counters (one zeroed int32 tensor): [0] the ticket, [1] the
+// status word, [2, 2 + 8B) the SMs that ran each pair's strips (bitmaps),
+// then per strip (gs) the rows it published and the rows it consumed.
+struct Counters {
+  int32_t* ticket;
+  int32_t* status;
+  uint32_t* sms;
+  int32_t* prog;
+  int32_t* cons;
+};
+
+__device__ __forceinline__ Counters counters(int32_t* ctr, int B,
+                                             int nstrips) {
+  Counters c;
+  c.ticket = ctr;
+  c.status = ctr + 1;
+  c.sms = reinterpret_cast<uint32_t*>(ctr + 2);
+  c.prog = ctr + 2 + B * kSmWords;
+  c.cons = c.prog + nstrips;
+  return c;
+}
+
+__device__ __forceinline__ int32_t ld_acquire(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int32_t* p, int32_t v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Waits until *p >= target.  False when the launch's status is set, or the
+// value stalls for kSpinLimit polls (then this wait sets it).
+__device__ bool wait_at_least(const int32_t* p, int32_t target,
+                              int32_t* status) {
+  int32_t last = ld_acquire(p);
+  unsigned stall = 0;
+  while (last < target) {
+    if (*reinterpret_cast<volatile int32_t*>(status) != 0) return false;
+    if (++stall > kSpinLimit) {
+      atomicCAS(status, 0, kErrStalled);
+      return false;
+    }
+    __nanosleep(256);
+    const int32_t v = ld_acquire(p);
+    if (v != last) {
+      last = v;
+      stall = 0;
+    }
+  }
+  return true;
+}
+
+// Stages the R rows from step g of a strip's lane 0 in shared memory (the
+// query codes, and the carried column: the closed form for strip 0, else
+// the producer's ring slot cin), after thread 0 has waited for the
+// producer's rows and, when this strip will overwrite a ring slot (cout),
+// for the slot's last reader; then publishes what it has read.  Returns
+// false (for every thread) when a wait gave up.
+template <bool COMPAT>
+__device__ __forceinline__ bool stage_chunk(
+    int g, int R, int W, int32_t n1, int L1, const int32_t* q,
+    const int32_t* cin, const int32_t* cout, const sa::StripItem& it, int K,
+    const Counters& ct, const sa::Scheme& sc, int32_t* qsm, int32_t* hsm,
+    int32_t* osm, int* ok_sm) {
+  const int j = threadIdx.x;
+  __syncthreads();  // lane 0 has read the previous chunk
+  if (j == 0) {
+    bool ok = true;
+    if (cin != nullptr && g <= n1) {
+      ok = wait_at_least(ct.prog + it.gs - 1,
+                         sa::chunk_rows_needed(g, R, n1), ct.status);
+    }
+    const int need =
+        cout != nullptr ? sa::ring_rows_needed(g, R, W, n1, it.s, K) : 0;
+    if (ok && need > 0) {
+      ok = wait_at_least(ct.cons + it.gs - K + 1, need, ct.status);
+    }
+    *ok_sm = ok;
+  }
+  __syncthreads();
+  if (!*ok_sm) return false;
+  for (int i = j; i < R; i += blockDim.x) {
+    sa::tile_stage_row(g + i, n1, L1, q, cin, COMPAT, sc, qsm[i], hsm[i],
+                       osm[i]);
+  }
+  __syncthreads();
+  if (j == 0 && cin != nullptr) {
+    __threadfence();
+    st_release(ct.cons + it.gs, sa::chunk_consumed(g, R));
+  }
+  return true;
+}
+
+// The strip's last lane (its new H, M, D) writes row y of the next strip's
+// column (H and max(M + o, D)), and publishes every R rows and at row n1.
+__device__ __forceinline__ void produce_row(int32_t H, int32_t M, int32_t D,
+                                            int y, int R, int32_t n1,
+                                            int32_t* cout, int32_t* prog,
+                                            const sa::Scheme& sc) {
+  cout[2 * y] = H;
+  cout[2 * y + 1] = sa::add_max(M, sc.gap_open, D);
+  const int pub = sa::chunk_publish(y, R, n1);
+  if (pub >= 0) st_release(prog, pub);
+}
+
+// A thread's LPT lanes from lane0: H two steps back and one step back (the
+// kernel swaps the two arrays every step instead of moving them), M, I, D
+// one step back, and the query codes flowing along the lanes and the db
+// codes packed 4 bits a lane (lane i in bits 4i..4i+3).
+template <int LPT>
+struct Lanes {
+  int32_t Ha[LPT], Hb[LPT], M1[LPT], I1[LPT], D1[LPT];
+  uint32_t q, d;
+};
+
+// Moves each thread's last-lane values (h, d, s) to the next thread's
+// first lane: a shuffle inside a warp, shared memory at warp edges
+// (double-buffered by step parity: one barrier a step).  Thread 0 receives
+// nothing (its lane 0 reads the staged column), so the torus wrap and the
+// cluster mapping of lane_shift.cuh::shift_lanes are left out.
+__device__ __forceinline__ void shift_strip(int32_t (&edge)[2][3][32], int j,
+                                            int buf, int32_t& h, int32_t& d,
+                                            int32_t& s) {
+  const int warp = j >> 5;
+  const int wl = j & 31;
+  const int32_t eH = h, eD = d, eS = s;
+  h = __shfl_up_sync(sa::kFullMask, eH, 1);
+  d = __shfl_up_sync(sa::kFullMask, eD, 1);
+  s = __shfl_up_sync(sa::kFullMask, eS, 1);
+  if (wl == 31) {
+    edge[buf][0][warp] = eH;
+    edge[buf][1][warp] = eD;
+    edge[buf][2][warp] = eS;
+  }
+  __syncthreads();
+  if (wl == 0 && warp > 0) {
+    h = edge[buf][0][warp - 1];
+    d = edge[buf][1][warp - 1];
+    s = edge[buf][2][warp - 1];
+  }
+}
+
+// One anti-diagonal step g of a strip for this thread's lanes: H2 holds H
+// two steps back (what the right neighbours read) and receives the step's
+// H; the other H array, one step back, is H2 of the next step.  Lane 0 of the strip is fed by the staged row gc.  RAMP: a
+// step g < W, where a lane may hold the y = 0 chain cell (lane == g); past
+// the ramp no lane does, and the check goes.
+template <int LPT, bool COMPAT, bool WILDCARD, bool RAMP>
+__device__ __forceinline__ void strip_step(
+    int32_t (&H2)[LPT], Lanes<LPT>& L,
+    int32_t (&edge)[2][3][32], int lane0, int g, int gc, int x0,
+    const int32_t* qsm, const int32_t* hsm, const int32_t* osm,
+    const sa::Scheme& sc) {
+  const int j = threadIdx.x;
+  int32_t ds[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) ds[i] = sa::tile_dsel(L.M1[i], L.D1[i], sc);
+  int32_t nH = H2[LPT - 1];
+  int32_t nD = ds[LPT - 1];
+  int32_t nS = static_cast<int32_t>((L.q >> (4 * (LPT - 1))) & 0xfu);
+  shift_strip(edge, j, g & 1, nH, nD, nS);
+  if (j == 0) {
+    // The strip's lane 0 reads the carried boundary column.
+    nH = hsm[gc];
+    nD = osm[gc];
+    nS = qsm[gc];
+  }
+  // Every lane takes its left neighbour's query code.
+  L.q = (L.q << 4) | (static_cast<uint32_t>(nS) & 0xfu);
+  // Right to left, so lane i-1 still holds its pre-step H2 for lane i.
+#pragma unroll
+  for (int i = LPT - 1; i >= 0; --i) {
+    const bool eq = sa::tile_eq<WILDCARD>(L.q, L.d, 0xfu << (4 * i));
+    const int32_t lH2 = i == 0 ? nH : H2[i - 1];
+    const int32_t ldsel = i == 0 ? nD : ds[i - 1];
+    H2[i] = sa::tile_cell<COMPAT>(eq, lH2, ldsel, RAMP && lane0 + i == g,
+                                  x0 + lane0 + i, L.M1[i], L.I1[i], L.D1[i],
+                                  sc);
+  }
+}
 
 // query: (B, L1) int32 codes; db: (B, L2) int32 codes; n1v/n2v: (B,)
-// lengths; finals: (B, 3) int32, zeroed by the caller (a pair with n2 = 0 is
-// left untouched); bnd: (B, 3, nrow) int32 scratch (nrow >= n1 + 1), the
-// boundary column planes M, D, H.  sp: the tile's split, all CTAs full
-// (cluster_split.cuh); CLUSTER: block b holds CTA b % nctas of pair
-// b / nctas, else one block a pair.
-template <int LPT, bool COMPAT, bool WILDCARD, bool CLUSTER>
+// lengths; items: (nitems, 3) int32 (pair, strip, gs) in ticket order
+// (nw_affine_tiled.cuh::strip_item); finals: (B, 3) int32, zeroed (a pair
+// with n2 = 0 is left untouched); col: B * K ring slots of 2 * nrow int32
+// (nrow >= n1 + 1); ctr: the zeroed counters.  blockDim.x = W / LPT; R a
+// power of two, 2-128 (the steps go two at a time, H1 and H2 swapping).
+template <int LPT, bool COMPAT, bool WILDCARD>
 __global__ void __launch_bounds__(sa::kMaxThreads)
-    tiled_fill_kernel(const int32_t* __restrict__ query,
+    strip_fill_kernel(const int32_t* __restrict__ query,
                       const int32_t* __restrict__ db,
                       const int32_t* __restrict__ n1v,
                       const int32_t* __restrict__ n2v,
-                      int32_t* __restrict__ finals, int32_t* __restrict__ bnd,
-                      int L1, int L2, int nrow, sa::Scheme sc, sa::Split sp) {
-  __shared__ int32_t qsm[kStageChunk];  // query code y - 1 of lane 0
-  __shared__ int32_t hsm[kStageChunk];  // boundary H(y - 1)
-  __shared__ int32_t osm[kStageChunk];  // boundary max(M(y) + o, D(y))
-  __shared__ sa::ShiftSmem sm;
+                      const int32_t* __restrict__ items, int nitems,
+                      int32_t* finals, int32_t* col, int32_t* ctr, int B,
+                      int L1, int L2, int nrow, int nstrips, int R, int K,
+                      sa::Scheme sc) {
+  static_assert(LPT * 4 <= 32, "a thread's query codes fill one register");
+  __shared__ int32_t qsm[kMaxChunk];  // query code y - 1 of lane 0
+  __shared__ int32_t hsm[kMaxChunk];  // boundary H(y - 1)
+  __shared__ int32_t osm[kMaxChunk];  // boundary max(M(y) + o, D(y))
+  __shared__ int32_t edge[2][3][32];  // warp edges' lanes, by step parity
+  __shared__ int ticket_sm;
+  __shared__ int ok_sm;
 
-  int rank = 0;
-  int b = blockIdx.x;
-  const sa::ShiftSmem* prev = &sm;
-  if constexpr (CLUSTER) {
-    rank = static_cast<int>(cg::this_cluster().block_rank());
-    b = blockIdx.x / sp.nctas;
-    prev = cg::this_cluster().map_shared_rank(&sm, sa::prev_cta(rank, sp));
-  }
+  const Counters ct = counters(ctr, B, nstrips);
   const int j = threadIdx.x;
-  const int WV = sp.nctas * sp.cta_lanes;  // the (virtual) tile's lanes
-  const int nreal = sp.cta_lanes / LPT;
-  const bool real = j < nreal;
-  const int lane0 = sa::cta_first_lane(rank, sp) + j * LPT;
-  // The owner of the tile's last lane emits the next tile's boundary.
-  const bool edge_owner = rank == sp.nctas - 1 && j == nreal - 1;
-  const int32_t n1 = n1v[b];
-  const int32_t n2 = n2v[b];
-  if (n2 <= 0) return;  // the whole cluster: the host's closed form
-  const int n_tiles = (n2 + WV - 1) / WV;
-  const int32_t* q = query + static_cast<size_t>(b) * L1;
-  int32_t* bM = bnd + static_cast<size_t>(b) * 3 * nrow;
-  int32_t* bD = bM + nrow;
-  int32_t* bH = bD + nrow;
+  const int nthr = blockDim.x;
+  const int W = nthr * LPT;
+  const int lane0 = j * LPT;
+  const bool edge_owner = j == nthr - 1;  // owns the strip's last lane
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int x0 = t * WV + 1;
-    const bool last = t == n_tiles - 1;
-    const int gcap = n2 - x0 + n1;  // the corner's step in the last tile
-    const int g_end = last ? gcap + 1 : n1 + WV;
-    int cap_i = -1;  // this thread's lane holding the corner, if any
-    if (last && real && n2 - x0 >= lane0 && n2 - x0 < lane0 + LPT) {
-      cap_i = n2 - x0 - lane0;
+  for (;;) {
+    if (j == 0) {
+      const bool stop = *reinterpret_cast<volatile int32_t*>(ct.status);
+      ticket_sm = stop ? nitems : atomicAdd(ct.ticket, 1);
     }
-    sa::Cell c[LPT];
+    __syncthreads();
+    const int ticket = ticket_sm;
+    if (ticket >= nitems) return;
+    const sa::StripItem it = sa::strip_item(items, ticket);
+    if (j == 0) {
+      unsigned smid;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+      atomicOr(ct.sms + it.b * kSmWords + (smid / 32) % kSmWords,
+               1u << (smid % 32));
+    }
+    const int32_t n1 = n1v[it.b];
+    const int32_t n2 = n2v[it.b];
+    const int x0 = it.s * W + 1;
+    const bool last = it.s == sa::strip_count(n2, W) - 1;
+    // The last strip ends at the corner's step, n2 - x0 + n1.
+    const int g_end = sa::strip_steps(n1, n2, x0, W, last);
+    const int32_t* q = query + static_cast<size_t>(it.b) * L1;
+    const int32_t* cin =
+        it.s > 0 ? col + sa::strip_slot(it.b, it.s - 1, K, nrow) : nullptr;
+    int32_t* cout =
+        last ? nullptr : col + sa::strip_slot(it.b, it.s, K, nrow);
+    int32_t* prog = ct.prog + it.gs;
+    Lanes<LPT> L;
+    L.q = 0;
+    L.d = 0;
 #pragma unroll
     for (int i = 0; i < LPT; ++i) {
-      c[i] = sa::cell_init();
+      L.Ha[i] = L.Hb[i] = L.M1[i] = L.I1[i] = L.D1[i] = sa::kNegInf;
       const int x = x0 + lane0 + i;  // db code x - 1
-      c[i].s2v = real && x <= n2 ? db[static_cast<size_t>(b) * L2 + x - 1]
-                                 : 0;
+      const int32_t code =
+          x <= n2 ? db[static_cast<size_t>(it.b) * L2 + x - 1] : 0;
+      L.d |= (static_cast<uint32_t>(code) & 0xfu) << (4 * i);
     }
-    for (int g = 0; g < g_end; ++g) {
-      const int gc = g % kStageChunk;
-      if (gc == 0 && rank == 0) {
-        __syncthreads();
-        for (int i = j; i < kStageChunk; i += blockDim.x) {
-          sa::tile_stage_row(t, g + i, n1, L1, q, bM, bD, bH, COMPAT, sc,
-                             qsm[i], hsm[i], osm[i]);
-        }
-        __syncthreads();
+    // Steps two at a time (chunks start at even steps): the first writes
+    // its H into Ha, the second into Hb.  The ramp (g < W, an even count)
+    // first, then the rest; an odd last step alone.
+    const int g_ramp = g_end < W ? g_end : W;
+    int g = 0;
+    for (; g + 1 < g_ramp; g += 2) {
+      const int gc = g & (R - 1);
+      if (gc == 0 && !stage_chunk<COMPAT>(g, R, W, n1, L1, q, cin, cout, it,
+                                          K, ct, sc, qsm, hsm, osm, &ok_sm)) {
+        return;
       }
-      sa::Pre pre[LPT];
+      strip_step<LPT, COMPAT, WILDCARD, true>(L.Ha, L, edge, lane0, g,
+                                              gc, x0, qsm, hsm, osm, sc);
+      if (edge_owner && cout != nullptr && g >= W - 1) {
+        produce_row(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g - W + 1,
+                    R, n1, cout, prog, sc);
+      }
+      strip_step<LPT, COMPAT, WILDCARD, true>(L.Hb, L, edge, lane0,
+                                              g + 1, gc + 1, x0, qsm, hsm,
+                                              osm, sc);
+      if (edge_owner && cout != nullptr && g + 1 >= W - 1) {
+        produce_row(L.Hb[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g + 2 - W,
+                    R, n1, cout, prog, sc);
+      }
+    }
+    for (; g + 1 < g_end; g += 2) {
+      const int gc = g & (R - 1);
+      if (gc == 0 && !stage_chunk<COMPAT>(g, R, W, n1, L1, q, cin, cout, it,
+                                          K, ct, sc, qsm, hsm, osm, &ok_sm)) {
+        return;
+      }
+      strip_step<LPT, COMPAT, WILDCARD, false>(L.Ha, L, edge, lane0, g,
+                                               gc, x0, qsm, hsm, osm, sc);
+      if (edge_owner && cout != nullptr) {
+        produce_row(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g - W + 1,
+                    R, n1, cout, prog, sc);
+      }
+      strip_step<LPT, COMPAT, WILDCARD, false>(L.Hb, L, edge, lane0,
+                                               g + 1, gc + 1, x0, qsm, hsm,
+                                               osm, sc);
+      if (edge_owner && cout != nullptr) {
+        produce_row(L.Hb[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g + 2 - W,
+                    R, n1, cout, prog, sc);
+      }
+    }
+    if (g < g_end) {
+      // An odd step count: the last step alone, its H into Ha.
+      const int gc = g & (R - 1);
+      if (gc == 0 && !stage_chunk<COMPAT>(g, R, W, n1, L1, q, cin, cout, it,
+                                          K, ct, sc, qsm, hsm, osm, &ok_sm)) {
+        return;
+      }
+      if (g < W) {
+        strip_step<LPT, COMPAT, WILDCARD, true>(L.Ha, L, edge, lane0,
+                                                g, gc, x0, qsm, hsm, osm, sc);
+      } else {
+        strip_step<LPT, COMPAT, WILDCARD, false>(L.Ha, L, edge, lane0,
+                                                 g, gc, x0, qsm, hsm, osm,
+                                                 sc);
+      }
+      if (edge_owner && cout != nullptr && g >= W - 1) {
+        produce_row(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g - W + 1,
+                    R, n1, cout, prog, sc);
+      }
+    }
+    // The corner: the last strip's last step, at lane n2 - x0.
+    const int cap = n2 - x0 - lane0;
+    if (last && cap >= 0 && cap < LPT) {
 #pragma unroll
       for (int i = 0; i < LPT; ++i) {
-        pre[i] = sa::stream_pre<sa::kDirsNone>(c[i], sc);
-      }
-      int32_t nH = c[LPT - 1].H2;
-      int32_t nD = pre[LPT - 1].dsel;
-      int32_t nS = c[LPT - 1].s1d;
-      sa::shift_lanes(sm, prev, CLUSTER, j, nreal, g & 1, nH, nD, nS);
-      if (rank == 0 && j == 0) {
-        // The tile's lane 0 reads the carried boundary column.
-        nH = hsm[gc];
-        nD = osm[gc];
-        nS = qsm[gc];
-      }
-      // Right to left, so lane i-1 still holds its pre-step state for lane i.
-      // One tile_cell a lane, its operands chosen first: two inlined calls
-      // (one reading c[i - 1]) kept the lanes' state out of registers.
-#pragma unroll
-      for (int i = LPT - 1; i >= 0; --i) {
-        const int lane = lane0 + i;
-        int32_t lH2, ldsel, ls1d;
-        if (i == 0) {
-          lH2 = nH;
-          ldsel = nD;
-          ls1d = nS;
-        } else {
-          lH2 = c[i - 1].H2;
-          ldsel = pre[i - 1].dsel;
-          ls1d = c[i - 1].s1d;
-        }
-        sa::tile_cell<COMPAT, WILDCARD>(c[i], pre[i].t0, lH2, ldsel, ls1d,
-                                        lane == g, x0 + lane, sc);
-      }
-      if (g == gcap && cap_i >= 0) {
-#pragma unroll
-        for (int i = 0; i < LPT; ++i) {
-          if (i == cap_i) {
-            int32_t* f = finals + static_cast<size_t>(b) * 3;
-            f[0] = c[i].M1;
-            f[1] = c[i].I1;
-            f[2] = c[i].D1;
-          }
+        if (i == cap) {
+          int32_t* f = finals + static_cast<size_t>(it.b) * 3;
+          f[0] = L.M1[i];
+          f[1] = L.I1[i];
+          f[2] = L.D1[i];
         }
       }
-      if (edge_owner && !last && g >= WV - 1) {
-        const int y = g - WV + 1;
-        bM[y] = c[LPT - 1].M1;
-        bD[y] = c[LPT - 1].D1;
-        bH[y] = c[LPT - 1].H1;
-      }
     }
-    // The emitted column is read by CTA 0 in the next tile; the barrier also
-    // keeps this CTA's shared memory alive for its neighbour.
-    if (edge_owner) __threadfence();
-    if constexpr (CLUSTER) {
-      cg::this_cluster().sync();
-    } else {
-      __syncthreads();
-    }
+    if (j == 0 && cin != nullptr) st_release(ct.cons + it.gs, sa::kStripDone);
+    __syncthreads();  // ticket_sm is rewritten next
   }
 }
 
-typedef void (*TiledKernel)(const int32_t*, const int32_t*, const int32_t*,
-                            const int32_t*, int32_t*, int32_t*, int, int, int,
-                            sa::Scheme, sa::Split);
+typedef void (*StripKernel)(const int32_t*, const int32_t*, const int32_t*,
+                            const int32_t*, const int32_t*, int, int32_t*,
+                            int32_t*, int32_t*, int, int, int, int, int, int,
+                            int, sa::Scheme);
 
-template <int LPT, bool CL>
-TiledKernel pick(bool compat, bool wildcard) {
+template <int LPT>
+StripKernel pick(bool compat, bool wildcard) {
   if (compat) {
-    return wildcard ? tiled_fill_kernel<LPT, true, true, CL>
-                    : tiled_fill_kernel<LPT, true, false, CL>;
+    return wildcard ? strip_fill_kernel<LPT, true, true>
+                    : strip_fill_kernel<LPT, true, false>;
   }
-  return wildcard ? tiled_fill_kernel<LPT, false, true, CL>
-                  : tiled_fill_kernel<LPT, false, false, CL>;
+  return wildcard ? strip_fill_kernel<LPT, false, true>
+                  : strip_fill_kernel<LPT, false, false>;
 }
 
-int launch(const sa::Split& sp, const int32_t* query, const int32_t* db,
+// Lanes a thread for strips of W lanes: #4 takes 8 where W allows (a whole
+// number of warps), #5 always 4 (twice the threads for the few pairs it
+// takes).  0 for a width out of range.
+int strip_lpt(int W, bool fold) {
+  if (W <= 0 || W % 128 != 0 || W > kMaxStripLanes) return 0;
+  if (!fold && W % 256 == 0) return 8;
+  return W / 4 <= sa::kMaxThreads ? 4 : 0;
+}
+
+StripKernel strip_kernel(int lpt, bool compat, bool wildcard) {
+  switch (lpt) {
+    case 4:
+      return pick<4>(compat, wildcard);
+    case 8:
+      return pick<8>(compat, wildcard);
+  }
+  return nullptr;
+}
+
+int resident_ctas(int W, bool fold, int compat, int wildcard) {
+  const int lpt = strip_lpt(W, fold);
+  const StripKernel fn = strip_kernel(lpt, compat != 0, wildcard != 0);
+  if (fn == nullptr) return 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(fn), W / lpt, 0) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return per_sm * sms;
+}
+
+int launch(bool fold, const int32_t* query, const int32_t* db,
            const int32_t* n1v, const int32_t* n2v, int32_t* finals,
-           int32_t* bnd, int B, int L1, int L2, int match, int mismatch,
-           int gap_open, int gap_extend, int compat, int wildcard,
-           void* stream) {
-  if (sp.nctas == 0 || sp.cta_lanes > kMaxTileCta || B <= 0 || L1 <= 0 ||
-      L2 <= 0) {
+           int32_t* col, int32_t* ctr, const int32_t* items, int B, int L1,
+           int L2, int nitems, int nstrips, int match, int mismatch,
+           int gap_open, int gap_extend, int compat, int wildcard, int W,
+           int R, int K, int ctas, void* stream) {
+  const int lpt = strip_lpt(W, fold);
+  const StripKernel fn = strip_kernel(lpt, compat != 0, wildcard != 0);
+  if (fn == nullptr || B <= 0 || L1 <= 0 || L2 <= 0 || nitems <= 0 ||
+      R < 2 || R > kMaxChunk || (R & (R - 1)) != 0 || K < 2 || ctas < 1) {
     return -1;
   }
-  const bool cl = sp.nctas > 1;
-  TiledKernel fn = nullptr;
-  switch (sp.lpt) {
-    case 4:
-      fn = cl ? pick<4, true>(compat != 0, wildcard != 0)
-              : pick<4, false>(compat != 0, wildcard != 0);
-      break;
-    case 8:
-      fn = cl ? pick<8, true>(compat != 0, wildcard != 0)
-              : pick<8, false>(compat != 0, wildcard != 0);
-      break;
-  }
-  if (fn == nullptr) return -1;
   int nrow = L1 + 1;
   sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  sa::Split split = sp;
-  void* args[] = {&query, &db, &n1v, &n2v, &finals, &bnd,
-                  &L1,    &L2, &nrow, &sc, &split};
-  return sa::launch_split(reinterpret_cast<const void*>(fn), sp, B, args,
-                          stream);
+  void* args[] = {&query, &db,  &n1v,   &n2v,     &items, &nitems,
+                  &finals, &col, &ctr,  &B,       &L1,    &L2,
+                  &nrow,   &nstrips, &R, &K,      &sc};
+  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(ctas),
+                   dim3(W / lpt), args, 0,
+                   static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Kernel #4: one CTA a pair, tiles of tile_lanes lanes (a multiple of 128,
-// at most 4096).  query: (B, L1) int32; db: (B, L2) int32; n1v/n2v: (B,)
-// int32; finals: (B, 3) int32, zeroed; bnd: (B, 3, L1 + 1) int32 scratch.
-// Returns the cudaGetLastError() of the launch, -1 for an unsupported shape.
-extern "C" int sa_tiled_fill(const int32_t* query, const int32_t* db,
-                             const int32_t* n1v, const int32_t* n2v,
-                             int32_t* finals, int32_t* bnd, int B, int L1,
-                             int L2, int match, int mismatch, int gap_open,
-                             int gap_extend, int compat, int wildcard,
-                             int tile_lanes, void* stream) {
-  const sa::Split sp = sa::plan_split(tile_lanes, tile_lanes);
-  return launch(sp, query, db, n1v, n2v, finals, bnd, B, L1, L2, match,
-                mismatch, gap_open, gap_extend, compat, wildcard, stream);
+// CTAs of the strip kernel the card holds at once (occupancy x SMs) for
+// strips of strip_lanes lanes, #4's instance (fold 0) or #5's (fold 1); 0
+// for a width out of range.
+extern "C" int sa_tiled_resident_ctas(int strip_lanes, int fold, int compat,
+                                      int wildcard) {
+  return resident_ctas(strip_lanes, fold != 0, compat, wildcard);
 }
 
-// Kernel #5: a cluster of `fold` CTAs of cta_lanes lanes a pair (2 to 8
-// CTAs; the tile is fold x cta_lanes lanes), same arguments otherwise.
-// Returns -3 for a cluster the card cannot schedule.
+// Kernel #4: strips of strip_lanes lanes (a multiple of 128, at most 4096;
+// 2048 for kernel #5)
+// over a persistent grid of `ctas` CTAs.  query: (B, L1) int32; db: (B, L2)
+// int32; n1v/n2v: (B,) int32; finals: (B, 3) int32, zeroed; col: B * ring
+// slots of 2 * (L1 + 1) int32; ctr: 2 + 8B + 2 * nstrips int32, zeroed;
+// items: (nitems, 3) int32, strip-major; chunk_rows: rows staged at a time
+// (a power of two, 2-128); ring: slots a pair (>= 2).  Returns the
+// cudaGetLastError() of the launch, -1 for an unsupported shape.  After the launch ctr[1] is non-zero
+// if a wait stalled (the finals are then incomplete).
+extern "C" int sa_tiled_fill(const int32_t* query, const int32_t* db,
+                             const int32_t* n1v, const int32_t* n2v,
+                             int32_t* finals, int32_t* col, int32_t* ctr,
+                             const int32_t* items, int B, int L1, int L2,
+                             int nitems, int nstrips, int match,
+                             int mismatch, int gap_open, int gap_extend,
+                             int compat, int wildcard, int strip_lanes,
+                             int chunk_rows, int ring, int ctas,
+                             void* stream) {
+  return launch(false, query, db, n1v, n2v, finals, col, ctr, items, B, L1,
+                L2, nitems, nstrips, match, mismatch, gap_open, gap_extend,
+                compat, wildcard, strip_lanes, chunk_rows, ring, ctas,
+                stream);
+}
+
+// Kernel #5: the same for 1-4 pairs, 4 lanes a thread.
 extern "C" int sa_tiled_fold_fill(const int32_t* query, const int32_t* db,
                                   const int32_t* n1v, const int32_t* n2v,
-                                  int32_t* finals, int32_t* bnd, int B,
-                                  int L1, int L2, int match, int mismatch,
-                                  int gap_open, int gap_extend, int compat,
-                                  int wildcard, int fold, int cta_lanes,
+                                  int32_t* finals, int32_t* col, int32_t* ctr,
+                                  const int32_t* items, int B, int L1,
+                                  int L2, int nitems, int nstrips, int match,
+                                  int mismatch, int gap_open, int gap_extend,
+                                  int compat, int wildcard, int strip_lanes,
+                                  int chunk_rows, int ring, int ctas,
                                   void* stream) {
-  if (fold < 2 || fold > 8) return -1;
-  const sa::Split sp = sa::plan_split(fold * cta_lanes, cta_lanes);
-  if (sp.nctas != fold) return -1;
-  return launch(sp, query, db, n1v, n2v, finals, bnd, B, L1, L2, match,
-                mismatch, gap_open, gap_extend, compat, wildcard, stream);
+  return launch(true, query, db, n1v, n2v, finals, col, ctr, items, B, L1,
+                L2, nitems, nstrips, match, mismatch, gap_open, gap_extend,
+                compat, wildcard, strip_lanes, chunk_rows, ring, ctas,
+                stream);
 }

@@ -1,13 +1,19 @@
-// Per-cell arithmetic of the tiled score-only Gotoh fill, shared by the CUDA
-// kernels (nw_affine_tiled.cu) and the serial host build (host_check.cpp).
+// Per-cell arithmetic and the strip schedule of the tiled score-only Gotoh
+// fill, shared by the CUDA kernels (nw_affine_tiled.cu) and the serial host
+// build (host_check.cpp).
 //
-// It is ops/nw_affine_tiled.py::_tile_step written for one lane: the tile
-// holds cells x = x0 + lane of the db axis, step g holds y = g - lane; the
-// merged-roll Gotoh recurrence of _stream_step inside the tile, lane 0 fed
-// by the carried boundary column (M, D, H at x0 - 1) instead of a left
-// neighbour, and the y = 0 chain written where lane == g.  The boundary
-// column of tile 0 is the x = 0 column in closed form (_boundary0); every
-// later tile's is the previous tile's last lane, emitted row by row.
+// The cell is ops/nw_affine_tiled.py::_tile_step written for one lane: the
+// strip holds cells x = x0 + lane of the db axis, step g holds y = g - lane;
+// the merged-roll Gotoh recurrence of _stream_step inside the strip, lane 0
+// fed by the carried boundary column (H and max(M + o, D) at x0 - 1)
+// instead of a left neighbour, and the y = 0 chain written where lane == g.
+// The boundary column of strip 0 is the x = 0 column in closed form
+// (_boundary0); every later strip's is the previous strip's last lane,
+// published row by row into a ring slot in global memory.
+//
+// The schedule's index math (which strip a ticket is, when a strip waits
+// for which counter, which ring slot it reads and writes) lives here too,
+// so the host build runs the kernels' schedule serially through it.
 #pragma once
 
 #include <stdint.h>
@@ -15,6 +21,44 @@
 #include "nw_affine_stream.cuh"
 
 namespace sa {
+
+// ---------------------------------------------------------------------------
+// Cell arithmetic (Hopper's DPX instructions on the card, the same integers
+// from plain maxima on the host)
+// ---------------------------------------------------------------------------
+
+// max(a + b, c): one VIADDMAX on sm_90.
+SA_HD int32_t add_max(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__)
+  return __viaddmax_s32(a, b, c);
+#else
+  return imax(a + b, c);
+#endif
+}
+
+// max(a, b, c): one VIMNMX3 on sm_90.
+SA_HD int32_t max3(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__)
+  return __vimax3_s32(a, b, c);
+#else
+  return imax(a, imax(b, c));
+#endif
+}
+
+// What a lane hands its right neighbour for D: max(M1 + o, D1), from its
+// state before the step (stream_pre's dsel).
+SA_HD int32_t tile_dsel(int32_t M1, int32_t D1, const Scheme& s) {
+  return add_max(M1, s.gap_open, D1);
+}
+
+// Whether a lane's query and db codes match: q and d hold nibble codes
+// (io.encode's), the lane's in the bits of mask; so the kernels compare a
+// thread's lanes packed 4 bits a lane in one register, one LOP3 a lane.
+// Wildcard: the codes' bits intersect; else they are equal.
+template <bool WILDCARD>
+SA_HD bool tile_eq(uint32_t q, uint32_t d, uint32_t mask) {
+  return WILDCARD ? (q & d & mask) != 0 : ((q ^ d) & mask) == 0;
+}
 
 // The x = 0 boundary column at row y (_boundary0): M, D and H.  Compat
 // keeps the chain o + (y+1)e in D, textbook o + y*e in I (D stays -inf, H
@@ -36,57 +80,134 @@ SA_HD void tile_boundary0(int32_t y, bool compat, const Scheme& s,
   H = compat ? D : s.gap_open + y * s.gap_extend;
 }
 
-// What the tile's lane 0 reads at the step holding row y: the query code
-// y - 1 (0 outside 1 <= y <= L1, as the zero-padded query), and the carried
-// boundary column's H(y - 1) and max(M(y) + o, D(y)) -- the values a left
-// neighbour would hand over.  tile 0 takes the closed form; a later tile
-// reads the column (bM, bD, bH: rows 0..n1 of the previous tile's last lane)
-// and -inf past row n1 (those cells never reach the corner).  q: the pair's
-// query codes.
-SA_HD void tile_stage_row(int tile, int32_t y, int32_t n1, int L1,
-                          const int32_t* q, const int32_t* bM,
-                          const int32_t* bD, const int32_t* bH, bool compat,
-                          const Scheme& s, int32_t& qc, int32_t& hb,
-                          int32_t& od) {
-  qc = y >= 1 && y <= L1 ? q[y - 1] : 0;
-  int32_t mb, db;
-  if (tile == 0) {
-    int32_t m_, d_;
-    tile_boundary0(y - 1, compat, s, m_, d_, hb);
-    tile_boundary0(y, compat, s, mb, db, d_);
-  } else {
-    hb = y >= 1 && y - 1 <= n1 ? bH[y - 1] : kNegInf;
-    mb = y >= 0 && y <= n1 ? bM[y] : kNegInf;
-    db = y >= 0 && y <= n1 ? bD[y] : kNegInf;
-  }
-  od = imax(mb + s.gap_open, db);
+// A boundary column row as it is carried: H(y) and max(M(y) + o, D(y)),
+// two int32 a row (col[2y], col[2y + 1]).  Reads on the card bypass L1
+// (another SM wrote the row during this launch).
+SA_HD int32_t col_load(const int32_t* p) {
+#if defined(__CUDA_ARCH__)
+  return __ldcg(p);
+#else
+  return *p;
+#endif
 }
 
-// One cell of a tile step.  t0 = M1 + o of this lane before the step; lH2,
-// ldsel, ls1d: the left neighbour's H2, max(M1 + o, D1) and query code
-// before the step (for the tile's lane 0, the staged boundary row: H(y-1),
-// max(M(y) + o, D(y)), query code y - 1).  atg: this lane holds cell
-// (xg, 0), whose x-chain boundary (compat in I with one extra extension,
-// textbook in D) overrides the recurrence.  c.s2v is the lane's db code.
-template <bool COMPAT, bool WILDCARD>
-SA_HD void tile_cell(Cell& c, int32_t t0, int32_t lH2, int32_t ldsel,
-                     int32_t ls1d, bool atg, int32_t xg, const Scheme& s) {
-  const bool eq = WILDCARD ? (ls1d & c.s2v) != 0 : ls1d == c.s2v;
+// What the strip's lane 0 reads at the step holding row y: the query code
+// y - 1 (0 outside 1 <= y <= L1, as the zero-padded query), and the carried
+// boundary column's H(y - 1) and max(M(y) + o, D(y)) -- the values a left
+// neighbour would hand over.  Strip 0 (col == nullptr) takes the closed
+// form; a later strip reads the column (rows 0..n1 of the previous strip's
+// last lane) and -inf past row n1 (those cells never reach the corner).
+// q: the pair's query codes.
+SA_HD void tile_stage_row(int32_t y, int32_t n1, int L1, const int32_t* q,
+                          const int32_t* col, bool compat, const Scheme& s,
+                          int32_t& qc, int32_t& hb, int32_t& od) {
+  qc = y >= 1 && y <= L1 ? q[y - 1] : 0;
+  if (col == nullptr) {
+    int32_t m_, d_, mb, db;
+    tile_boundary0(y - 1, compat, s, m_, d_, hb);
+    tile_boundary0(y, compat, s, mb, db, d_);
+    od = imax(mb + s.gap_open, db);
+    return;
+  }
+  hb = y >= 1 && y - 1 <= n1 ? col_load(col + 2 * (y - 1)) : kNegInf;
+  od = y >= 0 && y <= n1 ? col_load(col + 2 * y + 1)
+                         : imax(kNegInf + s.gap_open, kNegInf);
+}
+
+// One cell of a strip step: updates the lane's M1, I1, D1 in place and
+// returns its H.  eq: the lane's query code (the left neighbour's before
+// the step) matches its db code; lH2, ldsel: the left neighbour's H two
+// steps back and max(M1 + o, D1) before the step (for the strip's lane 0,
+// the staged boundary row: H(y-1) and max(M(y) + o, D(y))).  atg: this lane
+// holds cell (xg, 0), whose x-chain boundary (compat in I with one extra
+// extension, textbook in D) overrides the recurrence.  I = max(M1 + o, I1)
+// + e is one VIADDMAX after the add, H one VIMNMX3.
+template <bool COMPAT>
+SA_HD int32_t tile_cell(bool eq, int32_t lH2, int32_t ldsel, bool atg,
+                        int32_t xg, int32_t& M1, int32_t& I1, int32_t& D1,
+                        const Scheme& s) {
   int32_t M = lH2 + (eq ? s.match : s.mismatch);
-  int32_t I = imax(t0, c.I1) + s.gap_extend;
+  int32_t I = add_max(M1, s.gap_open + s.gap_extend, I1 + s.gap_extend);
   int32_t D = ldsel + s.gap_extend;
   if (atg) {
     M = kNegInf;
     I = COMPAT ? s.gap_open + (xg + 1) * s.gap_extend : kNegInf;
     D = COMPAT ? kNegInf : s.gap_open + xg * s.gap_extend;
   }
-  const int32_t H = imax(M, imax(I, D));
-  c.H2 = c.H1;
-  c.H1 = H;
-  c.M1 = M;
-  c.I1 = I;
-  c.D1 = D;
-  c.s1d = ls1d;
+  M1 = M;
+  I1 = I;
+  D1 = D;
+  return max3(M, I, D);
+}
+
+// ---------------------------------------------------------------------------
+// The strip schedule
+// ---------------------------------------------------------------------------
+
+// A pair's db axis is cut into strips of W lanes; strip s holds x = s*W + 1
+// .. s*W + W.  A work item is one (pair, strip); the items are handed out
+// in ticket order, strip-major ((s, b) sorted), so every strip's producer
+// (strip s - 1 of its pair) holds an earlier ticket.  items: (n, 3) int32
+// rows (pair b, strip s, gs), gs the strip's index in the launch's strip
+// counters (a pair's strips are consecutive there).
+struct StripItem {
+  int b, s, gs;
+};
+
+SA_HD StripItem strip_item(const int32_t* items, int ticket) {
+  StripItem it;
+  it.b = items[3 * ticket];
+  it.s = items[3 * ticket + 1];
+  it.gs = items[3 * ticket + 2];
+  return it;
+}
+
+// Strips of a pair with n2 db positions (0 for n2 <= 0: the host's closed
+// form).
+SA_HD int strip_count(int32_t n2, int W) {
+  return n2 > 0 ? (n2 + W - 1) / W : 0;
+}
+
+// The ring slot strip s of pair b writes (strip s + 1 reads it): K slots a
+// pair, each 2 * nrow int32.
+SA_HD size_t strip_slot(int b, int s, int K, int nrow) {
+  return (static_cast<size_t>(b) * K + s % K) * 2 * static_cast<size_t>(nrow);
+}
+
+// The strip's steps: n1 + W (its last lane reaches row n1), or, for the
+// pair's last strip, up to the corner's step gcap = n2 - x0 + n1.
+SA_HD int strip_steps(int32_t n1, int32_t n2, int x0, int W, bool last) {
+  return last ? n2 - x0 + n1 + 1 : n1 + W;
+}
+
+// Rows of the producer's column the consumer needs published before it
+// stages the R steps from g: rows 0..g+R-1 (H(y-1) and max(M(y)+o, D(y))
+// for y < g + R), none past n1 (the producer never writes them).
+SA_HD int chunk_rows_needed(int g, int R, int32_t n1) {
+  return g + R < n1 + 1 ? g + R : n1 + 1;
+}
+
+// The value a producer publishes after writing column row y: rows 0..y are
+// in place.  It publishes at every R-th row (R a power of two, 2-128) and
+// at row n1; -1 otherwise.
+SA_HD int chunk_publish(int y, int R, int32_t n1) {
+  return ((y + 1) & (R - 1)) == 0 || y == n1 ? y + 1 : -1;
+}
+
+// A consumer that staged the R steps from g publishes g + R: it will read
+// no row below g + R - 1 again (H(y - 1) at y = g + R).  kStripDone when
+// its strip is finished.
+constexpr int32_t kStripDone = 0x3fffffff;
+SA_HD int chunk_consumed(int g, int R) { return g + R; }
+
+// What a producer writing its ring slot during the R steps from g must
+// see from the slot's last reader (strip s - K + 1 of its pair, the reader
+// of strip s - K's column): consumed >= the highest row it writes + 2.
+// 0 when it needs nothing (no reader yet, s < K; or no rows this chunk).
+SA_HD int ring_rows_needed(int g, int R, int W, int32_t n1, int s, int K) {
+  if (s < K) return 0;
+  const int y_hi = g + R - W < n1 ? g + R - W : n1;
+  return y_hi >= 0 ? y_hi + 2 : 0;
 }
 
 }  // namespace sa

@@ -15,7 +15,7 @@ coupling between consecutive tiles is the boundary column at the tile edge
 
 Score-only: each pair's M/I/D corner finals at (n2, n1).  They are the
 exact Gotoh corner values whatever the tiling, so the CUDA kernels choose
-their own tile widths; the plain versions follow the JAX package's lax
+their own strip widths; the plain versions follow the JAX package's lax
 layout at ``tile_lanes`` so the tests compare like with like.
 
 Implementations, chosen by the tensors' device:
@@ -28,12 +28,25 @@ Implementations, chosen by the tensors' device:
   sweep in the reference fill's order: the kernels' plain check at 100 kb,
   where the lax-layout twins take too many steps;
 * ``tiled_fill_cuda`` -- kernel #4 (``csrc/nw_affine_tiled.cu``,
-  sa_tiled_fill): one CTA a pair, every tile in one launch;
-* ``tiled_fold_fill_cuda`` -- kernel #5 (sa_tiled_fold_fill): a cluster of
-  ``fold`` CTAs a pair, the Hopper counterpart of the TPU kernel's sublane
-  fold for 1-4 long pairs.
-"""
+  sa_tiled_fill), replacing the TPU's _tile_kernel;
+* ``tiled_fold_fill_cuda`` -- kernel #5 (sa_tiled_fold_fill), replacing the
+  TPU's _folded_kernel for 1-4 pairs.
 
+Both CUDA kernels are one strip pipeline.  On the TPU a tile is a (rows,
+lanes) block swept by one core, and the folded kernel folds a pair over
+sublanes to fill the vector unit.  On the H100 what bounds the fill is the
+integer work a cell and how many of the 132 SMs a pair keeps busy: a pair's
+db axis is cut into strips of W lanes (``STRIP_LANES``), one CTA a strip,
+and strip s + 1 runs about W + CHUNK_ROWS steps behind strip s, reading
+its carried column from a ring slot in global memory as strip s publishes
+it, CHUNK_ROWS rows at a time (a release store of the row count, an acquire
+wait by the reader).  The (pair, strip) items go out by a global ticket,
+strip-major (``strip_schedule``), over a persistent grid of co-resident
+CTAs (``strip_plan``), so every wait is on an earlier ticket held by a
+running CTA; a wait that stalls past the kernels' spin limit makes the
+wrapper raise.  The cell uses Hopper's DPX instructions.  The two entries
+differ only in their CTAs: #4 8 lanes a thread, #5 4.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -48,8 +61,16 @@ from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops.nw_affine import _bit, _roll
 from sequencealigning_tpu_torch.ops.step_graph import run_steps
 
-# The widest CTA the CUDA kernels take (512 threads x 8 lanes).
-CUDA_TILE_LANES = 4096
+# The CUDA kernels' default strip widths (lanes): kernel #4 at 8 lanes a
+# thread, kernel #5 at 4; a CTA takes at most 512 threads.
+STRIP_LANES = {"sa_tiled_fill": 1024, "sa_tiled_fold_fill": 512}
+# Rows of the carried column a strip stages (and publishes) at a time.
+CHUNK_ROWS = 128
+# The ring slots' bytes at most (8 bytes a row a slot): fewer CTAs a pair
+# past it.
+RING_BYTES = 4 << 30
+# SM bitmap words a pair in the launch's counters (256 SMs).
+_SM_WORDS = 8
 
 # The plain fills round a tile's steps up to this, as the lax layout does.
 _CHUNK = 128
@@ -459,84 +480,159 @@ def _check_fill_args(query, db, n1v, n2v):
             raise ValueError(f"{name} reaches outside its {width} columns")
 
 
+def strip_schedule(n2s, strip_lanes: int):
+    """The CUDA kernels' work items for db lengths n2s and strips of
+    strip_lanes lanes: (items, strips) -- items (n, 3) int32 rows (pair b,
+    strip s, gs) in ticket order, strip-major then by pair, so a strip's
+    producer (strip s - 1) and its ring slot's last reader hold earlier
+    tickets; gs indexes the strip counters, a pair's strips consecutive.
+    strips: (B,) strips a pair (0 for n2 = 0: the host's closed form)."""
+    n2s = np.asarray(n2s, np.int64)
+    strips = np.where(n2s > 0, -(-n2s // strip_lanes), 0)
+    base = np.cumsum(strips) - strips
+    b = np.repeat(np.arange(len(strips)), strips)
+    gs = np.arange(int(strips.sum()))
+    s = gs - base[b]
+    order = np.lexsort((b, s))
+    items = np.stack([b, s, gs], 1)[order].astype(np.int32)
+    return np.ascontiguousarray(items), strips
+
+
+def strip_plan(strips, n1_max: int, L1: int, strip_lanes: int,
+               chunk_rows: int, resident: int, ctas_per_pair: int = 0):
+    """(ctas_per_pair, ring, ctas) of a launch: CTAs a pair in flight (by
+    default the resident CTAs shared over the pairs with strips, at most a
+    pair's strips, at most the strips its rows keep busy -- strip s + 1
+    trails strip s by W + R steps -- and at most what RING_BYTES of ring
+    slots allow), ring slots a pair (CTAs a pair + 1, at most the strips,
+    at least 2) and the persistent grid (at most the resident CTAs)."""
+    active = int((strips > 0).sum())
+    most = int(strips.max())
+    W, R = strip_lanes, chunk_rows
+    if not ctas_per_pair:
+        depth = -(-(n1_max + W) // (W + R)) + 1
+        fit = RING_BYTES // (len(strips) * 8 * (L1 + 1)) - 1
+        ctas_per_pair = max(1, min(most, depth, -(-resident // active), fit))
+    ring = max(2, min(ctas_per_pair + 1, most))
+    ctas = max(1, min(int(strips.sum()), resident, active * ctas_per_pair))
+    return ctas_per_pair, ring, ctas
+
+
+def _popcounts(words: np.ndarray) -> np.ndarray:
+    """Set bits of each row of uint32 words."""
+    return np.unpackbits(words.view(np.uint8), axis=-1).sum(-1)
+
+
 def _cuda_fill(entry: str, query, db, n1v, n2v, scheme, compat, wildcard,
-               widths, nctas: int):
-    """Launch a tiled fill entry (sa_tiled_fill or sa_tiled_fold_fill) with
-    the width arguments ``widths``; returns the (B, 3) finals."""
+               strip_lanes: int, chunk_rows: int):
+    """Launch a tiled fill entry (sa_tiled_fill or sa_tiled_fold_fill);
+    returns the (B, 3) finals and the launch's shape: strip width, chunk
+    rows, lanes a thread, strips, CTAs a pair, ring slots, grid CTAs,
+    resident CTAs, the SMs that ran strips (all pairs, and each pair)."""
     _check_fill_args(query, db, n1v, n2v)
+    fold = entry == "sa_tiled_fold_fill"
+    W = strip_lanes or min(STRIP_LANES[entry],
+                           _round_up(max(db.shape[1], 1), 128))
+    lpt = 8 if not fold and W % 256 == 0 else 4
+    if W % 128 or not 0 < W <= 512 * lpt:
+        raise ValueError(f"strip width {W} is out of {entry}'s range (a "
+                         f"multiple of 128, at most {512 * lpt})")
+    R = chunk_rows or CHUNK_ROWS
+    if not 2 <= R <= CHUNK_ROWS or R & (R - 1):
+        raise ValueError(f"chunk rows {R}: not a power of two in 2.."
+                         f"{CHUNK_ROWS}")
     ins = (query, db, n1v, n2v)
     if not all(t.is_cuda for t in ins):
         raise ValueError(f"{entry} needs CUDA tensors")
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("tiled fill inputs must be contiguous")
-    lib = csrc.kernels()
     B, L1 = query.shape
     dev = query.device
     finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
-    bnd = torch.empty((B, 3, L1 + 1), dtype=torch.int32, device=dev)
+    n1s, n2s = n1v.cpu().numpy(), n2v.cpu().numpy()
+    items, strips = strip_schedule(n2s, W)
+    shape = dict(strip_lanes=W, chunk_rows=R, lanes_per_thread=lpt,
+                 strips=len(items), ctas_per_pair=0, ring=0, ctas=0,
+                 resident=0, sms=0, sms_per_pair=[0] * B)
+    if len(items) == 0:
+        return _empty_db_corners(finals, n1v, n2v, scheme, compat), shape
+    lib = csrc.kernels()
+    resident = lib.sa_tiled_resident_ctas(W, int(fold), int(compat),
+                                          int(wildcard))
+    if resident <= 0:
+        raise RuntimeError(f"{entry}: no CTA of {W} lanes fits on the card")
+    cpp, ring, ctas = strip_plan(strips, int(n1s.max()), L1, W, R, resident)
+    col = torch.empty(B * ring * 2 * (L1 + 1), dtype=torch.int32, device=dev)
+    head = 2 + _SM_WORDS * B
+    ctr = torch.zeros(head + 2 * len(items), dtype=torch.int32, device=dev)
+    items_d = torch.from_numpy(items).to(dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, entry)(
-            *(t.data_ptr() for t in ins), finals.data_ptr(), bnd.data_ptr(),
-            B, L1, db.shape[1], scheme.match_, scheme.mismatch,
+            *(t.data_ptr() for t in ins), finals.data_ptr(), col.data_ptr(),
+            ctr.data_ptr(), items_d.data_ptr(), B, L1, db.shape[1],
+            len(items), len(items), scheme.match_, scheme.mismatch,
             scheme.gap_open, scheme.gap_extend, int(compat), int(wildcard),
-            *widths, stream,
+            W, R, ring, ctas, stream,
         )
     if rc != 0:
-        raise csrc.launch_error(entry, rc, nctas)
-    return _empty_db_corners(finals, n1v, n2v, scheme, compat)
-
-
-def _cuda_width(lanes: int, cta_lanes: int) -> int:
-    """A CTA width for `lanes` db lanes: cta_lanes if forced, else the
-    lanes rounded to 128, at most CUDA_TILE_LANES."""
-    if cta_lanes:
-        if cta_lanes % 128 or not 0 < cta_lanes <= CUDA_TILE_LANES:
-            raise ValueError(f"CTA width {cta_lanes} is out of the tiled "
-                             "kernels' range (a multiple of 128, at most "
-                             f"{CUDA_TILE_LANES})")
-        return cta_lanes
-    return min(CUDA_TILE_LANES, _round_up(max(lanes, 1), 128))
+        raise csrc.launch_error(entry, rc)
+    got = ctr[:head].cpu().numpy()
+    if got[1] != 0:
+        raise RuntimeError(
+            f"{entry}: a strip waited on its neighbour past the spin limit "
+            f"(status {int(got[1])}); its finals are incomplete")
+    masks = got[2:].view(np.uint32).reshape(B, _SM_WORDS)
+    shape.update(ctas_per_pair=cpp, ring=ring, ctas=ctas, resident=resident,
+                 sms=int(_popcounts(np.bitwise_or.reduce(masks, 0))),
+                 sms_per_pair=[int(n) for n in _popcounts(masks)])
+    return _empty_db_corners(finals, n1v, n2v, scheme, compat), shape
 
 
 def tiled_fill_cuda(query, db, n1v, n2v, scheme: ScoringScheme,
-                    compat: bool, wildcard: bool,
-                    cta_lanes: int = 0) -> torch.Tensor:
+                    compat: bool, wildcard: bool, strip_lanes: int = 0,
+                    chunk_rows: int = 0) -> torch.Tensor:
     """Kernel #4 (csrc/nw_affine_tiled.cu, sa_tiled_fill) on CUDA tensors:
-    same arguments and finals as tiled_fill_torch, one CTA a pair sweeping
-    tiles of cta_lanes lanes (by default the db width rounded to 128, at
-    most 4096).  Raises on a CPU tensor, a non-contiguous input, a width out
-    of range or a failed launch."""
-    W = _cuda_width(db.shape[1], cta_lanes)
-    out = _cuda_fill("sa_tiled_fill", query, db, n1v, n2v, scheme, compat,
-                     wildcard, (W,), 1)
-    tiled_fill_cuda.launches += 1
+    same arguments and finals as tiled_fill_torch.  Each pair's db axis in
+    strips of strip_lanes lanes (default 1024, 8 lanes a thread where the
+    width allows), pipelined over the card's CTAs (strip_plan's) with the
+    carried column handed over every chunk_rows rows (default 128).  The
+    launch's shape is left in ``tiled_fill_cuda.last_launch``.  Raises on a CPU
+    tensor, a non-contiguous input, a width out of range, a failed launch
+    or a stalled wait."""
+    out, tiled_fill_cuda.last_launch = _cuda_fill(
+        "sa_tiled_fill", query, db, n1v, n2v, scheme, compat, wildcard,
+        strip_lanes, chunk_rows)
+    if tiled_fill_cuda.last_launch["ctas"]:
+        tiled_fill_cuda.launches += 1
     return out
 
 
 tiled_fill_cuda.launches = 0
+tiled_fill_cuda.last_launch = None
 
 
 def tiled_fold_fill_cuda(query, db, n1v, n2v, scheme: ScoringScheme,
-                         compat: bool, wildcard: bool,
-                         cta_lanes: int = 0) -> torch.Tensor:
-    """Kernel #5 (sa_tiled_fold_fill) on CUDA tensors for 1-4 pairs: each
-    pair on a cluster of fold = 8 // ceil_pow2(B) CTAs of cta_lanes lanes
-    (by default ceil(L2 / fold) rounded to 128, at most 4096), a tile of
-    fold x cta_lanes lanes.  The TPU layout's pad groups get no cluster.
-    Same finals as tiled_fold_fill_torch."""
+                         compat: bool, wildcard: bool, strip_lanes: int = 0,
+                         chunk_rows: int = 0) -> torch.Tensor:
+    """Kernel #5 (sa_tiled_fold_fill) on CUDA tensors for 1-4 pairs: the
+    strip pipeline of tiled_fill_cuda at 4 lanes a thread (strips of 512
+    lanes by default, at most 2048), so the few pairs' rows spread over
+    twice the threads.  Same finals as tiled_fold_fill_torch; the launch's
+    shape in ``tiled_fold_fill_cuda.last_launch``."""
     B = query.shape[0]
     if not 1 <= B <= 4:
         raise ValueError(f"the folded fill takes 1-4 pairs, not {B}")
-    _G, fold = _fold_groups(B)
-    W = _cuda_width(-(-db.shape[1] // fold), cta_lanes)
-    out = _cuda_fill("sa_tiled_fold_fill", query, db, n1v, n2v, scheme,
-                     compat, wildcard, (fold, W), fold)
-    tiled_fold_fill_cuda.launches += 1
+    out, tiled_fold_fill_cuda.last_launch = _cuda_fill(
+        "sa_tiled_fold_fill", query, db, n1v, n2v, scheme, compat, wildcard,
+        strip_lanes, chunk_rows)
+    if tiled_fold_fill_cuda.last_launch["ctas"]:
+        tiled_fold_fill_cuda.launches += 1
     return out
 
 
 tiled_fold_fill_cuda.launches = 0
+tiled_fold_fill_cuda.last_launch = None
 
 
 def _on_device(tensor, cuda_fn, torch_fn):

@@ -5,7 +5,8 @@ fast4 walk, the per-pair and streamed modes fills and the modes walk, the
 three fills with their rows split over 2-4 forced 128- or 256-lane CTAs
 (the cluster split's geometry, cluster_split.cuh), the banded fill (also
 split over forced 128/256-lane CTAs) and the banded walk, the tiled
-fill's tile sweep with its carried boundary column (kernels #4 and #5),
+fills' strip schedule run serially in ticket order with the carried column
+in ring slots (kernels #4 and #5) and their DPX helpers,
 the banded row sweep (kernel #8) with its scan carried across forced
 narrow chunks, and the linear fill in one block and split over 2 CTAs;
 plus the kernel wrappers' refusal of CPU tensors."""
@@ -537,15 +538,15 @@ def test_banded_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 
-def _tiled_batch(seed, n=10, hi=256, alphabet=b"ACGTN"):
-    """A ragged batch up to hi bp, every other db a mutated copy of its
-    query, with an empty db and an empty query."""
+def _tiled_batch(seed, n=10, hi=256, alphabet=b"ACGTN", hi2=None):
+    """A ragged batch up to hi bp (dbs up to hi2, default hi), every other
+    db a mutated copy of its query, with an empty db and an empty query."""
     rng = np.random.default_rng(seed)
     alpha = np.frombuffer(alphabet, np.uint8)
     pairs = []
     for i in range(n):
         s1 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
-        s2 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(1, (hi2 or hi) + 1)))
         if i % 2:
             s2 = np.resize(s1, len(s2))
             s2[rng.integers(len(s2))] = rng.choice(alpha)
@@ -554,49 +555,142 @@ def _tiled_batch(seed, n=10, hi=256, alphabet=b"ACGTN"):
     return to_device(pack_batch(pairs), "cpu")
 
 
-def _host_tiled(host, tb, scheme, compat, wildcard, fold, cta_lanes):
+def _host_tiled(host, tb, scheme, compat, wildcard, strip_lanes, chunk_rows,
+                ctas_per_pair, items=None):
+    """hc_tiled_fill over the wrapper's schedule and plan (its ring slots
+    from ctas_per_pair): (rc, finals)."""
     B, L1 = tb.query.shape
+    sched, strips = tiled.strip_schedule(tb.db_len.numpy(), strip_lanes)
+    items = sched if items is None else items
+    _cpp, ring, _ctas = tiled.strip_plan(
+        strips, int(tb.query_len.max()), L1, strip_lanes, chunk_rows, 132,
+        ctas_per_pair)
     finals = torch.zeros((B, 3), dtype=torch.int32)
-    bnd = torch.empty((B, 3, L1 + 1), dtype=torch.int32)
+    col = torch.full((B * ring * 2 * (L1 + 1),), 12345, dtype=torch.int32)
+    ctr = torch.zeros(2 + 8 * B + 2 * len(items), dtype=torch.int32)
+    items_t = torch.from_numpy(np.ascontiguousarray(items, np.int32))
     rc = host.hc_tiled_fill(
-        *(t.data_ptr() for t in tb), finals.data_ptr(), bnd.data_ptr(), B,
-        L1, tb.db.shape[1], scheme.match_, scheme.mismatch, scheme.gap_open,
-        scheme.gap_extend, int(compat), int(wildcard), fold, cta_lanes,
+        *(t.data_ptr() for t in tb), finals.data_ptr(), col.data_ptr(),
+        ctr.data_ptr(), items_t.data_ptr(), B, L1, tb.db.shape[1],
+        len(items), len(items), scheme.match_, scheme.mismatch,
+        scheme.gap_open, scheme.gap_extend, int(compat), int(wildcard),
+        strip_lanes, chunk_rows, ring,
     )
-    assert rc == 0
-    return tiled._empty_db_corners(finals, tb.query_len, tb.db_len, scheme,
-                                   compat)
+    return rc, tiled._empty_db_corners(finals, tb.query_len, tb.db_len,
+                                       scheme, compat)
 
 
-@pytest.mark.parametrize("fold,cta_lanes", [
-    (1, 128), (1, 256), (2, 128), (4, 128), (8, 128),
-])
+_TILED_WANT = {}
+
+
+def _tiled_want(compat, wildcard):
+    """The batch of the strip tests (queries up to 200 bp, dbs up to 700,
+    so strips of 128 lanes number up to 6 and reuse a ring of 2 or 4
+    slots) and its plain finals."""
+    if (compat, wildcard) not in _TILED_WANT:
+        scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7,
+                               gap_extend=-2) if wildcard else ScoringScheme()
+        tb = _tiled_batch(71 + compat + 2 * wildcard, n=8, hi=200, hi2=700)
+        want = tiled.tiled_fill_torch(*tb, scheme, compat, wildcard,
+                                      tile_lanes=256)
+        _TILED_WANT[compat, wildcard] = (scheme, tb, want)
+    return _TILED_WANT[compat, wildcard]
+
+
+@pytest.mark.parametrize("ctas_per_pair", [1, 3, 16])
+@pytest.mark.parametrize("chunk_rows", [8, 128])
+@pytest.mark.parametrize("strip_lanes", [128, 256])
 @pytest.mark.parametrize("compat,wildcard", [(True, False), (False, True)])
-def test_host_tiled_fill_matches_plain(host, compat, wildcard, fold,
-                                       cta_lanes):
-    """The kernels' tile sweep (tile_cell, the in-place carried boundary
-    column, the 128-step staging of lane 0's rows, the corner capture) over
-    tiles of fold x cta_lanes lanes -- one CTA (kernel #4) or a cluster of
-    2-8 (kernel #5) -- equals the plain fill's finals."""
-    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2) \
-        if wildcard else ScoringScheme()
-    tb = _tiled_batch(71 + compat + fold)
-    want = tiled.tiled_fill_torch(*tb, scheme, compat, wildcard,
-                                  tile_lanes=128)
-    got = _host_tiled(host, tb, scheme, compat, wildcard, fold, cta_lanes)
+def test_host_tiled_fill_matches_plain(host, compat, wildcard, strip_lanes,
+                                       chunk_rows, ctas_per_pair):
+    """The kernels' strip schedule run serially in ticket order (tile_cell,
+    the carried column in ring slots of ctas_per_pair + 1 a pair, staged
+    and published chunk_rows rows at a time, the counters every wait reads,
+    the corner capture) equals the plain fill's finals on a ragged batch
+    with n1 below the chunk, n2 below the strip, n2 = 0 and an empty
+    query."""
+    scheme, tb, want = _tiled_want(compat, wildcard)
+    rc, got = _host_tiled(host, tb, scheme, compat, wildcard, strip_lanes,
+                          chunk_rows, ctas_per_pair)
+    assert rc == 0
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_host_tiled_fill_refuses_bad_widths(host):
     tb = _tiled_batch(3, n=4, hi=40)
     B, L1 = tb.query.shape
+    items, _ = tiled.strip_schedule(tb.db_len.numpy(), 128)
+    items_t = torch.from_numpy(items)
     finals = torch.zeros((B, 3), dtype=torch.int32)
-    bnd = torch.empty((B, 3, L1 + 1), dtype=torch.int32)
-    for fold, cta in ((1, 100), (1, 8192), (9, 128), (0, 128)):
+    col = torch.empty((B * 4 * 2 * (L1 + 1),), dtype=torch.int32)
+    ctr = torch.zeros(2 + 8 * B + 2 * len(items), dtype=torch.int32)
+    for lanes, rows, ring in ((100, 8, 2), (8192, 8, 2), (0, 8, 2),
+                              (128, 0, 2), (128, 1, 2), (128, 100, 2),
+                              (128, 256, 2), (128, 8, 1)):
         rc = host.hc_tiled_fill(
-            *(t.data_ptr() for t in tb), finals.data_ptr(), bnd.data_ptr(),
-            B, L1, tb.db.shape[1], 5, -4, -8, -6, 1, 0, fold, cta)
-        assert rc == -1, (fold, cta)
+            *(t.data_ptr() for t in tb), finals.data_ptr(), col.data_ptr(),
+            ctr.data_ptr(), items_t.data_ptr(), B, L1, tb.db.shape[1],
+            len(items), len(items), 5, -4, -8, -6, 1, 0, lanes, rows, ring)
+        assert rc == -1, (lanes, rows, ring)
+
+
+def test_host_tiled_fill_refuses_an_out_of_order_schedule(host):
+    """A strip whose producer holds a later ticket would wait on a CTA that
+    may not run: the serial schedule reports the unmet wait (-4)."""
+    scheme, tb, _ = _tiled_want(True, False)
+    items, _ = tiled.strip_schedule(tb.db_len.numpy(), 128)
+    rc, _ = _host_tiled(host, tb, scheme, True, False, 128, 8, 1,
+                        items=items[::-1])
+    assert rc == -4
+
+
+def test_strip_schedule_and_plan():
+    """Items are strip-major with each pair's strips consecutive in the
+    counters; every strip's producer and its ring slot's last reader come
+    earlier; the plan shares the resident CTAs over the pairs and keeps at
+    least two ring slots."""
+    n2s = np.array([700, 0, 129, 128, 1, 3000])
+    items, strips = tiled.strip_schedule(n2s, 128)
+    np.testing.assert_array_equal(strips, [6, 0, 2, 1, 1, 24])
+    assert items.dtype == np.int32 and items.shape == (34, 3)
+    assert (np.diff(items[:, 1]) >= 0).all()
+    base = np.cumsum(strips) - strips
+    np.testing.assert_array_equal(items[:, 2], base[items[:, 0]]
+                                  + items[:, 1])
+    assert sorted(items[:, 2]) == list(range(34))
+    ticket = {(int(b), int(s)): t for t, (b, s, _) in enumerate(items)}
+    for (b, s), t in ticket.items():
+        if s:
+            assert ticket[b, s - 1] < t
+    cpp, ring, ctas = tiled.strip_plan(strips, 200, 256, 128, 8, 10)
+    assert (cpp, ring, ctas) == (2, 3, 10)
+    assert tiled.strip_plan(strips, 200, 256, 128, 8, 1000) == (4, 5, 20)
+    assert tiled.strip_plan(strips, 200, 256, 128, 8, 1000, 1)[1] == 2
+    assert tiled.strip_plan(np.array([1, 1]), 5, 8, 128, 8, 99)[1:] == (2, 2)
+
+
+def test_host_tile_dpx_matches_plain_max(host):
+    """The cell's DPX helpers (add_max: max(a + b, c), one VIADDMAX on the
+    card; max3, one VIMNMX3) equal plain int32 maxima on their host
+    form, on random scores and on -inf (config.NEG_INF) and large ones."""
+    rng = np.random.default_rng(5)
+    edge = np.array([-32768, -32768 - 8 - 6, -(1 << 24), -1, 0, 1,
+                     (1 << 30) - 1, -(1 << 30)], np.int32)
+    n = 4096
+    a = rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32)
+    b = rng.integers(-40, 40, n).astype(np.int32)
+    c = rng.integers(-(1 << 20), 1 << 20, n).astype(np.int32)
+    k = len(edge)
+    a[:k * k] = np.repeat(edge, k)
+    c[:k * k] = np.tile(edge, k)
+    b[:k * k] = np.tile([-14, -8, -6, 0, 3, 5, -4, 1], k)
+    out = np.zeros(2 * n, np.int32)
+    host.hc_tile_dpx(a.ctypes.data, b.ctypes.data, c.ctypes.data,
+                     out.ctypes.data, n)
+    want_am = np.maximum(a.astype(np.int64) + b, c)
+    want_m3 = np.maximum(np.maximum(a, b), c)
+    np.testing.assert_array_equal(out[:n], want_am)
+    np.testing.assert_array_equal(out[n:], want_m3)
 
 
 # ---------------------------------------------------------------------------

@@ -235,8 +235,8 @@ def test_tiled_wrappers_refuse_cpu_tensors_and_bad_widths():
     for fn in (port.tiled_fill_cuda, port.tiled_fold_fill_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(*tb, ScoringScheme(), True, False)
-        with pytest.raises(ValueError, match="CTA width"):
-            fn(*tb, ScoringScheme(), True, False, cta_lanes=100)
+        with pytest.raises(ValueError, match="strip width"):
+            fn(*tb, ScoringScheme(), True, False, strip_lanes=100)
     with pytest.raises(ValueError, match="1-4 pairs"):
         port.tiled_fold_fill_cuda(
             *to_device(pack_batch(_pairs(4, [(5, 5)] * 5)), "cpu"),
