@@ -39,12 +39,16 @@ in the phases below and exits non-zero at the first failure:
    per-pair modes kernel's path, -a banded, a-star with no -a, nw-linear
    and nw-linear -m local) and serve (first-only, textbook local, banded)
    on the golden corpus with --device cuda;
-10. banded fill kernel vs its plain version at BASELINE config 4's shape
-   (1024 pairs x 5115 bp, band 128), fast4 and full: finals and the whole
-   dirs tensor, also split into 2 CTAs of 128 lanes and forced into the
-   wide route (one launch a wavefront); then small ragged and skewed
-   batches over compat/textbook x wildcard x dirs and the std model, and
-   bands of 1400-4200 (4, 8 and 16 lanes a thread);
+10. banded fill kernel (one tiled route: each pair's band in strips of
+   lanes x blocks of iterations, handed out over the card by a ticket) vs
+   its plain version on small ragged and skewed batches over
+   compat/textbook x wildcard x dirs and the std model, and bands of
+   1400-4200 in the tile rule's strips and in forced strips of 64 lanes x
+   blocks of 8 iterations; a schedule that cannot be met (tickets
+   reversed, one CTA) must raise, not hang; then at BASELINE config 4's
+   shape (1024 pairs x 5115 bp, band 128; one tile a pair), fast4 and
+   full: finals and the whole dirs tensor, also forced into 2 strips of
+   128 lanes and 4 of 64 lanes in blocks of 8 iterations;
 11. banded walk kernel vs its plain version on the 1024 pairs (packed ops,
    end cells, op counts) and vs the host walker on sampled pairs;
 12. banded main path: BandedAligner first-only over the 1024 x 5115 bp
@@ -64,18 +68,22 @@ in the phases below and exits non-zero at the first failure:
    version there); the handoff stress (strips of 128 lanes, chunks of 8
    rows, 64 ragged pairs of 1-6 kb) vs the plain fill; the residency
    overflow (512 pairs of 4-8 kb, more strips than resident CTAs) vs kernel
-   #7's score-only fill; the banded fill split naturally over a cluster
-   (~8.6k lanes: 300 bp queries against ~17 kb dbs) vs its plain version
-   (phase 10 also runs config 4's shape forced into 2 CTAs of 128 lanes);
+   #7's score-only fill; the banded fill at ~8.6k lanes (300 bp queries
+   against ~17 kb dbs; the tile rule's strips) vs its plain version;
 15. the long-pair path: GotohAligner on cuda, first-only and co-optimal,
    over batch A (8 pairs of 100 kb, one with a 300 bp insertion and a 300
    bp deletion: kernel #4, band doubling to 512) and batch B (2 pairs, one
-   whose db lacks 20 kb: kernel #5, the banded fill split over 3 CTAs at
-   L = 10,240), both kernels' finals there held against a plain row sweep
+   whose db lacks 20 kb: kernel #5, the banded fill at L = 10,240), both
+   kernels' finals there held against a plain row sweep
    (gotoh_finals_rows_torch), then 5 more launches of each, every one
    equal to the first (the race check), with their CTAs a pair, strips,
    GCUPS, share of the bound and SMs used (batch A on at least 100 SMs,
-   each of batch B's pairs on more than 8); every pair aligned, consuming
+   each of batch B's pairs on more than 8); the banded fill at batch B's
+   band 128 held against its plain version (finals and the whole dirs
+   tensor, graph-replayed; that check's seconds), 5 more launches each
+   equal to the first, its tiles, GCUPS, share of the bound and each
+   pair's SMs (at least 32), and each of batch A's band rounds (128, 256,
+   512) timed on its own; every pair aligned, consuming
    its sequences and rescoring to the tiled exact score, the rounds each
    pair took recorded; then one ~6 kb pair that escapes the (lowered) band
    cap and is aligned by Myers-Miller on the card;
@@ -92,8 +100,9 @@ in the phases below and exits non-zero at the first failure:
    equal to align_batch's (pairs/s; the card's busy share under
    torch.profiler over 4), and a run failing in batch 3's drain resumed
    from its checkpoint, re-delivering batches 3-7 only;
-18. the banded fill past a cluster's 131072 lanes (the wide route) at bands
-   131200 and 300000 on 4 pairs of 1-2 kb: finals and the whole dirs
+18. the banded fill past 131072 lanes at bands 131200 and 300000 on 4
+   pairs of 1-2 kb (more tiles a block than resident CTAs: the residency
+   overflow): finals and the whole dirs
    tensor against the plain version, scores against kernel #4's exact
    scores (the band covers the matrix); then BandedAligner first-only at
    band 131200 on the card;
@@ -122,7 +131,8 @@ before a path runs and read just after; comparisons with plain versions
 are not counted.  The second-to-last line is a JSON object with, for each
 kernel, its launches (in total and by path), its largest error against
 the plain version, its kernel and plain times with the shape they were
-taken at, its bound (the least time the card could take: the larger of
+taken at (kernel #3 also at each shape of its paths, with its tiles), its
+bound (the least time the card could take: the larger of
 its bytes over 3.35 TB/s and its integer operations over 16.75 Tops/s)
 and library_ms (null: no single PyTorch call computes these functions);
 the last line is {"ok": true, "device": {...}}.  --out DIR writes the
@@ -261,10 +271,6 @@ KERNELS = {
         "nw", "gotoh_fill_cuda",
         "sequencealigning_tpu_torch/csrc/nw_affine.cu",
         "sequencealigning_tpu/ops/nw_affine.py:223"),
-    "nw_banded_diag_wide_fill": (
-        "banded", "banded_wide_fill_cuda",
-        "sequencealigning_tpu_torch/csrc/nw_banded_diag.cu",
-        "sequencealigning_tpu/ops/nw_banded_diag.py:350"),
     "nw_banded_fill": (
         "row", "banded_row_fill_cuda",
         "sequencealigning_tpu_torch/csrc/nw_banded.cu",
@@ -1101,8 +1107,10 @@ def phase_banded_fill(torch, port, pairs):
                   f"{model}, compat={compat}, wildcard={wildcard}, "
                   f"dirs={dirs}): err {e}")
             err, runs = max(err, e), runs + 1
-    # Wide bands: 4, 8 and 16 lanes a thread (the main shape takes 2).
-    lpts = []
+    # Wide bands: 8 pairs cut into strips of 128-448 lanes in blocks of 32
+    # iterations (the tile rule's), and forced strips of 64 lanes in blocks
+    # of 8 (the last block shorter).
+    shapes = []
     for band, cases in ((1400, (("ref", True, True, "fast4"),)),
                         (3000, (("ref", True, True, "fast4"),)),
                         (4200, (("ref", True, True, "fast4"),
@@ -1110,21 +1118,26 @@ def phase_banded_fill(torch, port, pairs):
         pairs_r = skewed_pairs(rng, 8, 200, 700, 200, 700)
         tb = to_device(pack_batch(pairs_r, batch_size=8), "cuda")
         plan, ins = banded.band_inputs(*tb, band)
-        lpts.append(port["csrc"].kernels().sa_banded_lanes_per_thread(plan.L))
         for model, compat, wildcard, dirs in cases:
             a = (plan, ScoringScheme(), compat, wildcard, dirs, model)
-            fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
             fp, dp = banded.banded_diag_fill_torch(*ins, *a)
-            e = int((fk - fp).abs().max())
-            e = max(e, 0 if torch.equal(dk.view(torch.int32),
-                                        dp.view(torch.int32)) else 1)
-            check(e == 0, f"banded fill kernel != plain (band {band}, "
-                  f"L={plan.L}, compat={compat}, dirs={dirs}): err {e}")
-            err, runs = max(err, e), runs + 1
-    check(lpts == [4, 8, 16], f"wide bands took {lpts} lanes a thread")
-    log(f"[10 banded fill] {runs} ragged/skewed configurations (bands 8-4200,"
-        f" {', '.join(map(str, [2] + lpts))} lanes a thread) equal on finals "
-        "and the whole dirs tensor")
+            for kw in ({}, dict(strip_lanes=64, block_iters=8)):
+                fk, dk = banded.banded_diag_fill_cuda(*ins, *a, **kw)
+                e = int((fk - fp).abs().max())
+                e = max(e, 0 if torch.equal(dk.view(torch.int32),
+                                            dp.view(torch.int32)) else 1)
+                check(e == 0, f"banded fill kernel != plain (band {band}, "
+                      f"L={plan.L}, compat={compat}, dirs={dirs}, {kw}): "
+                      f"err {e}")
+                err, runs = max(err, e), runs + 1
+                shape = banded.banded_diag_fill_cuda.last_launch
+                shapes.append(f"L={plan.L}: {shape['strips']} x "
+                              f"{shape['strip_lanes']} lanes, T "
+                              f"{shape['block_iters']}")
+    log(f"[10 banded fill] {runs} ragged/skewed configurations (bands 8-4200;"
+        f" {'; '.join(shapes[::2])}; forced {shapes[1]}, ...) equal on "
+        "finals and the whole dirs tensor")
+    out_stall = stall_check(torch, port)
 
     batch = pack_batch(pairs, batch_size=len(pairs))
     tb = to_device(batch, "cuda")
@@ -1145,44 +1158,36 @@ def phase_banded_fill(torch, port, pairs):
         b_ms, b_by = bound(nbytes(*ins, fk, dk),
                            band_cells * OPS_PER_CELL[dirs])
         check(e == 0, f"banded fill kernel != plain at config 4 ({dirs})")
+        shape4 = dict(banded.banded_diag_fill_cuda.last_launch)
         if dirs == "fast4":
-            # The same band forced into a cluster of 2 CTAs of 128 lanes,
-            # against the plain dirs just computed.
-            split = port["csrc"].kernels().sa_fill_ctas(plan.L, 128)
-            split_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(
-                *ins, *a, cta_lanes=128))
-            fs, ds = banded.banded_diag_fill_cuda(*ins, *a, cta_lanes=128)
-            split_err = max(int((fs - fp).abs().max()), 0 if torch.equal(
-                ds.view(torch.int32), dp.view(torch.int32)) else 1)
-            del fs, ds
-            check(split == 2 and split_err == 0,
-                  f"banded fill split into {split} CTAs != plain at config "
-                  f"4: err {split_err}")
-            log(f"[10 banded fill] config 4's band (L={plan.L}) split into "
-                f"{split} CTAs of 128 lanes: {split_ms:.3f} ms; finals and "
-                "the whole dirs tensor equal the plain version")
-            out.update(bfill_split2_ms=split_ms, bfill_split2_err=split_err)
-            # And forced into the wide route (one launch a wavefront).
-            wide_ms = cuda_ms(torch, lambda: banded.banded_wide_fill_cuda(
-                *ins, *a), repeats=1)
-            fw, dw = banded.banded_wide_fill_cuda(*ins, *a)
-            wide_err = max(int((fw - fp).abs().max()), 0 if torch.equal(
-                dw.view(torch.int32), dp.view(torch.int32)) else 1)
-            del fw, dw
-            check(wide_err == 0, "banded fill's wide route != plain at "
-                  f"config 4: err {wide_err}")
-            per_wave = wide_ms / (2 * plan.n_need)
-            log(f"[10 banded fill] config 4's band forced into the wide "
-                f"route: {wide_ms:.3f} ms ({1e3 * per_wave:.2f} us a "
-                f"wavefront, against {1e3 * split_ms / (2 * plan.n_need):.2f}"
-                " us split over 2 CTAs); finals and the whole dirs tensor "
-                "equal the plain version")
-            out.update(bfill_wide4_ms=wide_ms, bfill_wide4_err=wide_err,
-                       bfill_wide4_us_per_wavefront=1e3 * per_wave)
+            # The same band forced into narrow strips: 2 strips of 128
+            # lanes in blocks of 32 iterations, and 4 of 64 lanes in blocks
+            # of 8, against the plain dirs just computed.
+            for tag, kw in (("strips128", dict(strip_lanes=128)),
+                            ("strips64", dict(strip_lanes=64,
+                                              block_iters=8))):
+                t_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(
+                    *ins, *a, **kw), repeats=1)
+                fs, ds = banded.banded_diag_fill_cuda(*ins, *a, **kw)
+                shape = banded.banded_diag_fill_cuda.last_launch
+                t_err = max(int((fs - fp).abs().max()), 0 if torch.equal(
+                    ds.view(torch.int32), dp.view(torch.int32)) else 1)
+                del fs, ds
+                check(t_err == 0, f"banded fill in forced tiles {kw} != "
+                      f"plain at config 4: err {t_err}")
+                log(f"[10 banded fill] config 4's band (L={plan.L}) forced "
+                    f"into {shape['strips']} strips of "
+                    f"{shape['strip_lanes']} lanes x {shape['rows']} blocks "
+                    f"of {shape['block_iters']} iterations "
+                    f"({shape['tiles']} tiles): {t_ms:.3f} ms; finals and "
+                    "the whole dirs tensor equal the plain version")
+                out.update({f"bfill_{tag}_ms": t_ms,
+                            f"bfill_{tag}_err": t_err})
         del fp, dp
         log(f"[10 banded fill] {len(pairs)} x {LEN_BAND} bp band {BAND} "
             f"{dirs} (L={plan.L}, k_lo_even={plan.k_lo_even}, "
-            f"n_iters={plan.n_need}, dirs {dk.numel() * 4 / 1e9:.2f} GB): "
+            f"n_iters={plan.n_need}, dirs {dk.numel() * 4 / 1e9:.2f} GB; "
+            f"{tile_line(shape4)}): "
             f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, band "
             f"{band_cells / ms / 1e6:.2f} GCUPS, lane-step "
             f"{lane_steps / ms / 1e6:.2f} GCUPS, bound {b_ms:.3f} ms "
@@ -1196,8 +1201,51 @@ def phase_banded_fill(torch, port, pairs):
         if dirs == "fast4":
             state = (fk, dk, plan)
         del dk
-    out.update(band_cells=band_cells, band_lane_steps=lane_steps)
+    out.update(band_cells=band_cells, band_lane_steps=lane_steps,
+               bfill_shape=shape4, **out_stall)
     return out, state
+
+
+def tile_line(shape):
+    """A banded launch's tiles (the wrapper's last_launch), for the log."""
+    return (f"{shape['strips']} strips of {shape['strip_lanes']} lanes a "
+            f"pair x {shape['rows']} blocks of {shape['block_iters']} "
+            f"iterations, halo {shape['halo']}, {shape['lanes_per_thread']} "
+            f"lanes a thread x {shape['threads']}, {shape['tiles']} tiles, "
+            f"grid {shape['ctas']} of {shape['resident']} resident, "
+            f"{shape['sms']} SMs")
+
+
+def stall_check(torch, port):
+    """A schedule whose waits cannot be met (the banded fill's tickets
+    reversed, one CTA) must raise, not hang: the seconds it took."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    banded = port["banded"]
+    lib = port["csrc"].kernels()
+    real = banded.band_tiles, lib.sa_banded_resident_ctas
+    tb = to_device(pack_batch([(b"ACGT" * 60, b"ACGT" * 61)]), "cuda")
+    plan, ins = banded.band_inputs(*tb, 200)
+    banded.band_tiles = lambda *a: real[0](*a)._replace(order=1)
+    lib.sa_banded_resident_ctas = lambda *a: 1
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        banded.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, False,
+                                     "fast4", strip_lanes=128, block_iters=8)
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        banded.band_tiles = real[0]
+        lib.sa_banded_resident_ctas = real[1]
+    secs = time.perf_counter() - t0
+    check(raised is not None and "spin limit" in raised,
+          f"an impossible banded schedule did not raise: {raised}")
+    log(f"[10 banded fill] an impossible schedule (tickets reversed, one CTA)"
+        f" raised after {secs:.2f} s: {raised}")
+    return {"bfill_stall_s": secs}
 
 
 def phase_banded_walk(torch, port, pairs, state):
@@ -1405,7 +1453,8 @@ def tiled_pairs(rng, n, lo, hi, alphabet=b"ACGTN"):
 def phase_tiled(torch, port):
     """Kernels #4 and #5 against their plain versions on small ragged
     batches, then at full width against the streamed global fill's finals;
-    the banded fill's natural cluster split against its plain version."""
+    the banded fill at ~8.6k lanes (the tile rule's strips) against its
+    plain version."""
     from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
     from sequencealigning_tpu_torch.io.encode import (
@@ -1517,20 +1566,21 @@ def phase_tiled(torch, port):
         pairs.append((ref[:300].tobytes(), ref.tobytes()))
     tb = to_device(pack_batch(pairs, batch_size=8), "cuda")
     plan, ins = banded.band_inputs(*tb, BAND)
-    ctas = kern.sa_fill_ctas(plan.L, 0)
-    check(plan.L > 8192 and ctas > 1, f"L={plan.L} did not split")
     a = (plan, ScoringScheme(), True, True, "fast4")
     fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+    shape = dict(banded.banded_diag_fill_cuda.last_launch)
+    check(plan.L > 8192 and shape["strips"] > 1, f"L={plan.L} did not split")
     fp, dp = banded.banded_diag_fill_torch(*ins, *a)
     e3 = max(int((fk - fp).abs().max()), 0 if torch.equal(
         dk.view(torch.int32), dp.view(torch.int32)) else 1)
-    check(e3 == 0, f"banded fill split over {ctas} CTAs != plain: err {e3}")
+    check(e3 == 0, f"banded fill in {shape['strips']} strips a pair != "
+          f"plain: err {e3}")
     nat_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a))
     del dk, dp
     torch.cuda.empty_cache()
-    log(f"[14 tiled] banded fill at L={plan.L} ({ctas} CTAs of 4096 lanes, "
-        f"8 x 300 bp against ~17 kb): {nat_ms:.3f} ms; finals and the whole "
-        "dirs tensor equal the plain version")
+    log(f"[14 tiled] banded fill at L={plan.L} (8 x 300 bp against ~17 kb; "
+        f"{tile_line(shape)}): {nat_ms:.3f} ms; finals and the whole dirs "
+        "tensor equal the plain version")
     out.update(tiled_small_err=err["nw_affine_tiled_fill"],
                tfold_small_err=err["nw_affine_tiled_fold_fill"],
                bfill_natural_split_ms=nat_ms, bfill_natural_split_err=e3,
@@ -1712,21 +1762,7 @@ def phase_long(torch, port, by_path):
             f"{cells / ms / 1e6:.1f} GCUPS, {100 * b_ms / ms:.1f}% of its "
             "bound")
     del full, plain
-    tb = to_device(pack_batch(B, batch_size=len(B)), "cuda")
-    plan, ins = banded.band_inputs(*tb, BAND)
-    a = (plan, ScoringScheme(), True, False, "fast4")
-    split_ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a),
-                       repeats=1)
-    band_cells = sum(len(y) for _, y in B) * (plan.k_hi_eff - plan.k_lo + 1)
-    b_ms, b_by = bound(nbytes(*ins, *banded.banded_diag_fill_cuda(*ins, *a)),
-                       band_cells * OPS_PER_CELL["fast4"])
-    del ins
-    torch.cuda.empty_cache()
-    log(f"[15 long] batch B's band 128: L={plan.L}, "
-        f"{kern.sa_fill_ctas(plan.L, 0)} CTAs, banded fill {split_ms:.1f} "
-        f"ms, bound {b_ms:.3f} ms ({b_by})")
-    meas.update(bfill_split_ms=split_ms, bfill_split_lanes=plan.L,
-                bfill_split_bound_ms=b_ms, bfill_split_bound_by=b_by)
+    meas.update(long_banded_fills(torch, port, A, B))
 
     # The path, with the band rounds recorded by a spy on the banded fill.
     rounds = []
@@ -1815,6 +1851,100 @@ def phase_long(torch, port, by_path):
         f"{secs:.3f} s; Myers-Miller's alignment rescores to the exact "
         f"score {exact}")
     meas.update(mm_escape_s=secs)
+    return meas
+
+
+def long_banded_fills(torch, port, A, B):
+    """Kernel #3 at the long-pair path's shapes: batch B's band 128 (the
+    first round of both its paths) against the plain version (finals and
+    the whole dirs tensor), then N_RACE more launches, each equal to the
+    first (the race check), each pair on at least 32 SMs; then each of
+    batch A's band rounds (bands 128, 256, 512) timed on its own."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    banded = port["banded"]
+    meas = {}
+
+    def timed_fill(ins, a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = banded.banded_diag_fill_cuda(*ins, *a)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), got
+
+    tb = to_device(pack_batch(B, batch_size=len(B)), "cuda")
+    plan, ins = banded.band_inputs(*tb, BAND)
+    a = (plan, ScoringScheme(), True, False, "fast4")
+    first_ms, first = timed_fill(ins, a)
+    shape = dict(banded.banded_diag_fill_cuda.last_launch)
+    t0 = time.perf_counter()
+    fp, dp = banded.banded_diag_fill_torch(*ins, *a)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(int((first[0] - fp).abs().max()), 0 if torch.equal(
+        first[1].view(torch.int32), dp.view(torch.int32)) else 1)
+    del fp, dp
+    check(err == 0, f"batch B's banded fill != plain: err {err}")
+    log(f"[15 long] batch B's band {BAND} fill (L={plan.L}, "
+        f"{plan.n_need} iterations): finals and the whole dirs tensor "
+        f"({first[1].numel() * 4 / 1e9:.2f} GB) equal the plain version "
+        f"(graph-replayed, {plain_s:.1f} s)")
+    times = []
+    for _ in range(N_RACE):
+        ms, got = timed_fill(ins, a)
+        times.append(ms)
+        check(torch.equal(got[0], first[0]) and torch.equal(
+            got[1].view(torch.int32), first[1].view(torch.int32)),
+            "race: a launch of the banded fill at batch B differs from the "
+            "first")
+        del got
+    ms = sum(times) / len(times)
+    band_cells = sum(len(y) for _, y in B) * (plan.k_hi_eff - plan.k_lo + 1)
+    lane_steps = len(B) * 2 * plan.n_need * plan.L
+    b_ms, b_by = bound(nbytes(*ins, *first), band_cells * OPS_PER_CELL["fast4"])
+    del first
+    per_pair = shape["sms_per_pair"]
+    check(min(per_pair) >= 32, f"batch B: the banded fill's pairs ran on "
+          f"{per_pair} SMs")
+    log(f"[15 long] race check: {N_RACE} more launches of the banded fill at "
+        f"batch B, each equal to the first: {ms:.3f} ms mean "
+        f"({min(times):.3f}-{max(times):.3f}; first {first_ms:.3f}), "
+        f"{band_cells / ms / 1e6:.1f} band GCUPS, "
+        f"{lane_steps / ms / 1e6:.1f} G lane-steps/s, {100 * b_ms / ms:.1f}% "
+        f"of its bound {b_ms:.3f} ms ({b_by}); {tile_line(shape)}, a pair on "
+        f"{per_pair} SMs")
+    meas.update(bfillB_ms=ms, bfillB_first_ms=first_ms, bfillB_race_ms=times,
+                bfillB_plain_ms=plain_s * 1e3, bfillB_err=err,
+                bfillB_bound_ms=b_ms, bfillB_bound_by=b_by,
+                bfillB_lanes=plan.L, bfillB_shape=shape,
+                bfillB_gcups=band_cells / ms / 1e6,
+                bfillB_pct_of_bound=100 * b_ms / ms)
+    del ins
+    tb = to_device(pack_batch(A, batch_size=len(A)), "cuda")
+    rounds = {}
+    for band in (BAND, 2 * BAND, 4 * BAND):
+        plan, ins = banded.band_inputs(*tb, band)
+        a = (plan, ScoringScheme(), True, False, "fast4")
+        timed_fill(ins, a)
+        ms, got = timed_fill(ins, a)
+        shape = dict(banded.banded_diag_fill_cuda.last_launch)
+        band_cells = sum(len(y) for _, y in A) * (
+            plan.k_hi_eff - plan.k_lo + 1)
+        b_ms, b_by = bound(nbytes(*ins, *got), band_cells
+                           * OPS_PER_CELL["fast4"])
+        del got
+        rounds[band] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                            lanes=plan.L, shape=shape)
+        log(f"[15 long] batch A's band {band} round (L={plan.L}): banded fill "
+            f"{ms:.3f} ms, {band_cells / ms / 1e6:.1f} band GCUPS, bound "
+            f"{b_ms:.3f} ms ({b_by}); {tile_line(shape)}")
+        del ins
+    meas["bfillA_rounds"] = rounds
+    torch.cuda.empty_cache()
     return meas
 
 
@@ -2141,7 +2271,8 @@ def band_true_cells(n1s, n2s, k_lo, k_hi):
 
 
 def phase_wide_band(torch, port, by_path):
-    """The banded fill past a cluster's 131072 lanes (the wide route) at
+    """The banded fill past 131072 lanes (the former wide route's bands, now
+    more tiles a block than the card holds CTAs) at
     WIDE_BANDS on N_WIDE pairs of ~1-2 kb: finals and the whole dirs tensor
     against the plain version, scores against kernel #4's exact scores
     (the band covers the matrix); then BandedAligner first-only at the
@@ -2169,11 +2300,15 @@ def phase_wide_band(torch, port, by_path):
     out, errs = {}, []
     for band in WIDE_BANDS:
         plan, ins = banded.band_inputs(*tb, band)
-        check(plan.L > banded.CUDA_BAND_LANES, f"band {band}: L={plan.L}")
+        check(plan.L > 131_072, f"band {band}: L={plan.L}")
         a = (plan, scheme, True, False, "fast4")
         ms = cuda_ms(torch, lambda: banded.banded_diag_fill_cuda(*ins, *a),
                      repeats=1)
         fk, dk = banded.banded_diag_fill_cuda(*ins, *a)
+        shape = dict(banded.banded_diag_fill_cuda.last_launch)
+        per_row = shape["tiles"] // shape["rows"]
+        check(per_row > shape["resident"], f"band {band}: {per_row} tiles a "
+              f"block, {shape['resident']} resident CTAs: no overflow")
         plain_ms, (fp, dp) = host_ms(
             torch, lambda: banded.banded_diag_fill_torch(*ins, *a))
         whole = bool(torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
@@ -2188,14 +2323,16 @@ def phase_wide_band(torch, port, by_path):
         b_ms, b_by = bound(nbytes(*ins, fk, dk), cells * OPS_PER_CELL["fast4"])
         waves = 2 * plan.n_need
         log(f"[18 wide band] band {band} (L={plan.L} lanes, "
-            f"{waves} wavefronts, {N_WIDE} pairs): kernel {ms:.3f} ms "
+            f"{waves} wavefronts, {N_WIDE} pairs; {tile_line(shape)}: "
+            f"{per_row} tiles a block over {shape['resident']} resident "
+            f"CTAs): kernel {ms:.3f} ms "
             f"({1e3 * ms / waves:.2f} us a wavefront), plain {plain_ms:.1f}"
             f" ms, bound {b_ms:.3f} ms ({b_by}); finals and the whole dirs "
             "tensor equal the plain version, scores equal kernel #4's")
         tag = f"wide{band}"
         out.update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
                     f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
-                    f"{tag}_lanes": plan.L,
+                    f"{tag}_lanes": plan.L, f"{tag}_shape": shape,
                     f"{tag}_us_per_wavefront": 1e3 * ms / waves})
         errs.append(err)
         del fk, dk, fp, dp
@@ -2210,8 +2347,8 @@ def phase_wide_band(torch, port, by_path):
     check_results(res, pairs, scheme, path, compat=True)
     check([r.score for r in res] == [int(x) for x in exact_scores],
           f"{path}: scores != kernel #4's")
-    check(by_path.get("nw_banded_diag_wide_fill", {}).get(path, 0) > 0,
-          f"{path} never launched the wide route")
+    check(by_path.get("nw_banded_diag_fill", {}).get(path, 0) > 0,
+          f"{path} never launched the banded fill")
     log(f"[18 wide band] BandedAligner first-only at band {band} on cuda: "
         f"{secs:.1f} ms; every alignment consumes its sequences and rescores"
         f" to kernel #4's exact score; phase {time.perf_counter() - t0:.1f} s")
@@ -2772,6 +2909,57 @@ def run(args):
     return card, kernel_entries(meas, by_path)
 
 
+def banded_shapes(meas):
+    """Kernel #3's times and bounds at each shape the paths give it, with
+    its tiles: config 4 (fast4, full), batch B's band 128, batch A's band
+    rounds, the bands past 131072 lanes."""
+    def tiles(shape):
+        out = {k: shape[k] for k in (
+            "strip_lanes", "block_iters", "strips", "rows", "halo",
+            "lanes_per_thread", "threads", "tiles", "ctas", "resident",
+            "sms")}
+        per_pair = shape["sms_per_pair"]
+        out["sms_per_pair_min_max"] = [min(per_pair), max(per_pair)]
+        return out
+
+    band = f"{N_BAND} x {LEN_BAND} bp band {BAND}"
+    out = {}
+    for dirs in ("fast4", "full"):
+        out[f"config4_{dirs}"] = dict(
+            timed_on=f"{band} {dirs}", ms=meas[f"bfill_{dirs}_ms"],
+            plain_ms=meas[f"bfill_{dirs}_plain_ms"],
+            bound_ms=meas[f"bfill_{dirs}_bound_ms"],
+            bound_by=meas[f"bfill_{dirs}_bound_by"],
+            tiles=tiles(meas["bfill_shape"]))
+    for tag in ("strips128", "strips64"):
+        out[f"config4_fast4_{tag}"] = dict(ms=meas[f"bfill_{tag}_ms"])
+    out["batch_B"] = dict(
+        timed_on=f"batch B's band {BAND} (2 pairs, L = "
+        f"{meas['bfillB_lanes']}), fast4; ms the mean of {N_RACE} launches",
+        ms=meas["bfillB_ms"], first_ms=meas["bfillB_first_ms"],
+        race_ms=meas["bfillB_race_ms"], plain_ms=meas["bfillB_plain_ms"],
+        bound_ms=meas["bfillB_bound_ms"], bound_by=meas["bfillB_bound_by"],
+        gcups=meas["bfillB_gcups"], pct_of_bound=meas["bfillB_pct_of_bound"],
+        tiles=tiles(meas["bfillB_shape"]))
+    for b, r in meas["bfillA_rounds"].items():
+        out[f"batch_A_band_{b}"] = dict(
+            timed_on=f"batch A ({N_LONG} x {LEN_LONG_PAIR} bp) band {b} "
+            f"(L = {r['lanes']}), fast4", ms=r["ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], tiles=tiles(r["shape"]))
+    for b in WIDE_BANDS:
+        out[f"wide_{b}"] = dict(
+            timed_on=f"{N_WIDE} pairs of {LEN_WIDE_LO}-{LEN_WIDE_HI} bp band "
+            f"{b} (L = {meas[f'wide{b}_lanes']}), fast4",
+            ms=meas[f"wide{b}_ms"], plain_ms=meas[f"wide{b}_plain_ms"],
+            bound_ms=meas[f"wide{b}_bound_ms"],
+            bound_by=meas[f"wide{b}_bound_by"],
+            tiles=tiles(meas[f"wide{b}_shape"]))
+    out["natural_split"] = dict(ms=meas["bfill_natural_split_ms"],
+                                lanes=meas["bfill_natural_split_lanes"])
+    out["stall_raised_after_s"] = meas["bfill_stall_s"]
+    return out
+
+
 def kernel_entries(meas, by_path):
     """The `kernels` line: per kernel its launches (in total and by path),
     its largest error over every comparison, its kernel and plain times
@@ -2793,8 +2981,10 @@ def kernel_entries(meas, by_path):
         "nw_banded_diag_fill": [meas["bfill_ragged_err"],
                                 meas["bfill_fast4_err"],
                                 meas["bfill_full_err"],
-                                meas["bfill_split2_err"],
-                                meas["bfill_natural_split_err"]],
+                                meas["bfill_strips128_err"],
+                                meas["bfill_strips64_err"],
+                                meas["bfill_natural_split_err"],
+                                meas["bfillB_err"], meas["wide_err"]],
         "walk_banded": [meas["bwalk_err"]],
         "nw_affine_tiled_fill": [meas["tiled_small_err"],
                                  meas["tiled_full_err"]],
@@ -2802,8 +2992,6 @@ def kernel_entries(meas, by_path):
                                       meas["tfold_full_err"]],
         "nw_affine_fill": [meas["gfill_err"], meas["gfill_stream_err"],
                            meas["gfill_full_err"]],
-        "nw_banded_diag_wide_fill": [meas["wide_err"],
-                                     meas["bfill_wide4_err"]],
         "nw_banded_fill": [meas["rfill_ragged_err"], meas["rfill_fast4_err"],
                            meas["rfill_full_err"],
                            meas["rfill_fast4_cross_err"],
@@ -2833,9 +3021,6 @@ def kernel_entries(meas, by_path):
             "kernel #4's"),
         "nw_affine_fill": ("gfill", f"{main} score-only, the runner's plain "
                            "layout"),
-        "nw_banded_diag_wide_fill": (
-            f"wide{WIDE_BANDS[0]}", f"{N_WIDE} pairs of {LEN_WIDE_LO}-"
-            f"{LEN_WIDE_HI} bp band {WIDE_BANDS[0]} fast4"),
         "nw_banded_fill": ("rfill_fast4", f"{band} fast4"),
         "nw_linear_fill": ("lfill_global", f"{main} global compat "
                            "score-only"),
@@ -2868,15 +3053,7 @@ def kernel_entries(meas, by_path):
             entry["pct_of_bound"] = meas[f"{key}_pct_of_bound"]
             entry["launch"] = meas[f"{key}_shape"]
         if name == "nw_banded_diag_fill":
-            entry["split"] = {
-                "ms": meas["bfill_split_ms"],
-                "lanes": meas["bfill_split_lanes"],
-                "bound_ms": meas["bfill_split_bound_ms"],
-                "bound_by": meas["bfill_split_bound_by"],
-                "timed_on": "batch B's band 128 (2 pairs), fast4",
-                "config4_2ctas_ms": meas["bfill_split2_ms"],
-                "natural_ms": meas["bfill_natural_split_ms"],
-                "natural_lanes": meas["bfill_natural_split_lanes"]}
+            entry["shapes"] = banded_shapes(meas)
         if name == "nw_affine_fill":
             entry["full"] = {
                 "ms": meas["gfill_full_ms"],
@@ -2895,19 +3072,6 @@ def kernel_entries(meas, by_path):
             for tag in ("dirs", "local_dirs"):
                 entry[tag]["timed_on"] = f"{N_LINEAR_DIRS} x {LEN_MAIN} bp " \
                     "with path bits"
-        if name == "nw_banded_diag_wide_fill":
-            wb = WIDE_BANDS[1]
-            entry["lanes"] = meas[f"wide{WIDE_BANDS[0]}_lanes"]
-            entry["us_per_wavefront"] = \
-                meas[f"wide{WIDE_BANDS[0]}_us_per_wavefront"]
-            entry[f"band_{wb}"] = {
-                k: meas[f"wide{wb}_{k}"]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by", "lanes",
-                          "us_per_wavefront")}
-            entry["config4_forced"] = {
-                "ms": meas["bfill_wide4_ms"],
-                "us_per_wavefront": meas["bfill_wide4_us_per_wavefront"],
-                "timed_on": f"{band} fast4, forced into the wide route"}
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

@@ -159,12 +159,12 @@ def kernels() -> ctypes.CDLL:
     lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
     lib.sa_gotoh_fill.restype = _INT
     lib.sa_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
-    lib.sa_banded_lanes_per_thread.restype = _INT
-    lib.sa_banded_lanes_per_thread.argtypes = [_INT]
+    lib.sa_sm_count.restype = _INT
+    lib.sa_sm_count.argtypes = []
+    lib.sa_banded_resident_ctas.restype = _INT
+    lib.sa_banded_resident_ctas.argtypes = [_INT] * 5
     lib.sa_banded_fill.restype = _INT
-    lib.sa_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
-    lib.sa_banded_wide_fill.restype = _INT
-    lib.sa_banded_wide_fill.argtypes = [_VP] * 9 + [_INT] * 14 + [_VP]
+    lib.sa_banded_fill.argtypes = [_VP] * 10 + [_INT] * 20 + [_VP]
     lib.sa_banded_row_threads.restype = _INT
     lib.sa_banded_row_threads.argtypes = [_INT, _INT]
     lib.sa_banded_row_scratch_words.restype = ctypes.c_long
@@ -234,9 +234,7 @@ def host_check() -> ctypes.CDLL:
     lib.hc_gotoh_fill.restype = _INT
     lib.hc_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12
     lib.hc_banded_fill.restype = _INT
-    lib.hc_banded_fill.argtypes = [_VP] * 8 + [_INT] * 15
-    lib.hc_banded_wide_fill.restype = _INT
-    lib.hc_banded_wide_fill.argtypes = [_VP] * 8 + [_INT] * 14
+    lib.hc_banded_fill.argtypes = [_VP] * 10 + [_INT] * 17
     lib.hc_banded_row_fill.restype = _INT
     lib.hc_banded_row_fill.argtypes = [_VP] * 7 + [_INT] * 13
     lib.hc_linear_fill.restype = _INT

@@ -1,8 +1,7 @@
-// How the fills (nw_affine_stream.cu, nw_affine_modes.cu) lay one row of P
-// lanes over thread blocks -- and the banded fill a pair's band
-// (nw_banded_diag.cu), the tiled fills a tile (nw_affine_tiled.cu) -- shared
-// with the serial host build (host_check.cpp), plus the launcher (device
-// builds only).
+// How the fills (nw_affine_stream.cu, nw_affine_modes.cu, nw_affine.cu,
+// nw_linear.cu) lay one row of P lanes over thread blocks, shared with the
+// serial host build (host_check.cpp), plus the launcher (device builds
+// only).
 //
 // Up to 8192 lanes one block holds the whole row, 4, 8 or 16 lanes a thread
 // in registers.  Past that the row is split over a thread-block cluster:

@@ -8,13 +8,12 @@
 //   c++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // The arguments and layouts are those of sa_stream_fill,
-// sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_banded_fill,
-// sa_banded_wide_fill, sa_tiled_fill / sa_tiled_fold_fill (their strip
-// schedule run serially, tickets in order), sa_walk_fast4,
-// sa_walk_modes and sa_walk_banded (minus the stream).  The fills' lane
-// shift follows the kernels' split of a row over CTAs: a CTA's first lane
-// takes the previous CTA's last lane (lane 0 takes lane P-1); the banded
-// fill's split has no wrap (its edge lanes are masked).
+// sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_banded_fill and
+// sa_tiled_fill / sa_tiled_fold_fill (their tile and strip schedules run
+// serially, tickets in order), sa_walk_fast4, sa_walk_modes and
+// sa_walk_banded (minus the stream).  The fills' lane shift follows the
+// kernels' split of a row over CTAs: a CTA's first lane takes the previous
+// CTA's last lane (lane 0 takes lane P-1).
 #include <stddef.h>
 #include <stdint.h>
 
@@ -441,94 +440,177 @@ extern "C" int hc_walk_modes(const uint32_t* dirs, int W, int R, int P,
 
 namespace {
 
-// Lane l's neighbour in a band of L lanes split as sp, at wavefront parity
-// par (1: lane l+1, 0: lane l-1): inside a CTA the next or previous lane,
-// across a CTA edge the next CTA's first lane or the previous CTA's last
-// lane; l itself at the band's ends, whose edge lanes take no neighbour.
-int band_neighbour(int l, int par, const sa::Split& sp, int L) {
-  const int rank = l / sp.cta_lanes;
-  const int lo = sa::cta_first_lane(rank, sp);
-  const int hi = lo + sa::cta_real_lanes(rank, sp, L) - 1;
-  if (par) {
-    if (l != hi) return l + 1;
-    return rank + 1 < sp.nctas ? sa::cta_first_lane(rank + 1, sp) : l;
-  }
-  if (l != lo) return l - 1;
-  if (rank == 0) return l;
-  return sa::cta_first_lane(rank - 1, sp) +
-         sa::cta_real_lanes(rank - 1, sp, L) - 1;
-}
-
-// The banded fill of one pair at a time: every lane of a wavefront reads
-// its neighbour's state from before the step, as the kernel's shifts do.
+// The banded fill's tiled route run serially (nw_banded_diag.cu): the tiles
+// in ticket order, each computing lanes [lo, hi) of its pair over its block
+// from the lanes' state at the block's start, with the kernel's chunk modes
+// (band_cell, lean_cell with or without its valid mask), its end-lane rule
+// and entering characters, and keeping its own lanes' codes, finals and end
+// state; every lane reads its neighbour's state from before the step, as
+// the kernel's shifts give it.  The counters as the kernel's (ctr: ticket,
+// status, SM bitmaps, then per strip the blocks it has published).  Every
+// wait a CTA would make (strips s - 1 .. s + 1 of the previous block
+// published) must already hold when its tile runs: a wait that does not
+// returns -4.
 template <int DIRS, bool WILDCARD, bool STD>
-void banded_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
-                 const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
-                 int32_t* finals, uint32_t* dirs, int B, int L, int n_iters,
-                 int he, int lim1, int lim0, bool compat,
-                 const sa::Scheme& sc, const sa::Split& sp) {
+int band_tiles_host(const int32_t* s1w0, const int32_t* s2w0,
+                    const int32_t* c1s, const int32_t* c2s,
+                    const int32_t* n1v, const int32_t* n2v, int32_t* finals,
+                    uint32_t* dirs, int32_t* state, int32_t* ctr, int B,
+                    int L, int n_iters, int he, int lim1, int lim0,
+                    bool compat, const sa::Scheme& sc,
+                    const sa::BandTiles& g) {
   constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;
-  std::vector<sa::BandCell> c(L), c0(L);
-  std::vector<uint32_t> acc(L);
-  for (int b = 0; b < B; ++b) {
-    for (int l = 0; l < L; ++l) {
-      const size_t at = static_cast<size_t>(b) * L + l;
-      c[l] = sa::band_init(l, he, s1w0[at], s2w0[at]);
-      acc[l] = 0;
+  constexpr int kSmWords = 8;
+  const int rows = sa::band_rows(g, n_iters);
+  const int ntiles = rows * B * g.S;
+  int32_t* done_all = ctr + 2 + B * kSmWords;
+  std::vector<sa::BandCell> c, c0;
+  std::vector<uint32_t> acc;
+  for (int ticket = 0; ticket < ntiles; ++ticket) {
+    ctr[0] = ticket + 1;
+    const sa::BandTile t = sa::band_tile(ticket, g, B, L, n_iters);
+    int32_t* done = done_all + t.b * g.S;
+    if (t.tau > 0) {
+      for (int s = sa::band_dep_lo(t); s <= sa::band_dep_hi(t, g); ++s) {
+        if (done[s] < t.tau) return -4;
+      }
     }
-    for (int a = 1; a <= 2 * n_iters; ++a) {
-      const int par = a & 1;
-      const int it = (a - 1) / 2;
-      const int32_t enter = (par ? c1s : c2s)[static_cast<size_t>(b) * n_iters
-                                              + it];
-      const int32_t q = (a - par) / 2 - he;
+    const int32_t n1 = n1v[t.b];
+    const int32_t n2 = n2v[t.b];
+    const int32_t* s1r = s1w0 + static_cast<size_t>(t.b) * L;
+    const int32_t* s2r = s2w0 + static_cast<size_t>(t.b) * L;
+    const int32_t* c1r = c1s + static_cast<size_t>(t.b) * n_iters;
+    const int32_t* c2r = c2s + static_cast<size_t>(t.b) * n_iters;
+    const int n = t.hi - t.lo;
+    c.assign(n, sa::BandCell());
+    acc.assign(n, 0);
+    for (int k = 0; k < n; ++k) {
+      const int l = t.lo + k;
+      sa::BandCell& ck = c[k];
+      if (t.tau == 0) {
+        ck.M1 = l == -he ? 0 : sa::kNegBig;
+        ck.I1 = ck.D1 = ck.H2 = sa::kNegBig;
+      } else {
+        const int32_t* v =
+            state + 4 * ((static_cast<size_t>(t.tau & 1) * B + t.b) * L + l);
+        ck.M1 = v[0];
+        ck.I1 = v[1];
+        ck.D1 = v[2];
+        ck.H2 = v[3];
+      }
+      ck.H1 = sa::max3(ck.M1, ck.I1, ck.D1);
+      ck.s1w = sa::band_s1(s1r, c1r, L, l + t.i0) & 0xf;
+      ck.s2w = sa::band_s2(s2r, c2r, l - t.i0) & 0xf;
+    }
+    int ca = 0, clane = 0;
+    const bool corner = sa::band_corner(n1, n2, he, ca, clane) &&
+                        clane >= t.own_lo && clane < t.own_hi;
+    // Wavefront a of parity par with the chunk's cell mode.
+    auto step = [&](int par, int a, int32_t enter, int mode) {
+      c0 = c;
+      const int q = (a - par) / 2 - he;
+      const int lim = par ? lim1 : lim0;
+      int vlo = 0, vhi = 0;
+      sa::band_valid_lanes(a, q, n1, n2, lim, vlo, vhi);
       const int aidx = a - 1;
       const uint32_t shift =
           DIRS == sa::kDirsFast4 ? 4u * (aidx & 7) : 8u * (aidx & 3);
-      c0 = c;
-      for (int l = 0; l < L; ++l) {
+      for (int k = 0; k < n; ++k) {
+        const int l = t.lo + k;
+        const bool end = par ? k == n - 1 : k == 0;
+        const sa::BandCell& nb = c0[end ? k : (par ? k + 1 : k - 1)];
+        const int32_t nbo = end ? sa::kNegBig : sa::band_open<STD>(nb, sc);
+        const int32_t nbg = end ? sa::kNegBig : (par ? nb.D1 : nb.I1);
+        const int32_t nbc = end ? (enter & 0xf) : (par ? nb.s1w : nb.s2w);
+        sa::BandCell& ck = c[k];
         const int32_t xv = q - l;
-        const int32_t yv = a - xv;
         int32_t code;
-        const int n = band_neighbour(l, par, sp, L);
-        if (par) {
-          code = sa::band_cell<1, DIRS, WILDCARD, STD>(
-              c[l], sa::band_open<STD>(c0[n], sc), sa::band_gap_src<1>(c0[n]),
-              sa::band_char_src<1>(c0[n]), l == L - 1, enter, xv, yv,
-              l <= lim1, n1v[b], n2v[b], compat, sc);
+        if (mode == sa::kBandRamp) {
+          code = par ? sa::band_cell<1, DIRS, WILDCARD, STD>(
+                           ck, nbo, nbg, nbc, xv, a - xv, l <= lim, n1, n2,
+                           compat, sc)
+                     : sa::band_cell<0, DIRS, WILDCARD, STD>(
+                           ck, nbo, nbg, nbc, xv, a - xv, l <= lim, n1, n2,
+                           compat, sc);
         } else {
-          code = sa::band_cell<0, DIRS, WILDCARD, STD>(
-              c[l], sa::band_open<STD>(c0[n], sc), sa::band_gap_src<0>(c0[n]),
-              sa::band_char_src<0>(c0[n]), l == 0, enter, xv, yv, l <= lim0,
-              n1v[b], n2v[b], compat, sc);
+          const int32_t own = sa::band_open<STD>(c0[k], sc);
+          if (par) {
+            ck.s1w = nbc;
+          } else {
+            ck.s2w = nbc;
+          }
+          const bool eq = sa::band_eq<WILDCARD>(
+              sa::band_cmp<WILDCARD>(ck.s1w, ck.s2w), 0);
+          const bool valid = l >= vlo && l <= vhi;
+          const int32_t io = par ? own : nbo, ig = par ? c0[k].I1 : nbg;
+          const int32_t dopen = par ? nbo : own, dg = par ? nbg : c0[k].D1;
+          int32_t H;
+          code = mode == sa::kBandMasked
+                     ? sa::lean_cell<DIRS, true>(ck.H2, eq, io, ig, dopen, dg,
+                                                 valid, sc, ck.M1, ck.I1,
+                                                 ck.D1, H)
+                     : sa::lean_cell<DIRS, false>(ck.H2, eq, io, ig, dopen,
+                                                  dg, true, sc, ck.M1, ck.I1,
+                                                  ck.D1, H);
+          ck.H2 = ck.H1;
+          ck.H1 = H;
         }
-        acc[l] |= static_cast<uint32_t>(code) << shift;
-        if (xv == n2v[b] && yv == n1v[b]) {
-          finals[static_cast<size_t>(b) * 3 + 0] = c[l].M1;
-          finals[static_cast<size_t>(b) * 3 + 1] = c[l].I1;
-          finals[static_cast<size_t>(b) * 3 + 2] = c[l].D1;
+        acc[k] |= static_cast<uint32_t>(code) << shift;
+        if (corner && a == ca && l == clane) {
+          finals[static_cast<size_t>(t.b) * 3 + 0] = ck.M1;
+          finals[static_cast<size_t>(t.b) * 3 + 1] = ck.I1;
+          finals[static_cast<size_t>(t.b) * 3 + 2] = ck.D1;
         }
       }
       if (DIRS != sa::kDirsNone &&
           ((aidx & (kUp - 1)) == kUp - 1 || aidx == 2 * n_iters - 1)) {
-        for (int l = 0; l < L; ++l) {
-          dirs[(static_cast<size_t>(aidx / kUp) * B + b) * L + l] = acc[l];
-          acc[l] = 0;
+        for (int k = 0; k < n; ++k) {
+          const int l = t.lo + k;
+          if (l >= t.own_lo && l < t.own_hi) {
+            dirs[(static_cast<size_t>(aidx / kUp) * B + t.b) * L + l] =
+                acc[k];
+          }
+          acc[k] = 0;
         }
       }
+    };
+    for (int it = 0; it < t.nit; it += 4) {
+      const int nn = t.nit - it < 4 ? t.nit - it : 4;
+      const int mode = sa::band_chunk_mode(t.i0 + it, nn, t.lo, t.hi, he, n1,
+                                           n2, lim1, lim0);
+      for (int k = 0; k < nn; ++k) {
+        const int i = t.i0 + it + k;
+        step(1, 2 * i + 1, sa::band_s1(s1r, c1r, L, t.hi + i), mode);
+        step(0, 2 * i + 2, sa::band_s2(s2r, c2r, t.lo - i - 1), mode);
+      }
+    }
+    if (t.tau + 1 < rows) {
+      for (int l = t.own_lo; l < t.own_hi; ++l) {
+        const sa::BandCell& ck = c[l - t.lo];
+        int32_t* v = state +
+                     4 * ((static_cast<size_t>((t.tau + 1) & 1) * B + t.b) *
+                              L + l);
+        v[0] = ck.M1;
+        v[1] = ck.I1;
+        v[2] = ck.D1;
+        v[3] = ck.H2;
+      }
+      done[t.s] = t.tau + 1;
     }
   }
+  return 0;
 }
 
-typedef void (*HostBand)(const int32_t*, const int32_t*, const int32_t*,
-                         const int32_t*, const int32_t*, const int32_t*,
-                         int32_t*, uint32_t*, int, int, int, int, int, int,
-                         bool, const sa::Scheme&, const sa::Split&);
+typedef int (*HostBand)(const int32_t*, const int32_t*, const int32_t*,
+                        const int32_t*, const int32_t*, const int32_t*,
+                        int32_t*, uint32_t*, int32_t*, int32_t*, int, int, int,
+                        int, int, int, bool, const sa::Scheme&,
+                        const sa::BandTiles&);
 
 template <int DIRS, bool STD>
 HostBand pick_band(bool wildcard) {
-  return wildcard ? banded_host<DIRS, true, STD>
-                  : banded_host<DIRS, false, STD>;
+  return wildcard ? band_tiles_host<DIRS, true, STD>
+                  : band_tiles_host<DIRS, false, STD>;
 }
 
 }  // namespace
@@ -537,16 +619,26 @@ extern "C" int hc_fill_ctas(int P, int cta_lanes) {
   return sa::plan_split(P, cta_lanes).nctas;
 }
 
+// sa_banded_fill run serially (its arguments minus lpt, threads, the grid
+// and the stream): finals (B, 3) zeroed by the caller; state (2, B, L, 4)
+// int32 when there are several blocks; ctr 2 + 8B + B * strips int32,
+// zeroed.  -1 for an unsupported shape or mode, -4 for a schedule whose
+// waits would not hold in ticket order.
 extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
                               const int32_t* c1s, const int32_t* c2s,
                               const int32_t* n1v, const int32_t* n2v,
-                              int32_t* finals, uint32_t* dirs, int B, int L,
-                              int n_iters, int he, int lim1, int lim0,
-                              int match, int mismatch, int gap_open,
-                              int gap_extend, int dirs_mode, int compat,
-                              int wildcard, int std_model, int cta_lanes) {
-  const sa::Split sp = sa::plan_split(L, cta_lanes);
-  if (sp.nctas == 0) return -1;
+                              int32_t* finals, uint32_t* dirs, int32_t* state,
+                              int32_t* ctr, int B, int L, int n_iters, int he,
+                              int lim1, int lim0, int match, int mismatch,
+                              int gap_open, int gap_extend, int dirs_mode,
+                              int compat, int wildcard, int std_model,
+                              int strip_lanes, int block_iters, int order) {
+  const sa::BandTiles g{strip_lanes, block_iters,
+                        strip_lanes > 0 ? (L + strip_lanes - 1) / strip_lanes
+                                        : 0,
+                        order};
+  if (B <= 0 || !sa::band_tiles_ok(g, L, n_iters)) return -1;
+  if (sa::band_rows(g, n_iters) > 1 && state == nullptr) return -1;
   HostBand fn = nullptr;
   const bool w = wildcard != 0;
   if (std_model) {
@@ -559,95 +651,8 @@ extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
   }
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(s1w0, s2w0, c1s, c2s, n1v, n2v, finals, dirs, B, L, n_iters, he, lim1,
-     lim0, compat != 0, sc, sp);
-  return 0;
-}
-
-namespace {
-
-template <int PAR, int DIRS, bool STD>
-void wide_wave(const sa::BandCell* in, sa::BandCell* out, const int32_t* cs,
-               const int32_t* n1v, const int32_t* n2v, int32_t* finals,
-               uint32_t* dirs, int B, int L, int n_iters, int a, int he,
-               int lim, bool compat, bool wildcard, const sa::Scheme& sc) {
-  for (int b = 0; b < B; ++b) {
-    const int32_t* row = cs + static_cast<size_t>(b) * n_iters;
-    for (int l = 0; l < L; ++l) {
-      if (wildcard) {
-        sa::band_wide_lane<PAR, DIRS, true, STD>(in, out, row, n1v, n2v,
-                                                 finals, dirs, B, L, a, he,
-                                                 lim, compat, sc, b, l);
-      } else {
-        sa::band_wide_lane<PAR, DIRS, false, STD>(in, out, row, n1v, n2v,
-                                                  finals, dirs, B, L, a, he,
-                                                  lim, compat, sc, b, l);
-      }
-    }
-  }
-}
-
-template <int DIRS, bool STD>
-void wide_host(const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
-               const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
-               int32_t* finals, uint32_t* dirs, int B, int L, int n_iters,
-               int he, int lim1, int lim0, bool compat, bool wildcard,
-               const sa::Scheme& sc) {
-  const size_t n = static_cast<size_t>(B) * L;
-  std::vector<sa::BandCell> buf0(n), buf1(n);
-  for (size_t at = 0; at < n; ++at) {
-    buf0[at] = sa::band_init(static_cast<int32_t>(at % L), he, s1w0[at],
-                             s2w0[at]);
-  }
-  for (int it = 0; it < n_iters; ++it) {
-    wide_wave<1, DIRS, STD>(buf0.data(), buf1.data(), c1s, n1v, n2v, finals,
-                            dirs, B, L, n_iters, 2 * it + 1, he, lim1, compat,
-                            wildcard, sc);
-    wide_wave<0, DIRS, STD>(buf1.data(), buf0.data(), c2s, n1v, n2v, finals,
-                            dirs, B, L, n_iters, 2 * it + 2, he, lim0, compat,
-                            wildcard, sc);
-  }
-}
-
-}  // namespace
-
-// sa_banded_wide_fill (minus the scratch state and the stream): the wide
-// route's wavefront loop, serially, through band_wide_lane.
-extern "C" int hc_banded_wide_fill(
-    const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
-    const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
-    int32_t* finals, uint32_t* dirs, int B, int L, int n_iters, int he,
-    int lim1, int lim0, int match, int mismatch, int gap_open,
-    int gap_extend, int dirs_mode, int compat, int wildcard, int std_model) {
-  if (B <= 0 || L <= 0 || n_iters <= 0) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  const bool c = compat != 0, w = wildcard != 0;
-  if (std_model && dirs_mode == sa::kDirsNone) {
-    wide_host<sa::kDirsNone, true>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
-                                   dirs, B, L, n_iters, he, lim1, lim0, c, w,
-                                   sc);
-  } else if (std_model && dirs_mode == sa::kDirsFast4) {
-    wide_host<sa::kDirsFast4, true>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
-                                    dirs, B, L, n_iters, he, lim1, lim0, c, w,
-                                    sc);
-  } else if (std_model) {
-    return -1;
-  } else if (dirs_mode == sa::kDirsNone) {
-    wide_host<sa::kDirsNone, false>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
-                                    dirs, B, L, n_iters, he, lim1, lim0, c, w,
-                                    sc);
-  } else if (dirs_mode == sa::kDirsFast4) {
-    wide_host<sa::kDirsFast4, false>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
-                                     dirs, B, L, n_iters, he, lim1, lim0, c,
-                                     w, sc);
-  } else if (dirs_mode == sa::kDirsFull) {
-    wide_host<sa::kDirsFull, false>(s1w0, s2w0, c1s, c2s, n1v, n2v, finals,
-                                    dirs, B, L, n_iters, he, lim1, lim0, c, w,
-                                    sc);
-  } else {
-    return -1;
-  }
-  return 0;
+  return fn(s1w0, s2w0, c1s, c2s, n1v, n2v, finals, dirs, state, ctr, B, L,
+            n_iters, he, lim1, lim0, compat != 0, sc, g);
 }
 
 extern "C" int hc_walk_banded(const uint32_t* dirs, int W, int NB, int L,

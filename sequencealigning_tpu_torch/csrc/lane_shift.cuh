@@ -1,5 +1,5 @@
-// The one-lane shifts of the anti-diagonal fills (device code only), shared
-// by nw_affine_stream.cu, nw_affine_modes.cu and nw_banded_diag.cu.
+// The one-lane shift of the anti-diagonal fills (device code only), shared
+// by nw_affine_stream.cu, nw_affine_modes.cu, nw_affine.cu and nw_linear.cu.
 //
 // A block holds a contiguous run of lanes, LPT consecutive lanes a thread.
 // Each step a lane needs a neighbour's state from before the step: inside a
@@ -10,10 +10,7 @@
 // shift_lanes moves lane x-1 to lane x.  Its block's first lane receives the
 // last lane of the previous block of a cluster row (distributed shared
 // memory, one cluster barrier a step), or, for a row held by one block, the
-// block's own last lane (the torus wrap of jnp.roll).  shift_down moves lane
-// x+1 to lane x within one block; the last lane receives nothing useful (the
-// banded fill masks its edge lanes).  shift_down_cluster is shift_down over a
-// cluster row: a block's last real lane receives the next block's first lane.
+// block's own last lane (the torus wrap of jnp.roll).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -26,7 +23,6 @@ constexpr unsigned kFullMask = 0xffffffffu;
 struct ShiftSmem {
   int32_t edge[2][3][32];  // a lane at each warp edge (up to 32 warps)
   int32_t last[2][3];      // the block's last real lane, for the next block
-  int32_t first[2][3];     // the block's first lane, for the previous block
 };
 
 // Hands this thread's last-lane values (h, d, s) to the owner of the next
@@ -72,71 +68,6 @@ __device__ __forceinline__ void shift_lanes(ShiftSmem& sm,
       d = sm.edge[buf][1][warp - 1];
       s = sm.edge[buf][2][warp - 1];
     }
-  }
-}
-
-// The mirror of shift_lanes inside one block: hands this thread's
-// first-lane values (h, d, s) to the owner of the previous lanes and returns
-// in them what the owner of the next lanes handed this one.  The thread
-// owning the block's last lane gets no real neighbour.  Holds the step's one
-// __syncthreads().
-__device__ __forceinline__ void shift_down(ShiftSmem& sm, int j, int buf,
-                                           int32_t& h, int32_t& d,
-                                           int32_t& s) {
-  const int warp = j >> 5;
-  const int wl = j & 31;
-  const int32_t eH = h, eD = d, eS = s;
-  h = __shfl_down_sync(kFullMask, eH, 1);
-  d = __shfl_down_sync(kFullMask, eD, 1);
-  s = __shfl_down_sync(kFullMask, eS, 1);
-  if (wl == 0) {
-    sm.edge[buf][0][warp] = eH;
-    sm.edge[buf][1][warp] = eD;
-    sm.edge[buf][2][warp] = eS;
-  }
-  __syncthreads();
-  if (wl == 31 && warp + 1 < 32) {
-    h = sm.edge[buf][0][warp + 1];
-    d = sm.edge[buf][1][warp + 1];
-    s = sm.edge[buf][2][warp + 1];
-  }
-}
-
-// shift_down across the blocks of a cluster row: thread j == nreal - 1 (the
-// owner of this block's last real lane, wherever it sits in its warp) reads
-// next->first, the next block's first lane (next is &sm for the row's last
-// block, whose last lane gets no real neighbour).  Holds the step's one
-// cluster barrier.
-__device__ __forceinline__ void shift_down_cluster(ShiftSmem& sm,
-                                                   const ShiftSmem* next,
-                                                   int j, int nreal, int buf,
-                                                   int32_t& h, int32_t& d,
-                                                   int32_t& s) {
-  const int warp = j >> 5;
-  const int wl = j & 31;
-  const int32_t eH = h, eD = d, eS = s;
-  h = __shfl_down_sync(kFullMask, eH, 1);
-  d = __shfl_down_sync(kFullMask, eD, 1);
-  s = __shfl_down_sync(kFullMask, eS, 1);
-  if (wl == 0) {
-    sm.edge[buf][0][warp] = eH;
-    sm.edge[buf][1][warp] = eD;
-    sm.edge[buf][2][warp] = eS;
-  }
-  if (j == 0) {
-    sm.first[buf][0] = eH;
-    sm.first[buf][1] = eD;
-    sm.first[buf][2] = eS;
-  }
-  cooperative_groups::this_cluster().sync();
-  if (j == nreal - 1) {
-    h = next->first[buf][0];
-    d = next->first[buf][1];
-    s = next->first[buf][2];
-  } else if (wl == 31 && warp + 1 < 32) {
-    h = sm.edge[buf][0][warp + 1];
-    d = sm.edge[buf][1][warp + 1];
-    s = sm.edge[buf][2][warp + 1];
   }
 }
 

@@ -60,9 +60,10 @@ namespace {
 
 constexpr int kMaxChunk = 128;         // rows staged at a time, at most
 constexpr int kMaxStripLanes = 4096;   // lanes a CTA at most
-constexpr int kSmWords = 8;            // SM bitmap words a pair (256 SMs)
-constexpr unsigned kSpinLimit = 1u << 22;
-constexpr int kErrStalled = 1;
+using sa::kSmWords;
+using sa::ld_acquire;
+using sa::st_release;
+using sa::wait_at_least;
 
 // The launch's counters (one zeroed int32 tensor): [0] the ticket, [1] the
 // status word, [2, 2 + 8B) the SMs that ran each pair's strips (bitmaps),
@@ -84,42 +85,6 @@ __device__ __forceinline__ Counters counters(int32_t* ctr, int B,
   c.prog = ctr + 2 + B * kSmWords;
   c.cons = c.prog + nstrips;
   return c;
-}
-
-__device__ __forceinline__ int32_t ld_acquire(const int32_t* p) {
-  int32_t v;
-  asm volatile("ld.acquire.gpu.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(int32_t* p, int32_t v) {
-  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// Waits until *p >= target.  False when the launch's status is set, or the
-// value stalls for kSpinLimit polls (then this wait sets it).
-__device__ bool wait_at_least(const int32_t* p, int32_t target,
-                              int32_t* status) {
-  int32_t last = ld_acquire(p);
-  unsigned stall = 0;
-  while (last < target) {
-    if (*reinterpret_cast<volatile int32_t*>(status) != 0) return false;
-    if (++stall > kSpinLimit) {
-      atomicCAS(status, 0, kErrStalled);
-      return false;
-    }
-    __nanosleep(256);
-    const int32_t v = ld_acquire(p);
-    if (v != last) {
-      last = v;
-      stall = 0;
-    }
-  }
-  return true;
 }
 
 // Stages the R rows from step g of a strip's lane 0 in shared memory (the
@@ -292,10 +257,7 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
     if (ticket >= nitems) return;
     const sa::StripItem it = sa::strip_item(items, ticket);
     if (j == 0) {
-      unsigned smid;
-      asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
-      atomicOr(ct.sms + it.b * kSmWords + (smid / 32) % kSmWords,
-               1u << (smid % 32));
+      sa::mark_sm(ct.sms + it.b * kSmWords);
     }
     const int32_t n1 = n1v[it.b];
     const int32_t n2 = n2v[it.b];

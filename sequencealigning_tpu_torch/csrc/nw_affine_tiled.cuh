@@ -211,3 +211,66 @@ SA_HD int ring_rows_needed(int g, int R, int W, int32_t n1, int s, int K) {
 }
 
 }  // namespace sa
+
+#if defined(__CUDACC__)
+namespace sa {
+
+// ---------------------------------------------------------------------------
+// The hand-over between CTAs of one launch (device code only; the banded
+// fill's tiles use it too): release stores of a progress count, acquire
+// waits on it, and the spin limit that turns a schedule that cannot be met
+// into an error instead of a hang.
+// ---------------------------------------------------------------------------
+
+constexpr int kSmWords = 8;  // SM bitmap words a pair (256 SMs)
+constexpr unsigned kSpinLimit = 1u << 22;
+constexpr int kErrStalled = 1;
+
+__device__ __forceinline__ int32_t ld_acquire(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.acquire.gpu.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int32_t* p, int32_t v) {
+  asm volatile("st.release.gpu.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Waits until *p >= target, sleeping sleep_ns between polls.  False when
+// the launch's status is set, or the value stalls for kSpinLimit polls
+// (then this wait sets it).
+__device__ __forceinline__ bool wait_at_least(const int32_t* p,
+                                              int32_t target,
+                                              int32_t* status,
+                                              unsigned sleep_ns = 256) {
+  int32_t last = ld_acquire(p);
+  unsigned stall = 0;
+  while (last < target) {
+    if (*reinterpret_cast<volatile int32_t*>(status) != 0) return false;
+    if (++stall > kSpinLimit) {
+      atomicCAS(status, 0, kErrStalled);
+      return false;
+    }
+    __nanosleep(sleep_ns);
+    const int32_t v = ld_acquire(p);
+    if (v != last) {
+      last = v;
+      stall = 0;
+    }
+  }
+  return true;
+}
+
+// Marks the SM running this CTA in a pair's bitmap (kSmWords words).
+__device__ __forceinline__ void mark_sm(uint32_t* sms) {
+  unsigned smid;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+  atomicOr(sms + (smid / 32) % kSmWords, 1u << (smid % 32));
+}
+
+}  // namespace sa
+#endif

@@ -5,423 +5,635 @@
 // wavefront a holds diagonal k = k_lo_even + 2l + (a & 1); each iteration
 // runs wavefronts 2i+1 (odd: D and the query window read lane l+1) and 2i+2
 // (even: I and the db window read lane l-1), with the entering characters
-// c1s[b, i] / c2s[b, i]; the per-cell work is nw_banded_diag.cuh::band_cell.
-// Each pair's M/I/D at its corner (n2, n1) is written by the lane that holds
-// it (zero when the corner is never reached, as the lax capture's sum over a
-// hit mask gives).  Direction codes keyed by aidx = a - 1: fast4 nibble
-// aidx & 7 of word dirs[aidx >> 3, b, l], full byte aidx & 3 of word
-// dirs[aidx >> 2, b, l]; ceil(2 n_iters / upack) words.
+// c1s[b, i] / c2s[b, i].  Each pair's M/I/D at its corner (n2, n1) is
+// written by the lane that holds it (zero when the corner is never reached,
+// as the lax capture's sum over a hit mask gives).  Direction codes keyed by
+// aidx = a - 1: fast4 nibble aidx & 7 of word dirs[aidx >> 3, b, l], full
+// byte aidx & 3 of word dirs[aidx >> 2, b, l]; ceil(2 n_iters / upack)
+// words.
 //
-// Design: up to 8192 lanes one thread block per pair, LPT consecutive lanes
-// a thread in registers (2 for the 256-lane band of the main shape: 128
-// threads; 16 for 8192 lanes, whose state spills past the 128 registers a
-// thread of a 512-thread block).  Past 8192 lanes (or at a forced CTA width)
-// a pair's band is split over a thread-block cluster as the streamed fills'
-// rows are (cluster_split.cuh: CTAs of 4096 lanes, 8192 past 32768, at most
-// 16, so up to 131072 lanes).  The lane shift alternates direction with the
-// wavefront parity: shift_lanes (x-1 -> x) on even wavefronts, shift_down
-// (x+1 -> x) on odd ones, both in lane_shift.cuh, one barrier a wavefront;
-// across CTA edges an even wavefront's first lane reads the previous CTA's
-// last lane and an odd wavefront's last lane the next CTA's first lane
-// through distributed shared memory, one cluster barrier a wavefront, with no
-// torus wrap (the band's edge lanes are masked).  Within a thread the
-// neighbours are registers, read before any lane moves.  Entering characters
-// are staged in shared memory 128 iterations at a time, by every CTA.  Each
-// thread packs 8 (fast4) or 4 (full) wavefronts of its lanes in registers and
-// stores them as one coalesced 8- or 16-byte store into its CTA's lane slice
-// of the (Aw, B, L) dirs.  The TPU kernel's steady-state variant (no boundary
-// selects past the x = 0 / y = 0 cells) and its masked lane-reduce gather of
-// the characters have no counterpart here.
+// What bounds it on this card: the integer work of the recurrence (the
+// function's least is 20 operations a band cell in fast4, 26 in full), and,
+// for a few pairs, how many of the 132 SMs one pair's band can keep busy: a
+// wavefront's lanes depend on both neighbours' previous wavefront, so one
+// CTA a pair leaves the card idle for a batch of a few pairs, and a pair
+// split over a cluster pays a cluster barrier every wavefront.
 //
-// Past the largest cluster (16 CTAs of 8192 lanes, 131072 lanes) the band
-// takes the wide route (sa_banded_wide_fill): one launch a wavefront, each
-// lane's state (nw_banded_diag.cuh::BandCell) in global memory,
-// double-buffered by wavefront parity, one thread a lane reading its
-// neighbour's pre-step state from the other buffer (band_wide_lane); the
-// kernel boundary is the wavefront's grid-wide barrier.  It needs no CTAs to
-// be co-resident, so its only limit is device memory: 2 x 28 bytes of state
-// a lane plus the direction codes.  The route can be forced at any band
-// width, so it is checked at small ones too.
-//
-// What bounds it on this card: the integer ALU work of the recurrence and
-// its masks (~45 operations a lane-step, all lanes of the band on every
-// wavefront) and the per-wavefront block (or cluster) barrier; the direction
-// stores (0.5 B a lane-step in fast4, 1 B in full) are a few percent of HBM
-// time.  The wide route is bound by moving its state (56 bytes a lane-step,
-// through L2 where the band's state fits) and by a launch a wavefront.
+// Design: one tiled route for every band width and batch
+// (nw_banded_diag.cuh, "The tile schedule").  A pair's lanes are cut into
+// strips of W lanes and its iterations into blocks of T; tile (tau, b, s)
+// computes strip s of pair b over block tau, plus a halo of T lanes (up to
+// a multiple of 8) on each side, from the lanes' state at the block's start
+// (global memory, two buffers by block parity, 16 bytes a lane: M, I, D and
+// the H two wavefronts back; H one back is max(M, I, D) and the character
+// windows are re-read from the inputs), and keeps only its own lanes' codes,
+// finals and end state: the halo's cone of wrong values shrinks one lane a
+// side an iteration and never reaches them.  Tiles are handed out by a
+// global ticket, block-major, over a persistent grid; a tile waits (acquire
+// loads by one thread) until strips s - 1 .. s + 1 of its pair have
+// published block tau - 1 (a release store), so every wait is on an
+// earlier ticket held by a running CTA and no barrier spans CTAs, however
+// many tiles a launch has.  A wait that makes no progress for kSpinLimit
+// polls sets the launch's status word and the wrapper raises.  A pair whose
+// band fits one CTA in a batch that fills the card is one tile of all its
+// iterations (no halo, no hand-over).  Inside a tile a CTA holds LPT
+// consecutive lanes a thread in registers; a wavefront's neighbour values
+// cross threads by shuffle and warps through shared memory (one barrier a
+// wavefront, none for a one-warp CTA).  The cell (nw_banded_diag.cuh) takes
+// the DPX instructions and the characters packed 4 bits a lane (one XOR or
+// AND a thread, a mask and a compare a lane); band_cell's x = 0 / y = 0
+// boundary tests and valid mask run only in the chunks of 4 iterations that
+// can hold such cells (band_chunk_mode).  Each thread packs 8 (fast4) or 4
+// (full) wavefronts of its lanes in registers and stores them as one
+// coalesced store into its lanes of the (Aw, B, L) dirs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-#include "cluster_split.cuh"
-#include "lane_shift.cuh"
 #include "nw_banded_diag.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
+constexpr int kCharChunk = 128;  // iterations of entering characters staged
+constexpr int kStage = kCharChunk / 32;  // staged a thread at most
+constexpr unsigned kPollNs = 32;  // sleep between polls of a hand-over
+constexpr int kMaxWarps = 16;
 
-constexpr int kCharChunk = 128;  // iterations of entering chars staged
+// Threads a CTA at most at LPT lanes a thread (8 lanes keep ~100 registers
+// a thread).
+template <int LPT>
+constexpr int max_threads() {
+  return LPT == 8 ? 256 : 512;
+}
+
+// The launch's counters (one zeroed int32 tensor): [0] the ticket, [1] the
+// status word, [2, 2 + 8B) the SMs that ran each pair's tiles (bitmaps),
+// then per strip (b * S + s) the blocks it has published.
+struct Counters {
+  int32_t* ticket;
+  int32_t* status;
+  uint32_t* sms;
+  int32_t* done;
+};
+
+__device__ __forceinline__ Counters counters(int32_t* ctr, int B) {
+  Counters c;
+  c.ticket = ctr;
+  c.status = ctr + 1;
+  c.sms = reinterpret_cast<uint32_t*>(ctr + 2);
+  c.done = ctr + 2 + B * sa::kSmWords;
+  return c;
+}
+
+// A thread's LPT lanes: M/I/D one wavefront back, the H arrays of two and
+// one wavefronts back (swapping roles every wavefront instead of being
+// copied: an odd wavefront writes its H into Ha, an even one into Hb), the
+// packed direction words, and the character windows packed 4 bits a lane.
+template <int LPT>
+struct Lanes {
+  int32_t M1[LPT], I1[LPT], D1[LPT], Ha[LPT], Hb[LPT];
+  uint32_t acc[LPT];
+  uint32_t s1, s2;
+};
+
+// Hands the neighbouring thread this thread's values at its edge lane and
+// returns the other neighbour's: on an odd wavefront (lane l reads l+1)
+// the first lane's go to thread j-1, on an even one the last lane's to
+// thread j+1.  A shuffle inside a warp, shared memory at warp edges
+// (buffered by parity: one barrier a wavefront, none in a one-warp CTA).
+template <int PAR>
+__device__ __forceinline__ void band_shift(
+    int32_t (&edge)[2][3][kMaxWarps], int j, int nwarps, int32_t& o,
+    int32_t& g, int32_t& c) {
+  const int warp = j >> 5;
+  const int wl = j & 31;
+  const int32_t eo = o, eg = g, ec = c;
+  if (PAR == 1) {
+    o = __shfl_down_sync(0xffffffffu, eo, 1);
+    g = __shfl_down_sync(0xffffffffu, eg, 1);
+    c = __shfl_down_sync(0xffffffffu, ec, 1);
+  } else {
+    o = __shfl_up_sync(0xffffffffu, eo, 1);
+    g = __shfl_up_sync(0xffffffffu, eg, 1);
+    c = __shfl_up_sync(0xffffffffu, ec, 1);
+  }
+  if (nwarps > 1) {
+    if (wl == (PAR == 1 ? 0 : 31)) {
+      edge[PAR][0][warp] = eo;
+      edge[PAR][1][warp] = eg;
+      edge[PAR][2][warp] = ec;
+    }
+    __syncthreads();
+    const int from = PAR == 1 ? warp + 1 : warp - 1;
+    if (wl == (PAR == 1 ? 31 : 0) && from >= 0 && from < nwarps) {
+      o = edge[PAR][0][from];
+      g = edge[PAR][1][from];
+      c = edge[PAR][2][from];
+    }
+  }
+}
+
+// What a step needs beyond the thread's lanes.
+struct StepArgs {
+  int j, nwarps, lane0;
+  bool left_end, right_end;  // the thread holds the tile's first / last lane
+  int he, lim1, lim0;
+  int32_t n1, n2;
+  bool compat;
+  sa::Scheme sc;
+};
+
+// Wavefront a of parity PAR for a thread's lanes, with the cell MODE
+// (nw_banded_diag.cuh::band_chunk_mode); enter: the character entering the
+// tile's end lane.  ORs each lane's direction code, shifted by `shift`,
+// into its word.
+template <int LPT, int PAR, int MODE, int DIRS, bool WILDCARD, bool STD>
+__device__ __forceinline__ void band_step(Lanes<LPT>& st,
+                                          int32_t (&edge)[2][3][kMaxWarps],
+                                          const StepArgs& p, int a,
+                                          int32_t enter, uint32_t shift) {
+  int32_t(&H2)[LPT] = PAR == 1 ? st.Ha : st.Hb;
+  const int32_t(&H1)[LPT] = PAR == 1 ? st.Hb : st.Ha;
+  const sa::Scheme& sc = p.sc;
+  int32_t op[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) op[i] = (STD ? H1[i] : st.M1[i]) + sc.gap_open;
+  // The neighbour lane's pre-step values: the gap-open source, the gap
+  // plane (D on odd wavefronts, I on even ones), the moving window.
+  int32_t no = PAR == 1 ? op[0] : op[LPT - 1];
+  int32_t ng = PAR == 1 ? st.D1[0] : st.I1[LPT - 1];
+  int32_t nc = PAR == 1 ? static_cast<int32_t>(st.s1 & 0xfu)
+                        : static_cast<int32_t>((st.s2 >> (4 * (LPT - 1))) &
+                                               0xfu);
+  band_shift<PAR>(edge, p.j, p.nwarps, no, ng, nc);
+  if (PAR == 1 ? p.right_end : p.left_end) {
+    // The tile's end lane: the band's edge rule (its halo's are discarded).
+    no = sa::kNegBig;
+    ng = sa::kNegBig;
+    nc = enter & 0xf;
+  }
+  int32_t nbo[LPT], nbg[LPT];
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    if (PAR == 1) {
+      nbo[i] = i + 1 < LPT ? op[i + 1] : no;
+      nbg[i] = i + 1 < LPT ? st.D1[i + 1] : ng;
+    } else {
+      nbo[i] = i > 0 ? op[i - 1] : no;
+      nbg[i] = i > 0 ? st.I1[i - 1] : ng;
+    }
+  }
+  if (PAR == 1) {
+    st.s1 = (st.s1 >> 4) | (static_cast<uint32_t>(nc) << (4 * (LPT - 1)));
+  } else {
+    st.s2 = (st.s2 << 4) | static_cast<uint32_t>(nc);
+  }
+  const uint32_t cmp = sa::band_cmp<WILDCARD>(st.s1, st.s2);
+  const int q = (a - PAR) / 2 - p.he;
+  const int lim = PAR == 1 ? p.lim1 : p.lim0;
+  int vlo = 0, vhi = 0;
+  if (MODE == sa::kBandMasked) {
+    sa::band_valid_lanes(a, q, p.n1, p.n2, lim, vlo, vhi);
+  }
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int l = p.lane0 + i;
+    int32_t code;
+    if (MODE == sa::kBandRamp) {
+      sa::BandCell c;
+      c.M1 = st.M1[i];
+      c.I1 = st.I1[i];
+      c.D1 = st.D1[i];
+      c.H1 = H1[i];
+      c.H2 = H2[i];
+      c.s1w = static_cast<int32_t>((st.s1 >> (4 * i)) & 0xfu);
+      c.s2w = static_cast<int32_t>((st.s2 >> (4 * i)) & 0xfu);
+      const int32_t xv = q - l;
+      code = sa::band_cell<PAR, DIRS, WILDCARD, STD>(
+          c, nbo[i], nbg[i], PAR == 1 ? c.s1w : c.s2w, xv, a - xv, l <= lim,
+          p.n1, p.n2, p.compat, sc);
+      st.M1[i] = c.M1;
+      st.I1[i] = c.I1;
+      st.D1[i] = c.D1;
+      H2[i] = c.H1;
+    } else {
+      const bool eq = sa::band_eq<WILDCARD>(cmp, i);
+      const bool valid = MODE == sa::kBandLean || (l >= vlo && l <= vhi);
+      int32_t H;
+      if (PAR == 1) {
+        code = sa::lean_cell<DIRS, MODE == sa::kBandMasked>(
+            H2[i], eq, op[i], st.I1[i], nbo[i], nbg[i], valid, sc, st.M1[i],
+            st.I1[i], st.D1[i], H);
+      } else {
+        code = sa::lean_cell<DIRS, MODE == sa::kBandMasked>(
+            H2[i], eq, nbo[i], nbg[i], op[i], st.D1[i], valid, sc, st.M1[i],
+            st.I1[i], st.D1[i], H);
+      }
+      H2[i] = H;
+    }
+    if (DIRS != sa::kDirsNone) st.acc[i] |= static_cast<uint32_t>(code) << shift;
+  }
+}
 
 // s1w0/s2w0: (B, L) int32 windows; c1s/c2s: (B, n_iters) int32 entering
 // characters; n1v/n2v: (B,) lengths; finals: (B, 3) int32, zeroed by the
-// caller; dirs: (W, B, L) u32.  lim1/lim0: the last lane inside the
-// effective band on odd / even wavefronts.  sp: the band's split
-// (cluster_split.cuh); CLUSTER: block b holds CTA b % nctas of pair
-// b / nctas, else one block holds a pair (sp unused).
-template <int LPT, int DIRS, bool WILDCARD, bool STD, bool CLUSTER>
-__global__ void __launch_bounds__(sa::kMaxThreads)
-    banded_fill_kernel(const int32_t* __restrict__ s1w0,
+// caller; dirs: (Aw, B, L) u32; state: (2, B, L) lanes of 16 bytes (unused
+// for one block); ctr: the zeroed counters.  lim1/lim0: the last lane
+// inside the effective band on odd / even wavefronts; g: the tiles.
+template <int LPT, int DIRS, bool WILDCARD, bool STD>
+__global__ void __launch_bounds__(max_threads<LPT>())
+    banded_tile_kernel(const int32_t* __restrict__ s1w0,
                        const int32_t* __restrict__ s2w0,
                        const int32_t* __restrict__ c1s,
                        const int32_t* __restrict__ c2s,
                        const int32_t* __restrict__ n1v,
                        const int32_t* __restrict__ n2v,
                        int32_t* __restrict__ finals,
-                       uint32_t* __restrict__ dirs, int B, int L,
-                       int n_iters, int he, int lim1, int lim0, int compat,
-                       sa::Scheme sc, sa::Split sp) {
+                       uint32_t* __restrict__ dirs, int4* state,
+                       int32_t* ctr, int B, int L, int n_iters, int he,
+                       int lim1, int lim0, int compat, sa::Scheme sc,
+                       sa::BandTiles g) {
   constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;  // wavefronts a word
-  __shared__ int32_t cs1[kCharChunk];
-  __shared__ int32_t cs2[kCharChunk];
-  __shared__ sa::ShiftSmem sm;
+  __shared__ int32_t e1[kCharChunk];  // entering the tile's last lane
+  __shared__ int32_t e2[kCharChunk];  // entering its first lane
+  __shared__ int32_t edge[2][3][kMaxWarps];
+  __shared__ int ticket_sm;
 
-  int b = blockIdx.x;
-  int rank = 0;
-  // The neighbouring CTAs' shared memory (this CTA's own at the band's ends
-  // and for a pair held by one block).
-  const sa::ShiftSmem* prev = &sm;
-  const sa::ShiftSmem* next = &sm;
-  if constexpr (CLUSTER) {
-    cg::cluster_group cl = cg::this_cluster();
-    rank = static_cast<int>(cl.block_rank());
-    b = blockIdx.x / sp.nctas;
-    if (rank > 0) prev = cl.map_shared_rank(&sm, rank - 1);
-    if (rank + 1 < sp.nctas) next = cl.map_shared_rank(&sm, rank + 1);
-  }
+  const Counters ct = counters(ctr, B);
   const int j = threadIdx.x;
-  // Threads at or past nreal own no real lane.
-  const int nreal = CLUSTER ? sa::cta_real_lanes(rank, sp, L) / LPT : L / LPT;
-  const bool real = j < nreal;
-  const int base = (CLUSTER ? sa::cta_first_lane(rank, sp) : 0) + j * LPT;
-  const int32_t n1 = n1v[b];
-  const int32_t n2 = n2v[b];
-  const bool cmp = compat != 0;
+  const int nthr = blockDim.x;
+  const int rows = sa::band_rows(g, n_iters);
+  const int ntiles = rows * B * g.S;
   const int last_aidx = 2 * n_iters - 1;
+  // A ticket, or ntiles (none) once the launch's status is set.
+  auto take = [&]() {
+    const bool stop = *reinterpret_cast<volatile int32_t*>(ct.status);
+    return stop ? ntiles : atomicAdd(ct.ticket, 1);
+  };
+  if (j == 0) ticket_sm = take();
+  __syncthreads();
+  int ticket = ticket_sm;
 
-  sa::BandCell c[LPT];
-  uint32_t acc[LPT];
+  for (;;) {
+    if (ticket >= ntiles) return;
+    const sa::BandTile t = sa::band_tile(ticket, g, B, L, n_iters);
+    const int32_t n1 = n1v[t.b];
+    const int32_t n2 = n2v[t.b];
+    int32_t* done = ct.done + t.b * g.S;
+    const int32_t* s1r = s1w0 + static_cast<size_t>(t.b) * L;
+    const int32_t* s2r = s2w0 + static_cast<size_t>(t.b) * L;
+    const int32_t* c1r = c1s + static_cast<size_t>(t.b) * n_iters;
+    const int32_t* c2r = c2s + static_cast<size_t>(t.b) * n_iters;
+    // The characters entering the tile's end lanes over the chunk of
+    // iterations from it: loaded into registers, then stored in e1 / e2
+    // (up to kStage a thread).
+    int32_t ch1[kStage], ch2[kStage];
+    auto load_chars = [&](int it) {
 #pragma unroll
-  for (int i = 0; i < LPT; ++i) {
-    const size_t at = static_cast<size_t>(b) * L + base + i;
-    c[i] = sa::band_init(base + i, he, real ? s1w0[at] : -1,
-                         real ? s2w0[at] : -1);
-    acc[i] = 0;
-  }
-
-  // One wavefront a of parity PAR.
-  auto step = [&](auto par_tag, int a, int32_t enter) {
-    constexpr int PAR = decltype(par_tag)::value;
-    int32_t nb_open[LPT], nb_gap[LPT], nb_char[LPT];
-    if constexpr (PAR == 1) {
-      // Lane l reads lane l+1: this thread's first lane goes to the
-      // previous thread, the next thread's first lane comes in.
-      int32_t h = sa::band_open<STD>(c[0], sc);
-      int32_t g = sa::band_gap_src<PAR>(c[0]);
-      int32_t ch = sa::band_char_src<PAR>(c[0]);
-      if constexpr (CLUSTER) {
-        sa::shift_down_cluster(sm, next, j, nreal, a & 1, h, g, ch);
-      } else {
-        sa::shift_down(sm, j, a & 1, h, g, ch);
+      for (int r = 0; r < kStage; ++r) {
+        const int k = j + r * nthr;
+        const int i = t.i0 + it + k;
+        const bool in = k < kCharChunk && it + k < t.nit;
+        ch1[r] = in ? sa::band_s1(s1r, c1r, L, t.hi + i) : 0;
+        ch2[r] = in ? sa::band_s2(s2r, c2r, t.lo - i - 1) : 0;
       }
+    };
+    auto store_chars = [&]() {
 #pragma unroll
-      for (int i = 0; i < LPT - 1; ++i) {
-        nb_open[i] = sa::band_open<STD>(c[i + 1], sc);
-        nb_gap[i] = sa::band_gap_src<PAR>(c[i + 1]);
-        nb_char[i] = sa::band_char_src<PAR>(c[i + 1]);
+      for (int r = 0; r < kStage; ++r) {
+        const int k = j + r * nthr;
+        if (k < kCharChunk) {
+          e1[k] = ch1[r];
+          e2[k] = ch2[r];
+        }
       }
-      nb_open[LPT - 1] = h;
-      nb_gap[LPT - 1] = g;
-      nb_char[LPT - 1] = ch;
-    } else {
-      // Lane l reads lane l-1.
-      int32_t h = sa::band_open<STD>(c[LPT - 1], sc);
-      int32_t g = sa::band_gap_src<PAR>(c[LPT - 1]);
-      int32_t ch = sa::band_char_src<PAR>(c[LPT - 1]);
-      sa::shift_lanes(sm, prev, CLUSTER, j, nreal, a & 1, h, g, ch);
-#pragma unroll
-      for (int i = 1; i < LPT; ++i) {
-        nb_open[i] = sa::band_open<STD>(c[i - 1], sc);
-        nb_gap[i] = sa::band_gap_src<PAR>(c[i - 1]);
-        nb_char[i] = sa::band_char_src<PAR>(c[i - 1]);
-      }
-      nb_open[0] = h;
-      nb_gap[0] = g;
-      nb_char[0] = ch;
+    };
+    load_chars(0);
+    // The next ticket, taken while this tile runs.
+    int next = 0;
+    if (j == 0) {
+      next = take();
+      sa::mark_sm(ct.sms + t.b * sa::kSmWords);
     }
-    const int32_t q = (a - PAR) / 2 - he;
-    const int lim = PAR == 1 ? lim1 : lim0;
-    const int aidx = a - 1;
-    const uint32_t shift = DIRS == sa::kDirsFast4 ? 4u * (aidx & 7)
-                                                  : 8u * (aidx & 3);
+    // Threads 0-2 wait, at once, for strips s - 1 .. s + 1 of block tau - 1.
+    bool ok = true;
+    const int dep = t.s - 1 + j;
+    if (t.tau > 0 && j < 3 && dep >= 0 && dep < g.S) {
+      ok = sa::wait_at_least(done + dep, t.tau, ct.status, kPollNs);
+    }
+    store_chars();
+    if (!__syncthreads_and(ok)) return;
+
+    StepArgs p;
+    p.j = j;
+    p.nwarps = nthr >> 5;
+    p.lane0 = t.lo + j * LPT;
+    p.left_end = j == 0;
+    p.right_end = p.lane0 + LPT == t.hi;
+    p.he = he;
+    p.lim1 = lim1;
+    p.lim0 = lim0;
+    p.n1 = n1;
+    p.n2 = n2;
+    p.compat = compat != 0;
+    p.sc = sc;
+    const bool real = p.lane0 < t.hi;
+    const bool owned = p.lane0 >= t.own_lo && p.lane0 < t.own_hi;
+
+    // The lanes' state at the block's start.
+    Lanes<LPT> st;
+    st.s1 = 0;
+    st.s2 = 0;
 #pragma unroll
     for (int i = 0; i < LPT; ++i) {
-      const int lane = base + i;
-      const int32_t xv = q - lane;
-      const int32_t yv = a - xv;
-      const bool edge = PAR == 1 ? lane == L - 1 : lane == 0;
-      const int32_t code = sa::band_cell<PAR, DIRS, WILDCARD, STD>(
-          c[i], nb_open[i], nb_gap[i], nb_char[i], edge, enter, xv, yv,
-          lane <= lim, n1, n2, cmp, sc);
-      if (DIRS != sa::kDirsNone) acc[i] |= static_cast<uint32_t>(code) << shift;
-      if (xv == n2 && yv == n1 && real) {
-        finals[static_cast<size_t>(b) * 3 + 0] = c[i].M1;
-        finals[static_cast<size_t>(b) * 3 + 1] = c[i].I1;
-        finals[static_cast<size_t>(b) * 3 + 2] = c[i].D1;
-      }
-    }
-    if (DIRS != sa::kDirsNone &&
-        ((aidx & (kUp - 1)) == kUp - 1 || aidx == last_aidx)) {
+      const int l = p.lane0 + i;
+      int32_t M = sa::kNegBig, I = sa::kNegBig, D = sa::kNegBig;
+      int32_t H2 = sa::kNegBig;
       if (real) {
-        uint32_t* dst =
-            dirs + (static_cast<size_t>(aidx / kUp) * B + b) * L + base;
-        if constexpr (LPT % 4 == 0) {
-#pragma unroll
-          for (int i = 0; i < LPT; i += 4) {
-            *reinterpret_cast<uint4*>(dst + i) =
-                make_uint4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
-          }
+        if (t.tau == 0) {
+          M = l == -he ? 0 : sa::kNegBig;  // the origin
+        } else {
+          const int4 v = __ldcg(
+              state + (static_cast<size_t>(t.tau & 1) * B + t.b) * L + l);
+          M = v.x;
+          I = v.y;
+          D = v.z;
+          H2 = v.w;
+        }
+        st.s1 |= (static_cast<uint32_t>(sa::band_s1(s1r, c1r, L, l + t.i0)) &
+                  0xfu) << (4 * i);
+        st.s2 |= (static_cast<uint32_t>(sa::band_s2(s2r, c2r, l - t.i0)) &
+                  0xfu) << (4 * i);
+      }
+      st.M1[i] = M;
+      st.I1[i] = I;
+      st.D1[i] = D;
+      st.Ha[i] = H2;
+      st.Hb[i] = sa::max3(M, I, D);
+      st.acc[i] = 0;
+    }
+    int ca = 0, clane = 0;
+    const bool corner = sa::band_corner(n1, n2, he, ca, clane) &&
+                        clane >= t.own_lo && clane < t.own_hi &&
+                        clane >= p.lane0 && clane < p.lane0 + LPT;
+
+    // The direction words of wavefront aidx + 1, complete; the corner.
+    auto store_words = [&](int aidx) {
+      if (owned) {
+        uint32_t* dst = dirs + (static_cast<size_t>(aidx / kUp) * B + t.b) * L +
+                        p.lane0;
+        if constexpr (LPT == 2) {
+          *reinterpret_cast<uint2*>(dst) = make_uint2(st.acc[0], st.acc[1]);
         } else {
 #pragma unroll
-          for (int i = 0; i < LPT; i += 2) {
-            *reinterpret_cast<uint2*>(dst + i) = make_uint2(acc[i], acc[i + 1]);
+          for (int i = 0; i < LPT; i += 4) {
+            *reinterpret_cast<uint4*>(dst + i) = make_uint4(
+                st.acc[i], st.acc[i + 1], st.acc[i + 2], st.acc[i + 3]);
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < LPT; ++i) acc[i] = 0;
-    }
-  };
-
-  const size_t crow = static_cast<size_t>(b) * n_iters;
-  for (int it = 0; it < n_iters; ++it) {
-    const int ic = it % kCharChunk;
-    if (ic == 0) {
-      __syncthreads();
-      for (int i = j; i < kCharChunk; i += blockDim.x) {
-        const bool in = it + i < n_iters;
-        cs1[i] = in ? c1s[crow + it + i] : -1;
-        cs2[i] = in ? c2s[crow + it + i] : -1;
+      for (int i = 0; i < LPT; ++i) st.acc[i] = 0;
+    };
+    auto capture = [&]() {
+#pragma unroll
+      for (int i = 0; i < LPT; ++i) {
+        if (p.lane0 + i == clane) {
+          int32_t* f = finals + static_cast<size_t>(t.b) * 3;
+          f[0] = st.M1[i];
+          f[1] = st.I1[i];
+          f[2] = st.D1[i];
+        }
       }
-      __syncthreads();
+    };
+    // The code's shift for wavefront a0 + x of a chunk (aidx = a0 - 1 a
+    // multiple of 8).
+    auto shift_of = [](int x) {
+      return DIRS == sa::kDirsFast4 ? 4u * x : 8u * (x & 3);
+    };
+    // A whole chunk of 4 iterations from wavefront a0: one fast4 word (two
+    // full words) a lane.  At 2 lanes a thread the chunk is unrolled, so
+    // its shifts and stores are fixed at compile time; at 4 and 8 the
+    // unrolled chunk would outgrow the instruction cache.
+    auto iteration = [&](auto mode_tag, int a0, int kc, bool cap, int k) {
+      constexpr int MODE = decltype(mode_tag)::value;
+      const int a = a0 + 2 * k;
+      band_step<LPT, 1, MODE, DIRS, WILDCARD, STD>(st, edge, p, a,
+                                                   e1[kc + k],
+                                                   shift_of(2 * k));
+      if (cap && a == ca) capture();
+      band_step<LPT, 0, MODE, DIRS, WILDCARD, STD>(st, edge, p, a + 1,
+                                                   e2[kc + k],
+                                                   shift_of(2 * k + 1));
+      if (cap && a + 1 == ca) capture();
+      if (DIRS == sa::kDirsFull && (k & 1)) store_words(a);
+      if (DIRS == sa::kDirsFast4 && k == 3) store_words(a);
+    };
+    auto run_chunk = [&](auto mode_tag, int a0, int kc, bool cap) {
+      if constexpr (LPT <= 2) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) iteration(mode_tag, a0, kc, cap, k);
+      } else {
+#pragma unroll 1
+        for (int k = 0; k < 4; ++k) iteration(mode_tag, a0, kc, cap, k);
+      }
+    };
+
+    for (int it = 0; it < t.nit; it += 4) {
+      if (it > 0 && it % kCharChunk == 0) {
+        load_chars(it);
+        __syncthreads();  // the previous chunk's characters are read
+        store_chars();
+        __syncthreads();
+      }
+      const int n = t.nit - it < 4 ? t.nit - it : 4;
+      const int a0 = 2 * (t.i0 + it) + 1;
+      const int kc = it % kCharChunk;
+      const bool cap = corner && ca >= a0 && ca < a0 + 2 * n;
+      if (n == 4) {
+        const int mode = sa::band_chunk_mode(t.i0 + it, n, t.lo, t.hi, he,
+                                             n1, n2, lim1, lim0);
+        if (mode == sa::kBandLean) {
+          run_chunk(std::integral_constant<int, sa::kBandLean>(), a0, kc,
+                    cap);
+        } else if (mode == sa::kBandMasked) {
+          run_chunk(std::integral_constant<int, sa::kBandMasked>(), a0, kc,
+                    cap);
+        } else {
+          run_chunk(std::integral_constant<int, sa::kBandRamp>(), a0, kc,
+                    cap);
+        }
+        continue;
+      }
+      // The band's last iterations (fewer than 4): band_cell, which takes
+      // any cell, and the last words partial.
+      for (int k = 0; k < n; ++k) {
+        const int a = a0 + 2 * k;
+        band_step<LPT, 1, sa::kBandRamp, DIRS, WILDCARD, STD>(
+            st, edge, p, a, e1[kc + k], shift_of(2 * k));
+        if (cap && a == ca) capture();
+        band_step<LPT, 0, sa::kBandRamp, DIRS, WILDCARD, STD>(
+            st, edge, p, a + 1, e2[kc + k], shift_of(2 * k + 1));
+        if (cap && a + 1 == ca) capture();
+        if (DIRS != sa::kDirsNone &&
+            ((a & (kUp - 1)) == kUp - 1 || a == last_aidx)) {
+          store_words(a);
+        }
+      }
     }
-    step(std::integral_constant<int, 1>(), 2 * it + 1, cs1[ic]);
-    step(std::integral_constant<int, 0>(), 2 * it + 2, cs2[ic]);
+
+    // The owned lanes' end state for the next block, then "block tau done".
+    const bool publish = t.tau + 1 < rows;
+    if (publish && owned) {
+      int4* dst = state +
+                  (static_cast<size_t>((t.tau + 1) & 1) * B + t.b) * L +
+                  p.lane0;
+#pragma unroll
+      for (int i = 0; i < LPT; ++i) {
+        dst[i] = make_int4(st.M1[i], st.I1[i], st.D1[i], st.Ha[i]);
+      }
+    }
+    if (j == 0) ticket_sm = next;
+    // The barrier orders every thread's stores before thread 0's fence and
+    // release (and e1 / e2's last reads before the next tile's stores).
+    __syncthreads();
+    if (publish && j == 0) {
+      __threadfence();
+      sa::st_release(done + t.s, t.tau + 1);
+    }
+    ticket = ticket_sm;
   }
-  // Keep this CTA's shared memory alive until its neighbours have read it.
-  if constexpr (CLUSTER) cg::this_cluster().sync();
 }
 
-typedef void (*BandKernel)(const int32_t*, const int32_t*, const int32_t*,
+typedef void (*TileKernel)(const int32_t*, const int32_t*, const int32_t*,
                            const int32_t*, const int32_t*, const int32_t*,
-                           int32_t*, uint32_t*, int, int, int, int, int, int,
-                           int, sa::Scheme, sa::Split);
+                           int32_t*, uint32_t*, int4*, int32_t*, int, int, int,
+                           int, int, int, int, sa::Scheme, sa::BandTiles);
 
-template <int LPT, int DIRS, bool STD, bool CL>
-BandKernel pick_wild(bool wildcard) {
-  return wildcard ? banded_fill_kernel<LPT, DIRS, true, STD, CL>
-                  : banded_fill_kernel<LPT, DIRS, false, STD, CL>;
+template <int LPT, int DIRS, bool STD>
+TileKernel pick_wild(bool wildcard) {
+  return wildcard ? banded_tile_kernel<LPT, DIRS, true, STD>
+                  : banded_tile_kernel<LPT, DIRS, false, STD>;
 }
 
 // The reference model takes every dirs mode; std none or fast4.
-template <int LPT, bool CL>
-BandKernel pick(int dirs_mode, bool wildcard, bool std_model) {
+template <int LPT>
+TileKernel pick_mode(int dirs_mode, bool wildcard, bool std_model) {
   if (std_model) {
     switch (dirs_mode) {
       case sa::kDirsNone:
-        return pick_wild<LPT, sa::kDirsNone, true, CL>(wildcard);
+        return pick_wild<LPT, sa::kDirsNone, true>(wildcard);
       case sa::kDirsFast4:
-        return pick_wild<LPT, sa::kDirsFast4, true, CL>(wildcard);
+        return pick_wild<LPT, sa::kDirsFast4, true>(wildcard);
       default:
         return nullptr;
     }
   }
   switch (dirs_mode) {
     case sa::kDirsNone:
-      return pick_wild<LPT, sa::kDirsNone, false, CL>(wildcard);
+      return pick_wild<LPT, sa::kDirsNone, false>(wildcard);
     case sa::kDirsFast4:
-      return pick_wild<LPT, sa::kDirsFast4, false, CL>(wildcard);
+      return pick_wild<LPT, sa::kDirsFast4, false>(wildcard);
     case sa::kDirsFull:
-      return pick_wild<LPT, sa::kDirsFull, false, CL>(wildcard);
+      return pick_wild<LPT, sa::kDirsFull, false>(wildcard);
     default:
       return nullptr;
   }
 }
 
+// The instance for lpt lanes a thread and threads a CTA (a multiple of 32,
+// at most max_threads); nullptr if there is none.
+TileKernel pick(int lpt, int threads, int dirs_mode, bool wildcard,
+                bool std_model) {
+  if (threads <= 0 || threads % 32 != 0) return nullptr;
+  switch (lpt) {
+    case 2:
+      return threads <= max_threads<2>()
+                 ? pick_mode<2>(dirs_mode, wildcard, std_model)
+                 : nullptr;
+    case 4:
+      return threads <= max_threads<4>()
+                 ? pick_mode<4>(dirs_mode, wildcard, std_model)
+                 : nullptr;
+    case 8:
+      return threads <= max_threads<8>()
+                 ? pick_mode<8>(dirs_mode, wildcard, std_model)
+                 : nullptr;
+  }
+  return nullptr;
+}
+
 }  // namespace
 
-// Lanes per thread for a band of L lanes (a multiple of 128): 2 up to 256
-// lanes, 4 up to 2048, 8 up to 4096, 16 up to 8192; 0 if L is out of range.
-extern "C" int sa_banded_lanes_per_thread(int L) {
-  if (L <= 0 || L % 128 != 0) return 0;
-  if (L <= 256) return 2;
-  if (L <= 2048) return 4;
-  if (L <= 4096) return 8;
-  if (L <= 8192) return 16;
-  return 0;
+// The card's SMs (0 without a device).
+extern "C" int sa_sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return sms;
+}
+
+// CTAs of the banded instance the card holds at once (occupancy x SMs);
+// 0 for a shape it has no instance for.
+extern "C" int sa_banded_resident_ctas(int lpt, int threads, int dirs_mode,
+                                       int wildcard, int std_model) {
+  const TileKernel fn =
+      pick(lpt, threads, dirs_mode, wildcard != 0, std_model != 0);
+  if (fn == nullptr) return 0;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, reinterpret_cast<const void*>(fn), threads, 0) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return per_sm * sa_sm_count();
 }
 
 // s1w0/s2w0: (B, L) int32; c1s/c2s: (B, n_iters) int32; n1v/n2v: (B,) int32;
 // finals: (B, 3) int32, zeroed; dirs: (ceil(2 n_iters / upack), B, L) u32,
-// unused for dirs_mode 0.  he = k_lo_even / 2; lim1/lim0: the last lane of
-// the effective band on odd / even wavefronts.  dirs_mode 0/1/2 (none,
-// fast4, full); std_model != 0: gaps open from H (dirs none or fast4).
-// cta_lanes: 0 (one block up to 8192 lanes, a cluster past it), or the
-// forced CTA width of the split.  Returns the cudaGetLastError() of the
-// launch, -1 for an unsupported shape or mode, -3 for a cluster the card
-// cannot schedule.
-extern "C" int sa_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
-                              const int32_t* c1s, const int32_t* c2s,
-                              const int32_t* n1v, const int32_t* n2v,
-                              int32_t* finals, uint32_t* dirs, int B, int L,
-                              int n_iters, int he, int lim1, int lim0,
-                              int match, int mismatch, int gap_open,
-                              int gap_extend, int dirs_mode, int compat,
-                              int wildcard, int std_model, int cta_lanes,
-                              void* stream) {
-  const sa::Split sp = sa::plan_split(L, cta_lanes);
-  if (sp.nctas == 0 || B <= 0 || n_iters <= 0) return -1;
-  const bool w = wildcard != 0, st = std_model != 0;
-  BandKernel fn = nullptr;
-  sa::Split launch = sp;
-  if (sp.nctas == 1) {
-    // One block a pair, at its own lanes a thread.
-    launch.lpt = sa_banded_lanes_per_thread(L);
-    launch.cta_lanes = L;
-    switch (launch.lpt) {
-      case 2: fn = pick<2, false>(dirs_mode, w, st); break;
-      case 4: fn = pick<4, false>(dirs_mode, w, st); break;
-      case 8: fn = pick<8, false>(dirs_mode, w, st); break;
-      case 16: fn = pick<16, false>(dirs_mode, w, st); break;
-    }
-  } else {
-    switch (sp.lpt) {
-      case 4: fn = pick<4, true>(dirs_mode, w, st); break;
-      case 8: fn = pick<8, true>(dirs_mode, w, st); break;
-      case 16: fn = pick<16, true>(dirs_mode, w, st); break;
-    }
-  }
-  if (fn == nullptr) return -1;
-  sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  void* args[] = {&s1w0, &s2w0, &c1s,  &c2s,    &n1v, &n2v,
-                  &finals, &dirs, &B,  &L,      &n_iters, &he,
-                  &lim1, &lim0, &compat, &sc,   &launch};
-  return sa::launch_split(reinterpret_cast<const void*>(fn), launch, B, args,
-                          stream);
-}
-
-namespace {
-
-constexpr int kWideThreads = 256;  // threads a block of the wide route
-
-__global__ void __launch_bounds__(kWideThreads)
-    band_wide_init(const int32_t* __restrict__ s1w0,
-                   const int32_t* __restrict__ s2w0,
-                   sa::BandCell* __restrict__ state, size_t n, int L, int he) {
-  const size_t at = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (at >= n) return;
-  state[at] = sa::band_init(static_cast<int32_t>(at % L), he, s1w0[at],
-                            s2w0[at]);
-}
-
-// One wavefront a of parity PAR over every lane of every pair (one thread a
-// lane): nw_banded_diag.cuh::band_wide_lane.
-template <int PAR, int DIRS, bool WILDCARD, bool STD>
-__global__ void __launch_bounds__(kWideThreads)
-    band_wide_step(const sa::BandCell* __restrict__ in,
-                   sa::BandCell* __restrict__ out,
-                   const int32_t* __restrict__ enter,
-                   const int32_t* __restrict__ n1v,
-                   const int32_t* __restrict__ n2v,
-                   int32_t* __restrict__ finals, uint32_t* __restrict__ dirs,
-                   int B, int L, int n_iters, int a, int he, int lim,
-                   int compat, sa::Scheme sc) {
-  const size_t at = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (at >= static_cast<size_t>(B) * L) return;
-  const int b = static_cast<int>(at / L);
-  const int l = static_cast<int>(at % L);
-  sa::band_wide_lane<PAR, DIRS, WILDCARD, STD>(
-      in, out, enter + static_cast<size_t>(b) * n_iters, n1v, n2v, finals,
-      dirs, B, L, a, he, lim, compat != 0, sc, b, l);
-}
-
-typedef void (*WideStep)(const sa::BandCell*, sa::BandCell*, const int32_t*,
-                         const int32_t*, const int32_t*, int32_t*, uint32_t*,
-                         int, int, int, int, int, int, int, sa::Scheme);
-
-template <int PAR, int DIRS, bool STD>
-WideStep wide_wild(bool wildcard) {
-  return wildcard ? band_wide_step<PAR, DIRS, true, STD>
-                  : band_wide_step<PAR, DIRS, false, STD>;
-}
-
-// The same modes as the one-block and cluster instances.
-template <int PAR>
-WideStep wide_pick(int dirs_mode, bool wildcard, bool std_model) {
-  if (std_model) {
-    switch (dirs_mode) {
-      case sa::kDirsNone: return wide_wild<PAR, sa::kDirsNone, true>(wildcard);
-      case sa::kDirsFast4:
-        return wide_wild<PAR, sa::kDirsFast4, true>(wildcard);
-      default: return nullptr;
-    }
-  }
-  switch (dirs_mode) {
-    case sa::kDirsNone: return wide_wild<PAR, sa::kDirsNone, false>(wildcard);
-    case sa::kDirsFast4:
-      return wide_wild<PAR, sa::kDirsFast4, false>(wildcard);
-    case sa::kDirsFull: return wide_wild<PAR, sa::kDirsFull, false>(wildcard);
-    default: return nullptr;
-  }
-}
-
-}  // namespace
-
-// The wide route: sa_banded_fill's arguments minus cta_lanes, plus state:
-// (2, B, L) BandCell scratch (7 int32 a lane), allocated by the caller.
-// Launches one init and 2 n_iters wavefront kernels on the stream.  Returns
-// the cudaGetLastError() after the last launch (or the first that failed),
-// -1 for an unsupported shape or mode.
-extern "C" int sa_banded_wide_fill(
+// unused for dirs_mode 0; state: (2, B, L, 4) int32 when there are several
+// blocks; ctr: 2 + 8B + B * strips int32, zeroed.  he = k_lo_even / 2;
+// lim1/lim0: the last lane of the effective band on odd / even wavefronts.
+// dirs_mode 0/1/2 (none, fast4, full); std_model != 0: gaps open from H
+// (dirs none or fast4).  strip_lanes / block_iters / order: the tiles
+// (nw_banded_diag.cuh::BandTiles; strips = ceil(L / strip_lanes)); lpt /
+// threads: lanes a thread and threads a CTA, enough for a tile's lanes;
+// ctas: the persistent grid.  Returns the cudaGetLastError() of the launch,
+// -1 for an unsupported shape or mode.  After the launch ctr[1] is non-zero
+// if a wait stalled (the results are then incomplete).
+extern "C" int sa_banded_fill(
     const int32_t* s1w0, const int32_t* s2w0, const int32_t* c1s,
     const int32_t* c2s, const int32_t* n1v, const int32_t* n2v,
-    int32_t* finals, uint32_t* dirs, void* state, int B, int L, int n_iters,
-    int he, int lim1, int lim0, int match, int mismatch, int gap_open,
-    int gap_extend, int dirs_mode, int compat, int wildcard, int std_model,
-    void* stream) {
-  if (B <= 0 || L <= 0 || n_iters <= 0) return -1;
-  const bool w = wildcard != 0, st = std_model != 0;
-  WideStep odd = wide_pick<1>(dirs_mode, w, st);
-  WideStep even = wide_pick<0>(dirs_mode, w, st);
-  if (odd == nullptr || even == nullptr) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t n = static_cast<size_t>(B) * L;
-  const unsigned blocks =
-      static_cast<unsigned>((n + kWideThreads - 1) / kWideThreads);
-  sa::BandCell* buf0 = static_cast<sa::BandCell*>(state);
-  sa::BandCell* buf1 = buf0 + n;
-  band_wide_init<<<blocks, kWideThreads, 0, s>>>(s1w0, s2w0, buf0, n, L, he);
-  int err = static_cast<int>(cudaGetLastError());
-  for (int it = 0; it < n_iters && err == 0; ++it) {
-    odd<<<blocks, kWideThreads, 0, s>>>(buf0, buf1, c1s, n1v, n2v, finals,
-                                        dirs, B, L, n_iters, 2 * it + 1, he,
-                                        lim1, compat, sc);
-    even<<<blocks, kWideThreads, 0, s>>>(buf1, buf0, c2s, n1v, n2v, finals,
-                                         dirs, B, L, n_iters, 2 * it + 2, he,
-                                         lim0, compat, sc);
-    err = static_cast<int>(cudaGetLastError());
-  }
-  return err;
+    int32_t* finals, uint32_t* dirs, void* state, int32_t* ctr, int B, int L,
+    int n_iters, int he, int lim1, int lim0, int match, int mismatch,
+    int gap_open, int gap_extend, int dirs_mode, int compat, int wildcard,
+    int std_model, int strip_lanes, int block_iters, int order, int lpt,
+    int threads, int ctas, void* stream) {
+  const sa::BandTiles g{strip_lanes, block_iters,
+                        strip_lanes > 0 ? (L + strip_lanes - 1) / strip_lanes
+                                        : 0,
+                        order};
+  if (B <= 0 || ctas < 1 || !sa::band_tiles_ok(g, L, n_iters)) return -1;
+  const int window = g.W + 2 * sa::band_halo(g, n_iters);
+  if (threads * lpt < (window < L ? window : L)) return -1;
+  if (sa::band_rows(g, n_iters) > 1 && state == nullptr) return -1;
+  const TileKernel fn =
+      pick(lpt, threads, dirs_mode, wildcard != 0, std_model != 0);
+  if (fn == nullptr) return -1;
+  sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  int4* st = static_cast<int4*>(state);
+  sa::BandTiles ga = g;
+  void* args[] = {&s1w0, &s2w0, &c1s, &c2s,  &n1v,  &n2v,    &finals,
+                  &dirs, &st,   &ctr, &B,    &L,    &n_iters, &he,
+                  &lim1, &lim0, &compat, &sc, &ga};
+  cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(ctas),
+                   dim3(threads), args, 0,
+                   static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }

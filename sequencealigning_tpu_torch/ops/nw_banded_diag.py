@@ -30,10 +30,11 @@ Two implementations of the fill, chosen by the tensors' device:
   _banded_diag_lax (CPU tensors, and the reference the kernel is checked
   against);
 * ``banded_diag_fill_cuda`` -- the hand-written kernel
-  (``csrc/nw_banded_diag.cu``; CUDA tensors only), one block a pair up to
-  8192 lanes, a thread-block cluster a pair up to 131072 lanes, and past
-  that the wide route: one launch a wavefront with the lanes' state in
-  device memory, limited by device memory only.
+  (``csrc/nw_banded_diag.cu``; CUDA tensors only), one tiled route for
+  every band width and batch: each pair's band in strips of lanes x blocks
+  of iterations, every tile computing its strip plus a halo as wide as its
+  block, from the lanes' state at the block's start, the tiles handed out
+  over the whole card by a global ticket (``band_tiles``).
 """
 
 from __future__ import annotations
@@ -49,14 +50,10 @@ from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
 from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch.ops.nw_affine import _bit
+from sequencealigning_tpu_torch.ops.nw_affine_tiled import _SM_WORDS, _popcounts
 from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
 NEGBIG = -(2 ** 24)  # band-mask -inf
-# The widest band a thread-block cluster holds: 16 CTAs of 8192 lanes
-# (csrc/cluster_split.cuh::plan_split); wider bands take the wide route.
-CUDA_BAND_LANES = 16 * 8192
-# Bytes of the wide route's state a lane: two buffers of 7 int32.
-WIDE_STATE_BYTES = 2 * 7 * 4
 _DIRS_CODES = {False: 0, "fast4": 1, "full": 2}
 
 
@@ -333,112 +330,172 @@ def banded_diag_fill_torch(
 # ---------------------------------------------------------------------------
 
 
-def _cuda_fill_setup(s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat,
-                     wildcard, dirs_mode, model, name):
-    """The checks and outputs the two CUDA routes share: (inputs, finals,
-    dirs, the int arguments both entries take after their pointers)."""
+class BandTiles(NamedTuple):
+    """The tiled route's shape (csrc/nw_banded_diag.cuh, BandTiles): strips
+    of strip_lanes lanes a pair (strips of them), blocks of block_iters
+    iterations (rows of them), halo lanes a side, lanes_per_thread and
+    threads a CTA; order 1 reverses the tickets (a schedule that cannot be
+    met)."""
+
+    strip_lanes: int
+    block_iters: int
+    strips: int
+    rows: int
+    halo: int
+    lanes_per_thread: int
+    threads: int
+    order: int = 0
+
+
+# The tile rule's constants: a pair's band fits one CTA up to ONE_TILE_LANES
+# lanes; a split band's strips are MIN_STRIP_LANES to MAX_STRIP_LANES wide
+# (a multiple of 32) in blocks of BLOCK_ITERS iterations (csrc/band_sweep.py
+# on the card chose them).
+ONE_TILE_LANES = 2048
+MIN_STRIP_LANES = 128
+MAX_STRIP_LANES = 512
+BLOCK_ITERS = 64
+# Threads a CTA at most at 2, 4 or 8 lanes a thread (csrc: max_threads).
+_MAX_THREADS = {2: 512, 4: 512, 8: 256}
+
+
+def band_tiles(B: int, L: int, n_iters: int, sms: int,
+               strip_lanes: int = 0, block_iters: int = 0) -> BandTiles:
+    """The tiles of a batch of B pairs of L lanes and n_iters iterations on
+    a card of `sms` SMs.  A batch of at least one pair an SM whose band fits
+    one CTA takes one tile a pair (all its iterations, no halo, one warp
+    at 8 lanes a thread where it can).  Otherwise each pair's band is cut
+    into strips in blocks of BLOCK_ITERS iterations at 2 lanes a thread
+    (4 past 1024 lanes a tile): strips of MIN_STRIP_LANES while the batch
+    has at most two of them an SM (a band of fewer than 3 stays one tile),
+    else as many strips as give about one tile an SM, MIN_STRIP_LANES to
+    MAX_STRIP_LANES wide.
+    strip_lanes / block_iters force the strip width (a multiple of 8) and
+    the block (a multiple of 4 when there are several)."""
+    if strip_lanes:
+        W = min(strip_lanes, L)
+    elif B >= sms and L <= ONE_TILE_LANES:
+        W = L
+    elif B * -(-L // MIN_STRIP_LANES) <= 2 * sms:
+        # Few strips even at the narrowest: the narrowest, whose tile (the
+        # strip and its halos) is four warps; a band that would take fewer
+        # than 3 stays one tile (two strips and their halos take longer).
+        W = MIN_STRIP_LANES if L > 2 * MIN_STRIP_LANES else L
+    else:
+        want = max(1, sms // max(B, 1))
+        W = _round_up(-(-L // want), 32)
+        W = min(max(W, MIN_STRIP_LANES), MAX_STRIP_LANES, L)
+    S = -(-L // W)
+    T = block_iters or (n_iters if S == 1 else BLOCK_ITERS)
+    rows = -(-n_iters // T)
+    halo = _round_up(min(T, n_iters), 8) if S > 1 else 0
+    window = min(L, W + 2 * halo)
+    if S == 1 and B >= sms:
+        lpt = 8 if window >= 256 else 4
+    else:
+        lpt = next((n for n in (2, 4, 8)
+                    if -(-window // n) <= _MAX_THREADS[n]), 8)
+    threads = _round_up(-(-window // lpt), 32)
+    return BandTiles(W, T, S, rows, halo, lpt, threads)
+
+
+def _check_tiles(tiles: BandTiles, L: int, n_iters: int) -> None:
+    """The shapes the kernel takes (csrc: band_tiles_ok, the instances)."""
+    W, T = tiles.strip_lanes, tiles.block_iters
+    if W <= 0 or W % 8:
+        raise ValueError(f"strip width {W}: not a positive multiple of 8")
+    if T <= 0 or (tiles.rows > 1 and T % 4):
+        raise ValueError(f"block of {T} iterations: not a positive "
+                         "multiple of 4")
+    if tiles.halo > W:
+        raise ValueError(f"a block of {T} iterations needs a halo of "
+                         f"{tiles.halo} lanes, wider than strips of {W}")
+    if tiles.threads > _MAX_THREADS.get(tiles.lanes_per_thread, 0):
+        raise ValueError(f"tiles of {min(L, W + 2 * tiles.halo)} lanes "
+                         "exceed a CTA")
+
+
+def banded_diag_fill_cuda(
+    s1w0, s2w0, c1s, c2s, n1v, n2v, plan: BandPlan,
+    scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
+    model: str = "ref", strip_lanes: int = 0, block_iters: int = 0,
+):
+    """The banded fill kernel (csrc/nw_banded_diag.cu) on CUDA tensors:
+    same arguments and results as banded_diag_fill_torch, at any band
+    width.  Each pair's band is tiled into strips x blocks of iterations
+    (band_tiles' rule from the batch and the card's SMs; strip_lanes /
+    block_iters force them, for testing), handed out over a persistent
+    grid; the launch's shape, the SMs each pair ran on included, is left in
+    ``banded_diag_fill_cuda.last_launch``.  Raises ValueError on a CPU
+    tensor, a non-contiguous input or tiles out of range, RuntimeError on a
+    failed launch or a tile that waited on its neighbours past the spin
+    limit."""
     dirs_mode = _norm_dirs(dirs_mode)
     _check_model(model, compat, dirs_mode)
     _check_fill_args(s1w0, s2w0, c1s, c2s, n1v, n2v, plan)
     if not s1w0.is_cuda:
-        raise ValueError(f"{name} needs CUDA tensors")
+        raise ValueError("banded_diag_fill_cuda needs CUDA tensors")
     ins = (s1w0, s2w0, c1s, c2s, n1v, n2v)
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("banded fill inputs must be contiguous")
     B, L = s1w0.shape
     n_iters = c1s.shape[1]
+    lib = csrc.kernels()
+    tiles = band_tiles(B, L, n_iters, lib.sa_sm_count(), strip_lanes,
+                       block_iters)
+    _check_tiles(tiles, L, n_iters)
+    dcode = _DIRS_CODES[dirs_mode]
+    resident = lib.sa_banded_resident_ctas(
+        tiles.lanes_per_thread, tiles.threads, dcode, int(wildcard),
+        int(model == "std"))
+    if resident <= 0:
+        raise RuntimeError(f"banded_diag_fill_cuda: no CTA of "
+                           f"{tiles.threads} threads fits on the card")
+    per_row = B * tiles.strips
+    ctas = min(resident, per_row)
     dev = s1w0.device
     finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
     dirs = None
     if dirs_mode:
         dirs = torch.empty((-(-2 * n_iters // _upack(dirs_mode)), B, L),
                            dtype=torch.uint32, device=dev)
-    ints = (B, L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
-            scheme.match_, scheme.mismatch, scheme.gap_open,
-            scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
-            int(wildcard), int(model == "std"))
-    return ins, finals, dirs, ints
-
-
-def banded_diag_fill_cuda(
-    s1w0, s2w0, c1s, c2s, n1v, n2v, plan: BandPlan,
-    scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
-    model: str = "ref", cta_lanes: int = 0,
-):
-    """The banded fill kernel (csrc/nw_banded_diag.cu) on CUDA tensors:
-    same arguments and results as banded_diag_fill_torch.  A band past 8192
-    lanes is split over a thread-block cluster; cta_lanes > 0 forces CTAs of
-    that many lanes (a multiple of 128, for testing the split).  A band past
-    CUDA_BAND_LANES takes the wide route (banded_wide_fill_cuda, which any
-    band may be given directly), which has no CTA width.  Raises ValueError
-    on a CPU tensor, a non-contiguous input or a CTA width out of range,
-    RuntimeError on a failed launch or a cluster the card cannot
-    schedule."""
-    if plan.L > CUDA_BAND_LANES:
-        if cta_lanes:
-            raise ValueError("the wide route has no CTA width")
-        return banded_wide_fill_cuda(s1w0, s2w0, c1s, c2s, n1v, n2v, plan,
-                                     scheme, compat, wildcard, dirs_mode,
-                                     model)
-    ins, finals, dirs, ints = _cuda_fill_setup(
-        s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat, wildcard,
-        dirs_mode, model, "banded_diag_fill_cuda")
-    lib = csrc.kernels()
-    nctas = lib.sa_fill_ctas(plan.L, cta_lanes)
-    if nctas == 0:
-        raise ValueError(f"band of {plan.L} lanes (CTA width {cta_lanes}) is "
-                         "out of the CUDA banded kernel's range")
-    dev = s1w0.device
+    state = None
+    if tiles.rows > 1:
+        state = torch.empty((2, B, L, 4), dtype=torch.int32, device=dev)
+    head = 2 + _SM_WORDS * B
+    ctr = torch.zeros(head + per_row, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sa_banded_fill(
             *(t.data_ptr() for t in ins), finals.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None, *ints,
-            cta_lanes, stream,
+            dirs.data_ptr() if dirs is not None else None,
+            state.data_ptr() if state is not None else None,
+            ctr.data_ptr(), B, L, n_iters, plan.he, plan.lane_limit(1),
+            plan.lane_limit(0), scheme.match_, scheme.mismatch,
+            scheme.gap_open, scheme.gap_extend, dcode, int(compat),
+            int(wildcard), int(model == "std"), tiles.strip_lanes,
+            tiles.block_iters, tiles.order, tiles.lanes_per_thread,
+            tiles.threads, ctas, stream,
         )
     if rc != 0:
-        raise csrc.launch_error("sa_banded_fill", rc, nctas)
+        raise csrc.launch_error("sa_banded_fill", rc)
     banded_diag_fill_cuda.launches += 1
+    got = ctr[:head].cpu().numpy()
+    if got[1] != 0:
+        raise RuntimeError(
+            "banded_diag_fill_cuda: a tile waited on its neighbours past the "
+            f"spin limit (status {int(got[1])}); its results are incomplete")
+    masks = got[2:].view(np.uint32).reshape(B, _SM_WORDS)
+    banded_diag_fill_cuda.last_launch = dict(
+        tiles._asdict(), tiles=per_row * tiles.rows, ctas=ctas,
+        resident=resident,
+        sms=int(_popcounts(np.bitwise_or.reduce(masks, 0))),
+        sms_per_pair=[int(n) for n in _popcounts(masks)])
     return finals, dirs
 
 
 banded_diag_fill_cuda.launches = 0
-
-
-def banded_wide_fill_cuda(
-    s1w0, s2w0, c1s, c2s, n1v, n2v, plan: BandPlan,
-    scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
-    model: str = "ref",
-):
-    """The banded fill's wide route (csrc/nw_banded_diag.cu,
-    sa_banded_wide_fill) on CUDA tensors, at any band width: one launch a
-    wavefront, the lanes' state in WIDE_STATE_BYTES of device memory a lane.
-    Same arguments and results as banded_diag_fill_torch.  Raises
-    ValueError on a CPU tensor or a non-contiguous input, RuntimeError on a
-    failed launch, and torch's out-of-memory error where the device cannot
-    hold the state or the direction codes."""
-    ins, finals, dirs, ints = _cuda_fill_setup(
-        s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat, wildcard,
-        dirs_mode, model, "banded_wide_fill_cuda")
-    lib = csrc.kernels()
-    B, L = s1w0.shape
-    dev = s1w0.device
-    state = torch.empty((B * L * WIDE_STATE_BYTES // 4,), dtype=torch.int32,
-                        device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sa_banded_wide_fill(
-            *(t.data_ptr() for t in ins), finals.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None, state.data_ptr(),
-            *ints, stream,
-        )
-    if rc != 0:
-        raise csrc.launch_error("sa_banded_wide_fill", rc)
-    banded_wide_fill_cuda.launches += 1
-    return finals, dirs
-
-
-banded_wide_fill_cuda.launches = 0
+banded_diag_fill_cuda.last_launch = {}
 
 
 def banded_diag_fill(s1w0, s2w0, c1s, c2s, n1v, n2v, plan, scheme, compat,

@@ -1,9 +1,11 @@
-"""The banded fill's wide route (past a cluster's 131072 lanes: one launch a
-wavefront, the lanes' state in device memory; csrc/nw_banded_diag.cu
-band_wide_step) through its host build (csrc/host_check.cpp,
-hc_banded_wide_fill, which runs the kernel's per-lane code
-nw_banded_diag.cuh::band_wide_lane) against the plain fill, exact, at small
-bands where it is forced; and the wrapper's routing to it."""
+"""Bands past one strip on the banded fill's tiled route (csrc/
+nw_banded_diag.cu: each pair's band in strips x blocks of iterations, the
+tiles handed out by a global ticket), which since it replaced the cluster
+split and the wide route (one launch a wavefront past 131072 lanes) takes
+every band width: its host build (csrc/host_check.cpp, hc_banded_fill, the
+kernel's tile schedule run serially in ticket order through
+nw_banded_diag.cuh) against the plain fill, exact, at small bands forced
+into many narrow tiles; and the wrapper's tiles and launches."""
 
 import contextlib
 import types
@@ -55,20 +57,26 @@ def _inputs(seed, band, n=9, hi=90):
     return port.band_inputs(*to_device(batch, "cpu"), band)
 
 
-def _host_wide(host, plan, ins, scheme, compat, wildcard, dirs_mode, model):
+def _host_tiled(host, plan, ins, scheme, compat, wildcard, dirs_mode, model,
+                strip_lanes, block_iters):
     B, L = ins[0].shape
     n_iters = ins[2].shape[1]
+    tiles = port.band_tiles(B, L, n_iters, 132, strip_lanes, block_iters)
     finals = torch.zeros((B, 3), dtype=torch.int32)
     w = -(-2 * n_iters // (8 if dirs_mode == "fast4" else 4))
     dirs = torch.zeros((w, B, L), dtype=torch.uint32)
-    rc = host.hc_banded_wide_fill(
+    state = torch.zeros((2, B, L, 4), dtype=torch.int32)
+    ctr = torch.zeros(2 + 8 * B + B * tiles.strips, dtype=torch.int32)
+    rc = host.hc_banded_fill(
         *(t.data_ptr() for t in ins), finals.data_ptr(), dirs.data_ptr(),
-        B, L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
-        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        state.data_ptr(), ctr.data_ptr(), B, L, n_iters, plan.he,
+        plan.lane_limit(1), plan.lane_limit(0), scheme.match_,
+        scheme.mismatch, scheme.gap_open, scheme.gap_extend,
         _DIRS[dirs_mode], int(compat), int(wildcard), int(model == "std"),
+        tiles.strip_lanes, tiles.block_iters, 0,
     )
     assert rc == 0
-    return finals, dirs
+    return finals, dirs, tiles
 
 
 @pytest.mark.parametrize("model,compat,wildcard,dirs_mode,band", [
@@ -81,12 +89,17 @@ def _host_wide(host, plan, ins, scheme, compat, wildcard, dirs_mode, model):
 ])
 def test_host_wide_route_matches_plain(host, model, compat, wildcard,
                                        dirs_mode, band):
+    """Each band forced into strips of 32 lanes in blocks of 8 iterations
+    (4-24 strips a pair, 12-24 blocks, far more tiles than a grid of a few
+    CTAs holds at once, as the bands past 131072 lanes have) equals the
+    plain fill: finals and the whole dirs tensor."""
     scheme = WILD if wildcard else ScoringScheme()
     plan, ins = _inputs(band, band)
     want_f, want_d = port.banded_diag_fill_torch(
         *ins, plan, scheme, compat, wildcard, dirs_mode, model)
-    got_f, got_d = _host_wide(host, plan, ins, scheme, compat, wildcard,
-                              dirs_mode, model)
+    got_f, got_d, tiles = _host_tiled(host, plan, ins, scheme, compat,
+                                      wildcard, dirs_mode, model, 32, 8)
+    assert tiles.strips >= 4 and tiles.rows >= 12
     assert torch.equal(got_f, want_f)
     if dirs_mode:
         assert torch.equal(got_d, want_d)
@@ -95,22 +108,19 @@ def test_host_wide_route_matches_plain(host, model, compat, wildcard,
 @pytest.fixture
 def fake_card(host, monkeypatch):
     """banded_diag_fill_cuda on CPU tensors that pass its device check,
-    with its library the host build.  Yields the list of entries called."""
+    with its library the host build (132 SMs, 16 resident CTAs).  Yields
+    the list of entries called."""
     calls = []
 
     class Lib:
-        sa_fill_ctas = staticmethod(host.hc_fill_ctas)
-
-        @staticmethod
-        def sa_banded_wide_fill(*args):
-            calls.append("wide")
-            # minus the scratch state (argument 8) and the stream
-            return host.hc_banded_wide_fill(*args[:8], *args[9:-1])
+        sa_sm_count = staticmethod(lambda: 132)
+        sa_banded_resident_ctas = staticmethod(lambda *a: 16)
 
         @staticmethod
         def sa_banded_fill(*args):
-            calls.append("cluster")
-            return host.hc_banded_fill(*args[:-1])
+            calls.append("tiled")
+            # minus lpt, threads, the grid and the stream
+            return host.hc_banded_fill(*args[:-4])
 
     monkeypatch.setattr(csrc, "kernels", lambda: Lib)
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
@@ -119,30 +129,33 @@ def fake_card(host, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(port.banded_diag_fill_cuda, "launches", 0)
-    monkeypatch.setattr(port.banded_wide_fill_cuda, "launches", 0)
     return calls
 
 
 def test_wrapper_routes_wide_bands_and_forced_widths(fake_card):
-    """Within a cluster's reach the wrapper takes the cluster entry (at its
-    own or a forced CTA width); the wide route, given the band directly,
-    gives the same finals and dirs as the plain fill.  Past the reach the
-    wrapper takes the wide route itself and refuses a CTA width.  (The
-    aligner through it: test_torch_models.py::
+    """The wrapper takes the one tiled entry at its own tiles and at forced
+    strips and blocks, each equal to the plain fill (finals and dirs), one
+    launch a call, its shape in last_launch (the grid at most the resident
+    CTAs); a band past 131072 lanes (the former wide route's) is no
+    different: strips of at most 512 lanes, one launch.  (The aligner
+    through it: test_torch_models.py::
     test_banded_band_past_the_cuda_width_is_per_pair_error.)"""
     scheme = ScoringScheme()
     plan, ins = _inputs(5, 300)
     assert plan.L > 256
     a = (plan, scheme, True, False, "fast4")
     want = port.banded_diag_fill_torch(*ins, *a)
-    for got in (port.banded_diag_fill_cuda(*ins, *a),
-                port.banded_diag_fill_cuda(*ins, *a, cta_lanes=128),
-                port.banded_wide_fill_cuda(*ins, *a)):
+    shapes = []
+    for kw in ({}, dict(strip_lanes=128), dict(strip_lanes=32,
+                                               block_iters=4)):
+        got = port.banded_diag_fill_cuda(*ins, *a, **kw)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert fake_card == ["cluster", "cluster", "wide"]
-    assert port.banded_diag_fill_cuda.launches == 2
-    assert port.banded_wide_fill_cuda.launches == 1
-    wide = plan._replace(L=port.CUDA_BAND_LANES + 128)
-    with pytest.raises(ValueError, match="no CTA width"):
-        port.banded_diag_fill_cuda(*ins, wide, scheme, True, False, "fast4",
-                                   cta_lanes=128)
+        shapes.append(dict(port.banded_diag_fill_cuda.last_launch))
+    assert fake_card == ["tiled"] * 3
+    assert port.banded_diag_fill_cuda.launches == 3
+    assert [s["strip_lanes"] for s in shapes] == [128, 128, 32]
+    assert shapes[2]["block_iters"] == 4 and shapes[2]["tiles"] > 16
+    assert all(s["ctas"] <= 16 for s in shapes)
+    wide = port.band_tiles(16, 131_456, 1001, 132)
+    assert wide.strip_lanes == 512 and wide.strips == 257
+    port._check_tiles(wide, 131_456, 1001)

@@ -3,8 +3,9 @@ through csrc/host_check.cpp, built for the host) against the plain PyTorch
 versions on the same small batches (exact): the global streamed fill and
 fast4 walk, the per-pair and streamed modes fills and the modes walk, the
 three fills with their rows split over 2-4 forced 128- or 256-lane CTAs
-(the cluster split's geometry, cluster_split.cuh), the banded fill (also
-split over forced 128/256-lane CTAs) and the banded walk, the tiled
+(the cluster split's geometry, cluster_split.cuh), the banded fill's tile
+schedule run serially in ticket order (the rule's tiles, and forced narrow
+strips in short blocks) and the banded walk, the tiled
 fills' strip schedule run serially in ticket order with the carried column
 in ring slots (kernels #4 and #5) and their DPX helpers,
 the banded row sweep (kernel #8) with its scan carried across forced
@@ -302,13 +303,14 @@ def test_modes_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("P,cta_lanes,want", [
     (2048, 0, 1), (8192, 0, 1), (8320, 0, 3), (32768, 0, 8), (32896, 0, 5),
     (49152, 0, 6), (2048, 512, 4), (384, 256, 2), (384, 128, 3),
-    (4096, 128, 0), (2048, 100, 0), (8200, 0, 0),
+    (4096, 128, 0), (2048, 100, 0), (8200, 0, 0), (131072, 0, 16),
+    (131200, 0, 0),
 ])
 def test_split_plan(host, P, cta_lanes, want):
     """CTAs a row of P lanes takes: one block up to 8192 lanes, 4096- or
-    8192-lane CTAs past it (at most 8 up to 49152 lanes), forced widths
-    (a short last CTA included), and refusals (more than 16 CTAs, widths or
-    P off the 128 grid)."""
+    8192-lane CTAs past it (at most 8 up to 49152 lanes, 16 up to 131072,
+    the linear fill's reach), forced widths (a short last CTA included),
+    and refusals (more than 16 CTAs, widths or P off the 128 grid)."""
     assert host.hc_fill_ctas(P, cta_lanes) == want
 
 
@@ -408,21 +410,38 @@ def _banded(seed, n=10, hi=120, band=16):
 
 
 def _host_banded(host, plan, ins, scheme, compat, wildcard, dirs_mode,
-                 model="ref", cta_lanes=0):
+                 model="ref", strip_lanes=0, block_iters=0, sms=132,
+                 order=0, rc_only=False):
+    """hc_banded_fill (the kernel's tile schedule run serially in ticket
+    order) over the wrapper's tiles (band_tiles' rule for a card of `sms`
+    SMs, or the forced strips and blocks): (finals, dirs), or its return
+    code with rc_only."""
     B, L = ins[0].shape
     n_iters = ins[2].shape[1]
+    tiles = banded.band_tiles(B, L, n_iters, sms, strip_lanes, block_iters)
     finals = torch.zeros((B, 3), dtype=torch.int32)
-    dirs = torch.zeros((-(-2 * n_iters // (8 if dirs_mode == "fast4" else 4)),
-                        B, L), dtype=torch.uint32)
+    dirs = torch.full((-(-2 * n_iters // (8 if dirs_mode == "fast4" else 4)),
+                       B, L), 0x5a5a5a5a, dtype=torch.uint32)
+    state = torch.full((2, B, L, 4), 12345, dtype=torch.int32)
+    ctr = torch.zeros(2 + 8 * B + B * tiles.strips, dtype=torch.int32)
     rc = host.hc_banded_fill(
-        *(t.data_ptr() for t in ins), finals.data_ptr(), dirs.data_ptr(), B,
-        L, n_iters, plan.he, plan.lane_limit(1), plan.lane_limit(0),
-        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        *(t.data_ptr() for t in ins), finals.data_ptr(), dirs.data_ptr(),
+        state.data_ptr(), ctr.data_ptr(), B, L, n_iters, plan.he,
+        plan.lane_limit(1), plan.lane_limit(0), scheme.match_,
+        scheme.mismatch, scheme.gap_open, scheme.gap_extend,
         {False: 0, "fast4": 1, "full": 2}[dirs_mode], int(compat),
-        int(wildcard), int(model == "std"), cta_lanes,
+        int(wildcard), int(model == "std"), tiles.strip_lanes,
+        tiles.block_iters, order,
     )
+    if rc_only:
+        return rc
     assert rc == 0
     return finals, dirs
+
+
+def _std_or_ref(model):
+    return ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
+        if model == "std" else ScoringScheme()
 
 
 @pytest.mark.parametrize("model,compat,wildcard,dirs_mode", [
@@ -432,59 +451,170 @@ def _host_banded(host, plan, ins, scheme, compat, wildcard, dirs_mode,
 ])
 def test_host_banded_fill_matches_plain(host, model, compat, wildcard,
                                         dirs_mode):
-    """The banded kernel's loop (band_cell with the neighbour reads of both
-    parities) against banded_diag_fill_torch: finals and the whole dirs
-    tensor."""
-    scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
-        if model == "std" else ScoringScheme()
+    """The banded kernel's tile schedule at the tile rule's shape (one
+    tile of all the iterations for each pair of a 10-pair batch on a card
+    of 8 SMs; every cell mode, both parities' neighbour reads) against
+    banded_diag_fill_torch: finals and the whole dirs tensor."""
+    scheme = _std_or_ref(model)
     pairs, plan, ins = _banded(7 + compat + 2 * wildcard + (model == "std"))
     want_f, want_d = banded.banded_diag_fill_torch(
         *ins, plan, scheme, compat, wildcard, dirs_mode, model)
     finals, dirs = _host_banded(host, plan, ins, scheme, compat, wildcard,
-                                dirs_mode, model)
+                                dirs_mode, model, sms=8)
     np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
     if dirs_mode:
         np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
 
 
-@pytest.mark.parametrize("cta_lanes,ctas", [(128, 3), (256, 2)])
+@pytest.mark.parametrize("strip_lanes,strips", [(128, 3), (256, 2)])
 @pytest.mark.parametrize("model,compat,dirs_mode", [
     ("ref", True, "fast4"), ("ref", False, "full"), ("std", False, "fast4"),
 ])
 def test_host_split_banded_fill_matches_plain(host, model, compat, dirs_mode,
-                                              cta_lanes, ctas):
-    """The banded fill with each pair's band of 384 lanes split over 3 CTAs
-    of 128 lanes, or 2 of 256 and 128 (the cluster split's geometry: an
-    even wavefront's first lane reads the previous CTA's last lane, an odd
-    wavefront's last lane the next CTA's first lane, no wrap), equals the
+                                              strip_lanes, strips):
+    """The banded fill with each pair's band of 384 lanes cut into 3 strips
+    of 128 lanes, or 2 of 256 and 128, on the tiled route (each tile its
+    strip plus a 32-lane halo over blocks of 32 iterations, its end lanes
+    taking the band's edge rule, only its own lanes kept), equals the
     plain fill: finals and the whole dirs tensor."""
-    scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
-        if model == "std" else ScoringScheme()
+    scheme = _std_or_ref(model)
     pairs, plan, ins = _banded(53 + compat + 2 * (model == "std"), n=9,
                                hi=200, band=150)
-    assert plan.L == 384 and host.hc_fill_ctas(plan.L, cta_lanes) == ctas
+    tiles = banded.band_tiles(16, plan.L, plan.n_need, 132, strip_lanes)
+    assert plan.L == 384 and tiles.strips == strips and tiles.rows > 1
     want_f, want_d = banded.banded_diag_fill_torch(
         *ins, plan, scheme, compat, True, dirs_mode, model)
     finals, dirs = _host_banded(host, plan, ins, scheme, compat, True,
-                                dirs_mode, model, cta_lanes)
+                                dirs_mode, model, strip_lanes)
     np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
     np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
 
 
+def _banded_long(seed, skew):
+    """8 pairs of 200-256 bp (every other one a copy of its query) at band
+    8, so a tile's lanes lie inside the matrix for most of its blocks (the
+    lean cell without its mask); skew: the dbs cut to 40-90 bp."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for i in range(8):
+        s1 = rng.choice(alpha, int(rng.integers(200, 257)))
+        n2 = int(rng.integers(40, 91)) if skew else int(rng.integers(200, 257))
+        s2 = np.resize(s1, n2) if i % 2 else rng.choice(alpha, n2)
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    tb = to_device(pack_batch(pairs, batch_size=8), "cpu")
+    return banded.band_inputs(*tb, 8)
+
+
+@pytest.mark.parametrize("strip_lanes,block_iters", [
+    (128, 4), (128, 8), (32, 8), (32, 12), (64, 20), (0, 0),
+])
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("model,compat,wildcard,dirs_mode", [
+    ("ref", True, True, "fast4"), ("ref", False, False, "full"),
+    ("ref", True, False, False), ("std", False, True, "fast4"),
+])
+def test_host_banded_tiles_match_plain(host, model, compat, wildcard,
+                                       dirs_mode, skew, strip_lanes,
+                                       block_iters):
+    """Forced narrow strips (32-128 lanes) in short blocks (4-20
+    iterations; the last block shorter: 129 or 257 iterations) and the
+    rule's own tiles, on equal-length and skewed batches: strips at both
+    band edges, tiles wholly inside the matrix, tiles past the effective
+    band, the x = 0 / y = 0 ramp, each block's start state read from the
+    other parity's buffer.  Finals and the whole dirs tensor equal the
+    plain fill's."""
+    scheme = _std_or_ref(model)
+    if wildcard and model == "ref":
+        scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7,
+                               gap_extend=-2)
+    plan, ins = _banded_long(61 + skew, skew)
+    tiles = banded.band_tiles(8, plan.L, plan.n_need, 132, strip_lanes,
+                              block_iters)
+    assert plan.n_need % tiles.block_iters or tiles.rows == 1
+    want_f, want_d = banded.banded_diag_fill_torch(
+        *ins, plan, scheme, compat, wildcard, dirs_mode, model)
+    finals, dirs = _host_banded(host, plan, ins, scheme, compat, wildcard,
+                                dirs_mode, model, strip_lanes, block_iters)
+    np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
+    if dirs_mode:
+        np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
+
+
+def test_host_banded_refuses_an_out_of_order_schedule(host):
+    """A tile whose producers (the previous block's strips s - 1 .. s + 1)
+    hold later tickets would wait on CTAs that may not run: the serial
+    schedule reports the unmet wait (-4); in ticket order it runs (0)."""
+    plan, ins = _banded_long(5, False)
+    args = (host, plan, ins, ScoringScheme(), True, False, "fast4", "ref",
+            32, 8)
+    assert _host_banded(*args, rc_only=True) == 0
+    assert _host_banded(*args, order=1, rc_only=True) == -4
+
+
+def test_band_tiles_rule():
+    """The tile rule: a batch of at least one pair an SM whose band fits a
+    CTA takes one tile a pair (no halo, 8 lanes a thread); fewer pairs cut
+    their bands into strips in blocks of 64 iterations with a 64-lane halo
+    at 2 lanes a thread: of 128 lanes while that gives at most two tiles an
+    SM (none for a band of fewer than 3), else about one tile an SM (a
+    multiple of 32 lanes, 128-512); forced strips and blocks are kept."""
+    t = banded.band_tiles(1024, 256, 5121, 132)
+    assert (t.strips, t.rows, t.halo, t.lanes_per_thread, t.threads) == \
+        (1, 1, 0, 8, 32)
+    t = banded.band_tiles(2, 10240, 100_001, 132)
+    assert (t.strip_lanes, t.strips, t.block_iters, t.halo) == \
+        (128, 80, 64, 64)
+    assert (t.lanes_per_thread, t.threads) == (2, 128)
+    assert t.rows == 1563 and 2 * t.strips >= 132
+    t = banded.band_tiles(4, 300_288, 1001, 132)
+    assert (t.strip_lanes, t.strips, t.lanes_per_thread, t.threads) == \
+        (512, 587, 2, 320)
+    t = banded.band_tiles(8, 256, 100_001, 132)
+    assert (t.strip_lanes, t.strips, t.rows, t.threads) == (256, 1, 1, 128)
+    t = banded.band_tiles(8, 384, 100_001, 132)
+    assert (t.strip_lanes, t.strips, t.block_iters) == (128, 3, 64)
+    t = banded.band_tiles(8, 8704, 8800, 132)
+    assert (t.strip_lanes, t.strips) == (512, 17)
+    t = banded.band_tiles(8, 384, 300, 132, strip_lanes=128, block_iters=8)
+    assert (t.strip_lanes, t.strips, t.block_iters, t.rows, t.halo) == \
+        (128, 3, 8, 38, 8)
+    t = banded.band_tiles(8, 384, 300, 132, strip_lanes=1000)
+    assert (t.strip_lanes, t.strips, t.rows, t.halo) == (384, 1, 1, 0)
+    for L, n in ((128, 50), (2048, 9000), (4096, 9000), (131_456, 2000)):
+        for B in (1, 4, 200):
+            t = banded.band_tiles(B, L, n, 132)
+            assert t.strips * t.strip_lanes >= L > (t.strips - 1) * \
+                t.strip_lanes
+            assert t.halo <= t.strip_lanes and t.threads <= 512
+            assert t.threads * t.lanes_per_thread >= min(
+                L, t.strip_lanes + 2 * t.halo)
+
+
 def test_host_banded_refuses_bad_widths(host):
-    """A CTA width off the 128 grid, or a split of more than 16 CTAs, is
-    refused (-1) as the kernel's entry refuses it."""
+    """A strip width off the 8-lane grid, a block of iterations not a
+    multiple of 4 (with several blocks), or a halo wider than a strip is
+    refused (-1), as the kernel's entry refuses it; the wrapper raises for
+    them before a launch."""
     pairs, plan, ins = _banded(5, n=8, hi=60, band=16)
     B, L = ins[0].shape
+    n_iters = ins[2].shape[1]
     finals = torch.zeros((B, 3), dtype=torch.int32)
-    for cta in (100, -128):
+    state = torch.zeros((2, B, L, 4), dtype=torch.int32)
+    ctr = torch.zeros(2 + 8 * B + 64 * B, dtype=torch.int32)
+    for lanes, iters in ((100, 8), (-128, 8), (0, 8), (32, 6), (32, 40),
+                         (8, 12)):
         rc = host.hc_banded_fill(
-            *(t.data_ptr() for t in ins), finals.data_ptr(), None, B, L,
-            ins[2].shape[1], plan.he, plan.lane_limit(1), plan.lane_limit(0),
-            5, -4, -8, -6, 0, 1, 0, 0, cta)
-        assert rc == -1
-    assert host.hc_fill_ctas(16 * 8192, 0) == 16
-    assert host.hc_fill_ctas(16 * 8192 + 128, 0) == 0
+            *(t.data_ptr() for t in ins), finals.data_ptr(), None,
+            state.data_ptr(), ctr.data_ptr(), B, L, n_iters, plan.he,
+            plan.lane_limit(1), plan.lane_limit(0), 5, -4, -8, -6, 0, 1, 0, 0,
+            lanes, iters, 0)
+        assert rc == -1, (lanes, iters)
+        if lanes > 0:
+            with pytest.raises(ValueError):
+                banded._check_tiles(banded.band_tiles(B, L, n_iters, 132,
+                                                      lanes, iters),
+                                    L, n_iters)
 
 
 @pytest.mark.parametrize("std", [False, True])

@@ -581,12 +581,12 @@ def test_failed_banded_walk(monkeypatch, device):
 
 def test_banded_band_past_the_cuda_width_is_per_pair_error(monkeypatch,
                                                          one_thread):
-    """On CUDA a band needing more than a cluster's 131072 lanes is no
-    longer refused: the fill takes the kernel's wide route and every pair
-    aligns as on the CPU.  No card here: the kernel wrapper runs on CPU
-    tensors that report is_cuda, and its library is the host build of the
-    kernels' loops (csrc/host_check.cpp), whose wide route runs the CUDA
-    kernel's per-lane code."""
+    """On CUDA a band needing more than the former cluster's 131072 lanes
+    is not refused: the fill's tiled route takes it in one launch and every
+    pair aligns as on the CPU.  No card here: the kernel wrapper runs on
+    CPU tensors that report is_cuda, and its library is the host build of
+    the kernels' loops (csrc/host_check.cpp), whose banded fill runs the
+    CUDA kernel's tile schedule."""
     import sequencealigning_tpu_torch.ops.nw_banded_diag as nbd
 
     recs = _records(17, n=3, hi=30)
@@ -597,9 +597,9 @@ def test_banded_band_past_the_cuda_width_is_per_pair_error(monkeypatch,
     monkeypatch.setattr(nbd, "banded_diag_fill", nbd.banded_diag_fill_cuda)
     got = _view(BandedAligner(config, "cpu").align_batch(recs))
     assert got == want
-    assert calls == ["sa_banded_wide_fill"]
-    assert nbd.banded_wide_fill_cuda.launches == 1
-    assert nbd.banded_diag_fill_cuda.launches == 0
+    assert calls == ["sa_banded_fill"]
+    assert nbd.banded_diag_fill_cuda.launches == 1
+    assert nbd.banded_diag_fill_cuda.last_launch["strips"] > 100
 
 
 def _fake_banded_kernel(monkeypatch):
@@ -618,18 +618,14 @@ def _fake_banded_kernel(monkeypatch):
     calls = []
 
     class Lib:
-        sa_fill_ctas = staticmethod(host.hc_fill_ctas)
-
-        @staticmethod
-        def sa_banded_wide_fill(*args):
-            calls.append("sa_banded_wide_fill")
-            # minus the scratch state (argument 8) and the stream
-            return host.hc_banded_wide_fill(*args[:8], *args[9:-1])
+        sa_sm_count = staticmethod(lambda: 132)
+        sa_banded_resident_ctas = staticmethod(lambda *a: 16)
 
         @staticmethod
         def sa_banded_fill(*args):
             calls.append("sa_banded_fill")
-            return host.hc_banded_fill(*args[:-1])
+            # minus lpt, threads, the grid and the stream
+            return host.hc_banded_fill(*args[:-4])
 
         @staticmethod
         def sa_walk_banded(*args):
@@ -642,7 +638,6 @@ def _fake_banded_kernel(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(nbd.banded_diag_fill_cuda, "launches", 0)
-    monkeypatch.setattr(nbd.banded_wide_fill_cuda, "launches", 0)
     return calls
 
 

@@ -203,19 +203,16 @@ def test_fill_wrapper_refuses_cpu_tensors():
 
 
 def test_fill_wrapper_refuses_a_band_past_the_kernel_width(one_thread):
-    """A band wider than a cluster's reach (16 CTAs of 8192 lanes, 131072
-    lanes) is no longer refused for its width: it takes the wide route,
-    whose wrapper goes on to the device check; the plain version fills
-    it."""
-    assert port.CUDA_BAND_LANES == 131072
+    """A band wider than the former cluster's reach (131072 lanes) is not
+    refused for its width: the kernel's tiled route takes every band, so
+    the wrapper goes on to the device check; the plain version fills it."""
     batch = pack_batch(_pairs(3, 8, 5, 20, 5, 20), batch_size=8)
     plan, ins = port.band_inputs(*to_device(batch, "cpu"), 131_100)
-    assert plan.L > port.CUDA_BAND_LANES
-    with pytest.raises(ValueError, match="banded_wide_fill_cuda needs CUDA"):
+    assert plan.L > 131_072
+    with pytest.raises(ValueError, match="banded_diag_fill_cuda needs CUDA"):
         port.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, False,
                                    "fast4")
     assert port.banded_diag_fill_cuda.launches == 0
-    assert port.banded_wide_fill_cuda.launches == 0
     fin, dirs = port.banded_diag_fill_torch(*ins, plan, ScoringScheme(),
                                             True, False, "fast4")
     assert fin.shape == (8, 3) and dirs.shape[2] == plan.L
@@ -223,13 +220,15 @@ def test_fill_wrapper_refuses_a_band_past_the_kernel_width(one_thread):
 
 @pytest.mark.parametrize("band", [8200, 130_900])
 def test_fill_wrapper_takes_bands_past_one_block(band):
-    """Bands of 8193-131072 lanes (past one block, within the cluster
-    split's reach) are no longer refused for their width: the wrapper goes
-    on to the device check."""
+    """Bands of 8193-131072 lanes (past one CTA) are not refused for their
+    width: the wrapper goes on to the device check, and the tile rule cuts
+    them into strips of at most 512 lanes."""
     batch = pack_batch(_pairs(3, 8, 5, 20, 5, 20), batch_size=8)
     plan, ins = port.band_inputs(*to_device(batch, "cpu"), band)
-    assert 8192 < plan.L <= port.CUDA_BAND_LANES
+    assert 8192 < plan.L <= 131_072
     with pytest.raises(ValueError, match="CUDA tensors"):
         port.banded_diag_fill_cuda(*ins, plan, ScoringScheme(), True, False,
                                    "fast4")
     assert port.banded_diag_fill_cuda.launches == 0
+    tiles = port.band_tiles(8, plan.L, plan.n_need, 132)
+    assert tiles.strips > 1 and tiles.strip_lanes <= 512
