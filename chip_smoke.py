@@ -9,12 +9,15 @@ in the phases below and exits non-zero at the first failure:
 1. device: a CUDA card must be present; prints its nvidia-smi name and
    power limit;
 2. build: compiles the CUDA kernels from csrc/ (one nvcc a source, in
-   parallel, sm_90a);
+   parallel, sm_90a); one line per instance of the streamed fills
+   (kernels #1 and #2) with its registers and spills from -Xptxas -v;
 3. fill kernel vs its plain PyTorch version on the card: ragged batches
    over compat/textbook x dirs none/fast4/full x wildcard, then the main
    path's shape (4096 pairs x 2046 bp, fast4) with its rows in one block
    and split over a 4-CTA cluster (forced 512-lane CTAs): finals equal,
-   direction codes equal on every cell of every real pair;
+   direction codes equal on every cell of every real pair; a warp-ring
+   schedule that cannot be met (a wrap ring of one word) must raise, not
+   hang, and the next launch must equal its plain version;
 4. walk kernel vs its plain version and vs the native host walker;
 5. main path: GotohAligner(first_only) on cuda through align_batch (the
    data-parallel runner's fill+walk) over 4096 x 2046 bp pairs at ~1%
@@ -29,7 +32,8 @@ in the phases below and exits non-zero at the first failure:
 7. the main shape (4096 x 2046 bp) in local, then semi-global mode: the
    streamed modes kernel vs its plain version (argmax buffers, end cells,
    direction bytes), then the modes walk kernel on its dirs vs the plain
-   walk and vs the host walker on sampled pairs;
+   walk and vs the host walker on sampled pairs; one line with kernels #1
+   and #2's times beside their bounds and their instances' registers;
 8. modes main path: GotohAligner textbook local, then semi-global, on cuda
    through align_batch over the 4096 x 2046 bp pairs; every pair aligned,
    the streamed fill and the walk launched, every alignment rescored under
@@ -437,10 +441,21 @@ def phase_build(csrc, out_dir):
     log(f"[2 build] kernels built in {secs:.1f} s "
         f"(nvcc {csrc.build_seconds:.1f} s); {len(regs)} kernels, at most "
         f"{max(regs, default=0)} registers a thread; {len(spills)} spill")
+    # The streamed fills' instances (kernels #1 and #2): registers and
+    # spills from -Xptxas -v, one line each.
+    inst = csrc.stream_instances(csrc.build_log)
+    check(len(inst) > 0 or not csrc.build_log,
+          "no streamed-fill instance in the build log")
+    for r in inst:
+        log(f"[2 build] stream instance {r['lanes_per_thread']} lanes a "
+            f"thread, {r['mode']}, dirs {r['dirs']}, compat "
+            f"{int(r['compat'])}, wildcard {int(r['wildcard'])}: "
+            f"{r['registers']} registers, spill stores {r['spill_stores']} "
+            f"B, loads {r['spill_loads']} B, stack {r['stack']} B")
     if out_dir:
         with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
             f.write(csrc.build_log)
-    return secs
+    return secs, inst
 
 
 def phase_fill(torch, port):
@@ -488,6 +503,7 @@ def phase_fill(torch, port):
     args = (plan, ScoringScheme(), True, False, "fast4")
     ms = cuda_ms(torch, lambda: fill.gotoh_fill_stream_cuda(*ins, *args))
     fk, dk = fill.gotoh_fill_stream_cuda(*ins, *args)
+    launch = dict(fill.gotoh_fill_stream_cuda.last_launch)
     plain_ms, (fp, dp) = host_ms(
         torch, lambda: fill.gotoh_fill_stream_torch(*ins, *args))
 
@@ -526,8 +542,48 @@ def phase_fill(torch, port):
                fill_gcups=cells / ms / 1e6, main_whole_dirs_equal=whole,
                fill_bound_ms=b_ms, fill_bound_by=b_by,
                fill_split4_ms=split_ms, fill_split4_err=split_err,
-               fill_split4_whole_dirs_equal=split_whole)
+               fill_split4_whole_dirs_equal=split_whole,
+               fill_launch=launch)
+    out.update(stream_stall_check(torch, port))
     return out, (fk, dk, plan, pairs)
+
+
+def stream_stall_check(torch, port):
+    """The streamed fills' warp rings: a wrap ring of one word under chunks
+    of 32 steps (four words a chunk) on a row of several warps can never
+    be met, and must raise, not hang; the same fill with the default rings
+    then runs and equals its plain version.  The seconds it took."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    fill = port["fill"]
+    tb = to_device(pack_batch([(b"ACGT" * 20, b"ACGTT" * 60)] * 8,
+                              batch_size=8), "cuda")
+    plan, ins = fill.stream_inputs(*tb, np_slots=2)
+    a = (plan, ScoringScheme(), True, False, "fast4")
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        fill.gotoh_fill_stream_cuda(*ins, *a, lanes_per_thread=2, chunk=32,
+                                    wrap_words=1)
+    except RuntimeError as e:
+        raised = str(e)
+    secs = time.perf_counter() - t0
+    check(raised is not None and "spin limit" in raised,
+          f"an impossible warp-ring schedule did not raise: {raised}")
+    got = fill.gotoh_fill_stream_cuda(*ins, *a)
+    want = fill.gotoh_fill_stream_torch(*ins, *a)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+              for g, w in zip(got, want)),
+          "the streamed fill after a stalled launch != plain")
+    warps = fill.stream_launch_shape(port["csrc"].kernels(), plan.p, 0,
+                                     False, 2)["threads"] // 32
+    log(f"[3 fill] an impossible warp-ring schedule (wrap ring of 1 word, "
+        f"chunks of 32 steps, {warps} warps) raised after "
+        f"{secs:.2f} s: {raised}; the next launch equals its plain version")
+    return {"fill_stall_s": secs}
 
 
 def walk_bound(name, got, seeds):
@@ -845,6 +901,8 @@ def phase_modes_full(torch, port, mode, pairs):
         f"{b_ms:.3f} ms ({b_by}); equal on argmax buffers and end cells "
         f"(whole dirs tensor equal: {whole})")
     out = {f"sfill_{mode}_ms": ms, f"sfill_{mode}_plain_ms": plain_ms,
+           f"sfill_{mode}_launch": dict(
+               smodes.gotoh_fill_stream_modes_cuda.last_launch),
            f"sfill_{mode}_err": err, f"sfill_{mode}_gcups": cells / ms / 1e6,
            f"sfill_{mode}_whole_dirs_equal": whole,
            f"sfill_{mode}_bound_ms": b_ms, f"sfill_{mode}_bound_by": b_by}
@@ -2787,6 +2845,35 @@ def phase_astar(torch, port, by_path):
     return {"astar_s": secs, "astar_alignments_per_s": N_ASTAR / secs}
 
 
+def stream_times_line(meas, instances):
+    """One line: kernels #1 and #2 at the main shape, their times beside
+    their bounds, and the registers and spills of the instances that ran."""
+    def regs(launch, mode, dirs, compat):
+        for r in instances:
+            if (r["lanes_per_thread"], r["mode"], r["dirs"], r["compat"],
+                    r["wildcard"]) == (launch["lanes_per_thread"], mode, dirs,
+                                       compat, False):
+                return (f"{r['registers']} registers, "
+                        f"{r['spill_stores']} B spilled")
+        return "registers not in the build log"
+
+    parts = []
+    for name, key, mode, dirs, compat in (
+            ("#1 global fast4", "fill", "global", "fast4", True),
+            ("#2 local full", "sfill_local", "local", "full", False),
+            ("#2 semi full", "sfill_semi", "semi", "full", False)):
+        launch = meas[f"{key}_launch"]
+        parts.append(
+            f"{name} {meas[f'{key}_ms']:.3f} ms against a bound of "
+            f"{meas[f'{key}_bound_ms']:.3f} ms "
+            f"({100 * meas[f'{key}_bound_ms'] / meas[f'{key}_ms']:.1f}%; "
+            f"{launch['lanes_per_thread']} lanes x {launch['threads']} "
+            f"threads, chunks of {launch['chunk']}, "
+            f"{regs(launch, mode, dirs, compat)})")
+    log("[7 modes full] streamed fills at the main shape: "
+        + "; ".join(parts))
+
+
 @contextlib.contextmanager
 def timed(seconds, name):
     """Time one phase on the host clock: print its wall seconds and keep
@@ -2830,7 +2917,7 @@ def run(args):
         os.makedirs(args.out, exist_ok=True)
     by_path = {}
     with timed(phase_s, "2 build"):
-        build_s = phase_build(csrc, args.out)
+        build_s, instances = phase_build(csrc, args.out)
     with timed(phase_s, "3 fill"):
         meas, state = phase_fill(torch, port)
     with timed(phase_s, "4 walk"):
@@ -2863,6 +2950,7 @@ def run(args):
     for mode in ("local", "semi"):
         with timed(phase_s, f"7 modes {mode}"):
             meas.update(phase_modes_full(torch, port, mode, mpairs))
+    stream_times_line(meas, instances)
     with timed(phase_s, "8 modes main"):
         meas.update(phase_modes_main(torch, port, mpairs, args.out, by_path))
     del mpairs

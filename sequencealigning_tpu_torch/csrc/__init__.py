@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,6 +32,7 @@ _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
                  "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
                  "nw_banded.cu", "nw_linear.cu", "traceback_device.cu")
 _HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "cluster_split.cuh",
+            "stream_ring.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
             "nw_linear.cuh", "traceback_device.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
@@ -151,10 +153,12 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     lib.sa_fill_ctas.restype = _INT
     lib.sa_fill_ctas.argtypes = [_INT, _INT]
+    lib.sa_stream_plan.restype = _INT
+    lib.sa_stream_plan.argtypes = [_INT] * 4 + [_VP]
     lib.sa_stream_fill.restype = _INT
-    lib.sa_stream_fill.argtypes = [_VP] * 6 + [_INT] * 13 + [_VP]
+    lib.sa_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
     lib.sa_stream_modes_fill.restype = _INT
-    lib.sa_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 13 + [_VP]
+    lib.sa_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
     lib.sa_modes_fill.restype = _INT
     lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
     lib.sa_gotoh_fill.restype = _INT
@@ -192,6 +196,51 @@ def kernels() -> ctypes.CDLL:
     return lib
 
 
+def kernel_resources(log: str, name: str) -> list:
+    """Each entry function whose (mangled) name contains ``name`` in a
+    build's -Xptxas -v output, in order: dicts of entry, registers,
+    stack, spill_stores and spill_loads (bytes)."""
+    out, entry, frame = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, frame = (m.group(1) if name in m.group(1) else None), None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = [int(g) for g in m.groups()]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            stack, stores, loads = frame or (0, 0, 0)
+            out.append(dict(entry=entry, registers=int(m.group(1)),
+                            stack=stack, spill_stores=stores,
+                            spill_loads=loads))
+            entry = None
+    return out
+
+
+def stream_instances(log: str) -> list:
+    """kernel_resources of the streamed fills' instances
+    (nw_affine_stream.cu::stream_ring_kernel<LPT, DIRS, MODE, COMPAT,
+    WILDCARD>), each with its template arguments decoded."""
+    rows = []
+    for r in kernel_resources(log, "stream_ring_kernel"):
+        m = re.search(r"stream_ring_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELb([01])ELb([01])E", r["entry"])
+        if m:
+            lpt, dirs, mode, compat, wild = (int(g) for g in m.groups())
+            r.update(lanes_per_thread=lpt,
+                     dirs=("none", "fast4", "full")[dirs],
+                     mode=("global", "semi", "local")[mode],
+                     compat=bool(compat), wildcard=bool(wild))
+            rows.append(r)
+    return rows
+
+
 def launch_error(name: str, rc: int, nctas: int = 1) -> RuntimeError:
     """The error a wrapper raises for a kernel entry's non-zero return."""
     if rc == -3:
@@ -225,10 +274,12 @@ def host_check() -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     lib.hc_fill_ctas.restype = _INT
     lib.hc_fill_ctas.argtypes = [_INT, _INT]
+    lib.hc_stream_plan.restype = _INT
+    lib.hc_stream_plan.argtypes = [_INT] * 4 + [_VP]
     lib.hc_stream_fill.restype = _INT
-    lib.hc_stream_fill.argtypes = [_VP] * 6 + [_INT] * 13
+    lib.hc_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17
     lib.hc_stream_modes_fill.restype = _INT
-    lib.hc_stream_modes_fill.argtypes = [_VP] * 6 + [_INT] * 13
+    lib.hc_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17
     lib.hc_modes_fill.restype = _INT
     lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
     lib.hc_gotoh_fill.restype = _INT

@@ -1,7 +1,7 @@
 // Serial host build of the CUDA kernels' loops, through the same per-cell
 // and per-step functions (nw_affine_stream.cuh, nw_banded_diag.cuh,
 // nw_affine_tiled.cuh, traceback_device.cuh) and the same row split
-// (cluster_split.cuh).  It lets
+// (cluster_split.cuh, stream_ring.cuh).  It lets
 // the kernels' arithmetic be compiled and checked against the plain PyTorch
 // versions on a machine with no CUDA compiler:
 //
@@ -11,9 +11,10 @@
 // sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_banded_fill and
 // sa_tiled_fill / sa_tiled_fold_fill (their tile and strip schedules run
 // serially, tickets in order), sa_walk_fast4, sa_walk_modes and
-// sa_walk_banded (minus the stream).  The fills' lane shift follows the
-// kernels' split of a row over CTAs: a CTA's first lane takes the previous
-// CTA's last lane (lane 0 takes lane P-1).
+// sa_walk_banded (minus the stream).  The streamed fills run their warp-ring
+// schedule serially, chunk by chunk and warp by warp; the other fills' lane
+// shift follows the kernels' split of a row over CTAs: a CTA's first lane
+// takes the previous CTA's last lane (lane 0 takes lane P-1).
 #include <stddef.h>
 #include <stdint.h>
 
@@ -25,6 +26,7 @@
 #include "nw_banded.cuh"
 #include "nw_banded_diag.cuh"
 #include "nw_linear.cuh"
+#include "stream_ring.cuh"
 #include "traceback_device.cuh"
 
 namespace {
@@ -38,138 +40,241 @@ int left_lane(int x, const sa::Split& sp, int P) {
   return sa::cta_first_lane(pr, sp) + sa::cta_real_lanes(pr, sp, P) - 1;
 }
 
-template <int DIRS, bool COMPAT, bool WILDCARD>
-void stream_fill_host(const int32_t* qstream, const int32_t* dstream,
-                      const int32_t* dsum, const int32_t* n2s,
-                      int32_t* finals, uint32_t* dirs, int R, int T, int P,
-                      int S, int NP, const sa::Scheme& sc,
-                      const sa::Split& sp) {
-  std::vector<sa::Cell> c(P), c0(P);
-  std::vector<sa::Pre> pre(P);
-  std::vector<uint32_t> acc(P);
-  for (int row = 0; row < R; ++row) {
-    for (int x = 0; x < P; ++x) {
-      c[x] = sa::cell_init();
-      acc[x] = 0;
-    }
-    int p = 0;
-    for (int t = 0; t < T; ++t) {
-      const int32_t qc = qstream[static_cast<size_t>(row) * T + t];
-      const int32_t dc = dstream[static_cast<size_t>(row) * T + t];
-      for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      c0 = c;  // the neighbours' state before the step
-      const uint32_t shift =
-          DIRS == sa::kDirsFast4 ? 4u * (t & 7) : 8u * (t & 3);
-      for (int x = P - 1; x >= 0; --x) {
-        const int l = left_lane(x, sp, P);
-        const int32_t code =
-            sa::stream_cell<DIRS, sa::kModeGlobal, COMPAT, WILDCARD>(
-                c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == p,
-                p, qc, dc, sc);
-        acc[x] |= static_cast<uint32_t>(code) << shift;
-      }
-      for (int k = 0; k < NP; ++k) {
-        if (k * S + dsum[k * R + row] != t) continue;
-        const sa::Cell& cc = c[n2s[k * R + row]];
-        int32_t* f = finals + (static_cast<size_t>(row) * NP + k) * 3;
-        f[0] = cc.M1;
-        f[1] = cc.I1;
-        f[2] = cc.D1;
-      }
-      if (DIRS != sa::kDirsNone &&
-          (DIRS == sa::kDirsFast4 ? (t & 7) == 7 : (t & 3) == 3)) {
-        const int w = DIRS == sa::kDirsFast4 ? t >> 3 : t >> 2;
-        for (int x = 0; x < P; ++x) {
-          dirs[(static_cast<size_t>(w) * R + row) * P + x] = acc[x];
-          acc[x] = 0;
-        }
-      }
-      if (++p == S) p = 0;
+// The streamed fills (global, semi-global, local) in the kernels' warp-ring
+// schedule (stream_ring.cuh), run serially: chunk by chunk, and in each
+// chunk the row's warps in order (CTA by CTA), each over its lanes right to
+// left a step at a time.  A warp's first lane takes the left lane's
+// pre-step values from its ring slot, written by the warp to its left in
+// this chunk's pass; lane 0 takes the step's query code, and its direction
+// words go through the wrap ring to the warp holding lane P-1, which ORs in
+// that lane's D bits.  Every wait is checked in that order: one that would
+// not hold returns kRingUnmet.  Global mode writes the finals, the modes the
+// running argmax (turnover at p == x, as the kernel).
+template <int DIRS, int MODE, bool COMPAT, bool WILDCARD>
+int stream_ring_host(const int32_t* qstream, const int32_t* dstream,
+                     const int32_t* dsum, const int32_t* n2s, int32_t* out,
+                     uint32_t* dirs, int R, int T, int P, int S, int NP,
+                     const sa::Scheme& sc, const sa::Split& sp, int C,
+                     int slots, int wrap) {
+  constexpr bool kModes = MODE != sa::kModeGlobal;
+  constexpr bool kDirs = DIRS != sa::kDirsNone;
+  constexpr int kPer = DIRS == sa::kDirsFast4 ? 8 : 4;
+  // The row's warps, in order: [first lane, end lane).
+  std::vector<int> w0, w1;
+  for (int rank = 0; rank < sp.nctas; ++rank) {
+    const int lo = sa::cta_first_lane(rank, sp);
+    const int hi = lo + sa::cta_real_lanes(rank, sp, P);
+    for (int u = 0; u < sa::ring_warps(rank, sp, P); ++u) {
+      w0.push_back(lo + 32 * u * sp.lpt);
+      w1.push_back(lo + 32 * (u + 1) * sp.lpt < hi ? lo + 32 * (u + 1) * sp.lpt
+                                                   : hi);
     }
   }
-}
-
-typedef void (*HostFill)(const int32_t*, const int32_t*, const int32_t*,
-                         const int32_t*, int32_t*, uint32_t*, int, int, int,
-                         int, int, const sa::Scheme&, const sa::Split&);
-
-template <int DIRS>
-HostFill pick(bool compat, bool wildcard) {
-  if (compat) {
-    return wildcard ? stream_fill_host<DIRS, true, true>
-                    : stream_fill_host<DIRS, true, false>;
-  }
-  return wildcard ? stream_fill_host<DIRS, false, true>
-                  : stream_fill_host<DIRS, false, false>;
-}
-
-// The streamed modes fill of one row at a time, with the kernel's running
-// argmax: lane x holds the older pair until p == x, then the younger; at the
-// turnover it writes the older pair's (bv, bd), and after the last step the
-// last slot's pair where it is real.
-template <int DIRS, int MODE, bool WILDCARD>
-void stream_modes_host(const int32_t* qstream, const int32_t* dstream,
-                       const int32_t* dsum, const int32_t* n2s, int32_t* out,
-                       uint32_t* dirs, int R, int T, int P, int S, int NP,
-                       const sa::Scheme& sc, const sa::Split& sp) {
-  std::vector<sa::Cell> c(P), c0(P);
+  const int G = static_cast<int>(w0.size());
+  struct Entry {
+    int32_t h, d, s;
+  };
+  std::vector<sa::Cell> c(P);
   std::vector<sa::Pre> pre(P);
   std::vector<uint32_t> acc(P);
-  std::vector<int32_t> bv(P), bd(P);
+  std::vector<int32_t> bv(P), bd(P), lo(P), len(P);
+  std::vector<Entry> ring(static_cast<size_t>(G) * slots * C);
+  std::vector<int32_t> full(G), freed(G);
+  std::vector<uint32_t> wring(wrap);
+  std::vector<int> wtag(wrap);  // the word each wrap slot holds
   const size_t plane = static_cast<size_t>(NP) * R * P;
   for (int row = 0; row < R; ++row) {
-    auto flush = [&](int k, int x) {
+    for (int x = 0; x < P; ++x) {
+      c[x] = sa::cell_init(kModes ? sa::kNegBig : sa::kNegInf);
+      acc[x] = 0;
+      bv[x] = sa::kNegBig;
+      bd[x] = -S;
+      lo[x] = len[x] = 0;
+    }
+    for (int g = 0; g < G; ++g) full[g] = freed[g] = 0;
+    for (int i = 0; i < wrap; ++i) wtag[i] = -1;
+    int32_t wrap_freed = 0;
+    uint32_t wacc = 0;
+    auto pair_of = [&](int k, int32_t& n1, int32_t& n2) {
+      n2 = k < NP ? n2s[k * R + row] : -1;
+      n1 = k < NP ? dsum[k * R + row] - n2 : -1;
+    };
+    auto flush_argmax = [&](int k, int x, int32_t slot0) {
       if (k < 0 || k >= NP) return;
       const size_t at = (static_cast<size_t>(k) * R + row) * P + x;
       out[at] = bv[x];
-      out[plane + at] = bd[x];
-      bv[x] = sa::kNegBig;
-      bd[x] = 0;
+      out[plane + at] = bd[x] - slot0;
     };
-    for (int x = 0; x < P; ++x) {
-      c[x] = sa::cell_init(sa::kNegBig);
-      acc[x] = 0;
-      bv[x] = sa::kNegBig;
-      bd[x] = 0;
-    }
-    int slot = 0;
-    int32_t n1y = -1, n2y = -1, n1o = -1, n2o = -1;
-    int p = 0;
-    for (int t = 0; t < T; ++t) {
-      if (p == 0) {
-        slot = t / S;
-        n1o = n1y;
-        n2o = n2y;
-        n2y = slot < NP ? n2s[slot * R + row] : -1;
-        n1y = slot < NP ? dsum[slot * R + row] - n2y : -1;
-      }
-      const int32_t qc = qstream[static_cast<size_t>(row) * T + t];
-      const int32_t dc = dstream[static_cast<size_t>(row) * T + t];
-      for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      c0 = c;
-      for (int x = P - 1; x >= 0; --x) {
-        const int l = left_lane(x, sp, P);
-        const int32_t code = sa::stream_cell<DIRS, MODE, false, WILDCARD>(
-            c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == p, p,
-            qc, dc, sc);
-        acc[x] |= static_cast<uint32_t>(code) << (8u * (t & 3));
-        if (x == p) flush(slot - 1, x);
-        const bool young = x <= p;
-        const int32_t pk = young ? p : p + S;
-        sa::modes_update<MODE>(x, pk - x, pk, young ? n1y : n1o,
-                               young ? n2y : n2o, c[x].M1, c[x].H1, bv[x],
-                               bd[x]);
-      }
-      if (DIRS != sa::kDirsNone && (t & 3) == 3) {
-        for (int x = 0; x < P; ++x) {
-          dirs[(static_cast<size_t>(t >> 2) * R + row) * P + x] = acc[x];
-          acc[x] = 0;
+    for (int t0 = 0, k = 0; t0 < T; t0 += C, ++k) {
+      const int n = T - t0 < C ? T - t0 : C;
+      const int words_end = (t0 + n) / kPer;
+      for (int g = 0; g < G; ++g) {
+        if (g > 0 && full[g] < sa::ring_full_need(k)) return sa::kRingUnmet;
+        if (g + 1 < G && freed[g] < sa::ring_free_need(k, slots)) {
+          return sa::kRingUnmet;
         }
+        if (kDirs && g == 0 &&
+            wrap_freed < sa::wrap_free_need(words_end, wrap)) {
+          return sa::kRingUnmet;
+        }
+        Entry* rin = &ring[(static_cast<size_t>(g) * slots + k % slots) * C];
+        Entry* rout =
+            g + 1 < G
+                ? &ring[(static_cast<size_t>(g + 1) * slots + k % slots) * C]
+                : nullptr;
+        const int a = w0[g], b = w1[g];
+        for (int e = 0; e < n; ++e) {
+          const int t = t0 + e;
+          const int p = t % S;
+          const int slot = t / S;
+          int32_t n1y, n2y;
+          pair_of(slot, n1y, n2y);
+          const size_t at_t = static_cast<size_t>(row) * T + t;
+          for (int x = a; x < b; ++x) pre[x] = sa::ring_pre<DIRS>(c[x], sc);
+          if (rout != nullptr) {
+            rout[e] = {c[b - 1].H2, pre[b - 1].dsel,
+                       sa::ring_pack(c[b - 1].s1d, pre[b - 1].dflag)};
+          }
+          if (kDirs && b == P) {
+            wacc = sa::push_code<DIRS>(wacc, pre[P - 1].dflag);
+          }
+          Entry left = g == 0 ? Entry{0, 0, qstream[at_t]} : rin[e];
+          const bool edge = a == 0 || (p >= a && p < b);
+          for (int x = b - 1; x >= a; --x) {
+            int32_t lh, ld, lf, ls;
+            if (x == a) {
+              lh = left.h;
+              ld = left.d;
+              lf = sa::ring_dflag(left.s);
+              ls = sa::ring_s1d(left.s);
+            } else {
+              lh = c[x - 1].H2;
+              ld = pre[x - 1].dsel;
+              lf = pre[x - 1].dflag;
+              ls = c[x - 1].s1d;
+            }
+            if (x == p) c[x].s2v = dstream[at_t];
+            const bool eq = sa::codes_match<WILDCARD>(ls, c[x].s2v);
+            c[x].s1d = ls;
+            const int32_t code =
+                edge ? sa::ring_cell<DIRS, MODE, COMPAT, true, true>(
+                           c[x], pre[x], lh, ld, lf, eq, x == 0, x == p, p,
+                           sc)
+                     : sa::ring_cell<DIRS, MODE, COMPAT, false, false>(
+                           c[x], pre[x], lh, ld, lf, eq, false, false, p, sc);
+            if (kDirs) acc[x] = sa::push_code<DIRS>(acc[x], code);
+            if (kModes) {
+              if (x == p) {
+                flush_argmax(slot - 1, x, (slot - 1) * S);
+                bv[x] = sa::kNegBig;
+                bd[x] = t - x;
+                sa::modes_window<MODE>(x, t, n1y, n2y, lo[x], len[x]);
+              }
+              sa::modes_track<MODE>(t, lo[x], len[x], c[x].M1, c[x].H1,
+                                    bv[x], bd[x]);
+            }
+          }
+          if (!kModes) {
+            for (int kk = 0; kk < NP; ++kk) {
+              const int x = n2s[kk * R + row];
+              if (kk * S + dsum[kk * R + row] != t || x < a || x >= b) {
+                continue;
+              }
+              int32_t* f = out + (static_cast<size_t>(row) * NP + kk) * 3;
+              f[0] = c[x].M1;
+              f[1] = c[x].I1;
+              f[2] = c[x].D1;
+            }
+          }
+          if (kDirs && t % kPer == kPer - 1) {
+            const int w = t / kPer;
+            uint32_t* dst = dirs + (static_cast<size_t>(w) * R + row) * P;
+            for (int x = a; x < b; ++x) {
+              if (x != 0) dst[x] = acc[x];
+            }
+            if (a == 0) {
+              wring[w % wrap] = acc[0];
+              wtag[w % wrap] = w;
+            }
+            if (b == P) {
+              // The word must still be in its slot (not overwritten).
+              if (wtag[w % wrap] != w) return sa::kRingUnmet;
+              dst[0] = wring[w % wrap] | wacc;
+            }
+          }
+        }
+        if (g > 0) freed[g - 1] = k + 1;
+        if (g + 1 < G) full[g + 1] = k + 1;
+        if (b == P) wrap_freed = words_end;
       }
-      if (++p == S) p = 0;
     }
-    for (int x = 0; x < P && x < S; ++x) flush(slot, x);
+    if (kModes) {
+      const int slot = (T - 1) / S;
+      const int p_end = (T - 1) % S;
+      for (int x = 0; x < P && x < S; ++x) {
+        flush_argmax(slot, x, (x <= p_end ? slot : slot - 1) * S);
+      }
+    }
   }
+  return 0;
+}
+
+typedef int (*HostRing)(const int32_t*, const int32_t*, const int32_t*,
+                        const int32_t*, int32_t*, uint32_t*, int, int, int,
+                        int, int, const sa::Scheme&, const sa::Split&, int,
+                        int, int);
+
+template <int DIRS, int MODE>
+HostRing pick_ring(bool compat, bool wildcard) {
+  if (compat) {
+    return wildcard ? stream_ring_host<DIRS, MODE, true, true>
+                    : stream_ring_host<DIRS, MODE, true, false>;
+  }
+  return wildcard ? stream_ring_host<DIRS, MODE, false, true>
+                  : stream_ring_host<DIRS, MODE, false, false>;
+}
+
+// The instance for (dirs, mode, flags), as the kernel's dispatch.
+HostRing pick_ring_fill(int dirs_mode, int mode, bool compat, bool wildcard) {
+  switch (dirs_mode) {
+    case sa::kDirsNone:
+      return mode == sa::kModeGlobal
+                 ? pick_ring<sa::kDirsNone, sa::kModeGlobal>(compat, wildcard)
+             : mode == sa::kModeSemi
+                 ? pick_ring<sa::kDirsNone, sa::kModeSemi>(false, wildcard)
+                 : pick_ring<sa::kDirsNone, sa::kModeLocal>(false, wildcard);
+    case sa::kDirsFast4:
+      return mode == sa::kModeGlobal
+                 ? pick_ring<sa::kDirsFast4, sa::kModeGlobal>(compat,
+                                                              wildcard)
+                 : nullptr;
+    case sa::kDirsFull:
+      return mode == sa::kModeGlobal
+                 ? pick_ring<sa::kDirsFull, sa::kModeGlobal>(compat, wildcard)
+             : mode == sa::kModeSemi
+                 ? pick_ring<sa::kDirsFull, sa::kModeSemi>(false, wildcard)
+                 : pick_ring<sa::kDirsFull, sa::kModeLocal>(false, wildcard);
+  }
+  return nullptr;
+}
+
+int ring_fill(int mode, const int32_t* qstream, const int32_t* dstream,
+              const int32_t* dsum, const int32_t* n2, int32_t* out,
+              uint32_t* dirs, int R, int T, int P, int S, int NP, int match,
+              int mismatch, int gap_open, int gap_extend, int dirs_mode,
+              bool compat, bool wildcard, int cta_lanes, int lpt, int chunk,
+              int slots, int wrap) {
+  const sa::Split sp =
+      sa::stream_plan(P, cta_lanes, mode != sa::kModeGlobal, lpt);
+  if (sp.nctas == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0 ||
+      !sa::ring_ok(chunk, slots, wrap)) {
+    return -1;
+  }
+  HostRing fn = pick_ring_fill(dirs_mode, mode, compat, wildcard);
+  if (fn == nullptr) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  return fn(qstream, dstream, dsum, n2, out, dirs, R, T, P, S, NP, sc, sp,
+            chunk, slots, wrap);
 }
 
 // The per-pair modes fill of one pair at a time.
@@ -280,18 +385,9 @@ HostGotoh pick_gotoh(bool compat, bool wildcard) {
                   : gotoh_host<DIRS, false, false>;
 }
 
-typedef void (*HostModes)(const int32_t*, const int32_t*, const int32_t*,
-                          const int32_t*, int32_t*, uint32_t*, int, int, int,
-                          int, int, const sa::Scheme&, const sa::Split&);
 typedef void (*HostPerPair)(const int32_t*, const int32_t*, const int32_t*,
                             const int32_t*, int32_t*, uint32_t*, int, int,
                             int, int, const sa::Scheme&, const sa::Split&);
-
-template <int DIRS, int MODE>
-HostModes pick_stream_modes(bool wildcard) {
-  return wildcard ? stream_modes_host<DIRS, MODE, true>
-                  : stream_modes_host<DIRS, MODE, false>;
-}
 
 template <int DIRS, int MODE>
 HostPerPair pick_modes(bool wildcard) {
@@ -300,23 +396,30 @@ HostPerPair pick_modes(bool wildcard) {
 
 }  // namespace
 
+// sa_stream_fill's arguments minus the stream: the status word is not
+// written (a wait that would not hold returns kRingUnmet, -4, instead).
 extern "C" int hc_stream_fill(const int32_t* qstream, const int32_t* dstream,
                               const int32_t* dsum, const int32_t* n2,
-                              int32_t* finals, uint32_t* dirs, int R, int T,
-                              int P, int S, int NP, int match, int mismatch,
-                              int gap_open, int gap_extend, int dirs_mode,
-                              int compat, int wildcard, int cta_lanes) {
-  const sa::Split sp = sa::plan_split(P, cta_lanes);
+                              int32_t* finals, uint32_t* dirs,
+                              int32_t* /*status*/, int R, int T, int P, int S,
+                              int NP, int match, int mismatch, int gap_open,
+                              int gap_extend, int dirs_mode, int compat,
+                              int wildcard, int cta_lanes, int lpt, int chunk,
+                              int slots, int wrap) {
+  return ring_fill(sa::kModeGlobal, qstream, dstream, dsum, n2, finals, dirs,
+                   R, T, P, S, NP, match, mismatch, gap_open, gap_extend,
+                   dirs_mode, compat != 0, wildcard != 0, cta_lanes, lpt,
+                   chunk, slots, wrap);
+}
+
+// The streamed lanes' split (sa_stream_plan).
+extern "C" int hc_stream_plan(int P, int cta_lanes, int modes, int lpt,
+                              int* shape) {
+  const sa::Split sp = sa::stream_plan(P, cta_lanes, modes != 0, lpt);
   if (sp.nctas == 0) return -1;
-  HostFill fn = nullptr;
-  switch (dirs_mode) {
-    case sa::kDirsNone: fn = pick<sa::kDirsNone>(compat, wildcard); break;
-    case sa::kDirsFast4: fn = pick<sa::kDirsFast4>(compat, wildcard); break;
-    case sa::kDirsFull: fn = pick<sa::kDirsFull>(compat, wildcard); break;
-  }
-  if (fn == nullptr) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(qstream, dstream, dsum, n2, finals, dirs, R, T, P, S, NP, sc, sp);
+  shape[0] = sp.lpt;
+  shape[1] = sa::cta_threads(sp);
+  shape[2] = sp.nctas;
   return 0;
 }
 
@@ -350,28 +453,18 @@ extern "C" int hc_walk_fast4(const uint32_t* dirs, int R, int P,
   return 0;
 }
 
-extern "C" int hc_stream_modes_fill(const int32_t* qstream,
-                                    const int32_t* dstream,
-                                    const int32_t* dsum, const int32_t* n2,
-                                    int32_t* out, uint32_t* dirs, int R, int T,
-                                    int P, int S, int NP, int match,
-                                    int mismatch, int gap_open,
-                                    int gap_extend, int dirs_mode, int local,
-                                    int wildcard, int cta_lanes) {
-  const sa::Split sp = sa::plan_split(P, cta_lanes);
-  if (sp.nctas == 0) return -1;
-  HostModes fn = nullptr;
-  if (dirs_mode == sa::kDirsNone) {
-    fn = local ? pick_stream_modes<sa::kDirsNone, sa::kModeLocal>(wildcard)
-               : pick_stream_modes<sa::kDirsNone, sa::kModeSemi>(wildcard);
-  } else if (dirs_mode == sa::kDirsFull) {
-    fn = local ? pick_stream_modes<sa::kDirsFull, sa::kModeLocal>(wildcard)
-               : pick_stream_modes<sa::kDirsFull, sa::kModeSemi>(wildcard);
-  }
-  if (fn == nullptr) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(qstream, dstream, dsum, n2, out, dirs, R, T, P, S, NP, sc, sp);
-  return 0;
+// sa_stream_modes_fill's arguments minus the stream (as hc_stream_fill).
+extern "C" int hc_stream_modes_fill(
+    const int32_t* qstream, const int32_t* dstream, const int32_t* dsum,
+    const int32_t* n2, int32_t* out, uint32_t* dirs, int32_t* /*status*/,
+    int R, int T, int P, int S, int NP, int match, int mismatch, int gap_open,
+    int gap_extend, int dirs_mode, int local, int wildcard, int cta_lanes,
+    int lpt, int chunk, int slots, int wrap) {
+  if (dirs_mode == sa::kDirsFast4) return -1;
+  return ring_fill(local ? sa::kModeLocal : sa::kModeSemi, qstream, dstream,
+                   dsum, n2, out, dirs, R, T, P, S, NP, match, mismatch,
+                   gap_open, gap_extend, dirs_mode, false, wildcard != 0,
+                   cta_lanes, lpt, chunk, slots, wrap);
 }
 
 extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,

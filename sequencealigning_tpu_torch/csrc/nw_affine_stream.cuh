@@ -48,6 +48,38 @@ struct Pre {
 
 SA_HD int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 
+// Hopper's DPX instructions on the card, the same integers from plain
+// maxima on the host.
+// max(a + b, c): one VIADDMAX on sm_90.
+SA_HD int32_t add_max(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__)
+  return __viaddmax_s32(a, b, c);
+#else
+  return imax(a + b, c);
+#endif
+}
+
+// max(a, b, c): one VIMNMX3 on sm_90.
+SA_HD int32_t max3(int32_t a, int32_t b, int32_t c) {
+#if defined(__CUDA_ARCH__)
+  return __vimax3_s32(a, b, c);
+#else
+  return imax(a, imax(b, c));
+#endif
+}
+
+// max(a, b) and ge = (a >= b), for a compare whose result is also a
+// direction bit: __vibmax_s32 on the card (ptxas for sm_90a lowers it to a
+// compare and a select, no fewer instructions than the plain form).
+SA_HD int32_t bmax(int32_t a, int32_t b, bool& ge) {
+#if defined(__CUDA_ARCH__)
+  return __vibmax_s32(a, b, &ge);
+#else
+  ge = a >= b;
+  return ge ? a : b;
+#endif
+}
+
 // neg: the initial score state, NEG_INF (global fills and the per-pair modes
 // fill) or NEGBIG (the streamed modes fill), as in the JAX package.
 SA_HD Cell cell_init(int32_t neg = kNegInf) {
@@ -167,6 +199,142 @@ SA_HD void modes_update(int32_t x, int32_t y, int32_t pd, int32_t n1,
   if (elig && score > bv) {
     bv = score;
     bd = pd;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The streamed fills' cell since the warp-ring schedule (nw_affine_stream.cu,
+// stream_ring.cuh): the same integers as stream_pre / stream_cell /
+// modes_update, each max written with its compare (bmax), the boundary work
+// only in a lane that can need it, the codes kept by the caller, and the
+// modes' eligibility as one window of steps a lane.
+// ---------------------------------------------------------------------------
+
+// stream_pre through bmax.
+template <int DIRS>
+SA_HD Pre ring_pre(const Cell& c, const Scheme& s) {
+  Pre r;
+  r.t0 = c.M1 + s.gap_open;
+  bool cd;
+  r.dsel = bmax(c.D1, r.t0, cd);
+  if (DIRS == kDirsFull) {
+    r.dflag = (cd ? kDEXT : 0) | (r.t0 >= c.D1 ? kDOPEN : 0);
+  } else if (DIRS == kDirsFast4) {
+    r.dflag = cd ? 8 : 0;
+  } else {
+    r.dflag = 0;
+  }
+  return r;
+}
+
+// Whether a lane's query and db codes match (stream_cell's test).
+template <bool WILDCARD>
+SA_HD bool codes_match(int32_t s1d, int32_t s2v) {
+  return WILDCARD ? (s1d & s2v) != 0 : s1d == s2v;
+}
+
+// stream_cell for one lane, the codes kept by the caller: eq is
+// codes_match of the query code entering the lane (the left lane's s1d, or
+// the step's query code at lane 0) and the lane's db code (the step's at
+// lane p); ldsel / lflag are the left lane's merged D source and D bits;
+// c.s1d and c.s2v are neither read nor written.  ATP / AT0: whether the
+// lane can be lane p / lane 0 at all -- when false, atp / at0 are ignored
+// and no boundary code is emitted for it; when true, as stream_cell.
+// Returns the direction code.
+template <int DIRS, int MODE, bool COMPAT, bool ATP, bool AT0>
+SA_HD int32_t ring_cell(Cell& c, const Pre& pre, int32_t lH2, int32_t ldsel,
+                        int32_t lflag, bool eq, bool at0, bool atp,
+                        int32_t p, const Scheme& s) {
+  const bool ap = ATP && atp;
+  const bool a0 = AT0 && at0;
+  int32_t M = lH2 + (eq ? s.match : s.mismatch);
+  bool restart = false;
+  if (MODE == kModeLocal) {
+    bool nonneg;
+    M = bmax(M, 0, nonneg);
+    restart = !nonneg;
+  }
+  bool ci;
+  int32_t I = bmax(c.I1, pre.t0, ci) + s.gap_extend;
+  int32_t D = ldsel + s.gap_extend;
+  if (ATP || AT0) {
+    if (MODE == kModeGlobal) {
+      if (ap) boundary(p, COMPAT, true, s, M, I, D);
+      if (a0) boundary(p, COMPAT, false, s, M, I, D);
+    } else if (a0 || ap) {
+      M = 0;
+      I = kNegInf;
+      D = kNegInf;
+      restart = true;
+    }
+  }
+  // H = max(M, I, D) and its argmax with priority M > I > D: mfirst is
+  // M == H, ifirst is I == max(I, D).
+  bool ifirst, mfirst;
+  const int32_t id = bmax(I, D, ifirst);
+  const int32_t H = bmax(M, id, mfirst);
+  int32_t code = 0;
+  if (DIRS == kDirsFull) {
+    code = (mfirst ? kHM : 0) | (I == H ? kHI : 0) | (D == H ? kHD : 0) |
+           (ci ? kIEXT : 0) | (pre.t0 >= c.I1 ? kIOPEN : 0) | lflag;
+    if (MODE == kModeLocal && restart) code |= kLSTART;
+  } else if (DIRS == kDirsFast4) {
+    code = (mfirst ? 0 : (ifirst ? 1 : 2)) | (ci ? 4 : 0) | lflag;
+  }
+  c.H2 = c.H1;
+  c.H1 = H;
+  c.M1 = M;
+  c.I1 = I;
+  c.D1 = D;
+  return code;
+}
+
+// Appends a step's direction code to a lane's word: a shift register, so
+// the code of step d lands in nibble d & 7 (fast4) or byte d & 3 (full) of
+// the word completed at d | 7 (d | 3) with no shift by the step's position.
+// One funnel shift on the card.
+template <int DIRS>
+SA_HD uint32_t push_code(uint32_t acc, int32_t code) {
+  constexpr int kBits = DIRS == kDirsFast4 ? 4 : 8;
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(acc, static_cast<uint32_t>(code), kBits);
+#else
+  return (acc >> kBits) | (static_cast<uint32_t>(code) << (32 - kBits));
+#endif
+}
+
+// The window of steps in which a lane's current pair has an eligible cell
+// (modes_update's test), set when the lane turns over to the pair at step t
+// (t = k*S + x, the pair's cell (x, 0)): the cell of step t' is eligible
+// iff (unsigned)(t' - lo) < len.  n2 = -1: no pair.  Local takes
+// 1 <= x <= n2, 1 <= y <= n1; semi the last column (x == n2, every y) or
+// the last row (y == n1).
+template <int MODE>
+SA_HD void modes_window(int32_t x, int32_t t, int32_t n1, int32_t n2,
+                        int32_t& lo, int32_t& len) {
+  if (MODE == kModeLocal) {
+    lo = t + 1;
+    len = x >= 1 && x <= n2 ? n1 : 0;
+  } else if (x == n2) {
+    lo = t;
+    len = n1 + 1;
+  } else {
+    lo = t + n1;
+    len = x >= 0 && x < n2 ? 1 : 0;
+  }
+}
+
+// modes_update in a lane's window: bd keeps the step of the best score (the
+// pair's diagonal once its slot's first step is subtracted); strict >, so
+// each lane keeps its earliest diagonal.
+template <int MODE>
+SA_HD void modes_track(int32_t t, int32_t lo, int32_t len, int32_t M,
+                       int32_t H, int32_t& bv, int32_t& bd) {
+  const int32_t score = MODE == kModeLocal ? M : H;
+  if (static_cast<uint32_t>(t - lo) < static_cast<uint32_t>(len) &&
+      score > bv) {
+    bv = score;
+    bd = t;
   }
 }
 

@@ -23,27 +23,10 @@
 namespace sa {
 
 // ---------------------------------------------------------------------------
-// Cell arithmetic (Hopper's DPX instructions on the card, the same integers
-// from plain maxima on the host)
+// Cell arithmetic (Hopper's DPX instructions on the card through
+// nw_affine_stream.cuh's add_max / max3, the same integers from plain
+// maxima on the host)
 // ---------------------------------------------------------------------------
-
-// max(a + b, c): one VIADDMAX on sm_90.
-SA_HD int32_t add_max(int32_t a, int32_t b, int32_t c) {
-#if defined(__CUDA_ARCH__)
-  return __viaddmax_s32(a, b, c);
-#else
-  return imax(a + b, c);
-#endif
-}
-
-// max(a, b, c): one VIMNMX3 on sm_90.
-SA_HD int32_t max3(int32_t a, int32_t b, int32_t c) {
-#if defined(__CUDA_ARCH__)
-  return __vimax3_s32(a, b, c);
-#else
-  return imax(a, imax(b, c));
-#endif
-}
 
 // What a lane hands its right neighbour for D: max(M1 + o, D1), from its
 // state before the step (stream_pre's dsel).

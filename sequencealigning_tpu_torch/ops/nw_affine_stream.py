@@ -14,13 +14,16 @@ Two implementations of the fill, chosen by the tensors' device:
 * ``gotoh_fill_stream_torch`` -- the plain PyTorch version (CPU tensors,
   and the reference the CUDA kernel is checked against);
 * ``gotoh_fill_stream_cuda`` -- the hand-written kernel
-  (``csrc/nw_affine_stream.cu``; CUDA tensors only).
+  (``csrc/nw_affine_stream.cu``; CUDA tensors only): each warp sweeps its
+  lanes at its own pace, its first lane fed through a ring in shared memory
+  a chunk of steps at a time (``csrc/stream_ring.cuh``).
 
 Only int32 score state is ported; see ROADMAP.md for int16.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -323,17 +326,96 @@ def gotoh_fill_stream_torch(
 # ---------------------------------------------------------------------------
 
 
+# The warp rings' defaults (csrc/stream_ring.cuh): steps a chunk (the
+# global fill's, the modes'), chunk slots a warp edge (at most RING_ENTRIES
+# steps a warp edge), lane 0's words in flight.  The chunks are the fastest
+# measured at the main shapes (csrc/stream_sweep.py).
+RING_CHUNK = 16
+RING_CHUNK_MODES = 32
+RING_SLOTS = 4
+RING_ENTRIES = 64
+RING_WRAP = 256
+
+
+def ring_knobs(chunk: int = 0, ring_slots: int = 0, wrap_words: int = 0,
+               modes: bool = False) -> Tuple[int, int, int]:
+    """(chunk, slots, wrap words) with 0 taking the default; the default
+    slots are as many as fit RING_ENTRIES, at most RING_SLOTS."""
+    chunk = chunk or (RING_CHUNK_MODES if modes else RING_CHUNK)
+    slots = ring_slots or max(1, min(RING_SLOTS, RING_ENTRIES // chunk))
+    return chunk, slots, wrap_words or RING_WRAP
+
+
+def stream_launch_shape(lib, P: int, cta_lanes: int, modes: bool,
+                        lanes_per_thread: int = 0) -> dict:
+    """The streamed fills' block shape for a row of P lanes
+    (stream_ring.cuh::stream_plan, through ``lib.sa_stream_plan`` or the
+    host build's ``hc_stream_plan``): lanes a thread, threads a CTA, CTAs a
+    row.  Raises ValueError when the shape is out of range."""
+    shape = (ctypes.c_int * 3)()
+    plan_fn = getattr(lib, "sa_stream_plan", None) or lib.hc_stream_plan
+    if plan_fn(P, cta_lanes, int(modes), lanes_per_thread, shape) != 0:
+        raise ValueError(
+            f"lane width {P} (CTA width {cta_lanes}, {lanes_per_thread} "
+            "lanes a thread) is out of the CUDA fill kernel's range")
+    return dict(lanes_per_thread=shape[0], threads=shape[1], ctas=shape[2])
+
+
+def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
+                       n2s, out, dirs, plan: StreamPlan,
+                       scheme: ScoringScheme, dirs_code: int, wildcard: bool,
+                       modes: bool, cta_lanes: int, lanes_per_thread: int,
+                       chunk: int, ring_slots: int, wrap_words: int) -> dict:
+    """Launch sa_stream_fill (mode_arg: compat) or sa_stream_modes_fill
+    (mode_arg: local) into out/dirs, then read the launch's status word:
+    raises on a failed launch and on a wait that stalled past the spin
+    limit.  0 for a knob takes its default.  Returns the launch's shape."""
+    lib = csrc.kernels()
+    shape = stream_launch_shape(lib, plan.p, cta_lanes, modes,
+                                lanes_per_thread)
+    knobs = ring_knobs(chunk, ring_slots, wrap_words, modes)
+    shape.update(zip(("chunk", "ring_slots", "wrap_words"), knobs))
+    dev = qstream.device
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(
+            qstream.data_ptr(), dstream.data_ptr(), dsums.data_ptr(),
+            n2s.data_ptr(), out.data_ptr(),
+            dirs.data_ptr() if dirs is not None else None, status.data_ptr(),
+            plan.n_rows, plan.t_total, plan.p, plan.s, plan.np_slots,
+            scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, dirs_code, mode_arg, int(wildcard), cta_lanes,
+            shape["lanes_per_thread"], shape["chunk"], shape["ring_slots"],
+            shape["wrap_words"], stream,
+        )
+    if rc != 0:
+        raise csrc.launch_error(entry, rc, shape["ctas"])
+    got = int(status.item())
+    if got != 0:
+        raise RuntimeError(
+            f"{entry}: a warp waited on its neighbour past the spin limit "
+            f"(status {got}); its results are incomplete")
+    return shape
+
+
 def gotoh_fill_stream_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     compat: bool, wildcard: bool, dirs_mode, cta_lanes: int = 0,
+    lanes_per_thread: int = 0, chunk: int = 0, ring_slots: int = 0,
+    wrap_words: int = 0,
 ):
     """The fill kernel (csrc/nw_affine_stream.cu) on CUDA tensors: same
     arguments and results as gotoh_fill_stream_torch.  A row of more than
     8192 lanes is split over a thread-block cluster; cta_lanes > 0 forces
     CTAs of that many lanes (a multiple of 128, for testing the split).
-    Builds the kernels on first use; raises on a CPU tensor, an unsupported
-    shape or a failed launch."""
+    lanes_per_thread (2, 4, 8, 16), chunk (steps, 1-32), ring_slots and
+    wrap_words force the warp rings' shape (0: the defaults); the launch's
+    shape is left in ``gotoh_fill_stream_cuda.last_launch``.  Builds the
+    kernels on first use; raises on a CPU tensor, an unsupported shape, a
+    failed launch or a stalled wait (the status word is read back, so the
+    call waits for the kernel)."""
     _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
     if not qstream.is_cuda:
         raise ValueError("gotoh_fill_stream_cuda needs CUDA tensors")
@@ -341,12 +423,7 @@ def gotoh_fill_stream_cuda(
                     ("dsums", dsums), ("n2s", n2s)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = csrc.kernels()
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
-    nctas = lib.sa_fill_ctas(P, cta_lanes)
-    if nctas == 0:
-        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
-                         "the CUDA fill kernel's range")
     dev = qstream.device
     finals = torch.zeros((R * NP, 3), dtype=torch.int32, device=dev)
     dirs = None
@@ -355,24 +432,16 @@ def gotoh_fill_stream_cuda(
         dirs = torch.empty(
             (plan.t_total // upack, R, P), dtype=torch.uint32, device=dev
         )
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sa_stream_fill(
-            qstream.data_ptr(), dstream.data_ptr(), dsums.data_ptr(),
-            n2s.data_ptr(), finals.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None,
-            R, plan.t_total, P, plan.s, NP,
-            scheme.match_, scheme.mismatch, scheme.gap_open,
-            scheme.gap_extend, _DIRS_CODES[dirs_mode], int(compat),
-            int(wildcard), cta_lanes, stream,
-        )
-    if rc != 0:
-        raise csrc.launch_error("sa_stream_fill", rc, nctas)
+    gotoh_fill_stream_cuda.last_launch = stream_fill_launch(
+        "sa_stream_fill", int(compat), qstream, dstream, dsums, n2s, finals,
+        dirs, plan, scheme, _DIRS_CODES[dirs_mode], wildcard, False,
+        cta_lanes, lanes_per_thread, chunk, ring_slots, wrap_words)
     gotoh_fill_stream_cuda.launches += 1
     return finals, dirs
 
 
 gotoh_fill_stream_cuda.launches = 0
+gotoh_fill_stream_cuda.last_launch = None
 
 
 def gotoh_fill_stream(qstream, dstream, dsums, n2s, plan, scheme, compat,

@@ -33,7 +33,6 @@ import numpy as np
 import torch
 
 from sequencealigning_tpu_torch.config import ScoringScheme
-from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.ops.nw_affine_modes import (
     NEGBIG,
     mode_candidates,
@@ -44,6 +43,7 @@ from sequencealigning_tpu_torch.ops.nw_affine_stream import (
     _check_fill_args,
     advance,
     resolve_stream_state,
+    stream_fill_launch,
     stream_inputs,
     stream_state,
     stream_step_torch,
@@ -131,12 +131,15 @@ def gotoh_fill_stream_modes_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     wildcard: bool, mode: str, with_dirs: bool, cta_lanes: int = 0,
+    lanes_per_thread: int = 0, chunk: int = 0, ring_slots: int = 0,
+    wrap_words: int = 0,
 ):
     """The streamed modes kernel (csrc/nw_affine_stream.cu) on CUDA tensors:
     same arguments and results as gotoh_fill_stream_modes_torch; rows past
     8192 lanes are split over a cluster, cta_lanes > 0 forces the split's
-    CTA width (as gotoh_fill_stream_cuda).  Raises on a CPU tensor, a
-    non-contiguous input, an unsupported shape or a failed launch."""
+    CTA width, and the ring knobs and ``last_launch`` are as
+    gotoh_fill_stream_cuda's.  Raises on a CPU tensor, a non-contiguous
+    input, an unsupported shape, a failed launch or a stalled wait."""
     _check_mode(mode)
     _check_fill_args(qstream, dstream, dsums, n2s, plan,
                      "full" if with_dirs else None)
@@ -144,12 +147,7 @@ def gotoh_fill_stream_modes_cuda(
         raise ValueError("gotoh_fill_stream_modes_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (qstream, dstream, dsums, n2s)):
         raise ValueError("stream modes fill inputs must be contiguous")
-    lib = csrc.kernels()
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
-    nctas = lib.sa_fill_ctas(P, cta_lanes)
-    if nctas == 0:
-        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
-                         "the CUDA fill kernel's range")
     dev = qstream.device
     # Lanes at or past S never hold an eligible cell and are never written
     # by the kernel: they keep the initial (NEGBIG, 0).
@@ -160,24 +158,17 @@ def gotoh_fill_stream_modes_cuda(
     if with_dirs:
         dirs = torch.empty((plan.t_total // 4, R, P), dtype=torch.uint32,
                            device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sa_stream_modes_fill(
-            qstream.data_ptr(), dstream.data_ptr(), dsums.data_ptr(),
-            n2s.data_ptr(), best.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None,
-            R, plan.t_total, P, plan.s, NP,
-            scheme.match_, scheme.mismatch, scheme.gap_open,
-            scheme.gap_extend, 2 if with_dirs else 0, int(mode == "local"),
-            int(wildcard), cta_lanes, stream,
-        )
-    if rc != 0:
-        raise csrc.launch_error("sa_stream_modes_fill", rc, nctas)
+    gotoh_fill_stream_modes_cuda.last_launch = stream_fill_launch(
+        "sa_stream_modes_fill", int(mode == "local"), qstream, dstream,
+        dsums, n2s, best, dirs, plan, scheme, 2 if with_dirs else 0,
+        wildcard, True, cta_lanes, lanes_per_thread, chunk, ring_slots,
+        wrap_words)
     gotoh_fill_stream_modes_cuda.launches += 1
     return (best[0], best[1]), dirs
 
 
 gotoh_fill_stream_modes_cuda.launches = 0
+gotoh_fill_stream_modes_cuda.last_launch = None
 
 
 def gotoh_fill_stream_modes(qstream, dstream, dsums, n2s, plan, scheme,

@@ -59,18 +59,30 @@ def _stream(seed, n=21, np_slots=3, scheme=ScoringScheme()):
         n2y[:NP, :, 0].contiguous()
 
 
+def _ring_args(lpt=0, chunk=0, slots=0, wrap=0, modes=False):
+    """The warp rings' knobs as the kernels take them (0: the default)."""
+    return (lpt, *fill.ring_knobs(chunk, slots, wrap, modes))
+
+
 def _host_fill(host, plan, qs, ds, dsum, n2, scheme, compat, wildcard,
-               dirs_mode, cta_lanes=0):
+               dirs_mode, cta_lanes=0, rc_only=False, **ring):
+    """hc_stream_fill (the kernel's warp-ring schedule run serially):
+    (finals, dirs), or its return code with rc_only."""
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
     finals = torch.zeros((R * NP, 3), dtype=torch.int32)
     upack = 8 if dirs_mode == "fast4" else 4
-    dirs = torch.zeros((plan.t_total // upack, R, P), dtype=torch.uint32)
+    dirs = torch.full((plan.t_total // upack, R, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
     rc = host.hc_stream_fill(
         qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
-        finals.data_ptr(), dirs.data_ptr(), R, plan.t_total, P, plan.s, NP,
-        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
-        _DIRS[dirs_mode], int(compat), int(wildcard), cta_lanes,
+        finals.data_ptr(), dirs.data_ptr(), status.data_ptr(), R,
+        plan.t_total, P, plan.s, NP, scheme.match_, scheme.mismatch,
+        scheme.gap_open, scheme.gap_extend, _DIRS[dirs_mode], int(compat),
+        int(wildcard), cta_lanes, *_ring_args(**ring),
     )
+    if rc_only:
+        return rc
     assert rc == 0
     return finals, dirs
 
@@ -192,17 +204,20 @@ def test_host_modes_fill_matches_plain(host, local, wildcard, hi1, hi2):
 
 
 def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
-                       with_dirs, cta_lanes=0):
+                       with_dirs, cta_lanes=0, **ring):
     R, P, NP = plan.n_rows, plan.p, plan.np_slots
     out = torch.empty((2, NP, R, P), dtype=torch.int32)
     out[0].fill_(modes.NEGBIG)
     out[1].zero_()
-    dirs = torch.zeros((plan.t_total // 4, R, P), dtype=torch.uint32)
+    dirs = torch.full((plan.t_total // 4, R, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
     rc = host.hc_stream_modes_fill(
         qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
-        out.data_ptr(), dirs.data_ptr(), R, plan.t_total, P, plan.s, NP,
-        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
-        2 if with_dirs else 0, int(local), int(wildcard), cta_lanes,
+        out.data_ptr(), dirs.data_ptr(), status.data_ptr(), R, plan.t_total,
+        P, plan.s, NP, scheme.match_, scheme.mismatch, scheme.gap_open,
+        scheme.gap_extend, 2 if with_dirs else 0, int(local), int(wildcard),
+        cta_lanes, *_ring_args(**ring, modes=True),
     )
     assert rc == 0
     return out[0], out[1], dirs
@@ -385,9 +400,218 @@ def test_host_split_refuses_bad_widths(host):
     finals = torch.zeros((R * NP, 3), dtype=torch.int32)
     rc = host.hc_stream_fill(
         qs.data_ptr(), ds.data_ptr(), dsum.data_ptr(), n2.data_ptr(),
-        finals.data_ptr(), None, R, plan.t_total, P, plan.s, NP, 5, -4, -8,
-        -6, 0, 1, 0, 100)
+        finals.data_ptr(), None, None, R, plan.t_total, P, plan.s, NP, 5, -4,
+        -8, -6, 0, 1, 0, 100, *_ring_args())
     assert rc == -1
+
+
+# ---------------------------------------------------------------------------
+# The streamed fills' warp-ring schedule (stream_ring.cuh): block shapes,
+# forced lanes a thread / chunks / slots, rows past 512 threads, turnovers
+# and lane n2 = P - 2 at warp edges and the wrap, and a schedule whose waits
+# cannot be met
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("P,cta_lanes,is_modes,lpt,want", [
+    (2048, 0, 0, 0, (8, 256, 1)), (2176, 0, 1, 0, (4, 544, 1)),
+    (2176, 0, 0, 0, (8, 288, 1)), (2304, 0, 1, 0, (8, 288, 1)),
+    (4096, 0, 0, 0, (8, 512, 1)), (4096, 0, 1, 0, (8, 512, 1)),
+    (8192, 0, 0, 0, (16, 512, 1)), (8320, 0, 0, 0, (8, 512, 3)),
+    (8320, 0, 1, 0, (8, 512, 3)), (40960, 0, 0, 0, (16, 512, 5)),
+    (1152, 0, 1, 2, (2, 576, 1)), (2048, 0, 0, 2, (2, 1024, 1)),
+    (4096, 0, 0, 4, (4, 1024, 1)), (384, 0, 0, 8, (8, 64, 1)),
+    (2048, 512, 0, 0, (8, 64, 4)),
+    (2176, 0, 0, 2, None), (2304, 0, 1, 4, None), (2048, 0, 0, 3, None),
+    (8200, 0, 0, 0, None),
+])
+def test_stream_plan(host, P, cta_lanes, is_modes, lpt, want):
+    """The streamed fills' block shape (lanes a thread, threads, CTAs): 8
+    lanes a thread for the global fill and 4 for the modes, more where the
+    threads would pass the instance's bound (512; 544 for the modes'
+    4-lane instance, 1024 for the global one), forced lanes a thread within
+    it, and refusals."""
+    if want is None:
+        with pytest.raises(ValueError, match="range"):
+            fill.stream_launch_shape(host, P, cta_lanes, bool(is_modes), lpt)
+        return
+    shape = fill.stream_launch_shape(host, P, cta_lanes, bool(is_modes), lpt)
+    assert (shape["lanes_per_thread"], shape["threads"], shape["ctas"]) == \
+        want
+
+
+@pytest.mark.parametrize("chunk,slots,wrap,modes,want", [
+    (0, 0, 0, False, (16, 4, 256)), (0, 0, 0, True, (32, 2, 256)),
+    (8, 0, 0, False, (8, 4, 256)), (24, 0, 4, True, (24, 2, 4)),
+    (5, 3, 1, False, (5, 3, 1)),
+])
+def test_ring_knobs(chunk, slots, wrap, modes, want):
+    """The warp rings' defaults: chunks of 16 steps (the modes' 32), as
+    many slots as fit 64 entries (at most 4), 256 wrap words."""
+    assert fill.ring_knobs(chunk, slots, wrap, modes) == want
+
+
+def test_stream_instances_from_build_log():
+    """The registers and spills of each streamed-fill instance, parsed from
+    -Xptxas -v output, its template arguments decoded; other kernels are
+    left out."""
+    name = ("_ZN12_GLOBAL__N_118stream_ring_kernelILi4ELi2ELi2ELb0ELb1EEEvPKi"
+            "S2_S2_S2_PiPjS3_iiiiiN2sa6SchemeENS5_5SplitENS_4RingE")
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    56 bytes stack frame, 52 bytes spill stores, 60 bytes spill "
+        "loads",
+        "ptxas info    : Used 96 registers, 34000 bytes smem",
+        "ptxas info    : Compiling entry function '_Z5otherPi' for 'sm_90a'",
+        "ptxas info    : Used 32 registers",
+    ])
+    got = csrc.stream_instances(log)
+    assert got == [dict(entry=name, registers=96, stack=56, spill_stores=52,
+                        spill_loads=60, lanes_per_thread=4, dirs="full",
+                        mode="local", compat=False, wildcard=True)]
+    assert [r["registers"] for r in csrc.kernel_resources(log, "other")] == \
+        [32]
+
+
+def _ring_batch(seed, n, np_slots, lo1, hi1, l2s, hi2=None, trim=True):
+    """n pairs with queries of lo1..hi1 bp and dbs of the lengths l2s
+    (cycled; lengths drawn up to hi2 where l2s is None), a third of the dbs
+    a mutated copy of the query; the streamed layout with np_slots slots a
+    row."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for i in range(n):
+        n2 = l2s[i % len(l2s)] if l2s else int(rng.integers(1, hi2 + 1))
+        s1 = rng.choice(alpha, int(rng.integers(lo1, hi1 + 1)))
+        s2 = rng.choice(alpha, n2)
+        if i % 3 == 1:
+            s2 = np.resize(s1, n2)
+            s2[rng.integers(n2)] = rng.choice(alpha)
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    batch = pack_batch(pairs, batch_size=-(-n // 8) * 8)
+    if trim:
+        batch = trim_for_stream(batch)
+    tb = to_device(batch, "cpu")
+    return fill.stream_inputs(*tb, np_slots=np_slots)
+
+
+def _check_ring_fill(host, plan, ins, compat, wildcard, dirs_mode,
+                     cta_lanes=0, **ring):
+    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2) \
+        if wildcard else ScoringScheme()
+    finals, dirs = _host_fill(host, plan, *ins, scheme, compat, wildcard,
+                              dirs_mode, cta_lanes, **ring)
+    want_f, want_d = fill.gotoh_fill_stream_torch(
+        *ins, plan, scheme, compat, wildcard, dirs_mode)
+    np.testing.assert_array_equal(finals.numpy(), want_f.numpy())
+    np.testing.assert_array_equal(dirs.numpy(), want_d.numpy())
+
+
+def _check_ring_modes(host, plan, ins, local, wildcard, cta_lanes=0, **ring):
+    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2) \
+        if wildcard else ScoringScheme()
+    mode = "local" if local else "semi"
+    (bv, bd), dirs = smodes.gotoh_fill_stream_modes_torch(
+        *ins, plan, scheme, wildcard, mode, True)
+    got = _host_stream_modes(host, plan, *ins, scheme, local, wildcard, True,
+                             cta_lanes, **ring)
+    for g, w in zip(got, (bv, bd, dirs)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("dirs_mode", ["fast4", "full"])
+@pytest.mark.parametrize("lpt,chunk,slots,np_slots", [
+    (2, 1, 1, 2), (2, 5, 3, 3), (4, 8, 2, 4), (4, 32, 2, 2), (8, 3, 4, 3),
+    (8, 16, 4, 4),
+])
+def test_host_ring_knobs_fill_matches_plain(host, lpt, chunk, slots,
+                                            np_slots, dirs_mode):
+    """The global fill over 384 lanes (6, 3 or 2 warps, the last half
+    real at 8 lanes a thread) in forced chunks and slots, 2-4 slots a row:
+    finals and the whole dirs tensor equal the plain fill's."""
+    plan, ins = _ring_batch(101 + lpt + chunk, 20, np_slots, 1, 200, None,
+                            hi2=300)
+    assert plan.p == 384
+    _check_ring_fill(host, plan, ins, lpt % 4 == 0, lpt == 8, dirs_mode,
+                     lpt=lpt, chunk=chunk, slots=slots)
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("lpt,chunk,slots,np_slots", [
+    (2, 7, 2, 3), (4, 16, 4, 4), (8, 2, 1, 2), (2, 32, 2, 4),
+])
+def test_host_ring_knobs_modes_match_plain(host, lpt, chunk, slots,
+                                           np_slots, local):
+    """The textbook modes over 384+ lanes (untrimmed) in forced lanes a
+    thread, chunks and slots, 2-4 slots a row: argmax buffers and the whole
+    dirs tensor equal the plain fill's."""
+    plan, ins = _ring_batch(131 + lpt + local, 20, np_slots, 1, 200, None,
+                            hi2=290, trim=False)
+    assert plan.p >= 384
+    _check_ring_modes(host, plan, ins, local, lpt == 2, lpt=lpt, chunk=chunk,
+                      slots=slots)
+
+
+@pytest.mark.parametrize("kind", ["fast4", "local", "semi"])
+def test_host_ring_past_512_threads(host, kind):
+    """A row of 1152 lanes at 2 lanes a thread: 576 threads, 18 warps."""
+    plan, ins = _ring_batch(151, 8, 1, 20, 60, [1100, 1150, 1024, 1149])
+    assert plan.p == 1152
+    assert fill.stream_launch_shape(host, plan.p, 0, kind != "fast4", 2)[
+        "threads"] == 576
+    if kind == "fast4":
+        _check_ring_fill(host, plan, ins, True, False, "fast4", lpt=2)
+    else:
+        _check_ring_modes(host, plan, ins, kind == "local", False, lpt=2,
+                          chunk=12)
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_host_ring_turnover_at_warp_edges(host, local):
+    """Pairs whose last column (n2) lies on either side of a warp edge (64
+    lanes a warp at 2 lanes a thread): every lane turns over at p == x, and
+    the semi-global argmax's column sits at the edges."""
+    plan, ins = _ring_batch(171 + local, 24, 3, 30, 140,
+                            [63, 64, 65, 127, 128, 129, 191, 192])
+    _check_ring_modes(host, plan, ins, local, False, lpt=2, chunk=9)
+
+
+@pytest.mark.parametrize("kind", ["fast4", "full", "local"])
+@pytest.mark.parametrize("P,lpt", [(128, 2), (256, 4), (256, 8)])
+def test_host_ring_lane_next_to_wrap(host, P, lpt, kind):
+    """Pairs with n2 = P - 2, so a real lane borders lane P-1, whose D bits
+    finish lane 0's words through the wrap ring."""
+    plan, ins = _ring_batch(191 + P + lpt, 12, 2, 1, P + 40,
+                            [P - 2, P - 3, 5])
+    assert plan.p == P
+    if kind == "local":
+        _check_ring_modes(host, plan, ins, True, False, lpt=lpt)
+    else:
+        _check_ring_fill(host, plan, ins, False, False, kind, lpt=lpt,
+                         chunk=8)
+
+
+@pytest.mark.parametrize("dirs_mode,chunk,wrap,lpt,met", [
+    ("fast4", 32, 1, 2, False), ("full", 16, 2, 2, False),
+    ("fast4", 32, 1, 16, False), ("fast4", 8, 1, 2, True),
+    ("full", 8, 2, 2, True), ("fast4", 20, 4, 16, True),
+])
+def test_host_ring_unmet_schedule(host, dirs_mode, chunk, wrap, lpt, met):
+    """A wrap ring of fewer words than a chunk completes deadlocks the row
+    (-4, the kernel's stalled wait), of several warps or of one (24 threads
+    at 16 lanes a thread); a ring of as many words meets every wait and
+    equals the plain fill."""
+    plan, ins = _ring_batch(211, 12, 2, 1, 100, [300, 120, 7])
+    assert plan.p == 384
+    if met:
+        _check_ring_fill(host, plan, ins, True, False, dirs_mode, lpt=lpt,
+                         chunk=chunk, wrap=wrap)
+        return
+    rc = _host_fill(host, plan, *ins, ScoringScheme(), True, False,
+                    dirs_mode, rc_only=True, lpt=lpt, chunk=chunk, wrap=wrap)
+    assert rc == -4
 
 
 # ---------------------------------------------------------------------------
