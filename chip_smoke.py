@@ -503,6 +503,7 @@ def phase_fill(torch, port):
     args = (plan, ScoringScheme(), True, False, "fast4")
     ms = cuda_ms(torch, lambda: fill.gotoh_fill_stream_cuda(*ins, *args))
     fk, dk = fill.gotoh_fill_stream_cuda(*ins, *args)
+    fill.check_stream_stalls(wait=True)
     launch = dict(fill.gotoh_fill_stream_cuda.last_launch)
     plain_ms, (fp, dp) = host_ms(
         torch, lambda: fill.gotoh_fill_stream_torch(*ins, *args))
@@ -565,14 +566,16 @@ def stream_stall_check(torch, port):
     t0 = time.perf_counter()
     raised = None
     try:
-        fill.gotoh_fill_stream_cuda(*ins, *a, lanes_per_thread=2, chunk=32,
-                                    wrap_words=1)
+        with fill.forced_ring(lanes_per_thread=2, chunk=32, wrap_words=1):
+            fill.gotoh_fill_stream_cuda(*ins, *a)
+        fill.check_stream_stalls(wait=True)
     except RuntimeError as e:
         raised = str(e)
     secs = time.perf_counter() - t0
     check(raised is not None and "spin limit" in raised,
           f"an impossible warp-ring schedule did not raise: {raised}")
     got = fill.gotoh_fill_stream_cuda(*ins, *a)
+    fill.check_stream_stalls(wait=True)
     want = fill.gotoh_fill_stream_torch(*ins, *a)
     torch.cuda.synchronize()
     check(all(torch.equal(g.view(torch.int32), w.view(torch.int32))
@@ -870,6 +873,7 @@ def phase_modes_full(torch, port, mode, pairs):
     args = (plan, ScoringScheme(), False, mode, True)
     ms = cuda_ms(torch, lambda: smodes.gotoh_fill_stream_modes_cuda(*ins, *args))
     (bk, dk_), dirs = smodes.gotoh_fill_stream_modes_cuda(*ins, *args)
+    fill.check_stream_stalls(wait=True)
     plain_ms, ((bp, dp_), dirs_p) = host_ms(
         torch, lambda: smodes.gotoh_fill_stream_modes_torch(*ins, *args))
     err = max(int((bk - bp).abs().max()), int((dk_ - dp_).abs().max()))

@@ -154,7 +154,7 @@ def kernels() -> ctypes.CDLL:
     lib.sa_fill_ctas.restype = _INT
     lib.sa_fill_ctas.argtypes = [_INT, _INT]
     lib.sa_stream_plan.restype = _INT
-    lib.sa_stream_plan.argtypes = [_INT] * 4 + [_VP]
+    lib.sa_stream_plan.argtypes = [_INT] * 7 + [_VP]
     lib.sa_stream_fill.restype = _INT
     lib.sa_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
     lib.sa_stream_modes_fill.restype = _INT
@@ -275,7 +275,7 @@ def host_check() -> ctypes.CDLL:
     lib.hc_fill_ctas.restype = _INT
     lib.hc_fill_ctas.argtypes = [_INT, _INT]
     lib.hc_stream_plan.restype = _INT
-    lib.hc_stream_plan.argtypes = [_INT] * 4 + [_VP]
+    lib.hc_stream_plan.argtypes = [_INT] * 7 + [_VP]
     lib.hc_stream_fill.restype = _INT
     lib.hc_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17
     lib.hc_stream_modes_fill.restype = _INT

@@ -266,15 +266,17 @@ int ring_fill(int mode, const int32_t* qstream, const int32_t* dstream,
               int slots, int wrap) {
   const sa::Split sp =
       sa::stream_plan(P, cta_lanes, mode != sa::kModeGlobal, lpt);
+  const sa::RingShape rg =
+      sa::ring_shape(chunk, slots, wrap, mode != sa::kModeGlobal);
   if (sp.nctas == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0 ||
-      !sa::ring_ok(chunk, slots, wrap)) {
+      !sa::ring_ok(rg)) {
     return -1;
   }
   HostRing fn = pick_ring_fill(dirs_mode, mode, compat, wildcard);
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   return fn(qstream, dstream, dsum, n2, out, dirs, R, T, P, S, NP, sc, sp,
-            chunk, slots, wrap);
+            rg.chunk, rg.slots, rg.wrap);
 }
 
 // The per-pair modes fill of one pair at a time.
@@ -412,15 +414,11 @@ extern "C" int hc_stream_fill(const int32_t* qstream, const int32_t* dstream,
                    chunk, slots, wrap);
 }
 
-// The streamed lanes' split (sa_stream_plan).
+// The streamed fills' launch shape (sa_stream_plan).
 extern "C" int hc_stream_plan(int P, int cta_lanes, int modes, int lpt,
-                              int* shape) {
-  const sa::Split sp = sa::stream_plan(P, cta_lanes, modes != 0, lpt);
-  if (sp.nctas == 0) return -1;
-  shape[0] = sp.lpt;
-  shape[1] = sa::cta_threads(sp);
-  shape[2] = sp.nctas;
-  return 0;
+                              int chunk, int slots, int wrap, int* shape) {
+  return sa::stream_launch_shape(P, cta_lanes, modes != 0, lpt, chunk, slots,
+                                 wrap, shape);
 }
 
 extern "C" int hc_walk_fast4(const uint32_t* dirs, int R, int P,

@@ -83,9 +83,7 @@ struct RingSmem {
   int32_t wrap_freed;
 };
 
-struct Ring {
-  int chunk, slots, wrap;
-};
+using Ring = sa::RingShape;
 
 // A thread's lanes: their scores (c[i]; c[i].s1d and c[i].s2v are unused),
 // query and db codes packed 4 bits a lane (lane i in word i / 8, bits
@@ -707,14 +705,14 @@ int launch(int mode, const int32_t* qstream, const int32_t* dstream,
            int dirs_mode, bool compat, bool wildcard, int cta_lanes, int lpt,
            int chunk, int slots, int wrap, void* stream) {
   sa::Split sp = sa::stream_plan(P, cta_lanes, mode != sa::kModeGlobal, lpt);
+  Ring rg = sa::ring_shape(chunk, slots, wrap, mode != sa::kModeGlobal);
   if (sp.nctas == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0 ||
-      status == nullptr || !sa::ring_ok(chunk, slots, wrap)) {
+      status == nullptr || !sa::ring_ok(rg)) {
     return -1;
   }
   FillKernel fn = pick(sp.lpt, dirs_mode, mode, compat, wildcard);
   if (fn == nullptr) return -1;
   sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  Ring rg{chunk, slots, wrap};
   void* args[] = {&qstream, &dstream, &dsum, &n2, &out, &dirs, &status, &R,
                   &T,       &P,       &S,    &NP, &sc,  &sp,   &rg};
   return sa::launch_split(reinterpret_cast<const void*>(fn), sp, R, args,
@@ -729,17 +727,14 @@ extern "C" int sa_fill_ctas(int P, int cta_lanes) {
   return sa::plan_split(P, cta_lanes).nctas;
 }
 
-// The streamed fills' split (stream_ring.cuh::stream_plan): shape[0..2] =
-// lanes a thread, threads a CTA, CTAs a row.  Returns 0, or -1 when out of
-// range.
+// The streamed fills' launch shape (stream_ring.cuh::stream_plan and
+// ring_shape; 0 takes the default): shape[0..5] = lanes a thread, threads a
+// CTA, CTAs a row, chunk steps, slots, wrap words.  Returns 0, or -1 when
+// out of range.
 extern "C" int sa_stream_plan(int P, int cta_lanes, int modes, int lpt,
-                              int* shape) {
-  const sa::Split sp = sa::stream_plan(P, cta_lanes, modes != 0, lpt);
-  if (sp.nctas == 0) return -1;
-  shape[0] = sp.lpt;
-  shape[1] = sa::cta_threads(sp);
-  shape[2] = sp.nctas;
-  return 0;
+                              int chunk, int slots, int wrap, int* shape) {
+  return sa::stream_launch_shape(P, cta_lanes, modes != 0, lpt, chunk, slots,
+                                 wrap, shape);
 }
 
 // qstream/dstream: (R, T) int32 codes; dsum/n2: (NP, R) int32; finals:
@@ -747,9 +742,9 @@ extern "C" int sa_stream_plan(int P, int cta_lanes, int modes, int lpt,
 // for fast4, (T/4, R, P) for full, unused for none; status: one int32,
 // zeroed, set when a wait stalls.  cta_lanes: 0, or the forced CTA width
 // of the split; lpt: 0, or the forced lanes a thread (2, 4, 8, 16); chunk,
-// slots, wrap: the rings (stream_ring.cuh).  Returns the cudaGetLastError()
-// of the launch, -1 for an unsupported shape or mode, -3 for a cluster the
-// card cannot schedule.
+// slots, wrap: the rings (stream_ring.cuh::ring_shape, 0 the default).
+// Returns the cudaGetLastError() of the launch, -1 for an unsupported shape
+// or mode, -3 for a cluster the card cannot schedule.
 extern "C" int sa_stream_fill(const int32_t* qstream, const int32_t* dstream,
                               const int32_t* dsum, const int32_t* n2,
                               int32_t* finals, uint32_t* dirs,

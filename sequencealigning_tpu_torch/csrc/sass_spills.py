@@ -1,0 +1,147 @@
+"""Where the streamed fills' spills sit in their machine code: for each
+instance of ``nw_affine_stream.cu::stream_ring_kernel`` whose name holds
+every ``--match`` string, the local-memory loads and stores (LDL / STL) of
+its SASS and the loops (backward branches) around them:
+
+    python -m sequencealigning_tpu_torch.csrc.sass_spills
+        [--match S ...] [--dump DIR] [--out FILE]
+
+run from the repository root on a machine with the CUDA toolkit
+(``cuobjdump`` beside ``nvcc``); builds the kernels first if needed.  One
+line an instance: its instructions, LDL / STL counts, and each innermost
+loop of more than --hot instructions (the step loops: a spin wait is a
+few instructions) with the spills inside it; then, for the spills outside
+those loops, the size of the smallest loop around each, or "none" when no
+loop holds it.  --dump DIR writes each instance's SASS to DIR.  The
+default --match picks the instances at the main shapes: the global fast4
+fill at 8 lanes a thread and the textbook full fills at 4 (compat and
+wildcard off).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+# stream_ring_kernel<LPT, DIRS, MODE, COMPAT, WILDCARD> at the main shapes.
+MAIN = ("stream_ring_kernelILi8ELi1ELi0ELb1ELb0E",
+        "stream_ring_kernelILi4ELi2ELi1ELb0ELb0E",
+        "stream_ring_kernelILi4ELi2ELi2ELb0ELb0E")
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+
+
+def functions(sass: str) -> dict:
+    """{name: [(address, instruction text)]} of a cuobjdump -sass listing."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = _INSN.search(line)
+        if m and name is not None:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def analyse(insns, hot: int) -> dict:
+    """Spills and loops of one function's instructions.  Code past the
+    last EXIT is out of line (the divergent paths of warp shuffles, which
+    branch back into the loops): its branches form no loop, and a spill
+    there is reported as out of line."""
+    index = {a: i for i, (a, _) in enumerate(insns)}
+    tail = max((i for i, (_, t) in enumerate(insns)
+                if re.search(r"\bEXIT\b", t)), default=len(insns) - 1)
+    loops = []
+    for i, (a, text) in enumerate(insns[:tail + 1]):
+        targets = re.findall(r"0x([0-9a-f]+)", text)
+        if re.search(r"\bBRA\b", text) and targets:
+            target = int(targets[-1], 16)
+            if target <= a and target in index:
+                loops.append((index[target], i))
+    spills = [i for i, (_, t) in enumerate(insns)
+              if re.search(r"\b(LDL|STL)(\.[A-Z0-9.]+)?\b", t)]
+
+    def inside(i, lp):
+        return lp[0] <= i <= lp[1]
+
+    innermost = [lp for lp in set(loops)
+                 if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
+                            for o in loops)]
+    hot_loops = sorted(lp for lp in innermost if lp[1] - lp[0] + 1 > hot)
+    rows = [dict(first=insns[lp[0]][0], last=insns[lp[1]][0],
+                 instructions=lp[1] - lp[0] + 1,
+                 spills=sum(inside(i, lp) for i in spills))
+            for lp in hot_loops]
+    outside = []
+    for i in spills:
+        if any(inside(i, lp) for lp in hot_loops):
+            continue
+        around = [lp[1] - lp[0] + 1 for lp in loops if inside(i, lp)]
+        outside.append(dict(address=insns[i][0], insn=insns[i][1],
+                            out_of_line=i > tail,
+                            smallest_loop=min(around) if around else None))
+    return dict(instructions=len(insns),
+                ldl=sum("LDL" in insns[i][1] for i in spills),
+                stl=sum("STL" in insns[i][1] for i in spills),
+                hot_loops=rows, outside=outside)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--match", action="append", default=None,
+                    help="a string the instance's name holds (repeatable; "
+                         "default: the main shapes' instances, each)")
+    ap.add_argument("--hot", type=int, default=64,
+                    help="instructions above which an innermost loop counts "
+                         "as a step loop")
+    ap.add_argument("--dump", default=None, help="directory for the SASS")
+    ap.add_argument("--out", default=None, help="JSON file for the rows")
+    args = ap.parse_args()
+    from sequencealigning_tpu_torch import csrc
+
+    csrc.kernels()
+    lib = os.path.join(csrc.BUILD_DIR, "libsa_kernels.so")
+    tool = os.path.join(os.path.dirname(csrc.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    picks = [[m] for m in MAIN] if args.match is None else [args.match]
+    rows = []
+    for name, insns in sorted(functions(sass).items()):
+        if "stream_ring_kernel" not in name or not any(
+                all(m in name for m in p) for p in picks):
+            continue
+        r = dict(entry=name, **analyse(insns, args.hot))
+        rows.append(r)
+        hot = "; ".join(f"{h['instructions']} instructions at "
+                        f"{h['first']:#x}-{h['last']:#x}, {h['spills']} "
+                        "spills" for h in r["hot_loops"]) or "none"
+        where = ", ".join(
+            f"{o['insn'].split()[-3 if o['insn'].startswith('@') else 0]} "
+            f"at {o['address']:#x} "
+            + ("(out of line)" if o["out_of_line"] else
+               f"(loop of {o['smallest_loop']})" if o["smallest_loop"]
+               else "(no loop)") for o in r["outside"]) or "none"
+        print(f"{name}: {r['instructions']} instructions, {r['ldl']} LDL, "
+              f"{r['stl']} STL; innermost loops over {args.hot} "
+              f"instructions: {hot}; spills outside them: {where}",
+              flush=True)
+        if args.dump:
+            os.makedirs(args.dump, exist_ok=True)
+            with open(os.path.join(args.dump, name[:120] + ".sass"),
+                      "w") as f:
+                f.write("\n".join(f"/*{a:04x}*/ {t}" for a, t in insns))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+    return 0 if rows else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

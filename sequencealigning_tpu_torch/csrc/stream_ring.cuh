@@ -69,12 +69,46 @@ SA_HD Split stream_plan(int P, int cta_lanes, bool modes, int lpt) {
   return sp;
 }
 
-// Chunk steps (1-32, one code a lane of a warp), slots (>= 1; slots x chunk
-// <= kRingMaxEntries) and wrap words (a power of two, 1..kWrapMaxWords).
-SA_HD bool ring_ok(int chunk, int slots, int wrap) {
-  return chunk >= 1 && chunk <= 32 && slots >= 1 &&
-         slots * chunk <= kRingMaxEntries && wrap >= 1 &&
-         wrap <= kWrapMaxWords && (wrap & (wrap - 1)) == 0;
+// The rings' shape: chunk steps (1-32, one code a lane of a warp), slots
+// (>= 1; slots x chunk <= kRingMaxEntries) and wrap words (a power of two,
+// 1..kWrapMaxWords).  A 0 takes the default: chunks of 16 steps for the
+// global fill and 32 for the modes (the fastest measured at the main
+// shapes, csrc/stream_sweep.py), as many slots as fit kRingMaxEntries but
+// at most 4, kWrapMaxWords wrap words.
+struct RingShape {
+  int chunk, slots, wrap;
+};
+
+SA_HD RingShape ring_shape(int chunk, int slots, int wrap, bool modes) {
+  RingShape r;
+  r.chunk = chunk != 0 ? chunk : (modes ? 32 : 16);
+  const int fit = r.chunk >= 1 ? kRingMaxEntries / r.chunk : 1;
+  r.slots = slots != 0 ? slots : fit < 1 ? 1 : fit > 4 ? 4 : fit;
+  r.wrap = wrap != 0 ? wrap : kWrapMaxWords;
+  return r;
+}
+
+SA_HD bool ring_ok(const RingShape& r) {
+  return r.chunk >= 1 && r.chunk <= 32 && r.slots >= 1 &&
+         r.slots * r.chunk <= kRingMaxEntries && r.wrap >= 1 &&
+         r.wrap <= kWrapMaxWords && (r.wrap & (r.wrap - 1)) == 0;
+}
+
+// A launch's shape for the wrappers (sa_stream_plan, hc_stream_plan):
+// shape[0..5] = lanes a thread, threads a CTA, CTAs a row, chunk steps,
+// slots, wrap words; -1 when the split or the rings are out of range.
+SA_HD int stream_launch_shape(int P, int cta_lanes, bool modes, int lpt,
+                              int chunk, int slots, int wrap, int* shape) {
+  const Split sp = stream_plan(P, cta_lanes, modes, lpt);
+  const RingShape r = ring_shape(chunk, slots, wrap, modes);
+  if (sp.nctas == 0 || !ring_ok(r)) return -1;
+  shape[0] = sp.lpt;
+  shape[1] = cta_threads(sp);
+  shape[2] = sp.nctas;
+  shape[3] = r.chunk;
+  shape[4] = r.slots;
+  shape[5] = r.wrap;
+  return 0;
 }
 
 // Warps of CTA `rank` holding real lanes.

@@ -5,8 +5,9 @@ chunk steps, slots a warp edge -- at the main shapes of ``chip_smoke.py``:
 and semi-global with full dirs untrimmed (kernel #2):
 
     python -m sequencealigning_tpu_torch.csrc.stream_sweep [--out FILE]
-        [--configs N] [--others]
-    python sequencealigning_tpu_torch/csrc/stream_sweep.py --root DIR [--others]
+        [--configs N] [--others] [--long] [--pipeline]
+    python sequencealigning_tpu_torch/csrc/stream_sweep.py --root DIR
+        [--others] [--long] [--pipeline]
 
 run from the repository root; --root DIR times the package of another
 checkout (e.g. a parent commit unpacked with ``git archive``) instead, at
@@ -23,13 +24,20 @@ configuration's outputs are held against the plain version (finals or
 argmax buffers and the whole dirs tensor) and every other configuration's
 against the default's.  --configs N keeps the first N configurations a
 shape; --others also times kernels #3, #6, #7, #8 and the linear fill at
-their chip_smoke shapes (default routes), for comparing checkouts.  Needs a
-CUDA card; prints the card's name and power limit.
+their chip_smoke shapes (default routes), for comparing checkouts; --long
+times both fills on rows of 4097-8192 lanes (one CTA, 16 lanes a thread)
+and past 8192 (a cluster a row), the kernels held against their plain
+versions on the first rows; --pipeline times the runner's fused
+first-only route (the host ms until the fill and walk are queued, and
+until the walk is decoded) and stream_align with cigars over 8 batches of
+the main shape.  Needs a CUDA card; prints the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -43,6 +51,15 @@ import torch
 GLOBAL_CONFIGS = ((8, 32, 2), (8, 8, 4), (8, 16, 2), (4, 16, 4),
                   (16, 16, 4))
 MODES_CONFIGS = ((4, 16, 4), (4, 24, 2), (4, 8, 4), (8, 32, 2))
+# --long: (name, kind, pairs, bp) -- rows of ~6016-6144 lanes (one CTA of
+# 16 lanes a thread) and of ~10112-10240 lanes (three CTAs of 8 lanes a
+# thread a row, the rings crossing CTAs); 40-136 rows, dirs of 22-38 GB.
+LONG_SHAPES = (("#1 global fast4, 1056 x 6000 bp", "fast4", 1056, 6000),
+               ("#2 local full, 528 x 6000 bp", "local", 528, 6000),
+               ("#1 global fast4, 528 x 10000 bp", "fast4", 528, 10000),
+               ("#2 local full, 264 x 10000 bp", "local", 264, 10000))
+# --long: the rows held against the plain version.
+LONG_CHECK_ROWS = 4
 
 
 def _equal(a, b) -> bool:
@@ -102,8 +119,11 @@ def _small_checks(fill, smodes, ScoringScheme, to_device, pack_batch,
             for kernel, plain, a in cases:
                 want = _flat(plain(*ins, *a))
                 for kw in knobs:
-                    got = _flat(kernel(*ins, *a, **kw))
-                    torch.cuda.synchronize()
+                    ring = {k: v for k, v in kw.items() if k != "cta_lanes"}
+                    with fill.forced_ring(**ring):
+                        got = _flat(kernel(*ins, *a,
+                                           cta_lanes=kw.get("cta_lanes", 0)))
+                    fill.check_stream_stalls(wait=True)
                     assert _equal(got, want), (n, trim, a[1:], kw)
                     runs += 1
     return runs
@@ -119,9 +139,10 @@ def stall_check(fill, ScoringScheme, to_device, pack_batch) -> float:
     t0 = time.perf_counter()
     raised = None
     try:
-        fill.gotoh_fill_stream_cuda(
-            *ins, plan, ScoringScheme(), True, False, "fast4",
-            lanes_per_thread=2, chunk=32, wrap_words=1)
+        with fill.forced_ring(lanes_per_thread=2, chunk=32, wrap_words=1):
+            fill.gotoh_fill_stream_cuda(*ins, plan, ScoringScheme(), True,
+                                        False, "fast4")
+        fill.check_stream_stalls(wait=True)
     except RuntimeError as e:
         raised = str(e)
     secs = time.perf_counter() - t0
@@ -129,8 +150,102 @@ def stall_check(fill, ScoringScheme, to_device, pack_batch) -> float:
     # The card is still usable: the same fill with the default rings.
     fill.gotoh_fill_stream_cuda(*ins, plan, ScoringScheme(), True, False,
                                 "fast4")
-    torch.cuda.synchronize()
+    fill.check_stream_stalls(wait=True)
     return secs
+
+
+def _check_stalls(fill):
+    """check_stream_stalls(wait=True), where the checkout has it (the
+    parent's fills read their status at the launch, or have none)."""
+    check = getattr(fill, "check_stream_stalls", None)
+    if check is not None:
+        check(wait=True)
+    torch.cuda.synchronize()
+
+
+def _long(chip_smoke, fill, smodes, ScoringScheme, to_device, pack_batch,
+          trim_for_stream, baseline, _ms):
+    """--long: [(name, ms, plan)] of the default route, the first
+    LONG_CHECK_ROWS rows held against the plain version (not on a
+    baseline)."""
+    rows = []
+    for name, kind, n, length in LONG_SHAPES:
+        pairs = chip_smoke.make_pairs(np.random.default_rng(length), n,
+                                      length)
+        batch = pack_batch(pairs, batch_size=n)
+        tb = to_device(trim_for_stream(batch) if kind == "fast4" else batch,
+                       "cuda")
+        plan, ins = fill.stream_inputs(*tb)
+        if kind == "fast4":
+            a = (plan, ScoringScheme(), True, False, "fast4")
+            kernel, plain = (fill.gotoh_fill_stream_cuda,
+                             fill.gotoh_fill_stream_torch)
+        else:
+            a = (plan, ScoringScheme(), False, kind, True)
+            kernel, plain = (smodes.gotoh_fill_stream_modes_cuda,
+                             smodes.gotoh_fill_stream_modes_torch)
+        ms, got = _ms(lambda: kernel(*ins, *a))
+        _check_stalls(fill)
+        del got
+        if not baseline:
+            k = LONG_CHECK_ROWS
+            sub = (ins[0][:k].contiguous(), ins[1][:k].contiguous(),
+                   ins[2][:, :k].contiguous(), ins[3][:, :k].contiguous())
+            a_sub = (plan._replace(n_rows=k),) + a[1:]
+            got = _flat(kernel(*sub, *a_sub))
+            _check_stalls(fill)
+            want = _flat(plain(*sub, *a_sub))
+            torch.cuda.synchronize()
+            assert _equal(got, want), (name, "!= plain")
+            del got, want, sub
+        rows.append((name, ms, plan))
+        del tb, ins
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _pipeline(chip_smoke, par, pack_batch, trim_for_stream, n_batches=8):
+    """--pipeline at the main shape, default route: the runner's fused
+    first-only route three times -- host ms until fill_walk_from_stream_args
+    returns (the fill and walk queued) and until the walk is decoded -- and
+    stream_align with cigars over n_batches batches, twice.  Returns
+    (queued ms, done ms, pairs/s), each a list."""
+    pairs = chip_smoke.make_pairs(np.random.default_rng(0),
+                                  chip_smoke.N_MAIN, chip_smoke.LEN_MAIN)
+    n = len(pairs)
+    s1 = [p[0] for p in pairs]
+    s2 = [p[1] for p in pairs]
+    runner = par.DataParallelRunner(np_slots=8)
+    b = trim_for_stream(pack_batch(pairs, batch_size=n))
+    queued, done = [], []
+    for _ in range(3):
+        args, plan, bp, has_n = runner._stream_args(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finals, handles = runner.fill_walk_from_stream_args(
+            args, plan, bp, has_n, s1, s2)
+        queued.append((time.perf_counter() - t0) * 1e3)
+        out = runner.device_walk_fast4_finish(handles, finals.cpu().numpy(),
+                                              s1, s2)
+        done.append((time.perf_counter() - t0) * 1e3)
+        assert all(not isinstance(r, Exception) for r in out)
+        del finals, handles, out, args
+        torch.cuda.empty_cache()
+
+    def stream_input():
+        for k in range(n_batches):
+            r = (k * 512) % n
+            yield from pairs[r:] + pairs[:r]
+
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = par.stream_align(stream_input(), runner, batch_size=n,
+                               cigars=True, on_alignments=lambda i, r: None)
+        rates.append(got / (time.perf_counter() - t0))
+        assert got == n * n_batches, got
+    return queued, done, rates
 
 
 def _others(chip_smoke, port, ScoringScheme, to_device, pack_batch, _ms):
@@ -186,6 +301,11 @@ def main() -> int:
                     help="forced configurations a shape (default: all)")
     ap.add_argument("--others", action="store_true",
                     help="also time kernels #3, #6, #7, #8 and linear")
+    ap.add_argument("--long", action="store_true",
+                    help="also time rows of 4097-8192 lanes and past 8192")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="also time the runner's fused route and "
+                         "stream_align")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -277,7 +397,9 @@ def main() -> int:
                      for l, c, s in configs[:args.configs]]
         first = None
         for kw in todo:
-            ms, got = _ms(lambda: kernel(*ins, *a, **kw))
+            with (fill.forced_ring(**kw) if kw else contextlib.nullcontext()):
+                ms, got = _ms(lambda: kernel(*ins, *a))
+            _check_stalls(fill)
             got = _flat(got)
             if first is None:
                 first = got
@@ -320,11 +442,35 @@ def main() -> int:
                          pack_batch, _ms)
         for name, ms in others:
             print(f"other {name}: {ms:.3f} ms", flush=True)
+    long_rows = []
+    if args.long:
+        for name, ms, plan in _long(chip_smoke, fill, smodes, ScoringScheme,
+                                    to_device, pack_batch, trim_for_stream,
+                                    baseline, _ms):
+            print(f"long {name} (R={plan.n_rows}, P={plan.p}, "
+                  f"T={plan.t_total}): {ms:.3f} ms"
+                  + ("" if baseline else ", first rows equal plain"),
+                  flush=True)
+            long_rows.append(dict(shape=name, ms=ms, R=plan.n_rows, P=plan.p,
+                                  T=plan.t_total))
+    pipeline = None
+    if args.pipeline:
+        from sequencealigning_tpu_torch import parallel as par
+
+        queued, done, rates = _pipeline(chip_smoke, par, pack_batch,
+                                        trim_for_stream)
+        pipeline = dict(queued_ms=queued, done_ms=done, pairs_per_s=rates)
+        print("pipeline: fused first-only fill+walk queued in "
+              + ", ".join(f"{t:.1f}" for t in queued) + " ms, decoded in "
+              + ", ".join(f"{t:.1f}" for t in done) + " ms; stream_align "
+              "with cigars " + ", ".join(f"{r:.1f}" for r in rates)
+              + " pairs/s", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=_card(), package=pkg, baseline=baseline,
                            stall_s=stall_s, instances=instances, rows=rows,
-                           others=others), f, indent=1)
+                           others=others, long=long_rows, pipeline=pipeline),
+                      f, indent=1)
     return 0
 
 

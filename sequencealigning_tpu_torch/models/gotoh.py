@@ -187,13 +187,15 @@ class GotohAligner(Aligner):
         """First-path alignments through the runner's fill+walk and its
         finish (a pair whose walk fails validation is its AlignmentError
         naming the walk kernel, as on the direct route)."""
+        from sequencealigning_tpu_torch.parallel.runner import to_host
+
         runner = self._dp_runner()
         args, plan, bp, has_n = runner._stream_args(batch)
         seqs1 = [p[0] for p in pairs]
         seqs2 = [p[1] for p in pairs]
         finals, handles = runner.fill_walk_from_stream_args(
             args, plan, bp, has_n, seqs1, seqs2)
-        finals = finals.cpu().numpy()
+        finals = to_host(finals)
         if self.config.debug:
             from sequencealigning_tpu_torch.utils.guards import check_finals
 

@@ -23,7 +23,10 @@ Only int32 score state is ported; see ROADMAP.md for int16.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -326,59 +329,93 @@ def gotoh_fill_stream_torch(
 # ---------------------------------------------------------------------------
 
 
-# The warp rings' defaults (csrc/stream_ring.cuh): steps a chunk (the
-# global fill's, the modes'), chunk slots a warp edge (at most RING_ENTRIES
-# steps a warp edge), lane 0's words in flight.  The chunks are the fastest
-# measured at the main shapes (csrc/stream_sweep.py).
-RING_CHUNK = 16
-RING_CHUNK_MODES = 32
-RING_SLOTS = 4
-RING_ENTRIES = 64
-RING_WRAP = 256
+_RING = contextvars.ContextVar("stream_ring", default={})
 
 
-def ring_knobs(chunk: int = 0, ring_slots: int = 0, wrap_words: int = 0,
-               modes: bool = False) -> Tuple[int, int, int]:
-    """(chunk, slots, wrap words) with 0 taking the default; the default
-    slots are as many as fit RING_ENTRIES, at most RING_SLOTS."""
-    chunk = chunk or (RING_CHUNK_MODES if modes else RING_CHUNK)
-    slots = ring_slots or max(1, min(RING_SLOTS, RING_ENTRIES // chunk))
-    return chunk, slots, wrap_words or RING_WRAP
+@contextlib.contextmanager
+def forced_ring(**knobs):
+    """Force the warp rings' shape of kernels #1 and #2 launched in this
+    context (csrc/stream_sweep.py and chip_smoke.py's stall check):
+    lanes_per_thread (2, 4, 8, 16), chunk (steps, 1-32), ring_slots and
+    wrap_words (stream_ring.cuh::ring_shape); an absent knob or 0 takes
+    the default."""
+    token = _RING.set(knobs)
+    try:
+        yield
+    finally:
+        _RING.reset(token)
 
 
 def stream_launch_shape(lib, P: int, cta_lanes: int, modes: bool,
-                        lanes_per_thread: int = 0) -> dict:
-    """The streamed fills' block shape for a row of P lanes
-    (stream_ring.cuh::stream_plan, through ``lib.sa_stream_plan`` or the
-    host build's ``hc_stream_plan``): lanes a thread, threads a CTA, CTAs a
-    row.  Raises ValueError when the shape is out of range."""
-    shape = (ctypes.c_int * 3)()
+                        lanes_per_thread: int = 0, chunk: int = 0,
+                        ring_slots: int = 0, wrap_words: int = 0) -> dict:
+    """The streamed fills' launch shape for a row of P lanes, the defaults
+    resolved (stream_ring.cuh::stream_launch_shape, through
+    ``lib.sa_stream_plan`` or the host build's ``hc_stream_plan``).
+    Raises ValueError when the shape is out of range."""
+    shape = (ctypes.c_int * 6)()
     plan_fn = getattr(lib, "sa_stream_plan", None) or lib.hc_stream_plan
-    if plan_fn(P, cta_lanes, int(modes), lanes_per_thread, shape) != 0:
+    if plan_fn(P, cta_lanes, int(modes), lanes_per_thread, chunk,
+               ring_slots, wrap_words, shape) != 0:
         raise ValueError(
             f"lane width {P} (CTA width {cta_lanes}, {lanes_per_thread} "
-            "lanes a thread) is out of the CUDA fill kernel's range")
-    return dict(lanes_per_thread=shape[0], threads=shape[1], ctas=shape[2])
+            f"lanes a thread, ring {chunk}/{ring_slots}/{wrap_words}) is "
+            "out of the CUDA fill kernel's range")
+    return dict(zip(("lanes_per_thread", "threads", "ctas", "chunk",
+                     "ring_slots", "wrap_words"), shape))
+
+
+class _Watch(NamedTuple):
+    entry: str
+    host: torch.Tensor  # the status word, copied into pinned memory
+    done: object        # a CUDA event recorded after the copy
+
+
+_watches: list = []
+_watches_lock = threading.Lock()
+
+
+def check_stream_stalls(wait: bool = False) -> None:
+    """Raise RuntimeError for a launch of kernel #1 or #2 that has ended
+    with a wait stalled past the spin limit (its results are incomplete).
+    A launch does not wait for its kernel: its status word is copied to
+    the host behind the kernel and read here once the launch has ended, or
+    with ``wait`` after waiting for it.  Reading a fill's results on the host waits for the
+    fill, so the places that read them call this after: the runner's
+    ``to_host``, ``nw_affine_stream_batch``, ``nw_affine_stream_modes_batch``
+    and each launch (for the launches before it)."""
+    with _watches_lock:
+        keep, ready = [], []
+        for w in _watches:
+            (ready if wait or w.done.query() else keep).append(w)
+        _watches[:] = keep
+    for w in ready:
+        w.done.synchronize()
+        got = int(w.host[0])
+        if got != 0:
+            raise RuntimeError(
+                f"{w.entry}: a warp waited on its neighbour past the spin "
+                f"limit (status {got}); its results are incomplete")
 
 
 def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
                        n2s, out, dirs, plan: StreamPlan,
                        scheme: ScoringScheme, dirs_code: int, wildcard: bool,
-                       modes: bool, cta_lanes: int, lanes_per_thread: int,
-                       chunk: int, ring_slots: int, wrap_words: int) -> dict:
+                       modes: bool, cta_lanes: int) -> dict:
     """Launch sa_stream_fill (mode_arg: compat) or sa_stream_modes_fill
-    (mode_arg: local) into out/dirs, then read the launch's status word:
-    raises on a failed launch and on a wait that stalled past the spin
-    limit.  0 for a knob takes its default.  Returns the launch's shape."""
+    (mode_arg: local) into out/dirs on the current stream, the rings as
+    forced_ring leaves them, and return the launch's shape without waiting
+    for the kernel.  Raises for a failed launch, and for an earlier
+    launch that has ended stalled (check_stream_stalls); this launch's
+    status is read by a later check."""
+    check_stream_stalls()
     lib = csrc.kernels()
     shape = stream_launch_shape(lib, plan.p, cta_lanes, modes,
-                                lanes_per_thread)
-    knobs = ring_knobs(chunk, ring_slots, wrap_words, modes)
-    shape.update(zip(("chunk", "ring_slots", "wrap_words"), knobs))
+                                **_RING.get())
     dev = qstream.device
     status = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
         rc = getattr(lib, entry)(
             qstream.data_ptr(), dstream.data_ptr(), dsums.data_ptr(),
             n2s.data_ptr(), out.data_ptr(),
@@ -387,15 +424,16 @@ def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, dirs_code, mode_arg, int(wildcard), cta_lanes,
             shape["lanes_per_thread"], shape["chunk"], shape["ring_slots"],
-            shape["wrap_words"], stream,
+            shape["wrap_words"], stream.cuda_stream,
         )
-    if rc != 0:
-        raise csrc.launch_error(entry, rc, shape["ctas"])
-    got = int(status.item())
-    if got != 0:
-        raise RuntimeError(
-            f"{entry}: a warp waited on its neighbour past the spin limit "
-            f"(status {got}); its results are incomplete")
+        if rc != 0:
+            raise csrc.launch_error(entry, rc, shape["ctas"])
+        host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        host.copy_(status, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    with _watches_lock:
+        _watches.append(_Watch(entry, host, done))
     return shape
 
 
@@ -403,19 +441,15 @@ def gotoh_fill_stream_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     compat: bool, wildcard: bool, dirs_mode, cta_lanes: int = 0,
-    lanes_per_thread: int = 0, chunk: int = 0, ring_slots: int = 0,
-    wrap_words: int = 0,
 ):
     """The fill kernel (csrc/nw_affine_stream.cu) on CUDA tensors: same
     arguments and results as gotoh_fill_stream_torch.  A row of more than
     8192 lanes is split over a thread-block cluster; cta_lanes > 0 forces
     CTAs of that many lanes (a multiple of 128, for testing the split).
-    lanes_per_thread (2, 4, 8, 16), chunk (steps, 1-32), ring_slots and
-    wrap_words force the warp rings' shape (0: the defaults); the launch's
-    shape is left in ``gotoh_fill_stream_cuda.last_launch``.  Builds the
-    kernels on first use; raises on a CPU tensor, an unsupported shape, a
-    failed launch or a stalled wait (the status word is read back, so the
-    call waits for the kernel)."""
+    The launch's shape is left in ``gotoh_fill_stream_cuda.last_launch``.
+    Builds the kernels on first use; returns without waiting for the
+    kernel; raises on a CPU tensor, an unsupported shape or a failed
+    launch, and check_stream_stalls raises for a stalled wait."""
     _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
     if not qstream.is_cuda:
         raise ValueError("gotoh_fill_stream_cuda needs CUDA tensors")
@@ -435,7 +469,7 @@ def gotoh_fill_stream_cuda(
     gotoh_fill_stream_cuda.last_launch = stream_fill_launch(
         "sa_stream_fill", int(compat), qstream, dstream, dsums, n2s, finals,
         dirs, plan, scheme, _DIRS_CODES[dirs_mode], wildcard, False,
-        cta_lanes, lanes_per_thread, chunk, ring_slots, wrap_words)
+        cta_lanes)
     gotoh_fill_stream_cuda.launches += 1
     return finals, dirs
 
@@ -512,6 +546,6 @@ def nw_affine_stream_batch(
     finals, dirs = gotoh_fill_stream(
         *ins, plan, scheme, compat, wildcard, _dirs_mode(with_dirs)
     )
-    return StreamResult(
-        finals=finals[: query.shape[0]].cpu().numpy(), dirs=dirs, plan=plan
-    )
+    finals = finals[: query.shape[0]].cpu().numpy()
+    check_stream_stalls()
+    return StreamResult(finals=finals, dirs=dirs, plan=plan)

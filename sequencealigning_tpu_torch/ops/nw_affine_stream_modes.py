@@ -42,6 +42,7 @@ from sequencealigning_tpu_torch.ops.nw_affine_stream import (
     StreamPlan,
     _check_fill_args,
     advance,
+    check_stream_stalls,
     resolve_stream_state,
     stream_fill_launch,
     stream_inputs,
@@ -131,15 +132,13 @@ def gotoh_fill_stream_modes_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     wildcard: bool, mode: str, with_dirs: bool, cta_lanes: int = 0,
-    lanes_per_thread: int = 0, chunk: int = 0, ring_slots: int = 0,
-    wrap_words: int = 0,
 ):
     """The streamed modes kernel (csrc/nw_affine_stream.cu) on CUDA tensors:
     same arguments and results as gotoh_fill_stream_modes_torch; rows past
     8192 lanes are split over a cluster, cta_lanes > 0 forces the split's
-    CTA width, and the ring knobs and ``last_launch`` are as
+    CTA width, and ``last_launch`` and the stall check are as
     gotoh_fill_stream_cuda's.  Raises on a CPU tensor, a non-contiguous
-    input, an unsupported shape, a failed launch or a stalled wait."""
+    input, an unsupported shape or a failed launch."""
     _check_mode(mode)
     _check_fill_args(qstream, dstream, dsums, n2s, plan,
                      "full" if with_dirs else None)
@@ -161,8 +160,7 @@ def gotoh_fill_stream_modes_cuda(
     gotoh_fill_stream_modes_cuda.last_launch = stream_fill_launch(
         "sa_stream_modes_fill", int(mode == "local"), qstream, dstream,
         dsums, n2s, best, dirs, plan, scheme, 2 if with_dirs else 0,
-        wildcard, True, cta_lanes, lanes_per_thread, chunk, ring_slots,
-        wrap_words)
+        wildcard, True, cta_lanes)
     gotoh_fill_stream_modes_cuda.launches += 1
     return (best[0], best[1]), dirs
 
@@ -211,6 +209,7 @@ def nw_affine_stream_modes_batch(
     best, x, y = modes_reduce(bv.transpose(0, 1).reshape(-1, P),
                               bd.transpose(0, 1).reshape(-1, P))
     best, x, y = (t[:B].cpu().numpy() for t in (best, x, y))
+    check_stream_stalls()
     return StreamModesResult(best=best, best_x=x, best_y=y, dirs=dirs,
                              plan=plan)
 

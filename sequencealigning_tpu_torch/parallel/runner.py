@@ -41,6 +41,7 @@ from sequencealigning_tpu_torch.io.encode import (
 from sequencealigning_tpu_torch.ops.nw_affine import gotoh_fill
 from sequencealigning_tpu_torch.ops.nw_affine_modes import modes_reduce
 from sequencealigning_tpu_torch.ops.nw_affine_stream import (
+    check_stream_stalls,
     gotoh_fill_stream,
     plan_stream,
     resolve_stream_state,
@@ -130,12 +131,16 @@ def _head(x, n: int):
 
 def to_host(x) -> np.ndarray:
     """A runner result (a tensor, or per-device row blocks) as one numpy
-    array."""
+    array.  Reading it waits for the fills behind it, whose stalled waits
+    then raise here (ops.nw_affine_stream.check_stream_stalls)."""
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
-    if isinstance(x, np.ndarray):
-        return x
-    return np.concatenate([t.cpu().numpy() for t in x])
+        out = x.cpu().numpy()
+    elif isinstance(x, np.ndarray):
+        out = x
+    else:
+        out = np.concatenate([t.cpu().numpy() for t in x])
+    check_stream_stalls()
+    return out
 
 
 class DataParallelRunner:

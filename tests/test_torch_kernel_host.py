@@ -59,9 +59,9 @@ def _stream(seed, n=21, np_slots=3, scheme=ScoringScheme()):
         n2y[:NP, :, 0].contiguous()
 
 
-def _ring_args(lpt=0, chunk=0, slots=0, wrap=0, modes=False):
+def _ring_args(lpt=0, chunk=0, slots=0, wrap=0):
     """The warp rings' knobs as the kernels take them (0: the default)."""
-    return (lpt, *fill.ring_knobs(chunk, slots, wrap, modes))
+    return (lpt, chunk, slots, wrap)
 
 
 def _host_fill(host, plan, qs, ds, dsum, n2, scheme, compat, wildcard,
@@ -217,7 +217,7 @@ def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
         out.data_ptr(), dirs.data_ptr(), status.data_ptr(), R, plan.t_total,
         P, plan.s, NP, scheme.match_, scheme.mismatch, scheme.gap_open,
         scheme.gap_extend, 2 if with_dirs else 0, int(local), int(wildcard),
-        cta_lanes, *_ring_args(**ring, modes=True),
+        cta_lanes, *_ring_args(**ring),
     )
     assert rc == 0
     return out[0], out[1], dirs
@@ -443,12 +443,22 @@ def test_stream_plan(host, P, cta_lanes, is_modes, lpt, want):
 @pytest.mark.parametrize("chunk,slots,wrap,modes,want", [
     (0, 0, 0, False, (16, 4, 256)), (0, 0, 0, True, (32, 2, 256)),
     (8, 0, 0, False, (8, 4, 256)), (24, 0, 4, True, (24, 2, 4)),
-    (5, 3, 1, False, (5, 3, 1)),
+    (5, 3, 1, False, (5, 3, 1)), (33, 0, 0, False, None),
+    (16, 5, 0, True, None), (8, 0, 3, False, None),
 ])
-def test_ring_knobs(chunk, slots, wrap, modes, want):
-    """The warp rings' defaults: chunks of 16 steps (the modes' 32), as
-    many slots as fit 64 entries (at most 4), 256 wrap words."""
-    assert fill.ring_knobs(chunk, slots, wrap, modes) == want
+def test_ring_knobs(host, chunk, slots, wrap, modes, want):
+    """The warp rings' defaults, resolved in stream_ring.cuh: chunks of 16
+    steps (the modes' 32), as many slots as fit 64 entries (at most 4),
+    256 wrap words; refusals past those limits or for a wrap ring that is
+    not a power of two."""
+    if want is None:
+        with pytest.raises(ValueError, match="range"):
+            fill.stream_launch_shape(host, 2048, 0, modes, 0, chunk, slots,
+                                     wrap)
+        return
+    shape = fill.stream_launch_shape(host, 2048, 0, modes, 0, chunk, slots,
+                                     wrap)
+    assert (shape["chunk"], shape["ring_slots"], shape["wrap_words"]) == want
 
 
 def test_stream_instances_from_build_log():
@@ -612,6 +622,68 @@ def test_host_ring_unmet_schedule(host, dirs_mode, chunk, wrap, lpt, met):
     rc = _host_fill(host, plan, *ins, ScoringScheme(), True, False,
                     dirs_mode, rc_only=True, lpt=lpt, chunk=chunk, wrap=wrap)
     assert rc == -4
+
+
+class _Event:
+    """A stand-in for a CUDA event: ended or not, counting its waits."""
+
+    def __init__(self, ended):
+        self.ended, self.waits = ended, 0
+
+    def query(self):
+        return self.ended
+
+    def synchronize(self):
+        self.waits += 1
+        self.ended = True
+
+
+@pytest.mark.parametrize("ended,status,wait,raises", [
+    (True, 0, False, False), (True, 1, False, True),
+    (False, 1, False, False), (False, 1, True, True),
+    (False, 0, True, False),
+])
+def test_stream_stall_check_reads_ended_launches(monkeypatch, ended, status,
+                                                 wait, raises):
+    """A streamed fill's status word is read once its launch has ended (or
+    with wait, after waiting for it): a stalled one raises, a clean one is
+    dropped, one still running is left for a later check."""
+    watch = fill._Watch("sa_stream_fill",
+                        torch.tensor([status], dtype=torch.int32),
+                        _Event(ended))
+    monkeypatch.setattr(fill, "_watches", [watch])
+    if raises:
+        with pytest.raises(RuntimeError, match="spin limit"):
+            fill.check_stream_stalls(wait=wait)
+    else:
+        fill.check_stream_stalls(wait=wait)
+    assert fill._watches == ([] if ended or wait else [watch])
+    assert watch.done.waits == (1 if ended or wait else 0)
+
+
+def test_runner_to_host_checks_stream_stalls(monkeypatch):
+    """The runner's to_host reads the stall words of the fills that have
+    ended, after reading the result."""
+    from sequencealigning_tpu_torch.parallel import runner
+
+    watch = fill._Watch("sa_stream_modes_fill",
+                        torch.tensor([1], dtype=torch.int32), _Event(True))
+    monkeypatch.setattr(fill, "_watches", [watch])
+    with pytest.raises(RuntimeError, match="sa_stream_modes_fill"):
+        runner.to_host(torch.arange(3))
+    np.testing.assert_array_equal(runner.to_host([torch.arange(2)] * 2),
+                                  [0, 1, 0, 1])
+
+
+def test_forced_ring_is_scoped():
+    """forced_ring's knobs hold inside its context only."""
+    assert fill._RING.get() == {}
+    with fill.forced_ring(lanes_per_thread=2, chunk=32):
+        assert fill._RING.get() == dict(lanes_per_thread=2, chunk=32)
+        with fill.forced_ring(wrap_words=1):
+            assert fill._RING.get() == dict(wrap_words=1)
+        assert fill._RING.get()["chunk"] == 32
+    assert fill._RING.get() == {}
 
 
 # ---------------------------------------------------------------------------
@@ -1166,3 +1238,41 @@ def test_host_linear_fill_matches_plain(host, compat, local, cta_lanes):
         if with_dirs:
             assert torch.equal(dirs.view(torch.uint32), want[2])
         maxv = want[1].contiguous()
+
+
+def test_sass_spills_finds_loops_and_spills():
+    """csrc/sass_spills.py on a listing in cuobjdump's form: the loops are
+    the backward branches, a spin wait is not a step loop, and each spill
+    is placed inside the step loop or in the smallest loop around it."""
+    from sequencealigning_tpu_torch.csrc import sass_spills
+
+    body = ["        /*0000*/                   MOV R1, c[0x0][0x28] ;",
+            "        /*0010*/                   STL [R1], R4 ;"]
+    addr = 0x20
+    for k in range(80):  # the step loop: 0x20 .. 0x520
+        op = "LDL R5, [R1+0x4]" if k == 40 else "IMNMX R2, R2, R3, !PT"
+        body.append(f"        /*{addr:04x}*/                   {op} ;")
+        addr += 0x10
+    body.append(f"        /*{addr:04x}*/                   @P0 BRA 0x20 ;")
+    addr += 0x10
+    spin = addr
+    body.append(f"        /*{addr:04x}*/                   STL [R1+0x8], R6 ;")
+    addr += 0x10
+    body.append(f"        /*{addr:04x}*/                   @!P1 BRA.U !UP0, "
+                f"{spin:#x} ;")
+    # Past the last EXIT, a shuffle's divergent path branching back into
+    # the step loop: no loop, its spill out of line.
+    body += [f"        /*{addr + 0x10:04x}*/                   EXIT ;",
+             f"        /*{addr + 0x20:04x}*/                   LDL R7, [R1] ;",
+             f"        /*{addr + 0x30:04x}*/                   BRA 0x300 ;"]
+    sass = "\n".join(["        Function : _Z18stream_ring_kernelv",
+                      *body, "        .................."])
+    funcs = sass_spills.functions(sass)
+    assert list(funcs) == ["_Z18stream_ring_kernelv"]
+    got = sass_spills.analyse(funcs["_Z18stream_ring_kernelv"], hot=64)
+    assert (got["instructions"], got["ldl"], got["stl"]) == (88, 2, 2)
+    assert got["hot_loops"] == [dict(first=0x20, last=0x520,
+                                     instructions=81, spills=1)]
+    assert [(o["address"], o["out_of_line"], o["smallest_loop"])
+            for o in got["outside"]] == \
+        [(0x10, False, None), (spin, False, 2), (addr + 0x20, True, None)]
