@@ -597,6 +597,13 @@ def walk_bound(name, got, seeds):
                  n_ops * OPS_PER_CELL[name])
 
 
+def walk_diff(torch, got, want):
+    """The largest difference between two walks' outputs."""
+    return max(int((g.view(torch.int32).long()
+                    - w.view(torch.int32).long()).abs().max())
+               for g, w in zip(got, want))
+
+
 def phase_walk(torch, port, state):
     from sequencealigning_tpu_torch import native
 
@@ -756,9 +763,39 @@ def skewed_pairs(rng, n, lo1, hi1, lo2, hi2, alphabet=b"ACGT"):
     return pairs
 
 
+def pair_cells_check(torch, modes, got, want, n1s, n2s):
+    """Kernel A's (bv, bd, dirs) against the plain version's: the largest
+    difference of the argmax buffers, the reduced end cells and every cell
+    of each pair's matrix (valid_cell_diff); whether the whole dirs tensor
+    is equal; whether every byte outside the pairs' matrices is 0."""
+    bk, dk_, dirs_k = got
+    bp, dp_, dirs_p = want
+    err = max(int((bk - bp).abs().max()), int((dk_ - dp_).abs().max()))
+    for a, b in zip(modes.modes_reduce(bk, dk_), modes.modes_reduce(bp, dp_)):
+        err = max(err, int((a - b).abs().max()))
+    err = max(err, valid_cell_diff(torch, dirs_k, dirs_p,
+                                   [(b, 0) for b in range(len(n1s))], n1s,
+                                   n2s, "full"))
+    whole = bool(torch.equal(dirs_k.view(torch.int32),
+                             dirs_p.view(torch.int32)))
+    W, B, P = dirs_k.shape
+    dev = dirs_k.device
+    zero = True
+    for b in range(B):
+        g = dirs_k[:, b, :].contiguous().view(torch.uint8).view(W, P, 4)
+        d = torch.arange(W, device=dev)[:, None, None] * 4 + torch.arange(
+            4, device=dev)
+        x = torch.arange(P, device=dev)[None, :, None]
+        valid = (x <= int(n2s[b])) & (d >= x) & (d - x <= int(n1s[b]))
+        zero &= not bool(g.masked_select(~valid).any())
+    return err, whole, zero
+
+
 def phase_modes_fill(torch, port):
     """Kernels A (per-pair) and B (streamed) against their plain versions
-    on ragged batches; A's time at the largest batch it serves."""
+    on ragged batches; A at 1, 4 and 31 pairs of the main length, local and
+    semi-global, against its plain version and timed beside its bounds;
+    A and B timed at 32, 64 and 128 pairs (their crossover)."""
     from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
     from sequencealigning_tpu_torch.io.encode import pack_batch
@@ -766,8 +803,9 @@ def phase_modes_fill(torch, port):
     modes, smodes, fill = port["modes"], port["smodes"], port["fill"]
     rng = np.random.default_rng(3)
     wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
-    err, whole, runs = 0, True, 0
-    # Kernel A: up to 31 pairs, lengths 1-2046, skewed both ways.
+    err, whole, zero, runs = 0, True, True, 0
+    # Kernel A: up to 31 pairs, lengths 1-2046, skewed both ways; the
+    # default split and CTAs of 256 lanes.
     L, long_lo, short_hi = LEN_MAIN, LEN_MAIN * 3 // 4, LEN_MAIN // 10
     cases = [(skewed_pairs(rng, 31, 1, L, 1, L, b"ACGTN"), w, loc)
              for w in (False, True) for loc in (False, True)]
@@ -781,41 +819,103 @@ def phase_modes_fill(torch, port):
         args = (tb.query, modes.modes_layout(tb.db), tb.query_len, tb.db_len,
                 tb.query.shape[1], tb.db.shape[1],
                 wild if wildcard else ScoringScheme(), wildcard, local, True)
-        bk, dk_, dirs_k = modes.modes_fill_cuda(*args)
-        bp, dp_, dirs_p = modes.fill_modes_torch(*args)
-        torch.cuda.synchronize()
-        e = max(int((bk - bp).abs().max()), int((dk_ - dp_).abs().max()))
-        for a, b in zip(modes.modes_reduce(bk, dk_),
-                        modes.modes_reduce(bp, dp_)):
-            e = max(e, int((a - b).abs().max()))
-        e = max(e, valid_cell_diff(
-            torch, dirs_k, dirs_p, [(b, 0) for b in range(len(pairs))],
-            batch.query_len, batch.db_len, "full"))
-        whole &= bool(torch.equal(dirs_k.view(torch.int32),
-                                  dirs_p.view(torch.int32)))
-        check(e == 0, f"modes fill kernel != plain (local={local}, "
-              f"wildcard={wildcard}, {len(pairs)} pairs): err {e}")
-        err, runs = max(err, e), runs + 1
-    # Its time at the largest shape it serves: 31 pairs x 2046 bp, local.
-    pairs = make_pairs(np.random.default_rng(4), 31, LEN_MAIN)
-    tb = to_device(pack_batch(pairs, batch_size=31), "cuda")
-    args = (tb.query, modes.modes_layout(tb.db), tb.query_len, tb.db_len,
-            tb.query.shape[1], tb.db.shape[1], ScoringScheme(), False, True,
-            True)
-    mfill_ms = cuda_ms(torch, lambda: modes.modes_fill_cuda(*args))
-    mfill_plain_ms, _ = host_ms(torch, lambda: modes.fill_modes_torch(*args))
-    got = modes.modes_fill_cuda(*args)
-    cells = int((tb.query_len.long() * tb.db_len.long()).sum())
-    b_ms, b_by = bound(nbytes(*args[:4], *got),
-                       cells * OPS_PER_CELL["local full"])
-    del got
-    log(f"[6 modes fill] per-pair kernel: {runs} ragged batches equal on "
+        want = modes.fill_modes_torch(*args)
+        for cta in (0, 256):
+            got = modes.modes_fill_cuda(*args, cta_lanes=cta)
+            fill.check_stream_stalls(wait=True)
+            e, w, z = pair_cells_check(torch, modes, got, want,
+                                       batch.query_len, batch.db_len)
+            check(e == 0 and (w or z), f"modes fill kernel != plain "
+                  f"(local={local}, wildcard={wildcard}, {len(pairs)} pairs, "
+                  f"CTA lanes {cta}): err {e}, whole dirs equal {w}, outside "
+                  f"the matrices 0 {z}")
+            err, whole, zero = max(err, e), whole and w, zero and z
+            runs += 1
+        del got, want
+    log(f"[6 modes fill] per-pair kernel: {runs} ragged runs equal on "
         f"argmax buffers, end cells and valid cells (whole dirs equal: "
-        f"{whole}); 31 x {LEN_MAIN} bp local: kernel {mfill_ms:.3f} ms, "
-        f"plain {mfill_plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
-    out = {"mfill_ms": mfill_ms, "mfill_plain_ms": mfill_plain_ms,
-           "mfill_err": err, "mfill_whole_dirs_equal": whole,
-           "mfill_bound_ms": b_ms, "mfill_bound_by": b_by}
+        f"{whole}; every byte outside the pairs' matrices 0: {zero})")
+    out = {"mfill_err": err, "mfill_whole_dirs_equal": whole,
+           "mfill_outside_zero": zero}
+    # At 1, 4 and 31 pairs of the main length (the largest batch it
+    # serves), local and semi-global: equal to the plain version, timed.
+    shapes = {}
+    for n in (1, 4, 31):
+        pairs = make_pairs(np.random.default_rng(4), n, LEN_MAIN)
+        batch = pack_batch(pairs, batch_size=n)
+        tb = to_device(batch, "cuda")
+        cells = int((tb.query_len.long() * tb.db_len.long()).sum())
+        for local in (True, False):
+            mode = "local" if local else "semi"
+            args = (tb.query, modes.modes_layout(tb.db), tb.query_len,
+                    tb.db_len, tb.query.shape[1], tb.db.shape[1],
+                    ScoringScheme(), False, local, True)
+            plain_ms, want = host_ms(torch,
+                                     lambda: modes.fill_modes_torch(*args))
+            got = modes.modes_fill_cuda(*args)
+            fill.check_stream_stalls(wait=True)
+            e, w, z = pair_cells_check(torch, modes, got, want,
+                                       batch.query_len, batch.db_len)
+            check(e == 0 and (w or z), f"modes fill kernel != plain at {n} x "
+                  f"{LEN_MAIN} bp {mode}: err {e}")
+            del want
+            ms = cuda_ms(torch, lambda: modes.modes_fill_cuda(*args), 5)
+            b_ms, b_by = bound(nbytes(*args[:4], *got), cells * OPS_PER_CELL[
+                "local full" if local else "full"])
+            launch = dict(modes.modes_fill_cuda.last_launch)
+            del got
+            err, whole, zero = max(err, e), whole and w, zero and z
+            shapes[f"{n}_{mode}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                err=e, whole_dirs_equal=w, outside_zero=z, launch=launch)
+            log(f"[6 modes fill] per-pair kernel, {n} x {LEN_MAIN} bp {mode}: "
+                f"{ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS), plain "
+                f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{100 * b_ms / ms:.1f}%); {launch['ctas']} CTAs a pair of "
+                f"{launch['threads']} threads x {launch['lanes_per_thread']} "
+                f"lanes; equal (whole dirs equal: {w}; outside the matrices "
+                f"0: {z})")
+        torch.cuda.empty_cache()
+    main = shapes["31_local"]
+    out.update(mfill_ms=main["ms"], mfill_plain_ms=main["plain_ms"],
+               mfill_bound_ms=main["bound_ms"],
+               mfill_bound_by=main["bound_by"],
+               mfill_semi_ms=shapes["31_semi"]["ms"],
+               mfill_semi_plain_ms=shapes["31_semi"]["plain_ms"],
+               mfill_semi_bound_ms=shapes["31_semi"]["bound_ms"],
+               mfill_semi_err=shapes["31_semi"]["err"], mfill_shapes=shapes,
+               mfill_err=err, mfill_whole_dirs_equal=whole,
+               mfill_outside_zero=zero)
+    # Where the streamed fill (B) overtakes the per-pair one (A): both
+    # timed at 32, 64 and 128 pairs (the aligner takes B from
+    # GotohAligner.modes_stream_min_pairs = 32).
+    cross = {}
+    for n in (32, 64, 128):
+        pairs = make_pairs(np.random.default_rng(8), n, LEN_MAIN)
+        tb = to_device(pack_batch(pairs, batch_size=n), "cuda")
+        plan, ins = fill.stream_inputs(*tb)
+        for local in (True, False):
+            mode = "local" if local else "semi"
+            args = (tb.query, modes.modes_layout(tb.db), tb.query_len,
+                    tb.db_len, tb.query.shape[1], tb.db.shape[1],
+                    ScoringScheme(), False, local, True)
+            a_ms = cuda_ms(torch, lambda: modes.modes_fill_cuda(*args), 3)
+            sa = (plan, ScoringScheme(), False, mode, True)
+            b_ms = cuda_ms(torch, lambda: smodes.gotoh_fill_stream_modes_cuda(
+                *ins, *sa), 3)
+            fill.check_stream_stalls(wait=True)
+            cross[f"{n}_{mode}"] = dict(per_pair_ms=a_ms, streamed_ms=b_ms)
+        torch.cuda.empty_cache()
+    over = {mode: next((n for n in (32, 64, 128) if cross[f"{n}_{mode}"][
+        "streamed_ms"] < cross[f"{n}_{mode}"]["per_pair_ms"]), None)
+        for mode in ("local", "semi")}
+    log("[6 modes fill] per-pair (A) against streamed (B) fill, ms: "
+        + "; ".join(f"{k} A {v['per_pair_ms']:.3f} B {v['streamed_ms']:.3f}"
+                    for k, v in cross.items())
+        + "; B first faster at "
+        + ", ".join(f"{m} {n if n else 'none of these'} pairs"
+                    for m, n in over.items()))
+    out.update(mfill_crossover=dict(times=cross, streamed_faster_from=over))
 
     # Kernel B: ragged batches with 2-4 slots a row, skewed both ways.
     err, whole, runs = 0, True, 0
@@ -1310,6 +1410,36 @@ def stall_check(torch, port):
     return {"bfill_stall_s": secs}
 
 
+def banded_walk_slow_path(torch, port):
+    """The banded walk's slow path: 40 random ragged pairs (their walks
+    cross band lanes) filled at band 16 and walked with a window of one
+    lane, so most reads load directly; held against the plain walk.
+    Returns (slow reads, reads, err)."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    walk, banded = port["walk"], port["banded"]
+    pairs = ragged_pairs(np.random.default_rng(9), 40)
+    tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+    plan, ins = banded.band_inputs(*tb, 16)
+    finals, dirs = banded.banded_diag_fill_cuda(
+        *ins, plan, ScoringScheme(), True, True, "fast4")
+    seeds = [tb.db_len, tb.query_len,
+             torch.from_numpy(walk.seed_planes(finals.cpu().numpy())).to(
+                 device="cuda", dtype=torch.int32),
+             torch.arange(len(pairs), dtype=torch.int32, device="cuda")]
+    a = (plan.k_lo_even, int((tb.query_len + tb.db_len).max()))
+    slow = torch.zeros(1, dtype=torch.int64, device="cuda")
+    with walk.forced_walk(window=1, depth=4):
+        got = walk.walk_banded_cuda(dirs, *seeds, *a, slow=slow)
+    err = walk_diff(torch, got, walk.walk_banded_torch(dirs, *seeds, *a))
+    check(err == 0, f"banded walk kernel with a one-lane window != plain: "
+          f"err {err}")
+    check(int(slow) > 0, "the banded walk's slow path was not taken")
+    return int(slow), int(got[3].sum()), err
+
+
 def phase_banded_walk(torch, port, pairs, state):
     """The banded walk kernel against its plain version on config 4's fast4
     dirs, and against the host walker on sampled pairs."""
@@ -1332,14 +1462,17 @@ def phase_banded_walk(torch, port, pairs, state):
     t_steps = int((n1s + n2s).max())
     a = (plan.k_lo_even, t_steps)
     ms = cuda_ms(torch, lambda: walk.walk_banded_cuda(dirs, *seeds, *a))
-    got = walk.walk_banded_cuda(dirs, *seeds, *a)
+    slow = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = walk.walk_banded_cuda(dirs, *seeds, *a, slow=slow)
     plain_ms, want = host_ms(
         torch, lambda: walk.walk_banded_torch(dirs, *seeds, *a))
-    err = 0
-    for g, w in zip(got, want):
-        err = max(err, int((g.view(torch.int32).long()
-                            - w.view(torch.int32).long()).abs().max()))
+    err = walk_diff(torch, got, want)
     check(err == 0, f"banded walk kernel != plain: err {err}")
+    forced_slow, forced_steps, forced_err = banded_walk_slow_path(torch,
+                                                                  port)
+    err = max(err, forced_err)
+    steps = int(got[3].sum())
+    ns_step = ms * 1e6 / int(got[3].max())
     check(bool(((got[0] == 0) & (got[1] == 0)).all()),
           "a banded walk did not reach the origin")
     alns = walk.decode_packed_alignments(
@@ -1354,10 +1487,16 @@ def phase_banded_walk(torch, port, pairs, state):
               f"banded walk kernel != host walker on pair {b}")
     b_ms, b_by = walk_bound("walk_banded", got, seeds)
     log(f"[11 banded walk] {B} pairs: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); equal to the "
-        f"plain walk, {len(sample)} sampled pairs equal to the host walker")
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); {ns_step:.1f} ns "
+        f"a step of the longest walk; {int(slow)} words read outside the "
+        f"staged window (the slow path) in {steps} steps; equal to the plain "
+        f"walk, {len(sample)} sampled pairs equal to the host walker; ragged "
+        f"pairs at band 16 with a one-lane window: {forced_slow} slow-path "
+        f"words in {forced_steps} steps, equal to the plain walk")
     return {"bwalk_ms": ms, "bwalk_plain_ms": plain_ms, "bwalk_err": err,
-            "bwalk_bound_ms": b_ms, "bwalk_bound_by": b_by}
+            "bwalk_bound_ms": b_ms, "bwalk_bound_by": b_by,
+            "bwalk_ns_per_step": ns_step, "bwalk_slow": int(slow),
+            "bwalk_steps": steps, "bwalk_forced_slow": forced_slow}
 
 
 def phase_banded_main(torch, port, pairs, by_path):
@@ -1456,17 +1595,21 @@ def phase_ceiling(torch, port, by_path):
     a = (tb.query, s2v, tb.query_len, tb.db_len, tb.query.shape[1],
          tb.db.shape[1], ScoringScheme(), False, True, True)
     want = modes.fill_modes_torch(*a)
+    pair_ctas = []
     for cta in splits:
-        record("nw_affine_modes_fill", all(
-            same(x, y) for x, y in zip(
-                modes.modes_fill_cuda(*a, cta_lanes=cta), want)))
-    del dk, dp, want
+        got = modes.modes_fill_cuda(*a, cta_lanes=cta)
+        pair_ctas.append(modes.modes_fill_cuda.last_launch["ctas"])
+        e, _, zero = pair_cells_check(torch, modes, got, want,
+                                      tb.query_len.cpu().numpy(),
+                                      tb.db_len.cpu().numpy())
+        record("nw_affine_modes_fill", e == 0 and zero)
+    del dk, dp, want, got
     check(not any(err.values()), f"fills past 8192 lanes != plain: {err}")
     log(f"[13 ceiling] db ~{LEN_CEIL_DB} bp: global fast4 fill (P={plan.p}, "
         f"{ctas} CTAs), local and semi-global streamed fills "
         f"(P={plan_m.p}, {kern.sa_fill_ctas(plan_m.p, 0)} CTAs) and the "
-        f"per-pair modes fill (P={s2v.shape[1]}, "
-        f"{kern.sa_fill_ctas(s2v.shape[1], 0)} CTAs) equal their plain "
+        f"per-pair modes fill (P={s2v.shape[1]}, {pair_ctas[0]} CTAs a pair; "
+        f"its matrices' cells, the other bytes 0) equal their plain "
         f"versions, and again split into "
         f"{kern.sa_fill_ctas(plan.p, 8192)} CTAs of 8192 lanes (16 a thread)")
     torch.cuda.empty_cache()
@@ -1916,12 +2059,50 @@ def phase_long(torch, port, by_path):
     return meas
 
 
+def long_walk(torch, port, pairs, fill_out, plan, name, band):
+    """The banded walk alone on a long batch's banded fill (finals, fast4
+    dirs): timed, held against its plain version, its slow-path reads
+    counted."""
+    walk = port["walk"]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    finals, dirs = fill_out
+    n1s = np.asarray([len(a) for a, _ in pairs], np.int32)
+    n2s = np.asarray([len(b) for _, b in pairs], np.int32)
+    seeds = [put(n2s), put(n1s), put(walk.seed_planes(finals.cpu().numpy())),
+             put(np.arange(len(pairs)))]
+    a = (plan.k_lo_even, int((n1s + n2s).max()))
+    ms = cuda_ms(torch, lambda: walk.walk_banded_cuda(dirs, *seeds, *a))
+    slow = torch.zeros(1, dtype=torch.int64, device="cuda")
+    got = walk.walk_banded_cuda(dirs, *seeds, *a, slow=slow)
+    plain_ms, want = host_ms(
+        torch, lambda: walk.walk_banded_torch(dirs, *seeds, *a))
+    err = walk_diff(torch, got, want)
+    check(err == 0, f"banded walk kernel != plain at batch {name}: err {err}")
+    check(bool(((got[0] == 0) & (got[1] == 0)).all()),
+          f"a banded walk of batch {name} did not reach the origin")
+    b_ms, b_by = walk_bound("walk_banded", got, seeds)
+    steps = int(got[3].sum())
+    longest = int(got[3].max())
+    log(f"[15 long] batch {name}'s banded walk (band {band}, L={plan.L}): "
+        f"{ms:.3f} ms, {ms * 1e6 / longest:.1f} ns a step of the longest "
+        f"walk ({longest} steps), {int(slow)} slow-path words in {steps} "
+        f"steps; plain {plain_ms:.1f} ms, equal; bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, err=err, bound_ms=b_ms,
+                bound_by=b_by, band=band, steps=steps, longest=longest,
+                slow=int(slow), ns_per_step=ms * 1e6 / longest)
+
+
 def long_banded_fills(torch, port, A, B):
     """Kernel #3 at the long-pair path's shapes: batch B's band 128 (the
     first round of both its paths) against the plain version (finals and
     the whole dirs tensor), then N_RACE more launches, each equal to the
     first (the race check), each pair on at least 32 SMs; then each of
-    batch A's band rounds (bands 128, 256, 512) timed on its own."""
+    batch A's band rounds (bands 128, 256, 512) timed on its own.  The
+    banded walk alone on batch B's band 128 and batch A's band 512."""
     from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
     from sequencealigning_tpu_torch.io.encode import pack_batch
@@ -1968,6 +2149,7 @@ def long_banded_fills(torch, port, A, B):
     band_cells = sum(len(y) for _, y in B) * (plan.k_hi_eff - plan.k_lo + 1)
     lane_steps = len(B) * 2 * plan.n_need * plan.L
     b_ms, b_by = bound(nbytes(*ins, *first), band_cells * OPS_PER_CELL["fast4"])
+    meas["bwalkB"] = long_walk(torch, port, B, first, plan, "B", BAND)
     del first
     per_pair = shape["sms_per_pair"]
     check(min(per_pair) >= 32, f"batch B: the banded fill's pairs ran on "
@@ -1998,13 +2180,14 @@ def long_banded_fills(torch, port, A, B):
             plan.k_hi_eff - plan.k_lo + 1)
         b_ms, b_by = bound(nbytes(*ins, *got), band_cells
                            * OPS_PER_CELL["fast4"])
-        del got
         rounds[band] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
                             lanes=plan.L, shape=shape)
         log(f"[15 long] batch A's band {band} round (L={plan.L}): banded fill "
             f"{ms:.3f} ms, {band_cells / ms / 1e6:.1f} band GCUPS, bound "
             f"{b_ms:.3f} ms ({b_by}); {tile_line(shape)}")
-        del ins
+        if band == 4 * BAND:
+            meas["bwalkA"] = long_walk(torch, port, A, got, plan, "A", band)
+        del got, ins
     meas["bfillA_rounds"] = rounds
     torch.cuda.empty_cache()
     return meas
@@ -3063,7 +3246,7 @@ def kernel_entries(meas, by_path):
         "nw_affine_stream_fill": [meas["fill_err"], meas["fill_split4_err"],
                                   ceil["nw_affine_stream_fill"]],
         "walk_fast4": [meas["walk_err"]],
-        "nw_affine_modes_fill": [meas["mfill_err"],
+        "nw_affine_modes_fill": [meas["mfill_err"], meas["mfill_semi_err"],
                                  ceil["nw_affine_modes_fill"]],
         "nw_affine_stream_modes_fill": [meas["sfill_ragged_err"],
                                         meas["sfill_local_err"],
@@ -3077,7 +3260,8 @@ def kernel_entries(meas, by_path):
                                 meas["bfill_strips64_err"],
                                 meas["bfill_natural_split_err"],
                                 meas["bfillB_err"], meas["wide_err"]],
-        "walk_banded": [meas["bwalk_err"]],
+        "walk_banded": [meas["bwalk_err"], meas["bwalkA"]["err"],
+                        meas["bwalkB"]["err"]],
         "nw_affine_tiled_fill": [meas["tiled_small_err"],
                                  meas["tiled_full_err"]],
         "nw_affine_tiled_fold_fill": [meas["tfold_small_err"],
@@ -3146,6 +3330,19 @@ def kernel_entries(meas, by_path):
             entry["launch"] = meas[f"{key}_shape"]
         if name == "nw_banded_diag_fill":
             entry["shapes"] = banded_shapes(meas)
+        if name == "nw_affine_modes_fill":
+            entry["semi"] = {k: meas[f"mfill_semi_{k}"] for k in (
+                "ms", "plain_ms", "bound_ms", "err")}
+            entry["shapes"] = meas["mfill_shapes"]
+            entry["crossover"] = meas["mfill_crossover"]
+            entry["whole_dirs_equal"] = meas["mfill_whole_dirs_equal"]
+            entry["outside_zero"] = meas["mfill_outside_zero"]
+        if name == "walk_banded":
+            entry.update(ns_per_step=meas["bwalk_ns_per_step"],
+                         slow_reads=meas["bwalk_slow"],
+                         steps=meas["bwalk_steps"],
+                         forced_window_slow_reads=meas["bwalk_forced_slow"],
+                         batch_A=meas["bwalkA"], batch_B=meas["bwalkB"])
         if name == "nw_affine_fill":
             entry["full"] = {
                 "ms": meas["gfill_full_ms"],

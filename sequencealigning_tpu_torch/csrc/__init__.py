@@ -159,8 +159,11 @@ def kernels() -> ctypes.CDLL:
     lib.sa_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
     lib.sa_stream_modes_fill.restype = _INT
     lib.sa_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
+    lib.sa_modes_plan.restype = _INT
+    lib.sa_modes_plan.argtypes = [_INT] * 6 + [_VP]
     lib.sa_modes_fill.restype = _INT
-    lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP] + [
+        _INT] * 3 + [_VP]
     lib.sa_gotoh_fill.restype = _INT
     lib.sa_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
     lib.sa_sm_count.restype = _INT
@@ -191,7 +194,7 @@ def kernels() -> ctypes.CDLL:
         _INT] * 3 + [_VP] * 6
     lib.sa_walk_banded.restype = _INT
     lib.sa_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
-        _INT] * 4 + [_VP] * 5
+        _INT] * 4 + [_VP] * 4 + [_INT] * 2 + [_VP] * 2
     _kernels = lib
     return lib
 
@@ -280,8 +283,11 @@ def host_check() -> ctypes.CDLL:
     lib.hc_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17
     lib.hc_stream_modes_fill.restype = _INT
     lib.hc_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17
+    lib.hc_modes_plan.restype = _INT
+    lib.hc_modes_plan.argtypes = [_INT] * 6 + [_VP]
     lib.hc_modes_fill.restype = _INT
-    lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP] + [
+        _INT] * 3
     lib.hc_gotoh_fill.restype = _INT
     lib.hc_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12
     lib.hc_banded_fill.restype = _INT
@@ -302,6 +308,6 @@ def host_check() -> ctypes.CDLL:
         _INT] * 3 + [_VP] * 5
     lib.hc_walk_banded.restype = _INT
     lib.hc_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
-        _INT] * 4 + [_VP] * 4
+        _INT] * 4 + [_VP] * 4 + [_INT] * 2 + [_VP]
     _host = lib
     return lib

@@ -279,50 +279,151 @@ int ring_fill(int mode, const int32_t* qstream, const int32_t* dstream,
             rg.chunk, rg.slots, rg.wrap);
 }
 
-// The per-pair modes fill of one pair at a time.
+// The per-pair modes fill in the kernel's warp-ring schedule
+// (nw_affine_modes.cu), run serially: pair by pair, chunk by chunk, and in
+// each chunk the pair's warps in order (CTA by CTA), each over its own
+// steps only (its first lane's row-0 cell to its last lane's row-n1 cell,
+// plus one when the next warp holds lanes of the pair's db), its lanes
+// starting from triangle_state.  A warp's first lane takes the left lane's
+// pre-step values from its ring slot, written by the warp to its left in
+// this chunk's pass; lane 0 takes the step's query code and no D bits.
+// Every wait is checked in that order: one that would not hold returns
+// kRingUnmet.  Bytes of cells outside the pair's matrix are 0, and so is
+// every word a warp does not sweep.
 template <int DIRS, int MODE, bool WILDCARD>
-void modes_host(const int32_t* query, const int32_t* s2v, const int32_t* n1s,
-                const int32_t* n2s, int32_t* out, uint32_t* dirs, int B,
-                int L1, int P, int D_total, const sa::Scheme& sc,
-                const sa::Split& sp) {
-  std::vector<sa::Cell> c(P), c0(P);
+int pair_ring_host(const int32_t* query, const int32_t* s2v,
+                   const int32_t* n1s, const int32_t* n2s, int32_t* out,
+                   uint32_t* dirs, int B, int L1, int P, int D_total,
+                   const sa::Scheme& sc, const sa::Split& sp, int C,
+                   int slots) {
+  constexpr bool kDirs = DIRS != sa::kDirsNone;
+  const int wlanes = 32 * sp.lpt;
+  std::vector<int> w0, w1;
+  for (int rank = 0; rank < sp.nctas; ++rank) {
+    const int lo = sa::cta_first_lane(rank, sp);
+    const int hi = lo + sa::cta_real_lanes(rank, sp, P);
+    for (int u = 0; u < sa::ring_warps(rank, sp, P); ++u) {
+      w0.push_back(lo + u * wlanes);
+      w1.push_back(lo + (u + 1) * wlanes < hi ? lo + (u + 1) * wlanes : hi);
+    }
+  }
+  const int G = static_cast<int>(w0.size());
+  struct Entry {
+    int32_t h, d, s;
+  };
+  const int W = (D_total + 3) / 4;
+  const size_t stride = static_cast<size_t>(B) * P;
+  std::vector<sa::Cell> c(P);
   std::vector<sa::Pre> pre(P);
   std::vector<uint32_t> acc(P);
   std::vector<int32_t> bv(P), bd(P);
+  std::vector<Entry> ring(static_cast<size_t>(G) * slots * C);
+  std::vector<int32_t> full(G), freed(G);
+  std::vector<char> active(G), has_next(G);
+  std::vector<int> t_end(G);
   for (int b = 0; b < B; ++b) {
-    for (int x = 0; x < P; ++x) {
-      c[x] = sa::cell_init(sa::kNegInf);
-      c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
-      acc[x] = 0;
-      bv[x] = sa::kNegBig;
-      bd[x] = 0;
-    }
-    for (int d = 0; d < D_total; ++d) {
-      const int q = d - 1 < 0 ? 0 : (d - 1 > L1 - 1 ? L1 - 1 : d - 1);
-      const int32_t qc = query[static_cast<size_t>(b) * L1 + q];
-      for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      c0 = c;
-      for (int x = P - 1; x >= 0; --x) {
-        const int l = left_lane(x, sp, P);
-        const int32_t code = sa::stream_cell<DIRS, MODE, false, WILDCARD>(
-            c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == d, d, qc,
-            c[x].s2v, sc);
-        acc[x] |= static_cast<uint32_t>(code) << (8u * (d & 3));
-        sa::modes_update<MODE>(x, d - x, d, n1s[b], n2s[b], c[x].M1, c[x].H1,
-                               bv[x], bd[x]);
+    const int32_t n1 = n1s[b], n2 = n2s[b];
+    uint32_t* drow = dirs + static_cast<size_t>(b) * P;
+    int k_last = -1;
+    for (int g = 0; g < G; ++g) {
+      active[g] = n1 >= 0 && n2 >= 0 && w0[g] <= n2;
+      has_next[g] = active[g] && w1[g] <= n2;
+      const int last = w1[g] - 1 < n2 ? w1[g] - 1 : n2;
+      t_end[g] = last + n1 + (has_next[g] ? 1 : 0);
+      full[g] = 0;
+      freed[g] = w1[g] / C;
+      const sa::Cell tri = sa::triangle_state<MODE>(w0[g] - 1, sc);
+      for (int x = w0[g]; x < w1[g]; ++x) {
+        c[x] = tri;
+        c[x].s1d = 0;
+        c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
+        acc[x] = 0;
+        bv[x] = sa::kNegBig;
+        bd[x] = 0;
       }
-      if (DIRS != sa::kDirsNone && ((d & 3) == 3 || d == D_total - 1)) {
-        for (int x = 0; x < P; ++x) {
-          dirs[(static_cast<size_t>(d >> 2) * B + b) * P + x] = acc[x];
-          acc[x] = 0;
+      // Words the warp does not sweep (all of them for an idle warp).
+      const int lo_w = active[g] ? w0[g] / 4 : W;
+      const int hi_w = active[g] ? t_end[g] / 4 + 1 : W;
+      for (int w = 0; w < W; ++w) {
+        if (kDirs && (w < lo_w || w >= hi_w)) {
+          for (int x = w0[g]; x < w1[g]; ++x) drow[w * stride + x] = 0;
         }
+      }
+      if (active[g] && t_end[g] / C > k_last) k_last = t_end[g] / C;
+    }
+    for (int k = 0; k <= k_last; ++k) {
+      for (int g = 0; g < G; ++g) {
+        if (!active[g] || k * C > t_end[g] || k * C + C - 1 < w0[g]) {
+          continue;
+        }
+        const int a = w0[g], e_lanes = w1[g];
+        if (g > 0 && w0[g] > 0 && k * C <= a + n1 &&
+            full[g] < sa::ring_full_need(k)) {
+          return sa::kRingUnmet;
+        }
+        if (has_next[g] && freed[g] < sa::ring_free_need(k, slots)) {
+          return sa::kRingUnmet;
+        }
+        Entry* rin = &ring[(static_cast<size_t>(g) * slots + k % slots) * C];
+        Entry* rout =
+            has_next[g]
+                ? &ring[(static_cast<size_t>(g + 1) * slots + k % slots) * C]
+                : nullptr;
+        const int t_lo = k * C > a ? k * C : a;
+        const int t_hi = k * C + C - 1 < t_end[g] ? k * C + C - 1 : t_end[g];
+        for (int t = t_lo; t <= t_hi; ++t) {
+          const int e = t - k * C;
+          const int q = t - 1 < 0 ? 0 : (t - 1 > L1 - 1 ? L1 - 1 : t - 1);
+          const int32_t qc = query[static_cast<size_t>(b) * L1 + q];
+          for (int x = a; x < e_lanes; ++x) {
+            pre[x] = sa::stream_pre<DIRS>(c[x], sc);
+          }
+          const int l = e_lanes - 1;
+          if (rout != nullptr) {
+            rout[e] = {c[l].H2, pre[l].dsel, c[l].s1d | pre[l].dflag << 8};
+          }
+          // Lane 0's left lane hands over nothing (no D bits).
+          const Entry left = a == 0 ? Entry{0, 0, 0} : rin[e];
+          for (int x = e_lanes - 1; x >= a; --x) {
+            int32_t lh, ls;
+            sa::Pre lp;
+            if (x == a) {
+              lh = left.h;
+              lp.t0 = 0;
+              lp.dsel = left.d;
+              lp.dflag = left.s >> 8;
+              ls = left.s & 0xff;
+            } else {
+              lh = c[x - 1].H2;
+              lp = pre[x - 1];
+              ls = c[x - 1].s1d;
+            }
+            int32_t code = sa::stream_cell<DIRS, MODE, false, WILDCARD>(
+                c[x], pre[x], lh, lp, ls, x == 0, x == t, t, qc, c[x].s2v,
+                sc);
+            const uint32_t lim = x <= n2 ? static_cast<uint32_t>(n1 + 1) : 0u;
+            if (static_cast<uint32_t>(t - x) >= lim) code = 0;
+            acc[x] |= static_cast<uint32_t>(code) << (8u * (t & 3));
+            sa::modes_update<MODE>(x, t - x, t, n1, n2, c[x].M1, c[x].H1,
+                                   bv[x], bd[x]);
+          }
+          if (kDirs && ((t & 3) == 3 || t == t_end[g])) {
+            for (int x = a; x < e_lanes; ++x) {
+              drow[static_cast<size_t>(t >> 2) * stride + x] = acc[x];
+              acc[x] = 0;
+            }
+          }
+        }
+        if (g > 0 && w0[g] > 0) freed[g - 1] = k + 1;
+        if (has_next[g]) full[g + 1] = k + 1;
       }
     }
     for (int x = 0; x < P; ++x) {
       out[static_cast<size_t>(b) * P + x] = bv[x];
-      out[static_cast<size_t>(B) * P + static_cast<size_t>(b) * P + x] = bd[x];
+      out[stride + static_cast<size_t>(b) * P + x] = bd[x];
     }
   }
+  return 0;
 }
 
 // The per-pair global fill of one pair at a time (sa_gotoh_fill), with its
@@ -387,14 +488,18 @@ HostGotoh pick_gotoh(bool compat, bool wildcard) {
                   : gotoh_host<DIRS, false, false>;
 }
 
-typedef void (*HostPerPair)(const int32_t*, const int32_t*, const int32_t*,
-                            const int32_t*, int32_t*, uint32_t*, int, int,
-                            int, int, const sa::Scheme&, const sa::Split&);
+typedef int (*HostPerPair)(const int32_t*, const int32_t*, const int32_t*,
+                           const int32_t*, int32_t*, uint32_t*, int, int, int,
+                           int, const sa::Scheme&, const sa::Split&, int, int);
 
 template <int DIRS, int MODE>
 HostPerPair pick_modes(bool wildcard) {
-  return wildcard ? modes_host<DIRS, MODE, true> : modes_host<DIRS, MODE, false>;
+  return wildcard ? pair_ring_host<DIRS, MODE, true>
+                  : pair_ring_host<DIRS, MODE, false>;
 }
+
+// The SM count the host build plans the per-pair split for (an H100).
+constexpr int kHostSms = 132;
 
 }  // namespace
 
@@ -465,14 +570,23 @@ extern "C" int hc_stream_modes_fill(
                    cta_lanes, lpt, chunk, slots, wrap);
 }
 
+// sa_modes_fill's arguments minus the stream (the split planned for
+// kHostSms SMs): the status word is not written (a wait that would not
+// hold returns kRingUnmet, -4, instead).
 extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,
                              const int32_t* n1, const int32_t* n2,
                              int32_t* out, uint32_t* dirs, int B, int L1,
                              int P, int D_total, int match, int mismatch,
                              int gap_open, int gap_extend, int dirs_mode,
-                             int local, int wildcard, int cta_lanes) {
-  const sa::Split sp = sa::plan_split(P, cta_lanes);
-  if (sp.nctas == 0) return -1;
+                             int local, int wildcard, int cta_lanes,
+                             int32_t* /*status*/, int lpt, int chunk,
+                             int slots) {
+  const sa::Split sp = sa::pair_plan(P, B, kHostSms, cta_lanes, lpt);
+  const sa::RingShape rg = sa::ring_shape(chunk, slots, 0, true);
+  if (sp.nctas == 0 || B <= 0 || L1 <= 0 || D_total <= 0 ||
+      !sa::ring_ok(rg)) {
+    return -1;
+  }
   HostPerPair fn = nullptr;
   if (dirs_mode == sa::kDirsNone) {
     fn = local ? pick_modes<sa::kDirsNone, sa::kModeLocal>(wildcard)
@@ -483,8 +597,15 @@ extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,
   }
   if (fn == nullptr) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(query, s2v, n1, n2, out, dirs, B, L1, P, D_total, sc, sp);
-  return 0;
+  return fn(query, s2v, n1, n2, out, dirs, B, L1, P, D_total, sc, sp,
+            rg.chunk, rg.slots);
+}
+
+// The per-pair modes fill's launch shape (sa_modes_plan, for kHostSms SMs).
+extern "C" int hc_modes_plan(int P, int B, int cta_lanes, int lpt, int chunk,
+                             int slots, int* shape) {
+  return sa::pair_launch_shape(P, B, kHostSms, cta_lanes, lpt, chunk, slots,
+                               shape);
 }
 
 extern "C" int hc_gotoh_fill(const int32_t* query, const int32_t* s2v,
@@ -746,27 +867,87 @@ extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
             n_iters, he, lim1, lim0, compat != 0, sc, g);
 }
 
+// sa_walk_banded's arguments minus the stream: the kernel's staged window
+// run serially (batch k + 2 of `depth` rows copied when the walk enters
+// batch k + 1), the words the slow path read added to *slow (when not
+// null).
 extern "C" int hc_walk_banded(const uint32_t* dirs, int W, int NB, int L,
                               const int32_t* x0, const int32_t* y0,
                               const int32_t* plane0, const int32_t* bidx,
                               int k_lo_even, int B, int WP, int std_model,
                               uint32_t* packed, int32_t* xf, int32_t* yf,
-                              int32_t* n_ops) {
+                              int32_t* n_ops, int win, int depth,
+                              uint64_t* slow) {
+  if (W <= 0 || NB <= 0 || L < sa::kWalkWindow || L % 4 != 0 || B <= 0 ||
+      WP <= 0 || !sa::walk_window(win, depth)) {
+    return -1;
+  }
+  std::vector<uint32_t> st(static_cast<size_t>(2 * depth) * sa::kWalkWindow);
+  int32_t slo[2];
   for (int b = 0; b < B; ++b) {
     int32_t x = x0[b];
     int32_t y = y0[b];
+    int32_t plane = plane0[b];
+    const size_t nb = static_cast<size_t>(bidx[b]);
+    const int steps = x + y;
     uint32_t* out = packed + static_cast<size_t>(b) * WP;
-    if (std_model) {
-      sa::walk_banded_pair<true>(dirs, W, NB, L, static_cast<size_t>(bidx[b]),
-                                 k_lo_even, x, y, plane0[b], n_ops[b], out,
-                                 WP);
-    } else {
-      sa::walk_banded_pair<false>(dirs, W, NB, L,
-                                  static_cast<size_t>(bidx[b]), k_lo_even, x,
-                                  y, plane0[b], n_ops[b], out, WP);
+    const int32_t row0 = (x + y - 1) >> 3;
+    auto stage_batch = [&](int k, int32_t center) {
+      const int buf = k & 1;
+      slo[buf] = sa::window_at(center, win, L);
+      for (int j = 0; j < depth; ++j) {
+        for (int l = 0; l < sa::kWalkWindow; ++l) {
+          st[(buf * depth + j) * sa::kWalkWindow + l] = sa::banded_word(
+              dirs, W, NB, L, nb, row0 - k * depth - j, slo[buf] + l);
+        }
+      }
+    };
+    int32_t lane = sa::band_lane(x, y, k_lo_even);
+    stage_batch(0, lane);
+    stage_batch(1, lane);
+    int kb = 0;
+    int32_t lo = slo[0];
+    int32_t row = row0;
+    int slot = 0;
+    int32_t held = INT32_MIN;
+    uint32_t v = 0;
+    for (int w = 0; w < WP; ++w) out[w] = 0;
+    int i = 0;
+    while (i < steps && (x != 0 || y != 0)) {
+      const int32_t a = x + y - 1;
+      if ((a >> 3) != row) {
+        row = a >> 3;
+        const int k = (row0 - row) / depth;
+        if (k != kb) {
+          stage_batch(kb + 2, lane);
+          kb = k;
+          lo = slo[kb & 1];
+        }
+        slot = (kb & 1) * depth + (row0 - row) % depth;
+        held = INT32_MIN;
+      }
+      lane = sa::band_lane(x, y, k_lo_even);
+      if (lane != held) {
+        held = lane;
+        const int32_t li = lane - lo;
+        if (lane < 0 || lane >= L || row >= W) {
+          v = 0;
+        } else if (static_cast<uint32_t>(li) < static_cast<uint32_t>(win)) {
+          v = st[slot * sa::kWalkWindow + li];
+        } else {
+          v = sa::banded_word(dirs, W, NB, L, nb, row, lane);
+          if (slow != nullptr) ++*slow;
+        }
+      }
+      const uint32_t nib = (v >> (4 * (a & 7))) & 0xFu;
+      const uint32_t op = std_model ? sa::walk_step<true>(nib, x, y, plane)
+                                    : sa::walk_step<false>(nib, x, y, plane);
+      out[i >> 4] |= op << (2 * (i & 15));
+      ++i;
     }
     xf[b] = x;
     yf[b] = y;
+    n_ops[b] = i;
   }
   return 0;
 }

@@ -1,5 +1,5 @@
-// The one-lane shift of the anti-diagonal fills (device code only), shared
-// by nw_affine_stream.cu, nw_affine_modes.cu, nw_affine.cu and nw_linear.cu.
+// The one-lane shift of the per-pair anti-diagonal fills (device code only),
+// shared by nw_affine.cu and nw_linear.cu.
 //
 // A block holds a contiguous run of lanes, LPT consecutive lanes a thread.
 // Each step a lane needs a neighbour's state from before the step: inside a

@@ -12,16 +12,16 @@
 // ceil(D_total / 4) words (the lax twin's length; the TPU kernel pads to
 // whole 64-diagonal chunks).
 //
-// Design: the per-pair shape of the modes kernel (nw_affine_modes.cu): one
-// thread block per pair up to 8192 lanes, past that one thread-block cluster
-// per pair (cluster_split.cuh), LPT consecutive lanes a thread in registers,
-// the one-lane shift of lane_shift.cuh (one barrier a step) and the per-cell
-// arithmetic nw_affine_stream.cuh::stream_cell<DIRS, kModeGlobal, COMPAT,
-// WILDCARD>, each lane passing its own db code.  The lane-0 query code of
-// diagonal d, seq1[clip(d-1, 0, L1p-1)], is staged in shared memory 128
-// diagonals at a time.  The epilogue is a corner capture instead of the
-// modes' per-lane argmax: each lane keeps one bit of n2mask, and on its
-// pair's diagonal dsum the lanes whose bit is set add M/I/D atomically.
+// Design: one thread block per pair up to 8192 lanes, past that one
+// thread-block cluster per pair (cluster_split.cuh), LPT consecutive lanes a
+// thread in registers, the one-lane shift of lane_shift.cuh (one barrier a
+// step) and the per-cell arithmetic nw_affine_stream.cuh::stream_cell<DIRS,
+// kModeGlobal, COMPAT, WILDCARD>, each lane passing its own db code.  The
+// lane-0 query code of diagonal d, seq1[clip(d-1, 0, L1p-1)], is staged in
+// shared memory 128 diagonals at a time.  The epilogue is a corner capture
+// instead of the modes' per-lane argmax: each lane keeps one bit of n2mask,
+// and on its pair's diagonal dsum the lanes whose bit is set add M/I/D
+// atomically.
 //
 // What bounds it on this card: the integer work of the recurrence (10
 // operations a true cell score-only, 26 with the full codes), but half of a

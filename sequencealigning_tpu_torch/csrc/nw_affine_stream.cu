@@ -70,20 +70,12 @@ namespace cg = cooperative_groups;
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// A CTA's rings: entry[w] is warp w's input ring (slots x chunk entries of
-// (H2, merged D source, packed query code and D bits)); full[w] counts the
-// chunks published into it, freed[w] the chunks of warp w's OUTPUT ring its
-// consumer has read (so each producer polls its own CTA).  wrap is used in
-// the CTA holding lane P-1, wrap_freed (lane 0's words read back) in CTA 0.
-struct RingSmem {
-  int4 entry[sa::kRingMaxWarps][sa::kRingMaxEntries];
-  int32_t full[sa::kRingMaxWarps];
-  int32_t freed[sa::kRingMaxWarps];
-  uint32_t wrap[sa::kWrapMaxWords];
-  int32_t wrap_freed;
-};
-
 using Ring = sa::RingShape;
+using sa::cluster_addr;
+using sa::ring_get;
+using sa::ring_put;
+using sa::RingSmem;
+using sa::smem_addr;
 
 // A thread's lanes: their scores (c[i]; c[i].s1d and c[i].s2v are unused),
 // query and db codes packed 4 bits a lane (lane i in word i / 8, bits
@@ -224,37 +216,6 @@ __device__ __forceinline__ int next_capture(const int32_t* dsum,
     if (x >= base && x < base + lpt && tc > after && tc < best) best = tc;
   }
   return best;
-}
-
-// 32-bit shared-memory addresses of the rings: a ring entry is stored by
-// its producer (in the next CTA of a cluster for a CTA's last warp) and
-// loaded by its consumer, one 16-byte access a step.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r)
-               : "r"(a), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void ring_put(uint32_t a, bool remote, int32_t x,
-                                         int32_t y, int32_t z) {
-  if (remote) {
-    asm volatile("st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a),
-                 "r"(x), "r"(y), "r"(z), "r"(0));
-  } else {
-    asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a), "r"(x),
-                 "r"(y), "r"(z), "r"(0));
-  }
-}
-__device__ __forceinline__ int4 ring_get(uint32_t a) {
-  int4 v;
-  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(a));
-  return v;
 }
 
 __device__ __forceinline__ void wrap_put(uint32_t a, bool remote, uint32_t v) {

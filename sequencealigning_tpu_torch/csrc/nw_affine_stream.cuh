@@ -202,6 +202,24 @@ SA_HD void modes_update(int32_t x, int32_t y, int32_t pd, int32_t n1,
   }
 }
 
+// The state after step t (t >= -1) of a lane x > t of a per-pair fill (the
+// cells (x, t - x) above the pair's matrix): every lane of the pair's db
+// holds the same, since its query code is still 0, which no db code
+// matches, and its left neighbour is such a lane too.  The per-pair modes
+// fill starts a warp's lanes from it instead of sweeping that triangle;
+// only the IEXT / IOPEN bits of the row-0 cells (x, 0) read it.
+template <int MODE>
+SA_HD Cell triangle_state(int32_t t, const Scheme& s) {
+  Cell c = cell_init(kNegInf);
+  c.s2v = 1;
+  for (int32_t d = 0; d <= t; ++d) {
+    const Pre pre = stream_pre<kDirsNone>(c, s);
+    stream_cell<kDirsNone, MODE, false, false>(c, pre, c.H2, pre, 0, false,
+                                               false, d, 0, c.s2v, s);
+  }
+  return c;
+}
+
 // ---------------------------------------------------------------------------
 // The streamed fills' cell since the warp-ring schedule (nw_affine_stream.cu,
 // stream_ring.cuh): the same integers as stream_pre / stream_cell /

@@ -1,7 +1,8 @@
-"""Where the streamed fills' spills sit in their machine code: for each
-instance of ``nw_affine_stream.cu::stream_ring_kernel`` whose name holds
-every ``--match`` string, the local-memory loads and stores (LDL / STL) of
-its SASS and the loops (backward branches) around them:
+"""Where the kernels' spills sit in their machine code: for each kernel
+instance whose name holds every ``--match`` string (by default the
+streamed fills' ``stream_ring_kernel`` instances at the main shapes), the
+local-memory loads and stores (LDL / STL) of its SASS and the loops
+(backward branches) around them:
 
     python -m sequencealigning_tpu_torch.csrc.sass_spills
         [--match S ...] [--dump DIR] [--out FILE]
@@ -114,8 +115,7 @@ def main() -> int:
     picks = [[m] for m in MAIN] if args.match is None else [args.match]
     rows = []
     for name, insns in sorted(functions(sass).items()):
-        if "stream_ring_kernel" not in name or not any(
-                all(m in name for m in p) for p in picks):
+        if not any(all(m in name for m in p) for p in picks):
             continue
         r = dict(entry=name, **analyse(insns, args.hot))
         rows.append(r)

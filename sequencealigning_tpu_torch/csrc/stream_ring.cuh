@@ -69,6 +69,51 @@ SA_HD Split stream_plan(int P, int cta_lanes, bool modes, int lpt) {
   return sp;
 }
 
+// The per-pair modes fill (nw_affine_modes.cu) on the same rings: each
+// pair's row of P lanes over a cluster of CTAs of a few warps, so a small
+// batch fills the card.  Its CTAs hold at most 256 threads at 2 or 4 lanes
+// a thread (so a thread may keep its lanes in up to 255 registers), 512 at
+// 8 or 16 (128 registers).
+SA_HD constexpr int pair_max_threads(int lpt) { return lpt <= 4 ? 256 : 512; }
+
+// The split of a pair's P lanes when B pairs share a card of `sms` SMs:
+// CTAs of 256 lanes, or fewer CTAs a pair where B of them would pass 3/4 of
+// the SMs (at least one CTA a pair, at most 16, at most 8192 lanes a CTA),
+// each a multiple of 128 lanes; 2 lanes a thread where 256 threads hold a
+// CTA's lanes, else 4, 8 or 16.  (On an NVIDIA H100 80GB HBM3 at 700 W,
+// the fastest splits timed: one pair of 2046 bp in 9 CTAs of 256 lanes x 2
+// a thread, 1.31 ms; 31 pairs in 3 CTAs a pair at 4 lanes a thread, 2.04
+// ms; chip_smoke.py phase 6.)  cta_lanes > 0 forces the CTA width (as
+// plan_split: at most 16 CTAs) and lpt > 0 the lanes a thread.  nctas ==
+// 0: out of range.
+SA_HD Split pair_plan(int P, int B, int sms, int cta_lanes, int lpt) {
+  Split sp = {0, 0, 0};
+  if (P <= 0 || P % 128 != 0 || B <= 0) return sp;
+  if (cta_lanes == 0) {
+    const int units = P / 128;
+    int want = (units + 1) / 2;            // CTAs of 256 lanes
+    const int fill = 3 * sms / 4 / B;      // CTAs a pair the card holds
+    want = want < fill ? want : fill;
+    const int fit = (P + 8191) / 8192;     // CTAs of at most 8192 lanes
+    want = want < fit ? fit : want > kMaxClusterCtas ? kMaxClusterCtas : want;
+    cta_lanes = (units + want - 1) / want * 128;
+  }
+  sp = plan_split(P, cta_lanes);
+  if (sp.nctas == 0) return sp;
+  if (lpt == 0) {
+    for (lpt = 2; lpt < 16; lpt *= 2) {
+      if (sp.cta_lanes / lpt <= pair_max_threads(lpt)) break;
+    }
+  }
+  if ((lpt != 2 && lpt != 4 && lpt != 8 && lpt != 16) ||
+      sp.cta_lanes / lpt > pair_max_threads(lpt)) {
+    sp.nctas = 0;
+    return sp;
+  }
+  sp.lpt = lpt;
+  return sp;
+}
+
 // The rings' shape: chunk steps (1-32, one code a lane of a warp), slots
 // (>= 1; slots x chunk <= kRingMaxEntries) and wrap words (a power of two,
 // 1..kWrapMaxWords).  A 0 takes the default: chunks of 16 steps for the
@@ -111,6 +156,22 @@ SA_HD int stream_launch_shape(int P, int cta_lanes, bool modes, int lpt,
   return 0;
 }
 
+// The per-pair modes fill's launch shape (sa_modes_plan, hc_modes_plan):
+// shape[0..4] = lanes a thread, threads a CTA, CTAs a pair, chunk steps,
+// slots; -1 when the split or the rings are out of range.
+SA_HD int pair_launch_shape(int P, int B, int sms, int cta_lanes, int lpt,
+                            int chunk, int slots, int* shape) {
+  const Split sp = pair_plan(P, B, sms, cta_lanes, lpt);
+  const RingShape r = ring_shape(chunk, slots, 0, true);
+  if (sp.nctas == 0 || !ring_ok(r)) return -1;
+  shape[0] = sp.lpt;
+  shape[1] = cta_threads(sp);
+  shape[2] = sp.nctas;
+  shape[3] = r.chunk;
+  shape[4] = r.slots;
+  return 0;
+}
+
 // Warps of CTA `rank` holding real lanes.
 SA_HD int ring_warps(int rank, const Split& sp, int P) {
   return (cta_real_lanes(rank, sp, P) / sp.lpt + 31) / 32;
@@ -146,6 +207,51 @@ SA_HD int32_t wrap_free_need(int words_end, int wrap) {
 namespace sa {
 
 constexpr unsigned kRingSpinLimit = 1u << 22;
+
+// A CTA's rings: entry[w] is warp w's input ring (slots x chunk entries of
+// (H2, merged D source, packed query code and D bits)); full[w] counts the
+// chunks published into it, freed[w] the chunks of warp w's OUTPUT ring its
+// consumer has read (so each producer polls its own CTA).  wrap is used in
+// the CTA holding lane P-1, wrap_freed (lane 0's words read back) in CTA 0
+// (the streamed fills only).
+struct RingSmem {
+  int4 entry[kRingMaxWarps][kRingMaxEntries];
+  int32_t full[kRingMaxWarps];
+  int32_t freed[kRingMaxWarps];
+  uint32_t wrap[kWrapMaxWords];
+  int32_t wrap_freed;
+};
+
+// 32-bit shared-memory addresses of the rings: a ring entry is stored by
+// its producer (in the next CTA of a cluster for a CTA's last warp) and
+// loaded by its consumer, one 16-byte access a step.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void ring_put(uint32_t a, bool remote, int32_t x,
+                                         int32_t y, int32_t z) {
+  if (remote) {
+    asm volatile("st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a),
+                 "r"(x), "r"(y), "r"(z), "r"(0));
+  } else {
+    asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};" ::"r"(a), "r"(x),
+                 "r"(y), "r"(z), "r"(0));
+  }
+}
+__device__ __forceinline__ int4 ring_get(uint32_t a) {
+  int4 v;
+  asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(a));
+  return v;
+}
 
 // The counters live in shared memory and are named by 32-bit addresses:
 // a wait reads this CTA's (shared::cta), a release may write another CTA's

@@ -23,8 +23,11 @@ chip_smoke.bound() (bytes and operations of OPS_PER_CELL); the default
 configuration's outputs are held against the plain version (finals or
 argmax buffers and the whole dirs tensor) and every other configuration's
 against the default's.  --configs N keeps the first N configurations a
-shape; --others also times kernels #3, #6, #7, #8 and the linear fill at
-their chip_smoke shapes (default routes), for comparing checkouts; --long
+shape; --others also times kernels #3, #4 and #5 (batches A and B), #6
+(1, 4 and 31 pairs), #7, #8, the linear fill, the fast4 and modes walks
+(main shape) and the banded walk (config 4, batches A and B) at their
+chip_smoke shapes (default routes), each the mean of 5 launches after a
+warm-up, for comparing checkouts; --long
 times both fills on rows of 4097-8192 lanes (one CTA, 16 lanes a thread)
 and past 8192 (a cluster a row), the kernels held against their plain
 versions on the first rows; --pipeline times the runner's fused
@@ -249,7 +252,9 @@ def _pipeline(chip_smoke, par, pack_batch, trim_for_stream, n_batches=8):
 
 
 def _others(chip_smoke, port, ScoringScheme, to_device, pack_batch, _ms):
-    """Kernels #3, #6, #7, #8 and the linear fill at their chip_smoke
+    """Kernels #3, #4 and #5 (batches A and B), #6 (1, 4 and 31 pairs,
+    local and semi-global), #7, #8, the linear fill and the banded walk
+    (config 4, and the long path's batches A and B) at their chip_smoke
     shapes (default routes): [(name, ms)]."""
     main = chip_smoke.make_pairs(np.random.default_rng(0),
                                  chip_smoke.N_MAIN, chip_smoke.LEN_MAIN)
@@ -270,26 +275,88 @@ def _others(chip_smoke, port, ScoringScheme, to_device, pack_batch, _ms):
     rows.append(("linear global score-only 4096 x 2046",
                  _ms(lambda: lin.linear_fill_cuda(*a))[0]))
     del tb, ins, a4, a
-    m31 = chip_smoke.make_pairs(np.random.default_rng(4), 31,
-                                chip_smoke.LEN_MAIN)
-    tb = to_device(pack_batch(m31, batch_size=31), "cuda")
     modes = port["modes"]
-    a = (tb.query, modes.modes_layout(tb.db), tb.query_len, tb.db_len,
-         tb.query.shape[1], tb.db.shape[1], sch, False, True, True)
-    rows.append(("#6 local 31 x 2046",
-                 _ms(lambda: modes.modes_fill_cuda(*a))[0]))
+    for n in (1, 4, 31):
+        pn = chip_smoke.make_pairs(np.random.default_rng(4), n,
+                                   chip_smoke.LEN_MAIN)
+        tb = to_device(pack_batch(pn, batch_size=n), "cuda")
+        for mode in ("local", "semi"):
+            a = (tb.query, modes.modes_layout(tb.db), tb.query_len,
+                 tb.db_len, tb.query.shape[1], tb.db.shape[1], sch, False,
+                 mode == "local", True)
+            rows.append((f"#6 {mode} {n} x 2046",
+                         _ms(lambda: modes.modes_fill_cuda(*a))[0]))
     tb = to_device(pack_batch(c4, batch_size=len(c4)), "cuda")
     banded, row = port["banded"], port["row"]
     plan, ins = banded.band_inputs(*tb, chip_smoke.BAND)
     a = (plan, sch, True, True, "fast4")
     rows.append(("#3 config 4 fast4",
                  _ms(lambda: banded.banded_diag_fill_cuda(*ins, *a))[0]))
+    rows.append(("banded walk config 4", _walk_ms(
+        port, banded.banded_diag_fill_cuda(*ins, *a), plan, c4, _ms)))
     k_lo, ins = row.row_inputs(*tb, chip_smoke.BAND)
     a = (k_lo, sch, True, True, "fast4")
     rows.append(("#8 config 4 fast4",
                  _ms(lambda: row.banded_row_fill_cuda(*ins, *a))[0]))
+    del ins
+    # The long path's walks: batch B's band 128 and batch A's band 512;
+    # kernels #4 and #5 at batches A and B.
+    A, B = chip_smoke.long_batches()
+    tiled = port["tiled"]
+    for name, pairs, fn in (("#4 batch A", A, tiled.tiled_fill_cuda),
+                            ("#5 batch B", B, tiled.tiled_fold_fill_cuda)):
+        tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+        rows.append((name, _ms(lambda: fn(*tb, sch, True, False))[0]))
+    for name, pairs, band in (("B", B, chip_smoke.BAND),
+                              ("A", A, 4 * chip_smoke.BAND)):
+        tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+        plan, ins = banded.band_inputs(*tb, band)
+        got = banded.banded_diag_fill_cuda(*ins, plan, sch, True, False,
+                                           "fast4")
+        rows.append((f"banded walk batch {name} band {band}",
+                     _walk_ms(port, got, plan, pairs, _ms)))
+        del got, ins
     torch.cuda.empty_cache()
     return rows
+
+
+def _main_walk(walk, modes, kind, got, plan, batch, _ms):
+    """(name, ms) of the fast4 walk (kind "fast4") or the local modes walk
+    ("local") on the default route's fill at the main shape."""
+    B = len(batch.query_len)
+    bs = np.arange(B)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    rowp, off = put(bs // plan.np_slots), put((bs % plan.np_slots) * plan.s)
+    t_steps = plan.l1 + plan.l2
+    if kind == "fast4":
+        finals, dirs = got
+        seeds = [put(batch.db_len), put(batch.query_len),
+                 put(walk.seed_planes(finals[:B].cpu().numpy())), rowp, off]
+        return ("fast4 walk 4096 x 2046", _ms(
+            lambda: walk.walk_fast4_cuda(dirs, *seeds, t_steps))[0])
+    bv, bd, dirs = got
+    P = plan.p
+    _, x, y = modes.modes_reduce(bv.transpose(0, 1).reshape(-1, P),
+                                 bd.transpose(0, 1).reshape(-1, P))
+    seeds = [x[:B].contiguous(), y[:B].contiguous(), rowp, off]
+    return ("modes walk local 4096 x 2046", _ms(
+        lambda: walk.walk_modes_cuda(dirs, *seeds, True, t_steps))[0])
+
+
+def _walk_ms(port, fill_out, plan, pairs, _ms) -> float:
+    """The banded walk's ms on a banded fill's (finals, fast4 dirs)."""
+    walk = port["walk"]
+    finals, dirs = fill_out
+    n1 = np.asarray([len(a) for a, _ in pairs], np.int32)
+    n2 = np.asarray([len(b) for _, b in pairs], np.int32)
+    seeds = [torch.from_numpy(np.ascontiguousarray(v, np.int32)).cuda()
+             for v in (n2, n1, walk.seed_planes(finals.cpu().numpy()),
+                       np.arange(len(pairs)))]
+    a = (plan.k_lo_even, int((n1 + n2).max()))
+    return _ms(lambda: walk.walk_banded_cuda(dirs, *seeds, *a))[0]
 
 
 def main() -> int:
@@ -300,7 +367,7 @@ def main() -> int:
     ap.add_argument("--configs", type=int, default=None,
                     help="forced configurations a shape (default: all)")
     ap.add_argument("--others", action="store_true",
-                    help="also time kernels #3, #6, #7, #8 and linear")
+                    help="also time kernels #3-#8, linear and the walks")
     ap.add_argument("--long", action="store_true",
                     help="also time rows of 4097-8192 lanes and past 8192")
     ap.add_argument("--pipeline", action="store_true",
@@ -328,9 +395,11 @@ def main() -> int:
         nw_affine_modes,
         nw_affine_stream as fill,
         nw_affine_stream_modes as smodes,
+        nw_affine_tiled,
         nw_banded,
         nw_banded_diag,
         nw_linear,
+        traceback_device,
     )
 
     pkg = os.path.dirname(os.path.dirname(os.path.abspath(csrc.__file__)))
@@ -376,6 +445,7 @@ def main() -> int:
         ("#2 semi full", False, "semi", MODES_CONFIGS),
     )
     rows = []
+    walk_rows = []
     for name, trim, kind, configs in shapes:
         tb = to_device(trim_for_stream(batch) if trim else batch, "cuda")
         plan, ins = fill.stream_inputs(*tb)
@@ -405,6 +475,11 @@ def main() -> int:
                 first = got
                 b_ms, b_by = chip_smoke.bound(
                     chip_smoke.nbytes(*ins, *got), ops)
+                if args.others and kind in ("fast4", "local"):
+                    walk_rows.append(_main_walk(
+                        traceback_device, nw_affine_modes, kind, got, plan,
+                        batch, lambda fn: (chip_smoke.cuda_ms(torch, fn, 5),
+                                           None)))
                 if not baseline:
                     want = _flat(plain(*ins, *a))
                     torch.cuda.synchronize()
@@ -437,9 +512,14 @@ def main() -> int:
     if args.others:
         port = {"nw": nw_affine, "linear": nw_linear,
                 "modes": nw_affine_modes, "banded": nw_banded_diag,
-                "row": nw_banded}
-        others = _others(chip_smoke, port, ScoringScheme, to_device,
-                         pack_batch, _ms)
+                "row": nw_banded, "walk": traceback_device,
+                "tiled": nw_affine_tiled}
+        # The other kernels' rows: the mean of 5 launches after a warm-up.
+        def _mean_ms(fn):
+            return chip_smoke.cuda_ms(torch, fn, 5), None
+
+        others = walk_rows + _others(chip_smoke, port, ScoringScheme,
+                                     to_device, pack_batch, _mean_ms)
         for name, ms in others:
             print(f"other {name}: {ms:.3f} ms", flush=True)
     long_rows = []

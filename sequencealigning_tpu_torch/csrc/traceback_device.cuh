@@ -1,10 +1,10 @@
 // The device walks' per-step rules, shared by the CUDA kernels
 // (traceback_device.cu) and the serial host build (host_check.cpp).
 //
-// walk_step is ops/traceback_device.py::_plane_step for one pair;
-// walk_banded_pair is the host walker
-// ops/traceback.py::banded_diag_fast4_traceback_pair for one pair (a read
-// outside the band gives code 0 and the walk advances); walk_modes_pair is
+// walk_step is ops/traceback_device.py::_plane_step for one pair, and on
+// the fast4 code (x+y-1) & 7 of banded_word's word the host walker
+// ops/traceback.py::banded_diag_fast4_traceback_pair (a read outside the
+// band gives code 0 and the walk advances); walk_modes_pair is
 // ops/traceback_device.py::_walk_modes_impl for one pair.
 #pragma once
 
@@ -51,46 +51,53 @@ SA_HD uint32_t walk_step(uint32_t nib, int32_t& x, int32_t& y,
   return static_cast<uint32_t>(eff + 1);
 }
 
-// The fast4 code of cell (x, y) in the banded fill's wavefront layout
-// (ops/nw_banded_diag.py): nibble (x+y-1) & 7 of word
-// dirs[(x+y-1) >> 3, b, (y-x-k_lo_even) >> 1] of the (W, NB, L) tensor; 0
-// outside the band or the tensor (the host walker's rule).
-SA_HD uint32_t banded_nibble(const uint32_t* dirs, int W, int NB, int L,
-                             size_t b, int32_t k_lo_even, int32_t x,
-                             int32_t y) {
-  const int32_t a = x + y - 1;
-  const int32_t d = y - x - k_lo_even;
-  // Floor division by 2, as Python's >> on negative values.
-  const int32_t lane = d >= 0 ? d / 2 : -((1 - d) / 2);
-  if (lane < 0 || lane >= L || a < 0 || (a >> 3) >= W) return 0;
-  const uint32_t v = dirs[(static_cast<size_t>(a >> 3) * NB + b) * L + lane];
-  return (v >> (4 * (a & 7))) & 0xFu;
+// The band lane of cell (x, y) in the banded fill's wavefront layout
+// (ops/nw_banded_diag.py): (y - x - k_lo_even) >> 1, an arithmetic shift,
+// floor division as Python's >> on negative values.
+SA_HD int32_t band_lane(int32_t x, int32_t y, int32_t k_lo_even) {
+  return (y - x - k_lo_even) >> 1;
 }
 
-// Walks one pair of a banded fast4 fill from (x, y) on plane (the finals'
-// seed) to the origin, at most x + y steps, writing the op codes 16 to a u32
-// into out[0 .. WP) in walk order (end to start), zero past the walk.
-template <bool STD>
-SA_HD void walk_banded_pair(const uint32_t* dirs, int W, int NB, int L,
-                            size_t b, int32_t k_lo_even, int32_t& x,
-                            int32_t& y, int32_t plane, int32_t& n_ops,
-                            uint32_t* out, int WP) {
-  const int steps = x + y;
-  uint32_t word = 0;
-  int i = 0;
-  int w = 0;
-  while (i < steps && (x != 0 || y != 0)) {
-    const uint32_t nib = banded_nibble(dirs, W, NB, L, b, k_lo_even, x, y);
-    word |= walk_step<STD>(nib, x, y, plane) << (2 * (i & 15));
-    ++i;
-    if ((i & 15) == 0) {
-      out[w++] = word;
-      word = 0;
-    }
-  }
-  if (i & 15) out[w++] = word;
-  for (; w < WP; ++w) out[w] = 0;
-  n_ops = i;
+// Word dirs[r, b, lane] of the (W, NB, L) tensor, 0 outside the band or the
+// tensor (the host walker's rule).
+SA_HD uint32_t banded_word(const uint32_t* dirs, int W, int NB, int L,
+                           size_t b, int32_t r, int32_t lane) {
+  if (lane < 0 || lane >= L || r < 0 || r >= W) return 0;
+  return dirs[(static_cast<size_t>(r) * NB + b) * L + lane];
+}
+
+// The banded walk's staged window (traceback_device.cu; host_check.cpp runs
+// it serially).  One 128-byte row segment dirs[r, b, lo .. lo + 32) holds
+// 8 anti-diagonals x 32 band lanes; a step lowers a = x + y - 1 by 1 or 2
+// and moves the band lane by at most one (an M move keeps it), so the walk
+// stays some steps in a row and near its lane.  A warp stages the rows in
+// batches of `depth` (batch k: rows row0 - k*depth - j, j < depth, row0 the
+// seed's row), each row the 32 lanes from window_at(the walk's lane when
+// the batch was staged): batches 0 and 1 at the start from the seed's lane,
+// batch k + 2 when the walk enters batch k + 1, from the lane of its last
+// cell in batch k.  The walk reads lanes lo .. lo + win - 1 of a row from
+// the stage; a word of another lane of the band is a direct load (the slow
+// path); a lane outside the band, or a row past the tensor, reads 0 as
+// banded_word does.  The walk keeps the word it read
+// while it stays in the row and the lane.
+constexpr int kWalkWindow = 32;  // lanes a staged row (a warp's 128 bytes)
+constexpr int kWalkDepth = 8;    // rows a staged batch by default
+
+// The first lane of the window around `center`: win / 2 below it, rounded
+// down to a multiple of 4 lanes (a 16-byte copy boundary), within the band
+// of L >= kWalkWindow lanes.
+SA_HD int32_t window_at(int32_t center, int win, int L) {
+  const int32_t lo = (center - win / 2) & ~3;
+  return lo < 0 ? 0 : lo > L - kWalkWindow ? L - kWalkWindow : lo;
+}
+
+// The window's knobs (0 the default): win 1..kWalkWindow lanes read from
+// the stage, depth 4, 8 or 16 rows a batch; false when out of range.
+SA_HD bool walk_window(int& win, int& depth) {
+  if (win == 0) win = kWalkWindow;
+  if (depth == 0) depth = kWalkDepth;
+  return win >= 1 && win <= kWalkWindow &&
+         (depth == 4 || depth == 8 || depth == 16);
 }
 
 // The modes walk's plane for a cell with no H-plane bit (a corrupt fill).

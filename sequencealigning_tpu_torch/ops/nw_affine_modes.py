@@ -17,12 +17,14 @@ Two implementations of the fill, chosen by the tensors' device:
 * ``fill_modes_torch`` -- plain PyTorch, the twin of _fill_modes_lax (CPU
   tensors, and the reference the kernel is checked against);
 * ``modes_fill_cuda`` -- the hand-written kernel (``csrc/nw_affine_modes.cu``;
-  CUDA tensors only), one block a pair, or one thread-block cluster a pair
-  past 8192 lanes.
+  CUDA tensors only): each pair's lanes over a cluster of a few CTAs, the
+  warps handing their edge lanes over through rings, each sweeping only the
+  steps that hold cells of the pair's matrix (every other dirs byte 0).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,6 +38,11 @@ from sequencealigning_tpu_torch.ops.nw_affine import (
     diag_state,
     gotoh_step_torch,
     query_column,
+)
+from sequencealigning_tpu_torch.ops.nw_affine_stream import (
+    check_stream_stalls,
+    forced_knobs,
+    watch_status,
 )
 from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
@@ -142,27 +149,49 @@ def fill_modes_torch(
     return bv, bd, pack.dirs if pack is not None else None
 
 
+def modes_launch_shape(lib, P: int, B: int, cta_lanes: int = 0,
+                       lanes_per_thread: int = 0, chunk: int = 0,
+                       ring_slots: int = 0, wrap_words: int = 0) -> dict:
+    """The per-pair fill's launch shape for B pairs of P lanes, the
+    defaults resolved (stream_ring.cuh::pair_launch_shape, through
+    ``lib.sa_modes_plan`` or the host build's ``hc_modes_plan``; the split
+    follows the card's SM count).  wrap_words is accepted for forced_ring's
+    sake and unused.  Raises ValueError when the shape is out of range."""
+    shape = (ctypes.c_int * 5)()
+    plan_fn = getattr(lib, "sa_modes_plan", None) or lib.hc_modes_plan
+    if plan_fn(P, B, cta_lanes, lanes_per_thread, chunk, ring_slots,
+               shape) != 0:
+        raise ValueError(
+            f"lane width {P} (CTA width {cta_lanes}, {lanes_per_thread} "
+            f"lanes a thread, ring {chunk}/{ring_slots}) is out of the CUDA "
+            "modes kernel's range")
+    return dict(zip(("lanes_per_thread", "threads", "ctas", "chunk",
+                     "ring_slots"), shape))
+
+
 def modes_fill_cuda(
     seq1, s2v, n1v, n2v, l1: int, l2: int,
     scheme: ScoringScheme, wildcard: bool, local: bool, with_dirs: bool,
     cta_lanes: int = 0,
 ):
     """The per-pair modes kernel (csrc/nw_affine_modes.cu) on CUDA tensors:
-    same arguments and results as fill_modes_torch; pairs past 8192 lanes
-    are split over a cluster, cta_lanes > 0 forces the split's CTA width.
-    Raises on a CPU tensor, a non-contiguous input, an unsupported shape or
-    a failed launch."""
+    the same bv, bd and dirs as fill_modes_torch on every cell of each
+    pair's matrix, but lane 0's D bits and every byte outside the matrix 0.
+    Each pair is split over a few CTAs (cta_lanes > 0 forces their width, a
+    multiple of 128), the rings as forced_ring leaves them; the launch's
+    shape is left in ``modes_fill_cuda.last_launch``.  Returns without
+    waiting for the kernel; raises on a CPU tensor, a non-contiguous input,
+    an unsupported shape or a failed launch, and check_stream_stalls raises
+    for a stalled wait."""
     _check_modes_args(seq1, s2v, n1v, n2v, l2)
     if not seq1.is_cuda:
         raise ValueError("modes_fill_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (seq1, s2v, n1v, n2v)):
         raise ValueError("modes fill inputs must be contiguous")
+    check_stream_stalls()
     lib = csrc.kernels()
     B, P = s2v.shape
-    nctas = lib.sa_fill_ctas(P, cta_lanes)
-    if nctas == 0:
-        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
-                         "the CUDA modes kernel's range")
+    shape = modes_launch_shape(lib, P, B, cta_lanes, **forced_knobs())
     dev = s2v.device
     D_total = l1 + l2 + 1
     best = torch.empty((2, B, P), dtype=torch.int32, device=dev)
@@ -170,23 +199,29 @@ def modes_fill_cuda(
     if with_dirs:
         dirs = torch.empty((-(-D_total // 4), B, P), dtype=torch.uint32,
                            device=dev)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
         rc = lib.sa_modes_fill(
             seq1.data_ptr(), s2v.data_ptr(), n1v.data_ptr(), n2v.data_ptr(),
             best.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             B, seq1.shape[1], P, D_total,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, 2 if with_dirs else 0, int(local),
-            int(wildcard), cta_lanes, stream,
+            int(wildcard), cta_lanes, status.data_ptr(),
+            shape["lanes_per_thread"], shape["chunk"], shape["ring_slots"],
+            stream.cuda_stream,
         )
-    if rc != 0:
-        raise csrc.launch_error("sa_modes_fill", rc, nctas)
+        if rc != 0:
+            raise csrc.launch_error("sa_modes_fill", rc, shape["ctas"])
+        watch_status("sa_modes_fill", status, stream)
+    modes_fill_cuda.last_launch = shape
     modes_fill_cuda.launches += 1
     return best[0], best[1], dirs
 
 
 modes_fill_cuda.launches = 0
+modes_fill_cuda.last_launch = None
 
 
 def modes_fill(seq1, s2v, n1v, n2v, l1, l2, scheme, wildcard, local,
@@ -230,6 +265,7 @@ def nw_affine_modes_batch(
         scheme, wildcard, local, with_dirs,
     )
     best, x, y = (t.cpu().numpy() for t in modes_reduce(bv, bd))
+    check_stream_stalls()
     return ModesResult(best=best, best_x=x, best_y=y, dirs=dirs)
 
 

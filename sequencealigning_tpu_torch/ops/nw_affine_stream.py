@@ -334,16 +334,21 @@ _RING = contextvars.ContextVar("stream_ring", default={})
 
 @contextlib.contextmanager
 def forced_ring(**knobs):
-    """Force the warp rings' shape of kernels #1 and #2 launched in this
-    context (csrc/stream_sweep.py and chip_smoke.py's stall check):
+    """Force the warp rings' shape of kernels #1, #2 and #6 launched in
+    this context (csrc/stream_sweep.py and chip_smoke.py's stall checks):
     lanes_per_thread (2, 4, 8, 16), chunk (steps, 1-32), ring_slots and
-    wrap_words (stream_ring.cuh::ring_shape); an absent knob or 0 takes
-    the default."""
+    wrap_words (stream_ring.cuh::ring_shape; #6 has no wrap ring); an
+    absent knob or 0 takes the default."""
     token = _RING.set(knobs)
     try:
         yield
     finally:
         _RING.reset(token)
+
+
+def forced_knobs() -> dict:
+    """The knobs forced_ring has set in this context ({} for none)."""
+    return dict(_RING.get())
 
 
 def stream_launch_shape(lib, P: int, cta_lanes: int, modes: bool,
@@ -376,14 +381,15 @@ _watches_lock = threading.Lock()
 
 
 def check_stream_stalls(wait: bool = False) -> None:
-    """Raise RuntimeError for a launch of kernel #1 or #2 that has ended
-    with a wait stalled past the spin limit (its results are incomplete).
-    A launch does not wait for its kernel: its status word is copied to
-    the host behind the kernel and read here once the launch has ended, or
-    with ``wait`` after waiting for it.  Reading a fill's results on the host waits for the
-    fill, so the places that read them call this after: the runner's
-    ``to_host``, ``nw_affine_stream_batch``, ``nw_affine_stream_modes_batch``
-    and each launch (for the launches before it)."""
+    """Raise RuntimeError for a launch of kernel #1, #2 or #6 that has
+    ended with a wait stalled past the spin limit (its results are
+    incomplete).  A launch does not wait for its kernel: its status word
+    is copied to the host behind the kernel and read here once the launch
+    has ended, or with ``wait`` after waiting for it.  Reading a fill's
+    results on the host waits for the fill, so the places that read them
+    call this after: the runner's ``to_host``, ``nw_affine_stream_batch``,
+    ``nw_affine_stream_modes_batch``, ``nw_affine_modes_batch`` and each
+    launch (for the launches before it)."""
     with _watches_lock:
         keep, ready = [], []
         for w in _watches:
@@ -411,7 +417,7 @@ def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
     check_stream_stalls()
     lib = csrc.kernels()
     shape = stream_launch_shape(lib, plan.p, cta_lanes, modes,
-                                **_RING.get())
+                                **forced_knobs())
     dev = qstream.device
     status = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -428,13 +434,19 @@ def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
         )
         if rc != 0:
             raise csrc.launch_error(entry, rc, shape["ctas"])
-        host = torch.empty(1, dtype=torch.int32, pin_memory=True)
-        host.copy_(status, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+        watch_status(entry, status, stream)
+    return shape
+
+
+def watch_status(entry: str, status, stream) -> None:
+    """Copy a launch's status word into pinned memory behind its kernel on
+    ``stream`` and record an event, for check_stream_stalls."""
+    host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    host.copy_(status, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(stream)
     with _watches_lock:
         _watches.append(_Watch(entry, host, done))
-    return shape
 
 
 def gotoh_fill_stream_cuda(

@@ -25,7 +25,10 @@ same packed 2-bit op codes.
 The banded fill's wavefront-packed fast4 codes (ops.nw_banded_diag) are
 walked by ``walk_banded_torch`` / ``walk_banded_cuda`` with the host
 walker's semantics (ops.traceback.banded_diag_fast4_traceback_pair): a read
-outside the band gives code 0 and the walk advances.  The JAX device walk
+outside the band gives code 0 and the walk advances.  The kernel walks a
+pair a warp, reading the words from rows it staged in shared memory ahead
+of the walk (``forced_walk`` forces their window, ``slow=`` counts the
+reads outside it).  The JAX device walk
 (_walk_banded_diag_msub) freezes on such a read instead and burns its step
 budget (ops/traceback_device.py:234, a known fault of the reference); the
 port does not copy that.
@@ -33,6 +36,8 @@ port does not copy that.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -322,9 +327,12 @@ def _check_banded_walk_args(dirs, seeds, t_steps: int):
     if t_steps < 1:
         raise ValueError("t_steps must be positive")
     x0, y0, _plane0, bidx = seeds
-    if b and (int(bidx.min()) < 0 or int(bidx.max()) >= dirs.shape[1]
-              or int(x0.min()) < 0 or int(y0.min()) < 0):
-        raise ValueError("walk seeds reach outside the dirs tensor")
+    if b:
+        # One transfer to the host for the four bounds.
+        lo_b, hi_b, lo_x, lo_y = torch.stack(
+            (bidx.min(), bidx.max(), x0.min(), y0.min())).tolist()
+        if lo_b < 0 or hi_b >= dirs.shape[1] or lo_x < 0 or lo_y < 0:
+            raise ValueError("walk seeds reach outside the dirs tensor")
 
 
 def walk_banded_torch(dirs, x0, y0, plane0, bidx, k_lo_even: int,
@@ -361,17 +369,42 @@ def walk_banded_torch(dirs, x0, y0, plane0, bidx, k_lo_even: int,
     return x, y, _pack_ops(ops[: banded_packed_width(t_steps) * 16]), n_ops
 
 
+_WALK = contextvars.ContextVar("banded_walk", default={})
+
+
+@contextlib.contextmanager
+def forced_walk(window: int = 0, depth: int = 0):
+    """Force the banded walk kernel's staged window in this context
+    (csrc/stream_sweep.py and chip_smoke.py): window lanes a row (1-32)
+    and depth rows staged ahead (4, 8 or 16); 0 takes the default."""
+    token = _WALK.set(dict(window=window, depth=depth))
+    try:
+        yield
+    finally:
+        _WALK.reset(token)
+
+
 def walk_banded_cuda(dirs, x0, y0, plane0, bidx, k_lo_even: int,
-                     t_steps: int, std: bool = False):
+                     t_steps: int, std: bool = False, slow=None):
     """The banded walk kernel (csrc/traceback_device.cu) on CUDA tensors:
-    same arguments and results as walk_banded_torch.  Raises on a CPU
-    tensor, a non-contiguous input or a failed launch."""
+    same arguments and results as walk_banded_torch, for a band of L >= 32
+    lanes, a multiple of 4 (the banded fill's are multiples of 128).
+    slow: None, or a (1,) int64 CUDA tensor the words read outside the
+    staged window are added to.  The window is as forced_walk leaves it.
+    Raises on a CPU tensor, a non-contiguous input, another L or a failed
+    launch."""
     seeds = (x0, y0, plane0, bidx)
     _check_banded_walk_args(dirs, seeds, t_steps)
     if not dirs.is_cuda:
         raise ValueError("walk_banded_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (dirs,) + seeds):
         raise ValueError("walk inputs must be contiguous")
+    if dirs.shape[2] < 32 or dirs.shape[2] % 4:
+        raise ValueError(f"the banded walk kernel takes a band of 32 lanes "
+                         f"or more, a multiple of 4, not {dirs.shape[2]}")
+    if slow is not None and (slow.dtype != torch.int64
+                             or slow.device != dirs.device):
+        raise ValueError("slow must be an int64 tensor on the walk's device")
     lib = csrc.kernels()
     W, Bd, L = dirs.shape
     B = x0.shape[0]
@@ -380,12 +413,15 @@ def walk_banded_cuda(dirs, x0, y0, plane0, bidx, k_lo_even: int,
     packed = torch.empty((B, WP), dtype=torch.uint32, device=dev)
     xf, yf, n_ops = (torch.empty(B, dtype=torch.int32, device=dev)
                      for _ in range(3))
+    knobs = _WALK.get()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sa_walk_banded(
             dirs.data_ptr(), W, Bd, L, *(t.data_ptr() for t in seeds),
             k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
-            yf.data_ptr(), n_ops.data_ptr(), stream,
+            yf.data_ptr(), n_ops.data_ptr(), knobs.get("window", 0),
+            knobs.get("depth", 0),
+            slow.data_ptr() if slow is not None else None, stream,
         )
     if rc != 0:
         raise csrc.launch_error("sa_walk_banded", rc)

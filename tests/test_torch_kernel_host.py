@@ -20,6 +20,7 @@ from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io.encode import pack_batch, trim_for_stream
+from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
 from sequencealigning_tpu_torch.ops import nw_banded
 from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
@@ -170,27 +171,53 @@ def _modes_batch(seed, n, hi1, hi2):
 
 
 def _host_modes_fill(host, seq1, s2v, n1, n2, l2, scheme, local, wildcard,
-                     with_dirs, cta_lanes=0):
+                     with_dirs, cta_lanes=0, lpt=0, chunk=0, slots=0):
+    """hc_modes_fill (the kernel's warp-ring schedule run serially, the
+    split planned for 132 SMs or forced): (bv, bd, dirs), the dirs tensor
+    pre-filled with a pattern the kernel must overwrite."""
     B, P = s2v.shape
     D_total = seq1.shape[1] + l2 + 1
     out = torch.zeros((2, B, P), dtype=torch.int32)
-    dirs = torch.zeros((-(-D_total // 4), B, P), dtype=torch.uint32)
+    dirs = torch.full((-(-D_total // 4), B, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
     rc = host.hc_modes_fill(
         seq1.data_ptr(), s2v.data_ptr(), n1.data_ptr(), n2.data_ptr(),
         out.data_ptr(), dirs.data_ptr(), B, seq1.shape[1], P, D_total,
         scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
         2 if with_dirs else 0, int(local), int(wildcard), cta_lanes,
+        status.data_ptr(), lpt, chunk, slots,
     )
     assert rc == 0
     return out[0], out[1], dirs
+
+
+def _assert_pair_dirs(got, want, n1s, n2s):
+    """Kernel A's dirs against the plain version's: every cell 0 <= x <=
+    n2, 0 <= y <= n1 of each pair equal, lane 0's D bits (which the plain
+    roll takes from lane P-1) masked; every other byte 0."""
+    W, B, P = got.shape
+    g = got.numpy().view(np.uint8).reshape(W, B, P, 4)
+    w = want.numpy().view(np.uint8).reshape(W, B, P, 4)
+    d = np.arange(W)[:, None, None, None] * 4 + np.arange(4)
+    x = np.arange(P)[None, None, :, None]
+    n1 = np.asarray(n1s)[None, :, None, None]
+    n2 = np.asarray(n2s)[None, :, None, None]
+    valid = (x <= n2) & (d - x >= 0) & (d - x <= n1)
+    keep = np.where(x == 0, 0xFF & ~(dirbits.DEXT | dirbits.DOPEN),
+                    0xFF).astype(np.uint8)
+    np.testing.assert_array_equal((g & keep)[valid], (w & keep)[valid])
+    assert not g[~valid].any()
 
 
 @pytest.mark.parametrize("wildcard", [False, True])
 @pytest.mark.parametrize("local", [False, True])
 @pytest.mark.parametrize("hi1,hi2", [(200, 30), (25, 140)])
 def test_host_modes_fill_matches_plain(host, local, wildcard, hi1, hi2):
-    """Kernel A's loop (the MODE cell and the per-lane argmax) against
-    fill_modes_torch, skewed both ways."""
+    """Kernel A's loop (the MODE cell and the per-lane argmax, a pair split
+    over CTAs whose warps sweep only their own cells) against
+    fill_modes_torch, skewed both ways: the argmax buffers equal, the dirs
+    equal on each pair's cells and 0 elsewhere."""
     scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2) \
         if wildcard else ScoringScheme()
     _, tb = _modes_batch(5 + local + 2 * wildcard, 11, hi1, hi2)
@@ -199,8 +226,65 @@ def test_host_modes_fill_matches_plain(host, local, wildcard, hi1, hi2):
     l1, l2 = tb.query.shape[1], tb.db.shape[1]
     want = modes.fill_modes_torch(*args, l1, l2, scheme, wildcard, local, True)
     got = _host_modes_fill(host, *args, l2, scheme, local, wildcard, True)
-    for g, w in zip(got, want):
+    for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
+    _assert_pair_dirs(got[2], want[2], tb.query_len, tb.db_len)
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("knobs", [
+    dict(cta_lanes=128), dict(cta_lanes=128, lpt=2, chunk=5, slots=3),
+    dict(lpt=8, chunk=1, slots=1), dict(cta_lanes=256, chunk=32, slots=2),
+    dict(lpt=16, chunk=7), dict(cta_lanes=128, lpt=2, chunk=1, slots=64),
+])
+def test_host_modes_fill_split_matches_plain(host, local, knobs):
+    """Kernel A forced into small CTAs (128-256 lanes), 2-16 lanes a
+    thread, chunks of 1-32 steps and 1-64 slots, on ragged pairs up to 256
+    bp (several warps a pair, so the warps' starting state from the
+    triangle above the matrix is read by the row-0 cells' I bits)."""
+    _, tb = _modes_batch(71 + local, 12, 256, 256)
+    s2v = modes.modes_layout(tb.db)
+    args = (tb.query, s2v, tb.query_len, tb.db_len)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    scheme = ScoringScheme(match_=2, mismatch=-3, gap_open=-4, gap_extend=-1)
+    want = modes.fill_modes_torch(*args, l1, l2, scheme, True, local, True)
+    got = _host_modes_fill(host, *args, l2, scheme, local, True, True,
+                           **knobs)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    _assert_pair_dirs(got[2], want[2], tb.query_len, tb.db_len)
+    bv, bd, _ = _host_modes_fill(host, *args, l2, scheme, local, True, False,
+                                 **knobs)
+    np.testing.assert_array_equal(bv.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(bd.numpy(), want[1].numpy())
+
+
+@pytest.mark.parametrize("P,B,cta_lanes,lpt,want", [
+    (2048, 31, 0, 0, (4, 192, 3)), (2048, 1, 0, 0, (2, 128, 8)),
+    (2048, 16, 0, 0, (2, 192, 6)), (2048, 32, 0, 0, (4, 192, 3)),
+    (2176, 31, 0, 0, (4, 192, 3)), (2176, 1, 0, 0, (2, 128, 9)),
+    (128, 8, 0, 0, (2, 64, 1)), (16384, 31, 0, 0, (16, 352, 3)),
+    (65536, 4, 0, 0, (8, 512, 16)), (2048, 1, 128, 2, (2, 64, 16)),
+    (2048, 31, 2048, 0, (8, 256, 1)), (131072, 1, 8192, 0, (16, 512, 16)),
+])
+def test_modes_pair_plan(host, P, B, cta_lanes, lpt, want):
+    """Kernel A's split: CTAs of 256 lanes, fewer a pair where B pairs
+    would pass 3/4 of 132 SMs (at least 1, at most 16, at most 8192 lanes
+    a CTA), 2 lanes a thread where 256 threads hold the CTA's lanes."""
+    got = modes.modes_launch_shape(host, P, B, cta_lanes, lpt)
+    assert (got["lanes_per_thread"], got["threads"], got["ctas"]) == want
+    assert (got["chunk"], got["ring_slots"]) == (32, 2)
+
+
+@pytest.mark.parametrize("P,B,cta_lanes,lpt,chunk,slots", [
+    (2048, 1, 100, 0, 0, 0), (2048, 1, 128, 3, 0, 0), (2048, 1, 2048, 4, 0, 0),
+    (2048, 1, 0, 0, 33, 0), (2048, 1, 0, 0, 16, 5), (200, 1, 0, 0, 0, 0),
+    (262144, 1, 0, 0, 0, 0), (2048, 0, 0, 0, 0, 0),
+])
+def test_modes_pair_plan_refuses(host, P, B, cta_lanes, lpt, chunk, slots):
+    """Out-of-range splits and rings raise in the wrapper."""
+    with pytest.raises(ValueError, match="out of the CUDA modes"):
+        modes.modes_launch_shape(host, P, B, cta_lanes, lpt, chunk, slots)
 
 
 def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
@@ -390,8 +474,9 @@ def test_host_split_modes_fill_matches_plain(host, local):
                                   local, True)
     got = _host_modes_fill(host, *args, l2, ScoringScheme(), local, False,
                            True, cta_lanes=128)
-    for g, w in zip(got, want):
+    for g, w in zip(got[:2], want[:2]):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
+    _assert_pair_dirs(got[2], want[2], tb.query_len, tb.db_len)
 
 
 def test_host_split_refuses_bad_widths(host):
@@ -932,18 +1017,101 @@ def test_host_banded_walk_matches_plain(host, std):
     t_steps = int((seeds[0] + seeds[1]).max())
     want = walk.walk_banded_torch(dirs, *seeds, plan.k_lo_even, t_steps,
                                   std=std)
+    got = _host_banded_walk(host, dirs, seeds, plan.k_lo_even, t_steps, std)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert (got[0].numpy() == 0).all() and (got[1].numpy() == 0).all()
+
+
+def _host_banded_walk(host, dirs, seeds, k_lo_even, t_steps, std, win=0,
+                      depth=0):
+    """hc_walk_banded (the kernel's staged window run serially): (xf, yf,
+    packed, n_ops, reads taken by the slow path)."""
+    B = seeds[0].shape[0]
     WP = walk.banded_packed_width(t_steps)
-    packed = torch.empty((B, WP), dtype=torch.uint32)
+    packed = torch.full((B, WP), 0x5a5a5a5a, dtype=torch.uint32)
     xf, yf, n_ops = (torch.empty(B, dtype=torch.int32) for _ in range(3))
+    slow = torch.zeros(1, dtype=torch.int64)
     rc = host.hc_walk_banded(
         dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds),
-        plan.k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
-        yf.data_ptr(), n_ops.data_ptr(),
+        k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
+        yf.data_ptr(), n_ops.data_ptr(), win, depth, slow.data_ptr(),
     )
     assert rc == 0
-    for got, exp in zip((xf, yf, packed, n_ops), want):
-        np.testing.assert_array_equal(got.numpy(), exp.numpy())
-    assert (xf.numpy() == 0).all() and (yf.numpy() == 0).all()
+    return xf, yf, packed, n_ops, int(slow)
+
+
+def _banded_walk_case(seed, band, std, identical=False, n=12, hi=180):
+    """A banded fast4 fill of ragged pairs (every other db a copy of its
+    query, or all with identical) and its walk seeds."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+        s2 = s1.copy() if identical else (
+            np.resize(s1, int(rng.integers(1, hi + 1))) if i % 2 else
+            rng.choice(alpha, int(rng.integers(1, hi + 1))))
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    tb = to_device(pack_batch(pairs, batch_size=-(-n // 8) * 8), "cpu")
+    plan, ins = banded.band_inputs(*tb, band)
+    scheme = ScoringScheme(match_=0, mismatch=-9, gap_open=-2, gap_extend=-3) \
+        if std else ScoringScheme()
+    finals, dirs = banded.banded_diag_fill_torch(
+        *ins, plan, scheme, False, True, "fast4", "std" if std else "ref")
+    seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+        [len(b) for _, b in pairs], [len(a) for a, _ in pairs],
+        walk.seed_planes(finals.numpy()[:n]), np.arange(n),
+    )]
+    return plan, dirs, seeds, int((seeds[0] + seeds[1]).max())
+
+
+@pytest.mark.parametrize("std", [False, True])
+@pytest.mark.parametrize("band", [1, 2, 8, 33, 59, 70])
+@pytest.mark.parametrize("win,depth", [(0, 0), (1, 4), (3, 8), (2, 16),
+                                       (32, 4)])
+def test_host_banded_walk_window_matches_plain(host, band, std, win, depth):
+    """The staged window (32 lanes a row, 8 rows staged ahead by default;
+    forced down to 1-3 lanes so most words take the slow path) against
+    walk_banded_torch, at bands 1-70 (band 70's 141 diagonals span more
+    band lanes than a window holds), std and ref; the slow path is taken
+    where the window is tiny."""
+    plan, dirs, seeds, t_steps = _banded_walk_case(19 + band + std, band, std)
+    want = walk.walk_banded_torch(dirs, *seeds, plan.k_lo_even, t_steps,
+                                  std=std)
+    got = _host_banded_walk(host, dirs, seeds, plan.k_lo_even, t_steps, std,
+                            win, depth)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    if 0 < win <= 3:
+        assert got[4] > 0
+
+
+@pytest.mark.parametrize("win", [1, 32])
+def test_host_banded_walk_stays_in_window_on_one_lane(host, win):
+    """Identical pairs walk the main diagonal (M moves keep the band lane),
+    so every read comes from the staged rows, even a one-lane window."""
+    plan, dirs, seeds, t_steps = _banded_walk_case(5, 8, False,
+                                                   identical=True)
+    want = walk.walk_banded_torch(dirs, *seeds, plan.k_lo_even, t_steps)
+    got = _host_banded_walk(host, dirs, seeds, plan.k_lo_even, t_steps,
+                            False, win)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert got[4] == 0
+
+
+@pytest.mark.parametrize("win,depth", [(33, 0), (-1, 0), (0, 3), (0, 32)])
+def test_host_banded_walk_refuses_bad_windows(host, win, depth):
+    plan, dirs, seeds, t_steps = _banded_walk_case(3, 8, False, n=8, hi=30)
+    B = seeds[0].shape[0]
+    WP = walk.banded_packed_width(t_steps)
+    out = [torch.empty((B, WP), dtype=torch.uint32)] + [
+        torch.empty(B, dtype=torch.int32) for _ in range(3)]
+    assert host.hc_walk_banded(
+        dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds),
+        plan.k_lo_even, B, WP, 0, *(t.data_ptr() for t in out), win, depth,
+        None) == -1
 
 
 def test_banded_wrappers_refuse_cpu_tensors():
