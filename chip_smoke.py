@@ -1431,7 +1431,7 @@ def banded_walk_slow_path(torch, port):
              torch.arange(len(pairs), dtype=torch.int32, device="cuda")]
     a = (plan.k_lo_even, int((tb.query_len + tb.db_len).max()))
     slow = torch.zeros(1, dtype=torch.int64, device="cuda")
-    with walk.forced_walk(window=1, depth=4):
+    with walk.forced_walk(window=1):
         got = walk.walk_banded_cuda(dirs, *seeds, *a, slow=slow)
     err = walk_diff(torch, got, walk.walk_banded_torch(dirs, *seeds, *a))
     check(err == 0, f"banded walk kernel with a one-lane window != plain: "

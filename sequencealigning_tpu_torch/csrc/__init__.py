@@ -194,7 +194,7 @@ def kernels() -> ctypes.CDLL:
         _INT] * 3 + [_VP] * 6
     lib.sa_walk_banded.restype = _INT
     lib.sa_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
-        _INT] * 4 + [_VP] * 4 + [_INT] * 2 + [_VP] * 2
+        _INT] * 4 + [_VP] * 4 + [_INT] + [_VP] * 2
     _kernels = lib
     return lib
 
@@ -308,6 +308,6 @@ def host_check() -> ctypes.CDLL:
         _INT] * 3 + [_VP] * 5
     lib.hc_walk_banded.restype = _INT
     lib.hc_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
-        _INT] * 4 + [_VP] * 4 + [_INT] * 2 + [_VP]
+        _INT] * 4 + [_VP] * 4 + [_INT] + [_VP]
     _host = lib
     return lib

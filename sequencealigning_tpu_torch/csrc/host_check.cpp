@@ -868,85 +868,92 @@ extern "C" int hc_banded_fill(const int32_t* s1w0, const int32_t* s2w0,
 }
 
 // sa_walk_banded's arguments minus the stream: the kernel's staged window
-// run serially (batch k + 2 of `depth` rows copied when the walk enters
-// batch k + 1), the words the slow path read added to *slow (when not
-// null).
+// run serially (batch m - 1 of kWalkDepth rows copied when the walk enters
+// batch m), the words the slow path read added to *slow (when not null).
 extern "C" int hc_walk_banded(const uint32_t* dirs, int W, int NB, int L,
                               const int32_t* x0, const int32_t* y0,
                               const int32_t* plane0, const int32_t* bidx,
                               int k_lo_even, int B, int WP, int std_model,
                               uint32_t* packed, int32_t* xf, int32_t* yf,
-                              int32_t* n_ops, int win, int depth,
-                              uint64_t* slow) {
+                              int32_t* n_ops, int win, uint64_t* slow) {
   if (W <= 0 || NB <= 0 || L < sa::kWalkWindow || L % 4 != 0 || B <= 0 ||
-      WP <= 0 || !sa::walk_window(win, depth)) {
+      WP <= 0 || !sa::walk_window(win)) {
     return -1;
   }
-  std::vector<uint32_t> st(static_cast<size_t>(2 * depth) * sa::kWalkWindow);
-  int32_t slo[2];
+  constexpr int D = sa::kWalkDepth;
+  std::vector<uint32_t> st(static_cast<size_t>(2 * D) * sa::kWalkWindow);
+  int32_t lo_of[2];
   for (int b = 0; b < B; ++b) {
     int32_t x = x0[b];
     int32_t y = y0[b];
     int32_t plane = plane0[b];
     const size_t nb = static_cast<size_t>(bidx[b]);
-    const int steps = x + y;
     uint32_t* out = packed + static_cast<size_t>(b) * WP;
-    const int32_t row0 = (x + y - 1) >> 3;
-    auto stage_batch = [&](int k, int32_t center) {
-      const int buf = k & 1;
-      slo[buf] = sa::window_at(center, win, L);
-      for (int j = 0; j < depth; ++j) {
+    uint32_t word = 0;
+    int i = 0;
+    int w = 0;
+    auto stage_batch = [&](int32_t m, int32_t center) {
+      const int q = m & 1;
+      lo_of[q] = sa::window_at(center, win, L);
+      for (int j = 0; j < D; ++j) {
         for (int l = 0; l < sa::kWalkWindow; ++l) {
-          st[(buf * depth + j) * sa::kWalkWindow + l] = sa::banded_word(
-              dirs, W, NB, L, nb, row0 - k * depth - j, slo[buf] + l);
+          st[(q * D + j) * sa::kWalkWindow + l] =
+              m * D + j < W ? sa::banded_word(dirs, W, NB, L, nb, m * D + j,
+                                              lo_of[q] + l)
+                            : 0;
         }
       }
     };
-    int32_t lane = sa::band_lane(x, y, k_lo_even);
-    stage_batch(0, lane);
-    stage_batch(1, lane);
-    int kb = 0;
-    int32_t lo = slo[0];
-    int32_t row = row0;
-    int slot = 0;
-    int32_t held = INT32_MIN;
-    uint32_t v = 0;
-    for (int w = 0; w < WP; ++w) out[w] = 0;
-    int i = 0;
-    while (i < steps && (x != 0 || y != 0)) {
-      const int32_t a = x + y - 1;
-      if ((a >> 3) != row) {
-        row = a >> 3;
-        const int k = (row0 - row) / depth;
-        if (k != kb) {
-          stage_batch(kb + 2, lane);
-          kb = k;
-          lo = slo[kb & 1];
+    if (x > 0 && y > 0) {
+      int32_t a = x + y - 1;
+      int32_t lane = sa::band_lane(x, y, k_lo_even);
+      int32_t row = a >> 3;
+      int32_t m = row / D;
+      stage_batch(m, lane);
+      if (m > 0) stage_batch(m - 1, lane);
+      int32_t lane_in = lane;  // the walk's lane on entering batch m
+      int32_t lo = lo_of[m & 1];
+      int32_t held = INT32_MIN;
+      uint32_t v = 0;
+      for (;;) {
+        if (lane != held) {
+          held = lane;
+          const int32_t li = lane - lo;
+          if (static_cast<uint32_t>(li) < static_cast<uint32_t>(win)) {
+            v = st[(row % (2 * D)) * sa::kWalkWindow + li];
+          } else if (lane < 0 || lane >= L || row >= W) {
+            v = 0;
+          } else {
+            v = sa::banded_word(dirs, W, NB, L, nb, row, lane);
+            if (slow != nullptr) ++*slow;
+          }
         }
-        slot = (kb & 1) * depth + (row0 - row) % depth;
-        held = INT32_MIN;
-      }
-      lane = sa::band_lane(x, y, k_lo_even);
-      if (lane != held) {
-        held = lane;
-        const int32_t li = lane - lo;
-        if (lane < 0 || lane >= L || row >= W) {
-          v = 0;
-        } else if (static_cast<uint32_t>(li) < static_cast<uint32_t>(win)) {
-          v = st[slot * sa::kWalkWindow + li];
-        } else {
-          v = sa::banded_word(dirs, W, NB, L, nb, row, lane);
-          if (slow != nullptr) ++*slow;
+        uint32_t bits;
+        const int k =
+            std_model ? sa::walk_banded_moves<true>(v, a, x, y, plane, bits)
+                      : sa::walk_banded_moves<false>(v, a, x, y, plane, bits);
+        sa::emit_ops(bits, k, i, w, word, out);
+        if (x == 0 || y == 0) break;
+        a = x + y - 1;
+        lane = sa::band_lane(x, y, k_lo_even);
+        if ((a >> 3) != row) {
+          row = a >> 3;
+          if (row / D != m) {
+            m = row / D;
+            const int32_t drift = lane - lane_in;
+            lane_in = lane;
+            if (m > 0) stage_batch(m - 1, lane + drift + drift / 2);
+            lo = lo_of[m & 1];
+          }
+          held = INT32_MIN;
         }
       }
-      const uint32_t nib = (v >> (4 * (a & 7))) & 0xFu;
-      const uint32_t op = std_model ? sa::walk_step<true>(nib, x, y, plane)
-                                    : sa::walk_step<false>(nib, x, y, plane);
-      out[i >> 4] |= op << (2 * (i & 15));
-      ++i;
     }
-    xf[b] = x;
-    yf[b] = y;
+    sa::emit_run(x == 0 ? 2u : 3u, x + y, i, w, word, out);
+    if (i & 15) out[w++] = word;
+    for (; w < WP; ++w) out[w] = 0;
+    xf[b] = 0;
+    yf[b] = 0;
     n_ops[b] = i;
   }
   return 0;

@@ -8,6 +8,8 @@ and semi-global with full dirs untrimmed (kernel #2):
         [--configs N] [--others] [--long] [--pipeline]
     python sequencealigning_tpu_torch/csrc/stream_sweep.py --root DIR
         [--others] [--long] [--pipeline]
+    python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
+        --walks N [--out FILE]
 
 run from the repository root; --root DIR times the package of another
 checkout (e.g. a parent commit unpacked with ``git archive``) instead, at
@@ -33,8 +35,13 @@ and past 8192 (a cluster a row), the kernels held against their plain
 versions on the first rows; --pipeline times the runner's fused
 first-only route (the host ms until the fill and walk are queued, and
 until the walk is decoded) and stream_align with cigars over 8 batches of
-the main shape.  Needs a CUDA card; prints the card's name and power
-limit.
+the main shape.  --walks N times only the device walks -- the fast4 and
+local modes walks at the main shape, the banded walk at config 4 and on
+batches B (band 128) and A (band 512) -- each N launches timed one by one
+(CUDA events) after a warm-up: the median, least and largest ms; for this
+checkout each banded walk is also held equal to its plain version.  Run it
+on the parent and on the tree in turn, in one call, to compare the walks.
+Needs a CUDA card; prints the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -346,17 +353,93 @@ def _main_walk(walk, modes, kind, got, plan, batch, _ms):
         lambda: walk.walk_modes_cuda(dirs, *seeds, True, t_steps))[0])
 
 
-def _walk_ms(port, fill_out, plan, pairs, _ms) -> float:
-    """The banded walk's ms on a banded fill's (finals, fast4 dirs)."""
-    walk = port["walk"]
+def _banded_walk_args(walk, fill_out, plan, pairs):
+    """(dirs, seeds, (k_lo_even, t_steps)) of the banded walk on a banded
+    fill's (finals, fast4 dirs)."""
     finals, dirs = fill_out
     n1 = np.asarray([len(a) for a, _ in pairs], np.int32)
     n2 = np.asarray([len(b) for _, b in pairs], np.int32)
     seeds = [torch.from_numpy(np.ascontiguousarray(v, np.int32)).cuda()
              for v in (n2, n1, walk.seed_planes(finals.cpu().numpy()),
                        np.arange(len(pairs)))]
-    a = (plan.k_lo_even, int((n1 + n2).max()))
+    return dirs, seeds, (plan.k_lo_even, int((n1 + n2).max()))
+
+
+def _walk_ms(port, fill_out, plan, pairs, _ms) -> float:
+    """The banded walk's ms on a banded fill's (finals, fast4 dirs)."""
+    walk = port["walk"]
+    dirs, seeds, a = _banded_walk_args(walk, fill_out, plan, pairs)
     return _ms(lambda: walk.walk_banded_cuda(dirs, *seeds, *a))[0]
+
+
+def _launches_ms(fn, n: int) -> list:
+    """ms of each of n launches of fn (CUDA events around each), after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in ev:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in ev]
+
+
+def _walks(chip_smoke, port, ScoringScheme, to_device, pack_batch,
+           trim_for_stream, reps: int, check: bool) -> list:
+    """--walks: [(name, [ms of each launch])] of the fast4 and local modes
+    walks at the main shape and the banded walk at config 4 and batches B
+    and A; check: each banded walk held equal to walk_banded_torch."""
+    fill, smodes, walk = port["fill"], port["smodes"], port["walk"]
+    banded = port["banded"]
+    sch = ScoringScheme()
+    pairs = chip_smoke.make_pairs(np.random.default_rng(0),
+                                  chip_smoke.N_MAIN, chip_smoke.LEN_MAIN)
+    batch = pack_batch(pairs, batch_size=chip_smoke.N_MAIN)
+    rows = []
+    for kind in ("fast4", "local"):
+        tb = to_device(trim_for_stream(batch) if kind == "fast4" else batch,
+                       "cuda")
+        plan, ins = fill.stream_inputs(*tb)
+        if kind == "fast4":
+            got = fill.gotoh_fill_stream_cuda(*ins, plan, sch, True, False,
+                                              "fast4")
+        else:
+            got = smodes.gotoh_fill_stream_modes_cuda(*ins, plan, sch, False,
+                                                      "local", True)
+        rows.append(_main_walk(walk, port["modes"], kind, _flat(got), plan,
+                               batch, lambda fn: (_launches_ms(fn, reps),)))
+        del got, tb, ins
+        torch.cuda.empty_cache()
+    c4 = chip_smoke.make_pairs(np.random.default_rng(4), chip_smoke.N_BAND,
+                               chip_smoke.LEN_BAND)
+    A, B = chip_smoke.long_batches()
+    for name, pairs, band, wild in (
+            ("config 4", c4, chip_smoke.BAND, True),
+            ("batch B band 128", B, chip_smoke.BAND, False),
+            ("batch A band 512", A, 4 * chip_smoke.BAND, False)):
+        tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
+        plan, ins = banded.band_inputs(*tb, band)
+        dirs, seeds, a = _banded_walk_args(
+            walk, banded.banded_diag_fill_cuda(*ins, plan, sch, True, wild,
+                                               "fast4"), plan, pairs)
+        rows.append((f"banded walk {name}", _launches_ms(
+            lambda: walk.walk_banded_cuda(dirs, *seeds, *a), reps)))
+        if check:
+            got = walk.walk_banded_cuda(dirs, *seeds, *a)
+            t0 = time.perf_counter()
+            want = walk.walk_banded_torch(dirs, *seeds, *a)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            assert all(bool(torch.equal(g, w)) for g, w in zip(got, want)), (
+                f"banded walk {name} != plain")
+            print(f"banded walk {name}: equal to its plain version "
+                  f"({secs:.1f} s)", flush=True)
+        del dirs, seeds, tb, ins
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -370,6 +453,8 @@ def main() -> int:
                     help="also time kernels #3-#8, linear and the walks")
     ap.add_argument("--long", action="store_true",
                     help="also time rows of 4097-8192 lanes and past 8192")
+    ap.add_argument("--walks", type=int, default=0,
+                    help="time only the device walks, N launches each")
     ap.add_argument("--pipeline", action="store_true",
                     help="also time the runner's fused route and "
                          "stream_align")
@@ -414,6 +499,19 @@ def main() -> int:
           if baseline else "", flush=True)
     csrc.kernels()
     print(f"build {csrc.build_seconds:.1f} s", flush=True)
+    if args.walks:
+        port = {"fill": fill, "smodes": smodes, "modes": nw_affine_modes,
+                "banded": nw_banded_diag, "walk": traceback_device}
+        walks = _walks(chip_smoke, port, ScoringScheme, to_device,
+                       pack_batch, trim_for_stream, args.walks, root == here)
+        for name, ms in walks:
+            print(f"walk {name}: median {np.median(ms):.4f} ms, least "
+                  f"{min(ms):.4f}, largest {max(ms):.4f} ({len(ms)} "
+                  "launches)", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(dict(card=_card(), package=pkg, walks=walks), f)
+        return 0
     instances = []
     if not baseline:
         instances = csrc.stream_instances(csrc.build_log)

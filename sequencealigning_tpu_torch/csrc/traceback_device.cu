@@ -39,23 +39,24 @@
 // freezes there (a known fault of the reference), which this kernel does
 // not copy.
 //
-// Design: one warp a pair, the direction words staged ahead of the walk
-// (traceback_device.cuh's window) by the Tensor Memory Accelerator: the
-// rows of 8 anti-diagonals the walk will enter are copied in batches of
-// `depth` rows, 32 band lanes (128 bytes) a row around the walk's lane, by
-// bulk copies (cp.async.bulk) issued by one thread that complete the
-// batch's mbarrier, into one of two buffers in shared memory: while the
-// walk reads one batch the next is in flight, and the walk waits only at a
-// batch's first row.  The walk runs in every thread of the warp alike and
-// reads the word it needs from shared memory, keeping it while it stays in
-// the row and the lane (an M run reads one word for four steps).  A word
-// outside the row's window is a direct load (the slow path, counted when
-// the caller asks).  What bounds it: the dependent chain of a step (the
-// step's arithmetic, a shared-memory read when the lane or row changes);
-// the words' bytes are a few percent of a step's time.  (Rows loaded by
-// the warp's own loads, into registers or through cp.async, or one bulk
-// copy and barrier a row, measured slower on the H100: a read waits there
-// for every load in flight, or each row pays the copy's issue and wait.)
+// Design: a pair a warp, its walk run by the warp's first thread over
+// direction words staged ahead of it in shared memory (traceback_device.cuh's
+// window) by the Tensor Memory Accelerator: the rows of 8 anti-diagonals
+// the walk will enter are copied a batch of kWalkDepth rows at a time, 32
+// band lanes (128 bytes) a row around the walk's lane, by bulk copies
+// (cp.async.bulk) completing the batch's mbarrier, into a ring of two
+// batches: while the walk reads one batch the next is in flight, and the
+// walk waits only when it enters a batch.  The word read is kept while the
+// walk stays in its row and lane (an M run reads one word for four steps);
+// a word outside the row's window is a direct load (the slow path, counted
+// when the caller asks).  A run of M moves is taken from the word in hand
+// at once (walk_banded_moves: up to 4, the rest of the lane's cells in the
+// row), other moves one at a time by walk_step's interior form, and the
+// forced moves once x or y is 0 are written a word at a time, so the loop
+// carries no border test.  What bounds it: the dependent chain of an
+// iteration, ~45 instructions and 4-5 branches for one thread (a few
+// hundred cycles); taking a row's M moves in one iteration divides the
+// iterations of a near-identical pair by about 4.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -154,7 +155,7 @@ __device__ __forceinline__ void bar_wait(uint32_t a, uint32_t parity) {
 }
 
 // slow: null, or a counter of the words read by the slow path.
-template <bool STD, int DEPTH>
+template <bool STD>
 __global__ void __launch_bounds__(kBandWarps * 32)
     walk_banded_kernel(const uint32_t* __restrict__ dirs, int W, int NB,
                        int L, const int32_t* __restrict__ x0,
@@ -165,146 +166,139 @@ __global__ void __launch_bounds__(kBandWarps * 32)
                        int32_t* __restrict__ xf, int32_t* __restrict__ yf,
                        int32_t* __restrict__ n_ops,
                        unsigned long long* slow) {
+  constexpr int D = sa::kWalkDepth;
   __shared__ alignas(128) uint32_t
-      stage[kBandWarps][2 * DEPTH][sa::kWalkWindow];
+      stage[kBandWarps][2 * D][sa::kWalkWindow];
   __shared__ alignas(8) uint64_t bars[kBandWarps][2];
-  __shared__ int32_t stage_lo[kBandWarps][2];
   const int wid = threadIdx.x >> 5;
-  const int ln = threadIdx.x & 31;
   const int b = blockIdx.x * kBandWarps + wid;
-  if (b >= B) return;
-  uint32_t(*st)[sa::kWalkWindow] = stage[wid];
-  uint64_t* bar = bars[wid];
-  int32_t* slo = stage_lo[wid];
+  if (b >= B || (threadIdx.x & 31) != 0) return;
+  uint32_t(*st)[sa::kWalkWindow] = stage[wid];  // row r in st[r % (2 * D)]
+  const uint32_t bar0 = smem_u32(&bars[wid][0]);
   int32_t x = x0[b];
   int32_t y = y0[b];
   int32_t plane = plane0[b];
   const size_t nb = static_cast<size_t>(bidx[b]);
-  const int steps = x + y;
   uint32_t* out = packed + static_cast<size_t>(b) * WP;
-
-  if (ln == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-        smem_u32(&bar[0])));
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-        smem_u32(&bar[1])));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncwarp();
-  // Batch k holds rows row0 - k*DEPTH - j (j < DEPTH) in buffer k & 1,
-  // slot j; its barrier completes phase (k >> 1) & 1.
-  const int32_t row0 = (x + y - 1) >> 3;
-  // Stages batch k's rows around band lane `center`: bulk copies of 128
-  // bytes a row by the first thread, completing the buffer's barrier once
-  // all have landed (at once for rows outside the tensor).
-  auto stage_batch = [&](int k, int32_t center) {
-    if (ln != 0) return;
-    const int buf = k & 1;
-    const int32_t lo = sa::window_at(center, win, L);
-    slo[buf] = lo;
-    const int32_t top = row0 - k * DEPTH;
-    int rows = 0;
-#pragma unroll
-    for (int j = 0; j < DEPTH; ++j) rows += top - j >= 0 && top - j < W;
-    const uint32_t ba = smem_u32(&bar[buf]);
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(ba),
-        "r"(128 * rows)
-        : "memory");
-#pragma unroll
-    for (int j = 0; j < DEPTH; ++j) {
-      const int32_t r = top - j;
-      if (r >= 0 && r < W) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], 128, [%2];" ::"r"(
-                smem_u32(st[buf * DEPTH + j])),
-            "l"(dirs + (static_cast<size_t>(r) * NB + nb) * L + lo), "r"(ba)
-            : "memory");
-      }
-    }
-  };
-  auto wait_batch = [&](int k) {
-    bar_wait(smem_u32(&bar[k & 1]), (k >> 1) & 1);
-  };
-  int32_t lane = sa::band_lane(x, y, k_lo_even);
-  stage_batch(0, lane);
-  stage_batch(1, lane);
-  int kb = 0;  // the batch of the row the walk is in
-  wait_batch(0);
-  int32_t lo = slo[0];
-  int32_t row = row0;
-  int slot = 0;
-  int32_t held = INT_MIN;  // the band lane of the word in hand (v)
-  uint32_t v = 0;
-  unsigned nslow = 0;
   uint32_t word = 0;
   int i = 0;
   int w = 0;
-  while (i < steps && (x != 0 || y != 0)) {
-    const int32_t a = x + y - 1;
-    if ((a >> 3) != row) {
-      // The walk entered the next row down (a step lowers a by at most 2).
-      row = a >> 3;
-      const int k = (row0 - row) / DEPTH;
-      if (k != kb) {
-        // Batch kb is read (the step just taken used its last word): its
-        // buffer takes batch kb + 2, staged around the walk's lane.
-        stage_batch(kb + 2, lane);
-        kb = k;
-        wait_batch(kb);
-        lo = slo[kb & 1];
-      }
-      slot = (kb & 1) * DEPTH + (row0 - row) % DEPTH;
-      held = INT_MIN;
-    }
-    lane = sa::band_lane(x, y, k_lo_even);
-    if (lane != held) {
-      held = lane;
-      const int32_t li = lane - lo;
-      if (lane < 0 || lane >= L || row >= W) {
-        v = 0;
-      } else if (static_cast<uint32_t>(li) < static_cast<uint32_t>(win)) {
-        v = st[slot][li];
+  if (x > 0 && y > 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    int32_t lo_of0 = 0, lo_of1 = 0;  // the ring halves' first lanes
+    uint32_t phase = 0;  // bit q: the parity of half q's next wait
+    uint32_t pending = 0;  // bit q: half q staged and not yet waited on
+    // Stages batch m (m >= 0) around band lane `center` into ring half m & 1:
+    // rows past the tensor written as zeros, the others copied, completing
+    // the half's barrier once all have landed.
+    auto stage_batch = [&](int32_t m, int32_t center) {
+      const int q = m & 1;
+      const int32_t lo_q = sa::window_at(center, win, L);
+      if (q) {
+        lo_of1 = lo_q;
       } else {
-        v = sa::banded_word(dirs, W, NB, L, nb, row, lane);
-        ++nslow;
+        lo_of0 = lo_q;
+      }
+      const int32_t r0 = m * D;
+      const int rows = max(0, min(D, W - r0));
+      for (int j = rows; j < D; ++j) {
+        for (int l = 0; l < sa::kWalkWindow; ++l) st[q * D + j][l] = 0;
+      }
+      // The half's earlier reads (and the zeros just written) come before
+      // the copies into it.
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const uint32_t ba = bar0 + 8 * q;
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(ba),
+          "r"(128 * rows)
+          : "memory");
+      const uint32_t* src =
+          dirs + (static_cast<size_t>(r0) * NB + nb) * L + lo_q;
+      for (int j = 0; j < rows; ++j) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], 128, [%2];" ::"r"(smem_u32(st[q * D + j])),
+            "l"(src + static_cast<size_t>(j) * NB * L), "r"(ba)
+            : "memory");
+      }
+      pending |= 1u << q;
+    };
+    auto wait_batch = [&](int32_t m) {
+      const int q = m & 1;
+      bar_wait(bar0 + 8 * q, (phase >> q) & 1u);
+      phase ^= 1u << q;
+      pending &= ~(1u << q);
+    };
+    int32_t a = x + y - 1;
+    int32_t lane = sa::band_lane(x, y, k_lo_even);
+    // Rows and batches are >= 0 here (x, y > 0): unsigned shifts and masks.
+    int32_t row = a >> 3;
+    int32_t m = static_cast<uint32_t>(row) / D;
+    stage_batch(m, lane);
+    if (m > 0) stage_batch(m - 1, lane);
+    int32_t lane_in = lane;  // the walk's lane on entering batch m
+    wait_batch(m);
+    int32_t lo = (m & 1) ? lo_of1 : lo_of0;
+    const uint32_t* srow = st[static_cast<uint32_t>(row) % (2 * D)];
+    int32_t held = INT_MIN;  // the band lane of the word in hand (v)
+    uint32_t v = 0;
+    unsigned nslow = 0;
+    for (;;) {
+      if (lane != held) {
+        held = lane;
+        const int32_t li = lane - lo;
+        if (static_cast<uint32_t>(li) < static_cast<uint32_t>(win)) {
+          v = srow[li];
+        } else if (lane < 0 || lane >= L || row >= W) {
+          v = 0;
+        } else {
+          v = sa::banded_word(dirs, W, NB, L, nb, row, lane);
+          ++nslow;
+        }
+      }
+      uint32_t bits;
+      const int k = sa::walk_banded_moves<STD>(v, a, x, y, plane, bits);
+      sa::emit_ops(bits, k, i, w, word, out);
+      if (x == 0 || y == 0) break;
+      a = x + y - 1;
+      lane = sa::band_lane(x, y, k_lo_even);
+      if ((a >> 3) != row) {
+        // The walk entered the next row down.
+        row = a >> 3;
+        if (static_cast<int32_t>(static_cast<uint32_t>(row) / D) != m) {
+          // ... and batch m - 1: batch m - 2 takes the ring half of batch
+          // m, whose words the walk has read.
+          m = static_cast<uint32_t>(row) / D;
+          const int32_t drift = lane - lane_in;
+          lane_in = lane;
+          if (m > 0) stage_batch(m - 1, lane + drift + drift / 2);
+          wait_batch(m);
+          lo = (m & 1) ? lo_of1 : lo_of0;
+        }
+        srow = st[static_cast<uint32_t>(row) % (2 * D)];
+        held = INT_MIN;
       }
     }
-    const uint32_t nib = (v >> (4 * (a & 7))) & 0xFu;
-    word |= sa::walk_step<STD>(nib, x, y, plane) << (2 * (i & 15));
-    ++i;
-    if ((i & 15) == 0) {
-      if (ln == 0) out[w] = word;
-      ++w;
-      word = 0;
-    }
-  }
-  if (i & 15) {
-    if (ln == 0) out[w] = word;
-    ++w;
-  }
-  for (int u = w + ln; u < WP; u += 32) out[u] = 0;
-  if (ln == 0) {
-    xf[b] = x;
-    yf[b] = y;
-    n_ops[b] = i;
     if (slow != nullptr && nslow != 0) atomicAdd(slow, nslow);
+    // No copy may land in the block's shared memory after it exits.
+    if (pending & 1u) wait_batch(0);
+    if (pending & 2u) wait_batch(1);
   }
-  // No copy may land in the block's shared memory after it exits.
-  wait_batch(kb + 1);
+  // Forced moves to the origin: I at x == 0, D at y == 0.
+  sa::emit_run(x == 0 ? 2u : 3u, x + y, i, w, word, out);
+  if (i & 15) out[w++] = word;
+  for (; w < WP; ++w) out[w] = 0;
+  xf[b] = 0;
+  yf[b] = 0;
+  n_ops[b] = i;
 }
 
 typedef void (*BandWalk)(const uint32_t*, int, int, int, const int32_t*,
                          const int32_t*, const int32_t*, const int32_t*, int,
                          int, int, int, uint32_t*, int32_t*, int32_t*,
                          int32_t*, unsigned long long*);
-
-template <int DEPTH>
-BandWalk pick_walk(bool std_model) {
-  return std_model ? walk_banded_kernel<true, DEPTH>
-                   : walk_banded_kernel<false, DEPTH>;
-}
 
 }  // namespace
 
@@ -353,28 +347,23 @@ extern "C" int sa_walk_modes(const uint32_t* dirs, int W, int R, int P,
 // dirs: (W, NB, L) u32 banded fast4 words (ops/nw_banded_diag layout);
 // x0/y0/plane0/bidx: (B,) int32 corners, seed planes and dirs batch slots;
 // packed: (B, WP) u32 with WP*16 >= the longest walk; xf/yf/n_ops: (B,)
-// int32.  std != 0 walks the any-state-open model.  win / depth: the staged
-// window's lanes and rows (traceback_device.cuh::walk_window, 0 the
-// default); slow: null, or a u64 the slow path's word reads are added to.
-// Returns the cudaGetLastError() of the launch, or -1 for a bad shape.
+// int32.  std != 0 walks the any-state-open model.  win: the staged
+// window's lanes read from the stage (traceback_device.cuh::walk_window, 0
+// the default); slow: null, or a u64 the slow path's word reads are added
+// to.  Returns the cudaGetLastError() of the launch, or -1 for a bad shape.
 extern "C" int sa_walk_banded(const uint32_t* dirs, int W, int NB, int L,
                               const int32_t* x0, const int32_t* y0,
                               const int32_t* plane0, const int32_t* bidx,
                               int k_lo_even, int B, int WP, int std_model,
                               uint32_t* packed, int32_t* xf, int32_t* yf,
-                              int32_t* n_ops, int win, int depth,
+                              int32_t* n_ops, int win,
                               unsigned long long* slow, void* stream) {
   if (W <= 0 || NB <= 0 || L < sa::kWalkWindow || L % 4 != 0 || B <= 0 ||
-      WP <= 0 || !sa::walk_window(win, depth)) {
+      WP <= 0 || !sa::walk_window(win)) {
     return -1;
   }
-  BandWalk fn = nullptr;
-  switch (depth) {
-    case 4: fn = pick_walk<4>(std_model != 0); break;
-    case 8: fn = pick_walk<8>(std_model != 0); break;
-    case 16: fn = pick_walk<16>(std_model != 0); break;
-  }
-  if (fn == nullptr) return -1;
+  const BandWalk fn = std_model ? walk_banded_kernel<true>
+                                : walk_banded_kernel<false>;
   const int blocks = (B + kBandWarps - 1) / kBandWarps;
   fn<<<blocks, kBandWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       dirs, W, NB, L, x0, y0, plane0, bidx, k_lo_even, B, WP, win, packed, xf,

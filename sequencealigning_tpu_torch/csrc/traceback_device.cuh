@@ -69,19 +69,26 @@ SA_HD uint32_t banded_word(const uint32_t* dirs, int W, int NB, int L,
 // The banded walk's staged window (traceback_device.cu; host_check.cpp runs
 // it serially).  One 128-byte row segment dirs[r, b, lo .. lo + 32) holds
 // 8 anti-diagonals x 32 band lanes; a step lowers a = x + y - 1 by 1 or 2
-// and moves the band lane by at most one (an M move keeps it), so the walk
-// stays some steps in a row and near its lane.  A warp stages the rows in
-// batches of `depth` (batch k: rows row0 - k*depth - j, j < depth, row0 the
-// seed's row), each row the 32 lanes from window_at(the walk's lane when
-// the batch was staged): batches 0 and 1 at the start from the seed's lane,
-// batch k + 2 when the walk enters batch k + 1, from the lane of its last
-// cell in batch k.  The walk reads lanes lo .. lo + win - 1 of a row from
-// the stage; a word of another lane of the band is a direct load (the slow
-// path); a lane outside the band, or a row past the tensor, reads 0 as
-// banded_word does.  The walk keeps the word it read
-// while it stays in the row and the lane.
+// (so the row r = a >> 3 by at most one) and moves the band lane by at most
+// one (an M move keeps it), so the walk stays some steps in a row and near
+// its lane.  Rows are staged in batches of kWalkDepth: batch m holds rows
+// m * kWalkDepth .. + kWalkDepth - 1, row r in slot r % (2 * kWalkDepth) of
+// a ring of two batches, each row the 32 lanes from window_at(the walk's
+// lane when the batch was staged).  The seed's batch and the one below are
+// staged at the start, from the seed's lane; when the walk enters batch m,
+// batch m - 1 goes into the slots of batch m + 1, which it has left, from
+// the lane the walk should be in halfway through batch m - 1 if it keeps
+// its drift (its lane on entering batch m, plus 1.5 times the lanes it
+// moved over batch m + 1): a long gap moves the walk half a lane a step,
+// 32 lanes a batch, which a window centred on its lane would lose.  Rows
+// past the tensor are staged as zeros.  The walk reads lanes lo .. lo +
+// win - 1 of a row from the stage; a word of another lane of the band is a
+// direct load (the slow path); a lane outside the band reads 0 as
+// banded_word does.  The walk keeps the word it read while it stays in
+// the row and the lane.  Where x or y reaches 0 every move left is forced
+// (I at x == 0, D at y == 0), so the rest of the walk reads no word.
 constexpr int kWalkWindow = 32;  // lanes a staged row (a warp's 128 bytes)
-constexpr int kWalkDepth = 8;    // rows a staged batch by default
+constexpr int kWalkDepth = 8;    // rows a staged batch
 
 // The first lane of the window around `center`: win / 2 below it, rounded
 // down to a multiple of 4 lanes (a 16-byte copy boundary), within the band
@@ -91,13 +98,89 @@ SA_HD int32_t window_at(int32_t center, int win, int L) {
   return lo < 0 ? 0 : lo > L - kWalkWindow ? L - kWalkWindow : lo;
 }
 
-// The window's knobs (0 the default): win 1..kWalkWindow lanes read from
-// the stage, depth 4, 8 or 16 rows a batch; false when out of range.
-SA_HD bool walk_window(int& win, int& depth) {
+// The window's lanes read from the stage (0 the default, kWalkWindow);
+// false when out of 1..kWalkWindow.
+SA_HD bool walk_window(int& win) {
   if (win == 0) win = kWalkWindow;
-  if (depth == 0) depth = kWalkDepth;
-  return win >= 1 && win <= kWalkWindow &&
-         (depth == 4 || depth == 8 || depth == 16);
+  return win >= 1 && win <= kWalkWindow;
+}
+
+// One interior step (x > 0 and y > 0) of walk_step on the fast4 code nib:
+// the same moves, written for the banded walk's dependent chain.
+template <bool STD>
+SA_HD uint32_t walk_step_interior(uint32_t nib, int32_t& x, int32_t& y,
+                                  int32_t& plane) {
+  const int32_t code = static_cast<int32_t>(nib & 3u);
+  const int32_t eff = plane == kPend ? (code < 2 ? code : 2) : plane;
+  const bool ext = (nib >> (eff + 1)) & 1u;  // bit 2 on I, bit 3 on D
+  plane = eff == 0 ? kPend : (ext ? eff : (STD ? kPend : 0));
+  x -= eff != 1;
+  y -= eff != 2;
+  return static_cast<uint32_t>(eff + 1);
+}
+
+SA_HD int clz32(uint32_t u) {
+#if defined(__CUDA_ARCH__)
+  return __clz(u);
+#else
+  return u ? __builtin_clz(u) : 32;
+#endif
+}
+
+// The banded walk's moves from its interior cell (x, y), a = x + y - 1, on
+// v, the word of the cell's row and band lane.  On a pending plane, the
+// run of M moves the word holds from the cell down (the cells at a, a - 2,
+// ... of this lane whose codes are 0, at most 4, at most min(x, y)): an M
+// move keeps the lane and the pending plane, so walk_step would take them
+// one at a time to the same end.  Otherwise one walk_step.  Returns the
+// number of moves k and their op codes in bits, 2 bits each in order.
+template <bool STD>
+SA_HD int walk_banded_moves(uint32_t v, int32_t a, int32_t& x, int32_t& y,
+                            int32_t& plane, uint32_t& bits) {
+  const int p = a & 7;  // the cell's nibble in v
+  if (plane == kPend) {
+    // Bit 4j of z: nibble j's code is 0.  Shifted so that nibbles p, p - 2,
+    // p - 4, p - 6 sit at bits 28, 20, 12, 4; u marks where the run stops.
+    const uint32_t z = ~(v | (v >> 1)) & 0x11111111u;
+    const uint32_t u = ~(z << (28 - 4 * p)) & 0x10101010u;
+    int k = u ? (clz32(u) - 3) >> 3 : 4;
+    const int32_t room = x < y ? x : y;
+    k = k < room ? k : room;
+    if (k > 0) {
+      x -= k;
+      y -= k;
+      bits = 0x55u & ((1u << (2 * k)) - 1u);
+      return k;
+    }
+  }
+  bits = walk_step_interior<STD>((v >> (4 * p)) & 0xFu, x, y, plane);
+  return 1;
+}
+
+// Appends k <= 16 op codes (bits, 2 each) to a walk's packed output at
+// step i: the word in progress in `word`, whole words stored to out[w++].
+SA_HD void emit_ops(uint32_t bits, int k, int& i, int& w, uint32_t& word,
+                    uint32_t* out) {
+  const int used = i & 15;
+  word |= bits << (2 * used);
+  i += k;
+  if (used + k >= 16) {
+    out[w++] = word;
+    word = used ? bits >> (2 * (16 - used)) : 0;
+  }
+}
+
+// Appends n op codes `code` to a walk's packed output at step i (as
+// emit_ops).
+SA_HD void emit_run(uint32_t code, int32_t n, int& i, int& w, uint32_t& word,
+                    uint32_t* out) {
+  const uint32_t pat = code * 0x55555555u;
+  while (n > 0) {
+    const int take = n < 16 - (i & 15) ? n : 16 - (i & 15);
+    emit_ops(take == 16 ? pat : pat & ((1u << (2 * take)) - 1u), take, i, w,
+             word, out);
+    n -= take;
+  }
 }
 
 // The modes walk's plane for a cell with no H-plane bit (a corrupt fill).

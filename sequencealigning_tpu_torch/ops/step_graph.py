@@ -22,40 +22,61 @@ import torch
 GRAPH_STEPS = 32
 
 
-def run_steps(body, counter: torch.Tensor, n: int) -> None:
+def run_steps(body, counter: torch.Tensor, n: int, done=None,
+              every: int = 0) -> None:
     """Run body() n times, adding 1 to counter (a 0-d integer tensor) after
     each.  On CUDA, n >= 2 * GRAPH_STEPS: the first GRAPH_STEPS steps run
     eagerly on a side stream (the warm-up a capture needs), the next are
     captured as one graph of GRAPH_STEPS steps and replayed, the remainder
-    runs eagerly."""
-    unroll = GRAPH_STEPS
+    runs eagerly.  done: None, or a function returning a 0-d bool tensor,
+    read on the host before each `every` steps (a multiple of GRAPH_STEPS):
+    the loop stops once it holds, the graph captured once for all."""
     if n <= 0:
         return
-    if counter.device.type != "cuda" or not unroll or n < 2 * unroll:
-        for _ in range(n):
+    block = every if done is not None and every else n
+    graph = None
+    t = 0
+    while t < n:
+        if done is not None and bool(done()):
+            break
+        k = min(block, n - t)
+        graph = _steps(body, counter, k, graph)
+        t += k
+    del graph
+
+
+def _steps(body, counter: torch.Tensor, k: int, graph):
+    """k steps of run_steps, replaying `graph` (None: captured here where
+    k allows); returns the graph."""
+    unroll = GRAPH_STEPS
+    if graph is None and (counter.device.type != "cuda" or not unroll
+                          or k < 2 * unroll):
+        for _ in range(k):
             body()
             counter.add_(1)
-        return
-    main = torch.cuda.current_stream(counter.device)
-    side = torch.cuda.Stream(counter.device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        for _ in range(unroll):
-            body()
-            counter.add_(1)
-    main.wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(unroll):
-            body()
-            counter.add_(1)
-    reps, rest = divmod(n - unroll, unroll)
+        return None
+    if graph is None:
+        main = torch.cuda.current_stream(counter.device)
+        side = torch.cuda.Stream(counter.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(unroll):
+                body()
+                counter.add_(1)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(unroll):
+                body()
+                counter.add_(1)
+        k -= unroll
+    reps, rest = divmod(k, unroll)
     for _ in range(reps):
         graph.replay()
     for _ in range(rest):
         body()
         counter.add_(1)
-    del graph
+    return graph
 
 
 def to_i32(words: torch.Tensor) -> torch.Tensor:

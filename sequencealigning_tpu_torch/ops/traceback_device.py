@@ -27,7 +27,7 @@ walked by ``walk_banded_torch`` / ``walk_banded_cuda`` with the host
 walker's semantics (ops.traceback.banded_diag_fast4_traceback_pair): a read
 outside the band gives code 0 and the walk advances.  The kernel walks a
 pair a warp, reading the words from rows it staged in shared memory ahead
-of the walk (``forced_walk`` forces their window, ``slow=`` counts the
+of the walk (``forced_walk`` narrows their window, ``slow=`` counts the
 reads outside it).  The JAX device walk
 (_walk_banded_diag_msub) freezes on such a read instead and burns its step
 budget (ops/traceback_device.py:234, a known fault of the reference); the
@@ -45,6 +45,7 @@ import torch
 
 from sequencealigning_tpu_torch import csrc, native
 from sequencealigning_tpu_torch.errors import AlignerError, AlignmentError
+from sequencealigning_tpu_torch.ops.step_graph import run_steps
 from sequencealigning_tpu_torch.ops.traceback import (
     banded_diag_fast4_traceback_pair,
     local_affine_traceback_pair,
@@ -353,18 +354,25 @@ def walk_banded_torch(dirs, x0, y0, plane0, bidx, k_lo_even: int,
     n_chunks = -(-t_steps // _CHUNK)
     ops = torch.zeros((n_chunks * _CHUNK, x0.shape[0]), dtype=torch.int32,
                       device=dirs.device)
-    for c in range(n_chunks):
-        if bool(((x == 0) & (y == 0)).all()):
-            break
-        for i in range(c * _CHUNK, (c + 1) * _CHUNK):
-            a = x + y - 1
-            lane = (y - x - k_lo_even) >> 1
-            ok = (lane >= 0) & (lane < L) & (a >= 0) & ((a >> 3) < W)
-            w = d32[torch.clamp(a >> 3, 0, W - 1).long(), b,
-                    torch.clamp(lane, 0, L - 1).long()]
-            nib = torch.where(ok, (w >> ((a & 7) * 4)) & 0xF, 0)
-            op, x, y, plane = _plane_step(nib, x, y, plane, std)
-            ops[i] = op
+    counter = torch.zeros((), dtype=torch.int64, device=dirs.device)
+
+    def step():
+        a = x + y - 1
+        lane = (y - x - k_lo_even) >> 1
+        ok = (lane >= 0) & (lane < L) & (a >= 0) & ((a >> 3) < W)
+        w = d32[torch.clamp(a >> 3, 0, W - 1).long(), b,
+                torch.clamp(lane, 0, L - 1).long()]
+        nib = torch.where(ok, (w >> ((a & 7) * 4)) & 0xF, 0)
+        op, nx, ny, npl = _plane_step(nib, x, y, plane, std)
+        x.copy_(nx)
+        y.copy_(ny)
+        plane.copy_(npl)
+        ops.index_copy_(0, counter.view(1), op.to(torch.int32)[None])
+
+    # On the card the steps replay as CUDA graphs (ops.step_graph), the
+    # all-at-the-origin check read every _CHUNK steps.
+    run_steps(step, counter, n_chunks * _CHUNK,
+              done=lambda: ((x == 0) & (y == 0)).all(), every=_CHUNK)
     n_ops = (ops != 0).sum(0, dtype=torch.int32)
     return x, y, _pack_ops(ops[: banded_packed_width(t_steps) * 16]), n_ops
 
@@ -373,11 +381,11 @@ _WALK = contextvars.ContextVar("banded_walk", default={})
 
 
 @contextlib.contextmanager
-def forced_walk(window: int = 0, depth: int = 0):
+def forced_walk(window: int = 0):
     """Force the banded walk kernel's staged window in this context
-    (csrc/stream_sweep.py and chip_smoke.py): window lanes a row (1-32)
-    and depth rows staged ahead (4, 8 or 16); 0 takes the default."""
-    token = _WALK.set(dict(window=window, depth=depth))
+    (chip_smoke.py's slow-path check): the lanes of a staged row it reads
+    (1-32; 0 takes the default, 32)."""
+    token = _WALK.set(dict(window=window))
     try:
         yield
     finally:
@@ -420,7 +428,6 @@ def walk_banded_cuda(dirs, x0, y0, plane0, bidx, k_lo_even: int,
             dirs.data_ptr(), W, Bd, L, *(t.data_ptr() for t in seeds),
             k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
             yf.data_ptr(), n_ops.data_ptr(), knobs.get("window", 0),
-            knobs.get("depth", 0),
             slow.data_ptr() if slow is not None else None, stream,
         )
     if rc != 0:

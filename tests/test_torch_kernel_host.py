@@ -1023,8 +1023,7 @@ def test_host_banded_walk_matches_plain(host, std):
     assert (got[0].numpy() == 0).all() and (got[1].numpy() == 0).all()
 
 
-def _host_banded_walk(host, dirs, seeds, k_lo_even, t_steps, std, win=0,
-                      depth=0):
+def _host_banded_walk(host, dirs, seeds, k_lo_even, t_steps, std, win=0):
     """hc_walk_banded (the kernel's staged window run serially): (xf, yf,
     packed, n_ops, reads taken by the slow path)."""
     B = seeds[0].shape[0]
@@ -1035,7 +1034,7 @@ def _host_banded_walk(host, dirs, seeds, k_lo_even, t_steps, std, win=0,
     rc = host.hc_walk_banded(
         dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds),
         k_lo_even, B, WP, int(std), packed.data_ptr(), xf.data_ptr(),
-        yf.data_ptr(), n_ops.data_ptr(), win, depth, slow.data_ptr(),
+        yf.data_ptr(), n_ops.data_ptr(), win, slow.data_ptr(),
     )
     assert rc == 0
     return xf, yf, packed, n_ops, int(slow)
@@ -1068,19 +1067,19 @@ def _banded_walk_case(seed, band, std, identical=False, n=12, hi=180):
 
 @pytest.mark.parametrize("std", [False, True])
 @pytest.mark.parametrize("band", [1, 2, 8, 33, 59, 70])
-@pytest.mark.parametrize("win,depth", [(0, 0), (1, 4), (3, 8), (2, 16),
-                                       (32, 4)])
-def test_host_banded_walk_window_matches_plain(host, band, std, win, depth):
-    """The staged window (32 lanes a row, 8 rows staged ahead by default;
-    forced down to 1-3 lanes so most words take the slow path) against
-    walk_banded_torch, at bands 1-70 (band 70's 141 diagonals span more
-    band lanes than a window holds), std and ref; the slow path is taken
-    where the window is tiny."""
+@pytest.mark.parametrize("win", [0, 1, 2, 3, 16])
+def test_host_banded_walk_window_matches_plain(host, band, std, win):
+    """The staged window (32 lanes a row by default, forced down to 1-16
+    so some or most words take the slow path) against walk_banded_torch,
+    at bands 1-70 (band 70's 141 diagonals span more band lanes than a
+    window holds), std and ref; walks of up to 360 steps cross up to 6
+    staged batches of 8 rows; the slow path is taken where the window is
+    tiny."""
     plan, dirs, seeds, t_steps = _banded_walk_case(19 + band + std, band, std)
     want = walk.walk_banded_torch(dirs, *seeds, plan.k_lo_even, t_steps,
                                   std=std)
     got = _host_banded_walk(host, dirs, seeds, plan.k_lo_even, t_steps, std,
-                            win, depth)
+                            win)
     for g, exp in zip(got[:4], want):
         np.testing.assert_array_equal(g.numpy(), exp.numpy())
     if 0 < win <= 3:
@@ -1101,8 +1100,8 @@ def test_host_banded_walk_stays_in_window_on_one_lane(host, win):
     assert got[4] == 0
 
 
-@pytest.mark.parametrize("win,depth", [(33, 0), (-1, 0), (0, 3), (0, 32)])
-def test_host_banded_walk_refuses_bad_windows(host, win, depth):
+@pytest.mark.parametrize("win", [33, -1, 64, -32])
+def test_host_banded_walk_refuses_bad_windows(host, win):
     plan, dirs, seeds, t_steps = _banded_walk_case(3, 8, False, n=8, hi=30)
     B = seeds[0].shape[0]
     WP = walk.banded_packed_width(t_steps)
@@ -1110,8 +1109,25 @@ def test_host_banded_walk_refuses_bad_windows(host, win, depth):
         torch.empty(B, dtype=torch.int32) for _ in range(3)]
     assert host.hc_walk_banded(
         dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds),
-        plan.k_lo_even, B, WP, 0, *(t.data_ptr() for t in out), win, depth,
+        plan.k_lo_even, B, WP, 0, *(t.data_ptr() for t in out), win,
         None) == -1
+
+
+@pytest.mark.parametrize("std", [False, True])
+@pytest.mark.parametrize("win", [0, 1])
+def test_host_banded_walk_crosses_batches(host, std, win):
+    """Walks of 600-1200 steps: each crosses 9 or more staged batches of 8
+    rows (64 anti-diagonals), the ring's two halves restaged in turn, and
+    still equals walk_banded_torch."""
+    plan, dirs, seeds, t_steps = _banded_walk_case(41 + std, 12, std, n=8,
+                                                   hi=600)
+    assert int(((seeds[0] + seeds[1] - 1) >> 6).max()) >= 9
+    want = walk.walk_banded_torch(dirs, *seeds, plan.k_lo_even, t_steps,
+                                  std=std)
+    got = _host_banded_walk(host, dirs, seeds, plan.k_lo_even, t_steps, std,
+                            win)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
 
 
 def test_banded_wrappers_refuse_cpu_tensors():
