@@ -417,6 +417,32 @@ def valid_cell_diff(torch, dirs_a, dirs_b, coords, n1s, n2s, dirs_mode):
     return worst
 
 
+def outside_zero(torch, dirs, n1s, n2s):
+    """Whether every byte of a per-pair fill's (W, B, P) dirs outside each
+    pair's cells 0 <= x <= n2, 0 <= y <= n1 is 0."""
+    W, B, P = dirs.shape
+    dev = dirs.device
+    d = torch.arange(W, device=dev)[:, None, None] * 4 + torch.arange(
+        4, device=dev)
+    x = torch.arange(P, device=dev)[None, :, None]
+    for b in range(B):
+        g = dirs[:, b, :].contiguous().view(torch.uint8).view(W, P, 4)
+        valid = (x <= int(n2s[b])) & (d >= x) & (d - x <= int(n1s[b]))
+        if bool(g.masked_select(~valid).any()):
+            return False
+    return True
+
+
+def pair_dirs_diff(torch, got, want, n1s, n2s):
+    """A per-pair fill's dirs (kernels #6 and #7, the linear fill) against
+    the plain version's: the largest difference on the pairs' cells
+    (valid_cell_diff), or 1 where a byte outside them is not 0 (the plain
+    versions write their codes there; no walker reads them)."""
+    err = valid_cell_diff(torch, got, want, [(b, 0) for b in range(len(n1s))],
+                          n1s, n2s, "full")
+    return max(err, 0 if outside_zero(torch, got, n1s, n2s) else 1)
+
+
 def phase_device(torch):
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -778,16 +804,7 @@ def pair_cells_check(torch, modes, got, want, n1s, n2s):
                                    n2s, "full"))
     whole = bool(torch.equal(dirs_k.view(torch.int32),
                              dirs_p.view(torch.int32)))
-    W, B, P = dirs_k.shape
-    dev = dirs_k.device
-    zero = True
-    for b in range(B):
-        g = dirs_k[:, b, :].contiguous().view(torch.uint8).view(W, P, 4)
-        d = torch.arange(W, device=dev)[:, None, None] * 4 + torch.arange(
-            4, device=dev)
-        x = torch.arange(P, device=dev)[None, :, None]
-        valid = (x <= int(n2s[b])) & (d >= x) & (d - x <= int(n1s[b]))
-        zero &= not bool(g.masked_select(~valid).any())
+    zero = outside_zero(torch, dirs_k, n1s, n2s)
     return err, whole, zero
 
 
@@ -1793,6 +1810,14 @@ def phase_tiled(torch, port):
     return out
 
 
+def pair_line(shape):
+    """A per-pair fill's launch shape (the wrapper's last_launch), for the
+    log."""
+    return (f"{shape['ctas']} CTAs a pair of {shape['threads']} threads x "
+            f"{shape['lanes_per_thread']} lanes, chunk {shape['chunk']}, "
+            f"slots {shape['ring_slots']}")
+
+
 def launch_line(shape):
     """A tiled launch's shape (the wrapper's last_launch), for the log."""
     return (f"strips of {shape['strip_lanes']} lanes "
@@ -2194,11 +2219,15 @@ def long_banded_fills(torch, port, A, B):
 
 
 def phase_gotoh_fill(torch, port, pairs, stream_finals):
-    """Kernel #7 (the per-pair global fill) at the main shape in the
-    runner's plain layout: score-only against its plain version on the
-    card and against the streamed kernel's finals; then with full dirs on
-    the first N_GOTOH_DIRS pairs (the direction bytes of every valid cell),
-    the host walker on its dirs against the co-optimal path."""
+    """Kernel #7 (the per-pair global fill) against its plain version on
+    ragged batches (score-only and full dirs, compat and textbook with
+    wildcard, split as planned and over CTAs of 128 lanes); at the main
+    shape in the runner's plain layout, score-only against its plain
+    version on the card and against the streamed kernel's finals; then
+    with full dirs on the first N_GOTOH_DIRS pairs, the host walker on its
+    dirs against the co-optimal path; score-only at 1, 4 and 31 pairs of
+    the main length, timed.  Dirs are held equal on every cell of each
+    pair and 0 on every other byte (pair_dirs_diff)."""
     from sequencealigning_tpu_torch.config import AlignConfig, Algo
     from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
@@ -2207,6 +2236,34 @@ def phase_gotoh_fill(torch, port, pairs, stream_finals):
 
     nw = port["nw"]
     t0 = time.perf_counter()
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    rng = np.random.default_rng(27)
+    rerr, runs = 0, 0
+    for n, hi in ((24, 300), (9, 700)):
+        rp = skewed_pairs(rng, n, 0, hi, 0, hi, b"ACGTN") + [
+            (b"", b"ACGTA" * 9), (b"GATTACA" * 11, b"")]
+        tb = to_device(pack_batch(rp, batch_size=len(rp)), "cuda")
+        ins = (tb.query.contiguous(),
+               *nw.gotoh_layout(tb.db, tb.query_len, tb.db_len))
+        n1s, n2s = tb.query_len.cpu().numpy(), tb.db_len.cpu().numpy()
+        for compat, wc in ((True, False), (False, True)):
+            for dirs in (False, True):
+                a = (tb.query.shape[1], tb.db.shape[1],
+                     wild if wc else ScoringScheme(), compat, wc, dirs)
+                fp, dp = nw.gotoh_fill_torch(*ins, *a)
+                for cta in (0, 128):
+                    fk, dk = nw.gotoh_fill_cuda(*ins, *a, cta_lanes=cta)
+                    e = int((fk - fp).abs().max())
+                    if dirs:
+                        e = max(e, pair_dirs_diff(torch, dk, dp, n1s, n2s))
+                    check(e == 0, f"kernel #7 != plain ({len(rp)} pairs <= "
+                          f"{hi} bp, compat={compat}, wildcard={wc}, "
+                          f"dirs={dirs}, cta {cta}): err {e}")
+                    rerr, runs = max(rerr, e), runs + 1
+    log(f"[16 gotoh fill] {runs} ragged configurations (<= 700 bp, empty "
+        "sides, split as planned and over CTAs of 128 lanes) equal on "
+        "finals and on every cell's direction bytes, 0 elsewhere")
+
     batch = pack_batch(pairs, batch_size=len(pairs))
     tb = to_device(batch, "cuda")
     q = tb.query.contiguous()
@@ -2216,6 +2273,7 @@ def phase_gotoh_fill(torch, port, pairs, stream_finals):
     ins = (q, s2v, dsum, n2mask)
     ms = cuda_ms(torch, lambda: nw.gotoh_fill_cuda(*ins, *a, False))
     fk, _ = nw.gotoh_fill_cuda(*ins, *a, False)
+    shape = dict(nw.gotoh_fill_cuda.last_launch)
     plain_ms, (fp, _) = host_ms(torch, lambda: nw.gotoh_fill_torch(
         *ins, *a, False))
     err = int((fk - fp).abs().max())
@@ -2226,15 +2284,15 @@ def phase_gotoh_fill(torch, port, pairs, stream_finals):
     cells = int((batch.query_len.astype(np.int64)
                  * batch.db_len.astype(np.int64)).sum())
     b_ms, b_by = bound(nbytes(*ins, fk), cells * OPS_PER_CELL["score"])
-    lanes = len(pairs) * (L1 + L2 + 1) * s2v.shape[1]
     log(f"[16 gotoh fill] {len(pairs)} x {LEN_MAIN} bp score-only (P="
-        f"{s2v.shape[1]}, D_total={L1 + L2 + 1}): kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, {cells / ms / 1e6:.2f} GCUPS "
-        f"({lanes / ms / 1e6:.2f} G lane-steps/s), bound {b_ms:.3f} ms ({b_by}); finals equal the "
-        "plain version and the streamed kernel's")
-    out = {"gfill_ms": ms, "gfill_plain_ms": plain_ms, "gfill_err": err,
-           "gfill_stream_err": stream_err, "gfill_bound_ms": b_ms,
-           "gfill_bound_by": b_by, "gfill_gcups": cells / ms / 1e6}
+        f"{s2v.shape[1]}, D_total={L1 + L2 + 1}, {pair_line(shape)}): "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"{cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.3f} ms ({b_by}); "
+        "finals equal the plain version and the streamed kernel's")
+    out = {"gfill_ms": ms, "gfill_plain_ms": plain_ms,
+           "gfill_err": max(err, rerr), "gfill_stream_err": stream_err,
+           "gfill_bound_ms": b_ms, "gfill_bound_by": b_by,
+           "gfill_gcups": cells / ms / 1e6, "gfill_launch": shape}
 
     n = N_GOTOH_DIRS
     sub = tuple(t[:n].contiguous() for t in ins)
@@ -2243,12 +2301,8 @@ def phase_gotoh_fill(torch, port, pairs, stream_finals):
     fkd, dkd = nw.gotoh_fill_cuda(*sub, *a, True)
     plain_d_ms, (fpd, dpd) = host_ms(torch, lambda: nw.gotoh_fill_torch(
         *sub, *a, True))
-    whole = bool(torch.equal(dkd.view(torch.int32), dpd.view(torch.int32)))
-    err_d = int((fkd - fpd).abs().max())
-    if not whole:
-        err_d = max(err_d, valid_cell_diff(
-            torch, dkd, dpd, [(b, 0) for b in range(n)], batch.query_len[:n],
-            batch.db_len[:n], "full"))
+    err_d = max(int((fkd - fpd).abs().max()), pair_dirs_diff(
+        torch, dkd, dpd, batch.query_len[:n], batch.db_len[:n]))
     del dpd
     check(err_d == 0, f"kernel #7 with full dirs != plain: err {err_d}")
     cells_d = int((batch.query_len[:n].astype(np.int64)
@@ -2275,13 +2329,35 @@ def phase_gotoh_fill(torch, port, pairs, stream_finals):
     log(f"[16 gotoh fill] {n} x {LEN_MAIN} bp full dirs ({dirs_gb:.2f} GB):"
         f" kernel {ms_d:.3f} ms, plain {plain_d_ms:.1f} ms, bound "
         f"{bd_ms:.3f} ms ({bd_by}); finals and the direction bytes of every "
-        f"valid cell equal (whole dirs tensor equal: {whole}); the host "
-        f"walker on {N_GOTOH_WALK} sampled pairs equals the co-optimal path; "
-        f"phase {time.perf_counter() - t0:.1f} s")
+        "valid cell equal, every other byte 0; the host walker on "
+        f"{N_GOTOH_WALK} sampled pairs equals the co-optimal path")
     out.update(gfill_full_ms=ms_d, gfill_full_plain_ms=plain_d_ms,
                gfill_full_err=err_d, gfill_full_bound_ms=bd_ms,
-               gfill_full_bound_by=bd_by, gfill_full_whole_dirs_equal=whole,
+               gfill_full_bound_by=bd_by)
+
+    # A few pairs, as a small batch of the runner's plain route.
+    small = {}
+    for k in (1, 4, 31):
+        pk = make_pairs(np.random.default_rng(4), k, LEN_MAIN)
+        tbk = to_device(pack_batch(pk, batch_size=k), "cuda")
+        ins_k = (tbk.query.contiguous(),
+                 *nw.gotoh_layout(tbk.db, tbk.query_len, tbk.db_len))
+        a_k = (tbk.query.shape[1], tbk.db.shape[1], ScoringScheme(), True,
+               False, False)
+        ms_k = cuda_ms(torch, lambda: nw.gotoh_fill_cuda(*ins_k, *a_k), 5)
+        fk_k, _ = nw.gotoh_fill_cuda(*ins_k, *a_k)
+        shape_k = dict(nw.gotoh_fill_cuda.last_launch)
+        fp_k, _ = nw.gotoh_fill_torch(*ins_k, *a_k)
+        e = int((fk_k - fp_k).abs().max())
+        check(e == 0, f"kernel #7 != plain at {k} x {LEN_MAIN} bp: err {e}")
+        out["gfill_err"] = max(out["gfill_err"], e)
+        small[k] = ms_k
+        log(f"[16 gotoh fill] {k} x {LEN_MAIN} bp score-only "
+            f"({pair_line(shape_k)}): kernel {ms_k:.3f} ms (mean of 5); "
+            "finals equal the plain version")
+    out.update(gfill_batches_ms=small,
                gfill_phase_s=time.perf_counter() - t0)
+    log(f"[16 gotoh fill] phase {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2864,6 +2940,7 @@ def phase_linear(torch, port, pairs, by_path):
                                   batch_size=n), "cuda")
         a4 = lin.linear_inputs(*tb)
         l1, l2 = tb.query.shape[1], tb.db.shape[1]
+        n1s, n2s = tb.query_len.cpu().numpy(), tb.db_len.cpu().numpy()
         for compat in (True, False):
             for local in (False, True):
                 mv = torch.zeros_like(a4[2])
@@ -2880,15 +2957,15 @@ def phase_linear(torch, port, pairs, by_path):
                         e = max(int((k[0] - p[0]).abs().max()),
                                 int((k[1] - p[1]).abs().max()))
                         if bits:
-                            e = max(e, 0 if torch.equal(
-                                k[2].view(torch.int32),
-                                p[2].view(torch.int32)) else 1)
+                            e = max(e, pair_dirs_diff(torch, k[2], p[2], n1s,
+                                                      n2s))
                         check(e == 0, f"linear kernel != plain ({n} pairs <= "
                               f"{hi} bp, compat={compat}, local={local}, "
                               f"bits={bits}, cta {cta}): err {e}")
                         err, runs = max(err, e), runs + 1
-    log(f"[20 linear] {runs} ragged configurations (<= 700 bp, one block and"
-        " 2 CTAs of 128 lanes) equal on scores, maxima and path bits")
+    log(f"[20 linear] {runs} ragged configurations (<= 700 bp, split as "
+        "planned and over CTAs of 128 lanes) equal on scores and maxima, "
+        "path bits equal on every cell of each pair and 0 elsewhere")
 
     out = {"lfill_ragged_err": err}
     tb = to_device(pack_batch(pairs, batch_size=len(pairs)), "cuda")
@@ -2931,22 +3008,56 @@ def phase_linear(torch, port, pairs, by_path):
         k = lin.linear_fill_cuda(*a)
         plain_ms, p = host_ms(torch, lambda: lin.linear_fill_torch(*a))
         e = max(int((k[0] - p[0]).abs().max()), int((k[1] - p[1]).abs().max()),
-                0 if torch.equal(k[2].view(torch.int32),
-                                 p[2].view(torch.int32)) else 1)
+                pair_dirs_diff(torch, k[2], p[2], sub[2].cpu().numpy(),
+                               sub[3].cpu().numpy()))
         check(e == 0, f"linear kernel != plain at {N_LINEAR_DIRS} x "
               f"{LEN_MAIN} bp with bits ({tag})")
         ops = OPS_PER_CELL["linear local bits" if local else "linear bits"]
         b_ms, b_by = bound(nbytes(*sub, mv, k[0], k[1], k[2]), dcells * ops)
         log(f"[20 linear] {N_LINEAR_DIRS} x {LEN_MAIN} bp {tag} (bits "
             f"{k[2].numel() * 4 / 1e9:.2f} GB): kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}); scores and "
-            "every path-bit word equal the plain version")
+            f"{plain_ms:.1f} ms, bound {b_ms:.3f} ms ({b_by}); scores equal "
+            "the plain version, path bits on every cell of each pair, every "
+            "other byte 0")
         out.update({f"lfill_{tag}_ms": ms, f"lfill_{tag}_plain_ms": plain_ms,
                     f"lfill_{tag}_err": e, f"lfill_{tag}_bound_ms": b_ms,
                     f"lfill_{tag}_bound_by": b_by})
         if not local:
             corner_dirs = k[0].cpu().numpy()
         del k, p
+
+    # A few pairs (the aligner pads one to a batch of 8), with bits.
+    small, small_err = {}, 0
+    for k in (1, 4, 31):
+        pk = make_pairs(np.random.default_rng(4), k, LEN_MAIN)
+        tbk = to_device(pack_batch(pk, batch_size=max(k, 8)), "cuda")
+        a4k = lin.linear_inputs(*tbk)
+        l1k, l2k = tbk.query.shape[1], tbk.db.shape[1]
+        zk = torch.zeros_like(a4k[2])
+        for tag, local in (("global", False), ("local", True)):
+            mv = zk
+            if local:
+                mv = lin.linear_fill_cuda(*a4k, zk, l1k, l2k, scheme, True,
+                                          True, False)[1].contiguous()
+            a = (*a4k, mv, l1k, l2k, scheme, True, local, True)
+            ms = cuda_ms(torch, lambda: lin.linear_fill_cuda(*a), 5)
+            kk = lin.linear_fill_cuda(*a)
+            shape = dict(lin.linear_fill_cuda.last_launch)
+            pp = lin.linear_fill_torch(*a)
+            e = max(int((kk[0] - pp[0]).abs().max()),
+                    int((kk[1] - pp[1]).abs().max()),
+                    pair_dirs_diff(torch, kk[2], pp[2],
+                                   a4k[2].cpu().numpy(),
+                                   a4k[3].cpu().numpy()))
+            check(e == 0, f"linear kernel != plain at {k} x {LEN_MAIN} bp "
+                  f"with bits ({tag}): err {e}")
+            small_err = max(small_err, e)
+            small[f"{k}_{tag}"] = ms
+            log(f"[20 linear] {k} x {LEN_MAIN} bp {tag} with bits "
+                f"(batch of {len(tbk.query_len)}, {pair_line(shape)}): "
+                f"kernel {ms:.3f} ms (mean of 5); equal to the plain version")
+            del kk, pp
+    out.update(lfill_batches_ms=small, lfill_small_err=small_err)
 
     # LinearNWAligner on the card.
     cfg = AlignConfig(algo=Algo.NW_LINEAR)
@@ -3273,7 +3384,8 @@ def kernel_entries(meas, by_path):
                            meas["rfill_fast4_cross_err"],
                            meas["rfill_full_cross_err"]],
         "nw_linear_fill": [meas[f"lfill_{t}_err"] for t in (
-            "ragged", "global", "textbook", "local", "dirs", "local_dirs")],
+            "ragged", "global", "textbook", "local", "dirs", "local_dirs",
+            "small")],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -3351,6 +3463,10 @@ def kernel_entries(meas, by_path):
                 "bound_by": meas["gfill_full_bound_by"],
                 "max_abs_err": meas["gfill_full_err"],
                 "timed_on": f"{N_GOTOH_DIRS} x {LEN_MAIN} bp full dirs"}
+            entry["launch"] = meas["gfill_launch"]
+            entry["batches_ms"] = {
+                f"{k} x {LEN_MAIN} bp score-only": v
+                for k, v in meas["gfill_batches_ms"].items()}
         if name == "nw_banded_fill":
             entry["bound_needed_ms"] = meas["rfill_fast4_bound_needed_ms"]
             entry["band_diagonals"] = meas["rfill_band_diagonals"]
@@ -3361,6 +3477,9 @@ def kernel_entries(meas, by_path):
             for tag in ("dirs", "local_dirs"):
                 entry[tag]["timed_on"] = f"{N_LINEAR_DIRS} x {LEN_MAIN} bp " \
                     "with path bits"
+            entry["batches_ms"] = {
+                f"{k.split('_')[0]} x {LEN_MAIN} bp {k.split('_')[1]} with "
+                "path bits": v for k, v in meas["lfill_batches_ms"].items()}
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

@@ -31,7 +31,7 @@ BUILD_DIR = os.path.join(
 _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
                  "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
                  "nw_banded.cu", "nw_linear.cu", "traceback_device.cu")
-_HEADERS = ("nw_affine_stream.cuh", "lane_shift.cuh", "cluster_split.cuh",
+_HEADERS = ("nw_affine_stream.cuh", "pair_sweep.cuh", "cluster_split.cuh",
             "stream_ring.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
             "nw_linear.cuh", "traceback_device.cuh")
@@ -159,13 +159,14 @@ def kernels() -> ctypes.CDLL:
     lib.sa_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
     lib.sa_stream_modes_fill.restype = _INT
     lib.sa_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
-    lib.sa_modes_plan.restype = _INT
-    lib.sa_modes_plan.argtypes = [_INT] * 6 + [_VP]
+    lib.sa_pair_plan.restype = _INT
+    lib.sa_pair_plan.argtypes = [_INT] * 6 + [_VP]
     lib.sa_modes_fill.restype = _INT
     lib.sa_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP] + [
         _INT] * 3 + [_VP]
     lib.sa_gotoh_fill.restype = _INT
-    lib.sa_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP]
+    lib.sa_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP] + [
+        _INT] * 3 + [_VP]
     lib.sa_sm_count.restype = _INT
     lib.sa_sm_count.argtypes = []
     lib.sa_banded_resident_ctas.restype = _INT
@@ -179,7 +180,8 @@ def kernels() -> ctypes.CDLL:
     lib.sa_banded_row_fill.restype = _INT
     lib.sa_banded_row_fill.argtypes = [_VP] * 8 + [_INT] * 13 + [_VP]
     lib.sa_linear_fill.restype = _INT
-    lib.sa_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12 + [_VP]
+    lib.sa_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12 + [_VP] + [
+        _INT] * 3 + [_VP]
     lib.sa_tiled_resident_ctas.restype = _INT
     lib.sa_tiled_resident_ctas.argtypes = [_INT] * 4
     lib.sa_tiled_fill.restype = _INT
@@ -244,6 +246,25 @@ def stream_instances(log: str) -> list:
     return rows
 
 
+def pair_instances(log: str) -> list:
+    """kernel_resources of the per-pair fills' instances
+    (pair_sweep.cuh::pair_sweep_kernel<Pol, LPT>), each with its cell
+    policy -- GotohCells<DIRS, MODE, COMPAT, WILDCARD> (kernels #6 and #7)
+    or LinearCells<DIRS, COMPAT, LOCAL> (the linear fill) -- its template
+    arguments and its lanes a thread decoded."""
+    rows = []
+    for r in kernel_resources(log, "pair_sweep_kernel"):
+        m = re.search(r"(GotohCells|LinearCells)I((?:L[ib]\d+E)+)E+Li(\d+)E",
+                      r["entry"])
+        if m:
+            r.update(policy=m.group(1),
+                     args=[int(v) for v in re.findall(r"L[ib](\d+)E",
+                                                      m.group(2))],
+                     lanes_per_thread=int(m.group(3)))
+            rows.append(r)
+    return rows
+
+
 def launch_error(name: str, rc: int, nctas: int = 1) -> RuntimeError:
     """The error a wrapper raises for a kernel entry's non-zero return."""
     if rc == -3:
@@ -283,19 +304,21 @@ def host_check() -> ctypes.CDLL:
     lib.hc_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17
     lib.hc_stream_modes_fill.restype = _INT
     lib.hc_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17
-    lib.hc_modes_plan.restype = _INT
-    lib.hc_modes_plan.argtypes = [_INT] * 6 + [_VP]
+    lib.hc_pair_plan.restype = _INT
+    lib.hc_pair_plan.argtypes = [_INT] * 6 + [_VP]
     lib.hc_modes_fill.restype = _INT
     lib.hc_modes_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP] + [
         _INT] * 3
     lib.hc_gotoh_fill.restype = _INT
-    lib.hc_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12
+    lib.hc_gotoh_fill.argtypes = [_VP] * 6 + [_INT] * 12 + [_VP] + [
+        _INT] * 3
     lib.hc_banded_fill.restype = _INT
     lib.hc_banded_fill.argtypes = [_VP] * 10 + [_INT] * 17
     lib.hc_banded_row_fill.restype = _INT
     lib.hc_banded_row_fill.argtypes = [_VP] * 7 + [_INT] * 13
     lib.hc_linear_fill.restype = _INT
-    lib.hc_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12
+    lib.hc_linear_fill.argtypes = [_VP] * 8 + [_INT] * 12 + [_VP] + [
+        _INT] * 3
     lib.hc_tiled_fill.restype = _INT
     lib.hc_tiled_fill.argtypes = [_VP] * 8 + [_INT] * 14
     lib.hc_tile_dpx.restype = None

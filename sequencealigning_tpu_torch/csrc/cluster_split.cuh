@@ -1,12 +1,12 @@
-// How the fills (nw_affine_stream.cu, nw_affine_modes.cu, nw_affine.cu,
-// nw_linear.cu) lay one row of P lanes over thread blocks, shared with the
+// How the fills lay one row of P lanes over thread blocks, shared with the
 // serial host build (host_check.cpp), plus the launcher (device builds
-// only).
+// only): the streamed fills (nw_affine_stream.cu) through plan_split, the
+// per-pair fills (pair_sweep.cuh) through stream_ring.cuh::pair_plan.
 //
 // Up to 8192 lanes one block holds the whole row, 4, 8 or 16 lanes a thread
 // in registers.  Past that the row is split over a thread-block cluster:
 // each CTA holds a contiguous slice of cta_lanes lanes (the last CTA the
-// rest), the lane shift crosses CTA edges through distributed shared memory,
+// rest), the warp rings cross CTA edges through distributed shared memory,
 // and lane 0's torus neighbour, lane P-1, lives in the last CTA.  The split
 // width can be forced (a multiple of 128) so the split can be exercised at
 // any lane width.

@@ -8,13 +8,12 @@
 //   c++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // The arguments and layouts are those of sa_stream_fill,
-// sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_banded_fill and
-// sa_tiled_fill / sa_tiled_fold_fill (their tile and strip schedules run
-// serially, tickets in order), sa_walk_fast4, sa_walk_modes and
-// sa_walk_banded (minus the stream).  The streamed fills run their warp-ring
-// schedule serially, chunk by chunk and warp by warp; the other fills' lane
-// shift follows the kernels' split of a row over CTAs: a CTA's first lane
-// takes the previous CTA's last lane (lane 0 takes lane P-1).
+// sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_linear_fill,
+// sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
+// (their tile and strip schedules run serially, tickets in order),
+// sa_walk_fast4, sa_walk_modes and sa_walk_banded (minus the stream).  The
+// streamed and per-pair fills run their warp-ring schedules serially, chunk
+// by chunk and warp by warp.
 #include <stddef.h>
 #include <stdint.h>
 
@@ -26,19 +25,11 @@
 #include "nw_banded.cuh"
 #include "nw_banded_diag.cuh"
 #include "nw_linear.cuh"
+#include "pair_sweep.cuh"
 #include "stream_ring.cuh"
 #include "traceback_device.cuh"
 
 namespace {
-
-// Lane x's left neighbour under the split sp: x-1 inside a CTA, the
-// previous CTA's last lane at a CTA's first lane.
-int left_lane(int x, const sa::Split& sp, int P) {
-  const int rank = x / sp.cta_lanes;
-  if (x != sa::cta_first_lane(rank, sp)) return x - 1;
-  const int pr = sa::prev_cta(rank, sp);
-  return sa::cta_first_lane(pr, sp) + sa::cta_real_lanes(pr, sp, P) - 1;
-}
 
 // The streamed fills (global, semi-global, local) in the kernels' warp-ring
 // schedule (stream_ring.cuh), run serially: chunk by chunk, and in each
@@ -279,24 +270,115 @@ int ring_fill(int mode, const int32_t* qstream, const int32_t* dstream,
             rg.chunk, rg.slots, rg.wrap);
 }
 
-// The per-pair modes fill in the kernel's warp-ring schedule
-// (nw_affine_modes.cu), run serially: pair by pair, chunk by chunk, and in
-// each chunk the pair's warps in order (CTA by CTA), each over its own
-// steps only (its first lane's row-0 cell to its last lane's row-n1 cell,
-// plus one when the next warp holds lanes of the pair's db), its lanes
-// starting from triangle_state.  A warp's first lane takes the left lane's
+// The per-pair fills' cells for pair_ring_host, one lane at a time: the
+// state a warp's lanes start from (wb: the warp's first lane), what a lane
+// hands the lane to its right before a step (the ring entry), one cell
+// (left: the left lane's entry; valid: the cell lies in the pair's matrix),
+// and the pair's results from its lanes once every warp has swept.
+struct Entry {
+  int32_t h, d, s;
+};
+
+// The Gotoh cell: kernel #7 in global mode (the corner's M/I/D), kernel #6
+// in the modes (each lane's running argmax).
+template <int DIRS, int MODE, bool COMPAT, bool WILDCARD>
+struct HostGotohCells {
+  static constexpr bool kDirs = DIRS != sa::kDirsNone;
+  struct Lane {
+    sa::Cell c;
+    int32_t bv, bd;
+  };
+  static Lane start(int wb, const sa::Scheme& sc) {
+    Lane l;
+    l.c = sa::triangle_state<MODE>(wb - 1, sc);
+    l.c.s1d = 0;
+    l.bv = sa::kNegBig;
+    l.bd = 0;
+    return l;
+  }
+  static Entry hand(const Lane& l, const sa::Scheme& sc) {
+    const sa::Pre p = sa::stream_pre<DIRS>(l.c, sc);
+    return {l.c.H2, p.dsel, l.c.s1d | p.dflag << 8};
+  }
+  static int32_t cell(Lane& l, const Entry& left, int x, int t, int32_t qc,
+                      bool valid, int32_t n1, int32_t n2, int32_t /*mv*/,
+                      const sa::Scheme& sc) {
+    const sa::Pre mine = sa::stream_pre<DIRS>(l.c, sc);
+    sa::Pre lp;
+    lp.t0 = 0;
+    lp.dsel = left.d;
+    lp.dflag = left.s >> 8;
+    const int32_t code = sa::stream_cell<DIRS, MODE, COMPAT, WILDCARD>(
+        l.c, mine, left.h, lp, left.s & 0xff, x == 0, x == t, t, qc, l.c.s2v,
+        sc);
+    if (MODE != sa::kModeGlobal) {
+      sa::modes_update<MODE>(x, t - x, t, n1, n2, l.c.M1, l.c.H1, l.bv,
+                             l.bd);
+    }
+    return valid ? code : 0;
+  }
+  static void finish(const std::vector<Lane>& lanes, const sa::PairArgs& a,
+                     int b, int32_t n2, bool corner) {
+    if (MODE == sa::kModeGlobal) {
+      if (corner) {
+        a.out[static_cast<size_t>(b) * 3 + 0] = lanes[n2].c.M1;
+        a.out[static_cast<size_t>(b) * 3 + 1] = lanes[n2].c.I1;
+        a.out[static_cast<size_t>(b) * 3 + 2] = lanes[n2].c.D1;
+      }
+      return;
+    }
+    const size_t stride = static_cast<size_t>(a.B) * a.P;
+    for (int x = 0; x < a.P; ++x) {
+      a.out[static_cast<size_t>(b) * a.P + x] = lanes[x].bv;
+      a.out[stride + static_cast<size_t>(b) * a.P + x] = lanes[x].bd;
+    }
+  }
+};
+
+// The linear cell: the corner's score into out[b], the maximum over the
+// pair's cells into out2[b].  Its lanes start from lin_init.
+template <bool DIRS, bool COMPAT, bool LOCAL>
+struct HostLinearCells {
+  static constexpr bool kDirs = DIRS;
+  struct Lane {
+    sa::LinCell c;
+  };
+  static Lane start(int /*wb*/, const sa::Scheme&) { return {sa::lin_init()}; }
+  static Entry hand(const Lane& l, const sa::Scheme&) {
+    return {l.c.S2, l.c.S1, l.c.s1d | l.c.G1 << 8};
+  }
+  static int32_t cell(Lane& l, const Entry& left, int x, int t, int32_t qc,
+                      bool valid, int32_t, int32_t, int32_t mv,
+                      const sa::Scheme& sc) {
+    const int32_t code = sa::linear_cell<COMPAT, LOCAL, DIRS>(
+        l.c, left.h, left.d, left.s >> 8, left.s & 0xff, x == 0, x == t, t,
+        qc, valid, mv, sc);
+    return valid ? code : 0;
+  }
+  static void finish(const std::vector<Lane>& lanes, const sa::PairArgs& a,
+                     int b, int32_t n2, bool corner) {
+    if (corner) a.out[b] = lanes[n2].c.S1;
+    for (const Lane& l : lanes) a.out2[b] = sa::imax(a.out2[b], l.c.best);
+  }
+};
+
+// The per-pair fills in the kernels' warp-ring schedule (pair_sweep.cuh),
+// run serially: pair by pair, chunk by chunk, and in each chunk the pair's
+// warps in order (CTA by CTA), each over its own steps only (its first
+// lane's row-0 cell to its last lane's row-n1 cell, plus one when the next
+// warp holds lanes of the pair's db, never past the last step), its lanes
+// starting from Pol::start.  A warp's first lane takes the left lane's
 // pre-step values from its ring slot, written by the warp to its left in
-// this chunk's pass; lane 0 takes the step's query code and no D bits.
-// Every wait is checked in that order: one that would not hold returns
-// kRingUnmet.  Bytes of cells outside the pair's matrix are 0, and so is
-// every word a warp does not sweep.
-template <int DIRS, int MODE, bool WILDCARD>
-int pair_ring_host(const int32_t* query, const int32_t* s2v,
-                   const int32_t* n1s, const int32_t* n2s, int32_t* out,
-                   uint32_t* dirs, int B, int L1, int P, int D_total,
-                   const sa::Scheme& sc, const sa::Split& sp, int C,
+// this chunk's pass; lane 0 takes the step's query code and nothing from
+// the left.  Every wait is checked in that order: one that would not hold
+// returns kRingUnmet.  Bytes of cells outside the pair's matrix are 0, and
+// so is every word a warp does not sweep.
+template <class Pol>
+int pair_ring_host(const sa::PairArgs& a, const sa::Split& sp, int C,
                    int slots) {
-  constexpr bool kDirs = DIRS != sa::kDirsNone;
+  using Lane = typename Pol::Lane;
+  const int B = a.B, L1 = a.L1, P = a.P, D_total = a.D_total;
+  const sa::Scheme& sc = a.sc;
   const int wlanes = 32 * sp.lpt;
   std::vector<int> w0, w1;
   for (int rank = 0; rank < sp.nctas; ++rank) {
@@ -308,44 +390,38 @@ int pair_ring_host(const int32_t* query, const int32_t* s2v,
     }
   }
   const int G = static_cast<int>(w0.size());
-  struct Entry {
-    int32_t h, d, s;
-  };
   const int W = (D_total + 3) / 4;
   const size_t stride = static_cast<size_t>(B) * P;
-  std::vector<sa::Cell> c(P);
-  std::vector<sa::Pre> pre(P);
+  std::vector<Lane> lanes(P);
   std::vector<uint32_t> acc(P);
-  std::vector<int32_t> bv(P), bd(P);
   std::vector<Entry> ring(static_cast<size_t>(G) * slots * C);
   std::vector<int32_t> full(G), freed(G);
   std::vector<char> active(G), has_next(G);
   std::vector<int> t_end(G);
   for (int b = 0; b < B; ++b) {
-    const int32_t n1 = n1s[b], n2 = n2s[b];
-    uint32_t* drow = dirs + static_cast<size_t>(b) * P;
+    const int32_t n1 = a.n1s[b], n2 = a.n2s[b];
+    const int32_t mv = a.maxv != nullptr ? a.maxv[b] : 0;
+    uint32_t* drow = a.dirs + static_cast<size_t>(b) * P;
     int k_last = -1;
     for (int g = 0; g < G; ++g) {
       active[g] = n1 >= 0 && n2 >= 0 && w0[g] <= n2;
       has_next[g] = active[g] && w1[g] <= n2;
       const int last = w1[g] - 1 < n2 ? w1[g] - 1 : n2;
       t_end[g] = last + n1 + (has_next[g] ? 1 : 0);
+      if (t_end[g] > D_total - 1) t_end[g] = D_total - 1;
       full[g] = 0;
       freed[g] = w1[g] / C;
-      const sa::Cell tri = sa::triangle_state<MODE>(w0[g] - 1, sc);
+      const Lane first = Pol::start(w0[g], sc);
       for (int x = w0[g]; x < w1[g]; ++x) {
-        c[x] = tri;
-        c[x].s1d = 0;
-        c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
+        lanes[x] = first;
+        lanes[x].c.s2v = a.s2v[static_cast<size_t>(b) * P + x];
         acc[x] = 0;
-        bv[x] = sa::kNegBig;
-        bd[x] = 0;
       }
       // Words the warp does not sweep (all of them for an idle warp).
       const int lo_w = active[g] ? w0[g] / 4 : W;
       const int hi_w = active[g] ? t_end[g] / 4 + 1 : W;
       for (int w = 0; w < W; ++w) {
-        if (kDirs && (w < lo_w || w >= hi_w)) {
+        if (Pol::kDirs && (w < lo_w || w >= hi_w)) {
           for (int x = w0[g]; x < w1[g]; ++x) drow[w * stride + x] = 0;
         }
       }
@@ -356,8 +432,8 @@ int pair_ring_host(const int32_t* query, const int32_t* s2v,
         if (!active[g] || k * C > t_end[g] || k * C + C - 1 < w0[g]) {
           continue;
         }
-        const int a = w0[g], e_lanes = w1[g];
-        if (g > 0 && w0[g] > 0 && k * C <= a + n1 &&
+        const int lo = w0[g], hi = w1[g];
+        if (g > 0 && w0[g] > 0 && k * C <= lo + n1 &&
             full[g] < sa::ring_full_need(k)) {
           return sa::kRingUnmet;
         }
@@ -369,46 +445,27 @@ int pair_ring_host(const int32_t* query, const int32_t* s2v,
             has_next[g]
                 ? &ring[(static_cast<size_t>(g + 1) * slots + k % slots) * C]
                 : nullptr;
-        const int t_lo = k * C > a ? k * C : a;
+        const int t_lo = k * C > lo ? k * C : lo;
         const int t_hi = k * C + C - 1 < t_end[g] ? k * C + C - 1 : t_end[g];
         for (int t = t_lo; t <= t_hi; ++t) {
           const int e = t - k * C;
           const int q = t - 1 < 0 ? 0 : (t - 1 > L1 - 1 ? L1 - 1 : t - 1);
-          const int32_t qc = query[static_cast<size_t>(b) * L1 + q];
-          for (int x = a; x < e_lanes; ++x) {
-            pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-          }
-          const int l = e_lanes - 1;
-          if (rout != nullptr) {
-            rout[e] = {c[l].H2, pre[l].dsel, c[l].s1d | pre[l].dflag << 8};
-          }
-          // Lane 0's left lane hands over nothing (no D bits).
-          const Entry left = a == 0 ? Entry{0, 0, 0} : rin[e];
-          for (int x = e_lanes - 1; x >= a; --x) {
-            int32_t lh, ls;
-            sa::Pre lp;
-            if (x == a) {
-              lh = left.h;
-              lp.t0 = 0;
-              lp.dsel = left.d;
-              lp.dflag = left.s >> 8;
-              ls = left.s & 0xff;
-            } else {
-              lh = c[x - 1].H2;
-              lp = pre[x - 1];
-              ls = c[x - 1].s1d;
-            }
-            int32_t code = sa::stream_cell<DIRS, MODE, false, WILDCARD>(
-                c[x], pre[x], lh, lp, ls, x == 0, x == t, t, qc, c[x].s2v,
-                sc);
-            const uint32_t lim = x <= n2 ? static_cast<uint32_t>(n1 + 1) : 0u;
-            if (static_cast<uint32_t>(t - x) >= lim) code = 0;
+          const int32_t qc = a.query[static_cast<size_t>(b) * L1 + q];
+          if (rout != nullptr) rout[e] = Pol::hand(lanes[hi - 1], sc);
+          // Lane 0's left lane hands over nothing.
+          const Entry left = lo == 0 ? Entry{0, 0, 0} : rin[e];
+          // Right to left, so lane x-1 still holds its pre-step state.
+          for (int x = hi - 1; x >= lo; --x) {
+            const Entry l = x == lo ? left : Pol::hand(lanes[x - 1], sc);
+            const uint32_t lim =
+                x <= n2 ? static_cast<uint32_t>(n1 + 1) : 0u;
+            const bool valid = static_cast<uint32_t>(t - x) < lim;
+            const int32_t code =
+                Pol::cell(lanes[x], l, x, t, qc, valid, n1, n2, mv, sc);
             acc[x] |= static_cast<uint32_t>(code) << (8u * (t & 3));
-            sa::modes_update<MODE>(x, t - x, t, n1, n2, c[x].M1, c[x].H1,
-                                   bv[x], bd[x]);
           }
-          if (kDirs && ((t & 3) == 3 || t == t_end[g])) {
-            for (int x = a; x < e_lanes; ++x) {
+          if (Pol::kDirs && ((t & 3) == 3 || t == t_end[g])) {
+            for (int x = lo; x < hi; ++x) {
               drow[static_cast<size_t>(t >> 2) * stride + x] = acc[x];
               acc[x] = 0;
             }
@@ -418,88 +475,30 @@ int pair_ring_host(const int32_t* query, const int32_t* s2v,
         if (has_next[g]) full[g + 1] = k + 1;
       }
     }
-    for (int x = 0; x < P; ++x) {
-      out[static_cast<size_t>(b) * P + x] = bv[x];
-      out[stride + static_cast<size_t>(b) * P + x] = bd[x];
-    }
+    // The corner: lane n2 has swept its row-n1 cell.
+    const bool corner = n1 >= 0 && n2 >= 0 && n1 + n2 <= D_total - 1;
+    Pol::finish(lanes, a, b, n2, corner);
   }
   return 0;
 }
 
-// The per-pair global fill of one pair at a time (sa_gotoh_fill), with its
-// corner capture: M/I/D added over the lanes where n2mask is set, on the
-// pair's diagonal dsum.
-template <int DIRS, bool COMPAT, bool WILDCARD>
-void gotoh_host(const int32_t* query, const int32_t* s2v,
-                const int32_t* dsum, const int32_t* n2mask, int32_t* finals,
-                uint32_t* dirs, int B, int L1p, int P, int D_total,
-                const sa::Scheme& sc, const sa::Split& sp) {
-  std::vector<sa::Cell> c(P), c0(P);
-  std::vector<sa::Pre> pre(P);
-  std::vector<uint32_t> acc(P);
-  for (int b = 0; b < B; ++b) {
-    for (int x = 0; x < P; ++x) {
-      c[x] = sa::cell_init(sa::kNegInf);
-      c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
-      acc[x] = 0;
-    }
-    for (int d = 0; d < D_total; ++d) {
-      const int q = d - 1 < 0 ? 0 : (d - 1 > L1p - 1 ? L1p - 1 : d - 1);
-      const int32_t qc = query[static_cast<size_t>(b) * L1p + q];
-      for (int x = 0; x < P; ++x) pre[x] = sa::stream_pre<DIRS>(c[x], sc);
-      c0 = c;
-      for (int x = P - 1; x >= 0; --x) {
-        const int l = left_lane(x, sp, P);
-        const int32_t code =
-            sa::stream_cell<DIRS, sa::kModeGlobal, COMPAT, WILDCARD>(
-                c[x], pre[x], c0[l].H2, pre[l], c0[l].s1d, x == 0, x == d, d,
-                qc, c[x].s2v, sc);
-        acc[x] |= static_cast<uint32_t>(code) << (8u * (d & 3));
-      }
-      if (d == dsum[b]) {
-        for (int x = 0; x < P; ++x) {
-          if (n2mask[static_cast<size_t>(b) * P + x] == 0) continue;
-          finals[static_cast<size_t>(b) * 3 + 0] += c[x].M1;
-          finals[static_cast<size_t>(b) * 3 + 1] += c[x].I1;
-          finals[static_cast<size_t>(b) * 3 + 2] += c[x].D1;
-        }
-      }
-      if (DIRS != sa::kDirsNone && ((d & 3) == 3 || d == D_total - 1)) {
-        for (int x = 0; x < P; ++x) {
-          dirs[(static_cast<size_t>(d >> 2) * B + b) * P + x] = acc[x];
-          acc[x] = 0;
-        }
-      }
-    }
-  }
-}
-
-typedef void (*HostGotoh)(const int32_t*, const int32_t*, const int32_t*,
-                          const int32_t*, int32_t*, uint32_t*, int, int, int,
-                          int, const sa::Scheme&, const sa::Split&);
-
-template <int DIRS>
-HostGotoh pick_gotoh(bool compat, bool wildcard) {
-  if (compat) {
-    return wildcard ? gotoh_host<DIRS, true, true>
-                    : gotoh_host<DIRS, true, false>;
-  }
-  return wildcard ? gotoh_host<DIRS, false, true>
-                  : gotoh_host<DIRS, false, false>;
-}
-
-typedef int (*HostPerPair)(const int32_t*, const int32_t*, const int32_t*,
-                           const int32_t*, int32_t*, uint32_t*, int, int, int,
-                           int, const sa::Scheme&, const sa::Split&, int, int);
-
-template <int DIRS, int MODE>
-HostPerPair pick_modes(bool wildcard) {
-  return wildcard ? pair_ring_host<DIRS, MODE, true>
-                  : pair_ring_host<DIRS, MODE, false>;
-}
-
 // The SM count the host build plans the per-pair split for (an H100).
 constexpr int kHostSms = 132;
+
+// A per-pair fill of Pol split and ringed as the kernels' wrappers plan it
+// (for kHostSms SMs; knobs: cta_lanes, lpt, chunk, slots, 0 the default),
+// run serially: -1 for an out-of-range shape, kRingUnmet for a schedule
+// whose waits would not hold.
+template <class Pol>
+int run_pair(const sa::PairArgs& a, const int (&knobs)[4]) {
+  const sa::Split sp = sa::pair_plan(a.P, a.B, kHostSms, knobs[0], knobs[1]);
+  const sa::RingShape rg = sa::ring_shape(knobs[2], knobs[3], 0, true);
+  if (sp.nctas == 0 || a.B <= 0 || a.L1 <= 0 || a.D_total <= 0 ||
+      !sa::ring_ok(rg)) {
+    return -1;
+  }
+  return pair_ring_host<Pol>(a, sp, rg.chunk, rg.slots);
+}
 
 }  // namespace
 
@@ -581,51 +580,78 @@ extern "C" int hc_modes_fill(const int32_t* query, const int32_t* s2v,
                              int local, int wildcard, int cta_lanes,
                              int32_t* /*status*/, int lpt, int chunk,
                              int slots) {
-  const sa::Split sp = sa::pair_plan(P, B, kHostSms, cta_lanes, lpt);
-  const sa::RingShape rg = sa::ring_shape(chunk, slots, 0, true);
-  if (sp.nctas == 0 || B <= 0 || L1 <= 0 || D_total <= 0 ||
-      !sa::ring_ok(rg)) {
-    return -1;
+  const sa::PairArgs a{query, s2v,     n1, n2, nullptr, out, nullptr,
+                       dirs,  nullptr, B,  L1, P,       D_total,
+                       {match, mismatch, gap_open, gap_extend}};
+  const int k[4] = {cta_lanes, lpt, chunk, slots};
+  using sa::kDirsFull;
+  using sa::kDirsNone;
+  using sa::kModeLocal;
+  using sa::kModeSemi;
+  const bool w = wildcard != 0;
+  if (dirs_mode == kDirsNone) {
+    if (local) {
+      return w ? run_pair<HostGotohCells<kDirsNone, kModeLocal, false, true>>(
+                     a, k)
+               : run_pair<HostGotohCells<kDirsNone, kModeLocal, false,
+                                         false>>(a, k);
+    }
+    return w ? run_pair<HostGotohCells<kDirsNone, kModeSemi, false, true>>(
+                   a, k)
+             : run_pair<HostGotohCells<kDirsNone, kModeSemi, false, false>>(
+                   a, k);
   }
-  HostPerPair fn = nullptr;
-  if (dirs_mode == sa::kDirsNone) {
-    fn = local ? pick_modes<sa::kDirsNone, sa::kModeLocal>(wildcard)
-               : pick_modes<sa::kDirsNone, sa::kModeSemi>(wildcard);
-  } else if (dirs_mode == sa::kDirsFull) {
-    fn = local ? pick_modes<sa::kDirsFull, sa::kModeLocal>(wildcard)
-               : pick_modes<sa::kDirsFull, sa::kModeSemi>(wildcard);
+  if (dirs_mode != kDirsFull) return -1;
+  if (local) {
+    return w ? run_pair<HostGotohCells<kDirsFull, kModeLocal, false, true>>(
+                   a, k)
+             : run_pair<HostGotohCells<kDirsFull, kModeLocal, false, false>>(
+                   a, k);
   }
-  if (fn == nullptr) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  return fn(query, s2v, n1, n2, out, dirs, B, L1, P, D_total, sc, sp,
-            rg.chunk, rg.slots);
+  return w ? run_pair<HostGotohCells<kDirsFull, kModeSemi, false, true>>(a, k)
+           : run_pair<HostGotohCells<kDirsFull, kModeSemi, false, false>>(a,
+                                                                          k);
 }
 
-// The per-pair modes fill's launch shape (sa_modes_plan, for kHostSms SMs).
-extern "C" int hc_modes_plan(int P, int B, int cta_lanes, int lpt, int chunk,
-                             int slots, int* shape) {
+// The per-pair fills' launch shape (sa_pair_plan, for kHostSms SMs).
+extern "C" int hc_pair_plan(int P, int B, int cta_lanes, int lpt, int chunk,
+                            int slots, int* shape) {
   return sa::pair_launch_shape(P, B, kHostSms, cta_lanes, lpt, chunk, slots,
                                shape);
 }
 
+// sa_gotoh_fill's arguments minus the stream (as hc_modes_fill).
 extern "C" int hc_gotoh_fill(const int32_t* query, const int32_t* s2v,
-                             const int32_t* dsum, const int32_t* n2mask,
+                             const int32_t* n1, const int32_t* n2,
                              int32_t* finals, uint32_t* dirs, int B, int L1p,
                              int P, int D_total, int match, int mismatch,
                              int gap_open, int gap_extend, int dirs_mode,
-                             int compat, int wildcard, int cta_lanes) {
-  const sa::Split sp = sa::plan_split(P, cta_lanes);
-  if (sp.nctas == 0) return -1;
-  HostGotoh fn = nullptr;
+                             int compat, int wildcard, int cta_lanes,
+                             int32_t* /*status*/, int lpt, int chunk,
+                             int slots) {
+  const sa::PairArgs a{query, s2v,     n1, n2,  nullptr, finals, nullptr,
+                       dirs,  nullptr, B,  L1p, P,       D_total,
+                       {match, mismatch, gap_open, gap_extend}};
+  const int k[4] = {cta_lanes, lpt, chunk, slots};
+  constexpr int G = sa::kModeGlobal;
+  const bool c = compat != 0, w = wildcard != 0;
   if (dirs_mode == sa::kDirsNone) {
-    fn = pick_gotoh<sa::kDirsNone>(compat != 0, wildcard != 0);
-  } else if (dirs_mode == sa::kDirsFull) {
-    fn = pick_gotoh<sa::kDirsFull>(compat != 0, wildcard != 0);
+    constexpr int N = sa::kDirsNone;
+    if (c) {
+      return w ? run_pair<HostGotohCells<N, G, true, true>>(a, k)
+               : run_pair<HostGotohCells<N, G, true, false>>(a, k);
+    }
+    return w ? run_pair<HostGotohCells<N, G, false, true>>(a, k)
+             : run_pair<HostGotohCells<N, G, false, false>>(a, k);
   }
-  if (fn == nullptr) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(query, s2v, dsum, n2mask, finals, dirs, B, L1p, P, D_total, sc, sp);
-  return 0;
+  if (dirs_mode != sa::kDirsFull) return -1;
+  constexpr int F = sa::kDirsFull;
+  if (c) {
+    return w ? run_pair<HostGotohCells<F, G, true, true>>(a, k)
+             : run_pair<HostGotohCells<F, G, true, false>>(a, k);
+  }
+  return w ? run_pair<HostGotohCells<F, G, false, true>>(a, k)
+           : run_pair<HostGotohCells<F, G, false, false>>(a, k);
 }
 
 extern "C" int hc_walk_modes(const uint32_t* dirs, int W, int R, int P,
@@ -1237,61 +1263,6 @@ HostRow pick_row(bool compat, bool wildcard) {
                   : banded_row_host<DIRS, false, false>;
 }
 
-// The linear fill (nw_linear.cu), serially, lanes shifted as the kernel's
-// split shifts them.
-template <bool DIRS, bool COMPAT, bool LOCAL>
-void linear_host(const int32_t* query, const int32_t* s2v,
-                 const int32_t* n1v, const int32_t* n2v,
-                 const int32_t* maxv, int32_t* corner, int32_t* runmax,
-                 uint32_t* dirs, int B, int L1p, int P, int D_total,
-                 const sa::Scheme& sc, const sa::Split& sp) {
-  std::vector<sa::LinCell> c(P), c0(P);
-  std::vector<uint32_t> acc(P);
-  for (int b = 0; b < B; ++b) {
-    const int32_t n1 = n1v[b], n2 = n2v[b];
-    for (int x = 0; x < P; ++x) {
-      c[x] = sa::lin_init();
-      c[x].s2v = s2v[static_cast<size_t>(b) * P + x];
-      acc[x] = 0;
-    }
-    for (int d = 0; d < D_total; ++d) {
-      const int q = d - 1 < 0 ? 0 : (d - 1 > L1p - 1 ? L1p - 1 : d - 1);
-      const int32_t qc = query[static_cast<size_t>(b) * L1p + q];
-      c0 = c;  // the neighbours' state before the step
-      for (int x = 0; x < P; ++x) {
-        const sa::LinCell& l = c0[left_lane(x, sp, P)];
-        const int32_t code = sa::linear_cell<COMPAT, LOCAL, DIRS>(
-            c[x], l.S2, l.S1, l.G1, l.s1d, x == 0, x == d, d, qc,
-            sa::linear_valid(x, d, n1, n2), maxv[b], sc);
-        if (DIRS) acc[x] |= static_cast<uint32_t>(code) << (8u * (d & 3));
-        if (d == n1 + n2 && x == n2) corner[b] += c[x].S1;
-      }
-      if (DIRS && ((d & 3) == 3 || d == D_total - 1)) {
-        for (int x = 0; x < P; ++x) {
-          dirs[(static_cast<size_t>(d >> 2) * B + b) * P + x] = acc[x];
-          acc[x] = 0;
-        }
-      }
-    }
-    for (int x = 0; x < P; ++x) runmax[b] = sa::imax(runmax[b], c[x].best);
-  }
-}
-
-typedef void (*HostLinear)(const int32_t*, const int32_t*, const int32_t*,
-                           const int32_t*, const int32_t*, int32_t*,
-                           int32_t*, uint32_t*, int, int, int, int,
-                           const sa::Scheme&, const sa::Split&);
-
-template <bool DIRS>
-HostLinear pick_linear(bool compat, bool local) {
-  if (local) {
-    return compat ? linear_host<DIRS, true, true>
-                  : linear_host<DIRS, false, true>;
-  }
-  return compat ? linear_host<DIRS, true, false>
-                : linear_host<DIRS, false, false>;
-}
-
 }  // namespace
 
 // sa_banded_row_fill minus the scratch and the stream; chunk_lanes as the
@@ -1320,20 +1291,33 @@ extern "C" int hc_banded_row_fill(const int32_t* s1w0, const int32_t* qin,
   return 0;
 }
 
-// sa_linear_fill minus the stream.
+// sa_linear_fill's arguments minus the stream (as hc_modes_fill).
 extern "C" int hc_linear_fill(const int32_t* query, const int32_t* s2v,
                               const int32_t* n1v, const int32_t* n2v,
                               const int32_t* maxv, int32_t* corner,
                               int32_t* runmax, uint32_t* dirs, int B, int L1p,
                               int P, int D_total, int match, int mismatch,
                               int gap_open, int gap_extend, int with_dirs,
-                              int compat, int local, int cta_lanes) {
-  const sa::Split sp = sa::plan_split(P, cta_lanes);
-  if (sp.nctas == 0 || B <= 0 || L1p <= 0 || D_total <= 0) return -1;
-  HostLinear fn = with_dirs ? pick_linear<true>(compat != 0, local != 0)
-                            : pick_linear<false>(compat != 0, local != 0);
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  fn(query, s2v, n1v, n2v, maxv, corner, runmax, dirs, B, L1p, P, D_total, sc,
-     sp);
-  return 0;
+                              int compat, int local, int cta_lanes,
+                              int32_t* /*status*/, int lpt, int chunk,
+                              int slots) {
+  const sa::PairArgs a{query, s2v,     n1v, n2v, maxv, corner, runmax,
+                       dirs,  nullptr, B,   L1p, P,    D_total,
+                       {match, mismatch, gap_open, gap_extend}};
+  const int k[4] = {cta_lanes, lpt, chunk, slots};
+  const bool c = compat != 0, l = local != 0;
+  if (with_dirs) {
+    if (l) {
+      return c ? run_pair<HostLinearCells<true, true, true>>(a, k)
+               : run_pair<HostLinearCells<true, false, true>>(a, k);
+    }
+    return c ? run_pair<HostLinearCells<true, true, false>>(a, k)
+             : run_pair<HostLinearCells<true, false, false>>(a, k);
+  }
+  if (l) {
+    return c ? run_pair<HostLinearCells<false, true, true>>(a, k)
+             : run_pair<HostLinearCells<false, false, true>>(a, k);
+  }
+  return c ? run_pair<HostLinearCells<false, true, false>>(a, k)
+           : run_pair<HostLinearCells<false, false, false>>(a, k);
 }

@@ -53,11 +53,11 @@
 #include <stdint.h>
 
 #include "cluster_split.cuh"
-#include "lane_shift.cuh"
 #include "nw_affine_tiled.cuh"
 
 namespace {
 
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxChunk = 128;         // rows staged at a time, at most
 constexpr int kMaxStripLanes = 4096;   // lanes a CTA at most
 using sa::kSmWords;
@@ -153,17 +153,16 @@ struct Lanes {
 // Moves each thread's last-lane values (h, d, s) to the next thread's
 // first lane: a shuffle inside a warp, shared memory at warp edges
 // (double-buffered by step parity: one barrier a step).  Thread 0 receives
-// nothing (its lane 0 reads the staged column), so the torus wrap and the
-// cluster mapping of lane_shift.cuh::shift_lanes are left out.
+// nothing (its lane 0 reads the staged column).
 __device__ __forceinline__ void shift_strip(int32_t (&edge)[2][3][32], int j,
                                             int buf, int32_t& h, int32_t& d,
                                             int32_t& s) {
   const int warp = j >> 5;
   const int wl = j & 31;
   const int32_t eH = h, eD = d, eS = s;
-  h = __shfl_up_sync(sa::kFullMask, eH, 1);
-  d = __shfl_up_sync(sa::kFullMask, eD, 1);
-  s = __shfl_up_sync(sa::kFullMask, eS, 1);
+  h = __shfl_up_sync(kFullMask, eH, 1);
+  d = __shfl_up_sync(kFullMask, eD, 1);
+  s = __shfl_up_sync(kFullMask, eS, 1);
   if (wl == 31) {
     edge[buf][0][warp] = eH;
     edge[buf][1][warp] = eD;

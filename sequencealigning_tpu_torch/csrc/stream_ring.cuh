@@ -69,23 +69,26 @@ SA_HD Split stream_plan(int P, int cta_lanes, bool modes, int lpt) {
   return sp;
 }
 
-// The per-pair modes fill (nw_affine_modes.cu) on the same rings: each
-// pair's row of P lanes over a cluster of CTAs of a few warps, so a small
-// batch fills the card.  Its CTAs hold at most 256 threads at 2 or 4 lanes
-// a thread (so a thread may keep its lanes in up to 255 registers), 512 at
-// 8 or 16 (128 registers).
+// The per-pair fills (pair_sweep.cuh: kernels #6 and #7 and the linear
+// fill) on the same rings: each pair's row of P lanes over a cluster of
+// CTAs of a few warps, so a small batch fills the card.  Their CTAs hold
+// at most 256 threads at 2 or 4 lanes a thread (so a thread may keep its
+// lanes in up to 255 registers), 512 at 8 or 16 (128 registers).
 SA_HD constexpr int pair_max_threads(int lpt) { return lpt <= 4 ? 256 : 512; }
 
 // The split of a pair's P lanes when B pairs share a card of `sms` SMs:
 // CTAs of 256 lanes, or fewer CTAs a pair where B of them would pass 3/4 of
-// the SMs (at least one CTA a pair, at most 16, at most 8192 lanes a CTA),
-// each a multiple of 128 lanes; 2 lanes a thread where 256 threads hold a
-// CTA's lanes, else 4, 8 or 16.  (On an NVIDIA H100 80GB HBM3 at 700 W,
-// the fastest splits timed: one pair of 2046 bp in 9 CTAs of 256 lanes x 2
-// a thread, 1.31 ms; 31 pairs in 3 CTAs a pair at 4 lanes a thread, 2.04
-// ms; chip_smoke.py phase 6.)  cta_lanes > 0 forces the CTA width (as
-// plan_split: at most 16 CTAs) and lpt > 0 the lanes a thread.  nctas ==
-// 0: out of range.
+// the SMs, but three a pair at least from 768 lanes a pair (two from 512;
+// at most 16 CTAs, at most 8192 lanes a CTA), each a multiple of 128
+// lanes; 2 lanes a thread where 256 threads hold a CTA's lanes, else 4, 8
+// or 16.  (On an NVIDIA H100 80GB HBM3 at 700 W, the fastest splits timed:
+// one pair of 2046 bp in 9 CTAs of 256 lanes x 2 a thread, 1.31 ms; 31
+// pairs in 3 CTAs a pair at 4 lanes a thread, 2.04 ms; chip_smoke.py phase
+// 6; for kernel #7 and the linear fill at 512 and 4096 pairs, 3 CTAs a
+// pair at 4 lanes a thread, 2 at 8 within 1-7%, one CTA of 272 threads up
+// to 1.45x slower, csrc/stream_sweep.py --pairs.)  cta_lanes > 0
+// forces the CTA width (as plan_split: at most 16 CTAs) and lpt > 0 the
+// lanes a thread.  nctas == 0: out of range.
 SA_HD Split pair_plan(int P, int B, int sms, int cta_lanes, int lpt) {
   Split sp = {0, 0, 0};
   if (P <= 0 || P % 128 != 0 || B <= 0) return sp;
@@ -94,6 +97,9 @@ SA_HD Split pair_plan(int P, int B, int sms, int cta_lanes, int lpt) {
     int want = (units + 1) / 2;            // CTAs of 256 lanes
     const int fill = 3 * sms / 4 / B;      // CTAs a pair the card holds
     want = want < fill ? want : fill;
+    // Many pairs: still three CTAs a pair (two below 768 lanes).
+    const int least = units >= 6 ? 3 : units >= 4 ? 2 : 1;
+    want = want < least ? least : want;
     const int fit = (P + 8191) / 8192;     // CTAs of at most 8192 lanes
     want = want < fit ? fit : want > kMaxClusterCtas ? kMaxClusterCtas : want;
     cta_lanes = (units + want - 1) / want * 128;
@@ -156,7 +162,7 @@ SA_HD int stream_launch_shape(int P, int cta_lanes, bool modes, int lpt,
   return 0;
 }
 
-// The per-pair modes fill's launch shape (sa_modes_plan, hc_modes_plan):
+// The per-pair fills' launch shape (sa_pair_plan, hc_pair_plan):
 // shape[0..4] = lanes a thread, threads a CTA, CTAs a pair, chunk steps,
 // slots; -1 when the split or the rings are out of range.
 SA_HD int pair_launch_shape(int P, int B, int sms, int cta_lanes, int lpt,

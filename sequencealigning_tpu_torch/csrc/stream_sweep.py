@@ -26,10 +26,16 @@ configuration's outputs are held against the plain version (finals or
 argmax buffers and the whole dirs tensor) and every other configuration's
 against the default's.  --configs N keeps the first N configurations a
 shape; --others also times kernels #3, #4 and #5 (batches A and B), #6
-(1, 4 and 31 pairs), #7, #8, the linear fill, the fast4 and modes walks
-(main shape) and the banded walk (config 4, batches A and B) at their
-chip_smoke shapes (default routes), each the mean of 5 launches after a
-warm-up, for comparing checkouts; --long
+(1, 4 and 31 pairs), #7 (score-only, and full dirs at 512 pairs), #8,
+the linear fill (global, textbook and local score-only at the main shape,
+global and local with bits at 512 pairs, one pair in the aligner's batch
+of 8), the fast4 and modes walks (main shape) and the banded walk
+(config 4, batches A and B) at their chip_smoke shapes (default routes),
+each the mean of 5 launches after a warm-up, for comparing checkouts;
+--pairs times only kernels #6 and #7 and the linear fill at 1, 31, 512
+and 4096 pairs of the main length over their knobs (CTA width, lanes a
+thread, chunk), after holding them against their plain versions on small
+ragged batches under forced knobs (this checkout only); --long
 times both fills on rows of 4097-8192 lanes (one CTA, 16 lanes a thread)
 and past 8192 (a cluster a row), the kernels held against their plain
 versions on the first rows; --pipeline times the runner's fused
@@ -61,6 +67,18 @@ import torch
 GLOBAL_CONFIGS = ((8, 32, 2), (8, 8, 4), (8, 16, 2), (4, 16, 4),
                   (16, 16, 4))
 MODES_CONFIGS = ((4, 16, 4), (4, 24, 2), (4, 8, 4), (8, 32, 2))
+# --pairs: batches of the main length, and the per-pair fills' forced
+# knobs (cta_lanes, lanes_per_thread, chunk) timed after the default at
+# each batch size.
+PAIR_BATCHES = (1, 31, 512, 4096)
+PAIR_CONFIGS = {
+    1: ((0, 4, 32), (384, 2, 32), (512, 2, 32), (0, 2, 16), (256, 2, 8)),
+    31: ((0, 8, 32), (2176, 8, 32), (1152, 8, 32), (0, 4, 16), (384, 2, 32)),
+    512: ((0, 16, 32), (1152, 8, 32), (768, 4, 32), (0, 8, 16),
+          (512, 2, 32)),
+    4096: ((0, 16, 32), (1152, 8, 32), (768, 4, 32), (0, 8, 16),
+           (512, 2, 32)),
+}
 # --long: (name, kind, pairs, bp) -- rows of ~6016-6144 lanes (one CTA of
 # 16 lanes a thread) and of ~10112-10240 lanes (three CTAs of 8 lanes a
 # thread a row, the rings crossing CTAs); 40-136 rows, dirs of 22-38 GB.
@@ -258,11 +276,167 @@ def _pipeline(chip_smoke, par, pack_batch, trim_for_stream, n_batches=8):
     return queued, done, rates
 
 
+def _pair_dirs_ok(torch_, chip_smoke, got, want, n1s, n2s) -> bool:
+    """A per-pair fill's dirs against its plain version's: equal on every
+    cell 0 <= x <= n2, 0 <= y <= n1 of each pair (lane 0's D bits aside)
+    and 0 on every other byte."""
+    W, B, P = got.shape
+    if chip_smoke.valid_cell_diff(torch_, got, want,
+                                  [(b, 0) for b in range(B)], n1s, n2s,
+                                  "full"):
+        return False
+    dev = got.device
+    g = got.view(torch_.uint8).view(W, B, P, 4)
+    d = (torch_.arange(W, device=dev)[:, None, None, None] * 4
+         + torch_.arange(4, device=dev))
+    x = torch_.arange(P, device=dev)[None, None, :, None]
+    n1 = torch_.as_tensor(np.asarray(n1s), device=dev)[None, :, None, None]
+    n2 = torch_.as_tensor(np.asarray(n2s), device=dev)[None, :, None, None]
+    cells = (x <= n2) & (d >= x) & (d - x <= n1)
+    return not bool(g.masked_select(~cells).any())
+
+
+def _pair_checks(chip_smoke, nw, lin, modes, ScoringScheme, to_device,
+                 pack_batch) -> int:
+    """Kernel #7, the linear fill and kernel #6 against their plain
+    versions on small ragged batches (up to 700 bp, empty sides, padded
+    pairs) under forced knobs: finals, corners, maxima and argmax buffers
+    equal, dirs equal on each pair's cells and 0 elsewhere.  Returns the
+    number of runs."""
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    rng = np.random.default_rng(23)
+    knobs = ({}, dict(cta_lanes=128), dict(lanes_per_thread=2, chunk=5,
+                                           ring_slots=3),
+             dict(lanes_per_thread=16, chunk=7),
+             dict(cta_lanes=256, lanes_per_thread=8, chunk=1, ring_slots=1))
+    runs = 0
+    for n, hi in ((24, 300), (9, 700)):
+        pairs = chip_smoke.skewed_pairs(rng, n - 3, 0, hi, 0, hi, b"ACGTN")
+        pairs += [(b"", b"ACGTA" * 9), (b"GATTACA" * 11, b""), (b"AC", b"A")]
+        tb = to_device(pack_batch(pairs, batch_size=n + 3), "cuda")
+        l1, l2 = tb.query.shape[1], tb.db.shape[1]
+        n1s, n2s = tb.query_len.cpu().numpy(), tb.db_len.cpu().numpy()
+        lay = (tb.query.contiguous(),
+               *nw.gotoh_layout(tb.db, tb.query_len, tb.db_len))
+        a4 = lin.linear_inputs(*tb)
+        mins = (tb.query.contiguous(), modes.modes_layout(tb.db),
+                tb.query_len.contiguous(), tb.db_len.contiguous())
+        cases = []
+        for compat, wc, dirs in ((True, False, False), (True, False, True),
+                                 (False, True, True)):
+            a = (l1, l2, wild if wc else ScoringScheme(), compat, wc, dirs)
+            cases.append(("#7", nw.gotoh_fill_cuda, nw.gotoh_fill_torch,
+                          lay, a))
+        for compat in (True, False):
+            for local in (False, True):
+                mv = lin.linear_fill_torch(
+                    *a4, torch.zeros_like(a4[2]), l1, l2, ScoringScheme(),
+                    compat, local, False)[1].contiguous()
+                for bits in (False, True):
+                    a = (l1, l2, ScoringScheme(), compat, local, bits)
+                    cases.append(("linear", lin.linear_fill_cuda,
+                                  lin.linear_fill_torch, (*a4, mv), a))
+        for local in (False, True):
+            a = (l1, l2, ScoringScheme(), True, local, True)
+            cases.append(("#6", modes.modes_fill_cuda, modes.fill_modes_torch,
+                          mins, a))
+        for name, kernel, plain, ins, a in cases:
+            want = plain(*ins, *a)
+            for kw in knobs:
+                ring = {k: v for k, v in kw.items() if k != "cta_lanes"}
+                with nw_ring(ring):
+                    got = kernel(*ins, *a, cta_lanes=kw.get("cta_lanes", 0))
+                _check_stalls(sys.modules[
+                    "sequencealigning_tpu_torch.ops.nw_affine_stream"])
+                for g, w in zip(got[:-1], want[:-1]):
+                    assert torch.equal(g, w), (name, n, a[2:], kw)
+                if got[-1] is not None:
+                    assert _pair_dirs_ok(torch, chip_smoke, got[-1],
+                                         want[-1], n1s, n2s), (name, n,
+                                                               a[2:], kw)
+                runs += 1
+    return runs
+
+
+def nw_ring(ring):
+    """forced_ring(**ring) of the checkout's streamed fills' module."""
+    fill = sys.modules["sequencealigning_tpu_torch.ops.nw_affine_stream"]
+    return fill.forced_ring(**ring) if ring else contextlib.nullcontext()
+
+
+def _pair_sweep(chip_smoke, nw, lin, modes, ScoringScheme, to_device,
+                pack_batch, _ms) -> list:
+    """--pairs: kernel #7 (score-only; full dirs up to 512 pairs), the
+    linear fill (global score-only; local with bits up to 512 pairs, its
+    second pass) and kernel #6 (local with dirs, up to 512 pairs) at
+    PAIR_BATCHES pairs of the main length, the default launch and then
+    each of PAIR_CONFIGS' forced knobs, each forced run's outputs equal to
+    the default's: [dict(kernel, pairs, force, ms, shape)]."""
+    sch = ScoringScheme()
+    rows = []
+    for n in PAIR_BATCHES:
+        pairs = chip_smoke.make_pairs(np.random.default_rng(4), n,
+                                      chip_smoke.LEN_MAIN)
+        tb = to_device(pack_batch(pairs, batch_size=n), "cuda")
+        l1, l2 = tb.query.shape[1], tb.db.shape[1]
+        lay = (tb.query.contiguous(),
+               *nw.gotoh_layout(tb.db, tb.query_len, tb.db_len))
+        a4 = lin.linear_inputs(*tb)
+        zeros = torch.zeros_like(a4[2])
+        small = n <= 512
+        cases = [("#7 score-only", nw.gotoh_fill_cuda, lay,
+                  (l1, l2, sch, True, False, False)),
+                 ("linear global score-only", lin.linear_fill_cuda,
+                  (*a4, zeros), (l1, l2, sch, True, False, False))]
+        if small:
+            mv = lin.linear_fill_cuda(*a4, zeros, l1, l2, sch, True, True,
+                                      False)[1].contiguous()
+            cases += [("#7 full", nw.gotoh_fill_cuda, lay,
+                       (l1, l2, sch, True, False, True)),
+                      ("linear local bits", lin.linear_fill_cuda, (*a4, mv),
+                       (l1, l2, sch, True, True, True)),
+                      ("#6 local full", modes.modes_fill_cuda,
+                       (tb.query, modes.modes_layout(tb.db), tb.query_len,
+                        tb.db_len), (l1, l2, sch, False, True, True))]
+        for name, kernel, ins, a in cases:
+            first = None
+            for cfg in ((0, 0, 0),) + PAIR_CONFIGS[n]:
+                cta, lpt, chunk = cfg
+                ring = dict(lanes_per_thread=lpt, chunk=chunk) if lpt else {}
+                with nw_ring(ring):
+                    ms, got = _ms(lambda: kernel(*ins, *a, cta_lanes=cta))
+                _check_stalls(sys.modules[
+                    "sequencealigning_tpu_torch.ops.nw_affine_stream"])
+                if first is None:
+                    first = got
+                else:
+                    assert all(x is None and y is None or torch.equal(
+                        x.view(torch.int32), y.view(torch.int32))
+                        for x, y in zip(got, first)), (name, n, cfg)
+                shape = dict(kernel.last_launch)
+                rows.append(dict(kernel=name, pairs=n, force=cfg, ms=ms,
+                                 **shape))
+                print(f"pairs {name} {n} x {chip_smoke.LEN_MAIN} "
+                      f"{'default' if cfg == (0, 0, 0) else cfg}: {ms:.3f} "
+                      f"ms; {shape['lanes_per_thread']} lanes x "
+                      f"{shape['threads']} threads x {shape['ctas']} CTAs, "
+                      f"chunk {shape['chunk']}, slots {shape['ring_slots']}",
+                      flush=True)
+                del got
+            del first
+            torch.cuda.empty_cache()
+        del tb, lay, a4
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _others(chip_smoke, port, ScoringScheme, to_device, pack_batch, _ms):
     """Kernels #3, #4 and #5 (batches A and B), #6 (1, 4 and 31 pairs,
-    local and semi-global), #7, #8, the linear fill and the banded walk
-    (config 4, and the long path's batches A and B) at their chip_smoke
-    shapes (default routes): [(name, ms)]."""
+    local and semi-global), #7 (score-only and full dirs), #8, every
+    instance of the linear fill at the main shapes and one linear pair in
+    the aligner's batch of 8, and the banded walk (config 4, and the long
+    path's batches A and B) at their chip_smoke shapes (default routes):
+    [(name, ms)]."""
     main = chip_smoke.make_pairs(np.random.default_rng(0),
                                  chip_smoke.N_MAIN, chip_smoke.LEN_MAIN)
     c4 = chip_smoke.make_pairs(np.random.default_rng(4), chip_smoke.N_BAND,
@@ -273,15 +447,44 @@ def _others(chip_smoke, port, ScoringScheme, to_device, pack_batch, _ms):
     nw, lin = port["nw"], port["linear"]
     ins = (tb.query.contiguous(),
            *nw.gotoh_layout(tb.db, tb.query_len, tb.db_len))
-    a = (tb.query.shape[1], tb.db.shape[1], sch, True, False, False)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    a = (l1, l2, sch, True, False, False)
     rows.append(("#7 score-only 4096 x 2046",
                  _ms(lambda: nw.gotoh_fill_cuda(*ins, *a))[0]))
+    nd = chip_smoke.N_GOTOH_DIRS
+    sub = tuple(t[:nd].contiguous() for t in ins)
+    a = (l1, l2, sch, True, False, True)
+    rows.append((f"#7 full {nd} x 2046",
+                 _ms(lambda: nw.gotoh_fill_cuda(*sub, *a))[0]))
+    a4 = lin.linear_inputs(*tb)
+    zeros = torch.zeros_like(a4[2])
+    for tag, compat, local in (("global", True, False),
+                               ("textbook", False, False),
+                               ("local", True, True)):
+        a = (*a4, zeros, l1, l2, sch, compat, local, False)
+        rows.append((f"linear {tag} score-only 4096 x 2046",
+                     _ms(lambda: lin.linear_fill_cuda(*a))[0]))
+    nl = chip_smoke.N_LINEAR_DIRS
+    sub = [t[:nl].contiguous() for t in a4]
+    for tag, local in (("global", False), ("local", True)):
+        mv = zeros[:nl].contiguous()
+        if local:
+            mv = lin.linear_fill_cuda(*sub, mv, l1, l2, sch, True, True,
+                                      False)[1].contiguous()
+        a = (*sub, mv, l1, l2, sch, True, local, True)
+        rows.append((f"linear {tag} bits {nl} x 2046",
+                     _ms(lambda: lin.linear_fill_cuda(*a))[0]))
+    del tb, ins, a4, a, sub, mv
+    # One pair of the nw-linear aligner, in its batch of 8.
+    one = chip_smoke.make_pairs(np.random.default_rng(4), 1,
+                                chip_smoke.LEN_MAIN)
+    tb = to_device(pack_batch(one, batch_size=8), "cuda")
     a4 = lin.linear_inputs(*tb)
     a = (*a4, torch.zeros_like(a4[2]), tb.query.shape[1], tb.db.shape[1],
-         sch, True, False, False)
-    rows.append(("linear global score-only 4096 x 2046",
+         sch, True, False, True)
+    rows.append(("linear global bits 1 pair (batch of 8)",
                  _ms(lambda: lin.linear_fill_cuda(*a))[0]))
-    del tb, ins, a4, a
+    del tb, a4, a
     modes = port["modes"]
     for n in (1, 4, 31):
         pn = chip_smoke.make_pairs(np.random.default_rng(4), n,
@@ -442,6 +645,36 @@ def _walks(chip_smoke, port, ScoringScheme, to_device, pack_batch,
     return rows
 
 
+def _pairs_main(args, chip_smoke, csrc, nw, lin, modes, ScoringScheme,
+                to_device, pack_batch, pkg) -> int:
+    """--pairs: the per-pair instances' registers and spills, the small
+    ragged checks, then the knob sweep."""
+    from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+
+    instances = csrc.pair_instances(csrc.build_log)
+    for r in instances:
+        print(f"instance {r['policy']}{r['args']} lpt "
+              f"{r['lanes_per_thread']}: {r['registers']} registers, "
+              f"{r['spill_stores']} / {r['spill_loads']} bytes spilled "
+              f"(stores / loads), stack {r['stack']}", flush=True)
+    t0 = time.perf_counter()
+    runs = _pair_checks(chip_smoke, nw, lin, modes, ScoringScheme, to_device,
+                        pack_batch)
+    print(f"per-pair small ragged: {runs} runs equal their plain versions "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    def mean_ms(fn):
+        return chip_smoke.cuda_ms(torch, fn, 5), fn()
+
+    rows = _pair_sweep(chip_smoke, nw, lin, modes, ScoringScheme, to_device,
+                       pack_batch, mean_ms)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=_card(), package=pkg, instances=instances,
+                           rows=rows), f, indent=1)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="JSON file for the rows")
@@ -453,6 +686,9 @@ def main() -> int:
                     help="also time kernels #3-#8, linear and the walks")
     ap.add_argument("--long", action="store_true",
                     help="also time rows of 4097-8192 lanes and past 8192")
+    ap.add_argument("--pairs", action="store_true",
+                    help="time only the per-pair fills (#6, #7, linear) "
+                         "over their knobs at 1-4096 pairs")
     ap.add_argument("--walks", type=int, default=0,
                     help="time only the device walks, N launches each")
     ap.add_argument("--pipeline", action="store_true",
@@ -512,6 +748,10 @@ def main() -> int:
             with open(args.out, "w") as f:
                 json.dump(dict(card=_card(), package=pkg, walks=walks), f)
         return 0
+    if args.pairs:
+        return _pairs_main(args, chip_smoke, csrc, nw_affine, nw_linear,
+                           nw_affine_modes, ScoringScheme, to_device,
+                           pack_batch, pkg)
     instances = []
     if not baseline:
         instances = csrc.stream_instances(csrc.build_log)

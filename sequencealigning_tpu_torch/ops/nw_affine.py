@@ -21,12 +21,14 @@ fill, chosen by the tensors' device:
 * ``gotoh_fill_torch`` -- plain PyTorch, the twin of _gotoh_fill_lax (CPU
   tensors, and the reference the kernel is checked against);
 * ``gotoh_fill_cuda`` -- the hand-written kernel (``csrc/nw_affine.cu``;
-  CUDA tensors only), one block a pair, or one thread-block cluster a pair
-  past 8192 lanes.
+  CUDA tensors only): each pair's lanes over a cluster of a few CTAs, the
+  warps handing their edge lanes over through rings, each sweeping only the
+  steps that hold cells of the pair's matrix (every other dirs byte 0).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -224,52 +226,103 @@ def gotoh_fill_torch(
     return finals, pack.dirs if pack is not None else None
 
 
+def _ring_helpers():
+    """ops.nw_affine_stream's (check_stream_stalls, forced_knobs,
+    watch_status), imported on use: that module imports this one."""
+    from sequencealigning_tpu_torch.ops import nw_affine_stream as ring
+
+    return ring.check_stream_stalls, ring.forced_knobs, ring.watch_status
+
+
+def pair_launch_shape(lib, P: int, B: int, cta_lanes: int = 0,
+                      lanes_per_thread: int = 0, chunk: int = 0,
+                      ring_slots: int = 0, wrap_words: int = 0,
+                      kernel: str = "per-pair") -> dict:
+    """The per-pair fills' launch shape (kernels #6 and #7 and the linear
+    fill) for B pairs of P lanes, the defaults resolved
+    (stream_ring.cuh::pair_launch_shape, through ``lib.sa_pair_plan`` or
+    the host build's ``hc_pair_plan``; the split follows the card's SM
+    count).  wrap_words is accepted for forced_ring's sake and unused.
+    Raises ValueError, naming ``kernel``, when the shape is out of range."""
+    shape = (ctypes.c_int * 5)()
+    plan_fn = getattr(lib, "sa_pair_plan", None) or lib.hc_pair_plan
+    if plan_fn(P, B, cta_lanes, lanes_per_thread, chunk, ring_slots,
+               shape) != 0:
+        raise ValueError(
+            f"lane width {P} (CTA width {cta_lanes}, {lanes_per_thread} "
+            f"lanes a thread, ring {chunk}/{ring_slots}) is out of the CUDA "
+            f"{kernel} kernel's range")
+    return dict(zip(("lanes_per_thread", "threads", "ctas", "chunk",
+                     "ring_slots"), shape))
+
+
+def corner_lanes(dsum, n2mask):
+    """The corners of a per-pair layout on its device, as (n1, n2) (B,)
+    int32: n2 the first lane of n2mask (-1 where none is set) and n1 =
+    dsum - n2."""
+    hit = n2mask != 0
+    n2 = torch.where(hit.any(1), hit.to(torch.int32).argmax(1), -1)
+    n2 = n2.to(torch.int32).contiguous()
+    return (dsum[:, 0] - n2).to(torch.int32).contiguous(), n2
+
+
 def gotoh_fill_cuda(
     seq1, s2v, dsum, n2mask, l1: int, l2: int,
     scheme: ScoringScheme, compat: bool, wildcard: bool, with_dirs: bool,
     cta_lanes: int = 0,
 ):
-    """The per-pair global kernel (csrc/nw_affine.cu) on CUDA tensors: same
-    arguments and results as gotoh_fill_torch; pairs past 8192 lanes are
-    split over a cluster, cta_lanes > 0 forces the split's CTA width.
-    Raises on a CPU tensor, a non-contiguous input, an unsupported shape or
-    a failed launch."""
+    """The per-pair global kernel (csrc/nw_affine.cu) on CUDA tensors: the
+    finals of gotoh_fill_torch for a layout with one n2mask lane a pair
+    (corner_lanes; every caller's), and its dirs on every cell of each
+    pair's matrix, but lane 0's D bits and every byte outside the matrix 0.
+    Each pair is split over a few CTAs (cta_lanes > 0 forces their width, a
+    multiple of 128), the rings as forced_ring leaves them; the launch's
+    shape is left in ``gotoh_fill_cuda.last_launch``.  Returns without
+    waiting for the kernel; raises on a CPU tensor, a non-contiguous input,
+    an unsupported shape or a failed launch, and check_stream_stalls raises
+    for a stalled wait."""
+    check_stream_stalls, forced_knobs, watch_status = _ring_helpers()
     _check_gotoh_args(seq1, s2v, dsum, n2mask, l1, l2)
     if not seq1.is_cuda:
         raise ValueError("gotoh_fill_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (seq1, s2v, dsum, n2mask)):
         raise ValueError("gotoh fill inputs must be contiguous")
+    check_stream_stalls()
     lib = csrc.kernels()
     B, P = s2v.shape
-    nctas = lib.sa_fill_ctas(P, cta_lanes)
-    if nctas == 0:
-        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
-                         "the CUDA global kernel's range")
+    shape = pair_launch_shape(lib, P, B, cta_lanes, kernel="global",
+                              **forced_knobs())
     dev = s2v.device
     D_total = l1 + l2 + 1
+    n1, n2 = corner_lanes(dsum, n2mask)
     finals = torch.zeros((B, 3), dtype=torch.int32, device=dev)
     dirs = None
     if with_dirs:
         dirs = torch.empty((-(-D_total // 4), B, P), dtype=torch.uint32,
                            device=dev)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
         rc = lib.sa_gotoh_fill(
-            seq1.data_ptr(), s2v.data_ptr(), dsum.data_ptr(),
-            n2mask.data_ptr(), finals.data_ptr(),
-            dirs.data_ptr() if dirs is not None else None,
+            seq1.data_ptr(), s2v.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+            finals.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             B, seq1.shape[1], P, D_total,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, 2 if with_dirs else 0, int(compat),
-            int(wildcard), cta_lanes, stream,
+            int(wildcard), cta_lanes, status.data_ptr(),
+            shape["lanes_per_thread"], shape["chunk"], shape["ring_slots"],
+            stream.cuda_stream,
         )
-    if rc != 0:
-        raise csrc.launch_error("sa_gotoh_fill", rc, nctas)
+        if rc != 0:
+            raise csrc.launch_error("sa_gotoh_fill", rc, shape["ctas"])
+        watch_status("sa_gotoh_fill", status, stream)
+    gotoh_fill_cuda.last_launch = shape
     gotoh_fill_cuda.launches += 1
     return finals, dirs
 
 
 gotoh_fill_cuda.launches = 0
+gotoh_fill_cuda.last_launch = None
 
 
 def gotoh_fill(seq1, s2v, dsum, n2mask, l1, l2, scheme, compat, wildcard,
@@ -320,4 +373,7 @@ def nw_affine_batch(
     finals, dirs = gotoh_fill(query, s2v, dsum, n2mask, query.shape[1],
                               db.shape[1], scheme, compat, wildcard,
                               with_dirs)
-    return GotohResult(finals=finals.cpu().numpy(), dirs=dirs)
+    finals = finals.cpu().numpy()
+    check_stream_stalls, _, _ = _ring_helpers()
+    check_stream_stalls()
+    return GotohResult(finals=finals, dirs=dirs)

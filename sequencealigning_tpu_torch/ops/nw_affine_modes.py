@@ -24,7 +24,6 @@ Two implementations of the fill, chosen by the tensors' device:
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,6 +36,7 @@ from sequencealigning_tpu_torch.ops.nw_affine import (
     advance_diag,
     diag_state,
     gotoh_step_torch,
+    pair_launch_shape,
     query_column,
 )
 from sequencealigning_tpu_torch.ops.nw_affine_stream import (
@@ -149,26 +149,6 @@ def fill_modes_torch(
     return bv, bd, pack.dirs if pack is not None else None
 
 
-def modes_launch_shape(lib, P: int, B: int, cta_lanes: int = 0,
-                       lanes_per_thread: int = 0, chunk: int = 0,
-                       ring_slots: int = 0, wrap_words: int = 0) -> dict:
-    """The per-pair fill's launch shape for B pairs of P lanes, the
-    defaults resolved (stream_ring.cuh::pair_launch_shape, through
-    ``lib.sa_modes_plan`` or the host build's ``hc_modes_plan``; the split
-    follows the card's SM count).  wrap_words is accepted for forced_ring's
-    sake and unused.  Raises ValueError when the shape is out of range."""
-    shape = (ctypes.c_int * 5)()
-    plan_fn = getattr(lib, "sa_modes_plan", None) or lib.hc_modes_plan
-    if plan_fn(P, B, cta_lanes, lanes_per_thread, chunk, ring_slots,
-               shape) != 0:
-        raise ValueError(
-            f"lane width {P} (CTA width {cta_lanes}, {lanes_per_thread} "
-            f"lanes a thread, ring {chunk}/{ring_slots}) is out of the CUDA "
-            "modes kernel's range")
-    return dict(zip(("lanes_per_thread", "threads", "ctas", "chunk",
-                     "ring_slots"), shape))
-
-
 def modes_fill_cuda(
     seq1, s2v, n1v, n2v, l1: int, l2: int,
     scheme: ScoringScheme, wildcard: bool, local: bool, with_dirs: bool,
@@ -191,7 +171,8 @@ def modes_fill_cuda(
     check_stream_stalls()
     lib = csrc.kernels()
     B, P = s2v.shape
-    shape = modes_launch_shape(lib, P, B, cta_lanes, **forced_knobs())
+    shape = pair_launch_shape(lib, P, B, cta_lanes, kernel="modes",
+                              **forced_knobs())
     dev = s2v.device
     D_total = l1 + l2 + 1
     best = torch.empty((2, B, P), dtype=torch.int32, device=dev)

@@ -334,11 +334,12 @@ _RING = contextvars.ContextVar("stream_ring", default={})
 
 @contextlib.contextmanager
 def forced_ring(**knobs):
-    """Force the warp rings' shape of kernels #1, #2 and #6 launched in
-    this context (csrc/stream_sweep.py and chip_smoke.py's stall checks):
-    lanes_per_thread (2, 4, 8, 16), chunk (steps, 1-32), ring_slots and
-    wrap_words (stream_ring.cuh::ring_shape; #6 has no wrap ring); an
-    absent knob or 0 takes the default."""
+    """Force the warp rings' shape of kernels #1, #2, #6 and #7 and the
+    linear fill launched in this context (csrc/stream_sweep.py and
+    chip_smoke.py's stall checks): lanes_per_thread (2, 4, 8, 16), chunk
+    (steps, 1-32), ring_slots and wrap_words (stream_ring.cuh::ring_shape;
+    the per-pair fills have no wrap ring); an absent knob or 0 takes the
+    default."""
     token = _RING.set(knobs)
     try:
         yield
@@ -381,15 +382,16 @@ _watches_lock = threading.Lock()
 
 
 def check_stream_stalls(wait: bool = False) -> None:
-    """Raise RuntimeError for a launch of kernel #1, #2 or #6 that has
-    ended with a wait stalled past the spin limit (its results are
-    incomplete).  A launch does not wait for its kernel: its status word
-    is copied to the host behind the kernel and read here once the launch
-    has ended, or with ``wait`` after waiting for it.  Reading a fill's
-    results on the host waits for the fill, so the places that read them
-    call this after: the runner's ``to_host``, ``nw_affine_stream_batch``,
-    ``nw_affine_stream_modes_batch``, ``nw_affine_modes_batch`` and each
-    launch (for the launches before it)."""
+    """Raise RuntimeError for a launch of kernel #1, #2, #6 or #7 or of the
+    linear fill that has ended with a wait stalled past the spin limit (its
+    results are incomplete).  A launch does not wait for its kernel: its
+    status word is copied to the host behind the kernel and read here once
+    the launch has ended, or with ``wait`` after waiting for it.  Reading a
+    fill's results on the host waits for the fill, so the places that read
+    them call this after: the runner's ``to_host``,
+    ``nw_affine_stream_batch``, ``nw_affine_stream_modes_batch``,
+    ``nw_affine_modes_batch``, ``nw_affine_batch``, ``nw_linear_batch`` and
+    each launch (for the launches before it)."""
     with _watches_lock:
         keep, ready = [], []
         for w in _watches:

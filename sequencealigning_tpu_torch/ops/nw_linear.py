@@ -24,8 +24,10 @@ tensors' device:
 * ``linear_fill_torch`` -- plain PyTorch, the twin of _linear_fill_lax
   (CPU tensors, and the reference the kernel is checked against);
 * ``linear_fill_cuda`` -- the hand-written kernel (``csrc/nw_linear.cu``;
-  CUDA tensors only), one block a pair, a thread-block cluster a pair past
-  8192 lanes, up to CUDA_LINEAR_LANES lanes.
+  CUDA tensors only): each pair's lanes over a cluster of a few CTAs, up to
+  CUDA_LINEAR_LANES lanes, the warps handing their edge lanes over through
+  rings, each sweeping only the steps that hold cells of the pair's matrix
+  (every other path-bit byte 0).
 """
 
 from __future__ import annotations
@@ -39,7 +41,16 @@ from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.errors import AlignmentError
 from sequencealigning_tpu_torch.io.encode import round_up as _round_up
-from sequencealigning_tpu_torch.ops.nw_affine import _bit, query_column
+from sequencealigning_tpu_torch.ops.nw_affine import (
+    _bit,
+    pair_launch_shape,
+    query_column,
+)
+from sequencealigning_tpu_torch.ops.nw_affine_stream import (
+    check_stream_stalls,
+    forced_knobs,
+    watch_status,
+)
 from sequencealigning_tpu_torch.ops.step_graph import CounterPacker, run_steps
 
 LDOWN, LRIGHT, LDIAG, LISMAX = 1, 2, 4, 8
@@ -191,23 +202,26 @@ def linear_fill_cuda(
     scheme: ScoringScheme, compat: bool, local: bool, with_dirs: bool,
     cta_lanes: int = 0,
 ):
-    """The linear kernel (csrc/nw_linear.cu) on CUDA tensors: same
-    arguments and results as linear_fill_torch.  Pairs past 8192 lanes are
-    split over a cluster; cta_lanes > 0 forces the split's CTA width.
-    Raises ValueError on a CPU tensor, a non-contiguous input or a lane
-    width past CUDA_LINEAR_LANES, RuntimeError on a failed launch."""
+    """The linear kernel (csrc/nw_linear.cu) on CUDA tensors: the corners
+    and maxima of linear_fill_torch, and its path bits on every cell of each
+    pair's matrix, every other byte 0.  Each pair is split over a few CTAs
+    (cta_lanes > 0 forces their width, a multiple of 128), the rings as
+    forced_ring leaves them; the launch's shape is left in
+    ``linear_fill_cuda.last_launch``.  Returns without waiting for the
+    kernel; raises ValueError on a CPU tensor, a non-contiguous input or a
+    lane width past CUDA_LINEAR_LANES, RuntimeError on a failed launch, and
+    check_stream_stalls raises for a stalled wait."""
     _check_args(seq1, s2v, n1v, n2v, maxv, l1, l2)
     if not s2v.is_cuda:
         raise ValueError("linear_fill_cuda needs CUDA tensors")
     ins = (seq1, s2v, n1v, n2v, maxv)
     if not all(t.is_contiguous() for t in ins):
         raise ValueError("linear fill inputs must be contiguous")
+    check_stream_stalls()
     lib = csrc.kernels()
     B, P = s2v.shape
-    nctas = lib.sa_fill_ctas(P, cta_lanes)
-    if nctas == 0:
-        raise ValueError(f"lane width {P} (CTA width {cta_lanes}) is out of "
-                         "the CUDA linear kernel's range")
+    shape = pair_launch_shape(lib, P, B, cta_lanes, kernel="linear",
+                              **forced_knobs())
     dev = s2v.device
     D_total = l1 + l2 + 1
     corner = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -216,22 +230,28 @@ def linear_fill_cuda(
     if with_dirs:
         dirs = torch.empty((-(-D_total // 4), B, P), dtype=torch.uint32,
                            device=dev)
+    status = torch.zeros(1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
         rc = lib.sa_linear_fill(
             *(t.data_ptr() for t in ins), corner.data_ptr(),
             runmax.data_ptr(), dirs.data_ptr() if dirs is not None else None,
             B, seq1.shape[1], P, D_total, scheme.match_, scheme.mismatch,
             scheme.gap_open, scheme.gap_extend, int(with_dirs), int(compat),
-            int(local), cta_lanes, stream,
+            int(local), cta_lanes, status.data_ptr(),
+            shape["lanes_per_thread"], shape["chunk"], shape["ring_slots"],
+            stream.cuda_stream,
         )
-    if rc != 0:
-        raise csrc.launch_error("sa_linear_fill", rc, nctas)
+        if rc != 0:
+            raise csrc.launch_error("sa_linear_fill", rc, shape["ctas"])
+        watch_status("sa_linear_fill", status, stream)
+    linear_fill_cuda.last_launch = shape
     linear_fill_cuda.launches += 1
     return corner, runmax, dirs
 
 
 linear_fill_cuda.launches = 0
+linear_fill_cuda.last_launch = None
 
 
 def linear_fill(seq1, s2v, n1v, n2v, maxv, l1, l2, scheme, compat, local,
@@ -289,9 +309,11 @@ def nw_linear_batch(
     if local:
         _, run_max, _ = linear_fill(*a, zeros, l1, l2, scheme, compat, True,
                                     False)
-        _, run_max2, dirs = linear_fill(*a, run_max.contiguous(), l1, l2,
-                                        scheme, compat, True, with_dirs)
-        return LinearResult(score=run_max2.cpu().numpy(), dirs=dirs)
-    corner, _, dirs = linear_fill(*a, zeros, l1, l2, scheme, compat, False,
-                                  with_dirs)
-    return LinearResult(score=corner.cpu().numpy(), dirs=dirs)
+        _, score, dirs = linear_fill(*a, run_max.contiguous(), l1, l2,
+                                     scheme, compat, True, with_dirs)
+    else:
+        score, _, dirs = linear_fill(*a, zeros, l1, l2, scheme, compat,
+                                     False, with_dirs)
+    score = score.cpu().numpy()
+    check_stream_stalls()
+    return LinearResult(score=score, dirs=dirs)

@@ -21,6 +21,7 @@ from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io.encode import pack_batch, trim_for_stream
 from sequencealigning_tpu_torch.ops import dirbits
+from sequencealigning_tpu_torch.ops import nw_affine
 from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
 from sequencealigning_tpu_torch.ops import nw_banded
 from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
@@ -266,12 +267,16 @@ def test_host_modes_fill_split_matches_plain(host, local, knobs):
     (128, 8, 0, 0, (2, 64, 1)), (16384, 31, 0, 0, (16, 352, 3)),
     (65536, 4, 0, 0, (8, 512, 16)), (2048, 1, 128, 2, (2, 64, 16)),
     (2048, 31, 2048, 0, (8, 256, 1)), (131072, 1, 8192, 0, (16, 512, 16)),
+    (2176, 512, 0, 0, (4, 192, 3)), (2176, 4096, 0, 0, (4, 192, 3)),
+    (2048, 64, 0, 0, (4, 192, 3)), (640, 4096, 0, 0, (2, 192, 2)),
+    (384, 4096, 0, 0, (2, 192, 1)),
 ])
 def test_modes_pair_plan(host, P, B, cta_lanes, lpt, want):
-    """Kernel A's split: CTAs of 256 lanes, fewer a pair where B pairs
-    would pass 3/4 of 132 SMs (at least 1, at most 16, at most 8192 lanes
-    a CTA), 2 lanes a thread where 256 threads hold the CTA's lanes."""
-    got = modes.modes_launch_shape(host, P, B, cta_lanes, lpt)
+    """The per-pair fills' split: CTAs of 256 lanes, fewer a pair where B
+    pairs would pass 3/4 of 132 SMs but three at least from 768 lanes a
+    pair, two from 512 (at most 16, at most 8192 lanes a CTA), 2 lanes a
+    thread where 256 threads hold the CTA's lanes."""
+    got = modes.pair_launch_shape(host, P, B, cta_lanes, lpt, kernel="modes")
     assert (got["lanes_per_thread"], got["threads"], got["ctas"]) == want
     assert (got["chunk"], got["ring_slots"]) == (32, 2)
 
@@ -284,7 +289,8 @@ def test_modes_pair_plan(host, P, B, cta_lanes, lpt, want):
 def test_modes_pair_plan_refuses(host, P, B, cta_lanes, lpt, chunk, slots):
     """Out-of-range splits and rings raise in the wrapper."""
     with pytest.raises(ValueError, match="out of the CUDA modes"):
-        modes.modes_launch_shape(host, P, B, cta_lanes, lpt, chunk, slots)
+        modes.pair_launch_shape(host, P, B, cta_lanes, lpt, chunk, slots,
+                                kernel="modes")
 
 
 def _host_stream_modes(host, plan, qs, ds, dsum, n2, scheme, local, wildcard,
@@ -1390,38 +1396,152 @@ def test_host_banded_row_refuses_bad_widths(host):
             0, chunk) == -1
 
 
-@pytest.mark.parametrize("cta_lanes", [0, 128])
-@pytest.mark.parametrize("local", [False, True])
-@pytest.mark.parametrize("compat", [True, False])
-def test_host_linear_fill_matches_plain(host, compat, local, cta_lanes):
-    """The linear kernel's cell (nw_linear.cuh through host_check.cpp)
-    equals the plain fill, pass 1 (scores) and pass 2 (path bits with
-    ISMAX for local), in one block and split over 2 CTAs of 128 lanes."""
-    pairs = _skewed(13 + compat + 2 * local, 7, 20, 200, b"ACGT")
-    tb = to_device(pack_batch(pairs, batch_size=7), "cpu")
+def _host_linear(host, seq1, s2v, n1v, n2v, maxv, l1, l2, scheme, compat,
+                 local, with_dirs, cta_lanes=0, lpt=0, chunk=0, slots=0):
+    """hc_linear_fill (the kernel's warp-ring schedule run serially, the
+    split planned for 132 SMs or forced): (corner, runmax, dirs), the dirs
+    tensor pre-filled with a pattern the kernel must overwrite."""
+    B, P = s2v.shape
+    D_total = l1 + l2 + 1
+    corner = torch.zeros((B,), dtype=torch.int32)
+    runmax = torch.full((B,), nw_linear.NEGBIG, dtype=torch.int32)
+    dirs = torch.full((-(-D_total // 4), B, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
+    assert host.hc_linear_fill(
+        seq1.data_ptr(), s2v.data_ptr(), n1v.data_ptr(), n2v.data_ptr(),
+        maxv.data_ptr(), corner.data_ptr(), runmax.data_ptr(),
+        dirs.data_ptr(), B, seq1.shape[1], P, D_total, scheme.match_,
+        scheme.mismatch, scheme.gap_open, scheme.gap_extend, int(with_dirs),
+        int(compat), int(local), cta_lanes, status.data_ptr(), lpt, chunk,
+        slots) == 0
+    return corner, runmax, dirs
+
+
+def _check_host_linear(host, tb, scheme, compat, local, **knobs):
+    """Both passes of the linear kernel's loop against linear_fill_torch:
+    corners and maxima equal, path bits equal on each pair's cells and 0
+    elsewhere."""
     seq1, s2v, n1v, n2v = nw_linear.linear_inputs(*tb)
     l1, l2 = tb.query.shape[1], tb.db.shape[1]
-    B, P = s2v.shape
-    assert P >= 256
-    scheme = ScoringScheme()
     maxv = torch.zeros_like(n1v)
     for with_dirs in (False, True):
         want = nw_linear.linear_fill_torch(seq1, s2v, n1v, n2v, maxv, l1, l2,
                                            scheme, compat, local, with_dirs)
-        corner = torch.zeros((B,), dtype=torch.int32)
-        runmax = torch.full((B,), nw_linear.NEGBIG, dtype=torch.int32)
-        dirs = torch.zeros((-(-(l1 + l2 + 1) // 4), B, P), dtype=torch.int32)
-        assert host.hc_linear_fill(
-            seq1.data_ptr(), s2v.data_ptr(), n1v.data_ptr(), n2v.data_ptr(),
-            maxv.data_ptr(), corner.data_ptr(), runmax.data_ptr(),
-            dirs.data_ptr(), B, seq1.shape[1], P, l1 + l2 + 1,
-            scheme.match_, scheme.mismatch, scheme.gap_open,
-            scheme.gap_extend, int(with_dirs), int(compat), int(local),
-            cta_lanes) == 0
-        assert torch.equal(corner, want[0]) and torch.equal(runmax, want[1])
+        got = _host_linear(host, seq1, s2v, n1v, n2v, maxv, l1, l2, scheme,
+                           compat, local, with_dirs, **knobs)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         if with_dirs:
-            assert torch.equal(dirs.view(torch.uint32), want[2])
+            _assert_pair_dirs(got[2], want[2], n1v, n2v)
         maxv = want[1].contiguous()
+
+
+@pytest.mark.parametrize("cta_lanes", [0, 128])
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_host_linear_fill_matches_plain(host, compat, local, cta_lanes):
+    """The linear kernel's loop (nw_linear.cuh's cell in the per-pair warp
+    rings, through host_check.cpp) equals the plain fill, pass 1 (scores)
+    and pass 2 (path bits with ISMAX for local), split as planned and over
+    CTAs of 128 lanes: corners and maxima equal, path bits equal on each
+    pair's cells and 0 elsewhere."""
+    pairs = _skewed(13 + compat + 2 * local, 7, 20, 200, b"ACGT")
+    tb = to_device(pack_batch(pairs, batch_size=7), "cpu")
+    assert tb.db.shape[1] + 1 > 128
+    _check_host_linear(host, tb, ScoringScheme(), compat, local,
+                       cta_lanes=cta_lanes)
+
+
+def _ragged_pairs(seed, n, hi=256, alphabet=b"ACGTN"):
+    """n pairs of 0..hi bp both ways, every third db a mutated cut of its
+    query, then an empty query, an empty db, a pair shorter than a warp's
+    lanes and a db shorter than one warp's lanes beside a long query (the
+    pair's other warps wholly past n2)."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(alphabet, np.uint8)
+
+    def seq(k):
+        return rng.choice(alpha, k)
+
+    pairs = []
+    for i in range(n):
+        s1 = seq(int(rng.integers(0, hi + 1)))
+        s2 = seq(int(rng.integers(0, hi + 1)))
+        if i % 3 == 1 and len(s1) > 4:
+            s2 = s1[2:].copy()
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        pairs.append((s1, s2))
+    pairs += [(seq(0), seq(40)), (seq(70), seq(0)), (seq(9), seq(13)),
+              (seq(hi), seq(5))]
+    return [(a.tobytes(), b.tobytes()) for a, b in pairs]
+
+
+# The per-pair fills' knob sets: CTAs of 128-256 lanes, 2-16 lanes a
+# thread, chunks of 1-32 steps, 1-64 slots.
+PAIR_KNOBS = [
+    dict(cta_lanes=128), dict(cta_lanes=128, lpt=2, chunk=5, slots=3),
+    dict(lpt=8, chunk=1, slots=1), dict(cta_lanes=256, chunk=32, slots=2),
+    dict(lpt=16, chunk=7), dict(cta_lanes=128, lpt=2, chunk=1, slots=64),
+]
+
+
+@pytest.mark.parametrize("compat,local", [(True, False), (False, True)])
+@pytest.mark.parametrize("knobs", PAIR_KNOBS)
+def test_host_linear_fill_split_matches_plain(host, compat, local, knobs):
+    """The linear kernel's loop forced into small CTAs, 2-16 lanes a
+    thread, short and long chunks and few and many slots, on ragged pairs
+    up to 256 bp both ways (an empty side, a pair shorter than a warp, a
+    warp wholly past n2, padded pairs)."""
+    pairs = _ragged_pairs(91 + local, 10)
+    tb = to_device(pack_batch(pairs, batch_size=16), "cpu")
+    scheme = ScoringScheme(match_=2, mismatch=-3, gap_open=-4, gap_extend=-1)
+    _check_host_linear(host, tb, scheme, compat, local, **knobs)
+
+
+def _host_gotoh(host, seq1, s2v, dsum, n2mask, l2, scheme, compat, wildcard,
+                with_dirs, cta_lanes=0, lpt=0, chunk=0, slots=0):
+    """hc_gotoh_fill (kernel #7's warp-ring schedule run serially) on a
+    per-pair layout, its corners from corner_lanes: (finals, dirs), the
+    dirs tensor pre-filled with a pattern the kernel must overwrite."""
+    B, P = s2v.shape
+    D_total = seq1.shape[1] + l2 + 1
+    n1, n2 = nw_affine.corner_lanes(dsum, n2mask)
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    dirs = torch.full((-(-D_total // 4), B, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
+    assert host.hc_gotoh_fill(
+        seq1.data_ptr(), s2v.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+        finals.data_ptr(), dirs.data_ptr(), B, seq1.shape[1], P, D_total,
+        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        2 if with_dirs else 0, int(compat), int(wildcard), cta_lanes,
+        status.data_ptr(), lpt, chunk, slots) == 0
+    return finals, dirs
+
+
+@pytest.mark.parametrize("compat,wildcard", [(True, False), (False, True)])
+@pytest.mark.parametrize("knobs", PAIR_KNOBS)
+def test_host_gotoh_fill_split_matches_plain(host, compat, wildcard, knobs):
+    """Kernel #7's loop (the global cell and the corner capture) forced
+    into small CTAs, 2-16 lanes a thread, short and long chunks and few and
+    many slots, on ragged pairs up to 256 bp both ways (an empty side, a
+    pair shorter than a warp, a warp wholly past n2, padded pairs): finals
+    equal, score-only and with full dirs, the dirs equal on each pair's
+    cells (lane 0's D bits aside) and 0 elsewhere."""
+    pairs = _ragged_pairs(97 + compat, 10)
+    tb = to_device(pack_batch(pairs, batch_size=16), "cpu")
+    s2v, dsum, n2mask = nw_affine.gotoh_layout(tb.db, tb.query_len,
+                                               tb.db_len)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    for with_dirs in (False, True):
+        want = nw_affine.gotoh_fill_torch(tb.query, s2v, dsum, n2mask, l1, l2,
+                                          scheme, compat, wildcard, with_dirs)
+        got = _host_gotoh(host, tb.query, s2v, dsum, n2mask, l2, scheme,
+                          compat, wildcard, with_dirs, **knobs)
+        assert torch.equal(got[0], want[0])
+        if with_dirs:
+            _assert_pair_dirs(got[1], want[1], tb.query_len, tb.db_len)
 
 
 def test_sass_spills_finds_loops_and_spills():

@@ -4,7 +4,9 @@ words must be equal): the plain fill against the lax twin, score-only and
 with the full dirs, compat and textbook, wildcard on and off, one tiny case
 against the Pallas kernel in interpret mode; the CUDA kernel's cell loop
 (csrc/host_check.cpp, also split over forced 128-lane CTAs) against the
-plain fill; the host walker on the fill's dirs."""
+plain fill, its dirs on each pair's cells; the host walker on the plain
+fill's dirs and on the kernel's, whose bytes outside the pairs' matrices
+are 0."""
 
 import dataclasses
 
@@ -20,6 +22,7 @@ from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io.encode import pack_batch
+from sequencealigning_tpu_torch.ops import dirbits
 from sequencealigning_tpu_torch.ops import nw_affine as port
 from sequencealigning_tpu_torch.ops import traceback as tb
 
@@ -129,14 +132,51 @@ def host():
     return csrc.host_check()
 
 
+def _host_fill(host, tb_, s2v, dsum, n2mask, L1, L2, scheme, compat,
+               wildcard, with_dirs, cta_lanes=0):
+    """hc_gotoh_fill (kernel #7's warp-ring schedule run serially, the
+    split planned for 132 SMs or forced), its corners from corner_lanes:
+    (finals, dirs), the dirs pre-filled with a pattern it must overwrite."""
+    B, P = s2v.shape
+    D_total = L1 + L2 + 1
+    n1, n2 = port.corner_lanes(dsum, n2mask)
+    finals = torch.zeros((B, 3), dtype=torch.int32)
+    dirs = torch.full((-(-D_total // 4), B, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
+    rc = host.hc_gotoh_fill(
+        tb_.query.data_ptr(), s2v.data_ptr(), n1.data_ptr(), n2.data_ptr(),
+        finals.data_ptr(), dirs.data_ptr(), B, L1, P, D_total,
+        scheme.match_, scheme.mismatch, scheme.gap_open, scheme.gap_extend,
+        2 if with_dirs else 0, int(compat), int(wildcard), cta_lanes,
+        status.data_ptr(), 0, 0, 0,
+    )
+    assert rc == 0
+    return finals, dirs
+
+
+def _pair_cells(dirs, query_len, db_len):
+    """(cells, lane 0) masks over the bytes of a (W, B, P) dirs tensor:
+    each pair's cells 0 <= x <= n2, 0 <= y <= n1, and lane 0."""
+    W, B, P = dirs.shape
+    d = np.arange(W)[:, None, None, None] * 4 + np.arange(4)
+    x = np.arange(P)[None, None, :, None]
+    n1 = np.asarray(query_len)[None, :, None, None]
+    n2 = np.asarray(db_len)[None, :, None, None]
+    return (x <= n2) & (d - x >= 0) & (d - x <= n1), x == 0
+
+
 @pytest.mark.parametrize("cta_lanes", [0, 128])
 @pytest.mark.parametrize("with_dirs", [False, True])
 @pytest.mark.parametrize("compat,wildcard", [(True, False), (False, True)])
 def test_host_cell_loop_matches_plain(host, compat, wildcard, with_dirs,
                                       cta_lanes):
-    """Kernel #7's cell loop (stream_cell in global mode, the corner
-    capture over n2mask) through host_check.cpp, one CTA a pair or split
-    over forced 128-lane CTAs (the cluster geometry)."""
+    """Kernel #7's cell loop (stream_cell in global mode in the per-pair
+    warp rings, the corner capture at lane n2) through host_check.cpp,
+    split as planned or over forced 128-lane CTAs (the cluster geometry):
+    finals equal; dirs equal on each pair's cells, lane 0's D bits (the
+    plain roll takes them from lane P-1) aside, and 0 on every other
+    byte."""
     _pairs_, batch = _batch(11, n=8, hi1=60, hi2=300)
     scheme = SCHEMES[int(wildcard)]
     tb_ = to_device(batch, "cpu")
@@ -148,21 +188,19 @@ def test_host_cell_loop_matches_plain(host, compat, wildcard, with_dirs,
     want_f, want_d = port.gotoh_fill_torch(tb_.query, s2v, dsum, n2mask, L1,
                                            L2, scheme, compat, wildcard,
                                            with_dirs)
-    D_total = L1 + L2 + 1
-    finals = torch.zeros((B, 3), dtype=torch.int32)
-    dirs = torch.zeros((-(-D_total // 4), B, P), dtype=torch.uint32)
-    assert host.hc_fill_ctas(P, cta_lanes) == (4 if cta_lanes else 1)
-    rc = host.hc_gotoh_fill(
-        tb_.query.data_ptr(), s2v.data_ptr(), dsum.data_ptr(),
-        n2mask.data_ptr(), finals.data_ptr(), dirs.data_ptr(), B, L1, P,
-        D_total, scheme.match_, scheme.mismatch, scheme.gap_open,
-        scheme.gap_extend, 2 if with_dirs else 0, int(compat), int(wildcard),
-        cta_lanes,
-    )
-    assert rc == 0
+    shape = port.pair_launch_shape(host, P, B, cta_lanes)
+    assert shape["ctas"] == (4 if cta_lanes else 2)
+    finals, dirs = _host_fill(host, tb_, s2v, dsum, n2mask, L1, L2, scheme,
+                              compat, wildcard, with_dirs, cta_lanes)
     assert torch.equal(finals, want_f)
     if with_dirs:
-        assert torch.equal(dirs, want_d)
+        g = dirs.numpy().view(np.uint8).reshape(*dirs.shape, 4)
+        w = want_d.numpy().view(np.uint8).reshape(*dirs.shape, 4)
+        cells, lane0 = _pair_cells(dirs, batch.query_len, batch.db_len)
+        keep = np.where(lane0, 0xFF & ~(dirbits.DEXT | dirbits.DOPEN),
+                        0xFF).astype(np.uint8)
+        np.testing.assert_array_equal((g & keep)[cells], (w & keep)[cells])
+        assert not g[~cells].any()
 
 
 def test_host_walker_on_the_fill_dirs_matches_jax():
@@ -175,6 +213,33 @@ def test_host_walker_on_the_fill_dirs_matches_jax():
     for b, (s1, s2) in enumerate(pairs):
         mine = _outcome(tb.traceback_pair, got.dirs[:, b, :].numpy(),
                         got.finals[b], s1, s2)
+        ref = _outcome(jax_tb.traceback_pair, wd[:, b, :],
+                       np.asarray(want.finals)[b], s1, s2)
+        assert mine == ref, b
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_host_walker_on_the_kernel_dirs_matches_jax(host, compat):
+    """traceback_pair on kernel #7's dirs (the host build's: every byte
+    outside each pair's matrix and lane 0's D bits 0) gives the JAX
+    walker's co-optimal alignments on the JAX dirs: the walker reads only
+    the pairs' cells, and no D bit of lane 0."""
+    pairs, batch = _batch(17 + compat, n=12, hi1=45, hi2=150)
+    tb_ = to_device(batch, "cpu")
+    s2v, dsum, n2mask = port.gotoh_layout(tb_.db, tb_.query_len,
+                                          tb_.db_len)
+    L1, L2 = batch.query.shape[1], batch.db.shape[1]
+    finals, dirs = _host_fill(host, tb_, s2v, dsum, n2mask, L1, L2,
+                              ScoringScheme(), compat, False, True,
+                              cta_lanes=128)
+    cells, _ = _pair_cells(dirs, batch.query_len, batch.db_len)
+    g = dirs.numpy().view(np.uint8).reshape(*dirs.shape, 4)
+    assert (~cells).any() and not g[~cells].any()
+    want = _jax(batch, ScoringScheme(), compat, False, True)
+    wd = np.asarray(want.dirs)
+    for b, (s1, s2) in enumerate(pairs):
+        mine = _outcome(tb.traceback_pair, dirs[:, b, :].numpy(),
+                        finals[b].numpy(), s1, s2)
         ref = _outcome(jax_tb.traceback_pair, wd[:, b, :],
                        np.asarray(want.finals)[b], s1, s2)
         assert mine == ref, b

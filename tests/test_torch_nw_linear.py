@@ -1,7 +1,9 @@
 """PyTorch port of the linear-gap NW fill vs the JAX package: the plain
 fill against _linear_fill_lax (nw_linear_batch) on scores and the whole
 path-bit tensor, global (compat and textbook) and local (two passes), and
-the scores against the scalar oracle (exact: integers and bits equal)."""
+the scores against the scalar oracle (exact: integers and bits equal);
+the walker on the kernel's path bits (csrc/host_check.cpp), whose bytes
+outside the pairs' matrices are 0, against the JAX walker."""
 
 import dataclasses
 
@@ -12,11 +14,14 @@ import torch
 from sequencealigning_tpu.config import ScoringScheme as JaxScheme
 from sequencealigning_tpu.ops import nw_linear as jax_linear
 from sequencealigning_tpu.ops import oracle_linear
+from sequencealigning_tpu.ops import traceback as jax_tb
+from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.errors import AlignmentError
 from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.ops import nw_linear as port
+from sequencealigning_tpu_torch.ops import traceback as tb
 
 ALT = ScoringScheme(match_=2, mismatch=-3, gap_open=-5, gap_extend=-1)
 
@@ -140,3 +145,55 @@ def test_row_past_the_cuda_width_is_an_alignment_error(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     with pytest.raises(AlignmentError, match=f"row of {lanes} lanes"):
         port.nw_linear_batch(*tb, with_dirs=False)
+
+
+@pytest.fixture(scope="module")
+def host():
+    if csrc.host_compiler() is None:
+        pytest.skip("no C++ compiler to build csrc/host_check.cpp")
+    return csrc.host_check()
+
+
+def _host_bits(host, tb, scheme, compat, local, maxv):
+    """The linear kernel's path bits (hc_linear_fill, the warp-ring
+    schedule run serially over forced 128-lane CTAs): every byte outside
+    each pair's matrix 0."""
+    seq1, s2v, n1v, n2v = port.linear_inputs(*tb)
+    l1, l2 = tb.query.shape[1], tb.db.shape[1]
+    B, P = s2v.shape
+    corner = torch.zeros((B,), dtype=torch.int32)
+    runmax = torch.full((B,), port.NEGBIG, dtype=torch.int32)
+    dirs = torch.full((-(-(l1 + l2 + 1) // 4), B, P), 0x5a5a5a5a,
+                      dtype=torch.uint32)
+    status = torch.zeros(1, dtype=torch.int32)
+    assert host.hc_linear_fill(
+        seq1.data_ptr(), s2v.data_ptr(), n1v.data_ptr(), n2v.data_ptr(),
+        maxv.data_ptr(), corner.data_ptr(), runmax.data_ptr(),
+        dirs.data_ptr(), B, seq1.shape[1], P, l1 + l2 + 1, scheme.match_,
+        scheme.mismatch, scheme.gap_open, scheme.gap_extend, 1, int(compat),
+        int(local), 128, status.data_ptr(), 0, 0, 0) == 0
+    return dirs.numpy()
+
+
+@pytest.mark.parametrize("local", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_walker_on_the_kernel_bits_matches_jax(host, compat, local):
+    """linear_traceback_pair on the linear kernel's path bits (every byte
+    outside each pair's matrix 0) gives the JAX walker's hits on the JAX
+    bits: the DFS and its ISMAX seeds read only cells 0 <= x <= n2,
+    0 <= y <= n1."""
+    pairs = _pairs(31 + compat + 2 * local, 10, 1, 60, 1, 150) + [
+        (b"", b"ACGTA"), (b"GATTACA", b"")]
+    batch = pack_batch(pairs, batch_size=len(pairs))
+    want = jax_linear.nw_linear_batch(
+        batch.query, batch.db, batch.query_len, batch.db_len,
+        scheme=JaxScheme(), compat=compat, local=local, with_dirs=True)
+    maxv = torch.tensor(np.asarray(want.score), dtype=torch.int32)
+    dirs = _host_bits(host, to_device(batch, "cpu"), ScoringScheme(), compat,
+                      local, maxv)
+    wd = np.asarray(want.dirs)
+    assert (dirs != wd).any()
+    for b, (s1, s2) in enumerate(pairs):
+        assert (tb.linear_traceback_pair(dirs[:, b, :], s1, s2, local=local)
+                == jax_tb.linear_traceback_pair(wd[:, b, :], s1, s2,
+                                                local=local)), b
