@@ -18,7 +18,9 @@ in the phases below and exits non-zero at the first failure:
    direction codes equal on every cell of every real pair; a warp-ring
    schedule that cannot be met (a wrap ring of one word) must raise, not
    hang, and the next launch must equal its plain version;
-4. walk kernel vs its plain version and vs the native host walker;
+4. walk kernel vs its plain version and vs the native host walker at the
+   main shape, then on one pair's own streamed fill vs its plain version
+   (each with ms, ns a step of the longest walk and slow-path words);
 5. main path: GotohAligner(first_only) on cuda through align_batch (the
    data-parallel runner's fill+walk) over 4096 x 2046 bp pairs at ~1%
    divergence; every pair aligned, no host re-walk, both kernels launched,
@@ -28,7 +30,9 @@ in the phases below and exits non-zero at the first failure:
 6. textbook modes fills on ragged batches: the per-pair kernel (up to 31
    pairs at up to 2046 bp, skewed both ways, semi/local x wildcard) and the
    streamed kernel (2-4 slots a row) vs their plain versions: argmax
-   buffers, end cells and direction bytes equal;
+   buffers, end cells and direction bytes equal; the modes walk kernel on
+   the per-pair kernel's dirs at 1 and 31 pairs of 2046 bp, local and
+   semi-global, vs its plain walk (ms, ns a step, slow-path words);
 7. the main shape (4096 x 2046 bp) in local, then semi-global mode: the
    streamed modes kernel vs its plain version (argmax buffers, end cells,
    direction bytes), then the modes walk kernel on its dirs vs the plain
@@ -630,8 +634,33 @@ def walk_diff(torch, got, want):
                for g, w in zip(got, want))
 
 
+def staged_walk(torch, kernel, plain, name, seeds, repeats=5):
+    """A fast4 or modes walk kernel (kernel(slow=None)) against its plain
+    version on the same seeds, then timed (the mean of `repeats` launches)
+    beside its bound: ms, plain_ms, bound_ms, bound_by, err, the words its
+    slow path read, its ring's restagings, the longest walk's steps and ns
+    a step of it."""
+    slow = torch.zeros(2, dtype=torch.int64, device="cuda")
+    got = kernel(slow=slow)
+    plain_ms, want = host_ms(torch, plain)
+    err = walk_diff(torch, got, want)
+    ms = cuda_ms(torch, kernel, repeats)
+    steps = int(got[-1].max())
+    b_ms, b_by = walk_bound(name, got, seeds)
+    return got, dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     err=err, slow_reads=int(slow[0]),
+                     restagings=int(slow[1]), steps=steps,
+                     ns_per_step=ms * 1e6 / max(steps, 1))
+
+
 def phase_walk(torch, port, state):
     from sequencealigning_tpu_torch import native
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
 
     walk = port["walk"]
     finals, dirs, plan, pairs = state
@@ -646,15 +675,11 @@ def phase_walk(torch, port, state):
 
     seeds = [put(n2s), put(n1s), put(walk.seed_planes(fin)),
              put(bs // plan.np_slots), put((bs % plan.np_slots) * plan.s)]
-    t_steps = plan.l1 + plan.l2
-    ms = cuda_ms(torch, lambda: walk.walk_fast4_cuda(dirs, *seeds, t_steps))
-    got = walk.walk_fast4_cuda(dirs, *seeds, t_steps)
-    plain_ms, want = host_ms(
-        torch, lambda: walk.walk_fast4_torch(dirs, *seeds, t_steps))
-    err = 0
-    for g, w in zip(got, want):
-        err = max(err, int((g.view(torch.int32).long()
-                            - w.view(torch.int32).long()).abs().max()))
+    a = (dirs, *seeds, plan.l1 + plan.l2)
+    got, main = staged_walk(
+        torch, lambda slow=None: walk.walk_fast4_cuda(*a, slow=slow),
+        lambda: walk.walk_fast4_torch(*a), "walk_fast4", seeds, 3)
+    err = main["err"]
     check(err == 0, f"walk kernel != plain: err {err}")
     ops = walk.decode_packed_ops(got[2].cpu().numpy(), n1s, n2s)
     host = native.fast4_first_path_batch_native(
@@ -664,12 +689,41 @@ def phase_walk(torch, port, state):
     check(host is not None, "native host walker unavailable")
     bad = sum(o is None or o != h for o, h in zip(ops, host))
     check(bad == 0, f"walk kernel != native host walker on {bad} pairs")
-    b_ms, b_by = walk_bound("walk_fast4", got, seeds)
-    log(f"[4 walk] {B} pairs: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); equal to the plain walk and to the "
-        "native host walker")
-    return {"walk_ms": ms, "walk_plain_ms": plain_ms, "walk_err": err,
-            "walk_bound_ms": b_ms, "walk_bound_by": b_by}
+    log(f"[4 walk] {B} pairs: kernel {main['ms']:.3f} ms "
+        f"({main['ns_per_step']:.1f} ns a step of the longest walk, "
+        f"{main['steps']} steps; "
+        f"{main['slow_reads']} slow-path words, {main['restagings']} "
+        f"restagings), plain "
+        f"{main['plain_ms']:.1f} ms, bound {main['bound_ms']:.4f} ms "
+        f"({main['bound_by']}); equal to the plain walk and to the native "
+        "host walker")
+    # One pair (a CLI or --serve request's walk), its own streamed fill.
+    fill = port["fill"]
+    one = make_pairs(np.random.default_rng(4), 1, LEN_MAIN)
+    b1 = pack_batch(one, batch_size=1)
+    plan1, ins1 = fill.stream_inputs(*to_device(trim_for_stream(b1), "cuda"))
+    fin1, dirs1 = fill.gotoh_fill_stream_cuda(*ins1, plan1, ScoringScheme(),
+                                              True, False, "fast4")
+    s1 = [put(b1.db_len), put(b1.query_len),
+          put(walk.seed_planes(fin1[:1].cpu().numpy())), put([0]), put([0])]
+    a1 = (dirs1, *s1, plan1.l1 + plan1.l2)
+    _, one_pair = staged_walk(
+        torch, lambda slow=None: walk.walk_fast4_cuda(*a1, slow=slow),
+        lambda: walk.walk_fast4_torch(*a1), "walk_fast4", s1)
+    check(one_pair["err"] == 0,
+          f"walk kernel != plain on one pair: err {one_pair['err']}")
+    log(f"[4 walk] 1 pair: kernel {one_pair['ms']:.3f} ms "
+        f"({one_pair['ns_per_step']:.1f} ns a step, {one_pair['steps']} "
+        f"steps; {one_pair['slow_reads']} slow-path words, "
+        f"{one_pair['restagings']} restagings), plain "
+        f"{one_pair['plain_ms']:.1f} ms; equal to the plain walk")
+    return {"walk_ms": main["ms"], "walk_plain_ms": main["plain_ms"],
+            "walk_err": err, "walk_bound_ms": main["bound_ms"],
+            "walk_bound_by": main["bound_by"],
+            "walk_ns_per_step": main["ns_per_step"],
+            "walk_slow": main["slow_reads"],
+            "walk_restagings": main["restagings"],
+            "walk_one_pair": one_pair}
 
 
 def phase_main(torch, port, pairs, by_path):
@@ -855,8 +909,10 @@ def phase_modes_fill(torch, port):
     out = {"mfill_err": err, "mfill_whole_dirs_equal": whole,
            "mfill_outside_zero": zero}
     # At 1, 4 and 31 pairs of the main length (the largest batch it
-    # serves), local and semi-global: equal to the plain version, timed.
-    shapes = {}
+    # serves), local and semi-global: equal to the plain version, timed;
+    # at 1 and 31 the modes walk on its dirs too.
+    walk = port["walk"]
+    shapes, walks = {}, {}
     for n in (1, 4, 31):
         pairs = make_pairs(np.random.default_rng(4), n, LEN_MAIN)
         batch = pack_batch(pairs, batch_size=n)
@@ -880,6 +936,9 @@ def phase_modes_fill(torch, port):
             b_ms, b_by = bound(nbytes(*args[:4], *got), cells * OPS_PER_CELL[
                 "local full" if local else "full"])
             launch = dict(modes.modes_fill_cuda.last_launch)
+            if n in (1, 31):
+                walks[f"{n}_{mode}"] = pair_modes_walk(torch, walk, modes,
+                                                       got, tb, local)
             del got
             err, whole, zero = max(err, e), whole and w, zero and z
             shapes[f"{n}_{mode}"] = dict(
@@ -893,6 +952,7 @@ def phase_modes_fill(torch, port):
                 f"lanes; equal (whole dirs equal: {w}; outside the matrices "
                 f"0: {z})")
         torch.cuda.empty_cache()
+    out["mwalk_pairs"] = walks
     main = shapes["31_local"]
     out.update(mfill_ms=main["ms"], mfill_plain_ms=main["plain_ms"],
                mfill_bound_ms=main["bound_ms"],
@@ -969,6 +1029,35 @@ def phase_modes_fill(torch, port):
     return out
 
 
+def pair_modes_walk(torch, walk, modes, got, tb, local):
+    """The modes walk kernel on kernel #6's per-pair dirs (row b, offset 0)
+    from each pair's end cell, against its plain version: staged_walk's
+    dict.  Every walk must stop cleanly."""
+    bv, bd, dirs = got
+    _, x, y = modes.modes_reduce(bv, bd)
+    n = len(tb.query_len)
+    seeds = [x.contiguous(), y.contiguous(),
+             torch.arange(n, dtype=torch.int32, device="cuda"),
+             torch.zeros(n, dtype=torch.int32, device="cuda")]
+    a = (dirs, *seeds, local, tb.query.shape[1] + tb.db.shape[1])
+    res, st_ = staged_walk(
+        torch, lambda slow=None: walk.walk_modes_cuda(*a, slow=slow),
+        lambda: walk.walk_modes_torch(*a), "walk_modes", seeds)
+    mode = "local" if local else "semi"
+    check(st_["err"] == 0, f"modes walk kernel != plain on {n} pairs' "
+          f"per-pair dirs ({mode}): err {st_['err']}")
+    check(bool((res[2] == 1).all()), f"modes walk kernel ({mode}, {n} "
+          "pairs): a walk did not stop cleanly")
+    log(f"[6 modes fill] modes walk on the per-pair dirs, {n} x {LEN_MAIN} "
+        f"bp {mode}: kernel {st_['ms']:.3f} ms ({st_['ns_per_step']:.1f} ns "
+        f"a step, {st_['steps']} steps; {st_['slow_reads']} slow-path "
+        f"words, {st_['restagings']} "
+        f"restagings), plain "
+        f"{st_['plain_ms']:.1f} ms, bound {st_['bound_ms']:.4f} ms "
+        f"({st_['bound_by']}); equal to the plain walk")
+    return st_
+
+
 def phase_modes_full(torch, port, mode, pairs):
     """Kernel B against its plain version at the main shape in one mode
     ("local" or "semi"), then kernel C against the plain walk on B's dirs
@@ -1037,16 +1126,11 @@ def phase_modes_full(torch, port, mode, pairs):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
 
     seeds = [put(end_x), put(end_y), put(rowp), put(off)]
-    t_steps = plan.l1 + plan.l2
-    ms = cuda_ms(torch, lambda: walk.walk_modes_cuda(dirs, *seeds, local,
-                                                     t_steps))
-    got = walk.walk_modes_cuda(dirs, *seeds, local, t_steps)
-    plain_ms, want = host_ms(
-        torch, lambda: walk.walk_modes_torch(dirs, *seeds, local, t_steps))
-    err = 0
-    for g, w in zip(got, want):
-        err = max(err, int((g.view(torch.int32).long()
-                            - w.view(torch.int32).long()).abs().max()))
+    a = (dirs, *seeds, local, plan.l1 + plan.l2)
+    got, st_ = staged_walk(
+        torch, lambda slow=None: walk.walk_modes_cuda(*a, slow=slow),
+        lambda: walk.walk_modes_torch(*a), "walk_modes", seeds, 3)
+    ms, plain_ms, err = st_["ms"], st_["plain_ms"], st_["err"]
     check(err == 0, f"modes walk kernel != plain ({mode}): err {err}")
     xf, yf, st, packed, n_ops = got
     check(bool((st == 1).all()), f"modes walk kernel ({mode}): a walk did "
@@ -1069,15 +1153,21 @@ def phase_modes_full(torch, port, mode, pairs):
                            d_offset=int(off[b]))[:2]
         check(alns[b] == (int(best[b]), [(a1, a2)]),
               f"modes walk kernel != host walker on pair {b} ({mode})")
-    b_ms, b_by = walk_bound("walk_modes", got, seeds)
-    log(f"[7 modes full] {N_MAIN} pairs {mode} walk: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); equal to "
-        f"the plain walk, {len(sample)} sampled pairs equal to the host "
-        "walker")
+    b_ms, b_by = st_["bound_ms"], st_["bound_by"]
+    log(f"[7 modes full] {N_MAIN} pairs {mode} walk: kernel {ms:.3f} ms "
+        f"({st_['ns_per_step']:.1f} ns a step of the longest walk, "
+        f"{st_['steps']} steps; "
+        f"{st_['slow_reads']} slow-path words, {st_['restagings']} "
+        f"restagings), plain {plain_ms:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); equal to the plain walk, "
+        f"{len(sample)} sampled pairs equal to the host walker")
     out.update({f"mwalk_{mode}_ms": ms, f"mwalk_{mode}_plain_ms": plain_ms,
                 f"mwalk_{mode}_err": err, f"mwalk_{mode}_bound_ms": b_ms,
-                f"mwalk_{mode}_bound_by": b_by})
-    del dirs, got, want, packed, seeds, ins, tb
+                f"mwalk_{mode}_bound_by": b_by,
+                f"mwalk_{mode}_ns_per_step": st_["ns_per_step"],
+                f"mwalk_{mode}_slow": st_["slow_reads"],
+                f"mwalk_{mode}_restagings": st_["restagings"]})
+    del dirs, got, packed, seeds, ins, tb, a
     torch.cuda.empty_cache()
     return out
 
@@ -3356,14 +3446,15 @@ def kernel_entries(meas, by_path):
     errs = {
         "nw_affine_stream_fill": [meas["fill_err"], meas["fill_split4_err"],
                                   ceil["nw_affine_stream_fill"]],
-        "walk_fast4": [meas["walk_err"]],
+        "walk_fast4": [meas["walk_err"], meas["walk_one_pair"]["err"]],
         "nw_affine_modes_fill": [meas["mfill_err"], meas["mfill_semi_err"],
                                  ceil["nw_affine_modes_fill"]],
         "nw_affine_stream_modes_fill": [meas["sfill_ragged_err"],
                                         meas["sfill_local_err"],
                                         meas["sfill_semi_err"],
                                         ceil["nw_affine_stream_modes_fill"]],
-        "walk_modes": [meas["mwalk_local_err"], meas["mwalk_semi_err"]],
+        "walk_modes": [meas["mwalk_local_err"], meas["mwalk_semi_err"]] + [
+            v["err"] for v in meas["mwalk_pairs"].values()],
         "nw_banded_diag_fill": [meas["bfill_ragged_err"],
                                 meas["bfill_fast4_err"],
                                 meas["bfill_full_err"],
@@ -3449,6 +3540,16 @@ def kernel_entries(meas, by_path):
             entry["crossover"] = meas["mfill_crossover"]
             entry["whole_dirs_equal"] = meas["mfill_whole_dirs_equal"]
             entry["outside_zero"] = meas["mfill_outside_zero"]
+        if name == "walk_fast4":
+            entry.update(ns_per_step=meas["walk_ns_per_step"],
+                         slow_reads=meas["walk_slow"],
+                         restagings=meas["walk_restagings"],
+                         one_pair=meas["walk_one_pair"])
+        if name == "walk_modes":
+            entry.update(ns_per_step=meas["mwalk_local_ns_per_step"],
+                         slow_reads=meas["mwalk_local_slow"],
+                         restagings=meas["mwalk_local_restagings"],
+                         per_pair_dirs=meas["mwalk_pairs"])
         if name == "walk_banded":
             entry.update(ns_per_step=meas["bwalk_ns_per_step"],
                          slow_reads=meas["bwalk_slow"],

@@ -189,11 +189,11 @@ def kernels() -> ctypes.CDLL:
     lib.sa_tiled_fold_fill.restype = _INT
     lib.sa_tiled_fold_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
     lib.sa_walk_fast4.restype = _INT
-    lib.sa_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
-        _INT, _INT] + [_VP] * 5
+    lib.sa_walk_fast4.argtypes = [_VP] + [_INT] * 3 + [_VP] * 5 + [
+        _INT, _INT] + [_VP] * 6
     lib.sa_walk_modes.restype = _INT
     lib.sa_walk_modes.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
-        _INT] * 3 + [_VP] * 6
+        _INT] * 3 + [_VP] * 7
     lib.sa_walk_banded.restype = _INT
     lib.sa_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 4 + [_VP] * 4 + [_INT] + [_VP] * 2
@@ -324,11 +324,11 @@ def host_check() -> ctypes.CDLL:
     lib.hc_tile_dpx.restype = None
     lib.hc_tile_dpx.argtypes = [_VP] * 4 + [_INT]
     lib.hc_walk_fast4.restype = _INT
-    lib.hc_walk_fast4.argtypes = [_VP, _INT, _INT] + [_VP] * 5 + [
-        _INT, _INT] + [_VP] * 4
+    lib.hc_walk_fast4.argtypes = [_VP] + [_INT] * 3 + [_VP] * 5 + [
+        _INT, _INT] + [_VP] * 5
     lib.hc_walk_modes.restype = _INT
     lib.hc_walk_modes.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
-        _INT] * 3 + [_VP] * 5
+        _INT] * 3 + [_VP] * 6
     lib.hc_walk_banded.restype = _INT
     lib.hc_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 4 + [_VP] * 4 + [_INT] + [_VP]

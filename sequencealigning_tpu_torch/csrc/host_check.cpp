@@ -17,6 +17,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <string.h>
+
 #include <vector>
 
 #include "cluster_split.cuh"
@@ -525,32 +527,96 @@ extern "C" int hc_stream_plan(int P, int cta_lanes, int modes, int lpt,
                                  wrap, shape);
 }
 
-extern "C" int hc_walk_fast4(const uint32_t* dirs, int R, int P,
+namespace {
+
+// The staged walks' warp run serially (traceback_device.cuh's Ops), for a
+// ring of ROWS rows a slot: the probe's 32 lanes in a loop; a slot's
+// copies land at its wait, its rows holding a poison pattern from the
+// copy's start until then, so a read of a slot not yet waited on shows.
+template <int ROWS>
+struct HostOps {
+  static constexpr uint32_t kPoison = 0xA5C3E1F7u;
+  std::vector<uint32_t> ring =
+      std::vector<uint32_t>(sa::kSlots * ROWS * sa::kStagePitch, kPoison);
+  int32_t offs[sa::kSlots] = {};
+  int n_of[sa::kSlots] = {};
+  const uint32_t* src_of[sa::kSlots][ROWS] = {};
+  unsigned restarts = 0;
+
+  int lane() const { return 0; }
+  int lanes() const { return 1; }
+  void init() {}
+  template <class F>
+  void probe(F f, uint32_t& mm, uint32_t& okm, uint32_t& v0) {
+    mm = okm = 0;
+    for (int j = 0; j < 32; ++j) {
+      uint32_t v;
+      bool ok, mv;
+      f(j, v, ok, mv);
+      if (mv) mm |= 1u << j;
+      if (ok) okm |= 1u << j;
+      if (j == 0) v0 = v;
+    }
+  }
+  uint32_t word(int r, int li) const {
+    return ring[static_cast<size_t>(r) * sa::kStagePitch + li];
+  }
+  template <class Src>
+  void copy(int r0, int n, int q, Src src) {
+    n_of[q] = n;
+    for (int j = 0; j < ROWS; ++j) {
+      if (j < n) src_of[q][j] = src(j);
+      for (int l = 0; l < sa::kStagePitch; ++l) {
+        ring[static_cast<size_t>(r0 + j) * sa::kStagePitch + l] = kPoison;
+      }
+    }
+  }
+  void wait(int q) {
+    for (int j = 0; j < n_of[q]; ++j) {
+      memcpy(&ring[static_cast<size_t>(q * ROWS + j) * sa::kStagePitch],
+             src_of[q][j], 4 * sa::kWalkWindow);
+    }
+    n_of[q] = 0;
+  }
+  void sync() {}
+  void drain() {
+    for (int q = 0; q < sa::kSlots; ++q) wait(q);
+  }
+  void count_restart() { ++restarts; }
+  void set_offset(int q, int32_t e) { offs[q] = e; }
+  int32_t offset(int q) const { return offs[q]; }
+};
+
+}  // namespace
+
+// sa_walk_fast4's arguments minus the stream: the kernel's staged schedule
+// run serially; slow: null, or two counters, the words the slow path read
+// and the ring's restagings added to them.
+extern "C" int hc_walk_fast4(const uint32_t* dirs, int NW, int R, int P,
                              const int32_t* x0, const int32_t* y0,
                              const int32_t* plane0, const int32_t* rowp,
-                             const int32_t* off, int B, int W,
+                             const int32_t* off, int B, int WP,
                              uint32_t* packed, int32_t* xf, int32_t* yf,
-                             int32_t* n_ops) {
+                             int32_t* n_ops, uint64_t* slow) {
+  if (NW <= 0 || R <= 0 || P < sa::kWalkWindow || P % 4 != 0 || B <= 0 ||
+      WP <= 0) {
+    return -1;
+  }
   for (int b = 0; b < B; ++b) {
+    HostOps<8> ops;
     int32_t x = x0[b];
     int32_t y = y0[b];
-    int32_t plane = plane0[b];
-    const size_t row = static_cast<size_t>(rowp[b]);
-    const int steps = x + y;
-    uint32_t* out = packed + static_cast<size_t>(b) * W;
-    for (int w = 0; w < W; ++w) out[w] = 0;
-    int i = 0;
-    while (i < steps && (x != 0 || y != 0)) {
-      const int32_t d = x + y + off[b];
-      const uint32_t v =
-          dirs[(static_cast<size_t>(d >> 3) * R + row) * P + x];
-      const uint32_t nib = (v >> (4 * (d & 7))) & 0xFu;
-      out[i >> 4] |= sa::walk_step(nib, x, y, plane) << (2 * (i & 15));
-      ++i;
-    }
+    unsigned nslow = 0;
+    sa::walk_fast4_staged(ops, dirs, NW, R, P, static_cast<size_t>(rowp[b]),
+                          off[b], x, y, plane0[b],
+                          packed + static_cast<size_t>(b) * WP, WP, n_ops[b],
+                          nslow);
     xf[b] = x;
     yf[b] = y;
-    n_ops[b] = i;
+    if (slow != nullptr) {
+      slow[0] += nslow;
+      slow[1] += ops.restarts;
+    }
   }
   return 0;
 }
@@ -654,24 +720,37 @@ extern "C" int hc_gotoh_fill(const int32_t* query, const int32_t* s2v,
            : run_pair<HostGotohCells<F, G, false, false>>(a, k);
 }
 
-extern "C" int hc_walk_modes(const uint32_t* dirs, int W, int R, int P,
+// sa_walk_modes's arguments minus the stream (as hc_walk_fast4).
+extern "C" int hc_walk_modes(const uint32_t* dirs, int NW, int R, int P,
                              const int32_t* x0, const int32_t* y0,
                              const int32_t* rowp, const int32_t* off, int B,
                              int WP, int local, uint32_t* packed, int32_t* xf,
-                             int32_t* yf, int32_t* st, int32_t* n_ops) {
+                             int32_t* yf, int32_t* st, int32_t* n_ops,
+                             uint64_t* slow) {
+  if (NW <= 0 || R <= 0 || P < sa::kWalkWindow || P % 4 != 0 || B <= 0 ||
+      WP <= 0) {
+    return -1;
+  }
   for (int b = 0; b < B; ++b) {
+    HostOps<16> ops;
     int32_t x = x0[b];
     int32_t y = y0[b];
+    unsigned nslow = 0;
     uint32_t* out = packed + static_cast<size_t>(b) * WP;
+    const size_t row = static_cast<size_t>(rowp[b]);
     if (local) {
-      sa::walk_modes_pair<true>(dirs, W, R, P, static_cast<size_t>(rowp[b]),
-                                off[b], x, y, st[b], n_ops[b], out, WP);
+      sa::walk_modes_staged<true>(ops, dirs, NW, R, P, row, off[b], x, y,
+                                  st[b], n_ops[b], out, WP, nslow);
     } else {
-      sa::walk_modes_pair<false>(dirs, W, R, P, static_cast<size_t>(rowp[b]),
-                                 off[b], x, y, st[b], n_ops[b], out, WP);
+      sa::walk_modes_staged<false>(ops, dirs, NW, R, P, row, off[b], x, y,
+                                   st[b], n_ops[b], out, WP, nslow);
     }
     xf[b] = x;
     yf[b] = y;
+    if (slow != nullptr) {
+      slow[0] += nslow;
+      slow[1] += ops.restarts;
+    }
   }
   return 0;
 }

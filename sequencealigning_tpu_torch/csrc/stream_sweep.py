@@ -41,12 +41,15 @@ and past 8192 (a cluster a row), the kernels held against their plain
 versions on the first rows; --pipeline times the runner's fused
 first-only route (the host ms until the fill and walk are queued, and
 until the walk is decoded) and stream_align with cigars over 8 batches of
-the main shape.  --walks N times only the device walks -- the fast4 and
-local modes walks at the main shape, the banded walk at config 4 and on
-batches B (band 128) and A (band 512) -- each N launches timed one by one
-(CUDA events) after a warm-up: the median, least and largest ms; for this
-checkout each banded walk is also held equal to its plain version.  Run it
-on the parent and on the tree in turn, in one call, to compare the walks.
+the main shape.  --walks N times only the device walks -- the fast4 walk
+and the local and semi-global modes walks at the main shape, the fast4
+walk on one pair, the modes walks on kernel #6's per-pair layout at 1 and
+31 pairs, the banded walk at config 4 and on batches B (band 128) and A
+(band 512) -- each N launches timed one by one (CUDA events) after a
+warm-up: the median, least and largest ms; for this checkout each walk is
+also held equal to its plain version (the fast4 and modes walks with their
+slow-path words and ns a step).  Run it on the parent and on the tree in
+turn, in one call, to compare the walks.
 Needs a CUDA card; prints the card's name and power limit.
 """
 
@@ -530,21 +533,21 @@ def _others(chip_smoke, port, ScoringScheme, to_device, pack_batch, _ms):
     return rows
 
 
+def _put(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+
 def _main_walk(walk, modes, kind, got, plan, batch, _ms):
     """(name, ms) of the fast4 walk (kind "fast4") or the local modes walk
     ("local") on the default route's fill at the main shape."""
     B = len(batch.query_len)
     bs = np.arange(B)
-
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-
-    rowp, off = put(bs // plan.np_slots), put((bs % plan.np_slots) * plan.s)
+    rowp, off = _put(bs // plan.np_slots), _put((bs % plan.np_slots) * plan.s)
     t_steps = plan.l1 + plan.l2
     if kind == "fast4":
         finals, dirs = got
-        seeds = [put(batch.db_len), put(batch.query_len),
-                 put(walk.seed_planes(finals[:B].cpu().numpy())), rowp, off]
+        seeds = [_put(batch.db_len), _put(batch.query_len),
+                 _put(walk.seed_planes(finals[:B].cpu().numpy())), rowp, off]
         return ("fast4 walk 4096 x 2046", _ms(
             lambda: walk.walk_fast4_cuda(dirs, *seeds, t_steps))[0])
     bv, bd, dirs = got
@@ -575,11 +578,15 @@ def _walk_ms(port, fill_out, plan, pairs, _ms) -> float:
     return _ms(lambda: walk.walk_banded_cuda(dirs, *seeds, *a))[0]
 
 
-def _launches_ms(fn, n: int) -> list:
+def _launches_ms(fn, n: int, primed: bool = False) -> list:
     """ms of each of n launches of fn (CUDA events around each), after a
-    warm-up."""
+    warm-up; primed: behind a ~30 ms sleep on the card, so that the host
+    queues every launch before the card reaches it and the events time
+    the card alone (fn must not wait for the card)."""
     fn()
     torch.cuda.synchronize()
+    if primed:
+        torch.cuda._sleep(50_000_000)
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     for start, end in ev:
@@ -590,31 +597,148 @@ def _launches_ms(fn, n: int) -> list:
     return [start.elapsed_time(end) for start, end in ev]
 
 
+def gapped_pairs(rng, n: int, length: int, gap: int):
+    """n (mutant, reference) pairs of `length` bp at ~1% substitutions, the
+    mutant also carrying a `gap` bp insertion and a `gap` bp deletion at
+    random places: walks with two long gaps."""
+    pairs = []
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    for _ in range(n):
+        ref = rng.choice(alpha, length)
+        mut = ref.copy()
+        for _ in range(length // 100):
+            mut[rng.integers(length)] = rng.choice(alpha)
+        at = int(rng.integers(1, length - 1))
+        mut = np.concatenate([mut[:at], rng.choice(alpha, gap), mut[at:]])
+        at = int(rng.integers(1, length - gap))
+        mut = np.concatenate([mut[:at], mut[at + gap:]])
+        pairs.append((mut.tobytes(), ref.tobytes()))
+    return pairs
+
+
+def _staged_walk_cases(chip_smoke, port, ScoringScheme, to_device,
+                       pack_batch, trim_for_stream):
+    """--walks' fast4 and modes walk shapes, one at a time (the fill freed
+    before the next): (name, kernel(slow=None, check=True), plain());
+    check=False skips the wrapper's seed check.  The main shape's fast4
+    walk (trimmed streamed layout) and local and semi-global modes walks
+    (streamed), the fast4 and local modes walks on the main shape with 50
+    bp indels (gapped_pairs), the fast4 walk on one pair, the modes walks
+    on kernel #6's per-pair layout at 1 and 31 pairs."""
+    fill, smodes, walk, modes = (port["fill"], port["smodes"], port["walk"],
+                                 port["modes"])
+    sch = ScoringScheme()
+
+    def call(fn, *args, slow=None, check=True):
+        # Another checkout's wrappers may take no slow counter.
+        if slow is None:
+            return fn(*args, check_bounds=check)
+        return fn(*args, check_bounds=check, slow=slow)
+
+    def fast4(name, pairs):
+        batch = pack_batch(pairs, batch_size=len(pairs))
+        tb = to_device(trim_for_stream(batch), "cuda")
+        plan, ins = fill.stream_inputs(*tb)
+        finals, dirs = fill.gotoh_fill_stream_cuda(*ins, plan, sch, True,
+                                                   False, "fast4")
+        B = len(pairs)
+        bs = np.arange(B)
+        seeds = [_put(batch.db_len), _put(batch.query_len),
+                 _put(walk.seed_planes(finals[:B].cpu().numpy())),
+                 _put(bs // plan.np_slots), _put((bs % plan.np_slots) * plan.s)]
+        a = (dirs, *seeds, plan.l1 + plan.l2)
+        return (name, lambda slow=None, check=True: call(
+                    walk.walk_fast4_cuda, *a, slow=slow, check=check),
+                lambda: walk.walk_fast4_torch(*a))
+
+    def streamed_modes(name, batch, mode):
+        tb = to_device(batch, "cuda")
+        plan, ins = fill.stream_inputs(*tb)
+        (bv, bd), dirs = smodes.gotoh_fill_stream_modes_cuda(
+            *ins, plan, sch, False, mode, True)
+        B, P = len(batch.query_len), plan.p
+        _, x, y = modes.modes_reduce(bv.transpose(0, 1).reshape(-1, P),
+                                     bd.transpose(0, 1).reshape(-1, P))
+        bs = np.arange(B)
+        a = (dirs, x[:B].contiguous(), y[:B].contiguous(),
+             _put(bs // plan.np_slots), _put((bs % plan.np_slots) * plan.s),
+             mode == "local", plan.l1 + plan.l2)
+        return modes_case(name, a)
+
+    def modes_case(name, a):
+        return (name, lambda slow=None, check=True: call(
+                    walk.walk_modes_cuda, *a, slow=slow, check=check),
+                lambda: walk.walk_modes_torch(*a))
+
+    def pair_modes(name, pairs, local):
+        batch = pack_batch(pairs, batch_size=len(pairs))
+        tb = to_device(batch, "cuda")
+        res = modes.nw_affine_modes_batch(tb.query, tb.db, tb.query_len,
+                                          tb.db_len, local=local)
+        x, y = np.asarray(res.best_x), np.asarray(res.best_y)
+        a = (res.dirs, _put(x), _put(y), _put(np.arange(len(pairs))),
+             _put(np.zeros(len(pairs))), local,
+             tb.query.shape[1] + tb.db.shape[1])
+        return modes_case(name, a)
+
+    main = chip_smoke.make_pairs(np.random.default_rng(0), chip_smoke.N_MAIN,
+                                 chip_smoke.LEN_MAIN)
+    batch = pack_batch(main, batch_size=chip_smoke.N_MAIN)
+    shape = f"{chip_smoke.N_MAIN} x {chip_smoke.LEN_MAIN}"
+    yield fast4(f"fast4 walk {shape}", main)
+    for mode in ("local", "semi"):
+        yield streamed_modes(f"modes walk {mode} {shape}", batch, mode)
+    gapped = gapped_pairs(np.random.default_rng(1), chip_smoke.N_MAIN,
+                          chip_smoke.LEN_MAIN, 50)
+    yield fast4(f"fast4 walk {shape} with 50 bp indels", gapped)
+    yield streamed_modes(f"modes walk local {shape} with 50 bp indels",
+                         pack_batch(gapped, batch_size=chip_smoke.N_MAIN),
+                         "local")
+    one = chip_smoke.make_pairs(np.random.default_rng(4), 1,
+                                chip_smoke.LEN_MAIN)
+    yield fast4("fast4 walk 1 pair", one)
+    for n in (1, 31):
+        pairs = chip_smoke.make_pairs(np.random.default_rng(4), n,
+                                      chip_smoke.LEN_MAIN)
+        for local in (True, False):
+            yield pair_modes(f"modes walk {'local' if local else 'semi'} "
+                             f"{n} pair{'s' if n > 1 else ''} per-pair",
+                             pairs, local)
+
+
 def _walks(chip_smoke, port, ScoringScheme, to_device, pack_batch,
            trim_for_stream, reps: int, check: bool) -> list:
-    """--walks: [(name, [ms of each launch])] of the fast4 and local modes
-    walks at the main shape and the banded walk at config 4 and batches B
-    and A; check: each banded walk held equal to walk_banded_torch."""
-    fill, smodes, walk = port["fill"], port["smodes"], port["walk"]
-    banded = port["banded"]
+    """--walks: [(name, [ms of each launch])] of the fast4 and modes walks
+    (_staged_walk_cases; each timed as the wrapper's call, seed check
+    included, and as the kernel alone) and the banded walk at config 4 and
+    batches B and A; check: each held equal to its plain version, the fast4
+    and modes walks with their slow-path words and ns a step of the longest
+    walk."""
+    walk, banded = port["walk"], port["banded"]
     sch = ScoringScheme()
-    pairs = chip_smoke.make_pairs(np.random.default_rng(0),
-                                  chip_smoke.N_MAIN, chip_smoke.LEN_MAIN)
-    batch = pack_batch(pairs, batch_size=chip_smoke.N_MAIN)
     rows = []
-    for kind in ("fast4", "local"):
-        tb = to_device(trim_for_stream(batch) if kind == "fast4" else batch,
-                       "cuda")
-        plan, ins = fill.stream_inputs(*tb)
-        if kind == "fast4":
-            got = fill.gotoh_fill_stream_cuda(*ins, plan, sch, True, False,
-                                              "fast4")
-        else:
-            got = smodes.gotoh_fill_stream_modes_cuda(*ins, plan, sch, False,
-                                                      "local", True)
-        rows.append(_main_walk(walk, port["modes"], kind, _flat(got), plan,
-                               batch, lambda fn: (_launches_ms(fn, reps),)))
-        del got, tb, ins
+    for name, kernel, plain in _staged_walk_cases(
+            chip_smoke, port, ScoringScheme, to_device, pack_batch,
+            trim_for_stream):
+        rows.append((f"{name} call", _launches_ms(kernel, reps)))
+        ms = _launches_ms(lambda: kernel(check=False), reps, primed=True)
+        rows.append((f"{name} kernel", ms))
+        if check:
+            slow = torch.zeros(2, dtype=torch.int64, device="cuda")
+            got = kernel(slow=slow)
+            t0 = time.perf_counter()
+            want = plain()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            assert all(bool(torch.equal(g, w)) for g, w in zip(got, want)), (
+                f"{name} != plain")
+            steps = int(got[-1].max())
+            print(f"{name}: equal to its plain version ({secs:.1f} s); "
+                  f"{int(slow[0])} slow-path words, {int(slow[1])} "
+                  "restagings; "
+                  f"{np.median(ms) * 1e6 / steps:.1f} ns a step of the "
+                  f"longest walk ({steps} steps), kernel alone", flush=True)
+        del kernel, plain
         torch.cuda.empty_cache()
     c4 = chip_smoke.make_pairs(np.random.default_rng(4), chip_smoke.N_BAND,
                                chip_smoke.LEN_BAND)
@@ -736,6 +860,10 @@ def main() -> int:
     csrc.kernels()
     print(f"build {csrc.build_seconds:.1f} s", flush=True)
     if args.walks:
+        for r in csrc.kernel_resources(csrc.build_log, "walk_"):
+            print(f"instance {r['entry']}: {r['registers']} registers, "
+                  f"{r['spill_stores']} / {r['spill_loads']} bytes spilled "
+                  f"(stores / loads), stack {r['stack']}", flush=True)
         port = {"fill": fill, "smodes": smodes, "modes": nw_affine_modes,
                 "banded": nw_banded_diag, "walk": traceback_device}
         walks = _walks(chip_smoke, port, ScoringScheme, to_device,

@@ -10,24 +10,31 @@
 // (dirs[(x+y+off) >> 3, row, x]), and emits 2-bit op codes packed 16 to a u32
 // in walk order (end to start), zero past the walk.
 //
-// Design: one thread per pair, looping until the origin or n1 + n2 steps;
-// 16 ops are gathered in a register before each store.  This replaces the
-// TPU walk's 512-step early-exit chunks, which exist only because an XLA scan
-// cannot stop per pair.
-//
-// What bounds it on this card: the latency of the dependent global loads,
-// one 4-byte load a step whose address depends on the previous step, from a
-// direction tensor far larger than the L2 cache.  The work is tiny; blocks of
-// 32 threads spread the pairs over as many SMs as possible.
-//
 // Modes walk: replaces ops/traceback_device.py::_walk_modes_impl (also a
 // lax.while_loop over lax.scan chunks on the TPU).  Each pair walks from its
 // end cell over the full direction bytes (dirs[(x+y+off) >> 2, row, x], the
 // per-pair layout with row = b, off = 0 or the streamed one with the plan's
-// row and slot * S) until its stop rule, one thread a pair, with the step of
-// traceback_device.cuh::walk_modes_pair; it writes the packed op codes, the
-// stop cell and a status (1 stopped cleanly, 2 broken).  Bound like the fast4
-// walk by dependent-load latency, with a 1-byte code a step instead of 4 bits.
+// row and slot * S) until its stop rule, with walk_modes_step; it writes the
+// packed op codes, the stop cell and a status (1 stopped cleanly, 2 broken).
+//
+// Design of both (traceback_device.cuh's staged schedule): a warp a pair,
+// kWalkWarps pairs a block, over rows staged ahead of the walk in shared
+// memory by the Tensor Memory Accelerator: batches of 64 anti-diagonals
+// (8 fast4 / 16 modes word-rows), each row the 32 lanes (128 bytes) around
+// where the walk's DP diagonal crosses it (a sheared window, a bulk copy a
+// row, cp.async.bulk completing the slot's mbarrier), in a ring of 3
+// batch slots.  An M move lowers the lane by one and the anti-diagonal by
+// two, so in this layout every M move reads another lane's word: the warp's
+// 32 lanes read the next 32 cells of the M diagonal from the stage at once,
+// and a ballot gives the run of M moves, a whole run an iteration (up to 32
+// moves); other moves are one step an iteration.  Where a gap takes the
+// walk off the windows' diagonal the ring is restaged from the walk's cell;
+// another word outside the stage is a direct load (the slow path; both
+// counted when the caller asks).  What
+// bounds it: at many pairs the staged bytes (128 a word-row: ~0.27 GB for
+// fast4, ~0.54 GB for modes at 4096 x 2046 bp, against the function's
+// ~38 MB); at few pairs one walk's chain of iterations (the probe's shared
+// loads, a ballot, the emit) and the waits for the ring's copies.
 //
 // Banded walk: replaces ops/traceback_device.py::_walk_banded_diag_msub (a
 // lax.while_loop over lax.scan chunks on the TPU, up to 4 sub-steps a
@@ -65,74 +72,6 @@
 #include "traceback_device.cuh"
 
 namespace {
-
-constexpr int kWalkThreads = 32;
-
-__global__ void walk_fast4_kernel(const uint32_t* __restrict__ dirs, int R,
-                                  int P, const int32_t* __restrict__ x0,
-                                  const int32_t* __restrict__ y0,
-                                  const int32_t* __restrict__ plane0,
-                                  const int32_t* __restrict__ rowp,
-                                  const int32_t* __restrict__ off, int B,
-                                  int W, uint32_t* __restrict__ packed,
-                                  int32_t* __restrict__ xf,
-                                  int32_t* __restrict__ yf,
-                                  int32_t* __restrict__ n_ops) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int32_t x = x0[b];
-  int32_t y = y0[b];
-  int32_t plane = plane0[b];
-  const size_t row = static_cast<size_t>(rowp[b]);
-  const int32_t o = off[b];
-  const int steps = x + y;
-  uint32_t* out = packed + static_cast<size_t>(b) * W;
-  uint32_t word = 0;
-  int i = 0;
-  int w = 0;
-  while (i < steps && (x != 0 || y != 0)) {
-    const int32_t d = x + y + o;
-    const uint32_t v = __ldg(dirs + ((static_cast<size_t>(d >> 3) * R + row) * P + x));
-    const uint32_t nib = (v >> (4 * (d & 7))) & 0xFu;
-    word |= sa::walk_step(nib, x, y, plane) << (2 * (i & 15));
-    ++i;
-    if ((i & 15) == 0) {
-      out[w++] = word;
-      word = 0;
-    }
-  }
-  if (i & 15) out[w++] = word;
-  for (; w < W; ++w) out[w] = 0;
-  xf[b] = x;
-  yf[b] = y;
-  n_ops[b] = i;
-}
-
-template <bool LOCAL>
-__global__ void walk_modes_kernel(const uint32_t* __restrict__ dirs, int W,
-                                  int R, int P,
-                                  const int32_t* __restrict__ x0,
-                                  const int32_t* __restrict__ y0,
-                                  const int32_t* __restrict__ rowp,
-                                  const int32_t* __restrict__ off, int B,
-                                  int WP, uint32_t* __restrict__ packed,
-                                  int32_t* __restrict__ xf,
-                                  int32_t* __restrict__ yf,
-                                  int32_t* __restrict__ st,
-                                  int32_t* __restrict__ n_ops) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int32_t x = x0[b];
-  int32_t y = y0[b];
-  int32_t s, n;
-  sa::walk_modes_pair<LOCAL>(dirs, W, R, P, static_cast<size_t>(rowp[b]),
-                             off[b], x, y, s, n,
-                             packed + static_cast<size_t>(b) * WP, WP);
-  xf[b] = x;
-  yf[b] = y;
-  st[b] = s;
-  n_ops[b] = n;
-}
 
 constexpr int kBandWarps = 4;  // pairs (warps) a block of the banded walk
 
@@ -300,47 +239,249 @@ typedef void (*BandWalk)(const uint32_t*, int, int, int, const int32_t*,
                          int, int, int, uint32_t*, int32_t*, int32_t*,
                          int32_t*, unsigned long long*);
 
+// The staged walks' warp (traceback_device.cuh's Ops): the ring of kSlots
+// batch slots in this warp's part of the block's shared memory, a barrier
+// and a window offset a slot; every lane holds the walk's state, lane j
+// probes the j-th cell.  Its methods are __host__ __device__ as the
+// schedule's templates that call them, with device bodies only.
+struct WarpOps {
+  uint32_t* ring;     // kSlots * rows staged rows of kStagePitch words
+  uint32_t bar0;      // the slots' mbarriers (shared::cta addresses)
+  int32_t* offs;      // the slots' window offsets
+  int me;             // this thread's lane
+  uint32_t phase;     // bit q: the parity of slot q's next wait
+  uint32_t pending;   // bit q: slot q copied and not yet waited on
+  unsigned restarts;  // the ring's restagings (StageRing::restart)
+
+  __device__ __forceinline__ WarpOps(uint32_t* ring_, uint64_t* bars,
+                                     int32_t* offs_)
+      : ring(ring_),
+        bar0(smem_u32(bars)),
+        offs(offs_),
+        me(static_cast<int>(threadIdx.x & 31)),
+        phase(0),
+        pending(0),
+        restarts(0) {}
+
+  SA_HDM int lane() const { return me; }
+  SA_HDM int lanes() const { return 32; }
+
+  SA_HDM void init() {
+#if defined(__CUDA_ARCH__)
+    if (me == 0) {
+      for (int q = 0; q < sa::kSlots; ++q) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 +
+                                                                    8 * q));
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncwarp();
+#endif
+  }
+
+  template <class F>
+  SA_HDM void probe(F f, uint32_t& mm, uint32_t& okm, uint32_t& v0) {
+#if defined(__CUDA_ARCH__)
+    uint32_t v;
+    bool ok, mv;
+    f(me, v, ok, mv);
+    mm = __ballot_sync(0xFFFFFFFFu, mv);
+    okm = __ballot_sync(0xFFFFFFFFu, ok);
+    v0 = __shfl_sync(0xFFFFFFFFu, v, 0);
+#endif
+  }
+
+  SA_HDM uint32_t word(int r, int li) const {
+    return ring[r * sa::kStagePitch + li];
+  }
+
+  // Rows r0 .. r0 + n - 1 of the ring from src(0 .. n - 1), a lane a row,
+  // completing slot q's barrier.  The caller has synced the warp since its
+  // last reads of those rows.
+  template <class Src>
+  SA_HDM void copy(int r0, int n, int q, Src src) {
+#if defined(__CUDA_ARCH__)
+    const uint32_t ba = bar0 + 8 * q;
+    // No proxy fence before the copies: nothing writes the ring but the
+    // copies, and the slot's earlier reads have returned their words (the
+    // warp synced after using them), so a copy cannot overtake them.
+    if (me < n) {
+      const uint32_t* from = src(me);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], 128, [%2];" ::"r"(
+              smem_u32(ring + (r0 + me) * sa::kStagePitch)),
+          "l"(from), "r"(ba)
+          : "memory");
+    }
+    if (me == 0) {
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(ba),
+          "r"(128 * n)
+          : "memory");
+    }
+    pending |= 1u << q;
+#endif
+  }
+
+  SA_HDM void wait(int q) {
+#if defined(__CUDA_ARCH__)
+    bar_wait(bar0 + 8 * q, (phase >> q) & 1u);
+    phase ^= 1u << q;
+    pending &= ~(1u << q);
+#endif
+  }
+
+  SA_HDM void sync() {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
+#endif
+  }
+
+  // Every copy in flight landed: before a restaging, and before the warp
+  // exits (no copy may land in the block's shared memory after that).
+  SA_HDM void drain() {
+#if defined(__CUDA_ARCH__)
+    while (pending) wait(__ffs(pending) - 1);
+#endif
+  }
+
+  SA_HDM void count_restart() { ++restarts; }
+
+  SA_HDM void set_offset(int q, int32_t e) {
+    if (me == 0) offs[q] = e;
+  }
+  SA_HDM int32_t offset(int q) const { return offs[q]; }
+};
+
+// This warp's part of a staged walk kernel's shared memory, for a ring of
+// ROWS rows a batch slot.
+template <int ROWS>
+struct WalkStage {
+  alignas(128) uint32_t ring[sa::kWalkWarps][sa::kSlots * ROWS *
+                                             sa::kStagePitch];
+  alignas(8) uint64_t bars[sa::kWalkWarps][sa::kSlots];
+  int32_t offs[sa::kWalkWarps][sa::kSlots];
+};
+
+// slow: null, or two counters: the words read by the slow path and the
+// ring's restagings.
+__global__ void __launch_bounds__(sa::kWalkWarps * 32)
+    walk_fast4_kernel(const uint32_t* __restrict__ dirs, int NW, int R, int P,
+                      const int32_t* __restrict__ x0,
+                      const int32_t* __restrict__ y0,
+                      const int32_t* __restrict__ plane0,
+                      const int32_t* __restrict__ rowp,
+                      const int32_t* __restrict__ off, int B, int WP,
+                      uint32_t* __restrict__ packed,
+                      int32_t* __restrict__ xf, int32_t* __restrict__ yf,
+                      int32_t* __restrict__ n_ops, unsigned long long* slow) {
+  __shared__ WalkStage<sa::StageRing<3, WarpOps>::kRows> sm;
+  const int wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + wid;
+  if (b >= B) return;
+  WarpOps ops(sm.ring[wid], sm.bars[wid], sm.offs[wid]);
+  int32_t x = x0[b];
+  int32_t y = y0[b];
+  int32_t n;
+  unsigned nslow = 0;
+  sa::walk_fast4_staged(ops, dirs, NW, R, P, static_cast<size_t>(rowp[b]),
+                        off[b], x, y, plane0[b],
+                        packed + static_cast<size_t>(b) * WP, WP, n, nslow);
+  if (ops.me == 0) {
+    xf[b] = x;
+    yf[b] = y;
+    n_ops[b] = n;
+    if (slow != nullptr) {
+      if (nslow != 0) atomicAdd(slow, nslow);
+      if (ops.restarts != 0) atomicAdd(slow + 1, ops.restarts);
+    }
+  }
+}
+
+template <bool LOCAL>
+__global__ void __launch_bounds__(sa::kWalkWarps * 32)
+    walk_modes_kernel(const uint32_t* __restrict__ dirs, int NW, int R, int P,
+                      const int32_t* __restrict__ x0,
+                      const int32_t* __restrict__ y0,
+                      const int32_t* __restrict__ rowp,
+                      const int32_t* __restrict__ off, int B, int WP,
+                      uint32_t* __restrict__ packed,
+                      int32_t* __restrict__ xf, int32_t* __restrict__ yf,
+                      int32_t* __restrict__ st, int32_t* __restrict__ n_ops,
+                      unsigned long long* slow) {
+  __shared__ WalkStage<sa::StageRing<2, WarpOps>::kRows> sm;
+  const int wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + wid;
+  if (b >= B) return;
+  WarpOps ops(sm.ring[wid], sm.bars[wid], sm.offs[wid]);
+  int32_t x = x0[b];
+  int32_t y = y0[b];
+  int32_t s, n;
+  unsigned nslow = 0;
+  sa::walk_modes_staged<LOCAL>(ops, dirs, NW, R, P,
+                               static_cast<size_t>(rowp[b]), off[b], x, y, s,
+                               n, packed + static_cast<size_t>(b) * WP, WP,
+                               nslow);
+  if (ops.me == 0) {
+    xf[b] = x;
+    yf[b] = y;
+    st[b] = s;
+    n_ops[b] = n;
+    if (slow != nullptr) {
+      if (nslow != 0) atomicAdd(slow, nslow);
+      if (ops.restarts != 0) atomicAdd(slow + 1, ops.restarts);
+    }
+  }
+}
+
 }  // namespace
 
-// dirs: (T/8, R, P) u32 fast4 words; x0/y0/plane0/rowp/off: (B,) int32 walk
-// seeds; packed: (B, W) u32 with W*16 >= the longest walk; xf/yf/n_ops: (B,)
-// int32.  Returns the cudaGetLastError() of the launch, or -1 for a bad
-// shape.
-extern "C" int sa_walk_fast4(const uint32_t* dirs, int R, int P,
+// dirs: (NW, R, P) u32 fast4 words, P >= 32 a multiple of 4;
+// x0/y0/plane0/rowp/off: (B,) int32 walk seeds; packed: (B, WP) u32 with
+// WP*16 >= the longest walk; xf/yf/n_ops: (B,) int32.  slow: null, or two
+// u64 the slow path's word reads and the ring's restagings are added to.
+// Returns the cudaGetLastError() of the launch, or -1 for a bad shape.
+extern "C" int sa_walk_fast4(const uint32_t* dirs, int NW, int R, int P,
                              const int32_t* x0, const int32_t* y0,
                              const int32_t* plane0, const int32_t* rowp,
-                             const int32_t* off, int B, int W,
+                             const int32_t* off, int B, int WP,
                              uint32_t* packed, int32_t* xf, int32_t* yf,
-                             int32_t* n_ops, void* stream) {
-  if (R <= 0 || P <= 0 || B <= 0 || W <= 0) return -1;
-  const int blocks = (B + kWalkThreads - 1) / kWalkThreads;
-  walk_fast4_kernel<<<blocks, kWalkThreads, 0,
+                             int32_t* n_ops, unsigned long long* slow,
+                             void* stream) {
+  if (NW <= 0 || R <= 0 || P < sa::kWalkWindow || P % 4 != 0 || B <= 0 ||
+      WP <= 0) {
+    return -1;
+  }
+  const int warps = B < sa::kWalkWarps ? B : sa::kWalkWarps;
+  walk_fast4_kernel<<<(B + warps - 1) / warps, warps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      dirs, R, P, x0, y0, plane0, rowp, off, B, W, packed, xf, yf, n_ops);
+      dirs, NW, R, P, x0, y0, plane0, rowp, off, B, WP, packed, xf, yf,
+      n_ops, slow);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dirs: (W, R, P) u32 full direction bytes; x0/y0/rowp/off: (B,) int32 end
-// cells, rows and diagonal offsets; packed: (B, WP) u32, the walk taking at
-// most WP*16 steps; xf/yf/st/n_ops: (B,) int32.  local != 0: local, else
-// semi-global.  Returns the cudaGetLastError() of the launch, or -1 for a bad
-// shape.
-extern "C" int sa_walk_modes(const uint32_t* dirs, int W, int R, int P,
+// dirs: (NW, R, P) u32 full direction bytes, P >= 32 a multiple of 4;
+// x0/y0/rowp/off: (B,) int32 end cells, rows and diagonal offsets; packed:
+// (B, WP) u32, the walk taking at most WP*16 steps; xf/yf/st/n_ops: (B,)
+// int32.  local != 0: local, else semi-global.  slow as sa_walk_fast4's.
+// Returns the cudaGetLastError() of the launch, or -1 for a bad shape.
+extern "C" int sa_walk_modes(const uint32_t* dirs, int NW, int R, int P,
                              const int32_t* x0, const int32_t* y0,
                              const int32_t* rowp, const int32_t* off, int B,
                              int WP, int local, uint32_t* packed, int32_t* xf,
                              int32_t* yf, int32_t* st, int32_t* n_ops,
-                             void* stream) {
-  if (W <= 0 || R <= 0 || P <= 0 || B <= 0 || WP <= 0) return -1;
-  const int blocks = (B + kWalkThreads - 1) / kWalkThreads;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (local) {
-    walk_modes_kernel<true><<<blocks, kWalkThreads, 0, s>>>(
-        dirs, W, R, P, x0, y0, rowp, off, B, WP, packed, xf, yf, st, n_ops);
-  } else {
-    walk_modes_kernel<false><<<blocks, kWalkThreads, 0, s>>>(
-        dirs, W, R, P, x0, y0, rowp, off, B, WP, packed, xf, yf, st, n_ops);
+                             unsigned long long* slow, void* stream) {
+  if (NW <= 0 || R <= 0 || P < sa::kWalkWindow || P % 4 != 0 || B <= 0 ||
+      WP <= 0) {
+    return -1;
   }
+  const auto fn = local ? walk_modes_kernel<true> : walk_modes_kernel<false>;
+  const int warps = B < sa::kWalkWarps ? B : sa::kWalkWarps;
+  fn<<<(B + warps - 1) / warps, warps * 32, 0,
+       static_cast<cudaStream_t>(stream)>>>(dirs, NW, R, P, x0, y0, rowp, off,
+                                            B, WP, packed, xf, yf, st, n_ops,
+                                            slow);
   return static_cast<int>(cudaGetLastError());
 }
 

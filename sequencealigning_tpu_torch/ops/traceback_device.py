@@ -14,7 +14,10 @@ Two implementations of the walk, chosen by the direction tensor's device:
 * ``walk_fast4_torch`` -- plain PyTorch, vectorised over pairs with a
   Python loop over steps (CPU tensors, and the reference for the kernel);
 * ``walk_fast4_cuda`` -- the hand-written kernel
-  (``csrc/traceback_device.cu``; CUDA tensors only), one thread a pair.
+  (``csrc/traceback_device.cu``; CUDA tensors only): a warp a pair over
+  rows staged in shared memory ahead of the walk, a whole run of M moves an
+  iteration (``slow=`` counts the reads outside the stage and the ring's
+  restagings).
 
 The textbook semi-global / local fills (ops.nw_affine_modes,
 ops.nw_affine_stream_modes) are walked the same way over their full
@@ -121,15 +124,25 @@ def _check_walk_args(dirs, seeds, t_steps: int, check_bounds: bool = True):
             raise ValueError(f"walk seed on {t.device}, dirs on {dirs.device}")
     if t_steps < 1:
         raise ValueError("t_steps must be positive")
+    if check_bounds:
+        _check_seed_bounds(dirs, seeds)
+
+
+def _check_seed_bounds(dirs, seeds):
+    """The fast4 walk's seeds inside the dirs tensor.  Their values on a
+    card wait for the work queued before the walk (one transfer for all):
+    the kernel's wrapper checks them last, just before its launch, so that
+    the card idles only for the launch.  Seeds the caller built from the
+    fill's own plan skip this (check_bounds=False)."""
     x0, y0, _plane0, rowp, off = seeds
-    # The bounds need the seeds' values, which on a card waits for the work
-    # queued before the walk; check_bounds=False is for seeds the caller
-    # built from the fill's own plan.
-    if check_bounds and b and (
-            int(rowp.min()) < 0 or int(rowp.max()) >= dirs.shape[1]
-            or int(x0.min()) < 0 or int(x0.max()) >= dirs.shape[2]
-            or int(y0.min()) < 0 or int(off.min()) < 0
-            or int((x0 + y0 + off).max()) >= 8 * dirs.shape[0]):
+    if not x0.shape[0]:
+        return
+    lo, hi = torch.stack((rowp, x0, y0, off, x0 + y0 + off)).aminmax(dim=1)
+    (lo_r, lo_x, lo_y, lo_o, _), (hi_r, hi_x, _, _, hi_d) = torch.stack(
+        (lo, hi)).tolist()
+    if (lo_r < 0 or hi_r >= dirs.shape[1] or lo_x < 0
+            or hi_x >= dirs.shape[2] or lo_y < 0 or lo_o < 0
+            or hi_d >= 8 * dirs.shape[0]):
         raise ValueError("walk seeds reach outside the dirs tensor")
 
 
@@ -159,21 +172,42 @@ def walk_fast4_torch(dirs, x0, y0, plane0, rowp, off, t_steps: int):
     return x, y, _pack_ops(ops), n_ops
 
 
+def _check_staged_lanes(dirs, name: str):
+    """The staged walk kernels take rows of P >= 32 lanes, a multiple of 4
+    (16-byte copies of 32 lanes; every fill gives a multiple of 128)."""
+    P = dirs.shape[2]
+    if P < 32 or P % 4:
+        raise ValueError(f"{name} takes rows of 32 lanes or more, a multiple "
+                         f"of 4, not {P}")
+
+
+def _check_slow(slow, dirs, n: int = 1):
+    if slow is not None and (slow.dtype != torch.int64 or slow.numel() < n
+                             or slow.device != dirs.device):
+        raise ValueError(f"slow must be an int64 tensor of {n} or more "
+                         "elements on the walk's device")
+
+
 def walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps: int,
-                    check_bounds: bool = True):
+                    check_bounds: bool = True, slow=None):
     """The walk kernel (csrc/traceback_device.cu) on CUDA tensors: same
-    arguments and results as walk_fast4_torch.  check_bounds=False skips
-    the seeds' range check (which waits for the card), for seeds built
-    from the fill's plan.  Raises on a CPU tensor, a non-contiguous input
-    or a failed launch."""
+    arguments and results as walk_fast4_torch, for rows of P >= 32 lanes, a
+    multiple of 4.  check_bounds=False skips the seeds' range check (which
+    waits for the card), for seeds built from the fill's plan.  slow: None,
+    or a (2,) int64 CUDA tensor: the words read outside the staged rows
+    (the slow path) are added to slow[0], the ring's restagings after the
+    walk left its windows' diagonal (a gap) to slow[1].  Raises on a CPU
+    tensor, a non-contiguous input, another P or a failed launch."""
     seeds = (x0, y0, plane0, rowp, off)
-    _check_walk_args(dirs, seeds, t_steps, check_bounds)
+    _check_walk_args(dirs, seeds, t_steps, check_bounds=False)
     if not dirs.is_cuda:
         raise ValueError("walk_fast4_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (dirs,) + seeds):
         raise ValueError("walk inputs must be contiguous")
+    _check_staged_lanes(dirs, "walk_fast4_cuda")
+    _check_slow(slow, dirs, 2)
     lib = csrc.kernels()
-    _, R, P = dirs.shape
+    NW, R, P = dirs.shape
     B = x0.shape[0]
     W = packed_width(t_steps)
     dev = dirs.device
@@ -181,16 +215,16 @@ def walk_fast4_cuda(dirs, x0, y0, plane0, rowp, off, t_steps: int,
     xf = torch.empty(B, dtype=torch.int32, device=dev)
     yf = torch.empty(B, dtype=torch.int32, device=dev)
     n_ops = torch.empty(B, dtype=torch.int32, device=dev)
+    args = (dirs.data_ptr(), NW, R, P, *(t.data_ptr() for t in seeds), B, W,
+            packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
+            n_ops.data_ptr(), slow.data_ptr() if slow is not None else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sa_walk_fast4(
-            dirs.data_ptr(), R, P, x0.data_ptr(), y0.data_ptr(),
-            plane0.data_ptr(), rowp.data_ptr(), off.data_ptr(), B, W,
-            packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
-            n_ops.data_ptr(), stream,
-        )
+        if check_bounds:
+            _check_seed_bounds(dirs, seeds)
+        rc = lib.sa_walk_fast4(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"sa_walk_fast4 launch failed (error {rc})")
+        raise csrc.launch_error("sa_walk_fast4", rc)
     walk_fast4_cuda.launches += 1
     return xf, yf, packed, n_ops
 
@@ -410,9 +444,7 @@ def walk_banded_cuda(dirs, x0, y0, plane0, bidx, k_lo_even: int,
     if dirs.shape[2] < 32 or dirs.shape[2] % 4:
         raise ValueError(f"the banded walk kernel takes a band of 32 lanes "
                          f"or more, a multiple of 4, not {dirs.shape[2]}")
-    if slow is not None and (slow.dtype != torch.int64
-                             or slow.device != dirs.device):
-        raise ValueError("slow must be an int64 tensor on the walk's device")
+    _check_slow(slow, dirs)
     lib = csrc.kernels()
     W, Bd, L = dirs.shape
     B = x0.shape[0]
@@ -584,10 +616,17 @@ def _check_modes_walk_args(dirs, seeds, t_steps: int,
             raise ValueError(f"walk seed on {t.device}, dirs on {dirs.device}")
     if t_steps < 1:
         raise ValueError("t_steps must be positive")
-    rowp = seeds[2]
-    if check_bounds and b and (int(rowp.min()) < 0
-                               or int(rowp.max()) >= dirs.shape[1]):
-        raise ValueError("walk rows reach outside the dirs tensor")
+    if check_bounds:
+        _check_rows(dirs, seeds[2])
+
+
+def _check_rows(dirs, rowp):
+    """The modes walk's rows inside the dirs tensor (checked last by the
+    kernel's wrapper, as _check_seed_bounds)."""
+    if rowp.shape[0]:
+        lo_r, hi_r = torch.stack(rowp.aminmax()).tolist()
+        if lo_r < 0 or hi_r >= dirs.shape[1]:
+            raise ValueError("walk rows reach outside the dirs tensor")
 
 
 def walk_modes_torch(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
@@ -625,17 +664,19 @@ def walk_modes_torch(dirs, x0, y0, rowp, off, local: bool, t_steps: int):
 
 
 def walk_modes_cuda(dirs, x0, y0, rowp, off, local: bool, t_steps: int,
-                    check_bounds: bool = True):
+                    check_bounds: bool = True, slow=None):
     """The modes walk kernel (csrc/traceback_device.cu) on CUDA tensors:
-    same arguments and results as walk_modes_torch; check_bounds as
-    walk_fast4_cuda's.  Raises on a CPU tensor, a non-contiguous input or
-    a failed launch."""
+    same arguments and results as walk_modes_torch; check_bounds and slow
+    as walk_fast4_cuda's.  Raises on a CPU tensor, a non-contiguous input,
+    rows of another P or a failed launch."""
     seeds = (x0, y0, rowp, off)
-    _check_modes_walk_args(dirs, seeds, t_steps, check_bounds)
+    _check_modes_walk_args(dirs, seeds, t_steps, check_bounds=False)
     if not dirs.is_cuda:
         raise ValueError("walk_modes_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (dirs,) + seeds):
         raise ValueError("walk inputs must be contiguous")
+    _check_staged_lanes(dirs, "walk_modes_cuda")
+    _check_slow(slow, dirs, 2)
     lib = csrc.kernels()
     W, R, P = dirs.shape
     B = x0.shape[0]
@@ -644,16 +685,17 @@ def walk_modes_cuda(dirs, x0, y0, rowp, off, local: bool, t_steps: int,
     packed = torch.empty((B, WP), dtype=torch.uint32, device=dev)
     xf, yf, st, n_ops = (torch.empty(B, dtype=torch.int32, device=dev)
                          for _ in range(4))
+    args = (dirs.data_ptr(), W, R, P, *(t.data_ptr() for t in seeds), B, WP,
+            int(local), packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
+            st.data_ptr(), n_ops.data_ptr(),
+            slow.data_ptr() if slow is not None else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sa_walk_modes(
-            dirs.data_ptr(), W, R, P, x0.data_ptr(), y0.data_ptr(),
-            rowp.data_ptr(), off.data_ptr(), B, WP, int(local),
-            packed.data_ptr(), xf.data_ptr(), yf.data_ptr(), st.data_ptr(),
-            n_ops.data_ptr(), stream,
-        )
+        if check_bounds:
+            _check_rows(dirs, rowp)
+        rc = lib.sa_walk_modes(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"sa_walk_modes launch failed (error {rc})")
+        raise csrc.launch_error("sa_walk_modes", rc)
     walk_modes_cuda.launches += 1
     return xf, yf, st, packed, n_ops
 

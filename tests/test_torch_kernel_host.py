@@ -1,7 +1,9 @@
 """The CUDA kernels' per-cell and per-step arithmetic and loops (csrc/*.cuh
 through csrc/host_check.cpp, built for the host) against the plain PyTorch
 versions on the same small batches (exact): the global streamed fill and
-fast4 walk, the per-pair and streamed modes fills and the modes walk, the
+fast4 walk, the per-pair and streamed modes fills and the modes walk (the
+walks' staged schedule: sheared windows, batches, restagings and the slow
+path, the warp's run found by a loop over its lanes), the
 three fills with their rows split over 2-4 forced 128- or 256-lane CTAs
 (the cluster split's geometry, cluster_split.cuh), the banded fill's tile
 schedule run serially in ticket order (the rule's tiles, and forced narrow
@@ -121,18 +123,27 @@ def test_host_walk_matches_plain(host, compat):
     )]
     t_steps = plan.l1 + plan.l2
     want = walk.walk_fast4_torch(dirs, *seeds, t_steps=t_steps)
+    got = _host_fast4_walk(host, dirs, seeds, t_steps)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert (got[3] > 0).all()
+
+
+def _host_fast4_walk(host, dirs, seeds, t_steps):
+    """hc_walk_fast4 (the kernel's staged schedule run serially): (xf, yf,
+    packed, n_ops, words read by the slow path, the ring's restagings)."""
+    B = seeds[0].shape[0]
     W = walk.packed_width(t_steps)
-    packed = torch.empty((B, W), dtype=torch.uint32)
+    packed = torch.full((B, W), 0x5a5a5a5a, dtype=torch.uint32)
     xf, yf, n_ops = (torch.empty(B, dtype=torch.int32) for _ in range(3))
+    slow = torch.zeros(2, dtype=torch.int64)
     rc = host.hc_walk_fast4(
-        dirs.data_ptr(), plan.n_rows, plan.p,
-        *(s.data_ptr() for s in seeds), B, W,
+        dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds), B, W,
         packed.data_ptr(), xf.data_ptr(), yf.data_ptr(), n_ops.data_ptr(),
+        slow.data_ptr(),
     )
     assert rc == 0
-    for got, exp in zip((xf, yf, packed, n_ops), want):
-        np.testing.assert_array_equal(got.numpy(), exp.numpy())
-    assert (n_ops > 0).all()
+    return xf, yf, packed, n_ops, int(slow[0]), int(slow[1])
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -340,9 +351,9 @@ def test_host_stream_modes_fill_matches_plain(host, local, with_dirs,
 @pytest.mark.parametrize("streamed", [False, True])
 @pytest.mark.parametrize("local", [False, True])
 def test_host_walk_modes_matches_plain(host, local, streamed):
-    """Kernel C's loop (walk_modes_pair) against walk_modes_torch on both
-    dirs layouts, with a corrupted pair (broken status) and clipped
-    out-of-range seeds."""
+    """Kernel C's staged schedule (walk_modes_staged) against
+    walk_modes_torch on both dirs layouts, with a corrupted pair (broken
+    status) and clipped out-of-range seeds."""
     pairs, tb = _modes_batch(47 + local + 2 * streamed, 16, 70, 70)
     mode = "local" if local else "semi"
     B = len(pairs)
@@ -364,20 +375,285 @@ def test_host_walk_modes_matches_plain(host, local, streamed):
     seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
              for a in (x0, y0, rowp, off)]
     want = walk.walk_modes_torch(dirs, *seeds, local, t_steps)
-    W = walk.packed_width(t_steps)
-    packed = torch.empty((B, W), dtype=torch.uint32)
-    xf, yf, st, n_ops = (torch.empty(B, dtype=torch.int32) for _ in range(4))
-    rc = host.hc_walk_modes(
-        dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds), B, W,
-        int(local), packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
-        st.data_ptr(), n_ops.data_ptr(),
-    )
-    assert rc == 0
-    for got, exp in zip((xf, yf, st, packed, n_ops), want):
-        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    got = _host_modes_walk(host, dirs, seeds, local, t_steps)
+    for g, exp in zip(got[:5], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    st = got[2]
     hit = (rowp == rowp[3]) | np.isin(np.arange(B), (5, 6))
     assert (st.numpy()[[3, 6]] == 2).all()
     assert (st.numpy()[~hit] == 1).all()
+
+
+def _host_modes_walk(host, dirs, seeds, local, t_steps):
+    """hc_walk_modes (the kernel's staged schedule run serially): (xf, yf,
+    st, packed, n_ops, words read by the slow path, the ring's
+    restagings)."""
+    B = seeds[0].shape[0]
+    W = walk.packed_width(t_steps)
+    packed = torch.full((B, W), 0x5a5a5a5a, dtype=torch.uint32)
+    xf, yf, st, n_ops = (torch.empty(B, dtype=torch.int32) for _ in range(4))
+    slow = torch.zeros(2, dtype=torch.int64)
+    rc = host.hc_walk_modes(
+        dirs.data_ptr(), *dirs.shape, *(s.data_ptr() for s in seeds), B, W,
+        int(local), packed.data_ptr(), xf.data_ptr(), yf.data_ptr(),
+        st.data_ptr(), n_ops.data_ptr(), slow.data_ptr(),
+    )
+    assert rc == 0
+    return xf, yf, st, packed, n_ops, int(slow[0]), int(slow[1])
+
+
+# ---------------------------------------------------------------------------
+# The fast4 and modes walks' staged schedule (walk_fast4_staged /
+# walk_modes_staged run serially by hc_walk_fast4 / hc_walk_modes)
+# ---------------------------------------------------------------------------
+
+
+def _gapped_pairs(seed, n, hi, long_gap=0):
+    """n ragged pairs up to hi bp: a quarter identical, a quarter random,
+    the rest mutated copies (substitutions, an insertion and a deletion of
+    up to 12 bp, or of long_gap bp where given) inside random flanks."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for i in range(n):
+        core = rng.choice(alpha, int(rng.integers(hi // 2, hi + 1)))
+        if i % 4 == 0:
+            pairs.append((core.tobytes(), core.tobytes()))
+            continue
+        if i % 4 == 1:
+            other = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+            pairs.append((core.tobytes(), other.tobytes()))
+            continue
+        mut = core.copy()
+        for _ in range(len(mut) // 40):
+            mut[rng.integers(len(mut))] = rng.choice(alpha)
+        g = long_gap or int(rng.integers(1, 13))
+        at = int(rng.integers(1, len(mut) - 1))
+        mut = np.concatenate([mut[:at], rng.choice(alpha, g), mut[at:]])
+        at = int(rng.integers(1, len(mut) - g - 1))
+        mut = np.concatenate([mut[:at], mut[at + g:]])
+        flank = rng.choice(alpha, int(rng.integers(0, 20)))
+        pairs.append((np.concatenate([flank, core]).tobytes(),
+                      np.concatenate([mut, flank[: len(flank) // 2]])
+                      .tobytes()))
+    return pairs
+
+
+def _shift_diagonals(dirs, per, shift):
+    """A (W', R, P) dirs tensor holding dirs' codes `shift` anti-diagonals
+    later (8 nibbles or 4 bytes a word): a pair read at off + shift there
+    reads what it read at off here."""
+    bits = 32 // per
+    w = dirs.numpy().astype(np.uint64)
+    codes = ((w[:, None] >> (bits * np.arange(per, dtype=np.uint64))[
+        None, :, None, None]) & ((1 << bits) - 1))
+    codes = codes.reshape(-1, *dirs.shape[1:])
+    t = codes.shape[0] + shift
+    out = np.zeros((-(-t // per) * per,) + codes.shape[1:], np.uint64)
+    out[shift: shift + codes.shape[0]] = codes
+    out = out.reshape(-1, per, *codes.shape[1:])
+    words = (out << (bits * np.arange(per, dtype=np.uint64))[
+        None, :, None, None]).sum(1)
+    return torch.from_numpy(words.astype(np.uint32))
+
+
+# Cheap gaps, so that the walks of _gapped_pairs' long indels take them.
+_CHEAP_GAPS = ScoringScheme(match_=2, mismatch=-3, gap_open=-4, gap_extend=-1)
+
+
+def _fast4_walk_case(seed, n=8, hi=600, long_gap=0, shift=0):
+    """A streamed fast4 fill (2 slots a row) of _gapped_pairs (cheap gaps
+    with long_gap), its dirs moved `shift` anti-diagonals, and its walk
+    seeds."""
+    pairs = _gapped_pairs(seed, n, hi, long_gap)
+    tb = to_device(trim_for_stream(pack_batch(pairs, batch_size=8)), "cpu")
+    plan, ins = fill.stream_inputs(*tb, np_slots=2)
+    scheme = _CHEAP_GAPS if long_gap else ScoringScheme()
+    finals, dirs = fill.gotoh_fill_stream_torch(*ins, plan, scheme, True,
+                                                False, "fast4")
+    if shift:
+        dirs = _shift_diagonals(dirs, 8, shift)
+    bs = np.arange(n)
+    seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+        [len(b) for _, b in pairs], [len(a) for a, _ in pairs],
+        walk.seed_planes(finals.numpy()[:n]),
+        bs // plan.np_slots, (bs % plan.np_slots) * plan.s + shift,
+    )]
+    return dirs, seeds, plan.l1 + plan.l2
+
+
+@pytest.mark.parametrize("seed", [61, 62])
+@pytest.mark.parametrize("shift", [0, 3, 5])
+def test_host_staged_fast4_walk_matches_plain(host, shift, seed):
+    """hc_walk_fast4 against walk_fast4_torch on walks of up to ~1200 steps
+    (19 or more staged batches of 64 anti-diagonals), indels of up to 12
+    bp, random pairs (long gaps, the ring restaged), identical pairs (M runs
+    cut only by the ring's batches and min(x, y)), at offsets that are not
+    multiples of 8."""
+    dirs, seeds, t_steps = _fast4_walk_case(seed + shift, shift=shift)
+    assert int(((seeds[0] + seeds[1] + seeds[4]) >> 6).max()) >= 19
+    want = walk.walk_fast4_torch(dirs, *seeds, t_steps=t_steps)
+    got = _host_fast4_walk(host, dirs, seeds, t_steps)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+
+
+@pytest.mark.parametrize("gap", [40, 90])
+def test_host_staged_fast4_walk_long_gaps_restage(host, gap):
+    """Indels of 40 and 90 bp move the walk off the diagonal its windows
+    were staged on: the ring is restaged from the walk's cell (counted)
+    instead of a direct load a step, and the walk still equals
+    walk_fast4_torch; identical pairs (one M run a pair, cut only by the
+    ring's batches and min(x, y)) neither restage nor read by the slow
+    path."""
+    dirs, seeds, t_steps = _fast4_walk_case(7, n=8, hi=400, long_gap=gap)
+    want = walk.walk_fast4_torch(dirs, *seeds, t_steps=t_steps)
+    got = _host_fast4_walk(host, dirs, seeds, t_steps)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert got[5] > 0
+    same = [torch.from_numpy(t.numpy()[::4].copy()) for t in seeds]
+    got = _host_fast4_walk(host, dirs, same, t_steps)
+    want = walk.walk_fast4_torch(dirs, *same, t_steps=t_steps)
+    for g, exp in zip(got[:4], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert got[4] == 0 and got[5] == 0
+
+
+def _modes_walk_case(seed, local, streamed, n=8, hi=500, long_gap=0,
+                     shift=0):
+    """A modes fill of _gapped_pairs (cheap gaps with long_gap), streamed
+    (2 slots a row) or per pair (kernel #6's layout), its dirs moved
+    `shift` anti-diagonals, and its walk seeds at the pairs' end cells."""
+    pairs = _gapped_pairs(seed, n, hi, long_gap)
+    tb = to_device(pack_batch(pairs, batch_size=8), "cpu")
+    scheme = _CHEAP_GAPS if long_gap else ScoringScheme()
+    if streamed:
+        res = smodes.nw_affine_stream_modes_batch(
+            *tb, "local" if local else "semi", scheme=scheme, np_slots=2)
+        bs = np.arange(n)
+        rowp = bs // res.plan.np_slots
+        off = (bs % res.plan.np_slots) * res.plan.s
+        t_steps = res.plan.l1 + res.plan.l2
+    else:
+        res = modes.nw_affine_modes_batch(*tb, local=local, scheme=scheme)
+        rowp, off = np.arange(n), np.zeros(n)
+        t_steps = tb.query.shape[1] + tb.db.shape[1]
+    dirs = _shift_diagonals(res.dirs, 4, shift) if shift else res.dirs
+    seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+        res.best_x[:n], res.best_y[:n], rowp, off + shift)]
+    return dirs, seeds, t_steps
+
+
+@pytest.mark.parametrize("shift", [0, 1, 6])
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_host_staged_modes_walk_matches_plain(host, local, streamed, shift):
+    """hc_walk_modes against walk_modes_torch on both layouts: walks of up
+    to ~1000 steps (16 or more staged batches), runs cut by min(x, y) (semi
+    stops at x or y == 0) and by local's LSTART stop inside the random
+    flanks, indels and random pairs, at offsets that are not multiples of
+    4."""
+    dirs, seeds, t_steps = _modes_walk_case(83 + 2 * local + streamed, local,
+                                            streamed, shift=shift)
+    assert int(((seeds[0] + seeds[1] + seeds[3]) >> 6).max()) >= 15
+    want = walk.walk_modes_torch(dirs, *seeds, local, t_steps)
+    got = _host_modes_walk(host, dirs, seeds, local, t_steps)
+    for g, exp in zip(got[:5], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert (got[2].numpy() == 1).all()
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_host_staged_modes_walk_long_gaps_and_step_cap(host, local,
+                                                       streamed):
+    """Indels of 80 bp restage the ring (counted) and still equal
+    walk_modes_torch; with t_steps cut to 100 (a cap of 512 steps) the
+    longer walks are broken (st = 2) at the cap, as the plain walk's."""
+    dirs, seeds, t_steps = _modes_walk_case(5 + local, local, streamed,
+                                            hi=800, long_gap=80)
+    want = walk.walk_modes_torch(dirs, *seeds, local, t_steps)
+    got = _host_modes_walk(host, dirs, seeds, local, t_steps)
+    for g, exp in zip(got[:5], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert got[6] > 0
+    want = walk.walk_modes_torch(dirs, *seeds, local, 100)
+    got = _host_modes_walk(host, dirs, seeds, local, 100)
+    for g, exp in zip(got[:5], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    capped = got[4].numpy() == 512
+    assert capped.any() and (got[2].numpy()[capped] == 2).all()
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("local", [False, True])
+def test_host_staged_modes_walk_broken_and_clipped_seeds(host, local,
+                                                         streamed):
+    """test_host_walk_modes_matches_plain's corrupted pair (no H bits:
+    broken) and seeds outside the tensor, above the rows and past the lanes
+    (read by the slow path with clipped indices, then broken), as the plain
+    walk's; the slow path is taken and counted."""
+    pairs, tb = _modes_batch(47 + local + 2 * streamed, 16, 70, 70)
+    B = len(pairs)
+    if streamed:
+        res = smodes.nw_affine_stream_modes_batch(
+            *tb, "local" if local else "semi", np_slots=2)
+        bs = np.arange(B)
+        rowp = bs // res.plan.np_slots
+        off = (bs % res.plan.np_slots) * res.plan.s
+        t_steps = res.plan.l1 + res.plan.l2
+    else:
+        res = modes.nw_affine_modes_batch(*tb, local=local)
+        rowp, off = np.arange(B), np.zeros(B)
+        t_steps = tb.query.shape[1] + tb.db.shape[1]
+    dirs = res.dirs.clone()
+    dirs[:, int(rowp[3]), :] = 0
+    x0 = np.asarray(res.best_x[:B], np.int32)
+    y0 = np.asarray(res.best_y[:B], np.int32)
+    x0[5], y0[6], x0[7] = 10 ** 6, -3, dirs.shape[2] + 40
+    seeds = [torch.from_numpy(np.ascontiguousarray(a, np.int32))
+             for a in (x0, y0, rowp, off)]
+    want = walk.walk_modes_torch(dirs, *seeds, local, t_steps)
+    got = _host_modes_walk(host, dirs, seeds, local, t_steps)
+    for g, exp in zip(got[:5], want):
+        np.testing.assert_array_equal(g.numpy(), exp.numpy())
+    assert (got[2].numpy()[[3, 6]] == 2).all()
+    assert got[5] > 0
+
+
+@pytest.mark.parametrize("P", [28, 34])
+def test_host_staged_walks_refuse_bad_shapes(host, P):
+    """Rows under 32 lanes or not a multiple of 4 return -1."""
+    dirs = torch.zeros((4, 2, P), dtype=torch.uint32)
+    seed = torch.ones(2, dtype=torch.int32)
+    out = [torch.empty((2, 32), dtype=torch.uint32)] + [
+        torch.empty(2, dtype=torch.int32) for _ in range(4)]
+    assert host.hc_walk_fast4(
+        dirs.data_ptr(), *dirs.shape, *(seed.data_ptr(),) * 5, 2, 32,
+        *(t.data_ptr() for t in out[:4]), None) == -1
+    assert host.hc_walk_modes(
+        dirs.data_ptr(), *dirs.shape, *(seed.data_ptr(),) * 4, 2, 32, 1,
+        *(t.data_ptr() for t in out), None) == -1
+
+
+@pytest.mark.parametrize("P", [16, 34])
+def test_staged_walk_wrappers_refuse_other_lanes(P):
+    """walk_fast4_cuda and walk_modes_cuda refuse rows of P < 32 or not a
+    multiple of 4 (a ValueError; no plain walk takes over on the card)."""
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    dirs = torch.zeros((4, 2, P), dtype=torch.uint32).as_subclass(OnCard)
+    seed = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="32 lanes"):
+        walk.walk_fast4_cuda(dirs, seed, seed, seed, seed, seed, 8)
+    with pytest.raises(ValueError, match="32 lanes"):
+        walk.walk_modes_cuda(dirs, seed, seed, seed, seed, True, 8)
+    assert walk.walk_fast4_cuda.launches == 0
+    assert walk.walk_modes_cuda.launches == 0
 
 
 def test_modes_wrappers_refuse_cpu_tensors():
