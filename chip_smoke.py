@@ -129,7 +129,23 @@ in the phases below and exits non-zero at the first failure:
    equal the oracle's result;
 22. the plain versions' graph replay vs the same step loops run eagerly on
    the card: the banded fill and the row sweep at config 4, equal results,
-   both times.
+   both times;
+23. textbook WFA: the wavefront fill kernel vs its plain version on ragged
+   batches (1-67 pairs up to 3 kb skewed both ways, empty sides, identical
+   pairs; 4/2/6 and 9/2/2; global and spans 5 and (3, 0, 0, 7); a band of
+   4 and bands past 1024 lanes, lanes a thread forced) -- score,
+   converged, end diagonal and every log row up to the deepest score --
+   then at BASELINE config 3 (128 x 10230 bp, 0.5% substitutions, band
+   64) and on an indel batch (the same shape, 1% substitutions and 3
+   indels of 1-50 bp a pair) at bands 64, 128 and 256, timed a fill and a
+   launch beside the bound; the walk kernel vs its plain walk (packed
+   codes, op counts, ok flags) and, on sampled pairs, the host walker;
+   WfaAligner on cuda at config 3 with --wfa-engine auto, banded, native
+   and wavefront (every alignment consumes its sequences and rescores to
+   its penalty, the four engines' scores equal, alignments/s); the compat
+   route on 8 x 1 kb against oracle_wfa; the golden wfa and wfa-textbook
+   CLI outputs (also with --wfa-engine wavefront), -m semi-global
+   --textbook --wfa-spans 5, and serve -a wfa.
 
 Every phase prints its wall seconds; the summary is on a line before the
 card's, and in chip_smoke.json's phase_s.
@@ -204,6 +220,18 @@ WIDE_BANDS = (131_200, 300_000)
 N_LINEAR_DIRS = 512
 # AStarAligner: N_ASTAR pairs of LEN_ASTAR bp (BASELINE config 1's length).
 N_ASTAR, LEN_ASTAR = 4096, 1023
+# Textbook WFA: BASELINE config 3 (benchmarks/configs_bench.py:
+# config3_wfa), N_WFA pairs of LEN_WFA bp at 0.5% substitutions from seed
+# 3, penalties 4/2/6, band WFA_BAND; the indel batch, the same shape at 1%
+# substitutions with WFA_INDELS insertions or deletions of 1-50 bp a pair
+# (seed 30), filled at the wavefront engine's doubled bands too; the
+# compat route on N_WFA_COMPAT pairs of LEN_WFA_COMPAT bp.
+N_WFA, LEN_WFA, WFA_BAND, WFA_INDELS = 128, 10_230, 64, 3
+N_WFA_COMPAT, LEN_WFA_COMPAT = 8, 1000
+# The compat check's step cap (config.wfa_max_steps): the reference's WFA
+# converges on none of these pairs (its len-1 convergence quirk), and the
+# Python oracle takes ~12 s a pair to reach the default 20000 steps.
+WFA_COMPAT_STEPS = 1000
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
 # operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
 # 128 fp32 lanes, no fused multiply-add doubling).
@@ -236,6 +264,14 @@ OPS_PER_CELL = {
     "linear score": 12, "linear textbook score": 3 + 2 + 2,
     "linear local score": 15,
     "linear bits": 12 + 3 + 2, "linear local bits": 15 + 3 + 2 + 1 + 3,
+    # A WFA lattice step of one diagonal: I a maximum, the NEG test and
+    # the ok() bounds (t >= 0, t <= n2, y = t + k, y >= 0, y <= n1) 7; D
+    # the same and its +1 8; M the +1 with its NEG test, a maximum of three
+    # and ok() 9; the end test 2 = 26.  A character of the extension: two
+    # bounds, the code compare and the advance 4.  A walk step: three log
+    # reads (lane, row, lattice and band tests) 12, the maximum of three 2,
+    # the mismatch / I / D tests 3, the next state 3 = 20; an op emitted 2.
+    "wfa step": 26, "wfa extend": 4, "wfa walk step": 20, "wfa walk op": 2,
 }
 KERNELS = {
     # name: (module key, wrapper, source, TPU kernel replaced)
@@ -287,6 +323,14 @@ KERNELS = {
         "linear", "linear_fill_cuda",
         "sequencealigning_tpu_torch/csrc/nw_linear.cu",
         "sequencealigning_tpu/ops/nw_linear.py:56"),
+    "wfa_fill": (
+        "wfa", "wfa_chunk_cuda",
+        "sequencealigning_tpu_torch/csrc/wfa.cu",
+        "sequencealigning_tpu/ops/wfa.py:343"),
+    "wfa_walk": (
+        "wfa", "wfa_walk_cuda",
+        "sequencealigning_tpu_torch/csrc/wfa.cu",
+        "sequencealigning_tpu/ops/wfa.py:692"),
 }
 
 
@@ -3233,6 +3277,454 @@ def phase_astar(torch, port, by_path):
     return {"astar_s": secs, "astar_alignments_per_s": N_ASTAR / secs}
 
 
+def wfa_pairs(rng, n, length, divergence, indels=0):
+    """config 3's pairs (benchmarks/configs_bench.py:_mkpairs): n
+    (mutant, reference) pairs of `length` bp, length * divergence
+    substitutions each; with indels, that many insertions or deletions of
+    1-50 bp more in each mutant."""
+    pairs = []
+    for _ in range(n):
+        ref = rng.choice(list(b"ACGT"), length).astype(np.uint8).tobytes()
+        mut = bytearray(ref)
+        for _ in range(max(1, int(length * divergence))):
+            p = int(rng.integers(0, len(mut)))
+            mut[p] = int(rng.choice([c for c in b"ACGT" if c != mut[p]]))
+        for _ in range(indels):
+            p = int(rng.integers(0, len(mut)))
+            n_ = int(rng.integers(1, 51))
+            if rng.integers(2):
+                del mut[p: p + n_]
+            else:
+                mut[p:p] = rng.choice(list(b"ACGT"), n_).astype(
+                    np.uint8).tobytes()
+        pairs.append((bytes(mut), ref))
+    return pairs
+
+
+def wfa_ragged(rng, n, hi):
+    """n pairs up to hi bp skewed both ways: mutants (a substitution in 50
+    bp, a 1-40 bp deletion, every other one a 1-300 bp tail cut: a length
+    difference up to 340 bp either way) and unrelated pairs up to 200 bp,
+    with an empty side each way and an identical pair past one pair.  The
+    skews stay near 300 bp so that the plain fill's lattice steps (~3 a
+    base of gap) stay near a thousand."""
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for i in range(n):
+        if i % 4 == 3:
+            s1 = rng.choice(alpha, int(rng.integers(1, 201)))
+            s2 = rng.choice(alpha, int(rng.integers(1, 201)))
+        else:
+            s1 = rng.choice(alpha, int(rng.integers(1, hi + 1)))
+            s2 = s1.copy()
+            for _ in range(len(s2) // 50 + 1):
+                s2[rng.integers(len(s2))] = rng.choice(alpha)
+            if len(s2) > 60:
+                p = int(rng.integers(1, len(s2) - 50))
+                s2 = np.concatenate([s2[:p], s2[p + int(rng.integers(1, 41)):]])
+            if i % 8 == 1:
+                s2 = s2[: max(0, len(s2) - int(rng.integers(1, 301)))]
+        pairs.append((s1.tobytes(), s2.tobytes()) if i % 2 else
+                     (s2.tobytes(), s1.tobytes()))
+    extra = [(b"", b"ACGT"), (b"ACG", b""), (b"GATTACA" * 9, b"GATTACA" * 9)]
+    return pairs if n == 1 else pairs + extra
+
+
+def wfa_penalty(a1, a2, pen):
+    """The gap-affine WFA penalty of one alignment: x a mismatch, o + e a
+    gap's first column, e the others."""
+    s1 = np.frombuffer(a1.encode(), np.uint8)
+    s2 = np.frombuffer(a2.encode(), np.uint8)
+    gap = ord("-")
+    kind = np.where(s1 == gap, 2, np.where(s2 == gap, 1, 0))
+    prev = np.concatenate([[0], kind[:-1]])
+    m = kind == 0
+    return int((s1[m] != s2[m]).sum() * pen.mismatch
+               + ((kind != 0) & (kind != prev)).sum() * pen.gap_open
+               + (kind != 0).sum() * pen.gap_extend)
+
+
+def wfa_fill_run(torch, wfa, tb, band, pen, spans=(0, 0, 0, 0), kernel=True,
+                 lpt=0, events=None):
+    """One fill as wfa_textbook_batch runs it, through the kernel
+    (wfa_chunk_cuda, lanes a thread forced by lpt) or the plain version
+    (its run-length table built once): (state, chunks).  events: a list
+    that receives a (start, end) CUDA event pair a launch."""
+    k_lo, K = wfa.band_plan(tb.query_len.cpu().numpy(),
+                            tb.db_len.cpu().numpy(), band, spans)
+    f = wfa.wfa_fill_state(*tb, k_lo, K, pen, spans)
+    if kernel:
+        def chunk(f_, u0, n):
+            if events is None:
+                return wfa.wfa_chunk_cuda(f_, u0, n, lpt)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = wfa.wfa_chunk_cuda(f_, u0, n, lpt)
+            ev[1].record()
+            events.append(ev)
+            return out
+    else:
+        runlen = wfa.build_runlen(f)
+
+        def chunk(f_, u0, n):
+            return wfa.wfa_chunk_torch(f_, u0, n, runlen)
+    return f, wfa.fill_chunks(f, 16_384, chunk)
+
+
+def wfa_fill_diff(torch, wfa, got, want):
+    """The largest difference between two fills: score, converged and
+    end_k of every pair, and the log's rows up to the batch's deepest
+    score (every row a pair computed; the rows after its convergence are
+    NEG in both)."""
+    (fa, ca), (fb, cb) = got, want
+    err = max(int((getattr(fa, n) - getattr(fb, n)).abs().max())
+              for n in ("score", "done", "end_k"))
+    g = wfa._score_stride(fa.penalties)
+    rows = int(fa.score.max()) // g + 1
+    ha = torch.cat(ca)[:rows].to(torch.int32)
+    hb = torch.cat(cb)[:rows].to(torch.int32)
+    if ha.shape != hb.shape:
+        return max(err, 1 << 15)
+    return max(err, int((ha - hb).abs().max()))
+
+
+def wfa_fill_bound(torch, wfa, f, chunks):
+    """(bound_ms, bound_by, lattice steps, extension chars) of one fill:
+    the codes and lengths read once, the log rows each pair computed and
+    its results written once; OPS_PER_CELL["wfa step"] a diagonal of each
+    lattice step a pair computed, ["wfa extend"] a character its
+    extensions compared (counted from the log: each M offset minus the
+    candidate it was extended from)."""
+    g = wfa._score_stride(f.penalties)
+    x_off = wfa.lattice_offsets(f.penalties)[0]
+    B = f.seq1.shape[0]
+    K = f.ring_m.shape[2]
+    rows = int(f.score.max()) // g + 1
+    h = torch.cat(chunks)[:rows].to(torch.int32)
+    M, I, D = h[:, 0], h[:, 1], h[:, 2]
+    neg = wfa.NEG
+    prev = torch.full_like(M, neg)
+    prev[x_off:] = M[:-x_off]
+    cand = torch.maximum(torch.where(prev > neg, prev + 1, neg),
+                         torch.maximum(I, D))
+    kv = f.k_lo + torch.arange(K, device=h.device, dtype=torch.int32)
+    cand[0] = torch.clamp(-kv, min=0)
+    ext = int(torch.where(M > neg, M - cand, 0).clamp(min=0).sum())
+    steps = torch.where(f.done != 0, f.score // g + 1, rows)
+    lane_steps = int(steps.sum()) * K
+    moved = nbytes(f.seq1, f.seq2, f.n1v, f.n2v, f.score, f.done, f.end_k) \
+        + lane_steps * 3 * 2
+    b_ms, b_by = bound(moved, lane_steps * OPS_PER_CELL["wfa step"]
+                       + ext * OPS_PER_CELL["wfa extend"])
+    return b_ms, b_by, rows, ext
+
+
+def wfa_walk_bound(alns, seeds):
+    """(bound_ms, bound_by, steps of the longest walk, its ops) of a walk:
+    three 2-byte log reads a step, the seeds read and the packed ops
+    written once; OPS_PER_CELL["wfa walk step"] a step, ["wfa walk op"] an
+    op.  The steps of a walk: its seed, one a mismatch, one a gap column
+    and one where a gap run ends (an M state a run)."""
+    steps, ops, longest = 0, 0, (0, 0)
+    for a in alns:
+        if a is None:
+            continue
+        s1 = np.frombuffer(a[0].encode(), np.uint8)
+        s2 = np.frombuffer(a[1].encode(), np.uint8)
+        gap = ord("-")
+        kind = np.where(s1 == gap, 2, np.where(s2 == gap, 1, 0))
+        prev = np.concatenate([[0], kind[:-1]])
+        st = 2 + int(((kind == 0) & (s1 != s2)).sum()) + int(
+            (kind != 0).sum()) + int(((kind != 0) & (kind != prev)).sum())
+        steps += st
+        ops += len(kind)
+        longest = max(longest, (st, len(kind)))
+    moved = steps * 3 * 2 + nbytes(*seeds) + ops // 4
+    b_ms, b_by = bound(moved, steps * OPS_PER_CELL["wfa walk step"]
+                       + ops * OPS_PER_CELL["wfa walk op"])
+    return b_ms, b_by, longest
+
+
+def wfa_walk_check(torch, wfa, res, pairs, pen, label, samples=8):
+    """The walk kernel on a fill's log against the plain walk (packed
+    codes, op counts, ok flags) and, on sampled pairs, the host walker
+    (the copied native walker): (err, ms, plain_ms, bound, longest)."""
+    from sequencealigning_tpu_torch.ops.traceback_device import (
+        decode_packed_alignments,
+    )
+
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    hist = res.device_hist()
+    seeds = wfa.walk_seeds(res, s1s, s2s, hist.device)
+    W = wfa.walk_width(int(seeds.budget.max()))
+    args = (hist, seeds, res.k_lo, res.stride, pen, W)
+    got = wfa.wfa_walk_cuda(*args)
+    torch.cuda.synchronize()
+    plain_ms, want = host_ms(torch, lambda: wfa.wfa_walk_torch(*args))
+    err = max(int((got[0].view(torch.int32).long()
+                   - want[0].view(torch.int32).long()).abs().max()),
+              int((got[1] - want[1]).abs().max()),
+              int((got[2] != want[2]).sum()))
+    check(err == 0, f"{label}: walk kernel != plain walk (err {err})")
+    ok = got[2].cpu().numpy()
+    conv = res.converged[: len(pairs)]
+    check((ok == conv).all(), f"{label}: walk ok flags != converged")
+    alns = decode_packed_alignments(got[0].cpu().numpy(), s1s, s2s)
+    check(all(a is not None for a, c in zip(alns, conv) if c),
+          f"{label}: a walk does not consume its sequences")
+    for b in np.random.default_rng(31).choice(
+            len(pairs), min(samples, len(pairs)), replace=False):
+        if conv[b]:
+            want_b = wfa.wfa_traceback_host(res, int(b), *pairs[b], pen)
+            check(alns[b] == want_b[1:],
+                  f"{label}: pair {b}'s walk != the host walker's")
+    ms = cuda_ms(torch, lambda: wfa.wfa_walk_cuda(*args), 5)
+    b_ms, b_by, longest = wfa_walk_bound(alns, seeds)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, steps=longest[0], ops=longest[1],
+                ns_per_step=ms * 1e6 / max(longest[0], 1))
+
+
+def phase_wfa(torch, port, by_path):
+    """Textbook WFA: the fill kernel against its plain version on ragged
+    batches, at config 3 and on the indel batch (at the doubled bands too),
+    timed; the walk kernel against its plain version and the host walker;
+    WfaAligner on cuda at config 3 with every engine; the compat route
+    against the oracle; the golden CLI and serve."""
+    from sequencealigning_tpu_torch.config import (
+        AlignConfig,
+        Algo,
+        WfaPenalties,
+    )
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops import oracle_wfa
+
+    wfa = port["wfa"]
+    meas = {}
+    pen = WfaPenalties()
+    out_pen = WfaPenalties(mismatch=9, gap_open=2, gap_extend=2)
+    rng = np.random.default_rng(32)
+
+    def batch(pairs):
+        return to_device(pack_batch(pairs, batch_size=-(-len(pairs) // 8)
+                                    * 8), "cuda")
+
+    # 1. Ragged batches: (pairs, hi bp, penalties, band, spans, lanes a
+    # thread forced).
+    err, runs = 0, 0
+    t_ragged = time.perf_counter()
+    for n, hi, p, band, spans, lpt in (
+            (64, 3000, pen, 64, (0, 0, 0, 0), 0),
+            (17, 3000, out_pen, 4, (0, 0, 0, 0), 0),
+            (33, 1500, pen, 16, (5, 5, 5, 5), 0),
+            (9, 2000, out_pen, 8, (3, 0, 0, 7), 0),
+            (12, 600, pen, 32, (0, 0, 0, 0), 4),
+            (1, 3000, pen, 600, (0, 0, 0, 0), 0),
+            (5, 2500, pen, 700, (0, 0, 0, 0), 4)):
+        pairs = wfa_ragged(rng, n, hi)
+        tb = batch(pairs)
+        got = wfa_fill_run(torch, wfa, tb, band, p, spans, True, lpt)
+        want = wfa_fill_run(torch, wfa, tb, band, p, spans, False)
+        torch.cuda.synchronize()
+        e = wfa_fill_diff(torch, wfa, got, want)
+        K = got[0].ring_m.shape[2]
+        check(e == 0, f"wfa fill kernel != plain ({len(pairs)} pairs <= {hi}"
+              f" bp, {p}, band {band} (K {K}), spans {spans}, lpt {lpt}): "
+              f"err {e}")
+        err, runs = max(err, e), runs + 1
+        if spans == (0, 0, 0, 0):
+            res = wfa.WfaBatchResult(
+                got[0].score.cpu().numpy(), got[0].done.cpu().numpy() != 0,
+                got[1], got[0].k_lo, wfa._score_stride(p))
+            w = wfa_walk_check(torch, wfa, res, pairs, p,
+                               f"ragged walk ({len(pairs)} pairs)",
+                               samples=min(4, len(pairs)))
+            err = max(err, w["err"])
+        log(f"[23 wfa] ragged {len(pairs)} pairs <= {hi} bp, {p.mismatch}/"
+            f"{p.gap_open}/{p.gap_extend}, band {band} (K {K}, "
+            f"{wfa.fill_lanes_per_thread(K, lpt)} lanes a thread), spans "
+            f"{spans}: fill equal to the plain version"
+            + ("; walk equal" if spans == (0, 0, 0, 0) else ""))
+    meas["wfa_fill_ragged_err"] = err
+    log(f"[23 wfa] {runs} ragged fills and their walks checked in "
+        f"{time.perf_counter() - t_ragged:.1f} s")
+
+    # 2. Config 3, then the indel batch at the doubled bands.
+    c3 = wfa_pairs(np.random.default_rng(3), N_WFA, LEN_WFA, 0.005)
+    indel = wfa_pairs(np.random.default_rng(30), N_WFA, LEN_WFA, 0.01,
+                      WFA_INDELS)
+    walk_err = []
+    for tag, pairs, bands in (("c3", c3, (WFA_BAND,)),
+                              ("indel", indel, (WFA_BAND, 2 * WFA_BAND,
+                                                4 * WFA_BAND))):
+        tb = batch(pairs)
+        for band in bands:
+            got = wfa_fill_run(torch, wfa, tb, band, pen)
+            plain_ms, want = host_ms(
+                torch, lambda: wfa_fill_run(torch, wfa, tb, band, pen, kernel=False))
+            torch.cuda.synchronize()
+            e = wfa_fill_diff(torch, wfa, got, want)
+            check(e == 0, f"wfa fill kernel != plain ({tag}, band {band}): "
+                  f"err {e}")
+            ms = cuda_ms(torch, lambda: wfa_fill_run(torch, wfa, tb, band,
+                                                     pen))
+            events = []
+            f, chunks = wfa_fill_run(torch, wfa, tb, band, pen,
+                                     events=events)
+            torch.cuda.synchronize()
+            chunk_ms = [a.elapsed_time(b) for a, b in events]
+            b_ms, b_by, rows, ext = wfa_fill_bound(torch, wfa, f, chunks)
+            K = f.ring_m.shape[2]
+            key = f"wfa_fill_{tag}" + ("" if band == WFA_BAND else
+                                       f"_band{band}")
+            meas.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms,
+                         f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                         f"{key}_err": e, f"{key}_chunk_ms": chunk_ms,
+                         f"{key}_steps": rows, f"{key}_lanes": K,
+                         f"{key}_extended": ext,
+                         f"{key}_converged": int(f.done[:len(pairs)].sum())})
+            log(f"[23 wfa] {tag} {len(pairs)} x {LEN_WFA} bp band {band} "
+                f"(K {K}): fill {ms:.3f} ms ({len(events)} launches: "
+                + ", ".join(f"{c:.3f}" for c in chunk_ms)
+                + f" ms), {rows} lattice steps, {ext} characters extended, "
+                f"bound {b_ms:.4f} ms ({b_by}), plain {plain_ms:.1f} ms; "
+                f"{int(f.done[:len(pairs)].sum())} converged; equal to the "
+                "plain version")
+            res = wfa.WfaBatchResult(f.score.cpu().numpy(),
+                                     f.done.cpu().numpy() != 0, chunks,
+                                     f.k_lo, wfa._score_stride(pen))
+            w = wfa_walk_check(torch, wfa, res, pairs, pen,
+                               f"{tag} band {band} walk")
+            walk_err.append(w["err"])
+            wkey = f"wfa_walk_{tag}" + ("" if band == WFA_BAND else
+                                        f"_band{band}")
+            meas.update({f"{wkey}_{k}": v for k, v in w.items()})
+            log(f"[23 wfa] {tag} band {band} walk: {w['ms']:.3f} ms, "
+                f"{w['ns_per_step']:.1f} ns a step of the longest walk "
+                f"({w['steps']} steps, {w['ops']} ops), plain "
+                f"{w['plain_ms']:.1f} ms, bound {w['bound_ms']:.4f} ms "
+                f"({w['bound_by']}); equal to the plain walk and, on 8 "
+                "sampled pairs, the host walker")
+            del got, want, f, chunks, res
+            torch.cuda.empty_cache()
+    meas["wfa_walk_err"] = max(walk_err)
+
+    # 3. WfaAligner on cuda at config 3, every textbook engine.
+    scores = {}
+    for engine in ("auto", "banded", "native", "wavefront"):
+        cfg = AlignConfig(algo=Algo.WFA, compat=False, band=WFA_BAND,
+                          wfa_engine=engine)
+        aligner = port["models"].WfaAligner(cfg, "cuda")
+        path = f"wfa --textbook --wfa-engine {engine} (WfaAligner)"
+        with path_launches(port, by_path, path):
+            t0 = time.perf_counter()
+            res = aligner.align_batch(records(c3))
+            secs = time.perf_counter() - t0
+        launches = {k: v[path] for k, v in by_path.items() if path in v}
+        errors = [r.error for r in res if not r.ok]
+        check(not errors, f"{path}: {len(errors)} pairs failed: "
+              f"{errors[:2]}")
+        for r, (a, b) in zip(res, c3):
+            check(r.aligned_query.replace("-", "").encode() == a
+                  and r.aligned_db.replace("-", "").encode() == b,
+                  f"{path}: an alignment does not consume its sequences")
+            check(wfa_penalty(r.aligned_query, r.aligned_db, pen) == r.score,
+                  f"{path}: an alignment does not rescore to its penalty")
+        scores[engine] = [r.score for r in res]
+        want = {"banded": ["nw_banded_diag_fill", "walk_banded"],
+                "wavefront": ["wfa_fill", "wfa_walk"]}.get(engine, [])
+        for name in want:
+            check(launches.get(name, 0) > 0, f"{path} never launched {name}")
+        meas[f"wfa_{engine}_alignments_per_s"] = len(c3) / secs
+        log(f"[23 wfa] {path}: {len(c3)} x {LEN_WFA} bp in {secs:.3f} s, "
+            f"{len(c3) / secs:.1f} alignments/s; launches {launches}; every "
+            "alignment consumes its sequences and rescores to its penalty")
+        del res, aligner
+    check(all(v == scores["auto"] for v in scores.values()),
+          "the four WFA engines' scores differ at config 3")
+    meas["wfa_c3_score_range"] = [min(scores["auto"]), max(scores["auto"])]
+    cpairs = wfa_pairs(np.random.default_rng(33), N_WFA_COMPAT,
+                       LEN_WFA_COMPAT, 0.005)
+    ccfg = AlignConfig(algo=Algo.WFA, wfa_max_steps=WFA_COMPAT_STEPS)
+    aligner = port["models"].WfaAligner(ccfg, "cuda")
+    t0 = time.perf_counter()
+    res = aligner.align_batch(records(cpairs))
+    compat_s = time.perf_counter() - t0
+    for r, (a, b) in zip(res, cpairs):
+        try:
+            score, ocean = oracle_wfa.wfa_align(
+                a, b, penalties=ccfg.wfa_penalties,
+                pruning=ccfg.wfa_pruning, max_steps=ccfg.wfa_max_steps)
+            want = (score, *oracle_wfa.wfa_traceback(ocean, a, b), None)
+        except Exception as e:
+            want = (None, None, None, str(e))
+        got = (r.score, r.aligned_query, r.aligned_db, r.error)
+        check(got == want, f"wfa compat: {r.query_name} != the oracle")
+    log(f"[23 wfa] the four engines' scores equal ({min(scores['auto'])}-"
+        f"{max(scores['auto'])}); compat on {N_WFA_COMPAT} x "
+        f"{LEN_WFA_COMPAT} bp at {WFA_COMPAT_STEPS} steps equal to "
+        f"oracle_wfa ({compat_s:.3f} s, {sum(r.ok for r in res)} aligned: "
+        "the golden corpus below holds the converging pairs)")
+
+    # 4. The golden CLI on cuda, the spans route and serve.
+    spec = importlib.util.spec_from_file_location(
+        "golden_regen", os.path.join(ROOT, "tests", "golden", "regen.py"))
+    regen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(regen)
+    golden = os.path.join(ROOT, "tests", "golden")
+    q, d = os.path.join(golden, "queries.fa"), os.path.join(golden, "db.fa")
+    main = port["cli"].main
+    path = "wfa golden CLI and serve (24 pairs a run)"
+
+    def run_cli(extra, stdin=None):
+        out, err = io.StringIO(), io.StringIO()
+        old = sys.stdin
+        if stdin is not None:
+            sys.stdin = io.StringIO(stdin)
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = main(extra + ["--device", "cuda"])
+        finally:
+            sys.stdin = old
+        check(rc == 0, f"cli exit {rc} ({extra})")
+        return out.getvalue(), err.getvalue()
+
+    corpus = ["-q", q, "-d", d, "--no-out", "-a", "wfa"]
+    with path_launches(port, by_path, path):
+        for name, extra in (("wfa", []), ("wfa-textbook", ["--textbook"]),
+                            ("wfa-textbook", ["--textbook", "--wfa-engine",
+                                              "wavefront"])):
+            out, err = run_cli(corpus + extra)
+            with open(os.path.join(golden, f"{name}.out")) as fh:
+                want = fh.read()
+            check(f"# exit=0\n# --- stdout ---\n{regen.normalize(out)}"
+                  f"# --- stderr ---\n{regen.normalize(err)}" == want,
+                  f"cli {extra} differs from tests/golden/{name}.out")
+        out, _ = run_cli(corpus + ["-m", "semi-global", "--textbook",
+                                   "--wfa-spans", "5"])
+        check(out.count("converged with score") == 24,
+              "-m semi-global --textbook --wfa-spans 5 did not align the 24 "
+              "pairs")
+        for extra, n_ok in ((["--textbook"], 24), ([], 10)):
+            out, _ = run_cli(["--serve", "-a", "wfa"] + extra, f"{q} {d}\n")
+            lines = [json.loads(s) for s in out.splitlines()]
+            pairs = [x for x in lines if "query_name" in x]
+            check(len(pairs) == 24 and lines[-1].get("done")
+                  and sum(p["error"] is None for p in pairs) == n_ok,
+                  f"serve -a wfa {extra} did not answer as the CLI")
+    launches = {k: v[path] for k, v in by_path.items() if path in v}
+    for name in ("wfa_fill", "wfa_walk"):
+        check(launches.get(name, 0) > 0, f"{path} never launched {name}")
+    log("[23 wfa] golden wfa, wfa-textbook and wfa-textbook with "
+        "--wfa-engine wavefront stdout equal on cuda; semi-global "
+        "--wfa-spans 5 aligned 24 pairs; serve -a wfa (compat, textbook) "
+        f"answered as the CLI; launches {launches}")
+    return meas
+
+
 def stream_times_line(meas, instances):
     """One line: kernels #1 and #2 at the main shape, their times beside
     their bounds, and the registers and spills of the instances that ran."""
@@ -3294,13 +3786,15 @@ def run(args):
         nw_banded_diag,
         nw_linear,
         traceback_device,
+        wfa,
     )
 
     port = {"cli": cli, "csrc": csrc, "models": models, "parallel": parallel,
             "fill": nw_affine_stream, "walk": traceback_device,
             "modes": nw_affine_modes, "smodes": nw_affine_stream_modes,
             "banded": nw_banded_diag, "tiled": nw_affine_tiled,
-            "nw": nw_affine, "row": nw_banded, "linear": nw_linear}
+            "nw": nw_affine, "row": nw_banded, "linear": nw_linear,
+            "wfa": wfa}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     by_path = {}
@@ -3374,6 +3868,9 @@ def run(args):
         meas.update(phase_long(torch, port, by_path))
     with timed(phase_s, "21 a-star"):
         meas.update(phase_astar(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "23 wfa"):
+        meas.update(phase_wfa(torch, port, by_path))
     total = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; total {total:.1f}")
@@ -3477,6 +3974,10 @@ def kernel_entries(meas, by_path):
         "nw_linear_fill": [meas[f"lfill_{t}_err"] for t in (
             "ragged", "global", "textbook", "local", "dirs", "local_dirs",
             "small")],
+        "wfa_fill": [meas["wfa_fill_ragged_err"]] + [
+            v for k, v in meas.items()
+            if k.startswith("wfa_fill_") and k.endswith("_err")],
+        "wfa_walk": [meas["wfa_walk_err"]],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -3503,6 +4004,11 @@ def kernel_entries(meas, by_path):
         "nw_banded_fill": ("rfill_fast4", f"{band} fast4"),
         "nw_linear_fill": ("lfill_global", f"{main} global compat "
                            "score-only"),
+        "wfa_fill": ("wfa_fill_c3", f"{N_WFA} x {LEN_WFA} bp (config 3) band "
+                     f"{WFA_BAND}, penalties 4/2/6: the whole fill, the seed "
+                     "and the chunks the fill loop queues"),
+        "wfa_walk": ("wfa_walk_c3", f"{N_WFA} x {LEN_WFA} bp (config 3) band "
+                     f"{WFA_BAND}, every pair's walk"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces) in KERNELS.items():
@@ -3581,6 +4087,30 @@ def kernel_entries(meas, by_path):
             entry["batches_ms"] = {
                 f"{k.split('_')[0]} x {LEN_MAIN} bp {k.split('_')[1]} with "
                 "path bits": v for k, v in meas["lfill_batches_ms"].items()}
+        if name == "wfa_fill":
+            entry.update(
+                chunk_ms=meas["wfa_fill_c3_chunk_ms"],
+                lattice_steps=meas["wfa_fill_c3_steps"],
+                lanes=meas["wfa_fill_c3_lanes"],
+                characters_extended=meas["wfa_fill_c3_extended"],
+                indel={f"band {b}": {k: meas[f"{key}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "chunk_ms",
+                    "steps", "lanes", "extended", "converged")}
+                    for b, key in ((WFA_BAND, "wfa_fill_indel"),
+                                   (2 * WFA_BAND, f"wfa_fill_indel_band"
+                                    f"{2 * WFA_BAND}"),
+                                   (4 * WFA_BAND, f"wfa_fill_indel_band"
+                                    f"{4 * WFA_BAND}"))})
+        if name == "wfa_walk":
+            entry.update(
+                ns_per_step=meas["wfa_walk_c3_ns_per_step"],
+                steps=meas["wfa_walk_c3_steps"],
+                indel={k: meas[f"wfa_walk_indel_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "steps",
+                    "ns_per_step")},
+                alignments_per_s={e: meas[f"wfa_{e}_alignments_per_s"]
+                                  for e in ("auto", "banded", "native",
+                                            "wavefront")})
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

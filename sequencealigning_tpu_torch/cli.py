@@ -1,8 +1,8 @@
 """Command-line interface of the PyTorch port (port of cli.py).
 
-    seqalign-torch -q query.fa -d db.fa -a needleman-wunsch|banded
-                   [--first-only] [--band N] [--device cpu|cuda] [-m MODE]
-                   [-o OUT] [-v]
+    seqalign-torch -q query.fa -d db.fa [-a ALGO] [--first-only] [--band N]
+                   [--textbook] [--wfa-engine E] [--wfa-spans S]
+                   [--device cpu|cuda] [-m MODE] [-o OUT] [-v]
 
 Same interface, stdout formats, FASTA recovery and per-pair error
 isolation as the JAX package's ``seqalign``, for the flags the port
@@ -25,6 +25,7 @@ from sequencealigning_tpu_torch.config import (
     Algo,
     Mode,
     ScoringScheme,
+    WfaPenalties,
 )
 from sequencealigning_tpu_torch.errors import CharError, FastaError
 from sequencealigning_tpu_torch.io.fasta import parse_fasta
@@ -52,8 +53,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "-a", "--algo", default="a-star",
         choices=[a.value for a in Algo],
-        help="needleman-wunsch and banded are ported; the others exit with "
-        "an error",
     )
     p.add_argument(
         "--textbook", action="store_true",
@@ -83,12 +82,52 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mismatch", type=int, default=-4)
     p.add_argument("--gap-open", type=int, default=-8)
     p.add_argument("--gap-extend", type=int, default=-6)
+    p.add_argument("--wfa-mismatch", type=int, default=4)
+    p.add_argument("--wfa-gap-open", type=int, default=2)
+    p.add_argument("--wfa-gap-extend", type=int, default=6)
+    p.add_argument(
+        "--wfa-engine", default="auto",
+        choices=["auto", "banded", "native", "wavefront"],
+        help="Textbook-WFA engine: the banded Gotoh fill, the exact "
+        "threaded native host engine, or the wavefront engine (the CUDA "
+        "fill and walk kernels on --device cuda); auto: native for "
+        "low-divergence pairs, banded for the rest",
+    )
+    p.add_argument(
+        "--wfa-spans", default=None, metavar="L1,L2,T1,T2",
+        help="Bounded ends-free WFA spans for '-a wfa --textbook -m "
+        "semi-global' or '-m local': the most FREE leading/trailing skips "
+        "of query (L1/T1) and db (L2/T2).  One integer applies to all "
+        "four.  Required for semi-global/local textbook WFA (the unbounded "
+        "forms are degenerate under min-penalty scoring: the empty "
+        "alignment always wins at 0)",
+    )
     p.add_argument(
         "--serve", action="store_true",
         help="Serve mode: read 'QUERY.fa DB.fa' lines from stdin, emit "
         "one JSON result line per pair + a summary line per request",
     )
     return p
+
+
+def _parse_spans(v):
+    """--wfa-spans: 'N' (all four) or 'L1,L2,T1,T2' -> tuple, None if
+    unset."""
+    if v is None:
+        return None
+    usage = SystemExit(
+        "--wfa-spans takes one or four non-negative integers "
+        "(L1,L2,T1,T2)"
+    )
+    try:
+        parts = [int(x) for x in str(v).split(",")]
+    except ValueError:
+        raise usage from None
+    if len(parts) == 1:
+        parts = parts * 4
+    if len(parts) != 4 or any(p < 0 for p in parts):
+        raise usage
+    return tuple(parts)
 
 
 def _load(path: str, label: str):
@@ -128,6 +167,11 @@ def _print_result(res, algo: Algo, verbose: bool) -> None:
         print(res.aligned_db)
         print(bars(res.aligned_query, res.aligned_db))
         print(res.aligned_query)
+    elif algo is Algo.WFA:
+        # wfa.rs:36-39
+        print(f"converged with score {res.score}: ")
+        print(res.aligned_query)
+        print(bars(res.aligned_query, res.aligned_db) + res.aligned_db)
     elif algo is Algo.NW_LINEAR:
         # needleman_wunsch.rs:196-201, 155-178
         print(
@@ -171,19 +215,22 @@ def main(argv=None) -> int:
             gap_open=args.gap_open,
             gap_extend=args.gap_extend,
         ),
+        wfa_penalties=WfaPenalties(
+            mismatch=args.wfa_mismatch,
+            gap_open=args.wfa_gap_open,
+            gap_extend=args.wfa_gap_extend,
+        ),
         compat=not args.textbook,
         verbose=args.verbose,
         band=args.band,
+        wfa_engine=args.wfa_engine,
+        wfa_spans=_parse_spans(args.wfa_spans),
         batch_size=args.batch_size,
         bucket=args.bucket,
         first_only=args.first_only,
         debug=args.debug,
     )
-    try:
-        aligner = get_aligner(config, args.device)
-    except NotImplementedError as e:
-        print(f"seqalign-torch: {e}", file=sys.stderr)
-        return 2
+    aligner = get_aligner(config, args.device)
 
     if args.serve:
         return _serve(args, aligner)

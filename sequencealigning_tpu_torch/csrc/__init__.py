@@ -30,11 +30,12 @@ BUILD_DIR = os.path.join(
 )
 _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
                  "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
-                 "nw_banded.cu", "nw_linear.cu", "traceback_device.cu")
+                 "nw_banded.cu", "nw_linear.cu", "traceback_device.cu",
+                 "wfa.cu")
 _HEADERS = ("nw_affine_stream.cuh", "pair_sweep.cuh", "cluster_split.cuh",
             "stream_ring.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
-            "nw_linear.cuh", "traceback_device.cuh")
+            "nw_linear.cuh", "traceback_device.cuh", "wfa.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -197,6 +198,11 @@ def kernels() -> ctypes.CDLL:
     lib.sa_walk_banded.restype = _INT
     lib.sa_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 4 + [_VP] * 4 + [_INT] + [_VP] * 2
+    lib.sa_wfa_chunk.restype = _INT
+    lib.sa_wfa_chunk.argtypes = [_VP] * 11 + [_INT] * 17 + [_VP]
+    lib.sa_wfa_walk.restype = _INT
+    lib.sa_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
+        _INT] * 5 + [_VP] * 4
     _kernels = lib
     return lib
 
@@ -332,5 +338,10 @@ def host_check() -> ctypes.CDLL:
     lib.hc_walk_banded.restype = _INT
     lib.hc_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 4 + [_VP] * 4 + [_INT] + [_VP]
+    lib.hc_wfa_chunk.restype = _INT
+    lib.hc_wfa_chunk.argtypes = [_VP] * 11 + [_INT] * 17
+    lib.hc_wfa_walk.restype = _INT
+    lib.hc_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
+        _INT] * 5 + [_VP] * 3
     _host = lib
     return lib

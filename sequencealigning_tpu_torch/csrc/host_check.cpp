@@ -11,7 +11,8 @@
 // sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_linear_fill,
 // sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
 // (their tile and strip schedules run serially, tickets in order),
-// sa_walk_fast4, sa_walk_modes and sa_walk_banded (minus the stream).  The
+// sa_walk_fast4, sa_walk_modes and sa_walk_banded, sa_wfa_chunk and
+// sa_wfa_walk (minus the stream).  The
 // streamed and per-pair fills run their warp-ring schedules serially, chunk
 // by chunk and warp by warp.
 #include <stddef.h>
@@ -30,6 +31,7 @@
 #include "pair_sweep.cuh"
 #include "stream_ring.cuh"
 #include "traceback_device.cuh"
+#include "wfa.cuh"
 
 namespace {
 
@@ -1399,4 +1401,92 @@ extern "C" int hc_linear_fill(const int32_t* query, const int32_t* s2v,
   }
   return c ? run_pair<HostLinearCells<false, true, false>>(a, k)
            : run_pair<HostLinearCells<false, false, false>>(a, k);
+}
+
+// sa_wfa_chunk's arguments minus the stream: the fill kernel's schedule run
+// serially -- pair by pair (a converged pair skipped), step by step, and in
+// a step the threads in order, each over its lanes (lane, lane + threads,
+// ...), with the codes staged as bytes as in shared memory; the step ends
+// at the barrier, which also takes the convergence test (lowest hit lane).
+extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
+                            const int32_t* n1v, const int32_t* n2v,
+                            int32_t* ring_m, int32_t* ring_i, int32_t* ring_d,
+                            int32_t* done, int32_t* score, int32_t* end_k,
+                            int16_t* hist, int B, int L1, int L2, int K, int R,
+                            int k_lo, int u0, int n_steps, int g, int x_off,
+                            int oe_off, int e_off, int lead1, int lead2,
+                            int trail1, int trail2, int lpt) {
+  if (B <= 0 || K <= 0 || n_steps <= 0 || lpt <= 0 || K > 1024 * lpt ||
+      L1 + L2 > 2 * (1 << 14) || x_off < 1 || oe_off < 1 || e_off < 1 ||
+      x_off >= R || oe_off >= R || e_off >= R) {
+    return -1;
+  }
+  int threads = (K + lpt - 1) / lpt;
+  threads = (threads + 31) / 32 * 32;
+  if (threads > 1024) threads = 1024;
+  std::vector<int8_t> s1(L1), s2(L2);
+  for (int b = 0; b < B; ++b) {
+    if (done[b]) continue;
+    const int n1 = n1v[b], n2 = n2v[b];
+    for (int j = 0; j < n1; ++j) s1[j] = static_cast<int8_t>(seq1[b * L1 + j]);
+    for (int j = 0; j < n2; ++j) s2[j] = static_cast<int8_t>(seq2[b * L2 + j]);
+    const sa::WfaRing ring{ring_m, ring_i, ring_d, R, B, K, b};
+    for (int i = 0; i < n_steps; ++i) {
+      const int u = u0 + i;
+      const int slot = u % R;
+      int hit_lane = -1;
+      for (int tid = 0; tid < threads; ++tid) {
+        for (int lane = tid; lane < K; lane += threads) {
+          const int32_t k = k_lo + lane;
+          int32_t m, iv, dv;
+          if (u == 0) {
+            m = sa::wfa_seed(s1.data(), s2.data(), n1, n2, k, lead1, lead2);
+            iv = dv = sa::kWfaNeg;
+          } else {
+            sa::wfa_step(ring, lane, k, u, x_off, oe_off, e_off, s1.data(),
+                         s2.data(), n1, n2, m, iv, dv);
+          }
+          const int64_t r = (static_cast<int64_t>(slot) * B + b) * K + lane;
+          ring_m[r] = m;
+          ring_i[r] = iv;
+          ring_d[r] = dv;
+          hist[sa::wfa_log_index(i, 0, B, b, K, lane)] =
+              static_cast<int16_t>(m);
+          hist[sa::wfa_log_index(i, 1, B, b, K, lane)] =
+              static_cast<int16_t>(iv);
+          hist[sa::wfa_log_index(i, 2, B, b, K, lane)] =
+              static_cast<int16_t>(dv);
+          bool mask;
+          const int32_t end_t = sa::wfa_end_t(k, n1, n2, trail1, trail2, mask);
+          if (mask && m >= end_t && (hit_lane < 0 || lane < hit_lane)) {
+            hit_lane = lane;
+          }
+        }
+      }
+      if (hit_lane >= 0) {
+        done[b] = 1;
+        score[b] = u * g;
+        end_k[b] = k_lo + hit_lane;
+        break;
+      }
+    }
+  }
+  return 0;
+}
+
+// sa_wfa_walk's arguments minus the stream: each pair's walk in turn
+// (wfa.cuh::wfa_walk_pair, as the kernel's thread a pair).
+extern "C" int hc_wfa_walk(const int16_t* hist, int S, int Bh, int K,
+                           int k_lo, int g, const int32_t* s0,
+                           const int32_t* k0, const int32_t* t0,
+                           const int32_t* live, const int32_t* budget, int B,
+                           int x_pen, int o_pen, int e_pen, int W,
+                           uint32_t* packed, int32_t* n_ops, int32_t* ok) {
+  if (B <= 0 || B > Bh || S <= 0 || K <= 0 || W <= 0 || g <= 0) return -1;
+  for (int b = 0; b < B; ++b) {
+    ok[b] = sa::wfa_walk_pair(hist, S, Bh, K, b, k_lo, g, s0[b], k0[b], t0[b],
+                              live[b] != 0, budget[b], x_pen, o_pen, e_pen,
+                              packed + static_cast<int64_t>(b) * W, &n_ops[b]);
+  }
+  return 0;
 }

@@ -7,6 +7,7 @@ from sequencealigning_tpu_torch.models.base import (
 )
 from sequencealigning_tpu_torch.models.gotoh import GotohAligner
 from sequencealigning_tpu_torch.models.linear import LinearNWAligner
+from sequencealigning_tpu_torch.models.wfa import WfaAligner
 
 __all__ = ["Aligner", "PairResult", "get_aligner", "AStarAligner",
-           "BandedAligner", "GotohAligner", "LinearNWAligner"]
+           "BandedAligner", "GotohAligner", "LinearNWAligner", "WfaAligner"]

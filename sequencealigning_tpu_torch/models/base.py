@@ -150,18 +150,16 @@ class Aligner:
 def get_aligner(
     config: AlignConfig, device: Union[str, torch.device] = "cuda"
 ) -> Aligner:
-    """The aligner for config.algo on ``device``.  Ported: a-star (host
-    search), needleman-wunsch (Gotoh: global with its long-pair path,
-    textbook semi-global and local), nw-linear and banded."""
+    """The aligner for config.algo on ``device``: a-star (host search),
+    needleman-wunsch (Gotoh: global with its long-pair path, textbook
+    semi-global and local), nw-linear, banded and wfa."""
     from sequencealigning_tpu_torch.models.astar import AStarAligner
     from sequencealigning_tpu_torch.models.banded import BandedAligner
     from sequencealigning_tpu_torch.models.gotoh import GotohAligner
     from sequencealigning_tpu_torch.models.linear import LinearNWAligner
+    from sequencealigning_tpu_torch.models.wfa import WfaAligner
 
     table = {Algo.A_STAR: AStarAligner, Algo.NEEDLEMAN_WUNSCH: GotohAligner,
-             Algo.NW_LINEAR: LinearNWAligner, Algo.BANDED: BandedAligner}
-    if config.algo not in table:
-        raise NotImplementedError(
-            f"{config.algo.value} is not ported yet; see ROADMAP.md"
-        )
+             Algo.NW_LINEAR: LinearNWAligner, Algo.BANDED: BandedAligner,
+             Algo.WFA: WfaAligner}
     return table[config.algo](config, device)

@@ -1,6 +1,8 @@
 """The port's native (C) host runtime: FASTA scan, the threaded fast4
 first-path walker, the decoder of the device walks' packed op codes, the
-banded (row layout) fast4 walker and the weighted-A* search.
+banded (row layout) fast4 walker, the weighted-A* search and the WFA
+engines (compat, the textbook offset-log walker, the exact textbook host
+engine).
 
 The port's copy of sequencealigning_tpu/native (the entry points the port
 calls).  ``seqalign_native.c`` is compiled with the host C compiler on first
@@ -33,6 +35,7 @@ _lib: Optional[ctypes.CDLL] = None
 _LP = ctypes.POINTER(ctypes.c_long)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_I16P = ctypes.POINTER(ctypes.c_int16)
 
 
 def _cc() -> str:
@@ -93,6 +96,29 @@ def get_lib() -> ctypes.CDLL:
         ctypes.c_double, ctypes.c_int, ctypes.c_long,
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long,
         _LP, ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+    ]
+    lib.wfa_compat_align.restype = ctypes.c_long
+    lib.wfa_compat_align.argtypes = [
+        _U8P, ctypes.c_long, _U8P, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_char_p, _LP,
+    ]
+    lib.wfa_textbook_traceback.restype = ctypes.c_long
+    lib.wfa_textbook_traceback.argtypes = [
+        _I16P, ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        _U8P, ctypes.c_long, _U8P, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long,
+    ]
+    lib.wfa_textbook_align_batch.restype = None
+    lib.wfa_textbook_align_batch.argtypes = [
+        _U8P, _LP, _U8P, _LP, ctypes.c_long,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_long, ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long,
+        _LP, _LP, ctypes.c_int,
     ]
     _lib = lib
     return lib
@@ -349,3 +375,124 @@ def astar_align_batch_native(
                 )
             )
     return results
+
+
+_WFA_ERRORS = {
+    -1: "WFA did not converge within max_steps",
+    -2: "WFA provably never converges on this pair (the reference binary "
+        "would hang: greedy extension overshoots the len-1 convergence "
+        "cell, wfa.rs:127-139 vs :189)",
+    -3: "empty sequence: the reference never converges (usize wrap)",
+    -5: "reference would panic: slice start > end",
+    -6: "reference would panic: slice out of range",
+    -7: "WFA traceback did not terminate",
+}
+
+
+def _u8(seq: bytes):
+    """A uint8 pointer to seq's bytes (a valid pointer for b"" too)."""
+    return ctypes.cast(ctypes.c_char_p(seq), _U8P)
+
+
+def wfa_compat_align_native(seq1: bytes, seq2: bytes, penalties, pruning,
+                            max_steps: int):
+    """Native compat WFA (the reference's fill and rec_tr walk, quirks
+    included).  Returns (score, aligned_seq1, aligned_seq2), None on an
+    allocation or capacity failure (the caller runs the oracle), or raises
+    AlignmentError with the oracle's message."""
+    lib = get_lib()
+    n1, n2 = len(seq1), len(seq2)
+    cap = n1 + n2 + 16
+    a1 = ctypes.create_string_buffer(cap)
+    a2 = ctypes.create_string_buffer(cap)
+    lens = (ctypes.c_long * 2)()
+    r = lib.wfa_compat_align(
+        _u8(seq1), n1, _u8(seq2), n2,
+        penalties.mismatch, penalties.gap_open, penalties.gap_extend,
+        pruning.min_length, pruning.max_diff, max_steps, a1, a2, lens,
+    )
+    if r < 0:
+        if r == -4:
+            return None
+        raise AlignmentError(_WFA_ERRORS.get(int(r), f"native error {r}"))
+    return (int(r), a1.raw[: lens[0]].decode("latin-1"),
+            a2.raw[: lens[1]].decode("latin-1"))
+
+
+def wfa_textbook_align_batch_native(
+    pairs,
+    penalties,
+    s_max: int = 1 << 40,
+    budget: int = 1 << 30,
+    n_threads: Optional[int] = None,
+):
+    """Threaded exact textbook WFA, fill and walk, on the host (no band).
+    Returns one entry per pair: (penalty, aligned_seq1, aligned_seq2), or
+    None where the engine declined the pair (past s_max, or past the memory
+    budget); the caller routes those onward."""
+    lib = get_lib()
+    B = len(pairs)
+    buf1 = b"".join(p[0] for p in pairs)
+    buf2 = b"".join(p[1] for p in pairs)
+    off1 = np.zeros(B + 1, np.int64)
+    off2 = np.zeros(B + 1, np.int64)
+    np.cumsum([len(p[0]) for p in pairs], out=off1[1:])
+    np.cumsum([len(p[1]) for p in pairs], out=off2[1:])
+    cap = int(max((len(p[0]) + len(p[1]) for p in pairs), default=0) + 8)
+    a1s = ctypes.create_string_buffer(max(1, B * cap))
+    a2s = ctypes.create_string_buffer(max(1, B * cap))
+    pens = np.zeros(B, np.int64)
+    lens = np.zeros(B, np.int64)
+    if n_threads is None:
+        n_threads = min(32, os.cpu_count() or 8)
+    # The C budget is a pair's, and up to min(n_threads, B) pairs fill at
+    # once: divide so that the transient memory stays near `budget`.
+    per_pair_budget = max(1 << 22, budget // max(1, min(n_threads, B)))
+    lib.wfa_textbook_align_batch(
+        _u8(buf1), off1.ctypes.data_as(_LP), _u8(buf2),
+        off2.ctypes.data_as(_LP), B,
+        penalties.mismatch, penalties.gap_open, penalties.gap_extend,
+        s_max, per_pair_budget, a1s, a2s, cap,
+        pens.ctypes.data_as(_LP), lens.ctypes.data_as(_LP), n_threads,
+    )
+    r1, r2 = a1s.raw, a2s.raw
+    out = []
+    for b in range(B):
+        if pens[b] < 0:
+            out.append(None)
+            continue
+        n = int(lens[b])
+        out.append((int(pens[b]), r1[b * cap: b * cap + n].decode("latin-1"),
+                    r2[b * cap: b * cap + n].decode("latin-1")))
+    return out
+
+
+def wfa_textbook_traceback_native(
+    hist: np.ndarray,
+    b: int,
+    k_lo: int,
+    score: int,
+    seq1: bytes,
+    seq2: bytes,
+    penalties,
+    stride: int = 1,
+):
+    """Native walk of pair b's textbook WFA alignment over the (S, 3, B, K)
+    int16 offset log (row j = score j * stride).  Returns (aligned_seq1,
+    aligned_seq2), or None where the walker failed."""
+    lib = get_lib()
+    hist = np.ascontiguousarray(hist, np.int16)
+    S, _, B, K = hist.shape
+    n1, n2 = len(seq1), len(seq2)
+    cap = n1 + n2 + 8
+    a1 = ctypes.create_string_buffer(cap)
+    a2 = ctypes.create_string_buffer(cap)
+    n = lib.wfa_textbook_traceback(
+        hist.ctypes.data_as(_I16P), S, B, K, b, k_lo, score, stride,
+        _u8(seq1), n1, _u8(seq2), n2,
+        penalties.mismatch, penalties.gap_open, penalties.gap_extend,
+        a1, a2, cap,
+    )
+    if n < 0:
+        return None
+    return a1.raw[:n].decode("latin-1"), a2.raw[:n].decode("latin-1")

@@ -36,6 +36,8 @@ def _run(args):
     ("a-star", []),
     ("nw-linear", ["-a", "nw-linear"]),
     ("nw-linear-local", ["-a", "nw-linear", "-m", "local"]),
+    ("wfa", ["-a", "wfa"]),
+    ("wfa-textbook", ["-a", "wfa", "--textbook"]),
 ])
 def test_port_cli_matches_golden(name, args):
     rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu"] + args)
@@ -87,8 +89,83 @@ def test_port_cli_default_algo_is_a_star():
 
 
 def test_port_cli_unported_algo_exits_2():
-    rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa"])
-    assert rc == 2 and out == "" and "not ported yet" in err
+    """A flag the port still lacks (int16 stream state): exit 2, nothing
+    on stdout."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with pytest.raises(SystemExit) as e:
+            main(CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa",
+                           "--stream-state", "i16"])
+    assert e.value.code == 2 and out.getvalue() == ""
+    assert "--stream-state" in err.getvalue()
+
+
+@pytest.mark.parametrize("args", [
+    ["--textbook", "--wfa-engine", "wavefront"],
+    ["--textbook", "--wfa-engine", "native"],
+])
+def test_port_cli_wfa_engines_print_the_textbook_golden(args):
+    """The wavefront and native engines print wfa-textbook.out too (the
+    auto route's native leg answers the corpus; the wavefront engine's
+    walk has the same tie order)."""
+    rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa"]
+                        + args)
+    with open(os.path.join(HERE, "wfa-textbook.out")) as f:
+        assert (f"# exit={rc}\n# --- stdout ---\n{normalize(out)}"
+                f"# --- stderr ---\n{normalize(err)}") == f.read()
+
+
+def test_port_cli_wfa_spans_and_penalties_reach_the_aligner(monkeypatch):
+    """--wfa-spans (one or four integers), --wfa-engine and the WFA
+    penalties reach the aligner's config; a malformed spans value exits."""
+    import sequencealigning_tpu_torch.cli as cli_mod
+
+    seen = []
+    real = cli_mod.get_aligner
+
+    def spy(config, device):
+        seen.append((config.wfa_spans, config.wfa_engine,
+                     (config.wfa_penalties.mismatch,
+                      config.wfa_penalties.gap_open,
+                      config.wfa_penalties.gap_extend)))
+        return real(config, device)
+
+    monkeypatch.setattr(cli_mod, "get_aligner", spy)
+    base = CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa",
+                     "--textbook", "-m", "semi-global"]
+    rc, out, _ = _run(base + ["--wfa-spans", "5"])
+    assert rc == 0 and out.count("converged with score") == 24
+    rc, _, _ = _run(base + ["--wfa-spans", "3,0,0,7", "--wfa-engine",
+                            "wavefront", "--wfa-mismatch", "9",
+                            "--wfa-gap-open", "1", "--wfa-gap-extend", "2"])
+    assert rc == 0
+    assert seen == [((5, 5, 5, 5), "auto", (4, 2, 6)),
+                    ((3, 0, 0, 7), "wavefront", (9, 1, 2))]
+    for bad in ("1,2", "-1", "a"):
+        with pytest.raises(SystemExit, match="--wfa-spans"):
+            _run(base + ["--wfa-spans", bad])
+
+
+def test_port_serve_wfa(monkeypatch):
+    """--serve -a wfa answers the corpus as the one-shot CLI: the golden
+    scores and alignments, compat and textbook."""
+    q, d = CORPUS[1], CORPUS[3]
+    for name, extra in (("wfa", []), ("wfa-textbook", ["--textbook"])):
+        monkeypatch.setattr("sys.stdin", io.StringIO(f"{q} {d}\n"))
+        rc, out, _ = _run(["--serve", "-a", "wfa", "--device", "cpu"]
+                          + extra)
+        assert rc == 0
+        lines = [json.loads(s) for s in out.splitlines()]
+        pairs = [x for x in lines if "query_name" in x]
+        assert len(pairs) == 24 and lines[24]["done"]
+        with open(os.path.join(HERE, f"{name}.out")) as f:
+            golden = f.read()
+        ok = [p for p in pairs if p["error"] is None]
+        assert lines[24]["errors"] == 24 - len(ok)
+        for p in ok:
+            assert (f"converged with score {p['score']}: \n"
+                    f"{p['aligned_query']}\n") in golden
+        assert golden.count("converged with score") == len(ok)
 
 
 def test_port_cli_banded_band_flag(monkeypatch):

@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules (config, errors,
 io, native, the host walkers of ops.traceback, ops.dirbits, the Gotoh,
-linear and A* oracles, utils) against their originals on the same inputs:
+linear, A* and WFA oracles, utils) against their originals on the same inputs:
 equal values, strings and error messages.  The two packages' classes are
 distinct, so results are compared by value, never by identity."""
 
@@ -17,6 +17,7 @@ import sequencealigning_tpu.ops.dirbits as jax_dirbits
 import sequencealigning_tpu.ops.oracle_astar as jax_oracle_astar
 import sequencealigning_tpu.ops.oracle_gotoh as jax_oracle
 import sequencealigning_tpu.ops.oracle_linear as jax_oracle_linear
+import sequencealigning_tpu.ops.oracle_wfa as jax_oracle_wfa
 import sequencealigning_tpu.ops.traceback as jax_tb
 import sequencealigning_tpu.utils.cigar as jax_cigar
 import sequencealigning_tpu.utils.guards as jax_guards
@@ -29,6 +30,7 @@ from sequencealigning_tpu_torch.device import to_device
 from sequencealigning_tpu_torch.io import encode, fasta
 from sequencealigning_tpu_torch.ops import dirbits, oracle_gotoh
 from sequencealigning_tpu_torch.ops import oracle_astar, oracle_linear
+from sequencealigning_tpu_torch.ops import oracle_wfa
 from sequencealigning_tpu_torch.ops import nw_banded as row
 from sequencealigning_tpu_torch.ops import nw_linear as linear
 from sequencealigning_tpu_torch.ops import nw_affine_stream as stream
@@ -567,3 +569,88 @@ def test_oracle_astar_equal():
                             semi_global=semi) == _outcome(
                 jax_oracle_astar.astar_align, s1, s2, jscheme,
                 semi_global=semi)
+
+
+# ---------------------------------------------------------------------------
+# The WFA oracle and the native WFA entry points
+# ---------------------------------------------------------------------------
+
+
+def _wfa_pairs(seed):
+    """Near-identical pairs (which the compat WFA converges on), unrelated
+    pairs (which it may never converge on), an identical pair and empty
+    sides."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for i in range(8):
+        s1 = rng.choice(alpha, int(rng.integers(3, 40)))
+        s2 = s1.copy()
+        for _ in range(int(rng.integers(0, 3))):
+            s2[rng.integers(len(s2))] = rng.choice(alpha)
+        if i % 3 == 2:
+            s2 = rng.choice(alpha, int(rng.integers(3, 40)))
+        out.append((s1.tobytes(), s2.tobytes()))
+    return out + [(b"ACGTAC", b"ACGTAC"), (b"", b"ACG"), (b"AC", b""),
+                  (b"", b"")]
+
+
+_WFA_SCHEMES = [(4, 2, 6), (9, 1, 2), (1, 5, 1)]
+
+
+@pytest.mark.parametrize("scheme", range(len(_WFA_SCHEMES)))
+def test_oracle_wfa_equal(scheme):
+    """wfa_align (its score, the ocean's traceback) and wfa_textbook_score
+    against the originals: equal values and error messages."""
+    pen = config.WfaPenalties(*_WFA_SCHEMES[scheme])
+    jpen = jax_config.WfaPenalties(*_WFA_SCHEMES[scheme])
+    prune, jprune = config.WfaPruning(), jax_config.WfaPruning()
+    for s1, s2 in _wfa_pairs(51 + scheme):
+        def run(mod, p, pr):
+            score, ocean = mod.wfa_align(s1, s2, penalties=p, pruning=pr,
+                                         max_steps=120)
+            return score, mod.wfa_traceback(ocean, s1, s2)
+
+        assert _outcome(run, oracle_wfa, pen, prune) == \
+            _outcome(run, jax_oracle_wfa, jpen, jprune)
+        assert _outcome(oracle_wfa.wfa_textbook_score, s1, s2, pen) == \
+            _outcome(jax_oracle_wfa.wfa_textbook_score, s1, s2, jpen)
+
+
+@pytest.mark.parametrize("scheme", range(len(_WFA_SCHEMES)))
+def test_native_wfa_entry_points_equal(scheme):
+    """wfa_compat_align_native, wfa_textbook_align_batch_native (with and
+    without a penalty cap) and wfa_textbook_traceback_native against the
+    JAX package's on the same inputs: results, declined pairs and error
+    messages; the compat results against the port's oracle."""
+    from sequencealigning_tpu.io.encode import pack_batch as jax_pack
+    from sequencealigning_tpu.ops import wfa as jax_wfa
+
+    pen = config.WfaPenalties(*_WFA_SCHEMES[scheme])
+    jpen = jax_config.WfaPenalties(*_WFA_SCHEMES[scheme])
+    pairs = _wfa_pairs(61 + scheme)
+    for s1, s2 in pairs:
+        got = _outcome(native.wfa_compat_align_native, s1, s2, pen,
+                       config.WfaPruning(), 400)
+        assert got == _outcome(jax_native.wfa_compat_align_native, s1, s2,
+                               jpen, jax_config.WfaPruning(), 400)
+        if isinstance(got, tuple) and got[0] != "raised":
+            score, ocean = oracle_wfa.wfa_align(s1, s2, penalties=pen,
+                                                max_steps=400)
+            assert got == (score, *oracle_wfa.wfa_traceback(ocean, s1, s2))
+    for kw in ({}, {"s_max": 24}):
+        got = native.wfa_textbook_align_batch_native(pairs, pen, **kw)
+        assert got == jax_native.wfa_textbook_align_batch_native(
+            pairs, jpen, **kw)
+        assert (None in got) == bool(kw)
+    batch = jax_pack(pairs, batch_size=16)
+    res = jax_wfa.wfa_textbook_batch(batch.query, batch.db, batch.query_len,
+                                     batch.db_len, penalties=jpen, band=48)
+    hist = np.asarray(res.hist)
+    for b, (s1, s2) in enumerate(pairs):
+        args = (hist, b, res.k_lo, int(res.score[b]), s1, s2)
+        got = native.wfa_textbook_traceback_native(*args, pen,
+                                                   stride=res.stride)
+        assert got == jax_native.wfa_textbook_traceback_native(
+            *args, jpen, stride=res.stride)
+        assert got is not None

@@ -11,8 +11,9 @@ strips in short blocks) and the banded walk, the tiled
 fills' strip schedule run serially in ticket order with the carried column
 in ring slots (kernels #4 and #5) and their DPX helpers,
 the banded row sweep (kernel #8) with its scan carried across forced
-narrow chunks, and the linear fill in one block and split over 2 CTAs;
-plus the kernel wrappers' refusal of CPU tensors."""
+narrow chunks, the linear fill in one block and split over 2 CTAs, and
+the WFA wavefront fill (lanes a thread forced, bands past 1024 lanes) and
+walk; plus the kernel wrappers' refusal of CPU tensors."""
 
 import numpy as np
 import pytest
@@ -1856,3 +1857,206 @@ def test_sass_spills_finds_loops_and_spills():
     assert [(o["address"], o["out_of_line"], o["smallest_loop"])
             for o in got["outside"]] == \
         [(0x10, False, None), (spin, False, 2), (addr + 0x20, True, None)]
+
+
+# ---------------------------------------------------------------------------
+# Textbook WFA: the wavefront fill and the walk over its offset log
+# ---------------------------------------------------------------------------
+
+
+def _wfa_batch(seed, n, hi):
+    """Ragged pairs up to hi bp skewed both ways (mutants with indels,
+    unrelated pairs), an empty side each way and an identical pair."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(0, hi + 1)))
+        if i % 3 == 2:
+            s2 = rng.choice(alpha, int(rng.integers(0, hi // 3 + 1)))
+        else:
+            s2 = s1.copy()
+            for _ in range(int(rng.integers(0, 5))):
+                if len(s2):
+                    s2[rng.integers(len(s2))] = rng.choice(alpha)
+            if len(s2) > 10:
+                p = int(rng.integers(1, len(s2) - 8))
+                s2 = np.concatenate([s2[:p], s2[p + int(rng.integers(1, 7)):]])
+        pairs.append((s1.tobytes(), s2.tobytes()) if i % 2 else
+                     (s2.tobytes(), s1.tobytes()))
+    pairs += [(b"", b"ACGTN"), (b"ACG", b""), (b"GATTACA", b"GATTACA")]
+    return pairs, to_device(pack_batch(pairs, batch_size=-(-len(pairs) // 8)
+                                       * 8), "cpu")
+
+
+def _host_wfa_chunk(host, f, u0, n_steps, lpt):
+    """hc_wfa_chunk on a fill state (the kernel's schedule run serially):
+    the chunk's log; f's per-pair results updated in place."""
+    from sequencealigning_tpu_torch.ops import wfa
+
+    R, B, K = f.ring_m.shape
+    hist = torch.full((n_steps, 3, B, K), wfa.NEG, dtype=torch.int16)
+    rc = host.hc_wfa_chunk(
+        *(t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.ring_m,
+                                 f.ring_i, f.ring_d, f.done, f.score,
+                                 f.end_k, hist)),
+        B, f.seq1.shape[1], f.seq2.shape[1], K, R, f.k_lo, u0, n_steps,
+        wfa._score_stride(f.penalties), *wfa.lattice_offsets(f.penalties),
+        *f.spans, lpt)
+    assert rc == 0
+    return hist
+
+
+@pytest.mark.parametrize("lpt", [1, 2, 4])
+@pytest.mark.parametrize("pen,band,spans", [
+    ((4, 2, 6), 8, (0, 0, 0, 0)),
+    ((9, 2, 2), 4, (0, 0, 0, 0)),
+    ((4, 2, 6), 6, (0, 5, 0, 5)),
+    ((4, 2, 6), 2, (3, 0, 0, 7)),
+    ((3, 1, 0), 8, (0, 0, 0, 0)),
+])
+def test_host_wfa_chunk_matches_plain(host, pen, band, spans, lpt):
+    """The fill kernel's lanes and steps (wfa.cuh through hc_wfa_chunk),
+    lpt lanes a thread forced, against wfa_chunk_torch chunk by chunk from
+    the seed (u = 0) over uneven chunk lengths: every log row, done, score
+    and end_k equal (the rings are no contract: the kernel stops writing a
+    pair's rows once it converged)."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs, tb = _wfa_batch(70 + lpt, 13, 150)
+    k_lo, K = wfa.band_plan(tb.query_len.numpy(), tb.db_len.numpy(), band,
+                            spans)
+    fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties(*pen), spans)
+    fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties(*pen), spans)
+    runlen = wfa.build_runlen(fp)
+    for u0, n in ((0, 1), (1, 37), (38, 5), (43, 400)):
+        want = wfa.wfa_chunk_torch(fp, u0, n, runlen)
+        got = _host_wfa_chunk(host, fk, u0, n, lpt)
+        assert torch.equal(got, want), (u0, n)
+        for a, b in zip(fk[7:10], fp[7:10]):
+            assert torch.equal(a, b)
+    assert bool(fk.done.all())
+
+
+def test_host_wfa_chunk_past_1024_lanes(host):
+    """A band of more than 1024 lanes takes two lanes a thread by default
+    (fill_lanes_per_thread), and four and eight forced: equal to the plain
+    fill."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs, tb = _wfa_batch(80, 5, 120)
+    k_lo, K = wfa.band_plan(tb.query_len.numpy(), tb.db_len.numpy(), 560,
+                            (0, 0, 0, 0))
+    assert K > 1024 and wfa.fill_lanes_per_thread(K) == 2
+    fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    want = wfa.wfa_chunk_torch(fp, 0, 1)
+    want = torch.cat([want, wfa.wfa_chunk_torch(fp, 1, 300)])
+    for lpt in (2, 4, 8):
+        fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+        got = torch.cat([_host_wfa_chunk(host, fk, 0, 1, lpt),
+                         _host_wfa_chunk(host, fk, 1, 300, lpt)])
+        assert torch.equal(got, want)
+        assert torch.equal(fk.score, fp.score)
+        assert torch.equal(fk.end_k, fp.end_k)
+
+
+def test_host_wfa_chunk_refuses_bad_shapes(host):
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    _pairs_, tb = _wfa_batch(81, 3, 40)
+    f = wfa.wfa_fill_state(*tb, -64, 128, WfaPenalties())
+    R = f.ring_m.shape[0]
+    hist = torch.zeros((1, 3, 8, 128), dtype=torch.int16)
+    base = [t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.ring_m,
+                                   f.ring_i, f.ring_d, f.done, f.score,
+                                   f.end_k, hist)]
+    ok = [8, f.seq1.shape[1], f.seq2.shape[1], 128, R, -64, 0, 1, 2, 2, 4, 3,
+          0, 0, 0, 0, 1]
+    assert host.hc_wfa_chunk(*base, *ok) == 0
+    for i, bad in ((16, 0), (9, R), (11, 0), (3, 2048)):
+        args = list(ok)
+        args[i] = bad
+        assert host.hc_wfa_chunk(*base, *args) == -1, (i, bad)
+
+
+def _host_wfa_walk(host, hist, seeds, k_lo, g, pen, W):
+    B = seeds.s0.shape[0]
+    S, _, Bh, K = hist.shape
+    packed = torch.zeros((B, W), dtype=torch.uint32)
+    n_ops = torch.empty(B, dtype=torch.int32)
+    ok = torch.empty(B, dtype=torch.int32)
+    rc = host.hc_wfa_walk(hist.contiguous().data_ptr(), S, Bh, K, k_lo, g,
+                          *(t.data_ptr() for t in seeds), B, pen.mismatch,
+                          pen.gap_open, pen.gap_extend, W, packed.data_ptr(),
+                          n_ops.data_ptr(), ok.data_ptr())
+    assert rc == 0
+    return packed, n_ops, ok != 0
+
+
+@pytest.mark.parametrize("pen,band,s_max", [
+    ((4, 2, 6), 8, 16384), ((9, 2, 2), 4, 16384), ((1, 5, 1), 2, 16384),
+    ((4, 2, 6), 2, 8), ((0, 2, 6), 8, 16384),
+])
+def test_host_wfa_walk_matches_plain(host, pen, band, s_max):
+    """The walk kernel's per-pair state machine (wfa.cuh::wfa_walk_pair
+    through hc_wfa_walk) against wfa_walk_torch on ragged batches: packed
+    codes, op counts and ok flags equal (pairs that did not converge, and
+    walks a zero mismatch penalty leaves unfinished, not ok and all 0);
+    every ok walk decodes to the host walker's strings."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs, tb = _wfa_batch(90 + band, 13, 200)
+    pairs += [(b"A" * 150, b"T" * 150)]
+    tb = to_device(pack_batch(pairs, batch_size=24), "cpu")
+    p = WfaPenalties(*pen)
+    res = wfa.wfa_textbook_batch(*tb, penalties=p, band=band, s_max=s_max)
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    seeds = wfa.walk_seeds(res, s1s, s2s, "cpu")
+    W = wfa.walk_width(int(seeds.budget.max()))
+    hist = res.device_hist()
+    want = wfa.wfa_walk_torch(hist, seeds, res.k_lo, res.stride, p, W)
+    got = _host_wfa_walk(host, hist, seeds, res.k_lo, res.stride, p, W)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    alns = walk.decode_packed_alignments(got[0].numpy(), s1s, s2s)
+    for b in range(len(pairs)):
+        if got[2][b]:
+            assert alns[b] == wfa.wfa_traceback_host(res, b, *pairs[b],
+                                                     p)[1:]
+    if pen[0]:
+        assert torch.equal(got[2], torch.from_numpy(
+            res.converged[: len(pairs)]))
+
+
+def test_host_wfa_walk_budget_and_bad_seeds(host):
+    """A budget one op short (not ok, codes 0) and walks seeded off their
+    pairs' ends: the host build and the plain walk alike."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs, tb = _wfa_batch(95, 6, 80)
+    p = WfaPenalties()
+    res = wfa.wfa_textbook_batch(*tb, penalties=p, band=8)
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    seeds = wfa.walk_seeds(res, s1s, s2s, "cpu")
+    W = wfa.walk_width(int(seeds.budget.max()))
+    hist = res.device_hist()
+    full = wfa.wfa_walk_torch(hist, seeds, res.k_lo, res.stride, p, W)
+    short = seeds._replace(budget=full[1] - 1)
+    assert bool(full[2].all())
+    t0 = seeds.t0.clone()
+    t0[::2] += 1
+    k0 = seeds.k0.clone()
+    k0[1::2] -= 3
+    for i, sd in enumerate((short, seeds._replace(t0=t0),
+                            seeds._replace(k0=k0))):
+        want = wfa.wfa_walk_torch(hist, sd, res.k_lo, res.stride, p, W)
+        got = _host_wfa_walk(host, hist, sd, res.k_lo, res.stride, p, W)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if i == 0:
+            assert not bool(want[2].any()) and not bool(want[0].any())

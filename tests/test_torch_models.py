@@ -92,9 +92,9 @@ def test_compat_local_mode_is_per_pair_not_implemented():
 
 
 def test_unported_routes_raise():
-    """Other algorithms and int16 stream state are not ported; textbook
-    local now runs (test_port_textbook_modes_match_jax), except on int16
-    state, which its streamed route refuses as the global path does."""
+    """int16 stream state is not ported: textbook local's streamed route
+    and the global path refuse it.  (Every algorithm has an aligner since
+    WFA was ported: tests/test_torch_models_wfa.py.)"""
     recs = _records(1, n=32)
     textbook_local = AlignConfig(
         algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL, compat=False,
@@ -102,8 +102,9 @@ def test_unported_routes_raise():
     )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_aligner(textbook_local, "cpu").align_batch(recs)
+    global_i16 = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, stream_state="i16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_aligner(AlignConfig(algo=Algo.WFA), "cpu")
+        get_aligner(global_i16, "cpu").align_batch(recs[:4])
 
 
 def _drop_walk_of_pair_2(monkeypatch, gotoh_mod):

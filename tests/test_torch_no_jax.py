@@ -49,7 +49,7 @@ def test_importing_every_port_module_loads_no_jax():
               "ops.traceback_device", "ops.oracle_gotoh", "models.banded",
               "ops.nw_banded", "ops.nw_linear", "ops.oracle_linear",
               "ops.oracle_astar", "ops.step_graph", "models.linear",
-              "models.astar",
+              "models.astar", "ops.wfa", "ops.oracle_wfa", "models.wfa",
               "parallel", "parallel.mesh", "parallel.runner",
               "parallel.streaming",
               "utils.cigar", "utils.guards", "utils.pprint", "utils.stats"):
