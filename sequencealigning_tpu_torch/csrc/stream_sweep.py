@@ -799,6 +799,381 @@ def _pairs_main(args, chip_smoke, csrc, nw, lin, modes, ScoringScheme,
     return 0
 
 
+# --wfa: the extension's isolating inputs are timed at these band widths.
+WFA_EXT_LANES = (32, 256, 768)
+
+
+def _wfa_shapes(chip_smoke):
+    """--wfa's shapes: (name, pairs, band) -- BASELINE config 3 and the
+    indel batch at its three bands as chip_smoke.py phase 23 builds them,
+    then one and four of config 3's pairs (a CLI or serve request)."""
+    c3 = chip_smoke.wfa_pairs(np.random.default_rng(3), chip_smoke.N_WFA,
+                              chip_smoke.LEN_WFA, 0.005)
+    indel = chip_smoke.wfa_pairs(np.random.default_rng(30), chip_smoke.N_WFA,
+                                 chip_smoke.LEN_WFA, 0.01,
+                                 chip_smoke.WFA_INDELS)
+    band = chip_smoke.WFA_BAND
+    yield "config 3", c3, band
+    for b in (band, 2 * band, 4 * band):
+        yield f"indel band {b}", indel, b
+    yield "1 pair", c3[:1], band
+    yield "4 pairs", c3[:4], band
+
+
+def _wfa_batch(to_device, pack_batch, pairs):
+    return to_device(pack_batch(pairs, batch_size=-(-len(pairs) // 8) * 8),
+                     "cuda")
+
+
+def _wfa_fill(wfa, tb, band, pen, k_plan=None):
+    """One fill as wfa_textbook_batch runs it: (state, [(u0, n_steps)] of
+    its launches, its chunks)."""
+    k_lo, K = k_plan or wfa.band_plan(tb.query_len.cpu().numpy(),
+                                      tb.db_len.cpu().numpy(), band,
+                                      (0, 0, 0, 0))
+    f = wfa.wfa_fill_state(*tb, k_lo, K, pen)
+    calls = []
+
+    def chunk(f_, u0, n):
+        calls.append((u0, n))
+        return wfa.wfa_chunk_cuda(f_, u0, n)
+
+    return f, calls, wfa.fill_chunks(f, 16_384, chunk)
+
+
+def _primed_groups(fn, reps: int, group: int = 10) -> list:
+    """fn(record) queued reps times in groups, each group behind a ~50 ms
+    sleep on the card so that the host has queued it before the card
+    reaches it; record(launch) times one launch with CUDA events.  Returns
+    [[ms of each recorded launch] a rep]."""
+    out = []
+    for g0 in range(0, reps, group):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        evs = []
+        for _ in range(min(group, reps - g0)):
+            rec = []
+
+            def record(launch, rec=rec):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                launch()
+                b.record()
+                rec.append((a, b))
+
+            fn(record)
+            evs.append(rec)
+        torch.cuda.synchronize()
+        out += [[a.elapsed_time(b) for a, b in rec] for rec in evs]
+    return out
+
+
+def _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
+               reps: int, check: bool) -> list:
+    """--wfa's rows of one checkout: for each shape the fill as the call
+    (band plan, fresh state and chunk loop, CUDA events around it: what
+    chip_smoke.py reports as a whole fill) and as its launches alone (the
+    seed, the chunks that compute, those after convergence; the wrapper's
+    log allocation included), the walk alone and wfa_traceback_device's
+    call (host clock, the decode included); then the extension's isolating
+    inputs.  Medians of reps.  check: the fill and walk held equal to their
+    plain versions at each shape."""
+    pen = WfaPenalties()
+    rows = []
+
+    def row(name, ms, **kw):
+        rows.append(dict(name=name, median=float(np.median(ms)),
+                         least=float(min(ms)), largest=float(max(ms)), **kw))
+        print(f"wfa {name}: median {np.median(ms):.4f} ms, least "
+              f"{min(ms):.4f}, largest {max(ms):.4f} ({len(ms)} runs)"
+              + "".join(f", {k} {v}" for k, v in kw.items()), flush=True)
+
+    for name, pairs, band in _wfa_shapes(chip_smoke):
+        tb = _wfa_batch(to_device, pack_batch, pairs)
+        k_plan = wfa.band_plan(tb.query_len.cpu().numpy(),
+                               tb.db_len.cpu().numpy(), band, (0, 0, 0, 0))
+        f, calls, chunks = _wfa_fill(wfa, tb, band, pen, k_plan)
+        g = wfa._score_stride(pen)
+        steps = int(f.score.max()) // g
+        if check:
+            want = chip_smoke.wfa_fill_run(torch, wfa, tb, band, pen,
+                                           kernel=False)
+            e = chip_smoke.wfa_fill_diff(torch, wfa, (f, chunks), want)
+            assert e == 0, f"wfa fill {name} != plain (err {e})"
+            del want
+        ms = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chip_smoke.wfa_fill_run(torch, wfa, tb, band, pen)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        row(f"{name} fill call", ms, K=k_plan[1], steps=steps,
+            launches=len(calls))
+
+        def fill_launches(record):
+            fs = wfa.wfa_fill_state(*tb, *k_plan, pen)
+            for u0, n in calls:
+                record(lambda: wfa.wfa_chunk_cuda(fs, u0, n))
+
+        per = _primed_groups(fill_launches, reps)
+        row(f"{name} fill launches", [sum(p) for p in per])
+        row(f"{name} fill seed", [p[0] for p in per])
+        row(f"{name} fill first chunk", [p[1] for p in per])
+        if len(calls) > 2:
+            row(f"{name} fill chunk after convergence", [p[-1] for p in per])
+        res = wfa.WfaBatchResult(f.score.cpu().numpy(),
+                                 f.done.cpu().numpy() != 0, chunks, f.k_lo, g)
+        s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+        hist = res.device_hist()
+        seeds = wfa.walk_seeds(res, s1s, s2s, hist.device)
+        W = wfa.walk_width(int(seeds.budget.max()))
+        wargs = (hist, seeds, res.k_lo, g, pen, W)
+        if check:
+            got = wfa.wfa_walk_cuda(*wargs)
+            want = wfa.wfa_walk_torch(*wargs)
+            assert all(bool(torch.equal(a, b)) for a, b in zip(got, want)), (
+                f"wfa walk {name} != plain")
+        row(f"{name} walk kernel", _launches_ms(
+            lambda: wfa.wfa_walk_cuda(*wargs), reps, primed=True))
+        ms = []
+        for _ in range(min(reps, 20)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wfa.wfa_traceback_device(res, s1s, s2s, pen)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        row(f"{name} walk call", ms)
+        print(f"wfa {name}: {len(pairs)} pairs, K {k_plan[1]}, {steps} "
+              f"lattice steps, launches {calls}"
+              + ("; fill and walk equal to their plain versions"
+                 if check else ""), flush=True)
+        del f, chunks, res, hist, tb
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(34)
+    c3 = chip_smoke.wfa_pairs(np.random.default_rng(3), chip_smoke.N_WFA,
+                              chip_smoke.LEN_WFA, 0.005)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    inputs = (("identical", [(b, b) for _, b in c3]), ("config 3", c3),
+              ("random", [(rng.choice(alpha, len(a)).tobytes(), b)
+                          for a, b in c3]))
+    for kind, pairs in inputs:
+        tb = _wfa_batch(to_device, pack_batch, pairs)
+        for K in WFA_EXT_LANES:
+            def seed_chunk(record, K=K):
+                fs = wfa.wfa_fill_state(*tb, -(K // 2), K, pen)
+                record(lambda: wfa.wfa_chunk_cuda(fs, 0, 1))
+                record(lambda: wfa.wfa_chunk_cuda(fs, 1, wfa.S_CHUNK))
+
+            per = _primed_groups(seed_chunk, reps)
+            fs = wfa.wfa_fill_state(*tb, -(K // 2), K, pen)
+            wfa.wfa_chunk_cuda(fs, 0, 1)
+            wfa.wfa_chunk_cuda(fs, 1, wfa.S_CHUNK)
+            done = fs.done[:len(pairs)]
+            run = int(torch.where(done != 0, fs.score[:len(pairs)] // 2,
+                                  wfa.S_CHUNK).max())
+            row(f"extension {kind} K {K} seed", [p[0] for p in per])
+            row(f"extension {kind} K {K} chunk", [p[1] for p in per],
+                steps=run, us_a_step=round(
+                    float(np.median([p[1] for p in per])) * 1e3
+                    / max(run, 1), 3))
+        del tb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _stamp_lib(csrc):
+    """The stamped kernels (csrc/wfa_stamps.cu), built for this sweep."""
+    import ctypes
+
+    src = os.path.join(os.path.dirname(os.path.abspath(csrc.__file__)),
+                       "wfa_stamps.cu")
+    lib_path = os.path.join(csrc.BUILD_DIR, "libwfa_stamps.so")
+    heads = [os.path.join(os.path.dirname(src), h) for h in csrc._HEADERS]
+    if csrc.stale(lib_path, [src] + heads):
+        csrc.compile_library([csrc.nvcc_path(), *csrc.ARCH_FLAGS, "-O3",
+                              "-shared", "-Xcompiler", "-fPIC"], [src],
+                             lib_path)
+    lib = ctypes.CDLL(lib_path)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.st_wfa_chunk.restype = i
+    lib.st_wfa_chunk.argtypes = [vp] * 11 + [i] * 17 + [vp, vp]
+    lib.st_wfa_walk.restype = i
+    lib.st_wfa_walk.argtypes = [vp] + [i] * 5 + [vp] * 5 + [i] * 5 + [
+        vp] * 3 + [vp, vp]
+    return lib
+
+
+def _clock_ghz() -> float:
+    """The SM clock under load: a spin of 2e8 cycles (torch.cuda._sleep)
+    timed with CUDA events."""
+    torch.cuda._sleep(10_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(200_000_000)
+    b.record()
+    torch.cuda.synchronize()
+    return 200_000_000 / (a.elapsed_time(b) * 1e6)
+
+
+def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
+                WfaPenalties) -> list:
+    """Part 0's split: the fill's seed launch and its chunks, and the walk,
+    at config 3 and on the indel batch at band 64, through the stamped
+    kernels: cycles of each part a warp-step, and a CTA's cycles a lattice
+    step."""
+    lib = _stamp_lib(csrc)
+    pen = WfaPenalties()
+    g = wfa._score_stride(pen)
+    stream = torch.cuda.current_stream().cuda_stream
+    ghz = _clock_ghz()
+    print(f"wfa stamps: SM clock {ghz:.3f} GHz under load", flush=True)
+    out = []
+    parts = ("ring reads", "recurrence", "extension", "stores",
+             "barrier")
+    for name, pairs, band in list(_wfa_shapes(chip_smoke))[:2]:
+        tb = _wfa_batch(to_device, pack_batch, pairs)
+        k_lo, K = wfa.band_plan(tb.query_len.cpu().numpy(),
+                                tb.db_len.cpu().numpy(), band, (0, 0, 0, 0))
+        f = wfa.wfa_fill_state(*tb, k_lo, K, pen)
+        R, B, _ = f.ring_m.shape
+        chunks = []
+        for u0, n in [(0, 1)] + [(u, wfa.S_CHUNK) for u in
+                                 range(1, 16_384 // g, wfa.S_CHUNK)]:
+            if bool(f.done.all()):
+                break
+            st = torch.zeros(10, dtype=torch.int64, device="cuda")
+            hist = torch.full((n, 3, B, K), wfa.NEG, dtype=torch.int16,
+                              device="cuda")
+            rc = lib.st_wfa_chunk(
+                *(t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v,
+                                         f.ring_m, f.ring_i, f.ring_d, f.done,
+                                         f.score, f.end_k, hist)),
+                B, f.seq1.shape[1], f.seq2.shape[1], K, R, k_lo, u0, n, g,
+                *wfa.lattice_offsets(pen), 0, 0, 0, 0,
+                wfa.fill_lanes_per_thread(K), st.data_ptr(), stream)
+            assert rc == 0, rc
+            chunks.append(hist)
+            s = [int(v) for v in st.cpu()]
+            ws = max(s[6], 1)
+            split = {p: s[j] / ws for j, p in enumerate(parts)}
+            warps = s[9] * s[6] / max(s[8], 1)
+            d = dict(shape=name, u0=u0, K=K, warp_steps=s[6],
+                     cta_steps=s[8], stage_cycles_a_warp=s[5] / max(warps, 1),
+                     cycles_a_step=s[7] / max(s[8], 1),
+                     us_a_step=s[7] / max(s[8], 1) / ghz / 1e3,
+                     split_cycles_a_warp_step=split)
+            out.append(d)
+            print(f"wfa stamps {name} launch u0={u0}: {s[8]} CTA-steps, "
+                  f"{d['cycles_a_step']:.0f} cycles a step of a CTA "
+                  f"({d['us_a_step']:.2f} us); a warp-step: "
+                  + ", ".join(f"{p} {v:.0f}" for p, v in split.items())
+                  + f" cycles; staging the codes "
+                  f"{d['stage_cycles_a_warp']:.0f} cycles a warp",
+                  flush=True)
+        res = wfa.WfaBatchResult(f.score.cpu().numpy(),
+                                 f.done.cpu().numpy() != 0, chunks, k_lo, g)
+        s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+        hist = res.device_hist()
+        seeds = wfa.walk_seeds(res, s1s, s2s, hist.device)
+        W = wfa.walk_width(int(seeds.budget.max()))
+        Bw = seeds.s0.shape[0]
+        packed = torch.zeros((Bw, W), dtype=torch.uint32, device="cuda")
+        n_ops = torch.empty(Bw, dtype=torch.int32, device="cuda")
+        okv = torch.empty(Bw, dtype=torch.int32, device="cuda")
+        st = torch.zeros(4, dtype=torch.int64, device="cuda")
+        S, _, Bh, Kh = hist.shape
+        rc = lib.st_wfa_walk(hist.data_ptr(), S, Bh, Kh, k_lo, g,
+                             *(t.data_ptr() for t in seeds), Bw,
+                             pen.mismatch, pen.gap_open, pen.gap_extend, W,
+                             packed.data_ptr(), n_ops.data_ptr(),
+                             okv.data_ptr(), st.data_ptr(), stream)
+        assert rc == 0, rc
+        s = [int(v) for v in st.cpu()]
+        steps = max(s[2], 1)
+        d = dict(shape=name, walk=True, thread_steps=s[2],
+                 reads_cycles_a_step=s[0] / steps,
+                 rest_cycles_a_step=s[1] / steps,
+                 warp_cycles=s[3] / max(-(-Bw // 32), 1))
+        out.append(d)
+        print(f"wfa stamps {name} walk: {s[2]} thread-steps, a step "
+              f"{d['reads_cycles_a_step']:.0f} cycles of log reads and "
+              f"{d['rest_cycles_a_step']:.0f} of state machine and emit; a "
+              f"warp {d['warp_cycles']:.0f} cycles "
+              f"({d['warp_cycles'] / ghz / 1e3:.2f} us)", flush=True)
+        del f, chunks, res, hist, tb
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wfa_main(args, here: str, root: str) -> int:
+    """--wfa: one checkout's rows (with --root, parent / tree / tree /
+    parent as four runs of this script, then a table side by side)."""
+    if args.root and not args.wfa_one:
+        import subprocess
+        import tempfile
+
+        sys.path.insert(0, here)
+        from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for j, r in enumerate((root, here, here, root)):
+                out = os.path.join(tmp, f"{j}.json")
+                cmd = [sys.executable, os.path.abspath(__file__), "--wfa",
+                       str(args.wfa), "--wfa-one", "--out", out]
+                if r != here:
+                    cmd += ["--root", r]
+                rc = subprocess.run(cmd).returncode
+                if rc != 0:
+                    return rc
+                with open(out) as fh:
+                    runs.append(json.load(fh))
+        names = [r["name"] for r in runs[1]["rows"]]
+        print(f"wfa side by side (medians, ms; {_card()}): parent / tree / "
+              "tree / parent", flush=True)
+        for n in names:
+            vals = []
+            for run in runs:
+                m = [r["median"] for r in run["rows"] if r["name"] == n]
+                vals.append(f"{m[0]:.4f}" if m else "-")
+            print(f"wfa {n}: " + " / ".join(vals), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=_card(), runs=runs), fh)
+        return 0
+    sys.path.insert(0, root)
+    import chip_smoke
+    from sequencealigning_tpu_torch import csrc
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(csrc.__file__)))
+    print(_card(), f"package {pkg}", flush=True)
+    csrc.kernels()
+    print(f"build {csrc.build_seconds:.1f} s", flush=True)
+    for r in csrc.kernel_resources(csrc.build_log, "wfa_"):
+        print(f"instance {r['entry']}: {r['registers']} registers, "
+              f"{r['spill_stores']} / {r['spill_loads']} bytes spilled "
+              f"(stores / loads), stack {r['stack']}", flush=True)
+    mine = root == here
+    stamps = (_wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
+                          WfaPenalties) if mine else [])
+    rows = _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
+                      args.wfa, mine)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(dict(card=_card(), package=pkg, rows=rows,
+                           stamps=stamps), fh)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="JSON file for the rows")
@@ -818,6 +1193,10 @@ def main() -> int:
     ap.add_argument("--pipeline", action="store_true",
                     help="also time the runner's fused route and "
                          "stream_align")
+    ap.add_argument("--wfa", type=int, default=0,
+                    help="time only the WFA fill and walk, N runs each")
+    ap.add_argument("--wfa-one", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -825,6 +1204,8 @@ def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     root = os.path.abspath(args.root or here)
+    if args.wfa:
+        return _wfa_main(args, here, root)
     sys.path.insert(0, root)
     import chip_smoke
     from sequencealigning_tpu_torch import csrc
