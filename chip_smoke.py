@@ -3345,22 +3345,23 @@ def wfa_penalty(a1, a2, pen):
 
 
 def wfa_fill_run(torch, wfa, tb, band, pen, spans=(0, 0, 0, 0), kernel=True,
-                 lpt=0, events=None):
+                 lpt=0, events=None, shared=None):
     """One fill as wfa_textbook_batch runs it, through the kernel
-    (wfa_chunk_cuda, lanes a thread forced by lpt) or the plain version
-    (its run-length table built once): (state, chunks).  events: a list
-    that receives a (start, end) CUDA event pair a launch."""
+    (wfa_chunk_cuda, lanes a thread forced by lpt, the rings' route by
+    shared, None: by shape) or the plain version (its run-length table
+    built once): (state, chunks).  events: a list that receives a (start,
+    end) CUDA event pair a launch."""
     k_lo, K = wfa.band_plan(tb.query_len.cpu().numpy(),
                             tb.db_len.cpu().numpy(), band, spans)
     f = wfa.wfa_fill_state(*tb, k_lo, K, pen, spans)
     if kernel:
         def chunk(f_, u0, n):
             if events is None:
-                return wfa.wfa_chunk_cuda(f_, u0, n, lpt)
+                return wfa.wfa_chunk_cuda(f_, u0, n, lpt, shared)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = wfa.wfa_chunk_cuda(f_, u0, n, lpt)
+            out = wfa.wfa_chunk_cuda(f_, u0, n, lpt, shared)
             ev[1].record()
             events.append(ev)
             return out
@@ -3488,10 +3489,12 @@ def wfa_walk_check(torch, wfa, res, pairs, pen, label, samples=8):
 
 def phase_wfa(torch, port, by_path):
     """Textbook WFA: the fill kernel against its plain version on ragged
-    batches, at config 3 and on the indel batch (at the doubled bands too),
-    timed; the walk kernel against its plain version and the host walker;
-    WfaAligner on cuda at config 3 with every engine; the compat route
-    against the oracle; the golden CLI and serve."""
+    batches (its rings in shared memory, in device memory forced, and past
+    the shared-memory budget), at config 3, on the indel batch (at the
+    doubled bands too) and on one and four of config 3's pairs, timed; the
+    walk kernel against its plain version and the host walker; WfaAligner
+    on cuda at config 3 with every engine; the compat route against the
+    oracle; the golden CLI and serve."""
     from sequencealigning_tpu_torch.config import (
         AlignConfig,
         Algo,
@@ -3512,27 +3515,35 @@ def phase_wfa(torch, port, by_path):
                                     * 8), "cuda")
 
     # 1. Ragged batches: (pairs, hi bp, penalties, band, spans, lanes a
-    # thread forced).
+    # thread forced, the rings' route forced: None by shape).  Band 1700
+    # takes K past the shared-memory budget (the rings in device memory).
     err, runs = 0, 0
     t_ragged = time.perf_counter()
-    for n, hi, p, band, spans, lpt in (
-            (64, 3000, pen, 64, (0, 0, 0, 0), 0),
-            (17, 3000, out_pen, 4, (0, 0, 0, 0), 0),
-            (33, 1500, pen, 16, (5, 5, 5, 5), 0),
-            (9, 2000, out_pen, 8, (3, 0, 0, 7), 0),
-            (12, 600, pen, 32, (0, 0, 0, 0), 4),
-            (1, 3000, pen, 600, (0, 0, 0, 0), 0),
-            (5, 2500, pen, 700, (0, 0, 0, 0), 4)):
+    for n, hi, p, band, spans, lpt, shared in (
+            (64, 3000, pen, 64, (0, 0, 0, 0), 0, None),
+            (17, 3000, out_pen, 4, (0, 0, 0, 0), 0, None),
+            (33, 1500, pen, 16, (5, 5, 5, 5), 0, None),
+            (9, 2000, out_pen, 8, (3, 0, 0, 7), 0, None),
+            (12, 600, pen, 32, (0, 0, 0, 0), 4, None),
+            (12, 600, pen, 32, (0, 0, 0, 0), 0, False),
+            (1, 3000, pen, 600, (0, 0, 0, 0), 0, None),
+            (5, 2500, pen, 700, (0, 0, 0, 0), 4, None),
+            (5, 2000, pen, 1700, (0, 0, 0, 0), 0, None)):
         pairs = wfa_ragged(rng, n, hi)
         tb = batch(pairs)
-        got = wfa_fill_run(torch, wfa, tb, band, p, spans, True, lpt)
+        got = wfa_fill_run(torch, wfa, tb, band, p, spans, True, lpt,
+                           shared=shared)
         want = wfa_fill_run(torch, wfa, tb, band, p, spans, False)
         torch.cuda.synchronize()
         e = wfa_fill_diff(torch, wfa, got, want)
         K = got[0].ring_m.shape[2]
+        route = ("shared" if wfa.ring_in_shared(
+            tb.query.shape[1], tb.db.shape[1], K, got[0].ring_m.shape[0])
+                 else "device") if shared is None else (
+            "shared" if shared else "device, forced")
         check(e == 0, f"wfa fill kernel != plain ({len(pairs)} pairs <= {hi}"
-              f" bp, {p}, band {band} (K {K}), spans {spans}, lpt {lpt}): "
-              f"err {e}")
+              f" bp, {p}, band {band} (K {K}), spans {spans}, lpt {lpt}, "
+              f"rings {route}): err {e}")
         err, runs = max(err, e), runs + 1
         if spans == (0, 0, 0, 0):
             res = wfa.WfaBatchResult(
@@ -3544,21 +3555,24 @@ def phase_wfa(torch, port, by_path):
             err = max(err, w["err"])
         log(f"[23 wfa] ragged {len(pairs)} pairs <= {hi} bp, {p.mismatch}/"
             f"{p.gap_open}/{p.gap_extend}, band {band} (K {K}, "
-            f"{wfa.fill_lanes_per_thread(K, lpt)} lanes a thread), spans "
-            f"{spans}: fill equal to the plain version"
+            f"{wfa.fill_lanes_per_thread(K, lpt)} lanes a thread, rings "
+            f"{route}), spans {spans}: fill equal to the plain version"
             + ("; walk equal" if spans == (0, 0, 0, 0) else ""))
     meas["wfa_fill_ragged_err"] = err
     log(f"[23 wfa] {runs} ragged fills and their walks checked in "
         f"{time.perf_counter() - t_ragged:.1f} s")
 
-    # 2. Config 3, then the indel batch at the doubled bands.
+    # 2. Config 3, the indel batch at the doubled bands, then one and four
+    # of config 3's pairs (a CLI or serve request).
     c3 = wfa_pairs(np.random.default_rng(3), N_WFA, LEN_WFA, 0.005)
     indel = wfa_pairs(np.random.default_rng(30), N_WFA, LEN_WFA, 0.01,
                       WFA_INDELS)
     walk_err = []
     for tag, pairs, bands in (("c3", c3, (WFA_BAND,)),
                               ("indel", indel, (WFA_BAND, 2 * WFA_BAND,
-                                                4 * WFA_BAND))):
+                                                4 * WFA_BAND)),
+                              ("c3_1", c3[:1], (WFA_BAND,)),
+                              ("c3_4", c3[:4], (WFA_BAND,))):
         tb = batch(pairs)
         for band in bands:
             got = wfa_fill_run(torch, wfa, tb, band, pen)
@@ -4100,7 +4114,10 @@ def kernel_entries(meas, by_path):
                                    (2 * WFA_BAND, f"wfa_fill_indel_band"
                                     f"{2 * WFA_BAND}"),
                                    (4 * WFA_BAND, f"wfa_fill_indel_band"
-                                    f"{4 * WFA_BAND}"))})
+                                    f"{4 * WFA_BAND}"))},
+                pairs={n: {k: meas[f"wfa_fill_c3_{n}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "chunk_ms")}
+                    for n in (1, 4)})
         if name == "wfa_walk":
             entry.update(
                 ns_per_step=meas["wfa_walk_c3_ns_per_step"],
@@ -4108,6 +4125,9 @@ def kernel_entries(meas, by_path):
                 indel={k: meas[f"wfa_walk_indel_{k}"] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "steps",
                     "ns_per_step")},
+                pairs={n: {k: meas[f"wfa_walk_c3_{n}_{k}"] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by")}
+                    for n in (1, 4)},
                 alignments_per_s={e: meas[f"wfa_{e}_alignments_per_s"]
                                   for e in ("auto", "banded", "native",
                                             "wavefront")})

@@ -20,6 +20,7 @@
 
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "cluster_split.cuh"
@@ -1404,89 +1405,222 @@ extern "C" int hc_linear_fill(const int32_t* query, const int32_t* s2v,
 }
 
 // sa_wfa_chunk's arguments minus the stream: the fill kernel's schedule run
-// serially -- pair by pair (a converged pair skipped), step by step, and in
-// a step the threads in order, each over its lanes (lane, lane + threads,
-// ...), with the codes staged as bytes as in shared memory; the step ends
-// at the barrier, which also takes the convergence test (lowest hit lane).
+// serially -- pair by pair (a converged pair's rows NEG), step by step, and
+// in a step each warp's lanes in order: every lane's candidate and its
+// run's first word, then each run that goes on, taken by the warp's spans
+// lane by lane (the first lane whose word ends the run, as the ballot),
+// then the lanes' stores and end tests; the barrier ends the step with the
+// convergence test (lowest hit lane).  The codes are packed at u0 == 0 (and
+// written to `codes`) or copied from `codes`; the rings are copied into a
+// shared-memory image with guard cells for the launch (shared) or used in
+// place.
 extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             const int32_t* n1v, const int32_t* n2v,
-                            int32_t* ring_m, int32_t* ring_i, int32_t* ring_d,
-                            int32_t* done, int32_t* score, int32_t* end_k,
-                            int16_t* hist, int B, int L1, int L2, int K, int R,
-                            int k_lo, int u0, int n_steps, int g, int x_off,
-                            int oe_off, int e_off, int lead1, int lead2,
-                            int trail1, int trail2, int lpt) {
-  if (B <= 0 || K <= 0 || n_steps <= 0 || lpt <= 0 || K > 1024 * lpt ||
-      L1 + L2 > 2 * (1 << 14) || x_off < 1 || oe_off < 1 || e_off < 1 ||
-      x_off >= R || oe_off >= R || e_off >= R) {
+                            uint8_t* codes, int32_t* ring_m, int32_t* ring_i,
+                            int32_t* ring_d, int32_t* done, int32_t* score,
+                            int32_t* end_k, int16_t* hist, int B, int L1,
+                            int L2, int K, int R, int k_lo, int u0,
+                            int n_steps, int g, int x_off, int oe_off,
+                            int e_off, int lead1, int lead2, int trail1,
+                            int trail2, int lpt, int shared) {
+  const int P1 = sa::wfa_code_pitch(L1);
+  const int CP = P1 + sa::wfa_code_pitch(L2);
+  const long long smem = CP + (shared ? 12LL * R * (K + 2) : 0);
+  if (B <= 0 || K <= 0 || K % 32 || n_steps <= 0 || lpt <= 0 ||
+      K > 1024 * lpt || L1 < 0 || L2 < 0 || L1 + L2 > 2 * (1 << 14) ||
+      x_off < 1 || oe_off < 1 || e_off < 1 || x_off >= R || oe_off >= R ||
+      e_off >= R || smem > sa::kWfaSharedMax) {
     return -1;
   }
   int threads = (K + lpt - 1) / lpt;
   threads = (threads + 31) / 32 * 32;
   if (threads > 1024) threads = 1024;
-  std::vector<int8_t> s1(L1), s2(L2);
+  std::vector<uint32_t> words(CP / 4);
+  std::vector<int32_t> sring(3 * R * (K + 2));
+  int32_t m[32], iv[32], dv[32], lim[32];
+  bool more[32];
   for (int b = 0; b < B; ++b) {
-    if (done[b]) continue;
-    const int n1 = n1v[b], n2 = n2v[b];
-    for (int j = 0; j < n1; ++j) s1[j] = static_cast<int8_t>(seq1[b * L1 + j]);
-    for (int j = 0; j < n2; ++j) s2[j] = static_cast<int8_t>(seq2[b * L2 + j]);
-    const sa::WfaRing ring{ring_m, ring_i, ring_d, R, B, K, b};
-    for (int i = 0; i < n_steps; ++i) {
-      const int u = u0 + i;
-      const int slot = u % R;
-      int hit_lane = -1;
-      for (int tid = 0; tid < threads; ++tid) {
-        for (int lane = tid; lane < K; lane += threads) {
-          const int32_t k = k_lo + lane;
-          int32_t m, iv, dv;
-          if (u == 0) {
-            m = sa::wfa_seed(s1.data(), s2.data(), n1, n2, k, lead1, lead2);
-            iv = dv = sa::kWfaNeg;
-          } else {
-            sa::wfa_step(ring, lane, k, u, x_off, oe_off, e_off, s1.data(),
-                         s2.data(), n1, n2, m, iv, dv);
-          }
-          const int64_t r = (static_cast<int64_t>(slot) * B + b) * K + lane;
-          ring_m[r] = m;
-          ring_i[r] = iv;
-          ring_d[r] = dv;
-          hist[sa::wfa_log_index(i, 0, B, b, K, lane)] =
-              static_cast<int16_t>(m);
-          hist[sa::wfa_log_index(i, 1, B, b, K, lane)] =
-              static_cast<int16_t>(iv);
-          hist[sa::wfa_log_index(i, 2, B, b, K, lane)] =
-              static_cast<int16_t>(dv);
-          bool mask;
-          const int32_t end_t = sa::wfa_end_t(k, n1, n2, trail1, trail2, mask);
-          if (mask && m >= end_t && (hit_lane < 0 || lane < hit_lane)) {
-            hit_lane = lane;
+    int i_neg = 0;
+    if (!done[b]) {
+      uint8_t* row = codes + static_cast<size_t>(b) * CP;
+      if (u0 == 0) {
+        for (int p = 0; p < CP; ++p) {
+          const int p2 = p - P1;
+          row[p] = static_cast<uint8_t>(
+              p < L1 ? seq1[static_cast<size_t>(b) * L1 + p]
+                     : (p2 >= 0 && p2 < L2
+                            ? seq2[static_cast<size_t>(b) * L2 + p2] : 0));
+        }
+      }
+      memcpy(words.data(), row, CP);
+      const uint32_t* w1 = words.data();
+      const uint32_t* w2 = w1 + P1 / 4;
+      const sa::WfaSharedRing sr{sring.data(), R, K};
+      const sa::WfaDeviceRing dr{{ring_m, ring_i, ring_d}, B, K, b};
+      if (shared) {
+        for (int p = 0; p < 3; ++p) {
+          for (int q = 0; q < R; ++q) {
+            sr.row(p, q)[-1] = sr.row(p, q)[K] = sa::kWfaNeg;
+            for (int lane = 0; lane < K; ++lane) {
+              sr.put(p, q, lane, dr.at(p, q, lane));
+            }
           }
         }
       }
-      if (hit_lane >= 0) {
-        done[b] = 1;
-        score[b] = u * g;
-        end_k[b] = k_lo + hit_lane;
-        break;
+      const int n1 = n1v[b], n2 = n2v[b];
+      i_neg = n_steps;
+      for (int i = 0; i < n_steps; ++i) {
+        const int u = u0 + i;
+        const sa::WfaSlots q = sa::wfa_slots(u, u % R, R, x_off, oe_off,
+                                             e_off);
+        int hit_lane = -1;
+        for (int w = 0; w < threads / 32; ++w) {
+          for (int base = 32 * w; base < K; base += threads) {
+            for (int j = 0; j < 32; ++j) {
+              const int lane = base + j;
+              const int32_t k = k_lo + lane;
+              iv[j] = dv[j] = sa::kWfaNeg;
+              int32_t t;
+              if (u == 0) {
+                t = sa::wfa_seed_start(k, n1, n2, lead1, lead2);
+              } else if (shared) {
+                t = sa::wfa_candidate(sr, q, lane, k, n1, n2, iv[j], dv[j]);
+              } else {
+                t = sa::wfa_candidate(dr, q, lane, k, n1, n2, iv[j], dv[j]);
+              }
+              lim[j] = n2 < n1 - k ? n2 : n1 - k;
+              more[j] = false;
+              m[j] = t > sa::kWfaNeg
+                         ? sa::wfa_first_word(w1, w2, k, t, lim[j], more[j])
+                         : sa::kWfaNeg;
+            }
+            for (int j = 0; j < 32; ++j) {
+              if (!more[j]) continue;
+              const int32_t k = k_lo + base + j;
+              for (int32_t ts = m[j];; ts += 4 * sa::kWfaSpan) {
+                int32_t end = 0;
+                int l = 0;
+                while (l < 32 && !sa::wfa_span_lane(w1, w2, k, ts, lim[j], l,
+                                                    end)) {
+                  ++l;
+                }
+                if (l < 32) {
+                  m[j] = end;
+                  break;
+                }
+              }
+            }
+            for (int j = 0; j < 32; ++j) {
+              const int lane = base + j;
+              const int32_t k = k_lo + lane;
+              if (shared) {
+                sr.put(0, q.w, lane, m[j]);
+                sr.put(1, q.w, lane, iv[j]);
+                sr.put(2, q.w, lane, dv[j]);
+              } else {
+                dr.put(0, q.w, lane, m[j]);
+                dr.put(1, q.w, lane, iv[j]);
+                dr.put(2, q.w, lane, dv[j]);
+              }
+              for (int p = 0; p < 3; ++p) {
+                hist[sa::wfa_log_index(i, p, B, b, K, lane)] =
+                    static_cast<int16_t>(p == 0 ? m[j] : (p == 1 ? iv[j]
+                                                                 : dv[j]));
+              }
+              bool mask;
+              const int32_t end_t =
+                  sa::wfa_end_t(k, n1, n2, trail1, trail2, mask);
+              if (mask && m[j] >= end_t &&
+                  (hit_lane < 0 || lane < hit_lane)) {
+                hit_lane = lane;
+              }
+            }
+          }
+        }
+        if (hit_lane >= 0) {
+          done[b] = 1;
+          score[b] = u * g;
+          end_k[b] = k_lo + hit_lane;
+          i_neg = i + 1;
+          break;
+        }
+      }
+      if (shared) {
+        for (int p = 0; p < 3; ++p) {
+          for (int q = 0; q < R; ++q) {
+            for (int lane = 0; lane < K; ++lane) {
+              dr.put(p, q, lane, sr.at(p, q, lane));
+            }
+          }
+        }
+      }
+    }
+    for (int i = i_neg; i < n_steps; ++i) {
+      for (int p = 0; p < 3; ++p) {
+        for (int lane = 0; lane < K; ++lane) {
+          hist[sa::wfa_log_index(i, p, B, b, K, lane)] =
+              static_cast<int16_t>(sa::kWfaNeg);
+        }
       }
     }
   }
   return 0;
 }
 
+// The walk's warp run serially (wfa.cuh::WfaStage's Ops): one lane, the
+// slots poisoned when a batch is copied and filled when it is waited on,
+// so a read the schedule did not wait for returns poison.
+struct HostWalkOps {
+  std::vector<int16_t> slots =
+      std::vector<int16_t>(sa::kWfaSlots * sa::kWfaSlotCells);
+  std::vector<const int16_t*> src[sa::kWfaSlots];
+  int win[sa::kWfaSlots] = {0, 0, 0};
+
+  int lane() const { return 0; }
+  int lanes() const { return 1; }
+  void init() {}
+  // Batch r0's rows (3 row-planes a row) into slot q; the device copies
+  // the whole box, rows past the log zero, which no read reaches.
+  template <class Src>
+  void copy(int q, int /*r0*/, int /*l0*/, int rows, int w, Src s) {
+    src[q].clear();
+    for (int j = 0; j < 3 * rows; ++j) src[q].push_back(s(j));
+    win[q] = w;
+    std::fill(slots.begin() + q * sa::kWfaSlotCells,
+              slots.begin() + (q + 1) * sa::kWfaSlotCells,
+              static_cast<int16_t>(0x5A5A));
+  }
+  void wait(int q) {
+    for (size_t j = 0; j < src[q].size(); ++j) {
+      memcpy(&slots[q * sa::kWfaSlotCells + j * win[q]], src[q][j],
+             2 * win[q]);
+    }
+    src[q].clear();
+  }
+  void sync() {}
+  int32_t cell(int q, int idx) const {
+    return slots[q * sa::kWfaSlotCells + idx];
+  }
+  void mark(int, int32_t = 0) {}
+};
+
 // sa_wfa_walk's arguments minus the stream: each pair's walk in turn
-// (wfa.cuh::wfa_walk_pair, as the kernel's thread a pair).
+// through wfa.cuh::wfa_walk_staged and its staged batches.
 extern "C" int hc_wfa_walk(const int16_t* hist, int S, int Bh, int K,
                            int k_lo, int g, const int32_t* s0,
                            const int32_t* k0, const int32_t* t0,
                            const int32_t* live, const int32_t* budget, int B,
                            int x_pen, int o_pen, int e_pen, int W,
                            uint32_t* packed, int32_t* n_ops, int32_t* ok) {
-  if (B <= 0 || B > Bh || S <= 0 || K <= 0 || W <= 0 || g <= 0) return -1;
+  if (B <= 0 || B > Bh || S <= 0 || K < 32 || K % 8 || W <= 0 || g <= 0) {
+    return -1;
+  }
   for (int b = 0; b < B; ++b) {
-    ok[b] = sa::wfa_walk_pair(hist, S, Bh, K, b, k_lo, g, s0[b], k0[b], t0[b],
-                              live[b] != 0, budget[b], x_pen, o_pen, e_pen,
-                              packed + static_cast<int64_t>(b) * W, &n_ops[b]);
+    HostWalkOps ops;
+    ok[b] = sa::wfa_walk_staged(ops, hist, S, Bh, K, b, k_lo, g, s0[b], k0[b],
+                                t0[b], live[b] != 0, budget[b], x_pen, o_pen,
+                                e_pen, packed + static_cast<int64_t>(b) * W,
+                                &n_ops[b]);
   }
   return 0;
 }

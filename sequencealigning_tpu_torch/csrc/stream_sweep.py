@@ -10,6 +10,8 @@ and semi-global with full dirs untrimmed (kernel #2):
         [--others] [--long] [--pipeline]
     python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
         --walks N [--out FILE]
+    python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
+        --wfa N [--out FILE]
 
 run from the repository root; --root DIR times the package of another
 checkout (e.g. a parent commit unpacked with ``git archive``) instead, at
@@ -49,7 +51,19 @@ walk on one pair, the modes walks on kernel #6's per-pair layout at 1 and
 warm-up: the median, least and largest ms; for this checkout each walk is
 also held equal to its plain version (the fast4 and modes walks with their
 slow-path words and ns a step).  Run it on the parent and on the tree in
-turn, in one call, to compare the walks.
+turn, in one call, to compare the walks.  --wfa N times only the WFA
+wavefront fill and its walk (``ops/wfa.py``, ``csrc/wfa.cu``) at BASELINE
+config 3, the indel batch at bands 64/128/256 and one and four of config
+3's pairs: the fill as the call (band plan, state, chunk loop: chip_smoke's
+whole fill) and as its launches queued behind a sleep (the seed, the
+first chunk, a chunk after convergence), the walk alone and as
+``wfa_traceback_device``'s call, then a seed and a chunk on identical,
+config-3 and random pairs at 32/256/768 lanes (the extension's share),
+medians of N; for this checkout each shape's fill and walk are held equal
+to their plain versions, and ``csrc/wfa_stamps.cu`` (built here alone)
+splits a fill step and a walk step into their parts with clock64()
+stamps.  With --root DIR it runs parent (DIR) / tree / tree / parent as
+four runs of this script and prints the medians side by side.
 Needs a CUDA card; prints the card's name and power limit.
 """
 
@@ -870,15 +884,14 @@ def _primed_groups(fn, reps: int, group: int = 10) -> list:
 
 
 def _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
-               reps: int, check: bool) -> list:
+               reps: int) -> list:
     """--wfa's rows of one checkout: for each shape the fill as the call
     (band plan, fresh state and chunk loop, CUDA events around it: what
     chip_smoke.py reports as a whole fill) and as its launches alone (the
     seed, the chunks that compute, those after convergence; the wrapper's
     log allocation included), the walk alone and wfa_traceback_device's
     call (host clock, the decode included); then the extension's isolating
-    inputs.  Medians of reps.  check: the fill and walk held equal to their
-    plain versions at each shape."""
+    inputs.  Medians of reps."""
     pen = WfaPenalties()
     rows = []
 
@@ -896,12 +909,6 @@ def _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
         f, calls, chunks = _wfa_fill(wfa, tb, band, pen, k_plan)
         g = wfa._score_stride(pen)
         steps = int(f.score.max()) // g
-        if check:
-            want = chip_smoke.wfa_fill_run(torch, wfa, tb, band, pen,
-                                           kernel=False)
-            e = chip_smoke.wfa_fill_diff(torch, wfa, (f, chunks), want)
-            assert e == 0, f"wfa fill {name} != plain (err {e})"
-            del want
         ms = []
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
@@ -932,11 +939,6 @@ def _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
         seeds = wfa.walk_seeds(res, s1s, s2s, hist.device)
         W = wfa.walk_width(int(seeds.budget.max()))
         wargs = (hist, seeds, res.k_lo, g, pen, W)
-        if check:
-            got = wfa.wfa_walk_cuda(*wargs)
-            want = wfa.wfa_walk_torch(*wargs)
-            assert all(bool(torch.equal(a, b)) for a, b in zip(got, want)), (
-                f"wfa walk {name} != plain")
         row(f"{name} walk kernel", _launches_ms(
             lambda: wfa.wfa_walk_cuda(*wargs), reps, primed=True))
         ms = []
@@ -947,9 +949,7 @@ def _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
             ms.append((time.perf_counter() - t0) * 1e3)
         row(f"{name} walk call", ms)
         print(f"wfa {name}: {len(pairs)} pairs, K {k_plan[1]}, {steps} "
-              f"lattice steps, launches {calls}"
-              + ("; fill and walk equal to their plain versions"
-                 if check else ""), flush=True)
+              f"lattice steps, launches {calls}", flush=True)
         del f, chunks, res, hist, tb
         torch.cuda.empty_cache()
     rng = np.random.default_rng(34)
@@ -984,6 +984,36 @@ def _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
     return rows
 
 
+def _wfa_checks(chip_smoke, wfa, to_device, pack_batch, WfaPenalties):
+    """This checkout's fill and walk at each --wfa shape held equal to their
+    plain versions (after the timings, so that no plain run sits between a
+    parent's and a tree's times)."""
+    pen = WfaPenalties()
+    for name, pairs, band in _wfa_shapes(chip_smoke):
+        tb = _wfa_batch(to_device, pack_batch, pairs)
+        got = chip_smoke.wfa_fill_run(torch, wfa, tb, band, pen)
+        want = chip_smoke.wfa_fill_run(torch, wfa, tb, band, pen,
+                                       kernel=False)
+        e = chip_smoke.wfa_fill_diff(torch, wfa, got, want)
+        assert e == 0, f"wfa fill {name} != plain (err {e})"
+        f, chunks = got
+        g = wfa._score_stride(pen)
+        res = wfa.WfaBatchResult(f.score.cpu().numpy(),
+                                 f.done.cpu().numpy() != 0, chunks, f.k_lo, g)
+        hist = res.device_hist()
+        seeds = wfa.walk_seeds(res, [a for a, _ in pairs],
+                               [b for _, b in pairs], hist.device)
+        wargs = (hist, seeds, res.k_lo, g, pen,
+                 wfa.walk_width(int(seeds.budget.max())))
+        assert all(bool(torch.equal(a, b)) for a, b in zip(
+            wfa.wfa_walk_cuda(*wargs), wfa.wfa_walk_torch(*wargs))), (
+            f"wfa walk {name} != plain")
+        print(f"wfa {name}: fill and walk equal to their plain versions",
+              flush=True)
+        del got, want, f, chunks, res, hist, tb
+        torch.cuda.empty_cache()
+
+
 def _stamp_lib(csrc):
     """The stamped kernels (csrc/wfa_stamps.cu), built for this sweep."""
     import ctypes
@@ -991,7 +1021,8 @@ def _stamp_lib(csrc):
     src = os.path.join(os.path.dirname(os.path.abspath(csrc.__file__)),
                        "wfa_stamps.cu")
     lib_path = os.path.join(csrc.BUILD_DIR, "libwfa_stamps.so")
-    heads = [os.path.join(os.path.dirname(src), h) for h in csrc._HEADERS]
+    heads = [os.path.join(os.path.dirname(src), h)
+             for h in csrc._HEADERS + ("wfa.cu",)]
     if csrc.stale(lib_path, [src] + heads):
         csrc.compile_library([csrc.nvcc_path(), *csrc.ARCH_FLAGS, "-O3",
                               "-shared", "-Xcompiler", "-fPIC"], [src],
@@ -999,7 +1030,7 @@ def _stamp_lib(csrc):
     lib = ctypes.CDLL(lib_path)
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.st_wfa_chunk.restype = i
-    lib.st_wfa_chunk.argtypes = [vp] * 11 + [i] * 17 + [vp, vp]
+    lib.st_wfa_chunk.argtypes = [vp] * 12 + [i] * 18 + [vp, vp]
     lib.st_wfa_walk.restype = i
     lib.st_wfa_walk.argtypes = [vp] + [i] * 5 + [vp] * 5 + [i] * 5 + [
         vp] * 3 + [vp, vp]
@@ -1021,10 +1052,10 @@ def _clock_ghz() -> float:
 
 def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
                 WfaPenalties) -> list:
-    """Part 0's split: the fill's seed launch and its chunks, and the walk,
-    at config 3 and on the indel batch at band 64, through the stamped
-    kernels: cycles of each part a warp-step, and a CTA's cycles a lattice
-    step."""
+    """Part 0's split of this checkout's kernels (csrc/wfa_stamps.cu): the
+    fill's launches and the walk at config 3 and on the indel batch at band
+    64: cycles of each part a warp-step (a walk step), and a CTA's (a
+    warp's) cycles."""
     lib = _stamp_lib(csrc)
     pen = WfaPenalties()
     g = wfa._score_stride(pen)
@@ -1032,48 +1063,53 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
     ghz = _clock_ghz()
     print(f"wfa stamps: SM clock {ghz:.3f} GHz under load", flush=True)
     out = []
-    parts = ("ring reads", "recurrence", "extension", "stores",
-             "barrier")
+    parts = ("candidate", "first word", "spans", "stores", "barrier",
+             "staging", "write-back and NEG rows")
     for name, pairs, band in list(_wfa_shapes(chip_smoke))[:2]:
         tb = _wfa_batch(to_device, pack_batch, pairs)
         k_lo, K = wfa.band_plan(tb.query_len.cpu().numpy(),
                                 tb.db_len.cpu().numpy(), band, (0, 0, 0, 0))
         f = wfa.wfa_fill_state(*tb, k_lo, K, pen)
         R, B, _ = f.ring_m.shape
+        L1, L2 = f.seq1.shape[1], f.seq2.shape[1]
         chunks = []
         for u0, n in [(0, 1)] + [(u, wfa.S_CHUNK) for u in
                                  range(1, 16_384 // g, wfa.S_CHUNK)]:
             if bool(f.done.all()):
                 break
-            st = torch.zeros(10, dtype=torch.int64, device="cuda")
-            hist = torch.full((n, 3, B, K), wfa.NEG, dtype=torch.int16,
-                              device="cuda")
+            st = torch.zeros(11, dtype=torch.int64, device="cuda")
+            hist = torch.empty((n, 3, B, K), dtype=torch.int16,
+                               device="cuda")
             rc = lib.st_wfa_chunk(
                 *(t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v,
-                                         f.ring_m, f.ring_i, f.ring_d, f.done,
-                                         f.score, f.end_k, hist)),
-                B, f.seq1.shape[1], f.seq2.shape[1], K, R, k_lo, u0, n, g,
-                *wfa.lattice_offsets(pen), 0, 0, 0, 0,
-                wfa.fill_lanes_per_thread(K), st.data_ptr(), stream)
+                                         f.codes, f.ring_m, f.ring_i,
+                                         f.ring_d, f.done, f.score, f.end_k,
+                                         hist)),
+                B, L1, L2, K, R, k_lo, u0, n, g, *wfa.lattice_offsets(pen),
+                0, 0, 0, 0, wfa.fill_lanes_per_thread(K),
+                int(wfa.ring_in_shared(L1, L2, K, R)), st.data_ptr(),
+                stream)
             assert rc == 0, rc
             chunks.append(hist)
             s = [int(v) for v in st.cpu()]
-            ws = max(s[6], 1)
-            split = {p: s[j] / ws for j, p in enumerate(parts)}
-            warps = s[9] * s[6] / max(s[8], 1)
-            d = dict(shape=name, u0=u0, K=K, warp_steps=s[6],
-                     cta_steps=s[8], stage_cycles_a_warp=s[5] / max(warps, 1),
-                     cycles_a_step=s[7] / max(s[8], 1),
-                     us_a_step=s[7] / max(s[8], 1) / ghz / 1e3,
-                     split_cycles_a_warp_step=split)
+            ws = max(s[7], 1)
+            split = {p: s[j] / ws for j, p in enumerate(parts[:5])}
+            warps = s[7] / max(s[9], 1) * s[10]
+            d = dict(shape=name, u0=u0, K=K, warp_steps=s[7],
+                     cta_steps=s[9], split_cycles_a_warp_step=split,
+                     staging_cycles_a_warp=s[5] / max(warps, 1),
+                     tail_cycles_a_warp=s[6] / max(warps, 1),
+                     cycles_a_step=s[8] / max(s[9], 1),
+                     us_a_step=s[8] / max(s[9], 1) / ghz / 1e3)
             out.append(d)
-            print(f"wfa stamps {name} launch u0={u0}: {s[8]} CTA-steps, "
-                  f"{d['cycles_a_step']:.0f} cycles a step of a CTA "
-                  f"({d['us_a_step']:.2f} us); a warp-step: "
-                  + ", ".join(f"{p} {v:.0f}" for p, v in split.items())
-                  + f" cycles; staging the codes "
-                  f"{d['stage_cycles_a_warp']:.0f} cycles a warp",
-                  flush=True)
+            print(f"wfa stamps {name} launch u0={u0}: {s[9]} CTA-steps, "
+                  f"{d['cycles_a_step']:.0f} cycles a step of a CTA, staging "
+                  f"and tail included ({d['us_a_step']:.2f} us); a "
+                  "warp-step: " + ", ".join(f"{p} {v:.0f}"
+                                            for p, v in split.items())
+                  + f" cycles; a warp's staging "
+                  f"{d['staging_cycles_a_warp']:.0f}, write-back and NEG "
+                  f"rows {d['tail_cycles_a_warp']:.0f}", flush=True)
         res = wfa.WfaBatchResult(f.score.cpu().numpy(),
                                  f.done.cpu().numpy() != 0, chunks, k_lo, g)
         s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
@@ -1084,7 +1120,7 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
         packed = torch.zeros((Bw, W), dtype=torch.uint32, device="cuda")
         n_ops = torch.empty(Bw, dtype=torch.int32, device="cuda")
         okv = torch.empty(Bw, dtype=torch.int32, device="cuda")
-        st = torch.zeros(4, dtype=torch.int64, device="cuda")
+        st = torch.zeros(6, dtype=torch.int64, device="cuda")
         S, _, Bh, Kh = hist.shape
         rc = lib.st_wfa_walk(hist.data_ptr(), S, Bh, Kh, k_lo, g,
                              *(t.data_ptr() for t in seeds), Bw,
@@ -1093,16 +1129,18 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
                              okv.data_ptr(), st.data_ptr(), stream)
         assert rc == 0, rc
         s = [int(v) for v in st.cpu()]
-        steps = max(s[2], 1)
-        d = dict(shape=name, walk=True, thread_steps=s[2],
+        steps = max(s[3], 1)
+        d = dict(shape=name, walk=True, steps=s[3],
                  reads_cycles_a_step=s[0] / steps,
                  rest_cycles_a_step=s[1] / steps,
-                 warp_cycles=s[3] / max(-(-Bw // 32), 1))
+                 staging_cycles_a_step=s[2] / steps,
+                 warp_cycles=s[4] / max(s[5], 1))
         out.append(d)
-        print(f"wfa stamps {name} walk: {s[2]} thread-steps, a step "
-              f"{d['reads_cycles_a_step']:.0f} cycles of log reads and "
-              f"{d['rest_cycles_a_step']:.0f} of state machine and emit; a "
-              f"warp {d['warp_cycles']:.0f} cycles "
+        print(f"wfa stamps {name} walk: {s[3]} steps of {s[5]} walks, a "
+              f"step {d['reads_cycles_a_step']:.0f} cycles of log reads, "
+              f"{d['rest_cycles_a_step']:.0f} of state machine and emit, "
+              f"{d['staging_cycles_a_step']:.0f} of staging; a walk "
+              f"{d['warp_cycles']:.0f} cycles "
               f"({d['warp_cycles'] / ghz / 1e3:.2f} us)", flush=True)
         del f, chunks, res, hist, tb
         torch.cuda.empty_cache()
@@ -1162,11 +1200,13 @@ def _wfa_main(args, here: str, root: str) -> int:
         print(f"instance {r['entry']}: {r['registers']} registers, "
               f"{r['spill_stores']} / {r['spill_loads']} bytes spilled "
               f"(stores / loads), stack {r['stack']}", flush=True)
-    mine = root == here
-    stamps = (_wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
-                          WfaPenalties) if mine else [])
     rows = _wfa_times(chip_smoke, wfa, to_device, pack_batch, WfaPenalties,
-                      args.wfa, mine)
+                      args.wfa)
+    stamps = []
+    if root == here:
+        stamps = _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
+                             WfaPenalties)
+        _wfa_checks(chip_smoke, wfa, to_device, pack_batch, WfaPenalties)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(dict(card=_card(), package=pkg, rows=rows,

@@ -1,27 +1,23 @@
 // Clock stamps of the WFA kernels' parts, for csrc/stream_sweep.py --wfa:
 // the sweep builds this file with nvcc into a library of its own; the
-// package never builds it.  Each kernel here is the package's kernel with
-// clock64() stamps between its parts, summed a warp (its lane 0) into
-// stamps[]:
+// package never builds it.  It instantiates wfa.cu's fill kernel with a
+// stamps policy and runs wfa.cuh's walk schedule with a stamping warp:
+// clock64() between the parts, a part ending once the value it produced
+// is ready (a branch on it waits for its loads), summed a warp (its lane
+// 0) into stamps[] (u64, added to):
 //
-//   fill (st_wfa_chunk): 0 ring reads, 1 recurrence, 2 extension, 3 log
-//   and ring stores with the end test, 4 the barrier, 5 staging the codes
-//   (once a CTA), 6 warp-steps stamped, 7 the CTAs' cycles from their
-//   first step to their exit (thread 0), 8 lattice steps run (thread 0),
-//   9 CTAs that ran;
-//   walk (st_wfa_walk): 0 log reads, 1 the state machine and the emit,
-//   2 walk steps stamped (every thread), 3 the warps' cycles (lane 0).
+//   fill (st_wfa_chunk): 0 the candidate (ring reads, recurrence), 1 the
+//   run's first word, 2 the warp's spans, 3 the stores and the end test,
+//   4 the barrier, 5 staging the codes and rings, 6 the ring write-back
+//   and the NEG rows; 7 warp-steps; 8 the CTAs' cycles (thread 0), 9
+//   their lattice steps, 10 CTAs that ran a step;
+//   walk (st_wfa_walk): 0 the log reads, 1 the state machine and the
+//   emit, 2 the staging of the batches below, 3 walk steps, 4 the warps'
+//   cycles, 5 walks.
 //
-// A part ends where the next one's first instruction consumes its result
-// (a branch on a value waits for its loads).  The stamps add a few
-// instructions a part; the parts' sum is near, not equal to, a step of the
-// kernel without them.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <climits>
-
-#include "wfa.cuh"
+// The stamps add a few instructions a part: the parts' sum is near, not
+// equal to, a step of the kernel without them.
+#include "wfa.cu"
 
 namespace {
 
@@ -36,273 +32,134 @@ __device__ __forceinline__ void use(int32_t v) {
   if (v == INT_MIN + 7) asm volatile("trap;");
 }
 
-struct ChunkArgs {
-  const int32_t* seq1;
-  const int32_t* seq2;
-  const int32_t* n1v;
-  const int32_t* n2v;
-  int32_t* ring_m;
-  int32_t* ring_i;
-  int32_t* ring_d;
-  int32_t* done;
-  int32_t* score;
-  int32_t* end_k;
-  int16_t* hist;
-  int B, L1, L2, K, R, k_lo, u0, n_steps, g, x_off, oe_off, e_off;
-  int lead1, lead2, trail1, trail2;
-  unsigned long long* st;
-};
+struct ClockStamps {
+  unsigned long long* out;
+  long long t0, last;
+  unsigned long long acc[7];
+  unsigned long long steps;
 
-// The PR 14 fill (csrc/wfa.cu at that commit), stamped.
-__global__ void __launch_bounds__(1024) chunk_stamped(ChunkArgs a) {
-  const int b = blockIdx.x;
-  if (a.done[b]) return;
-  extern __shared__ int8_t codes[];
-  int8_t* s1 = codes;
-  int8_t* s2 = codes + a.L1;
-  __shared__ int hit_lane;
-  const bool lead = (threadIdx.x & 31) == 0;
-  unsigned long long acc[6] = {0, 0, 0, 0, 0, 0};
-  const long long t_stage = stamp();
-  const int n1 = a.n1v[b], n2 = a.n2v[b];
-  const int32_t* q = a.seq1 + static_cast<int64_t>(b) * a.L1;
-  const int32_t* d = a.seq2 + static_cast<int64_t>(b) * a.L2;
-  for (int j = threadIdx.x; j < n1; j += blockDim.x) {
-    s1[j] = static_cast<int8_t>(q[j]);
+  __device__ void begin() {
+    t0 = last = stamp();
+    for (int p = 0; p < 7; ++p) acc[p] = 0;
+    steps = 0;
   }
-  for (int j = threadIdx.x; j < n2; j += blockDim.x) {
-    s2[j] = static_cast<int8_t>(d[j]);
+  __device__ void mark(int part, int32_t v = 0) {
+    use(v);
+    const long long t = stamp();
+    acc[part] += t - last;
+    last = t;
+    if (part == 4) ++steps;
   }
-  if (threadIdx.x == 0) hit_lane = INT_MAX;
-  __syncthreads();
-  const long long t_start = stamp();
-  acc[5] = t_start - t_stage;
-  const sa::WfaRing ring{a.ring_m, a.ring_i, a.ring_d, a.R, a.B, a.K, b};
-  int steps = 0;
-  for (int i = 0; i < a.n_steps; ++i) {
-    const int u = a.u0 + i;
-    const int slot = u % a.R;
-    bool hit = false;
-    long long t_e = stamp();
-    for (int lane = threadIdx.x; lane < a.K; lane += blockDim.x) {
-      const int32_t k = a.k_lo + lane;
-      int32_t m, iv, dv;
-      const long long t0 = stamp();
-      long long t1, t2;
-      if (u == 0) {
-        t1 = t0;
-        t2 = stamp();
-        m = sa::wfa_seed(s1, s2, n1, n2, k, a.lead1, a.lead2);
-        iv = dv = sa::kWfaNeg;
-      } else {
-        const int32_t m_x = sa::wfa_ring_at(ring.m, ring, u - a.x_off, lane);
-        const int32_t mo_l = sa::wfa_ring_at(ring.m, ring, u - a.oe_off,
-                                             lane - 1);
-        const int32_t ie_l = sa::wfa_ring_at(ring.i, ring, u - a.e_off,
-                                             lane - 1);
-        const int32_t mo_r = sa::wfa_ring_at(ring.m, ring, u - a.oe_off,
-                                             lane + 1);
-        const int32_t de_r = sa::wfa_ring_at(ring.d, ring, u - a.e_off,
-                                             lane + 1);
-        use(m_x ^ mo_l ^ ie_l ^ mo_r ^ de_r);
-        t1 = stamp();
-        iv = sa::imax(mo_l, ie_l);
-        iv = (iv > sa::kWfaNeg && sa::wfa_ok(iv, k, n1, n2)) ? iv : sa::kWfaNeg;
-        const int32_t d_src = sa::imax(mo_r, de_r);
-        dv = d_src > sa::kWfaNeg ? d_src + 1 : sa::kWfaNeg;
-        dv = sa::wfa_ok(dv, k, n1, n2) ? dv : sa::kWfaNeg;
-        int32_t mc = sa::imax(m_x > sa::kWfaNeg ? m_x + 1 : sa::kWfaNeg,
-                              sa::imax(iv, dv));
-        mc = sa::wfa_ok(mc, k, n1, n2) ? mc : sa::kWfaNeg;
-        use(mc);
-        t2 = stamp();
-        m = mc > sa::kWfaNeg ? sa::wfa_extend(s1, s2, n1, n2, k, mc)
-                             : sa::kWfaNeg;
-      }
-      use(m);
-      const long long t3 = stamp();
-      const int64_t r = (static_cast<int64_t>(slot) * a.B + b) * a.K + lane;
-      a.ring_m[r] = m;
-      a.ring_i[r] = iv;
-      a.ring_d[r] = dv;
-      a.hist[sa::wfa_log_index(i, 0, a.B, b, a.K, lane)] =
-          static_cast<int16_t>(m);
-      a.hist[sa::wfa_log_index(i, 1, a.B, b, a.K, lane)] =
-          static_cast<int16_t>(iv);
-      a.hist[sa::wfa_log_index(i, 2, a.B, b, a.K, lane)] =
-          static_cast<int16_t>(dv);
-      bool mask;
-      const int32_t end_t = sa::wfa_end_t(k, n1, n2, a.trail1, a.trail2, mask);
-      if (mask && m >= end_t) {
-        hit = true;
-        atomicMin(&hit_lane, lane);
-      }
-      t_e = stamp();
-      acc[0] += t1 - t0;
-      acc[1] += t2 - t1;
-      acc[2] += t3 - t2;
-      acc[3] += t_e - t3;
+  __device__ void finish(int ran) {
+    mark(6);
+    if ((threadIdx.x & 31) == 0) {
+      for (int p = 0; p < 7; ++p) atomicAdd(&out[p], acc[p]);
+      atomicAdd(&out[7], steps);
     }
-    const bool any = __syncthreads_or(hit);
-    acc[4] += stamp() - t_e;
-    ++steps;
-    if (any) {
-      if (threadIdx.x == 0) {
-        a.done[b] = 1;
-        a.score[b] = u * a.g;
-        a.end_k[b] = a.k_lo + hit_lane;
-      }
-      break;
+    if (threadIdx.x == 0 && ran > 0) {
+      atomicAdd(&out[8], static_cast<unsigned long long>(last - t0));
+      atomicAdd(&out[9], static_cast<unsigned long long>(ran));
+      atomicAdd(&out[10], 1ull);
     }
   }
-  if (lead) {
-    for (int p = 0; p < 6; ++p) atomicAdd(&a.st[p], acc[p]);
-    atomicAdd(&a.st[6], static_cast<unsigned long long>(steps));
-  }
-  if (threadIdx.x == 0) {
-    atomicAdd(&a.st[7], static_cast<unsigned long long>(stamp() - t_start));
-    atomicAdd(&a.st[8], static_cast<unsigned long long>(steps));
-    atomicAdd(&a.st[9], 1ull);
-  }
-}
-
-struct WalkArgs {
-  const int16_t* hist;
-  const int32_t* s0;
-  const int32_t* k0;
-  const int32_t* t0;
-  const int32_t* live;
-  const int32_t* budget;
-  uint32_t* packed;
-  int32_t* n_ops;
-  int32_t* ok;
-  int S, Bh, K, k_lo, g, B, x_pen, o_pen, e_pen, W;
-  unsigned long long* st;
 };
 
-// The PR 14 walk (wfa.cuh::wfa_walk_pair at that commit), stamped.
-__global__ void walk_stamped(WalkArgs a) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+struct StampedWalkWarp : WalkWarp {
+  long long last = 0;
+  unsigned long long acc[4] = {0, 0, 0, 0};
+
+  __device__ StampedWalkWarp(int16_t* s, uint64_t* bars,
+                             const CUtensorMap* map, int pair)
+      : WalkWarp(s, bars, map, pair), last(stamp()) {}
+
+  __device__ void mark(int part, int32_t v = 0) {
+    use(v);
+    const long long t = stamp();
+    acc[part] += t - last;
+    last = t;
+    if (part == 1) ++acc[3];
+  }
+};
+
+__global__ void __launch_bounds__(sa::kWfaWalkWarps * 32)
+    walk_stamped(WalkArgs a, const __grid_constant__ CUtensorMap tmap,
+                 unsigned long long* out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int warps = blockDim.x >> 5;
+  const int wid = threadIdx.x >> 5;
+  const int b = blockIdx.x * warps + wid;
+  if (b >= a.B) return;
   const long long t_begin = stamp();
-  unsigned long long acc[3] = {0, 0, 0};
-  if (b < a.B) {
-    uint32_t* out = a.packed + static_cast<int64_t>(b) * a.W;
-    int32_t s = a.s0[b], k = a.k0[b], t = a.t0[b];
-    const int32_t budget = a.budget[b];
-    a.n_ops[b] = 0;
-    int res = 0;
-    if (a.live[b] != 0) {
-      const int32_t oe = a.o_pen + a.e_pen;
-      sa::WfaEmit em{out, 0, 0};
-      int st = 0;
-      bool ok = false;
-      for (int64_t it = 0; it <= 2 * static_cast<int64_t>(budget) + 3; ++it) {
-        const int lane = k - a.k_lo;
-        const long long t0 = stamp();
-        long long t1;
-        ++acc[2];
-        if (st == 0) {
-          if (s == 0) {
-            if (t >= 0 && k == 0 && em.n + t <= budget) {
-              sa::wfa_emit(em, 1, t);
-              ok = true;
-            }
-            break;
-          }
-          const int32_t mx = sa::wfa_log_at(a.hist, a.S, a.Bh, a.K, b, a.g,
-                                            0, s - a.x_pen, lane);
-          const int32_t iv = sa::wfa_log_at(a.hist, a.S, a.Bh, a.K, b, a.g,
-                                            1, s, lane);
-          const int32_t dv = sa::wfa_log_at(a.hist, a.S, a.Bh, a.K, b, a.g,
-                                            2, s, lane);
-          use(mx ^ iv ^ dv);
-          t1 = stamp();
-          const int32_t mx1 = mx > sa::kWfaNeg ? mx + 1 : sa::kWfaNeg;
-          const int32_t t_pre = sa::imax(sa::imax(mx1, iv), dv);
-          const bool mis = mx > sa::kWfaNeg && t_pre == mx1;
-          const int32_t ln = t - t_pre + (mis ? 1 : 0);
-          if (ln < 0 || em.n + ln > budget) break;
-          sa::wfa_emit(em, 1, ln);
-          if (mis) {
-            s -= a.x_pen;
-            t = t_pre - 1;
-          } else {
-            t = t_pre;
-            st = t_pre == iv ? 1 : 2;
-          }
-        } else {
-          const bool ins = st == 1;
-          const int32_t mx = sa::wfa_log_at(a.hist, a.S, a.Bh, a.K, b, a.g,
-                                            0, s - oe, lane + (ins ? -1 : 1));
-          use(mx);
-          t1 = stamp();
-          if (em.n + 1 > budget) break;
-          sa::wfa_emit(em, ins ? 2u : 3u, 1);
-          const bool opn = ins ? mx == t : mx == t - 1;
-          s -= opn ? oe : a.e_pen;
-          k += ins ? -1 : 1;
-          if (!ins) t -= 1;
-          if (opn) st = 0;
-        }
-        use(s ^ t ^ k);
-        const long long t2 = stamp();
-        acc[0] += t1 - t0;
-        acc[1] += t2 - t1;
-      }
-      if ((em.n & 15) != 0) out[em.n >> 4] = em.word;
-      if (!ok) {
-        for (int32_t w = 0; w < (em.n + 15) >> 4; ++w) out[w] = 0;
-      } else {
-        a.n_ops[b] = em.n;
-        res = 1;
-      }
-    }
-    a.ok[b] = res;
-  }
-  for (int p = 0; p < 3; ++p) atomicAdd(&a.st[p], acc[p]);
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(&a.st[3], static_cast<unsigned long long>(stamp() - t_begin));
+  StampedWalkWarp ops(
+      reinterpret_cast<int16_t*>(smem + wid * kWalkSlotBytes),
+      reinterpret_cast<uint64_t*>(smem + warps * kWalkSlotBytes) +
+          wid * sa::kWfaSlots,
+      &tmap, b);
+  const int ok = sa::wfa_walk_staged(
+      ops, a.hist, a.S, a.Bh, a.K, b, a.k_lo, a.g, a.s0[b], a.k0[b], a.t0[b],
+      a.live[b] != 0, a.budget[b], a.x_pen, a.o_pen, a.e_pen,
+      a.packed + static_cast<size_t>(b) * a.W, &a.n_ops[b]);
+  if (ops.me == 0) {
+    a.ok[b] = ok;
+    for (int p = 0; p < 4; ++p) atomicAdd(&out[p], ops.acc[p]);
+    atomicAdd(&out[4], static_cast<unsigned long long>(stamp() - t_begin));
+    atomicAdd(&out[5], 1ull);
   }
 }
 
 }  // namespace
 
-// sa_wfa_chunk's arguments, then the stamps (10 u64, added to).
+// sa_wfa_chunk's arguments, then the stamps (11 u64, added to).
 extern "C" int st_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             const int32_t* n1v, const int32_t* n2v,
-                            int32_t* ring_m, int32_t* ring_i, int32_t* ring_d,
-                            int32_t* done, int32_t* score, int32_t* end_k,
-                            int16_t* hist, int B, int L1, int L2, int K, int R,
-                            int k_lo, int u0, int n_steps, int g, int x_off,
-                            int oe_off, int e_off, int lead1, int lead2,
-                            int trail1, int trail2, int lpt,
-                            unsigned long long* st, void* stream) {
+                            uint8_t* codes, int32_t* ring_m, int32_t* ring_i,
+                            int32_t* ring_d, int32_t* done, int32_t* score,
+                            int32_t* end_k, int16_t* hist, int B, int L1,
+                            int L2, int K, int R, int k_lo, int u0,
+                            int n_steps, int g, int x_off, int oe_off,
+                            int e_off, int lead1, int lead2, int trail1,
+                            int trail2, int lpt, int shared,
+                            unsigned long long* stamps, void* stream) {
+  const size_t smem = sa::wfa_code_pitch(L1) + sa::wfa_code_pitch(L2) +
+                      (shared ? 12 * R * (K + 2) : 0);
   int threads = (K + lpt - 1) / lpt;
   threads = (threads + 31) / 32 * 32;
   if (threads > 1024) threads = 1024;
-  const ChunkArgs a{seq1,  seq2,   n1v,     n2v,     ring_m, ring_i,
-                    ring_d, done,  score,   end_k,   hist,   B,
-                    L1,    L2,     K,       R,       k_lo,   u0,
-                    n_steps, g,    x_off,   oe_off,  e_off,  lead1,
-                    lead2, trail1, trail2,  st};
-  chunk_stamped<<<B, threads, static_cast<size_t>(L1) + L2,
-                  static_cast<cudaStream_t>(stream)>>>(a);
+  const ChunkArgs a{seq1,   seq2,   n1v,     n2v,    codes,
+                    {ring_m, ring_i, ring_d}, done,   score,  end_k,
+                    hist,   B,      L1,      L2,     K,      R,
+                    k_lo,   u0,     n_steps, g,      x_off,  oe_off,
+                    e_off,  lead1,  lead2,   trail1, trail2};
+  ClockStamps st{};
+  st.out = stamps;
+  auto kernel = shared ? wfa_chunk_kernel<true, ClockStamps>
+                       : wfa_chunk_kernel<false, ClockStamps>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       sa::kWfaSharedMax);
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(a, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// sa_wfa_walk's arguments, then the stamps (4 u64, added to).
+// sa_wfa_walk's arguments, then the stamps (6 u64, added to).
 extern "C" int st_wfa_walk(const int16_t* hist, int S, int Bh, int K,
                            int k_lo, int g, const int32_t* s0,
                            const int32_t* k0, const int32_t* t0,
                            const int32_t* live, const int32_t* budget, int B,
                            int x_pen, int o_pen, int e_pen, int W,
                            uint32_t* packed, int32_t* n_ops, int32_t* ok,
-                           unsigned long long* st, void* stream) {
+                           unsigned long long* stamps, void* stream) {
+  CUtensorMap map;
+  if (!walk_map(&map, hist, S, Bh, K, K < sa::kWfaWindow ? K
+                                                          : sa::kWfaWindow)) {
+    return -4;
+  }
   const WalkArgs a{hist, s0, k0, t0, live, budget, packed, n_ops, ok,
-                   S,    Bh, K,  k_lo, g,  B,      x_pen,  o_pen, e_pen, W,
-                   st};
-  constexpr int kThreads = 128;
-  walk_stamped<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+                   S,    Bh, K,  k_lo, g,  B,      x_pen,  o_pen, e_pen, W};
+  int warps = (B + sm_count() - 1) / sm_count();
+  warps = warps > sa::kWfaWalkWarps ? sa::kWfaWalkWarps : warps;
+  const size_t smem = static_cast<size_t>(warps) *
+                      (kWalkSlotBytes + 8 * sa::kWfaSlots);
+  walk_stamped<<<(B + warps - 1) / warps, warps * 32, smem,
+                 static_cast<cudaStream_t>(stream)>>>(a, map, stamps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,11 +22,14 @@ Two implementations of a chunk, chosen by the tensors' device:
   (B, K), its extension read from a run-length table (CPU tensors, and the
   yardstick of the kernel);
 * ``wfa_chunk_cuda`` -- the hand-written kernel (``csrc/wfa.cu``; CUDA
-  tensors only): a CTA a pair, a thread a diagonal, the extension comparing
-  the pair's codes staged in shared memory.
+  tensors only): a CTA a pair, a thread a diagonal, the rings in shared
+  memory for the launch (in device memory past the budget,
+  ``ring_in_shared``), the extension comparing the pair's codes packed as
+  bytes a word at a time, a run past its first word taken by the warp.
 
 The walk back from each pair's end over the log has two implementations
-too, ``wfa_walk_torch`` and ``wfa_walk_cuda`` (a thread a pair), emitting
+too, ``wfa_walk_torch`` and ``wfa_walk_cuda`` (a warp a pair over log rows
+staged in shared memory), emitting
 the port's packed 2-bit op codes (ops.traceback_device) for the native
 decoder.  The JAX device walk emits run-length pairs whose uint16 cast
 wraps runs past 65535 (ops/wfa.py:855-857 there); the port does not copy
@@ -57,6 +60,8 @@ S_CHUNK = 256
 # lanes out of bounds.
 BIG = 2 ** 14
 _M, _I, _D = 1, 2, 3  # the port's walk op codes (ops.traceback_device)
+# Dynamic shared memory a fill CTA may take (csrc/wfa.cuh kWfaSharedMax).
+WFA_SHARED_MAX = 227 * 1024 - 1024
 
 
 def _score_stride(penalties: WfaPenalties) -> int:
@@ -166,7 +171,9 @@ class WfaFill(NamedTuple):
     """One batch's wavefront fill on a device.  seq1/seq2: (B, L1) / (B,
     L2) int32 codes; n1v/n2v: (B,) int32 lengths; ring_m/i/d: (R, B, K)
     int32 offsets of the last R lattice steps; done, score, end_k: (B,)
-    int32 (updated in place by every chunk)."""
+    int32 (updated in place by every chunk); codes: (B, code_pitch(L1) +
+    code_pitch(L2)) uint8, the codes packed by the kernel's seed launch
+    for the launches after it (the plain fill reads none)."""
 
     seq1: torch.Tensor
     seq2: torch.Tensor
@@ -181,6 +188,27 @@ class WfaFill(NamedTuple):
     k_lo: int
     penalties: WfaPenalties
     spans: Tuple[int, int, int, int]
+    codes: torch.Tensor
+
+
+def code_pitch(L: int) -> int:
+    """Bytes of one sequence in a pair's packed codes (csrc/wfa.cuh
+    wfa_code_pitch): L padded by 8 and rounded up to 16."""
+    return (L + 8 + 15) // 16 * 16
+
+
+def fill_shared_bytes(L1: int, L2: int, K: int, R: int,
+                      shared_ring: bool) -> int:
+    """A fill CTA's dynamic shared memory: the packed codes, and with
+    shared_ring the three planes' R rings of K lanes and two guard lanes."""
+    return code_pitch(L1) + code_pitch(L2) + (
+        12 * R * (K + 2) if shared_ring else 0)
+
+
+def ring_in_shared(L1: int, L2: int, K: int, R: int) -> bool:
+    """The fill kernel's route, by shape: the rings in shared memory where
+    they fit WFA_SHARED_MAX beside the codes, else in device memory."""
+    return fill_shared_bytes(L1, L2, K, R, True) <= WFA_SHARED_MAX
 
 
 def wfa_fill_state(seq1, seq2, n1v, n2v, k_lo: int, K: int,
@@ -201,7 +229,9 @@ def wfa_fill_state(seq1, seq2, n1v, n2v, k_lo: int, K: int,
         torch.zeros(B, dtype=torch.int32, device=dev),
         torch.full((B,), -1, dtype=torch.int32, device=dev),
         (n1v - n2v).to(torch.int32), int(k_lo), penalties,
-        tuple(int(v) for v in spans))
+        tuple(int(v) for v in spans),
+        torch.empty((B, code_pitch(seq1.shape[1]) + code_pitch(
+            seq2.shape[1])), dtype=torch.uint8, device=dev))
 
 
 def _end_targets(n1v, n2v, kv, spans):
@@ -262,6 +292,11 @@ def _check_chunk_args(f: WfaFill, u0: int, n_steps: int):
             or f.seq1.shape[0] != B or K % 32:
         raise ValueError("WFA fill state does not match its penalties or "
                          "batch (K a multiple of 32)")
+    if f.codes.dtype != torch.uint8 or f.codes.device != f.seq1.device \
+            or tuple(f.codes.shape) != (B, code_pitch(f.seq1.shape[1])
+                                        + code_pitch(f.seq2.shape[1])):
+        raise ValueError("WFA fill codes must be (B, code_pitch(L1) + "
+                         "code_pitch(L2)) uint8 on the fill's device")
 
 
 def wfa_chunk_torch(f: WfaFill, u0: int, n_steps: int,
@@ -359,31 +394,38 @@ def fill_lanes_per_thread(K: int, lanes_per_thread: int = 0) -> int:
 
 
 def wfa_chunk_cuda(f: WfaFill, u0: int, n_steps: int,
-                   lanes_per_thread: int = 0) -> torch.Tensor:
+                   lanes_per_thread: int = 0,
+                   shared_ring: Optional[bool] = None) -> torch.Tensor:
     """The fill kernel (csrc/wfa.cu) on CUDA tensors: the same steps, state
-    updates and log as wfa_chunk_torch, a CTA a pair (a converged pair's
-    CTA returns at once).  lanes_per_thread > 0 forces the lanes a thread
-    (tests and tools).  Returns without waiting for the
+    updates and log as wfa_chunk_torch, a CTA a pair, every log row written
+    by the kernel (a converged pair's NEG).  The launch at u0 == 0 packs
+    the codes into f.codes; the fill's later launches read them there, so
+    a fill's chunks follow its seed (fill_chunks).  lanes_per_thread > 0
+    forces the lanes a thread, shared_ring the rings' route (tests and
+    tools; None: ring_in_shared).  Returns without waiting for the
     kernel; raises on a CPU tensor or a failed launch."""
     _check_chunk_args(f, u0, n_steps)
     if not f.seq1.is_cuda:
         raise ValueError("wfa_chunk_cuda needs CUDA tensors")
     R, B, K = f.ring_m.shape
+    L1, L2 = f.seq1.shape[1], f.seq2.shape[1]
     lpt = fill_lanes_per_thread(K, lanes_per_thread)
+    if shared_ring is None:
+        shared_ring = ring_in_shared(L1, L2, K, R)
     g = _score_stride(f.penalties)
     x_off, oe_off, e_off = lattice_offsets(f.penalties)
     dev = f.seq1.device
-    hist = torch.full((n_steps, 3, B, K), NEG, dtype=torch.int16, device=dev)
+    hist = torch.empty((n_steps, 3, B, K), dtype=torch.int16, device=dev)
     lib = csrc.kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sa_wfa_chunk(
             f.seq1.data_ptr(), f.seq2.data_ptr(), f.n1v.data_ptr(),
-            f.n2v.data_ptr(), f.ring_m.data_ptr(), f.ring_i.data_ptr(),
-            f.ring_d.data_ptr(), f.done.data_ptr(), f.score.data_ptr(),
-            f.end_k.data_ptr(), hist.data_ptr(), B, f.seq1.shape[1],
-            f.seq2.shape[1], K, R, f.k_lo, u0, n_steps, g, x_off, oe_off,
-            e_off, *f.spans, lpt, stream)
+            f.n2v.data_ptr(), f.codes.data_ptr(), f.ring_m.data_ptr(),
+            f.ring_i.data_ptr(), f.ring_d.data_ptr(), f.done.data_ptr(),
+            f.score.data_ptr(), f.end_k.data_ptr(), hist.data_ptr(), B, L1,
+            L2, K, R, f.k_lo, u0, n_steps, g, x_off, oe_off, e_off,
+            *f.spans, lpt, int(shared_ring), stream)
     if rc != 0:
         raise csrc.launch_error("sa_wfa_chunk", rc)
     wfa_chunk_cuda.launches += 1
@@ -444,23 +486,20 @@ def wfa_textbook_batch(
 
 def fill_chunks(f: WfaFill, s_max: int, chunk) -> List[torch.Tensor]:
     """The fill's chunk loop: the seed (u = 0), then chunks of S_CHUNK
-    lattice steps from u = 1 while u stays below s_max / g, queued four at
-    a time; after each group the done flags of the previous group are read
-    (one host sync a group) while the new group runs, and the loop stops
-    once they all hold (a chunk costs nearly nothing once its pairs have
-    converged).  chunk(f, u0, n_steps) runs one chunk and returns its log.
-    Returns the logs in order."""
+    lattice steps from u = 1 while u stays below s_max / g, one queued
+    ahead: after queuing a chunk the done flags left by the one before it
+    are read (one host sync a chunk, the new chunk running meanwhile), and
+    the loop stops once they all hold, so at most one chunk runs after
+    convergence (it only writes NEG rows).  chunk(f, u0, n_steps) runs one
+    chunk and returns its log.  Returns the logs in order."""
     g = _score_stride(f.penalties)
     chunks = [chunk(f, 0, 1)]
     u = 1
     u_max = (s_max + g - 1) // g
     prev_done = None
     while u < u_max:
-        for _ in range(4):
-            if u >= u_max:
-                break
-            chunks.append(chunk(f, u, S_CHUNK))
-            u += S_CHUNK
+        chunks.append(chunk(f, u, S_CHUNK))
+        u += S_CHUNK
         if prev_done is not None and bool(prev_done.all()):
             break
         prev_done = f.done.clone()
@@ -724,9 +763,11 @@ def wfa_walk_torch(hist, seeds: WfaWalkSeeds, k_lo: int, g: int,
 def wfa_walk_cuda(hist, seeds: WfaWalkSeeds, k_lo: int, g: int,
                   penalties: WfaPenalties, W: int):
     """The walk kernel (csrc/wfa.cu) on CUDA tensors: the results of
-    wfa_walk_torch, a thread a pair (the codes of a pair whose walk is not
-    ok are 0).  Returns without waiting; raises on a CPU tensor, a
-    non-contiguous log or a failed launch."""
+    wfa_walk_torch, a warp a pair over log rows staged in shared memory
+    (the codes of a pair whose walk is not ok are 0).  Returns without
+    waiting; raises on a CPU tensor, a non-contiguous log, a band of fewer
+    than 32 lanes or not a multiple of 8 (the fill's are multiples of 32),
+    or a failed launch."""
     _check_walk_args(hist, seeds, W)
     if not hist.is_cuda:
         raise ValueError("wfa_walk_cuda needs CUDA tensors")
@@ -734,6 +775,9 @@ def wfa_walk_cuda(hist, seeds: WfaWalkSeeds, k_lo: int, g: int,
             t.is_contiguous() for t in seeds):
         raise ValueError("walk inputs must be contiguous")
     S, _, Bh, K = hist.shape
+    if K < 32 or K % 8 or hist.data_ptr() % 16:
+        raise ValueError(f"wfa_walk_cuda needs a 16-byte aligned log of K "
+                         f">= 32 lanes, a multiple of 8, got K {K}")
     B = seeds.s0.shape[0]
     dev = hist.device
     packed = torch.zeros((B, W), dtype=torch.uint32, device=dev)
@@ -747,6 +791,9 @@ def wfa_walk_cuda(hist, seeds: WfaWalkSeeds, k_lo: int, g: int,
             *(t.data_ptr() for t in seeds), B, penalties.mismatch,
             penalties.gap_open, penalties.gap_extend, W, packed.data_ptr(),
             n_ops.data_ptr(), ok.data_ptr(), stream)
+    if rc == -4:
+        raise RuntimeError("sa_wfa_walk: the driver could not make the log's "
+                           "tensor map")
     if rc != 0:
         raise csrc.launch_error("sa_wfa_walk", rc)
     wfa_walk_cuda.launches += 1

@@ -1889,24 +1889,55 @@ def _wfa_batch(seed, n, hi):
                                        * 8), "cpu")
 
 
-def _host_wfa_chunk(host, f, u0, n_steps, lpt):
-    """hc_wfa_chunk on a fill state (the kernel's schedule run serially):
-    the chunk's log; f's per-pair results updated in place."""
+def _host_wfa_chunk(host, f, u0, n_steps, lpt, shared=None, rc_only=False):
+    """hc_wfa_chunk on a fill state (the kernel's schedule run serially;
+    shared: the rings' route, None as the wrapper picks it by shape): the
+    chunk's log, every row written over a poisoned buffer; f's per-pair
+    results updated in place.  rc_only: the return code alone."""
     from sequencealigning_tpu_torch.ops import wfa
 
     R, B, K = f.ring_m.shape
-    hist = torch.full((n_steps, 3, B, K), wfa.NEG, dtype=torch.int16)
+    L1, L2 = f.seq1.shape[1], f.seq2.shape[1]
+    if shared is None:
+        shared = wfa.ring_in_shared(L1, L2, K, R)
+    hist = torch.full((n_steps, 3, B, K), 0x5A5A, dtype=torch.int16)
     rc = host.hc_wfa_chunk(
-        *(t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.ring_m,
-                                 f.ring_i, f.ring_d, f.done, f.score,
-                                 f.end_k, hist)),
-        B, f.seq1.shape[1], f.seq2.shape[1], K, R, f.k_lo, u0, n_steps,
+        *(t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.codes,
+                                 f.ring_m, f.ring_i, f.ring_d, f.done,
+                                 f.score, f.end_k, hist)),
+        B, L1, L2, K, R, f.k_lo, u0, n_steps,
         wfa._score_stride(f.penalties), *wfa.lattice_offsets(f.penalties),
-        *f.spans, lpt)
+        *f.spans, lpt, int(shared))
+    if rc_only:
+        return rc
     assert rc == 0
     return hist
 
 
+def _assert_chunks_equal(host, fk, fp, steps, lpt=1, shared=None):
+    """The host schedule (fk) against wfa_chunk_torch (fp) chunk by chunk
+    from the seed over `steps` ((u0, n) a launch): every log row, done,
+    score and end_k equal, and the rings of the pairs still running (the
+    carry; the kernel keeps a pair's rings as they were at its
+    convergence, the plain fill writes NEG rows on)."""
+    from sequencealigning_tpu_torch.ops import wfa
+
+    runlen = wfa.build_runlen(fp)
+    for u0, n in steps:
+        want = wfa.wfa_chunk_torch(fp, u0, n, runlen)
+        got = _host_wfa_chunk(host, fk, u0, n, lpt, shared)
+        assert torch.equal(got, want), (u0, n)
+        for a, b in zip(fk[7:10], fp[7:10]):
+            assert torch.equal(a, b)
+        live = fk.done == 0
+        for a, b in zip(fk[4:7], fp[4:7]):
+            assert torch.equal(a[:, live], b[:, live]), (u0, n)
+
+
+_CHUNK_STEPS = ((0, 1), (1, 37), (38, 5), (43, 400))
+
+
+@pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("lpt", [1, 2, 4])
 @pytest.mark.parametrize("pen,band,spans", [
     ((4, 2, 6), 8, (0, 0, 0, 0)),
@@ -1914,13 +1945,15 @@ def _host_wfa_chunk(host, f, u0, n_steps, lpt):
     ((4, 2, 6), 6, (0, 5, 0, 5)),
     ((4, 2, 6), 2, (3, 0, 0, 7)),
     ((3, 1, 0), 8, (0, 0, 0, 0)),
+    ((0, 2, 6), 8, (0, 0, 0, 0)),
 ])
-def test_host_wfa_chunk_matches_plain(host, pen, band, spans, lpt):
+def test_host_wfa_chunk_matches_plain(host, pen, band, spans, lpt, shared):
     """The fill kernel's lanes and steps (wfa.cuh through hc_wfa_chunk),
-    lpt lanes a thread forced, against wfa_chunk_torch chunk by chunk from
-    the seed (u = 0) over uneven chunk lengths: every log row, done, score
-    and end_k equal (the rings are no contract: the kernel stops writing a
-    pair's rows once it converged)."""
+    lpt lanes a thread forced, the rings in shared memory or in device
+    memory, against wfa_chunk_torch chunk by chunk from the seed (u = 0)
+    over uneven chunk lengths: every log row (the kernel writes the NEG
+    ones too), done, score, end_k and the running pairs' rings equal;
+    zero mismatch and extend penalties read the slot rl steps back."""
     from sequencealigning_tpu_torch.config import WfaPenalties
     from sequencealigning_tpu_torch.ops import wfa
 
@@ -1929,13 +1962,71 @@ def test_host_wfa_chunk_matches_plain(host, pen, band, spans, lpt):
                             spans)
     fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties(*pen), spans)
     fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties(*pen), spans)
-    runlen = wfa.build_runlen(fp)
-    for u0, n in ((0, 1), (1, 37), (38, 5), (43, 400)):
-        want = wfa.wfa_chunk_torch(fp, u0, n, runlen)
-        got = _host_wfa_chunk(host, fk, u0, n, lpt)
-        assert torch.equal(got, want), (u0, n)
-        for a, b in zip(fk[7:10], fp[7:10]):
-            assert torch.equal(a, b)
+    _assert_chunks_equal(host, fk, fp, _CHUNK_STEPS, lpt, shared)
+    assert bool(fk.done.all())
+
+
+def _run_pairs(seed):
+    """Pairs of at most 256 bp whose match runs pass a word and a warp's
+    span (128 codes): identical pairs, one mismatch after 130-250 bp, one
+    side a prefix of the other (a run stopped by n1 or n2 mid-word), runs
+    ending at every offset of a word."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for i in range(12):
+        ref = rng.choice(alpha, int(rng.integers(200, 257)))
+        mut = ref.copy()
+        if i % 3 == 0:
+            p = int(rng.integers(130, len(ref)))
+            mut[p] = alpha[(np.flatnonzero(alpha == mut[p])[0] + 1) % 4]
+        elif i % 3 == 1:
+            mut = mut[: len(mut) - 1 - i]
+        pairs.append((mut.tobytes(), ref.tobytes()) if i % 2 else
+                     (ref.tobytes(), mut.tobytes()))
+    for n in range(1, 9):
+        pairs.append((b"ACGTTGCA"[:n] + b"T", b"ACGTTGCA"[:n] + b"G"))
+    return pairs
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("spans", [(0, 0, 0, 0), (4, 4, 6, 6)])
+def test_host_wfa_chunk_long_and_stopped_runs(host, spans, shared):
+    """Runs longer than a word and than a warp's span, runs cut by n1 or
+    n2 mid-word, in the seed and in later steps: equal to the plain fill."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs = _run_pairs(5)
+    tb = to_device(pack_batch(pairs, batch_size=24), "cpu")
+    k_lo, K = wfa.band_plan(tb.query_len.numpy(), tb.db_len.numpy(), 8,
+                            spans)
+    fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties(), spans)
+    fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties(), spans)
+    _assert_chunks_equal(host, fk, fp, _CHUNK_STEPS, 1, shared)
+    assert bool(fk.done.all())
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_host_wfa_chunk_codes_outside_acgt(host, shared):
+    """Codes outside ACGT (0, 7, 15, 200, 255) compare as plain equality
+    once packed to bytes, as the plain fill compares them."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    rng = np.random.default_rng(6)
+    codes = np.array([0, 7, 15, 200, 255, 1, 2], np.int32)
+    B, L = 8, 120
+    s1 = rng.choice(codes, (B, L)).astype(np.int32)
+    s2 = s1.copy()
+    s2[:, ::17] = rng.choice(codes, s2[:, ::17].shape)
+    n1 = rng.integers(60, L + 1, B).astype(np.int32)
+    n2 = rng.integers(60, L + 1, B).astype(np.int32)
+    tb = [torch.from_numpy(a) for a in (s1, s2, n1, n2)]
+    k_lo, K = wfa.band_plan(n1, n2, 8, (0, 0, 0, 0))
+    fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    _assert_chunks_equal(host, fk, fp, _CHUNK_STEPS, 1, shared)
     assert bool(fk.done.all())
 
 
@@ -1953,13 +2044,37 @@ def test_host_wfa_chunk_past_1024_lanes(host):
     fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
     want = wfa.wfa_chunk_torch(fp, 0, 1)
     want = torch.cat([want, wfa.wfa_chunk_torch(fp, 1, 300)])
-    for lpt in (2, 4, 8):
+    for lpt, shared in ((2, True), (4, True), (8, True), (2, False),
+                        (8, False)):
         fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
-        got = torch.cat([_host_wfa_chunk(host, fk, 0, 1, lpt),
-                         _host_wfa_chunk(host, fk, 1, 300, lpt)])
+        got = torch.cat([_host_wfa_chunk(host, fk, 0, 1, lpt, shared),
+                         _host_wfa_chunk(host, fk, 1, 300, lpt, shared)])
         assert torch.equal(got, want)
         assert torch.equal(fk.score, fp.score)
         assert torch.equal(fk.end_k, fp.end_k)
+
+
+def test_host_wfa_chunk_past_the_shared_budget(host):
+    """A band whose rings pass the shared-memory budget (K 3328 at the
+    default penalties' 6 ring rows): the wrapper's rule routes it to the
+    rings in device memory, whose schedule equals the plain fill; the
+    shared route refuses that shape."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs, tb = _wfa_batch(82, 5, 120)
+    k_lo, K = wfa.band_plan(tb.query_len.numpy(), tb.db_len.numpy(), 1600,
+                            (0, 0, 0, 0))
+    L1, L2 = tb.query.shape[1], tb.db.shape[1]
+    R = wfa.ring_rows(WfaPenalties())
+    assert K > 3200 and not wfa.ring_in_shared(L1, L2, K, R)
+    assert wfa.ring_in_shared(L1, L2, 1152, R)
+    assert wfa.fill_shared_bytes(L1, L2, K, R, True) > wfa.WFA_SHARED_MAX
+    fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    lpt = wfa.fill_lanes_per_thread(K)
+    assert _host_wfa_chunk(host, fk, 0, 1, lpt, True, rc_only=True) == -1
+    _assert_chunks_equal(host, fk, fp, ((0, 1), (1, 300)), lpt)
 
 
 def test_host_wfa_chunk_refuses_bad_shapes(host):
@@ -1970,13 +2085,13 @@ def test_host_wfa_chunk_refuses_bad_shapes(host):
     f = wfa.wfa_fill_state(*tb, -64, 128, WfaPenalties())
     R = f.ring_m.shape[0]
     hist = torch.zeros((1, 3, 8, 128), dtype=torch.int16)
-    base = [t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.ring_m,
-                                   f.ring_i, f.ring_d, f.done, f.score,
-                                   f.end_k, hist)]
+    base = [t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.codes,
+                                   f.ring_m, f.ring_i, f.ring_d, f.done,
+                                   f.score, f.end_k, hist)]
     ok = [8, f.seq1.shape[1], f.seq2.shape[1], 128, R, -64, 0, 1, 2, 2, 4, 3,
-          0, 0, 0, 0, 1]
+          0, 0, 0, 0, 1, 1]
     assert host.hc_wfa_chunk(*base, *ok) == 0
-    for i, bad in ((16, 0), (9, R), (11, 0), (3, 2048)):
+    for i, bad in ((16, 0), (9, R), (11, 0), (3, 2048), (3, 96 + 16)):
         args = list(ok)
         args[i] = bad
         assert host.hc_wfa_chunk(*base, *args) == -1, (i, bad)
@@ -2032,31 +2147,100 @@ def test_host_wfa_walk_matches_plain(host, pen, band, s_max):
             res.converged[: len(pairs)]))
 
 
-def test_host_wfa_walk_budget_and_bad_seeds(host):
-    """A budget one op short (not ok, codes 0) and walks seeded off their
-    pairs' ends: the host build and the plain walk alike."""
+def _gapped_wfa_pairs(seed, n=10):
+    """Pairs of at most 256 bp, each mutant carrying a 40-60 bp insertion
+    or deletion (its walk leaves a staged window of 64 lanes) and a few
+    substitutions."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for i in range(n):
+        ref = rng.choice(alpha, int(rng.integers(150, 197)))
+        mut = ref.copy()
+        for _ in range(3):
+            mut[rng.integers(len(mut))] = rng.choice(alpha)
+        g = int(rng.integers(40, 61))
+        p = int(rng.integers(20, len(mut) - g - 20))
+        mut = (np.concatenate([mut[:p], mut[p + g:]]) if i % 2 else
+               np.concatenate([mut[:p], rng.choice(alpha, g), mut[p:]]))
+        pairs.append((mut.tobytes(), ref.tobytes()))
+    return pairs
+
+
+@pytest.mark.parametrize("pen", [(4, 2, 6), (1, 5, 1), (9, 2, 2),
+                                 (20, 10, 1)])
+def test_host_wfa_walk_long_gaps(host, pen):
+    """Walks across 40-60 bp gaps over many staged batches, M runs
+    crossing word boundaries, and (20/10/1: a mismatch 20 rows back) reads
+    below the staged batches, loaded from the log: the host build of the
+    staged schedule equals the plain walk, and every walk decodes to the
+    host walker's strings."""
     from sequencealigning_tpu_torch.config import WfaPenalties
     from sequencealigning_tpu_torch.ops import wfa
 
-    pairs, tb = _wfa_batch(95, 6, 80)
+    pairs = _gapped_wfa_pairs(96)
+    tb = to_device(pack_batch(pairs, batch_size=16), "cpu")
+    p = WfaPenalties(*pen)
+    res = wfa.wfa_textbook_batch(*tb, penalties=p, band=64)
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    seeds = wfa.walk_seeds(res, s1s, s2s, "cpu")
+    W = wfa.walk_width(int(seeds.budget.max()))
+    hist = res.device_hist()
+    assert hist.shape[0] > 3 * 8  # more rows than the ring of batches
+    want = wfa.wfa_walk_torch(hist, seeds, res.k_lo, res.stride, p, W)
+    got = _host_wfa_walk(host, hist, seeds, res.k_lo, res.stride, p, W)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[2].all())
+    alns = walk.decode_packed_alignments(got[0].numpy(), s1s, s2s)
+    for b in range(len(pairs)):
+        assert alns[b] == wfa.wfa_traceback_host(res, b, *pairs[b], p)[1:]
+
+
+@pytest.mark.parametrize("batch", ["ragged", "gapped"])
+def test_host_wfa_walk_budget_and_bad_seeds(host, batch):
+    """Budgets one op short (not ok, codes 0), cut inside an M run and on a
+    word boundary, and walks seeded off their pairs' ends, off the lattice
+    (an odd score at stride 2), past the log's rows, off the band or at a
+    negative offset: the host build and the plain walk alike, on ragged
+    pairs and on pairs with 40-60 bp gaps and long runs."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    if batch == "ragged":
+        pairs, tb = _wfa_batch(95, 6, 80)
+        band = 8
+    else:
+        pairs = _gapped_wfa_pairs(97, n=6) + _run_pairs(7)[:6]
+        tb = to_device(pack_batch(pairs, batch_size=16), "cpu")
+        band = 64
     p = WfaPenalties()
-    res = wfa.wfa_textbook_batch(*tb, penalties=p, band=8)
+    res = wfa.wfa_textbook_batch(*tb, penalties=p, band=band)
     s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
     seeds = wfa.walk_seeds(res, s1s, s2s, "cpu")
     W = wfa.walk_width(int(seeds.budget.max()))
     hist = res.device_hist()
     full = wfa.wfa_walk_torch(hist, seeds, res.k_lo, res.stride, p, W)
-    short = seeds._replace(budget=full[1] - 1)
     assert bool(full[2].all())
+    n = full[1]
+    S, K = hist.shape[0], hist.shape[3]
     t0 = seeds.t0.clone()
     t0[::2] += 1
     k0 = seeds.k0.clone()
     k0[1::2] -= 3
-    for i, sd in enumerate((short, seeds._replace(t0=t0),
-                            seeds._replace(k0=k0))):
+    far = torch.where(torch.arange(len(pairs)) % 2 == 0, res.k_lo - 3,
+                      res.k_lo + K + 2).to(torch.int32)
+    cases = (seeds._replace(budget=n - 1), seeds._replace(t0=t0),
+             seeds._replace(k0=k0), seeds._replace(budget=n - 7),
+             seeds._replace(budget=n - 1 - (n - 1) % 16),
+             seeds._replace(s0=seeds.s0 + 1),
+             seeds._replace(s0=torch.full_like(seeds.s0, 2 * S + 4)),
+             seeds._replace(k0=far), seeds._replace(t0=-seeds.t0))
+    for i, sd in enumerate(cases):
         want = wfa.wfa_walk_torch(hist, sd, res.k_lo, res.stride, p, W)
         got = _host_wfa_walk(host, hist, sd, res.k_lo, res.stride, p, W)
         for a, b in zip(got, want):
-            assert torch.equal(a, b)
+            assert torch.equal(a, b), i
+        assert not got[0][~got[2]].any(), i
         if i == 0:
             assert not bool(want[2].any()) and not bool(want[0].any())
