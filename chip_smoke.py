@@ -3375,16 +3375,14 @@ def wfa_fill_run(torch, wfa, tb, band, pen, spans=(0, 0, 0, 0), kernel=True,
 
 def wfa_fill_diff(torch, wfa, got, want):
     """The largest difference between two fills: score, converged and
-    end_k of every pair, and the log's rows up to the batch's deepest
-    score (every row a pair computed; the rows after its convergence are
+    end_k of every pair, and every row of every chunk's log (the rows
+    after a pair's convergence, and the chunks queued after the batch's,
     NEG in both)."""
     (fa, ca), (fb, cb) = got, want
     err = max(int((getattr(fa, n) - getattr(fb, n)).abs().max())
               for n in ("score", "done", "end_k"))
-    g = wfa._score_stride(fa.penalties)
-    rows = int(fa.score.max()) // g + 1
-    ha = torch.cat(ca)[:rows].to(torch.int32)
-    hb = torch.cat(cb)[:rows].to(torch.int32)
+    ha = torch.cat(ca).to(torch.int32)
+    hb = torch.cat(cb).to(torch.int32)
     if ha.shape != hb.shape:
         return max(err, 1 << 15)
     return max(err, int((ha - hb).abs().max()))

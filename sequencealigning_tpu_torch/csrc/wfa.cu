@@ -309,16 +309,26 @@ __global__ void __launch_bounds__(1024)
       }
     }
   }
-  // The rows this pair did not compute: NEG, 8 lanes a store.
-  const int per = K / 8;
-  const int n = (a.n_steps - i_neg) * 3 * per;
+  // The rows this pair did not compute: NEG, 8 lanes a 16-byte store, the
+  // threads striding over (row-plane, store) without a division a store.
+  const int per = K / 8;  // stores a row-plane
   const uint4 neg4 = make_uint4(0xC000C000u, 0xC000C000u, 0xC000C000u,
                                 0xC000C000u);
-  for (int j = tid; j < n; j += T) {
-    const int seg = j / per;
-    uint4* row = reinterpret_cast<uint4*>(
-        a.hist + sa::wfa_log_index(i_neg + seg / 3, seg % 3, a.B, b, K, 0));
-    row[j % per] = neg4;
+  const uint4* const end = reinterpret_cast<const uint4*>(
+      a.hist + sa::wfa_log_index(a.n_steps, 0, a.B, b, K, 0));
+  const size_t stride = static_cast<size_t>(a.B) * per;  // between row-planes
+  const int dseg = T / per, doff = T % per;
+  uint4* seg = reinterpret_cast<uint4*>(
+                   a.hist + sa::wfa_log_index(i_neg, 0, a.B, b, K, 0)) +
+               static_cast<size_t>(tid / per) * stride;
+  for (int off = tid % per; seg < end;) {
+    seg[off] = neg4;
+    seg += dseg * stride;
+    off += doff;
+    if (off >= per) {
+      off -= per;
+      seg += stride;
+    }
   }
   st.finish(i_neg);
 }
