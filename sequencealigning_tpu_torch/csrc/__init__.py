@@ -202,7 +202,7 @@ def kernels() -> ctypes.CDLL:
     lib.sa_wfa_chunk.argtypes = [_VP] * 12 + [_INT] * 18 + [_VP]
     lib.sa_wfa_walk.restype = _INT
     lib.sa_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
-        _INT] * 5 + [_VP] * 4
+        _INT] * 5 + [_VP] * 3 + [_INT, _VP]
     _kernels = lib
     return lib
 
@@ -342,6 +342,6 @@ def host_check() -> ctypes.CDLL:
     lib.hc_wfa_chunk.argtypes = [_VP] * 12 + [_INT] * 18
     lib.hc_wfa_walk.restype = _INT
     lib.hc_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
-        _INT] * 5 + [_VP] * 3
+        _INT] * 5 + [_VP] * 3 + [_INT]
     _host = lib
     return lib

@@ -1611,8 +1611,10 @@ extern "C" int hc_wfa_walk(const int16_t* hist, int S, int Bh, int K,
                            const int32_t* k0, const int32_t* t0,
                            const int32_t* live, const int32_t* budget, int B,
                            int x_pen, int o_pen, int e_pen, int W,
-                           uint32_t* packed, int32_t* n_ops, int32_t* ok) {
-  if (B <= 0 || B > Bh || S <= 0 || K < 32 || K % 8 || W <= 0 || g <= 0) {
+                           uint32_t* packed, int32_t* n_ops, int32_t* ok,
+                           int sms) {
+  if (B <= 0 || B > Bh || S <= 0 || K < 32 || K % 8 || W <= 0 || g <= 0 ||
+      sms <= 0) {
     return -1;
   }
   for (int b = 0; b < B; ++b) {

@@ -1033,7 +1033,7 @@ def _stamp_lib(csrc):
     lib.st_wfa_chunk.argtypes = [vp] * 12 + [i] * 18 + [vp, vp]
     lib.st_wfa_walk.restype = i
     lib.st_wfa_walk.argtypes = [vp] + [i] * 5 + [vp] * 5 + [i] * 5 + [
-        vp] * 3 + [vp, vp]
+        vp] * 3 + [i, vp, vp]
     return lib
 
 
@@ -1060,6 +1060,7 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
     pen = WfaPenalties()
     g = wfa._score_stride(pen)
     stream = torch.cuda.current_stream().cuda_stream
+    sms = wfa.sm_count(torch.device("cuda"))
     ghz = _clock_ghz()
     print(f"wfa stamps: SM clock {ghz:.3f} GHz under load", flush=True)
     out = []
@@ -1087,8 +1088,7 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
                                          hist)),
                 B, L1, L2, K, R, k_lo, u0, n, g, *wfa.lattice_offsets(pen),
                 0, 0, 0, 0, wfa.fill_lanes_per_thread(K),
-                int(wfa.ring_in_shared(L1, L2, K, R)), st.data_ptr(),
-                stream)
+                int(wfa.ring_in_shared(L1, L2, K, R)), st.data_ptr(), stream)
             assert rc == 0, rc
             chunks.append(hist)
             s = [int(v) for v in st.cpu()]
@@ -1126,7 +1126,7 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
                              *(t.data_ptr() for t in seeds), Bw,
                              pen.mismatch, pen.gap_open, pen.gap_extend, W,
                              packed.data_ptr(), n_ops.data_ptr(),
-                             okv.data_ptr(), st.data_ptr(), stream)
+                             okv.data_ptr(), sms, st.data_ptr(), stream)
         assert rc == 0, rc
         s = [int(v) for v in st.cpu()]
         steps = max(s[3], 1)

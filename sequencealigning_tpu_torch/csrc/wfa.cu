@@ -489,17 +489,6 @@ bool walk_map(CUtensorMap* map, const int16_t* hist, int S, int Bh, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 1;
-  }
-  return n;
-}
-
 }  // namespace
 
 // seq1/seq2: (B, L1) / (B, L2) int32 codes; n1v/n2v: (B,) int32 lengths
@@ -541,10 +530,10 @@ extern "C" int sa_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                     e_off,  lead1,  lead2,   trail1, trail2};
   auto kernel = shared ? wfa_chunk_kernel<true, NoStamps>
                        : wfa_chunk_kernel<false, NoStamps>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         sa::kWfaSharedMax);
-  }
+  // Past 48 KB a block's static and dynamic shared memory together need
+  // the opt-in; set it at every launch (any device, any size).
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       sa::kWfaSharedMax);
   kernel<<<B, threads, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(a, NoStamps());
   return static_cast<int>(cudaGetLastError());
@@ -553,17 +542,18 @@ extern "C" int sa_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
 // hist: (S, 3, Bh, K) int16 log, 16-byte aligned, K >= 32 a multiple of
 // 8; s0/k0/t0/live/budget: (B,) int32 walk seeds, B <= Bh; packed: (B, W)
 // u32, zeroed by the caller, 16 * W >= each budget; n_ops, ok: (B,) int32
-// outputs.  Returns the cudaGetLastError() of the launch, -1 for an
-// unsupported shape, or -4 if the log's tensor map cannot be made.
+// outputs; sms: the card's SMs.  Returns the cudaGetLastError() of the
+// launch, -1 for an unsupported shape, or -4 if the log's tensor map
+// cannot be made.
 extern "C" int sa_wfa_walk(const int16_t* hist, int S, int Bh, int K,
                            int k_lo, int g, const int32_t* s0,
                            const int32_t* k0, const int32_t* t0,
                            const int32_t* live, const int32_t* budget, int B,
                            int x_pen, int o_pen, int e_pen, int W,
                            uint32_t* packed, int32_t* n_ops, int32_t* ok,
-                           void* stream) {
+                           int sms, void* stream) {
   if (B <= 0 || B > Bh || S <= 0 || K < 32 || K % 8 || W <= 0 || g <= 0 ||
-      reinterpret_cast<uintptr_t>(hist) % 16) {
+      sms <= 0 || reinterpret_cast<uintptr_t>(hist) % 16) {
     return -1;
   }
   CUtensorMap map;
@@ -574,7 +564,7 @@ extern "C" int sa_wfa_walk(const int16_t* hist, int S, int Bh, int K,
   const WalkArgs a{hist, s0, k0, t0, live, budget, packed, n_ops, ok,
                    S,    Bh, K,  k_lo, g,  B,      x_pen,  o_pen, e_pen, W};
   // Warps a block: one a pair up to a pair an SM, at most kWfaWalkWarps.
-  int warps = (B + sm_count() - 1) / sm_count();
+  int warps = (B + sms - 1) / sms;
   warps = warps > sa::kWfaWalkWarps ? sa::kWfaWalkWarps : warps;
   const size_t smem = static_cast<size_t>(warps) *
                       (kWalkSlotBytes + 8 * sa::kWfaSlots);

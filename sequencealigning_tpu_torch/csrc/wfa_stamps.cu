@@ -147,7 +147,8 @@ extern "C" int st_wfa_walk(const int16_t* hist, int S, int Bh, int K,
                            const int32_t* live, const int32_t* budget, int B,
                            int x_pen, int o_pen, int e_pen, int W,
                            uint32_t* packed, int32_t* n_ops, int32_t* ok,
-                           unsigned long long* stamps, void* stream) {
+                           int sms, unsigned long long* stamps,
+                           void* stream) {
   CUtensorMap map;
   if (!walk_map(&map, hist, S, Bh, K, K < sa::kWfaWindow ? K
                                                           : sa::kWfaWindow)) {
@@ -155,7 +156,7 @@ extern "C" int st_wfa_walk(const int16_t* hist, int S, int Bh, int K,
   }
   const WalkArgs a{hist, s0, k0, t0, live, budget, packed, n_ops, ok,
                    S,    Bh, K,  k_lo, g,  B,      x_pen,  o_pen, e_pen, W};
-  int warps = (B + sm_count() - 1) / sm_count();
+  int warps = (B + sms - 1) / sms;
   warps = warps > sa::kWfaWalkWarps ? sa::kWfaWalkWarps : warps;
   const size_t smem = static_cast<size_t>(warps) *
                       (kWalkSlotBytes + 8 * sa::kWfaSlots);

@@ -393,6 +393,11 @@ def fill_lanes_per_thread(K: int, lanes_per_thread: int = 0) -> int:
     return lanes_per_thread or -(-K // 1024)
 
 
+def sm_count(dev) -> int:
+    """The SMs of a CUDA device (the walk sizes its blocks by it)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def wfa_chunk_cuda(f: WfaFill, u0: int, n_steps: int,
                    lanes_per_thread: int = 0,
                    shared_ring: Optional[bool] = None) -> torch.Tensor:
@@ -790,7 +795,7 @@ def wfa_walk_cuda(hist, seeds: WfaWalkSeeds, k_lo: int, g: int,
             hist.data_ptr(), S, Bh, K, k_lo, g,
             *(t.data_ptr() for t in seeds), B, penalties.mismatch,
             penalties.gap_open, penalties.gap_extend, W, packed.data_ptr(),
-            n_ops.data_ptr(), ok.data_ptr(), stream)
+            n_ops.data_ptr(), ok.data_ptr(), sm_count(dev), stream)
     if rc == -4:
         raise RuntimeError("sa_wfa_walk: the driver could not make the log's "
                            "tensor map")

@@ -2106,7 +2106,7 @@ def _host_wfa_walk(host, hist, seeds, k_lo, g, pen, W):
     rc = host.hc_wfa_walk(hist.contiguous().data_ptr(), S, Bh, K, k_lo, g,
                           *(t.data_ptr() for t in seeds), B, pen.mismatch,
                           pen.gap_open, pen.gap_extend, W, packed.data_ptr(),
-                          n_ops.data_ptr(), ok.data_ptr())
+                          n_ops.data_ptr(), ok.data_ptr(), 132)
     assert rc == 0
     return packed, n_ops, ok != 0
 
