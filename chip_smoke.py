@@ -3345,23 +3345,22 @@ def wfa_penalty(a1, a2, pen):
 
 
 def wfa_fill_run(torch, wfa, tb, band, pen, spans=(0, 0, 0, 0), kernel=True,
-                 lpt=0, events=None, shared=None):
+                 lpt=0, events=None):
     """One fill as wfa_textbook_batch runs it, through the kernel
-    (wfa_chunk_cuda, lanes a thread forced by lpt, the rings' route by
-    shared, None: by shape) or the plain version (its run-length table
-    built once): (state, chunks).  events: a list that receives a (start,
-    end) CUDA event pair a launch."""
+    (wfa_chunk_cuda, lanes a thread forced by lpt) or the plain version
+    (its run-length table built once): (state, chunks).  events: a list
+    that receives a (start, end) CUDA event pair a launch."""
     k_lo, K = wfa.band_plan(tb.query_len.cpu().numpy(),
                             tb.db_len.cpu().numpy(), band, spans)
     f = wfa.wfa_fill_state(*tb, k_lo, K, pen, spans)
     if kernel:
         def chunk(f_, u0, n):
             if events is None:
-                return wfa.wfa_chunk_cuda(f_, u0, n, lpt, shared)
+                return wfa.wfa_chunk_cuda(f_, u0, n, lpt)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-            out = wfa.wfa_chunk_cuda(f_, u0, n, lpt, shared)
+            out = wfa.wfa_chunk_cuda(f_, u0, n, lpt)
             ev[1].record()
             events.append(ev)
             return out
@@ -3487,8 +3486,8 @@ def wfa_walk_check(torch, wfa, res, pairs, pen, label, samples=8):
 
 def phase_wfa(torch, port, by_path):
     """Textbook WFA: the fill kernel against its plain version on ragged
-    batches (its rings in shared memory, in device memory forced, and past
-    the shared-memory budget), at config 3, on the indel batch (at the
+    batches (its rings in shared memory, and in device memory past the
+    shared-memory budget), at config 3, on the indel batch (at the
     doubled bands too) and on one and four of config 3's pairs, timed; the
     walk kernel against its plain version and the host walker; WfaAligner
     on cuda at config 3 with every engine; the compat route against the
@@ -3513,32 +3512,30 @@ def phase_wfa(torch, port, by_path):
                                     * 8), "cuda")
 
     # 1. Ragged batches: (pairs, hi bp, penalties, band, spans, lanes a
-    # thread forced, the rings' route forced: None by shape).  Band 1700
-    # takes K past the shared-memory budget (the rings in device memory).
-    err, runs = 0, 0
+    # thread forced).  Band 1700 takes K past the shared-memory budget: the
+    # kernel keeps those rings in device memory.
+    err, runs, routes = 0, 0, set()
     t_ragged = time.perf_counter()
-    for n, hi, p, band, spans, lpt, shared in (
-            (64, 3000, pen, 64, (0, 0, 0, 0), 0, None),
-            (17, 3000, out_pen, 4, (0, 0, 0, 0), 0, None),
-            (33, 1500, pen, 16, (5, 5, 5, 5), 0, None),
-            (9, 2000, out_pen, 8, (3, 0, 0, 7), 0, None),
-            (12, 600, pen, 32, (0, 0, 0, 0), 4, None),
-            (12, 600, pen, 32, (0, 0, 0, 0), 0, False),
-            (1, 3000, pen, 600, (0, 0, 0, 0), 0, None),
-            (5, 2500, pen, 700, (0, 0, 0, 0), 4, None),
-            (5, 2000, pen, 1700, (0, 0, 0, 0), 0, None)):
+    for n, hi, p, band, spans, lpt in (
+            (64, 3000, pen, 64, (0, 0, 0, 0), 0),
+            (17, 3000, out_pen, 4, (0, 0, 0, 0), 0),
+            (33, 1500, pen, 16, (5, 5, 5, 5), 0),
+            (9, 2000, out_pen, 8, (3, 0, 0, 7), 0),
+            (12, 600, pen, 32, (0, 0, 0, 0), 4),
+            (1, 3000, pen, 600, (0, 0, 0, 0), 0),
+            (5, 2500, pen, 700, (0, 0, 0, 0), 4),
+            (5, 2000, pen, 1700, (0, 0, 0, 0), 0)):
         pairs = wfa_ragged(rng, n, hi)
         tb = batch(pairs)
-        got = wfa_fill_run(torch, wfa, tb, band, p, spans, True, lpt,
-                           shared=shared)
+        got = wfa_fill_run(torch, wfa, tb, band, p, spans, True, lpt)
         want = wfa_fill_run(torch, wfa, tb, band, p, spans, False)
         torch.cuda.synchronize()
         e = wfa_fill_diff(torch, wfa, got, want)
         K = got[0].ring_m.shape[2]
-        route = ("shared" if wfa.ring_in_shared(
-            tb.query.shape[1], tb.db.shape[1], K, got[0].ring_m.shape[0])
-                 else "device") if shared is None else (
-            "shared" if shared else "device, forced")
+        route = "shared" if port["csrc"].kernels().sa_wfa_ring_in_shared(
+            tb.query.shape[1], tb.db.shape[1], K,
+            got[0].ring_m.shape[0]) else "device"
+        routes.add(route)
         check(e == 0, f"wfa fill kernel != plain ({len(pairs)} pairs <= {hi}"
               f" bp, {p}, band {band} (K {K}), spans {spans}, lpt {lpt}, "
               f"rings {route}): err {e}")
@@ -3556,6 +3553,8 @@ def phase_wfa(torch, port, by_path):
             f"{wfa.fill_lanes_per_thread(K, lpt)} lanes a thread, rings "
             f"{route}), spans {spans}: fill equal to the plain version"
             + ("; walk equal" if spans == (0, 0, 0, 0) else ""))
+    check(routes == {"shared", "device"}, f"wfa fill ragged batches took "
+          f"the rings' routes {sorted(routes)}, not both")
     meas["wfa_fill_ragged_err"] = err
     log(f"[23 wfa] {runs} ragged fills and their walks checked in "
         f"{time.perf_counter() - t_ragged:.1f} s")

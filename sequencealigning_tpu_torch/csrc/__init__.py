@@ -200,6 +200,8 @@ def kernels() -> ctypes.CDLL:
         _INT] * 4 + [_VP] * 4 + [_INT] + [_VP] * 2
     lib.sa_wfa_chunk.restype = _INT
     lib.sa_wfa_chunk.argtypes = [_VP] * 12 + [_INT] * 18 + [_VP]
+    lib.sa_wfa_ring_in_shared.restype = _INT
+    lib.sa_wfa_ring_in_shared.argtypes = [_INT] * 4
     lib.sa_wfa_walk.restype = _INT
     lib.sa_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT, _VP]
@@ -339,7 +341,9 @@ def host_check() -> ctypes.CDLL:
     lib.hc_walk_banded.argtypes = [_VP] + [_INT] * 3 + [_VP] * 4 + [
         _INT] * 4 + [_VP] * 4 + [_INT] + [_VP]
     lib.hc_wfa_chunk.restype = _INT
-    lib.hc_wfa_chunk.argtypes = [_VP] * 12 + [_INT] * 18
+    lib.hc_wfa_chunk.argtypes = [_VP] * 12 + [_INT] * 19
+    lib.hc_wfa_ring_in_shared.restype = _INT
+    lib.hc_wfa_ring_in_shared.argtypes = [_INT] * 4
     lib.hc_wfa_walk.restype = _INT
     lib.hc_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT]

@@ -1412,8 +1412,10 @@ extern "C" int hc_linear_fill(const int32_t* query, const int32_t* s2v,
 // then the lanes' stores and end tests; the barrier ends the step with the
 // convergence test (lowest hit lane).  The codes are packed at u0 == 0 (and
 // written to `codes`) or copied from `codes`; the rings are copied into a
-// shared-memory image with guard cells for the launch (shared) or used in
-// place.
+// shared-memory image with guard cells for the launch (shared 1) or used in
+// place (0); shared -1 takes the kernel's route by shape.  After each pair
+// its spare CTAs (wfa.cuh::wfa_neg_ctas for sms SMs) write their parts of
+// its NEG rows if it converged before the launch.
 extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             const int32_t* n1v, const int32_t* n2v,
                             uint8_t* codes, int32_t* ring_m, int32_t* ring_i,
@@ -1422,16 +1424,28 @@ extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             int L2, int K, int R, int k_lo, int u0,
                             int n_steps, int g, int x_off, int oe_off,
                             int e_off, int lead1, int lead2, int trail1,
-                            int trail2, int lpt, int shared) {
+                            int trail2, int lpt, int sms, int shared) {
   const int P1 = sa::wfa_code_pitch(L1);
   const int CP = P1 + sa::wfa_code_pitch(L2);
-  const long long smem = CP + (shared ? 12LL * R * (K + 2) : 0);
   if (B <= 0 || K <= 0 || K % 32 || n_steps <= 0 || lpt <= 0 ||
       K > 1024 * lpt || L1 < 0 || L2 < 0 || L1 + L2 > 2 * (1 << 14) ||
       x_off < 1 || oe_off < 1 || e_off < 1 || x_off >= R || oe_off >= R ||
-      e_off >= R || smem > sa::kWfaSharedMax) {
+      e_off >= R || g < 1 || sms <= 0 || shared < -1 || shared > 1) {
     return -1;
   }
+  if (shared < 0) shared = sa::wfa_ring_in_shared(L1, L2, K, R);
+  if (sa::wfa_fill_smem(L1, L2, K, R, shared) > sa::kWfaSharedMax) return -1;
+  const int Y = sa::wfa_neg_ctas(B, sms, u0, n_steps);
+  const int n_rp = 3 * n_steps;
+  // Row-planes [rp0, rp1) of pair b: NEG.
+  auto neg_rows = [&](int b, int rp0, int rp1) {
+    for (int rp = rp0; rp < rp1; ++rp) {
+      for (int lane = 0; lane < K; ++lane) {
+        hist[sa::wfa_log_index(rp / 3, rp % 3, B, b, K, lane)] =
+            static_cast<int16_t>(sa::kWfaNeg);
+      }
+    }
+  };
   int threads = (K + lpt - 1) / lpt;
   threads = (threads + 31) / 32 * 32;
   if (threads > 1024) threads = 1024;
@@ -1440,8 +1454,12 @@ extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
   int32_t m[32], iv[32], dv[32], lim[32];
   bool more[32];
   for (int b = 0; b < B; ++b) {
-    int i_neg = 0;
-    if (!done[b]) {
+    int rp_neg = 0, rp_end = n_rp;
+    if (done[b]) {
+      if (Y > 1 && sa::wfa_done_before(score[b], u0, g)) {
+        sa::wfa_neg_part(0, Y, n_rp, rp_neg, rp_end);
+      }
+    } else {
       uint8_t* row = codes + static_cast<size_t>(b) * CP;
       if (u0 == 0) {
         for (int p = 0; p < CP; ++p) {
@@ -1468,7 +1486,7 @@ extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
         }
       }
       const int n1 = n1v[b], n2 = n2v[b];
-      i_neg = n_steps;
+      rp_neg = n_rp;
       for (int i = 0; i < n_steps; ++i) {
         const int u = u0 + i;
         const sa::WfaSlots q = sa::wfa_slots(u, u % R, R, x_off, oe_off,
@@ -1541,7 +1559,7 @@ extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
           done[b] = 1;
           score[b] = u * g;
           end_k[b] = k_lo + hit_lane;
-          i_neg = i + 1;
+          rp_neg = 3 * (i + 1);
           break;
         }
       }
@@ -1555,16 +1573,22 @@ extern "C" int hc_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
         }
       }
     }
-    for (int i = i_neg; i < n_steps; ++i) {
-      for (int p = 0; p < 3; ++p) {
-        for (int lane = 0; lane < K; ++lane) {
-          hist[sa::wfa_log_index(i, p, B, b, K, lane)] =
-              static_cast<int16_t>(sa::kWfaNeg);
-        }
+    neg_rows(b, rp_neg, rp_end);
+    for (int y = 1; y < Y; ++y) {
+      if (sa::wfa_done_before(score[b], u0, g)) {
+        int lo, hi;
+        sa::wfa_neg_part(y, Y, n_rp, lo, hi);
+        neg_rows(b, lo, hi);
       }
     }
   }
   return 0;
+}
+
+// sa_wfa_ring_in_shared: 1 if a fill of this shape keeps its rings in
+// shared memory, else 0.
+extern "C" int hc_wfa_ring_in_shared(int L1, int L2, int K, int R) {
+  return sa::wfa_ring_in_shared(L1, L2, K, R) ? 1 : 0;
 }
 
 // The walk's warp run serially (wfa.cuh::WfaStage's Ops): one lane, the

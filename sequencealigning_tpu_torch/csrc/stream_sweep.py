@@ -1030,7 +1030,7 @@ def _stamp_lib(csrc):
     lib = ctypes.CDLL(lib_path)
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.st_wfa_chunk.restype = i
-    lib.st_wfa_chunk.argtypes = [vp] * 12 + [i] * 18 + [vp, vp]
+    lib.st_wfa_chunk.argtypes = [vp] * 12 + [i] * 17 + [vp, vp]
     lib.st_wfa_walk.restype = i
     lib.st_wfa_walk.argtypes = [vp] + [i] * 5 + [vp] * 5 + [i] * 5 + [
         vp] * 3 + [i, vp, vp]
@@ -1087,8 +1087,8 @@ def _wfa_stamps(chip_smoke, csrc, wfa, to_device, pack_batch,
                                          f.ring_d, f.done, f.score, f.end_k,
                                          hist)),
                 B, L1, L2, K, R, k_lo, u0, n, g, *wfa.lattice_offsets(pen),
-                0, 0, 0, 0, wfa.fill_lanes_per_thread(K),
-                int(wfa.ring_in_shared(L1, L2, K, R)), st.data_ptr(), stream)
+                0, 0, 0, 0, wfa.fill_lanes_per_thread(K), st.data_ptr(),
+                stream)
             assert rc == 0, rc
             chunks.append(hist)
             s = [int(v) for v in st.cpu()]

@@ -22,8 +22,11 @@
 // (cp.async.bulk on an mbarrier).  The rings live in shared memory for the
 // launch (SHARED: loaded at its start, written back at its end, lanes -1
 // and K guard cells of NEG, a step's slots computed once), or, where R x K
-// passes the shared-memory budget (ops.wfa.ring_in_shared decides by
-// shape), stay in device memory.  The extension compares a word (4 codes)
+// passes the shared-memory budget (sa_wfa_chunk decides by shape,
+// wfa.cuh::wfa_ring_in_shared), stay in device memory.  A batch far below
+// the SMs gets spare CTAs a pair (the grid's y, wfa.cuh::wfa_neg_ctas)
+// that share the NEG rows of a pair converged before the launch, which one
+// CTA alone writes at ~50 GB/s.  The extension compares a word (4 codes)
 // at once: each lane its run's first word, then every run that goes on is
 // taken by its warp, 32 words an iteration, the first mismatch by a ballot
 // (wfa.cuh::wfa_span_lane).  What bounded the earlier design (a thread a
@@ -60,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <climits>
 
 #include "wfa.cuh"
@@ -181,15 +185,56 @@ __device__ __forceinline__ void stage_codes(const ChunkArgs& a, int b,
   bar_wait(ba, 0);
 }
 
-template <bool SHARED, class Stamps = NoStamps>
+// Row-planes [rp0, rp1) (row * 3 + plane) of pair b's log: NEG, 8 lanes a
+// 16-byte store, the threads striding over (row-plane, store) without a
+// division a store.
+__device__ __forceinline__ void neg_rows(const ChunkArgs& a, int b, int rp0,
+                                         int rp1) {
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int per = a.K / 8;  // stores a row-plane
+  const uint4 neg4 = make_uint4(0xC000C000u, 0xC000C000u, 0xC000C000u,
+                                0xC000C000u);
+  const size_t stride = static_cast<size_t>(a.B) * per;  // between row-planes
+  uint4* const base =
+      reinterpret_cast<uint4*>(a.hist) + static_cast<size_t>(b) * per;
+  const uint4* const end = base + static_cast<size_t>(rp1) * stride;
+  const int dseg = T / per, doff = T % per;
+  uint4* seg = base + (static_cast<size_t>(rp0) + tid / per) * stride;
+  for (int off = tid % per; seg < end;) {
+    seg[off] = neg4;
+    seg += dseg * stride;
+    off += doff;
+    if (off >= per) {
+      off -= per;
+      seg += stride;
+    }
+  }
+}
+
+// SPARE: the grid has spare CTAs a pair (gridDim.y > 1); the instances
+// without them are the kernel as it runs at batches near the SMs, with
+// nothing of the spare CTAs' in their code.
+template <bool SHARED, bool SPARE, class Stamps = NoStamps>
 __global__ void __launch_bounds__(1024)
     wfa_chunk_kernel(ChunkArgs a, Stamps stamps) {
   extern __shared__ __align__(128) uint8_t smem[];
+  const int b = blockIdx.x;
+  const int n_rp = 3 * a.n_steps;
+  if (SPARE && blockIdx.y > 0) {
+    // A spare CTA of pair b (wfa.cuh::wfa_neg_ctas): its part of the NEG
+    // rows if the pair converged before the launch.
+    const int32_t sc = *reinterpret_cast<volatile int32_t*>(a.score + b);
+    if (!sa::wfa_done_before(sc, a.u0, a.g)) return;
+    int lo, hi;
+    sa::wfa_neg_part(blockIdx.y, gridDim.y, n_rp, lo, hi);
+    neg_rows(a, b, lo, hi);
+    return;
+  }
   Stamps st = stamps;
   st.begin();
   __shared__ int hit_lane;
   __shared__ alignas(8) uint64_t bar;
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int T = blockDim.x;
   const int me = tid & 31;
@@ -309,27 +354,13 @@ __global__ void __launch_bounds__(1024)
       }
     }
   }
-  // The rows this pair did not compute: NEG, 8 lanes a 16-byte store, the
-  // threads striding over (row-plane, store) without a division a store.
-  const int per = K / 8;  // stores a row-plane
-  const uint4 neg4 = make_uint4(0xC000C000u, 0xC000C000u, 0xC000C000u,
-                                0xC000C000u);
-  const uint4* const end = reinterpret_cast<const uint4*>(
-      a.hist + sa::wfa_log_index(a.n_steps, 0, a.B, b, K, 0));
-  const size_t stride = static_cast<size_t>(a.B) * per;  // between row-planes
-  const int dseg = T / per, doff = T % per;
-  uint4* seg = reinterpret_cast<uint4*>(
-                   a.hist + sa::wfa_log_index(i_neg, 0, a.B, b, K, 0)) +
-               static_cast<size_t>(tid / per) * stride;
-  for (int off = tid % per; seg < end;) {
-    seg[off] = neg4;
-    seg += dseg * stride;
-    off += doff;
-    if (off >= per) {
-      off -= per;
-      seg += stride;
-    }
+  // The rows this pair did not compute; of a pair converged before the
+  // launch (none computed), the first part where it has spare CTAs.
+  int rp_neg = 3 * i_neg, rp_end = n_rp;
+  if (SPARE && i_neg == 0 && sa::wfa_done_before(a.score[b], a.u0, a.g)) {
+    sa::wfa_neg_part(0, gridDim.y, n_rp, rp_neg, rp_end);
   }
+  neg_rows(a, b, rp_neg, rp_end);
   st.finish(i_neg);
 }
 
@@ -489,6 +520,26 @@ bool walk_map(CUtensorMap* map, const int16_t* hist, int S, int Bh, int K,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Opts the fill kernel in to kWfaSharedMax bytes of dynamic shared memory
+// on the current device, once a device (past 48 KB a block's static and
+// dynamic shared memory together need it).  Returns the cudaError_t of a
+// failure, else 0.
+template <bool SHARED, bool SPARE>
+int fill_opt_in() {
+  static std::atomic<unsigned long long> opted{0};  // bit d: device d
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (opted.load(std::memory_order_relaxed) & bit) return 0;
+  e = cudaFuncSetAttribute(wfa_chunk_kernel<SHARED, SPARE, NoStamps>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           sa::kWfaSharedMax);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  opted.fetch_or(bit, std::memory_order_relaxed);
+  return 0;
+}
+
 }  // namespace
 
 // seq1/seq2: (B, L1) / (B, L2) int32 codes; n1v/n2v: (B,) int32 lengths
@@ -498,9 +549,9 @@ bool walk_map(CUtensorMap* map, const int16_t* hist, int S, int Bh, int K,
 // int32; done, score, end_k: (B,) int32, updated in place; hist:
 // (n_steps, 3, B, K) int16, every row written.  x_off/oe_off/e_off: the
 // penalties in lattice steps, each in [1, R - 1]; lpt: lanes a thread
-// (K <= 1024 * lpt); shared: the rings in shared memory (1, if the codes
-// and rings fit sa::kWfaSharedMax) or in device memory (0).  Returns the
-// cudaGetLastError() of the launch, or -1 for an unsupported shape.
+// (K <= 1024 * lpt); sms: the card's SMs.  The rings' route is the shape's
+// (wfa.cuh::wfa_ring_in_shared).  Returns the cudaGetLastError() of the
+// launch, or -1 for an unsupported shape.
 extern "C" int sa_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             const int32_t* n1v, const int32_t* n2v,
                             uint8_t* codes, int32_t* ring_m, int32_t* ring_i,
@@ -509,17 +560,16 @@ extern "C" int sa_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             int L2, int K, int R, int k_lo, int u0,
                             int n_steps, int g, int x_off, int oe_off,
                             int e_off, int lead1, int lead2, int trail1,
-                            int trail2, int lpt, int shared, void* stream) {
-  const long long code_bytes =
-      sa::wfa_code_pitch(L1) + static_cast<long long>(sa::wfa_code_pitch(L2));
-  const long long smem =
-      code_bytes + (shared ? 12LL * R * (K + 2) : 0);
+                            int trail2, int lpt, int sms, void* stream) {
   if (B <= 0 || K <= 0 || K % 32 || n_steps <= 0 || lpt <= 0 ||
       K > 1024 * lpt || L1 < 0 || L2 < 0 || L1 + L2 > 2 * (1 << 14) ||
       x_off < 1 || oe_off < 1 || e_off < 1 || x_off >= R || oe_off >= R ||
-      e_off >= R || smem > sa::kWfaSharedMax) {
+      e_off >= R || g < 1 || sms <= 0) {
     return -1;
   }
+  const bool shared = sa::wfa_ring_in_shared(L1, L2, K, R);
+  const long long smem = sa::wfa_fill_smem(L1, L2, K, R, shared);
+  if (smem > sa::kWfaSharedMax) return -1;
   int threads = (K + lpt - 1) / lpt;
   threads = (threads + 31) / 32 * 32;
   if (threads > 1024) threads = 1024;
@@ -528,15 +578,25 @@ extern "C" int sa_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                     hist,   B,      L1,      L2,     K,      R,
                     k_lo,   u0,     n_steps, g,      x_off,  oe_off,
                     e_off,  lead1,  lead2,   trail1, trail2};
-  auto kernel = shared ? wfa_chunk_kernel<true, NoStamps>
-                       : wfa_chunk_kernel<false, NoStamps>;
-  // Past 48 KB a block's static and dynamic shared memory together need
-  // the opt-in; set it at every launch (any device, any size).
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       sa::kWfaSharedMax);
-  kernel<<<B, threads, static_cast<size_t>(smem),
+  const int spare = sa::wfa_neg_ctas(B, sms, u0, n_steps);
+  const int rc = shared ? (spare > 1 ? fill_opt_in<true, true>()
+                                     : fill_opt_in<true, false>())
+                        : (spare > 1 ? fill_opt_in<false, true>()
+                                     : fill_opt_in<false, false>());
+  if (rc != 0) return rc;
+  auto kernel = shared ? (spare > 1 ? wfa_chunk_kernel<true, true, NoStamps>
+                                    : wfa_chunk_kernel<true, false, NoStamps>)
+                       : (spare > 1 ? wfa_chunk_kernel<false, true, NoStamps>
+                                    : wfa_chunk_kernel<false, false, NoStamps>);
+  const dim3 grid(B, spare);
+  kernel<<<grid, threads, static_cast<size_t>(smem),
            static_cast<cudaStream_t>(stream)>>>(a, NoStamps());
   return static_cast<int>(cudaGetLastError());
+}
+
+// 1 if a fill of this shape keeps its rings in shared memory, else 0.
+extern "C" int sa_wfa_ring_in_shared(int L1, int L2, int K, int R) {
+  return sa::wfa_ring_in_shared(L1, L2, K, R) ? 1 : 0;
 }
 
 // hist: (S, 3, Bh, K) int16 log, 16-byte aligned, K >= 32 a multiple of

@@ -38,7 +38,7 @@ constexpr int32_t kWfaNeg = -(1 << 14);  // absent offset (ops/wfa.py NEG)
 constexpr int32_t kWfaBig = 1 << 14;     // end target outside the window
 constexpr int kWfaSpan = 32;             // words (of 4 codes) a warp's span
 // Dynamic shared memory a fill CTA may take: the SM's 227 KB less 1 KB for
-// the static words beside it (ops/wfa.py WFA_SHARED_MAX mirrors it).
+// the static words beside it.
 constexpr int kWfaSharedMax = 227 * 1024 - 1024;
 
 // Offset t on diagonal k lies in the pair's matrix (the JAX ok()).
@@ -63,6 +63,44 @@ SA_HD int32_t wfa_end_t(int32_t k, int32_t n1, int32_t n2, int32_t trail1,
 // seq2 padded to code_pitch(L2); every run read stays 8 bytes short of its
 // sequence's padded end.
 SA_HD int wfa_code_pitch(int L) { return (L + 8 + 15) / 16 * 16; }
+
+// A fill CTA's dynamic shared memory: the pair's packed codes and, with the
+// rings in shared memory, their three planes' R rows of K lanes and two
+// guard lanes.
+SA_HD long long wfa_fill_smem(int L1, int L2, int K, int R,
+                              bool shared_ring) {
+  return wfa_code_pitch(L1) + static_cast<long long>(wfa_code_pitch(L2)) +
+         (shared_ring ? 12LL * R * (K + 2) : 0);
+}
+
+// The fill's route, by shape: the rings in shared memory where they fit
+// kWfaSharedMax beside the codes, else in device memory.
+SA_HD bool wfa_ring_in_shared(int L1, int L2, int K, int R) {
+  return wfa_fill_smem(L1, L2, K, R, true) <= kWfaSharedMax;
+}
+
+// CTAs a pair (the fill grid's y).  The first computes the pair.  Where
+// the batch leaves most SMs idle (B <= sms / 2) the NEG rows of a pair
+// that converged before the launch are shared by sms / B CTAs, at most one
+// a row-plane; the seed launch has no such pair.
+SA_HD int wfa_neg_ctas(int B, int sms, int u0, int n_steps) {
+  if (u0 == 0 || B <= 0 || sms / B < 2) return 1;
+  return sms / B < 3 * n_steps ? sms / B : 3 * n_steps;
+}
+
+// Part y of Y of a pair's n_rp NEG row-planes (row * 3 + plane): [lo, hi).
+SA_HD void wfa_neg_part(int y, int Y, int n_rp, int& lo, int& hi) {
+  lo = static_cast<int>(static_cast<long long>(n_rp) * y / Y);
+  hi = static_cast<int>(static_cast<long long>(n_rp) * (y + 1) / Y);
+}
+
+// A pair converged before the launch at lattice step u0, told by its score
+// alone: -1 until the pair converges, then u * g, written once (a pair
+// that converges during the launch scores u0 * g or more), so a read
+// racing that write needs no fence.
+SA_HD bool wfa_done_before(int32_t score, int u0, int g) {
+  return score >= 0 && score < u0 * g;
+}
 
 // The four codes at byte p of packed words w, little-endian (code p in the
 // low byte).

@@ -109,7 +109,8 @@ __global__ void __launch_bounds__(sa::kWfaWalkWarps * 32)
 
 }  // namespace
 
-// sa_wfa_chunk's arguments, then the stamps (11 u64, added to).
+// sa_wfa_chunk's arguments but the SMs (a CTA a pair: no spare CTAs), then
+// the stamps (11 u64, added to).
 extern "C" int st_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             const int32_t* n1v, const int32_t* n2v,
                             uint8_t* codes, int32_t* ring_m, int32_t* ring_i,
@@ -118,10 +119,11 @@ extern "C" int st_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                             int L2, int K, int R, int k_lo, int u0,
                             int n_steps, int g, int x_off, int oe_off,
                             int e_off, int lead1, int lead2, int trail1,
-                            int trail2, int lpt, int shared,
+                            int trail2, int lpt,
                             unsigned long long* stamps, void* stream) {
-  const size_t smem = sa::wfa_code_pitch(L1) + sa::wfa_code_pitch(L2) +
-                      (shared ? 12 * R * (K + 2) : 0);
+  const bool shared = sa::wfa_ring_in_shared(L1, L2, K, R);
+  const size_t smem =
+      static_cast<size_t>(sa::wfa_fill_smem(L1, L2, K, R, shared));
   int threads = (K + lpt - 1) / lpt;
   threads = (threads + 31) / 32 * 32;
   if (threads > 1024) threads = 1024;
@@ -132,10 +134,11 @@ extern "C" int st_wfa_chunk(const int32_t* seq1, const int32_t* seq2,
                     e_off,  lead1,  lead2,   trail1, trail2};
   ClockStamps st{};
   st.out = stamps;
-  auto kernel = shared ? wfa_chunk_kernel<true, ClockStamps>
-                       : wfa_chunk_kernel<false, ClockStamps>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       sa::kWfaSharedMax);
+  auto kernel = shared ? wfa_chunk_kernel<true, false, ClockStamps>
+                       : wfa_chunk_kernel<false, false, ClockStamps>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sa::kWfaSharedMax);
+  if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(a, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,8 +23,8 @@ Two implementations of a chunk, chosen by the tensors' device:
   yardstick of the kernel);
 * ``wfa_chunk_cuda`` -- the hand-written kernel (``csrc/wfa.cu``; CUDA
   tensors only): a CTA a pair, a thread a diagonal, the rings in shared
-  memory for the launch (in device memory past the budget,
-  ``ring_in_shared``), the extension comparing the pair's codes packed as
+  memory for the launch (in device memory past the budget, the kernel's
+  choice by shape), the extension comparing the pair's codes packed as
   bytes a word at a time, a run past its first word taken by the warp.
 
 The walk back from each pair's end over the log has two implementations
@@ -60,8 +60,6 @@ S_CHUNK = 256
 # lanes out of bounds.
 BIG = 2 ** 14
 _M, _I, _D = 1, 2, 3  # the port's walk op codes (ops.traceback_device)
-# Dynamic shared memory a fill CTA may take (csrc/wfa.cuh kWfaSharedMax).
-WFA_SHARED_MAX = 227 * 1024 - 1024
 
 
 def _score_stride(penalties: WfaPenalties) -> int:
@@ -195,20 +193,6 @@ def code_pitch(L: int) -> int:
     """Bytes of one sequence in a pair's packed codes (csrc/wfa.cuh
     wfa_code_pitch): L padded by 8 and rounded up to 16."""
     return (L + 8 + 15) // 16 * 16
-
-
-def fill_shared_bytes(L1: int, L2: int, K: int, R: int,
-                      shared_ring: bool) -> int:
-    """A fill CTA's dynamic shared memory: the packed codes, and with
-    shared_ring the three planes' R rings of K lanes and two guard lanes."""
-    return code_pitch(L1) + code_pitch(L2) + (
-        12 * R * (K + 2) if shared_ring else 0)
-
-
-def ring_in_shared(L1: int, L2: int, K: int, R: int) -> bool:
-    """The fill kernel's route, by shape: the rings in shared memory where
-    they fit WFA_SHARED_MAX beside the codes, else in device memory."""
-    return fill_shared_bytes(L1, L2, K, R, True) <= WFA_SHARED_MAX
 
 
 def wfa_fill_state(seq1, seq2, n1v, n2v, k_lo: int, K: int,
@@ -394,29 +378,28 @@ def fill_lanes_per_thread(K: int, lanes_per_thread: int = 0) -> int:
 
 
 def sm_count(dev) -> int:
-    """The SMs of a CUDA device (the walk sizes its blocks by it)."""
+    """The SMs of a CUDA device (the walk sizes its blocks by it, the fill
+    its spare CTAs)."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def wfa_chunk_cuda(f: WfaFill, u0: int, n_steps: int,
-                   lanes_per_thread: int = 0,
-                   shared_ring: Optional[bool] = None) -> torch.Tensor:
+                   lanes_per_thread: int = 0) -> torch.Tensor:
     """The fill kernel (csrc/wfa.cu) on CUDA tensors: the same steps, state
     updates and log as wfa_chunk_torch, a CTA a pair, every log row written
     by the kernel (a converged pair's NEG).  The launch at u0 == 0 packs
     the codes into f.codes; the fill's later launches read them there, so
-    a fill's chunks follow its seed (fill_chunks).  lanes_per_thread > 0
-    forces the lanes a thread, shared_ring the rings' route (tests and
-    tools; None: ring_in_shared).  Returns without waiting for the
-    kernel; raises on a CPU tensor or a failed launch."""
+    a fill's chunks follow its seed (fill_chunks).  The kernel keeps the
+    rings in shared memory where they fit, else in device memory (by
+    shape).  lanes_per_thread > 0 forces the lanes a thread (tests and
+    tools).  Returns without waiting for the kernel; raises on a CPU
+    tensor or a failed launch."""
     _check_chunk_args(f, u0, n_steps)
     if not f.seq1.is_cuda:
         raise ValueError("wfa_chunk_cuda needs CUDA tensors")
     R, B, K = f.ring_m.shape
     L1, L2 = f.seq1.shape[1], f.seq2.shape[1]
     lpt = fill_lanes_per_thread(K, lanes_per_thread)
-    if shared_ring is None:
-        shared_ring = ring_in_shared(L1, L2, K, R)
     g = _score_stride(f.penalties)
     x_off, oe_off, e_off = lattice_offsets(f.penalties)
     dev = f.seq1.device
@@ -430,7 +413,7 @@ def wfa_chunk_cuda(f: WfaFill, u0: int, n_steps: int,
             f.ring_i.data_ptr(), f.ring_d.data_ptr(), f.done.data_ptr(),
             f.score.data_ptr(), f.end_k.data_ptr(), hist.data_ptr(), B, L1,
             L2, K, R, f.k_lo, u0, n_steps, g, x_off, oe_off, e_off,
-            *f.spans, lpt, int(shared_ring), stream)
+            *f.spans, lpt, sm_count(dev), stream)
     if rc != 0:
         raise csrc.launch_error("sa_wfa_chunk", rc)
     wfa_chunk_cuda.launches += 1

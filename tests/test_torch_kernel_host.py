@@ -1889,17 +1889,17 @@ def _wfa_batch(seed, n, hi):
                                        * 8), "cpu")
 
 
-def _host_wfa_chunk(host, f, u0, n_steps, lpt, shared=None, rc_only=False):
+def _host_wfa_chunk(host, f, u0, n_steps, lpt, shared=None, rc_only=False,
+                    sms=132):
     """hc_wfa_chunk on a fill state (the kernel's schedule run serially;
-    shared: the rings' route, None as the wrapper picks it by shape): the
-    chunk's log, every row written over a poisoned buffer; f's per-pair
-    results updated in place.  rc_only: the return code alone."""
+    shared: the rings' route, None as the kernel picks it by shape; sms:
+    the SMs its spare CTAs are sized by): the chunk's log, every row
+    written over a poisoned buffer; f's per-pair results updated in place.
+    rc_only: the return code alone."""
     from sequencealigning_tpu_torch.ops import wfa
 
     R, B, K = f.ring_m.shape
     L1, L2 = f.seq1.shape[1], f.seq2.shape[1]
-    if shared is None:
-        shared = wfa.ring_in_shared(L1, L2, K, R)
     hist = torch.full((n_steps, 3, B, K), 0x5A5A, dtype=torch.int16)
     rc = host.hc_wfa_chunk(
         *(t.data_ptr() for t in (f.seq1, f.seq2, f.n1v, f.n2v, f.codes,
@@ -1907,14 +1907,14 @@ def _host_wfa_chunk(host, f, u0, n_steps, lpt, shared=None, rc_only=False):
                                  f.score, f.end_k, hist)),
         B, L1, L2, K, R, f.k_lo, u0, n_steps,
         wfa._score_stride(f.penalties), *wfa.lattice_offsets(f.penalties),
-        *f.spans, lpt, int(shared))
+        *f.spans, lpt, sms, -1 if shared is None else int(shared))
     if rc_only:
         return rc
     assert rc == 0
     return hist
 
 
-def _assert_chunks_equal(host, fk, fp, steps, lpt=1, shared=None):
+def _assert_chunks_equal(host, fk, fp, steps, lpt=1, shared=None, sms=132):
     """The host schedule (fk) against wfa_chunk_torch (fp) chunk by chunk
     from the seed over `steps` ((u0, n) a launch): every log row, done,
     score and end_k equal, and the rings of the pairs still running (the
@@ -1925,7 +1925,7 @@ def _assert_chunks_equal(host, fk, fp, steps, lpt=1, shared=None):
     runlen = wfa.build_runlen(fp)
     for u0, n in steps:
         want = wfa.wfa_chunk_torch(fp, u0, n, runlen)
-        got = _host_wfa_chunk(host, fk, u0, n, lpt, shared)
+        got = _host_wfa_chunk(host, fk, u0, n, lpt, shared, sms=sms)
         assert torch.equal(got, want), (u0, n)
         for a, b in zip(fk[7:10], fp[7:10]):
             assert torch.equal(a, b)
@@ -2030,6 +2030,27 @@ def test_host_wfa_chunk_codes_outside_acgt(host, shared):
     assert bool(fk.done.all())
 
 
+@pytest.mark.parametrize("sms", [1, 16, 132, 4096])
+def test_host_wfa_chunk_spare_ctas_write_the_neg_rows(host, sms):
+    """Pairs that converged before a launch have their NEG rows split over
+    the spare CTAs that a batch far below the SMs gets (none at 1 SM, up to
+    one a row-plane at 4096), over short launches that pairs converge
+    between: every row written (the log starts as poison) and equal to the
+    plain fill."""
+    from sequencealigning_tpu_torch.config import WfaPenalties
+    from sequencealigning_tpu_torch.ops import wfa
+
+    pairs, tb = _wfa_batch(83, 6, 90)
+    k_lo, K = wfa.band_plan(tb.query_len.numpy(), tb.db_len.numpy(), 8,
+                            (0, 0, 0, 0))
+    fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
+    steps = ((0, 1), (1, 1), (2, 3), (5, 2), (7, 1), (8, 30), (38, 7),
+             (45, 300))
+    _assert_chunks_equal(host, fk, fp, steps, 1, None, sms)
+    assert bool(fk.done.all())
+
+
 def test_host_wfa_chunk_past_1024_lanes(host):
     """A band of more than 1024 lanes takes two lanes a thread by default
     (fill_lanes_per_thread), and four and eight forced: equal to the plain
@@ -2056,7 +2077,7 @@ def test_host_wfa_chunk_past_1024_lanes(host):
 
 def test_host_wfa_chunk_past_the_shared_budget(host):
     """A band whose rings pass the shared-memory budget (K 3328 at the
-    default penalties' 6 ring rows): the wrapper's rule routes it to the
+    default penalties' 6 ring rows): the kernel's rule routes it to the
     rings in device memory, whose schedule equals the plain fill; the
     shared route refuses that shape."""
     from sequencealigning_tpu_torch.config import WfaPenalties
@@ -2067,9 +2088,8 @@ def test_host_wfa_chunk_past_the_shared_budget(host):
                             (0, 0, 0, 0))
     L1, L2 = tb.query.shape[1], tb.db.shape[1]
     R = wfa.ring_rows(WfaPenalties())
-    assert K > 3200 and not wfa.ring_in_shared(L1, L2, K, R)
-    assert wfa.ring_in_shared(L1, L2, 1152, R)
-    assert wfa.fill_shared_bytes(L1, L2, K, R, True) > wfa.WFA_SHARED_MAX
+    assert K > 3200 and not host.hc_wfa_ring_in_shared(L1, L2, K, R)
+    assert host.hc_wfa_ring_in_shared(L1, L2, 1152, R)
     fp = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
     fk = wfa.wfa_fill_state(*tb, k_lo, K, WfaPenalties())
     lpt = wfa.fill_lanes_per_thread(K)
@@ -2089,9 +2109,10 @@ def test_host_wfa_chunk_refuses_bad_shapes(host):
                                    f.ring_m, f.ring_i, f.ring_d, f.done,
                                    f.score, f.end_k, hist)]
     ok = [8, f.seq1.shape[1], f.seq2.shape[1], 128, R, -64, 0, 1, 2, 2, 4, 3,
-          0, 0, 0, 0, 1, 1]
+          0, 0, 0, 0, 1, 132, 1]
     assert host.hc_wfa_chunk(*base, *ok) == 0
-    for i, bad in ((16, 0), (9, R), (11, 0), (3, 2048), (3, 96 + 16)):
+    for i, bad in ((16, 0), (9, R), (11, 0), (3, 2048), (3, 96 + 16),
+                   (17, 0), (18, 2), (8, 0)):
         args = list(ok)
         args[i] = bad
         assert host.hc_wfa_chunk(*base, *args) == -1, (i, bad)
