@@ -10,7 +10,8 @@ in the phases below and exits non-zero at the first failure:
    power limit;
 2. build: compiles the CUDA kernels from csrc/ (one nvcc a source, in
    parallel, sm_90a); one line per instance of the streamed fills
-   (kernels #1 and #2) with its registers and spills from -Xptxas -v;
+   (kernels #1 and #2) and of the Myers-Miller row kernel with its
+   registers and spills from -Xptxas -v;
 3. fill kernel vs its plain PyTorch version on the card: ragged batches
    over compat/textbook x dirs none/fast4/full x wildcard, then the main
    path's shape (4096 pairs x 2046 bp, fast4) with its rows in one block
@@ -93,8 +94,15 @@ in the phases below and exits non-zero at the first failure:
    pair's SMs (at least 32), and each of batch A's band rounds (128, 256,
    512) timed on its own; every pair aligned, consuming
    its sequences and rescoring to the tiled exact score, the rounds each
-   pair took recorded; then one ~6 kb pair that escapes the (lowered) band
-   cap and is aligned by Myers-Miller on the card;
+   pair took recorded; then the Myers-Miller row kernel (both sweeps of a
+   node a launch) against its plain version, every column: a ~6 kb
+   escape's top node, a wide node (200 rows x 100 kb), a tall one (6000
+   rows a sweep, its column-0 chain below NEG_INF) and random schemes at
+   4, 8 and 16 lanes a thread, timed at the ~6 kb and 100 kb escapes' top
+   nodes; then those two pairs, each escaping the (lowered) band cap, are
+   aligned by Myers-Miller on the card through GotohAligner, rescoring to
+   the tiled exact score, their seconds split into the node rows,
+   _direct_ops and the rest;
 16. kernel #7 (the per-pair global fill) at the main shape, score-only in
    the runner's layout, against its plain version and the streamed
    kernel's finals; with full dirs on 512 of the pairs (the direction
@@ -194,6 +202,18 @@ LEN_CEIL_DB, LEN_LONG = 8300, 49150
 # middle.  The tiled fills' full-width check: pairs of LEN_TILE_CHECK bp.
 N_LONG, LEN_LONG_PAIR, LONG_INDEL, LONG_DROP = 8, 100_000, 300, 20_000
 LEN_TILE_CHECK = 40_000
+# The Myers-Miller escapes: a LEN_MM_SHORT bp pair and one of batch A's
+# length (LEN_LONG_PAIR), each with an MM_EXCURSION bp insertion at a third
+# of its length and a deletion as long 2 kb on, on an aligner whose band
+# cap is BAND.  The row kernel against its plain version: the short
+# escape's top node; a wide, short node (MM_WIDE_ROWS rows over the long
+# pair's whole db); a tall, narrow node (MM_TALL_ROWS rows a sweep over
+# MM_TALL_COLS columns, its column-0 chain below NEG_INF); MM_SCHEMES
+# random schemes on nodes of MM_SCHEME_ROWS rows over the short pair, at
+# 4, 8 and 16 lanes a thread.
+LEN_MM_SHORT, MM_EXCURSION = 6000, 500
+MM_WIDE_ROWS, MM_TALL_ROWS, MM_TALL_COLS = 200, 6000, 300
+MM_SCHEMES, MM_SCHEME_ROWS = 3, 600
 # The tiled fills' small ragged batches (bp at most): kernel #4's 16 pairs,
 # kernel #5's 1-4 (the plain versions' cost grows with the length).
 LEN_TILE_SMALL, LEN_FOLD_SMALL = 700, 1000
@@ -272,6 +292,11 @@ OPS_PER_CELL = {
     # reads (lane, row, lattice and band tests) 12, the maximum of three 2,
     # the mismatch / I / D tests 3, the next state 3 = 20; an op emitted 2.
     "wfa step": 26, "wfa extend": 4, "wfa walk step": 20, "wfa walk op": 2,
+    # A Myers-Miller row cell (the standard model): substitution 3; the gap
+    # open from H, CC + o 1; DD's maximum and add 2; B's maximum 1; the
+    # in-row chain's input B + o + e 1, its add and maximum 2; CC's maximum
+    # 1 = 11.
+    "mm rows": 11,
 }
 KERNELS = {
     # name: (module key, wrapper, source, TPU kernel replaced)
@@ -331,6 +356,10 @@ KERNELS = {
         "wfa", "wfa_walk_cuda",
         "sequencealigning_tpu_torch/csrc/wfa.cu",
         "sequencealigning_tpu/ops/wfa.py:692"),
+    "mm_rows": (
+        "mm", "mm_rows_cuda",
+        "sequencealigning_tpu_torch/csrc/mm_rows.cu",
+        "sequencealigning_tpu/ops/mm_align.py:64"),
 }
 
 
@@ -526,6 +555,9 @@ def phase_build(csrc, out_dir):
             f"{int(r['compat'])}, wildcard {int(r['wildcard'])}: "
             f"{r['registers']} registers, spill stores {r['spill_stores']} "
             f"B, loads {r['spill_loads']} B, stack {r['stack']} B")
+    for r in csrc.kernel_resources(csrc.build_log, "mm_rows_kernel"):
+        log(f"[2 build] {r['entry']}: {r['registers']} registers, spill "
+            f"stores {r['spill_stores']} B, loads {r['spill_loads']} B")
     if out_dir:
         with open(os.path.join(out_dir, "nvcc_build.log"), "w") as f:
             f.write(csrc.build_log)
@@ -2181,41 +2213,205 @@ def phase_long(torch, port, by_path):
     finally:
         gotoh_mod.nw_banded_diag_batch = real_fill
 
-    # The escape: a ~6 kb pair with a 500 bp excursion off the diagonal,
-    # on an aligner whose long path starts at 4096 lanes and stops at band
-    # 128: Myers-Miller on the card.
-    mut, ref = make_pairs(np.random.default_rng(14), 1, 6000)[0]
-    ins = bytes(np.random.default_rng(15).choice(list(b"ACGT"), 500)
-                .astype(np.uint8))
-    esc = [(mut[:2000] + ins + mut[2000:4000] + mut[4500:], ref)]
+    # The escapes: Myers-Miller on the card, its row kernel first held
+    # against the plain version.
+    short = escape_pair(LEN_MM_SHORT, 14)
+    longp = escape_pair(LEN_LONG_PAIR, 16)
+    meas.update(mm_rows_check(torch, port, short, longp))
+    for tag, pair, was in (("mm_escape", short, " (PR 11, run 31: 6.132 s)"),
+                           ("mm_escape_long", longp, "")):
+        meas.update(mm_escape(torch, port, by_path, tag, pair, was))
+    return meas
+
+
+def escape_pair(length, seed):
+    """A pair that escapes band BAND: `length` bp at ~1% substitutions,
+    the mutant with MM_EXCURSION random bp inserted at a third of its
+    length and as many deleted 2 kb on (seeds seed, seed + 1)."""
+    mut, ref = make_pairs(np.random.default_rng(seed), 1, length)[0]
+    ins = bytes(np.random.default_rng(seed + 1).choice(
+        list(b"ACGT"), MM_EXCURSION).astype(np.uint8))
+    at = length // 3
+    return (mut[:at] + ins + mut[at:at + 2000]
+            + mut[at + 2000 + MM_EXCURSION:], ref)
+
+
+def mm_bound(fwd, rev, n):
+    """The row kernel's bound for one node: its query and db codes read
+    and its four rows written once, OPS_PER_CELL["mm rows"] a cell."""
+    cells = (fwd[1] + rev[1]) * (n + 1)
+    return bound(4 * (fwd[1] + rev[1] + 2 * (n + 1) + 4 * (n + 1)),
+                 cells * OPS_PER_CELL["mm rows"]) + (cells,)
+
+
+def mm_rows_check(torch, port, short_pair, long_pair):
+    """The Myers-Miller row kernel (both sweeps of a node a launch) against
+    its plain version on the card, every column of the four rows, and its
+    times at the two escapes' top nodes."""
+    from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
+    from sequencealigning_tpu_torch.io.encode import encode_seq
+
+    mm = port["mm"]
+
+    def seqs(pair, scheme=ScoringScheme()):
+        q, d = (np.asarray(encode_seq(x), np.int32) for x in pair)
+        return mm._Seqs(q, d, scheme, "cuda")
+
+    o = ScoringScheme().gap_open
+    short, longs = seqs(short_pair), seqs(long_pair)
+    cases = [
+        ("the short escape's top node", short,
+         short.node(0, short.m0, 0, short.n0, o, o), 0),
+        (f"wide: {MM_WIDE_ROWS} rows x {longs.n0 + 1} columns", longs,
+         longs.node(0, MM_WIDE_ROWS, 0, longs.n0, o, o), 0),
+        (f"tall: {MM_TALL_ROWS} rows a sweep x {MM_TALL_COLS + 1} columns",
+         longs, longs.node(1000, 1000 + 2 * MM_TALL_ROWS, 500,
+                           500 + MM_TALL_COLS, o, 0), 0),
+    ]
+    rng = np.random.default_rng(18)
+    for k in range(MM_SCHEMES):
+        sch = ScoringScheme(match_=int(rng.integers(1, 9)),
+                            mismatch=-int(rng.integers(1, 12)),
+                            gap_open=-int(rng.integers(0, 13)),
+                            gap_extend=-int(rng.integers(1, 8)))
+        sq = seqs(short_pair, sch)
+        qa = int(rng.integers(0, sq.m0 - MM_SCHEME_ROWS))
+        da, db_ = sorted(int(x) for x in rng.integers(0, sq.n0 + 1, 2))
+        lpt = (4, 8, 16)[k % 3]
+        cases.append((f"{lpt} lanes a thread, scheme {sch.match_}/"
+                      f"{sch.mismatch}/{sch.gap_open}/{sch.gap_extend}", sq,
+                      sq.node(qa, qa + MM_SCHEME_ROWS, da, db_,
+                              sch.gap_open, 0), lpt))
+    errs, below, first = [], False, None
+    for name, sq, (fwd, rev, n), lpt in cases:
+        args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
+        got = mm.mm_rows_cuda(*args, lpt=lpt)
+        first = got if first is None else first
+        shape = dict(mm.mm_rows_cuda.last_launch)
+        plain_ms, want = host_ms(torch, lambda: mm.node_rows_torch(*args))
+        err = int((got - want.cpu()).abs().max())
+        errs.append(err)
+        check(err == 0, f"mm_rows kernel != plain on {name}: err {err}")
+        low = int(want.min())
+        below |= low < NEG_INF
+        log(f"[15 long] mm_rows on {name} (rows {shape['rows']}, "
+            f"{shape['lanes_per_thread']} lanes a thread, {shape['strips']} "
+            f"strips a sweep): equal to the plain version on every column, "
+            f"lowest value {low}; plain {plain_ms:.1f} ms")
+    check(below, "no mm_rows case fell below NEG_INF")
+    # A hand-over that cannot be met (the sweeps' strip 0 never runs) must
+    # raise, not hang; the next launch is right again.
+    fwd, rev, n = cases[0][2]
+    args = (short.qf, short.qr, short.df, short.dr, fwd, rev, n, short.scheme)
+    t0 = time.perf_counter()
+    try:
+        mm.mm_rows_cuda(*args, first_ticket=2)
+        raised = None
+    except RuntimeError as exc:
+        raised = exc
+    stall_s = time.perf_counter() - t0
+    check(raised is not None,
+          "mm_rows: a hand-over that cannot be met did not raise")
+    check(torch.equal(mm.mm_rows_cuda(*args), first),
+          "mm_rows: the launch after a stalled one differs")
+    log(f"[15 long] mm_rows with the sweeps' strip 0 unrun raised after "
+        f"{stall_s:.2f} s ({raised}); the next launch equals the first")
+    out = {"mm_rows_errs": errs, "mm_rows_stall_s": stall_s}
+    for tag, sq, plain in (("mm_top_short", short, True),
+                           ("mm_top_long", longs, False)):
+        fwd, rev, n = sq.node(0, sq.m0, 0, sq.n0, o, o)
+        args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
+        ms = cuda_ms(torch, lambda: mm.mm_rows_cuda(*args, to_host=False))
+        call_ms = cuda_ms(torch, lambda: mm.mm_rows_cuda(*args))
+        shape = dict(mm.mm_rows_cuda.last_launch)
+        b_ms, b_by, cells = mm_bound(fwd, rev, n)
+        out.update({f"{tag}_ms": ms, f"{tag}_call_ms": call_ms,
+                    f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
+                    f"{tag}_shape": shape})
+        line = (f"[15 long] mm_rows at the {tag[7:]} escape's top node "
+                f"({fwd[1]} + {rev[1]} rows x {n + 1} columns, "
+                f"{shape['lanes_per_thread']} lanes a thread, "
+                f"{shape['strips']} strips a sweep): {ms:.3f} ms, the call "
+                f"{call_ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+                f"{100 * b_ms / ms:.2f}% of its bound {b_ms:.4f} ms, {b_by})")
+        if plain:
+            plain_ms, _ = host_ms(torch, lambda: mm.node_rows_torch(*args))
+            out[f"{tag}_plain_ms"] = plain_ms
+            line += f"; plain {plain_ms:.1f} ms"
+        log(line)
+    return out
+
+
+def mm_escape(torch, port, by_path, tag, pair, was):
+    """One escape pair through GotohAligner on cuda, its long path starting
+    at 4096 lanes and stopping at band BAND: it must reach Myers-Miller on
+    the card, launch the row kernel, and rescore to the tiled exact score.
+    Its seconds split into the node rows (launch, kernel and copy),
+    _direct_ops, the rest of mm_align, and the path before it."""
+    from sequencealigning_tpu_torch.config import (
+        AlignConfig,
+        Algo,
+        ScoringScheme,
+    )
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.models import gotoh as gotoh_mod
+
+    mm = port["mm"]
     cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
     aligner = port["models"].GotohAligner(cfg, "cuda")
-    aligner.long_pair_lanes, aligner.long_pair_max_band = 4096, BAND
-    tb = to_device(pack_batch(esc), "cuda")
-    exact = int(tiled.tiled_fold_fill_cuda(*tb, ScoringScheme(), True,
-                                           False).max())
-    mm_calls = []
-    real_mm = gotoh_mod.mm_align
-    gotoh_mod.mm_align = lambda *a, **k: mm_calls.append(k) or real_mm(*a,
-                                                                      **k)
-    path = "long pairs, Myers-Miller escape"
+    aligner.long_pair_lanes = min(aligner.long_pair_lanes, 4096)
+    aligner.long_pair_max_band = BAND
+    tb = to_device(pack_batch([pair]), "cuda")
+    exact = int(port["tiled"].tiled_fold_fill_cuda(*tb, ScoringScheme(),
+                                                   True, False).max())
+    spent = {"rows": [0.0, 0], "direct": [0.0, 0], "mm_align": [0.0, 0]}
+    devices = []
+
+    def clocked(key, fn):
+        def run(*a, **k):
+            if key == "mm_align":
+                devices.append(str(k.get("device")))
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key][0] += time.perf_counter() - t0
+                spent[key][1] += 1
+        return run
+
+    real = (mm.node_rows, mm._direct_ops, gotoh_mod.mm_align)
+    mm.node_rows = clocked("rows", real[0])
+    mm._direct_ops = clocked("direct", real[1])
+    gotoh_mod.mm_align = clocked("mm_align", real[2])
+    path = ("long pairs, Myers-Miller escape"
+            + (" at batch A's length" if tag == "mm_escape_long" else ""))
     try:
         with path_launches(port, by_path, path):
             t0 = time.perf_counter()
-            res = aligner.align_batch(records(esc))
+            res = aligner.align_batch(records([pair]))
             secs = time.perf_counter() - t0
     finally:
-        gotoh_mod.mm_align = real_mm
-    check(mm_calls and str(mm_calls[0].get("device")) == "cuda",
-          f"the escape pair did not reach Myers-Miller on the card: "
-          f"{mm_calls}")
-    check_results(res, esc, cfg.scoring, path, compat=True)
+        mm.node_rows, mm._direct_ops, gotoh_mod.mm_align = real
+    check(devices == ["cuda"], f"{path}: the pair did not reach Myers-Miller "
+          f"on the card: {devices}")
+    check(by_path.get("mm_rows", {}).get(path, 0) > 0,
+          f"{path} never launched mm_rows")
+    check_results(res, [pair], cfg.scoring, path, compat=True)
     check(res[0].score == exact, f"{path}: score {res[0].score} != {exact}")
-    log(f"[15 long] {path}: {len(esc[0][0])} x {len(esc[0][1])} bp in "
-        f"{secs:.3f} s; Myers-Miller's alignment rescores to the exact "
+    rows_s, direct_s, mm_s = (spent[k][0] for k in ("rows", "direct",
+                                                    "mm_align"))
+    split = dict(total_s=secs, rows_s=rows_s, nodes=spent["rows"][1],
+                 direct_ops_s=direct_s, leaves=spent["direct"][1],
+                 mm_rest_s=mm_s - rows_s - direct_s, before_mm_s=secs - mm_s)
+    log(f"[15 long] {path}: {len(pair[0])} x {len(pair[1])} bp in "
+        f"{secs:.3f} s{was}: node rows {rows_s:.3f} s ({split['nodes']} "
+        f"launches with their copies), _direct_ops {direct_s:.3f} s "
+        f"({split['leaves']} leaves), the rest of mm_align "
+        f"{split['mm_rest_s']:.3f} s, the path before it "
+        f"{split['before_mm_s']:.3f} s; the alignment rescores to the exact "
         f"score {exact}")
-    meas.update(mm_escape_s=secs)
-    return meas
+    return {f"{tag}_s": secs, f"{tag}_split": split}
 
 
 def long_walk(torch, port, pairs, fill_out, plan, name, band):
@@ -3795,6 +3991,7 @@ def run(args):
         nw_affine_tiled,
         nw_banded,
         nw_banded_diag,
+        mm_align,
         nw_linear,
         traceback_device,
         wfa,
@@ -3805,7 +4002,7 @@ def run(args):
             "modes": nw_affine_modes, "smodes": nw_affine_stream_modes,
             "banded": nw_banded_diag, "tiled": nw_affine_tiled,
             "nw": nw_affine, "row": nw_banded, "linear": nw_linear,
-            "wfa": wfa}
+            "wfa": wfa, "mm": mm_align}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     by_path = {}
@@ -3989,6 +4186,7 @@ def kernel_entries(meas, by_path):
             v for k, v in meas.items()
             if k.startswith("wfa_fill_") and k.endswith("_err")],
         "wfa_walk": [meas["wfa_walk_err"]],
+        "mm_rows": meas["mm_rows_errs"],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -4020,6 +4218,9 @@ def kernel_entries(meas, by_path):
                      "and the chunks the fill loop queues"),
         "wfa_walk": ("wfa_walk_c3", f"{N_WFA} x {LEN_WFA} bp (config 3) band "
                      f"{WFA_BAND}, every pair's walk"),
+        "mm_rows": ("mm_top_short", "the top node of the "
+                    f"{LEN_MM_SHORT} bp escape, both sweeps, the kernel "
+                    "alone (no copy)"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces) in KERNELS.items():
@@ -4128,6 +4329,14 @@ def kernel_entries(meas, by_path):
                 alignments_per_s={e: meas[f"wfa_{e}_alignments_per_s"]
                                   for e in ("auto", "banded", "native",
                                             "wavefront")})
+        if name == "mm_rows":
+            entry.update(
+                call_ms=meas["mm_top_short_call_ms"],
+                launch=meas["mm_top_short_shape"],
+                top_node_long={k: meas[f"mm_top_long_{k}"] for k in (
+                    "ms", "call_ms", "bound_ms", "bound_by", "shape")},
+                escapes={k: meas[f"{k}_split"] for k in (
+                    "mm_escape", "mm_escape_long")})
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

@@ -31,11 +31,11 @@ BUILD_DIR = os.path.join(
 _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
                  "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
                  "nw_banded.cu", "nw_linear.cu", "traceback_device.cu",
-                 "wfa.cu")
+                 "wfa.cu", "mm_rows.cu")
 _HEADERS = ("nw_affine_stream.cuh", "pair_sweep.cuh", "cluster_split.cuh",
             "stream_ring.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
-            "nw_linear.cuh", "traceback_device.cuh", "wfa.cuh")
+            "nw_linear.cuh", "traceback_device.cuh", "wfa.cuh", "mm_rows.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -205,6 +205,10 @@ def kernels() -> ctypes.CDLL:
     lib.sa_wfa_walk.restype = _INT
     lib.sa_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT, _VP]
+    lib.sa_mm_rows_lpt.restype = _INT
+    lib.sa_mm_rows_lpt.argtypes = [_INT, _INT]
+    lib.sa_mm_rows.restype = _INT
+    lib.sa_mm_rows.argtypes = [_VP] * 7 + [_INT] * 14 + [_VP]
     _kernels = lib
     return lib
 
@@ -347,5 +351,7 @@ def host_check() -> ctypes.CDLL:
     lib.hc_wfa_walk.restype = _INT
     lib.hc_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT]
+    lib.hc_mm_rows.restype = _INT
+    lib.hc_mm_rows.argtypes = [_VP] * 7 + [_INT] * 14
     _host = lib
     return lib

@@ -12,7 +12,8 @@
 // sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
 // (their tile and strip schedules run serially, tickets in order),
 // sa_walk_fast4, sa_walk_modes and sa_walk_banded, sa_wfa_chunk and
-// sa_wfa_walk (minus the stream).  The
+// sa_wfa_walk, sa_mm_rows (its strip tickets run serially, in order) (minus
+// the stream).  The
 // streamed and per-pair fills run their warp-ring schedules serially, chunk
 // by chunk and warp by warp.
 #include <stddef.h>
@@ -24,6 +25,7 @@
 #include <vector>
 
 #include "cluster_split.cuh"
+#include "mm_rows.cuh"
 #include "nw_affine_stream.cuh"
 #include "nw_affine_tiled.cuh"
 #include "nw_banded.cuh"
@@ -1647,6 +1649,113 @@ extern "C" int hc_wfa_walk(const int16_t* hist, int S, int Bh, int K,
                                 t0[b], live[b] != 0, budget[b], x_pen, o_pen,
                                 e_pen, packed + static_cast<int64_t>(b) * W,
                                 &n_ops[b]);
+  }
+  return 0;
+}
+
+namespace {
+
+// One ticket of sa_mm_rows, run by one host "warp": the strip's rows in
+// order, a group of kMmGroup rows after its left strip has published them
+// (kRingUnmet when it has not: a wait that would not hold in ticket order),
+// its 32 threads' lanes in a loop, the warp's scan a serial maximum.
+template <int LPT>
+int mm_strip_host(const sa::MmSweep& w, int sweep, int strip, int n, int S,
+                  int rows, const sa::Scheme& sc, int32_t* out,
+                  int32_t* bnd, int32_t* ctr) {
+  constexpr int kT = sa::kMmWarpLanes;
+  constexpr int W = kT * LPT;
+  const int32_t e = sc.gap_extend;
+  std::vector<int32_t> CC(W), DD(W), B(W), dc(W), A(kT);
+  for (int l = 0; l < W; ++l) {
+    const int j = strip * W + l;
+    CC[l] = sa::mm_cc0(j, sc);
+    DD[l] = sa::kNegInf;
+    dc[l] = sa::mm_dcode(w, j, n);
+  }
+  int32_t* my = bnd + sa::mm_bnd_offset(sweep, strip, S, rows);
+  const int32_t* left =
+      strip > 0 ? bnd + sa::mm_bnd_offset(sweep, strip - 1, S, rows)
+                : nullptr;
+  int32_t* prog = ctr + 2 + sweep * S;
+  my[0] = CC[W - 1];
+  for (int i0 = 1; i0 <= w.m; i0 += sa::kMmGroup) {
+    const int cnt = std::min(sa::kMmGroup, w.m - i0 + 1);
+    if (left != nullptr && prog[strip - 1] < i0 + cnt - 1) return -4;
+    for (int i = i0; i < i0 + cnt; ++i) {
+      const int32_t qc = w.q[w.q_off + i - 1];
+      const int32_t X = left != nullptr ? left[rows + i] : sa::kNegInf;
+      const int32_t chain = w.tb + i * e;
+      // The pre-scan halves read row i-1's CC (none writes it), then the
+      // post-scan halves write row i's.
+      for (int t = 0; t < kT; ++t) {
+        const int32_t cc_left =
+            t > 0 ? CC[t * LPT - 1]
+                  : (left != nullptr ? left[i - 1] : sa::kNegInf);
+        A[t] = sa::mm_pre<LPT>(&CC[t * LPT], &DD[t * LPT], &B[t * LPT],
+                               &dc[t * LPT], qc, cc_left,
+                               strip == 0 && t == 0, chain, sc);
+      }
+      int32_t excl = X;
+      for (int t = 0; t < kT; ++t) {
+        const int32_t key = sa::mm_key(A[t], t, LPT, sc);
+        sa::mm_post<LPT>(&CC[t * LPT], &B[t * LPT],
+                         sa::mm_e_first(excl, t, LPT, sc),
+                         strip == 0 && t == 0, chain, sc);
+        excl = sa::imax(excl, key);
+      }
+      my[i] = CC[W - 1];
+      my[rows + i] = excl + W * e;
+    }
+    prog[strip] = i0 + cnt - 1;
+  }
+  for (int l = 0; l < W; ++l) {
+    const int j = strip * W + l;
+    if (j <= n) {
+      out[static_cast<int64_t>(2 * sweep) * (n + 1) + j] = CC[l];
+      out[static_cast<int64_t>(2 * sweep + 1) * (n + 1) + j] = DD[l];
+    }
+  }
+  return 0;
+}
+
+typedef int (*HostMmStrip)(const sa::MmSweep&, int, int, int, int, int,
+                           const sa::Scheme&, int32_t*, int32_t*, int32_t*);
+
+}  // namespace
+
+// sa_mm_rows' arguments minus the stream, its tickets run serially in
+// order from ctr[0]; lpt 0 takes mm_rows.cuh's rule for 132 SMs, else 2, 4, 8 or 16
+// (2 only here: strips of 64 lanes for narrow tests).  -1 for an
+// unsupported shape, -4 for a wait that would not hold in ticket order.
+extern "C" int hc_mm_rows(const int32_t* qf, const int32_t* qr,
+                          const int32_t* df, const int32_t* dr, int32_t* out,
+                          int32_t* bnd, int32_t* ctr, int q_off_f, int m_f,
+                          int d_off_f, int tb_f, int q_off_r, int m_r,
+                          int d_off_r, int tb_r, int n, int match,
+                          int mismatch, int gap_open, int gap_extend,
+                          int lpt) {
+  if (lpt == 0) lpt = sa::mm_lanes_per_thread(n, 132);
+  HostMmStrip fn;
+  switch (lpt) {
+    case 2: fn = mm_strip_host<2>; break;
+    case 4: fn = mm_strip_host<4>; break;
+    case 8: fn = mm_strip_host<8>; break;
+    case 16: fn = mm_strip_host<16>; break;
+    default: return -1;
+  }
+  if (n < 0 || m_f < 0 || m_r < 0) return -1;
+  const int S = sa::mm_strips(n, lpt);
+  const int rows = std::max(m_f, m_r) + 1;
+  const sa::MmSweep sw[2] = {{qf, df, q_off_f, m_f, d_off_f, tb_f},
+                             {qr, dr, q_off_r, m_r, d_off_r, tb_r}};
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  while (ctr[0] < 2 * S) {
+    const int t = ctr[0]++;
+    const int sweep = sa::mm_ticket_sweep(t);
+    const int rc = fn(sw[sweep], sweep, sa::mm_ticket_strip(t), n, S, rows,
+                      sc, out, bnd, ctr);
+    if (rc != 0) return rc;
   }
   return 0;
 }

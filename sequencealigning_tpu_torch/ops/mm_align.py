@@ -3,11 +3,14 @@ O(n1 + n2) memory for pairs of any length (the port of ops/mm_align.py).
 
 The long-pair path's fallback when the optimum escapes every band
 (models.gotoh._long_batch): the classic Myers-Miller (1988) recursion over
-the split row.  The linear-memory score rows are a row sweep in torch ops on
-the aligner's device -- the in-row D chain linearised to a prefix maximum
-(``torch.cummax``) -- launched once a row; subproblems address the whole
-forward and reversed sequences on the device by offset, and the row width is
-bucketed to powers of two, as in the JAX package.  Subproblems below
+the split row.  Each node of the recursion needs two linear-memory score
+rows: the forward rows of its top half and the reverse rows of its bottom
+half.  On CUDA both come from one launch of the row kernel
+(csrc/mm_rows.cu, ``mm_rows_cuda``; it replaces the JAX package's
+``_rows_fn``) and one copy to the host; on the CPU from the plain version,
+``rows_torch``, a row sweep in torch ops (the in-row D chain linearised to
+a prefix maximum, ``torch.cummax``).  Subproblems address the whole
+forward and reversed sequences on the device by offset.  Subproblems below
 ``_DIRECT_CELLS`` cells are solved directly on the host (numpy, the JAX
 package's code).
 
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sequencealigning_tpu_torch import csrc
 from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
 from sequencealigning_tpu_torch.io.encode import encode_seq
 
@@ -86,6 +90,93 @@ def rows_torch(q_ext: torch.Tensor, d_ext: torch.Tensor, q_off: int, m: int,
     return CC, DD
 
 
+def node_rows_torch(qf, qr, df, dr, fwd, rev, n: int,
+                    scheme: ScoringScheme) -> torch.Tensor:
+    """Both sweeps of a Myers-Miller node as the plain version: (4, n + 1)
+    int32 on the sequences' device, rows_torch's CC and DD of the forward
+    sweep fwd = (q_off, m, d_off, tb) over qf/df, then those of the reverse
+    sweep rev over qr/dr (the row width bucketed to a power of two, as in
+    the JAX package)."""
+    n_pad = _pow2(n + 1)
+    out = []
+    for q, d, (q_off, m, d_off, tb) in ((qf, df, fwd), (qr, dr, rev)):
+        out.extend(r[: n + 1] for r in rows_torch(q, d, q_off, m, d_off,
+                                                  n_pad, tb, scheme))
+    return torch.stack(out)
+
+
+def mm_rows_cuda(qf, qr, df, dr, fwd, rev, n: int, scheme: ScoringScheme,
+                 lpt: int = 0, to_host: bool = True, first_ticket: int = 0):
+    """The Myers-Miller row kernel (csrc/mm_rows.cu) on CUDA tensors: both
+    sweeps of a node in one launch, the integers of node_rows_torch,
+    brought to the host in one copy as a (4, n + 1) int32 CPU tensor.
+    lpt forces the lanes a thread (4, 8 or 16; 0: the kernel's rule).
+    to_host=False returns the rows on the card and the launch's status word
+    (0-d; non-zero when a hand-over stalled) without synchronising.
+    first_ticket > 0 (tests only) skips the strips of the tickets before
+    it, so the next strip's hand-over stalls and the call raises.  Raises
+    ValueError on a CPU tensor or a sweep outside its sequences,
+    RuntimeError on a failed launch or a stalled hand-over."""
+    seqs = (qf, qr, df, dr)
+    if not all(t.is_cuda for t in seqs):
+        raise ValueError("mm_rows_cuda needs CUDA tensors")
+    if not all(t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous()
+               and t.device == qf.device for t in seqs):
+        raise ValueError("mm_rows_cuda takes contiguous 1-D int32 sequences "
+                         "on one device")
+    for q, d, (q_off, m, d_off, _tb) in ((qf, df, fwd), (qr, dr, rev)):
+        if (n < 0 or m < 0 or q_off < 0 or d_off < 0
+                or q_off + m > q.numel() or d_off + n >= d.numel()):
+            raise ValueError(f"sweep {(q_off, m, d_off)} x {n + 1} columns "
+                             "lies outside its sequences")
+    lib = csrc.kernels()
+    dev = qf.device
+    with torch.cuda.device(dev):
+        lanes = lib.sa_mm_rows_lpt(n, lpt)
+        if lanes == 0:
+            raise ValueError(f"the row kernel has no {lpt}-lane instance")
+        strips = -(-(n + 1) // (32 * lanes))
+        rows = max(fwd[1], rev[1]) + 1
+        # [0] ticket, [1] status, 2 * strips progress counts, then the rows.
+        head = 2 + 2 * strips
+        buf = torch.zeros(head + 4 * (n + 1), dtype=torch.int32, device=dev)
+        if first_ticket:
+            buf[0] = first_ticket
+        bnd = torch.empty(4 * strips * rows, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sa_mm_rows(
+            *(t.data_ptr() for t in seqs), buf[head:].data_ptr(),
+            bnd.data_ptr(), buf.data_ptr(), *fwd, *rev, n, scheme.match_,
+            scheme.mismatch, scheme.gap_open, scheme.gap_extend, lpt, stream)
+    if rc != 0:
+        raise csrc.launch_error("sa_mm_rows", rc)
+    mm_rows_cuda.launches += 1
+    mm_rows_cuda.last_launch = dict(lanes_per_thread=lanes, strips=strips,
+                                    rows=(fwd[1], rev[1]), columns=n + 1)
+    if not to_host:
+        return buf[head:].view(4, n + 1), buf[1]
+    host = buf.cpu()
+    if int(host[1]):
+        raise RuntimeError("sa_mm_rows: a strip's hand-over stalled")
+    return host[head:].view(4, n + 1)
+
+
+mm_rows_cuda.launches = 0
+mm_rows_cuda.last_launch = {}
+
+
+def node_rows(qf, qr, df, dr, fwd, rev, n: int,
+              scheme: ScoringScheme) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors:
+    (4, n + 1) int32 (on the host from the kernel)."""
+    args = (qf, qr, df, dr, fwd, rev, n, scheme)
+    if qf.is_cuda:
+        return mm_rows_cuda(*args)
+    if qf.device.type != "cpu":
+        raise ValueError(f"unsupported device {qf.device}")
+    return node_rows_torch(*args)
+
+
 class _Seqs:
     """The forward and reversed sequence arrays of one mm_align problem on
     one device (one upload; subproblems address them by offset)."""
@@ -109,21 +200,38 @@ class _Seqs:
         self.qf, self.qr, self.df, self.dr = (
             torch.from_numpy(a).to(device) for a in (qf, qr, df, dr))
 
+    def node(self, qa: int, qb: int, da: int, db_: int, tb: int, te: int):
+        """The two sweeps of the node q[qa:qb] x d[da:db_], (fwd, rev, n):
+        forward over q[qa:qa+mid] from tb; backward from te on reversed-
+        array offsets (q[qa+mid:qb] reversed starts at m0 - qb, d[da:db_]
+        at n0 - db_)."""
+        m = qb - qa
+        mid = m // 2
+        return ((qa, mid, da, tb),
+                (self.m0 - qb, m - mid, self.n0 - db_, te), db_ - da)
+
+    def node_rows(self, fwd, rev, n: int):
+        """A node's four numpy rows (n+1,): CC, DD of the forward sweep fwd
+        = (q_off, m, d_off, tb) and RR, SS of the reverse sweep rev, whose
+        offsets index the reversed arrays (the caller maps coordinates)."""
+        out = node_rows(self.qf, self.qr, self.df, self.dr, fwd, rev, n,
+                        self.scheme)
+        return tuple(out.cpu().numpy().astype(np.int64))
+
     def rows(self, reverse: bool, q_off: int, m: int, d_off: int, n: int,
              tb: int):
-        """(CC, DD) numpy rows (n+1,).  With reverse=True the offsets index
-        the reversed arrays (the caller maps coordinates)."""
-        q = self.qr if reverse else self.qf
-        d = self.dr if reverse else self.df
-        CC, DD = rows_torch(q, d, q_off, m, d_off, _pow2(n + 1), tb,
-                            self.scheme)
-        return (CC[: n + 1].cpu().numpy().astype(np.int64),
-                DD[: n + 1].cpu().numpy().astype(np.int64))
+        """(CC, DD) numpy rows (n+1,) of one sweep (the other sweep of the
+        launch idle).  With reverse=True the offsets index the reversed
+        arrays."""
+        sweep, idle = (q_off, m, d_off, tb), (0, 0, 0, 0)
+        if reverse:
+            return self.node_rows(idle, sweep, n)[2:]
+        return self.node_rows(sweep, idle, n)[:2]
 
 
 # Subproblems below this cell count solve directly (vectorized numpy DP +
-# traceback): the recursion is launch-bound otherwise (two row sweeps per
-# node, O(m) nodes).
+# traceback): the recursion is launch-bound otherwise (one row launch and
+# one copy a node, O(m) nodes).
 _DIRECT_CELLS = 1 << 20
 
 
@@ -225,10 +333,7 @@ def _diff(sq: _Seqs, q_codes, d_codes, qa: int, qb: int, da: int, db_: int,
         )
         return
     mid = m // 2
-    CC, DD = sq.rows(False, qa, mid, da, n, tb)
-    # Backward: reversed-array offsets.  q[qa+mid:qb] reversed starts at
-    # m0 - qb; d[da:db_] reversed starts at n0 - db_.
-    RR, SS = sq.rows(True, sq.m0 - qb, m - mid, sq.n0 - db_, n, te)
+    CC, DD, RR, SS = sq.node_rows(*sq.node(qa, qb, da, db_, tb, te))
     type1 = CC + RR[::-1]
     type2 = DD + SS[::-1] - o
     j1 = int(np.argmax(type1))
