@@ -95,11 +95,14 @@ in the phases below and exits non-zero at the first failure:
    512) timed on its own; every pair aligned, consuming
    its sequences and rescoring to the tiled exact score, the rounds each
    pair took recorded; then the Myers-Miller row kernel (both sweeps of a
-   node a launch) against its plain version, every column: a ~6 kb
-   escape's top node, a wide node (200 rows x 100 kb), a tall one (6000
-   rows a sweep, its column-0 chain below NEG_INF) and random schemes at
-   4, 8 and 16 lanes a thread, timed at the ~6 kb and 100 kb escapes' top
-   nodes; then those two pairs, each escaping the (lowered) band cap, are
+   node a launch) against its plain version, every column, at widths
+   whose lane rule picks 4, 8 and 16 lanes a thread as the 100 kb escape
+   does: a ~6 kb escape's top node, a 50 kb node (3000 rows a sweep), a
+   wide node (8000 rows a sweep x 100 kb), a tall one (6000 rows a sweep,
+   its column-0 chain below NEG_INF) and random schemes at widths in each
+   range; a launch whose hand-over cannot be met sets its status word;
+   the launch alone timed at the ~6 kb and 100 kb escapes' top nodes;
+   then those two pairs, each escaping the (lowered) band cap, are
    aligned by Myers-Miller on the card through GotohAligner, rescoring to
    the tiled exact score, their seconds split into the node rows,
    _direct_ops and the rest;
@@ -205,15 +208,21 @@ LEN_TILE_CHECK = 40_000
 # The Myers-Miller escapes: a LEN_MM_SHORT bp pair and one of batch A's
 # length (LEN_LONG_PAIR), each with an MM_EXCURSION bp insertion at a third
 # of its length and a deletion as long 2 kb on, on an aligner whose band
-# cap is BAND.  The row kernel against its plain version: the short
-# escape's top node; a wide, short node (MM_WIDE_ROWS rows over the long
-# pair's whole db); a tall, narrow node (MM_TALL_ROWS rows a sweep over
-# MM_TALL_COLS columns, its column-0 chain below NEG_INF); MM_SCHEMES
-# random schemes on nodes of MM_SCHEME_ROWS rows over the short pair, at
-# 4, 8 and 16 lanes a thread.
+# cap is BAND.  The row kernel against its plain version, at widths whose
+# lane rule picks each of its instances as the 100 kb escape does (4 lanes
+# a thread to ~33 kb columns, 8 to ~67 kb, then 16): the short escape's
+# top node; a node of MM_MID_ROWS rows a sweep over MM_MID_COLS columns, a
+# level-1 node's width; a wide node of MM_WIDE_ROWS rows a sweep over the
+# long pair's whole db (some 200 strips a sweep, rows handed over 32 at a
+# time); a tall, narrow node (MM_TALL_ROWS rows a sweep over MM_TALL_COLS
+# columns, its column-0 chain below NEG_INF); MM_SCHEMES random schemes on
+# nodes of MM_SCHEME_ROWS rows over the long pair, their widths in turn in
+# the ranges of MM_SCHEME_WIDTHS.
 LEN_MM_SHORT, MM_EXCURSION = 6000, 500
-MM_WIDE_ROWS, MM_TALL_ROWS, MM_TALL_COLS = 200, 6000, 300
+MM_MID_ROWS, MM_MID_COLS = 3000, 50_000
+MM_WIDE_ROWS, MM_TALL_ROWS, MM_TALL_COLS = 8000, 6000, 300
 MM_SCHEMES, MM_SCHEME_ROWS = 3, 600
+MM_SCHEME_WIDTHS = ((1, 25_000), (35_000, 55_000), (70_000, LEN_LONG_PAIR))
 # The tiled fills' small ragged batches (bp at most): kernel #4's 16 pairs,
 # kernel #5's 1-4 (the plain versions' cost grows with the length).
 LEN_TILE_SMALL, LEN_FOLD_SMALL = 700, 1000
@@ -2244,14 +2253,62 @@ def mm_bound(fwd, rev, n):
                  cells * OPS_PER_CELL["mm rows"]) + (cells,)
 
 
+def mm_scratch(torch, lib, fwd, rev, n, copies=1):
+    """sa_mm_rows' buffers for a node, sized by sa_mm_rows_scratch:
+    `copies` zeroed ctr buffers (a launch each), one bnd, one (4, n + 1)
+    out; and the lanes a thread."""
+    words = np.zeros(2, np.int64)
+    lanes = lib.sa_mm_rows_scratch(n, fwd[1], rev[1], words.ctypes.data)
+    check(lanes > 0, f"sa_mm_rows_scratch returned {lanes}")
+    ctrs = [torch.zeros(int(words[0]), dtype=torch.int32, device="cuda")
+            for _ in range(copies)]
+    bnd = torch.empty(int(words[1]), dtype=torch.int32, device="cuda")
+    out = torch.empty((4, n + 1), dtype=torch.int32, device="cuda")
+    return ctrs, bnd, out, lanes
+
+
+def mm_launch(torch, lib, sq, fwd, rev, n, out, bnd, ctr):
+    """One sa_mm_rows launch on the current stream, past the wrapper (not
+    counted as a launch of the path)."""
+    s = sq.scheme
+    rc = lib.sa_mm_rows(
+        *(t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)),
+        out.data_ptr(), bnd.data_ptr(), ctr.data_ptr(), *fwd, *rev, n,
+        s.match_, s.mismatch, s.gap_open, s.gap_extend,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"sa_mm_rows launch failed ({rc})")
+
+
+def mm_launch_ms(torch, lib, sq, fwd, rev, n, repeats=3):
+    """Mean CUDA-event milliseconds of the sa_mm_rows launch alone (after
+    one warm-up launch), its buffers allocated and zeroed before the
+    events, a fresh ctr a launch; and the rows it computed."""
+    ctrs, bnd, out, _lanes = mm_scratch(torch, lib, fwd, rev, n,
+                                        repeats + 1)
+    mm_launch(torch, lib, sq, fwd, rev, n, out, bnd, ctrs[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for ctr in ctrs[1:]:
+        mm_launch(torch, lib, sq, fwd, rev, n, out, bnd, ctr)
+    end.record()
+    torch.cuda.synchronize()
+    check(all(int(c[1]) == 0 for c in ctrs), "sa_mm_rows: a timed launch "
+          "stalled")
+    return start.elapsed_time(end) / repeats, out.cpu()
+
+
 def mm_rows_check(torch, port, short_pair, long_pair):
     """The Myers-Miller row kernel (both sweeps of a node a launch) against
-    its plain version on the card, every column of the four rows, and its
-    times at the two escapes' top nodes."""
+    its plain version on the card, every column of the four rows, at widths
+    that make the lane rule pick each of its instances; a hand-over that
+    cannot be met; and the launch's time at the two escapes' top nodes."""
     from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
     from sequencealigning_tpu_torch.io.encode import encode_seq
 
     mm = port["mm"]
+    lib = port["csrc"].kernels()
 
     def seqs(pair, scheme=ScoringScheme()):
         q, d = (np.asarray(encode_seq(x), np.int32) for x in pair)
@@ -2261,12 +2318,14 @@ def mm_rows_check(torch, port, short_pair, long_pair):
     short, longs = seqs(short_pair), seqs(long_pair)
     cases = [
         ("the short escape's top node", short,
-         short.node(0, short.m0, 0, short.n0, o, o), 0),
-        (f"wide: {MM_WIDE_ROWS} rows x {longs.n0 + 1} columns", longs,
-         longs.node(0, MM_WIDE_ROWS, 0, longs.n0, o, o), 0),
+         short.node(0, short.m0, 0, short.n0, o, o)),
+        (f"mid: {MM_MID_ROWS} rows a sweep x {MM_MID_COLS + 1} columns",
+         longs, longs.node(0, 2 * MM_MID_ROWS, 0, MM_MID_COLS, o, o)),
+        (f"wide: {MM_WIDE_ROWS} rows a sweep x {longs.n0 + 1} columns",
+         longs, longs.node(0, 2 * MM_WIDE_ROWS, 0, longs.n0, o, o)),
         (f"tall: {MM_TALL_ROWS} rows a sweep x {MM_TALL_COLS + 1} columns",
          longs, longs.node(1000, 1000 + 2 * MM_TALL_ROWS, 500,
-                           500 + MM_TALL_COLS, o, 0), 0),
+                           500 + MM_TALL_COLS, o, 0)),
     ]
     rng = np.random.default_rng(18)
     for k in range(MM_SCHEMES):
@@ -2274,55 +2333,67 @@ def mm_rows_check(torch, port, short_pair, long_pair):
                             mismatch=-int(rng.integers(1, 12)),
                             gap_open=-int(rng.integers(0, 13)),
                             gap_extend=-int(rng.integers(1, 8)))
-        sq = seqs(short_pair, sch)
+        sq = seqs(long_pair, sch)
+        lo, hi = MM_SCHEME_WIDTHS[k % len(MM_SCHEME_WIDTHS)]
+        width = int(rng.integers(lo, min(hi, sq.n0) + 1))
+        da = int(rng.integers(0, sq.n0 - width + 1))
         qa = int(rng.integers(0, sq.m0 - MM_SCHEME_ROWS))
-        da, db_ = sorted(int(x) for x in rng.integers(0, sq.n0 + 1, 2))
-        lpt = (4, 8, 16)[k % 3]
-        cases.append((f"{lpt} lanes a thread, scheme {sch.match_}/"
-                      f"{sch.mismatch}/{sch.gap_open}/{sch.gap_extend}", sq,
-                      sq.node(qa, qa + MM_SCHEME_ROWS, da, db_,
-                              sch.gap_open, 0), lpt))
-    errs, below, first = [], False, None
-    for name, sq, (fwd, rev, n), lpt in cases:
+        cases.append((f"scheme {sch.match_}/{sch.mismatch}/{sch.gap_open}/"
+                      f"{sch.gap_extend}, {width + 1} columns", sq,
+                      sq.node(qa, qa + MM_SCHEME_ROWS, da, da + width,
+                              sch.gap_open, 0)))
+    errs, below, first, lanes_seen, done = [], False, None, set(), []
+    for name, sq, (fwd, rev, n) in cases:
         args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
-        got = mm.mm_rows_cuda(*args, lpt=lpt)
+        got = mm.mm_rows_cuda(*args)
         first = got if first is None else first
         shape = dict(mm.mm_rows_cuda.last_launch)
+        lanes_seen.add(shape["lanes_per_thread"])
         plain_ms, want = host_ms(torch, lambda: mm.node_rows_torch(*args))
         err = int((got - want.cpu()).abs().max())
         errs.append(err)
         check(err == 0, f"mm_rows kernel != plain on {name}: err {err}")
         low = int(want.min())
         below |= low < NEG_INF
+        done.append(dict(case=name, lowest=low, plain_ms=plain_ms, **shape))
         log(f"[15 long] mm_rows on {name} (rows {shape['rows']}, "
-            f"{shape['lanes_per_thread']} lanes a thread, {shape['strips']} "
-            f"strips a sweep): equal to the plain version on every column, "
-            f"lowest value {low}; plain {plain_ms:.1f} ms")
+            f"{shape['lanes_per_thread']} lanes a thread): equal to the "
+            f"plain version on every column, lowest value {low}; plain "
+            f"{plain_ms:.1f} ms")
     check(below, "no mm_rows case fell below NEG_INF")
-    # A hand-over that cannot be met (the sweeps' strip 0 never runs) must
-    # raise, not hang; the next launch is right again.
+    check(lanes_seen == {4, 8, 16}, f"the mm_rows cases ran the instances "
+          f"{sorted(lanes_seen)}, not 4, 8 and 16 lanes a thread")
+    # A hand-over that cannot be met (tickets from 2: the sweeps' strip 0
+    # never runs) must set the status word, not hang; the next launch is
+    # right again.
     fwd, rev, n = cases[0][2]
-    args = (short.qf, short.qr, short.df, short.dr, fwd, rev, n, short.scheme)
+    ctrs, bnd, out, _lanes = mm_scratch(torch, lib, fwd, rev, n)
+    ctrs[0][0] = 2
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
-        mm.mm_rows_cuda(*args, first_ticket=2)
-        raised = None
-    except RuntimeError as exc:
-        raised = exc
+    mm_launch(torch, lib, short, fwd, rev, n, out, bnd, ctrs[0])
+    torch.cuda.synchronize()
     stall_s = time.perf_counter() - t0
-    check(raised is not None,
-          "mm_rows: a hand-over that cannot be met did not raise")
+    status = int(ctrs[0][1])
+    check(status != 0,
+          "mm_rows: a hand-over that cannot be met set no status")
+    args = (short.qf, short.qr, short.df, short.dr, fwd, rev, n, short.scheme)
     check(torch.equal(mm.mm_rows_cuda(*args), first),
           "mm_rows: the launch after a stalled one differs")
-    log(f"[15 long] mm_rows with the sweeps' strip 0 unrun raised after "
-        f"{stall_s:.2f} s ({raised}); the next launch equals the first")
-    out = {"mm_rows_errs": errs, "mm_rows_stall_s": stall_s}
+    log(f"[15 long] mm_rows with the sweeps' strip 0 unrun set its status "
+        f"word ({status}) after {stall_s:.2f} s; the next launch equals the "
+        "first")
+    out = {"mm_rows_errs": errs, "mm_rows_cases": done,
+           "mm_rows_stall_s": stall_s}
     for tag, sq, plain in (("mm_top_short", short, True),
                            ("mm_top_long", longs, False)):
         fwd, rev, n = sq.node(0, sq.m0, 0, sq.n0, o, o)
         args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
-        ms = cuda_ms(torch, lambda: mm.mm_rows_cuda(*args, to_host=False))
+        ms, rows = mm_launch_ms(torch, lib, sq, fwd, rev, n)
         call_ms = cuda_ms(torch, lambda: mm.mm_rows_cuda(*args))
+        check(torch.equal(rows, mm.mm_rows_cuda(*args)),
+              f"mm_rows at the {tag[7:]} top node: the timed launch != the "
+              "wrapper's")
         shape = dict(mm.mm_rows_cuda.last_launch)
         b_ms, b_by, cells = mm_bound(fwd, rev, n)
         out.update({f"{tag}_ms": ms, f"{tag}_call_ms": call_ms,
@@ -2330,10 +2401,10 @@ def mm_rows_check(torch, port, short_pair, long_pair):
                     f"{tag}_shape": shape})
         line = (f"[15 long] mm_rows at the {tag[7:]} escape's top node "
                 f"({fwd[1]} + {rev[1]} rows x {n + 1} columns, "
-                f"{shape['lanes_per_thread']} lanes a thread, "
-                f"{shape['strips']} strips a sweep): {ms:.3f} ms, the call "
-                f"{call_ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS, "
-                f"{100 * b_ms / ms:.2f}% of its bound {b_ms:.4f} ms, {b_by})")
+                f"{shape['lanes_per_thread']} lanes a thread): the launch "
+                f"{ms:.3f} ms, the call {call_ms:.3f} ms "
+                f"({cells / ms / 1e6:.1f} GCUPS, {100 * b_ms / ms:.2f}% of "
+                f"its bound {b_ms:.4f} ms, {b_by})")
         if plain:
             plain_ms, _ = host_ms(torch, lambda: mm.node_rows_torch(*args))
             out[f"{tag}_plain_ms"] = plain_ms
@@ -4219,8 +4290,9 @@ def kernel_entries(meas, by_path):
         "wfa_walk": ("wfa_walk_c3", f"{N_WFA} x {LEN_WFA} bp (config 3) band "
                      f"{WFA_BAND}, every pair's walk"),
         "mm_rows": ("mm_top_short", "the top node of the "
-                    f"{LEN_MM_SHORT} bp escape, both sweeps, the kernel "
-                    "alone (no copy)"),
+                    f"{LEN_MM_SHORT} bp escape, both sweeps, the launch "
+                    "alone (its scratch allocated and zeroed before the "
+                    "events)"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces) in KERNELS.items():

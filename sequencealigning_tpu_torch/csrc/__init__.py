@@ -205,10 +205,10 @@ def kernels() -> ctypes.CDLL:
     lib.sa_wfa_walk.restype = _INT
     lib.sa_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT, _VP]
-    lib.sa_mm_rows_lpt.restype = _INT
-    lib.sa_mm_rows_lpt.argtypes = [_INT, _INT]
+    lib.sa_mm_rows_scratch.restype = _INT
+    lib.sa_mm_rows_scratch.argtypes = [_INT] * 3 + [_VP]
     lib.sa_mm_rows.restype = _INT
-    lib.sa_mm_rows.argtypes = [_VP] * 7 + [_INT] * 14 + [_VP]
+    lib.sa_mm_rows.argtypes = [_VP] * 7 + [_INT] * 13 + [_VP]
     _kernels = lib
     return lib
 
@@ -351,6 +351,8 @@ def host_check() -> ctypes.CDLL:
     lib.hc_wfa_walk.restype = _INT
     lib.hc_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT]
+    lib.hc_mm_rows_scratch.restype = _INT
+    lib.hc_mm_rows_scratch.argtypes = [_INT] * 4 + [_VP]
     lib.hc_mm_rows.restype = _INT
     lib.hc_mm_rows.argtypes = [_VP] * 7 + [_INT] * 14
     _host = lib

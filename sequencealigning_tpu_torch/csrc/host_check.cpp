@@ -12,8 +12,8 @@
 // sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
 // (their tile and strip schedules run serially, tickets in order),
 // sa_walk_fast4, sa_walk_modes and sa_walk_banded, sa_wfa_chunk and
-// sa_wfa_walk, sa_mm_rows (its strip tickets run serially, in order) (minus
-// the stream).  The
+// sa_wfa_walk, sa_mm_rows (its strip tickets run serially, in order) and
+// sa_mm_rows_scratch (minus the stream).  The
 // streamed and per-pair fills run their warp-ring schedules serially, chunk
 // by chunk and warp by warp.
 #include <stddef.h>
@@ -1724,10 +1724,25 @@ typedef int (*HostMmStrip)(const sa::MmSweep&, int, int, int, int, int,
 
 }  // namespace
 
-// sa_mm_rows' arguments minus the stream, its tickets run serially in
-// order from ctr[0]; lpt 0 takes mm_rows.cuh's rule for 132 SMs, else 2, 4, 8 or 16
-// (2 only here: strips of 64 lanes for narrow tests).  -1 for an
-// unsupported shape, -4 for a wait that would not hold in ticket order.
+// The lanes a thread and the scratch words of hc_mm_rows (sa_mm_rows_scratch
+// planned for 132 SMs when lpt is 0; else lpt 2, 4, 8 or 16, 2 only here:
+// strips of 64 lanes for narrow tests).  -1 for an unsupported shape.
+extern "C" int hc_mm_rows_scratch(int n, int m_f, int m_r, int lpt,
+                                  int64_t* words) {
+  if (lpt == 0) lpt = sa::mm_lanes_per_thread(n, 132);
+  if ((lpt != 2 && lpt != 4 && lpt != 8 && lpt != 16) || n < 0 || m_f < 0 ||
+      m_r < 0) {
+    return -1;
+  }
+  words[0] = sa::mm_ctr_words(n, lpt);
+  words[1] = sa::mm_bnd_words(n, m_f, m_r, lpt);
+  return lpt;
+}
+
+// sa_mm_rows' arguments minus the stream, plus the lanes a thread (as
+// hc_mm_rows_scratch takes them), its tickets run serially in order from
+// ctr[0].  -1 for an unsupported shape, -4 for a wait that would not hold
+// in ticket order.
 extern "C" int hc_mm_rows(const int32_t* qf, const int32_t* qr,
                           const int32_t* df, const int32_t* dr, int32_t* out,
                           int32_t* bnd, int32_t* ctr, int q_off_f, int m_f,
@@ -1735,7 +1750,8 @@ extern "C" int hc_mm_rows(const int32_t* qf, const int32_t* qr,
                           int d_off_r, int tb_r, int n, int match,
                           int mismatch, int gap_open, int gap_extend,
                           int lpt) {
-  if (lpt == 0) lpt = sa::mm_lanes_per_thread(n, 132);
+  int64_t words[2];
+  lpt = hc_mm_rows_scratch(n, m_f, m_r, lpt, words);
   HostMmStrip fn;
   switch (lpt) {
     case 2: fn = mm_strip_host<2>; break;
@@ -1744,9 +1760,8 @@ extern "C" int hc_mm_rows(const int32_t* qf, const int32_t* qr,
     case 16: fn = mm_strip_host<16>; break;
     default: return -1;
   }
-  if (n < 0 || m_f < 0 || m_r < 0) return -1;
   const int S = sa::mm_strips(n, lpt);
-  const int rows = std::max(m_f, m_r) + 1;
+  const int rows = sa::mm_bnd_rows(m_f, m_r);
   const sa::MmSweep sw[2] = {{qf, df, q_off_f, m_f, d_off_f, tb_f},
                              {qr, dr, q_off_r, m_r, d_off_r, tb_r}};
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};

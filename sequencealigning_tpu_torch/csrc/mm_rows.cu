@@ -158,36 +158,40 @@ MmKernel pick(int lpt) {
 
 extern "C" int sa_sm_count();
 
-// Lanes a thread the launch takes for n (0 for a forced width it has no
-// instance of): forced (4, 8 or 16), or by mm_rows.cuh's rule.
-extern "C" int sa_mm_rows_lpt(int n, int forced) {
-  if (forced) return pick(forced) != nullptr ? forced : 0;
-  return sa::mm_lanes_per_thread(n, sa_sm_count());
+// The lanes a thread sa_mm_rows takes for n columns (mm_rows.cuh's rule
+// on this card's SM count), and its scratch: words[0] the int32 words of
+// ctr, words[1] those of bnd.  -1 for an unsupported shape.
+extern "C" int sa_mm_rows_scratch(int n, int m_f, int m_r, int64_t* words) {
+  const int sms = sa_sm_count();
+  if (sms <= 0 || n < 0 || m_f < 0 || m_r < 0) return -1;
+  const int lpt = sa::mm_lanes_per_thread(n, sms);
+  words[0] = sa::mm_ctr_words(n, lpt);
+  words[1] = sa::mm_bnd_words(n, m_f, m_r, lpt);
+  return lpt;
 }
 
 // Both sweeps of a node.  qf/df, qr/dr: the forward and reversed padded
 // sequences (int32 codes; d left-padded by one).  Sweep 0 reads qf/df from
 // (q_off_f, d_off_f), m_f rows, column-0 chain from tb_f; sweep 1 reads
 // qr/dr.  out: (4, n + 1) int32 (CC, DD of sweep 0, then of sweep 1).
-// bnd: 2 * S * 2 * (max(m_f, m_r) + 1) int32 scratch; ctr: 2 + 2 * S int32,
+// bnd and ctr: int32 scratch of the sizes sa_mm_rows_scratch gives, ctr
 // zeroed but for the first ticket in ctr[0] (0; 2 leaves both sweeps'
-// strip 0 unrun, a schedule that cannot be met, for tests)
-// (S = mm_strips(n, lpt)).  lpt: 0 for the rule, or 4, 8, 16.
-// Returns the cudaGetLastError() of the launch, -1 for an unsupported
-// shape.  A stalled hand-over sets ctr[1] (the wrapper raises).
+// strip 0 unrun, a schedule that cannot be met, for tests).  Returns the
+// cudaGetLastError() of the launch, -1 for an unsupported shape.  A stalled
+// hand-over sets ctr[1] (the wrapper raises).
 extern "C" int sa_mm_rows(const int32_t* qf, const int32_t* qr,
                           const int32_t* df, const int32_t* dr, int32_t* out,
                           int32_t* bnd, int32_t* ctr, int q_off_f, int m_f,
                           int d_off_f, int tb_f, int q_off_r, int m_r,
                           int d_off_r, int tb_r, int n, int match,
-                          int mismatch, int gap_open, int gap_extend, int lpt,
+                          int mismatch, int gap_open, int gap_extend,
                           void* stream) {
   const int sms = sa_sm_count();
-  lpt = sa_mm_rows_lpt(n, lpt);
-  if (lpt == 0 || sms <= 0 || n < 0 || m_f < 0 || m_r < 0) return -1;
+  if (sms <= 0 || n < 0 || m_f < 0 || m_r < 0) return -1;
+  const int lpt = sa::mm_lanes_per_thread(n, sms);
   MmKernel fn = pick(lpt);
   int S = sa::mm_strips(n, lpt);
-  int rows = (m_f > m_r ? m_f : m_r) + 1;
+  int rows = sa::mm_bnd_rows(m_f, m_r);
   const int warps_cap = kMmWarpsPerSm * sms;
   const int warps = 2 * S < warps_cap ? 2 * S : warps_cap;
   const int blocks = (warps * 32 + kMmThreads - 1) / kMmThreads;

@@ -60,6 +60,22 @@ SA_HD int mm_lanes_per_thread(int n, int sms) {
   return 16;
 }
 
+// Rows a hand-over column keeps (row 0 included) over both sweeps.
+SA_HD int mm_bnd_rows(int m_f, int m_r) {
+  return (m_f > m_r ? m_f : m_r) + 1;
+}
+
+// A launch's scratch, in int32 words: ctr holds [0] the ticket, [1] the
+// status word, then a progress count a strip of each sweep; bnd a hand-over
+// column a strip of each sweep (mm_bnd_offset).
+SA_HD int64_t mm_ctr_words(int n, int lpt) {
+  return 2 + 2 * static_cast<int64_t>(mm_strips(n, lpt));
+}
+SA_HD int64_t mm_bnd_words(int n, int m_f, int m_r, int lpt) {
+  return 2 * static_cast<int64_t>(mm_strips(n, lpt)) * 2 *
+         mm_bnd_rows(m_f, m_r);
+}
+
 // Ticket t: sweep t & 1, strip t >> 1 (a strip always after the one on
 // its left, so a wait is on a strip some running warp already holds).
 SA_HD int mm_ticket_sweep(int t) { return t & 1; }

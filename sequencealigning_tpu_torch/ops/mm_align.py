@@ -105,17 +105,11 @@ def node_rows_torch(qf, qr, df, dr, fwd, rev, n: int,
     return torch.stack(out)
 
 
-def mm_rows_cuda(qf, qr, df, dr, fwd, rev, n: int, scheme: ScoringScheme,
-                 lpt: int = 0, to_host: bool = True, first_ticket: int = 0):
+def mm_rows_cuda(qf, qr, df, dr, fwd, rev, n: int, scheme: ScoringScheme):
     """The Myers-Miller row kernel (csrc/mm_rows.cu) on CUDA tensors: both
     sweeps of a node in one launch, the integers of node_rows_torch,
     brought to the host in one copy as a (4, n + 1) int32 CPU tensor.
-    lpt forces the lanes a thread (4, 8 or 16; 0: the kernel's rule).
-    to_host=False returns the rows on the card and the launch's status word
-    (0-d; non-zero when a hand-over stalled) without synchronising.
-    first_ticket > 0 (tests only) skips the strips of the tickets before
-    it, so the next strip's hand-over stalls and the call raises.  Raises
-    ValueError on a CPU tensor or a sweep outside its sequences,
+    Raises ValueError on a CPU tensor or a sweep outside its sequences,
     RuntimeError on a failed launch or a stalled hand-over."""
     seqs = (qf, qr, df, dr)
     if not all(t.is_cuda for t in seqs):
@@ -131,30 +125,26 @@ def mm_rows_cuda(qf, qr, df, dr, fwd, rev, n: int, scheme: ScoringScheme,
                              "lies outside its sequences")
     lib = csrc.kernels()
     dev = qf.device
+    words = np.zeros(2, np.int64)  # the int32 words of ctr and of bnd
     with torch.cuda.device(dev):
-        lanes = lib.sa_mm_rows_lpt(n, lpt)
-        if lanes == 0:
-            raise ValueError(f"the row kernel has no {lpt}-lane instance")
-        strips = -(-(n + 1) // (32 * lanes))
-        rows = max(fwd[1], rev[1]) + 1
-        # [0] ticket, [1] status, 2 * strips progress counts, then the rows.
-        head = 2 + 2 * strips
+        lanes = lib.sa_mm_rows_scratch(n, fwd[1], rev[1], words.ctypes.data)
+        if lanes < 0:
+            raise RuntimeError("sa_mm_rows_scratch: no SM count")
+        head = int(words[0])
+        # ctr, then the four rows: one copy brings the status word (ctr[1])
+        # and the rows.
         buf = torch.zeros(head + 4 * (n + 1), dtype=torch.int32, device=dev)
-        if first_ticket:
-            buf[0] = first_ticket
-        bnd = torch.empty(4 * strips * rows, dtype=torch.int32, device=dev)
+        bnd = torch.empty(int(words[1]), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sa_mm_rows(
             *(t.data_ptr() for t in seqs), buf[head:].data_ptr(),
             bnd.data_ptr(), buf.data_ptr(), *fwd, *rev, n, scheme.match_,
-            scheme.mismatch, scheme.gap_open, scheme.gap_extend, lpt, stream)
+            scheme.mismatch, scheme.gap_open, scheme.gap_extend, stream)
     if rc != 0:
         raise csrc.launch_error("sa_mm_rows", rc)
     mm_rows_cuda.launches += 1
-    mm_rows_cuda.last_launch = dict(lanes_per_thread=lanes, strips=strips,
+    mm_rows_cuda.last_launch = dict(lanes_per_thread=lanes,
                                     rows=(fwd[1], rev[1]), columns=n + 1)
-    if not to_host:
-        return buf[head:].view(4, n + 1), buf[1]
     host = buf.cpu()
     if int(host[1]):
         raise RuntimeError("sa_mm_rows: a strip's hand-over stalled")

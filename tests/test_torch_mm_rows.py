@@ -28,30 +28,28 @@ def host():
     return csrc.host_check()
 
 
-def _rule_lanes(n, sms=132):
-    """mm_rows.cuh's rule: the narrowest of 4 and 8 lanes a thread whose
-    two sweeps' strips fit 4 warps an SM, else 16."""
-    for lanes in (4, 8):
-        if 2 * -(-(n + 1) // (32 * lanes)) <= 4 * sms:
-            return lanes
-    return 16
+def _scratch(host, n, m_f, m_r, lpt=0):
+    """hc_mm_rows_scratch: the lanes a thread and the int32 words of ctr and
+    of bnd."""
+    words = np.zeros(2, np.int64)
+    lanes = host.hc_mm_rows_scratch(n, m_f, m_r, lpt, words.ctypes.data)
+    return lanes, int(words[0]), int(words[1])
 
 
 def _hc_rows(host, qf, qr, df, dr, fwd, rev, n, scheme, lpt=0):
-    """hc_mm_rows on CPU tensors, as mm_rows_cuda lays out its buffers:
+    """hc_mm_rows on CPU tensors, its scratch sized by hc_mm_rows_scratch:
     (4, n + 1) int32."""
-    lanes = lpt or _rule_lanes(n)
-    strips = -(-(n + 1) // (32 * lanes))
-    rows = max(fwd[1], rev[1]) + 1
+    lanes, ctr_words, bnd_words = _scratch(host, n, fwd[1], rev[1], lpt)
+    assert lanes > 0
     out = torch.full((4, n + 1), 0x5a5a5a5a, dtype=torch.int32)
-    bnd = torch.full((4 * strips * rows,), 0x5a5a5a5a, dtype=torch.int32)
-    ctr = torch.zeros(2 + 2 * strips, dtype=torch.int32)
+    bnd = torch.full((bnd_words,), 0x5a5a5a5a, dtype=torch.int32)
+    ctr = torch.zeros(ctr_words, dtype=torch.int32)
     rc = host.hc_mm_rows(
         *(t.data_ptr() for t in (qf, qr, df, dr)), out.data_ptr(),
         bnd.data_ptr(), ctr.data_ptr(), *fwd, *rev, n, scheme.match_,
         scheme.mismatch, scheme.gap_open, scheme.gap_extend, lpt)
     assert rc == 0
-    assert int(ctr[0]) == 2 * strips and int(ctr[1]) == 0
+    assert int(ctr[0]) == ctr_words - 2 and int(ctr[1]) == 0
     return out
 
 
@@ -180,15 +178,32 @@ def test_host_rows_unmet_hand_over(host):
     on."""
     rng = np.random.default_rng(4)
     sq = _seqs(rng, 40, 200)
+    lanes, ctr_words, bnd_words = _scratch(host, 200, 20, 20, 2)
+    assert (lanes, ctr_words, bnd_words) == (2, 2 + 2 * 4, 4 * 4 * 21)
     out = torch.zeros((4, 201), dtype=torch.int32)
-    bnd = torch.zeros(4 * 4 * 21, dtype=torch.int32)
-    ctr = torch.zeros(2 + 2 * 4, dtype=torch.int32)
+    bnd = torch.zeros(bnd_words, dtype=torch.int32)
+    ctr = torch.zeros(ctr_words, dtype=torch.int32)
     ctr[0] = 2
     rc = host.hc_mm_rows(
         *(t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)),
         out.data_ptr(), bnd.data_ptr(), ctr.data_ptr(), 0, 20, 0, -8, 0,
         20, 0, -8, 200, 5, -4, -8, -6, 2)
     assert rc == -4 and int(ctr[0]) == 3
+
+
+@pytest.mark.parametrize("n,lanes", [(0, 4), (33790, 4), (33791, 4),
+                                     (33792, 8), (67583, 8), (67584, 16),
+                                     (100_000, 16), (400_000, 16)])
+def test_host_rows_lane_rule_and_scratch(host, n, lanes):
+    """The lanes a thread by width (132 SMs): 4 while both sweeps' strips
+    of 128 columns fit 4 warps an SM, then 8, then 16 at any width; ctr
+    holds the ticket, the status word and a count a strip of each sweep,
+    bnd a column of max(m) + 1 rows' pairs a strip of each sweep."""
+    got, ctr_words, bnd_words = _scratch(host, n, 300, 301)
+    strips = -(-(n + 1) // (32 * lanes))
+    assert got == lanes
+    assert ctr_words == 2 + 2 * strips
+    assert bnd_words == 2 * strips * 2 * 302
 
 
 def test_mm_rows_cuda_refuses_cpu_tensors():
