@@ -196,6 +196,9 @@ N_MAIN, LEN_MAIN = 4096, 2046
 N_BAND, LEN_BAND, BAND = 1024, 5115, 128
 # The default (full-dirs, host-walked) banded path's pairs.
 N_BAND_FULL = 64
+# Kernel #8's warp route: the band widths its 4, 8, 12 and 16 lanes-a-
+# thread instances take.
+ROW_WARP_WIDTHS = (128, 256, 384, 512)
 # The ceiling phase: a db past 8192 lanes, and one pair near the 49152-lane
 # limit of the streamed fill.
 LEN_CEIL_DB, LEN_LONG = 8300, 49150
@@ -208,20 +211,29 @@ LEN_TILE_CHECK = 40_000
 # The Myers-Miller escapes: a LEN_MM_SHORT bp pair and one of batch A's
 # length (LEN_LONG_PAIR), each with an MM_EXCURSION bp insertion at a third
 # of its length and a deletion as long 2 kb on, on an aligner whose band
-# cap is BAND.  The row kernel against its plain version, at widths whose
-# lane rule picks each of its instances as the 100 kb escape does (4 lanes
-# a thread to ~33 kb columns, 8 to ~67 kb, then 16): the short escape's
-# top node; a node of MM_MID_ROWS rows a sweep over MM_MID_COLS columns, a
-# level-1 node's width; a wide node of MM_WIDE_ROWS rows a sweep over the
-# long pair's whole db (some 200 strips a sweep, rows handed over 32 at a
-# time); a tall, narrow node (MM_TALL_ROWS rows a sweep over MM_TALL_COLS
-# columns, its column-0 chain below NEG_INF); MM_SCHEMES random schemes on
-# nodes of MM_SCHEME_ROWS rows over the long pair, their widths in turn in
-# the ranges of MM_SCHEME_WIDTHS.
+# cap is BAND.  The row kernel against its plain version, one launch a
+# level of nodes (16 lanes a thread): the short escape's top node; a node of
+# MM_MID_ROWS rows a sweep over MM_MID_COLS columns, a level-1 node's
+# width; a wide node of MM_WIDE_ROWS rows a sweep over the long pair's
+# whole db (some 200 strips a sweep, every row handed over); a tall,
+# narrow node (MM_TALL_ROWS rows a sweep over MM_TALL_COLS columns, its
+# column-0 chain below NEG_INF); MM_SCHEMES random schemes on nodes of
+# MM_SCHEME_ROWS rows over the long pair, their widths in turn in the
+# ranges of MM_SCHEME_WIDTHS; a level of several nodes (MM_LEVEL) in one
+# launch; and a level of MM_WIDE_LEVEL nodes of MM_WIDE_LEVEL_ROWS rows a
+# sweep across the whole db, whose strips outnumber the grid's warps (some
+# strips start only when others have finished).
 LEN_MM_SHORT, MM_EXCURSION = 6000, 500
 MM_MID_ROWS, MM_MID_COLS = 3000, 50_000
 MM_WIDE_ROWS, MM_TALL_ROWS, MM_TALL_COLS = 8000, 6000, 300
 MM_SCHEMES, MM_SCHEME_ROWS = 3, 600
+# A level of nodes of different widths and heights over the long pair:
+# (query start, rows a sweep, db start, columns - 1, whether the top and
+# the bottom boundary open a gap).
+MM_LEVEL = ((0, 150, 0, 1500, 1, 1), (400, 40, 2000, 33_000, 1, 0),
+            (900, 200, 40_000, 130, 0, 1), (1500, 120, 50_000, 8000, 0, 0),
+            (2000, 10, 60_000, 100, 1, 1), (2100, 300, 61_000, 20_000, 1, 0))
+MM_WIDE_LEVEL, MM_WIDE_LEVEL_ROWS = 3, 100
 MM_SCHEME_WIDTHS = ((1, 25_000), (35_000, 55_000), (70_000, LEN_LONG_PAIR))
 # The tiled fills' small ragged batches (bp at most): kernel #4's 16 pairs,
 # kernel #5's 1-4 (the plain versions' cost grows with the length).
@@ -564,7 +576,9 @@ def phase_build(csrc, out_dir):
             f"{int(r['compat'])}, wildcard {int(r['wildcard'])}: "
             f"{r['registers']} registers, spill stores {r['spill_stores']} "
             f"B, loads {r['spill_loads']} B, stack {r['stack']} B")
-    for r in csrc.kernel_resources(csrc.build_log, "mm_rows_kernel"):
+    for r in (csrc.kernel_resources(csrc.build_log, "mm_rows_kernel")
+              + csrc.kernel_resources(csrc.build_log,
+                                      "banded_row_warp_kernel")):
         log(f"[2 build] {r['entry']}: {r['registers']} registers, spill "
             f"stores {r['spill_stores']} B, loads {r['spill_loads']} B")
     if out_dir:
@@ -2245,65 +2259,74 @@ def escape_pair(length, seed):
             + mut[at + 2000 + MM_EXCURSION:], ref)
 
 
-def mm_bound(fwd, rev, n):
-    """The row kernel's bound for one node: its query and db codes read
-    and its four rows written once, OPS_PER_CELL["mm rows"] a cell."""
-    cells = (fwd[1] + rev[1]) * (n + 1)
-    return bound(4 * (fwd[1] + rev[1] + 2 * (n + 1) + 4 * (n + 1)),
-                 cells * OPS_PER_CELL["mm rows"]) + (cells,)
+def mm_bound(nodes):
+    """The row kernel's bound for a level's nodes [(fwd, rev, n)]: their
+    query and db codes read and their four rows written once,
+    OPS_PER_CELL["mm rows"] a cell; and the level's cells."""
+    cells = sum((f[1] + r[1]) * (n + 1) for f, r, n in nodes)
+    moved = sum(4 * (f[1] + r[1] + 2 * (n + 1) + 4 * (n + 1))
+                for f, r, n in nodes)
+    return bound(moved, cells * OPS_PER_CELL["mm rows"]) + (cells,)
 
 
-def mm_scratch(torch, lib, fwd, rev, n, copies=1):
-    """sa_mm_rows' buffers for a node, sized by sa_mm_rows_scratch:
-    `copies` zeroed ctr buffers (a launch each), one bnd, one (4, n + 1)
-    out; and the lanes a thread."""
-    words = np.zeros(2, np.int64)
-    lanes = lib.sa_mm_rows_scratch(n, fwd[1], rev[1], words.ctypes.data)
-    check(lanes > 0, f"sa_mm_rows_scratch returned {lanes}")
-    ctrs = [torch.zeros(int(words[0]), dtype=torch.int32, device="cuda")
+def mm_scratch(torch, lib, mm, nodes, copies=1):
+    """sa_mm_rows' buffers for a level, planned by sa_mm_rows_plan:
+    `copies` zeroed ctr and bnd buffers (a launch each), one out, the
+    planned table on the card; the lanes a thread and the tickets."""
+    plan = mm.plan_level(nodes, lib)
+    n_ctr, n_bnd, n_out, tickets = plan.words
+    ctrs = [torch.zeros(n_ctr, dtype=torch.int32, device="cuda")
             for _ in range(copies)]
-    bnd = torch.empty(int(words[1]), dtype=torch.int32, device="cuda")
-    out = torch.empty((4, n + 1), dtype=torch.int32, device="cuda")
-    return ctrs, bnd, out, lanes
+    bnds = [torch.zeros(n_bnd, dtype=torch.int32, device="cuda")
+            for _ in range(copies)]
+    out = torch.empty(n_out, dtype=torch.int32, device="cuda")
+    tab = torch.from_numpy(plan.table).to("cuda")
+    return dict(ctrs=ctrs, bnds=bnds, out=out, tab=tab, lanes=plan.lanes,
+                tickets=tickets, count=len(nodes))
 
 
-def mm_launch(torch, lib, sq, fwd, rev, n, out, bnd, ctr):
-    """One sa_mm_rows launch on the current stream, past the wrapper (not
-    counted as a launch of the path)."""
+def mm_launch(torch, lib, sq, buf, k):
+    """One sa_mm_rows launch of a planned level on the current stream, with
+    the buffers' k-th ctr and bnd, past the wrapper (not counted as a
+    launch of the path)."""
     s = sq.scheme
     rc = lib.sa_mm_rows(
         *(t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)),
-        out.data_ptr(), bnd.data_ptr(), ctr.data_ptr(), *fwd, *rev, n,
+        buf["tab"].data_ptr(), buf["count"], buf["lanes"], buf["tickets"],
+        buf["out"].data_ptr(), buf["bnds"][k].data_ptr(),
+        buf["ctrs"][k].data_ptr(),
         s.match_, s.mismatch, s.gap_open, s.gap_extend,
         torch.cuda.current_stream().cuda_stream)
     check(rc == 0, f"sa_mm_rows launch failed ({rc})")
 
 
-def mm_launch_ms(torch, lib, sq, fwd, rev, n, repeats=3):
-    """Mean CUDA-event milliseconds of the sa_mm_rows launch alone (after
-    one warm-up launch), its buffers allocated and zeroed before the
-    events, a fresh ctr a launch; and the rows it computed."""
-    ctrs, bnd, out, _lanes = mm_scratch(torch, lib, fwd, rev, n,
-                                        repeats + 1)
-    mm_launch(torch, lib, sq, fwd, rev, n, out, bnd, ctrs[0])
+def mm_launch_ms(torch, lib, mm, sq, nodes, repeats=3):
+    """Mean CUDA-event milliseconds of the sa_mm_rows launch of a level
+    alone (after one warm-up launch), its buffers allocated, planned and
+    zeroed before the events, a fresh ctr and bnd a launch; and the rows it
+    computed, flat."""
+    buf = mm_scratch(torch, lib, mm, nodes, repeats + 1)
+    mm_launch(torch, lib, sq, buf, 0)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for ctr in ctrs[1:]:
-        mm_launch(torch, lib, sq, fwd, rev, n, out, bnd, ctr)
+    for k in range(1, repeats + 1):
+        mm_launch(torch, lib, sq, buf, k)
     end.record()
     torch.cuda.synchronize()
-    check(all(int(c[1]) == 0 for c in ctrs), "sa_mm_rows: a timed launch "
-          "stalled")
-    return start.elapsed_time(end) / repeats, out.cpu()
+    check(all(int(c[1]) == 0 for c in buf["ctrs"]), "sa_mm_rows: a timed "
+          "launch stalled")
+    return start.elapsed_time(end) / repeats, buf["out"].cpu()
 
 
 def mm_rows_check(torch, port, short_pair, long_pair):
-    """The Myers-Miller row kernel (both sweeps of a node a launch) against
-    its plain version on the card, every column of the four rows, at widths
-    that make the lane rule pick each of its instances; a hand-over that
-    cannot be met; and the launch's time at the two escapes' top nodes."""
+    """The Myers-Miller row kernel (both sweeps of every node of a level a
+    launch) against its plain version on the card, every column of every
+    node's four rows, on single nodes, a level of nodes of different
+    widths and heights and a level whose strips outnumber the grid's
+    warps; a hand-over that cannot be met; and the launch's time at the two
+    escapes' top nodes and on that wide level."""
     from sequencealigning_tpu_torch.config import NEG_INF, ScoringScheme
     from sequencealigning_tpu_torch.io.encode import encode_seq
 
@@ -2316,16 +2339,26 @@ def mm_rows_check(torch, port, short_pair, long_pair):
 
     o = ScoringScheme().gap_open
     short, longs = seqs(short_pair), seqs(long_pair)
+    level = [longs.node(qa, qa + 2 * rows, da, da + cols, o * tb, o * te)
+             for qa, rows, da, cols, tb, te in MM_LEVEL]
+    wide_level = [longs.node(k * 4 * MM_WIDE_LEVEL_ROWS,
+                             (k * 4 + 2) * MM_WIDE_LEVEL_ROWS, 0, longs.n0,
+                             o, o)
+                  for k in range(MM_WIDE_LEVEL)]
     cases = [
         ("the short escape's top node", short,
-         short.node(0, short.m0, 0, short.n0, o, o)),
+         [short.node(0, short.m0, 0, short.n0, o, o)]),
         (f"mid: {MM_MID_ROWS} rows a sweep x {MM_MID_COLS + 1} columns",
-         longs, longs.node(0, 2 * MM_MID_ROWS, 0, MM_MID_COLS, o, o)),
+         longs, [longs.node(0, 2 * MM_MID_ROWS, 0, MM_MID_COLS, o, o)]),
         (f"wide: {MM_WIDE_ROWS} rows a sweep x {longs.n0 + 1} columns",
-         longs, longs.node(0, 2 * MM_WIDE_ROWS, 0, longs.n0, o, o)),
+         longs, [longs.node(0, 2 * MM_WIDE_ROWS, 0, longs.n0, o, o)]),
         (f"tall: {MM_TALL_ROWS} rows a sweep x {MM_TALL_COLS + 1} columns",
-         longs, longs.node(1000, 1000 + 2 * MM_TALL_ROWS, 500,
-                           500 + MM_TALL_COLS, o, 0)),
+         longs, [longs.node(1000, 1000 + 2 * MM_TALL_ROWS, 500,
+                            500 + MM_TALL_COLS, o, 0)]),
+        (f"a level of {len(level)} nodes, {min(n for *_x, n in level) + 1}-"
+         f"{max(n for *_x, n in level) + 1} columns", longs, level),
+        (f"a level of {MM_WIDE_LEVEL} nodes of {MM_WIDE_LEVEL_ROWS} rows a "
+         f"sweep x {longs.n0 + 1} columns", longs, wide_level),
     ]
     rng = np.random.default_rng(18)
     for k in range(MM_SCHEMES):
@@ -2340,73 +2373,85 @@ def mm_rows_check(torch, port, short_pair, long_pair):
         qa = int(rng.integers(0, sq.m0 - MM_SCHEME_ROWS))
         cases.append((f"scheme {sch.match_}/{sch.mismatch}/{sch.gap_open}/"
                       f"{sch.gap_extend}, {width + 1} columns", sq,
-                      sq.node(qa, qa + MM_SCHEME_ROWS, da, da + width,
-                              sch.gap_open, 0)))
+                      [sq.node(qa, qa + MM_SCHEME_ROWS, da, da + width,
+                               sch.gap_open, 0)]))
     errs, below, first, lanes_seen, done = [], False, None, set(), []
-    for name, sq, (fwd, rev, n) in cases:
-        args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
-        got = mm.mm_rows_cuda(*args)
+    for name, sq, nodes in cases:
+        seq4 = (sq.qf, sq.qr, sq.df, sq.dr)
+        got = mm.mm_rows_cuda(*seq4, nodes, sq.scheme)
         first = got if first is None else first
         shape = dict(mm.mm_rows_cuda.last_launch)
         lanes_seen.add(shape["lanes_per_thread"])
-        plain_ms, want = host_ms(torch, lambda: mm.node_rows_torch(*args))
-        err = int((got - want.cpu()).abs().max())
+        if nodes is wide_level:
+            wide_warps = shape["warps"]
+        plain_ms, want = host_ms(torch, lambda: [
+            mm.node_rows_torch(*seq4, *node, sq.scheme) for node in nodes])
+        err = max(int((g - w.cpu()).abs().max()) for g, w in zip(got, want))
         errs.append(err)
         check(err == 0, f"mm_rows kernel != plain on {name}: err {err}")
-        low = int(want.min())
+        low = min(int(w.min()) for w in want)
         below |= low < NEG_INF
         done.append(dict(case=name, lowest=low, plain_ms=plain_ms, **shape))
-        log(f"[15 long] mm_rows on {name} (rows {shape['rows']}, "
+        log(f"[15 long] mm_rows on {name} ({shape['warps']} warps, "
             f"{shape['lanes_per_thread']} lanes a thread): equal to the "
-            f"plain version on every column, lowest value {low}; plain "
-            f"{plain_ms:.1f} ms")
+            f"plain version on every column of every node, lowest value "
+            f"{low}; plain {plain_ms:.1f} ms")
     check(below, "no mm_rows case fell below NEG_INF")
-    check(lanes_seen == {4, 8, 16}, f"the mm_rows cases ran the instances "
-          f"{sorted(lanes_seen)}, not 4, 8 and 16 lanes a thread")
-    # A hand-over that cannot be met (tickets from 2: the sweeps' strip 0
-    # never runs) must set the status word, not hang; the next launch is
-    # right again.
-    fwd, rev, n = cases[0][2]
-    ctrs, bnd, out, _lanes = mm_scratch(torch, lib, fwd, rev, n)
-    ctrs[0][0] = 2
+    check(lanes_seen == {16}, f"the mm_rows cases ran the instances "
+          f"{sorted(lanes_seen)}, not 16 lanes a thread")
+    # A hand-over that cannot be met (tickets from 2: the level's first
+    # node's strips 0 never run) must set the status word, not hang; the
+    # next launch is right again.
+    buf = mm_scratch(torch, lib, mm, level)
+    buf["ctrs"][0][0] = 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mm_launch(torch, lib, short, fwd, rev, n, out, bnd, ctrs[0])
+    mm_launch(torch, lib, longs, buf, 0)
     torch.cuda.synchronize()
     stall_s = time.perf_counter() - t0
-    status = int(ctrs[0][1])
+    status = int(buf["ctrs"][0][1])
     check(status != 0,
-          "mm_rows: a hand-over that cannot be met set no status")
-    args = (short.qf, short.qr, short.df, short.dr, fwd, rev, n, short.scheme)
-    check(torch.equal(mm.mm_rows_cuda(*args), first),
+          "mm_rows: a level's hand-over that cannot be met set no status")
+    seq4 = (short.qf, short.qr, short.df, short.dr)
+    check(torch.equal(mm.mm_rows_cuda(*seq4, cases[0][2], short.scheme)[0],
+                      first[0]),
           "mm_rows: the launch after a stalled one differs")
-    log(f"[15 long] mm_rows with the sweeps' strip 0 unrun set its status "
-        f"word ({status}) after {stall_s:.2f} s; the next launch equals the "
-        "first")
+    log(f"[15 long] mm_rows on the level of {len(level)} nodes with its "
+        f"first node's strips 0 unrun set its status word ({status}) after "
+        f"{stall_s:.2f} s; the next launch equals the first")
+    wide_ms, _rows = mm_launch_ms(torch, lib, mm, longs, wide_level)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[15 long] mm_rows on the level of {MM_WIDE_LEVEL} nodes across "
+        f"the long pair's db ({wide_warps} strips, {sms} SMs): the launch "
+        f"{wide_ms:.3f} ms")
     out = {"mm_rows_errs": errs, "mm_rows_cases": done,
-           "mm_rows_stall_s": stall_s}
+           "mm_rows_stall_s": stall_s, "mm_wide_level_ms": wide_ms}
     for tag, sq, plain in (("mm_top_short", short, True),
                            ("mm_top_long", longs, False)):
-        fwd, rev, n = sq.node(0, sq.m0, 0, sq.n0, o, o)
-        args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
-        ms, rows = mm_launch_ms(torch, lib, sq, fwd, rev, n)
-        call_ms = cuda_ms(torch, lambda: mm.mm_rows_cuda(*args))
-        check(torch.equal(rows, mm.mm_rows_cuda(*args)),
+        nodes = [sq.node(0, sq.m0, 0, sq.n0, o, o)]
+        seq4 = (sq.qf, sq.qr, sq.df, sq.dr)
+        ms, rows = mm_launch_ms(torch, lib, mm, sq, nodes)
+        call_ms = cuda_ms(torch, lambda: mm.mm_rows_cuda(*seq4, nodes,
+                                                         sq.scheme))
+        check(torch.equal(rows.view(4, -1),
+                          mm.mm_rows_cuda(*seq4, nodes, sq.scheme)[0]),
               f"mm_rows at the {tag[7:]} top node: the timed launch != the "
               "wrapper's")
         shape = dict(mm.mm_rows_cuda.last_launch)
-        b_ms, b_by, cells = mm_bound(fwd, rev, n)
+        b_ms, b_by, cells = mm_bound(nodes)
+        (fwd, rev, n), = nodes
         out.update({f"{tag}_ms": ms, f"{tag}_call_ms": call_ms,
                     f"{tag}_bound_ms": b_ms, f"{tag}_bound_by": b_by,
                     f"{tag}_shape": shape})
         line = (f"[15 long] mm_rows at the {tag[7:]} escape's top node "
                 f"({fwd[1]} + {rev[1]} rows x {n + 1} columns, "
-                f"{shape['lanes_per_thread']} lanes a thread): the launch "
-                f"{ms:.3f} ms, the call {call_ms:.3f} ms "
-                f"({cells / ms / 1e6:.1f} GCUPS, {100 * b_ms / ms:.2f}% of "
-                f"its bound {b_ms:.4f} ms, {b_by})")
+                f"{shape['lanes_per_thread']} lanes a thread, "
+                f"{shape['warps']} warps): the launch {ms:.3f} ms, the call "
+                f"{call_ms:.3f} ms ({cells / ms / 1e6:.1f} GCUPS, "
+                f"{100 * b_ms / ms:.2f}% of its bound {b_ms:.4f} ms, {b_by})")
         if plain:
-            plain_ms, _ = host_ms(torch, lambda: mm.node_rows_torch(*args))
+            plain_ms, _ = host_ms(torch, lambda: mm.node_rows_torch(
+                *seq4, *nodes[0], sq.scheme))
             out[f"{tag}_plain_ms"] = plain_ms
             line += f"; plain {plain_ms:.1f} ms"
         log(line)
@@ -2417,15 +2462,16 @@ def mm_escape(torch, port, by_path, tag, pair, was):
     """One escape pair through GotohAligner on cuda, its long path starting
     at 4096 lanes and stopping at band BAND: it must reach Myers-Miller on
     the card, launch the row kernel, and rescore to the tiled exact score.
-    Its seconds split into the node rows (launch, kernel and copy),
-    _direct_ops, the rest of mm_align, and the path before it."""
+    Its seconds split into the level calls (launch, kernel and copy),
+    _direct_ops, the rest of mm_align, and the path before it; then each
+    level's launch alone is timed on its recorded nodes."""
     from sequencealigning_tpu_torch.config import (
         AlignConfig,
         Algo,
         ScoringScheme,
     )
     from sequencealigning_tpu_torch.device import to_device
-    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.io.encode import encode_seq, pack_batch
     from sequencealigning_tpu_torch.models import gotoh as gotoh_mod
 
     mm = port["mm"]
@@ -2437,7 +2483,7 @@ def mm_escape(torch, port, by_path, tag, pair, was):
     exact = int(port["tiled"].tiled_fold_fill_cuda(*tb, ScoringScheme(),
                                                    True, False).max())
     spent = {"rows": [0.0, 0], "direct": [0.0, 0], "mm_align": [0.0, 0]}
-    devices = []
+    devices, levels = [], []
 
     def clocked(key, fn):
         def run(*a, **k):
@@ -2449,10 +2495,14 @@ def mm_escape(torch, port, by_path, tag, pair, was):
             finally:
                 spent[key][0] += time.perf_counter() - t0
                 spent[key][1] += 1
+                if key == "rows":
+                    levels.append(dict(
+                        node_list=list(a[4]), call_s=time.perf_counter() - t0,
+                        **mm.mm_rows_cuda.last_launch))
         return run
 
-    real = (mm.node_rows, mm._direct_ops, gotoh_mod.mm_align)
-    mm.node_rows = clocked("rows", real[0])
+    real = (mm.level_rows, mm._direct_ops, gotoh_mod.mm_align)
+    mm.level_rows = clocked("rows", real[0])
     mm._direct_ops = clocked("direct", real[1])
     gotoh_mod.mm_align = clocked("mm_align", real[2])
     path = ("long pairs, Myers-Miller escape"
@@ -2463,26 +2513,45 @@ def mm_escape(torch, port, by_path, tag, pair, was):
             res = aligner.align_batch(records([pair]))
             secs = time.perf_counter() - t0
     finally:
-        mm.node_rows, mm._direct_ops, gotoh_mod.mm_align = real
+        mm.level_rows, mm._direct_ops, gotoh_mod.mm_align = real
     check(devices == ["cuda"], f"{path}: the pair did not reach Myers-Miller "
           f"on the card: {devices}")
-    check(by_path.get("mm_rows", {}).get(path, 0) > 0,
-          f"{path} never launched mm_rows")
+    launches = by_path.get("mm_rows", {}).get(path, 0)
+    check(launches == len(levels) > 0,
+          f"{path} launched mm_rows {launches} times over {len(levels)} "
+          "levels")
     check_results(res, [pair], cfg.scoring, path, compat=True)
     check(res[0].score == exact, f"{path}: score {res[0].score} != {exact}")
     rows_s, direct_s, mm_s = (spent[k][0] for k in ("rows", "direct",
                                                     "mm_align"))
-    split = dict(total_s=secs, rows_s=rows_s, nodes=spent["rows"][1],
+    split = dict(total_s=secs, rows_s=rows_s, levels=spent["rows"][1],
+                 nodes=sum(v["nodes"] for v in levels),
                  direct_ops_s=direct_s, leaves=spent["direct"][1],
                  mm_rest_s=mm_s - rows_s - direct_s, before_mm_s=secs - mm_s)
     log(f"[15 long] {path}: {len(pair[0])} x {len(pair[1])} bp in "
-        f"{secs:.3f} s{was}: node rows {rows_s:.3f} s ({split['nodes']} "
-        f"launches with their copies), _direct_ops {direct_s:.3f} s "
-        f"({split['leaves']} leaves), the rest of mm_align "
+        f"{secs:.3f} s{was}: level rows {rows_s:.3f} s ({split['levels']} "
+        f"launches with their copies, {split['nodes']} nodes), _direct_ops "
+        f"{direct_s:.3f} s ({split['leaves']} leaves), the rest of mm_align "
         f"{split['mm_rest_s']:.3f} s, the path before it "
         f"{split['before_mm_s']:.3f} s; the alignment rescores to the exact "
         f"score {exact}")
-    return {f"{tag}_s": secs, f"{tag}_split": split}
+    # Each level's launch alone, on the nodes it was given.
+    lib = port["csrc"].kernels()
+    q, d = (np.asarray(encode_seq(x), np.int32) for x in pair)
+    sq = mm._Seqs(q, d, ScoringScheme(), "cuda")
+    for k, lv in enumerate(levels):
+        ms, _rows = mm_launch_ms(torch, lib, mm, sq, lv["node_list"])
+        b_ms, b_by, cells = mm_bound(lv.pop("node_list"))
+        lv.update(ms=ms, bound_ms=b_ms, bound_by=b_by, cells=cells)
+        log(f"[15 long] {path}, level {k}: {lv['nodes']} nodes, "
+            f"{min(lv['columns'])}-{max(lv['columns'])} columns, "
+            f"{lv['lanes_per_thread']} lanes a thread, {lv['warps']} warps: "
+            f"the launch {ms:.3f} ms ({100 * b_ms / ms:.1f}% of its bound "
+            f"{b_ms:.4f} ms, {b_by}), the call {1e3 * lv['call_s']:.3f} ms")
+    split["launches_ms"] = sum(lv["ms"] for lv in levels)
+    log(f"[15 long] {path}: the {len(levels)} level launches alone "
+        f"{split['launches_ms']:.3f} ms")
+    return {f"{tag}_s": secs, f"{tag}_split": split, f"{tag}_levels": levels}
 
 
 def long_walk(torch, port, pairs, fill_out, plan, name, band):
@@ -3117,15 +3186,31 @@ def row_vs_diag_full_diff(torch, rdirs, k_lo, gdirs, k_lo_even, n1s, n2s,
     return interior, edges
 
 
+def row_band_of_width(row, tb, K):
+    """The band that gives a batch's lane range K lanes, and its inputs."""
+    diff = (tb.query_len.cpu().numpy().astype(np.int64)
+            - tb.db_len.cpu().numpy().astype(np.int64))
+    span = max(0, diff.max()) - min(0, diff.min()) + 1
+    band = int((K - 64 - span) // 2)
+    k_lo, ins = row.row_inputs(*tb, band)
+    check(ins[0].shape[1] == K, f"band {band} gave {ins[0].shape[1]} lanes, "
+          f"not {K}")
+    return band, k_lo, ins
+
+
 def phase_banded_row(torch, port, pairs, by_path):
     """Kernel #8 (the banded row sweep) against its plain version on ragged
-    and skewed batches (compat/textbook x none/fast4/full x wildcard, the
-    row forced into 128-lane chunks, bands past one block's 2048 lanes and
-    past the shared memory), then at config 4 in fast4 and full against
-    its plain version and against kernel #3 (finals; full bytes cell for
-    cell inside the band); then the engine's own path, nw_banded_batch and
-    the row-layout walkers (native fast4, host full) on sampled pairs,
-    each alignment rescoring to its finals."""
+    and skewed batches (compat/textbook x none/fast4/full x wildcard): the
+    warp route at 128, 256, 384 and 512 lanes (4, 8, 12 and 16 lanes a
+    thread, as the rule picks) and each of those forced onto the block
+    route in 128-lane chunks; the block route past 512 lanes as the rule
+    picks it (one chunk, and 128-lane chunks), past one block's 2048 lanes
+    and past the shared memory; then at config 4 in fast4 and full (the
+    warp route, and the block route forced for comparison) against its
+    plain version and against kernel #3 (finals; full bytes cell for cell
+    inside the band); then the engine's own path, nw_banded_batch and the
+    row-layout walkers (native fast4, host full) on sampled pairs, each
+    alignment rescoring to its finals."""
     from sequencealigning_tpu_torch.config import ScoringScheme
     from sequencealigning_tpu_torch.device import to_device
     from sequencealigning_tpu_torch.io.encode import pack_batch
@@ -3136,39 +3221,57 @@ def phase_banded_row(torch, port, pairs, by_path):
 
     row, banded = port["row"], port["banded"]
     rng = np.random.default_rng(19)
-    err, runs, widths = 0, 0, []
+    err, runs, widths, routes = 0, 0, [], set()
     modes = [(c, w, d) for c in (True, False) for w in (True, False)
              for d in (False, "fast4", "full")]
-    for band, (lo1, hi1, lo2, hi2), n, cases in (
-            (16, (1, 300, 1, 300), 24, modes),
-            (48, (200, 400, 20, 150), 24, modes),
-            (1100, (100, 300, 100, 300), 6, modes[1:3]),
-            (2300, (50, 200, 50, 200), 6, modes[1:3])):
+    cases = [(f"K {K}", K, (200, 230, 200, 230), 24, modes, (0, 128))
+             for K in ROW_WARP_WIDTHS]
+    cases += [(16, None, (1, 300, 1, 300), 24, modes, (0, 128)),
+              (48, None, (200, 400, 20, 150), 24, modes, (0, 128)),
+              (1100, None, (100, 300, 100, 300), 6, modes[1:3], (0,)),
+              (2300, None, (50, 200, 50, 200), 6, modes[1:3], (0,))]
+    for band, K, (lo1, hi1, lo2, hi2), n, todo, chunks in cases:
         pairs_r = skewed_pairs(rng, n, lo1, hi1, lo2, hi2, b"ACGTN")
         tb = to_device(pack_batch(pairs_r, batch_size=n), "cuda")
-        k_lo, ins = row.row_inputs(*tb, band)
+        if K is None:
+            k_lo, ins = row.row_inputs(*tb, band)
+        else:
+            band, k_lo, ins = row_band_of_width(row, tb, K)
         widths.append(int(ins[0].shape[1]))
-        for compat, wildcard, dirs in cases:
+        for compat, wildcard, dirs in todo:
             a = (k_lo, ScoringScheme(), compat, wildcard, dirs)
             fp, dp = row.banded_row_fill_torch(*ins, *a)
-            for chunk in ((0, 128) if band < 1000 else (0,)):
+            for chunk in chunks:
                 fk, dk = row.banded_row_fill_cuda(*ins, *a, chunk_lanes=chunk)
                 torch.cuda.synchronize()
+                launch = row.banded_row_fill_cuda.last_launch
+                routes.add((launch["route"], launch["lanes_per_thread"],
+                            widths[-1], chunk))
                 e = int((fk - fp).abs().max())
                 if dirs:
                     e = max(e, 0 if torch.equal(dk.view(torch.int32),
                                                 dp.view(torch.int32)) else 1)
                 check(e == 0, f"banded row kernel != plain (band {band}, "
-                      f"K={ins[0].shape[1]}, compat={compat}, wildcard="
-                      f"{wildcard}, dirs={dirs}, chunk {chunk}): err {e}")
+                      f"K={ins[0].shape[1]}, {launch['route']} route, compat="
+                      f"{compat}, wildcard={wildcard}, dirs={dirs}, chunk "
+                      f"{chunk}): err {e}")
                 err, runs = max(err, e), runs + 1
     kern = port["csrc"].kernels()
-    check(widths[2] > 2048 and kern.sa_banded_row_scratch_words(widths[3]) > 0,
-          f"the wide bands ({widths[2:]} lanes) did not cross a block's 2048 "
-          "lanes and the shared memory")
-    log(f"[19 banded row] {runs} ragged/skewed configurations (bands 16-2300,"
-        f" K = {widths}: one chunk, 128-lane chunks, two 2048-lane chunks, "
-        "state in device memory) equal on finals and the whole dirs tensor")
+    warp = {(lpt, K) for r, lpt, K, c in routes if r == "warp"}
+    check(warp == {(K // 32, K) for K in ROW_WARP_WIDTHS},
+          f"the warp route ran {sorted(warp)}")
+    check(all((r == "warp") == (K <= 512 and c == 0)
+              for r, _l, K, c in routes), f"routes by width: {routes}")
+    check(widths[-2] > 2048
+          and kern.sa_banded_row_scratch_words(widths[-1]) > 0,
+          f"the wide bands ({widths[-2:]} lanes) did not cross a block's "
+          "2048 lanes and the shared memory")
+    log(f"[19 banded row] {runs} ragged/skewed configurations (K = {widths}:"
+        " the warp route at 4/8/12/16 lanes a thread, every width up to 512 "
+        "lanes also forced onto the block route in 128-lane chunks; the "
+        "block route by the rule past 512 lanes, in two 2048-lane chunks, "
+        "its state in device memory) equal on finals and the whole dirs "
+        "tensor")
 
     batch = pack_batch(pairs, batch_size=len(pairs))
     tb = to_device(batch, "cuda")
@@ -3186,8 +3289,13 @@ def phase_banded_row(torch, port, pairs, by_path):
     need_cells = int(n2s.sum()) * diags
     for dirs in ("fast4", "full"):
         a = (k_lo, ScoringScheme(), True, True, dirs)
+        # The block route forced (the parent's design, one chunk), then
+        # the rule's route.
+        block_ms = cuda_ms(torch, lambda: row.banded_row_fill_cuda(
+            *ins, *a, chunk_lanes=K))
         ms = cuda_ms(torch, lambda: row.banded_row_fill_cuda(*ins, *a))
         fk, dk = row.banded_row_fill_cuda(*ins, *a)
+        launch = dict(row.banded_row_fill_cuda.last_launch)
         plain_ms, (fp, dp) = host_ms(
             torch, lambda: row.banded_row_fill_torch(*ins, *a))
         e = int((fk - fp).abs().max())
@@ -3214,15 +3322,20 @@ def phase_banded_row(torch, port, pairs, by_path):
               f"{cross}")
         log(f"[19 banded row] {len(pairs)} x {LEN_BAND} bp band {BAND} {dirs}"
             f" (K={K}, dirs {dk.numel() * 4 / 1e9:.2f} GB): kernel {ms:.3f} "
-            f"ms, plain {plain_ms:.1f} ms, band {band_cells / ms / 1e6:.2f} "
-            f"GCUPS, bound {b_ms:.3f} ms ({b_by}; {need_ms:.3f} ms over the "
-            f"{diags} diagonals the band needs); finals and the whole dirs "
+            f"ms on the {launch['route']} route ({launch['lanes_per_thread']}"
+            f" lanes a thread), {100 * b_ms / ms:.1f}% of its bound; the "
+            f"block route forced {block_ms:.3f} ms; plain {plain_ms:.1f} ms, "
+            f"band {band_cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.3f} ms "
+            f"({b_by}; {need_ms:.3f} ms over the {diags} diagonals the band "
+            f"needs); finals and the whole dirs "
             "tensor equal the plain version; finals"
             + (" and every full byte on the band's interior diagonals"
                if dirs == "full" else "") + " equal kernel #3's"
             + (f" ({edge} cells differ on its edge diagonals, by design)"
                if dirs == "full" else ""))
         out.update({f"rfill_{dirs}_ms": ms,
+                    f"rfill_{dirs}_block_ms": block_ms,
+                    f"rfill_{dirs}_launch": launch,
                     f"rfill_{dirs}_plain_ms": plain_ms,
                     f"rfill_{dirs}_err": e, f"rfill_{dirs}_cross_err": cross,
                     f"rfill_{dirs}_edge_cells": edge,
@@ -4408,7 +4521,8 @@ def kernel_entries(meas, by_path):
                 top_node_long={k: meas[f"mm_top_long_{k}"] for k in (
                     "ms", "call_ms", "bound_ms", "bound_by", "shape")},
                 escapes={k: meas[f"{k}_split"] for k in (
-                    "mm_escape", "mm_escape_long")})
+                    "mm_escape", "mm_escape_long")},
+                levels_long=meas["mm_escape_long_levels"])
         for other, tag in (("_local", "_semi"), ("_fast4", "_full")):
             if key.endswith(other) and f"{key[:-len(other)]}{tag}_ms" in meas:
                 alt = key[:-len(other)] + tag

@@ -30,8 +30,8 @@ BUILD_DIR = os.path.join(
 )
 _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
                  "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
-                 "nw_banded.cu", "nw_linear.cu", "traceback_device.cu",
-                 "wfa.cu", "mm_rows.cu")
+                 "nw_banded.cu", "nw_banded_warp.cu", "nw_linear.cu",
+                 "traceback_device.cu", "wfa.cu", "mm_rows.cu")
 _HEADERS = ("nw_affine_stream.cuh", "pair_sweep.cuh", "cluster_split.cuh",
             "stream_ring.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
@@ -176,6 +176,8 @@ def kernels() -> ctypes.CDLL:
     lib.sa_banded_fill.argtypes = [_VP] * 10 + [_INT] * 20 + [_VP]
     lib.sa_banded_row_threads.restype = _INT
     lib.sa_banded_row_threads.argtypes = [_INT, _INT]
+    lib.sa_banded_row_warp_lanes.restype = _INT
+    lib.sa_banded_row_warp_lanes.argtypes = [_INT, _INT]
     lib.sa_banded_row_scratch_words.restype = ctypes.c_long
     lib.sa_banded_row_scratch_words.argtypes = [_INT]
     lib.sa_banded_row_fill.restype = _INT
@@ -205,10 +207,13 @@ def kernels() -> ctypes.CDLL:
     lib.sa_wfa_walk.restype = _INT
     lib.sa_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT, _VP]
-    lib.sa_mm_rows_scratch.restype = _INT
-    lib.sa_mm_rows_scratch.argtypes = [_INT] * 3 + [_VP]
+    lib.sa_mm_table_cols.restype = None
+    lib.sa_mm_table_cols.argtypes = [_VP]
+    lib.sa_mm_rows_plan.restype = _INT
+    lib.sa_mm_rows_plan.argtypes = [_VP, _INT, _VP]
     lib.sa_mm_rows.restype = _INT
-    lib.sa_mm_rows.argtypes = [_VP] * 7 + [_INT] * 13 + [_VP]
+    lib.sa_mm_rows.argtypes = [_VP] * 5 + [_INT] * 3 + [_VP] * 3 + [
+        _INT] * 4 + [_VP]
     _kernels = lib
     return lib
 
@@ -326,6 +331,8 @@ def host_check() -> ctypes.CDLL:
         _INT] * 3
     lib.hc_banded_fill.restype = _INT
     lib.hc_banded_fill.argtypes = [_VP] * 10 + [_INT] * 17
+    lib.hc_banded_row_warp_lanes.restype = _INT
+    lib.hc_banded_row_warp_lanes.argtypes = [_INT, _INT]
     lib.hc_banded_row_fill.restype = _INT
     lib.hc_banded_row_fill.argtypes = [_VP] * 7 + [_INT] * 13
     lib.hc_linear_fill.restype = _INT
@@ -351,9 +358,11 @@ def host_check() -> ctypes.CDLL:
     lib.hc_wfa_walk.restype = _INT
     lib.hc_wfa_walk.argtypes = [_VP] + [_INT] * 5 + [_VP] * 5 + [
         _INT] * 5 + [_VP] * 3 + [_INT]
-    lib.hc_mm_rows_scratch.restype = _INT
-    lib.hc_mm_rows_scratch.argtypes = [_INT] * 4 + [_VP]
+    lib.hc_mm_table_cols.restype = None
+    lib.hc_mm_table_cols.argtypes = [_VP]
+    lib.hc_mm_rows_plan.restype = _INT
+    lib.hc_mm_rows_plan.argtypes = [_VP, _INT, _INT, _VP]
     lib.hc_mm_rows.restype = _INT
-    lib.hc_mm_rows.argtypes = [_VP] * 7 + [_INT] * 14
+    lib.hc_mm_rows.argtypes = [_VP] * 5 + [_INT] * 3 + [_VP] * 3 + [_INT] * 4
     _host = lib
     return lib

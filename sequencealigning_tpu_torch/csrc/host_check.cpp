@@ -12,8 +12,9 @@
 // sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
 // (their tile and strip schedules run serially, tickets in order),
 // sa_walk_fast4, sa_walk_modes and sa_walk_banded, sa_wfa_chunk and
-// sa_wfa_walk, sa_mm_rows (its strip tickets run serially, in order) and
-// sa_mm_rows_scratch (minus the stream).  The
+// sa_wfa_walk, sa_mm_rows (its strip tickets run serially, in order, each
+// strip's wavefront a step at a time), sa_mm_rows_plan and
+// sa_mm_table_cols (minus the stream).  The
 // streamed and per-pair fills run their warp-ring schedules serially, chunk
 // by chunk and warp by warp.
 #include <stddef.h>
@@ -1207,7 +1208,7 @@ extern "C" void hc_tile_dpx(const int32_t* a, const int32_t* b,
 
 namespace {
 
-// Kernel #8's row sweep (nw_banded.cu) for one pair, serially: the same
+// Kernel #8's block route (nw_banded.cu) for one pair, serially: the same
 // chunks of 4 lanes a thread, each thread's lanes scanned in order, the
 // threads' totals combined into each thread's exclusive maximum and the
 // chunk's maximum carried to the next chunk, through nw_banded.cuh.
@@ -1333,6 +1334,137 @@ void banded_row_host(const int32_t* s1w0, const int32_t* qin,
   }
 }
 
+// Kernel #8's warp route (nw_banded_warp.cu) for each pair, serially: a
+// row's 32 threads in a loop through nw_banded.cuh's passes, each taking
+// its neighbours' row x-1 values as the shuffles give them (a snapshot at
+// the row's start), the warp's scan a serial maximum of the keys.
+template <int LPT, int DIRS, bool WILDCARD>
+void banded_row_warp_host(const int32_t* s1w0, const int32_t* qin,
+                          const int32_t* dcs, const int32_t* n1v,
+                          const int32_t* n2v, int32_t* finals,
+                          uint32_t* dirs, int B, int Xp, int l2, int k_lo,
+                          bool compat, const sa::Scheme& sc) {
+  constexpr int kT = 32, K = kT * LPT;
+  constexpr int kUp = DIRS == sa::kDirsFast4 ? 8 : 4;
+  constexpr uint32_t kBits = 32 / kUp;
+  int32_t M[kT][LPT], D[kT][LPT], Hp[kT][LPT], S1[kT][LPT], C[kT][LPT];
+  uint32_t acc[kT][LPT], bits[kT][LPT];
+  int32_t m_r[kT], d_r[kT], s_r[kT], hp_l[kT], M_left[kT], A[kT];
+  bool plain[kT];
+  for (int b = 0; b < B; ++b) {
+    const int32_t n1 = n1v[b], n2 = n2v[b];
+    const int32_t kc = n1 - n2 - k_lo;
+    int32_t* fin = finals + static_cast<size_t>(b) * 3;
+    for (int t = 0; t < kT; ++t) {
+      for (int i = 0; i < LPT; ++i) {
+        const int k = t * LPT + i;
+        int32_t I;
+        acc[t][i] = static_cast<uint32_t>(sa::row0_cell<DIRS>(
+            k, k_lo, n1, compat, sc, M[t][i], I, D[t][i], Hp[t][i]));
+        S1[t][i] = s1w0[static_cast<size_t>(b) * K + k];
+        if (n2 == 0 && k == kc) {
+          fin[0] = M[t][i];
+          fin[1] = I;
+          fin[2] = D[t][i];
+        }
+        if (DIRS != sa::kDirsNone && l2 == 0) {
+          dirs[static_cast<size_t>(b) * K + k] = acc[t][i];
+        }
+      }
+    }
+    for (int x = 1; x <= l2; ++x) {
+      const int32_t qc = qin[static_cast<size_t>(b) * Xp + x];
+      const int32_t dc = dcs[static_cast<size_t>(b) * Xp + x];
+      const sa::RowCtx r = sa::row_ctx(x, k_lo, n1, n2, compat, sc);
+      const uint32_t shift = kBits * (x & (kUp - 1));
+      for (int t = 0; t < kT; ++t) {
+        m_r[t] = t < kT - 1 ? M[t + 1][0] : sa::kRowNegBig;
+        d_r[t] = t < kT - 1 ? D[t + 1][0] : sa::kRowNegBig;
+        s_r[t] = t < kT - 1 ? S1[t + 1][0] : qc;
+        hp_l[t] = t > 0 ? Hp[t - 1][LPT - 1] : 0;
+      }
+      for (int t = 0; t < kT; ++t) {
+        const int k0 = t * LPT;
+        M_left[t] = t > 0 ? sa::row_m<WILDCARD>(r, k0 - 1, hp_l[t],
+                                                S1[t][0], dc, sc)
+                          : sa::kRowNegBig;
+        plain[t] = sa::row_span(r, k0, LPT).plain;
+        A[t] = plain[t]
+                   ? sa::row_warp_pre<LPT, DIRS, WILDCARD, true>(
+                         r, k0, M[t], D[t], Hp[t], S1[t], C[t], bits[t],
+                         m_r[t], d_r[t], s_r[t], M_left[t], dc, sc)
+                   : sa::row_warp_pre<LPT, DIRS, WILDCARD, false>(
+                         r, k0, M[t], D[t], Hp[t], S1[t], C[t], bits[t],
+                         m_r[t], d_r[t], s_r[t], M_left[t], dc, sc);
+      }
+      int32_t excl = 0;
+      for (int t = 0; t < kT; ++t) {
+        const int k0 = t * LPT;
+        const int32_t R_in = sa::row_r_in(excl, t, LPT, sc);
+        const int32_t key = sa::row_key(A[t], t, LPT, sc);
+        excl = t == 0 ? key : sa::imax(excl, key);
+        if (x == n2) {
+          sa::row_warp_post<LPT, DIRS, false, true>(
+              r, k0, M[t], D[t], C[t], bits[t], Hp[t], acc[t], shift,
+              M_left[t], R_in, sc, fin, kc);
+        } else if (plain[t]) {
+          sa::row_warp_post<LPT, DIRS, true, false>(
+              r, k0, M[t], D[t], C[t], bits[t], Hp[t], acc[t], shift,
+              M_left[t], R_in, sc, nullptr, kc);
+        } else {
+          sa::row_warp_post<LPT, DIRS, false, false>(
+              r, k0, M[t], D[t], C[t], bits[t], Hp[t], acc[t], shift,
+              M_left[t], R_in, sc, nullptr, kc);
+        }
+      }
+      if (DIRS != sa::kDirsNone && ((x & (kUp - 1)) == kUp - 1 || x == l2)) {
+        for (int t = 0; t < kT; ++t) {
+          for (int i = 0; i < LPT; ++i) {
+            dirs[(static_cast<size_t>(x / kUp) * B + b) * K + t * LPT + i] =
+                acc[t][i];
+            acc[t][i] = 0;
+          }
+        }
+      }
+    }
+  }
+}
+
+typedef void (*HostRowWarp)(const int32_t*, const int32_t*, const int32_t*,
+                            const int32_t*, const int32_t*, int32_t*,
+                            uint32_t*, int, int, int, int, bool,
+                            const sa::Scheme&);
+
+template <int LPT, int DIRS>
+HostRowWarp pick_row_warp_wild(bool wildcard) {
+  return wildcard ? banded_row_warp_host<LPT, DIRS, true>
+                  : banded_row_warp_host<LPT, DIRS, false>;
+}
+
+template <int LPT>
+HostRowWarp pick_row_warp_dirs(int dirs_mode, bool wildcard) {
+  if (dirs_mode == sa::kDirsNone) {
+    return pick_row_warp_wild<LPT, sa::kDirsNone>(wildcard);
+  }
+  if (dirs_mode == sa::kDirsFast4) {
+    return pick_row_warp_wild<LPT, sa::kDirsFast4>(wildcard);
+  }
+  if (dirs_mode == sa::kDirsFull) {
+    return pick_row_warp_wild<LPT, sa::kDirsFull>(wildcard);
+  }
+  return nullptr;
+}
+
+HostRowWarp pick_row_warp(int lpt, int dirs_mode, bool wildcard) {
+  switch (lpt) {
+    case 4: return pick_row_warp_dirs<4>(dirs_mode, wildcard);
+    case 8: return pick_row_warp_dirs<8>(dirs_mode, wildcard);
+    case 12: return pick_row_warp_dirs<12>(dirs_mode, wildcard);
+    case 16: return pick_row_warp_dirs<16>(dirs_mode, wildcard);
+    default: return nullptr;
+  }
+}
+
 typedef void (*HostRow)(const int32_t*, const int32_t*, const int32_t*,
                         const int32_t*, const int32_t*, int32_t*, uint32_t*,
                         int, int, int, int, int, int, const sa::Scheme&);
@@ -1350,7 +1482,12 @@ HostRow pick_row(bool compat, bool wildcard) {
 }  // namespace
 
 // sa_banded_row_fill minus the scratch and the stream; chunk_lanes as the
-// kernel's (0: K / 4 threads up to 512).
+// kernel's (0: the warp route up to 512 lanes, else the block route's K / 4
+// threads up to 512; > 0: the block route's chunk width).
+extern "C" int hc_banded_row_warp_lanes(int K, int chunk_lanes) {
+  return sa::row_warp_lpt(K, chunk_lanes);
+}
+
 extern "C" int hc_banded_row_fill(const int32_t* s1w0, const int32_t* qin,
                                   const int32_t* dcs, const int32_t* n1v,
                                   const int32_t* n2v, int32_t* finals,
@@ -1362,15 +1499,22 @@ extern "C" int hc_banded_row_fill(const int32_t* s1w0, const int32_t* qin,
       chunk_lanes > 2048 || B <= 0 || l2 < 0 || Xp < l2 + 1) {
     return -1;
   }
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  const bool c = compat != 0, w = wildcard != 0;
+  const int lpt = sa::row_warp_lpt(K, chunk_lanes);
+  if (lpt > 0) {
+    HostRowWarp wf = pick_row_warp(lpt, dirs_mode, w);
+    if (wf == nullptr) return -1;
+    wf(s1w0, qin, dcs, n1v, n2v, finals, dirs, B, Xp, l2, k_lo, c, sc);
+    return 0;
+  }
   int threads = (chunk_lanes ? chunk_lanes : K) / 4;
   if (threads > 512) threads = 512;
   HostRow fn = nullptr;
-  const bool c = compat != 0, w = wildcard != 0;
   if (dirs_mode == sa::kDirsNone) fn = pick_row<sa::kDirsNone>(c, w);
   if (dirs_mode == sa::kDirsFast4) fn = pick_row<sa::kDirsFast4>(c, w);
   if (dirs_mode == sa::kDirsFull) fn = pick_row<sa::kDirsFull>(c, w);
   if (fn == nullptr) return -1;
-  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   fn(s1w0, qin, dcs, n1v, n2v, finals, dirs, B, K, Xp, l2, k_lo, threads, sc);
   return 0;
 }
@@ -1655,103 +1799,109 @@ extern "C" int hc_wfa_walk(const int16_t* hist, int S, int Bh, int K,
 
 namespace {
 
-// One ticket of sa_mm_rows, run by one host "warp": the strip's rows in
-// order, a group of kMmGroup rows after its left strip has published them
-// (kRingUnmet when it has not: a wait that would not hold in ticket order),
-// its 32 threads' lanes in a loop, the warp's scan a serial maximum.
+// One ticket of sa_mm_rows, run by one host "warp": the strip's
+// wavefront step by step, its 32 threads in a loop each step, each taking
+// what its left neighbour handed on at the step before (a shuffle's
+// snapshot); the first thread's words from the left strip's column with
+// their tags checked (kRingUnmet when a word is not the row's: a wait that
+// would not hold in ticket order).
 template <int LPT>
-int mm_strip_host(const sa::MmSweep& w, int sweep, int strip, int n, int S,
-                  int rows, const sa::Scheme& sc, int32_t* out,
-                  int32_t* bnd, int32_t* ctr) {
+int mm_strip_host(const sa::MmStrip& sp, const sa::Scheme& sc, int32_t* out,
+                  uint64_t* bnd) {
   constexpr int kT = sa::kMmWarpLanes;
   constexpr int W = kT * LPT;
   const int32_t e = sc.gap_extend;
-  std::vector<int32_t> CC(W), DD(W), B(W), dc(W), A(kT);
+  const sa::MmSweep& w = sp.w;
+  std::vector<int32_t> CC(W), DD(W), dc(W);
   for (int l = 0; l < W; ++l) {
-    const int j = strip * W + l;
+    const int j = sp.strip * W + l;
     CC[l] = sa::mm_cc0(j, sc);
     DD[l] = sa::kNegInf;
-    dc[l] = sa::mm_dcode(w, j, n);
+    dc[l] = sa::mm_dcode(w, j, sp.n);
   }
-  int32_t* my = bnd + sa::mm_bnd_offset(sweep, strip, S, rows);
-  const int32_t* left =
-      strip > 0 ? bnd + sa::mm_bnd_offset(sweep, strip - 1, S, rows)
-                : nullptr;
-  int32_t* prog = ctr + 2 + sweep * S;
-  my[0] = CC[W - 1];
-  for (int i0 = 1; i0 <= w.m; i0 += sa::kMmGroup) {
-    const int cnt = std::min(sa::kMmGroup, w.m - i0 + 1);
-    if (left != nullptr && prog[strip - 1] < i0 + cnt - 1) return -4;
-    for (int i = i0; i < i0 + cnt; ++i) {
-      const int32_t qc = w.q[w.q_off + i - 1];
-      const int32_t X = left != nullptr ? left[rows + i] : sa::kNegInf;
-      const int32_t chain = w.tb + i * e;
-      // The pre-scan halves read row i-1's CC (none writes it), then the
-      // post-scan halves write row i's.
-      for (int t = 0; t < kT; ++t) {
-        const int32_t cc_left =
-            t > 0 ? CC[t * LPT - 1]
-                  : (left != nullptr ? left[i - 1] : sa::kNegInf);
-        A[t] = sa::mm_pre<LPT>(&CC[t * LPT], &DD[t * LPT], &B[t * LPT],
-                               &dc[t * LPT], qc, cc_left,
-                               strip == 0 && t == 0, chain, sc);
+  uint64_t* my = bnd + sp.my;
+  const uint64_t* left = sp.left >= 0 ? bnd + sp.left : nullptr;
+  my[0] = sa::mm_pack(CC[W - 1], 0);
+  int32_t cc_out[kT], e_out[kT], qc[kT], cc_prev[kT];
+  for (int t = 0; t < kT; ++t) {
+    cc_out[t] = CC[t * LPT + LPT - 1];
+    e_out[t] = sa::kNegInf;
+    qc[t] = cc_prev[t] = 0;
+  }
+  for (int g = 1; g <= w.m + 31; ++g) {
+    int32_t x = sa::kNegInf, c = 0;
+    if (left != nullptr && g <= w.m) {
+      const uint64_t a = left[2 * (g - 1)], b = left[2 * g + 1];
+      if (!sa::mm_holds(a, g - 1) || !sa::mm_holds(b, g)) {
+        return sa::kRingUnmet;
       }
-      int32_t excl = X;
-      for (int t = 0; t < kT; ++t) {
-        const int32_t key = sa::mm_key(A[t], t, LPT, sc);
-        sa::mm_post<LPT>(&CC[t * LPT], &B[t * LPT],
-                         sa::mm_e_first(excl, t, LPT, sc),
-                         strip == 0 && t == 0, chain, sc);
-        excl = sa::imax(excl, key);
-      }
-      my[i] = CC[W - 1];
-      my[rows + i] = excl + W * e;
+      x = sa::mm_value(b);
+      c = sa::mm_value(a);
     }
-    prog[strip] = i0 + cnt - 1;
+    const int32_t q0 = w.q[w.q_off + std::max(1, std::min(g, w.m)) - 1];
+    int32_t e_old[kT], cc_old[kT], q_old[kT];
+    std::copy(e_out, e_out + kT, e_old);
+    std::copy(cc_out, cc_out + kT, cc_old);
+    std::copy(qc, qc + kT, q_old);
+    for (int t = 0; t < kT; ++t) {
+      int32_t e_in = e_old[t > 0 ? t - 1 : 0];
+      int32_t cc_left = cc_prev[t];
+      cc_prev[t] = cc_old[t > 0 ? t - 1 : 0];
+      qc[t] = t == 0 ? q0 : q_old[t - 1];
+      if (t == 0) {
+        e_in = x;
+        cc_left = c;
+      }
+      const int i = sa::mm_row_at(g, t);
+      if (i < 1 || i > w.m) continue;
+      e_out[t] = sa::mm_step<LPT>(&CC[t * LPT], &DD[t * LPT], &dc[t * LPT],
+                                  qc[t], cc_left, e_in,
+                                  sp.strip == 0 && t == 0, w.tb + i * e, sc);
+      cc_out[t] = CC[t * LPT + LPT - 1];
+      if (t == kT - 1) {
+        my[2 * i] = sa::mm_pack(cc_out[t], i);
+        my[2 * i + 1] = sa::mm_pack(e_out[t], i);
+      }
+    }
   }
   for (int l = 0; l < W; ++l) {
-    const int j = strip * W + l;
-    if (j <= n) {
-      out[static_cast<int64_t>(2 * sweep) * (n + 1) + j] = CC[l];
-      out[static_cast<int64_t>(2 * sweep + 1) * (n + 1) + j] = DD[l];
+    const int j = sp.strip * W + l;
+    if (j <= sp.n) {
+      out[sp.out + j] = CC[l];
+      out[sp.out + sp.n + 1 + j] = DD[l];
     }
   }
   return 0;
 }
 
-typedef int (*HostMmStrip)(const sa::MmSweep&, int, int, int, int, int,
-                           const sa::Scheme&, int32_t*, int32_t*, int32_t*);
+typedef int (*HostMmStrip)(const sa::MmStrip&, const sa::Scheme&, int32_t*,
+                           uint64_t*);
 
 }  // namespace
 
-// The lanes a thread and the scratch words of hc_mm_rows (sa_mm_rows_scratch
-// planned for 132 SMs when lpt is 0; else lpt 2, 4, 8 or 16, 2 only here:
-// strips of 64 lanes for narrow tests).  -1 for an unsupported shape.
-extern "C" int hc_mm_rows_scratch(int n, int m_f, int m_r, int lpt,
-                                  int64_t* words) {
-  if (lpt == 0) lpt = sa::mm_lanes_per_thread(n, 132);
-  if ((lpt != 2 && lpt != 4 && lpt != 8 && lpt != 16) || n < 0 || m_f < 0 ||
-      m_r < 0) {
-    return -1;
-  }
-  words[0] = sa::mm_ctr_words(n, lpt);
-  words[1] = sa::mm_bnd_words(n, m_f, m_r, lpt);
-  return lpt;
+// sa_mm_table_cols' host twin.
+extern "C" void hc_mm_table_cols(int64_t* cols) { sa::mm_table_cols(cols); }
+
+// sa_mm_rows_plan's host twin: the kernel's lanes a thread when lpt is 0;
+// else lpt 2, 4, 8 or 16 (the kernel's 16, and narrower strips, 64 to 256
+// lanes, for narrow tests).  -1 for an unsupported shape.
+extern "C" int hc_mm_rows_plan(int64_t* table, int count, int lpt,
+                               int64_t* words) {
+  if (count <= 0) return -1;
+  if (lpt == 0) lpt = sa::kMmLanesPerThread;
+  if (lpt != 2 && lpt != 4 && lpt != 8 && lpt != 16) return -1;
+  return sa::mm_plan_level(table, count, lpt, words) ? lpt : -1;
 }
 
-// sa_mm_rows' arguments minus the stream, plus the lanes a thread (as
-// hc_mm_rows_scratch takes them), its tickets run serially in order from
-// ctr[0].  -1 for an unsupported shape, -4 for a wait that would not hold
-// in ticket order.
+// sa_mm_rows' arguments minus the stream, its tickets run serially in
+// order from ctr[0] (bnd zeroed or holding no tag of its rows).  -1 for an
+// unsupported shape, -4 for a wait that would not hold in ticket order.
 extern "C" int hc_mm_rows(const int32_t* qf, const int32_t* qr,
-                          const int32_t* df, const int32_t* dr, int32_t* out,
-                          int32_t* bnd, int32_t* ctr, int q_off_f, int m_f,
-                          int d_off_f, int tb_f, int q_off_r, int m_r,
-                          int d_off_r, int tb_r, int n, int match,
-                          int mismatch, int gap_open, int gap_extend,
-                          int lpt) {
-  int64_t words[2];
-  lpt = hc_mm_rows_scratch(n, m_f, m_r, lpt, words);
+                          const int32_t* df, const int32_t* dr,
+                          const int64_t* table, int count, int lpt,
+                          int tickets, int32_t* out, int32_t* bnd,
+                          int32_t* ctr, int match, int mismatch, int gap_open,
+                          int gap_extend) {
   HostMmStrip fn;
   switch (lpt) {
     case 2: fn = mm_strip_host<2>; break;
@@ -1760,16 +1910,12 @@ extern "C" int hc_mm_rows(const int32_t* qf, const int32_t* qr,
     case 16: fn = mm_strip_host<16>; break;
     default: return -1;
   }
-  const int S = sa::mm_strips(n, lpt);
-  const int rows = sa::mm_bnd_rows(m_f, m_r);
-  const sa::MmSweep sw[2] = {{qf, df, q_off_f, m_f, d_off_f, tb_f},
-                             {qr, dr, q_off_r, m_r, d_off_r, tb_r}};
+  if (count <= 0 || tickets <= 0) return -1;
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  while (ctr[0] < 2 * S) {
+  while (ctr[0] < tickets) {
     const int t = ctr[0]++;
-    const int sweep = sa::mm_ticket_sweep(t);
-    const int rc = fn(sw[sweep], sweep, sa::mm_ticket_strip(t), n, S, rows,
-                      sc, out, bnd, ctr);
+    const int rc = fn(sa::mm_strip_at(table, count, t, qf, qr, df, dr), sc,
+                      out, reinterpret_cast<uint64_t*>(bnd));
     if (rc != 0) return rc;
   }
   return 0;

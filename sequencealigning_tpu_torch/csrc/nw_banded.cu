@@ -1,4 +1,6 @@
-// Banded Gotoh row sweep for Hopper (sm_90a): kernel #8.
+// Banded Gotoh row sweep for Hopper (sm_90a): kernel #8, its entry point
+// and its block route (bands past 512 lanes, or a forced chunk width);
+// bands of up to 512 lanes take the warp route, nw_banded_warp.cu.
 //
 // Replaces the TPU kernel ops/nw_banded.py::_banded_kernel (launched by
 // banded_fill_pallas).  Same contract as _banded_fill_lax: band
@@ -8,7 +10,7 @@
 // M and D are lane-local reads of row x-1 (lanes k and k+1), and the
 // in-row I chain is the linearised first-order recurrence
 // I[k] = k*e + prefixmax_{j<=k}(M[j-1] + o + e - j*e), solved with one
-// block-wide inclusive max-scan a row.  Each pair's M/I/D at its corner
+// inclusive max-scan a row.  Each pair's M/I/D at its corner
 // (x = n2, k = n1 - n2 - k_lo) is written by the lane that holds it (zero
 // when the corner is outside the band, as the lax capture's sum gives).
 // Direction codes of row x: fast4 nibble x & 7 of word dirs[x >> 3, b, k],
@@ -17,11 +19,11 @@
 // row 0 carries its H-argmax code.  The per-lane arithmetic is
 // nw_banded.cuh.
 //
-// Design: one thread block a pair; the band is swept a row at a time in
-// chunks of 4 lanes a thread (up to 512 threads, 2048 lanes a chunk), so
-// no band width is refused: a row wider than a chunk is swept chunk after
-// chunk, the scan's running maximum carried from one chunk to the next (a
-// plain maximum: the recurrence is linear in k).  Two rows of M, D, H and
+// Design of the block route: one thread block a pair; the band is swept a
+// row at a time in chunks of 4 lanes a thread (up to 512 threads, 2048
+// lanes a chunk), so no band width is refused: a row wider than a chunk is
+// swept chunk after chunk, the scan's running maximum carried from one
+// chunk to the next (a plain maximum: the recurrence is linear in k).  Two rows of M, D, H and
 // the query window, plus the dirs accumulator of each lane, live in shared
 // memory (36 bytes a lane, up to 4480 lanes), past that in a device scratch
 // buffer the wrapper allocates.  A row costs two block barriers: one for
@@ -267,9 +269,22 @@ RowKernel pick(int dirs_mode, bool compat, bool wildcard) {
 
 }  // namespace
 
-// Threads a block of the row sweep for a band of K lanes: chunk_lanes / 4,
-// or (chunk_lanes == 0) K / 4 up to 512; 0 for a K or a chunk width that
-// is not a positive multiple of 128 (a chunk at most 2048 lanes).
+extern "C" int sa_banded_row_warp_fill(
+    const int32_t* s1w0, const int32_t* qin, const int32_t* dcs,
+    const int32_t* n1v, const int32_t* n2v, int32_t* finals, uint32_t* dirs,
+    int B, int K, int Xp, int l2, int k_lo, int match, int mismatch,
+    int gap_open, int gap_extend, int dirs_mode, int compat, int wildcard,
+    void* stream);
+
+// The warp route's lanes a thread for a band of K lanes and a chunk width
+// (nw_banded.cuh's rule), 0 when the block route takes it.
+extern "C" int sa_banded_row_warp_lanes(int K, int chunk_lanes) {
+  return sa::row_warp_lpt(K, chunk_lanes);
+}
+
+// Threads a block of the block route for a band of K lanes: chunk_lanes /
+// 4, or (chunk_lanes == 0) K / 4 up to 512; 0 for a K or a chunk width
+// that is not a positive multiple of 128 (a chunk at most 2048 lanes).
 extern "C" int sa_banded_row_threads(int K, int chunk_lanes) {
   if (K <= 0 || K % 128 != 0 || chunk_lanes < 0 || chunk_lanes % 128 != 0 ||
       chunk_lanes > kRowThreads * kRowLpt) {
@@ -280,8 +295,8 @@ extern "C" int sa_banded_row_threads(int K, int chunk_lanes) {
   return t < kRowThreads ? t : kRowThreads;
 }
 
-// Int32 words of device scratch a pair needs: 0 while its state fits in
-// shared memory, else 9 K.
+// Int32 words of device scratch a pair of the block route needs: 0 while
+// its state fits in shared memory, else 9 K.
 extern "C" long sa_banded_row_scratch_words(int K) {
   const size_t bytes = row_state_words(K) * sizeof(int32_t);
   return bytes <= static_cast<size_t>(kRowSmemMax)
@@ -292,9 +307,11 @@ extern "C" long sa_banded_row_scratch_words(int K) {
 // s1w0: (B, K) int32; qin/dcs: (B, Xp) int32 (Xp >= l2 + 1); n1v/n2v: (B,)
 // int32; finals: (B, 3) int32, zeroed; dirs: (ceil((l2+1)/upack), B, K) u32,
 // unused for dirs_mode 0; scratch: (B, 9K) int32 when
-// sa_banded_row_scratch_words(K) > 0, else unused.  dirs_mode 0/1/2 (none,
-// fast4, full); chunk_lanes: 0, or the forced chunk width.  Returns the
-// cudaGetLastError() of the launch, -1 for an unsupported shape or mode.
+// sa_banded_row_scratch_words(K) > 0 on the block route, else unused.
+// dirs_mode 0/1/2 (none, fast4, full); chunk_lanes: 0 (the warp route up
+// to 512 lanes, else the block route's own chunks), or the block route's
+// forced chunk width.  Returns the cudaGetLastError() of the launch, -1
+// for an unsupported shape or mode.
 extern "C" int sa_banded_row_fill(const int32_t* s1w0, const int32_t* qin,
                                   const int32_t* dcs, const int32_t* n1v,
                                   const int32_t* n2v, int32_t* finals,
@@ -305,6 +322,12 @@ extern "C" int sa_banded_row_fill(const int32_t* s1w0, const int32_t* qin,
                                   int chunk_lanes, void* stream) {
   const int threads = sa_banded_row_threads(K, chunk_lanes);
   if (threads == 0 || B <= 0 || l2 < 0 || Xp < l2 + 1) return -1;
+  if (sa::row_warp_lpt(K, chunk_lanes) > 0) {
+    return sa_banded_row_warp_fill(s1w0, qin, dcs, n1v, n2v, finals, dirs, B,
+                                   K, Xp, l2, k_lo, match, mismatch,
+                                   gap_open, gap_extend, dirs_mode, compat,
+                                   wildcard, stream);
+  }
   RowKernel fn = pick(dirs_mode, compat != 0, wildcard != 0);
   if (fn == nullptr) return -1;
   const bool in_smem = sa_banded_row_scratch_words(K) == 0;

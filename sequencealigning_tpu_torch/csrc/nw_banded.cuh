@@ -57,24 +57,41 @@ SA_HD bool row_valid(const RowCtx& r, int32_t k) {
 }
 
 // The direction code of a cell from its planes and parent candidates (the
-// row-0 cells pass their own I/D as parents, which no walker reads).
+// row-0 cells pass their own I/D as parents, which no walker reads): D's
+// bits from its two candidates, and the rest once I and H are known (I_l,
+// M_l: lane k-1's, NEGBIG at lane 0).
+template <int DIRS>
+SA_HD uint32_t row_d_bits(int32_t D, int32_t dd, int32_t Dp_r,
+                          const Scheme& s) {
+  if (DIRS == kDirsFull) {
+    return (D == Dp_r + s.gap_extend ? kDEXT : 0) |
+           (D == dd + s.gap_extend ? kDOPEN : 0);
+  }
+  if (DIRS == kDirsFast4) return D == Dp_r + s.gap_extend ? 8u : 0u;
+  return 0;
+}
+
+template <int DIRS>
+SA_HD uint32_t row_hi_bits(int32_t M, int32_t I, int32_t D, int32_t H,
+                           int32_t I_l, int32_t M_l, const Scheme& s) {
+  if (DIRS == kDirsFull) {
+    return (M == H ? kHM : 0) | (I == H ? kHI : 0) | (D == H ? kHD : 0) |
+           (I == I_l + s.gap_extend ? kIEXT : 0) |
+           (I == M_l + s.gap_open + s.gap_extend ? kIOPEN : 0);
+  }
+  if (DIRS == kDirsFast4) {
+    return (M == H ? 0u : (I == H ? 1u : 2u)) |
+           (I == I_l + s.gap_extend ? 4u : 0u);
+  }
+  return 0;
+}
+
 template <int DIRS>
 SA_HD int32_t row_code(int32_t M, int32_t I, int32_t D, int32_t H,
                        int32_t I_l, int32_t M_l, int32_t dd, int32_t Dp_r,
                        const Scheme& s) {
-  if (DIRS == kDirsFull) {
-    return (M == H ? kHM : 0) | (I == H ? kHI : 0) | (D == H ? kHD : 0) |
-           (I == I_l + s.gap_extend ? kIEXT : 0) |
-           (I == M_l + s.gap_open + s.gap_extend ? kIOPEN : 0) |
-           (D == Dp_r + s.gap_extend ? kDEXT : 0) |
-           (D == dd + s.gap_extend ? kDOPEN : 0);
-  }
-  if (DIRS == kDirsFast4) {
-    return (M == H ? 0 : (I == H ? 1 : 2)) |
-           (I == I_l + s.gap_extend ? 4 : 0) |
-           (D == Dp_r + s.gap_extend ? 8 : 0);
-  }
-  return 0;
+  return static_cast<int32_t>(row_hi_bits<DIRS>(M, I, D, H, I_l, M_l, s) |
+                              row_d_bits<DIRS>(D, dd, Dp_r, s));
 }
 
 // Row 0 (x = 0): cell (0, y = k_lo + k), band-masked (_row0_values).
@@ -117,9 +134,17 @@ SA_HD int32_t row_m(const RowCtx& r, int32_t k, int32_t Hp, int32_t s1c,
   return row_valid(r, k) ? Hp + (eq ? s.match : s.mismatch) : kRowNegBig;
 }
 
-// D of lane k from lane k+1 of row x-1 (Mp_n, Dp_n; ignored on the last
-// lane, whose neighbour is outside the band).  Sets dd = M + o and Dp_r,
-// the two D-parent candidates.
+// D of lane k from its two candidates dd = M + o and Dp_r of lane k+1 on
+// row x-1; row_d takes them from lane k+1 (Mp_n, Dp_n; ignored on the
+// last lane, whose neighbour is outside the band) and sets dd and Dp_r.
+SA_HD int32_t row_d_from(const RowCtx& r, int32_t k, int32_t dd,
+                         int32_t Dp_r, const Scheme& s) {
+  const int32_t D = imax(dd, Dp_r) + s.gap_extend;
+  const int32_t y = r.x + r.k_lo + k;
+  if (y == 0) return r.d_c;
+  return row_valid(r, k) ? D : kRowNegBig;
+}
+
 SA_HD int32_t row_d(const RowCtx& r, int32_t k, int32_t K, int32_t Mp_n,
                     int32_t Dp_n, const Scheme& s, int32_t& dd,
                     int32_t& Dp_r) {
@@ -127,10 +152,7 @@ SA_HD int32_t row_d(const RowCtx& r, int32_t k, int32_t K, int32_t Mp_n,
   const int32_t Mp_r = last ? kRowNegBig : Mp_n;
   Dp_r = last ? kRowNegBig : Dp_n;
   dd = Mp_r + s.gap_open;
-  const int32_t D = imax(dd, Dp_r) + s.gap_extend;
-  const int32_t y = r.x + r.k_lo + k;
-  if (y == 0) return r.d_c;
-  return row_valid(r, k) ? D : kRowNegBig;
+  return row_d_from(r, k, dd, Dp_r, s);
 }
 
 // The prefix-max input of lane k: M_l is lane k-1's M on this row (not
@@ -163,6 +185,146 @@ SA_HD int32_t row_post(const RowCtx& r, int32_t k, int32_t M, int32_t D,
   H = imax(M, imax(I, D));
   return row_code<DIRS>(M, I, D, H, k == 0 ? kRowNegBig : I_l,
                         k == 0 ? kRowNegBig : M_l, dd, Dp_r, s);
+}
+
+// ---------------------------------------------------------------------------
+// The warp route (nw_banded_warp.cu): a warp a pair, thread t holding the
+// LPT consecutive lanes k0 = t * LPT .. k0 + LPT - 1 of the band in
+// registers, the in-row I chain a thread's fold and a warp's scan.
+//
+// I[k] = k*e + prefixmax_{j<=k} v_j is the maximum of c_j + (k - j) e over
+// j <= k, c_j = v_j + j*e (M of lane j-1 plus o + e, or the column-0 chain
+// plus e right of column 0): the running R_k = max(R_{k-1} + e, c_k), one
+// add-max a lane, the same integers since nothing overflows.  A thread's
+// lanes fold into A_t (R at its last lane from no carry), and R at lane
+// k0 - 1 is max_{s<t}(A_s - (s + 1) LPT e) + t LPT e: a plain maximum over
+// the threads' keys, a 5-step shuffle scan.
+
+constexpr int kRowWarpMaxLpt = 16;  // lanes a thread of the warp route
+constexpr int kRowWarpMaxLanes = 32 * kRowWarpMaxLpt;
+
+// The route of a band of K lanes (a multiple of 128): the warp route's
+// lanes a thread, K / 32, when no chunk width is forced and K fits a warp's
+// registers; 0 for the block route (nw_banded.cu).
+SA_HD int row_warp_lpt(int K, int chunk_lanes) {
+  return chunk_lanes == 0 && K > 0 && K % 128 == 0 && K <= kRowWarpMaxLanes
+             ? K / 32
+             : 0;
+}
+
+// Thread t's key for the warp's scan, and R at its lane k0 - 1 from the
+// exclusive maximum of the keys left of it (kScanFill for t = 0).
+SA_HD int32_t row_key(int32_t A, int t, int lpt, const Scheme& s) {
+  return A - (t + 1) * lpt * s.gap_extend;
+}
+SA_HD int32_t row_r_in(int32_t excl, int t, int lpt, const Scheme& s) {
+  return t == 0 ? kScanFill : excl + t * lpt * s.gap_extend;
+}
+
+// Lanes i (k = k0 + i) of a thread on row x that hold cells of the pair's
+// matrix: lo <= i <= hi.  plain: all of [0, lpt) and neither the column-0
+// lane nor the lane right of it (which take the chain), so no lane needs a
+// mask.
+struct RowSpan {
+  int32_t lo, hi;
+  bool plain;
+};
+
+SA_HD RowSpan row_span(const RowCtx& r, int32_t k0, int lpt) {
+  RowSpan p;
+  p.lo = 1 - r.x - r.k_lo - k0;
+  p.hi = r.x <= r.n2 ? r.n1 - r.x - r.k_lo - k0 : p.lo - 1;
+  p.plain = p.lo < 0 && p.hi >= lpt - 1;
+  return p;
+}
+
+// c of lane k (M_l: lane k-1's M on this row).
+SA_HD int32_t row_c(const RowCtx& r, int32_t k, int32_t M_l,
+                    const Scheme& s) {
+  const int32_t y = r.x + r.k_lo + k;
+  if (k != 0 && y == 1) return r.i_c + s.gap_extend;
+  return (k == 0 ? kRowNegBig : M_l) + s.gap_open + s.gap_extend;
+}
+
+// I of lane k from R.
+SA_HD int32_t row_i_from(const RowCtx& r, int32_t k, int32_t R) {
+  const int32_t y = r.x + r.k_lo + k;
+  if (y == 0) return r.i_c;
+  return row_valid(r, k) ? R : kRowNegBig;
+}
+
+// Row x before the scan, for the thread whose first lane is k0, in place:
+// M and D (holding row x-1's) become row x's, S1 the row's query window;
+// Hp still holds row x-1's H.  m_r / d_r / s_r: lane k0 + LPT's M, D and
+// query code of row x-1 (NEGBIG, NEGBIG and the entering code past the
+// band's last lane); M_left: lane k0 - 1's M on row x (NEGBIG at k0 = 0).
+// Each lane's scan input c and D's code bits go to C and bits.  Returns the
+// thread's fold A.
+template <int LPT, int DIRS, bool WILDCARD, bool PLAIN>
+SA_HD int32_t row_warp_pre(const RowCtx& r, int32_t k0, int32_t* M,
+                           int32_t* D, const int32_t* Hp, int32_t* S1,
+                           int32_t* C, uint32_t* bits, int32_t m_r,
+                           int32_t d_r, int32_t s_r, int32_t M_left,
+                           int32_t dc, const Scheme& s) {
+  int32_t A = 0, M_l = M_left;
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int32_t k = k0 + i;
+    const int32_t Mp_r = i + 1 < LPT ? M[i + 1] : m_r;
+    const int32_t Dp_r = i + 1 < LPT ? D[i + 1] : d_r;
+    const int32_t s1 = i + 1 < LPT ? S1[i + 1] : s_r;
+    const int32_t dd = Mp_r + s.gap_open;
+    int32_t Mk, Dk, c;
+    if (PLAIN) {
+      const bool eq = WILDCARD ? (s1 & dc) != 0 : s1 == dc;
+      Mk = Hp[i] + (eq ? s.match : s.mismatch);
+      Dk = imax(dd, Dp_r) + s.gap_extend;
+      c = M_l + s.gap_open + s.gap_extend;
+    } else {
+      Mk = row_m<WILDCARD>(r, k, Hp[i], s1, dc, s);
+      Dk = row_d_from(r, k, dd, Dp_r, s);
+      c = row_c(r, k, M_l, s);
+    }
+    A = i == 0 ? c : add_max(A, s.gap_extend, c);
+    C[i] = c;
+    bits[i] = row_d_bits<DIRS>(Dk, dd, Dp_r, s);
+    M[i] = Mk;
+    D[i] = Dk;
+    S1[i] = s1;
+    M_l = Mk;
+  }
+  return A;
+}
+
+// Row x after the scan: H (Hp) becomes row x's and each lane's code (its
+// D bits from the first pass and the rest) is ORed into acc at shift.
+// R_in: R at lane k0 - 1.  fin (FIN only): the finals of the pair,
+// written by the lane kc - k0 == i.
+template <int LPT, int DIRS, bool PLAIN, bool FIN>
+SA_HD void row_warp_post(const RowCtx& r, int32_t k0, const int32_t* M,
+                         const int32_t* D, const int32_t* C,
+                         const uint32_t* bits, int32_t* Hp, uint32_t* acc,
+                         uint32_t shift, int32_t M_left, int32_t R_in,
+                         const Scheme& s, int32_t* fin, int32_t kc) {
+  int32_t R = R_in, M_l = M_left;
+  int32_t I_l = k0 > 0 ? row_i_from(r, k0 - 1, R_in) : kRowNegBig;
+#pragma unroll
+  for (int i = 0; i < LPT; ++i) {
+    const int32_t k = k0 + i;
+    R = add_max(R, s.gap_extend, C[i]);
+    const int32_t I = PLAIN ? R : row_i_from(r, k, R);
+    const int32_t H = max3(M[i], I, D[i]);
+    acc[i] |= (row_hi_bits<DIRS>(M[i], I, D[i], H, I_l, M_l, s) | bits[i])
+              << shift;
+    Hp[i] = H;
+    if (FIN && k == kc) {
+      fin[0] = M[i];
+      fin[1] = I;
+      fin[2] = D[i];
+    }
+    I_l = I;
+    M_l = M[i];
+  }
 }
 
 }  // namespace sa

@@ -12,6 +12,8 @@ and semi-global with full dirs untrimmed (kernel #2):
         --walks N [--out FILE]
     python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
         --wfa N [--out FILE]
+    python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
+        --mm N [--out FILE]
 
 run from the repository root; --root DIR times the package of another
 checkout (e.g. a parent commit unpacked with ``git archive``) instead, at
@@ -63,7 +65,17 @@ medians of N; for this checkout each shape's fill and walk are held equal
 to their plain versions, and ``csrc/wfa_stamps.cu`` (built here alone)
 splits a fill step and a walk step into their parts with clock64()
 stamps.  With --root DIR it runs parent (DIR) / tree / tree / parent as
-four runs of this script and prints the medians side by side.
+four runs of this script and prints the medians side by side.  --mm N
+times only the Myers-Miller row kernel (``ops/mm_align.py``,
+``csrc/mm_rows.cu``) and kernel #8 (``ops/nw_banded.py``): the row
+kernel's launch alone and its call at the ~6 kb and 100 kb escapes' top
+nodes, every row launch of the 100 kb escape (its recursion run with the
+leaves stubbed out: the launches alone back to back, and the rows calls'
+host seconds), and kernel #8 at config 4 in fast4 and full, medians of N;
+for this checkout the row kernel is first held against its plain version
+(a top node, a level of several nodes, an unmet hand-over) and kernel #8's
+routes against the plain sweep at each of the warp route's widths.  With
+--root DIR it too runs parent / tree / tree / parent.
 Needs a CUDA card; prints the card's name and power limit.
 """
 
@@ -1214,6 +1226,316 @@ def _wfa_main(args, here: str, root: str) -> int:
     return 0
 
 
+def _mm_launches(lib, mm, sq, calls, reps: int):
+    """A closure that queues the row kernel alone over `calls` (each a
+    list of (fwd, rev, n) nodes one launch of this checkout takes: a level,
+    or a node in a checkout whose kernel takes one node a launch), every
+    launch with its own zeroed ctr (and, for this tree's tagged hand-over,
+    bnd) allocated ahead (reps + 1 sets), and the status words to check
+    afterwards."""
+    s = sq.scheme
+    seq = [t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)]
+    # ctypes resolves a symbol on attribute access: hasattr tells which
+    # entry points a checkout's build has.
+    level = hasattr(lib, "sa_mm_rows_plan")
+    plans = []
+    for nodes in calls:
+        if level:
+            plan = mm.plan_level(nodes, lib)
+            lanes, words = plan.lanes, plan.words
+            tab = torch.from_numpy(plan.table).to("cuda")
+            out_words = words[2]
+        else:
+            (fwd, rev, n), = nodes
+            words = np.zeros(4, np.int64)
+            lanes = lib.sa_mm_rows_scratch(n, fwd[1], rev[1],
+                                           words.ctypes.data)
+            tab, out_words = None, 4 * (n + 1)
+        assert lanes > 0, lanes
+        plans.append(dict(nodes=nodes, lanes=lanes, tab=tab,
+                          tickets=int(words[3]),
+                          ctrs=[torch.zeros(int(words[0]), dtype=torch.int32,
+                                            device="cuda")
+                                for _ in range(reps + 1)],
+                          bnds=[torch.zeros(int(words[1]), dtype=torch.int32,
+                                            device="cuda")
+                                for _ in range(reps + 1 if level else 1)],
+                          out=torch.empty(out_words, dtype=torch.int32,
+                                          device="cuda")))
+
+    def launch(rep: int):
+        stream = torch.cuda.current_stream().cuda_stream
+        for p in plans:
+            ctr = p["ctrs"][rep]
+            if level:
+                rc = lib.sa_mm_rows(
+                    *seq, p["tab"].data_ptr(), len(p["nodes"]), p["lanes"],
+                    p["tickets"], p["out"].data_ptr(),
+                    p["bnds"][rep].data_ptr(), ctr.data_ptr(), s.match_,
+                    s.mismatch, s.gap_open, s.gap_extend, stream)
+            else:
+                (fwd, rev, n), = p["nodes"]
+                rc = lib.sa_mm_rows(
+                    *seq, p["out"].data_ptr(), p["bnds"][0].data_ptr(),
+                    ctr.data_ptr(), *fwd, *rev, n, s.match_, s.mismatch,
+                    s.gap_open, s.gap_extend, stream)
+            assert rc == 0, rc
+
+    def stalled() -> bool:
+        return any(int(c[1]) for p in plans for c in p["ctrs"])
+
+    return launch, stalled, plans
+
+
+def _escape_calls(mm, pair, sch, runs: int):
+    """An escape's recursion with its leaves stubbed out (which changes no
+    node), run `runs` times: the nodes of each rows call (a level, or a
+    node in a checkout that launches one a node) and each run's rows calls'
+    host milliseconds."""
+    level = hasattr(mm, "level_rows")
+    spy_name = "level_rows" if level else "node_rows"
+    real_rows, real_direct = getattr(mm, spy_name), mm._direct_ops
+    calls, secs = [], []
+
+    def spy(*a):
+        t0 = time.perf_counter()
+        out = real_rows(*a)
+        secs.append(time.perf_counter() - t0)
+        calls.append(list(a[4]) if level else [tuple(a[4:7])])
+        return out
+
+    setattr(mm, spy_name, spy)
+    mm._direct_ops = lambda *a, **k: ""
+    try:
+        totals = []
+        for _ in range(runs):
+            calls.clear()
+            secs.clear()
+            mm.mm_align(pair[0], pair[1], sch, device="cuda")
+            totals.append(sum(secs) * 1e3)
+    finally:
+        setattr(mm, spy_name, real_rows)
+        mm._direct_ops = real_direct
+    return calls, totals
+
+
+def _mm_times(chip_smoke, port, reps: int) -> list:
+    """--mm's rows of one checkout: the Myers-Miller row kernel at the two
+    escapes' top nodes (the launch alone, CUDA events, and the call, host
+    clock), all the row launches of the 100 kb escape (its recursion run
+    with the leaves stubbed out, which changes no node: the launches alone
+    queued back to back, and the rows calls' host seconds), and kernel #8
+    at config 4 in fast4 and full (the call, CUDA events).  Medians of
+    reps."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import encode_seq, pack_batch
+
+    mm, row = port["mm"], port["row"]
+    lib = port["csrc"].kernels()
+    level = hasattr(mm, "level_rows")
+    rows = []
+
+    def record(name, ms, **kw):
+        rows.append(dict(name=name, median=float(np.median(ms)),
+                         least=float(min(ms)), largest=float(max(ms)), **kw))
+        print(f"mm {name}: median {np.median(ms):.4f} ms, least "
+              f"{min(ms):.4f}, largest {max(ms):.4f} ({len(ms)} runs)"
+              + "".join(f", {k} {v}" for k, v in kw.items()), flush=True)
+
+    sch = ScoringScheme()
+    o = sch.gap_open
+    for tag, length, seed in (("~6 kb", chip_smoke.LEN_MM_SHORT, 14),
+                              ("100 kb", chip_smoke.LEN_LONG_PAIR, 16)):
+        pair = chip_smoke.escape_pair(length, seed)
+        q, d = (np.asarray(encode_seq(x), np.int32) for x in pair)
+        sq = mm._Seqs(q, d, sch, "cuda")
+        node = sq.node(0, sq.m0, 0, sq.n0, o, o)
+        launch, stalled, plans = _mm_launches(lib, mm, sq, [[node]], reps)
+        ms = _launches_ms_reps(launch, reps)
+        assert not stalled(), "a timed launch stalled"
+        record(f"top node {tag} launch", ms, lanes=plans[0]["lanes"],
+               **({"warps": plans[0]["tickets"]} if level else {}))
+        seq4 = (sq.qf, sq.qr, sq.df, sq.dr)
+        call = ((lambda: mm.mm_rows_cuda(*seq4, [node], sch)) if level else
+                (lambda: mm.mm_rows_cuda(*seq4, *node, sch)))
+        call()
+        host = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t0) * 1e3)
+        record(f"top node {tag} call", host)
+        if tag != "100 kb":
+            continue
+        calls, totals = _escape_calls(mm, pair, sch, reps + 1)
+        nodes = sum(len(c) for c in calls)
+        record("100 kb escape rows calls", totals[1:], launches=len(calls),
+               nodes=nodes)
+        launch, stalled, plans = _mm_launches(lib, mm, sq, calls, reps)
+        ms = _launches_ms_reps(launch, reps)
+        assert not stalled(), "a timed launch stalled"
+        record("100 kb escape launches", ms, launches=len(calls),
+               nodes=nodes)
+        del plans
+        torch.cuda.empty_cache()
+    c4 = chip_smoke.make_pairs(np.random.default_rng(4), chip_smoke.N_BAND,
+                               chip_smoke.LEN_BAND)
+    tb = to_device(pack_batch(c4, batch_size=len(c4)), "cuda")
+    k_lo, ins = row.row_inputs(*tb, chip_smoke.BAND)
+    for dirs in ("fast4", "full"):
+        a = (k_lo, sch, True, True, dirs)
+        ms = _launches_ms(lambda: row.banded_row_fill_cuda(*ins, *a), reps)
+        record(f"#8 config 4 {dirs}", ms,
+               route=getattr(row.banded_row_fill_cuda, "last_launch",
+                             {}).get("route", "block"))
+    return rows
+
+
+def _launches_ms_reps(launch, reps: int) -> list:
+    """ms of each of reps runs of launch(rep) (CUDA events around each),
+    after a warm-up run on set reps; queued behind a ~50 ms sleep so that
+    the events time the card alone."""
+    launch(reps)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for rep, (start, end) in enumerate(ev):
+        start.record()
+        launch(rep)
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in ev]
+
+
+def _mm_checks(chip_smoke, port) -> None:
+    """--mm, this checkout only: the row kernel against its plain version
+    on the ~6 kb escape's top node and on chip_smoke's level of nodes, a
+    level whose hand-over cannot be met (it must set the status word), and
+    kernel #8's warp route at each of its widths and its block route
+    forced, every mode, against the plain sweep."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import encode_seq, pack_batch
+
+    mm, row = port["mm"], port["row"]
+    lib = port["csrc"].kernels()
+    sch = ScoringScheme()
+    o = sch.gap_open
+    t0 = time.perf_counter()
+    seqs = []
+    for length, seed in ((chip_smoke.LEN_MM_SHORT, 14),
+                         (chip_smoke.LEN_LONG_PAIR, 16)):
+        pair = chip_smoke.escape_pair(length, seed)
+        q, d = (np.asarray(encode_seq(x), np.int32) for x in pair)
+        seqs.append(mm._Seqs(q, d, sch, "cuda"))
+    short, longs = seqs
+    level = [longs.node(qa, qa + 2 * r, da, da + c, o * tb_, o * te)
+             for qa, r, da, c, tb_, te in chip_smoke.MM_LEVEL]
+    for sq, nodes in ((short, [short.node(0, short.m0, 0, short.n0, o, o)]),
+                      (longs, level)):
+        seq4 = (sq.qf, sq.qr, sq.df, sq.dr)
+        got = mm.mm_rows_cuda(*seq4, nodes, sch)
+        for g, node in zip(got, nodes):
+            want = mm.node_rows_torch(*seq4, *node, sch).cpu()
+            assert torch.equal(g, want), ("mm_rows != plain", node)
+    launch, stalled, _plans = _mm_launches(lib, mm, longs, [level], 0)
+    _plans[0]["ctrs"][0][0] = 2
+    launch(0)
+    torch.cuda.synchronize()
+    assert stalled(), "an unmet hand-over set no status"
+    print(f"mm_rows: the ~6 kb top node and a level of {len(level)} nodes "
+          "equal the plain version; an unmet hand-over set the status word "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    runs, seen = 0, set()
+    for K in chip_smoke.ROW_WARP_WIDTHS:
+        pairs = chip_smoke.skewed_pairs(rng, 24, 200, 230, 200, 230,
+                                        b"ACGTN")
+        tb = to_device(pack_batch(pairs, batch_size=24), "cuda")
+        _band, k_lo, ins = chip_smoke.row_band_of_width(row, tb, K)
+        for compat in (True, False):
+            for wildcard in (True, False):
+                for dirs in (False, "fast4", "full"):
+                    a = (k_lo, sch, compat, wildcard, dirs)
+                    fp, dp = row.banded_row_fill_torch(*ins, *a)
+                    for chunk in (0, 128):
+                        fk, dk = row.banded_row_fill_cuda(
+                            *ins, *a, chunk_lanes=chunk)
+                        ll = row.banded_row_fill_cuda.last_launch
+                        seen.add((ll["route"], ll["lanes_per_thread"]))
+                        ok = torch.equal(fk, fp) and (not dirs or torch.equal(
+                            dk.view(torch.int32), dp.view(torch.int32)))
+                        assert ok, ("#8 != plain", K, a[2:], chunk)
+                        runs += 1
+    print(f"#8: {runs} runs (routes {sorted(seen)}) equal the plain sweep "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def _mm_main(args, here: str, root: str) -> int:
+    """--mm: one checkout's rows (with --root, parent / tree / tree /
+    parent as four runs of this script, then a table side by side)."""
+    if args.root and not args.mm_one:
+        import subprocess
+        import tempfile
+
+        sys.path.insert(0, here)
+        from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for j, r in enumerate((root, here, here, root)):
+                out = os.path.join(tmp, f"{j}.json")
+                cmd = [sys.executable, os.path.abspath(__file__), "--mm",
+                       str(args.mm), "--mm-one", "--out", out]
+                if r != here:
+                    cmd += ["--root", r]
+                rc = subprocess.run(cmd).returncode
+                if rc != 0:
+                    return rc
+                with open(out) as fh:
+                    runs.append(json.load(fh))
+        names = [r["name"] for r in runs[1]["rows"] if "median" in r]
+        print(f"mm side by side (medians, ms; {_card()}): parent / tree / "
+              "tree / parent", flush=True)
+        for n in names:
+            vals = []
+            for run in runs:
+                m = [r["median"] for r in run["rows"]
+                     if r["name"] == n and "median" in r]
+                vals.append(f"{m[0]:.4f}" if m else "-")
+            print(f"mm {n}: " + " / ".join(vals), flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=_card(), runs=runs), fh)
+        return 0
+    sys.path.insert(0, root)
+    import chip_smoke
+    from sequencealigning_tpu_torch import csrc
+    from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+    from sequencealigning_tpu_torch.ops import mm_align, nw_banded
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(csrc.__file__)))
+    print(_card(), f"package {pkg}", flush=True)
+    csrc.kernels()
+    print(f"build {csrc.build_seconds:.1f} s", flush=True)
+    for r in (csrc.kernel_resources(csrc.build_log, "mm_rows_kernel")
+              + csrc.kernel_resources(csrc.build_log, "banded_row")):
+        print(f"instance {r['entry']}: {r['registers']} registers, "
+              f"{r['spill_stores']} / {r['spill_loads']} bytes spilled "
+              f"(stores / loads), stack {r['stack']}", flush=True)
+    port = {"csrc": csrc, "mm": mm_align, "row": nw_banded}
+    if root == here:
+        _mm_checks(chip_smoke, port)
+    rows = _mm_times(chip_smoke, port, args.mm)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(dict(card=_card(), package=pkg, rows=rows), fh)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="JSON file for the rows")
@@ -1237,6 +1559,10 @@ def main() -> int:
                     help="time only the WFA fill and walk, N runs each")
     ap.add_argument("--wfa-one", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mm", type=int, default=0,
+                    help="time only the Myers-Miller row kernel and kernel "
+                         "#8, N runs each")
+    ap.add_argument("--mm-one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -1246,6 +1572,8 @@ def main() -> int:
     root = os.path.abspath(args.root or here)
     if args.wfa:
         return _wfa_main(args, here, root)
+    if args.mm:
+        return _mm_main(args, here, root)
     sys.path.insert(0, root)
     import chip_smoke
     from sequencealigning_tpu_torch import csrc

@@ -5,14 +5,15 @@ The long-pair path's fallback when the optimum escapes every band
 (models.gotoh._long_batch): the classic Myers-Miller (1988) recursion over
 the split row.  Each node of the recursion needs two linear-memory score
 rows: the forward rows of its top half and the reverse rows of its bottom
-half.  On CUDA both come from one launch of the row kernel
+half.  The recursion goes a level at a time (``_levels``): on CUDA the
+rows of every node of a level come from one launch of the row kernel
 (csrc/mm_rows.cu, ``mm_rows_cuda``; it replaces the JAX package's
-``_rows_fn``) and one copy to the host; on the CPU from the plain version,
-``rows_torch``, a row sweep in torch ops (the in-row D chain linearised to
-a prefix maximum, ``torch.cummax``).  Subproblems address the whole
-forward and reversed sequences on the device by offset.  Subproblems below
-``_DIRECT_CELLS`` cells are solved directly on the host (numpy, the JAX
-package's code).
+``_rows_fn``) and one copy to the host; on the CPU from the plain version
+node by node, ``rows_torch``, a row sweep in torch ops (the in-row D chain
+linearised to a prefix maximum, ``torch.cummax``).  Subproblems address
+the whole forward and reversed sequences on the device by offset.
+Subproblems below ``_DIRECT_CELLS`` cells are solved directly on the host
+(numpy, the JAX package's code).
 
 Conventions (ops.traceback._apply_ops): ops over {'M': consume query+db,
 'I': consume query (gap in db), 'D': consume db (gap in query)}.  The state
@@ -28,7 +29,7 @@ the engine-exact score.
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -105,12 +106,58 @@ def node_rows_torch(qf, qr, df, dr, fwd, rev, n: int,
     return torch.stack(out)
 
 
-def mm_rows_cuda(qf, qr, df, dr, fwd, rev, n: int, scheme: ScoringScheme):
+class LevelPlan(NamedTuple):
+    """A recursion level planned for the row kernel: the node table
+    (int64, a row a node), the lanes a thread, the int32 words of ctr, bnd
+    and out and the tickets, and each node's first ticket and first output
+    word."""
+    table: np.ndarray
+    lanes: int
+    words: tuple
+    first_tickets: list
+    out_offsets: list
+
+
+def plan_level(nodes, lib, lpt=None) -> LevelPlan:
+    """The node table of a level, planned by csrc/mm_rows.cuh's
+    mm_plan_level: nodes a list of (fwd, rev, n), each sweep (q_off, m,
+    d_off, tb).  lib: the kernels' library (sa_mm_rows_plan, the kernel's
+    lanes a thread), or with lpt the host build (hc_mm_rows_plan at lpt
+    lanes a thread, 0 the kernel's).  The table's columns come from the
+    library (sa_mm_table_cols / hc_mm_table_cols).  Raises ValueError when
+    the planner refuses the level."""
+    host = lpt is not None
+    cols = np.zeros(6, np.int64)
+    (lib.hc_mm_table_cols if host else lib.sa_mm_table_cols)(
+        cols.ctypes.data)
+    width, fwd_at, rev_at, n_at, ticket_at, out_at = (int(c) for c in cols)
+    table = np.zeros((len(nodes), width), np.int64)
+    for k, (fwd, rev, n) in enumerate(nodes):
+        table[k, fwd_at: fwd_at + 4] = fwd
+        table[k, rev_at: rev_at + 4] = rev
+        table[k, n_at] = n
+    words = np.zeros(4, np.int64)
+    if host:
+        lanes = lib.hc_mm_rows_plan(table.ctypes.data, len(nodes), lpt,
+                                    words.ctypes.data)
+    else:
+        lanes = lib.sa_mm_rows_plan(table.ctypes.data, len(nodes),
+                                    words.ctypes.data)
+    if lanes < 0:
+        raise ValueError(f"the row kernel's planner refused a level of "
+                         f"{len(nodes)} nodes (lanes a thread {lpt})")
+    return LevelPlan(table, lanes, tuple(int(w) for w in words),
+                     table[:, ticket_at].tolist(), table[:, out_at].tolist())
+
+
+def mm_rows_cuda(qf, qr, df, dr, nodes, scheme: ScoringScheme):
     """The Myers-Miller row kernel (csrc/mm_rows.cu) on CUDA tensors: both
-    sweeps of a node in one launch, the integers of node_rows_torch,
-    brought to the host in one copy as a (4, n + 1) int32 CPU tensor.
-    Raises ValueError on a CPU tensor or a sweep outside its sequences,
-    RuntimeError on a failed launch or a stalled hand-over."""
+    sweeps of every node of a recursion level in one launch, the integers
+    of node_rows_torch, brought to the host in one copy.  nodes: a list of
+    (fwd, rev, n), each sweep (q_off, m, d_off, tb).  Returns a list of
+    (4, n + 1) int32 CPU tensors, a node each.  Raises ValueError on a CPU
+    tensor, no node or a sweep outside its sequences, RuntimeError on a
+    failed launch or a stalled hand-over."""
     seqs = (qf, qr, df, dr)
     if not all(t.is_cuda for t in seqs):
         raise ValueError("mm_rows_cuda needs CUDA tensors")
@@ -118,53 +165,66 @@ def mm_rows_cuda(qf, qr, df, dr, fwd, rev, n: int, scheme: ScoringScheme):
                and t.device == qf.device for t in seqs):
         raise ValueError("mm_rows_cuda takes contiguous 1-D int32 sequences "
                          "on one device")
-    for q, d, (q_off, m, d_off, _tb) in ((qf, df, fwd), (qr, dr, rev)):
-        if (n < 0 or m < 0 or q_off < 0 or d_off < 0
-                or q_off + m > q.numel() or d_off + n >= d.numel()):
-            raise ValueError(f"sweep {(q_off, m, d_off)} x {n + 1} columns "
-                             "lies outside its sequences")
+    if not nodes:
+        raise ValueError("mm_rows_cuda needs at least one node")
+    for fwd, rev, n in nodes:
+        for q, d, (q_off, m, d_off, _tb) in ((qf, df, fwd), (qr, dr, rev)):
+            if (n < 0 or m < 0 or q_off < 0 or d_off < 0
+                    or q_off + m > q.numel() or d_off + n >= d.numel()):
+                raise ValueError(f"sweep {(q_off, m, d_off)} x {n + 1} "
+                                 "columns lies outside its sequences")
     lib = csrc.kernels()
     dev = qf.device
-    words = np.zeros(2, np.int64)  # the int32 words of ctr and of bnd
+    plan = plan_level(nodes, lib)
+    head, n_bnd, n_out, tickets = plan.words
     with torch.cuda.device(dev):
-        lanes = lib.sa_mm_rows_scratch(n, fwd[1], rev[1], words.ctypes.data)
-        if lanes < 0:
-            raise RuntimeError("sa_mm_rows_scratch: no SM count")
-        head = int(words[0])
-        # ctr, then the four rows: one copy brings the status word (ctr[1])
-        # and the rows.
-        buf = torch.zeros(head + 4 * (n + 1), dtype=torch.int32, device=dev)
-        bnd = torch.empty(int(words[1]), dtype=torch.int32, device=dev)
+        # ctr, then the rows: one copy brings the status word (ctr[1]) and
+        # every node's rows.  The hand-over columns start zeroed: a word is
+        # taken only once it holds its row's tag.
+        buf = torch.zeros(head + n_out, dtype=torch.int32, device=dev)
+        bnd = torch.zeros(n_bnd, dtype=torch.int32, device=dev)
+        tab = torch.from_numpy(plan.table).to(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sa_mm_rows(
-            *(t.data_ptr() for t in seqs), buf[head:].data_ptr(),
-            bnd.data_ptr(), buf.data_ptr(), *fwd, *rev, n, scheme.match_,
-            scheme.mismatch, scheme.gap_open, scheme.gap_extend, stream)
+            *(t.data_ptr() for t in seqs), tab.data_ptr(), len(nodes),
+            plan.lanes, tickets, buf[head:].data_ptr(), bnd.data_ptr(),
+            buf.data_ptr(), scheme.match_, scheme.mismatch, scheme.gap_open,
+            scheme.gap_extend, stream)
     if rc != 0:
         raise csrc.launch_error("sa_mm_rows", rc)
     mm_rows_cuda.launches += 1
-    mm_rows_cuda.last_launch = dict(lanes_per_thread=lanes,
-                                    rows=(fwd[1], rev[1]), columns=n + 1)
+    mm_rows_cuda.last_launch = dict(
+        lanes_per_thread=plan.lanes, nodes=len(nodes), warps=tickets,
+        rows=[(f[1], r[1]) for f, r, _n in nodes],
+        columns=[n + 1 for _f, _r, n in nodes])
     host = buf.cpu()
     if int(host[1]):
         raise RuntimeError("sa_mm_rows: a strip's hand-over stalled")
-    return host[head:].view(4, n + 1)
+    rows = host[head:]
+    return [rows[o: o + 4 * (n + 1)].view(4, n + 1)
+            for o, (_f, _r, n) in zip(plan.out_offsets, nodes)]
 
 
 mm_rows_cuda.launches = 0
 mm_rows_cuda.last_launch = {}
 
 
-def node_rows(qf, qr, df, dr, fwd, rev, n: int,
-              scheme: ScoringScheme) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors:
-    (4, n + 1) int32 (on the host from the kernel)."""
-    args = (qf, qr, df, dr, fwd, rev, n, scheme)
+def level_rows(qf, qr, df, dr, nodes, scheme: ScoringScheme) -> list:
+    """Every node's rows of a recursion level: one kernel launch for CUDA
+    tensors, the plain version node by node for CPU tensors; a list of
+    (4, n + 1) int32 tensors (on the host from the kernel)."""
     if qf.is_cuda:
-        return mm_rows_cuda(*args)
+        return mm_rows_cuda(qf, qr, df, dr, nodes, scheme)
     if qf.device.type != "cpu":
         raise ValueError(f"unsupported device {qf.device}")
-    return node_rows_torch(*args)
+    return [node_rows_torch(qf, qr, df, dr, fwd, rev, n, scheme)
+            for fwd, rev, n in nodes]
+
+
+def node_rows(qf, qr, df, dr, fwd, rev, n: int,
+              scheme: ScoringScheme) -> torch.Tensor:
+    """One node's (4, n + 1) int32 rows: a level of one node."""
+    return level_rows(qf, qr, df, dr, [(fwd, rev, n)], scheme)[0]
 
 
 class _Seqs:
@@ -200,28 +260,19 @@ class _Seqs:
         return ((qa, mid, da, tb),
                 (self.m0 - qb, m - mid, self.n0 - db_, te), db_ - da)
 
-    def node_rows(self, fwd, rev, n: int):
-        """A node's four numpy rows (n+1,): CC, DD of the forward sweep fwd
-        = (q_off, m, d_off, tb) and RR, SS of the reverse sweep rev, whose
-        offsets index the reversed arrays (the caller maps coordinates)."""
-        out = node_rows(self.qf, self.qr, self.df, self.dr, fwd, rev, n,
-                        self.scheme)
-        return tuple(out.cpu().numpy().astype(np.int64))
-
-    def rows(self, reverse: bool, q_off: int, m: int, d_off: int, n: int,
-             tb: int):
-        """(CC, DD) numpy rows (n+1,) of one sweep (the other sweep of the
-        launch idle).  With reverse=True the offsets index the reversed
-        arrays."""
-        sweep, idle = (q_off, m, d_off, tb), (0, 0, 0, 0)
-        if reverse:
-            return self.node_rows(idle, sweep, n)[2:]
-        return self.node_rows(sweep, idle, n)[:2]
+    def level_rows(self, nodes):
+        """Each node's four numpy rows (n+1,): CC, DD of the forward sweep
+        fwd = (q_off, m, d_off, tb) and RR, SS of the reverse sweep rev,
+        whose offsets index the reversed arrays (the caller maps
+        coordinates); nodes a list of (fwd, rev, n)."""
+        return [tuple(r.cpu().numpy().astype(np.int64))
+                for r in level_rows(self.qf, self.qr, self.df, self.dr,
+                                    nodes, self.scheme)]
 
 
 # Subproblems below this cell count solve directly (vectorized numpy DP +
 # traceback): the recursion is launch-bound otherwise (one row launch and
-# one copy a node, O(m) nodes).
+# one copy a level, O(log m) levels, but many small nodes a level).
 _DIRECT_CELLS = 1 << 20
 
 
@@ -304,37 +355,59 @@ def _direct_ops(q, d, tb: int, te: int, scheme: ScoringScheme) -> str:
     return "".join(reversed("".join(ops)))
 
 
-def _diff(sq: _Seqs, q_codes, d_codes, qa: int, qb: int, da: int, db_: int,
-          tb: int, te: int, ops: List[str]):
-    """Myers-Miller recursion on q[qa:qb] x d[da:db_]; appends ops."""
+def _levels(sq: _Seqs, q_codes, d_codes, tb: int, te: int) -> str:
+    """Myers-Miller recursion on the whole of q_codes x d_codes, a level at
+    a time: every node of a level gets its rows from one level_rows call
+    (a kernel launch on CUDA), each split chosen as in the JAX package's
+    depth-first _diff; the leaves and the joins are assembled in the
+    recursion's order, so the ops string is the JAX package's."""
     scheme = sq.scheme
-    m = qb - qa
-    n = db_ - da
     o = scheme.gap_open
-    if m == 0:
-        ops.append("D" * n)
-        return
-    if n == 0:
-        ops.append("I" * m)
-        return
-    if m == 1 or m * n <= _DIRECT_CELLS:
-        ops.append(
-            _direct_ops(q_codes[qa:qb], d_codes[da:db_], tb, te, scheme)
-        )
-        return
-    mid = m // 2
-    CC, DD, RR, SS = sq.node_rows(*sq.node(qa, qb, da, db_, tb, te))
-    type1 = CC + RR[::-1]
-    type2 = DD + SS[::-1] - o
-    j1 = int(np.argmax(type1))
-    j2 = int(np.argmax(type2))
-    if type1[j1] >= type2[j2]:
-        _diff(sq, q_codes, d_codes, qa, qa + mid, da, da + j1, tb, o, ops)
-        _diff(sq, q_codes, d_codes, qa + mid, qb, da + j1, db_, o, te, ops)
-    else:
-        _diff(sq, q_codes, d_codes, qa, qa + mid - 1, da, da + j2, tb, 0, ops)
-        ops.append("II")
-        _diff(sq, q_codes, d_codes, qa + mid + 1, qb, da + j2, db_, 0, te, ops)
+    # parts[k]: subproblem k's ops, or the parts (indices and "II" joins)
+    # its node splits into.
+    parts: list = [None]
+    level = [(0, (0, len(q_codes), 0, len(d_codes), tb, te))]
+    while level:
+        todo = []
+        for k, (qa, qb, da, db_, tb_, te_) in level:
+            m, n = qb - qa, db_ - da
+            if m == 0:
+                parts[k] = "D" * n
+            elif n == 0:
+                parts[k] = "I" * m
+            elif m == 1 or m * n <= _DIRECT_CELLS:
+                parts[k] = _direct_ops(q_codes[qa:qb], d_codes[da:db_], tb_,
+                                       te_, scheme)
+            else:
+                todo.append((k, (qa, qb, da, db_, tb_, te_)))
+        rows = sq.level_rows([sq.node(*sub) for _k, sub in todo]) \
+            if todo else []
+        level = []
+        for (k, (qa, qb, da, db_, tb_, te_)), (CC, DD, RR, SS) in zip(todo,
+                                                                      rows):
+            mid = (qb - qa) // 2
+            type1 = CC + RR[::-1]
+            type2 = DD + SS[::-1] - o
+            j1 = int(np.argmax(type1))
+            j2 = int(np.argmax(type2))
+            a, b = len(parts), len(parts) + 1
+            parts += [None, None]
+            if type1[j1] >= type2[j2]:
+                parts[k] = [a, b]
+                level += [(a, (qa, qa + mid, da, da + j1, tb_, o)),
+                          (b, (qa + mid, qb, da + j1, db_, o, te_))]
+            else:
+                parts[k] = [a, "II", b]
+                level += [(a, (qa, qa + mid - 1, da, da + j2, tb_, 0)),
+                          (b, (qa + mid + 1, qb, da + j2, db_, 0, te_))]
+
+    def join(k) -> str:
+        p = parts[k]
+        if isinstance(p, str):
+            return p
+        return "".join(x if isinstance(x, str) else join(x) for x in p)
+
+    return join(0)
 
 
 def mm_align(
@@ -353,10 +426,7 @@ def mm_align(
     if len(d) == 0:
         return "I" * len(q)
     sq = _Seqs(q, d, scheme, device)
-    ops: List[str] = []
-    _diff(sq, q, d, 0, len(q), 0, len(d), scheme.gap_open, scheme.gap_open,
-          ops)
-    return "".join(ops)
+    return _levels(sq, q, d, scheme.gap_open, scheme.gap_open)
 
 
 def mm_score_ops(ops: str, query: bytes, db: bytes,

@@ -24,10 +24,12 @@ Two implementations of the fill, chosen by the tensors' device:
 * ``banded_row_fill_torch`` -- plain PyTorch, the twin of _row0_values,
   _banded_row_step and _banded_fill_lax (torch.roll and torch.cummax; CPU
   tensors, and the reference the kernel is checked against);
-* ``banded_row_fill_cuda`` -- the hand-written kernel
-  (``csrc/nw_banded.cu``; CUDA tensors only), one block a pair, the row
-  swept in chunks of up to 2048 lanes with the scan's maximum carried
-  between them, so no band width is refused.
+* ``banded_row_fill_cuda`` -- the hand-written kernel (CUDA tensors only):
+  bands of up to 512 lanes on its warp route (``csrc/nw_banded_warp.cu``:
+  a warp a pair, the band in registers, no barrier), wider ones on its
+  block route (``csrc/nw_banded.cu``: a block a pair, the row swept in
+  chunks of up to 2048 lanes with the scan's maximum carried between
+  them), so no band width is refused.
 """
 
 from __future__ import annotations
@@ -260,13 +262,16 @@ def banded_row_fill_cuda(
     scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
     chunk_lanes: int = 0,
 ):
-    """Kernel #8 (csrc/nw_banded.cu) on CUDA tensors: same arguments and
-    results as banded_row_fill_torch.  chunk_lanes > 0 forces the row's
-    chunk width (a multiple of 128 up to 2048, for testing the scan's
-    carry).  A band whose state passes the shared memory gets a device
-    scratch buffer of 36 bytes a lane.  Raises ValueError on a CPU tensor,
-    a non-contiguous input or a chunk width out of range, RuntimeError on a
-    failed launch."""
+    """Kernel #8 on CUDA tensors: same arguments and results as
+    banded_row_fill_torch.  chunk_lanes 0 lets the rule pick the route:
+    the warp route (csrc/nw_banded_warp.cu) for bands of up to 512 lanes,
+    else the block route (csrc/nw_banded.cu); chunk_lanes > 0 forces the
+    block route with that chunk width (a multiple of 128 up to 2048, for
+    testing the route and its scan's carry at small widths).  A block-route
+    band whose state passes the shared memory gets a device scratch buffer
+    of 36 bytes a lane.  The route taken is left in last_launch.  Raises
+    ValueError on a CPU tensor, a non-contiguous input or a chunk width
+    out of range, RuntimeError on a failed launch."""
     dirs_mode = _norm_dirs(dirs_mode)
     _check_fill_args(s1w0, qin, dcs, n1v, n2v, k_lo)
     if not s1w0.is_cuda:
@@ -302,10 +307,17 @@ def banded_row_fill_cuda(
     if rc != 0:
         raise csrc.launch_error("sa_banded_row_fill", rc)
     banded_row_fill_cuda.launches += 1
+    lpt = lib.sa_banded_row_warp_lanes(K, chunk_lanes)
+    banded_row_fill_cuda.last_launch = (
+        dict(route="warp", lanes_per_thread=lpt, threads=32) if lpt else
+        dict(route="block", lanes_per_thread=4,
+             threads=lib.sa_banded_row_threads(K, chunk_lanes),
+             scratch=bool(words)))
     return finals, dirs
 
 
 banded_row_fill_cuda.launches = 0
+banded_row_fill_cuda.last_launch = {}
 
 
 def banded_row_fill(s1w0, qin, dcs, n1v, n2v, k_lo, scheme, compat,

@@ -1633,10 +1633,11 @@ def _host_row(host, k_lo, ins, scheme, compat, wildcard, dirs_mode, chunk):
     (False, False, None), (False, True, "fast4")])
 def test_host_banded_row_fill_matches_plain(host, compat, wildcard,
                                             dirs_mode, chunk):
-    """Kernel #8's row step and chunked scan (nw_banded.cuh through
-    host_check.cpp) equal the plain row sweep on a band of 384 lanes or more: in one
-    chunk, and forced into 128-lane chunks so that the scan's maximum is
-    carried across three chunks a row."""
+    """Kernel #8's host build (nw_banded.cuh through host_check.cpp)
+    equals the plain row sweep on bands of 384 and 512 lanes: on the
+    rule's route (the warp route at these widths), and forced onto the
+    block route in 128-lane chunks so that the scan's maximum is carried
+    across three or four chunks a row."""
     k_lo, ins = _row_batch(7 + compat + 2 * wildcard, 140)
     assert ins[0].shape[1] >= 384
     scheme = ScoringScheme()
@@ -1647,6 +1648,48 @@ def test_host_banded_row_fill_matches_plain(host, compat, wildcard,
     assert torch.equal(got[0], want[0])
     if dirs_mode:
         assert torch.equal(got[1], want[1])
+
+
+def _row_batch_of_width(seed, K, n=5):
+    """A skewed batch (pairs of 60-90 bp, every other db a cut of its
+    query) and the band that makes its lane range K lanes wide."""
+    pairs = _skewed(seed, n, 60, 90)
+    tb = to_device(pack_batch(pairs, batch_size=n), "cpu")
+    diff = tb.query_len.numpy().astype(int) - tb.db_len.numpy().astype(int)
+    span = max(0, diff.max()) - min(0, diff.min()) + 1
+    band = (K - 64 - span) // 2
+    k_lo, ins = nw_banded.row_inputs(*tb, band)
+    assert ins[0].shape[1] == K, (K, ins[0].shape)
+    return k_lo, ins
+
+
+@pytest.mark.parametrize("route", ["warp", "block"])
+@pytest.mark.parametrize("K", [128, 256, 384, 512])
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("dirs_mode", [None, "fast4", "full"])
+def test_host_banded_row_routes_match_plain(host, route, K, compat,
+                                            dirs_mode):
+    """Both routes of kernel #8's host build equal the plain row sweep on
+    the finals and every word of the dirs, NEGBIG-masked lanes included,
+    with and without wildcard codes: the warp route (nw_banded.cuh's
+    passes: a warp a pair, 4 / 8 / 12 / 16 lanes a thread, the I chain a
+    thread's fold and a warp's scan, the unmasked path where a thread's
+    lanes all hold matrix cells), which the rule gives these widths, and
+    the block route forced by a chunk width (128 lanes: the scan carried
+    across chunks)."""
+    chunk = 0 if route == "warp" else 128
+    assert host.hc_banded_row_warp_lanes(K, chunk) == (
+        K // 32 if route == "warp" else 0)
+    k_lo, ins = _row_batch_of_width(K + compat, K)
+    scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    for wildcard in (False, True):
+        got = _host_row(host, k_lo, ins, scheme, compat, wildcard,
+                        dirs_mode, chunk)
+        want = nw_banded.banded_row_fill_torch(*ins, k_lo, scheme, compat,
+                                               wildcard, dirs_mode)
+        assert torch.equal(got[0], want[0]), (K, compat, wildcard)
+        if dirs_mode:
+            assert torch.equal(got[1], want[1]), (K, compat, wildcard)
 
 
 def test_host_banded_row_fill_past_one_chunk(host):

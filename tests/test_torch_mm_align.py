@@ -1,9 +1,9 @@
 """PyTorch port of the Myers-Miller alignment vs the JAX package's
 ops/mm_align.py on the same pairs and schemes (exact: the ops strings must
 be equal), mirroring tests/test_mm_align.py: random pairs and schemes,
-structured gaps, forced recursion with _DIRECT_CELLS lowered on both
-modules, and the torch score rows against the JAX rows and the direct
-path."""
+structured gaps, forced recursion through the level driver with
+_DIRECT_CELLS lowered on both modules, and the torch score rows against the
+JAX rows and the direct path."""
 
 import dataclasses
 import random
@@ -72,8 +72,9 @@ def test_mm_structured_gaps_match_jax():
 
 @pytest.mark.parametrize("cutoff", [32, 400])
 def test_mm_forced_recursion_matches_jax(monkeypatch, cutoff):
-    """_DIRECT_CELLS lowered on both modules: the recursion's torch rows,
-    joins and subsidized leaves give the JAX package's ops."""
+    """_DIRECT_CELLS lowered on both modules: the level driver's torch
+    rows (several nodes a level), joins and subsidized leaves give the JAX
+    package's ops."""
     monkeypatch.setattr(jax_mm, "_DIRECT_CELLS", cutoff)
     monkeypatch.setattr(port, "_DIRECT_CELLS", cutoff)
     rng = np.random.default_rng(9 + cutoff)
@@ -86,22 +87,60 @@ def test_mm_forced_recursion_matches_jax(monkeypatch, cutoff):
         _check(bytes(conv[a]), bytes(conv[b]), ScoringScheme())
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mm_level_driver_matches_jax(monkeypatch, seed):
+    """The level driver with _DIRECT_CELLS lowered on both modules: one
+    level_rows call a recursion level, several nodes in the deeper ones,
+    the levels' node counts at most doubling, and ops strings equal to the
+    JAX package's depth-first recursion, on pairs with long gaps (so some
+    splits cross an open I run) under two schemes."""
+    levels = []
+    real = port.level_rows
+
+    def spy(qf, qr, df, dr, nodes, scheme):
+        levels.append(len(nodes))
+        return real(qf, qr, df, dr, nodes, scheme)
+
+    monkeypatch.setattr(port, "level_rows", spy)
+    monkeypatch.setattr(jax_mm, "_DIRECT_CELLS", 48)
+    monkeypatch.setattr(port, "_DIRECT_CELLS", 48)
+    rng = np.random.default_rng(70 + seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    for sch in (ScoringScheme(), ScoringScheme(match_=3, mismatch=-5,
+                                               gap_open=-7, gap_extend=-2)):
+        for n, cut in ((200, (50, 110)), (160, (0, 0))):
+            levels.clear()
+            a = rng.integers(0, 4, n)
+            b = np.concatenate([a[: cut[0]], a[cut[1]:]])
+            idx = rng.random(len(b)) < 0.05
+            b[idx] = rng.integers(0, 4, idx.sum())
+            _check(bytes(conv[a]), bytes(conv[b]), sch)
+            assert levels[0] == 1 and max(levels) > 2, levels
+            assert all(y <= 2 * x for x, y in zip(levels, levels[1:]))
+
+
 def test_mm_torch_rows_equal_jax_rows():
-    """rows_torch equals the JAX package's jitted _rows_fn on the same
-    offsets, forward and reversed, with and without the boundary subsidy."""
+    """node_rows (the plain version on the CPU) and node_rows_torch equal
+    the JAX package's jitted _rows_fn on the same offsets, forward and
+    reversed, with and without the boundary subsidy."""
     rng = np.random.default_rng(4)
     q = rng.integers(1, 5, 70).astype(np.int32)
     d = rng.integers(1, 5, 90).astype(np.int32)
     scheme = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
     sq_p = port._Seqs(q, d, scheme, "cpu")
     sq_j = jax_mm._Seqs(q, d, _jax(scheme))
-    for reverse, q_off, m, d_off, n, tb in ((False, 0, 35, 0, 90, -7),
-                                            (True, 10, 20, 30, 50, 0),
-                                            (False, 40, 30, 5, 70, -7)):
-        got = sq_p.rows(reverse, q_off, m, d_off, n, tb)
-        want = sq_j.rows(reverse, q_off, m, d_off, n, tb)
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
+    seqs = (sq_p.qf, sq_p.qr, sq_p.df, sq_p.dr)
+    for fwd, rev, n in (((0, 35, 0, -7), (10, 20, 30, 0), 50),
+                        ((40, 30, 5, -7), (0, 35, 0, -7), 70),
+                        ((2, 12, 1, 0), (30, 25, 5, 0), 85)):
+        got = port.node_rows(*seqs, fwd, rev, n, scheme)
+        assert torch.equal(got, port.node_rows_torch(*seqs, fwd, rev, n,
+                                                     scheme))
+        for k, (reverse, (q_off, m, d_off, tb)) in enumerate(((False, fwd),
+                                                              (True, rev))):
+            want = sq_j.rows(reverse, q_off, m, d_off, n, tb)
+            for g, w in zip(got[2 * k: 2 * k + 2], want):
+                np.testing.assert_array_equal(g.numpy(), w)
     CC, DD = port.rows_torch(sq_p.qf, sq_p.df, 0, 5, 0, 128, -7, scheme)
     assert CC.dtype == DD.dtype == torch.int32 and CC.shape == (129,)
 

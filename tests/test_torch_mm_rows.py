@@ -1,11 +1,13 @@
-"""The Myers-Miller row kernel's arithmetic and strip schedule
-(csrc/mm_rows.cuh through csrc/host_check.cpp's hc_mm_rows: the strips run
-serially in ticket order, each warp's threads in a loop) against the plain
-version, rows_torch, every column 0..n exactly: random schemes, offsets and
-forward / reversed sweeps, the column-0 chain with tb in {0, o}, widths
-across the kernel's thread and strip boundaries, and rows that fall below
+"""The Myers-Miller row kernel's arithmetic and level schedule
+(csrc/mm_rows.cuh through csrc/host_check.cpp's hc_mm_rows: the strips of
+a level's nodes run serially in ticket order, each strip's wavefront a step
+at a time, its threads in a loop) against the plain version, rows_torch,
+every column 0..n exactly: random schemes, offsets and forward / reversed
+sweeps, the column-0 chain with tb in {0, o}, widths across the kernel's
+thread and strip boundaries at 2, 4, 8 and 16 lanes a thread, levels of
+several nodes of different widths and heights, and rows that fall below
 NEG_INF (held against the JAX package's _rows_fn too); then the port's
-mm_align with its node rows through hc_mm_rows against the JAX
+mm_align with each level's rows through hc_mm_rows against the JAX
 package's mm_align (exact ops strings)."""
 
 import dataclasses
@@ -28,29 +30,33 @@ def host():
     return csrc.host_check()
 
 
-def _scratch(host, n, m_f, m_r, lpt=0):
-    """hc_mm_rows_scratch: the lanes a thread and the int32 words of ctr and
-    of bnd."""
-    words = np.zeros(2, np.int64)
-    lanes = host.hc_mm_rows_scratch(n, m_f, m_r, lpt, words.ctypes.data)
-    return lanes, int(words[0]), int(words[1])
-
-
-def _hc_rows(host, qf, qr, df, dr, fwd, rev, n, scheme, lpt=0):
-    """hc_mm_rows on CPU tensors, its scratch sized by hc_mm_rows_scratch:
-    (4, n + 1) int32."""
-    lanes, ctr_words, bnd_words = _scratch(host, n, fwd[1], rev[1], lpt)
-    assert lanes > 0
-    out = torch.full((4, n + 1), 0x5a5a5a5a, dtype=torch.int32)
-    bnd = torch.full((bnd_words,), 0x5a5a5a5a, dtype=torch.int32)
-    ctr = torch.zeros(ctr_words, dtype=torch.int32)
+def _run(host, sq, plan, ctr, lanes=None):
+    """hc_mm_rows over a planned level (at the plan's lanes a thread unless
+    lanes is given), out and the hand-over columns poisoned (no word of
+    which holds a row's tag): (rc, out)."""
+    s = sq.scheme
+    words = plan.words
+    out = torch.full((words[2],), 0x5a5a5a5a, dtype=torch.int32)
+    bnd = torch.full((max(words[1], 1),), 0x5a5a5a5a, dtype=torch.int32)
     rc = host.hc_mm_rows(
-        *(t.data_ptr() for t in (qf, qr, df, dr)), out.data_ptr(),
-        bnd.data_ptr(), ctr.data_ptr(), *fwd, *rev, n, scheme.match_,
-        scheme.mismatch, scheme.gap_open, scheme.gap_extend, lpt)
+        *(t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)),
+        plan.table.ctypes.data, len(plan.table), lanes or plan.lanes,
+        words[3], out.data_ptr(), bnd.data_ptr(), ctr.data_ptr(), s.match_,
+        s.mismatch, s.gap_open, s.gap_extend)
+    return rc, out
+
+
+def _hc_level(host, qf, qr, df, dr, nodes, scheme, lpt=0):
+    """hc_mm_rows on CPU tensors (one level launch), its buffers sized by
+    hc_mm_rows_plan: a (4, n + 1) int32 tensor a node."""
+    plan = port.plan_level(nodes, host, lpt)
+    ctr = torch.zeros(plan.words[0], dtype=torch.int32)
+    seqs = type("S", (), dict(qf=qf, qr=qr, df=df, dr=dr, scheme=scheme))
+    rc, out = _run(host, seqs, plan, ctr)
     assert rc == 0
-    assert int(ctr[0]) == ctr_words - 2 and int(ctr[1]) == 0
-    return out
+    assert int(ctr[0]) == plan.words[3] and int(ctr[1]) == 0
+    return [out[o: o + 4 * (n + 1)].view(4, n + 1)
+            for o, (_f, _r, n) in zip(plan.out_offsets, nodes)]
 
 
 def _seqs(rng, m0, n0, alphabet=4, scheme=ScoringScheme()):
@@ -61,7 +67,8 @@ def _seqs(rng, m0, n0, alphabet=4, scheme=ScoringScheme()):
 
 def _check(host, sq, fwd, rev, n, lpt=0):
     args = (sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n, sq.scheme)
-    got = _hc_rows(host, *args, lpt=lpt)
+    got = _hc_level(host, sq.qf, sq.qr, sq.df, sq.dr, [(fwd, rev, n)],
+                    sq.scheme, lpt=lpt)[0]
     want = port.node_rows_torch(*args)
     assert torch.equal(got, want), (fwd, rev, n, lpt)
     return got
@@ -109,10 +116,13 @@ def test_host_rows_smallest(host, m, n, tb):
         _check(host, sq, fwd, rev, n)
 
 
-@pytest.mark.parametrize("lpt", [2, 4])
+@pytest.mark.parametrize("lpt", [2, 4, 8, 16])
 def test_host_rows_thread_and_strip_boundaries(host, lpt):
     """Widths one below, at and one past a thread's lanes and a strip's
-    (32 x lpt lanes), and two and three strips, forward and reversed."""
+    (32 x lpt lanes), and two and three strips, forward and reversed:
+    the wavefront's first and last threads, and the hand-over between
+    strips, on every lanes-a-thread count (the kernel's 16, and narrower
+    ones that put more boundaries in small inputs)."""
     W = 32 * lpt
     rng = np.random.default_rng(11 + lpt)
     sq = _seqs(rng, 80, 3 * W + 2)
@@ -158,74 +168,95 @@ def test_host_rows_tall_chain_below_neg_inf(host, lpt):
     assert int(got[2, 0]) == 4850 * sch.gap_extend < NEG_INF
 
 
+@pytest.mark.parametrize("lpt", [2, 4, 8, 16])
+def test_host_level_of_nodes(host, lpt):
+    """One level launch over nodes of different widths and heights (a
+    node narrower than a thread's lanes, one of several strips, a tall
+    narrow one, one sweep idle, random schemes' worth of offsets and
+    subsidies): each node's rows equal node_rows_torch's, so the tickets
+    map to the right node, sweep and strip, and each node's hand-over
+    columns and output rows are its own."""
+    rng = np.random.default_rng(60 + lpt)
+    sq = _seqs(rng, 700, 900, alphabet=5,
+               scheme=ScoringScheme(match_=3, mismatch=-5, gap_open=-7,
+                                    gap_extend=-2))
+    o = sq.scheme.gap_open
+    subs = [(0, 60, 0, 900, o, o), (100, 103, 40, 41, 0, o),
+            (200, 260, 300, 300 + 15 * lpt + 3, o, 0),
+            (300, 650, 10, 80, 0, 0), (650, 700, 500, 560, o, o)]
+    nodes = [sq.node(*sub) for sub in subs]
+    nodes.append(((5, 0, 3, 0), (7, 33, 11, o), 40))
+    got = _hc_level(host, sq.qf, sq.qr, sq.df, sq.dr, nodes, sq.scheme,
+                    lpt=lpt)
+    for (fwd, rev, n), g in zip(nodes, got):
+        want = port.node_rows_torch(sq.qf, sq.qr, sq.df, sq.dr, fwd, rev, n,
+                                    sq.scheme)
+        assert torch.equal(g, want), (fwd, rev, n, lpt)
+
+
 def test_host_rows_refuse_unsupported_lanes(host):
     rng = np.random.default_rng(3)
     sq = _seqs(rng, 8, 8)
-    out = torch.zeros((4, 9), dtype=torch.int32)
-    bnd = torch.zeros(64, dtype=torch.int32)
-    ctr = torch.zeros(4, dtype=torch.int32)
-    rc = host.hc_mm_rows(
-        *(t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)),
-        out.data_ptr(), bnd.data_ptr(), ctr.data_ptr(), 0, 4, 0, 0, 0, 4, 0,
-        0, 8, 5, -4, -8, -6, 3)
-    assert rc == -1
+    nodes = [((0, 4, 0, 0), (0, 4, 0, 0), 8)]
+    for lpt in (3, 32):
+        with pytest.raises(ValueError, match="refused"):
+            port.plan_level(nodes, host, lpt)
+    plan = port.plan_level(nodes, host, 4)
+    ctr = torch.zeros(plan.words[0], dtype=torch.int32)
+    assert _run(host, sq, plan, ctr, lanes=3)[0] == -1
+    with pytest.raises(ValueError, match="refused"):
+        port.plan_level([((0, -1, 0, 0), (0, 4, 0, 0), 8)], host, 4)
 
 
 def test_host_rows_unmet_hand_over(host):
-    """Tickets from 2 on leave both sweeps' strip 0 unrun: the forward
-    sweep's strip 1 cannot wait for it, and the host build says so (-4),
-    as the kernel's stalled wait sets the status word the wrapper raises
-    on."""
+    """Tickets from 2 on leave the first node's strips 0 unrun: its forward
+    sweep's strip 1 finds no word of the rows it needs in the hand-over
+    column, and the host build says so (-4), as the kernel's stalled wait
+    sets the status word the wrapper raises on."""
     rng = np.random.default_rng(4)
     sq = _seqs(rng, 40, 200)
-    lanes, ctr_words, bnd_words = _scratch(host, 200, 20, 20, 2)
-    assert (lanes, ctr_words, bnd_words) == (2, 2 + 2 * 4, 4 * 4 * 21)
-    out = torch.zeros((4, 201), dtype=torch.int32)
-    bnd = torch.zeros(bnd_words, dtype=torch.int32)
-    ctr = torch.zeros(ctr_words, dtype=torch.int32)
+    nodes = [((0, 20, 0, -8), (0, 20, 0, -8), 200),
+             ((20, 10, 5, 0), (3, 12, 9, 0), 30)]
+    plan = port.plan_level(nodes, host, 2)
+    # 4 strips a sweep of 22-row columns, 1 strip a sweep of 14.
+    assert (plan.lanes, plan.words) == (
+        2, (2, 2 * (2 * 4 * 2 * 22 + 2 * 2 * 14), 4 * 201 + 4 * 31,
+            2 * 4 + 2 * 1))
+    ctr = torch.zeros(plan.words[0], dtype=torch.int32)
     ctr[0] = 2
-    rc = host.hc_mm_rows(
-        *(t.data_ptr() for t in (sq.qf, sq.qr, sq.df, sq.dr)),
-        out.data_ptr(), bnd.data_ptr(), ctr.data_ptr(), 0, 20, 0, -8, 0,
-        20, 0, -8, 200, 5, -4, -8, -6, 2)
+    rc, _out = _run(host, sq, plan, ctr)
     assert rc == -4 and int(ctr[0]) == 3
 
 
-@pytest.mark.parametrize("n,lanes", [(0, 4), (33790, 4), (33791, 4),
-                                     (33792, 8), (67583, 8), (67584, 16),
-                                     (100_000, 16), (400_000, 16)])
-def test_host_rows_lane_rule_and_scratch(host, n, lanes):
-    """The lanes a thread by width (132 SMs): 4 while both sweeps' strips
-    of 128 columns fit 4 warps an SM, then 8, then 16 at any width; ctr
-    holds the ticket, the status word and a count a strip of each sweep,
-    bnd a column of max(m) + 1 rows' pairs a strip of each sweep."""
-    got, ctr_words, bnd_words = _scratch(host, n, 300, 301)
-    strips = -(-(n + 1) // (32 * lanes))
-    assert got == lanes
-    assert ctr_words == 2 + 2 * strips
-    assert bnd_words == 2 * strips * 2 * 302
+@pytest.mark.parametrize("widths", [
+    (0,), (100_000,), (270_335,), (270_336,), (400_000,), (100_000,) * 2,
+    (100_000,) * 3, (1500,) * 64, (3000,) * 64])
+def test_host_rows_lane_rule_and_scratch(host, widths):
+    """The kernel's lanes a thread, 16, at every level's width, also where
+    a level's strips outnumber a 132-SM grid's 1,056 warps (270,336
+    columns and up, three nodes of 100,001); ctr holds the ticket and the
+    status word, bnd a hand-over column (two 64-bit words a row, max(m) + 2
+    rows) a strip of each sweep, out a node's four rows of n + 1, and the
+    tickets and the output rows run node by node."""
+    nodes = [((0, 300, 0, 0), (0, 301, 0, 0), n) for n in widths]
+    plan = port.plan_level(nodes, host, 0)
+    strips = [-(-(n + 1) // 512) for n in widths]
+    assert plan.lanes == 16
+    assert plan.words == (2, 2 * 2 * sum(strips) * 2 * 303,
+                          sum(4 * (n + 1) for n in widths), 2 * sum(strips))
+    assert plan.first_tickets == [2 * sum(strips[:k])
+                                  for k in range(len(widths))]
+    assert plan.out_offsets == [sum(4 * (n + 1) for n in widths[:k])
+                                for k in range(len(widths))]
 
 
 def test_mm_rows_cuda_refuses_cpu_tensors():
     rng = np.random.default_rng(3)
     sq = _seqs(rng, 8, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        port.mm_rows_cuda(sq.qf, sq.qr, sq.df, sq.dr, (0, 4, 0, 0),
-                          (0, 4, 0, 0), 8, sq.scheme)
+        port.mm_rows_cuda(sq.qf, sq.qr, sq.df, sq.dr,
+                          [((0, 4, 0, 0), (0, 4, 0, 0), 8)], sq.scheme)
     assert port.mm_rows_cuda.launches == 0
-
-
-def test_seqs_rows_is_one_sweep_of_node_rows():
-    """_Seqs.rows (one sweep, the other idle) equals the matching half of
-    _Seqs.node_rows."""
-    rng = np.random.default_rng(9)
-    sq = _seqs(rng, 50, 70)
-    fwd, rev = (4, 20, 6, -8), (3, 25, 10, 0)
-    CC, DD, RR, SS = sq.node_rows(fwd, rev, 50)
-    for got, want in ((sq.rows(False, *fwd[:3], 50, fwd[3]), (CC, DD)),
-                      (sq.rows(True, *rev[:3], 50, rev[3]), (RR, SS))):
-        for g, w in zip(got, want):
-            np.testing.assert_array_equal(g, w)
 
 
 def _jax(scheme):
@@ -236,16 +267,17 @@ def _jax(scheme):
 @pytest.mark.parametrize("cutoff", [32, 600])
 def test_mm_align_through_host_rows_matches_jax(host, monkeypatch, cutoff,
                                                 lpt):
-    """The port's mm_align on the CPU with every node's rows from
-    hc_mm_rows (the kernel's loop) and _DIRECT_CELLS lowered on both
-    modules: its ops strings equal the JAX package's."""
+    """The port's mm_align on the CPU through the level driver, every
+    level's rows from one hc_mm_rows launch (the kernel's loop) and
+    _DIRECT_CELLS lowered on both modules: its ops strings equal the JAX
+    package's."""
     calls = []
 
-    def rows_via_host(qf, qr, df, dr, fwd, rev, n, scheme):
-        calls.append(n)
-        return _hc_rows(host, qf, qr, df, dr, fwd, rev, n, scheme, lpt=lpt)
+    def rows_via_host(qf, qr, df, dr, nodes, scheme):
+        calls.append(len(nodes))
+        return _hc_level(host, qf, qr, df, dr, nodes, scheme, lpt=lpt)
 
-    monkeypatch.setattr(port, "node_rows", rows_via_host)
+    monkeypatch.setattr(port, "level_rows", rows_via_host)
     monkeypatch.setattr(port, "_DIRECT_CELLS", cutoff)
     monkeypatch.setattr(jax_mm, "_DIRECT_CELLS", cutoff)
     rng = np.random.default_rng(40 + cutoff)
@@ -263,4 +295,4 @@ def test_mm_align_through_host_rows_matches_jax(host, monkeypatch, cutoff,
         got = port.mm_align(s1, s2, sch, device="cpu")
         assert got == jax_mm.mm_align(s1, s2, _jax(sch))
         assert len(got) - got.count("I") == len(s2)
-    assert calls
+    assert calls and max(calls) > 1
