@@ -156,7 +156,26 @@ in the phases below and exits non-zero at the first failure:
    its penalty, the four engines' scores equal, alignments/s); the compat
    route on 8 x 1 kb against oracle_wfa; the golden wfa and wfa-textbook
    CLI outputs (also with --wfa-engine wavefront), -m semi-global
-   --textbook --wfa-spans 5, and serve -a wfa.
+   --textbook --wfa-spans 5, and serve -a wfa;
+24. int16 stream state (kernels #1 and #2's int16 instances,
+   csrc/nw_affine_stream_i16.cu: two lanes a 32-bit word): every instance
+   against its int16 plain version on ragged batches (global compat and
+   textbook x dirs none/fast4/full x wildcard, semi-global and local x
+   dirs x wildcard, lanes a thread forced to 2/4/16 and the default, odd
+   and one-step chunks) and split over a 4-CTA cluster; at the main
+   shape the fast4 fill against its plain version (all 4096 pairs), the
+   full, local and semi-global fills against theirs on the first
+   N_I16_PLAIN pairs (the plain loops' time), and all four against the
+   int32 kernels at full size -- scores and every finite final, the
+   modes' argmax buffers, and the walks (the fast4 and modes walk kernels
+   on both dirs; the co-optimal host walk of sampled pairs for full);
+   each timed int32, int16, int16, int32 beside its bound (the packed
+   rule: a 16x2 instruction counts as two of OPS_PER_CELL's operations);
+   GotohAligner first-only and textbook local and the runner's scores
+   with stream_state "i16" through the int16 kernels (launch counts; the
+   int32 kernels never launched there), equal to the int32 runs; the
+   golden CLI with --stream-state i16 and with --traceback host, and
+   --profile writing a trace with CUDA kernel events.
 
 Every phase prints its wall seconds; the summary is on a line before the
 card's, and in chip_smoke.json's phase_s.
@@ -185,6 +204,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -269,6 +289,11 @@ N_ASTAR, LEN_ASTAR = 4096, 1023
 # compat route on N_WFA_COMPAT pairs of LEN_WFA_COMPAT bp.
 N_WFA, LEN_WFA, WFA_BAND, WFA_INDELS = 128, 10_230, 64, 3
 N_WFA_COMPAT, LEN_WFA_COMPAT = 8, 1000
+# int16 stream state: the full, local and semi-global fills against their
+# plain versions on the first N_I16_PLAIN pairs of the main shape (the
+# plain loops over all 4096 pairs take ~10 s each); the textbook local
+# aligner with stream_state "i16" over N_I16_LOCAL of them.
+N_I16_PLAIN, N_I16_LOCAL = 512, 1024
 # The compat check's step cap (config.wfa_max_steps): the reference's WFA
 # converges on none of these pairs (its len-1 convergence quirk), and the
 # Python oracle takes ~12 s a pair to reach the default 20000 steps.
@@ -320,7 +345,8 @@ OPS_PER_CELL = {
     "mm rows": 11,
 }
 KERNELS = {
-    # name: (module key, wrapper, source, TPU kernel replaced)
+    # name: (module key, wrapper, source, TPU kernel replaced[, the
+    # wrapper's launch counter, "launches" when absent])
     "nw_affine_stream_fill": (
         "fill", "gotoh_fill_stream_cuda",
         "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
@@ -337,6 +363,15 @@ KERNELS = {
         "smodes", "gotoh_fill_stream_modes_cuda",
         "sequencealigning_tpu_torch/csrc/nw_affine_stream.cu",
         "sequencealigning_tpu/ops/nw_affine_stream_modes.py:182"),
+    "nw_affine_stream_fill_i16": (
+        "fill", "gotoh_fill_stream_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_stream_i16.cu",
+        "sequencealigning_tpu/ops/nw_affine_stream.py:429", "launches_i16"),
+    "nw_affine_stream_modes_fill_i16": (
+        "smodes", "gotoh_fill_stream_modes_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_stream_i16.cu",
+        "sequencealigning_tpu/ops/nw_affine_stream_modes.py:182",
+        "launches_i16"),
     "walk_modes": (
         "walk", "walk_modes_cuda",
         "sequencealigning_tpu_torch/csrc/traceback_device.cu",
@@ -402,16 +437,22 @@ def _wrapper(port, name):
     return getattr(port[key], fn)
 
 
+def _counter(name):
+    """The wrapper attribute that counts the kernel's launches."""
+    spec = KERNELS[name]
+    return spec[4] if len(spec) > 4 else "launches"
+
+
 @contextlib.contextmanager
 def path_launches(port, by_path, path):
     """Run a main path with every kernel's launch count set to 0 just
     before it; just after, add the counts it read to by_path[kernel][path]
     (kernels it did not launch are left out)."""
     for name in KERNELS:
-        _wrapper(port, name).launches = 0
+        setattr(_wrapper(port, name), _counter(name), 0)
     yield
     for name in KERNELS:
-        n = _wrapper(port, name).launches
+        n = getattr(_wrapper(port, name), _counter(name))
         if n:
             by_path.setdefault(name, {})[path] = \
                 by_path.get(name, {}).get(path, 0) + n
@@ -571,7 +612,8 @@ def phase_build(csrc, out_dir):
     check(len(inst) > 0 or not csrc.build_log,
           "no streamed-fill instance in the build log")
     for r in inst:
-        log(f"[2 build] stream instance {r['lanes_per_thread']} lanes a "
+        log(f"[2 build] stream instance {r['state']}, "
+            f"{r['lanes_per_thread']} lanes a "
             f"thread, {r['mode']}, dirs {r['dirs']}, compat "
             f"{int(r['compat'])}, wildcard {int(r['wildcard'])}: "
             f"{r['registers']} registers, spill stores {r['spill_stores']} "
@@ -1366,30 +1408,41 @@ def phase_modes_main(torch, port, pairs, out_dir, by_path):
     return meas
 
 
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+
+
+def run_golden(port, name, extra):
+    """The port's CLI on the golden corpus with --device cuda and extra
+    flags: its stdout must equal tests/golden/<name>.out's (timing lines
+    normalised).  Returns its stderr."""
+    spec = importlib.util.spec_from_file_location(
+        "golden_regen", os.path.join(GOLDEN, "regen.py"))
+    regen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(regen)
+    q, d = os.path.join(GOLDEN, "queries.fa"), os.path.join(GOLDEN, "db.fa")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = port["cli"].main(["-q", q, "-d", d, "--no-out", "--device",
+                               "cuda"] + extra)
+    with open(os.path.join(GOLDEN, f"{name}.out")) as f:
+        want = f.read()
+    want_out = want.split("# --- stdout ---\n", 1)[1].split(
+        "# --- stderr ---\n", 1)[0]
+    check(rc == 0, f"cli exit {rc} ({name} {extra})")
+    check(regen.normalize(out.getvalue()) == want_out,
+          f"cli stdout differs from tests/golden/{name}.out ({extra})")
+    return err.getvalue()
+
+
 def phase_cli(torch, port, by_path):
     """The golden CLI outputs with --device cuda, and serve.  The textbook
     modes runs (24 pairs, under the streamed engine's 32) are the per-pair
     modes kernel's path."""
-    spec = importlib.util.spec_from_file_location(
-        "golden_regen", os.path.join(ROOT, "tests", "golden", "regen.py"))
-    regen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(regen)
-    golden = os.path.join(ROOT, "tests", "golden")
-    q, d = os.path.join(golden, "queries.fa"), os.path.join(golden, "db.fa")
+    q, d = os.path.join(GOLDEN, "queries.fa"), os.path.join(GOLDEN, "db.fa")
     main = port["cli"].main
 
     def run_cli(name, extra):
-        out, err = io.StringIO(), io.StringIO()
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = main(["-q", q, "-d", d, "--no-out", "--device", "cuda"]
-                      + extra)
-        with open(os.path.join(golden, f"{name}.out")) as f:
-            want = f.read()
-        want_out = want.split("# --- stdout ---\n", 1)[1].split(
-            "# --- stderr ---\n", 1)[0]
-        check(rc == 0, f"cli exit {rc} ({name})")
-        check(regen.normalize(out.getvalue()) == want_out,
-              f"cli stdout differs from tests/golden/{name}.out")
+        run_golden(port, name, extra)
 
     def serve(args):
         stdin = sys.stdin
@@ -2853,7 +2906,6 @@ def phase_runner(torch, port, pairs, main_res, by_path, out_dir):
     walk), its fused modes route against GotohAligner._modes_batch, and
     stream_align over N_STREAM batches with cigars against phase 5's
     alignments, with a checkpoint resume."""
-    import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -4116,17 +4168,390 @@ def phase_wfa(torch, port, by_path):
     return meas
 
 
+def i16_check(torch, fk, dk, fp, dp, label, dirs_mode):
+    """An int16 fill kernel's finals (or argmax planes) and dirs against its
+    int16 plain version's: the largest difference, failing unless every
+    value and every direction word is equal."""
+    err = max(int((a - b).abs().max()) for a, b in zip(fk, fp))
+    if dirs_mode:
+        whole = bool(torch.equal(dk.view(torch.int32), dp.view(torch.int32)))
+        err = max(err, 0 if whole else 1)
+    check(err == 0, f"int16 kernel != its plain version ({label}): err {err}")
+    return err
+
+
+def i16_timed(torch, launch):
+    """int32 then int16 then int16 then int32 (CUDA events, 3 launches
+    each after a warm-up): (int16 ms, int32 ms), each the mean of its
+    two."""
+    t32a = cuda_ms(torch, lambda: launch(torch.int32))
+    t16a = cuda_ms(torch, lambda: launch(torch.int16))
+    t16b = cuda_ms(torch, lambda: launch(torch.int16))
+    t32b = cuda_ms(torch, lambda: launch(torch.int32))
+    return (t16a + t16b) / 2, (t32a + t32b) / 2
+
+
+def phase_int16(torch, port, pairs, main_res, instances, by_path, out_dir):
+    """Kernels #1 and #2's int16 instances (two lanes a 32-bit word):
+    against their int16 plain versions and the int32 kernels, timed, and
+    driven through the aligner, the runner and the CLI with the int16
+    state."""
+    from sequencealigning_tpu_torch.config import (
+        AlignConfig,
+        Algo,
+        Mode,
+        ScoringScheme,
+    )
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
+    from sequencealigning_tpu_torch.ops.traceback import traceback_pair
+
+    fill, smodes, walk, modes = (port["fill"], port["smodes"], port["walk"],
+                                 port["modes"])
+    I16 = torch.int16
+    sc = ScoringScheme()
+    out = {}
+    gerrs, merrs = [], []
+
+    # Every instance against its plain version on ragged batches.
+    rpairs = ragged_pairs(np.random.default_rng(24), 40)
+    gb = trim_for_stream(pack_batch(rpairs, batch_size=40))
+    plan, ins = fill.stream_inputs(*to_device(gb, "cuda"))
+    knobs = ({}, {"lanes_per_thread": 2, "chunk": 7},
+             {"lanes_per_thread": 4, "chunk": 1, "ring_slots": 1},
+             {"lanes_per_thread": 16})
+    for compat in (True, False):
+        for dm in (None, "fast4", "full"):
+            for wc in (False, True):
+                for k in knobs:
+                    a = (plan, sc, compat, wc, dm)
+                    with fill.forced_ring(**k):
+                        fk, dk = fill.gotoh_fill_stream_cuda(
+                            *ins, *a, state_dtype=I16)
+                    fp, dp = fill.gotoh_fill_stream_torch(
+                        *ins, *a, state_dtype=I16)
+                    fill.check_stream_stalls(wait=True)
+                    gerrs.append(i16_check(
+                        torch, (fk,), dk, (fp,), dp,
+                        f"global compat={compat} dirs={dm} wildcard={wc} "
+                        f"{k}", dm))
+    mb = pack_batch(rpairs, batch_size=40)
+    plan, ins = fill.stream_inputs(*to_device(mb, "cuda"), np_slots=3)
+    for mode in ("semi", "local"):
+        for wd in (False, True):
+            for wc in (False, True):
+                for k in knobs:
+                    a = (plan, sc, wc, mode, wd)
+                    with fill.forced_ring(**k):
+                        bk, dk = smodes.gotoh_fill_stream_modes_cuda(
+                            *ins, *a, state_dtype=I16)
+                    bp, dp = smodes.gotoh_fill_stream_modes_torch(
+                        *ins, *a, state_dtype=I16)
+                    fill.check_stream_stalls(wait=True)
+                    merrs.append(i16_check(
+                        torch, bk, dk, bp, dp,
+                        f"{mode} dirs={wd} wildcard={wc} {k}", wd))
+    sub = trim_for_stream(pack_batch(pairs[:256], batch_size=256))
+    plan, ins = fill.stream_inputs(*to_device(sub, "cuda"))
+    a = (plan, sc, True, False, "fast4")
+    fk, dk = fill.gotoh_fill_stream_cuda(*ins, *a, cta_lanes=512,
+                                         state_dtype=I16)
+    fp, dp = fill.gotoh_fill_stream_torch(*ins, *a, state_dtype=I16)
+    fill.check_stream_stalls(wait=True)
+    gerrs.append(i16_check(torch, (fk,), dk, (fp,), dp, "4-CTA split",
+                           "fast4"))
+    log(f"[24 int16] ragged: {len(gerrs) - 1} global and {len(merrs)} modes "
+        "fills (lanes a thread 2/4/16 and the default, chunks 1, 7 and the "
+        f"default), and 256 x {LEN_MAIN} bp over 4 CTAs of 512 lanes: finals, "
+        "argmax planes and whole dirs tensors equal to the int16 plain "
+        "versions")
+    del fk, dk, fp, dp, bk, bp
+
+    # The main shape: each kind against its plain version and the int32
+    # kernel, then timed beside its bound.
+    n1s = np.asarray([len(x) for x, _ in pairs], np.int32)
+    n2s = np.asarray([len(y) for _, y in pairs], np.int32)
+    bs = np.arange(N_MAIN)
+
+    def put(v):
+        return torch.from_numpy(np.ascontiguousarray(v, np.int32)).cuda()
+
+    gbatch = trim_for_stream(pack_batch(pairs, batch_size=N_MAIN))
+    gplan, gins = fill.stream_inputs(*to_device(gbatch, "cuda"))
+    neg = fill.stream_i16_neg(sc, gplan)
+    check(neg is not None, "the main shape is not certified for int16")
+    mbatch = pack_batch(pairs, batch_size=N_MAIN)
+    mplan, mins = fill.stream_inputs(*to_device(mbatch, "cuda"))
+    small = pairs[:N_I16_PLAIN]
+    cells = int((n1s.astype(np.int64) * n2s.astype(np.int64)).sum())
+    rowp, off = bs // gplan.np_slots, (bs % gplan.np_slots) * gplan.s
+    for dm in ("fast4", "full"):
+        def launch(st, dm=dm):
+            return fill.gotoh_fill_stream_cuda(*gins, gplan, sc, True, False,
+                                               dm, state_dtype=st)
+        f16, d16 = launch(I16)
+        launch16 = dict(fill.gotoh_fill_stream_cuda.last_launch)
+        f32, d32 = launch(torch.int32)
+        fill.check_stream_stalls(wait=True)
+        # Against the int32 kernel: every pair's score and every finite
+        # final; the walks of both dirs.
+        a16, a32 = f16[:N_MAIN], f32[:N_MAIN]
+        finite = a32 > -32768
+        same = bool(torch.equal(a16.max(1).values, a32.max(1).values)
+                    and torch.equal(a16[finite], a32[finite]))
+        check(same, f"int16 {dm} finals != int32's at the main shape")
+        if dm == "fast4":
+            walks = []
+            for fin, dirs in ((a16, d16), (a32, d32)):
+                seeds = [put(n2s), put(n1s),
+                         put(walk.seed_planes(fin.cpu().numpy())),
+                         put(rowp), put(off)]
+                walks.append(walk.walk_fast4_cuda(
+                    dirs, *seeds, gplan.l1 + gplan.l2))
+            werr = walk_diff(torch, walks[0], walks[1])
+            check(werr == 0, f"int16 fast4 walks != int32's: err {werr}")
+            walked = f"all {N_MAIN} fast4 walks equal"
+            del walks
+        else:
+            fh16, fh32 = a16.cpu().numpy(), a32.cpu().numpy()
+            for b in np.random.default_rng(7).choice(N_MAIN, 8,
+                                                     replace=False):
+                r, o = int(rowp[b]), int(off[b])
+                w16, w32 = (traceback_pair(
+                    d[:, r, :].cpu().numpy(), fh[b], *pairs[b], compat=True,
+                    max_alignments=1, d_offset=o)
+                    for d, fh in ((d16, fh16), (d32, fh32)))
+                check(w16 == w32, f"int16 full walk != int32's, pair {b}")
+            walked = "8 sampled co-optimal host walks equal"
+        del d32
+        # Against the int16 plain version: fast4 on every pair, full on the
+        # first N_I16_PLAIN.
+        if dm == "fast4":
+            plain_ms, (fp, dp) = host_ms(torch, lambda: fill.gotoh_fill_stream_torch(
+                *gins, gplan, sc, True, False, dm, state_dtype=I16))
+            gerrs.append(i16_check(torch, (f16,), d16, (fp,), dp,
+                                   "main shape fast4", dm))
+            plain_on = f"{N_MAIN} pairs"
+        else:
+            del d16
+            sb = trim_for_stream(pack_batch(small, batch_size=N_I16_PLAIN))
+            splan, sins = fill.stream_inputs(*to_device(sb, "cuda"))
+            fk, dk = fill.gotoh_fill_stream_cuda(*sins, splan, sc, True,
+                                                 False, dm, state_dtype=I16)
+            plain_ms, (fp, dp) = host_ms(torch, lambda: fill.gotoh_fill_stream_torch(
+                *sins, splan, sc, True, False, dm, state_dtype=I16))
+            gerrs.append(i16_check(torch, (fk,), dk, (fp,), dp,
+                                   f"{N_I16_PLAIN} pairs full", dm))
+            plain_on = f"{N_I16_PLAIN} pairs"
+            del fk, dk
+        del fp, dp
+        torch.cuda.empty_cache()
+        ms, ms32 = i16_timed(torch, launch)
+        nbytes_io = nbytes(*gins, f16) + gplan.t_total // (
+            8 if dm == "fast4" else 4) * gplan.n_rows * gplan.p * 4
+        b_ms, b_by = bound(nbytes_io, cells * OPS_PER_CELL[dm] / 2)
+        reg = instance_of(instances, "i16", launch16, "global", dm, True)
+        out.update({f"i16_{dm}_ms": ms, f"i16_{dm}_int32_ms": ms32,
+                    f"i16_{dm}_plain_ms": plain_ms,
+                    f"i16_{dm}_plain_on": plain_on,
+                    f"i16_{dm}_bound_ms": b_ms, f"i16_{dm}_bound_by": b_by,
+                    f"i16_{dm}_err": max(gerrs),
+                    f"i16_{dm}_launch": launch16,
+                    f"i16_{dm}_registers": reg})
+        log(f"[24 int16] {N_MAIN} x {LEN_MAIN} bp global {dm} (sentinel "
+            f"{neg}): int16 kernel {ms:.3f} ms, int32 kernel {ms32:.3f} ms "
+            f"(same call), plain {plain_ms:.1f} ms on {plain_on}, bound "
+            f"{b_ms:.3f} ms ({b_by}, a 16x2 instruction two operations; "
+            f"{100 * b_ms / ms:.1f}%); {launch16['lanes_per_thread']} lanes "
+            f"x {launch16['threads']} threads, "
+            + (f"{reg['registers']} registers, {reg['spill_stores']} B "
+               "spilled" if reg else "registers not in the build log")
+            + f"; equal to the plain version, scores and finite finals equal"
+            f" to int32's, {walked}")
+        del f16, f32
+        torch.cuda.empty_cache()
+
+    mrowp, moff = bs // mplan.np_slots, (bs % mplan.np_slots) * mplan.s
+    P = mplan.p
+    for mode in ("local", "semi"):
+        local = mode == "local"
+
+        def launch(st, mode=mode):
+            return smodes.gotoh_fill_stream_modes_cuda(
+                *mins, mplan, sc, False, mode, True, state_dtype=st)
+        (b16, e16), d16 = launch(I16)
+        launch16 = dict(smodes.gotoh_fill_stream_modes_cuda.last_launch)
+        (b32, e32), d32 = launch(torch.int32)
+        fill.check_stream_stalls(wait=True)
+        check(bool(torch.equal(b16, b32) and torch.equal(e16, e32)),
+              f"int16 {mode} argmax planes != int32's at the main shape")
+        walks = []
+        for bv, bd, dirs in ((b16, e16, d16), (b32, e32, d32)):
+            _, x, y = modes.modes_reduce(bv.transpose(0, 1).reshape(-1, P),
+                                         bd.transpose(0, 1).reshape(-1, P))
+            seeds = [x[:N_MAIN].contiguous(), y[:N_MAIN].contiguous(),
+                     put(mrowp), put(moff)]
+            walks.append(walk.walk_modes_cuda(dirs, *seeds, local,
+                                              mplan.l1 + mplan.l2))
+        werr = walk_diff(torch, walks[0], walks[1])
+        check(werr == 0, f"int16 {mode} walks != int32's: err {werr}")
+        del walks, d16, d32, b32, e32
+        torch.cuda.empty_cache()
+        sb = pack_batch(small, batch_size=N_I16_PLAIN)
+        splan, sins = fill.stream_inputs(*to_device(sb, "cuda"))
+        a = (splan, sc, False, mode, True)
+        bk, dk = smodes.gotoh_fill_stream_modes_cuda(*sins, *a,
+                                                     state_dtype=I16)
+        plain_ms, (bp, dp) = host_ms(
+            torch, lambda: smodes.gotoh_fill_stream_modes_torch(
+                *sins, *a, state_dtype=I16))
+        merrs.append(i16_check(torch, bk, dk, bp, dp,
+                               f"{N_I16_PLAIN} pairs {mode}", True))
+        del bk, dk, bp, dp
+        torch.cuda.empty_cache()
+        ms, ms32 = i16_timed(torch, launch)
+        nbytes_io = nbytes(*mins, b16, e16) + (
+            mplan.t_total // 4 * mplan.n_rows * mplan.p * 4)
+        b_ms, b_by = bound(nbytes_io, cells * OPS_PER_CELL[
+            "local full" if local else "full"] / 2)
+        reg = instance_of(instances, "i16", launch16, mode, "full", False)
+        out.update({f"i16_{mode}_ms": ms, f"i16_{mode}_int32_ms": ms32,
+                    f"i16_{mode}_plain_ms": plain_ms,
+                    f"i16_{mode}_plain_on": f"{N_I16_PLAIN} pairs",
+                    f"i16_{mode}_bound_ms": b_ms,
+                    f"i16_{mode}_bound_by": b_by,
+                    f"i16_{mode}_err": max(merrs),
+                    f"i16_{mode}_launch": launch16,
+                    f"i16_{mode}_registers": reg})
+        log(f"[24 int16] {N_MAIN} x {LEN_MAIN} bp {mode} full: int16 kernel "
+            f"{ms:.3f} ms, int32 kernel {ms32:.3f} ms (same call), plain "
+            f"{plain_ms:.1f} ms on {N_I16_PLAIN} pairs, bound {b_ms:.3f} ms "
+            f"({b_by}, a 16x2 instruction two operations; "
+            f"{100 * b_ms / ms:.1f}%); {launch16['lanes_per_thread']} lanes "
+            f"x {launch16['threads']} threads, "
+            + (f"{reg['registers']} registers, {reg['spill_stores']} B "
+               "spilled" if reg else "registers not in the build log")
+            + f"; equal to the plain version on {N_I16_PLAIN} pairs; argmax "
+            f"planes and all {N_MAIN} walks equal to int32's")
+        del b16, e16
+        torch.cuda.empty_cache()
+    out["i16_global_errs"], out["i16_modes_errs"] = gerrs, merrs
+    del gins, mins
+    torch.cuda.empty_cache()
+
+    # The aligner, the runner and the CLI with the int16 state.
+    recs = records(pairs)
+    cfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True,
+                      stream_state="i16")
+    path = "int16 global first-only"
+    aligner = port["models"].GotohAligner(cfg, "cuda")
+    with path_launches(port, by_path, path):
+        t0 = time.perf_counter()
+        res = aligner.align_batch(recs)
+        secs = time.perf_counter() - t0
+    launches = {k: v[path] for k, v in by_path.items() if path in v}
+    check(launches.get("nw_affine_stream_fill_i16", 0) > 0
+          and "nw_affine_stream_fill" not in launches,
+          f"{path}: launches {launches}")
+    check([(r.score, r.aligned_query, r.aligned_db) for r in res]
+          == [(r.score, r.aligned_query, r.aligned_db) for r in main_res],
+          f"{path}: alignments != phase 5's (int32)")
+    log(f"[24 int16] GotohAligner first-only stream_state i16, {N_MAIN} "
+        f"pairs: {secs:.3f} s, {N_MAIN / secs:.1f} alignments/s; launches "
+        f"{launches}; every alignment equal to phase 5's int32 run")
+    del res, aligner
+    lrecs = recs[:N_I16_LOCAL]
+    got = {}
+    for st in ("i16", "i32"):
+        lcfg = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL,
+                           compat=False, stream_state=st)
+        lpath = f"{st} textbook local"
+        with path_launches(port, by_path, lpath):
+            t0 = time.perf_counter()
+            res = port["models"].GotohAligner(lcfg, "cuda").align_batch(
+                lrecs)
+            got[st] = (time.perf_counter() - t0, [
+                (r.score, r.aligned_query, r.aligned_db) for r in res])
+    llaunch = {k: v["i16 textbook local"] for k, v in by_path.items()
+               if "i16 textbook local" in v}
+    check(llaunch.get("nw_affine_stream_modes_fill_i16", 0) > 0
+          and "nw_affine_stream_modes_fill" not in llaunch,
+          f"int16 textbook local: launches {llaunch}")
+    check(got["i16"][1] == got["i32"][1],
+          "int16 textbook local alignments != int32's")
+    log(f"[24 int16] GotohAligner textbook local stream_state i16, "
+        f"{N_I16_LOCAL} pairs: {got['i16'][0]:.3f} s (int32 "
+        f"{got['i32'][0]:.3f} s); launches {llaunch}; alignments equal to "
+        "the int32 run's")
+    batch = pack_batch(pairs, batch_size=N_MAIN)
+    rpath = "int16 runner scores"
+    runner16 = port["parallel"].DataParallelRunner(["cuda"],
+                                                   state_dtype="i16")
+    with path_launches(port, by_path, rpath):
+        s16 = runner16.scores(batch)
+    s32 = port["parallel"].DataParallelRunner(["cuda"]).scores(batch)
+    check(bool(torch.equal(s16.max(1).values, s32.max(1).values)),
+          "int16 runner scores != int32's")
+    rl = {k: v[rpath] for k, v in by_path.items() if rpath in v}
+    check(rl.get("nw_affine_stream_fill_i16", 0) > 0
+          and "nw_affine_stream_fill" not in rl, f"{rpath}: launches {rl}")
+    cpath = "int16 and walk-route CLI"
+    nw = ["-a", "needleman-wunsch"]
+    with path_launches(port, by_path, cpath):
+        for name, extra in (("needleman-wunsch", nw),
+                            ("nw-first-only", nw + ["--first-only"])):
+            run_golden(port, name, extra + ["--stream-state", "i16"])
+        for name, extra in (("nw-first-only", nw + ["--first-only"]),
+                            ("nw-local-textbook",
+                             nw + ["-m", "local", "--textbook"]),
+                            ("nw-semiglobal-textbook",
+                             nw + ["-m", "semi-global", "--textbook"])):
+            run_golden(port, name, extra + ["--traceback", "host"])
+    cl = {k: v[cpath] for k, v in by_path.items() if cpath in v}
+    check(cl.get("nw_affine_stream_fill_i16", 0) > 0,
+          f"--stream-state i16 never launched the int16 fill: {cl}")
+    with tempfile.TemporaryDirectory() as prof:
+        err = run_golden(port, "nw-first-only",
+                         nw + ["--first-only", "--profile", prof])
+        traces = [f for f in os.listdir(prof) if f.startswith("trace_")]
+        check(len(traces) >= 1 and "trace written to" in err,
+              "--profile wrote no trace")
+        with open(os.path.join(prof, traces[0])) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "--profile's trace holds no CUDA kernel event")
+    log(f"[24 int16] runner scores with stream_state i16 equal int32's "
+        f"(launches {rl}); golden CLI with --stream-state i16 "
+        "(needleman-wunsch, nw-first-only) and --traceback host "
+        "(nw-first-only, nw-local-textbook, nw-semiglobal-textbook) equal; "
+        f"launches {cl}; --profile wrote {traces[0]} with {kernels} CUDA "
+        "kernel events")
+    return out
+
+
+def instance_of(instances, state, launch, mode, dirs, compat):
+    """The build log's row of the streamed-fill instance a launch ran
+    (wildcard off), or None."""
+    for r in instances:
+        if (r["state"], r["lanes_per_thread"], r["mode"], r["dirs"],
+                r["compat"], r["wildcard"]) == (
+                    state, launch["lanes_per_thread"], mode, dirs, compat,
+                    False):
+            return r
+    return None
+
+
 def stream_times_line(meas, instances):
     """One line: kernels #1 and #2 at the main shape, their times beside
     their bounds, and the registers and spills of the instances that ran."""
     def regs(launch, mode, dirs, compat):
-        for r in instances:
-            if (r["lanes_per_thread"], r["mode"], r["dirs"], r["compat"],
-                    r["wildcard"]) == (launch["lanes_per_thread"], mode, dirs,
-                                       compat, False):
-                return (f"{r['registers']} registers, "
-                        f"{r['spill_stores']} B spilled")
-        return "registers not in the build log"
+        r = instance_of(instances, "i32", launch, mode, dirs, compat)
+        if r is None:
+            return "registers not in the build log"
+        return f"{r['registers']} registers, {r['spill_stores']} B spilled"
 
     parts = []
     for name, key, mode, dirs, compat in (
@@ -4213,6 +4638,10 @@ def run(args):
     with timed(phase_s, "17 runner"):
         meas.update(phase_runner(torch, port, pairs, main_res, by_path,
                                  args.out))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "24 int16"):
+        meas.update(phase_int16(torch, port, pairs, main_res, instances,
+                                by_path, args.out))
     del main_res
     torch.cuda.empty_cache()
     with timed(phase_s, "20 linear"):
@@ -4342,6 +4771,8 @@ def kernel_entries(meas, by_path):
                                         meas["sfill_local_err"],
                                         meas["sfill_semi_err"],
                                         ceil["nw_affine_stream_modes_fill"]],
+        "nw_affine_stream_fill_i16": meas["i16_global_errs"],
+        "nw_affine_stream_modes_fill_i16": meas["i16_modes_errs"],
         "walk_modes": [meas["mwalk_local_err"], meas["mwalk_semi_err"]] + [
             v["err"] for v in meas["mwalk_pairs"].values()],
         "nw_banded_diag_fill": [meas["bfill_ragged_err"],
@@ -4377,6 +4808,14 @@ def kernel_entries(meas, by_path):
         "walk_fast4": ("walk", f"{main} global"),
         "nw_affine_modes_fill": ("mfill", f"31 x {LEN_MAIN} bp local"),
         "nw_affine_stream_modes_fill": ("sfill_local", f"{main} local"),
+        "nw_affine_stream_fill_i16": (
+            "i16_fast4", f"{main} global fast4, int16 state; plain_ms on "
+            f"{meas['i16_fast4_plain_on']}; bound: a 16x2 instruction "
+            "counts as two of OPS_PER_CELL's operations"),
+        "nw_affine_stream_modes_fill_i16": (
+            "i16_local", f"{main} local, int16 state; plain_ms on "
+            f"{N_I16_PLAIN} pairs; bound: a 16x2 instruction counts as two "
+            "of OPS_PER_CELL's operations"),
         "walk_modes": ("mwalk_local", f"{main} local"),
         "nw_banded_diag_fill": ("bfill_fast4", f"{band} fast4"),
         "walk_banded": ("bwalk", f"{band}"),
@@ -4408,7 +4847,7 @@ def kernel_entries(meas, by_path):
                     "events)"),
     }
     kernels = []
-    for name, (_key, _fn, source, replaces) in KERNELS.items():
+    for name, (_key, _fn, source, replaces, *_rest) in KERNELS.items():
         paths = by_path.get(name, {})
         check(sum(paths.values()) > 0,
               f"no main path launched the {name} kernel")
@@ -4436,6 +4875,10 @@ def kernel_entries(meas, by_path):
             entry["launch"] = meas[f"{key}_shape"]
         if name == "nw_banded_diag_fill":
             entry["shapes"] = banded_shapes(meas)
+        if name.endswith("_i16"):
+            entry.update(int32_ms=meas[f"{key}_int32_ms"],
+                         launch=meas[f"{key}_launch"],
+                         registers=meas[f"{key}_registers"])
         if name == "nw_affine_modes_fill":
             entry["semi"] = {k: meas[f"mfill_semi_{k}"] for k in (
                 "ms", "plain_ms", "bound_ms", "err")}
@@ -4531,6 +4974,11 @@ def kernel_entries(meas, by_path):
                     "plain_ms": meas[f"{alt}_plain_ms"],
                     "bound_ms": meas[f"{alt}_bound_ms"],
                     "max_abs_err": meas[f"{alt}_err"]}
+                if name.endswith("_i16"):
+                    entry[tag[1:]].update(
+                        int32_ms=meas[f"{alt}_int32_ms"],
+                        plain_on=meas[f"{alt}_plain_on"],
+                        registers=meas[f"{alt}_registers"])
         kernels.append(entry)
     return kernels
 

@@ -2,13 +2,14 @@
 
     seqalign-torch -q query.fa -d db.fa [-a ALGO] [--first-only] [--band N]
                    [--textbook] [--wfa-engine E] [--wfa-spans S]
-                   [--device cpu|cuda] [-m MODE] [-o OUT] [-v]
+                   [--stream-state i32|i16|auto] [--traceback auto|device|host]
+                   [--profile DIR] [--device cpu|cuda] [-m MODE] [-o OUT] [-v]
 
 Same interface, stdout formats, FASTA recovery and per-pair error
-isolation as the JAX package's ``seqalign``, for the flags the port
-supports, plus ``--device`` (default cuda; cuda with no GPU fails).
-``--serve`` reads 'QUERY.fa DB.fa' lines from stdin and answers each with
-JSON lines, keeping the aligner and its built kernels warm.
+isolation as the JAX package's ``seqalign``, plus ``--device`` (default
+cuda; cuda with no GPU fails).  ``--serve`` reads 'QUERY.fa DB.fa' lines
+from stdin and answers each with JSON lines, keeping the aligner and its
+built kernels warm; the other flags apply to it too.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from sequencealigning_tpu_torch.errors import CharError, FastaError
 from sequencealigning_tpu_torch.io.fasta import parse_fasta
 from sequencealigning_tpu_torch.utils.pprint import bars
 from sequencealigning_tpu_torch.models import get_aligner
+from sequencealigning_tpu_torch.utils.profiling import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,6 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="Validate fill results against closed-form score bounds",
     )
     p.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="Write a torch.profiler trace (CPU and CUDA activity, Chrome "
+        "format) of the run to DIR",
+    )
+    p.add_argument(
         "--device", default="cuda", choices=["cpu", "cuda"],
         help="cuda runs the CUDA kernels, cpu their plain PyTorch versions",
     )
@@ -106,6 +113,21 @@ def build_parser() -> argparse.ArgumentParser:
         "--serve", action="store_true",
         help="Serve mode: read 'QUERY.fa DB.fa' lines from stdin, emit "
         "one JSON result line per pair + a summary line per request",
+    )
+    p.add_argument(
+        "--traceback", default="auto", choices=["auto", "device", "host"],
+        help="First-path, modes and long-pair walk route: device walks the "
+        "direction words on the fill's device (the walk kernels on cuda) "
+        "and fetches 2-bit op codes, host fetches the direction words and "
+        "walks them on the host; auto = device on cuda; alignments are "
+        "bit-identical either way",
+    )
+    p.add_argument(
+        "--stream-state", default="i32", choices=["i32", "i16", "auto"],
+        help="Streamed fills' score state: i16 holds two lanes a 32-bit "
+        "word in the CUDA kernels where the scheme x shape certifies "
+        "(about 2.7 kb pairs under the default scheme) and fails "
+        "otherwise; auto takes i16 exactly when certified",
     )
     return p
 
@@ -228,12 +250,16 @@ def main(argv=None) -> int:
         batch_size=args.batch_size,
         bucket=args.bucket,
         first_only=args.first_only,
+        traceback=args.traceback,
+        stream_state=args.stream_state,
         debug=args.debug,
+        profile_dir=args.profile,
     )
     aligner = get_aligner(config, args.device)
 
     if args.serve:
-        return _serve(args, aligner)
+        with trace(args.profile):
+            return _serve(args, aligner)
 
     out_file = None
     if not args.no_out:
@@ -245,12 +271,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     n = n_err = 0
     try:
-        for res in aligner.align_all_pairs(query, db, args.batch_size):
-            _print_result(res, config.algo, args.verbose)
-            if out_file is not None:
-                out_file.write(json.dumps(res.to_json()) + "\n")
-            n += 1
-            n_err += 0 if res.ok else 1
+        with trace(args.profile):
+            for res in aligner.align_all_pairs(query, db, args.batch_size):
+                _print_result(res, config.algo, args.verbose)
+                if out_file is not None:
+                    out_file.write(json.dumps(res.to_json()) + "\n")
+                n += 1
+                n_err += 0 if res.ok else 1
     finally:
         if out_file is not None:
             out_file.close()

@@ -133,19 +133,19 @@ class AlignConfig:
     # fast4 direction layout (half the dirs memory, threaded native walker)
     # instead of the reference's full co-optimal enumeration.
     first_only: bool = False
-    # fast4 traceback walker: "auto" walks on device when the dirs tensor
-    # lives on a TPU (one gathered word per pair per step; fetches 2 bits
-    # per walk step instead of the 0.5 byte/cell dirs tensor -- ~4000x
-    # less device->host transfer at 2 kb pairs), "host" always fetches
-    # dirs and walks on the host (native C walker), "device" forces the
-    # device walk on any backend (tests).  Alignments are bit-identical
-    # (tests/test_traceback_device.py).
+    # Walk route of the first-path, modes and long-pair tracebacks
+    # (ops.traceback_device.use_device_walk): "auto" walks on the device
+    # when the fill ran on the card (the walk kernels fetch 2-bit op codes
+    # instead of the 0.5-1 byte/cell dirs tensor), "host" always fetches the
+    # dirs and walks them on the host (the host walkers, the native
+    # decoder), "device" walks on the fill's device whatever it is (the
+    # plain walks on the CPU).  Alignments are bit-identical on every route.
     traceback: str = "auto"
-    # Streamed-kernel score-state dtype: "i32", "i16" (2x VPU lane density;
-    # requires the closed-form range certification to pass, see
-    # ops.nw_affine_stream.stream_i16_neg), or "auto" (i16 iff certified
-    # AND the backend's Mosaic compiles i16 vector ops -- probed once per
-    # process).  Results are bit-identical either way (tests pin it).
+    # Streamed fills' score state (ops.nw_affine_stream.
+    # resolve_stream_state): "i32"; "i16" (two lanes a 32-bit word in the
+    # CUDA kernels; the fill raises if the closed-form range certification
+    # stream_i16_neg refuses the scheme x shape); or "auto" (i16 exactly
+    # when certified).  Finals and alignments are bit-identical either way.
     stream_state: str = "i32"
     # Device mesh: (data,) axis sizes; None = all local devices on one axis.
     mesh_shape: tuple = ()
@@ -153,7 +153,7 @@ class AlignConfig:
     # bounds + sentinel-underflow checks (utils.guards); the SPMD analog of
     # the reference's Rust type-system safety net (SURVEY.md §5).
     debug: bool = False
-    # jax.profiler trace directory (utils.profiling.trace); None = off.
+    # torch.profiler trace directory (utils.profiling.trace); None = off.
     profile_dir: "str | None" = None
 
 

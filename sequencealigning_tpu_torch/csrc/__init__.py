@@ -29,11 +29,12 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(_HERE)), "build", "sequencealigning_tpu_torch"
 )
 _CUDA_SOURCES = ("nw_affine.cu", "nw_affine_stream.cu",
-                 "nw_affine_modes.cu", "nw_banded_diag.cu", "nw_affine_tiled.cu",
-                 "nw_banded.cu", "nw_banded_warp.cu", "nw_linear.cu",
-                 "traceback_device.cu", "wfa.cu", "mm_rows.cu")
+                 "nw_affine_stream_i16.cu", "nw_affine_modes.cu",
+                 "nw_banded_diag.cu", "nw_affine_tiled.cu", "nw_banded.cu",
+                 "nw_banded_warp.cu", "nw_linear.cu", "traceback_device.cu",
+                 "wfa.cu", "mm_rows.cu")
 _HEADERS = ("nw_affine_stream.cuh", "pair_sweep.cuh", "cluster_split.cuh",
-            "stream_ring.cuh",
+            "stream_ring.cuh", "stream_ring_kernel.cuh", "stream_cell16.cuh",
             "nw_banded_diag.cuh", "nw_affine_tiled.cuh", "nw_banded.cuh",
             "nw_linear.cuh", "traceback_device.cuh", "wfa.cuh", "mm_rows.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
@@ -160,6 +161,9 @@ def kernels() -> ctypes.CDLL:
     lib.sa_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
     lib.sa_stream_modes_fill.restype = _INT
     lib.sa_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17 + [_VP]
+    for name in ("sa_stream_fill_i16", "sa_stream_modes_fill_i16"):
+        getattr(lib, name).restype = _INT
+        getattr(lib, name).argtypes = [_VP] * 7 + [_INT] * 18 + [_VP]
     lib.sa_pair_plan.restype = _INT
     lib.sa_pair_plan.argtypes = [_INT] * 6 + [_VP]
     lib.sa_modes_fill.restype = _INT
@@ -246,20 +250,24 @@ def kernel_resources(log: str, name: str) -> list:
 
 
 def stream_instances(log: str) -> list:
-    """kernel_resources of the streamed fills' instances
+    """kernel_resources of the streamed fills' instances -- int32 state
     (nw_affine_stream.cu::stream_ring_kernel<LPT, DIRS, MODE, COMPAT,
-    WILDCARD>), each with its template arguments decoded."""
+    WILDCARD>) and int16 state (nw_affine_stream_i16.cu::
+    stream_ring16_kernel, the same arguments) -- each with its state
+    ("i32" or "i16") and template arguments decoded."""
     rows = []
-    for r in kernel_resources(log, "stream_ring_kernel"):
-        m = re.search(r"stream_ring_kernelILi(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELb([01])ELb([01])E", r["entry"])
-        if m:
-            lpt, dirs, mode, compat, wild = (int(g) for g in m.groups())
-            r.update(lanes_per_thread=lpt,
-                     dirs=("none", "fast4", "full")[dirs],
-                     mode=("global", "semi", "local")[mode],
-                     compat=bool(compat), wildcard=bool(wild))
-            rows.append(r)
+    for name, state in (("stream_ring_kernel", "i32"),
+                        ("stream_ring16_kernel", "i16")):
+        for r in kernel_resources(log, name):
+            m = re.search(name + r"ILi(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELb([01])ELb([01])E", r["entry"])
+            if m:
+                lpt, dirs, mode, compat, wild = (int(g) for g in m.groups())
+                r.update(state=state, lanes_per_thread=lpt,
+                         dirs=("none", "fast4", "full")[dirs],
+                         mode=("global", "semi", "local")[mode],
+                         compat=bool(compat), wildcard=bool(wild))
+                rows.append(r)
     return rows
 
 
@@ -321,6 +329,11 @@ def host_check() -> ctypes.CDLL:
     lib.hc_stream_fill.argtypes = [_VP] * 7 + [_INT] * 17
     lib.hc_stream_modes_fill.restype = _INT
     lib.hc_stream_modes_fill.argtypes = [_VP] * 7 + [_INT] * 17
+    for name in ("hc_stream_fill_i16", "hc_stream_modes_fill_i16"):
+        getattr(lib, name).restype = _INT
+        getattr(lib, name).argtypes = [_VP] * 7 + [_INT] * 18
+    lib.hc_h2_dpx.restype = None
+    lib.hc_h2_dpx.argtypes = [_VP] * 4 + [_INT]
     lib.hc_pair_plan.restype = _INT
     lib.hc_pair_plan.argtypes = [_INT] * 6 + [_VP]
     lib.hc_modes_fill.restype = _INT

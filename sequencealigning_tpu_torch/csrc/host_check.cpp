@@ -8,7 +8,8 @@
 //   c++ -O2 -std=c++17 -shared -fPIC -o libhost_check.so host_check.cpp
 //
 // The arguments and layouts are those of sa_stream_fill,
-// sa_stream_modes_fill, sa_modes_fill, sa_gotoh_fill, sa_linear_fill,
+// sa_stream_modes_fill (and their int16 instances sa_stream_fill_i16 and
+// sa_stream_modes_fill_i16), sa_modes_fill, sa_gotoh_fill, sa_linear_fill,
 // sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
 // (their tile and strip schedules run serially, tickets in order),
 // sa_walk_fast4, sa_walk_modes and sa_walk_banded, sa_wfa_chunk and
@@ -28,6 +29,7 @@
 #include "cluster_split.cuh"
 #include "mm_rows.cuh"
 #include "nw_affine_stream.cuh"
+#include "stream_cell16.cuh"
 #include "nw_affine_tiled.cuh"
 #include "nw_banded.cuh"
 #include "nw_banded_diag.cuh"
@@ -197,6 +199,206 @@ int stream_ring_host(const int32_t* qstream, const int32_t* dstream,
             }
             if (b == P) {
               // The word must still be in its slot (not overwritten).
+              if (wtag[w % wrap] != w) return sa::kRingUnmet;
+              dst[0] = wring[w % wrap] | wacc;
+            }
+          }
+        }
+        if (g > 0) freed[g - 1] = k + 1;
+        if (g + 1 < G) full[g + 1] = k + 1;
+        if (b == P) wrap_freed = words_end;
+      }
+    }
+    if (kModes) {
+      const int slot = (T - 1) / S;
+      const int p_end = (T - 1) % S;
+      for (int x = 0; x < P && x < S; ++x) {
+        flush_argmax(slot, x, (x <= p_end ? slot : slot - 1) * S);
+      }
+    }
+  }
+  return 0;
+}
+
+// stream_ring_host with int16 state (nw_affine_stream_i16.cu): the same
+// serial schedule, each warp's lanes a word of two at a time
+// (stream_cell16.cuh::ring_word16), right to left; a warp's first word
+// takes its low lane's left neighbour from the ring entry, whose H2 and
+// merged D source share one word (h2_his), as the kernel hands them over.
+template <int DIRS, int MODE, bool COMPAT, bool WILDCARD>
+int stream_ring_host16(const int32_t* qstream, const int32_t* dstream,
+                       const int32_t* dsum, const int32_t* n2s, int32_t* out,
+                       uint32_t* dirs, int R, int T, int P, int S, int NP,
+                       const sa::Scheme& sc0, int32_t neg,
+                       const sa::Split& sp, int C, int slots, int wrap) {
+  constexpr bool kModes = MODE != sa::kModeGlobal;
+  constexpr bool kDirs = DIRS != sa::kDirsNone;
+  constexpr int kPer = DIRS == sa::kDirsFast4 ? 8 : 4;
+  const sa::Scheme16 sc = sa::scheme16(sc0, neg);
+  std::vector<int> w0, w1;
+  for (int rank = 0; rank < sp.nctas; ++rank) {
+    const int lo = sa::cta_first_lane(rank, sp);
+    const int hi = lo + sa::cta_real_lanes(rank, sp, P);
+    for (int u = 0; u < sa::ring_warps(rank, sp, P); ++u) {
+      w0.push_back(lo + 32 * u * sp.lpt);
+      w1.push_back(lo + 32 * (u + 1) * sp.lpt < hi ? lo + 32 * (u + 1) * sp.lpt
+                                                   : hi);
+    }
+  }
+  const int G = static_cast<int>(w0.size());
+  struct Entry {
+    int32_t h, s;  // h: H2 (low half) and merged D source (high half)
+  };
+  const int PW = P / 2;
+  std::vector<sa::Cell16> c(PW);
+  std::vector<sa::Pre16> pre(PW);
+  std::vector<int32_t> s1d(P), s2v(P);
+  std::vector<uint32_t> acc(P);
+  std::vector<int32_t> bv(P), bd(P), lo(P), len(P);
+  std::vector<Entry> ring(static_cast<size_t>(G) * slots * C);
+  std::vector<int32_t> full(G), freed(G);
+  std::vector<uint32_t> wring(wrap);
+  std::vector<int> wtag(wrap);
+  const size_t plane = static_cast<size_t>(NP) * R * P;
+  for (int row = 0; row < R; ++row) {
+    for (int j = 0; j < PW; ++j) c[j] = sa::cell16_init(neg);
+    for (int x = 0; x < P; ++x) {
+      s1d[x] = s2v[x] = 0;
+      acc[x] = 0;
+      bv[x] = sa::kNegBig;
+      bd[x] = -S;
+      lo[x] = len[x] = 0;
+    }
+    for (int g = 0; g < G; ++g) full[g] = freed[g] = 0;
+    for (int i = 0; i < wrap; ++i) wtag[i] = -1;
+    int32_t wrap_freed = 0;
+    uint32_t wacc = 0;
+    auto pair_of = [&](int k, int32_t& n1, int32_t& n2) {
+      n2 = k < NP ? n2s[k * R + row] : -1;
+      n1 = k < NP ? dsum[k * R + row] - n2 : -1;
+    };
+    auto flush_argmax = [&](int k, int x, int32_t slot0) {
+      if (k < 0 || k >= NP) return;
+      const size_t at = (static_cast<size_t>(k) * R + row) * P + x;
+      out[at] = bv[x];
+      out[plane + at] = bd[x] - slot0;
+    };
+    for (int t0 = 0, k = 0; t0 < T; t0 += C, ++k) {
+      const int n = T - t0 < C ? T - t0 : C;
+      const int words_end = (t0 + n) / kPer;
+      for (int g = 0; g < G; ++g) {
+        if (g > 0 && full[g] < sa::ring_full_need(k)) return sa::kRingUnmet;
+        if (g + 1 < G && freed[g] < sa::ring_free_need(k, slots)) {
+          return sa::kRingUnmet;
+        }
+        if (kDirs && g == 0 &&
+            wrap_freed < sa::wrap_free_need(words_end, wrap)) {
+          return sa::kRingUnmet;
+        }
+        Entry* rin = &ring[(static_cast<size_t>(g) * slots + k % slots) * C];
+        Entry* rout =
+            g + 1 < G
+                ? &ring[(static_cast<size_t>(g + 1) * slots + k % slots) * C]
+                : nullptr;
+        const int a = w0[g], b = w1[g];
+        for (int e = 0; e < n; ++e) {
+          const int t = t0 + e;
+          const int p = t % S;
+          const int slot = t / S;
+          int32_t n1y, n2y;
+          pair_of(slot, n1y, n2y);
+          const size_t at_t = static_cast<size_t>(row) * T + t;
+          for (int j = a / 2; j < b / 2; ++j) {
+            pre[j] = sa::ring_pre16<DIRS>(c[j], sc);
+          }
+          const int jb = b / 2 - 1;
+          if (rout != nullptr) {
+            rout[e] = {static_cast<int32_t>(sa::h2_his(c[jb].H2, pre[jb].dsel)),
+                       sa::ring_pack(s1d[b - 1], pre[jb].dflag_hi)};
+          }
+          if (kDirs && b == P) {
+            wacc = sa::push_code<DIRS>(wacc, pre[PW - 1].dflag_hi);
+          }
+          const Entry left = g == 0 ? Entry{0, qstream[at_t]} : rin[e];
+          const bool edge = a == 0 || (p >= a && p < b);
+          for (int j = jb; j >= a / 2; --j) {
+            const int x = 2 * j;
+            uint32_t lh, ld;
+            int32_t lf, ls;
+            if (x == a) {
+              const uint32_t hd = static_cast<uint32_t>(left.h);
+              lh = sa::h2_los(hd, c[j].H2);
+              ld = sa::h2_left(hd, pre[j].dsel);
+              lf = sa::ring_dflag(left.s);
+              ls = sa::ring_s1d(left.s);
+            } else {
+              lh = sa::h2_left(c[j - 1].H2, c[j].H2);
+              ld = sa::h2_left(pre[j - 1].dsel, pre[j].dsel);
+              lf = pre[j - 1].dflag_hi;
+              ls = s1d[x - 1];
+            }
+            if (x == p) s2v[x] = dstream[at_t];
+            if (x + 1 == p) s2v[x + 1] = dstream[at_t];
+            s1d[x + 1] = s1d[x];
+            s1d[x] = ls;
+            const uint32_t sub2 =
+                sa::h2_sub(sa::codes_match<WILDCARD>(s1d[x], s2v[x]),
+                           sa::codes_match<WILDCARD>(s1d[x + 1], s2v[x + 1]),
+                           sc.s);
+            const int ph = x == p ? 0 : x + 1 == p ? 1 : -1;
+            int32_t code_lo, code_hi;
+            if (edge) {
+              sa::ring_word16<DIRS, MODE, COMPAT, true, true>(
+                  c[j], pre[j], lh, ld, lf, sub2, x == 0, ph, p, sc, code_lo,
+                  code_hi);
+            } else {
+              sa::ring_word16<DIRS, MODE, COMPAT, false, false>(
+                  c[j], pre[j], lh, ld, lf, sub2, false, -1, p, sc, code_lo,
+                  code_hi);
+            }
+            if (kDirs) {
+              acc[x] = sa::push_code<DIRS>(acc[x], code_lo);
+              acc[x + 1] = sa::push_code<DIRS>(acc[x + 1], code_hi);
+            }
+            if (kModes) {
+              for (int h = 1; h >= 0; --h) {
+                const int xx = x + h;
+                if (xx == p) {
+                  flush_argmax(slot - 1, xx, (slot - 1) * S);
+                  bv[xx] = sa::kNegBig;
+                  bd[xx] = t - xx;
+                  sa::modes_window<MODE>(xx, t, n1y, n2y, lo[xx], len[xx]);
+                }
+                sa::modes_track<MODE>(t, lo[xx], len[xx],
+                                      sa::h2_get(c[j].M1, h),
+                                      sa::h2_get(c[j].H1, h), bv[xx],
+                                      bd[xx]);
+              }
+            }
+          }
+          if (!kModes) {
+            for (int kk = 0; kk < NP; ++kk) {
+              const int x = n2s[kk * R + row];
+              if (kk * S + dsum[kk * R + row] != t || x < a || x >= b) {
+                continue;
+              }
+              int32_t* f = out + (static_cast<size_t>(row) * NP + kk) * 3;
+              f[0] = sa::h2_get(c[x / 2].M1, x & 1);
+              f[1] = sa::h2_get(c[x / 2].I1, x & 1);
+              f[2] = sa::h2_get(c[x / 2].D1, x & 1);
+            }
+          }
+          if (kDirs && t % kPer == kPer - 1) {
+            const int w = t / kPer;
+            uint32_t* dst = dirs + (static_cast<size_t>(w) * R + row) * P;
+            for (int x = a; x < b; ++x) {
+              if (x != 0) dst[x] = acc[x];
+            }
+            if (a == 0) {
+              wring[w % wrap] = acc[0];
+              wtag[w % wrap] = w;
+            }
+            if (b == P) {
               if (wtag[w % wrap] != w) return sa::kRingUnmet;
               dst[0] = wring[w % wrap] | wacc;
             }
@@ -508,6 +710,71 @@ int run_pair(const sa::PairArgs& a, const int (&knobs)[4]) {
   return pair_ring_host<Pol>(a, sp, rg.chunk, rg.slots);
 }
 
+typedef int (*HostRing16)(const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, int32_t*, uint32_t*, int, int, int,
+                          int, int, const sa::Scheme&, int32_t,
+                          const sa::Split&, int, int, int);
+
+template <int DIRS, int MODE>
+HostRing16 pick_ring16(bool compat, bool wildcard) {
+  if (compat) {
+    return wildcard ? stream_ring_host16<DIRS, MODE, true, true>
+                    : stream_ring_host16<DIRS, MODE, true, false>;
+  }
+  return wildcard ? stream_ring_host16<DIRS, MODE, false, true>
+                  : stream_ring_host16<DIRS, MODE, false, false>;
+}
+
+// The int16 instance for (dirs, mode, flags), as pick_ring_fill.
+HostRing16 pick_ring16_fill(int dirs_mode, int mode, bool compat,
+                            bool wildcard) {
+  switch (dirs_mode) {
+    case sa::kDirsNone:
+      return mode == sa::kModeGlobal
+                 ? pick_ring16<sa::kDirsNone, sa::kModeGlobal>(compat,
+                                                               wildcard)
+             : mode == sa::kModeSemi
+                 ? pick_ring16<sa::kDirsNone, sa::kModeSemi>(false, wildcard)
+                 : pick_ring16<sa::kDirsNone, sa::kModeLocal>(false,
+                                                              wildcard);
+    case sa::kDirsFast4:
+      return mode == sa::kModeGlobal
+                 ? pick_ring16<sa::kDirsFast4, sa::kModeGlobal>(compat,
+                                                                wildcard)
+                 : nullptr;
+    case sa::kDirsFull:
+      return mode == sa::kModeGlobal
+                 ? pick_ring16<sa::kDirsFull, sa::kModeGlobal>(compat,
+                                                               wildcard)
+             : mode == sa::kModeSemi
+                 ? pick_ring16<sa::kDirsFull, sa::kModeSemi>(false, wildcard)
+                 : pick_ring16<sa::kDirsFull, sa::kModeLocal>(false,
+                                                              wildcard);
+  }
+  return nullptr;
+}
+
+int ring_fill16(int mode, const int32_t* qstream, const int32_t* dstream,
+                const int32_t* dsum, const int32_t* n2, int32_t* out,
+                uint32_t* dirs, int R, int T, int P, int S, int NP, int match,
+                int mismatch, int gap_open, int gap_extend, int dirs_mode,
+                bool compat, bool wildcard, int cta_lanes, int lpt, int chunk,
+                int slots, int wrap, int neg) {
+  const sa::Split sp =
+      sa::stream_plan(P, cta_lanes, mode != sa::kModeGlobal, lpt);
+  const sa::RingShape rg =
+      sa::ring_shape(chunk, slots, wrap, mode != sa::kModeGlobal);
+  if (sp.nctas == 0 || R <= 0 || T <= 0 || S <= 0 || NP <= 0 ||
+      !sa::ring_ok(rg)) {
+    return -1;
+  }
+  HostRing16 fn = pick_ring16_fill(dirs_mode, mode, compat, wildcard);
+  if (fn == nullptr) return -1;
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  return fn(qstream, dstream, dsum, n2, out, dirs, R, T, P, S, NP, sc, neg,
+            sp, rg.chunk, rg.slots, rg.wrap);
+}
+
 }  // namespace
 
 // sa_stream_fill's arguments minus the stream: the status word is not
@@ -524,6 +791,52 @@ extern "C" int hc_stream_fill(const int32_t* qstream, const int32_t* dstream,
                    R, T, P, S, NP, match, mismatch, gap_open, gap_extend,
                    dirs_mode, compat != 0, wildcard != 0, cta_lanes, lpt,
                    chunk, slots, wrap);
+}
+
+// sa_stream_fill_i16's arguments minus the stream (as hc_stream_fill).
+extern "C" int hc_stream_fill_i16(
+    const int32_t* qstream, const int32_t* dstream, const int32_t* dsum,
+    const int32_t* n2, int32_t* finals, uint32_t* dirs, int32_t* /*status*/,
+    int R, int T, int P, int S, int NP, int match, int mismatch, int gap_open,
+    int gap_extend, int dirs_mode, int compat, int wildcard, int cta_lanes,
+    int lpt, int chunk, int slots, int wrap, int neg) {
+  return ring_fill16(sa::kModeGlobal, qstream, dstream, dsum, n2, finals,
+                     dirs, R, T, P, S, NP, match, mismatch, gap_open,
+                     gap_extend, dirs_mode, compat != 0, wildcard != 0,
+                     cta_lanes, lpt, chunk, slots, wrap, neg);
+}
+
+// sa_stream_modes_fill_i16's arguments minus the stream.
+extern "C" int hc_stream_modes_fill_i16(
+    const int32_t* qstream, const int32_t* dstream, const int32_t* dsum,
+    const int32_t* n2, int32_t* out, uint32_t* dirs, int32_t* /*status*/,
+    int R, int T, int P, int S, int NP, int match, int mismatch, int gap_open,
+    int gap_extend, int dirs_mode, int local, int wildcard, int cta_lanes,
+    int lpt, int chunk, int slots, int wrap, int neg) {
+  if (dirs_mode == sa::kDirsFast4) return -1;
+  return ring_fill16(local ? sa::kModeLocal : sa::kModeSemi, qstream,
+                     dstream, dsum, n2, out, dirs, R, T, P, S, NP, match,
+                     mismatch, gap_open, gap_extend, dirs_mode, false,
+                     wildcard != 0, cta_lanes, lpt, chunk, slots, wrap, neg);
+}
+
+// The packed int16 helpers as the host computes them (stream_cell16.cuh),
+// on words a, b, c: out rows 0-6 are h2_add_max(a, b, c),
+// h2_add_max_relu(a, b, c), h2_max3(a, b, c), h2_bmax(a, b) with its two
+// flags in row 4 (bit 0 low, bit 1 high), h2_left(a, b) and h2_add(a, b),
+// each n words.
+extern "C" void hc_h2_dpx(const uint32_t* a, const uint32_t* b,
+                          const uint32_t* c, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    out[i] = sa::h2_add_max(a[i], b[i], c[i]);
+    out[n + i] = sa::h2_add_max_relu(a[i], b[i], c[i]);
+    out[2 * n + i] = sa::h2_max3(a[i], b[i], c[i]);
+    bool hi, lo;
+    out[3 * n + i] = sa::h2_bmax(a[i], b[i], hi, lo);
+    out[4 * n + i] = (lo ? 1u : 0u) | (hi ? 2u : 0u);
+    out[5 * n + i] = sa::h2_left(a[i], b[i]);
+    out[6 * n + i] = sa::h2_add(a[i], b[i]);
+  }
 }
 
 // The streamed fills' launch shape (sa_stream_plan).

@@ -16,7 +16,10 @@ those loops, the size of the smallest loop around each, or "none" when no
 loop holds it.  --dump DIR writes each instance's SASS to DIR.  The
 default --match picks the instances at the main shapes: the global fast4
 fill at 8 lanes a thread and the textbook full fills at 4 (compat and
-wildcard off).
+wildcard off), int32 and int16 (``stream_ring16_kernel``).  Each step
+loop also gets its count of DPX instructions and lane moves (VIADDMNMX,
+VIMNMX, VIMNMX3 and PRMT, by opcode with their modifiers), which shows
+what each s16x2 intrinsic lowered to.
 """
 
 from __future__ import annotations
@@ -28,10 +31,14 @@ import re
 import subprocess
 import sys
 
-# stream_ring_kernel<LPT, DIRS, MODE, COMPAT, WILDCARD> at the main shapes.
-MAIN = ("stream_ring_kernelILi8ELi1ELi0ELb1ELb0E",
-        "stream_ring_kernelILi4ELi2ELi1ELb0ELb0E",
-        "stream_ring_kernelILi4ELi2ELi2ELb0ELb0E")
+# stream_ring_kernel<LPT, DIRS, MODE, COMPAT, WILDCARD> and its int16
+# twin stream_ring16_kernel at the main shapes.
+MAIN = tuple(f"{k}ILi{a}" for k in ("stream_ring_kernel",
+                                    "stream_ring16_kernel")
+             for a in ("8ELi1ELi0ELb1ELb0E", "4ELi2ELi1ELb0ELb0E",
+                       "4ELi2ELi2ELb0ELb0E"))
+_OPCODE = re.compile(r"^(?:@!?U?P\w+\s+)?((?:VIADDMNMX|VIMNMX3?|PRMT)"
+                     r"(?:\.[A-Z0-9x]+)*)")
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 
@@ -76,9 +83,18 @@ def analyse(insns, hot: int) -> dict:
                  if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1]
                             for o in loops)]
     hot_loops = sorted(lp for lp in innermost if lp[1] - lp[0] + 1 > hot)
+    def opcodes(lp):
+        counts = {}
+        for _, text in insns[lp[0]:lp[1] + 1]:
+            m = _OPCODE.match(text)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+        return dict(sorted(counts.items()))
+
     rows = [dict(first=insns[lp[0]][0], last=insns[lp[1]][0],
                  instructions=lp[1] - lp[0] + 1,
-                 spills=sum(inside(i, lp) for i in spills))
+                 spills=sum(inside(i, lp) for i in spills),
+                 opcodes=opcodes(lp))
             for lp in hot_loops]
     outside = []
     for i in spills:
@@ -121,7 +137,8 @@ def main() -> int:
         rows.append(r)
         hot = "; ".join(f"{h['instructions']} instructions at "
                         f"{h['first']:#x}-{h['last']:#x}, {h['spills']} "
-                        "spills" for h in r["hot_loops"]) or "none"
+                        f"spills ({h['opcodes']})"
+                        for h in r["hot_loops"]) or "none"
         where = ", ".join(
             f"{o['insn'].split()[-3 if o['insn'].startswith('@') else 0]} "
             f"at {o['address']:#x} "

@@ -5,10 +5,12 @@ Global mode only; the other modes answer with the reference's per-pair
 "not implemented".  Both routes fill with the anti-diagonal banded fill
 (ops.nw_banded_diag, N matching anything) on the aligner's device:
 
-* first_only: fast4 codes, the banded device walk
-  (ops.traceback_device.banded_diag_device_tbs) and the native decode; on
-  CUDA a pair whose walk fails validation is that pair's AlignmentError, on
-  the CPU it is re-walked on the host;
+* first_only: fast4 codes walked as config.traceback routes them
+  (ops.traceback_device.use_device_walk, as the JAX package): the banded
+  device walk (ops.traceback_device.banded_diag_device_tbs) and the native
+  decode -- on CUDA a pair whose walk fails validation is that pair's
+  AlignmentError, on the CPU it is re-walked on the host -- or the host
+  fast4 walker over the fetched dirs;
 * default: the full 7-bit codes, fetched to the host and walked by
   ops.traceback.banded_diag_traceback_pair (the first co-optimal
   alignment, in the reference's enumeration order).
@@ -29,9 +31,13 @@ from sequencealigning_tpu_torch.errors import AlignerError, AlignmentError
 from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.models.base import Aligner
 from sequencealigning_tpu_torch.ops.nw_banded_diag import nw_banded_diag_batch
-from sequencealigning_tpu_torch.ops.traceback import banded_diag_traceback_pair
+from sequencealigning_tpu_torch.ops.traceback import (
+    banded_diag_fast4_traceback_pair,
+    banded_diag_traceback_pair,
+)
 from sequencealigning_tpu_torch.ops.traceback_device import (
     banded_diag_device_tbs,
+    use_device_walk,
 )
 
 
@@ -54,7 +60,8 @@ class BandedAligner(Aligner):
             return [AlignmentError(str(e)) for _ in pairs]
         s1s = [p[0] for p in pairs]
         s2s = [p[1] for p in pairs]
-        if first_only:
+        if first_only and use_device_walk(self.config, self.device,
+                                          res.dirs):
             tbs = banded_diag_device_tbs(
                 res.dirs, res.finals, s1s, s2s, res.k_lo_even,
                 compat=self.config.compat,
@@ -64,10 +71,16 @@ class BandedAligner(Aligner):
             tbs = []
             for b, (s1, s2) in enumerate(pairs):
                 try:
-                    tbs.append(banded_diag_traceback_pair(
-                        dirs[:, b, :], res.finals[b], s1, s2, res.k_lo_even,
-                        compat=self.config.compat, max_alignments=1,
-                    ))
+                    if first_only:
+                        tbs.append(banded_diag_fast4_traceback_pair(
+                            dirs[:, b, :], res.finals[b], s1, s2,
+                            res.k_lo_even, compat=self.config.compat))
+                    else:
+                        tbs.append(banded_diag_traceback_pair(
+                            dirs[:, b, :], res.finals[b], s1, s2,
+                            res.k_lo_even, compat=self.config.compat,
+                            max_alignments=1,
+                        ))
                 except AlignerError as e:
                     tbs.append(e)
         out = []

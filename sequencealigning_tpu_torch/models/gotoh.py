@@ -1,13 +1,17 @@
 """Affine-gap NW (Gotoh) aligner: the port of models/gotoh.py.
 
 Global mode: a batch is packed and trimmed exactly as in the JAX package,
-filled by the streamed fill (ops.nw_affine_stream) on the aligner's device,
-and traced back either on the device (first_only: fast4 codes, device walk,
-native decode) or on the host from the full 7-bit codes (the reference's
-co-optimal enumeration, ops.traceback.traceback_stream_batch).  On the card
-a first-only batch goes through the data-parallel runner's fill+walk
-(parallel.runner, as the JAX package's production route); CPU tensors keep
-the direct route.
+filled by the streamed fill (ops.nw_affine_stream) on the aligner's device
+with config.stream_state's score state, and traced back from the fast4
+codes (first_only) or on the host from the full 7-bit codes (the
+reference's co-optimal enumeration, ops.traceback.traceback_stream_batch).
+config.traceback routes the first-path, modes and long-pair walks as the
+JAX package does (ops.traceback_device.use_device_walk): on the device
+(the walk kernels on the card, their plain versions on the CPU) or on the
+host (the host walkers and the native decoder, the dirs fetched once).
+On the card a device-walked first-only batch goes through the
+data-parallel runner's fill+walk (parallel.runner, as the JAX package's
+production route); the other routes fill directly.
 
 Semi-global and local: compat mode answers with the reference's per-pair
 "not implemented"; textbook mode fills with the streamed modes engine
@@ -67,6 +71,7 @@ from sequencealigning_tpu_torch.ops.traceback_device import (
     banded_diag_device_tbs,
     fast4_stream_align_device,
     modes_walk_device,
+    use_device_walk,
 )
 
 
@@ -113,7 +118,8 @@ class GotohAligner(Aligner):
             return out
         np_slots = max(1, min(8, len(batch.query) // 8))
         first_only = getattr(self.config, "first_only", False)
-        if first_only and self.device.type == "cuda":
+        if first_only and use_device_walk(self.config, self.device) and (
+                self.device.type == "cuda"):
             # On the card a first-only batch takes the data-parallel
             # runner's fill+walk: the fill and the walk queued back to back
             # with no host synchronisation, the sequences shipped 2-bit
@@ -138,13 +144,15 @@ class GotohAligner(Aligner):
                 scheme=self.config.scoring, compat=self.config.compat,
                 label="gotoh finals",
             )
-        if first_only:
+        if first_only and use_device_walk(self.config, self.device,
+                                          res.dirs):
             tb = self._traceback_device(res, pairs)
         else:
             tb = traceback_stream_batch(
                 res.dirs.cpu().numpy(), res.finals,
                 [p[0] for p in pairs], [p[1] for p in pairs], res.plan,
                 compat=self.config.compat,
+                dirs_mode="fast4" if first_only else "full",
             )
         out = []
         for r in tb:
@@ -217,8 +225,8 @@ class GotohAligner(Aligner):
         return out
 
     def _traceback_device(self, res, pairs):
-        """The fast4 walk's plain version on the CPU (CUDA batches take
-        _runner_first_only_batch).  A pair whose walk fails validation is
+        """The fast4 walk's plain version on the CPU (device-walked CUDA
+        batches take _runner_first_only_batch).  A pair whose walk fails validation is
         re-walked on the host from its dirs row, as in the reference, and
         counted in host_fallbacks."""
         alns, scores = fast4_stream_align_device(
@@ -248,12 +256,13 @@ class GotohAligner(Aligner):
         memory: dirs_host_budget.  On CUDA, half the free device memory,
         capped at dirs_host_budget when the walk fetches the codes to the
         host (host_fetch; by default the co-optimal walk does, the
-        first-only walk does not)."""
+        first-only walk does on the host route only)."""
         if self.device.type != "cuda":
             return self.dirs_host_budget
         free, _total = torch.cuda.mem_get_info(self.device)
         if host_fetch is None:
-            host_fetch = not getattr(self.config, "first_only", False)
+            host_fetch = not (getattr(self.config, "first_only", False)
+                              and use_device_walk(self.config, self.device))
         if not host_fetch:
             return free // 2
         return min(free // 2, self.dirs_host_budget)
@@ -325,14 +334,15 @@ class GotohAligner(Aligner):
             pending = [b for b in pending
                        if int(bf[b].max()) != int(scores[b])]
             tbs: List = []
-            if resolved and self.device.type == "cuda":
+            if resolved and use_device_walk(self.config, self.device,
+                                            res.dirs):
                 tbs = banded_diag_device_tbs(
                     res.dirs, bf, [pairs[b][0] for b in resolved],
                     [pairs[b][1] for b in resolved], res.k_lo_even,
                     compat=compat, pair_idx=np.asarray(resolved, np.int32),
                 )
             elif resolved:
-                dirs = res.dirs.numpy()
+                dirs = res.dirs.cpu().numpy()
                 for b in resolved:
                     try:
                         tbs.append(banded_diag_fast4_traceback_pair(
@@ -377,15 +387,17 @@ class GotohAligner(Aligner):
         return dict(score=exact_score, aligned_query=None, aligned_db=None)
 
     def _modes_batch(self, pairs: List[Tuple[bytes, bytes]]):
-        """Textbook semi-global / local: fill, device walk, assembly (as
-        the JAX package's GotohAligner._modes_batch).  The dirs are full
-        bytes and only op codes leave the device, so on CUDA a fill may take
-        half the free device memory.  A failed walk is re-walked on the host
-        on the CPU, and is the pair's AlignmentError on CUDA."""
+        """Textbook semi-global / local: fill, walk, assembly (as the JAX
+        package's GotohAligner._modes_batch).  The dirs are full bytes; on
+        the device route only op codes leave the device, so on CUDA a fill
+        may take half the free device memory.  A failed device walk is
+        re-walked on the host on the CPU, and is the pair's AlignmentError
+        on CUDA; the host route walks every pair on the host."""
         local = self.config.mode is Mode.LOCAL
         batch = pack_batch(pairs, batch_size=max(8, -(-len(pairs) // 8) * 8))
-        n_sub = self._dirs_chunks(batch, len(pairs), per_byte=1.0,
-                                  budget=self._dirs_budget(host_fetch=False))
+        n_sub = self._dirs_chunks(
+            batch, len(pairs), per_byte=1.0, budget=self._dirs_budget(
+                host_fetch=not use_device_walk(self.config, self.device)))
         if n_sub > 1:
             out: List = []
             per = -(-len(pairs) // n_sub)
@@ -417,16 +429,26 @@ class GotohAligner(Aligner):
         seqs1 = [p[0] for p in pairs]
         seqs2 = [p[1] for p in pairs]
         end_x, end_y = res.best_x[:n], res.best_y[:n]
-        walked = modes_walk_device(res.dirs, end_x, end_y, rowp, offs,
-                                   seqs1, seqs2, local, t_steps)
+        if use_device_walk(self.config, self.device, res.dirs):
+            walked = modes_walk_device(res.dirs, end_x, end_y, rowp, offs,
+                                       seqs1, seqs2, local, t_steps)
 
-        def dirs_fetch(b):
-            self.host_fallbacks += 1
-            return res.dirs[:, int(rowp[b]), :].numpy(), int(offs[b])
+            def dirs_fetch(b):
+                self.host_fallbacks += 1
+                return res.dirs[:, int(rowp[b]), :].numpy(), int(offs[b])
+
+            if self.device.type == "cuda":
+                dirs_fetch = None
+        else:
+            # The host route: one fetch of the whole dirs tensor.
+            walked, host_dirs = None, res.dirs.cpu().numpy()
+
+            def dirs_fetch(b):
+                return host_dirs[:, int(rowp[b]), :], int(offs[b])
 
         tbs = assemble_modes_alignments(
             pairs, walked, res.best[:n], end_x, end_y, local,
-            dirs_fetch=None if self.device.type == "cuda" else dirs_fetch,
+            dirs_fetch=dirs_fetch,
         )
         return [
             r if isinstance(r, AlignerError) else dict(

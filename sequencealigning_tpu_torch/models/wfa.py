@@ -41,6 +41,7 @@ from sequencealigning_tpu_torch.ops.traceback import (
 )
 from sequencealigning_tpu_torch.ops.traceback_device import (
     banded_diag_device_tbs,
+    use_device_walk,
 )
 from sequencealigning_tpu_torch.ops.wfa import (
     wfa_ends_free_traceback_host,
@@ -289,9 +290,10 @@ class WfaAligner(Aligner):
         return out
 
     def _banded_walks(self, res, f1, pairs, certified, std):
-        """The certified slots' walks: on the card by the banded walk
-        kernel, on the host by the fast4 walker."""
-        if self.device.type == "cuda":
+        """The certified slots' walks, routed by config.traceback
+        (ops.traceback_device.use_device_walk): on the device by the banded
+        walk (the kernel on the card), on the host by the fast4 walker."""
+        if use_device_walk(self.config, self.device, res.dirs):
             return banded_diag_device_tbs(
                 res.dirs, f1, [pairs[i][0] for _j, i in certified],
                 [pairs[i][1] for _j, i in certified], res.k_lo_even,
@@ -299,7 +301,7 @@ class WfaAligner(Aligner):
                 pair_idx=np.asarray([j for j, _i in certified], np.int32),
                 std=std,
             )
-        dirs = res.dirs.numpy()
+        dirs = res.dirs.cpu().numpy()
         tbs = []
         for j, i in certified:
             try:

@@ -58,7 +58,8 @@ def _roll(a: torch.Tensor) -> torch.Tensor:
 
 
 def apply_boundaries(M, I, D, restart, p: torch.Tensor,
-                     scheme: ScoringScheme, compat: bool, mode: str):
+                     scheme: ScoringScheme, compat: bool, mode: str,
+                     neg: Optional[int] = None):
     """Write the boundary cells of local diagonal p (a 0-d tensor: the step
     counter of the plain loops, ops.step_graph) into M/I/D in place: lanes
     p and 0, lane 0 winning at p == 0 (the origin).  Global mode writes the
@@ -66,12 +67,15 @@ def apply_boundaries(M, I, D, restart, p: torch.Tensor,
     D on row 0 and in I on column 0; textbook: o+p*e in the other plane);
     semi and local write M = 0, I = D = -inf, and local marks them
     restarts.  A lane p at or past the lane width does not exist and takes
-    nothing."""
+    nothing.  neg: the int16 stream state's sentinel -- the -inf of the
+    modes, and the floor of every global boundary value -- or None for
+    int32 state (NEG_INF, no floor)."""
     lane = torch.arange(M.shape[1], device=M.device)[None, :]
     at_0, at_p = lane == 0, lane == p
     if mode != "global":
         edge = at_0 | at_p
-        for t, v in ((M, 0), (I, NEG_INF), (D, NEG_INF)):
+        inf = NEG_INF if neg is None else neg
+        for t, v in ((M, 0), (I, inf), (D, inf)):
             t.masked_fill_(edge, v)
         if restart is not None:
             restart.masked_fill_(edge, 1)
@@ -81,11 +85,13 @@ def apply_boundaries(M, I, D, restart, p: torch.Tensor,
     m_b = torch.where(origin, 0, NEG_INF)
     chain = torch.where(origin, NEG_INF,
                         o + (p + 1) * e if compat else o + p * e)
-    neg = torch.full_like(m_b, NEG_INF)
-    row0, col0 = ((m_b, neg, chain), (m_b, chain, neg)) if compat else (
-        (m_b, chain, neg), (m_b, neg, chain))
+    neg_b = torch.full_like(m_b, NEG_INF)
+    row0, col0 = ((m_b, neg_b, chain), (m_b, chain, neg_b)) if compat else (
+        (m_b, chain, neg_b), (m_b, neg_b, chain))
+    if neg is not None:
+        row0, col0 = ([v.clamp(min=neg) for v in vs] for vs in (row0, col0))
     for t, v0, vp in zip((M, I, D), row0, col0):
-        t.copy_(torch.where(at_0, v0, torch.where(at_p, vp, t)))
+        t.copy_(torch.where(at_0, v0, torch.where(at_p, vp, t)).to(t.dtype))
 
 
 def gotoh_step_torch(

@@ -18,7 +18,12 @@ Two implementations of the fill, chosen by the tensors' device:
   lanes at its own pace, its first lane fed through a ring in shared memory
   a chunk of steps at a time (``csrc/stream_ring.cuh``).
 
-Only int32 score state is ported; see ROADMAP.md for int16.
+The score state is int32, or int16 where ``stream_i16_neg`` certifies the
+scheme and shape (``resolve_stream_state``): the plain version then runs
+on int16 tensors with the JAX package's sentinel and floor clamp, and the
+kernel's int16 instances (``csrc/nw_affine_stream_i16.cu``) hold two lanes
+a 32-bit word.  Finals are int32 and the direction words keep their layout
+either way; for a certified shape the finals and walks equal int32's.
 """
 
 from __future__ import annotations
@@ -94,10 +99,13 @@ class StreamResult(NamedTuple):
 
 
 def stream_i16_neg(scheme: ScoringScheme, plan: StreamPlan) -> Optional[int]:
-    """The -inf sentinel an int16 stream state would use, or None if the
-    scheme x shape cannot be certified to fit int16 (closed form, as
-    ops/nw_affine_stream.py::stream_i16_neg).  The port runs int32 only;
-    this certification is the first piece of the int16 state."""
+    """The -inf sentinel of int16 stream state, or None if the scheme x
+    shape cannot be certified to fit int16 (closed form, as
+    ops/nw_affine_stream.py::stream_i16_neg): every real cell lies above
+    the sentinel, which sits 64 below the worst real cell; one step before
+    the floor clamp dips at most |o| + |e| + max(|mismatch|, |match|)
+    below it, and a stale lane grows at most max(match, mismatch, 0) a
+    step, all inside int16."""
     o, e = scheme.gap_open, scheme.gap_extend
     mm, mt = scheme.mismatch, scheme.match_
     per_char = min(mm, e, 0)
@@ -111,16 +119,43 @@ def stream_i16_neg(scheme: ScoringScheme, plan: StreamPlan) -> Optional[int]:
     return neg
 
 
-def resolve_stream_state(state_dtype) -> torch.dtype:
-    """"i32", None and "auto" give int32; int16 state is not ported yet
-    (results are bit-identical either way in the JAX package)."""
-    if state_dtype in (None, "i32", "auto"):
-        return torch.int32
-    if state_dtype == "i16":
-        raise NotImplementedError(
-            "int16 stream state is not ported yet; see ROADMAP.md"
-        )
-    raise ValueError(f"unknown stream state {state_dtype!r}")
+_STATES = {None: torch.int32, "i32": torch.int32, "i16": torch.int16,
+           "auto": None, torch.int32: torch.int32, torch.int16: torch.int16}
+
+
+def check_stream_state(state_dtype) -> None:
+    """Raise ValueError for a stream-state request resolve_stream_state
+    does not take."""
+    if state_dtype not in _STATES:
+        raise ValueError(f"unknown stream state {state_dtype!r}")
+
+
+def resolve_stream_state(state_dtype, scheme: ScoringScheme,
+                         plan: StreamPlan) -> torch.dtype:
+    """A stream-state request as a dtype: "i32" and None give int32, "i16"
+    int16 (the fill raises if stream_i16_neg does not certify the scheme x
+    shape), "auto" int16 exactly when it does; a torch dtype (int32 or
+    int16) passes through.  As the JAX package's resolve_stream_state off
+    the TPU, where its Mosaic probe always passes."""
+    check_stream_state(state_dtype)
+    if state_dtype == "auto":
+        return torch.int32 if stream_i16_neg(scheme, plan) is None \
+            else torch.int16
+    return _STATES[state_dtype]
+
+
+def state_sentinel(state, scheme: ScoringScheme, plan: StreamPlan):
+    """The int16 state's sentinel (stream_i16_neg), or None for int32
+    state; raises ValueError naming int16 when the scheme x shape is not
+    certified (as gotoh_fill_stream_lax)."""
+    if state == torch.int32:
+        return None
+    if state != torch.int16:
+        raise ValueError(f"unknown stream state {state!r}")
+    neg = stream_i16_neg(scheme, plan)
+    if neg is None:
+        raise ValueError("scheme x shape does not fit int16 state")
+    return neg
 
 
 def _dirs_mode(with_dirs):
@@ -187,10 +222,10 @@ def capture_params(query_len, db_len, plan: StreamPlan):
 def stream_step_torch(
     H2, H1, M1, I1, D1, s1d, s2v, qc, dc, p: torch.Tensor,
     scheme: ScoringScheme, compat: bool, wildcard: bool, dirs_mode,
-    mode: str = "global",
+    mode: str = "global", neg: Optional[int] = None,
 ):
     """One step of a streamed fill, the twin of
-    ops/nw_affine_stream.py::_stream_step (int32 state): the query code qc
+    ops/nw_affine_stream.py::_stream_step: the query code qc
     (R,) enters at lane 0, the db code dc (R,) at lane p = t mod S (written
     into s2v in place), and the merged-roll D recurrence shares its
     compares with the extend flags.  ``mode`` is the boundary hook of
@@ -198,15 +233,20 @@ def stream_step_torch(
     the lane width P does not exist and takes neither code nor boundary.
     Returns (M, I, D, H, s1d_new, code) with code the fast4 or full
     direction code, or None.  p is a 0-d tensor (the step counter of the
-    plain loops, ops.step_graph)."""
+    plain loops, ops.step_graph).  The scores take the state's dtype: for
+    int16 state (H2 int16, neg its sentinel) I and D are floored at neg
+    after their flags are taken and the boundaries clamped to it, as the
+    JAX package's int16 step; int16 arithmetic wraps as numpy's."""
     o, e = scheme.gap_open, scheme.gap_extend
+    sdt = H2.dtype
     P = s2v.shape[1]
     s1d = _roll(s1d)
     s1d[:, 0] = qc
     lane = torch.arange(P, device=s2v.device)[None, :]
     s2v.copy_(torch.where(lane == p, dc[:, None], s2v))
     eq = (s1d & s2v) != 0 if wildcard else s1d == s2v
-    sub = scheme.mismatch + _bit(eq, scheme.match_ - scheme.mismatch)
+    sub = (scheme.mismatch
+           + _bit(eq, scheme.match_ - scheme.mismatch)).to(sdt)
     t0 = M1 + o
     M = _roll(H2) + sub
     restart = None
@@ -217,7 +257,10 @@ def stream_step_torch(
     cd = D1 >= t0
     D = _roll(torch.where(cd, D1, t0)) + e
     I = torch.where(ci, I1, t0) + e
-    apply_boundaries(M, I, D, restart, p, scheme, compat, mode)
+    if neg is not None:
+        I = torch.clamp(I, min=neg)
+        D = torch.clamp(D, min=neg)
+    apply_boundaries(M, I, D, restart, p, scheme, compat, mode, neg)
     H = torch.maximum(M, torch.maximum(I, D))
 
     code = None
@@ -258,10 +301,11 @@ def _check_fill_args(qstream, dstream, dsums, n2s, plan: StreamPlan,
         raise ValueError(f"t_total {plan.t_total} is not a multiple of {upack}")
 
 
-def stream_state(R: int, P: int, neg: int, device):
+def stream_state(R: int, P: int, neg: int, device, dtype=torch.int32):
     """The rolling state of a streamed plain fill: H2, H1, M1, I1, D1 (at
-    neg), s1d and s2v (at 0), each its own (R, P) int32 tensor."""
-    full = [torch.full((R, P), neg, dtype=torch.int32, device=device)
+    neg, of the state's dtype), s1d and s2v (at 0, int32), each its own
+    (R, P) tensor."""
+    full = [torch.full((R, P), neg, dtype=dtype, device=device)
             for _ in range(5)]
     zeros = [torch.zeros((R, P), dtype=torch.int32, device=device)
              for _ in range(2)]
@@ -279,15 +323,18 @@ def advance(state, M, I, D, H, s1d):
 def gotoh_fill_stream_torch(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
-    compat: bool, wildcard: bool, dirs_mode,
+    compat: bool, wildcard: bool, dirs_mode, state_dtype=torch.int32,
 ):
     """Plain PyTorch twin of gotoh_fill_stream_lax: a loop over the t_total
     steps, each a handful of (R, P) tensor ops, with the same torus rolls.
-    qstream/dstream: (R, t_total) int32; dsums/n2s: (np_slots, R) int32.
-    Returns (finals (R*np_slots, 3) int32, dirs uint32 or None).  The step
-    is a device counter and the state updates in place, so on the card the
-    loop replays as CUDA graphs (ops.step_graph)."""
+    qstream/dstream: (R, t_total) int32; dsums/n2s: (np_slots, R) int32;
+    state_dtype: torch.int32 or torch.int16 (resolve_stream_state; int16
+    raises ValueError for an uncertified scheme x shape).  Returns (finals
+    (R*np_slots, 3) int32, dirs uint32 or None).  The step is a device
+    counter and the state updates in place, so on the card the loop
+    replays as CUDA graphs (ops.step_graph)."""
     _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
+    neg = state_sentinel(state_dtype, scheme, plan)
     R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
     dev = qstream.device
 
@@ -297,7 +344,8 @@ def gotoh_fill_stream_torch(
     cap_t = (slot * S + dsums.long()).T.reshape(-1)
     rows = torch.arange(R, device=dev).repeat_interleave(NP)
     lanes = n2s.long().T.reshape(-1)
-    state = stream_state(R, P, NEG_INF, dev)
+    state = stream_state(R, P, NEG_INF if neg is None else neg, dev,
+                         state_dtype)
     finals = torch.zeros((R * NP, 3), dtype=torch.int32, device=dev)
     pack = None
     if dirs_mode:
@@ -311,12 +359,12 @@ def gotoh_fill_stream_torch(
         M, I, D, H, s1d, b = stream_step_torch(
             *state[:6], state[6], qstream.index_select(1, at)[:, 0],
             dstream.index_select(1, at)[:, 0], t % S, scheme, compat,
-            wildcard, dirs_mode,
+            wildcard, dirs_mode, neg=neg,
         )
         if pack is not None:
             pack.add(t, b)
         got = torch.stack([M[rows, lanes], I[rows, lanes], D[rows, lanes]],
-                          dim=1)
+                          dim=1).to(torch.int32)
         finals.copy_(torch.where((cap_t == t)[:, None], got, finals))
         advance(state, M, I, D, H, s1d)
 
@@ -409,14 +457,20 @@ def check_stream_stalls(wait: bool = False) -> None:
 def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
                        n2s, out, dirs, plan: StreamPlan,
                        scheme: ScoringScheme, dirs_code: int, wildcard: bool,
-                       modes: bool, cta_lanes: int) -> dict:
+                       modes: bool, cta_lanes: int,
+                       neg: Optional[int] = None) -> dict:
     """Launch sa_stream_fill (mode_arg: compat) or sa_stream_modes_fill
     (mode_arg: local) into out/dirs on the current stream, the rings as
     forced_ring leaves them, and return the launch's shape without waiting
-    for the kernel.  Raises for a failed launch, and for an earlier
+    for the kernel; with neg (int16 state's sentinel) the int16 instance
+    (entry + "_i16").  Raises for a failed launch, and for an earlier
     launch that has ended stalled (check_stream_stalls); this launch's
     status is read by a later check."""
     check_stream_stalls()
+    extra = ()
+    if neg is not None:
+        entry += "_i16"
+        extra = (neg,)
     lib = csrc.kernels()
     shape = stream_launch_shape(lib, plan.p, cta_lanes, modes,
                                 **forced_knobs())
@@ -432,7 +486,7 @@ def stream_fill_launch(entry: str, mode_arg: int, qstream, dstream, dsums,
             scheme.match_, scheme.mismatch, scheme.gap_open,
             scheme.gap_extend, dirs_code, mode_arg, int(wildcard), cta_lanes,
             shape["lanes_per_thread"], shape["chunk"], shape["ring_slots"],
-            shape["wrap_words"], stream.cuda_stream,
+            shape["wrap_words"], *extra, stream.cuda_stream,
         )
         if rc != 0:
             raise csrc.launch_error(entry, rc, shape["ctas"])
@@ -455,16 +509,21 @@ def gotoh_fill_stream_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     compat: bool, wildcard: bool, dirs_mode, cta_lanes: int = 0,
+    state_dtype=torch.int32,
 ):
-    """The fill kernel (csrc/nw_affine_stream.cu) on CUDA tensors: same
-    arguments and results as gotoh_fill_stream_torch.  A row of more than
+    """The fill kernel on CUDA tensors: same arguments and results as
+    gotoh_fill_stream_torch; int32 state launches the instances of
+    csrc/nw_affine_stream.cu (counted in ``launches``), int16 those of
+    csrc/nw_affine_stream_i16.cu (``launches_i16``).  A row of more than
     8192 lanes is split over a thread-block cluster; cta_lanes > 0 forces
     CTAs of that many lanes (a multiple of 128, for testing the split).
     The launch's shape is left in ``gotoh_fill_stream_cuda.last_launch``.
     Builds the kernels on first use; returns without waiting for the
-    kernel; raises on a CPU tensor, an unsupported shape or a failed
-    launch, and check_stream_stalls raises for a stalled wait."""
+    kernel; raises on a CPU tensor, an unsupported shape or state (an
+    uncertified int16 one: ValueError) or a failed launch, and
+    check_stream_stalls raises for a stalled wait."""
     _check_fill_args(qstream, dstream, dsums, n2s, plan, dirs_mode)
+    neg = state_sentinel(state_dtype, scheme, plan)
     if not qstream.is_cuda:
         raise ValueError("gotoh_fill_stream_cuda needs CUDA tensors")
     for name, t in (("qstream", qstream), ("dstream", dstream),
@@ -483,29 +542,29 @@ def gotoh_fill_stream_cuda(
     gotoh_fill_stream_cuda.last_launch = stream_fill_launch(
         "sa_stream_fill", int(compat), qstream, dstream, dsums, n2s, finals,
         dirs, plan, scheme, _DIRS_CODES[dirs_mode], wildcard, False,
-        cta_lanes)
-    gotoh_fill_stream_cuda.launches += 1
+        cta_lanes, neg)
+    if neg is None:
+        gotoh_fill_stream_cuda.launches += 1
+    else:
+        gotoh_fill_stream_cuda.launches_i16 += 1
     return finals, dirs
 
 
 gotoh_fill_stream_cuda.launches = 0
+gotoh_fill_stream_cuda.launches_i16 = 0
 gotoh_fill_stream_cuda.last_launch = None
 
 
 def gotoh_fill_stream(qstream, dstream, dsums, n2s, plan, scheme, compat,
-                      wildcard, dirs_mode):
+                      wildcard, dirs_mode, state_dtype=torch.int32):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    args = (qstream, dstream, dsums, n2s, plan, scheme, compat, wildcard,
+            dirs_mode)
     if qstream.is_cuda:
-        return gotoh_fill_stream_cuda(
-            qstream, dstream, dsums, n2s, plan, scheme, compat, wildcard,
-            dirs_mode,
-        )
+        return gotoh_fill_stream_cuda(*args, state_dtype=state_dtype)
     if qstream.device.type != "cpu":
         raise ValueError(f"unsupported device {qstream.device}")
-    return gotoh_fill_stream_torch(
-        qstream, dstream, dsums, n2s, plan, scheme, compat, wildcard,
-        dirs_mode,
-    )
+    return gotoh_fill_stream_torch(*args, state_dtype=state_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -554,11 +613,12 @@ def nw_affine_stream_batch(
 ) -> StreamResult:
     """Streamed batched Gotoh fill of a padded batch held as tensors
     (device.to_device); the padding pairs are stripped from the finals.
-    with_dirs: True/"full", "fast4" or False."""
-    resolve_stream_state(state_dtype)
+    with_dirs: True/"full", "fast4" or False; state_dtype: "i32", "i16",
+    "auto" or a dtype (resolve_stream_state, on the batch's plan)."""
     plan, ins = stream_inputs(query, db, query_len, db_len, np_slots, chunk)
     finals, dirs = gotoh_fill_stream(
-        *ins, plan, scheme, compat, wildcard, _dirs_mode(with_dirs)
+        *ins, plan, scheme, compat, wildcard, _dirs_mode(with_dirs),
+        resolve_stream_state(state_dtype, scheme, plan),
     )
     finals = finals[: query.shape[0]].cpu().numpy()
     check_stream_stalls()

@@ -19,10 +19,13 @@ Two implementations of the fill, chosen by the tensors' device:
 * ``gotoh_fill_stream_modes_torch`` -- plain PyTorch, the twin of
   gotoh_fill_stream_modes_lax (CPU tensors, and the kernel's reference);
 * ``gotoh_fill_stream_modes_cuda`` -- the hand-written kernel, template
-  instances of the global fill's kernel (``csrc/nw_affine_stream.cu``).
+  instances of the global fill's kernel (``csrc/nw_affine_stream.cu``, and
+  ``csrc/nw_affine_stream_i16.cu`` for int16 state).
 
-Only int32 score state is ported; the state starts at NEGBIG = -2**24 and
-the boundaries hold NEG_INF, as in the JAX package.
+As in the JAX package, int32 state starts at NEGBIG = -2**24 with NEG_INF
+on the boundaries; int16 state (ops.nw_affine_stream.resolve_stream_state)
+starts at its sentinel, which the boundaries hold too.  The argmax values
+and steps are int32 either way.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from sequencealigning_tpu_torch.ops.nw_affine_stream import (
     advance,
     check_stream_stalls,
     resolve_stream_state,
+    state_sentinel,
     stream_fill_launch,
     stream_inputs,
     stream_state,
@@ -74,20 +78,23 @@ def _check_mode(mode: str) -> None:
 def gotoh_fill_stream_modes_torch(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
-    wildcard: bool, mode: str, with_dirs: bool,
+    wildcard: bool, mode: str, with_dirs: bool, state_dtype=torch.int32,
 ):
     """Plain PyTorch twin of gotoh_fill_stream_modes_lax.  qstream/dstream:
     (R, t_total) int32; dsums/n2s: (np_slots, R) int32 (n1+n2 and n2 of
-    each slot's pair).  Returns ((bv, bd) each (np_slots, R, P) int32,
-    dirs uint32 or None).  The step is a device counter and the state
-    updates in place, so on the card the loop replays as CUDA graphs
-    (ops.step_graph)."""
+    each slot's pair); state_dtype: torch.int32 or torch.int16 (an
+    uncertified int16 shape raises ValueError).  Returns ((bv, bd) each
+    (np_slots, R, P) int32, dirs uint32 or None).  The step is a device
+    counter and the state updates in place, so on the card the loop
+    replays as CUDA graphs (ops.step_graph)."""
     _check_mode(mode)
     _check_fill_args(qstream, dstream, dsums, n2s, plan,
                      "full" if with_dirs else None)
+    neg = state_sentinel(state_dtype, scheme, plan)
     R, P, S, NP = plan.n_rows, plan.p, plan.s, plan.np_slots
     dev = qstream.device
-    state = stream_state(R, P, NEGBIG, dev)
+    state = stream_state(R, P, NEGBIG if neg is None else neg, dev,
+                         state_dtype)
     bv = torch.full((NP, R, P), NEGBIG, dtype=torch.int32, device=dev)
     bd = torch.zeros((NP, R, P), dtype=torch.int32, device=dev)
     x_iota = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
@@ -104,7 +111,7 @@ def gotoh_fill_stream_modes_torch(
         M, I, D, H, s1d, code = stream_step_torch(
             *state[:6], state[6], qstream.index_select(1, at)[:, 0],
             dstream.index_select(1, at)[:, 0], t % S, scheme, False,
-            wildcard, "full" if with_dirs else None, mode=mode,
+            wildcard, "full" if with_dirs else None, mode=mode, neg=neg,
         )
         # The slots whose pairs lie on this step: t // S - 1 and t // S
         # (a slot out of 0..NP-1 updates nothing).
@@ -115,6 +122,7 @@ def gotoh_fill_stream_modes_torch(
             elig, score = mode_candidates(
                 mode, M, H, x_iota, pk, n1k.index_select(0, kc)[0],
                 n2k.index_select(0, kc)[0])
+            score = score.to(torch.int32)
             bvk = bv.index_select(0, kc)[0]
             upd = elig & (score > bvk) & (k >= 0) & (k < NP)
             bv.index_copy_(0, kc, torch.where(upd, score, bvk)[None])
@@ -132,16 +140,20 @@ def gotoh_fill_stream_modes_cuda(
     qstream, dstream, dsums, n2s,
     plan: StreamPlan, scheme: ScoringScheme,
     wildcard: bool, mode: str, with_dirs: bool, cta_lanes: int = 0,
+    state_dtype=torch.int32,
 ):
-    """The streamed modes kernel (csrc/nw_affine_stream.cu) on CUDA tensors:
-    same arguments and results as gotoh_fill_stream_modes_torch; rows past
-    8192 lanes are split over a cluster, cta_lanes > 0 forces the split's
-    CTA width, and ``last_launch`` and the stall check are as
-    gotoh_fill_stream_cuda's.  Raises on a CPU tensor, a non-contiguous
-    input, an unsupported shape or a failed launch."""
+    """The streamed modes kernel on CUDA tensors: same arguments and
+    results as gotoh_fill_stream_modes_torch; int32 state launches the
+    instances of csrc/nw_affine_stream.cu (``launches``), int16 those of
+    csrc/nw_affine_stream_i16.cu (``launches_i16``).  Rows past 8192 lanes
+    are split over a cluster, cta_lanes > 0 forces the split's CTA width,
+    and ``last_launch`` and the stall check are as gotoh_fill_stream_cuda's.
+    Raises on a CPU tensor, a non-contiguous input, an unsupported shape or
+    state (an uncertified int16 one: ValueError) or a failed launch."""
     _check_mode(mode)
     _check_fill_args(qstream, dstream, dsums, n2s, plan,
                      "full" if with_dirs else None)
+    neg = state_sentinel(state_dtype, scheme, plan)
     if not qstream.is_cuda:
         raise ValueError("gotoh_fill_stream_modes_cuda needs CUDA tensors")
     if not all(t.is_contiguous() for t in (qstream, dstream, dsums, n2s)):
@@ -160,25 +172,30 @@ def gotoh_fill_stream_modes_cuda(
     gotoh_fill_stream_modes_cuda.last_launch = stream_fill_launch(
         "sa_stream_modes_fill", int(mode == "local"), qstream, dstream,
         dsums, n2s, best, dirs, plan, scheme, 2 if with_dirs else 0,
-        wildcard, True, cta_lanes)
-    gotoh_fill_stream_modes_cuda.launches += 1
+        wildcard, True, cta_lanes, neg)
+    if neg is None:
+        gotoh_fill_stream_modes_cuda.launches += 1
+    else:
+        gotoh_fill_stream_modes_cuda.launches_i16 += 1
     return (best[0], best[1]), dirs
 
 
 gotoh_fill_stream_modes_cuda.launches = 0
+gotoh_fill_stream_modes_cuda.launches_i16 = 0
 gotoh_fill_stream_modes_cuda.last_launch = None
 
 
 def gotoh_fill_stream_modes(qstream, dstream, dsums, n2s, plan, scheme,
-                            wildcard, mode, with_dirs):
+                            wildcard, mode, with_dirs,
+                            state_dtype=torch.int32):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     args = (qstream, dstream, dsums, n2s, plan, scheme, wildcard, mode,
             with_dirs)
     if qstream.is_cuda:
-        return gotoh_fill_stream_modes_cuda(*args)
+        return gotoh_fill_stream_modes_cuda(*args, state_dtype=state_dtype)
     if qstream.device.type != "cpu":
         raise ValueError(f"unsupported device {qstream.device}")
-    return gotoh_fill_stream_modes_torch(*args)
+    return gotoh_fill_stream_modes_torch(*args, state_dtype=state_dtype)
 
 
 def nw_affine_stream_modes_batch(
@@ -197,13 +214,14 @@ def nw_affine_stream_modes_batch(
     """Streamed batched semi-global/local fill (mode "semi" or "local") of
     a padded batch held as tensors (device.to_device); padding pairs are
     stripped.  The (B,) end cells come to the host; the dirs stay on the
-    batch's device.  Use stream_modes_best() per pair."""
+    batch's device.  Use stream_modes_best() per pair.  state_dtype: as
+    ops.nw_affine_stream.nw_affine_stream_batch."""
     _check_mode(mode)
-    resolve_stream_state(state_dtype)
     B = query.shape[0]
     plan, ins = stream_inputs(query, db, query_len, db_len, np_slots, chunk)
     (bv, bd), dirs = gotoh_fill_stream_modes(
-        *ins, plan, scheme, wildcard, mode, with_dirs
+        *ins, plan, scheme, wildcard, mode, with_dirs,
+        resolve_stream_state(state_dtype, scheme, plan),
     )
     P = plan.p
     best, x, y = modes_reduce(bv.transpose(0, 1).reshape(-1, P),

@@ -638,15 +638,36 @@ def traceback_stream_batch(
     plan,
     compat: bool = True,
     max_alignments: int = 64,
+    dirs_mode: str = "full",
 ):
-    """Co-optimal traceback for streamed fills (full dirs): pairs share
-    dirs rows (pair b = slot b % np_slots of row b // np_slots, diagonal
-    offset slot*s).  Per-pair failure isolation as the reference driver
-    loop (src/main.rs:68-76): (score, alignments) or an AlignmentError per
-    pair.  The co-optimal part of
+    """Traceback for streamed fills: pairs share dirs rows (pair b = slot
+    b % np_slots of row b // np_slots, diagonal offset slot*s).  Per-pair
+    failure isolation as the reference CLI's pair loop (src/main.rs:68-76):
+    (score, alignments) or an AlignmentError per pair.  dirs_mode "full"
+    is the co-optimal enumeration of the 7-bit codes; "fast4" walks the
+    4-bit first-path layout with the threaded native walker.  As
     sequencealigning_tpu/ops/traceback.py::traceback_stream_batch."""
     dirs = np.asarray(dirs)
     finals = np.asarray(finals)
+    if dirs_mode == "fast4":
+        from sequencealigning_tpu_torch.native import (
+            fast4_first_path_batch_native,
+        )
+
+        coords = [plan.pair_coords(b) for b in range(len(seqs1))]
+        ops_list = fast4_first_path_batch_native(
+            dirs, finals, np.asarray([c[0] for c in coords]),
+            np.asarray([c[2] for c in coords]),
+            np.asarray([len(s) for s in seqs1]),
+            np.asarray([len(s) for s in seqs2]),
+        )
+        return [
+            AlignmentError("traceback did not terminate") if ops is None
+            else (int(finals[b].max()), [_apply_ops(ops, seqs1[b], seqs2[b])])
+            for b, ops in enumerate(ops_list)
+        ]
+    if dirs_mode != "full":
+        raise ValueError(f"unknown dirs mode {dirs_mode!r}")
     results = []
     for b, (s1, s2) in enumerate(zip(seqs1, seqs2)):
         row, _slot, off = plan.pair_coords(b)

@@ -66,6 +66,25 @@ _OP_LUT = np.frombuffer(b"\x00MID", dtype=np.uint8)
 _CHUNK = 512
 
 
+WALK_ROUTES = ("auto", "device", "host")
+
+
+def use_device_walk(config, device, dirs=None) -> bool:
+    """The walk route of config.traceback, as the JAX package's
+    use_device_walk: "device" walks on the fill's device (the kernels on
+    the card, their plain versions on the CPU), "host" fetches the
+    direction words and walks them with the host walkers (ops.traceback,
+    the native decoder), "auto" walks on the device when the fill's device
+    is the card -- the aligner's device, or the dirs tensor's."""
+    choice = getattr(config, "traceback", "auto")
+    if choice not in WALK_ROUTES:
+        raise ValueError(f"unknown traceback route {choice!r}")
+    if choice != "auto":
+        return choice == "device"
+    return torch.device(device).type == "cuda" or bool(
+        dirs is not None and dirs.is_cuda)
+
+
 def packed_width(t_steps: int) -> int:
     """u32 words per pair of a walk's packed op codes."""
     return -(-t_steps // _CHUNK) * (_CHUNK // 16)

@@ -44,6 +44,7 @@ from sequencealigning_tpu_torch.ops.nw_affine_stream import (
     check_stream_stalls,
     gotoh_fill_stream,
     plan_stream,
+    check_stream_state,
     resolve_stream_state,
 )
 from sequencealigning_tpu_torch.ops.nw_affine_stream_modes import (
@@ -51,8 +52,10 @@ from sequencealigning_tpu_torch.ops.nw_affine_stream_modes import (
 )
 from sequencealigning_tpu_torch.ops.traceback import fast4_traceback_pair
 from sequencealigning_tpu_torch.ops.traceback_device import (
+    WALK_ROUTES,
     decode_modes_walk,
     decode_packed_alignments,
+    use_device_walk,
     walk_fast4,
     walk_modes,
 )
@@ -149,8 +152,10 @@ class DataParallelRunner:
     the textbook modes), ``kernel="plain"`` the per-pair global fill
     (kernel #7, score-only).  ``traceback``: "auto" walks on the device
     when the devices are CUDA and on the host on the CPU; "device" and
-    "host" force.  ``state_dtype``: int32 only ("i16" raises, as
-    ops.nw_affine_stream.resolve_stream_state)."""
+    "host" force.  ``state_dtype``: the streamed fills' score state, "i32",
+    "i16" or "auto", resolved on each batch's plan
+    (ops.nw_affine_stream.resolve_stream_state, as the JAX package's
+    runner); an uncertified "i16" raises ValueError at the fill."""
 
     def __init__(
         self,
@@ -166,9 +171,9 @@ class DataParallelRunner:
     ):
         if kernel not in ("stream", "plain"):
             raise ValueError(f"unknown kernel {kernel!r}")
-        if traceback not in ("auto", "device", "host"):
+        if traceback not in WALK_ROUTES:
             raise ValueError(f"unknown traceback route {traceback!r}")
-        resolve_stream_state(state_dtype)
+        check_stream_state(state_dtype)
         self.devices = make_mesh(devices)
         self.scheme = scheme
         self.compat = compat
@@ -185,10 +190,9 @@ class DataParallelRunner:
         return len(self.devices) * process_count()
 
     def walk_on_device(self) -> bool:
-        """The fast4 / modes walk route for the streaming cigars path."""
-        if self.traceback != "auto":
-            return self.traceback == "device"
-        return self.devices[0].type == "cuda"
+        """The fast4 / modes walk route for the streaming cigars path
+        (ops.traceback_device.use_device_walk on the runner's devices)."""
+        return use_device_walk(self, self.devices[0])
 
     def _gather(self, parts: Sequence[torch.Tensor]):
         """The result merge of per-device row blocks (see the module
@@ -317,7 +321,12 @@ class DataParallelRunner:
         kernel.  Returns (local finals (R_dev * NP, 3), dirs or None)."""
         qs, ds, dsum, n2, lplan = self._streams(shard, plan)
         return gotoh_fill_stream(qs, ds, dsum, n2, lplan, self.scheme,
-                                 self.compat, self.wildcard, dirs_mode)
+                                 self.compat, self.wildcard, dirs_mode,
+                                 self.stream_state(plan))
+
+    def stream_state(self, plan):
+        """The score state of the streamed fills on a batch's plan."""
+        return resolve_stream_state(self.state_dtype, self.scheme, plan)
 
     def _scores_stream(self, batch):
         args, plan, B, has_n = self._stream_args(batch)
@@ -490,7 +499,7 @@ class DataParallelRunner:
         qs, ds, dsum, n2, lplan = self._streams(shard, plan)
         (bv, bd), dirs = gotoh_fill_stream_modes(
             qs, ds, dsum, n2, lplan, self.scheme, self.wildcard, mode,
-            with_dirs,
+            with_dirs, self.stream_state(plan),
         )
         P = plan.p
         best, x, y = modes_reduce(bv.transpose(0, 1).reshape(-1, P),

@@ -89,13 +89,24 @@ def test_port_cli_default_algo_is_a_star():
 
 
 def test_port_cli_unported_algo_exits_2():
-    """A flag the port still lacks (int16 stream state): exit 2, nothing
-    on stdout."""
+    """The JAX CLI's last flags are ported: --stream-state i16 reproduces
+    the golden outputs byte for byte (the streamed global fill, co-optimal
+    and first-only, with int16 state); an unknown state still exits 2 with
+    nothing on stdout."""
+    for name, args in (("needleman-wunsch", ["-a", "needleman-wunsch"]),
+                       ("nw-first-only",
+                        ["-a", "needleman-wunsch", "--first-only"])):
+        rc, out, err = _run(CORPUS + ["--no-out", "--device", "cpu",
+                                      "--stream-state", "i16"] + args)
+        got = (f"# exit={rc}\n# --- stdout ---\n{normalize(out)}"
+               f"# --- stderr ---\n{normalize(err)}")
+        with open(os.path.join(HERE, f"{name}.out")) as f:
+            assert got == f.read(), name
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         with pytest.raises(SystemExit) as e:
             main(CORPUS + ["--no-out", "--device", "cpu", "-a", "wfa",
-                           "--stream-state", "i16"])
+                           "--stream-state", "i8"])
     assert e.value.code == 2 and out.getvalue() == ""
     assert "--stream-state" in err.getvalue()
 

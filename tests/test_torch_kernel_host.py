@@ -830,9 +830,9 @@ def test_ring_knobs(host, chunk, slots, wrap, modes, want):
 
 
 def test_stream_instances_from_build_log():
-    """The registers and spills of each streamed-fill instance, parsed from
-    -Xptxas -v output, its template arguments decoded; other kernels are
-    left out."""
+    """The registers and spills of each streamed-fill instance, int32 and
+    int16, parsed from -Xptxas -v output, its state and template arguments
+    decoded; other kernels are left out."""
     name = ("_ZN12_GLOBAL__N_118stream_ring_kernelILi4ELi2ELi2ELb0ELb1EEEvPKi"
             "S2_S2_S2_PiPjS3_iiiiiN2sa6SchemeENS5_5SplitENS_4RingE")
     log = "\n".join([
@@ -844,10 +844,24 @@ def test_stream_instances_from_build_log():
         "ptxas info    : Compiling entry function '_Z5otherPi' for 'sm_90a'",
         "ptxas info    : Used 32 registers",
     ])
+    name16 = ("_ZN12_GLOBAL__N_120stream_ring16_kernelILi8ELi1ELi0ELb1ELb0E"
+              "EEvPKiS2_S2_S2_PiPjS3_iiiiiN2sa6SchemeEiNS4_5SplitENS4_9Ring"
+              "ShapeE")
+    log += "\n" + "\n".join([
+        f"ptxas info    : Compiling entry function '{name16}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name16}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, 34000 bytes smem",
+    ])
     got = csrc.stream_instances(log)
     assert got == [dict(entry=name, registers=96, stack=56, spill_stores=52,
-                        spill_loads=60, lanes_per_thread=4, dirs="full",
-                        mode="local", compat=False, wildcard=True)]
+                        spill_loads=60, state="i32", lanes_per_thread=4,
+                        dirs="full", mode="local", compat=False,
+                        wildcard=True),
+                   dict(entry=name16, registers=90, stack=0, spill_stores=0,
+                        spill_loads=0, state="i16", lanes_per_thread=8,
+                        dirs="fast4", mode="global", compat=True,
+                        wildcard=False)]
     assert [r["registers"] for r in csrc.kernel_resources(log, "other")] == \
         [32]
 
@@ -1896,10 +1910,37 @@ def test_sass_spills_finds_loops_and_spills():
     got = sass_spills.analyse(funcs["_Z18stream_ring_kernelv"], hot=64)
     assert (got["instructions"], got["ldl"], got["stl"]) == (88, 2, 2)
     assert got["hot_loops"] == [dict(first=0x20, last=0x520,
-                                     instructions=81, spills=1)]
+                                     instructions=81, spills=1, opcodes={})]
     assert [(o["address"], o["out_of_line"], o["smallest_loop"])
             for o in got["outside"]] == \
         [(0x10, False, None), (spin, False, 2), (addr + 0x20, True, None)]
+
+
+def test_sass_spills_counts_packed_opcodes():
+    """A step loop's DPX instructions and PRMTs by opcode with
+    their modifiers (the packed 16x2 forms apart from the 32-bit ones),
+    predicated ones included; instructions outside the loop are not
+    counted."""
+    from sequencealigning_tpu_torch.csrc import sass_spills
+
+    ops = ["VIADDMNMX.S16x2 R1, R2, R3, R4, !PT",
+           "VIMNMX.S16x2 R5, P1, P2, R6, R7, !PT",
+           "@!P0 PRMT R9, R37, 0x5432, R9",
+           "VIMNMX3.S16x2 R1, R2, R3, R4, !PT",
+           "VIADDMNMX R5, R14, UR5, R13, PT"] * 14
+    body = [f"        /*{16 * i:04x}*/                   {op} ;"
+            for i, op in enumerate(ops)]
+    n = len(ops)
+    body += [f"        /*{16 * n:04x}*/                   @P0 BRA 0x0 ;",
+             f"        /*{16 * n + 16:04x}*/                   PRMT R1, R2, "
+             "0x7632, R3 ;",
+             f"        /*{16 * n + 32:04x}*/                   EXIT ;"]
+    funcs = sass_spills.functions("\n".join(
+        ["        Function : k", *body]))
+    got = sass_spills.analyse(funcs["k"], hot=64)
+    assert got["hot_loops"][0]["opcodes"] == {
+        "PRMT": 14, "VIADDMNMX": 14, "VIADDMNMX.S16x2": 14,
+        "VIMNMX.S16x2": 14, "VIMNMX3.S16x2": 14}
 
 
 # ---------------------------------------------------------------------------

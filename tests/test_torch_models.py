@@ -92,19 +92,33 @@ def test_compat_local_mode_is_per_pair_not_implemented():
 
 
 def test_unported_routes_raise():
-    """int16 stream state is not ported: textbook local's streamed route
-    and the global path refuse it.  (Every algorithm has an aligner since
-    WFA was ported: tests/test_torch_models_wfa.py.)"""
+    """int16 stream state is ported: textbook local's streamed route and
+    the global path with stream_state "i16" or "auto" answer as the JAX
+    aligner with the same knob (and as int32), and an uncertified "i16"
+    scheme x shape raises ValueError naming int16, as in the JAX package.
+    (Every algorithm has
+    an aligner since WFA was ported: tests/test_torch_models_wfa.py.)"""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+
     recs = _records(1, n=32)
-    textbook_local = AlignConfig(
-        algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL, compat=False,
-        stream_state="i16",
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_aligner(textbook_local, "cpu").align_batch(recs)
-    global_i16 = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, stream_state="i16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_aligner(global_i16, "cpu").align_batch(recs[:4])
+    for st in ("i16", "auto"):
+        for config in (
+            AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL,
+                        compat=False, stream_state=st),
+            AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, stream_state=st),
+            AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, stream_state=st,
+                        first_only=True),
+        ):
+            sub = recs if config.mode is Mode.LOCAL else recs[:4]
+            got = _view(get_aligner(config, "cpu").align_batch(sub))
+            assert got == _view(JaxGotoh(_jax(config)).align_batch(sub))
+            i32 = dataclasses.replace(config, stream_state="i32")
+            assert got == _view(get_aligner(i32, "cpu").align_batch(sub))
+    big = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, stream_state="i16",
+                      scoring=ScoringScheme(match_=5, mismatch=-400,
+                                            gap_open=-800, gap_extend=-600))
+    with pytest.raises(ValueError, match="int16"):
+        get_aligner(big, "cpu").align_batch(recs[:4])
 
 
 def _drop_walk_of_pair_2(monkeypatch, gotoh_mod):
@@ -119,13 +133,14 @@ def _drop_walk_of_pair_2(monkeypatch, gotoh_mod):
 
 
 def test_failed_device_walk_is_rewalked_on_host(monkeypatch):
-    """On the CPU, a pair whose walk fails validation is re-walked on the
-    host from its dirs row, counted in host_fallbacks, with the same
-    result."""
+    """On the CPU (the device walk route forced: "auto" walks there on
+    the host), a pair whose walk fails validation is re-walked on the host
+    from its dirs row, counted in host_fallbacks, with the same result."""
     import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
 
     recs = _records(21, n=6)
-    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True)
+    config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, first_only=True,
+                         traceback="device")
     want = _view(GotohAligner(config, device="cpu").align_batch(recs))
     _drop_walk_of_pair_2(monkeypatch, gotoh_mod)
     port = GotohAligner(config, device="cpu")
@@ -437,17 +452,17 @@ def _drop_modes_walk_of_pair_1(monkeypatch, gotoh_mod):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_failed_modes_walk(monkeypatch, device):
-    """A failed modes walk is re-walked on the host on the CPU (counted in
-    host_fallbacks, same result) and is that pair's AlignmentError naming
-    the kernel on CUDA (the tensors stay on the CPU here: only the
-    aligner's device says cuda)."""
+    """A failed modes walk (the device walk route) is re-walked on the host
+    on the CPU (counted in host_fallbacks, same result) and is that pair's
+    AlignmentError naming the kernel on CUDA (the tensors stay on the CPU
+    here: only the aligner's device says cuda)."""
     import torch
 
     import sequencealigning_tpu_torch.models.gotoh as gotoh_mod
 
     recs = _modes_records(3, 8)
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, mode=Mode.LOCAL,
-                         compat=False)
+                         compat=False, traceback="device")
     want = _view(GotohAligner(config, device="cpu").align_batch(recs))
     _drop_modes_walk_of_pair_1(monkeypatch, gotoh_mod)
     real_to_device = gotoh_mod.to_device

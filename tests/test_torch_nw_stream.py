@@ -142,13 +142,25 @@ def test_batch_finals_match_oracle(compat):
 
 
 def test_int16_state_not_ported():
+    """int16 state is ported: the batch entry with "i16" and "auto" equals
+    the JAX package's int16 lax fill (finals and fast4 dirs), and "auto"
+    resolves to int16 where the JAX package's does off the TPU."""
     pairs = _pairs(5, 8)
-    tb = to_device(pack_batch(pairs), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.nw_affine_stream_batch(
-            tb.query, tb.db, tb.query_len, tb.db_len, state_dtype="i16"
+    batch = pack_batch(pairs)
+    tb = to_device(batch, "cpu")
+    want = jax_stream.nw_affine_stream_batch(
+        batch.query, batch.db, batch.query_len, batch.db_len,
+        with_dirs="fast4", backend="lax", state_dtype=jnp.int16,
+    )
+    for st in ("i16", "auto"):
+        got = port.nw_affine_stream_batch(
+            tb.query, tb.db, tb.query_len, tb.db_len, with_dirs="fast4",
+            state_dtype=st,
         )
-    assert port.resolve_stream_state("auto") == torch.int32
+        np.testing.assert_array_equal(got.finals, want.finals)
+        np.testing.assert_array_equal(got.dirs.numpy(), np.asarray(want.dirs))
+    assert port.resolve_stream_state("auto", ScoringScheme(), got.plan) == \
+        torch.int16
 
 
 @pytest.mark.parametrize("dirs_mode", [None, "fast4", "full"])

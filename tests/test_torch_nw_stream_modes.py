@@ -98,8 +98,17 @@ def test_stream_matches_per_pair_engine_and_brute_force(mode):
 
 
 def test_int16_state_and_bad_mode_raise():
-    tb = to_device(pack_batch(_skewed(5, 8, 10, 10)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.nw_affine_stream_modes_batch(*tb, "local", state_dtype="i16")
+    """int16 state is ported (the batch entry equals the JAX package's
+    int16 lax route); a mode other than semi or local still raises."""
+    batch = pack_batch(_skewed(5, 8, 10, 10))
+    tb = to_device(batch, "cpu")
+    want = jax_smodes.nw_affine_stream_modes_batch(
+        batch.query, batch.db, batch.query_len, batch.db_len, "local",
+        backend="lax", state_dtype="i16",
+    )
+    got = port.nw_affine_stream_modes_batch(*tb, "local", state_dtype="i16")
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    np.testing.assert_array_equal(got.dirs.numpy(), np.asarray(want.dirs))
     with pytest.raises(ValueError, match="mode"):
         port.nw_affine_stream_modes_batch(*tb, "global")

@@ -305,8 +305,16 @@ def test_stream_threads_stop_after_a_failure():
 
 
 def test_runner_refuses_int16_state_and_unknown_knobs():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataParallelRunner(CPU8, state_dtype="i16")
+    """int16 state is ported: the runner with state_dtype "i16" or "auto"
+    gives the JAX runner's int16 scores; unknown knobs still raise."""
+    batch = pack_batch(_pairs(73, 16), batch_size=16)
+    want = np.asarray(JaxRunner(backend="lax", kernel="stream",
+                                state_dtype="auto").scores(batch))
+    for st in ("i16", "auto"):
+        got = DataParallelRunner(CPU8, state_dtype=st).scores(batch)
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="stream state"):
+        DataParallelRunner(CPU8, state_dtype="int8")
     with pytest.raises(ValueError, match="kernel"):
         DataParallelRunner(CPU8, kernel="tiled")
     with pytest.raises(ValueError, match="traceback"):
@@ -315,3 +323,42 @@ def test_runner_refuses_int16_state_and_unknown_knobs():
         DataParallelRunner(CPU8, kernel="plain").fill_modes(
             pack_batch(_pairs(1, 4)), "semi")
     assert streaming.process_count() == 1
+
+@pytest.mark.parametrize("mode", ["global", "semi", "local"])
+def test_runner_int16_fused_routes_match_jax(mode):
+    """The runner with state_dtype "i16" (resolved on each batch's plan)
+    against the JAX runner with the same knob: the fused fill-and-walk
+    routes give the same finals or end cells and the same walked
+    alignments, and so does the port's int32 runner."""
+    pairs = _pairs(88, 40, b"ACGTN")
+    s1 = [p[0] for p in pairs]
+    s2 = [p[1] for p in pairs]
+    jr = JaxRunner(backend="lax", np_slots=2, traceback="device",
+                   state_dtype="i16")
+    ja, plan, jb, jn = jr._stream_args(jax_pack(pairs))
+    got = {}
+    for st in ("i16", "i32"):
+        tr = DataParallelRunner(CPU8, np_slots=2, traceback="device",
+                                state_dtype=st)
+        ta, tplan, tb_, tn = tr._stream_args(pack_batch(pairs))
+        assert tplan == plan
+        if mode == "global":
+            assert tr.stream_state(plan) == (torch.int16 if st == "i16"
+                                             else torch.int32)
+            tf, th = tr.fill_walk_from_stream_args(ta, plan, tb_, tn, s1, s2)
+            got[st] = (to_host(tf)[:len(pairs)].max(axis=1).tolist(),
+                       _value(tr.device_walk_fast4_finish(th, tf, s1, s2)))
+        else:
+            to = tr.fill_walk_modes_from_stream_args(ta, plan, tb_, tn, mode)
+            got[st] = ([to_host(t).tolist() for t in to[:3]],
+                       tr.device_walk_modes_finish(to[3], s1, s2))
+    if mode == "global":
+        jf, jh = jr.fill_walk_from_stream_args(ja, plan, jb, jn, s1, s2)
+        want = (np.asarray(jf)[:len(pairs)].max(axis=1).tolist(),
+                _value(jr.device_walk_fast4_finish(jh, jf, s1, s2)))
+    else:
+        jo = jr.fill_walk_modes_from_stream_args(ja, plan, jb, jn, mode)
+        want = ([np.asarray(t).tolist() for t in jo[:3]],
+                jr.device_walk_modes_finish(jo[3], s1, s2))
+    assert got["i16"] == want
+    assert got["i32"] == want
