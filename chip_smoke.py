@@ -175,7 +175,22 @@ in the phases below and exits non-zero at the first failure:
    with stream_state "i16" through the int16 kernels (launch counts; the
    int32 kernels never launched there), equal to the int32 runs; the
    golden CLI with --stream-state i16 and with --traceback host, and
-   --profile writing a trace with CUDA kernel events.
+   --profile writing a trace with CUDA kernel events;
+25. sequence parallelism (runs after 15): the shard fill
+   (sa_tiled_shard_fill, kernel #4's strips over each shard's segments,
+   one launch a shard, all at once) against its plain version on ragged
+   batches of 8 pairs (queries up to 200 bp, dbs up to 3 kb, empty
+   sides) on 1, 2, 4 and 8 shards of one card at tile_lanes 128 and 256,
+   compat / textbook x wildcard; seqpar_fill on one 200 kb x 200 kb pair
+   (~1% substitutions) over 4 shards of one card (13 rounds, 49
+   segments), its finals against kernel #4's, then 5 more launches each
+   equal (timed beside #4's time on the pair and the bound);
+   seqpar_align on batch A's pair 0, scoring kernel #4's score with an
+   alignment that consumes both sequences and rescores to it; a schedule
+   that cannot be met (2 shards of one CTA, one of them not
+   segment-major) must raise, and the next launch equal its plain
+   version; with several cards, the 200 kb pair over distinct cards too
+   (else a line says that route was not run).
 
 Every phase prints its wall seconds; the summary is on a line before the
 card's, and in chip_smoke.json's phase_s.
@@ -265,6 +280,14 @@ LEN_TILE_SMALL, LEN_FOLD_SMALL = 700, 1000
 N_HANDOFF, LEN_HANDOFF, HANDOFF_LANES, HANDOFF_ROWS = 64, 6000, 128, 8
 N_OVERFLOW, LEN_OVERFLOW = 512, (4000, 8000)
 N_RACE = 5
+# Sequence parallelism: one pair of SEQPAR_LEN bp a side (the README's
+# durable 200 kb x 200 kb shape) at ~1% substitutions (seed 25) over
+# SEQPAR_SHARDS shards of one card at tile_lanes SEQPAR_TILE (13 rounds, 49
+# segments); the kernel against its plain version on ragged batches of 8
+# pairs, queries up to SEQPAR_RAGGED_Q bp against dbs up to
+# SEQPAR_RAGGED_DB bp.
+SEQPAR_LEN, SEQPAR_SHARDS, SEQPAR_TILE = 200_000, 4, 4096
+SEQPAR_RAGGED_Q, SEQPAR_RAGGED_DB = 200, 3000
 # Kernel #7 with full dirs: the first N_GOTOH_DIRS pairs of the main shape;
 # its host walker against the co-optimal path on N_GOTOH_WALK of them.
 N_GOTOH_DIRS, N_GOTOH_WALK = 512, 8
@@ -416,6 +439,10 @@ KERNELS = {
         "mm", "mm_rows_cuda",
         "sequencealigning_tpu_torch/csrc/mm_rows.cu",
         "sequencealigning_tpu/ops/mm_align.py:64"),
+    "seqpar_shard": (
+        "tiled", "tiled_shard_fill_cuda",
+        "sequencealigning_tpu_torch/csrc/nw_affine_tiled.cu",
+        "sequencealigning_tpu/parallel/seqpar.py:57"),
 }
 
 
@@ -2297,6 +2324,229 @@ def phase_long(torch, port, by_path):
     for tag, pair, was in (("mm_escape", short, " (PR 11, run 31: 6.132 s)"),
                            ("mm_escape_long", longp, "")):
         meas.update(mm_escape(torch, port, by_path, tag, pair, was))
+    return meas
+
+
+def seqpar_ragged(rng, n, alphabet):
+    """n pairs of queries 1..SEQPAR_RAGGED_Q bp against dbs 1..
+    SEQPAR_RAGGED_DB bp, the next-to-last with an empty db and the last
+    with an empty query; every other db a mutated copy of its query."""
+    alpha = np.frombuffer(alphabet, np.uint8)
+    pairs = []
+    for i in range(n):
+        s1 = rng.choice(alpha, int(rng.integers(1, SEQPAR_RAGGED_Q + 1)))
+        s2 = rng.choice(alpha, int(rng.integers(1, SEQPAR_RAGGED_DB + 1)))
+        if i % 2:
+            s2 = np.resize(s1, len(s2)).copy()
+            hits = rng.integers(len(s2), size=max(1, len(s2) // 50))
+            s2[hits] = rng.choice(alpha, len(hits))
+        pairs.append((s1.tobytes(), s2.tobytes()))
+    pairs[-2] = (pairs[-2][0], b"")
+    pairs[-1] = (b"", pairs[-1][1])
+    return pairs
+
+
+def seqpar_stall_check(torch, port):
+    """Two shards of one card, one CTA each, shard 0's tickets not
+    segment-major (its segment 2 before its segment 0): shard 0 waits on
+    segment 1, whose shard waits on segment 0 -- a schedule that cannot be
+    met must raise, not hang; the next launch equals its plain version.
+    The seconds it took."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    tiled = port["tiled"]
+    lib = port["csrc"].kernels()
+    tb = to_device(pack_batch([(b"ACGT" * 50, b"ACGTT" * 120)]), "cuda")
+    mesh = ["cuda:0"] * 2
+    real = tiled.shard_schedule, lib.sa_tiled_resident_ctas
+
+    def cyclic(*a):
+        items, strips, nseg = real[0](*a)
+        seg0 = items[0][:, 1] == 0
+        items[0] = np.concatenate([items[0][~seg0], items[0][seg0]])
+        return items, strips, nseg
+
+    tiled.shard_schedule = cyclic
+    lib.sa_tiled_resident_ctas = lambda *a: 2
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        tiled.tiled_shard_fill_cuda(*tb, mesh, 128, ScoringScheme(), True,
+                                    False)
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        tiled.shard_schedule, lib.sa_tiled_resident_ctas = real
+    secs = time.perf_counter() - t0
+    check(raised is not None and "spin limit" in raised,
+          f"an impossible shard schedule did not raise: {raised}")
+    got = tiled.tiled_shard_fill_cuda(*tb, mesh, 128, ScoringScheme(), True,
+                                      False)
+    want = tiled.shard_fill_torch(*tb, mesh, 128, 128, ScoringScheme(), True,
+                                  False)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "the shard fill after a stalled launch != "
+          "plain")
+    log(f"[25 seqpar] an impossible schedule (2 shards, one CTA each, shard "
+        f"0's segment 2 first) raised after {secs:.2f} s: {raised}; the next "
+        "launch equals its plain version")
+    return secs
+
+
+def phase_seqpar(torch, port, by_path):
+    """Sequence parallelism on the card: the shard fill against its plain
+    version on ragged batches over 1-8 shards; seqpar_fill on one 200 kb x
+    200 kb pair over SEQPAR_SHARDS shards of one card, its finals against
+    kernel #4's, timed; seqpar_align on batch A's pair 0; a schedule that
+    cannot be met; and the same pair over distinct cards where there are
+    several."""
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    tiled = port["tiled"]
+    par = port["parallel"]
+    kern = tiled.tiled_shard_fill_cuda
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    rng = np.random.default_rng(25)
+    meas, err = {}, 0
+
+    # 1. The kernel against its plain version (the plain twin on the card):
+    # every shard count at both tile widths, compat / textbook x wildcard.
+    runs = []
+    for i, (D, tl) in enumerate((d, t) for d in (1, 2, 4, 8)
+                                for t in (128, 256)):
+        compat, wildcard = i % 2 == 0, (i // 2) % 2 == 1
+        scheme = wild if wildcard else ScoringScheme()
+        pairs = seqpar_ragged(rng, 8, b"ACGTN" if wildcard else b"ACGT")
+        tb = to_device(pack_batch(pairs, batch_size=8), "cuda")
+        mesh = ["cuda:0"] * D
+        W = tiled.seqpar_lanes(tb.db.shape[1], D, tl)
+        a = (mesh, W, scheme, compat, wildcard)
+        got = kern(*tb, *a)
+        shape = dict(kern.last_launch)
+        p_ms, want = host_ms(torch, lambda: tiled.shard_fill_torch(
+            *tb, mesh, W, 128, scheme, compat, wildcard))
+        e = int((got - want).abs().max())
+        check(e == 0, f"shard fill != plain (D={D}, tile_lanes={tl}, "
+              f"compat={compat}, wildcard={wildcard}): err {e}")
+        err = max(err, e)
+        runs.append(f"D={D} W={W} ({shape['segments']} segments, strips "
+                    f"{shape['strips']})")
+        if D == 4 and tl == 128:
+            meas["seqpar_plain_ms"] = p_ms
+            meas["seqpar_small_ms"] = cuda_ms(torch, lambda: kern(*tb, *a))
+            fin = par.seqpar_fill(*(t.cpu().numpy() for t in tb), mesh=mesh,
+                                  tile_lanes=tl, scheme=scheme, compat=compat,
+                                  wildcard=wildcard)
+            check(np.array_equal(fin, want.cpu().numpy()),
+                  "seqpar_fill != the plain twin on the ragged batch")
+    log(f"[25 seqpar] the shard fill equals its plain version on 8 ragged "
+        f"batches of 8 pairs (queries <= {SEQPAR_RAGGED_Q} bp, dbs <= "
+        f"{SEQPAR_RAGGED_DB} bp, empty sides): {'; '.join(runs)}; at D=4 "
+        f"W=128 {meas['seqpar_small_ms']:.3f} ms, plain "
+        f"{meas['seqpar_plain_ms']:.1f} ms")
+
+    # 2-3. Full width: one 200 kb x 200 kb pair over SEQPAR_SHARDS shards of
+    # one card through seqpar_fill, against kernel #4; timed.
+    pair = make_pairs(np.random.default_rng(25), 1, SEQPAR_LEN)
+    batch = pack_batch(pair, batch_size=8)
+    mesh = ["cuda:0"] * SEQPAR_SHARDS
+    path = f"seqpar_fill {SEQPAR_LEN} bp x {SEQPAR_LEN} bp, {SEQPAR_SHARDS} "\
+        "shards of one card"
+    with path_launches(port, by_path, path):
+        call_ms, fin = host_ms(torch, lambda: par.seqpar_fill(
+            batch.query, batch.db, batch.query_len, batch.db_len, mesh=mesh,
+            tile_lanes=SEQPAR_TILE))
+    shape = dict(kern.last_launch)
+    check(by_path.get("seqpar_shard", {}).get(path) == SEQPAR_SHARDS,
+          f"{path}: {by_path.get('seqpar_shard')} shard launches")
+    tb = to_device(pack_batch(pair, batch_size=1), "cuda")
+    a = (ScoringScheme(), True, False)
+    f4 = port["tiled"].tiled_fill_cuda(*tb, *a)
+    e = int(np.abs(fin[:1] - f4.cpu().numpy()).max())
+    check(e == 0, f"{path}: finals {fin[0]} != kernel #4's {f4[0].tolist()}")
+    err = max(err, e)
+    W = tiled.seqpar_lanes(SEQPAR_LEN, SEQPAR_SHARDS, SEQPAR_TILE)
+    fa = (mesh, W, *a)
+    times, first = [], None
+    for _ in range(N_RACE):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = kern(*tb, *fa)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        check(torch.equal(got, f4), "race: a shard fill of the 200 kb pair "
+              "differs from kernel #4")
+    ms = sum(times) / len(times)
+    t4 = cuda_ms(torch, lambda: port["tiled"].tiled_fill_cuda(*tb, *a))
+    cells = SEQPAR_LEN * SEQPAR_LEN
+    b_ms, b_by = bound(nbytes(*tb) + 12, cells * OPS_PER_CELL["score"])
+    meas.update(seqpar_ms=ms, seqpar_race_ms=times, seqpar_call_ms=call_ms,
+                seqpar_tiled_ms=t4, seqpar_bound_ms=b_ms, seqpar_bound_by=b_by,
+                seqpar_gcups=cells / ms / 1e6,
+                seqpar_pct_of_bound=100 * b_ms / ms, seqpar_shape=shape)
+    log(f"[25 seqpar] {path}: {shape['segments']} segments of {W} lanes "
+        f"({-(-shape['segments'] // SEQPAR_SHARDS)} rounds), strips of "
+        f"{shape['strip_lanes']} lanes, strips a shard {shape['strips']}, "
+        f"CTAs {shape['ctas']} of {shape['resident']} resident, SMs "
+        f"{shape['sms']}; finals equal kernel #4's; seqpar_fill "
+        f"{call_ms:.1f} ms host clock, the launches {ms:.3f} ms mean of "
+        f"{N_RACE} ({min(times):.3f}-{max(times):.3f}, each equal to #4), "
+        f"{cells / ms / 1e6:.1f} GCUPS, {100 * b_ms / ms:.1f}% of its bound "
+        f"{b_ms:.3f} ms ({b_by}); kernel #4 on the pair {t4:.3f} ms")
+    del tb, got, f4
+    torch.cuda.empty_cache()
+
+    # 4. seqpar_align at full width on batch A's pair 0.
+    A, _B = long_batches()
+    s1, s2 = A[0]
+    tb = to_device(pack_batch([A[0]], batch_size=1), "cuda")
+    exact = int(port["tiled"].tiled_fill_cuda(*tb, *a)[0].max())
+    path = f"seqpar_align batch A pair 0, {SEQPAR_SHARDS} shards of one card"
+    with path_launches(port, by_path, path):
+        secs, (score, a1, a2) = host_ms(torch, lambda: par.seqpar_align(
+            s1, s2, mesh=mesh))
+    launches = {k: v[path] for k, v in by_path.items() if path in v}
+    check(score == exact, f"{path}: score {score} != kernel #4's {exact}")
+    check(a1 is not None and a1.replace("-", "").encode() == s1
+          and a2.replace("-", "").encode() == s2,
+          f"{path}: the alignment does not consume both sequences")
+    check(affine_score(a1, a2, ScoringScheme(), False, True) == score,
+          f"{path}: the alignment does not rescore to {score}")
+    for k in ("seqpar_shard", "nw_banded_diag_fill", "walk_banded"):
+        check(launches.get(k, 0) > 0, f"{path} never launched {k}")
+    meas["seqpar_align_s"] = secs / 1e3
+    log(f"[25 seqpar] {path}: score {score} (= kernel #4's), the alignment "
+        f"consumes both sequences and rescores to it; {secs / 1e3:.3f} s; "
+        f"launches {launches}")
+
+    # 5. A schedule that cannot be met.
+    meas["seqpar_stall_s"] = seqpar_stall_check(torch, port)
+
+    # 6. Distinct cards.
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        cards = par.make_mesh()
+        tb = to_device(pack_batch(pair, batch_size=1), "cuda")
+        f4 = port["tiled"].tiled_fill_cuda(*tb, *a)
+        Wc = tiled.seqpar_lanes(SEQPAR_LEN, len(cards), SEQPAR_TILE)
+        ms_c = cuda_ms(torch, lambda: kern(*tb, cards, Wc, *a))
+        got = kern(*tb, cards, Wc, *a)
+        check(torch.equal(got, f4), "distinct cards: finals != kernel #4's")
+        meas["seqpar_cards_ms"] = ms_c
+        log(f"[25 seqpar] the 200 kb pair over {len(cards)} distinct cards "
+            f"(peers {kern.last_launch['peers']}): finals equal kernel #4's; "
+            f"{ms_c:.3f} ms")
+    else:
+        meas["seqpar_cards_ms"] = None
+        log("[25 seqpar] the distinct-card route was not run: this machine "
+            f"has {n_cards} card")
+    meas["seqpar_err"] = err
     return meas
 
 
@@ -4687,6 +4937,9 @@ def run(args):
         meas.update(phase_tiled(torch, port))
     with timed(phase_s, "15 long"):
         meas.update(phase_long(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "25 seqpar"):
+        meas.update(phase_seqpar(torch, port, by_path))
     with timed(phase_s, "21 a-star"):
         meas.update(phase_astar(torch, port, by_path))
     torch.cuda.empty_cache()
@@ -4802,6 +5055,7 @@ def kernel_entries(meas, by_path):
             if k.startswith("wfa_fill_") and k.endswith("_err")],
         "wfa_walk": [meas["wfa_walk_err"]],
         "mm_rows": meas["mm_rows_errs"],
+        "seqpar_shard": [meas["seqpar_err"]],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -4845,6 +5099,14 @@ def kernel_entries(meas, by_path):
                     f"{LEN_MM_SHORT} bp escape, both sweeps, the launch "
                     "alone (its scratch allocated and zeroed before the "
                     "events)"),
+        "seqpar_shard": (
+            "seqpar", f"ms (mean of {N_RACE} calls of the wrapper: the "
+            f"{SEQPAR_SHARDS} launches and the wrapper's copies), bound: one "
+            f"{SEQPAR_LEN} x {SEQPAR_LEN} bp pair over {SEQPAR_SHARDS} "
+            "shards of one card, tile_lanes 4096; plain_ms, small_ms: 8 "
+            f"ragged pairs (queries <= {SEQPAR_RAGGED_Q} bp, dbs <= "
+            f"{SEQPAR_RAGGED_DB} bp) over 4 shards, tile_lanes 128; "
+            "tiled_ms: kernel #4 on the 200 kb pair"),
     }
     kernels = []
     for name, (_key, _fn, source, replaces, *_rest) in KERNELS.items():
@@ -4865,7 +5127,18 @@ def kernel_entries(meas, by_path):
             "library_ms": None,
             "timed_on": shape,
         }
-        if f"{key}_small_ms" in meas:
+        if name == "seqpar_shard":
+            entry.update(small_ms=meas["seqpar_small_ms"],
+                         call_ms=meas["seqpar_call_ms"],
+                         race_ms=meas["seqpar_race_ms"],
+                         tiled_ms=meas["seqpar_tiled_ms"],
+                         gcups=meas["seqpar_gcups"],
+                         pct_of_bound=meas["seqpar_pct_of_bound"],
+                         launch=meas["seqpar_shape"],
+                         align_s=meas["seqpar_align_s"],
+                         stall_raised_after_s=meas["seqpar_stall_s"],
+                         distinct_cards_ms=meas["seqpar_cards_ms"])
+        elif f"{key}_small_ms" in meas:
             entry["small_ms"] = meas[f"{key}_small_ms"]
             entry["rows_plain_ms"] = meas["rows_plain_ms"]
             entry["first_ms"] = meas[f"{key}_first_ms"]

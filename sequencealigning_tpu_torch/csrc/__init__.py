@@ -195,6 +195,10 @@ def kernels() -> ctypes.CDLL:
     lib.sa_tiled_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
     lib.sa_tiled_fold_fill.restype = _INT
     lib.sa_tiled_fold_fill.argtypes = [_VP] * 8 + [_INT] * 15 + [_VP]
+    lib.sa_tiled_shard_fill.restype = _INT
+    lib.sa_tiled_shard_fill.argtypes = [_VP] * 9 + [_INT] * 16 + [_VP]
+    lib.sa_enable_peer.restype = _INT
+    lib.sa_enable_peer.argtypes = [_INT, _INT]
     lib.sa_walk_fast4.restype = _INT
     lib.sa_walk_fast4.argtypes = [_VP] + [_INT] * 3 + [_VP] * 5 + [
         _INT, _INT] + [_VP] * 6
@@ -353,6 +357,8 @@ def host_check() -> ctypes.CDLL:
         _INT] * 3
     lib.hc_tiled_fill.restype = _INT
     lib.hc_tiled_fill.argtypes = [_VP] * 8 + [_INT] * 14
+    lib.hc_tiled_shard_fill.restype = _INT
+    lib.hc_tiled_shard_fill.argtypes = [_VP] * 9 + [_INT] * 15
     lib.hc_tile_dpx.restype = None
     lib.hc_tile_dpx.argtypes = [_VP] * 4 + [_INT]
     lib.hc_walk_fast4.restype = _INT

@@ -12,6 +12,8 @@
 // sa_stream_modes_fill_i16), sa_modes_fill, sa_gotoh_fill, sa_linear_fill,
 // sa_banded_fill, sa_banded_row_fill and sa_tiled_fill / sa_tiled_fold_fill
 // (their tile and strip schedules run serially, tickets in order),
+// sa_tiled_shard_fill (one launch a call, resumable, the launches of a mesh
+// called in turn),
 // sa_walk_fast4, sa_walk_modes and sa_walk_banded, sa_wfa_chunk and
 // sa_wfa_walk, sa_mm_rows (its strip tickets run serially, in order, each
 // strip's wavefront a step at a time), sa_mm_rows_plan and
@@ -1477,6 +1479,98 @@ typedef int (*HostStrips)(const int32_t*, const int32_t*, const int32_t*,
                           const int32_t*, int, int, int, int, int, int, int,
                           int, const sa::Scheme&);
 
+// One launch of the shard fill (nw_affine_tiled.cu, SHARD) run serially:
+// its items from ctr[0] on, in ticket order, each strip swept step by step
+// with its column from shard_strip_io (a whole column of the launch, or a
+// boundary buffer another launch writes) and its last lane published
+// there.  A strip whose boundary buffer is not complete yet (its producer
+// is in a launch that has not got so far) is not started: the call returns
+// 1 with ctr[0] at that ticket, to be called again once the other launches
+// have run further.  0 when every item ran; -4 for a wait inside a strip
+// that does not hold.
+template <bool COMPAT, bool WILDCARD>
+int shard_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
+               const int32_t* n2v, int32_t* finals, int32_t* col,
+               int32_t* ctr, const int32_t* items, const int64_t* bufs,
+               int B, int L1, int L2, int nitems, int nstrips, int W,
+               int seg_strips, int nseg, int R, const sa::Scheme& sc) {
+  constexpr int kSmWords = 8;
+  const int nrow = L1 + 1;
+  int32_t* prog = ctr + 2 + B * kSmWords;
+  int32_t* cons = prog + nstrips;
+  std::vector<sa::Cell> c(W), c0(W);
+  std::vector<int32_t> ds(W), qs(R), hs(R), os(R);
+  for (int ticket = ctr[0]; ticket < nitems; ++ticket) {
+    const sa::StripItem it = sa::strip_item(items, ticket);
+    const int32_t n1 = n1v[it.b];
+    const int32_t n2 = n2v[it.b];
+    const int x0 = it.s * W + 1;
+    const bool last = it.s == sa::strip_count(n2, W) - 1;
+    const int g_end = sa::strip_steps(n1, n2, x0, W, last);
+    const int gcap = n2 - x0 + n1;
+    const int32_t* q = query + static_cast<size_t>(it.b) * L1;
+    const sa::StripIO io =
+        sa::shard_strip_io(it, last, seg_strips, nseg, bufs, col, prog, nrow);
+    if (io.cin_peer && *io.cin_rows < n1 + 1) {
+      ctr[0] = ticket;
+      return 1;
+    }
+    for (int l = 0; l < W; ++l) {
+      c[l] = sa::cell_init();
+      const int x = x0 + l;
+      c[l].s2v = x <= n2 ? db[static_cast<size_t>(it.b) * L2 + x - 1] : 0;
+    }
+    for (int g = 0; g < g_end; ++g) {
+      const int gc = g & (R - 1);
+      if (gc == 0) {
+        if (io.cin != nullptr && g <= n1 &&
+            *io.cin_rows < sa::chunk_rows_needed(g, R, n1)) {
+          return -4;
+        }
+        for (int i = 0; i < R; ++i) {
+          sa::tile_stage_row(g + i, n1, L1, q, io.cin, COMPAT, sc, qs[i],
+                             hs[i], os[i]);
+        }
+        if (io.cin != nullptr) cons[it.gs] = sa::chunk_consumed(g, R);
+      }
+      for (int l = 0; l < W; ++l) ds[l] = sa::tile_dsel(c[l].M1, c[l].D1, sc);
+      c0 = c;  // the neighbours' state before the step
+      for (int l = W - 1; l >= 0; --l) {
+        const int32_t lH2 = l == 0 ? hs[gc] : c0[l - 1].H2;
+        const int32_t ldsel = l == 0 ? os[gc] : ds[l - 1];
+        const int32_t ls1d = l == 0 ? qs[gc] : c0[l - 1].s1d;
+        const bool eq = sa::tile_eq<WILDCARD>(ls1d, c[l].s2v, 0xfu);
+        c[l].H2 = c[l].H1;
+        c[l].H1 = sa::tile_cell<COMPAT>(eq, lH2, ldsel, l == g, x0 + l,
+                                        c[l].M1, c[l].I1, c[l].D1, sc);
+        c[l].s1d = ls1d;
+      }
+      if (last && g == gcap) {
+        const sa::Cell& cc = c[n2 - x0];
+        finals[static_cast<size_t>(it.b) * 3 + 0] = cc.M1;
+        finals[static_cast<size_t>(it.b) * 3 + 1] = cc.I1;
+        finals[static_cast<size_t>(it.b) * 3 + 2] = cc.D1;
+      }
+      if (io.cout != nullptr && g >= W - 1) {
+        const int y = g - W + 1;
+        const sa::Cell& e = c[W - 1];
+        io.cout[2 * y] = e.H1;
+        io.cout[2 * y + 1] = sa::add_max(e.M1, sc.gap_open, e.D1);
+        const int pub = sa::chunk_publish(y, R, n1);
+        if (pub >= 0) *io.cout_rows = pub;
+      }
+    }
+    if (io.cin != nullptr) cons[it.gs] = sa::kStripDone;
+    ctr[0] = ticket + 1;
+  }
+  return 0;
+}
+
+typedef int (*HostShard)(const int32_t*, const int32_t*, const int32_t*,
+                         const int32_t*, int32_t*, int32_t*, int32_t*,
+                         const int32_t*, const int64_t*, int, int, int, int,
+                         int, int, int, int, int, const sa::Scheme&);
+
 }  // namespace
 
 // sa_tiled_fill / sa_tiled_fold_fill run serially (their arguments minus
@@ -1507,6 +1601,40 @@ extern "C" int hc_tiled_fill(const int32_t* query, const int32_t* db,
   const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
   return fn(query, db, n1v, n2v, finals, col, ctr, items, B, L1, L2, nitems,
             nstrips, strip_lanes, chunk_rows, ring, sc);
+}
+
+// sa_tiled_shard_fill run serially (its arguments minus the grid size and
+// the stream): one device's launch, resumable -- 1 when it stopped before
+// a strip whose boundary buffer another launch has not completed (ctr[0]
+// holds that ticket; call again after the others), 0 when all its items
+// ran, -1 for an unsupported shape, -4 for a wait inside a strip that
+// would not hold.  A mesh's launches are run by calling each in turn until
+// all return 0.
+extern "C" int hc_tiled_shard_fill(const int32_t* query, const int32_t* db,
+                                   const int32_t* n1v, const int32_t* n2v,
+                                   int32_t* finals, int32_t* col,
+                                   int32_t* ctr, const int32_t* items,
+                                   const int64_t* bufs, int B, int L1,
+                                   int L2, int nitems, int nstrips,
+                                   int match, int mismatch, int gap_open,
+                                   int gap_extend, int compat, int wildcard,
+                                   int strip_lanes, int seg_strips, int nseg,
+                                   int chunk_rows) {
+  if (strip_lanes <= 0 || strip_lanes % 128 != 0 || strip_lanes > 4096 ||
+      chunk_rows < 2 || chunk_rows > 128 || (chunk_rows & (chunk_rows - 1)) ||
+      seg_strips < 1 || nseg < 1 || bufs == nullptr || B <= 0 || L1 <= 0 ||
+      L2 <= 0 || nitems <= 0) {
+    return -1;
+  }
+  HostShard fn;
+  if (compat) {
+    fn = wildcard ? shard_host<true, true> : shard_host<true, false>;
+  } else {
+    fn = wildcard ? shard_host<false, true> : shard_host<false, false>;
+  }
+  const sa::Scheme sc{match, mismatch, gap_open, gap_extend};
+  return fn(query, db, n1v, n2v, finals, col, ctr, items, bufs, B, L1, L2,
+            nitems, nstrips, strip_lanes, seg_strips, nseg, chunk_rows, sc);
 }
 
 // The tiled cell's DPX helpers as the host computes them: out[i] =

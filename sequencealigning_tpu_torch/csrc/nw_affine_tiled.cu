@@ -49,6 +49,18 @@
 // shift a step moves the query codes along), the H arrays of two steps
 // back and one step back swapping roles every step instead of being
 // copied, and the y = 0 check only in a strip's first W steps.
+//
+// The shard fill (sa_tiled_shard_fill) replaces the per-device shard of
+// parallel/seqpar.py::_jitted_seqpar (a lax.scan of _tile_step phases whose
+// last lane goes to the next device by ppermute every chunk): one pair's
+// db axis in segments of W lanes dealt round-robin to a mesh's devices,
+// one launch a device, all launches running at once.  The same strips,
+// cell and staging; a strip's column comes from a whole column (no ring,
+// so no wait on a reader), and the column between two segments from a
+// boundary buffer in the consumer's memory, published with system-scope
+// release stores that the consumer's acquire loads read -- the same
+// protocol whether the launches share one card or the producer writes
+// into another card's memory through peer access.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,26 +101,30 @@ __device__ __forceinline__ Counters counters(int32_t* ctr, int B,
 
 // Stages the R rows from step g of a strip's lane 0 in shared memory (the
 // query codes, and the carried column: the closed form for strip 0, else
-// the producer's ring slot cin), after thread 0 has waited for the
-// producer's rows and, when this strip will overwrite a ring slot (cout),
-// for the slot's last reader; then publishes what it has read.  Returns
-// false (for every thread) when a wait gave up.
-template <bool COMPAT>
+// io.cin), after thread 0 has waited for the producer's rows (io.cin_rows)
+// and, when kernel #4's strip will overwrite a ring slot, for the slot's
+// last reader; then publishes what it has read.  A shard launch (SHARD)
+// writes whole columns, never a ring slot, so it waits for its producers
+// only.  Returns false (for every thread) when a wait gave up.
+template <bool COMPAT, bool SHARD>
 __device__ __forceinline__ bool stage_chunk(
     int g, int R, int W, int32_t n1, int L1, const int32_t* q,
-    const int32_t* cin, const int32_t* cout, const sa::StripItem& it, int K,
+    const sa::StripIO& io, const sa::StripItem& it, int K,
     const Counters& ct, const sa::Scheme& sc, int32_t* qsm, int32_t* hsm,
     int32_t* osm, int* ok_sm) {
   const int j = threadIdx.x;
   __syncthreads();  // lane 0 has read the previous chunk
   if (j == 0) {
     bool ok = true;
-    if (cin != nullptr && g <= n1) {
-      ok = wait_at_least(ct.prog + it.gs - 1,
-                         sa::chunk_rows_needed(g, R, n1), ct.status);
+    if (io.cin != nullptr && g <= n1) {
+      const int rows = sa::chunk_rows_needed(g, R, n1);
+      ok = SHARD && io.cin_peer
+               ? wait_at_least<true>(io.cin_rows, rows, ct.status)
+               : wait_at_least(io.cin_rows, rows, ct.status);
     }
-    const int need =
-        cout != nullptr ? sa::ring_rows_needed(g, R, W, n1, it.s, K) : 0;
+    const int need = !SHARD && io.cout != nullptr
+                         ? sa::ring_rows_needed(g, R, W, n1, it.s, K)
+                         : 0;
     if (ok && need > 0) {
       ok = wait_at_least(ct.cons + it.gs - K + 1, need, ct.status);
     }
@@ -117,11 +133,11 @@ __device__ __forceinline__ bool stage_chunk(
   __syncthreads();
   if (!*ok_sm) return false;
   for (int i = j; i < R; i += blockDim.x) {
-    sa::tile_stage_row(g + i, n1, L1, q, cin, COMPAT, sc, qsm[i], hsm[i],
+    sa::tile_stage_row(g + i, n1, L1, q, io.cin, COMPAT, sc, qsm[i], hsm[i],
                        osm[i]);
   }
   __syncthreads();
-  if (j == 0 && cin != nullptr) {
+  if (j == 0 && io.cin != nullptr) {
     __threadfence();
     st_release(ct.cons + it.gs, sa::chunk_consumed(g, R));
   }
@@ -129,15 +145,23 @@ __device__ __forceinline__ bool stage_chunk(
 }
 
 // The strip's last lane (its new H, M, D) writes row y of the next strip's
-// column (H and max(M + o, D)), and publishes every R rows and at row n1.
+// column (H and max(M + o, D)), and publishes every R rows and at row n1:
+// at system scope where the column is a boundary buffer (peer).
+template <bool SHARD>
 __device__ __forceinline__ void produce_row(int32_t H, int32_t M, int32_t D,
                                             int y, int R, int32_t n1,
-                                            int32_t* cout, int32_t* prog,
-                                            const sa::Scheme& sc) {
+                                            int32_t* cout, int32_t* rows,
+                                            bool peer, const sa::Scheme& sc) {
   cout[2 * y] = H;
   cout[2 * y + 1] = sa::add_max(M, sc.gap_open, D);
   const int pub = sa::chunk_publish(y, R, n1);
-  if (pub >= 0) st_release(prog, pub);
+  if (pub >= 0) {
+    if (SHARD && peer) {
+      sa::st_release_sys(rows, pub);
+    } else {
+      st_release(rows, pub);
+    }
+  }
 }
 
 // A thread's LPT lanes from lane0: H two steps back and one step back (the
@@ -221,7 +245,12 @@ __device__ __forceinline__ void strip_step(
 // with n2 = 0 is left untouched); col: B * K ring slots of 2 * nrow int32
 // (nrow >= n1 + 1); ctr: the zeroed counters.  blockDim.x = W / LPT; R a
 // power of two, 2-128 (the steps go two at a time, H1 and H2 swapping).
-template <int LPT, bool COMPAT, bool WILDCARD>
+// SHARD (sa_tiled_shard_fill): the launch holds some segments of each
+// pair (nw_affine_tiled.cuh::shard_strip_io), col a whole column a strip
+// by gs, bufs the boundary buffers' addresses (seg_strips strips a
+// segment, nseg segments a pair in the table); finals receive the corners
+// of the pairs whose last strip this launch holds.
+template <int LPT, bool COMPAT, bool WILDCARD, bool SHARD>
 __global__ void __launch_bounds__(sa::kMaxThreads)
     strip_fill_kernel(const int32_t* __restrict__ query,
                       const int32_t* __restrict__ db,
@@ -230,7 +259,8 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
                       const int32_t* __restrict__ items, int nitems,
                       int32_t* finals, int32_t* col, int32_t* ctr, int B,
                       int L1, int L2, int nrow, int nstrips, int R, int K,
-                      sa::Scheme sc) {
+                      const int64_t* __restrict__ bufs, int seg_strips,
+                      int nseg, sa::Scheme sc) {
   static_assert(LPT * 4 <= 32, "a thread's query codes fill one register");
   __shared__ int32_t qsm[kMaxChunk];  // query code y - 1 of lane 0
   __shared__ int32_t hsm[kMaxChunk];  // boundary H(y - 1)
@@ -265,11 +295,20 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
     // The last strip ends at the corner's step, n2 - x0 + n1.
     const int g_end = sa::strip_steps(n1, n2, x0, W, last);
     const int32_t* q = query + static_cast<size_t>(it.b) * L1;
-    const int32_t* cin =
-        it.s > 0 ? col + sa::strip_slot(it.b, it.s - 1, K, nrow) : nullptr;
-    int32_t* cout =
-        last ? nullptr : col + sa::strip_slot(it.b, it.s, K, nrow);
-    int32_t* prog = ct.prog + it.gs;
+    sa::StripIO io;
+    if (SHARD) {
+      io = sa::shard_strip_io(it, last, seg_strips, nseg, bufs, col,
+                              ct.prog, nrow);
+    } else {
+      io.cin = it.s > 0 ? col + sa::strip_slot(it.b, it.s - 1, K, nrow)
+                        : nullptr;
+      io.cin_rows = ct.prog + it.gs - 1;
+      io.cin_peer = false;
+      io.cout = last ? nullptr : col + sa::strip_slot(it.b, it.s, K, nrow);
+      io.cout_rows = ct.prog + it.gs;
+      io.cout_peer = false;
+    }
+    int32_t* cout = io.cout;
     Lanes<LPT> L;
     L.q = 0;
     L.d = 0;
@@ -288,49 +327,56 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
     int g = 0;
     for (; g + 1 < g_ramp; g += 2) {
       const int gc = g & (R - 1);
-      if (gc == 0 && !stage_chunk<COMPAT>(g, R, W, n1, L1, q, cin, cout, it,
-                                          K, ct, sc, qsm, hsm, osm, &ok_sm)) {
+      if (gc == 0 && !stage_chunk<COMPAT, SHARD>(g, R, W, n1, L1, q, io, it,
+                                                 K, ct, sc, qsm, hsm, osm,
+                                                 &ok_sm)) {
         return;
       }
       strip_step<LPT, COMPAT, WILDCARD, true>(L.Ha, L, edge, lane0, g,
                                               gc, x0, qsm, hsm, osm, sc);
       if (edge_owner && cout != nullptr && g >= W - 1) {
-        produce_row(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g - W + 1,
-                    R, n1, cout, prog, sc);
+        produce_row<SHARD>(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1],
+                           g - W + 1, R, n1, cout, io.cout_rows,
+                           io.cout_peer, sc);
       }
       strip_step<LPT, COMPAT, WILDCARD, true>(L.Hb, L, edge, lane0,
                                               g + 1, gc + 1, x0, qsm, hsm,
                                               osm, sc);
       if (edge_owner && cout != nullptr && g + 1 >= W - 1) {
-        produce_row(L.Hb[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g + 2 - W,
-                    R, n1, cout, prog, sc);
+        produce_row<SHARD>(L.Hb[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1],
+                           g + 2 - W, R, n1, cout, io.cout_rows,
+                           io.cout_peer, sc);
       }
     }
     for (; g + 1 < g_end; g += 2) {
       const int gc = g & (R - 1);
-      if (gc == 0 && !stage_chunk<COMPAT>(g, R, W, n1, L1, q, cin, cout, it,
-                                          K, ct, sc, qsm, hsm, osm, &ok_sm)) {
+      if (gc == 0 && !stage_chunk<COMPAT, SHARD>(g, R, W, n1, L1, q, io, it,
+                                                 K, ct, sc, qsm, hsm, osm,
+                                                 &ok_sm)) {
         return;
       }
       strip_step<LPT, COMPAT, WILDCARD, false>(L.Ha, L, edge, lane0, g,
                                                gc, x0, qsm, hsm, osm, sc);
       if (edge_owner && cout != nullptr) {
-        produce_row(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g - W + 1,
-                    R, n1, cout, prog, sc);
+        produce_row<SHARD>(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1],
+                           g - W + 1, R, n1, cout, io.cout_rows,
+                           io.cout_peer, sc);
       }
       strip_step<LPT, COMPAT, WILDCARD, false>(L.Hb, L, edge, lane0,
                                                g + 1, gc + 1, x0, qsm, hsm,
                                                osm, sc);
       if (edge_owner && cout != nullptr) {
-        produce_row(L.Hb[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g + 2 - W,
-                    R, n1, cout, prog, sc);
+        produce_row<SHARD>(L.Hb[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1],
+                           g + 2 - W, R, n1, cout, io.cout_rows,
+                           io.cout_peer, sc);
       }
     }
     if (g < g_end) {
       // An odd step count: the last step alone, its H into Ha.
       const int gc = g & (R - 1);
-      if (gc == 0 && !stage_chunk<COMPAT>(g, R, W, n1, L1, q, cin, cout, it,
-                                          K, ct, sc, qsm, hsm, osm, &ok_sm)) {
+      if (gc == 0 && !stage_chunk<COMPAT, SHARD>(g, R, W, n1, L1, q, io, it,
+                                                 K, ct, sc, qsm, hsm, osm,
+                                                 &ok_sm)) {
         return;
       }
       if (g < W) {
@@ -342,8 +388,9 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
                                                  sc);
       }
       if (edge_owner && cout != nullptr && g >= W - 1) {
-        produce_row(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1], g - W + 1,
-                    R, n1, cout, prog, sc);
+        produce_row<SHARD>(L.Ha[LPT - 1], L.M1[LPT - 1], L.D1[LPT - 1],
+                           g - W + 1, R, n1, cout, io.cout_rows,
+                           io.cout_peer, sc);
       }
     }
     // The corner: the last strip's last step, at lane n2 - x0.
@@ -359,7 +406,9 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
         }
       }
     }
-    if (j == 0 && cin != nullptr) st_release(ct.cons + it.gs, sa::kStripDone);
+    if (j == 0 && io.cin != nullptr) {
+      st_release(ct.cons + it.gs, sa::kStripDone);
+    }
     __syncthreads();  // ticket_sm is rewritten next
   }
 }
@@ -367,40 +416,48 @@ __global__ void __launch_bounds__(sa::kMaxThreads)
 typedef void (*StripKernel)(const int32_t*, const int32_t*, const int32_t*,
                             const int32_t*, const int32_t*, int, int32_t*,
                             int32_t*, int32_t*, int, int, int, int, int, int,
-                            int, sa::Scheme);
+                            int, const int64_t*, int, int, sa::Scheme);
 
-template <int LPT>
+template <int LPT, bool SHARD>
 StripKernel pick(bool compat, bool wildcard) {
   if (compat) {
-    return wildcard ? strip_fill_kernel<LPT, true, true>
-                    : strip_fill_kernel<LPT, true, false>;
+    return wildcard ? strip_fill_kernel<LPT, true, true, SHARD>
+                    : strip_fill_kernel<LPT, true, false, SHARD>;
   }
-  return wildcard ? strip_fill_kernel<LPT, false, true>
-                  : strip_fill_kernel<LPT, false, false>;
+  return wildcard ? strip_fill_kernel<LPT, false, true, SHARD>
+                  : strip_fill_kernel<LPT, false, false, SHARD>;
 }
 
-// Lanes a thread for strips of W lanes: #4 takes 8 where W allows (a whole
-// number of warps), #5 always 4 (twice the threads for the few pairs it
-// takes).  0 for a width out of range.
-int strip_lpt(int W, bool fold) {
+// The launch's kind: kernel #4, kernel #5, or the shard fill (#4's strips
+// over one device's segments).
+enum Kind { kTiled = 0, kFold = 1, kShard = 2 };
+
+// Lanes a thread for strips of W lanes: #4 and the shard fill take 8 where
+// W allows (a whole number of warps), #5 always 4 (twice the threads for
+// the few pairs it takes).  0 for a width out of range.
+int strip_lpt(int W, int kind) {
   if (W <= 0 || W % 128 != 0 || W > kMaxStripLanes) return 0;
-  if (!fold && W % 256 == 0) return 8;
+  if (kind != kFold && W % 256 == 0) return 8;
   return W / 4 <= sa::kMaxThreads ? 4 : 0;
 }
 
-StripKernel strip_kernel(int lpt, bool compat, bool wildcard) {
+StripKernel strip_kernel(int lpt, int kind, bool compat, bool wildcard) {
+  const bool shard = kind == kShard;
   switch (lpt) {
     case 4:
-      return pick<4>(compat, wildcard);
+      return shard ? pick<4, true>(compat, wildcard)
+                   : pick<4, false>(compat, wildcard);
     case 8:
-      return pick<8>(compat, wildcard);
+      return shard ? pick<8, true>(compat, wildcard)
+                   : pick<8, false>(compat, wildcard);
   }
   return nullptr;
 }
 
-int resident_ctas(int W, bool fold, int compat, int wildcard) {
-  const int lpt = strip_lpt(W, fold);
-  const StripKernel fn = strip_kernel(lpt, compat != 0, wildcard != 0);
+int resident_ctas(int W, int kind, int compat, int wildcard) {
+  if (kind < kTiled || kind > kShard) return 0;
+  const int lpt = strip_lpt(W, kind);
+  const StripKernel fn = strip_kernel(lpt, kind, compat != 0, wildcard != 0);
   if (fn == nullptr) return 0;
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -415,23 +472,26 @@ int resident_ctas(int W, bool fold, int compat, int wildcard) {
   return per_sm * sms;
 }
 
-int launch(bool fold, const int32_t* query, const int32_t* db,
+int launch(int kind, const int32_t* query, const int32_t* db,
            const int32_t* n1v, const int32_t* n2v, int32_t* finals,
-           int32_t* col, int32_t* ctr, const int32_t* items, int B, int L1,
-           int L2, int nitems, int nstrips, int match, int mismatch,
-           int gap_open, int gap_extend, int compat, int wildcard, int W,
-           int R, int K, int ctas, void* stream) {
-  const int lpt = strip_lpt(W, fold);
-  const StripKernel fn = strip_kernel(lpt, compat != 0, wildcard != 0);
+           int32_t* col, int32_t* ctr, const int32_t* items,
+           const int64_t* bufs, int B, int L1, int L2, int nitems,
+           int nstrips, int match, int mismatch, int gap_open,
+           int gap_extend, int compat, int wildcard, int W, int R, int K,
+           int seg_strips, int nseg, int ctas, void* stream) {
+  const int lpt = strip_lpt(W, kind);
+  const StripKernel fn = strip_kernel(lpt, kind, compat != 0, wildcard != 0);
   if (fn == nullptr || B <= 0 || L1 <= 0 || L2 <= 0 || nitems <= 0 ||
-      R < 2 || R > kMaxChunk || (R & (R - 1)) != 0 || K < 2 || ctas < 1) {
+      R < 2 || R > kMaxChunk || (R & (R - 1)) != 0 || K < 2 || ctas < 1 ||
+      (kind == kShard && (bufs == nullptr || seg_strips < 1 || nseg < 1))) {
     return -1;
   }
   int nrow = L1 + 1;
   sa::Scheme sc{match, mismatch, gap_open, gap_extend};
-  void* args[] = {&query, &db,  &n1v,   &n2v,     &items, &nitems,
-                  &finals, &col, &ctr,  &B,       &L1,    &L2,
-                  &nrow,   &nstrips, &R, &K,      &sc};
+  void* args[] = {&query,  &db,      &n1v,  &n2v,   &items, &nitems,
+                  &finals, &col,     &ctr,  &B,     &L1,    &L2,
+                  &nrow,   &nstrips, &R,    &K,     &bufs,  &seg_strips,
+                  &nseg,   &sc};
   cudaLaunchKernel(reinterpret_cast<const void*>(fn), dim3(ctas),
                    dim3(W / lpt), args, 0,
                    static_cast<cudaStream_t>(stream));
@@ -441,11 +501,11 @@ int launch(bool fold, const int32_t* query, const int32_t* db,
 }  // namespace
 
 // CTAs of the strip kernel the card holds at once (occupancy x SMs) for
-// strips of strip_lanes lanes, #4's instance (fold 0) or #5's (fold 1); 0
-// for a width out of range.
-extern "C" int sa_tiled_resident_ctas(int strip_lanes, int fold, int compat,
+// strips of strip_lanes lanes: #4's instance (kind 0), #5's (kind 1) or
+// the shard fill's (kind 2); 0 for a width or kind out of range.
+extern "C" int sa_tiled_resident_ctas(int strip_lanes, int kind, int compat,
                                       int wildcard) {
-  return resident_ctas(strip_lanes, fold != 0, compat, wildcard);
+  return resident_ctas(strip_lanes, kind, compat, wildcard);
 }
 
 // Kernel #4: strips of strip_lanes lanes (a multiple of 128, at most 4096;
@@ -466,10 +526,10 @@ extern "C" int sa_tiled_fill(const int32_t* query, const int32_t* db,
                              int compat, int wildcard, int strip_lanes,
                              int chunk_rows, int ring, int ctas,
                              void* stream) {
-  return launch(false, query, db, n1v, n2v, finals, col, ctr, items, B, L1,
-                L2, nitems, nstrips, match, mismatch, gap_open, gap_extend,
-                compat, wildcard, strip_lanes, chunk_rows, ring, ctas,
-                stream);
+  return launch(kTiled, query, db, n1v, n2v, finals, col, ctr, items,
+                nullptr, B, L1, L2, nitems, nstrips, match, mismatch,
+                gap_open, gap_extend, compat, wildcard, strip_lanes,
+                chunk_rows, ring, 0, 0, ctas, stream);
 }
 
 // Kernel #5: the same for 1-4 pairs, 4 lanes a thread.
@@ -482,8 +542,56 @@ extern "C" int sa_tiled_fold_fill(const int32_t* query, const int32_t* db,
                                   int compat, int wildcard, int strip_lanes,
                                   int chunk_rows, int ring, int ctas,
                                   void* stream) {
-  return launch(true, query, db, n1v, n2v, finals, col, ctr, items, B, L1,
-                L2, nitems, nstrips, match, mismatch, gap_open, gap_extend,
-                compat, wildcard, strip_lanes, chunk_rows, ring, ctas,
-                stream);
+  return launch(kFold, query, db, n1v, n2v, finals, col, ctr, items, nullptr,
+                B, L1, L2, nitems, nstrips, match, mismatch, gap_open,
+                gap_extend, compat, wildcard, strip_lanes, chunk_rows, ring,
+                0, 0, ctas, stream);
+}
+
+// The shard fill (parallel/seqpar.py on a CUDA mesh): one device's launch
+// of kernel #4's strips over the segments it owns (seg_strips strips of
+// strip_lanes lanes a segment; segment k in launch k % D), every launch of
+// the mesh running at once.  As sa_tiled_fill, except: items (pair, strip,
+// gs) sorted segment-major, then strip-major, then by pair, gs numbering a
+// pair's strips of one segment consecutively; col nstrips whole columns of
+// 2 * (L1 + 1) int32; bufs (B * nseg) int64 addresses of the boundary
+// buffers entering each segment (nw_affine_tiled.cuh::shard_strip_io),
+// each on its consumer's card with its row count zeroed, the next
+// segment's written by this launch through peer access where it lies on
+// another card; finals: this device's corners (the host adds the
+// devices').  Every wait then points at a lower segment or an earlier
+// ticket of the same launch, so the launches cannot wait on each other in
+// a cycle.
+extern "C" int sa_tiled_shard_fill(const int32_t* query, const int32_t* db,
+                                   const int32_t* n1v, const int32_t* n2v,
+                                   int32_t* finals, int32_t* col,
+                                   int32_t* ctr, const int32_t* items,
+                                   const int64_t* bufs, int B, int L1,
+                                   int L2, int nitems, int nstrips,
+                                   int match, int mismatch, int gap_open,
+                                   int gap_extend, int compat, int wildcard,
+                                   int strip_lanes, int seg_strips, int nseg,
+                                   int chunk_rows, int ctas, void* stream) {
+  return launch(kShard, query, db, n1v, n2v, finals, col, ctr, items, bufs,
+                B, L1, L2, nitems, nstrips, match, mismatch, gap_open,
+                gap_extend, compat, wildcard, strip_lanes, chunk_rows, 2,
+                seg_strips, nseg, ctas, stream);
+}
+
+// Lets kernels on card `dev` write into card `peer`'s memory (the shard
+// fill's boundary buffers); the current card is restored.  0 when access
+// is on (also when it was already), else the CUDA error.
+extern "C" int sa_enable_peer(int dev, int peer) {
+  int prev = 0;
+  if (cudaGetDevice(&prev) != cudaSuccess) return -1;
+  cudaError_t rc = cudaSetDevice(dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceEnablePeerAccess(peer, 0);
+    if (rc == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      rc = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return static_cast<int>(rc);
 }

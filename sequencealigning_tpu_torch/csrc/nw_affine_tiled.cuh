@@ -193,6 +193,80 @@ SA_HD int ring_rows_needed(int g, int R, int W, int32_t n1, int s, int K) {
   return y_hi >= 0 ? y_hi + 2 : 0;
 }
 
+// ---------------------------------------------------------------------------
+// The shard schedule (sa_tiled_shard_fill: one pair's db axis over several
+// launches, one a device of a mesh)
+// ---------------------------------------------------------------------------
+
+// A pair's db axis is cut into segments of seg_strips strips (a segment is
+// the W lanes a device owns in one round of parallel/seqpar.py); segment k
+// runs in launch k % D, so a launch holds segments d, d + D, d + 2D, ...
+// of every pair.  A strip's carried column comes from the previous strip:
+// inside a segment through a whole column in the launch's own memory (by
+// the strip's index gs in the launch's counters, the producer's at gs - 1),
+// across segments through a boundary buffer in the consumer's memory,
+// which the producer (another launch, perhaps on another card) writes.
+// A boundary buffer is kShardHead int32 -- [0] the rows published, the
+// rest padding -- and then the column's 2 * nrow int32.  bufs: (B * nseg)
+// addresses, the buffer entering segment k of pair b at b * nseg + k (0
+// for k = 0, whose column is the closed form).
+constexpr int kShardHead = 32;
+
+// Where a strip's lane 0 reads its column and where its last lane writes
+// the next one: the column (nullptr: the closed form, resp. no next strip)
+// and the word counting its published rows, and whether that word lies in
+// a boundary buffer (written across launches) or in the launch's counters.
+struct StripIO {
+  const int32_t* cin;
+  const int32_t* cin_rows;
+  bool cin_peer;
+  int32_t* cout;
+  int32_t* cout_rows;
+  bool cout_peer;
+};
+
+SA_HD int32_t* shard_buf(const int64_t* bufs, int b, int k, int nseg) {
+  return reinterpret_cast<int32_t*>(
+      static_cast<uintptr_t>(bufs[static_cast<size_t>(b) * nseg + k]));
+}
+
+// The strip's column hand-over in a shard launch: col holds a whole column
+// (2 * nrow int32) per strip of the launch, by gs; prog the launch's
+// published-row counts, by gs.  last: the pair's last strip.
+SA_HD StripIO shard_strip_io(const StripItem& it, bool last, int seg_strips,
+                             int nseg, const int64_t* bufs, int32_t* col,
+                             int32_t* prog, int nrow) {
+  StripIO io;
+  const int k = it.s / seg_strips;
+  const int j = it.s - k * seg_strips;
+  const size_t span = 2 * static_cast<size_t>(nrow);
+  io.cin = nullptr;
+  io.cin_rows = nullptr;
+  io.cin_peer = false;
+  if (it.s > 0 && j == 0) {
+    int32_t* buf = shard_buf(bufs, it.b, k, nseg);
+    io.cin = buf + kShardHead;
+    io.cin_rows = buf;
+    io.cin_peer = true;
+  } else if (it.s > 0) {
+    io.cin = col + (it.gs - 1) * span;
+    io.cin_rows = prog + it.gs - 1;
+  }
+  io.cout = nullptr;
+  io.cout_rows = nullptr;
+  io.cout_peer = false;
+  if (!last && j == seg_strips - 1) {
+    int32_t* buf = shard_buf(bufs, it.b, k + 1, nseg);
+    io.cout = buf + kShardHead;
+    io.cout_rows = buf;
+    io.cout_peer = true;
+  } else if (!last) {
+    io.cout = col + it.gs * span;
+    io.cout_rows = prog + it.gs;
+  }
+  return io;
+}
+
 }  // namespace sa
 
 #if defined(__CUDACC__)
@@ -223,14 +297,37 @@ __device__ __forceinline__ void st_release(int32_t* p, int32_t v) {
                : "memory");
 }
 
+// The same at system scope, for a count another launch reads -- perhaps
+// on another card, writing into this card's memory through peer access
+// (the shard fill's boundary buffers).
+__device__ __forceinline__ int32_t ld_acquire_sys(const int32_t* p) {
+  int32_t v;
+  asm volatile("ld.acquire.sys.b32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_sys(int32_t* p, int32_t v) {
+  asm volatile("st.release.sys.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+template <bool SYS>
+__device__ __forceinline__ int32_t ld_acquire_at(const int32_t* p) {
+  return SYS ? ld_acquire_sys(p) : ld_acquire(p);
+}
+
 // Waits until *p >= target, sleeping sleep_ns between polls.  False when
 // the launch's status is set, or the value stalls for kSpinLimit polls
-// (then this wait sets it).
+// (then this wait sets it).  SYS: *p is written by another launch.
+template <bool SYS = false>
 __device__ __forceinline__ bool wait_at_least(const int32_t* p,
                                               int32_t target,
                                               int32_t* status,
                                               unsigned sleep_ns = 256) {
-  int32_t last = ld_acquire(p);
+  int32_t last = ld_acquire_at<SYS>(p);
   unsigned stall = 0;
   while (last < target) {
     if (*reinterpret_cast<volatile int32_t*>(status) != 0) return false;
@@ -239,7 +336,7 @@ __device__ __forceinline__ bool wait_at_least(const int32_t* p,
       return false;
     }
     __nanosleep(sleep_ns);
-    const int32_t v = ld_acquire(p);
+    const int32_t v = ld_acquire_at<SYS>(p);
     if (v != last) {
       last = v;
       stall = 0;

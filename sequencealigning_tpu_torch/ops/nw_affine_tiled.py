@@ -30,7 +30,12 @@ Implementations, chosen by the tensors' device:
 * ``tiled_fill_cuda`` -- kernel #4 (``csrc/nw_affine_tiled.cu``,
   sa_tiled_fill), replacing the TPU's _tile_kernel;
 * ``tiled_fold_fill_cuda`` -- kernel #5 (sa_tiled_fold_fill), replacing the
-  TPU's _folded_kernel for 1-4 pairs.
+  TPU's _folded_kernel for 1-4 pairs;
+* ``shard_fill_torch`` / ``tiled_shard_fill_cuda`` -- one pair's db axis
+  over a mesh's devices (parallel/seqpar.py): the plain twin of
+  parallel/seqpar.py::_jitted_seqpar's rounds (tile by tile, the column
+  moved to the next device), and the shard fill (sa_tiled_shard_fill),
+  kernel #4's strips over each device's segments, one launch a device.
 
 Both CUDA kernels are one strip pipeline.  On the TPU a tile is a (rows,
 lanes) block swept by one core, and the folded kernel folds a pair over
@@ -46,6 +51,19 @@ CTAs (``strip_plan``), so every wait is on an earlier ticket held by a
 running CTA; a wait that stalls past the kernels' spin limit makes the
 wrapper raise.  The cell uses Hopper's DPX instructions.  The two entries
 differ only in their CTAs: #4 8 lanes a thread, #5 4.
+
+The shard fill runs kernel #4's strips with the segments of a mesh's
+devices: a pair's db axis in segments of ``seg_lanes`` lanes (the lanes a
+device owns a round in the JAX package's seqpar), segment k on device
+k % D, each segment in strips of ``shard_strip_lanes``.  All D launches run
+at once, on the same card (each on its own stream, sharing its CTAs) or on
+distinct cards with peer access.  Inside a segment a strip hands its
+column to the next through a whole column of its launch; between segments
+through a boundary buffer on the consumer's card, with a row count the
+producer publishes at system scope.  The work items go segment-major
+(``shard_schedule``), so a wait points at a lower segment or an earlier
+ticket of the same launch and the launches cannot wait on each other in a
+cycle.
 """
 from __future__ import annotations
 
@@ -633,6 +651,286 @@ def tiled_fold_fill_cuda(query, db, n1v, n2v, scheme: ScoringScheme,
 
 tiled_fold_fill_cuda.launches = 0
 tiled_fold_fill_cuda.last_launch = None
+
+
+# ---------------------------------------------------------------------------
+# The shard fill: one pair's db axis over a mesh's devices
+# ---------------------------------------------------------------------------
+
+# int32 words before a boundary buffer's column: [0] the rows published
+# (nw_affine_tiled.cuh::kShardHead).
+SHARD_HEAD = 32
+
+
+def seqpar_lanes(L2: int, n_dev: int, tile_lanes: int) -> int:
+    """Lanes a device owns in one round: the JAX package's rule
+    (parallel/seqpar.py:254), round_up(min(tile_lanes, max(ceil(L2 / D),
+    128)), 128)."""
+    return _round_up(min(tile_lanes, max(-(-L2 // n_dev), 128)), 128)
+
+
+def shard_strip_lanes(seg_lanes: int) -> int:
+    """The shard fill's strips inside a segment of seg_lanes lanes (a
+    multiple of 128): the widest of 1024, 512, 256 and 128 lanes that
+    divides it."""
+    return next(w for w in (1024, 512, 256, 128) if seg_lanes % w == 0)
+
+
+def shard_schedule(n2s, n_dev: int, seg_lanes: int, strip_lanes: int):
+    """The shard fill's work items for db lengths n2s over n_dev launches:
+    (items, strips, nseg).  Pair b's db axis is cut into strips of
+    strip_lanes lanes (strips[b] of them), seg_lanes // strip_lanes strips
+    a segment, segment k in launch k % n_dev; nseg: segments of the longest
+    pair (the boundary table's stride).  items[d]: launch d's (pair b,
+    strip s, gs) int32 rows in ticket order -- segment-major, then by strip
+    within the segment, then by pair -- gs the strip's index in the
+    launch's counters and columns, a pair's strips of one segment
+    consecutive."""
+    S = seg_lanes // strip_lanes
+    n2s = np.asarray(n2s, np.int64)
+    strips = np.where(n2s > 0, -(-n2s // strip_lanes), 0)
+    nseg = max(1, int(-(-int(strips.max(initial=0)) // S)))
+    items = []
+    for d in range(n_dev):
+        rows = []
+        for b, nst in enumerate(strips):
+            for k in range(d, -(-int(nst) // S), n_dev):
+                for j in range(min(S, int(nst) - k * S)):
+                    rows.append((k, j, b, k * S + j, len(rows)))
+        rows.sort()
+        items.append(np.asarray([r[2:] for r in rows],
+                                np.int32).reshape(-1, 3))
+    return items, strips, nseg
+
+
+def shard_boundaries(strips, seg_strips: int, n_dev: int):
+    """The boundary buffers a mesh's launches hold: per launch d the (pair
+    b, segment k) whose column enters segment k >= 1 of pair b, k % n_dev ==
+    d (the consumer's launch), in order."""
+    out = [[] for _ in range(n_dev)]
+    for b, nst in enumerate(strips):
+        for k in range(1, -(-int(nst) // seg_strips)):
+            out[k % n_dev].append((b, k))
+    return out
+
+
+def check_peer_access(devices, nseg: int, can_access=None):
+    """The (producer, consumer) cards whose boundary buffers cross cards
+    (segment k - 1's launch writes into segment k's, for k < nseg; two
+    launches of one card need nothing), after checking that each producer
+    can write into its consumer's memory (can_access(a, b), by default
+    torch.cuda.can_device_access_peer).  Raises RuntimeError naming the
+    two cards otherwise: the column is never staged through the host."""
+    if can_access is None:
+        can_access = torch.cuda.can_device_access_peer
+    D = len(devices)
+    pairs = []
+    for k in range(1, nseg):
+        a, b = devices[(k - 1) % D], devices[k % D]
+        if a == b or (a, b) in pairs:
+            continue
+        if not can_access(a, b):
+            raise RuntimeError(
+                f"seqpar: {a} cannot write into {b}'s memory (no peer "
+                "access); the shard fill hands its column from card to card "
+                "through peer access only")
+        pairs.append((a, b))
+    return pairs
+
+
+def shard_buffers(strips, seg_strips: int, nseg: int, devices, nrow: int):
+    """Each launch's boundary buffers, zeroed, on its device (None where it
+    holds none), and the (B * nseg) int64 table of their addresses (0 for
+    segment 0's entry, the closed form)."""
+    table = np.zeros(len(strips) * nseg, np.int64)
+    words = SHARD_HEAD + 2 * nrow
+    bufs = []
+    for dev, held in zip(devices, shard_boundaries(strips, seg_strips,
+                                                   len(devices))):
+        if not held:
+            bufs.append(None)
+            continue
+        t = torch.zeros(len(held) * words, dtype=torch.int32, device=dev)
+        for i, (b, k) in enumerate(held):
+            table[b * nseg + k] = t.data_ptr() + 4 * i * words
+        bufs.append(t)
+    return bufs, table
+
+
+def shard_fill_torch(query, db, n1v, n2v, devices, seg_lanes: int,
+                     chunk: int, scheme: ScoringScheme, compat: bool,
+                     wildcard: bool) -> torch.Tensor:
+    """Plain PyTorch twin of parallel/seqpar.py::_jitted_seqpar's rounds
+    with the phases collapsed: round r, device d fills segment k = r * D +
+    d (lanes k * W + 1 .. k * W + W, W = seg_lanes) as one tile of
+    tile_fill_torch on devices[d], ngc = round_up(L1 + 1, chunk) + W steps,
+    and its last lane's column (_next_column) moves to devices[(d + 1) %
+    D] (segments past every pair's db are skipped: they hold no corner).
+    query: (B, L1), db: (B, L2) int32 codes; n1v/n2v: (B,) int32, on
+    devices[0].  Returns the (B, 3) int32 corner finals on devices[0]
+    (each pair's corner from the one segment that holds lane n2; the
+    n2 = 0 corners in closed form)."""
+    D = len(devices)
+    W = seg_lanes
+    B, L1 = query.shape
+    L2 = db.shape[1]
+    home = query.device
+    n_rounds = max(1, -(-L2 // (D * W)))
+    ngc = _round_up(L1 + 1, chunk) + W
+    d_all = torch.zeros((B, n_rounds * D * W), dtype=torch.int32,
+                        device=home)
+    d_all[:, :L2] = db
+    qs = _query_steps(query, ngc)
+    col = tuple(t.to(devices[0]) for t in _boundary0(B, ngc, scheme, compat,
+                                                      home))
+    finals = torch.zeros((B, 3), dtype=torch.int32, device=home)
+    # Segments past every pair's last lane hold no corner and feed none.
+    n2_max = int(n2v.max()) if B else 0
+    for r in range(n_rounds):
+        for d, dev in enumerate(devices):
+            k = r * D + d
+            if k * W >= n2_max:
+                break
+            f, brm, brd, brh = tile_fill_torch(
+                d_all[:, k * W:(k + 1) * W].to(dev), qs.to(dev), *col,
+                n1v.to(dev), n2v.to(dev), k * W + 1, ngc, scheme, compat,
+                wildcard)
+            finals += f.to(home)
+            nxt = devices[(d + 1) % D]
+            col = tuple(t.to(nxt) for t in _next_column(brm, brd, brh, W,
+                                                         ngc))
+    return _empty_db_corners(finals, n1v, n2v, scheme, compat)
+
+
+def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
+                          scheme: ScoringScheme, compat: bool,
+                          wildcard: bool, chunk_rows: int = 0
+                          ) -> torch.Tensor:
+    """The shard fill (csrc/nw_affine_tiled.cu, sa_tiled_shard_fill) over
+    the CUDA devices of a mesh, one launch a device, all at once: the same
+    finals as shard_fill_torch.  query/db/n1v/n2v on devices[0], copied to
+    the others; segments of seg_lanes lanes (a multiple of 128) in strips
+    of shard_strip_lanes(seg_lanes), the column staged and published every
+    chunk_rows rows (default 128).  Each launch runs on a
+    stream of its own that waits for its device's current stream, which
+    then waits for it.  A device named several times shares its card's
+    resident CTAs among its launches, so they are all resident together;
+    distinct consecutive cards need peer access (check_peer_access).  The
+    devices' finals are added on the host (the psum of the JAX package).
+    Raises on a CPU device, a width out of range, a failed launch, or a
+    wait that stalled (naming the shards).  Each launch adds one to
+    ``tiled_shard_fill_cuda.launches``; the launches' shapes are left in
+    ``last_launch``."""
+    _check_fill_args(query, db, n1v, n2v)
+    devices = [torch.device(d) for d in devices]
+    if not devices or any(d.type != "cuda" for d in devices) or not all(
+            t.is_cuda for t in (query, db, n1v, n2v)):
+        raise ValueError("sa_tiled_shard_fill needs CUDA devices and tensors")
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               if d.index is None else d for d in devices]
+    if not all(t.is_contiguous() for t in (query, db, n1v, n2v)):
+        raise ValueError("shard fill inputs must be contiguous")
+    if seg_lanes <= 0 or seg_lanes % 128:
+        raise ValueError(f"segments of {seg_lanes} lanes: not a positive "
+                         "multiple of 128")
+    W = shard_strip_lanes(seg_lanes)
+    R = chunk_rows or CHUNK_ROWS
+    if not 2 <= R <= CHUNK_ROWS or R & (R - 1):
+        raise ValueError(f"chunk rows {R}: not a power of two in 2.."
+                         f"{CHUNK_ROWS}")
+    B, L1 = query.shape
+    nrow = L1 + 1
+    S = seg_lanes // W
+    D = len(devices)
+    items, strips, nseg = shard_schedule(n2v.cpu().numpy(), D, seg_lanes, W)
+    shape = dict(seg_lanes=seg_lanes, strip_lanes=W, seg_strips=S,
+                 chunk_rows=R, lanes_per_thread=8 if W % 256 == 0 else 4,
+                 shards=D, segments=nseg, strips=[len(i) for i in items],
+                 ctas=[0] * D, resident=[0] * D, sms=[0] * D, peers=[])
+    finals = torch.zeros((B, 3), dtype=torch.int32, device=query.device)
+    tiled_shard_fill_cuda.last_launch = shape
+    if not strips.sum():
+        return _empty_db_corners(finals, n1v, n2v, scheme, compat)
+    lib = csrc.kernels()
+    pairs = check_peer_access(devices, nseg)
+    for a, b in pairs:
+        rc = lib.sa_enable_peer(a.index, b.index)
+        if rc != 0:
+            raise RuntimeError(f"seqpar: enabling {a}'s access to {b} "
+                               f"failed (error {rc})")
+    shape["peers"] = [f"{a}->{b}" for a, b in pairs]
+    # bufs holds the boundary buffers (the table only their addresses)
+    # until the launches are joined.
+    bufs, table = shard_buffers(strips, S, nseg, devices, nrow)  # noqa: F841
+    uses = {d: devices.count(d) for d in devices}
+    head = 2 + _SM_WORDS * B
+    ins, resident_on, runs = {}, {}, []
+    try:
+        for d, dev in enumerate(devices):
+            if len(items[d]) == 0:
+                continue
+            if dev not in ins:
+                ins[dev] = [t.to(dev) for t in (query, db, n1v, n2v)] + [
+                    torch.from_numpy(table).to(dev)]
+                with torch.cuda.device(dev):
+                    resident_on[dev] = lib.sa_tiled_resident_ctas(
+                        W, 2, int(compat), int(wildcard))
+            resident = shape["resident"][d] = resident_on[dev]
+            if resident < uses[dev]:
+                raise RuntimeError(
+                    f"sa_tiled_shard_fill: {resident} resident CTAs of {W} "
+                    f"lanes on {dev} for {uses[dev]} shards")
+            n = len(items[d])
+            ctas = shape["ctas"][d] = max(1, min(n, resident // uses[dev]))
+            run = dict(dev=dev, shard=d,
+                       fin=torch.zeros((B, 3), dtype=torch.int32, device=dev),
+                       col=torch.empty(n * 2 * nrow, dtype=torch.int32,
+                                       device=dev),
+                       ctr=torch.zeros(head + 2 * n, dtype=torch.int32,
+                                       device=dev),
+                       items=torch.from_numpy(items[d]).to(dev),
+                       stream=torch.cuda.Stream(device=dev))
+            run["stream"].wait_stream(torch.cuda.current_stream(dev))
+            q, dbd, n1d, n2d, tab = ins[dev]
+            with torch.cuda.device(dev):
+                rc = lib.sa_tiled_shard_fill(
+                    q.data_ptr(), dbd.data_ptr(), n1d.data_ptr(),
+                    n2d.data_ptr(), run["fin"].data_ptr(),
+                    run["col"].data_ptr(), run["ctr"].data_ptr(),
+                    run["items"].data_ptr(), tab.data_ptr(), B, L1,
+                    db.shape[1], n, n, scheme.match_, scheme.mismatch,
+                    scheme.gap_open, scheme.gap_extend, int(compat),
+                    int(wildcard), W, S, nseg, R, ctas,
+                    run["stream"].cuda_stream)
+            if rc != 0:
+                raise csrc.launch_error("sa_tiled_shard_fill", rc)
+            tiled_shard_fill_cuda.launches += 1
+            runs.append(run)
+    finally:
+        # The buffers are freed on the current streams: they wait for
+        # every launch made, also when a later one failed.
+        for run in runs:
+            torch.cuda.current_stream(run["dev"]).wait_stream(run["stream"])
+    stalled = []
+    total = np.zeros((B, 3), np.int64)
+    for run in runs:
+        got = run["ctr"][:head].cpu().numpy()
+        if got[1] != 0:
+            stalled.append(run["shard"])
+        masks = got[2:].view(np.uint32).reshape(B, _SM_WORDS)
+        shape["sms"][run["shard"]] = int(
+            _popcounts(np.bitwise_or.reduce(masks, 0)))
+        total += run["fin"].cpu().numpy()
+    if stalled:
+        raise RuntimeError(
+            f"sa_tiled_shard_fill: shard(s) {stalled} of {D} waited on a "
+            "neighbour past the spin limit; the finals are incomplete")
+    finals.copy_(torch.from_numpy(total.astype(np.int32)))
+    return _empty_db_corners(finals, n1v, n2v, scheme, compat)
+
+
+tiled_shard_fill_cuda.launches = 0
+tiled_shard_fill_cuda.last_launch = None
 
 
 def _on_device(tensor, cuda_fn, torch_fn):
