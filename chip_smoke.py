@@ -317,6 +317,15 @@ N_WFA_COMPAT, LEN_WFA_COMPAT = 8, 1000
 # plain loops over all 4096 pairs take ~10 s each); the textbook local
 # aligner with stream_state "i16" over N_I16_LOCAL of them.
 N_I16_PLAIN, N_I16_LOCAL = 512, 1024
+# The int16 state's certification edge: the longest pair the default scheme
+# certifies (ops.nw_affine_stream.stream_i16_neg bounds the plan's padded
+# lengths at 2722; stream_inputs pads to 128 lanes, so 2688 bp is the
+# longest pair that certifies), N_I16_EDGE of them, and
+# a steep scheme that certifies 200-256 bp queries against 1-4 bp dbs with
+# 20 to spare (the sentinel minus its dip): the floored chains of the cells
+# outside the pairs then sit beside real cells in the same words.
+N_I16_EDGE, LEN_I16_EDGE = 2, 2688
+I16_STEEP = (5, -60, -100, -84)
 # The compat check's step cap (config.wfa_max_steps): the reference's WFA
 # converges on none of these pairs (its len-1 convergence quirk), and the
 # Python oracle takes ~12 s a pair to reach the default 20000 steps.
@@ -4441,6 +4450,73 @@ def i16_timed(torch, launch):
     return (t16a + t16b) / 2, (t32a + t32b) / 2
 
 
+def i16_edge_checks(torch, fill, smodes, to_device, pack_batch,
+                    trim_for_stream, ScoringScheme):
+    """The int16 instances at the certification's edge: N_I16_EDGE pairs
+    of LEN_I16_EDGE bp under the default scheme (certified; one base
+    longer is not) and the steep scheme I16_STEEP over short queries
+    (certified with 20 to spare), each kind -- global fast4 and full, local
+    and semi full -- against its int16 plain version (every value and
+    direction word) and the int32 kernel (scores and finite finals, argmax
+    planes).  Returns the errors and the cases' descriptions."""
+    I16 = torch.int16
+    rng = np.random.default_rng(LEN_I16_EDGE)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    steep = [(rng.choice(alpha, int(rng.integers(200, 257))).tobytes(),
+              rng.choice(alpha, int(rng.integers(1, 5))).tobytes())
+             for _ in range(12)]
+    steep += [(b"A" * 256, b"T" * 4), (b"C" * 256, b"G")]
+    cases = (("default scheme", make_pairs(rng, N_I16_EDGE, LEN_I16_EDGE),
+              ScoringScheme()),
+             ("steep scheme", steep, ScoringScheme(*I16_STEEP)))
+    res = {"global": [], "modes": [], "cases": []}
+    for label, prs, sc in cases:
+        batch = pack_batch(prs, batch_size=len(prs))
+        n = len(prs)
+        for kind in ("fast4", "full", "local", "semi"):
+            modes_kind = kind in ("local", "semi")
+            tb = to_device(batch if modes_kind else trim_for_stream(batch),
+                           "cuda")
+            plan, ins = fill.stream_inputs(*tb, np_slots=2 if n > 2 else 1)
+            neg = fill.stream_i16_neg(sc, plan)
+            check(neg is not None, f"{label} is not certified for int16")
+            if modes_kind:
+                a = (plan, sc, False, kind, True)
+                (bk, ek), dk = smodes.gotoh_fill_stream_modes_cuda(
+                    *ins, *a, state_dtype=I16)
+                (b32, e32), _ = smodes.gotoh_fill_stream_modes_cuda(*ins, *a)
+                (bp, ep), dp = smodes.gotoh_fill_stream_modes_torch(
+                    *ins, *a, state_dtype=I16)
+                fill.check_stream_stalls(wait=True)
+                res["modes"].append(i16_check(
+                    torch, (bk, ek), dk, (bp, ep), dp,
+                    f"edge {label} {kind}", True))
+                check(bool(torch.equal(bk, b32) and torch.equal(ek, e32)),
+                      f"int16 {kind} argmax planes != int32's ({label})")
+                continue
+            a = (plan, sc, True, False, kind)
+            fk, dk = fill.gotoh_fill_stream_cuda(*ins, *a, state_dtype=I16)
+            f32, _ = fill.gotoh_fill_stream_cuda(*ins, *a)
+            fp, dp = fill.gotoh_fill_stream_torch(*ins, *a, state_dtype=I16)
+            fill.check_stream_stalls(wait=True)
+            res["global"].append(i16_check(torch, (fk,), dk, (fp,), dp,
+                                           f"edge {label} {kind}", kind))
+            a16, a32 = fk[:n], f32[:n]
+            finite = a32 > -32768
+            check(bool(torch.equal(a16.max(1).values, a32.max(1).values)
+                       and torch.equal(a16[finite], a32[finite])),
+                  f"int16 {kind} finals != int32's ({label})")
+        res["cases"].append(
+            f"{label}: {n} pairs, l1 {plan.l1} / l2 {plan.l2}, sentinel "
+            f"{neg}")
+    longer = pack_batch([(b"A" * (LEN_I16_EDGE + 1),
+                          b"A" * (LEN_I16_EDGE + 1))], batch_size=1)
+    check(fill.stream_i16_neg(ScoringScheme(), fill.stream_inputs(
+        *to_device(longer, "cuda"))[0]) is None,
+          f"a {LEN_I16_EDGE + 1} bp pair certifies for int16")
+    return res
+
+
 def phase_int16(torch, port, pairs, main_res, instances, by_path, out_dir):
     """Kernels #1 and #2's int16 instances (two lanes a 32-bit word):
     against their int16 plain versions and the int32 kernels, timed, and
@@ -4513,7 +4589,17 @@ def phase_int16(torch, port, pairs, main_res, instances, by_path, out_dir):
     fill.check_stream_stalls(wait=True)
     gerrs.append(i16_check(torch, (fk,), dk, (fp,), dp, "4-CTA split",
                            "fast4"))
-    log(f"[24 int16] ragged: {len(gerrs) - 1} global and {len(merrs)} modes "
+    edge = i16_edge_checks(torch, fill, smodes, to_device, pack_batch,
+                           trim_for_stream, ScoringScheme)
+    gerrs += edge["global"]
+    merrs += edge["modes"]
+    out["i16_edge"] = edge["cases"]
+    log(f"[24 int16] certification edge: {'; '.join(edge['cases'])}: "
+        "finals, argmax planes and whole dirs tensors equal to the int16 "
+        "plain versions, scores and finite finals and argmax planes equal "
+        "to the int32 kernels'")
+    log(f"[24 int16] ragged: {len(gerrs) - 1 - len(edge['global'])} global "
+        f"and {len(merrs) - len(edge['modes'])} modes "
         "fills (lanes a thread 2/4/16 and the default, chunks 1, 7 and the "
         f"default), and 256 x {LEN_MAIN} bp over 4 CTAs of 512 lanes: finals, "
         "argmax planes and whole dirs tensors equal to the int16 plain "

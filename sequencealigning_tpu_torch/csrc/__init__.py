@@ -338,6 +338,8 @@ def host_check() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [_VP] * 7 + [_INT] * 18
     lib.hc_h2_dpx.restype = None
     lib.hc_h2_dpx.argtypes = [_VP] * 4 + [_INT]
+    lib.hc_h2_codes.restype = None
+    lib.hc_h2_codes.argtypes = [_VP] * 8 + [_INT]
     lib.hc_pair_plan.restype = _INT
     lib.hc_pair_plan.argtypes = [_INT] * 6 + [_VP]
     lib.hc_modes_fill.restype = _INT

@@ -227,6 +227,10 @@ int stream_ring_host(const int32_t* qstream, const int32_t* dstream,
 // (stream_cell16.cuh::ring_word16), right to left; a warp's first word
 // takes its low lane's left neighbour from the ring entry, whose H2 and
 // merged D source share one word (h2_his), as the kernel hands them over.
+// As the kernel, each word's fast4 codes go into its pair's accumulator
+// (push_code2), the first half of a direction word's steps set aside and
+// the two lanes' words split out at its end (split_codes); full codes go
+// into the lanes' words (push_full2).
 template <int DIRS, int MODE, bool COMPAT, bool WILDCARD>
 int stream_ring_host16(const int32_t* qstream, const int32_t* dstream,
                        const int32_t* dsum, const int32_t* n2s, int32_t* out,
@@ -255,7 +259,7 @@ int stream_ring_host16(const int32_t* qstream, const int32_t* dstream,
   std::vector<sa::Cell16> c(PW);
   std::vector<sa::Pre16> pre(PW);
   std::vector<int32_t> s1d(P), s2v(P);
-  std::vector<uint32_t> acc(P);
+  std::vector<uint32_t> acc(PW), first(PW), words(P);
   std::vector<int32_t> bv(P), bd(P), lo(P), len(P);
   std::vector<Entry> ring(static_cast<size_t>(G) * slots * C);
   std::vector<int32_t> full(G), freed(G);
@@ -263,10 +267,12 @@ int stream_ring_host16(const int32_t* qstream, const int32_t* dstream,
   std::vector<int> wtag(wrap);
   const size_t plane = static_cast<size_t>(NP) * R * P;
   for (int row = 0; row < R; ++row) {
-    for (int j = 0; j < PW; ++j) c[j] = sa::cell16_init(neg);
+    for (int j = 0; j < PW; ++j) {
+      c[j] = sa::cell16_init(neg);
+      acc[j] = 0;
+    }
     for (int x = 0; x < P; ++x) {
       s1d[x] = s2v[x] = 0;
-      acc[x] = 0;
       bv[x] = sa::kNegBig;
       bd[x] = -S;
       lo[x] = len[x] = 0;
@@ -316,51 +322,54 @@ int stream_ring_host16(const int32_t* qstream, const int32_t* dstream,
           const int jb = b / 2 - 1;
           if (rout != nullptr) {
             rout[e] = {static_cast<int32_t>(sa::h2_his(c[jb].H2, pre[jb].dsel)),
-                       sa::ring_pack(s1d[b - 1], pre[jb].dflag_hi)};
+                       sa::ring_pack(s1d[b - 1],
+                                     sa::dflag_hi<DIRS>(pre[jb].dcode))};
           }
           if (kDirs && b == P) {
-            wacc = sa::push_code<DIRS>(wacc, pre[PW - 1].dflag_hi);
+            wacc = sa::push_code<DIRS>(wacc,
+                                       sa::dflag_hi<DIRS>(pre[PW - 1].dcode));
           }
           const Entry left = g == 0 ? Entry{0, qstream[at_t]} : rin[e];
           const bool edge = a == 0 || (p >= a && p < b);
           for (int j = jb; j >= a / 2; --j) {
             const int x = 2 * j;
-            uint32_t lh, ld;
-            int32_t lf, ls;
+            uint32_t lh, ld, lc;
+            int32_t ls;
             if (x == a) {
               const uint32_t hd = static_cast<uint32_t>(left.h);
               lh = sa::h2_los(hd, c[j].H2);
               ld = sa::h2_left(hd, pre[j].dsel);
-              lf = sa::ring_dflag(left.s);
+              lc = sa::h2_left(sa::dflag_word<DIRS>(sa::ring_dflag(left.s)),
+                               pre[j].dcode);
               ls = sa::ring_s1d(left.s);
             } else {
               lh = sa::h2_left(c[j - 1].H2, c[j].H2);
               ld = sa::h2_left(pre[j - 1].dsel, pre[j].dsel);
-              lf = pre[j - 1].dflag_hi;
+              lc = sa::h2_left(pre[j - 1].dcode, pre[j].dcode);
               ls = s1d[x - 1];
             }
             if (x == p) s2v[x] = dstream[at_t];
             if (x + 1 == p) s2v[x + 1] = dstream[at_t];
             s1d[x + 1] = s1d[x];
             s1d[x] = ls;
-            const uint32_t sub2 =
-                sa::h2_sub(sa::codes_match<WILDCARD>(s1d[x], s2v[x]),
-                           sa::codes_match<WILDCARD>(s1d[x + 1], s2v[x + 1]),
-                           sc.s);
+            // The word's byte of matched codes, as the kernel's mx.
+            auto matched = [&](int xx) {
+              return static_cast<uint32_t>(WILDCARD ? s1d[xx] & s2v[xx]
+                                                    : s1d[xx] ^ s2v[xx]) &
+                     15u;
+            };
+            const uint32_t sub2 = sa::h2_sub2<WILDCARD, 0>(
+                matched(x) | matched(x + 1) << 4, sc.s);
             const int ph = x == p ? 0 : x + 1 == p ? 1 : -1;
-            int32_t code_lo, code_hi;
-            if (edge) {
-              sa::ring_word16<DIRS, MODE, COMPAT, true, true>(
-                  c[j], pre[j], lh, ld, lf, sub2, x == 0, ph, p, sc, code_lo,
-                  code_hi);
-            } else {
-              sa::ring_word16<DIRS, MODE, COMPAT, false, false>(
-                  c[j], pre[j], lh, ld, lf, sub2, false, -1, p, sc, code_lo,
-                  code_hi);
-            }
-            if (kDirs) {
-              acc[x] = sa::push_code<DIRS>(acc[x], code_lo);
-              acc[x + 1] = sa::push_code<DIRS>(acc[x + 1], code_hi);
+            const uint32_t code =
+                edge ? sa::ring_word16<DIRS, MODE, COMPAT, true, true>(
+                           c[j], pre[j], lh, ld, lc, sub2, x == 0, ph, p, sc)
+                     : sa::ring_word16<DIRS, MODE, COMPAT, false, false>(
+                           c[j], pre[j], lh, ld, lc, sub2, false, -1, p, sc);
+            if (DIRS == sa::kDirsFast4) {
+              acc[j] = sa::push_code2(acc[j], code);
+            } else if (DIRS == sa::kDirsFull) {
+              sa::push_full2(words[x], words[x + 1], code);
             }
             if (kModes) {
               for (int h = 1; h >= 0; --h) {
@@ -390,14 +399,25 @@ int stream_ring_host16(const int32_t* qstream, const int32_t* dstream,
               f[2] = sa::h2_get(c[x / 2].D1, x & 1);
             }
           }
+          if (DIRS == sa::kDirsFast4 && t % kPer == kPer / 2 - 1) {
+            for (int j = a / 2; j < b / 2; ++j) {
+              first[j] = acc[j];
+              acc[j] = 0;
+            }
+          }
           if (kDirs && t % kPer == kPer - 1) {
             const int w = t / kPer;
             uint32_t* dst = dirs + (static_cast<size_t>(w) * R + row) * P;
+            for (int j = a / 2; DIRS == sa::kDirsFast4 && j < b / 2; ++j) {
+              sa::split_codes(first[j], acc[j], words[2 * j],
+                              words[2 * j + 1]);
+              acc[j] = 0;
+            }
             for (int x = a; x < b; ++x) {
-              if (x != 0) dst[x] = acc[x];
+              if (x != 0) dst[x] = words[x];
             }
             if (a == 0) {
-              wring[w % wrap] = acc[0];
+              wring[w % wrap] = words[0];
               wtag[w % wrap] = w;
             }
             if (b == P) {
@@ -824,20 +844,56 @@ extern "C" int hc_stream_modes_fill_i16(
 
 // The packed int16 helpers as the host computes them (stream_cell16.cuh),
 // on words a, b, c: out rows 0-6 are h2_add_max(a, b, c),
-// h2_add_max_relu(a, b, c), h2_max3(a, b, c), h2_bmax(a, b) with its two
-// flags in row 4 (bit 0 low, bit 1 high), h2_left(a, b) and h2_add(a, b),
-// each n words.
+// h2_add_max_relu(a, b, c), h2_max3(a, b, c), h2_max(a, b), h2_ne(a, b)
+// (0 or 1 in each half), h2_left(a, b) and h2_add(a, b), each n words.
 extern "C" void hc_h2_dpx(const uint32_t* a, const uint32_t* b,
                           const uint32_t* c, uint32_t* out, int n) {
   for (int i = 0; i < n; ++i) {
     out[i] = sa::h2_add_max(a[i], b[i], c[i]);
     out[n + i] = sa::h2_add_max_relu(a[i], b[i], c[i]);
     out[2 * n + i] = sa::h2_max3(a[i], b[i], c[i]);
-    bool hi, lo;
-    out[3 * n + i] = sa::h2_bmax(a[i], b[i], hi, lo);
-    out[4 * n + i] = (lo ? 1u : 0u) | (hi ? 2u : 0u);
+    out[3 * n + i] = sa::h2_max(a[i], b[i]);
+    out[4 * n + i] = sa::h2_ne(a[i], b[i]);
     out[5 * n + i] = sa::h2_left(a[i], b[i]);
     out[6 * n + i] = sa::h2_add(a[i], b[i]);
+  }
+}
+
+// The int16 instances' word-at-a-time flags and codes (stream_cell16.cuh),
+// as ring_word16 builds them from a cell's packed M, I, D (after the
+// step), I1 / D1 (before it), t0 = M1 + o and local's M before its clamp
+// m: out rows 0-3 are h2_code_fast4 and h2_code_full (H = max(M, I, D),
+// isel = max(I1, t0), no left D bits, full with m's restarts) and
+// h2_dcode for fast4 and full (dsel = max(D1, t0)); rows 4 and 5 are the
+// low and high lanes' direction words of split_codes after pushing the
+// fast4 code words I, D, I1, m, then D1, t0, M, H (row 0's layout); rows
+// 6 and 7 those of push_full2 after the full code words I, D, I1, m (row
+// 1's layout).
+extern "C" void hc_h2_codes(const uint32_t* M, const uint32_t* I,
+                            const uint32_t* D, const uint32_t* I1,
+                            const uint32_t* t0, const uint32_t* D1,
+                            const uint32_t* m, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) {
+    const uint32_t H = sa::h2_max3(M[i], I[i], D[i]);
+    const uint32_t isel = sa::h2_max(I1[i], t0[i]);
+    const uint32_t dsel = sa::h2_max(D1[i], t0[i]);
+    out[i] = sa::h2_code_fast4(M[i], I[i], H, isel, I1[i], 0);
+    out[n + i] = sa::h2_code_full(M[i], I[i], D[i], H, isel, I1[i], t0[i],
+                                  0, m[i] & sa::kH2Min);
+    out[2 * n + i] = sa::h2_dcode<sa::kDirsFast4>(D1[i], t0[i], dsel);
+    out[3 * n + i] = sa::h2_dcode<sa::kDirsFull>(D1[i], t0[i], dsel);
+    const uint32_t mask = 0xf000f000u;
+    uint32_t first = 0, acc = 0;
+    for (const uint32_t* v : {I, D, I1, m}) {
+      first = sa::push_code2(first, v[i] & mask);
+    }
+    for (const uint32_t* v : {D1, t0, M}) acc = sa::push_code2(acc, v[i] & mask);
+    acc = sa::push_code2(acc, H & mask);
+    sa::split_codes(first, acc, out[4 * n + i], out[5 * n + i]);
+    uint32_t lo = 0, hi = 0;
+    for (const uint32_t* v : {I, D, I1, m}) sa::push_full2(lo, hi, v[i]);
+    out[6 * n + i] = lo;
+    out[7 * n + i] = hi;
   }
 }
 

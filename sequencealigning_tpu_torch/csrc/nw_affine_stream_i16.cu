@@ -16,15 +16,20 @@
 // Design: the int32 instances' warp-ring schedule (stream_ring.cuh) and
 // kernel body (stream_ring_kernel.cuh), with each thread's LPT lanes held
 // as LPT / 2 words of two int16 lanes (stream_cell16.cuh): H2, H1, M1, I1
-// and D1 one register for two lanes, each add-max, max3 and compare-select
-// of the recurrence one DPX instruction for both (__viaddmax_s16x2,
-// __vimax3_s16x2, __vibmax_s16x2, and __viaddmax_s16x2_relu for local's
-// clamp at zero), a word's left neighbours one PRMT (its own low lane and
-// the previous word's high lane), and a thread's hand-over to the next
-// lane -- its last lane's H2 and merged D source -- one word, so a step
-// takes two shuffles instead of three.  The direction codes come from the
-// per-half compare results and are shifted into their lanes' words as in
-// the int32 instances.  The sentinel is the kernel argument `neg` (the
+// and D1 one register for two lanes, each add-max, max3 and max of the
+// recurrence one DPX instruction for both (__viaddmax_s16x2,
+// __vimax3_s16x2, and __viaddmax_s16x2_relu for local's clamp at zero), a
+// word's left neighbours one PRMT (its own low lane and the previous
+// word's high lane), and a thread's hand-over to the next lane -- its last
+// lane's H2 and merged D source -- one word, so a step takes two shuffles
+// instead of three.  The direction codes are built a word for both lanes:
+// each flag an XOR and a VIMNMX.U16x2 (min(a ^ b, 1), no borrow across the
+// halves), weighed into both codes by multiply-adds, both lanes' codes
+// shifted into one accumulator a pair, which holds half a direction word,
+// and split into the lanes' words with two PRMTs once a word.  No flag is
+// read from a DPX predicate (ptxas for sm_90a was seen to build a wrong
+// half for one and to drop them from another).  The modes' running argmax
+// stays int32 a lane.  The sentinel is the kernel argument `neg` (the
 // certification's), to which I and D are floored each step.  Lanes a
 // thread and threads a block follow the int32 instances' rule
 // (stream_ring.cuh::stream_plan, ring_max_regs).
@@ -32,7 +37,12 @@
 // What bounds it on this card: as the int32 instances, the integer ALU
 // work of the recurrence and its direction code, then the direction store
 // bandwidth; the packed state halves the instructions of the max chains
-// and the registers of the scores, not those of the per-lane code bits.
+// and the registers of the scores, and the word-at-a-time codes and
+// substitution scores move much of the rest to multiply-adds (the FMA
+// pipe); the modes' argmax (int32 a lane) and the step's hand-over,
+// shuffles and ring (per thread) remain.  On an H100 at 4096 x 2046 bp
+// each instance runs at 21-41% of its packed bound and 11-23% faster than
+// its int32 twin (PERF.md, PR 20).
 #include <cuda_runtime.h>
 #include <stdint.h>
 

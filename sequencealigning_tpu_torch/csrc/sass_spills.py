@@ -19,7 +19,13 @@ fill at 8 lanes a thread and the textbook full fills at 4 (compat and
 wildcard off), int32 and int16 (``stream_ring16_kernel``).  Each step
 loop also gets its count of DPX instructions and lane moves (VIADDMNMX,
 VIMNMX, VIMNMX3 and PRMT, by opcode with their modifiers), which shows
-what each s16x2 intrinsic lowered to.
+what each s16x2 intrinsic lowered to.  --blocks N prints, for each
+instance, its N basic blocks (straight-line runs between branches and
+branch targets) of the most DPX instructions, with their opcodes: in the
+streamed fills the largest is a step's run of cells with no lane at p, and
+for the int16 instances its words are counted by their s16x2 adds to
+INT16_MIN (a word's t0 and M, two a word), so the run's instructions a
+word follow.
 """
 
 from __future__ import annotations
@@ -110,6 +116,47 @@ def analyse(insns, hot: int) -> dict:
                 hot_loops=rows, outside=outside)
 
 
+_DPX = re.compile(r"^(?:@!?U?P\w+\s+)?(VIADDMNMX|VIMNMX3?)\b")
+_BRANCH = re.compile(r"\b(BRA|BRX|JMP|JMX|EXIT|RET|CALL|BREAK|BSYNC|"
+                     r"WARPSYNC)\b")
+
+
+def dpx_blocks(insns, top: int) -> list:
+    """The `top` basic blocks of the most DPX instructions: each a dict of
+    its first address, instructions, DPX count, the int16 words it holds
+    (s16x2 adds to INT16_MIN / 2) and its opcodes (base names)."""
+    targets = set()
+    for _, text in insns:
+        if re.search(r"\bBRA\b", text):
+            hit = re.findall(r"0x([0-9a-f]+)", text)
+            if hit:
+                targets.add(int(hit[-1], 16))
+    blocks, cur = [], []
+    for a, text in insns:
+        if a in targets and cur:
+            blocks.append(cur)
+            cur = []
+        cur.append((a, text))
+        if _BRANCH.search(text):
+            blocks.append(cur)
+            cur = []
+    if cur:
+        blocks.append(cur)
+    rows = []
+    for b in blocks:
+        ops = {}
+        for _, text in b:
+            op = re.sub(r"^@!?U?P\w+\s+", "", text).split()[0].split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        rows.append(dict(
+            first=b[0][0], instructions=len(b),
+            dpx=sum(bool(_DPX.match(t)) for _, t in b),
+            words=sum("S16x2" in t and "0x80008000" in t and
+                      "VIADDMNMX" in t for _, t in b) / 2,
+            opcodes=dict(sorted(ops.items(), key=lambda kv: -kv[1]))))
+    return sorted(rows, key=lambda r: -r["dpx"])[:top]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--match", action="append", default=None,
@@ -120,6 +167,9 @@ def main() -> int:
                          "as a step loop")
     ap.add_argument("--dump", default=None, help="directory for the SASS")
     ap.add_argument("--out", default=None, help="JSON file for the rows")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="also report the N basic blocks of most DPX "
+                         "instructions of each instance")
     args = ap.parse_args()
     from sequencealigning_tpu_torch import csrc
 
@@ -134,6 +184,8 @@ def main() -> int:
         if not any(all(m in name for m in p) for p in picks):
             continue
         r = dict(entry=name, **analyse(insns, args.hot))
+        if args.blocks:
+            r["blocks"] = dpx_blocks(insns, args.blocks)
         rows.append(r)
         hot = "; ".join(f"{h['instructions']} instructions at "
                         f"{h['first']:#x}-{h['last']:#x}, {h['spills']} "
@@ -149,6 +201,12 @@ def main() -> int:
               f"{r['stl']} STL; innermost loops over {args.hot} "
               f"instructions: {hot}; spills outside them: {where}",
               flush=True)
+        for b in r.get("blocks", []):
+            per = (f", {b['instructions'] / b['words']:.1f} a word"
+                   if b["words"] else "")
+            print(f"  block at {b['first']:#x}: {b['instructions']} "
+                  f"instructions, {b['dpx']} DPX, {b['words']:g} int16 "
+                  f"words{per}; {b['opcodes']}", flush=True)
         if args.dump:
             os.makedirs(args.dump, exist_ok=True)
             with open(os.path.join(args.dump, name[:120] + ".sass"),

@@ -1,12 +1,31 @@
-// The streamed Gotoh fills' cell with int16 score state, two lanes a word.
+// The streamed fills' cell with int16 score state, two lanes a word.
 //
 // It is ops/nw_affine_stream.py::_stream_step with int16 state written for
 // a pair of adjacent lanes of a row: lane 2j in the low half of a 32-bit
 // word, lane 2j + 1 in the high half, so each of H2, H1, M1, I1 and D1 is
-// one register for two lanes, and every add-max, max3 and compare-select of
-// the recurrence is one Hopper DPX instruction for both (__viaddmax_s16x2,
-// __vimax3_s16x2, __vibmax_s16x2).  On the host each half is computed on its
-// own with the same integers (host_check.cpp).
+// one register for two lanes, and every add-max, max3 and max of the
+// recurrence is one Hopper DPX instruction for both (__viaddmax_s16x2,
+// __vimax3_s16x2, __vibmax_s16x2).  On the host each half is computed on
+// its own with the same integers (host_check.cpp).
+//
+// The direction codes are built a word for both lanes too.  Every flag of
+// ring_cell is an equality of a maximum and one of its operands; both
+// halves are tested at once as min_u16(a ^ b, 1) -- 0 where equal, 1 where
+// not, one LOP3 and one VIMNMX.U16x2, and no borrow crosses the halves
+// -- and the flags are weighed into both lanes' codes by integer
+// multiply-adds: each lane's code in the top nibble (fast4) or byte (full)
+// of its half (h2_code_fast4, h2_code_full).  A word of fast4 codes is
+// shifted into one accumulator for the pair, which holds half a direction
+// word of each lane, and split into the two lanes' words with two PRMTs
+// once a word (push_code2, split_codes); a word of full codes goes into
+// the lanes' words with a PRMT each (push_full2).  No flag is read from a
+// __vibmax_s16x2 predicate: ptxas for sm_90a was seen to build a wrong
+// operand half for one whose maximum is dropped, and to drop the
+// predicates of one whose maximum is kept (a packed running argmax of
+// local's scores).  The modes' running argmax stays int32 a lane
+// (stream_ring_kernel.cuh::lane_modes): a window of eligible steps in int16
+// would need the query shorter than 2^15 steps, which the certification
+// does not bound for every scheme.
 //
 // The -inf sentinel `neg` is a kernel argument from the closed-form
 // certification ops.nw_affine_stream.stream_i16_neg, not kNegInf: -32768
@@ -23,6 +42,7 @@
 namespace sa {
 
 constexpr uint32_t kH2Min = 0x80008000u;  // INT16_MIN in both halves
+constexpr uint32_t kH2One = 0x00010001u;  // 1 in both halves
 
 // A word's halves as int32 (sign-extended), and a word from two values
 // (each cut to 16 bits).
@@ -111,31 +131,55 @@ SA_HD uint32_t h2_max3(uint32_t a, uint32_t b, uint32_t c) {
 #endif
 }
 
-// max(a, b) in each half, with ge_hi / ge_lo = (a >= b) in that half.
-// Used only where the maximum itself is used: ptxas for sm_90a has been
-// seen to build a wrong operand half for a VIMNMX.S16x2 whose maximum is
-// dropped and only its flags read (in the modes instances); those
-// compares are h2_eq of a maximum and its operand instead.
-SA_HD uint32_t h2_bmax(uint32_t a, uint32_t b, bool& ge_hi, bool& ge_lo) {
+// max(a, b) in each half: one VIMNMX (its flags not read; an add-max of 0
+// would rebuild the zero operand in a register at every use).
+SA_HD uint32_t h2_max(uint32_t a, uint32_t b) {
 #if defined(__CUDA_ARCH__)
-  return __vibmax_s16x2(a, b, &ge_hi, &ge_lo);
+  bool hi, lo;
+  return __vibmax_s16x2(a, b, &hi, &lo);
 #else
-  ge_lo = h2_lo(a) >= h2_lo(b);
-  ge_hi = h2_hi(a) >= h2_hi(b);
-  return h2_pack(ge_lo ? h2_lo(a) : h2_lo(b), ge_hi ? h2_hi(a) : h2_hi(b));
+  return h2_add_max(a, 0u, b);
 #endif
 }
 
-// max(a, b) in each half: one VIADDMAX.
-SA_HD uint32_t h2_max(uint32_t a, uint32_t b) {
-  return h2_add_max(a, 0u, b);
+// (x != 0) in each half as 0 or 1: min_u16(x, 1), one VIMNMX.U16x2.
+SA_HD uint32_t h2_nz(uint32_t x) {
+#if defined(__CUDA_ARCH__)
+  bool hi, lo;
+  return __vibmin_u16x2(x, kH2One, &hi, &lo);
+#else
+  return ((x & 0xffffu) != 0 ? 1u : 0u) | ((x >> 16) != 0 ? 0x10000u : 0u);
+#endif
 }
 
-// eq_hi / eq_lo = (a == b) in that half: two 32-bit compares of a ^ b.
-SA_HD void h2_eq(uint32_t a, uint32_t b, bool& eq_hi, bool& eq_lo) {
-  const uint32_t x = a ^ b;
-  eq_lo = (x & 0xffffu) == 0;
-  eq_hi = x < 0x10000u;
+// (a != b) in each half as 0 or 1: a LOP3 and h2_nz.
+SA_HD uint32_t h2_ne(uint32_t a, uint32_t b) { return h2_nz(a ^ b); }
+
+// (a != b and c != d) in each half as 0 or 1: one VIMNMX3.U16x2 of the
+// two XORs and 1.
+SA_HD uint32_t h2_ne2(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+#if defined(__CUDA_ARCH__)
+  return __vimin3_u16x2(a ^ b, c ^ d, kH2One);
+#else
+  return h2_ne(a, b) & h2_ne(c, d);
+#endif
+}
+
+// w (< 2^16) in each half whose flag nz (0 or 1, as h2_ne) is 0, else 0:
+// w * 0x10001 - nz * w, one multiply-add.  A sum of such terms, and of
+// other per-half values, is exact in 32 bits whatever the order of the
+// adds, as long as each half of the total stays below 2^16.
+SA_HD uint32_t h2_unless(uint32_t nz, uint32_t w) {
+  return w * kH2One - nz * w;
+}
+
+// Where a lane's direction code sits in its half of a code word: the top
+// nibble (fast4) or byte (full): a word of fast4 codes shifts into a lane
+// pair's accumulator with one add (push_code2), and each half's top byte
+// is a PRMT's pick (push_full2).
+template <int DIRS>
+SA_HD constexpr int code_at() {
+  return DIRS == kDirsFast4 ? 12 : 8;
 }
 
 // The scheme in both halves, and the sentinel.
@@ -165,32 +209,95 @@ SA_HD Cell16 cell16_init(int32_t neg) {
   return Cell16{n, n, n, n, n};
 }
 
+// Both lanes' D bits of ring_pre (the merged source D1 or t0 = M1 + o) at
+// their code position: fast4 8 where D1 >= t0; full kDEXT there and kDOPEN
+// where t0 >= D1.  dsel = max(D1, t0).
+template <int DIRS>
+SA_HD uint32_t h2_dcode(uint32_t D1, uint32_t t0, uint32_t dsel) {
+  constexpr int at = code_at<DIRS>();
+  if (DIRS == kDirsFast4) return h2_unless(h2_ne(dsel, D1), 8u << at);
+  if (DIRS == kDirsFull) {
+    return h2_unless(h2_ne(dsel, D1), kDEXT << at) +
+           h2_unless(h2_ne(dsel, t0), kDOPEN << at);
+  }
+  return 0;
+}
+
+// Both lanes' fast4 codes (ring_cell's: the argmax of H = max(M, I, D)
+// with priority M > I > D, 4 where I1 >= t0, and the left lane's D bits
+// ldcode) at bits 12-15 and 28-31.  isel = max(I1, t0).  The argmax is 0
+// where M == H, else 1 where I == H, else 2: [M != H] + [M != H and I !=
+// H].
+SA_HD uint32_t h2_code_fast4(uint32_t M, uint32_t I, uint32_t H,
+                             uint32_t isel, uint32_t I1, uint32_t ldcode) {
+  constexpr int at = code_at<kDirsFast4>();
+  const uint32_t arg = h2_ne(M, H) + h2_ne2(M, H, I, H);
+  return arg * (1u << at) + h2_unless(h2_ne(isel, I1), 4u << at) + ldcode;
+}
+
+// Both lanes' full codes (ring_cell's: kHM / kHI / kHD where M / I / D
+// equals H, kIEXT where I1 >= t0, kIOPEN where t0 >= I1, the left lane's D
+// bits ldcode, and local's restarts rs: kLSTART << 8 in a half that
+// restarts) at bits 8-15 and 24-31.
+SA_HD uint32_t h2_code_full(uint32_t M, uint32_t I, uint32_t D, uint32_t H,
+                            uint32_t isel, uint32_t I1, uint32_t t0,
+                            uint32_t ldcode, uint32_t rs) {
+  constexpr int at = code_at<kDirsFull>();
+  return h2_unless(h2_ne(M, H), kHM << at) +
+         h2_unless(h2_ne(I, H), kHI << at) +
+         h2_unless(h2_ne(D, H), kHD << at) +
+         h2_unless(h2_ne(isel, I1), kIEXT << at) +
+         h2_unless(h2_ne(isel, t0), kIOPEN << at) + ldcode + rs;
+}
+
+// A word of two lanes' fast4 codes (at bits 12-15 and 28-31) shifted into
+// the pair's accumulator: each half holds the lane's last 4 codes, the
+// oldest lowest.  Exact while the accumulator started from 0 at its half
+// word's first step (the halves do not mix before then).
+SA_HD uint32_t push_code2(uint32_t acc, uint32_t code) {
+  return (acc >> 4) + code;
+}
+
+// The two lanes' fast4 direction words from a pair's accumulators: first,
+// the word's first 4 steps, and acc, its last 4.
+SA_HD void split_codes(uint32_t first, uint32_t acc, uint32_t& lo,
+                       uint32_t& hi) {
+  lo = byte_perm(first, acc, 0x5410);
+  hi = byte_perm(first, acc, 0x7632);
+}
+
+// A word of two lanes' full codes (at bits 8-15 and 24-31) shifted into
+// the lanes' direction words (push_code per lane): one PRMT each.
+SA_HD void push_full2(uint32_t& lo, uint32_t& hi, uint32_t code) {
+  lo = byte_perm(lo, code, 0x5321);
+  hi = byte_perm(hi, code, 0x7321);
+}
+
 // What each lane hands its right neighbour (ring_pre per half): t0 = M1 + o,
-// the merged D source and the D bits.
+// the merged D source, and the D bits at their code position (h2_dcode).
 struct Pre16 {
-  uint32_t t0, dsel;
-  int32_t dflag_lo, dflag_hi;
+  uint32_t t0, dsel, dcode;
 };
 
 template <int DIRS>
 SA_HD Pre16 ring_pre16(const Cell16& c, const Scheme16& s) {
   Pre16 r;
   r.t0 = h2_add(c.M1, s.o2);
-  bool cd_hi, cd_lo;
-  r.dsel = h2_bmax(c.D1, r.t0, cd_hi, cd_lo);
-  if (DIRS == kDirsFull) {
-    // t0 >= D1: the merged source is t0.
-    bool op_hi, op_lo;
-    h2_eq(r.dsel, r.t0, op_hi, op_lo);
-    r.dflag_lo = (cd_lo ? kDEXT : 0) | (op_lo ? kDOPEN : 0);
-    r.dflag_hi = (cd_hi ? kDEXT : 0) | (op_hi ? kDOPEN : 0);
-  } else if (DIRS == kDirsFast4) {
-    r.dflag_lo = cd_lo ? 8 : 0;
-    r.dflag_hi = cd_hi ? 8 : 0;
-  } else {
-    r.dflag_lo = r.dflag_hi = 0;
-  }
+  r.dsel = h2_max(c.D1, r.t0);
+  r.dcode = h2_dcode<DIRS>(c.D1, r.t0, r.dsel);
   return r;
+}
+
+// The high lane's D bits of a dcode as ring_pre's dflag (what a thread
+// hands the next one), and a left neighbour's dflag as the previous word
+// of a dcode (for h2_left).
+template <int DIRS>
+SA_HD int32_t dflag_hi(uint32_t dcode) {
+  return static_cast<int32_t>(dcode >> (16 + code_at<DIRS>()));
+}
+template <int DIRS>
+SA_HD uint32_t dflag_word(int32_t dflag) {
+  return static_cast<uint32_t>(dflag) << (16 + code_at<DIRS>());
 }
 
 // boundary() with every value clamped to the sentinel (the JAX package's
@@ -204,33 +311,29 @@ SA_HD void boundary16(int32_t p, bool compat, bool col, const Scheme16& s,
 }
 
 // One step of a word's two lanes: ring_cell for both halves.  pre: the
-// word's own ring_pre16; lH2 / ldsel: the lanes' left neighbours' H2 and
-// merged D source (h2_left); lflag: the low lane's left neighbour's D bits
-// (the high lane's are pre.dflag_lo); sub2: each lane's substitution score.
-// ATP / AT0 as ring_cell: ph is the half holding lane p (-1: neither),
-// at0 whether the low half is lane 0.  Writes both lanes' direction codes.
+// word's own ring_pre16; lH2 / ldsel / ldcode: the lanes' left neighbours'
+// H2, merged D source and D bits (h2_left); sub2: each lane's substitution
+// score.  ATP / AT0 as ring_cell: ph is the half holding lane p (-1:
+// neither), at0 whether the low half is lane 0.  Returns both lanes'
+// direction codes at code_at (0 for DIRS none).
 template <int DIRS, int MODE, bool COMPAT, bool ATP, bool AT0>
-SA_HD void ring_word16(Cell16& c, const Pre16& pre, uint32_t lH2,
-                       uint32_t ldsel, int32_t lflag, uint32_t sub2, bool at0,
-                       int ph, int32_t p, const Scheme16& s,
-                       int32_t& code_lo, int32_t& code_hi) {
+SA_HD uint32_t ring_word16(Cell16& c, const Pre16& pre, uint32_t lH2,
+                           uint32_t ldsel, uint32_t ldcode, uint32_t sub2,
+                           bool at0, int ph, int32_t p, const Scheme16& s) {
   uint32_t M;
-  bool rs_lo = false, rs_hi = false;  // local's restarts
+  uint32_t rs = 0;  // local's restarts: kLSTART << 8 in a half
   if (MODE == kModeLocal && DIRS == kDirsNone) {
     M = h2_add_max_relu(lH2, sub2, kH2Min);
   } else if (MODE == kModeLocal) {
-    // A restart is a cell the clamp moved (M < 0 before it).
+    // A restart is a cell the clamp moved (M < 0 before it): its sign bit
+    // is kLSTART's place in a full code.
     const uint32_t m = h2_add(lH2, sub2);
     M = h2_add_max_relu(m, 0u, kH2Min);
-    bool kept_hi, kept_lo;
-    h2_eq(M, m, kept_hi, kept_lo);
-    rs_lo = !kept_lo;
-    rs_hi = !kept_hi;
+    rs = m & kH2Min;
   } else {
     M = h2_add(lH2, sub2);
   }
-  bool ci_hi, ci_lo;
-  const uint32_t isel = h2_bmax(c.I1, pre.t0, ci_hi, ci_lo);
+  const uint32_t isel = h2_max(c.I1, pre.t0);
   uint32_t I = h2_add_max(isel, s.e2, s.neg2);
   uint32_t D = h2_add_max(ldsel, s.e2, s.neg2);
   if (ATP || AT0) {
@@ -255,58 +358,51 @@ SA_HD void ring_word16(Cell16& c, const Pre16& pre, uint32_t lH2,
         M = h2_set(M, ph, 0);
         I = h2_set(I, ph, s.neg);
         D = h2_set(D, ph, s.neg);
-        (ph ? rs_hi : rs_lo) = true;
+        rs |= 0x8000u << 16 * ph;
       }
       if (a0) {
         M = h2_set(M, 0, 0);
         I = h2_set(I, 0, s.neg);
         D = h2_set(D, 0, s.neg);
-        rs_lo = true;
+        rs |= 0x8000u;
       }
     }
   }
-  uint32_t H;
-  code_lo = code_hi = 0;
-  if (DIRS == kDirsNone) {
-    H = h2_max3(M, I, D);
-  } else {
-    // H = max(M, I, D) with its argmax, priority M > I > D: mfirst is
-    // M == H, ifirst is I == max(I, D).
-    bool mf_hi, mf_lo;
-    if (DIRS == kDirsFast4) {
-      bool if_hi, if_lo;
-      H = h2_bmax(M, h2_bmax(I, D, if_hi, if_lo), mf_hi, mf_lo);
-      code_lo = (mf_lo ? 0 : (if_lo ? 1 : 2)) | (ci_lo ? 4 : 0) | lflag;
-      code_hi = (mf_hi ? 0 : (if_hi ? 1 : 2)) | (ci_hi ? 4 : 0) |
-                pre.dflag_lo;
-    } else {
-      H = h2_bmax(M, h2_max(I, D), mf_hi, mf_lo);
-      // t0 >= I1: the merged I source is t0.
-      bool hi_hi, hi_lo, hd_hi, hd_lo, io_hi, io_lo;
-      h2_eq(I, H, hi_hi, hi_lo);
-      h2_eq(D, H, hd_hi, hd_lo);
-      h2_eq(isel, pre.t0, io_hi, io_lo);
-      code_lo = (mf_lo ? kHM : 0) | (hi_lo ? kHI : 0) | (hd_lo ? kHD : 0) |
-                (ci_lo ? kIEXT : 0) | (io_lo ? kIOPEN : 0) | lflag;
-      code_hi = (mf_hi ? kHM : 0) | (hi_hi ? kHI : 0) | (hd_hi ? kHD : 0) |
-                (ci_hi ? kIEXT : 0) | (io_hi ? kIOPEN : 0) | pre.dflag_lo;
-      if (MODE == kModeLocal) {
-        if (rs_lo) code_lo |= kLSTART;
-        if (rs_hi) code_hi |= kLSTART;
-      }
-    }
+  const uint32_t H = h2_max3(M, I, D);
+  uint32_t code = 0;
+  if (DIRS == kDirsFast4) {
+    code = h2_code_fast4(M, I, H, isel, c.I1, ldcode);
+  } else if (DIRS == kDirsFull) {
+    code = h2_code_full(M, I, D, H, isel, c.I1, pre.t0, ldcode,
+                        MODE == kModeLocal ? rs : 0u);
   }
   c.H2 = c.H1;
   c.H1 = H;
   c.M1 = M;
   c.I1 = I;
   c.D1 = D;
+  return code;
 }
 
-// Both lanes' substitution scores from whether their codes match.
-SA_HD uint32_t h2_sub(bool eq_lo, bool eq_hi, const Scheme& s) {
-  return h2_los(static_cast<uint32_t>(eq_lo ? s.match : s.mismatch),
-                static_cast<uint32_t>(eq_hi ? s.match : s.mismatch));
+// Both lanes' substitution scores from their byte of matched codes (lane
+// 2j's 4 bits low, 2j + 1's high: the codes' XOR, zero where they match,
+// or for wildcards their AND, zero where they do not): the byte spread
+// into both halves (a PRMT), each lane's nibble kept (a LOP3), tested for
+// zero (h2_nz), and base + nz * step in one multiply-add -- base the score
+// where nz is 0 in both halves, step its difference to the other, less
+// the carry a low half's add would hand the high one.  B is the byte's
+// place in the word of matched codes.
+template <bool WILDCARD, int B>
+SA_HD uint32_t h2_sub2(uint32_t mx, const Scheme& s) {
+  const int32_t base = WILDCARD ? s.mismatch : s.match;
+  const uint32_t diff = static_cast<uint32_t>(
+                            WILDCARD ? s.match - s.mismatch
+                                     : s.mismatch - s.match) & 0xffffu;
+  const uint32_t carry =
+      ((static_cast<uint32_t>(base) & 0xffffu) + diff) >> 16;
+  const uint32_t both = byte_perm(mx, 0u, 0x4040u | B << 8 | B);
+  return h2_nz(both & 0x00f0000fu) * (diff - (carry << 16)) +
+         h2_pack(base, base);
 }
 
 }  // namespace sa

@@ -38,7 +38,10 @@ constexpr unsigned kFull = 0xffffffffu;
 // unused; int16: c[j] holds lanes 2j and 2j + 1), query and db codes packed
 // 4 bits a lane (lane i in word i / 8, bits 4 (i % 8): the query codes move
 // a lane a step with one shift a word), direction words, and (the modes)
-// running argmax and window of eligible steps.
+// running argmax and window of eligible steps.  acc[i] is lane i's
+// direction word, but for int16 fast4: acc[j] holds pair j's codes of the
+// word's current half of steps (push_code2) and acc[kCells + j] its first
+// half, and at a word's end acc[i] is lane i's word until it is stored.
 template <int LPT, bool I16>
 struct Lanes {
   static constexpr int kWords = (LPT + 7) / 8;
@@ -200,39 +203,38 @@ __device__ __forceinline__ void ring_lanes(
 // Word J (lanes 2J, 2J + 1) of one step of a thread's int16 lanes, then
 // words J-1 .. 0, as ring_lanes.  mine: word J's ring_pre16; lHD: the H2
 // (low half) and merged D source (high half) of the lane left of lane 0,
-// lflag its D bits.
+// lcode its D bits as the high half of a dcode (dflag_word).  The word's
+// codes go into its pair's accumulator acc[J] (fast4) or its lanes' words
+// acc[I], acc[I + 1] (full).
 template <int J, int LPT, int DIRS, int MODE, bool COMPAT, bool WILDCARD,
           bool EP>
 __device__ __forceinline__ void ring_words(
     Lanes<LPT, true>& L, const Pre16& mine,
-    const uint32_t (&mx)[(LPT + 7) / 8], uint32_t lHD, int32_t lflag, int t,
+    const uint32_t (&mx)[(LPT + 7) / 8], uint32_t lHD, uint32_t lcode, int t,
     int p, int base, bool real, bool lane0, const Turnover& tv,
     const Scheme16& sc) {
   constexpr int I = 2 * J;
   const int x = base + I;
-  uint32_t lh, ld;
-  int32_t lf;
+  uint32_t lh, ld, lc;
   Pre16 left;
   if constexpr (J == 0) {
     lh = h2_los(lHD, L.c[0].H2);
     ld = h2_left(lHD, mine.dsel);
-    lf = lflag;
+    lc = h2_left(lcode, mine.dcode);
   } else {
     left = ring_pre16<DIRS>(L.c[J - 1], sc);
     lh = h2_left(L.c[J - 1].H2, L.c[J].H2);
     ld = h2_left(left.dsel, mine.dsel);
-    lf = left.dflag_hi;
+    lc = h2_left(left.dcode, mine.dcode);
   }
-  const uint32_t sub2 = h2_sub(lane_eq<I, LPT, WILDCARD>(mx),
-                               lane_eq<I + 1, LPT, WILDCARD>(mx), sc.s);
+  const uint32_t sub2 = h2_sub2<WILDCARD, (I % 8) / 2>(mx[I / 8], sc.s);
   const int ph = x == p ? 0 : x + 1 == p ? 1 : -1;
-  int32_t code_lo, code_hi;
-  ring_word16<DIRS, MODE, COMPAT, EP, J == 0>(L.c[J], mine, lh, ld, lf, sub2,
-                                              lane0, ph, p, sc, code_lo,
-                                              code_hi);
-  if constexpr (DIRS != kDirsNone) {
-    L.acc[I] = push_code<DIRS>(L.acc[I], code_lo);
-    L.acc[I + 1] = push_code<DIRS>(L.acc[I + 1], code_hi);
+  const uint32_t code = ring_word16<DIRS, MODE, COMPAT, EP, J == 0>(
+      L.c[J], mine, lh, ld, lc, sub2, lane0, ph, p, sc);
+  if constexpr (DIRS == kDirsFast4) {
+    L.acc[J] = push_code2(L.acc[J], code);
+  } else if constexpr (DIRS == kDirsFull) {
+    push_full2(L.acc[I], L.acc[I + 1], code);
   }
   if constexpr (MODE != kModeGlobal) {
     const Cell16& c = L.c[J];
@@ -242,7 +244,7 @@ __device__ __forceinline__ void ring_words(
   }
   if constexpr (J > 0) {
     ring_words<J - 1, LPT, DIRS, MODE, COMPAT, WILDCARD, EP>(
-        L, left, mx, lHD, lflag, t, p, base, real, lane0, tv, sc);
+        L, left, mx, lHD, lcode, t, p, base, real, lane0, tv, sc);
   }
 }
 
@@ -296,6 +298,78 @@ struct Sweep {
   uint32_t rin, rout; // the chunk's ring entries (16 bytes a step)
 };
 
+// An int16 fast4 thread's pairs at a direction word's middle step: each
+// accumulator's half word set aside in acc[kCells + j], the accumulator
+// cleared.
+template <int LPT, bool I16>
+__device__ __forceinline__ void stash_half(Lanes<LPT, I16>& L) {
+  if constexpr (I16) {
+    constexpr int kCells = Lanes<LPT, true>::kCells;
+#pragma unroll
+    for (int j = 0; j < kCells; ++j) {
+      L.acc[kCells + j] = L.acc[j];
+      L.acc[j] = 0;
+    }
+  }
+}
+
+// The thread's lanes' direction words at a word's last step t: lane 0's
+// into the wrap ring (the tail thread adds lane P-1's D bits and stores
+// it), the others to dirs.  int16 fast4: first each pair's two half words
+// split into its lanes' words, acc[i] lane i's until stored, and the
+// accumulators cleared after.
+template <int LPT, int DIRS, bool I16>
+__device__ __forceinline__ void store_word(Sweep& w, Lanes<LPT, I16>& L,
+                                           int t) {
+  constexpr int kPer = DIRS == kDirsFast4 ? 8 : 4;  // steps a word
+  constexpr bool kHalves = I16 && DIRS == kDirsFast4;
+  const int wd = t / kPer;
+  uint32_t* dst = w.dst;
+  if constexpr (kHalves) {
+    constexpr int kCells = Lanes<LPT, true>::kCells;
+    uint32_t lo[kCells], hi[kCells];
+#pragma unroll
+    for (int j = 0; j < kCells; ++j) {
+      split_codes(L.acc[kCells + j], L.acc[j], lo[j], hi[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kCells; ++j) {
+      L.acc[2 * j] = lo[j];
+      L.acc[2 * j + 1] = hi[j];
+    }
+  }
+  if (w.lane0) {
+    // Lane 0's word without lane P-1's D bits, into the wrap ring.
+    wrap_put(w.wrap_out + 4 * (wd & (w.wrap - 1)), w.wrap_remote, L.acc[0]);
+#pragma unroll
+    for (int i = 1; i < LPT; ++i) dst[i] = L.acc[i];
+  } else if (w.real) {
+    if constexpr (LPT % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < LPT; i += 4) {
+        *reinterpret_cast<uint4*>(dst + i) =
+            make_uint4(L.acc[i], L.acc[i + 1], L.acc[i + 2], L.acc[i + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < LPT; i += 2) {
+        *reinterpret_cast<uint2*>(dst + i) =
+            make_uint2(L.acc[i], L.acc[i + 1]);
+      }
+    }
+  }
+  w.dst += static_cast<size_t>(w.R) * w.P;
+  // In a row of one warp lane 0's word was written in this step.
+  if (w.one_warp) __syncwarp();
+  if (w.tail) {
+    dst[-w.base] = wrap_get(w.wrap_in + 4 * (wd & (w.wrap - 1))) | w.wacc;
+  }
+  if constexpr (kHalves) {
+#pragma unroll
+    for (int j = 0; j < Lanes<LPT, true>::kCells; ++j) L.acc[j] = 0;
+  }
+}
+
 // Step t (entry e of its chunk) of a thread's lanes.
 template <int LPT, int DIRS, int MODE, bool COMPAT, bool WILDCARD, bool I16>
 __device__ __forceinline__ void sweep_step(Sweep& w, Lanes<LPT, I16>& L,
@@ -320,7 +394,7 @@ __device__ __forceinline__ void sweep_step(Sweep& w, Lanes<LPT, I16>& L,
   if constexpr (I16) {
     last = ring_pre16<DIRS>(L.c[kJ], w.sc);
     nH = static_cast<int32_t>(h2_his(L.c[kJ].H2, last.dsel));
-    lastflag = last.dflag_hi;
+    lastflag = dflag_hi<DIRS>(last.dcode);
   } else {
     last = ring_pre<DIRS>(L.c[kI], w.sc.s);
     nH = L.c[kI].H2;
@@ -366,13 +440,14 @@ __device__ __forceinline__ void sweep_step(Sweep& w, Lanes<LPT, I16>& L,
   const int32_t lflag = ring_dflag(lS);
   if constexpr (I16) {
     const uint32_t lHD = static_cast<uint32_t>(lH);
+    const uint32_t lcode = dflag_word<DIRS>(lflag);
     if (has_p) {
       ring_words<kJ, LPT, DIRS, MODE, COMPAT, WILDCARD, true>(
-          L, last, mx, lHD, lflag, t, p, w.base, w.real, w.lane0, w.tv,
+          L, last, mx, lHD, lcode, t, p, w.base, w.real, w.lane0, w.tv,
           w.sc);
     } else {
       ring_words<kJ, LPT, DIRS, MODE, COMPAT, WILDCARD, false>(
-          L, last, mx, lHD, lflag, t, p, w.base, w.real, w.lane0, w.tv,
+          L, last, mx, lHD, lcode, t, p, w.base, w.real, w.lane0, w.tv,
           w.sc);
     }
   } else {
@@ -407,35 +482,17 @@ __device__ __forceinline__ void sweep_step(Sweep& w, Lanes<LPT, I16>& L,
                               LPT, t);
   }
 
-  if (kDirs && (static_cast<unsigned>(t) & (kPer - 1)) == kPer - 1) {
-    const int wd = t / kPer;
-    uint32_t* dst = w.dst;
-    if (w.lane0) {
-      // Lane 0's word without lane P-1's D bits, into the wrap ring.
-      wrap_put(w.wrap_out + 4 * (wd & (w.wrap - 1)), w.wrap_remote,
-               L.acc[0]);
-#pragma unroll
-      for (int i = 1; i < LPT; ++i) dst[i] = L.acc[i];
-    } else if (w.real) {
-      if constexpr (LPT % 4 == 0) {
-#pragma unroll
-        for (int i = 0; i < LPT; i += 4) {
-          *reinterpret_cast<uint4*>(dst + i) =
-              make_uint4(L.acc[i], L.acc[i + 1], L.acc[i + 2], L.acc[i + 3]);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < LPT; i += 2) {
-          *reinterpret_cast<uint2*>(dst + i) =
-              make_uint2(L.acc[i], L.acc[i + 1]);
-        }
-      }
-    }
-    w.dst += static_cast<size_t>(w.R) * w.P;
-    // In a row of one warp lane 0's word was written in this step.
-    if (w.one_warp) __syncwarp();
-    if (w.tail) {
-      dst[-w.base] = wrap_get(w.wrap_in + 4 * (wd & (w.wrap - 1))) | w.wacc;
+  // The int16 fast4 pairs' accumulators hold half a direction word: the
+  // branch below also runs at a word's middle step, where it sets the
+  // first half aside (a branch every 4 steps, rather than selects every
+  // step).
+  constexpr bool kHalves = I16 && DIRS == kDirsFast4;
+  constexpr unsigned kEnd = kHalves ? kPer / 2 - 1 : kPer - 1;
+  if (kDirs && (static_cast<unsigned>(t) & kEnd) == kEnd) {
+    if (kHalves && (static_cast<unsigned>(t) & (kPer / 2)) == 0) {
+      stash_half(L);
+    } else {
+      store_word<LPT, DIRS, I16>(w, L, t);
     }
   }
   if (++w.p == w.S) w.p = 0;

@@ -14,6 +14,8 @@ and semi-global with full dirs untrimmed (kernel #2):
         --wfa N [--out FILE]
     python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
         --mm N [--out FILE]
+    python sequencealigning_tpu_torch/csrc/stream_sweep.py [--root DIR]
+        --i16 N [--out FILE]
 
 run from the repository root; --root DIR times the package of another
 checkout (e.g. a parent commit unpacked with ``git archive``) instead, at
@@ -75,7 +77,17 @@ host seconds), and kernel #8 at config 4 in fast4 and full, medians of N;
 for this checkout the row kernel is first held against its plain version
 (a top node, a level of several nodes, an unmet hand-over) and kernel #8's
 routes against the plain sweep at each of the warp route's widths.  With
---root DIR it too runs parent / tree / tree / parent.
+--root DIR it too runs parent / tree / tree / parent.  --i16 N times
+only the int16 instances of kernels #1 and #2 beside their int32 twins:
+global fast4 and full and textbook local and semi at 4096 pairs, 1, 4 and
+31 pairs (global) and 32 and 128 (modes) of the main length, each at the
+rule's lanes a thread and at 16 (global) / 8 (modes), int32 / int16 /
+int16 / int32, each the mean of N launches after a warm-up, beside the
+packed bound; for this checkout it first holds every int16 instance
+against its plain version on ragged batches (2-16 lanes a thread, chunks
+1-16, rows over CTAs of 128 lanes) and each shape's int16 outputs against
+the int32 kernel's and the rule's, and prints the instances' registers
+and spills.  With --root DIR, parent / tree / tree / parent.
 Needs a CUDA card; prints the card's name and power limit.
 """
 
@@ -1536,6 +1548,266 @@ def _mm_main(args, here: str, root: str) -> int:
     return 0
 
 
+# --i16: the shapes timed -- (name, kind, pairs) of the main length; global
+# fast4 and full trimmed, the modes full untrimmed -- and the lanes a thread
+# forced on each (None: the rule's).
+I16_SHAPES = (("#1 global fast4", "fast4", 4096), ("#1 global full", "full",
+                                                    4096),
+              ("#2 local full", "local", 4096), ("#2 semi full", "semi", 4096),
+              ("#1 global fast4", "fast4", 1), ("#1 global fast4", "fast4", 4),
+              ("#1 global fast4", "fast4", 31), ("#1 global full", "full", 1),
+              ("#1 global full", "full", 4), ("#1 global full", "full", 31),
+              ("#2 local full", "local", 32), ("#2 local full", "local", 128),
+              ("#2 semi full", "semi", 32), ("#2 semi full", "semi", 128))
+I16_LANES = {"fast4": (None, 16), "full": (None, 16), "local": (None, 8),
+             "semi": (None, 8)}
+
+
+def _i16_launcher(chip_smoke, fill, smodes, ScoringScheme, to_device,
+                  pack_batch, trim_for_stream, kind, n):
+    """(launch(state, lanes), ops, nbytes of the inputs, dirs bytes) for a
+    --i16 shape: kernel #1 (global compat, trimmed) or #2 (textbook,
+    untrimmed) with full or fast4 dirs on n pairs of the main length."""
+    pairs = chip_smoke.make_pairs(np.random.default_rng(0), n,
+                                  chip_smoke.LEN_MAIN)
+    batch = pack_batch(pairs, batch_size=n)
+    cells = int((batch.query_len.astype(np.int64)
+                 * batch.db_len.astype(np.int64)).sum())
+    modes = kind in ("local", "semi")
+    tb = to_device(batch if modes else trim_for_stream(batch), "cuda")
+    plan, ins = fill.stream_inputs(*tb)
+
+    def launch(state, lanes):
+        knobs = {} if lanes is None else dict(lanes_per_thread=lanes)
+        with fill.forced_ring(**knobs):
+            if modes:
+                return smodes.gotoh_fill_stream_modes_cuda(
+                    *ins, plan, ScoringScheme(), False, kind, True,
+                    state_dtype=state)
+            return fill.gotoh_fill_stream_cuda(
+                *ins, plan, ScoringScheme(), True, False, kind,
+                state_dtype=state)
+
+    ops = cells * chip_smoke.OPS_PER_CELL[
+        "local full" if kind == "local" else "full" if modes else kind]
+    dirs = plan.t_total // (8 if kind == "fast4" else 4) * plan.n_rows * \
+        plan.p * 4
+    return launch, ops, chip_smoke.nbytes(*ins), dirs, plan
+
+
+def _i16_checks(fill, smodes, ScoringScheme, to_device, pack_batch,
+                trim_for_stream) -> int:
+    """--i16, this checkout: every int16 instance against its int16 plain
+    version on ragged batches (2-4 slots a row) at 2, 4, 8 and 16 lanes a
+    thread and the rule's, chunks of 1, 7 and the default, and rows split
+    over CTAs of 128 lanes; returns the number of runs."""
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    rng = np.random.default_rng(20)
+    alpha = np.frombuffer(b"ACGTN", np.uint8)
+    knobs = ({}, dict(lanes_per_thread=2, chunk=7),
+             dict(lanes_per_thread=4, chunk=1, ring_slots=1),
+             dict(lanes_per_thread=8, chunk=5), dict(lanes_per_thread=16),
+             dict(cta_lanes=128, lanes_per_thread=4))
+    I16 = torch.int16
+    runs = 0
+    for n, np_slots in ((40, 4), (24, 2), (31, 3)):
+        pairs = []
+        for i in range(n):
+            s1 = rng.choice(alpha, int(rng.integers(1, 301)))
+            s2 = rng.choice(alpha, int(rng.integers(1, 301)))
+            if i % 3 == 1:
+                s2 = np.resize(s1, len(s2))
+            pairs.append((s1.tobytes(), s2.tobytes()))
+        batch = pack_batch(pairs, batch_size=n)
+        for trim in (True, False):
+            tb = to_device(trim_for_stream(batch) if trim else batch, "cuda")
+            plan, ins = fill.stream_inputs(*tb, np_slots=np_slots)
+            cases = []
+            if trim:
+                for compat, dirs, wc in ((True, "fast4", False),
+                                         (True, "full", True),
+                                         (False, "fast4", True),
+                                         (False, "full", False),
+                                         (True, None, False)):
+                    a = (plan, wild if wc else ScoringScheme(), compat, wc,
+                         dirs)
+                    cases.append((fill.gotoh_fill_stream_cuda,
+                                  fill.gotoh_fill_stream_torch, a))
+            else:
+                for mode, wc, dirs in (("local", False, True),
+                                       ("semi", True, True),
+                                       ("local", True, False),
+                                       ("semi", False, False)):
+                    a = (plan, wild if wc else ScoringScheme(), wc, mode,
+                         dirs)
+                    cases.append((smodes.gotoh_fill_stream_modes_cuda,
+                                  smodes.gotoh_fill_stream_modes_torch, a))
+            for kernel, plain, a in cases:
+                want = _flat(plain(*ins, *a, state_dtype=I16))
+                for kw in knobs:
+                    ring = {k: v for k, v in kw.items() if k != "cta_lanes"}
+                    with fill.forced_ring(**ring):
+                        got = _flat(kernel(*ins, *a, state_dtype=I16,
+                                           cta_lanes=kw.get("cta_lanes", 0)))
+                    fill.check_stream_stalls(wait=True)
+                    assert _equal(got, want), (n, trim, a[1:], kw)
+                    runs += 1
+    return runs
+
+
+def _i16_times(chip_smoke, fill, smodes, ScoringScheme, to_device,
+               pack_batch, trim_for_stream, reps, check) -> list:
+    """--i16: each shape of I16_SHAPES at each of its lanes a thread, the
+    int16 instance and its int32 twin timed int32 / int16 / int16 / int32
+    (each the mean of reps launches after a warm-up); with check, the
+    int16 outputs equal the int32 kernel's at the rule's lanes (scores,
+    finite finals or argmax planes) and the rule's own at forced lanes."""
+    rows = []
+    for name, kind, n in I16_SHAPES:
+        launch, ops, in_bytes, dirs_bytes, plan = _i16_launcher(
+            chip_smoke, fill, smodes, ScoringScheme, to_device, pack_batch,
+            trim_for_stream, kind, n)
+        first = None
+        for lanes in I16_LANES[kind]:
+            if check:
+                got16 = _flat(launch(torch.int16, lanes))
+                _check_stalls(fill)
+                if first is None:
+                    got32 = _flat(launch(torch.int32, lanes))
+                    _check_stalls(fill)
+                    if kind in ("local", "semi"):
+                        ok = all(torch.equal(a, b) for a, b in
+                                 zip(got16[:2], got32[:2]))
+                    else:
+                        a16, a32 = got16[0], got32[0]
+                        finite = a32 > -32768
+                        ok = bool(torch.equal(a16.max(1).values,
+                                              a32.max(1).values)
+                                  and torch.equal(a16[finite], a32[finite]))
+                    assert ok, (name, n, "int16 != int32")
+                    first = got16
+                    del got32
+                else:
+                    assert _equal(got16, first), (name, n, lanes)
+                del got16
+            launch(torch.int16, lanes)
+            shape16 = dict((smodes.gotoh_fill_stream_modes_cuda
+                            if kind in ("local", "semi") else
+                            fill.gotoh_fill_stream_cuda).last_launch)
+            t32a = chip_smoke.cuda_ms(torch, lambda: launch(torch.int32,
+                                                            lanes), reps)
+            t16a = chip_smoke.cuda_ms(torch, lambda: launch(torch.int16,
+                                                            lanes), reps)
+            t16b = chip_smoke.cuda_ms(torch, lambda: launch(torch.int16,
+                                                            lanes), reps)
+            t32b = chip_smoke.cuda_ms(torch, lambda: launch(torch.int32,
+                                                            lanes), reps)
+            _check_stalls(fill)
+            b16, by16 = chip_smoke.bound(in_bytes + dirs_bytes, ops / 2)
+            rows.append(dict(name=name, pairs=n, lanes=lanes,
+                             lanes_run=shape16["lanes_per_thread"],
+                             threads=shape16["threads"],
+                             i16_ms=[t16a, t16b], i32_ms=[t32a, t32b],
+                             bound16_ms=b16, bound16_by=by16,
+                             R=plan.n_rows, P=plan.p, T=plan.t_total))
+        del first
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _i16_main(args, here: str, root: str) -> int:
+    """--i16: one checkout's int16 instances beside their int32 twins (with
+    --root, parent / tree / tree / parent as four runs of this script,
+    then a table side by side)."""
+    if args.root and not args.i16_one:
+        import subprocess
+        import tempfile
+
+        sys.path.insert(0, here)
+        from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+
+        runs = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for j, r in enumerate((root, here, here, root)):
+                out = os.path.join(tmp, f"{j}.json")
+                cmd = [sys.executable, os.path.abspath(__file__), "--i16",
+                       str(args.i16), "--i16-one", "--out", out]
+                if r != here:
+                    cmd += ["--root", r]
+                rc = subprocess.run(cmd).returncode
+                if rc != 0:
+                    return rc
+                with open(out) as fh:
+                    runs.append(json.load(fh))
+        print(f"i16 side by side (ms, each the mean of its two turns; "
+              f"{_card()}): parent / tree / tree / parent", flush=True)
+        for i, row in enumerate(runs[1]["rows"]):
+            cells = []
+            for state in ("i16_ms", "i32_ms"):
+                vals = [f"{np.mean(run['rows'][i][state]):.3f}"
+                        for run in runs]
+                cells.append(f"{state[:3]} " + " / ".join(vals))
+            print(f"i16 {row['name']}, {row['pairs']} pairs, lanes "
+                  f"{row['lanes'] or 'rule'} ({row['lanes_run']}): "
+                  + "; ".join(cells)
+                  + f"; packed bound {row['bound16_ms']:.3f} "
+                  f"({row['bound16_by']})", flush=True)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(dict(card=_card(), runs=runs), fh)
+        return 0
+    sys.path.insert(0, root)
+    import chip_smoke
+    from sequencealigning_tpu_torch import csrc
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
+    from sequencealigning_tpu_torch.csrc.tiled_sweep import _card
+    from sequencealigning_tpu_torch.ops import (
+        nw_affine_stream as fill,
+        nw_affine_stream_modes as smodes,
+    )
+
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(csrc.__file__)))
+    print(_card(), f"package {pkg}", flush=True)
+    csrc.kernels()
+    print(f"build {csrc.build_seconds:.1f} s", flush=True)
+    instances = csrc.stream_instances(csrc.build_log)
+    for r in instances:
+        if not r["compat"] and r["mode"] == "global" or r["wildcard"]:
+            continue
+        print(f"instance {r['state']} lpt {r['lanes_per_thread']} "
+              f"{r['mode']} {r['dirs']}: {r['registers']} registers, "
+              f"{r['spill_stores']} / {r['spill_loads']} bytes spilled "
+              f"(stores / loads)", flush=True)
+    check = root == here
+    if check:
+        t0 = time.perf_counter()
+        runs = _i16_checks(fill, smodes, ScoringScheme, to_device,
+                           pack_batch, trim_for_stream)
+        print(f"small ragged: {runs} int16 runs equal their plain versions "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    rows = _i16_times(chip_smoke, fill, smodes, ScoringScheme, to_device,
+                      pack_batch, trim_for_stream, args.i16, check)
+    for r in rows:
+        i16, i32 = np.mean(r["i16_ms"]), np.mean(r["i32_ms"])
+        print(f"i16 {r['name']}, {r['pairs']} pairs (R={r['R']}, "
+              f"P={r['P']}, T={r['T']}), lanes {r['lanes'] or 'rule'} "
+              f"({r['lanes_run']} x {r['threads']} threads): int16 "
+              f"{i16:.3f} ms ({', '.join(f'{v:.3f}' for v in r['i16_ms'])})"
+              f", int32 {i32:.3f} ({', '.join(f'{v:.3f}' for v in r['i32_ms'])}"
+              f"); {100 * r['bound16_ms'] / i16:.1f}% of the packed bound "
+              f"{r['bound16_ms']:.3f} ms ({r['bound16_by']})", flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(dict(card=_card(), package=pkg, instances=instances,
+                           rows=rows), fh)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="JSON file for the rows")
@@ -1563,6 +1835,10 @@ def main() -> int:
                     help="time only the Myers-Miller row kernel and kernel "
                          "#8, N runs each")
     ap.add_argument("--mm-one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--i16", type=int, default=0,
+                    help="time only the int16 instances of #1 / #2 beside "
+                         "their int32 twins, N launches a turn")
+    ap.add_argument("--i16-one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
@@ -1574,6 +1850,8 @@ def main() -> int:
         return _wfa_main(args, here, root)
     if args.mm:
         return _mm_main(args, here, root)
+    if args.i16:
+        return _i16_main(args, here, root)
     sys.path.insert(0, root)
     import chip_smoke
     from sequencealigning_tpu_torch import csrc

@@ -476,13 +476,13 @@ def _h2(lo, hi):
 
 def test_host_h2_dpx_per_half(host):
     """The packed helpers' host forms (stream_cell16.cuh) per half against
-    scalar maxima: add-max, add-max with relu, max3, compare-max and its
-    two flags, the left-neighbour shift and the add, on int16 values whose
+    scalar maxima: add-max, add-max with relu, max3, max, the not-equal
+    flag, the left-neighbour shift and the add, on int16 values whose
     sums stay inside int16."""
     rng = np.random.default_rng(5)
     n = 4096
     v = [rng.integers(-16000, 16000, size=(2, n)) for _ in range(3)]
-    v[1][:, :64] = v[0][:, :64]  # ties for the compare flags
+    v[1][:, :64] = v[0][:, :64]  # equal halves for the not-equal flag
     a, b, c = (np.ascontiguousarray(_h2(x[0], x[1]), np.uint32) for x in v)
     out = np.zeros(7 * n, np.uint32)
     host.hc_h2_dpx(a.ctypes.data, b.ctypes.data, c.ctypes.data,
@@ -501,7 +501,7 @@ def test_host_h2_dpx_per_half(host):
         np.testing.assert_array_equal(half(out[2], h),
                                       np.maximum(np.maximum(x, y), z))
         np.testing.assert_array_equal(half(out[3], h), np.maximum(x, y))
-        np.testing.assert_array_equal((out[4] >> h) & 1, x >= y)
+        np.testing.assert_array_equal(half(out[4], h), x != y)
         np.testing.assert_array_equal(half(out[6], h), x + y)
     # h2_left: (a's high lane, b's low lane).
     np.testing.assert_array_equal(half(out[5], 0), v[0][1])
@@ -524,3 +524,188 @@ def test_cuda_wrappers_refuse_cpu_tensors_i16():
                                             state_dtype=I16)
     assert (port.gotoh_fill_stream_cuda.launches_i16,
             pmodes.gotoh_fill_stream_modes_cuda.launches_i16) == before
+
+
+# ---------------------------------------------------------------------------
+# The word-at-a-time flags and codes (stream_cell16.cuh) against the
+# per-lane definitions of ring_cell
+# ---------------------------------------------------------------------------
+
+
+def _s16(w, h):
+    """Half h of uint32 words as int16 values (int64)."""
+    return ((np.asarray(w, np.int64) >> (16 * h)) & 0xffff).astype(
+        np.uint16).view(np.int16).astype(np.int64)
+
+
+def _u16(w, h):
+    return (np.asarray(w, np.int64) >> (16 * h)) & 0xffff
+
+
+def _edge_words(rng, n, neg):
+    """n words of int16 pairs: a third from the edges (INT16_MIN, the
+    sentinel and the sentinel minus its dip, 0, +-1, INT16_MAX, values
+    and their sign-flipped twins), so equal halves, ties of a maximum with
+    its operands and halves that differ only in the sign bit abound; the
+    rest uniform."""
+    edges = np.array([-32768, -32767, neg, neg - 1, neg - 12, neg - 64, -1,
+                      0, 1, 5, 12345, 12345 - 32768, 32767, 32766, 0x7ff,
+                      0x7ff - 32768], np.int64)
+    v = rng.integers(-32768, 32768, size=(2, n))
+    pick = rng.random((2, n)) < 0.67
+    v[pick] = rng.choice(edges, int(pick.sum()))
+    return np.ascontiguousarray(_h2(v[0], v[1]), np.uint32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_host_h2_codes_match_per_lane(host, seed):
+    """hc_h2_codes: both lanes' fast4 and full codes (at bits 12-15 /
+    8-15 of each half), the D bits, the fast4 accumulator's split and the
+    full codes' pushes equal
+    ring_cell's per-lane definitions half by half, on seeded words rich in
+    edge values (INT16_MIN, the default sentinel -24632 and below it, ties,
+    equal halves, halves differing only in sign): no borrow crosses a
+    half."""
+    rng = np.random.default_rng(seed)
+    n = 6144
+    M, I, D, I1, t0, D1, m = (_edge_words(rng, n, -24632) for _ in range(7))
+    # Ties of the maximum with more than one operand, and I1 == t0 / D1 ==
+    # t0, in a sixth of the words each.
+    k = n // 6
+    I[:k] = M[:k]
+    D[k:2 * k] = I[k:2 * k]
+    D[2 * k:3 * k] = M[2 * k:3 * k]
+    t0[3 * k:4 * k] = I1[3 * k:4 * k]
+    t0[4 * k:5 * k] = D1[4 * k:5 * k]
+    out = np.zeros(8 * n, np.uint32)
+    host.hc_h2_codes(*(a.ctypes.data for a in (M, I, D, I1, t0, D1, m)),
+                     out.ctypes.data, n)
+    out = out.reshape(8, n)
+    for h in (0, 1):
+        vM, vI, vD, vI1, vt0, vD1, vm = (_s16(a, h)
+                                         for a in (M, I, D, I1, t0, D1, m))
+        H = np.maximum(np.maximum(vM, vI), vD)
+        fast4 = (np.where(vM == H, 0, np.where(vI == H, 1, 2))
+                 | np.where(vI1 >= vt0, 4, 0))
+        np.testing.assert_array_equal(_u16(out[0], h), fast4 << 12)
+        full = ((vM == H) * 1 | (vI == H) * 2 | (vD == H) * 4
+                | (vI1 >= vt0) * 8 | (vt0 >= vI1) * 16 | (vm < 0) * 128)
+        np.testing.assert_array_equal(_u16(out[1], h), full << 8)
+        np.testing.assert_array_equal(_u16(out[2], h),
+                                      ((vD1 >= vt0) * 8) << 12)
+        np.testing.assert_array_equal(
+            _u16(out[3], h), ((vD1 >= vt0) * 32 | (vt0 >= vD1) * 64) << 8)
+        # The split words: nibble k = the top nibble of push k's half.
+        word = np.zeros(n, np.int64)
+        for j, a in enumerate((I, D, I1, m, D1, t0, M)):
+            word |= (_u16(a, h) >> 12) << (4 * j)
+        Hw = _h2(np.maximum(np.maximum(_s16(M, 0), _s16(I, 0)), _s16(D, 0)),
+                 np.maximum(np.maximum(_s16(M, 1), _s16(I, 1)),
+                            _s16(D, 1)))
+        word |= (_u16(Hw, h) >> 12) << 28
+        np.testing.assert_array_equal(out[4 + h].astype(np.int64), word)
+        # push_full2: byte k = the top byte of push k's half.
+        word = np.zeros(n, np.int64)
+        for j, a in enumerate((I, D, I1, m)):
+            word |= (_u16(a, h) >> 8) << (8 * j)
+        np.testing.assert_array_equal(out[6 + h].astype(np.int64), word)
+
+
+def _edge_batch():
+    """Queries of 200-256 bp against dbs of 1-4 bp, plus all-mismatch
+    pairs, and the steep scheme that certifies them with the least room:
+    the sentinel minus its dip lies 20 above INT16_MIN, so the floored
+    chains of the cells outside the pairs sit next to real cells in the
+    same words."""
+    rng = np.random.default_rng(1)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    pairs = [(rng.choice(alpha, int(rng.integers(200, 257))).tobytes(),
+              rng.choice(alpha, int(rng.integers(1, 5))).tobytes())
+             for _ in range(12)]
+    pairs += [(b"A" * 256, b"T" * 4), (b"C" * 256, b"G")]
+    scheme = ScoringScheme(match_=5, mismatch=-60, gap_open=-100,
+                           gap_extend=-84)
+    return pairs, scheme
+
+
+def test_i16_edge_scheme_is_at_the_certification_edge():
+    """The edge batch's scheme certifies with 20 to spare (the sentinel's
+    dip) and one unit steeper does not."""
+    pairs, scheme = _edge_batch()
+    plan, _ = _inputs(pairs, 2)
+    neg = port.stream_i16_neg(scheme, plan)
+    dip = abs(scheme.gap_open) + abs(scheme.gap_extend) + 60
+    assert neg is not None and neg - dip == -32768 + 20
+    steeper = ScoringScheme(match_=5, mismatch=-60, gap_open=-100,
+                            gap_extend=-85)
+    assert port.stream_i16_neg(steeper, plan) is None
+
+
+@pytest.mark.parametrize("lpt", [2, 8])
+@pytest.mark.parametrize("kind", ["fast4", "full", "semi", "local"])
+def test_host_i16_certification_edge_matches_plain_and_lax(host, kind, lpt):
+    """At the certification's edge (_edge_batch) the int16 instances' host
+    twin equals the int16 plain fill and the JAX package's int16 lax fill
+    (finals or argmax planes, whole dirs), and the finals equal int32's."""
+    pairs, scheme = _edge_batch()
+    modes_kind = kind in ("semi", "local")
+    plan, ins = _inputs(pairs, 2, trim=not modes_kind)
+    if modes_kind:
+        got = _host_modes16(host, plan, ins, scheme, kind == "local", False,
+                            True, lpt=lpt)
+        (bv, bd), dirs = pmodes.gotoh_fill_stream_modes_torch(
+            *ins, plan, scheme, False, kind, True, state_dtype=I16)
+        (bv_j, bd_j), dirs_j = jax_smodes.gotoh_fill_stream_modes_lax(
+            *_jnp(*ins), jax_stream.StreamPlan(*plan), _jax_scheme(scheme),
+            False, kind, True, state_dtype=jnp.int16)
+        for g, w, j in zip(got, (bv, bd, dirs), (bv_j, bd_j, dirs_j)):
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+            np.testing.assert_array_equal(w.numpy(), np.asarray(j))
+        return
+    got = _host_fill16(host, plan, ins, scheme, True, False, kind, lpt=lpt)
+    finals, dirs = port.gotoh_fill_stream_torch(
+        *ins, plan, scheme, True, False, kind, state_dtype=I16)
+    (fm, fi, fd), dirs_j = jax_stream.gotoh_fill_stream_lax(
+        *_jnp(*ins), jax_stream.StreamPlan(*plan), _jax_scheme(scheme), True,
+        False, kind, state_dtype=jnp.int16)
+    want = np.stack([np.asarray(a).T.reshape(-1) for a in (fm, fi, fd)],
+                    axis=1)
+    np.testing.assert_array_equal(got[0].numpy(), finals.numpy())
+    np.testing.assert_array_equal(finals.numpy(), want)
+    np.testing.assert_array_equal(got[1].numpy(), dirs.numpy())
+    np.testing.assert_array_equal(dirs.numpy(), np.asarray(dirs_j))
+    f32, _ = port.gotoh_fill_stream_torch(*ins, plan, scheme, True, False,
+                                          kind)
+    n = len(pairs)
+    _same_finals(got[0][:n], f32[:n])
+
+
+def test_sass_blocks_rank_dpx_runs_and_count_int16_words():
+    """csrc/sass_spills.dpx_blocks on a listing in cuobjdump's form: the
+    straight-line runs split at branches and branch targets, ranked by
+    their DPX instructions (predicated ones counted), with their opcodes
+    by base name and their int16 words (s16x2 adds to INT16_MIN, two a
+    word)."""
+    from sequencealigning_tpu_torch.csrc import sass_spills
+
+    word = ["VIADDMNMX.S16x2 R1, R2, R3, 0x80008000, !PT",
+            "VIMNMX.U16x2 R4, R5, 0x10001, PT",
+            "LOP3.LUT R6, R7, R8, RZ, 0x3c, !PT",
+            "@P1 VIADDMNMX.S16x2 R9, R10, R11, 0x80008000, !PT",
+            "IMAD R12, R13, R14, -0x7fff8000"]
+    ops = (["IMAD R1, R2, R3, RZ", "@P0 BRA 0x70"] + word * 3
+           + ["BRA 0x0", "VIMNMX3.S16x2 R1, R2, R3, R4, !PT"] + word
+           + ["EXIT"])
+    funcs = sass_spills.functions("\n".join(
+        ["        Function : k"]
+        + [f"        /*{16 * i:04x}*/                   {op} ;"
+           for i, op in enumerate(ops)]))
+    got = sass_spills.dpx_blocks(funcs["k"], 3)
+    # The branches end runs (at 0x10, 0x110), the branch target 0x70
+    # starts one: the second and third words with the branch after them,
+    # then the max3 and the last word, then the first word.
+    assert [(b["first"], b["instructions"], b["dpx"], b["words"])
+            for b in got] == [(0x70, 11, 6, 2.0), (0x120, 7, 4, 1.0),
+                              (0x20, 5, 3, 1.0)]
+    assert got[0]["opcodes"] == {"VIADDMNMX": 4, "VIMNMX": 2, "LOP3": 2,
+                                 "IMAD": 2, "BRA": 1}
