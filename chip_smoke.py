@@ -190,7 +190,23 @@ in the phases below and exits non-zero at the first failure:
    that cannot be met (2 shards of one CTA, one of them not
    segment-major) must raise, and the next launch equal its plain
    version; with several cards, the 200 kb pair over distinct cards too
-   (else a line says that route was not run).
+   (else a line says that route was not run);
+26. sequence parallelism across processes (runs after 25): this script
+   re-invoked as SEQPAR_RANKS ranks of a torch.distributed Gloo group
+   (--seqpar-rank), each driving SEQPAR_RANK_SHARDS shards of the one
+   card, the columns between ranks relayed through pinned host buffers
+   (parallel/relay.py): the shard fill on two ragged batches equal to the
+   plain twin across the same ranks and shards; seqpar_fill on the 200 kb
+   pair equal to kernel #4's finals and to the one-process seqpar_fill
+   over the same 4 shards on every rank, then N_RANK_RACE more calls each
+   equal (the launches' CUDA-event ms, the relay's messages, the spread of
+   the ranks' launch times); seqpar_align on batch A's pair 0 scoring
+   kernel #4's score with an alignment that consumes both sequences and
+   rescores to it; rank 0 withholding its columns must make both ranks
+   raise, rank 1 naming the shards and rank 0, within SEQPAR_WITHHOLD_S +
+   40 s.  A rank that exits non-zero fails the run.  The two ranks'
+   kernels time-slice the one card (no MPS): their times are a
+   correctness run, not a speed across hosts.
 
 Every phase prints its wall seconds; the summary is on a line before the
 card's, and in chip_smoke.json's phase_s.
@@ -288,6 +304,12 @@ N_RACE = 5
 # SEQPAR_RAGGED_DB bp.
 SEQPAR_LEN, SEQPAR_SHARDS, SEQPAR_TILE = 200_000, 4, 4096
 SEQPAR_RAGGED_Q, SEQPAR_RAGGED_DB = 200, 3000
+# Sequence parallelism across processes (phase 26): SEQPAR_RANKS processes
+# of SEQPAR_RANK_SHARDS shards each on the one card, over a Gloo group;
+# the 200 kb pair N_RANK_RACE more times; the withheld relay's waits bounded
+# by SEQPAR_WITHHOLD_S; the ranks given SEQPAR_RANKS_TIMEOUT_S in all.
+SEQPAR_RANKS, SEQPAR_RANK_SHARDS, N_RANK_RACE = 2, 2, 2
+SEQPAR_WITHHOLD_S, SEQPAR_RANKS_TIMEOUT_S = 20.0, 300
 # Kernel #7 with full dirs: the first N_GOTOH_DIRS pairs of the main shape;
 # its host walker against the co-optimal path on N_GOTOH_WALK of them.
 N_GOTOH_DIRS, N_GOTOH_WALK = 512, 8
@@ -2556,6 +2578,259 @@ def phase_seqpar(torch, port, by_path):
         log("[25 seqpar] the distinct-card route was not run: this machine "
             f"has {n_cards} card")
     meas["seqpar_err"] = err
+    return meas
+
+
+def seqpar_rank(args):
+    """Phase 26's rank (this script run with --seqpar-rank R): joins a Gloo
+    group of SEQPAR_RANKS processes and drives the port's sequence
+    parallelism over SEQPAR_RANK_SHARDS shards of the card a rank; writes
+    its results to --seqpar-out as JSON.  Every check that fails raises:
+    the rank exits non-zero."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from sequencealigning_tpu_torch import parallel as par
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+    from sequencealigning_tpu_torch.ops import nw_affine_tiled as tiled
+    from sequencealigning_tpu_torch.ops import nw_banded_diag
+    from sequencealigning_tpu_torch.ops import traceback_device
+    from sequencealigning_tpu_torch.parallel import relay
+    from sequencealigning_tpu_torch.parallel.mesh import seqpar_group
+
+    rank = args.seqpar_rank
+    t_start = time.perf_counter()
+    check(torch.cuda.is_available(), "rank: no CUDA device")
+    par.multihost_init(f"localhost:{args.seqpar_port}",
+                       num_processes=SEQPAR_RANKS, process_id=rank,
+                       backend="gloo")
+    group = seqpar_group()
+    mesh = ["cuda:0"] * SEQPAR_RANK_SHARDS
+    D = SEQPAR_RANKS * SEQPAR_RANK_SHARDS
+    kern = tiled.tiled_shard_fill_cuda
+    out = dict(rank=rank)
+
+    def say(msg):
+        log(f"[26 seqpar ranks, rank {rank}] {msg}")
+
+    # 1. The kernel route against the plain twin on the same ranks.
+    wild = ScoringScheme(match_=3, mismatch=-5, gap_open=-7, gap_extend=-2)
+    rng = np.random.default_rng(26)
+    for i, tl in enumerate((128, 256)):
+        compat, wildcard = i == 0, i == 1
+        scheme = wild if wildcard else ScoringScheme()
+        pairs = seqpar_ragged(rng, 8, b"ACGTN" if wildcard else b"ACGT")
+        batch = pack_batch(pairs, batch_size=8)
+        got = par.seqpar_fill(batch.query, batch.db, batch.query_len,
+                              batch.db_len, mesh=mesh, tile_lanes=tl,
+                              scheme=scheme, compat=compat, wildcard=wildcard)
+        shape = dict(kern.last_launch)
+        W = tiled.seqpar_lanes(batch.db.shape[1], D, tl)
+        want = tiled.shard_fill_torch(
+            *to_device(batch, "cuda"), mesh, W, 128, scheme, compat,
+            wildcard, group=group).cpu().numpy()
+        check(np.array_equal(got, want), f"rank {rank}: the shard fill != "
+              f"the plain twin over the ranks (tile_lanes {tl}): "
+              f"{np.abs(got.astype(np.int64) - want).max()}")
+        say(f"ragged batch {i} (W {W}, {shape['segments']} segments, "
+            f"strips {shape['strips']}, relay {shape['relay']}): equal to "
+            "the plain twin over the ranks")
+
+    # 2. The 200 kb pair: the launch count set to 0 just before.
+    pair = make_pairs(np.random.default_rng(25), 1, SEQPAR_LEN)
+    batch = pack_batch(pair, batch_size=8)
+    args_ = (batch.query, batch.db, batch.query_len, batch.db_len)
+    kern.launches = 0
+    t0 = time.perf_counter()
+    fin = par.seqpar_fill(*args_, mesh=mesh, tile_lanes=SEQPAR_TILE)
+    out.update(call_ms=(time.perf_counter() - t0) * 1e3,
+               launches=kern.launches, finals=fin[:1].tolist(),
+               shape=dict(kern.last_launch))
+    calls, launch_ms = [], []
+    for _ in range(N_RANK_RACE):
+        t0 = time.perf_counter()
+        again = par.seqpar_fill(*args_, mesh=mesh, tile_lanes=SEQPAR_TILE)
+        calls.append((time.perf_counter() - t0) * 1e3)
+        launch_ms.append(kern.last_launch["launch_ms"])
+        check(np.array_equal(again, fin), f"rank {rank}: a repeated "
+              "seqpar_fill of the 200 kb pair differs")
+    out.update(race_call_ms=calls, race_launch_ms=launch_ms,
+               race_relay=kern.last_launch["relay"],
+               race_skew_ms=kern.last_launch["launch_skew_ms"])
+    say(f"the {SEQPAR_LEN} bp pair: finals {fin[0].tolist()}, "
+        f"{out['launches']} launches, the call {out['call_ms']:.1f} ms, "
+        f"again {[round(c, 1) for c in calls]} ms, launches {launch_ms} "
+        f"ms, relay {out['race_relay']}, launch skew "
+        f"{out['race_skew_ms']:.3f} ms")
+
+    # 3. seqpar_align on batch A's pair 0.
+    A, _B = long_batches()
+    s1, s2 = A[0]
+    counted = (kern, nw_banded_diag.banded_diag_fill_cuda,
+               traceback_device.walk_banded_cuda)
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    score, a1, a2 = par.seqpar_align(s1, s2, mesh=mesh)
+    secs = time.perf_counter() - t0
+    check(a1 is not None and a1.replace("-", "").encode() == s1
+          and a2.replace("-", "").encode() == s2,
+          f"rank {rank}: seqpar_align's alignment does not consume both "
+          "sequences")
+    check(affine_score(a1, a2, ScoringScheme(), False, True) == score,
+          f"rank {rank}: seqpar_align's alignment does not rescore to "
+          f"{score}")
+    out["align"] = dict(score=score, seconds=secs, launches={
+        "seqpar_shard": kern.launches,
+        "nw_banded_diag_fill": counted[1].launches,
+        "walk_banded": counted[2].launches})
+    say(f"seqpar_align on batch A's pair 0: score {score}, the alignment "
+        f"consumes both sequences and rescores to it; {secs:.3f} s")
+
+    # 4. Rank 0 withholds its columns: both ranks must raise.
+    relay.RELAY_TIMEOUT_S = SEQPAR_WITHHOLD_S
+    if rank == 0:
+        relay.ColumnRelay._send_loop = lambda self, peer, edges: None
+    small = pack_batch([(b"ACGT" * 50, b"ACGTT" * 120)], batch_size=8)
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        par.seqpar_fill(small.query, small.db, small.query_len, small.db_len,
+                        mesh=mesh, tile_lanes=128)
+    except RuntimeError as e:
+        raised = str(e)
+    secs = time.perf_counter() - t0
+    check(raised is not None, f"rank {rank}: a withheld relay did not "
+          "raise")
+    if rank == 1:
+        check("from rank 0" in raised and "shard" in raised,
+              f"rank 1's error does not name the shards and rank 0: "
+              f"{raised}")
+    out["withheld"] = dict(message=raised, seconds=secs)
+    say(f"rank 0 withholding its columns: raised after {secs:.2f} s: "
+        f"{raised}")
+    out["seconds"] = time.perf_counter() - t_start
+    with open(args.seqpar_out, "w") as f:
+        json.dump(out, f)
+    sys.stdout.flush()
+    # A withheld relay leaves a receiver thread waiting inside Gloo: end
+    # the process without tearing the group down.
+    os._exit(0)
+
+
+def phase_seqpar_ranks(torch, port, by_path):
+    """Sequence parallelism across SEQPAR_RANKS processes on the one card:
+    the expectations from this process (kernel #4 on the 200 kb pair and
+    on batch A's pair 0, seqpar_fill over the same 4 shards), then the
+    ranks (seqpar_rank), their results held against them."""
+    import socket
+
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import pack_batch
+
+    tiled, par = port["tiled"], port["parallel"]
+    a = (ScoringScheme(), True, False)
+    pair = make_pairs(np.random.default_rng(25), 1, SEQPAR_LEN)
+    f4 = tiled.tiled_fill_cuda(*to_device(pack_batch(pair, batch_size=1),
+                                          "cuda"), *a).cpu().numpy()
+    batch = pack_batch(pair, batch_size=8)
+    one = par.seqpar_fill(batch.query, batch.db, batch.query_len,
+                          batch.db_len, mesh=["cuda:0"] * (
+                              SEQPAR_RANKS * SEQPAR_RANK_SHARDS),
+                          tile_lanes=SEQPAR_TILE)[:1]
+    A, _B = long_batches()
+    exact = int(tiled.tiled_fill_cuda(*to_device(
+        pack_batch([A[0]], batch_size=1), "cuda"), *a)[0].max())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    res = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        for r in range(SEQPAR_RANKS):
+            logs.append(open(os.path.join(tmp, f"rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seqpar-rank",
+                 str(r), "--seqpar-port", str(port_no), "--seqpar-out",
+                 os.path.join(tmp, f"rank{r}.json")],
+                stdout=logs[-1], stderr=subprocess.STDOUT, cwd=ROOT))
+        t0 = time.perf_counter()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, SEQPAR_RANKS_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            for line in text.splitlines():
+                if line.startswith("[26 "):
+                    log(line)
+            check(p.returncode == 0, f"seqpar rank {r} exited "
+                  f"{p.returncode}:\n{text[-4000:]}")
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    path = f"seqpar_fill {SEQPAR_LEN} bp x {SEQPAR_LEN} bp, {SEQPAR_RANKS} "\
+        f"ranks x {SEQPAR_RANK_SHARDS} shards of one card"
+    apath = f"seqpar_align batch A pair 0, {SEQPAR_RANKS} ranks x "\
+        f"{SEQPAR_RANK_SHARDS} shards of one card"
+    err = 0
+    for r, got in enumerate(res):
+        e = int(np.abs(np.array(got["finals"]) - f4).max())
+        err = max(err, e)
+        check(e == 0, f"rank {r}: the 200 kb pair's finals {got['finals']} "
+              f"!= kernel #4's {f4.tolist()}")
+        check(np.array_equal(np.array(got["finals"]), one),
+              f"rank {r}: finals != the one-process seqpar_fill's")
+        check(got["launches"] == SEQPAR_RANK_SHARDS,
+              f"rank {r}: {got['launches']} shard launches on {path}")
+        check(got["align"]["score"] == exact, f"rank {r}: seqpar_align "
+              f"scored {got['align']['score']}, kernel #4 {exact}")
+        check(got["withheld"]["seconds"] < SEQPAR_WITHHOLD_S + 40,
+              f"rank {r}: the withheld relay raised after "
+              f"{got['withheld']['seconds']:.1f} s")
+        for k, n in got["align"]["launches"].items():
+            check(n > 0, f"rank {r}: {apath} never launched {k}")
+            by_path.setdefault(k, {})[apath] = \
+                by_path.get(k, {}).get(apath, 0) + n
+    by_path.setdefault("seqpar_shard", {})[path] = sum(
+        got["launches"] for got in res)
+    launch_ms = [ms for got in res for call in got["race_launch_ms"]
+                 for ms in call]
+    meas = dict(
+        seqpar_ranks_ms=max(launch_ms),
+        seqpar_ranks_launch_ms=[got["race_launch_ms"] for got in res],
+        seqpar_ranks_call_ms=[got["race_call_ms"] for got in res],
+        seqpar_ranks_first_call_ms=[got["call_ms"] for got in res],
+        seqpar_ranks_relay=[got["race_relay"] for got in res],
+        seqpar_ranks_skew_ms=[got["race_skew_ms"] for got in res],
+        seqpar_ranks_align_s=[got["align"]["seconds"] for got in res],
+        seqpar_ranks_withheld_s=[got["withheld"]["seconds"] for got in res],
+        seqpar_ranks_rank_s=[got["seconds"] for got in res],
+        seqpar_ranks_err=err)
+    log(f"[26 seqpar ranks] {path}: every rank's finals equal kernel #4's "
+        f"and the one-process seqpar_fill's; the launches "
+        f"{meas['seqpar_ranks_launch_ms']} ms (the ranks time-slice the "
+        f"one card: a correctness run, not a speed across hosts), the "
+        f"calls {meas['seqpar_ranks_call_ms']} ms, relay messages "
+        f"{meas['seqpar_ranks_relay']}, launch skew "
+        f"{meas['seqpar_ranks_skew_ms']} ms; seqpar_align score {exact} on "
+        f"every rank; the withheld relay raised after "
+        f"{meas['seqpar_ranks_withheld_s']} s; the ranks "
+        f"{meas['seqpar_ranks_rank_s']} s")
     return meas
 
 
@@ -5026,6 +5301,9 @@ def run(args):
     torch.cuda.empty_cache()
     with timed(phase_s, "25 seqpar"):
         meas.update(phase_seqpar(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "26 seqpar ranks"):
+        meas.update(phase_seqpar_ranks(torch, port, by_path))
     with timed(phase_s, "21 a-star"):
         meas.update(phase_astar(torch, port, by_path))
     torch.cuda.empty_cache()
@@ -5141,7 +5419,7 @@ def kernel_entries(meas, by_path):
             if k.startswith("wfa_fill_") and k.endswith("_err")],
         "wfa_walk": [meas["wfa_walk_err"]],
         "mm_rows": meas["mm_rows_errs"],
-        "seqpar_shard": [meas["seqpar_err"]],
+        "seqpar_shard": [meas["seqpar_err"], meas["seqpar_ranks_err"]],
     }
     times = {
         "nw_affine_stream_fill": ("fill", f"{main} global fast4"),
@@ -5223,7 +5501,10 @@ def kernel_entries(meas, by_path):
                          launch=meas["seqpar_shape"],
                          align_s=meas["seqpar_align_s"],
                          stall_raised_after_s=meas["seqpar_stall_s"],
-                         distinct_cards_ms=meas["seqpar_cards_ms"])
+                         distinct_cards_ms=meas["seqpar_cards_ms"],
+                         ranks={k[len("seqpar_ranks_"):]: v
+                                for k, v in meas.items()
+                                if k.startswith("seqpar_ranks_")})
         elif f"{key}_small_ms" in meas:
             entry["small_ms"] = meas[f"{key}_small_ms"]
             entry["rows_plain_ms"] = meas["rows_plain_ms"]
@@ -5347,7 +5628,14 @@ def main():
     ap.add_argument("--out", default=None,
                     help="directory for the compiler log, the measurements "
                     "and the profile tables")
+    ap.add_argument("--seqpar-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--seqpar-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--seqpar-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.seqpar_rank is not None:
+        return seqpar_rank(args)
     try:
         card, kernels = run(args)
     except SmokeFailure as e:

@@ -1567,7 +1567,12 @@ int shard_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
     const int32_t* q = query + static_cast<size_t>(it.b) * L1;
     const sa::StripIO io =
         sa::shard_strip_io(it, last, seg_strips, nseg, bufs, col, prog, nrow);
-    if (io.cin_peer && *io.cin_rows < n1 + 1) {
+    // A boundary buffer's count may be stored by another thread (the
+    // seqpar relay filling an inbox): loaded with acquire order, and the
+    // producer's stored with release order, so the rows it covers are in
+    // place.
+    if (io.cin_peer && __atomic_load_n(io.cin_rows, __ATOMIC_ACQUIRE) <
+                           n1 + 1) {
       ctr[0] = ticket;
       return 1;
     }
@@ -1580,7 +1585,8 @@ int shard_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
       const int gc = g & (R - 1);
       if (gc == 0) {
         if (io.cin != nullptr && g <= n1 &&
-            *io.cin_rows < sa::chunk_rows_needed(g, R, n1)) {
+            __atomic_load_n(io.cin_rows, __ATOMIC_ACQUIRE) <
+                sa::chunk_rows_needed(g, R, n1)) {
           return -4;
         }
         for (int i = 0; i < R; ++i) {
@@ -1613,7 +1619,7 @@ int shard_host(const int32_t* query, const int32_t* db, const int32_t* n1v,
         io.cout[2 * y] = e.H1;
         io.cout[2 * y + 1] = sa::add_max(e.M1, sc.gap_open, e.D1);
         const int pub = sa::chunk_publish(y, R, n1);
-        if (pub >= 0) *io.cout_rows = pub;
+        if (pub >= 0) __atomic_store_n(io.cout_rows, pub, __ATOMIC_RELEASE);
       }
     }
     if (io.cin != nullptr) cons[it.gs] = sa::kStripDone;

@@ -1,9 +1,10 @@
-"""I/O layer: FASTA parsing and sequence encoding/batching (the port's copy
-of sequencealigning_tpu/io)."""
+"""I/O layer: FASTA parsing and writing, sequence encoding/batching (the
+port's copy of sequencealigning_tpu/io)."""
 
 from sequencealigning_tpu_torch.io.encode import (
     PairBatch,
     WireBatch,
+    decode_seq,
     encode_seq,
     pack_arrays,
     pack_batch,
@@ -16,13 +17,16 @@ from sequencealigning_tpu_torch.io.fasta import (
     Record,
     Records,
     parse_fasta,
+    write_fasta,
 )
 
 __all__ = [
     "Record",
     "Records",
     "parse_fasta",
+    "write_fasta",
     "encode_seq",
+    "decode_seq",
     "pack_batch",
     "round_up",
     "trim_for_stream",

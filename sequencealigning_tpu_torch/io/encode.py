@@ -12,11 +12,11 @@ implements the reference's N-matches-anything scoring rule
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from sequencealigning_tpu_torch.config import ENCODE, PAD
+from sequencealigning_tpu_torch.config import DECODE, ENCODE, PAD
 
 _ENCODE_LUT = np.zeros(256, dtype=np.int32)
 for _ch, _v in ENCODE.items():
@@ -54,6 +54,10 @@ def encode_seq(seq: bytes) -> np.ndarray:
             "(parse_fasta strips and reports invalid bytes)"
         )
     return codes
+
+
+def decode_seq(codes: Sequence[int]) -> str:
+    return "".join(DECODE.get(int(c), "?") for c in codes)
 
 
 def round_up(x: int, m: int) -> int:

@@ -176,3 +176,21 @@ def parse_fasta(path: Union[str, os.PathLike]) -> Records:
     except OSError as e:
         raise FastaError(str(e)) from e
     return parse_bytes(contents)
+
+
+def parse_fasta_lenient(path: Union[str, os.PathLike], warn=None) -> Records:
+    """Parse, applying the reference driver's warn-and-continue recovery for
+    ``CharError`` (src/main.rs:29-35): returns the cleaned records."""
+    try:
+        return parse_fasta(path)
+    except CharError as e:
+        if warn is not None:
+            warn(e.chars)
+        return e.res
+
+
+def write_fasta(records: Records, path: Union[str, os.PathLike]) -> None:
+    """Write records back out (reference: ``Records::_write_to_fa``,
+    src/parse.rs:129-132)."""
+    with open(path, "w", encoding="latin-1", newline="") as f:
+        f.write(records.display())

@@ -2,7 +2,8 @@
 first-path walker, the decoder of the device walks' packed op codes, the
 banded (row layout) fast4 walker, the weighted-A* search and the WFA
 engines (compat, the textbook offset-log walker, the exact textbook host
-engine).
+engine); and, the port's own, the release / acquire stores and loads of the
+seqpar column relay's row counts (parallel/relay.py).
 
 The port's copy of sequencealigning_tpu/native (the entry points the port
 calls).  ``seqalign_native.c`` is compiled with the host C compiler on first
@@ -120,6 +121,10 @@ def get_lib() -> ctypes.CDLL:
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_long,
         _LP, _LP, ctypes.c_int,
     ]
+    lib.relay_store_release.restype = None
+    lib.relay_store_release.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+    lib.relay_load_acquire.restype = ctypes.c_int32
+    lib.relay_load_acquire.argtypes = [ctypes.c_void_p]
     _lib = lib
     return lib
 

@@ -4,7 +4,8 @@
  * the WFA engines (compat fill and walk, the textbook offset-log walker,
  * the exact textbook host engine).  The port's copy of the entry points it
  * calls from
- * sequencealigning_tpu/native/seqalign_native.c (same code, same results).
+ * sequencealigning_tpu/native/seqalign_native.c (same code, same results),
+ * and the seqpar column relay's ordered count stores and loads (its own).
  *
  * Built on first use by sequencealigning_tpu_torch.native into
  * build/sequencealigning_tpu_torch/ (cc -O3 -shared -fPIC -pthread) and
@@ -1651,4 +1652,20 @@ void wfa_textbook_align_batch(const uint8_t *buf1, const long *off1,
     }
     for (int k = 0; k < started; k++)
         if (running[k]) pthread_join(tids[k], NULL);
+}
+
+/* ------------------------------------------------------- column relay */
+
+/* The seqpar column relay (parallel/relay.py) hands a boundary column to a
+ * fill running on another thread or on a card: the rows are copied first,
+ * then the count of rows in place is stored with release order, so an
+ * acquire load that reads the count also sees the rows (on any host CPU,
+ * not only under x86's store order).  A reader loads the count with
+ * acquire order before it copies the rows the count covers. */
+void relay_store_release(int32_t *count, int32_t v) {
+    __atomic_store_n(count, v, __ATOMIC_RELEASE);
+}
+
+int32_t relay_load_acquire(const int32_t *count) {
+    return __atomic_load_n(count, __ATOMIC_ACQUIRE);
 }

@@ -63,12 +63,21 @@ through a boundary buffer on the consumer's card, with a row count the
 producer publishes at system scope.  The work items go segment-major
 (``shard_schedule``), so a wait points at a lower segment or an earlier
 ticket of the same launch and the launches cannot wait on each other in a
-cycle.
+cycle.  Across processes (a ``group``, parallel/mesh.seqpar_group) every
+rank holds some of the D devices -- global device starts[rank] + i is its
+device i (parallel/mesh.rank_span) -- and launches only its own; a column
+between two ranks goes from an outbox in the producer's host memory to an
+inbox in the consumer's, moved by parallel/relay.ColumnRelay, and the
+finals are summed over the group.
 """
 from __future__ import annotations
 
+import bisect
+import time
+
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from sequencealigning_tpu_torch import csrc
@@ -714,52 +723,98 @@ def shard_boundaries(strips, seg_strips: int, n_dev: int):
     return out
 
 
-def check_peer_access(devices, nseg: int, can_access=None):
+def check_peer_access(devices, nseg: int, can_access=None, first: int = 0,
+                      total: int = 0):
     """The (producer, consumer) cards whose boundary buffers cross cards
     (segment k - 1's launch writes into segment k's, for k < nseg; two
     launches of one card need nothing), after checking that each producer
     can write into its consumer's memory (can_access(a, b), by default
-    torch.cuda.can_device_access_peer).  Raises RuntimeError naming the
-    two cards otherwise: the column is never staged through the host."""
+    torch.cuda.can_device_access_peer).  Across processes devices are this
+    rank's, global devices first .. first + len(devices) - 1 of total; a
+    column to or from another rank goes through host buffers and is not
+    checked here.  Raises RuntimeError naming the two cards otherwise:
+    between the cards of one process the column goes by peer access only,
+    never through the host."""
     if can_access is None:
         can_access = torch.cuda.can_device_access_peer
     D = len(devices)
+    total = total or D
     pairs = []
     for k in range(1, nseg):
-        a, b = devices[(k - 1) % D], devices[k % D]
+        gp, gc = (k - 1) % total - first, k % total - first
+        if not (0 <= gp < D and 0 <= gc < D):
+            continue
+        a, b = devices[gp], devices[gc]
         if a == b or (a, b) in pairs:
             continue
         if not can_access(a, b):
             raise RuntimeError(
                 f"seqpar: {a} cannot write into {b}'s memory (no peer "
-                "access); the shard fill hands its column from card to card "
-                "through peer access only")
+                "access); between the cards of one process the shard fill "
+                "hands its column over through peer access only")
         pairs.append((a, b))
     return pairs
 
 
-def shard_buffers(strips, seg_strips: int, nseg: int, devices, nrow: int):
-    """Each launch's boundary buffers, zeroed, on its device (None where it
-    holds none), and the (B * nseg) int64 table of their addresses (0 for
-    segment 0's entry, the closed form)."""
+def _rank_of(starts, g: int) -> int:
+    """The rank holding global device g (parallel/mesh.rank_span's starts)."""
+    return bisect.bisect_right(starts, g) - 1
+
+
+def shard_buffers(strips, seg_strips: int, nseg: int, devices, nrow: int,
+                  starts=None, rank: int = 0):
+    """This rank's boundary buffers, zeroed: (bufs, table, inbox, outbox).
+    bufs: per device the buffers of the columns produced and consumed on
+    this rank, on the consumer's device (None where it holds none); table:
+    the (B * nseg) int64 addresses every launch of this rank reads (0 for
+    segment 0's entry, the closed form, and for columns this rank neither
+    produces nor consumes).  Across processes (starts, rank: see
+    parallel/mesh.rank_span; one process by default) a column from another
+    rank lands in an inbox, one to another rank leaves from an outbox, both
+    host tensors (pinned for CUDA devices, whose kernels reach them through
+    unified addressing) listed as parallel/relay.RelayEdge."""
+    from sequencealigning_tpu_torch.parallel.relay import RelayEdge
+
+    starts = starts or [0, len(devices)]
+    first, total = starts[rank], starts[-1]
     table = np.zeros(len(strips) * nseg, np.int64)
     words = SHARD_HEAD + 2 * nrow
-    bufs = []
-    for dev, held in zip(devices, shard_boundaries(strips, seg_strips,
-                                                   len(devices))):
-        if not held:
-            bufs.append(None)
-            continue
-        t = torch.zeros(len(held) * words, dtype=torch.int32, device=dev)
-        for i, (b, k) in enumerate(held):
+    bufs = [[] for _ in devices]
+    relayed = {"in": [], "out": []}
+    for g, held in enumerate(shard_boundaries(strips, seg_strips, total)):
+        for b, k in held:
+            src = (k - 1) % total
+            r_src, r_dst = _rank_of(starts, src), _rank_of(starts, g)
+            if r_dst == rank:
+                if r_src == rank:
+                    bufs[g - first].append((b, k))
+                else:
+                    relayed["in"].append((b, k, src, g, r_src))
+            elif r_src == rank:
+                relayed["out"].append((b, k, src, g, r_dst))
+
+    def place(held, device, pin_it=False):
+        t = torch.zeros(len(held) * words, dtype=torch.int32, device=device,
+                        pin_memory=pin_it)
+        for i, (b, k, *_rest) in enumerate(held):
             table[b * nseg + k] = t.data_ptr() + 4 * i * words
-        bufs.append(t)
-    return bufs, table
+        return t
+
+    bufs = [place(held, dev) if held else None
+            for dev, held in zip(devices, bufs)]
+    pin = torch.device(devices[0]).type == "cuda"
+    edges = {}
+    for side, held in relayed.items():
+        t = place(held, "cpu", pin) if held else None
+        edges[side] = [RelayEdge(b, k, src, dst, peer,
+                                 t[i * words:(i + 1) * words])
+                       for i, (b, k, src, dst, peer) in enumerate(held)]
+    return bufs, table, edges["in"], edges["out"]
 
 
 def shard_fill_torch(query, db, n1v, n2v, devices, seg_lanes: int,
                      chunk: int, scheme: ScoringScheme, compat: bool,
-                     wildcard: bool) -> torch.Tensor:
+                     wildcard: bool, group=None) -> torch.Tensor:
     """Plain PyTorch twin of parallel/seqpar.py::_jitted_seqpar's rounds
     with the phases collapsed: round r, device d fills segment k = r * D +
     d (lanes k * W + 1 .. k * W + W, W = seg_lanes) as one tile of
@@ -769,8 +824,20 @@ def shard_fill_torch(query, db, n1v, n2v, devices, seg_lanes: int,
     query: (B, L1), db: (B, L2) int32 codes; n1v/n2v: (B,) int32, on
     devices[0].  Returns the (B, 3) int32 corner finals on devices[0]
     (each pair's corner from the one segment that holds lane n2; the
-    n2 = 0 corners in closed form)."""
-    D = len(devices)
+    n2 = 0 corners in closed form).
+
+    group (parallel/mesh.seqpar_group): every rank of it calls this with
+    the same batch and its own devices; D counts every rank's devices
+    (parallel/mesh.rank_span), each rank fills its own devices' segments
+    in order, a column whose next segment is on another rank is sent there
+    (parallel/relay.send_column / recv_column), and the finals are summed
+    over the group: every rank returns the same."""
+    from sequencealigning_tpu_torch.parallel import relay
+    from sequencealigning_tpu_torch.parallel.mesh import rank_span
+
+    starts, me = rank_span(len(devices), group)
+    first, D = starts[me], starts[-1]
+    tag = relay.next_tag() if group is not None else 0
     W = seg_lanes
     B, L1 = query.shape
     L2 = db.shape[1]
@@ -781,30 +848,50 @@ def shard_fill_torch(query, db, n1v, n2v, devices, seg_lanes: int,
                         device=home)
     d_all[:, :L2] = db
     qs = _query_steps(query, ngc)
-    col = tuple(t.to(devices[0]) for t in _boundary0(B, ngc, scheme, compat,
-                                                      home))
+    col = None
+    if first == 0:
+        col = tuple(t.to(devices[0]) for t in _boundary0(B, ngc, scheme,
+                                                          compat, home))
     finals = torch.zeros((B, 3), dtype=torch.int32, device=home)
     # Segments past every pair's last lane hold no corner and feed none.
     n2_max = int(n2v.max()) if B else 0
     for r in range(n_rounds):
-        for d, dev in enumerate(devices):
-            k = r * D + d
+        for g in range(D):
+            k = r * D + g
             if k * W >= n2_max:
                 break
+            if not first <= g < first + len(devices):
+                continue
+            dev = devices[g - first]
+            if col is None:
+                src = (g - 1) % D
+                col = tuple(relay.recv_column(
+                    (3, B, ngc), _rank_of(starts, src), group, tag,
+                    f"the column entering segment {k} (shard {src} -> "
+                    f"shard {g})").to(dev).unbind(0))
             f, brm, brd, brh = tile_fill_torch(
                 d_all[:, k * W:(k + 1) * W].to(dev), qs.to(dev), *col,
                 n1v.to(dev), n2v.to(dev), k * W + 1, ngc, scheme, compat,
                 wildcard)
             finals += f.to(home)
-            nxt = devices[(d + 1) % D]
-            col = tuple(t.to(nxt) for t in _next_column(brm, brd, brh, W,
-                                                         ngc))
+            col = _next_column(brm, brd, brh, W, ngc)
+            nxt = (g + 1) % D
+            if first <= nxt < first + len(devices):
+                col = tuple(t.to(devices[nxt - first]) for t in col)
+            else:
+                if (k + 1) * W < n2_max:
+                    relay.send_column(torch.stack(col), _rank_of(starts, nxt),
+                                      group, tag)
+                col = None
+    if group is not None:
+        total, _ = relay.exchange_finals(finals.cpu().numpy(), None, group)
+        finals = torch.from_numpy(total.astype(np.int32)).to(home)
     return _empty_db_corners(finals, n1v, n2v, scheme, compat)
 
 
 def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
                           scheme: ScoringScheme, compat: bool,
-                          wildcard: bool, chunk_rows: int = 0
+                          wildcard: bool, chunk_rows: int = 0, group=None
                           ) -> torch.Tensor:
     """The shard fill (csrc/nw_affine_tiled.cu, sa_tiled_shard_fill) over
     the CUDA devices of a mesh, one launch a device, all at once: the same
@@ -817,10 +904,30 @@ def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
     resident CTAs among its launches, so they are all resident together;
     distinct consecutive cards need peer access (check_peer_access).  The
     devices' finals are added on the host (the psum of the JAX package).
+
+    group (parallel/mesh.seqpar_group): every rank of it calls this with
+    the same batch and its own devices, which hold global shards
+    starts[rank] .. (parallel/mesh.rank_span); this rank launches only its
+    own shards' items, its columns to and from other ranks pass through
+    pinned host buffers moved by a parallel/relay.ColumnRelay, the ranks
+    meet at a barrier just before the launches (so no launch waits on a
+    peer that has not started), and the finals are summed over the group:
+    every rank returns the same.
+
     Raises on a CPU device, a width out of range, a failed launch, or a
-    wait that stalled (naming the shards).  Each launch adds one to
-    ``tiled_shard_fill_cuda.launches``; the launches' shapes are left in
-    ``last_launch``."""
+    wait that stalled (naming the shards, and across processes the ranks
+    whose columns they waited on); across processes every rank raises when
+    one fails.  Each launch adds one to ``tiled_shard_fill_cuda.launches``;
+    the launches' shapes are left in ``last_launch`` (with each launch's
+    CUDA-event ms, and across processes the relay's messages and the
+    spread of the ranks' launch times)."""
+    from sequencealigning_tpu_torch.parallel.mesh import rank_span
+    from sequencealigning_tpu_torch.parallel.relay import (
+        ColumnRelay,
+        exchange_finals,
+        next_tag,
+    )
+
     _check_fill_args(query, db, n1v, n2v)
     devices = [torch.device(d) for d in devices]
     if not devices or any(d.type != "cuda" for d in devices) or not all(
@@ -842,33 +949,44 @@ def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
     nrow = L1 + 1
     S = seg_lanes // W
     D = len(devices)
-    items, strips, nseg = shard_schedule(n2v.cpu().numpy(), D, seg_lanes, W)
+    starts, me = rank_span(D, group)
+    first, Dg = starts[me], starts[-1]
+    n1s, n2s = n1v.cpu().numpy(), n2v.cpu().numpy()
+    items, strips, nseg = shard_schedule(n2s, Dg, seg_lanes, W)
+    items = items[first:first + D]
     shape = dict(seg_lanes=seg_lanes, strip_lanes=W, seg_strips=S,
                  chunk_rows=R, lanes_per_thread=8 if W % 256 == 0 else 4,
                  shards=D, segments=nseg, strips=[len(i) for i in items],
-                 ctas=[0] * D, resident=[0] * D, sms=[0] * D, peers=[])
+                 ctas=[0] * D, resident=[0] * D, sms=[0] * D, peers=[],
+                 launch_ms=[None] * D)
+    if group is not None:
+        shape.update(rank=me, ranks=len(starts) - 1, first_shard=first,
+                     global_shards=Dg)
     finals = torch.zeros((B, 3), dtype=torch.int32, device=query.device)
     tiled_shard_fill_cuda.last_launch = shape
     if not strips.sum():
         return _empty_db_corners(finals, n1v, n2v, scheme, compat)
     lib = csrc.kernels()
-    pairs = check_peer_access(devices, nseg)
+    pairs = check_peer_access(devices, nseg, first=first, total=Dg)
     for a, b in pairs:
         rc = lib.sa_enable_peer(a.index, b.index)
         if rc != 0:
             raise RuntimeError(f"seqpar: enabling {a}'s access to {b} "
                                f"failed (error {rc})")
     shape["peers"] = [f"{a}->{b}" for a, b in pairs]
-    # bufs holds the boundary buffers (the table only their addresses)
-    # until the launches are joined.
-    bufs, table = shard_buffers(strips, S, nseg, devices, nrow)  # noqa: F841
+    # bufs and the relay's edges hold the boundary buffers (the table only
+    # their addresses) until the launches are joined.
+    bufs, table, inbox, outbox = shard_buffers(  # noqa: F841
+        strips, S, nseg, devices, nrow, starts, me)
+    relay = None
+    if group is not None:
+        relay = ColumnRelay(group, inbox, outbox, n1s + 1, next_tag())
     uses = {d: devices.count(d) for d in devices}
     head = 2 + _SM_WORDS * B
     ins, resident_on, runs = {}, {}, []
+    failure, stamp = None, 0
     try:
         for d, dev in enumerate(devices):
-            if len(items[d]) == 0:
-                continue
             if dev not in ins:
                 ins[dev] = [t.to(dev) for t in (query, db, n1v, n2v)] + [
                     torch.from_numpy(table).to(dev)]
@@ -880,18 +998,31 @@ def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
                 raise RuntimeError(
                     f"sa_tiled_shard_fill: {resident} resident CTAs of {W} "
                     f"lanes on {dev} for {uses[dev]} shards")
+        if relay is not None:
+            for dev in ins:
+                torch.cuda.synchronize(dev)
+            dist.barrier(group=group)
+            relay.start()
+            stamp = time.time_ns()
+        for d, dev in enumerate(devices):
+            if len(items[d]) == 0:
+                continue
             n = len(items[d])
-            ctas = shape["ctas"][d] = max(1, min(n, resident // uses[dev]))
-            run = dict(dev=dev, shard=d,
+            ctas = shape["ctas"][d] = max(1, min(n, shape["resident"][d]
+                                                 // uses[dev]))
+            run = dict(dev=dev, shard=first + d,
                        fin=torch.zeros((B, 3), dtype=torch.int32, device=dev),
                        col=torch.empty(n * 2 * nrow, dtype=torch.int32,
                                        device=dev),
                        ctr=torch.zeros(head + 2 * n, dtype=torch.int32,
                                        device=dev),
                        items=torch.from_numpy(items[d]).to(dev),
-                       stream=torch.cuda.Stream(device=dev))
+                       stream=torch.cuda.Stream(device=dev),
+                       start=torch.cuda.Event(enable_timing=True),
+                       end=torch.cuda.Event(enable_timing=True))
             run["stream"].wait_stream(torch.cuda.current_stream(dev))
             q, dbd, n1d, n2d, tab = ins[dev]
+            run["start"].record(run["stream"])
             with torch.cuda.device(dev):
                 rc = lib.sa_tiled_shard_fill(
                     q.data_ptr(), dbd.data_ptr(), n1d.data_ptr(),
@@ -904,8 +1035,18 @@ def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
                     run["stream"].cuda_stream)
             if rc != 0:
                 raise csrc.launch_error("sa_tiled_shard_fill", rc)
+            run["end"].record(run["stream"])
             tiled_shard_fill_cuda.launches += 1
             runs.append(run)
+        # Across processes the host waits here, the interpreter left to
+        # the relay's threads meanwhile.
+        while relay is not None and not all(run["end"].query()
+                                            for run in runs):
+            time.sleep(1e-3)
+    except RuntimeError as e:
+        if relay is None:
+            raise
+        failure = f"seqpar rank {me}: {e}"
     finally:
         # The buffers are freed on the current streams: they wait for
         # every launch made, also when a later one failed.
@@ -918,13 +1059,33 @@ def tiled_shard_fill_cuda(query, db, n1v, n2v, devices, seg_lanes: int,
         if got[1] != 0:
             stalled.append(run["shard"])
         masks = got[2:].view(np.uint32).reshape(B, _SM_WORDS)
-        shape["sms"][run["shard"]] = int(
-            _popcounts(np.bitwise_or.reduce(masks, 0)))
+        d = run["shard"] - first
+        shape["sms"][d] = int(_popcounts(np.bitwise_or.reduce(masks, 0)))
+        shape["launch_ms"][d] = run["start"].elapsed_time(run["end"])
         total += run["fin"].cpu().numpy()
-    if stalled:
-        raise RuntimeError(
-            f"sa_tiled_shard_fill: shard(s) {stalled} of {D} waited on a "
-            "neighbour past the spin limit; the finals are incomplete")
+    if stalled and failure is None:
+        waits = [e.name() + f" from rank {e.peer}" for e in inbox
+                 if e.dst in stalled
+                 and int(e.buf[0]) < int(n1s[e.b]) + 1]
+        failure = (
+            f"sa_tiled_shard_fill: shard(s) {stalled} of {Dg}"
+            + (f" (rank {me})" if group is not None else "")
+            + " waited on a neighbour past the spin limit; the finals are "
+            "incomplete"
+            + (f"; columns from other ranks not complete: {waits}"
+               if waits else ""))
+    if relay is None:
+        if failure is not None:
+            raise RuntimeError(failure)
+    else:
+        relay.finish(failure is None)
+        if relay.errors and failure is None:
+            failure = f"seqpar rank {me} relay: " + "; ".join(relay.errors)
+        shape["relay"] = dict(sent=relay.sent, received=relay.received,
+                              block_rows=relay.block, inboxes=len(inbox),
+                              outboxes=len(outbox))
+        total, stamps = exchange_finals(total, failure, group, stamp)
+        shape["launch_skew_ms"] = (max(stamps) - min(stamps)) / 1e6
     finals.copy_(torch.from_numpy(total.astype(np.int32)))
     return _empty_db_corners(finals, n1v, n2v, scheme, compat)
 

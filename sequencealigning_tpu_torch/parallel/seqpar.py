@@ -19,6 +19,16 @@ couple only through the O(n1) boundary column at their edge.
   (ops.nw_affine_tiled.shard_fill_torch): the rounds and devices in order,
   the column moved to the next device.
 
+Across processes (an initialised ``torch.distributed``, as the JAX mesh
+from ``make_mesh()`` spans every process's devices after multihost_init)
+the mesh is this rank's devices and the segments go over every rank's, in
+rank order (parallel/mesh.rank_span: JAX's process-major device order):
+each rank fills only its own devices' segments, a column between two ranks
+is relayed through host buffers on a Gloo group (parallel/mesh.seqpar_group,
+parallel/relay.py), and the finals are summed over the group, so every
+rank returns the same finals, score and alignment as one process over all
+the devices.  Every rank calls with the same batch.
+
 seqpar_align adds the pair's alignment: a banded fast4 fill on the mesh's
 first device with band doubling until its score equals the mesh-exact
 score (then the banded path is provably optimal), its walk, and past
@@ -35,6 +45,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sequencealigning_tpu_torch.config import AlignConfig, Algo, ScoringScheme
 from sequencealigning_tpu_torch.device import to_device
@@ -54,7 +65,12 @@ from sequencealigning_tpu_torch.ops.traceback_device import (
     banded_diag_device_tbs,
     use_device_walk,
 )
-from sequencealigning_tpu_torch.parallel.mesh import Devices, make_mesh
+from sequencealigning_tpu_torch.parallel.mesh import (
+    Devices,
+    make_mesh,
+    rank_span,
+    seqpar_group,
+)
 
 
 def seqpar_fill(
@@ -68,6 +84,7 @@ def seqpar_fill(
     scheme: ScoringScheme = ScoringScheme(),
     compat: bool = True,
     wildcard: bool = False,
+    group=None,
 ) -> np.ndarray:
     """Exact Gotoh corner finals (B, 3) int32 of a packed batch
     (io.encode.pack_batch's arrays) with each pair's db axis spread over
@@ -77,21 +94,37 @@ def seqpar_fill(
     chain rounds.  chunk: the rows the plain twin rounds the query up to
     (the JAX package's scan chunk) and the kernel's rows handed over at a
     time (at most 128, a power of two).  Pairs with an empty db get their
-    corner in closed form."""
+    corner in closed form.
+
+    group: the processes the pair spans (parallel.mesh.seqpar_group's:
+    by default every rank of an initialised ``torch.distributed``, else
+    this process alone; a Gloo group when given).  Every rank calls with
+    the same batch and its own mesh; D counts every rank's devices, and
+    every rank returns the same finals."""
     mesh = make_mesh(mesh)
-    if len({d.type for d in mesh}) > 1:
-        raise ValueError(f"seqpar: a mesh mixes CPU and CUDA devices: {mesh}")
+    group = seqpar_group(group)
+    kinds = {d.type for d in mesh}
+    if group is not None:
+        every = [None] * dist.get_world_size(group)
+        dist.all_gather_object(every, sorted(kinds), group=group)
+        kinds = {k for ks in every for k in ks}
+    if len(kinds) > 1:
+        raise ValueError(f"seqpar: a mesh mixes CPU and CUDA devices: "
+                         f"{mesh}" + (" (over the ranks)" if group is not None
+                                      else ""))
     L2 = np.asarray(db).shape[1]
-    W = seqpar_lanes(L2, len(mesh), tile_lanes)
+    starts, _rank = rank_span(len(mesh), group)
+    W = seqpar_lanes(L2, starts[-1], tile_lanes)
     ins = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(mesh[0])
            for a in (query, db, query_len, db_len)]
     if mesh[0].type == "cuda":
         finals = tiled_shard_fill_cuda(*ins, mesh, W, scheme, compat,
                                        wildcard,
-                                       chunk_rows=min(chunk, CHUNK_ROWS))
+                                       chunk_rows=min(chunk, CHUNK_ROWS),
+                                       group=group)
     else:
         finals = shard_fill_torch(*ins, mesh, W, chunk, scheme, compat,
-                                  wildcard)
+                                  wildcard, group=group)
     return finals.cpu().numpy()
 
 
@@ -122,6 +155,7 @@ def seqpar_align(
     compat: bool = True,
     band: int = 256,
     max_band: int = 4096,
+    group=None,
 ):
     """ONE pair: the mesh-exact score (seqpar_fill) AND an alignment.
 
@@ -131,7 +165,10 @@ def seqpar_align(
     CUDA and on the host on the CPU.  Past max_band, or where the walk
     fails validation, the Myers-Miller alignment
     (models.gotoh.GotohAligner._mm_fallback), kept only if it rescores to
-    the exact score; otherwise the aligned strings are None.
+    the exact score; otherwise the aligned strings are None.  Across
+    processes (group, as seqpar_fill's) the score is the group's, and
+    every rank then aligns on its own first device: the same answer on
+    every rank.
 
     Returns (score, aligned_seq1, aligned_seq2)."""
     from sequencealigning_tpu_torch.models.gotoh import GotohAligner
@@ -141,6 +178,7 @@ def seqpar_align(
     finals = seqpar_fill(
         batch.query, batch.db, batch.query_len, batch.db_len, mesh=mesh,
         tile_lanes=tile_lanes, chunk=chunk, scheme=scheme, compat=compat,
+        group=group,
     )
     exact = int(finals[0].max())
     config = AlignConfig(algo=Algo.NEEDLEMAN_WUNSCH, scoring=scheme,

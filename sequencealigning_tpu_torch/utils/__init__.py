@@ -1,4 +1,4 @@
-"""Utility layer: CIGARs, the alignment bar line, guards, statistics.
+"""Utility layer: CIGARs, alignment printing, guards, statistics, timing.
 
 The port's copy of sequencealigning_tpu/utils.
 """
@@ -8,5 +8,6 @@ from sequencealigning_tpu_torch.utils.cigar import (
     cigar_from_ops,
     ops_from_pair,
 )
+from sequencealigning_tpu_torch.utils.pprint import format_alignment
 
-__all__ = ["Cigar", "cigar_from_ops", "ops_from_pair"]
+__all__ = ["Cigar", "cigar_from_ops", "ops_from_pair", "format_alignment"]

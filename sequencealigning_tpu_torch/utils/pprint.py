@@ -18,3 +18,21 @@ from __future__ import annotations
 
 def bars(a: str, b: str) -> str:
     return "".join("|" if x == y else " " for x, y in zip(a, b))
+
+
+def format_alignment(aln_query: str, aln_db: str, style: str = "nw") -> str:
+    """Render a gapped pair.
+
+    style "nw":    reference affine-NW format (seq1/bars/seq2 with labels).
+    style "astar": reference A* format (db, bars vs query order, query).
+    style "wfa":   reference WFA format (seq1, bars, seq2, no labels).
+    """
+    if style == "nw":
+        return (
+            f"\nseq1: {aln_query}\n      {bars(aln_query, aln_db)}\nseq2: {aln_db}"
+        )
+    if style == "astar":
+        return f"{aln_db}\n{bars(aln_query, aln_db)}\n{aln_query}"
+    if style == "wfa":
+        return f"{aln_query}\n{bars(aln_query, aln_db)}{aln_db}\n"
+    raise ValueError(f"unknown style {style!r}")

@@ -23,6 +23,7 @@ import sequencealigning_tpu.utils.cigar as jax_cigar
 import sequencealigning_tpu.utils.guards as jax_guards
 import sequencealigning_tpu.utils.pprint as jax_pprint
 import sequencealigning_tpu.utils.stats as jax_stats
+import sequencealigning_tpu.utils.timing as jax_timing
 from sequencealigning_tpu.io import encode as jax_encode
 from sequencealigning_tpu.io import fasta as jax_fasta
 from sequencealigning_tpu_torch import config, errors, native
@@ -38,6 +39,7 @@ from sequencealigning_tpu_torch.ops import nw_affine_modes as modes
 from sequencealigning_tpu_torch.ops import nw_banded_diag as banded
 from sequencealigning_tpu_torch.ops import traceback as tb
 from sequencealigning_tpu_torch.utils import cigar, guards, pprint, stats
+from sequencealigning_tpu_torch.utils import timing
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 
@@ -154,6 +156,120 @@ def test_encode_helpers_equal():
         [jax_encode.round_up(x, 128) for x in (1, 128, 129)]
     assert _outcome(encode.encode_seq, b"ACGX") == \
         _outcome(jax_encode.encode_seq, b"ACGX")
+
+
+@pytest.mark.parametrize("name", ["queries.fa", "db.fa",
+                                  "charerr_query.fa"])
+def test_write_fasta_round_trips_equal(tmp_path, name):
+    """write_fasta of a golden file's records (the cleaned ones where it
+    has bad characters) writes the JAX package's bytes, and parsing what
+    it wrote gives the records back, each after the empty record that the
+    reference's doubled '>' (Record.display) reads as."""
+    path = os.path.join(GOLDEN, name)
+    recs = fasta.parse_fasta_lenient(path)
+    fasta.write_fasta(recs, tmp_path / "port.fa")
+    jax_fasta.write_fasta(jax_fasta.parse_fasta_lenient(path),
+                          tmp_path / "jax.fa")
+    assert (tmp_path / "port.fa").read_bytes() == \
+        (tmp_path / "jax.fa").read_bytes()
+    back = _records(fasta.parse_fasta(tmp_path / "port.fa"))
+    assert back == _records(jax_fasta.parse_fasta(tmp_path / "jax.fa"))
+    assert back[0::2] == [(b"", b">")] * len(recs)
+    assert back[1::2] == _records(recs)
+
+
+@pytest.mark.parametrize("warn", [False, True])
+@pytest.mark.parametrize("name", ["charerr_query.fa", "queries.fa",
+                                  "badext.txt"])
+def test_parse_fasta_lenient_equal(name, warn):
+    """The warn-and-continue parse: a bad character is reported to warn
+    (when given) and the cleaned records returned; a clean file parses as
+    parse_fasta; a bad extension still raises, with the same message."""
+    path = os.path.join(GOLDEN, name)
+
+    def run(mod):
+        warned = []
+        res = _outcome(mod.parse_fasta_lenient, path,
+                       warned.append if warn else None)
+        return (res if isinstance(res, tuple) else _records(res)), warned
+
+    got, want = run(fasta), run(jax_fasta)
+    assert got == want
+    assert bool(got[1]) == (warn and name == "charerr_query.fa")
+
+
+def test_decode_seq_equal():
+    codes = [1, 2, 4, 8, 15, 0, 3, 7, 16]
+    assert encode.decode_seq(codes) == jax_encode.decode_seq(codes)
+    assert encode.decode_seq(encode.encode_seq(b"ACGTN")) == "ACGTN"
+    assert encode.decode_seq(np.array([], np.int32)) == ""
+
+
+@pytest.mark.parametrize("style", ["nw", "astar", "wfa", "bogus"])
+def test_format_alignment_equal(style):
+    """format_alignment in the reference's three styles (and an unknown
+    style's error) as the JAX package renders them."""
+    from sequencealigning_tpu_torch.utils import format_alignment
+    from sequencealigning_tpu.utils import format_alignment as jax_format
+
+    for a, b in (("AC-GTN", "ACTG-N"), ("", ""), ("A", "T")):
+        assert _outcome(format_alignment, a, b, style) == \
+            _outcome(jax_format, a, b, style)
+        assert _outcome(pprint.format_alignment, a, b, style) == \
+            _outcome(jax_pprint.format_alignment, a, b, style)
+
+
+class _Clock:
+    """A perf_counter that advances by the runner's pairs each read."""
+
+    def __init__(self):
+        self.t = 0.0
+        self.step = 1.0
+
+    def __call__(self):
+        self.t += self.step
+        return self.t
+
+
+def test_timing_equal(monkeypatch):
+    """FillStats and scaling_efficiency equal the JAX package's under the
+    same clock and fills; measure_fill over the port's DataParallelRunner
+    (two CPU shards) credits the same pairs and cells as the JAX one."""
+    st, jst = timing.FillStats(8, 12_345, 0.5), jax_timing.FillStats(
+        8, 12_345, 0.5)
+    assert st.to_json() == jst.to_json()
+    assert (st.gcups, st.pairs_per_s) == (jst.gcups, jst.pairs_per_s)
+
+    class Runner:
+        def __init__(self, n, clock):
+            self.n, self.clock = n, clock
+
+        def scores(self, batch):
+            self.clock.step = 1.0 + 0.25 * self.n
+            return np.zeros((batch.query.shape[0], 3), np.int32)
+
+    out = []
+    for mod, enc in ((timing, encode), (jax_timing, jax_encode)):
+        clock = _Clock()
+        monkeypatch.setattr(mod.time, "perf_counter", clock)
+        out.append(mod.scaling_efficiency(
+            lambda n, clock=clock: Runner(n, clock),
+            lambda n, enc=enc: enc.pack_batch(_pairs(n, n=4 * n)),
+            [1, 2, 4], n_iter=2))
+    monkeypatch.undo()
+    assert out[0] == out[1]
+    assert out[0][1]["efficiency"] == 1.0
+
+    from sequencealigning_tpu_torch.parallel import DataParallelRunner
+
+    pairs = _pairs(5, n=6, hi=40)
+    got = timing.measure_fill(DataParallelRunner(["cpu"] * 2),
+                              encode.pack_batch(pairs), n_iter=1)
+    want = jax_timing.measure_fill(
+        Runner(1, _Clock()), jax_encode.pack_batch(pairs), n_iter=1)
+    assert (got.pairs, got.cells) == (want.pairs, want.cells) == (
+        6, sum(len(a) * len(b) for a, b in pairs))
+    assert got.seconds > 0
 
 
 def _ascii(seed, n, hi, alphabet=b"ACGTN"):

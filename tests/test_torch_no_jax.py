@@ -35,6 +35,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tests", "torch_seqpar_mp_worker.py")
 
 
 def test_importing_every_port_module_loads_no_jax():
@@ -51,8 +52,9 @@ def test_importing_every_port_module_loads_no_jax():
               "ops.oracle_astar", "ops.step_graph", "models.linear",
               "models.astar", "ops.wfa", "ops.oracle_wfa", "models.wfa",
               "parallel", "parallel.mesh", "parallel.runner",
-              "parallel.streaming",
-              "utils.cigar", "utils.guards", "utils.pprint", "utils.stats"):
+              "parallel.streaming", "parallel.relay", "parallel.seqpar",
+              "utils.cigar", "utils.guards", "utils.pprint", "utils.stats",
+              "utils.timing"):
         assert f"sequencealigning_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -68,8 +70,9 @@ def test_importing_every_port_module_loads_no_jax():
 
 
 def test_no_port_source_imports_jax():
-    """No source of the port, nor chip_smoke.py, imports jax or the JAX
-    package (any submodule, at any indentation)."""
+    """No source of the port, nor chip_smoke.py, nor the seqpar test
+    worker, imports jax or the JAX package (any submodule, at any
+    indentation)."""
     for path in _sources():
         with open(path) as fh:
             src = fh.read()

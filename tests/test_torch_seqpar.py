@@ -132,7 +132,8 @@ def _host_shard(host, tb, n_dev, seg_lanes, strip_lanes, chunk_rows, scheme,
     sched, strips, nseg = tiled.shard_schedule(tb.db_len.numpy(), n_dev,
                                                seg_lanes, strip_lanes)
     sched = sched if items is None else items
-    bufs, table = tiled.shard_buffers(strips, S, nseg, ["cpu"] * n_dev, nrow)
+    bufs, table, _inbox, _outbox = tiled.shard_buffers(
+        strips, S, nseg, ["cpu"] * n_dev, nrow)
     table_t = torch.from_numpy(table)
     runs = []
     for d in range(n_dev):
@@ -257,7 +258,9 @@ def test_shard_schedule_and_boundaries():
         [(0, 1), (0, 2)] + [(3, k) for k in range(1, 12)])
     for d, pairs in enumerate(held):
         assert all(k % D == d for _b, k in pairs)
-    bufs, table = tiled.shard_buffers(strips, 2, nseg, ["cpu"] * D, 41)
+    bufs, table, inbox, outbox = tiled.shard_buffers(strips, 2, nseg,
+                                                     ["cpu"] * D, 41)
+    assert inbox == [] and outbox == []
     assert table.shape == (5 * nseg,)
     assert (table.reshape(5, nseg)[:, 0] == 0).all()
     assert all(int(b.abs().sum()) == 0 for b in bufs if b is not None)
