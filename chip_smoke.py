@@ -206,7 +206,17 @@ in the phases below and exits non-zero at the first failure:
    raise, rank 1 naming the shards and rank 0, within SEQPAR_WITHHOLD_S +
    40 s.  A rank that exits non-zero fails the run.  The two ranks'
    kernels time-slice the one card (no MPS): their times are a
-   correctness run, not a speed across hosts.
+   correctness run, not a speed across hosts;
+27. the soak (runs last; sequencealigning_tpu_torch.soak, the port of
+   benchmarks/soak.py): SOAK_ROUNDS rounds of 16 random pairs of up to
+   SOAK_LEN bp at a fixed seed and one more round with the cross leg (1-64
+   pairs of up to SOAK_LONG_LEN bp: kernel #1's finals equal #7's, #4's
+   and seqpar_fill's), every kernel of the port against the scalar
+   oracles or another engine at random schemes, compat and lengths: legs,
+   checks, mismatches (none allowed), each kernel's launches (every one
+   launched) and seconds; then the dry run (sequencealigning_tpu_torch.
+   dryrun, the port of __graft_entry__.dryrun_multichip) over make_mesh()
+   and over DRYRUN_SHARDS shards of cuda:0.
 
 Every phase prints its wall seconds; the summary is on a line before the
 card's, and in chip_smoke.json's phase_s.
@@ -352,6 +362,12 @@ I16_STEEP = (5, -60, -100, -84)
 # converges on none of these pairs (its len-1 convergence quirk), and the
 # Python oracle takes ~12 s a pair to reach the default 20000 steps.
 WFA_COMPAT_STEPS = 1000
+# Phase 27: the soak's rounds at SOAK_LEN bp (seed SOAK_SEED), then one
+# round with the cross leg at SOAK_LONG_LEN bp (seed SOAK_SEED + 1), sized
+# to stay within 90 s; the dry run over make_mesh() and over
+# DRYRUN_SHARDS shards of cuda:0.
+SOAK_ROUNDS, SOAK_SEED, SOAK_LEN, SOAK_LONG_LEN = 8, 27, 600, 12_000
+DRYRUN_SHARDS = 4
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
 # operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
 # 128 fp32 lanes, no fused multiply-add doubling).
@@ -5143,6 +5159,51 @@ def phase_int16(torch, port, pairs, main_res, instances, by_path, out_dir):
     return out
 
 
+def phase_soak(torch, port, by_path):
+    """Phase 27: the soak (sequencealigning_tpu_torch.soak) on the card at
+    fixed seeds, every kernel launched and no mismatch; then the dry run
+    (sequencealigning_tpu_torch.dryrun) over make_mesh() and over
+    DRYRUN_SHARDS shards of cuda:0."""
+    from sequencealigning_tpu_torch import dryrun, soak
+
+    check(set(soak.COUNTERS) == set(KERNELS),
+          f"the soak counts {sorted(set(soak.COUNTERS) ^ set(KERNELS))} "
+          "unlike KERNELS")
+    with path_launches(port, by_path, "soak"):
+        reps = [soak.run_soak(SOAK_ROUNDS, SOAK_SEED, max_len=SOAK_LEN),
+                soak.run_soak(1, SOAK_SEED + 1, max_len=SOAK_LEN,
+                              long_len=SOAK_LONG_LEN)]
+    for rep in reps:
+        log(f"[27 soak] {rep.rounds} rounds, seed {rep.seed}, <= "
+            f"{rep.max_len} bp, long_len {rep.long_len}: "
+            + json.dumps(rep.summary()))
+    bad = [m.line() for rep in reps for m in rep.mismatches]
+    check(not bad, f"the soak found {len(bad)} mismatches: {bad[:5]}")
+    launches = {k: sum(rep.launches[k] for rep in reps) for k in KERNELS}
+    missing = sorted(k for k, n in launches.items() if not n)
+    check(not missing, f"the soak launched no {missing}")
+    meshes = ((torch.cuda.device_count(), None),
+              (DRYRUN_SHARDS, ["cuda:0"] * DRYRUN_SHARDS))
+    dry = []
+    with path_launches(port, by_path, "dryrun"):
+        for n, devices in meshes:
+            t0 = time.perf_counter()
+            try:
+                out = dryrun.dryrun_multichip(n, devices)
+            except dryrun.DryRunFailure as e:
+                raise SmokeFailure(f"dryrun_multichip({n}, {devices}): {e}")
+            dry.append(dict(devices=out["devices"],
+                            seconds=time.perf_counter() - t0))
+            log(f"[27 dryrun] {out['devices']}: runner scores, state auto, "
+                "device walk, fused fill+walk, semi-global modes and "
+                f"seqpar_fill checked in {dry[-1]['seconds']:.2f} s")
+    log(f"[27 soak] every kernel launched: {json.dumps(launches)}; "
+        f"{sum(sum(r.checks.values()) for r in reps)} checks, 0 "
+        f"mismatches, {sum(r.seconds for r in reps):.1f} s")
+    return {"soak": [r.summary() for r in reps], "soak_launches": launches,
+            "dryrun": dry}
+
+
 def instance_of(instances, state, launch, mode, dirs, compat):
     """The build log's row of the streamed-fill instance a launch ran
     (wildcard off), or None."""
@@ -5309,6 +5370,9 @@ def run(args):
     torch.cuda.empty_cache()
     with timed(phase_s, "23 wfa"):
         meas.update(phase_wfa(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "27 soak"):
+        meas.update(phase_soak(torch, port, by_path))
     total = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; total {total:.1f}")

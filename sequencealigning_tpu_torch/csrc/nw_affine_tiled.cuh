@@ -45,7 +45,9 @@ SA_HD bool tile_eq(uint32_t q, uint32_t d, uint32_t mask) {
 
 // The x = 0 boundary column at row y (_boundary0): M, D and H.  Compat
 // keeps the chain o + (y+1)e in D, textbook o + y*e in I (D stays -inf, H
-// sees it); y < 0 (the row before the first) is -inf everywhere.
+// sees it); y < 0 (the row before the first) is -inf everywhere.  H is the
+// maximum of the three planes, so a chain below kNegInf leaves H at
+// kNegInf, as in the other fills and the scalar oracle.
 SA_HD void tile_boundary0(int32_t y, bool compat, const Scheme& s,
                           int32_t& M, int32_t& D, int32_t& H) {
   if (y < 0) {
@@ -60,7 +62,7 @@ SA_HD void tile_boundary0(int32_t y, bool compat, const Scheme& s,
   }
   M = kNegInf;
   D = compat ? s.gap_open + (y + 1) * s.gap_extend : kNegInf;
-  H = compat ? D : s.gap_open + y * s.gap_extend;
+  H = imax(compat ? D : s.gap_open + y * s.gap_extend, kNegInf);
 }
 
 // A boundary column row as it is carried: H(y) and max(M(y) + o, D(y)),

@@ -29,7 +29,7 @@ the engine-exact score.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -355,12 +355,14 @@ def _direct_ops(q, d, tb: int, te: int, scheme: ScoringScheme) -> str:
     return "".join(reversed("".join(ops)))
 
 
-def _levels(sq: _Seqs, q_codes, d_codes, tb: int, te: int) -> str:
+def _levels(sq: _Seqs, q_codes, d_codes, tb: int, te: int,
+            leaf_cells: int) -> str:
     """Myers-Miller recursion on the whole of q_codes x d_codes, a level at
     a time: every node of a level gets its rows from one level_rows call
     (a kernel launch on CUDA), each split chosen as in the JAX package's
-    depth-first _diff; the leaves and the joins are assembled in the
-    recursion's order, so the ops string is the JAX package's."""
+    depth-first _diff; the leaves (subproblems of at most leaf_cells
+    cells) and the joins are assembled in the recursion's order, so the ops
+    string is the JAX package's."""
     scheme = sq.scheme
     o = scheme.gap_open
     # parts[k]: subproblem k's ops, or the parts (indices and "II" joins)
@@ -375,7 +377,7 @@ def _levels(sq: _Seqs, q_codes, d_codes, tb: int, te: int) -> str:
                 parts[k] = "D" * n
             elif n == 0:
                 parts[k] = "I" * m
-            elif m == 1 or m * n <= _DIRECT_CELLS:
+            elif m == 1 or m * n <= leaf_cells:
                 parts[k] = _direct_ops(q_codes[qa:qb], d_codes[da:db_], tb_,
                                        te_, scheme)
             else:
@@ -415,10 +417,13 @@ def mm_align(
     db: bytes,
     scheme: ScoringScheme = ScoringScheme(),
     device="cuda",
+    leaf_cells: Optional[int] = None,
 ) -> str:
     """Exact textbook affine-gap global alignment of one pair, any length,
     O(n1 + n2) memory, its score rows on ``device``.  Returns the forward
-    ops string."""
+    ops string.  leaf_cells: the size below which a subproblem is solved
+    directly on the host (default _DIRECT_CELLS; the soak lowers it so
+    that pairs of a few hundred bp recurse through the row kernel)."""
     q = np.asarray(encode_seq(query), np.int32)
     d = np.asarray(encode_seq(db), np.int32)
     if len(q) == 0:
@@ -426,7 +431,8 @@ def mm_align(
     if len(d) == 0:
         return "I" * len(q)
     sq = _Seqs(q, d, scheme, device)
-    return _levels(sq, q, d, scheme.gap_open, scheme.gap_open)
+    return _levels(sq, q, d, scheme.gap_open, scheme.gap_open,
+                   _DIRECT_CELLS if leaf_cells is None else leaf_cells)
 
 
 def mm_score_ops(ops: str, query: bytes, db: bytes,

@@ -189,7 +189,12 @@ def _boundary0(B: int, ngc: int, scheme: ScoringScheme, compat: bool,
                device):
     """The closed-form x = 0 boundary column (tile 0's left edge) as the
     three (B, ngc) step-indexed arrays (hb1 pre-shifted by one), as
-    ops/nw_affine_tiled.py::_boundary0."""
+    ops/nw_affine_tiled.py::_boundary0, except that H is the maximum of
+    the three planes there, as in every other engine and the scalar
+    oracle: a gap chain below NEG_INF leaves H at NEG_INF.  The JAX
+    package's H is the raw chain, so its tiled fills score below the
+    oracle once a query's chain passes NEG_INF (5461 bp under the default
+    scheme)."""
     o, e = scheme.gap_open, scheme.gap_extend
     y = torch.arange(ngc, dtype=torch.int32, device=device)[None, :].expand(
         B, ngc)
@@ -200,6 +205,7 @@ def _boundary0(B: int, ngc: int, scheme: ScoringScheme, compat: bool,
     else:
         d_b = torch.full_like(y, NEG_INF)
         h_b = torch.where(y == 0, 0, o + y * e)
+    h_b = h_b.clamp(min=NEG_INF)
     hb1 = F.pad(h_b[:, :-1], (1, 0), value=NEG_INF)
     return (t.to(torch.int32) for t in (hb1, m_b, d_b))
 

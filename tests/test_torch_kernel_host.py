@@ -1523,6 +1523,23 @@ def test_host_tiled_fill_matches_plain(host, compat, wildcard, strip_lanes,
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
+@pytest.mark.parametrize("compat", [True, False])
+def test_host_tiled_fill_floors_the_boundary_h(host, compat):
+    """The kernels' x = 0 column (tile_boundary0) keeps H at NEG_INF where
+    the query's gap chain passes it, as the scalar oracle does
+    (test_torch_nw_tiled.py's pairs and steep scheme)."""
+    from tests.test_torch_nw_tiled import STEEP, _oracle, floor_pairs
+
+    pairs = floor_pairs()
+    tb = to_device(pack_batch(pairs), "cpu")
+    want = [_oracle(s1, s2, STEEP, compat) for s1, s2 in pairs]
+    for strip_lanes in (128, 256):
+        rc, got = _host_tiled(host, tb, STEEP, compat, False, strip_lanes,
+                              8, 1)
+        assert rc == 0
+        assert [tuple(int(v) for v in r) for r in got] == want
+
+
 def test_host_tiled_fill_refuses_bad_widths(host):
     tb = _tiled_batch(3, n=4, hi=40)
     B, L1 = tb.query.shape

@@ -54,7 +54,7 @@ def test_importing_every_port_module_loads_no_jax():
               "parallel", "parallel.mesh", "parallel.runner",
               "parallel.streaming", "parallel.relay", "parallel.seqpar",
               "utils.cigar", "utils.guards", "utils.pprint", "utils.stats",
-              "utils.timing"):
+              "utils.timing", "soak", "dryrun"):
         assert f"sequencealigning_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -230,6 +230,47 @@ def test_row_sweep_finals_match_lax_and_oracle(compat, wildcard):
                 s1, s2, scheme, compat), b
 
 
+# A scheme whose boundary gap chains pass NEG_INF within a few hundred bp.
+STEEP = ScoringScheme(match_=5, mismatch=-4, gap_open=-8, gap_extend=-100)
+
+
+def floor_pairs():
+    """A 400 bp query against a 30 bp db (the query's chain passes NEG_INF
+    at 328 bp), the transpose (the db's chain) and a pair of similar
+    lengths."""
+    rng = np.random.default_rng(0)
+    return [(_seq(rng, 400), _seq(rng, 30)), (_seq(rng, 30), _seq(rng, 400)),
+            (_seq(rng, 350), _seq(rng, 300))]
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_tiled_fills_floor_the_boundary_h_unlike_jax(compat):
+    """Where a boundary gap chain passes NEG_INF, H of the x = 0 column is
+    the maximum of its planes, NEG_INF, as in the scalar oracle and every
+    other fill: the plain tiled, folded and seqpar shard fills equal the
+    oracle, where the JAX tiled fill's raw chain scores below it."""
+    from sequencealigning_tpu_torch.parallel.seqpar import seqpar_fill
+
+    pairs = floor_pairs()
+    batch = pack_batch(pairs)
+    tb = to_device(batch, "cpu")
+    want = np.array([_oracle(s1, s2, STEEP, compat) for s1, s2 in pairs])
+    for got in (
+            port.tiled_fill_torch(*tb, STEEP, compat, False, tile_lanes=128),
+            port.tiled_fold_fill_torch(*tb, STEEP, compat, False,
+                                       tile_lanes=128),
+            seqpar_fill(batch.query, batch.db, batch.query_len, batch.db_len,
+                        mesh=["cpu"] * 2, tile_lanes=128, scheme=STEEP,
+                        compat=compat)):
+        np.testing.assert_array_equal(np.asarray(got), want)
+    jax_got = np.asarray(jax_tiled.nw_affine_tiled_batch(
+        batch.query, batch.db, batch.query_len, batch.db_len,
+        scheme=_jax_scheme(STEEP), compat=compat, tile_lanes=128,
+        backend="lax"))
+    assert (jax_got[0] < want[0]).all()
+    np.testing.assert_array_equal(jax_got[1:], want[1:])
+
+
 def test_tiled_wrappers_refuse_cpu_tensors_and_bad_widths():
     tb = to_device(pack_batch(_pairs(3, [(20, 30), (10, 12)])), "cpu")
     for fn in (port.tiled_fill_cuda, port.tiled_fold_fill_cuda):
