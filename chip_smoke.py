@@ -216,7 +216,17 @@ in the phases below and exits non-zero at the first failure:
    checks, mismatches (none allowed), each kernel's launches (every one
    launched) and seconds; then the dry run (sequencealigning_tpu_torch.
    dryrun, the port of __graft_entry__.dryrun_multichip) over make_mesh()
-   and over DRYRUN_SHARDS shards of cuda:0.
+   and over DRYRUN_SHARDS shards of cuda:0;
+28. the JAX package's API on the card (runs after 27): the top-level names
+   (JAX_API) from ``import sequencealigning_tpu_torch``;
+   fast4_stream_walk_device on a CUDA fill of N_API_WALK pairs of ~LEN_MAIN
+   bp (1% substitutions, API_INDELS indels of 1-50 bp a pair) through the
+   fast4 walk kernel, its op strings equal to the host
+   walker's (traceback_stream_batch, dirs_mode "fast4"); traceback_batch
+   first-only over kernel #7's full dirs of N_API_DIRS pairs from the card,
+   the native walker equal to the Python one (SEQALIGN_NO_NATIVE), every
+   alignment rescoring to its final; banded_diag_fast4_traceback_batch over
+   N_API_BANDED of config 4's pairs equal to banded_diag_device_tbs.
 
 Every phase prints its wall seconds; the summary is on a line before the
 card's, and in chip_smoke.json's phase_s.
@@ -368,6 +378,17 @@ WFA_COMPAT_STEPS = 1000
 # DRYRUN_SHARDS shards of cuda:0.
 SOAK_ROUNDS, SOAK_SEED, SOAK_LEN, SOAK_LONG_LEN = 8, 27, 600, 12_000
 DRYRUN_SHARDS = 4
+# Phase 28: the JAX package's top-level names, and its walkers on the card's
+# fills: fast4_stream_walk_device over N_API_WALK pairs of ~LEN_MAIN bp and
+# traceback_batch over kernel #7's full dirs of N_API_DIRS pairs (both at 1%
+# substitutions and API_INDELS indels of 1-50 bp a pair, so that the paths
+# hold gaps), and the banded batch walker over the first N_API_BANDED of
+# config 4's pairs.
+JAX_API = ("AlignConfig", "Algo", "Mode", "ScoringScheme", "WfaPenalties",
+           "WfaPruning", "AlignerError", "AlignmentError", "CharError",
+           "FastaError", "PairBatch", "Record", "Records", "pack_arrays",
+           "pack_batch", "parse_fasta")
+N_API_WALK, N_API_DIRS, N_API_BANDED, API_INDELS = 64, 31, 64, 3
 # The card's peaks (NVIDIA H100 SXM data sheet): HBM bytes/s, and INT32
 # operations/s = the 67 TFLOP/s fp32 rate / 4 (64 INT32 lanes a SM against
 # 128 fp32 lanes, no fused multiply-add doubling).
@@ -5204,6 +5225,138 @@ def phase_soak(torch, port, by_path):
             "dryrun": dry}
 
 
+def _tb_view(results):
+    """Host or device walk results as comparable data: (score, alignments)
+    a pair, or its error's class and message."""
+    return [(type(r).__name__, str(r)) if isinstance(r, Exception)
+            else (int(r[0]), list(r[1])) for r in results]
+
+
+def phase_api(torch, port):
+    """Phase 28: the JAX package's top-level names from the port, then its
+    walkers on the card's fills: fast4_stream_walk_device (the walk
+    kernel) against the host walker, traceback_batch first-only native
+    against Python over kernel #7's full dirs, and the banded batch walker
+    against the banded device walk."""
+    import sequencealigning_tpu_torch as sa
+    from sequencealigning_tpu_torch.config import ScoringScheme
+    from sequencealigning_tpu_torch.device import to_device
+    from sequencealigning_tpu_torch.io.encode import (
+        pack_batch,
+        trim_for_stream,
+    )
+    from sequencealigning_tpu_torch.ops.traceback import (
+        _apply_ops,
+        banded_diag_fast4_traceback_batch,
+        traceback_batch,
+        traceback_stream_batch,
+    )
+
+    t_phase = time.perf_counter()
+    missing = [n for n in JAX_API if not hasattr(sa, n)]
+    check(not missing and set(JAX_API) <= set(sa.__all__),
+          f"sequencealigning_tpu_torch lacks {missing}")
+    walk = port["walk"]
+
+    pairs = wfa_pairs(np.random.default_rng(28), N_API_WALK, LEN_MAIN, 0.01,
+                      API_INDELS)
+    s1s, s2s = [a for a, _ in pairs], [b for _, b in pairs]
+    tb = to_device(trim_for_stream(pack_batch(pairs, batch_size=N_API_WALK)),
+                   "cuda")
+    res = port["fill"].nw_affine_stream_batch(*tb, with_dirs="fast4")
+    n1s = np.asarray([len(a) for a in s1s], np.int32)
+    n2s = np.asarray([len(b) for b in s2s], np.int32)
+    before = walk.walk_fast4_cuda.launches
+    t0 = time.perf_counter()
+    ops, scores = walk.fast4_stream_walk_device(res.dirs, res.finals, n1s,
+                                                n2s, res.plan)
+    walk_s = time.perf_counter() - t0
+    launched = walk.walk_fast4_cuda.launches - before
+    check(launched >= 1, "fast4_stream_walk_device did not launch the fast4 "
+          "walk kernel on CUDA dirs")
+    host = traceback_stream_batch(res.dirs.cpu().numpy(), res.finals, s1s,
+                                  s2s, res.plan, dirs_mode="fast4")
+    bad = [b for b in range(N_API_WALK) if ops[b] is None
+           or isinstance(host[b], Exception)
+           or [_apply_ops(ops[b], s1s[b], s2s[b])] != host[b][1]
+           or int(scores[b]) != host[b][0]]
+    check(not bad, f"fast4_stream_walk_device != the host walker on pairs "
+          f"{bad[:8]}")
+    gaps = sum(o.count("I") + o.count("D") for o in ops)
+    check(gaps > 0, "phase 28's walks hold no gap")
+    log(f"[28 api] the {len(JAX_API)} top-level names of the JAX package "
+        f"import from sequencealigning_tpu_torch; fast4_stream_walk_device "
+        f"on {N_API_WALK} x ~{LEN_MAIN} bp ({gaps} gap columns): "
+        f"{launched} launch of the fast4 "
+        f"walk kernel, {walk_s * 1e3:.1f} ms with the fetch and decode, "
+        "op strings and scores equal to traceback_stream_batch's (fast4)")
+    del res, tb
+
+    dpairs = wfa_pairs(np.random.default_rng(29), N_API_DIRS, LEN_MAIN, 0.01,
+                       API_INDELS)
+    s1s, s2s = [a for a, _ in dpairs], [b for _, b in dpairs]
+    tb = to_device(pack_batch(dpairs, batch_size=N_API_DIRS), "cuda")
+    nw = port["nw"]
+    before = nw.gotoh_fill_cuda.launches
+    r7 = nw.nw_affine_batch(*tb, with_dirs=True)
+    check(nw.gotoh_fill_cuda.launches > before,
+          "nw_affine_batch did not launch kernel #7")
+    dirs7, fin7 = r7.dirs.cpu().numpy(), np.asarray(r7.finals)
+    del r7, tb
+    saved = os.environ.pop("SEQALIGN_NO_NATIVE", None)
+    try:
+        t0 = time.perf_counter()
+        nat = traceback_batch(dirs7, fin7, s1s, s2s, first_only=True)
+        nat_s = time.perf_counter() - t0
+        os.environ["SEQALIGN_NO_NATIVE"] = "1"
+        t0 = time.perf_counter()
+        py = traceback_batch(dirs7, fin7, s1s, s2s, first_only=True)
+        py_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("SEQALIGN_NO_NATIVE", None)
+        if saved is not None:
+            os.environ["SEQALIGN_NO_NATIVE"] = saved
+    check(_tb_view(nat) == _tb_view(py), "traceback_batch first-only: the "
+          "native walker != the Python walker on kernel #7's dirs")
+    scheme = ScoringScheme()
+    for b, r in enumerate(nat):
+        check(not isinstance(r, Exception), f"traceback_batch pair {b}: {r}")
+        a1, a2 = r[1][0]
+        check(a1.replace("-", "").encode() == s1s[b]
+              and a2.replace("-", "").encode() == s2s[b]
+              and affine_score(a1, a2, scheme, False, compat=True)
+              == int(fin7[b].max()),
+              f"traceback_batch pair {b}: the alignment does not consume "
+              "its sequences or rescore to its final")
+    log(f"[28 api] traceback_batch first-only over kernel #7's full dirs "
+        f"({N_API_DIRS} x ~{LEN_MAIN} bp, indels): native {nat_s:.3f} s, Python "
+        f"{py_s:.3f} s, equal; every alignment rescores to its final")
+    del dirs7
+
+    bpairs = make_pairs(np.random.default_rng(4), N_API_BANDED, LEN_BAND)
+    s1s, s2s = [a for a, _ in bpairs], [b for _, b in bpairs]
+    tb = to_device(pack_batch(bpairs, batch_size=N_API_BANDED), "cuda")
+    rb = port["banded"].nw_banded_diag_batch(*tb, band=BAND, wildcard=True,
+                                             with_dirs="fast4")
+    dev = walk.banded_diag_device_tbs(rb.dirs, rb.finals, s1s, s2s,
+                                      rb.k_lo_even)
+    t0 = time.perf_counter()
+    hb = banded_diag_fast4_traceback_batch(rb.dirs.cpu().numpy(), rb.finals,
+                                           s1s, s2s, rb.k_lo_even)
+    hb_s = time.perf_counter() - t0
+    check(_tb_view(hb) == _tb_view(dev), "banded_diag_fast4_traceback_batch "
+          "!= banded_diag_device_tbs on config 4's pairs")
+    check(not any(isinstance(r, Exception) for r in hb),
+          "banded_diag_fast4_traceback_batch failed a pair of config 4")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[28 api] banded_diag_fast4_traceback_batch over {N_API_BANDED} x "
+        f"{LEN_BAND} bp (band {BAND}): {hb_s:.3f} s, equal to "
+        f"banded_diag_device_tbs; phase {phase_s:.1f} s")
+    return {"api_walk_s": walk_s, "api_walk_launches": launched,
+            "api_traceback_native_s": nat_s, "api_traceback_python_s": py_s,
+            "api_banded_batch_s": hb_s, "api_phase_s": phase_s}
+
+
 def instance_of(instances, state, launch, mode, dirs, compat):
     """The build log's row of the streamed-fill instance a launch ran
     (wildcard off), or None."""
@@ -5373,6 +5526,9 @@ def run(args):
     torch.cuda.empty_cache()
     with timed(phase_s, "27 soak"):
         meas.update(phase_soak(torch, port, by_path))
+    torch.cuda.empty_cache()
+    with timed(phase_s, "28 api"):
+        meas.update(phase_api(torch, port))
     total = time.perf_counter() - t_start
     log("phase seconds: " + json.dumps(
         {k: round(v, 1) for k, v in phase_s.items()}) + f"; total {total:.1f}")

@@ -10,7 +10,9 @@ Global mode only; the other modes answer with the reference's per-pair
   device walk (ops.traceback_device.banded_diag_device_tbs) and the native
   decode -- on CUDA a pair whose walk fails validation is that pair's
   AlignmentError, on the CPU it is re-walked on the host -- or the host
-  fast4 walker over the fetched dirs;
+  fast4 batch walker over the fetched dirs
+  (ops.traceback.banded_diag_fast4_traceback_batch: the native walker, the
+  Python one for a pair it fails);
 * default: the full 7-bit codes, fetched to the host and walked by
   ops.traceback.banded_diag_traceback_pair (the first co-optimal
   alignment, in the reference's enumeration order).
@@ -32,7 +34,7 @@ from sequencealigning_tpu_torch.io.encode import pack_batch
 from sequencealigning_tpu_torch.models.base import Aligner
 from sequencealigning_tpu_torch.ops.nw_banded_diag import nw_banded_diag_batch
 from sequencealigning_tpu_torch.ops.traceback import (
-    banded_diag_fast4_traceback_pair,
+    banded_diag_fast4_traceback_batch,
     banded_diag_traceback_pair,
 )
 from sequencealigning_tpu_torch.ops.traceback_device import (
@@ -66,21 +68,20 @@ class BandedAligner(Aligner):
                 res.dirs, res.finals, s1s, s2s, res.k_lo_even,
                 compat=self.config.compat,
             )
+        elif first_only:
+            tbs = banded_diag_fast4_traceback_batch(
+                res.dirs.cpu().numpy(), res.finals, s1s, s2s, res.k_lo_even,
+                compat=self.config.compat,
+            )
         else:
             dirs = res.dirs.cpu().numpy()
             tbs = []
             for b, (s1, s2) in enumerate(pairs):
                 try:
-                    if first_only:
-                        tbs.append(banded_diag_fast4_traceback_pair(
-                            dirs[:, b, :], res.finals[b], s1, s2,
-                            res.k_lo_even, compat=self.config.compat))
-                    else:
-                        tbs.append(banded_diag_traceback_pair(
-                            dirs[:, b, :], res.finals[b], s1, s2,
-                            res.k_lo_even, compat=self.config.compat,
-                            max_alignments=1,
-                        ))
+                    tbs.append(banded_diag_traceback_pair(
+                        dirs[:, b, :], res.finals[b], s1, s2, res.k_lo_even,
+                        compat=self.config.compat, max_alignments=1,
+                    ))
                 except AlignerError as e:
                     tbs.append(e)
         out = []

@@ -1,15 +1,18 @@
-"""The port's native (C) host runtime: FASTA scan, the threaded fast4
-first-path walker, the decoder of the device walks' packed op codes, the
-banded (row layout) fast4 walker, the weighted-A* search and the WFA
-engines (compat, the textbook offset-log walker, the exact textbook host
-engine); and, the port's own, the release / acquire stores and loads of the
-seqpar column relay's row counts (parallel/relay.py).
+"""The port's native (C) host runtime: FASTA scan, the co-optimal first-path
+walker of the full 7-bit dirs, the threaded fast4 first-path walker, the
+decoder of the device walks' packed op codes, the banded fast4 walkers
+(row and wavefront layouts), the weighted-A* search and the WFA engines
+(compat, the textbook offset-log walker, the exact textbook host engine);
+and, the port's own, the release / acquire stores and loads of the seqpar
+column relay's row counts (parallel/relay.py).
 
-The port's copy of sequencealigning_tpu/native (the entry points the port
-calls).  ``seqalign_native.c`` is compiled with the host C compiler on first
-use into ``build/sequencealigning_tpu_torch/`` at the repository root,
-rebuilt when the source is newer, and loaded with ctypes.  A missing
-compiler or a failed build raises; there is no Python fallback.
+The port's copy of sequencealigning_tpu/native, under the same names.
+``seqalign_native.c`` is compiled with the host C compiler on first use
+into ``build/sequencealigning_tpu_torch/`` at the repository root, rebuilt
+when the source is newer, and loaded with ctypes.  A missing compiler or a
+failed build raises from ``get_lib`` (``available()`` says whether it
+builds); the wrappers have no Python fallback of their own, the walkers
+of ops.traceback keep theirs.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
 import sys
 from typing import List, Optional, Tuple
 
@@ -82,6 +86,18 @@ def get_lib() -> ctypes.CDLL:
         ctypes.c_long, ctypes.c_long, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_char_p, ctypes.c_long,
     ]
+    lib.banded_diag_fast4_first_path.restype = ctypes.c_long
+    lib.banded_diag_fast4_first_path.argtypes = [
+        _U32P, ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_long,
+    ]
+    lib.gotoh_first_path.restype = ctypes.c_long
+    lib.gotoh_first_path.argtypes = [
+        _U32P, ctypes.c_long, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_char_p, ctypes.c_long,
+    ]
     lib.astar_align_native.restype = ctypes.c_long
     lib.astar_align_native.argtypes = [
         _U8P, ctypes.c_long, _U8P, ctypes.c_long,
@@ -129,6 +145,15 @@ def get_lib() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the native library builds and loads here."""
+    try:
+        get_lib()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def fasta_scan_native(contents: bytes):
     """Native FASTA scan.  Returns (records, err_chars), records a list of
     (seq_bytes, name_bytes) with the throwaway record dropped, or None if
@@ -157,6 +182,36 @@ def fasta_scan_native(contents: bytes):
         for i in range(1, n_rec)  # drop the throwaway record 0
     ]
     return records, [chr(c) for c in err_buf[: n_err.value]]
+
+
+def gotoh_first_path_native(
+    dirs_b: np.ndarray,
+    finals_b: np.ndarray,
+    n1: int,
+    n2: int,
+    compat: bool = True,
+    d_offset: int = 0,
+) -> Optional[str]:
+    """Native walk of the first co-optimal path over one pair's (D4, P)
+    full 7-bit dirs (ops.traceback.traceback_pair's LIFO order).  Returns
+    the op string ('M'/'I'/'D' a column, start to end), None where the
+    walker failed, or raises AlignmentError where the reference would panic
+    on a boundary chain."""
+    lib = get_lib()
+    dirs_b = np.ascontiguousarray(dirs_b, dtype=np.uint32)
+    d4, p = dirs_b.shape
+    cap = n1 + n2 + 2
+    out = ctypes.create_string_buffer(cap)
+    r = lib.gotoh_first_path(
+        dirs_b.ctypes.data_as(_U32P), d4, p, d_offset, n1, n2,
+        1 if compat else 0,
+        int(finals_b[0]), int(finals_b[1]), int(finals_b[2]), out, cap,
+    )
+    if r == -1:
+        raise AlignmentError("reference would panic: boundary-chain traceback")
+    if r < 0:
+        return None
+    return out.raw[:r].decode("ascii")
 
 
 def fast4_first_path_batch_native(
@@ -258,6 +313,31 @@ def banded_fast4_first_path_native(
     n = lib.banded_fast4_first_path(
         dirs.ctypes.data_as(_U32P), b_dim, k_dim, b, k_lo, n1, n2,
         int(finals_b[0]), int(finals_b[1]), int(finals_b[2]), out, cap,
+    )
+    if n < 0:
+        return None
+    return out.raw[:n].decode("ascii")
+
+
+def banded_diag_fast4_first_path_native(
+    dirs: np.ndarray,
+    b: int,
+    k_lo_even: int,
+    n1: int,
+    n2: int,
+    finals_b,
+) -> Optional[str]:
+    """Native first-path walk of pair b over an (Aw, B, L) wavefront-packed
+    fast4 dirs tensor (ops.nw_banded_diag's layout).  Returns the forward
+    op string ('M'/'I'/'D'), or None if the walker failed."""
+    lib = get_lib()
+    dirs = np.ascontiguousarray(dirs, dtype=np.uint32)
+    w_dim, b_dim, k_dim = dirs.shape
+    cap = n1 + n2 + 8
+    out = ctypes.create_string_buffer(cap)
+    n = lib.banded_diag_fast4_first_path(
+        dirs.ctypes.data_as(_U32P), w_dim, b_dim, k_dim, b, k_lo_even, n1,
+        n2, int(finals_b[0]), int(finals_b[1]), int(finals_b[2]), out, cap,
     )
     if n < 0:
         return None

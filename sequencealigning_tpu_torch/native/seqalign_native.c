@@ -1,11 +1,12 @@
-/* Native host runtime of the PyTorch port: FASTA byte-scan, the threaded
- * fast4 first-path walker, the decoder of the device walks' packed op
- * codes, the banded (row layout) fast4 walker, the weighted-A* search and
+/* Native host runtime of the PyTorch port: FASTA byte-scan, the co-optimal
+ * first-path walker of the full 7-bit dirs, the threaded fast4 first-path
+ * walker, the decoder of the device walks' packed op codes, the banded
+ * fast4 walkers (row and wavefront layouts), the weighted-A* search and
  * the WFA engines (compat fill and walk, the textbook offset-log walker,
- * the exact textbook host engine).  The port's copy of the entry points it
- * calls from
- * sequencealigning_tpu/native/seqalign_native.c (same code, same results),
- * and the seqpar column relay's ordered count stores and loads (its own).
+ * the exact textbook host engine).  The port's copy of every entry point
+ * of sequencealigning_tpu/native/seqalign_native.c (same code, same
+ * results), and the seqpar column relay's ordered count stores and loads
+ * (its own).
  *
  * Built on first use by sequencealigning_tpu_torch.native into
  * build/sequencealigning_tpu_torch/ (cc -O3 -shared -fPIC -pthread) and
@@ -89,6 +90,111 @@ long fasta_scan(const uint8_t *data, long n,
 #define PLANE_M 0
 #define PLANE_I 1
 #define PLANE_D 2
+
+/* Direction-bit layout (must match sequencealigning_tpu_torch.ops.dirbits). */
+#define HM 1
+#define HI 2
+#define HD 4
+#define IEXT 8
+#define IOPEN 16
+#define DEXT 32
+#define DOPEN 64
+
+static inline int byte_at(const uint32_t *dirs, long p, long d, long x) {
+    return (int)((dirs[(d >> 2) * p + x] >> (8 * (d & 3))) & 0xFF);
+}
+
+/* First co-optimal global alignment from packed anti-diagonal dirs,
+ * replicating the Python walker's LIFO order exactly (which replicates the
+ * reference's, needleman_wunsch_affine.rs:242-334).
+ *
+ * out: per-column ops, 'M'/'I'/'D', written FORWARD (start of alignment
+ * first).  Returns the number of columns, -1 if the walk hits a
+ * reference-panic boundary, -2 if out_cap is too small, -3 internal.
+ */
+long gotoh_first_path(const uint32_t *dirs, long d4, long p, long d_off,
+                      long n1, long n2, int compat,
+                      int sm, int si, int sd,
+                      char *out, long out_cap) {
+    long max_depth = n1 + n2 + 2;
+    if (out_cap < max_depth) return -2;
+    /* Explicit DFS stack; each cell pushes <= 3 parents. */
+    long cap = 3 * max_depth + 8;
+    typedef struct { int plane; long x, y; long depth; char op; } Ent;
+    Ent *stack = (Ent *)malloc(sizeof(Ent) * cap);
+    if (!stack) return -3;
+    long top = 0;
+
+    int score = sm > si ? (sm > sd ? sm : sd) : (si > sd ? si : sd);
+    /* Seed push order I, M, D (so D pops first). */
+    if (si == score) stack[top++] = (Ent){PLANE_I, n2, n1, 0, 0};
+    if (sm == score) stack[top++] = (Ent){PLANE_M, n2, n1, 0, 0};
+    if (sd == score) stack[top++] = (Ent){PLANE_D, n2, n1, 0, 0};
+
+    char *ops_rev = (char *)malloc(max_depth);
+    if (!ops_rev) { free(stack); return -3; }
+    long result = -3;
+
+    while (top > 0) {
+        Ent e = stack[--top];
+        if (e.depth > 0) ops_rev[e.depth - 1] = e.op;
+        if (e.x == 0 && e.y == 0) {
+            /* Emit: ops_rev holds columns back-to-front. */
+            for (long i = 0; i < e.depth; i++)
+                out[i] = ops_rev[e.depth - 1 - i];
+            result = e.depth;
+            break;
+        }
+        /* Parent set of (x, y, plane). */
+        int parents[3];
+        int n_par = 0;
+        if (e.x == 0 || e.y == 0) {
+            if (compat) {
+                if (e.x == 0 && e.y > 0 && e.plane == PLANE_D)
+                    parents[n_par++] = PLANE_D;
+                else if (e.y == 0 && e.x > 0 && e.plane == PLANE_I)
+                    parents[n_par++] = PLANE_I;
+            } else {
+                if (e.x == 0 && e.y > 0 && e.plane == PLANE_I)
+                    parents[n_par++] = PLANE_I;
+                else if (e.y == 0 && e.x > 0 && e.plane == PLANE_D)
+                    parents[n_par++] = PLANE_D;
+            }
+        } else if (e.plane == PLANE_M) {
+            int b = byte_at(dirs, p, e.x + e.y - 2 + d_off, e.x - 1);
+            if (b & HM) parents[n_par++] = PLANE_M;
+            if (b & HI) parents[n_par++] = PLANE_I;
+            if (b & HD) parents[n_par++] = PLANE_D;
+        } else if (e.plane == PLANE_I) {
+            int b = byte_at(dirs, p, e.x + e.y + d_off, e.x);
+            if (b & IEXT) parents[n_par++] = PLANE_I;
+            if (b & IOPEN) parents[n_par++] = PLANE_M;
+        } else {
+            int b = byte_at(dirs, p, e.x + e.y + d_off, e.x);
+            if (b & DEXT) parents[n_par++] = PLANE_D;
+            if (b & DOPEN) parents[n_par++] = PLANE_M;
+        }
+        for (int i = 0; i < n_par; i++) {
+            long nx, ny; char op;
+            if (e.plane == PLANE_M) {
+                if (e.x == 0 || e.y == 0) { result = -1; goto done; }
+                nx = e.x - 1; ny = e.y - 1; op = 'M';
+            } else if (e.plane == PLANE_D) {
+                if (e.x == 0) { result = -1; goto done; }
+                nx = e.x - 1; ny = e.y; op = 'D';
+            } else {
+                if (e.y == 0) { result = -1; goto done; }
+                nx = e.x; ny = e.y - 1; op = 'I';
+            }
+            if (top >= cap) { result = -3; goto done; }
+            stack[top++] = (Ent){parents[i], nx, ny, e.depth + 1, op};
+        }
+    }
+done:
+    free(ops_rev);
+    free(stack);
+    return result;
+}
 
 /* ------------------------------------------------- fast4 traceback ----
  * First-path walker for the 4-bit dirs layout (8 cells per u32 word;
@@ -320,21 +426,37 @@ void walk_decode_batch(const uint32_t *packed, long t16,
         if (running[k]) pthread_join(tids[k], NULL);
 }
 
-/* Banded fast4 walker for ops/nw_banded's row-packed layout: word
- * dirs[x/8, b, (y-x)-k_lo], shift 4*(x%8); k_dim = K lanes.  Must mirror
- * ops/traceback.py::_banded_fast4_walk exactly (the JAX package's walker
- * with its wavefront layout left out). */
+/* Banded fast4 walkers.  Two dirs layouts share ONE walk (same 4-bit code
+ * semantics; must mirror ops/traceback.py::_banded_fast4_walk exactly --
+ * tests fuzz C vs Python):
+ *   layout 0 (ops/nw_banded, row-packed):  word dirs[x/8, b, (y-x)-k_lo],
+ *     shift 4*(x%8); k_dim = K lanes.
+ *   layout 1 (ops/nw_banded_diag, wavefront-packed):  word
+ *     dirs[(x+y-1)/8, b, ((y-x)-k_lo_even)/2], shift 4*((x+y-1)%8);
+ *     k_dim = L lanes, k_lo = k_lo_even. */
 typedef struct {
     const uint32_t *dirs;
-    long b_dim, k_dim; /* tensor dims (batch, lanes) */
+    long w_dim, b_dim, k_dim; /* tensor dims (words, batch, lanes) */
     long b, k_lo;
+    int layout;
 } BF4Ctx;
 
 static inline int bf4_nibble(const BF4Ctx *c, long x, long y) {
-    long lane = (y - x) - c->k_lo;
-    if (lane < 0 || lane >= c->k_dim) return 0;
-    return (int)((c->dirs[((x >> 3) * c->b_dim + c->b) * c->k_dim + lane]
-                  >> (4 * (x & 7))) & 0xF);
+    long w, lane, slot;
+    if (c->layout == 0) {
+        lane = (y - x) - c->k_lo;
+        w = x >> 3;
+        slot = x & 7;
+    } else {
+        lane = ((y - x) - c->k_lo) >> 1;
+        long aidx = x + y - 1;
+        if (aidx < 0) return 0;
+        w = aidx >> 3;
+        slot = aidx & 7;
+    }
+    if (lane < 0 || lane >= c->k_dim || w >= c->w_dim) return 0;
+    return (int)((c->dirs[(w * c->b_dim + c->b) * c->k_dim + lane]
+                  >> (4 * slot)) & 0xF);
 }
 
 static long bf4_walk(const BF4Ctx *ctx, long n1, long n2,
@@ -376,8 +498,17 @@ long banded_fast4_first_path(const uint32_t *dirs, long b_dim, long k_dim,
                              long b, long k_lo, long n1, long n2,
                              int sm, int si, int sd,
                              char *out, long cap) {
-    /* callers guarantee x/8 < the word dim; no bound needed */
-    BF4Ctx ctx = {dirs, b_dim, k_dim, b, k_lo};
+    /* layout 0 callers guarantee x/8 < the word dim; no bound needed */
+    BF4Ctx ctx = {dirs, LONG_MAX, b_dim, k_dim, b, k_lo, 0};
+    return bf4_walk(&ctx, n1, n2, sm, si, sd, out, cap);
+}
+
+long banded_diag_fast4_first_path(const uint32_t *dirs, long w_dim,
+                                  long b_dim, long k_dim,
+                                  long b, long k_lo_even, long n1, long n2,
+                                  int sm, int si, int sd,
+                                  char *out, long cap) {
+    BF4Ctx ctx = {dirs, w_dim, b_dim, k_dim, b, k_lo_even, 1};
     return bf4_walk(&ctx, n1, n2, sm, si, sd, out, cap);
 }
 

@@ -21,3 +21,21 @@ DOPEN = 64
 # Local (Smith-Waterman-affine) mode only: M(x,y) restarted from 0 here --
 # the traceback stop condition.
 LSTART = 128
+
+
+def pack_bytes_to_words(bytes_, d_total: int):
+    """Pack a (D, B, P) uint8 per-diagonal byte stack into (ceil(D/4), B, P)
+    uint32 words, little-endian in d -- the layout every fill emits and
+    ops.traceback._byte reads.  Takes a tensor (or an array), returns a
+    tensor on its device."""
+    import torch
+
+    bytes_ = torch.as_tensor(bytes_)
+    d4 = -(-d_total // 4)
+    pad = d4 * 4 - d_total
+    bytes_ = torch.nn.functional.pad(bytes_, (0, 0, 0, 0, 0, pad))
+    w = bytes_.reshape(d4, 4, bytes_.shape[1], bytes_.shape[2]).to(
+        torch.int64)
+    words = w[:, 0] | (w[:, 1] << 8) | (w[:, 2] << 16) | (w[:, 3] << 24)
+    words = words - ((words >> 31) & 1) * (1 << 32)
+    return words.to(torch.int32).view(torch.uint32)

@@ -607,6 +607,7 @@ def nw_affine_stream_batch(
     compat: bool = True,
     wildcard: bool = False,
     with_dirs=True,
+    *,
     np_slots: Optional[int] = None,
     chunk: int = 128,
     state_dtype="i32",

@@ -207,6 +207,7 @@ def nw_affine_stream_modes_batch(
     scheme: ScoringScheme = ScoringScheme(),
     wildcard: bool = False,
     with_dirs: bool = True,
+    *,
     np_slots: Optional[int] = None,
     chunk: int = 128,
     state_dtype="i32",

@@ -1161,6 +1161,7 @@ def nw_affine_tiled_single(
     compat: bool = True,
     wildcard: bool = False,
     tile_lanes: int = 8192,
+    *,
     device="cuda",
 ) -> np.ndarray:
     """Exact Gotoh corner finals (3,) for one pair of any length on

@@ -538,6 +538,7 @@ def nw_banded_diag_batch(
     compat: bool = True,
     wildcard: bool = False,
     with_dirs=False,
+    *,
     model: str = "ref",
 ) -> BandedDiagResult:
     """Anti-diagonal banded Gotoh fill of a padded batch held as tensors

@@ -1,10 +1,12 @@
-"""Host-side traceback from packed direction words (the port's copy of the
-walkers of sequencealigning_tpu/ops/traceback.py that it calls).
+"""Host-side traceback from packed direction words (the port's copy of
+sequencealigning_tpu/ops/traceback.py).
 
 The TPU kernel emits one byte of direction bits per DP cell (ops.dirbits);
 traceback is O(n+m) pointer-chasing per alignment -- inherently sequential
 and data-dependent, so it runs on the host (SURVEY.md §7 "hard parts"),
-reading the packed words the fill streamed to HBM.
+reading the packed words the fill streamed to HBM.  The first-only batch
+walkers use the native C walkers (native.*_first_path_native) unless the
+environment sets SEQALIGN_NO_NATIVE, as the JAX package's do.
 
 The walk replicates the reference's LIFO co-optimal enumeration
 (needleman_wunsch_affine.rs:242-334) exactly, like ops.oracle_gotoh's
@@ -13,6 +15,7 @@ score-recomputing walker -- the two walkers validate each other in tests.
 
 from __future__ import annotations
 
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -21,6 +24,12 @@ from sequencealigning_tpu_torch.errors import AlignmentError
 from sequencealigning_tpu_torch.ops import dirbits
 
 M, I, D = 0, 1, 2
+
+
+def _use_native() -> bool:
+    """The native walkers, unless SEQALIGN_NO_NATIVE is set (the JAX
+    package's switch to its Python walkers)."""
+    return not os.environ.get("SEQALIGN_NO_NATIVE")
 
 
 def _byte(dirs_b: np.ndarray, d: int, x: int) -> int:
@@ -295,6 +304,49 @@ def local_affine_traceback_pair(
     return a1, a2, sy, sx
 
 
+def traceback_batch(
+    dirs: np.ndarray,
+    finals: np.ndarray,
+    seqs1: List[bytes],
+    seqs2: List[bytes],
+    compat: bool = True,
+    max_alignments: int = 64,
+    first_only: bool = False,
+):
+    """Traceback for a whole per-pair (D4, B, P) batch.  Returns a list of
+    per-pair results: (score, alignments) or an AlignmentError instance
+    (per-pair failure isolation, as the reference CLI's pair loop,
+    src/main.rs:68-76).  first_only walks the first co-optimal path with
+    the native walker (native.gotoh_first_path_native), the Python walker
+    for a pair it fails."""
+    from sequencealigning_tpu_torch import native
+
+    dirs = np.asarray(dirs)
+    finals = np.asarray(finals)
+    use_native = first_only and _use_native()
+    results = []
+    for b, (s1, s2) in enumerate(zip(seqs1, seqs2)):
+        try:
+            if use_native:
+                ops = native.gotoh_first_path_native(
+                    dirs[:, b, :], finals[b], len(s1), len(s2), compat
+                )
+                if ops is not None:
+                    results.append(
+                        (int(finals[b].max()), [_apply_ops(ops, s1, s2)])
+                    )
+                    continue
+            results.append(
+                traceback_pair(
+                    dirs[:, b, :], finals[b], s1, s2, compat=compat,
+                    max_alignments=1 if first_only else max_alignments,
+                )
+            )
+        except AlignmentError as e:
+            results.append(e)
+    return results
+
+
 def _nibble(dirs_b: np.ndarray, d: int, x: int) -> int:
     return int(dirs_b[d >> 3, x] >> (4 * (d & 7))) & 0xF
 
@@ -470,17 +522,24 @@ def banded_diag_fast4_traceback_pair(
 
 
 def _banded_batch_walks(
-    dirs, finals, seqs1, seqs2, k_origin, compat, native_fn, pair_fn,
+    dirs, finals, seqs1, seqs2, k_origin, compat, native_name: str, pair_fn,
 ):
     """Shared scaffolding for the banded batch walkers: the native C walker
-    (native_fn), the Python pair walker for a pair it fails; per-pair
-    AlignmentError isolation."""
+    (looked up by name on the native module; none under
+    SEQALIGN_NO_NATIVE), the Python pair walker for a pair it fails;
+    per-pair AlignmentError isolation."""
+    from sequencealigning_tpu_torch import native
+
+    native_fn = getattr(native, native_name) if _use_native() else None
     out = []
     dirs = np.ascontiguousarray(dirs, np.uint32)
     for b, (s1, s2) in enumerate(zip(seqs1, seqs2)):
         try:
             score = int(finals[b].max())
-            ops = native_fn(dirs, b, k_origin, len(s1), len(s2), finals[b])
+            ops = None
+            if native_fn is not None:
+                ops = native_fn(dirs, b, k_origin, len(s1), len(s2),
+                                finals[b])
             if ops is not None:
                 out.append((score, [_apply_ops(ops, s1, s2)]))
             else:
@@ -507,11 +566,29 @@ def banded_fast4_traceback_batch(
     (row layout): the native walker (native.banded_fast4_first_path_native),
     the Python one for a pair it fails.  Returns (score, [(a1, a2)]) or
     AlignmentError per pair."""
-    from sequencealigning_tpu_torch import native
-
     return _banded_batch_walks(
         dirs, finals, seqs1, seqs2, k_lo, compat,
-        native.banded_fast4_first_path_native, banded_fast4_traceback_pair,
+        "banded_fast4_first_path_native", banded_fast4_traceback_pair,
+    )
+
+
+def banded_diag_fast4_traceback_batch(
+    dirs: np.ndarray,
+    finals: np.ndarray,
+    seqs1,
+    seqs2,
+    k_lo_even: int,
+    compat: bool = True,
+):
+    """Batch first-path walks over an (Aw, B, L) wavefront-packed fast4
+    dirs tensor (ops.nw_banded_diag's layout): the native walker
+    (native.banded_diag_fast4_first_path_native), the Python one for a
+    pair it fails.  Returns (score, [(a1, a2)]) or AlignmentError per
+    pair."""
+    return _banded_batch_walks(
+        dirs, finals, seqs1, seqs2, k_lo_even, compat,
+        "banded_diag_fast4_first_path_native",
+        banded_diag_fast4_traceback_pair,
     )
 
 
@@ -638,24 +715,24 @@ def traceback_stream_batch(
     plan,
     compat: bool = True,
     max_alignments: int = 64,
+    first_only: bool = False,
     dirs_mode: str = "full",
 ):
     """Traceback for streamed fills: pairs share dirs rows (pair b = slot
     b % np_slots of row b // np_slots, diagonal offset slot*s).  Per-pair
     failure isolation as the reference CLI's pair loop (src/main.rs:68-76):
     (score, alignments) or an AlignmentError per pair.  dirs_mode "full"
-    is the co-optimal enumeration of the 7-bit codes; "fast4" walks the
-    4-bit first-path layout with the threaded native walker.  As
+    is the co-optimal enumeration of the 7-bit codes (first_only: the first
+    path, by the native walker where it succeeds); "fast4" walks the 4-bit
+    first-path layout with the threaded native walker.  As
     sequencealigning_tpu/ops/traceback.py::traceback_stream_batch."""
+    from sequencealigning_tpu_torch import native
+
     dirs = np.asarray(dirs)
     finals = np.asarray(finals)
-    if dirs_mode == "fast4":
-        from sequencealigning_tpu_torch.native import (
-            fast4_first_path_batch_native,
-        )
-
-        coords = [plan.pair_coords(b) for b in range(len(seqs1))]
-        ops_list = fast4_first_path_batch_native(
+    coords = [plan.pair_coords(b) for b in range(len(seqs1))]
+    if dirs_mode == "fast4" and _use_native():
+        ops_list = native.fast4_first_path_batch_native(
             dirs, finals, np.asarray([c[0] for c in coords]),
             np.asarray([c[2] for c in coords]),
             np.asarray([len(s) for s in seqs1]),
@@ -666,16 +743,36 @@ def traceback_stream_batch(
             else (int(finals[b].max()), [_apply_ops(ops, seqs1[b], seqs2[b])])
             for b, ops in enumerate(ops_list)
         ]
-    if dirs_mode != "full":
+    if dirs_mode not in ("fast4", "full"):
         raise ValueError(f"unknown dirs mode {dirs_mode!r}")
+    use_native = first_only and _use_native()
+    rows = {}
     results = []
     for b, (s1, s2) in enumerate(zip(seqs1, seqs2)):
-        row, _slot, off = plan.pair_coords(b)
+        row, _slot, off = coords[b]
         try:
+            if dirs_mode == "fast4":
+                results.append(fast4_traceback_pair(
+                    dirs[:, row, :], finals[b], s1, s2, compat=compat,
+                    d_offset=off))
+                continue
+            if use_native:
+                if row not in rows:
+                    rows[row] = np.ascontiguousarray(dirs[:, row, :])
+                ops = native.gotoh_first_path_native(
+                    rows[row], finals[b], len(s1), len(s2), compat,
+                    d_offset=off,
+                )
+                if ops is not None:
+                    results.append(
+                        (int(finals[b].max()), [_apply_ops(ops, s1, s2)])
+                    )
+                    continue
             results.append(
                 traceback_pair(
                     dirs[:, row, :], finals[b], s1, s2, compat=compat,
-                    max_alignments=max_alignments, d_offset=off,
+                    max_alignments=1 if first_only else max_alignments,
+                    d_offset=off,
                 )
             )
         except AlignmentError as e:

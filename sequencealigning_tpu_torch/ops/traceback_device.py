@@ -4,10 +4,12 @@ textbook modes.
 The streamed fill's fast4 direction tensor (0.5 byte a cell) stays on the
 device; each pair walks from its corner to the origin reading one nibble a
 step, and only the 2-bit op codes (16 to a u32, walk order = end to start)
-come back to the host, where the native decoder turns them into aligned
-strings.  Walk semantics are those of ops/traceback.fast4_traceback_pair:
-seed plane M > I > D from the corner finals, x == 0 forces I, y == 0 forces
-D, and after an M move the plane is read from the next cell's code.
+come back to the host, where they become op strings
+(fast4_stream_walk_device) or, through the native decoder, aligned strings
+(fast4_stream_align_device).  Walk semantics are those of
+ops/traceback.fast4_traceback_pair: seed plane M > I > D from the corner
+finals, x == 0 forces I, y == 0 forces D, and after an M move the plane is
+read from the next cell's code.
 
 Two implementations of the walk, chosen by the direction tensor's device:
 
@@ -321,22 +323,12 @@ def decode_packed_alignments(
     return native.walk_decode_batch_native(packed, s1p, s2p, n1s, n2s)
 
 
-def fast4_stream_align_device(
-    dirs: torch.Tensor,
-    finals: np.ndarray,
-    seqs1: List[bytes],
-    seqs2: List[bytes],
-    plan,
-) -> Tuple[List[Optional[Tuple[str, str]]], np.ndarray]:
-    """Walk a streamed fill's fast4 dirs on their device and decode to
-    aligned string pairs.  Returns (alignments, (B,) scores); an alignment
-    is None where the walk failed validation (the caller re-walks that
-    pair on the host).  Only the used prefix of the packed op codes is
-    fetched."""
-    B = len(seqs1)
-    n1s = np.asarray([len(s) for s in seqs1], np.int32)
-    n2s = np.asarray([len(s) for s in seqs2], np.int32)
-    finals = np.asarray(finals)[:B]
+def _stream_walk_fetch(dirs, finals, n1s, n2s, plan):
+    """Walk a streamed fill's fast4 dirs on their device (walk_fast4: the
+    kernel on CUDA tensors, its plain version on CPU tensors) and fetch the
+    used prefix of the packed op codes.  Returns (packed (B, words) uint32,
+    (B,) ended-at-origin mask), both on the host."""
+    B = len(n1s)
     bs = np.arange(B)
     dev = dirs.device
 
@@ -350,11 +342,50 @@ def fast4_stream_align_device(
     )
     n_words = max(1, -(-int(n_ops.max()) // 16)) if B else 1
     packed = packed[:, :n_words].cpu().numpy()
-    xf, yf = xf.cpu().numpy(), yf.cpu().numpy()
+    return packed, (xf.cpu().numpy() == 0) & (yf.cpu().numpy() == 0)
+
+
+def fast4_stream_walk_device(
+    dirs: torch.Tensor,
+    finals: np.ndarray,
+    n1s: np.ndarray,
+    n2s: np.ndarray,
+    plan,
+) -> Tuple[List[Optional[str]], np.ndarray]:
+    """Walk a streamed fill's fast4 dirs ((t_total/8, n_rows, P) uint32,
+    pair b = slot b % np_slots of row b // np_slots, diagonal offset
+    slot*s) on their device.  Returns (op strings start to end, one a pair
+    -- None where the walk failed validation -- and the (B,) scores).  Only
+    the used prefix of the packed 2-bit op codes leaves the device."""
+    B = len(n1s)
+    n1s = np.asarray(n1s, np.int32)
+    n2s = np.asarray(n2s, np.int32)
+    finals = np.asarray(finals)[:B]
+    packed, ended = _stream_walk_fetch(dirs, finals, n1s, n2s, plan)
+    ops = decode_packed_ops(packed, n1s, n2s)
+    return ([o if ended[b] else None for b, o in enumerate(ops)],
+            finals.max(axis=1))
+
+
+def fast4_stream_align_device(
+    dirs: torch.Tensor,
+    finals: np.ndarray,
+    seqs1: List[bytes],
+    seqs2: List[bytes],
+    plan,
+) -> Tuple[List[Optional[Tuple[str, str]]], np.ndarray]:
+    """fast4_stream_walk_device, decoded straight to aligned string pairs
+    by the native decoder.  Returns (alignments, (B,) scores); an alignment
+    is None where the walk failed validation (the caller re-walks that
+    pair on the host)."""
+    B = len(seqs1)
+    n1s = np.asarray([len(s) for s in seqs1], np.int32)
+    n2s = np.asarray([len(s) for s in seqs2], np.int32)
+    finals = np.asarray(finals)[:B]
+    packed, ended = _stream_walk_fetch(dirs, finals, n1s, n2s, plan)
     alns = decode_packed_alignments(packed, seqs1, seqs2)
-    ended = (xf == 0) & (yf == 0)
-    alns = [a if ended[b] else None for b, a in enumerate(alns)]
-    return alns, finals.max(axis=1)
+    return ([a if ended[b] else None for b, a in enumerate(alns)],
+            finals.max(axis=1))
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +538,7 @@ def banded_diag_align_device(
     seqs1: List[bytes],
     seqs2: List[bytes],
     k_lo_even: int,
+    *,
     pair_idx: Optional[np.ndarray] = None,
     std: bool = False,
 ) -> Tuple[List[Optional[Tuple[str, str]]], np.ndarray]:

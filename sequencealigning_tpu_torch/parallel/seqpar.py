@@ -79,6 +79,7 @@ def seqpar_fill(
     query_len: np.ndarray,
     db_len: np.ndarray,
     mesh: Optional[Devices] = None,
+    *,
     tile_lanes: int = 4096,
     chunk: int = 128,
     scheme: ScoringScheme = ScoringScheme(),
@@ -149,6 +150,7 @@ def seqpar_align(
     seq1: bytes,
     seq2: bytes,
     mesh: Optional[Devices] = None,
+    *,
     tile_lanes: int = 4096,
     chunk: int = 128,
     scheme: ScoringScheme = ScoringScheme(),

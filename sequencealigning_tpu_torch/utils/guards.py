@@ -78,3 +78,16 @@ def check_finals(
             raise GuardError(
                 f"{label}[{b}]: sentinel underflow (plane below {floor})"
             )
+
+
+def check_offsets(offsets, n2v, label: str = "wfa offsets") -> None:
+    """WFA furthest-reaching offsets must stay within [0, n2] where
+    present (textbook engine invariant)."""
+    import numpy as np
+
+    o = np.asarray(offsets)
+    present = o > -(2 ** 19)
+    n2 = np.asarray(n2v).reshape(-1, 1)
+    bad = np.logical_and(present, np.logical_or(o < 0, o > n2))
+    if bad.any():
+        raise GuardError(f"{label}: offset outside [0, n2]")
